@@ -1,0 +1,39 @@
+"""Model factory: config -> model instance (counterpart of
+pcseg_tpu/models/factory.py). Only the voxel U-Net is ported so far."""
+
+from __future__ import annotations
+
+import torch
+
+from pcseg_tpu_torch.core.config import ModelConfig
+from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
+
+FAMILIES = ("pointnet_seg", "voxel_unet3d", "sparse_voxelnet")
+_NOT_PORTED = {
+    "pointnet_seg": "ROADMAP Queue B, slice 1 (PointNet training and its "
+                    "folded serving)",
+    "sparse_voxelnet": "ROADMAP Queue B, slice 4 (the sparse family)",
+}
+
+
+def build_model(cfg: ModelConfig, num_classes: int,
+                generator: torch.Generator | None = None):
+    if cfg.name == "voxel_unet3d":
+        return VoxelUNet3d(
+            num_classes=num_classes,
+            input_dim=cfg.input_dim,
+            grid_size=cfg.grid_size,
+            width=cfg.unet_width,
+            levels=cfg.levels or 3,
+            compute_dtype=cfg.compute_dtype,
+            conv_impl=cfg.impl if cfg.impl in ("fused", "xla") else "auto",
+            voxelize_impl=cfg.voxelize_impl,
+            devox_impl=cfg.devox_impl,
+            generator=generator,
+        )
+    if cfg.name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model family {cfg.name!r} is not ported to pcseg_tpu_torch "
+            f"yet: {_NOT_PORTED[cfg.name]}"
+        )
+    raise ValueError(f"unknown model family {cfg.name!r}; options: {FAMILIES}")

@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``pcseg_tpu_torch/csrc/`` have a plain C interface. At
+first use each one is compiled with ``nvcc`` for ``sm_90a`` into
+``build/pcseg_tpu_torch/`` at the root of the checkout and loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The library
+file name carries a hash of the source, so an edited kernel is never
+served from a stale build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pcseg_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry name -> argtypes; every pointer and the stream are c_void_p so
+# ctypes never truncates them to 32-bit ints
+SIGNATURES = {
+    "conv3d_block": {
+        "pcseg_conv3x3_gn_act": [_P] * 8 + [_I] * 7 + [_P],
+        "pcseg_down2x_gn_act": [_P] * 7 + [_I] * 6 + [_P],
+        "pcseg_up2x_gn_act": [_P] * 7 + [_I] * 6 + [_P],
+    },
+}
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "pcseg_tpu_torch are compiled at first use"
+    )
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source
+    exists; returns the shared library's path."""
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {src} (exit {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_library(name: str = "conv3d_block") -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library, with the argtypes
+    and int return type of every entry set."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            entry = getattr(lib, fn)
+            entry.argtypes = argtypes
+            entry.restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib
+
+
+def build_all() -> list[Path]:
+    """Compile every kernel source at once, one nvcc process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(SIGNATURES)) as pool:
+        return list(pool.map(build, SIGNATURES))

@@ -1,0 +1,124 @@
+"""Where the serving time goes, on one CUDA card.
+
+    python -m pcseg_tpu_torch.profile_serving [--out DIR]
+
+Builds the serving configuration of chip_smoke.py (voxel U-Net 64^3, w16,
+3 levels, bf16, fused conv kernels, scatter voxelize, gather devoxelize,
+seeded random weights) and reports, for a B8 x 8192 batch and for one
+1000-point event:
+
+- host-clock stage times (pad on the host, copy to the card, forward,
+  copy back), each ended by a synchronize;
+- device time by kernel from torch.profiler over one forward, and the
+  device's busy share of that forward's wall time.
+
+With ``--out`` the profiler table is also written to DIR/profile_*.txt.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from pcseg_tpu_torch.data.batching import pad_events
+from pcseg_tpu_torch.data.synthetic import synthetic_events
+from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
+
+
+def _stages(model, events, bucket, batch):
+    """Host-clock ms of each serving stage (median of 5)."""
+    rows = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pts, _, msk = pad_events(
+            [(e, np.zeros(e.shape[0], np.int64)) for e in events], bucket,
+            batch_size=batch)
+        t1 = time.perf_counter()
+        points = torch.from_numpy(pts).cuda()
+        mask = torch.from_numpy(msk).cuda()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = model(points, mask)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.cpu()
+        t4 = time.perf_counter()
+        rows.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3])
+    med = np.median(np.asarray(rows) * 1e3, axis=0)
+    return dict(zip(["pad_ms", "h2d_ms", "forward_ms", "d2h_ms"],
+                    med.tolist())), (points, mask)
+
+
+def _device_profile(model, points, mask):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model(points, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model(points, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: a CPU op's self device time repeats its kernels'
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kernels = [{"name": e.key[:90], "calls": e.count,
+                "device_ms": e.self_device_time_total / 1e3}
+               for e in events]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernels": kernels}, prof
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = VoxelUNet3d(
+        num_classes=4, grid_size=64, width=16, levels=3,
+        compute_dtype="bfloat16", conv_impl="fused", voxelize_impl="scatter",
+        devox_impl="gather", generator=torch.Generator().manual_seed(0),
+    ).cuda().eval()
+    batch = [p for p, _ in synthetic_events(8, min_points=4000,
+                                            max_points=8192, seed=0)]
+    single = [next(iter(synthetic_events(1, min_points=1000,
+                                         max_points=1000, seed=1)))[0]]
+    card = torch.cuda.get_device_name(0)
+    report = {"card": card}
+    for label, events, bucket, b in (("batch8x8192", batch, 8192, 8),
+                                     ("single1000", single, 1024, 1)):
+        stages, (points, mask) = _stages(model, events, bucket, b)
+        prof_res, prof = _device_profile(model, points, mask)
+        report[label] = {"stages": stages, **prof_res}
+        print(f"[{label}] {card}: stages {json.dumps(stages)}")
+        print(f"  one forward: wall {prof_res['wall_ms']:.3f} ms, device "
+              f"busy {prof_res['device_busy_ms']:.3f} ms, idle share "
+              f"{prof_res['idle_share']:.3f}")
+        for k in prof_res["kernels"][:15]:
+            print(f"  {k['device_ms']:9.4f} ms  x{k['calls']:<4d} {k['name']}")
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, f"profile_{label}.txt"),
+                      "w") as f:
+                f.write(prof.key_averages().table(
+                    sort_by="self_device_time_total", row_limit=60))
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,60 @@
+"""The port stands alone: importing it pulls in neither JAX nor the JAX
+package, and its entry points never fall back to the CPU on their own."""
+
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from pcseg_tpu_torch.core.device import resolve_device
+from pcseg_tpu_torch.core.config import ModelConfig
+from pcseg_tpu_torch.infer import Predictor
+from pcseg_tpu_torch.models.factory import build_model
+
+
+def test_port_imports_no_jax():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import pcseg_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            pcseg_tpu_torch.__path__, "pcseg_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                            "h5py", "pcseg_tpu"))
+        assert not bad, bad
+        assert "pcseg_tpu_torch.ops.conv3d_block" in names
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+    cfg = ModelConfig(grid_size=8, unet_width=8, levels=2)
+    model = build_model(cfg, 4, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError):
+        Predictor(model.state_dict(), 4, model=model)
+    p = Predictor(model.state_dict(), 4, model=model, device="cpu")
+    assert p.predict(np.zeros((10, 4), np.float32)).shape == (10,)
+
+
+def test_unported_families_raise():
+    for name in ("pointnet_seg", "sparse_voxelnet"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(ModelConfig(name=name), 4)
+    with pytest.raises(NotImplementedError, match="PointNetSeg"):
+        Predictor({}, 4, device="cpu")
