@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from pcseg_tpu_torch/csrc/ (nvcc, sm_90a).
-2. Holds each kernel against its plain PyTorch version at every shape the
-   serving path launches (batch 8, 64^3 grid, widths 16/32/64), and times
-   kernel, plain version and one cuDNN call of the same convolution
-   (a yardstick only: the port never calls it).
+1. Builds the CUDA kernels from pcseg_tpu_torch/csrc/ (nvcc, sm_90a, one
+   process per source, all at once).
+2. Holds each conv kernel against its plain PyTorch version at every
+   shape the voxel serving path launches (batch 8, 64^3 grid, widths
+   16/32/64), and times kernel, plain version and one cuDNN call of the
+   same convolution (a yardstick only: the port never calls it).
 3. Serves the voxel U-Net at full width (64^3, w16, 3 levels, 4 classes,
    bf16, scatter voxelize, gather devoxelize, seeded random weights)
    through Predictor.predict_batch (16 events, 4000-8192 points: two
@@ -15,7 +16,20 @@
    event, bucket 1024). Checks that every kernel launched 13 / 2 / 2 times
    per forward and that the logits are finite and match the same model
    run through the plain versions on the card.
-4. Prints the kernels as one JSON line, the card's name and power limit,
+4. Holds each PointNet training kernel (fused_block, the global pool
+   block, the classifier + CE, dropout), forward and backward, against
+   its plain version at every shape one train step at B64 x 2048 points
+   launches, and times kernel, plain version, bound and one bf16
+   torch.matmul of the same product (a yardstick only).
+5. One whole fused PointNetSeg train step (full width, 4 classes,
+   dropout 0.3, seeded random weights) with the kernels and with the
+   plain versions, from the same state and seeds: loss, gradients and
+   new batch_stats.
+6. Trains PointNetSeg through api.fit on synthetic events (bucket 2048,
+   batch 64, 4 train steps and one eval batch per epoch, 2 epochs), with
+   bn_stats="fused" and "exact": launch counts per step, finite losses,
+   ms per step, points/s, peak memory.
+7. Prints the kernels as one JSON line, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
@@ -50,6 +64,59 @@ STATS_TOL = 1e-3
 # held to a few bf16 ulps of their own scale, |d| <= 4 * 2^-8 * max|ref|,
 # and the argmax may change only at near-ties (>= 99.9% agreement).
 LOGITS_REL, ARGMAX_AGREE = 4 * 2.0 ** -8, 0.999
+
+# PointNetSeg training: pcseg_tpu/bench.py's step, B64 x 2048 points,
+# 4 classes, dropout 0.3, bf16
+PN_SOURCE = "pcseg_tpu_torch/csrc/pointnet_fused.cu"
+PN_REPLACES = {
+    "fused_block": "pcseg_tpu/ops/pallas/fused_block.py:239",
+    "fused_global_pool_block": "pcseg_tpu/ops/pallas/fused_global.py:176",
+    "fused_seg4_ce": "pcseg_tpu/ops/pallas/fused_ce.py:264",
+    "dropout": "pcseg_tpu/ops/pallas/dropout.py:52",
+}
+PN_B, PN_M, PN_CLASSES, PN_DROP = 64, 2048, 4, 0.3
+# (layer, cin, cout, normalize + relu prologue, dropout, row bias) of every
+# fused_block launch of one step; conv2 and conv3 share a shape
+PN_BLOCKS = [
+    ("conv1", 4, 64, False, 0.0, False),
+    ("conv2/conv3", 64, 64, True, 0.0, False),
+    ("conv4", 64, 128, True, 0.0, False),
+    ("conv5", 128, 1024, True, 0.0, False),
+    ("seg1", 64, 512, True, 0.0, True),
+    ("seg2", 512, 256, True, PN_DROP, False),
+    ("seg3", 256, 128, True, PN_DROP, False),
+]
+# wrapper launches per train step on the main path (api.fit)
+PN_FUSED_PER_STEP = {
+    "fused_block": 8, "fused_block_bwd": 8,
+    "fused_global_pool_block": 1, "fused_global_pool_block_bwd": 1,
+    "fused_seg4_ce": 1, "fused_seg4_ce_bwd": 1, "dropout": 0,
+}
+PN_EXACT_PER_STEP = dict({k: 0 for k in PN_FUSED_PER_STEP}, dropout=4)
+# f32 outputs that are sums over the N = 131,072 rows (stats, dW, db, the
+# gamma/beta-like sums, num/den) take the same terms in another order and
+# with atomics: |d| <= 1e-3 of the largest |ref| of the tensor. bf16
+# outputs (y, dx, the pool's best) use Y_RTOL / Y_ATOL_REL above.
+PN_SUM_TOL = 1e-3
+# the pool's winning rows: a near-tie of two bf16 values may break the
+# other way when one of them rounded differently (>= 99 % agreement); the
+# CE's correct count likewise at near-tied logits (<= 1e-4 N rows)
+PN_IDX_AGREE, PN_CORRECT_REL = 0.99, 1e-4
+# whole step, kernels vs plain versions: the same rounding points, f32
+# sums in another order; a flipped bf16 value travels through the chain
+# and the train-mode BN backward amplifies it, so the fused chain's
+# gradients sit up to ~40 % (L2) away from the same step in f32 whichever
+# version runs it (tests/test_torch_pointnet.py shows the same of the JAX
+# chain). Loss: 2^-8 relative; batch_stats: 2^-7 of max|ref| (two bf16
+# ulps); each gradient: ||g_kernel - g_plain|| <= 3 ||g_plain - g_f32||,
+# with g_f32 the plain layers in f32 with the chain's semantics (single-
+# pass stats over all rows, the same dropout masks), except the biases
+# of layers that a train-mode BN follows, whose gradient is 0 up to
+# rounding (reported, not held).
+PN_LOSS_REL, PN_BN_REL, PN_GRAD_RATIO = 2.0 ** -8, 2.0 ** -7, 3.0
+PN_ZERO_GRAD = {f"{n}.bias" for n in ("conv1", "conv2", "conv3", "conv4",
+                                      "conv5", "global_feat", "seg_conv1",
+                                      "seg_conv2", "seg_conv3")}
 
 
 def card_line() -> str:
@@ -311,6 +378,430 @@ def serve(card: str):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# PointNetSeg training (slice 2)
+# ---------------------------------------------------------------------------
+
+def _bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _bf16_check(got, ref, atol_rel=Y_ATOL_REL):
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    ok = bool((d <= Y_RTOL * r.abs() + atol_rel * r.abs().max()).all())
+    return float(d.max()), ok
+
+
+def _sum_check(got, ref):
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    return err, err <= PN_SUM_TOL * scale + 1e-12
+
+
+def _held(label, checks):
+    """checks: name -> (max abs err, ok). Raises on any failure."""
+    bad = [k for k, (_, ok) in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version in {bad}: {checks}")
+    return max(e for e, _ in checks.values())
+
+
+def _bn_vectors(gen, c):
+    import torch
+
+    mu = torch.randn(c, generator=gen, device="cuda") * 0.2
+    inv = torch.rand(c, generator=gen, device="cuda") + 0.5
+    gamma = torch.randn(c, generator=gen, device="cuda")
+    beta = torch.randn(c, generator=gen, device="cuda") * 0.2
+    return [mu, inv, gamma, beta]
+
+
+def _dense(gen, cin, cout):
+    import torch
+
+    bound = cin ** -0.5
+    w = (torch.rand((cin, cout), generator=gen, device="cuda") * 2 - 1) * bound
+    b = (torch.rand(cout, generator=gen, device="cuda") * 2 - 1) * bound
+    return w, b
+
+
+def _report(res):
+    print(f"  ok  {res['name']:24s} {res['case']:12s} {res['shape']:22s} "
+          f"max|err| {res['max_abs_err']:.3e}  fwd kernel {res['ms']:.4f} / "
+          f"plain {res['plain_ms']:.4f} / matmul "
+          f"{res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)}"
+          f" / bound {res['bound_ms']:.4f} ms ({res['bound_by']}); bwd "
+          f"kernel {res['bwd_ms']:.4f} / plain {res['bwd_plain_ms']:.4f} / "
+          f"bound {res['bwd_bound_ms']:.4f} ms", flush=True)
+    return res
+
+
+def pn_block_case(layer, cin, cout, normalize, drop, row_bias, gen):
+    import torch
+
+    from pcseg_tpu_torch.ops import fused_block as fb
+
+    n = PN_B * PN_M
+    x = torch.randn((n, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    bn = _bn_vectors(gen, cin) if normalize else [None] * 4
+    w, b = _dense(gen, cin, cout)
+    rb = (torch.randn((PN_B, cout), generator=gen, device="cuda")
+          if row_bias else None)
+    rpb = PN_M if row_bias else 0
+    fwd = (x, *bn, w, b, rb, 987, normalize, drop, True, rpb, torch.bfloat16)
+    yk, s1k, s2k = fb.fused_block_fwd_cuda(*fwd)
+    torch.cuda.synchronize()
+    yp, s1p, s2p = fb.fused_block_fwd_plain(*fwd)
+    checks = {"y": _bf16_check(yk, yp), "s1": _sum_check(s1k, s1p),
+              "s2": _sum_check(s2k, s2p)}
+    dy = torch.randn((n, cout), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ds1 = torch.randn(cout, generator=gen, device="cuda") * 1e-2
+    ds2 = torch.randn(cout, generator=gen, device="cuda") * 1e-3
+    bwd = (x, *bn, w, yk, dy, ds1, ds2, 987, normalize, drop, rpb, row_bias)
+    gk = fb.fused_block_bwd_cuda(*bwd)
+    torch.cuda.synchronize()
+    gp = fb.fused_block_bwd_plain(*bwd)
+    checks["dx"] = _bf16_check(gk[0], gp[0])
+    for name, a, r in zip(("dw", "db", "dgamma", "dbeta", "drow_bias"),
+                          gk[1:], gp[1:]):
+        if r is not None:
+            checks[name] = _sum_check(a, r)
+    err = _held(f"fused_block {layer}", checks)
+
+    wq = w.to(torch.bfloat16)
+    res = {
+        "name": "fused_block", "case": layer, "shape": f"N{n} {cin}->{cout}",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fb.fused_block_fwd_cuda(*fwd)),
+        "plain_ms": time_ms(lambda: fb.fused_block_fwd_plain(*fwd)),
+        "library_ms": time_ms(lambda: x @ wq),
+        "bwd_ms": time_ms(lambda: fb.fused_block_bwd_cuda(*bwd)),
+        "bwd_plain_ms": time_ms(lambda: fb.fused_block_bwd_plain(*bwd)),
+        "bwd_library_ms": time_ms(lambda: (dy @ wq.t(), x.t() @ dy)),
+    }
+    vec = 4 * cin * 4 if normalize else 0
+    io = n * cin * 2 + cin * cout * 2 + cout * 4 + vec
+    fwd_bytes = io + n * cout * 2 + 2 * cout * 4 + (
+        PN_B * cout * 4 if row_bias else 0)
+    bwd_bytes = io + 2 * n * cout * 2 + n * cin * 2 + cin * cout * 4 + (
+        2 * cin * 4 if normalize else 0)
+    res["bound_ms"], res["bound_by"] = _bound(fwd_bytes, 2 * n * cin * cout)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(bwd_bytes,
+                                                      4 * n * cin * cout)
+    return _report(res)
+
+
+def pn_global_case(gen):
+    import torch
+
+    from pcseg_tpu_torch.ops import fused_global as fg
+
+    n, cin, cout = PN_B * PN_M, 1024, 1024
+    x = torch.randn((n, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    bn = _bn_vectors(gen, cin)
+    w, b = _dense(gen, cin, cout)
+    sign = torch.sign(torch.randn(cout, generator=gen, device="cuda"))
+    sign[::97] = 0.0                  # gamma_global == 0: row 0 must win
+    fwd = (x, *bn, w, b, sign, PN_M)
+    k = fg.global_pool_fwd_cuda(*fwd)
+    torch.cuda.synchronize()
+    p = fg.global_pool_fwd_plain(*fwd)
+    agree = float((k[4] == p[4]).float().mean())
+    checks = {"y": _bf16_check(k[0], p[0]), "s1": _sum_check(k[1], p[1]),
+              "s2": _sum_check(k[2], p[2]), "best": _bf16_check(k[3], p[3]),
+              "idx": (1.0 - agree, agree >= PN_IDX_AGREE),
+              "idx_ties": (0.0, bool((k[4][:, ::97] == 0).all()))}
+    ds1 = torch.randn(cout, generator=gen, device="cuda") * 1e-2
+    ds2 = torch.randn(cout, generator=gen, device="cuda") * 1e-3
+    pval = torch.randn((PN_B, cout), generator=gen, device="cuda")
+    # the backward from the kernel's y and winners on both sides
+    bwd = (x, *bn, w, k[0], ds1, ds2, pval, k[4], PN_M)
+    gk = fg.global_pool_bwd_cuda(*bwd)
+    torch.cuda.synchronize()
+    gp = fg.global_pool_bwd_plain(*bwd)
+    checks["dx"] = _bf16_check(gk[0], gp[0])
+    for name, a, r in zip(("dw", "db", "dgamma", "dbeta"), gk[1:], gp[1:]):
+        checks[name] = _sum_check(a, r)
+    err = _held("fused_global_pool_block", checks)
+    wq = w.to(torch.bfloat16)
+    dyb = k[0]
+    res = {
+        "name": "fused_global_pool_block", "case": "global_feat",
+        "shape": f"N{n} {cin}->{cout}", "max_abs_err": err,
+        "idx_agreement": agree,
+        "ms": time_ms(lambda: fg.global_pool_fwd_cuda(*fwd)),
+        "plain_ms": time_ms(lambda: fg.global_pool_fwd_plain(*fwd)),
+        "library_ms": time_ms(lambda: x @ wq),
+        "bwd_ms": time_ms(lambda: fg.global_pool_bwd_cuda(*bwd)),
+        "bwd_plain_ms": time_ms(lambda: fg.global_pool_bwd_plain(*bwd)),
+        "bwd_library_ms": time_ms(lambda: (dyb @ wq.t(), x.t() @ dyb)),
+    }
+    io = n * cin * 2 + cin * cout * 2 + cout * 8 + 4 * cin * 4
+    res["bound_ms"], res["bound_by"] = _bound(
+        io + n * cout * 2 + 2 * cout * 4 + PN_B * cout * 8,
+        2 * n * cin * cout)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(
+        io + n * cout * 2 + PN_B * cout * 8 + n * cin * 2 + cin * cout * 4,
+        4 * n * cin * cout)
+    return _report(res)
+
+
+def pn_ce_case(gen):
+    import torch
+
+    from pcseg_tpu_torch.ops import fused_ce as fc
+
+    n, cin, c = PN_B * PN_M, 128, PN_CLASSES
+    x = torch.randn((n, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    bn = _bn_vectors(gen, cin)
+    w, b = _dense(gen, cin, c)
+    labels = torch.randint(-1, c, (n,), generator=gen, device="cuda")
+    cw = torch.rand(c, generator=gen, device="cuda") + 0.5
+    args = (x, *bn, w, b, labels, cw)
+    k = fc.seg4_ce_fwd_cuda(*args)
+    torch.cuda.synchronize()
+    p = fc.seg4_ce_fwd_plain(*args)
+    dcor = abs(float(k[2]) - float(p[2]))
+    checks = {
+        "num": (abs(float(k[0] - p[0])),
+                abs(float(k[0] - p[0])) <= PN_SUM_TOL * abs(float(p[0]))),
+        "den": (abs(float(k[1] - p[1])),
+                abs(float(k[1] - p[1])) <= PN_SUM_TOL * abs(float(p[1]))),
+        "correct": (dcor, dcor <= PN_CORRECT_REL * n),
+    }
+    ct = torch.ones((), device="cuda")
+    gk = fc.seg4_ce_bwd_cuda(*args, ct)
+    torch.cuda.synchronize()
+    gp = fc.seg4_ce_bwd_plain(*args, ct)
+    # dlogits come from expf on the card and torch.exp in the plain
+    # version, so a few of the 2^19 bf16 dlogits round the other way; dx
+    # sums C of them, so one flip moves dx by up to a bf16 ulp of a
+    # dlogit's term, which can exceed one ulp of a small dx: dx is held
+    # to 2^-7 |ref| + 2^-7 max|ref|
+    checks["dx"] = _bf16_check(gk[0], gp[0], atol_rel=2.0 ** -7)
+    for name, a, r in zip(("dw", "db", "dgamma", "dbeta"), gk[1:], gp[1:]):
+        checks[name] = _sum_check(a, r)
+    err = _held("fused_seg4_ce", checks)
+    wq = w.to(torch.bfloat16)
+    res = {
+        "name": "fused_seg4_ce", "case": "seg4+CE",
+        "shape": f"N{n} {cin}->{c}", "max_abs_err": err,
+        "ms": time_ms(lambda: fc.seg4_ce_fwd_cuda(*args)),
+        "plain_ms": time_ms(lambda: fc.seg4_ce_fwd_plain(*args)),
+        "library_ms": time_ms(lambda: x @ wq),
+        "bwd_ms": time_ms(lambda: fc.seg4_ce_bwd_cuda(*args, ct)),
+        "bwd_plain_ms": time_ms(lambda: fc.seg4_ce_bwd_plain(*args, ct)),
+        "bwd_library_ms": None,
+    }
+    io = n * cin * 2 + n * 8 + cin * c * 2 + 2 * c * 4 + 4 * cin * 4
+    res["bound_ms"], res["bound_by"] = _bound(io + 3 * 4, 2 * n * cin * c)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(
+        io + n * cin * 2 + cin * c * 4, 4 * n * cin * c)
+    return _report(res)
+
+
+def pn_dropout_case(c, gen):
+    import torch
+
+    from pcseg_tpu_torch.ops import dropout as dr
+
+    # the exact path drops the f32 outputs of seg1 (512) and seg2 (256)
+    x = torch.randn((PN_B, PN_M, c), generator=gen, device="cuda")
+    k = dr._dropout_cuda(x, 4321, PN_DROP)
+    torch.cuda.synchronize()
+    p = dr.dropout_plain(x, 4321, PN_DROP)
+    keep = float((k != 0).float().mean())
+    err = float((k - p).abs().max())
+    _held(f"dropout {c}", {
+        "y (exact)": (err, bool(torch.equal(k, p))),
+        "keep_share": (abs(keep - (1 - PN_DROP)),
+                       abs(keep - (1 - PN_DROP)) < 0.01)})
+    ms = time_ms(lambda: dr._dropout_cuda(x, 4321, PN_DROP))
+    res = {
+        "name": "dropout", "case": f"seg{1 if c == 512 else 2} out",
+        "shape": f"B{PN_B} M{PN_M} C{c} f32", "max_abs_err": err,
+        "keep_share": keep, "ms": ms,
+        "plain_ms": time_ms(lambda: dr.dropout_plain(x, 4321, PN_DROP)),
+        "library_ms": None,
+        # the backward is the same kernel on the cotangent
+        "bwd_ms": ms, "bwd_plain_ms": None,
+    }
+    res["bound_ms"], res["bound_by"] = _bound(2 * x.numel() * 4, 0)
+    res["bwd_bound_ms"] = res["bound_ms"]
+    print(f"  ok  dropout {res['shape']:22s} exact match, keep share "
+          f"{keep:.5f}  kernel {ms:.4f} / plain {res['plain_ms']:.4f} / "
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})", flush=True)
+    return res
+
+
+def pn_batch(seed: int):
+    """One B64 x 2048 batch of synthetic events (1100-2048 points)."""
+    import numpy as np
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.class_stats import scan_classes
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+
+    events = list(synthetic_events(PN_B, min_points=1100, max_points=PN_M,
+                                   seed=seed))
+    cw = scan_classes(events).weights
+    return pad_events(events, PN_M, batch_size=PN_B), np.asarray(cw)
+
+
+def pn_step_compare(card):
+    """One fused train step with the kernels and with the plain versions,
+    from the same weights, batch and dropout seeds, and the same step in
+    f32 on plain layers as the yardstick of the chain's own rounding."""
+    import torch
+
+    from pcseg_tpu_torch.models.pointnet import PointNetSeg, pointnet_apply
+    from pcseg_tpu_torch.ops.losses import cross_entropy_sums
+
+    (pts, labels, _), cw = pn_batch(5)
+    points = torch.from_numpy(pts).cuda()
+    labels = torch.from_numpy(labels).cuda()
+    cw = torch.from_numpy(cw).cuda()
+    model = PointNetSeg(PN_CLASSES, dropout=PN_DROP, bn_stats="fused",
+                        compute_dtype="bfloat16",
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    seeds = (11, 22)
+
+    def step(plain):
+        model.zero_grad(set_to_none=True)
+        (num, den, cor), new_bn = model.fused_train_loss(
+            points, labels, cw, seeds=seeds, plain=plain)
+        loss = num / den
+        loss.backward()
+        return loss.detach(), new_bn
+
+    def step_f32():
+        model.zero_grad(set_to_none=True)
+        logits, _ = pointnet_apply(
+            model.params(), model.batch_stats(), points, train=True,
+            seeds=seeds, dropout_rate=PN_DROP, compute_dtype=torch.float32,
+            fast_bn_stats=True, plain=True)
+        num, den = cross_entropy_sums(logits, labels, cw)
+        (num / den).backward()
+        return (num / den).detach()
+
+    def grads():
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    lk, bnk = step(False)
+    gk = grads()
+    lp, bnp = step(True)
+    gp = grads()
+    lf = step_f32()
+    gf = grads()
+    torch.cuda.synchronize()
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm()) for n in gp}
+    own = {n: float((gp[n] - gf[n]).norm() / gf[n].norm()) for n in gp}
+    ratio = {n: rel[n] * float(gp[n].norm())
+             / max(own[n] * float(gf[n].norm()), 1e-30)
+             for n in gp if n not in PN_ZERO_GRAD}
+    bn_rel = max(float((bnk[b][s] - bnp[b][s]).abs().max()
+                       / bnp[b][s].abs().max()) for b in bnp for s in bnp[b])
+    zero_scale = max(float(gp[n].norm() / gp[n.replace("bias", "kernel")]
+                           .norm()) for n in PN_ZERO_GRAD)
+    worst = max(ratio, key=ratio.get)
+    ok = (loss_rel <= PN_LOSS_REL and ratio[worst] <= PN_GRAD_RATIO
+          and bn_rel <= PN_BN_REL and all(torch.isfinite(g).all()
+                                          for g in gk.values()))
+    ms_k = time_ms(lambda: step(False), iters=3)
+    ms_p = time_ms(lambda: step(True), iters=3)
+    ms_f = time_ms(step_f32, iters=3)
+    held = [n for n in ratio]
+    res = {"loss_kernels": float(lk), "loss_plain": float(lp),
+           "loss_f32": float(lf), "loss_rel_err": loss_rel,
+           "grad_rel_err_kernels_vs_plain": rel,
+           "grad_rel_err_plain_vs_f32": own, "grad_ratio": ratio,
+           "grad_ratio_max": ratio[worst], "grad_worst": worst,
+           "grad_rel_err_max_held": max(rel[n] for n in held),
+           "grad_rel_err_plain_vs_f32_max_held": max(own[n] for n in held),
+           "zero_grad_bias_norm_rel": zero_scale, "batch_stats_rel_err":
+           bn_rel, "fwd_bwd_ms_kernels": ms_k, "fwd_bwd_ms_plain": ms_p,
+           "fwd_bwd_ms_f32_plain_layers": ms_f, "card": card}
+    print(f"  loss kernels {float(lk):.6f} plain {float(lp):.6f} (rel "
+          f"{loss_rel:.2e}, tol {PN_LOSS_REL:.2e}), f32 {float(lf):.6f}; "
+          f"gradients kernels vs plain <= {res['grad_rel_err_max_held']:.3e}"
+          f" (rel L2), plain vs f32 <= "
+          f"{res['grad_rel_err_plain_vs_f32_max_held']:.3e}; worst ratio "
+          f"{ratio[worst]:.3f} at {worst} (tol {PN_GRAD_RATIO}); "
+          f"batch_stats rel {bn_rel:.2e} (tol {PN_BN_REL:.2e}); the 9 "
+          f"zero-gradient biases at <= {zero_scale:.1e} of their kernel's "
+          f"gradient; fwd+bwd {ms_k:.2f} ms with kernels, {ms_p:.2f} ms "
+          f"plain, {ms_f:.2f} ms f32 plain layers [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"fused train step: kernels disagree with the "
+                             f"plain versions: {res}")
+    return res
+
+
+def pn_fit(card, bn_stats, events):
+    """The main path: api.fit on the card. Returns (launches, result)."""
+    import math
+
+    import torch
+
+    from pcseg_tpu_torch import api
+    from pcseg_tpu_torch.ops import dropout as dr
+    from pcseg_tpu_torch.ops import fused_block as fb
+    from pcseg_tpu_torch.ops import fused_ce as fc
+    from pcseg_tpu_torch.ops import fused_global as fg
+
+    mods = (fb, fg, fc, dr)
+    overrides = [f"model.bn_stats={bn_stats}", "model.compute_dtype=bfloat16",
+                 f"data.batch_size={PN_B}", f"data.buckets={PN_M}",
+                 "train.num_epochs=2", "train.log_every_steps=0",
+                 "train.checkpoint_dir=build/chip_smoke_ckpt"]
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods:
+        m.reset_launches()
+    res = api.fit(events, overrides=overrides, log=lambda _: None)
+    torch.cuda.synchronize()
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = sum(h["train_steps"] for h in res.history)
+    per_step = PN_FUSED_PER_STEP if bn_stats == "fused" else PN_EXACT_PER_STEP
+    expected = {k: v * steps for k, v in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"fit {bn_stats}: launch counts {launches} != "
+                             f"{expected}")
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_loss")]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"fit {bn_stats}: non-finite loss {losses}")
+    warm = res.history[-1]
+    ms_step = warm["train_seconds"] * 1e3 / warm["train_steps"]
+    out = {
+        "bn_stats": bn_stats, "steps": steps, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "train_loss": [h["train_loss"] for h in res.history],
+        "val_loss": [h["val_loss"] for h in res.history],
+        "first_epoch_train_ms_per_step":
+            res.history[0]["train_seconds"] * 1e3 / res.history[0][
+                "train_steps"],
+        "ms_per_step": ms_step,
+        "points_per_s": PN_B * PN_M / (ms_step / 1e3),
+        "epoch_seconds": [h["seconds"] for h in res.history],
+        "peak_mem_gib": peak, "card": card,
+    }
+    print(f"  fit bn_stats={bn_stats} [{card}]: {steps} train steps at "
+          f"B{PN_B} x {PN_M}, launches per step "
+          f"{ {k: v for k, v in out['launches_per_step'].items() if v} }; "
+          f"train loss {out['train_loss']}, val loss {out['val_loss']}; "
+          f"{ms_step:.2f} ms/step (epoch 2; epoch 1 "
+          f"{out['first_epoch_train_ms_per_step']:.2f}), "
+          f"{out['points_per_s']:.4e} points/s; peak {peak:.3f} GiB",
+          flush=True)
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -327,7 +818,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    _build.load_library()
+    for name in _build.SIGNATURES:
+        _build.load_library(name)
     print(f"[1] build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"[2] kernels vs plain versions [{card}]", flush=True)
@@ -336,6 +828,30 @@ def main() -> int:
 
     print(f"[3] serving [{card}]", flush=True)
     launches, served = serve(card)
+
+    print(f"[4] PointNet training kernels vs plain versions, B{PN_B} x "
+          f"{PN_M} [{card}]", flush=True)
+    pn_cases = [pn_block_case(*blk, gen) for blk in PN_BLOCKS]
+    pn_cases += [pn_global_case(gen), pn_ce_case(gen)]
+    pn_cases += [pn_dropout_case(c, gen) for c in (512, 256)]
+
+    print(f"[5] one fused train step, kernels vs plain [{card}]", flush=True)
+    step = pn_step_compare(card)
+
+    print(f"[6] api.fit on the card [{card}]", flush=True)
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+
+    events = list(synthetic_events(5 * PN_B, min_points=1100,
+                                   max_points=PN_M, seed=3))
+    fit_launches, fits = {}, {}
+    for bn_stats in ("fused", "exact"):
+        got, fits[bn_stats] = pn_fit(card, bn_stats, events)
+        for k, v in got.items():
+            fit_launches[k] = fit_launches.get(k, 0) + v
+    unused = [k for k, v in fit_launches.items() if v == 0]
+    if unused:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{unused}")
 
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
@@ -354,7 +870,30 @@ def main() -> int:
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "shape": shape,
         })
-    print(json.dumps({"cases": cases, "serving": served}))
+    # PointNet rows: forward numbers at each kernel's largest shape, the
+    # backward's beside them; launches are forward + backward on the main
+    # path (both api.fit runs)
+    pn_main = {"fused_block": "conv5", "fused_global_pool_block":
+               "global_feat", "fused_seg4_ce": "seg4+CE",
+               "dropout": "seg1 out"}
+    for name, label in pn_main.items():
+        mine = [c for c in pn_cases if c["name"] == name]
+        at = next(c for c in mine if c["case"] == label)
+        kernels.append({
+            "name": name, "route": "cuda", "source": PN_SOURCE,
+            "replaces": PN_REPLACES[name],
+            "launches": fit_launches[name] + fit_launches.get(
+                f"{name}_bwd", 0),
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "shape": at["shape"],
+            "bwd_ms": at["bwd_ms"], "bwd_plain_ms": at["bwd_plain_ms"],
+            "bwd_bound_ms": at["bwd_bound_ms"],
+        })
+    print(json.dumps({"cases": cases, "serving": served,
+                      "pointnet_cases": pn_cases, "pointnet_step": step,
+                      "pointnet_fit": fits}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

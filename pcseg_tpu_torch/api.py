@@ -1,11 +1,44 @@
-"""High-level serving API (counterpart of pcseg_tpu/api.py; training,
-``fit`` and ``evaluate``, are not ported yet)."""
+"""High-level API (counterpart of pcseg_tpu/api.py): ``fit`` on in-memory
+events, and serving of the voxel U-Net through ``predictor`` /
+``predict``. HDF5 datasets, resume and ``evaluate`` are not ported yet."""
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 
+from pcseg_tpu_torch.core.config import Config, apply_overrides
 from pcseg_tpu_torch.infer import Predictor
+from pcseg_tpu_torch.train.loop import TrainResult, train_model
+
+
+class ArrayDataset:
+    """Map-style dataset over in-memory ragged events."""
+
+    def __init__(self, events: Sequence[tuple[np.ndarray, np.ndarray]]):
+        self.events = [(np.asarray(p, np.float32), np.asarray(lab, np.int64))
+                       for p, lab in events]
+
+    def __len__(self):
+        return len(self.events)
+
+    def __getitem__(self, idx):
+        return self.events[idx]
+
+    def num_points(self, idx):
+        return self.events[idx][0].shape[0]
+
+
+def fit(events: Sequence[tuple[np.ndarray, np.ndarray]], *,
+        config: Config | None = None, overrides: Sequence[str] = (),
+        device=None, log=print) -> TrainResult:
+    """Train on in-memory (points (N, D), labels (N,)) events; returns the
+    TrainResult, whose ``checkpoint_path`` holds the best model.
+    ``device``: None for CUDA, ``"cpu"`` for the plain versions."""
+    cfg = config or Config()
+    apply_overrides(cfg, overrides)
+    return train_model(cfg, ArrayDataset(events), device=device, log=log)
 
 
 def predictor(checkpoint_path: str, **kw) -> Predictor:

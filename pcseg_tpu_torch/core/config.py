@@ -1,25 +1,48 @@
-"""Model configuration of the voxel family.
+"""Configuration: copies of the JAX package's dataclasses
+(pcseg_tpu/core/config.py) with the fields the port reads, under the same
+names, defaults and meanings.
 
-A copy of the ``ModelConfig`` fields that ``voxel_unet3d`` reads in the
-JAX package (pcseg_tpu/core/config.py), with the same names and meanings.
-Training knobs (``remat``) and the other families' fields are not ported
-yet. The defaults of ``impl`` and the voxelize/devoxelize forms are the
-ported ones: the JAX "auto" resolves to its one-hot matmul forms at 64^3,
-whose kernels are still to be ported.
+Ported: the PointNet and voxel ``ModelConfig`` fields, and the parts of
+``DataConfig``, ``OptimConfig`` and ``TrainConfig`` that a one-device
+training run reads. Not yet: HDF5 paths and prefetch, resume/'latest'
+checkpoints, metrics logs, parallel strategies, the sparse family's
+fields. ``impl`` and the voxelize/devoxelize forms default to the ported
+ones: the JAX "auto" resolves to its one-hot matmul forms at 64^3, whose
+kernels are still to be ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any, Sequence
+
+
+@dataclass
+class DataConfig:
+    batch_size: int = 64
+    val_fraction: float = 0.2
+    split_seed: int = 0
+    shuffle_seed: int = 0
+    class_scan_events: int = 1000
+    # ragged -> static batching: the per-batch max point count is padded
+    # up to one of these lengths
+    buckets: Sequence[int] = (256, 512, 1024, 2048, 4096, 8192)
 
 
 @dataclass
 class ModelConfig:
-    name: str = "voxel_unet3d"
-    num_classes: int = 0
+    name: str = "pointnet_seg"    # or "voxel_unet3d"
+    num_classes: int = 0          # 0 = infer from the data
     input_dim: int = 4            # x, y, z + features
+    dropout: float = 0.3
     compute_dtype: str = "float32"
+    # PointNet batch statistics: "exact" (two-pass variance), "fast"
+    # (single pass), or "fused" (the fused kernel chain, ops/fused_*.py)
+    bn_stats: str = "exact"
+    # exclude padded positions from BN statistics and the global pool
+    mask_norm_and_pool: bool = False
+    # voxel family
     grid_size: int = 64
     unet_width: int = 16
     levels: int = 0               # 0 = family default (3)
@@ -32,3 +55,75 @@ class ModelConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+@dataclass
+class OptimConfig:
+    lr: float = 1e-3
+    weight_decay: float = 1e-4    # Adam L2 (coupled), not AdamW
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    lr_step_epochs: int = 20      # StepLR step_size
+    lr_gamma: float = 0.5         # StepLR gamma
+
+
+@dataclass
+class TrainConfig:
+    num_epochs: int = 128
+    patience: int = 16
+    target_class: int = 2         # best-model selection on this class's F1
+    target_class_weight_boost: float = 2.0
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_name: str = "best_model.pt"
+    log_every_steps: int = 20     # 0 = off
+
+
+@dataclass
+class Config:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["data"]["buckets"] = list(d["data"]["buckets"])
+        return d
+
+
+def _coerce(current: Any, raw: str) -> Any:
+    if isinstance(current, bool):
+        if raw.lower() in ("1", "true", "yes", "on"):
+            return True
+        if raw.lower() in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"cannot parse bool from {raw!r}")
+    if isinstance(current, int):
+        return int(raw)
+    if isinstance(current, float):
+        return float(raw)
+    if isinstance(current, (tuple, list)):
+        return tuple(int(x) for x in raw.split(",") if x)
+    return raw
+
+
+def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
+    """Apply ``section.field=value`` overrides in place, e.g.
+    ``["optim.lr=3e-4", "data.batch_size=32"]``."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} must look like "
+                             "section.field=value")
+        key, raw = item.split("=", 1)
+        key = key.lstrip("-")
+        if "." not in key:
+            raise ValueError(f"override key {key!r} must look like "
+                             "section.field")
+        section, name = key.split(".", 1)
+        sub = getattr(cfg, section, None)
+        if sub is None or not hasattr(sub, name):
+            raise KeyError(f"unknown config field {key!r}")
+        setattr(sub, name, _coerce(getattr(sub, name), raw))
+    return cfg

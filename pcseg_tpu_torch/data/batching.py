@@ -1,14 +1,15 @@
 """Ragged events -> static-shape padded batches (numpy).
 
-Copies of ``DEFAULT_BUCKETS``, ``pick_bucket`` and ``pad_events`` from
-pcseg_tpu/data/batching.py, without its native C++ packer (the numpy
-form is byte-identical to it). Padding to a few bucket lengths keeps the
-set of batch shapes small; a short batch is filled with all-masked rows.
+Copies of ``DEFAULT_BUCKETS``, ``pick_bucket``, ``pad_events`` and
+``BucketBatcher`` from pcseg_tpu/data/batching.py, without its native C++
+packer and window sort (the numpy forms give identical batches). Padding
+to a few bucket lengths keeps the set of batch shapes small; a short
+batch is filled with all-masked rows.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -48,3 +49,76 @@ def pad_events(
         labels[i, :n] = labs
         masks[i, :n] = True
     return points, labels, masks
+
+
+# length sorting happens inside windows of this many batches
+WINDOW_BATCHES = 32
+
+
+class BucketBatcher:
+    """Iterate a dataset as static-shape batches.
+
+    Groups a (possibly shuffled) index order into fixed-size batches and
+    pads each to the smallest bucket >= its max point count. The order is
+    sorted by point count inside windows of ``WINDOW_BATCHES`` batches, so
+    batches are homogeneous in length (less padding) while staying
+    shuffled across epochs. A short final batch is kept.
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        indices: Optional[np.ndarray] = None,
+        shuffle: bool = False,
+        seed: int = 0,
+        feature_dim: int = 4,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.buckets = tuple(sorted(buckets))
+        self.indices = (
+            np.arange(len(dataset)) if indices is None else np.asarray(indices)
+        )
+        self.shuffle = shuffle
+        self.seed = seed
+        self.feature_dim = feature_dim
+        self.epoch = 0
+        self._lengths: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return (len(self.indices) + self.batch_size - 1) // self.batch_size
+
+    def _all_lengths(self) -> np.ndarray:
+        if self._lengths is None:
+            ds = self.dataset
+            self._lengths = np.asarray(
+                [ds.num_points(i) if hasattr(ds, "num_points")
+                 else ds[i][0].shape[0] for i in range(len(ds))], np.int32)
+        return self._lengths
+
+    def _epoch_order(self) -> np.ndarray:
+        order = self.indices.astype(np.int64)
+        if self.shuffle:
+            rng = np.random.default_rng((self.seed, self.epoch))
+            rng.shuffle(order)
+        if not len(order):
+            return order
+        lengths = self._all_lengths()
+        window = WINDOW_BATCHES * self.batch_size
+        return np.concatenate([
+            win[np.argsort(lengths[win], kind="stable")]
+            for win in (order[s : s + window]
+                        for s in range(0, len(order), window))])
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        order = self._epoch_order()
+        self.epoch += 1
+        bs = self.batch_size
+        for s in range(0, len(order), bs):
+            events = [self.dataset[int(i)] for i in order[s : s + bs]]
+            bucket = pick_bucket(max(e[0].shape[0] for e in events),
+                                 self.buckets)
+            yield pad_events(events, bucket, batch_size=bs,
+                             feature_dim=self.feature_dim)

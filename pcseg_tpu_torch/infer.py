@@ -17,6 +17,7 @@ from pcseg_tpu_torch.ckpt.checkpoint import load_checkpoint
 from pcseg_tpu_torch.core.device import resolve_device
 from pcseg_tpu_torch.data.batching import DEFAULT_BUCKETS, pad_events, pick_bucket
 from pcseg_tpu_torch.models.factory import build_model
+from pcseg_tpu_torch.models.pointnet import PointNetSeg
 
 
 class Predictor:
@@ -24,8 +25,8 @@ class Predictor:
 
     ``variables``: the model's state_dict (``ckpt.convert.
     from_jax_variables`` makes one from JAX parameters). ``model``: the
-    module to load them into; the JAX default (PointNetSeg) is not ported
-    yet. ``device``: None for CUDA, ``"cpu"`` for the plain versions.
+    module to load them into; serving the JAX default (PointNetSeg) is
+    not ported yet. ``device``: None for CUDA, ``"cpu"`` for the plain versions.
     """
 
     def __init__(
@@ -38,11 +39,11 @@ class Predictor:
         device=None,
     ):
         self.device = resolve_device(device)
-        if model is None:
+        if model is None or isinstance(model, PointNetSeg):
             raise NotImplementedError(
-                "the default model (PointNetSeg) is not ported to "
-                "pcseg_tpu_torch yet (ROADMAP Queue B, slice 1); pass a "
-                "VoxelUNet3d as model="
+                "serving PointNetSeg (the default model) through Predictor "
+                "is not ported to pcseg_tpu_torch yet (ROADMAP Queue A); "
+                "pass a VoxelUNet3d as model="
             )
         model.load_state_dict(variables)
         self.model = model.to(self.device).eval()

@@ -1,23 +1,33 @@
 """Model factory: config -> model instance (counterpart of
-pcseg_tpu/models/factory.py). Only the voxel U-Net is ported so far."""
+pcseg_tpu/models/factory.py). PointNetSeg and the voxel U-Net are
+ported; the sparse family is not yet."""
 
 from __future__ import annotations
 
 import torch
 
 from pcseg_tpu_torch.core.config import ModelConfig
+from pcseg_tpu_torch.models.pointnet import PointNetSeg
 from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
 
 FAMILIES = ("pointnet_seg", "voxel_unet3d", "sparse_voxelnet")
 _NOT_PORTED = {
-    "pointnet_seg": "ROADMAP Queue B, slice 1 (PointNet training and its "
-                    "folded serving)",
     "sparse_voxelnet": "ROADMAP Queue B, slice 4 (the sparse family)",
 }
 
 
 def build_model(cfg: ModelConfig, num_classes: int,
                 generator: torch.Generator | None = None):
+    if cfg.name == "pointnet_seg":
+        return PointNetSeg(
+            num_classes=num_classes,
+            input_dim=cfg.input_dim,
+            dropout=cfg.dropout,
+            mask_norm_and_pool=cfg.mask_norm_and_pool,
+            compute_dtype=cfg.compute_dtype,
+            bn_stats=cfg.bn_stats,
+            generator=generator,
+        )
     if cfg.name == "voxel_unet3d":
         return VoxelUNet3d(
             num_classes=num_classes,

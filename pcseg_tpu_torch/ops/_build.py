@@ -27,6 +27,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_U = ctypes.c_uint32
+_F = ctypes.c_float
 # entry name -> argtypes; every pointer and the stream are c_void_p so
 # ctypes never truncates them to 32-bit ints
 SIGNATURES = {
@@ -34,6 +37,17 @@ SIGNATURES = {
         "pcseg_conv3x3_gn_act": [_P] * 8 + [_I] * 7 + [_P],
         "pcseg_down2x_gn_act": [_P] * 7 + [_I] * 6 + [_P],
         "pcseg_up2x_gn_act": [_P] * 7 + [_I] * 6 + [_P],
+    },
+    "pointnet_fused": {
+        "pcseg_dropout": [_P, _P, _L, _U, _U, _F, _I, _P],
+        "pcseg_fused_block_fwd": [_P] * 11 + [_L, _I, _I, _L, _I, _U, _U,
+                                             _F, _I, _I, _P],
+        "pcseg_fused_block_bwd": [_P] * 17 + [_I, _L, _I, _I, _L, _I, _U,
+                                             _U, _F, _I, _P],
+        "pcseg_global_pool_fwd": [_P] * 14 + [_L, _I, _I, _L, _P],
+        "pcseg_global_pool_bwd": [_P] * 17 + [_L, _I, _I, _L, _P],
+        "pcseg_seg4_ce_fwd": [_P] * 10 + [_L, _I, _I, _P],
+        "pcseg_seg4_ce_bwd": [_P] * 16 + [_L, _I, _I, _P],
     },
 }
 
@@ -94,6 +108,36 @@ def load_library(name: str = "conv3d_block") -> ctypes.CDLL:
             entry.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+# -- launch helpers shared by the kernel wrappers
+
+def on_cuda(x, plain: bool = False) -> bool:
+    """True where a wrapper launches its kernel: ``x`` is a CUDA tensor
+    and the plain version was not asked for. A CPU tensor takes the plain
+    version; any other device is refused."""
+    if x.device.type == "cpu" or plain:
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return True
+
+
+def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def raise_on(rc: int, name: str) -> None:
+    """Raise if a kernel entry returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
 def build_all() -> list[Path]:

@@ -27,6 +27,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pcseg_tpu_torch.ops._build import (
+    load_library,
+    on_cuda,
+    ptr,
+    raise_on,
+    stream_of,
+)
 from pcseg_tpu_torch.ops.conv3d import num_groups
 
 # launches per kernel since the last reset_launches(); each wrapper adds
@@ -154,18 +161,6 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _on_cuda(x):
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return True
-
-
 def _common(x, w, bias, scale, shift, k, activate=True):
     """Validate a launch and return (weights as f32 of bf16, bias f32)."""
     if x.dim() != 5:
@@ -187,15 +182,6 @@ def _common(x, w, bias, scale, shift, k, activate=True):
     return _wq(w).contiguous(), cout
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise_on(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
 def conv3x3_gn_act(x, w, bias, scale, shift, accum=None, *, activate=True,
                    want_stats=True):
     """relu(x * scale + shift) -> 3^3 SAME conv -> + bias (+ accum).
@@ -205,11 +191,9 @@ def conv3x3_gn_act(x, w, bias, scale, shift, accum=None, *, activate=True,
     when ``activate=False``; accum (B, D, H, W, Cout) bf16 added in f32
     after the bias. Returns (y bf16, stats (B, 2, Cout) f32 or None).
     """
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return conv3x3_gn_act_plain(x, w, bias, scale, shift, accum,
                                     activate=activate, want_stats=want_stats)
-    from pcseg_tpu_torch.ops._build import load_library
-
     wq, cout = _common(x, w, bias, scale, shift, 3, activate)
     b, d, h, wd, cin = x.shape
     if wd % 4:
@@ -222,11 +206,11 @@ def conv3x3_gn_act(x, w, bias, scale, shift, accum=None, *, activate=True,
              if want_stats else None)
     rc = load_library().pcseg_conv3x3_gn_act(
         x.data_ptr(), wq.data_ptr(), bias.data_ptr(),
-        _ptr(scale) if activate else None, _ptr(shift) if activate else None,
-        _ptr(accum), y.data_ptr(), _ptr(stats), b, d, h, wd, cin, cout,
-        int(activate), _stream(x),
+        ptr(scale) if activate else None, ptr(shift) if activate else None,
+        ptr(accum), y.data_ptr(), ptr(stats), b, d, h, wd, cin, cout,
+        int(activate), stream_of(x),
     )
-    _raise_on(rc, "conv3x3_gn_act")
+    raise_on(rc, "conv3x3_gn_act")
     LAUNCHES["conv3x3_gn_act"] += 1
     return y, stats
 
@@ -237,10 +221,8 @@ def down2x_gn_act(x, w, bias, scale, shift):
     x (B, D, H, W, C) bf16 with D, H, W even; w (2, 2, 2, C, C2).
     Returns (y (B, D/2, H/2, W/2, C2) bf16, stats (B, 2, C2) f32).
     """
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return down2x_gn_act_plain(x, w, bias, scale, shift)
-    from pcseg_tpu_torch.ops._build import load_library
-
     wq, cout = _common(x, w, bias, scale, shift, 2)
     b, d, h, wd, cin = x.shape
     if d % 2 or h % 2 or wd % 8:
@@ -252,9 +234,9 @@ def down2x_gn_act(x, w, bias, scale, shift):
     rc = load_library().pcseg_down2x_gn_act(
         x.data_ptr(), wq.data_ptr(), bias.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), y.data_ptr(), stats.data_ptr(), b, d, h, wd, cin,
-        cout, _stream(x),
+        cout, stream_of(x),
     )
-    _raise_on(rc, "down2x_gn_act")
+    raise_on(rc, "down2x_gn_act")
     LAUNCHES["down2x_gn_act"] += 1
     return y, stats
 
@@ -266,10 +248,8 @@ def up2x_gn_act(x, w, bias, scale, shift):
     x[i] @ w[1-d] per axis. Returns (y (B, 2D, 2H, 2W, C) bf16,
     stats (B, 2, C) f32).
     """
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return up2x_gn_act_plain(x, w, bias, scale, shift)
-    from pcseg_tpu_torch.ops._build import load_library
-
     wq, cout = _common(x, w, bias, scale, shift, 2)
     b, d, h, wd, cin = x.shape
     if wd % 2:
@@ -280,8 +260,8 @@ def up2x_gn_act(x, w, bias, scale, shift):
     rc = load_library().pcseg_up2x_gn_act(
         x.data_ptr(), wq.data_ptr(), bias.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), y.data_ptr(), stats.data_ptr(), b, d, h, wd, cin,
-        cout, _stream(x),
+        cout, stream_of(x),
     )
-    _raise_on(rc, "up2x_gn_act")
+    raise_on(rc, "up2x_gn_act")
     LAUNCHES["up2x_gn_act"] += 1
     return y, stats

@@ -54,16 +54,18 @@ def _stages(model, events, bucket, batch):
                     med.tolist())), (points, mask)
 
 
-def _device_profile(model, points, mask):
+def device_profile(fn):
+    """Profile one warm call of ``fn``: wall ms, device-busy ms, idle
+    share and device time by kernel name, and the profiler itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model(points, mask)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(points, mask)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels only: a CPU op's self device time repeats its kernels'
@@ -102,7 +104,7 @@ def main() -> int:
     for label, events, bucket, b in (("batch8x8192", batch, 8192, 8),
                                      ("single1000", single, 1024, 1)):
         stages, (points, mask) = _stages(model, events, bucket, b)
-        prof_res, prof = _device_profile(model, points, mask)
+        prof_res, prof = device_profile(lambda: model(points, mask))
         report[label] = {"stages": stages, **prof_res}
         print(f"[{label}] {card}: stages {json.dumps(stages)}")
         print(f"  one forward: wall {prof_res['wall_ms']:.3f} ms, device "

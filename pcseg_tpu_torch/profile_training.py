@@ -1,0 +1,98 @@
+"""Where the PointNetSeg training time goes, on one CUDA card.
+
+    python -m pcseg_tpu_torch.profile_training [--out DIR]
+
+Builds the training configuration of chip_smoke.py (PointNetSeg at full
+width, 4 classes, dropout 0.3, bf16, seeded random weights, Adam) and,
+for ``bn_stats`` "fused" and "exact", one B64 x 2048 batch of synthetic
+events (1100-2048 points each), reports:
+
+- host-clock stage times of a train step (pad on the host, copy to the
+  card, ``train_step``), each ended by a synchronize, median of 5 after 3
+  warm steps;
+- device time by kernel from torch.profiler over one train step, and the
+  device's busy share of that step's wall time.
+
+With ``--out`` the profiler tables are also written to
+DIR/profile_train_*.txt.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from pcseg_tpu_torch.data.batching import pad_events
+from pcseg_tpu_torch.data.class_stats import scan_classes
+from pcseg_tpu_torch.data.synthetic import synthetic_events
+from pcseg_tpu_torch.models.pointnet import PointNetSeg
+from pcseg_tpu_torch.profile_serving import device_profile
+from pcseg_tpu_torch.train.steps import create_train_state, train_step
+
+B, M, CLASSES = 64, 2048, 4
+
+
+def _stages(state, events, cw, gen):
+    rows = []
+    for i in range(8):
+        t0 = time.perf_counter()
+        batch = pad_events(events, M, batch_size=B)
+        t1 = time.perf_counter()
+        tensors = tuple(torch.from_numpy(a).cuda() for a in batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        train_step(state, tensors, 1e-3, gen, cw)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i >= 3:
+            rows.append([t1 - t0, t2 - t1, t3 - t2])
+    med = np.median(np.asarray(rows) * 1e3, axis=0)
+    return dict(zip(["pad_ms", "h2d_ms", "step_ms"], med.tolist())), tensors
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_training needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    events = list(synthetic_events(B, min_points=1100, max_points=M, seed=5))
+    cw = torch.from_numpy(scan_classes(events).weights).cuda()
+    card = torch.cuda.get_device_name(0)
+    report = {"card": card, "batch": f"B{B} x {M}"}
+    for bn_stats in ("fused", "exact"):
+        model = PointNetSeg(CLASSES, bn_stats=bn_stats,
+                            compute_dtype="bfloat16",
+                            generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model.cuda())
+        gen = torch.Generator().manual_seed(1)
+        stages, batch = _stages(state, events, cw, gen)
+        prof_res, prof = device_profile(
+            lambda: train_step(state, batch, 1e-3, gen, cw))
+        report[bn_stats] = {"stages": stages,
+                            "points_per_s": B * M / (stages["step_ms"] / 1e3),
+                            **prof_res}
+        print(f"[{bn_stats}] {card}: stages {json.dumps(stages)}")
+        print(f"  one step: wall {prof_res['wall_ms']:.3f} ms, device busy "
+              f"{prof_res['device_busy_ms']:.3f} ms, idle share "
+              f"{prof_res['idle_share']:.3f}")
+        for k in prof_res["kernels"][:15]:
+            print(f"  {k['device_ms']:9.4f} ms  x{k['calls']:<4d} {k['name']}")
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, f"profile_train_{bn_stats}.txt"),
+                      "w") as f:
+                f.write(prof.key_averages().table(
+                    sort_by="self_device_time_total", row_limit=60))
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,204 @@
+"""Epoch loop (counterpart of pcseg_tpu/train/loop.py, one device).
+
+- class scan + weighting on the first <= ``class_scan_events`` events;
+- seeded train/val split (train = int((1 - val_fraction) * n));
+- per epoch: train pass, val pass, per-class F1 from the val pass's
+  confusion matrix, StepLR;
+- train/val loss = mean of the per-batch weighted-CE values;
+- best model: higher target-class F1, or equal F1 and lower val loss; the
+  best checkpoint is written on improvement (the port's format,
+  ckpt/checkpoint.py); early stop after ``patience`` epochs without one.
+
+Metrics stay on the device during a pass and are read once at its end.
+Randomness comes from ``train.seed``: one generator each for the
+parameters and the dropout seeds. Not ported yet: HDF5 datasets,
+prefetch, resume and 'latest' checkpoints, metrics logs, parallel
+strategies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from pcseg_tpu_torch.ckpt.checkpoint import save_checkpoint
+from pcseg_tpu_torch.core.config import Config
+from pcseg_tpu_torch.core.device import resolve_device
+from pcseg_tpu_torch.data.batching import BucketBatcher
+from pcseg_tpu_torch.data.class_stats import scan_classes
+from pcseg_tpu_torch.models.factory import build_model
+from pcseg_tpu_torch.ops.metrics import f1_from_confusion
+from pcseg_tpu_torch.train.optim import step_lr
+from pcseg_tpu_torch.train.steps import (
+    TrainState,
+    create_train_state,
+    eval_step,
+    train_step,
+)
+
+_PURPOSES = {"params": 0, "dropout": 1}
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: TrainState
+    num_classes: int
+    class_weights: np.ndarray
+    best_f1_target: float
+    best_val_loss: float
+    best_epoch: int
+    history: list[dict]
+    checkpoint_path: str
+
+
+def purpose_generator(seed: int, purpose: str) -> torch.Generator:
+    """A CPU generator per (seed, purpose), so adding a consumer never
+    moves the stream of another."""
+    return torch.Generator().manual_seed(seed * len(_PURPOSES)
+                                         + _PURPOSES[purpose])
+
+
+def split_indices(n: int, val_fraction: float, seed: int):
+    """Seeded split: train = int((1 - val_fraction) * n), val = the rest."""
+    perm = np.random.default_rng(seed).permutation(n)
+    n_train = int((1.0 - val_fraction) * n)
+    return perm[:n_train], perm[n_train:]
+
+
+def _to_device(batch, device):
+    return tuple(torch.from_numpy(a).to(device, non_blocking=True)
+                 for a in batch)
+
+
+def _run_epoch_train(state, batcher, lr, cw, gen, device, log,
+                     log_every=0):
+    metrics = []
+    for i, batch in enumerate(batcher):
+        state, m = train_step(state, _to_device(batch, device), lr, gen, cw)
+        metrics.append(m)
+        if log_every and (i + 1) % log_every == 0:
+            log(f"  step {i + 1}: loss {float(m['loss']):.4f}")
+    losses = [float(m["loss"]) for m in metrics]
+    correct = sum(float(m["correct"]) for m in metrics)
+    total = sum(float(m["total"]) for m in metrics)
+    loss = float(np.mean(losses)) if losses else 0.0
+    return loss, 100.0 * correct / total if total > 0 else 0.0, len(metrics)
+
+
+def _run_epoch_eval(state, batcher, cw, num_classes, device):
+    metrics = [eval_step(state, _to_device(b, device), cw, num_classes)
+               for b in batcher]
+    losses = [float(m["loss"]) for m in metrics]
+    correct = sum(float(m["correct"]) for m in metrics)
+    total = sum(float(m["total"]) for m in metrics)
+    cm = np.zeros((num_classes, num_classes), np.int64)
+    for m in metrics:
+        cm += m["confusion"].cpu().numpy()
+    loss = float(np.mean(losses)) if losses else 0.0
+    return loss, 100.0 * correct / total if total > 0 else 0.0, cm
+
+
+def train_model(cfg: Config, dataset, *, device=None, log=print
+                ) -> TrainResult:
+    """Full training run on a map-style dataset of (points, labels)
+    events. ``device``: None for CUDA, ``"cpu"`` for the plain versions."""
+    dev = resolve_device(device)
+    t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.model
+
+    stats = scan_classes(dataset, scan_events=d_cfg.class_scan_events,
+                         target_class=t_cfg.target_class,
+                         target_boost=t_cfg.target_class_weight_boost)
+    num_classes = m_cfg.num_classes or stats.num_classes
+    class_weights = stats.weights
+    if len(class_weights) != num_classes:
+        w = np.ones(num_classes, np.float32)
+        w[: len(class_weights)] = class_weights
+        class_weights = w
+    log(f"classes: {num_classes}, counts: {stats.counts}")
+    log(f"class weights: {np.round(class_weights, 3).tolist()}")
+
+    train_idx, val_idx = split_indices(len(dataset), d_cfg.val_fraction,
+                                       d_cfg.split_seed)
+    train_batcher = BucketBatcher(
+        dataset, d_cfg.batch_size, buckets=d_cfg.buckets, indices=train_idx,
+        shuffle=True, seed=d_cfg.shuffle_seed, feature_dim=m_cfg.input_dim)
+    val_batcher = BucketBatcher(
+        dataset, d_cfg.batch_size, buckets=d_cfg.buckets, indices=val_idx,
+        shuffle=False, feature_dim=m_cfg.input_dim)
+    log(f"train events: {len(train_idx)}, val events: {len(val_idx)}")
+
+    model = build_model(m_cfg, num_classes,
+                        generator=purpose_generator(t_cfg.seed, "params"))
+    state = create_train_state(model.to(dev), cfg.optim)
+    drop_gen = purpose_generator(t_cfg.seed, "dropout")
+    cw = torch.from_numpy(class_weights).to(dev)
+    ckpt_path = os.path.join(t_cfg.checkpoint_dir, t_cfg.checkpoint_name)
+
+    best_f1_target, best_val_loss, best_epoch = 0.0, float("inf"), -1
+    patience_counter = 0
+    history: list[dict] = []
+    o_cfg = cfg.optim
+    for epoch in range(t_cfg.num_epochs):
+        lr = step_lr(o_cfg.lr, epoch, o_cfg.lr_step_epochs, o_cfg.lr_gamma)
+        t0 = time.perf_counter()
+        state.model.train()
+        train_loss, train_acc, steps = _run_epoch_train(
+            state, train_batcher, lr, cw, drop_gen, dev, log,
+            t_cfg.log_every_steps)
+        t_train = time.perf_counter() - t0
+        state.model.eval()
+        val_loss, val_acc, cm = _run_epoch_eval(state, val_batcher, cw,
+                                                num_classes, dev)
+        f1 = f1_from_confusion(cm)
+        f1_target = (float(f1.per_class[t_cfg.target_class])
+                     if len(f1.per_class) > t_cfg.target_class else 0.0)
+        dt = time.perf_counter() - t0
+        history.append({
+            "epoch": epoch, "lr": lr, "train_loss": train_loss,
+            "train_acc": train_acc, "val_loss": val_loss, "val_acc": val_acc,
+            "f1_macro": f1.macro, "f1_weighted": f1.weighted,
+            "f1_per_class": f1.per_class.tolist(), "f1_target": f1_target,
+            "train_steps": steps, "train_seconds": t_train, "seconds": dt,
+        })
+        log(f"epoch {epoch + 1}/{t_cfg.num_epochs}: "
+            f"train {train_loss:.4f}/{train_acc:.2f}% "
+            f"val {val_loss:.4f}/{val_acc:.2f}% "
+            f"f1[c{t_cfg.target_class}] {f1_target:.4f} "
+            f"macro {f1.macro:.4f} lr {lr:.6f} ({dt:.1f}s)")
+
+        improved = False
+        if f1_target > best_f1_target:
+            best_f1_target, best_val_loss, improved = f1_target, val_loss, True
+        elif f1_target == best_f1_target and val_loss < best_val_loss:
+            best_val_loss, improved = val_loss, True
+        if improved:
+            patience_counter = 0
+            best_epoch = epoch
+            save_checkpoint(
+                ckpt_path, state.model.state_dict(), num_classes, m_cfg,
+                optimizer_state=state.optimizer.state_dict(),
+                metadata={
+                    "epoch": epoch, "step": state.step,
+                    "train_loss": train_loss, "val_loss": val_loss,
+                    "f1_class_target": f1_target,
+                    "f1_per_class": f1.per_class.tolist(),
+                    "class_weights": class_weights.tolist(),
+                    "config": cfg.to_dict(),
+                })
+            log(f"saved best checkpoint (f1={f1_target:.4f}) -> {ckpt_path}")
+        else:
+            patience_counter += 1
+            log(f"no improvement for {patience_counter}/{t_cfg.patience} "
+                "epochs")
+        if patience_counter >= t_cfg.patience:
+            log("early stopping")
+            break
+
+    return TrainResult(
+        state=state, num_classes=num_classes, class_weights=class_weights,
+        best_f1_target=best_f1_target, best_val_loss=best_val_loss,
+        best_epoch=best_epoch, history=history, checkpoint_path=ckpt_path)

@@ -1,0 +1,91 @@
+"""Train and eval steps on one device (counterpart of
+pcseg_tpu/train/steps.py without its mesh data parallelism).
+
+- ``train_step``: forward + loss + backward + Adam + running stats. With
+  ``bn_stats="fused"`` (and a point count divisible by 8) the loss is the
+  fused chain's classifier + CE op; otherwise the logits go through
+  ``cross_entropy_sums``. The loss is the weighted CE, num / den.
+- ``eval_step``: loss, accuracy and the confusion matrix in one pass.
+
+Metrics stay on the device as tensors; the caller reads them when it
+needs them, so a step never waits for the card on its own.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from pcseg_tpu_torch.core.config import OptimConfig
+from pcseg_tpu_torch.ops.losses import cross_entropy_sums
+from pcseg_tpu_torch.ops.metrics import confusion_matrix, masked_accuracy
+from pcseg_tpu_torch.train.optim import make_optimizer
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+@dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def create_train_state(model: torch.nn.Module,
+                       optim_cfg: OptimConfig | None = None) -> TrainState:
+    return TrainState(model=model,
+                      optimizer=make_optimizer(model.parameters(), optim_cfg))
+
+
+def draw_seeds(generator: torch.Generator) -> tuple[int, int]:
+    """Two 31-bit dropout seeds from a CPU generator (no device sync)."""
+    s = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator)
+    return int(s[0]), int(s[1])
+
+
+def train_step(state: TrainState, batch, lr: float,
+               generator: torch.Generator, class_weights: torch.Tensor):
+    """One step on ``batch = (points (B,M,D), labels (B,M), masks (B,M))``
+    tensors on the model's device. Updates the model, its running stats
+    and the optimizer in place; returns (state, metrics) with metrics
+    {loss, correct, total} as device scalars."""
+    points, labels, masks = batch
+    model = state.model
+    seeds = draw_seeds(generator)
+    if model.supports_fused_loss() and points.shape[1] % 8 == 0:
+        (num, den, correct), new_bn = model.fused_train_loss(
+            points, labels, class_weights, seeds=seeds)
+        total = masks.float().sum()
+    else:
+        logits, new_bn = model.apply(points, train=True, mask=masks,
+                                     seeds=seeds)
+        num, den = cross_entropy_sums(logits, labels, class_weights)
+        correct, total = masked_accuracy(logits, labels, masks)
+    loss = num / den.clamp_min(_TINY)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    model.load_batch_stats(new_bn)
+    state.step += 1
+    return state, {"loss": loss.detach(), "correct": correct.detach(),
+                   "total": total}
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, batch, class_weights: torch.Tensor,
+              num_classes: int) -> dict:
+    """{loss, correct, total, confusion (C, C)} of one batch."""
+    points, labels, masks = batch
+    logits = state.model.apply(points, train=False, mask=masks)
+    num, den = cross_entropy_sums(logits, labels, class_weights)
+    correct, total = masked_accuracy(logits, labels, masks)
+    return {
+        "loss": num / den.clamp_min(_TINY),
+        "correct": correct,
+        "total": total,
+        "confusion": confusion_matrix(logits.argmax(dim=-1), labels, masks,
+                                      num_classes),
+    }

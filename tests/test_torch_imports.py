@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+from pcseg_tpu_torch import api
 from pcseg_tpu_torch.core.device import resolve_device
 from pcseg_tpu_torch.core.config import ModelConfig
 from pcseg_tpu_torch.infer import Predictor
 from pcseg_tpu_torch.models.factory import build_model
+from pcseg_tpu_torch.models.pointnet import PointNetSeg
 
 
 def test_port_imports_no_jax():
@@ -44,17 +46,26 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
 
-    cfg = ModelConfig(grid_size=8, unet_width=8, levels=2)
+    cfg = ModelConfig(name="voxel_unet3d", grid_size=8, unet_width=8,
+                      levels=2)
     model = build_model(cfg, 4, generator=torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError):
         Predictor(model.state_dict(), 4, model=model)
     p = Predictor(model.state_dict(), 4, model=model, device="cpu")
     assert p.predict(np.zeros((10, 4), np.float32)).shape == (10,)
+    # training too: api.fit takes the card unless told otherwise
+    events = [(np.zeros((5, 4), np.float32), np.zeros(5, np.int64))] * 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.fit(events)
 
 
 def test_unported_families_raise():
-    for name in ("pointnet_seg", "sparse_voxelnet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(ModelConfig(name=name), 4)
+    model = build_model(ModelConfig(name="pointnet_seg"), 4)
+    assert isinstance(model, PointNetSeg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(ModelConfig(name="sparse_voxelnet"), 4)
+    # PointNet trains in the port; serving it through Predictor waits
     with pytest.raises(NotImplementedError, match="PointNetSeg"):
         Predictor({}, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="PointNetSeg"):
+        Predictor(model.state_dict(), 4, model=model, device="cpu")

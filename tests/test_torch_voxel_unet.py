@@ -135,8 +135,8 @@ def test_predictor_matches_jax_predictor():
 
 
 def test_checkpoint_roundtrip_and_api(tmp_path):
-    cfg = ModelConfig(grid_size=8, unet_width=8, levels=2,
-                      compute_dtype="float32", impl="xla")
+    cfg = ModelConfig(name="voxel_unet3d", grid_size=8, unet_width=8,
+                      levels=2, compute_dtype="float32", impl="xla")
     model = build_model(cfg, 4, generator=torch.Generator().manual_seed(0))
     path = save_checkpoint(str(tmp_path / "model.pt"), model.state_dict(), 4,
                            cfg)
