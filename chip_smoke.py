@@ -29,7 +29,20 @@
    batch 64, 4 train steps and one eval batch per epoch, 2 epochs), with
    bn_stats="fused" and "exact": launch counts per step, finite losses,
    ms per step, points/s, peak memory.
-7. Prints the kernels as one JSON line, the card's name and power limit,
+7. Holds each voxel U-Net backward kernel (the 3^3 dgrad and wgrad, the
+   down and up backward, the trilinear scatter of the devoxelize VJP)
+   against its plain version at every shape one B8 x 8192 train step at
+   64^3/w16/L3 launches, and times kernel, plain version, bound and one
+   PyTorch call of the same function (cuDNN's convolution_backward,
+   index_add_; yardsticks only).
+8. One whole voxel U-Net train step (seeded random weights, one batch of
+   synthetic events) with the kernels, with the plain versions, and in f32
+   on the plain core: loss and gradients.
+9. Trains the voxel U-Net through api.fit (bucket 8192, batch 8, 3 train
+   steps and one eval batch per epoch, 2 epochs): launch counts per step,
+   finite losses, ms per step, points/s, peak memory; then serves the
+   best checkpoint through Predictor on the card.
+10. Prints the kernels as one JSON line, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
@@ -191,8 +204,9 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
 
     if kernel == "conv3x3_gn_act":
         def run():
-            return cb.conv3x3_gn_act(x, w, bias, scale, shift, accum,
-                                     activate=activate, want_stats=want_stats)
+            return cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift, accum,
+                                          activate=activate,
+                                          want_stats=want_stats)
 
         def plain():
             return cb.conv3x3_gn_act_plain(
@@ -206,7 +220,7 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
         taps = 27
     elif kernel == "down2x_gn_act":
         def run():
-            return cb.down2x_gn_act(x, w, bias, scale, shift)
+            return cb.down2x_gn_act_cuda(x, w, bias, scale, shift)
 
         def plain():
             return cb.down2x_gn_act_plain(x, w, bias, scale, shift)
@@ -218,7 +232,7 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
         taps = 8
     else:
         def run():
-            return cb.up2x_gn_act(x, w, bias, scale, shift)
+            return cb.up2x_gn_act_cuda(x, w, bias, scale, shift)
 
         def plain():
             return cb.up2x_gn_act_plain(x, w, bias, scale, shift)
@@ -312,7 +326,7 @@ def serve(card: str):
     t2 = time.perf_counter()
     launches = dict(cb.LAUNCHES)
     forwards = 3
-    expected = {k: v * forwards for k, v in PER_FORWARD.items()}
+    expected = {k: PER_FORWARD.get(k, 0) * forwards for k in cb.LAUNCHES}
     print(f"  main path: {forwards} forwards, launches {launches} "
           f"(expected {expected})", flush=True)
     if launches != expected:
@@ -588,6 +602,7 @@ def pn_ce_case(gen):
         checks[name] = _sum_check(a, r)
     err = _held("fused_seg4_ce", checks)
     wq = w.to(torch.bfloat16)
+    dl = torch.randn((n, c), generator=gen, device="cuda").to(torch.bfloat16)
     res = {
         "name": "fused_seg4_ce", "case": "seg4+CE",
         "shape": f"N{n} {cin}->{c}", "max_abs_err": err,
@@ -596,7 +611,9 @@ def pn_ce_case(gen):
         "library_ms": time_ms(lambda: x @ wq),
         "bwd_ms": time_ms(lambda: fc.seg4_ce_bwd_cuda(*args, ct)),
         "bwd_plain_ms": time_ms(lambda: fc.seg4_ce_bwd_plain(*args, ct)),
-        "bwd_library_ms": None,
+        # the backward's two products, dlogits W^T and x^T dlogits, on a
+        # bf16 (N, C) cotangent, as the other rows' yardstick
+        "bwd_library_ms": time_ms(lambda: (dl @ wq.t(), x.t() @ dl)),
     }
     io = n * cin * 2 + n * 8 + cin * c * 2 + 2 * c * 4 + 4 * cin * 4
     res["bound_ms"], res["bound_by"] = _bound(io + 3 * 4, 2 * n * cin * c)
@@ -802,6 +819,438 @@ def pn_fit(card, bn_stats, events):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# voxel U-Net training (slice 3)
+# ---------------------------------------------------------------------------
+
+# pcseg_tpu/bench.py's voxel step (VOX_* at :124): B8 x 8192 points, 64^3
+# grid, width 16, 3 levels, 4 classes, bf16; scatter voxelize and gather
+# devoxelize (the f32-exact forms, as served in phase 3)
+VOX_B, VOX_M, VOX_R, VOX_W, VOX_CLASSES = 8, 8192, 64, 16, 4
+TRI_SOURCE = "pcseg_tpu_torch/csrc/onehot_contract.cu"
+VOX_REPLACES = {
+    "conv3x3_dgrad": "pcseg_tpu/ops/pallas/conv3d_block.py:546",
+    "conv3x3_wgrad": "pcseg_tpu/ops/pallas/conv3d_block.py:648",
+    "down2x_bwd": "pcseg_tpu/ops/pallas/conv3d_block.py:1353",
+    "up2x_bwd": "pcseg_tpu/ops/pallas/conv3d_block.py:1439",
+    "trilinear_scatter": "pcseg_tpu/ops/pallas/onehot_contract.py:245",
+}
+# wrapper launches per train step on the main path, as the JAX structure
+# has them: 13 3^3 convs, of which the stem (input = data) runs no dgrad;
+# levels-1 down and up blocks; one devoxelize backward
+VOX_PER_STEP = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
+                "conv3x3_dgrad": 12, "conv3x3_wgrad": 13, "down2x_bwd": 2,
+                "up2x_bwd": 2, "trilinear_scatter": 1}
+# whole step, kernels vs plain versions: loss 1e-4 relative; the conv
+# kernels' gradient vector at cosine >= 0.998; each gradient's relative L2
+# within 3x the plain bf16 chain's own distance from the same step in f32
+# (the train-mode GroupNorm backward amplifies one-ulp bf16 flips, as the
+# BN backward does in phase 5), except the conv biases that a GroupNorm
+# follows, whose gradient is 0 up to rounding (reported, not held)
+VOX_LOSS_REL, VOX_KERNEL_COS, VOX_GRAD_RATIO = 1e-4, 0.998, 3.0
+
+
+def vox_bwd_cases():
+    """(kernel, label, r, cin, cout, kwargs) at every shape the backward
+    of one train step launches: the 3^3 blocks at each level (the accum
+    and stats-free y1 halves of the decoder at levels 0 and 1, the stem at
+    level 0), the two down and the two up blocks."""
+    cases = [("conv3x3", "act", r, c, c, {})
+             for r, c in ((64, 16), (32, 32), (16, 64))]
+    for r, c in ((64, 16), (32, 32)):
+        cases.append(("conv3x3", "accum", r, c, c, {"accum": True}))
+        cases.append(("conv3x3", "y1 no-stats", r, c, c, {"stats": False}))
+    cases.append(("conv3x3", "stem", 64, 16, 16, {"activate": False}))
+    cases += [("down2x_bwd", "act", 64, 16, 32, {}),
+              ("down2x_bwd", "act", 32, 32, 64, {}),
+              ("up2x_bwd", "act", 16, 64, 32, {}),
+              ("up2x_bwd", "act", 32, 32, 16, {})]
+    return cases
+
+
+def _vox_inputs(gen, r, cin, cout, k):
+    import torch
+
+    b = VOX_B
+    x = torch.randn((b, r, r, r, cin), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bound = (6.0 / (k ** 3 * cin)) ** 0.5
+    w = (torch.rand((k, k, k, cin, cout), generator=gen, device="cuda") * 2
+         - 1) * bound
+    bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+    scale = torch.rand((b, cin), generator=gen, device="cuda") * 0.6 + 0.7
+    shift = torch.randn((b, cin), generator=gen, device="cuda") * 0.3
+    return x, w, bias, scale, shift
+
+
+def _vox_cotangents(gen, shape):
+    import torch
+
+    gy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    gstats = torch.stack([
+        torch.randn((shape[0], shape[-1]), generator=gen, device="cuda")
+        * 1e-2,
+        torch.randn((shape[0], shape[-1]), generator=gen, device="cuda")
+        * 1e-3], dim=1)
+    return gy, gstats
+
+
+def _ncdhw(t):
+    return t.permute(0, 4, 1, 2, 3)
+
+
+def _library_bwd(gy, x, wl, stride, padding, transposed, mask):
+    """One cuDNN convolution_backward of the same bf16 conv (NDHWC views
+    as channels-last NCDHW)."""
+    import torch
+
+    return torch.ops.aten.convolution_backward(
+        _ncdhw(gy), _ncdhw(x), wl, [wl.shape[1] if transposed else
+                                    wl.shape[0]],
+        [stride] * 3, [padding] * 3, [1] * 3, transposed, [0] * 3, 1, mask)
+
+
+def _vox_report(res):
+    lib = res["library_ms"]
+    print(f"  ok  {res['name']:18s} {res['case']:12s} {res['shape']:24s} "
+          f"max|err| {res['max_abs_err']:.3e}  kernel {res['ms']:.4f} / "
+          f"plain {res['plain_ms']:.4f} / library "
+          f"{'-' if lib is None else f'{lib:.4f}'} / bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']})", flush=True)
+    return res
+
+
+def vox_conv3x3_case(label, r, cin, cout, kw, gen):
+    """dgrad and wgrad of one 3^3 block at one shape: two result rows
+    (the stem, whose input is data, launches no dgrad: one row)."""
+    import torch
+
+    from pcseg_tpu_torch.ops import conv3d_block as cb
+
+    x, w, bias, scale, shift = _vox_inputs(gen, r, cin, cout, 3)
+    activate = kw.get("activate", True)
+    y, _ = cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift,
+                                  activate=activate)
+    gy, gstats = _vox_cotangents(gen, y.shape)
+    if not kw.get("stats", True):
+        y = gstats = None
+    want_gadj = bool(kw.get("accum"))
+    wl = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2)
+    n = VOX_B * r ** 3
+    flops = 2 * n * 27 * cin * cout
+    cot = n * cout * 2 * (1 if y is None else 2) + (
+        0 if gstats is None else VOX_B * 2 * cout * 4)
+    vec = 2 * VOX_B * cin * 4 if activate else 0
+    shape = f"B{VOX_B} {r}^3 {cin}->{cout}"
+    rows = []
+    if activate:
+        dargs = (gy, y, gstats, x, w, scale, shift, activate, want_gadj)
+        dk = cb.conv3x3_dgrad_cuda(*dargs)
+        torch.cuda.synchronize()
+        dp = cb.conv3x3_dgrad_plain(*dargs)
+        checks = {"dx": _bf16_check(dk[0], dp[0]),
+                  "dscale/dshift": _sum_check(dk[1], dp[1])}
+        if want_gadj:
+            checks["g'"] = (float((dk[2].float() - dp[2].float()).abs()
+                                  .max()), bool(torch.equal(dk[2], dp[2])))
+        res = {
+            "name": "conv3x3_dgrad", "case": label, "shape": shape,
+            "max_abs_err": _held(f"conv3x3_dgrad {label} {shape}", checks),
+            "ms": time_ms(lambda: cb.conv3x3_dgrad_cuda(*dargs)),
+            "plain_ms": time_ms(lambda: cb.conv3x3_dgrad_plain(*dargs),
+                                iters=3),
+            "library_ms": time_ms(lambda: _library_bwd(
+                gy, x, wl, 1, 1, False, [True, False, False])),
+        }
+        nbytes = (cot + n * cin * 2 * 2 + 27 * cin * cout * 2 + vec
+                  + 2 * VOX_B * cin * 4 + (n * cout * 2 if want_gadj else 0))
+        res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
+        rows.append(_vox_report(res))
+    wargs = (x, scale, shift, gy, y, gstats, activate)
+    wk = cb.conv3x3_wgrad_cuda(*wargs)
+    torch.cuda.synchronize()
+    wp = cb.conv3x3_wgrad_plain(*wargs)
+    checks = {"dW": _sum_check(wk[0], wp[0]), "dbias": _sum_check(wk[1],
+                                                                 wp[1])}
+    res = {
+        "name": "conv3x3_wgrad", "case": label, "shape": shape,
+        "max_abs_err": _held(f"conv3x3_wgrad {label} {shape}", checks),
+        "ms": time_ms(lambda: cb.conv3x3_wgrad_cuda(*wargs)),
+        "plain_ms": time_ms(lambda: cb.conv3x3_wgrad_plain(*wargs), iters=3),
+        "library_ms": time_ms(lambda: _library_bwd(
+            gy, x, wl, 1, 1, False, [False, True, True])),
+    }
+    nbytes = cot + n * cin * 2 + vec + 27 * cin * cout * 4 + cout * 4
+    res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
+    rows.append(_vox_report(res))
+    return rows
+
+
+def vox_resample_case(name, r, cin, cout, gen):
+    import torch
+
+    from pcseg_tpu_torch.ops import conv3d_block as cb
+
+    up = name == "up2x_bwd"
+    x, w, bias, scale, shift = _vox_inputs(gen, r, cin, cout, 2)
+    fwd = cb.up2x_gn_act_cuda if up else cb.down2x_gn_act_cuda
+    y, _ = fwd(x, w, bias, scale, shift)
+    gy, gstats = _vox_cotangents(gen, y.shape)
+    args = (x, w, scale, shift, gy, y, gstats)
+    kern = getattr(cb, f"{name}_cuda")
+    plain = getattr(cb, f"{name}_plain")
+    gk = kern(*args)
+    torch.cuda.synchronize()
+    gp = plain(*args)
+    checks = {"dx": _bf16_check(gk[0], gp[0])}
+    for k, a, b in zip(("dscale/dshift", "dW", "dbias"), gk[1:], gp[1:]):
+        checks[k] = _sum_check(a, b)
+    ro = 2 * r if up else r // 2
+    shape = f"B{VOX_B} {r}^3x{cin}->{ro}^3x{cout}"
+    if up:
+        wl = w.to(torch.bfloat16).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+    else:
+        wl = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2)
+    res = {
+        "name": name, "case": "act", "shape": shape,
+        "max_abs_err": _held(f"{name} {shape}", checks),
+        "ms": time_ms(lambda: kern(*args)),
+        "plain_ms": time_ms(lambda: plain(*args), iters=3),
+        "library_ms": time_ms(lambda: _library_bwd(
+            gy, x, wl, 2, 0, up, [True, True, True])),
+    }
+    n_in, n_out = VOX_B * r ** 3, VOX_B * ro ** 3
+    nbytes = (n_in * cin * 2 * 2 + n_out * cout * 2 * 2 + 8 * cin * cout * 2
+              + 4 * VOX_B * cin * 4 + VOX_B * 2 * cout * 4
+              + 2 * VOX_B * cin * 4 + 8 * cin * cout * 4 + cout * 4)
+    # dgrad and wgrad: each one product over the 8 taps of every pair
+    flops = 2 * 2 * max(n_in, n_out) * cin * cout
+    res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
+    return _vox_report(res)
+
+
+def vox_scatter_case(gen):
+    import torch
+
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    b, m, r, c = VOX_B, VOX_M, VOX_R, VOX_CLASSES
+    # continuous voxel coords over the event box, 3/4 of the points real
+    u = torch.rand((b, m, 3), generator=gen, device="cuda") * r - 0.5
+    valid = torch.rand((b, m), generator=gen, device="cuda") < 0.75
+    go = torch.randn((b, m, c), generator=gen, device="cuda") * 1e-3
+    go = torch.where(valid[..., None], go, 0.0)
+    k = vx.trilinear_scatter(u, go, r)
+    torch.cuda.synchronize()
+    p = vx.trilinear_scatter_plain(u, go, r)
+    err = _held("trilinear_scatter", {"dgrid": _sum_check(k, p)})
+    rows, vals = vx.trilinear_scatter_taps(u, go, r)
+    rows, vals = rows.reshape(-1), vals.reshape(-1, c)
+    out = torch.zeros((b * r ** 3, c), device="cuda")
+    res = {
+        "name": "trilinear_scatter", "case": "devox bwd",
+        "shape": f"B{b} M{m} R{r} C{c}", "max_abs_err": err,
+        "ms": time_ms(lambda: vx.trilinear_scatter(u, go, r)),
+        "plain_ms": time_ms(lambda: vx.trilinear_scatter_plain(u, go, r),
+                            iters=3),
+        # one index_add_ of the precomputed 8 B M weighted tap rows
+        "library_ms": time_ms(lambda: out.index_add_(0, rows, vals)),
+    }
+    # read u and go once, write the f32 grid once; 8 taps x C products
+    # of each real point
+    n_real = int(valid.sum())
+    res["bound_ms"], res["bound_by"] = _bound(
+        b * m * 3 * 4 + b * m * c * 4 + b * r ** 3 * c * 4,
+        2 * 8 * c * n_real)
+    return _vox_report(res)
+
+
+def vox_model(dtype="bfloat16", impl="fused"):
+    import torch
+
+    from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
+
+    return VoxelUNet3d(
+        num_classes=VOX_CLASSES, grid_size=VOX_R, width=VOX_W, levels=3,
+        compute_dtype=dtype, conv_impl=impl, voxelize_impl="scatter",
+        devox_impl="gather", generator=torch.Generator().manual_seed(0),
+    ).cuda()
+
+
+def vox_step_compare(card):
+    """One voxel train step with the kernels and with the plain versions,
+    from the same weights and batch, and the same step in f32 on the plain
+    core as the yardstick of the bf16 chain's own rounding."""
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.class_stats import scan_classes
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+    from pcseg_tpu_torch.ops.losses import cross_entropy_sums
+
+    events = list(synthetic_events(VOX_B, min_points=4000, max_points=VOX_M,
+                                   seed=5))
+    cw = torch.from_numpy(np.asarray(scan_classes(events).weights)).cuda()
+    pts, labels, masks = (torch.from_numpy(a).cuda() for a in pad_events(
+        events, VOX_M, batch_size=VOX_B))
+    model = vox_model()
+    model32 = vox_model("float32", "xla")
+    model32.load_state_dict(model.state_dict())
+
+    def step(m, plain):
+        m.zero_grad(set_to_none=True)
+        logits, _ = m.apply(pts, train=True, mask=masks, plain=plain)
+        num, den = cross_entropy_sums(logits, labels, cw)
+        (num / den).backward()
+        return (num / den).detach()
+
+    def grads(m):
+        return {n: p.grad.clone() for n, p in m.named_parameters()}
+
+    lk = step(model, False)
+    gk = grads(model)
+    lp = step(model, True)
+    gp = grads(model)
+    lf = step(model32, True)
+    gf = grads(model32)
+    torch.cuda.synchronize()
+    zero = {n for n in gp if n.endswith(".bias") and not n.startswith(
+        "head") and n.replace(".bias", ".kernel") in gp}
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm()) for n in gp}
+    own = {n: float((gp[n] - gf[n]).norm() / gf[n].norm()) for n in gp}
+    ratio = {n: float((gk[n] - gp[n]).norm())
+             / max(float((gp[n] - gf[n]).norm()), 1e-30)
+             for n in gp if n not in zero}
+    kern = [n for n in gp if n.endswith(".kernel")]
+    kk = torch.cat([gk[n].flatten() for n in kern])
+    kp = torch.cat([gp[n].flatten() for n in kern])
+    kcos = float(kk @ kp / (kk.norm() * kp.norm()))
+    worst = max(ratio, key=ratio.get)
+    ok = (loss_rel <= VOX_LOSS_REL and kcos >= VOX_KERNEL_COS
+          and ratio[worst] <= VOX_GRAD_RATIO
+          and all(torch.isfinite(g).all() for g in gk.values()))
+    ms_k = time_ms(lambda: step(model, False), iters=3)
+    ms_p = time_ms(lambda: step(model, True), iters=3)
+    ms_f = time_ms(lambda: step(model32, True), iters=3)
+    res = {"loss_kernels": float(lk), "loss_plain": float(lp),
+           "loss_f32": float(lf), "loss_rel_err": loss_rel,
+           "kernel_grad_cosine": kcos,
+           "grad_rel_err_kernels_vs_plain": rel,
+           "grad_rel_err_plain_vs_f32": own, "grad_ratio": ratio,
+           "grad_ratio_max": ratio[worst], "grad_worst": worst,
+           "grad_rel_err_max_held": max(rel[n] for n in ratio),
+           "grad_rel_err_plain_vs_f32_max_held": max(own[n] for n in ratio),
+           "zero_grad_bias_rel_err_max": max(rel[n] for n in zero),
+           "fwd_bwd_ms_kernels": ms_k, "fwd_bwd_ms_plain": ms_p,
+           "fwd_bwd_ms_f32_plain_core": ms_f, "card": card}
+    print(f"  loss kernels {float(lk):.6f} plain {float(lp):.6f} (rel "
+          f"{loss_rel:.2e}, tol {VOX_LOSS_REL:.0e}), f32 {float(lf):.6f}; "
+          f"conv-kernel gradient cosine {kcos:.6f} (tol {VOX_KERNEL_COS}); "
+          f"gradients kernels vs plain <= {res['grad_rel_err_max_held']:.3e}"
+          f" (rel L2), plain vs f32 <= "
+          f"{res['grad_rel_err_plain_vs_f32_max_held']:.3e}; worst ratio "
+          f"{ratio[worst]:.3f} at {worst} (tol {VOX_GRAD_RATIO}); fwd+bwd "
+          f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain, {ms_f:.2f} ms "
+          f"f32 plain core [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"voxel train step: kernels disagree with the "
+                             f"plain versions: {res}")
+    return res
+
+
+def vox_fit(card):
+    """The main path: api.fit on the voxel family, then Predictor on its
+    best checkpoint. Returns (fit launches, serving launches, result)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch import api
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+    from pcseg_tpu_torch.infer import Predictor
+    from pcseg_tpu_torch.ops import conv3d_block as cb
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    # 30 events: 24 train (3 batches of 8), 6 val (one eval batch)
+    events = list(synthetic_events(30, min_points=4000, max_points=VOX_M,
+                                   seed=3))
+    overrides = [
+        "model.name=voxel_unet3d", f"model.num_classes={VOX_CLASSES}",
+        f"model.grid_size={VOX_R}", f"model.unet_width={VOX_W}",
+        "model.levels=3", "model.compute_dtype=bfloat16", "model.impl=fused",
+        "model.voxelize_impl=scatter", "model.devox_impl=gather",
+        f"data.batch_size={VOX_B}", f"data.buckets={VOX_M}",
+        "train.num_epochs=2", "train.log_every_steps=0",
+        "train.checkpoint_dir=build/chip_smoke_ckpt_voxel"]
+
+    def counts():
+        return {**cb.LAUNCHES, **vx.LAUNCHES}
+
+    torch.cuda.reset_peak_memory_stats()
+    cb.reset_launches()
+    vx.reset_launches()
+    res = api.fit(events, overrides=overrides, log=lambda _: None)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = sum(h["train_steps"] for h in res.history)
+    evals = len(res.history)          # one eval batch per epoch
+    expected = {k: VOX_PER_STEP[k] * steps + PER_FORWARD.get(k, 0) * evals
+                for k in launches}
+    if launches != expected:
+        raise AssertionError(f"voxel fit: launch counts {launches} != "
+                             f"{expected} ({steps} train steps, {evals} "
+                             "eval batches)")
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_loss")]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"voxel fit: non-finite loss {losses}")
+    warm = res.history[-1]
+    ms_step = warm["train_seconds"] * 1e3 / warm["train_steps"]
+
+    # the best checkpoint, served on the card
+    cb.reset_launches()
+    vx.reset_launches()
+    pred = Predictor.from_checkpoint(res.checkpoint_path)
+    served = [p for p, _ in events[:VOX_B]]
+    preds = pred.predict_batch(served, batch_size=VOX_B)
+    logits = pred.logits(served[0])
+    torch.cuda.synchronize()
+    serve_launches = counts()
+    want = {k: PER_FORWARD.get(k, 0) * 2 for k in serve_launches}
+    if serve_launches != want:
+        raise AssertionError(f"serving the checkpoint: launch counts "
+                             f"{serve_launches} != {want}")
+    if [p.shape[0] for p in preds] != [e.shape[0] for e in served] or \
+            not np.isfinite(logits).all():
+        raise AssertionError("serving the checkpoint: bad predictions")
+    out = {
+        "steps": steps, "eval_batches": evals, "launches": launches,
+        "launches_per_step": {k: (v - PER_FORWARD.get(k, 0) * evals) / steps
+                              for k, v in launches.items()},
+        "train_loss": [h["train_loss"] for h in res.history],
+        "val_loss": [h["val_loss"] for h in res.history],
+        "first_epoch_train_ms_per_step":
+            res.history[0]["train_seconds"] * 1e3 / res.history[0][
+                "train_steps"],
+        "ms_per_step": ms_step,
+        "points_per_s": VOX_B * VOX_M / (ms_step / 1e3),
+        "epoch_seconds": [h["seconds"] for h in res.history],
+        "peak_mem_gib": peak, "serve_launches": serve_launches,
+        "served_events": len(preds), "card": card,
+    }
+    print(f"  fit voxel_unet3d [{card}]: {steps} train steps at B{VOX_B} x "
+          f"{VOX_M}, launches per step {out['launches_per_step']}; train "
+          f"loss {out['train_loss']}, val loss {out['val_loss']}; "
+          f"{ms_step:.2f} ms/step (epoch 2; epoch 1 "
+          f"{out['first_epoch_train_ms_per_step']:.2f}), "
+          f"{out['points_per_s']:.4e} points/s; peak {peak:.3f} GiB; best "
+          f"checkpoint served {len(preds)} events", flush=True)
+    return launches, serve_launches, out
+
+
 def main() -> int:
     import torch
 
@@ -853,6 +1302,28 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{unused}")
 
+    print(f"[7] voxel U-Net backward kernels vs plain versions, B{VOX_B} x "
+          f"{VOX_R}^3 [{card}]", flush=True)
+    vox_cases = []
+    for kind, label, r, cin, cout, kw in vox_bwd_cases():
+        if kind == "conv3x3":
+            vox_cases += vox_conv3x3_case(label, r, cin, cout, kw, gen)
+        else:
+            vox_cases.append(vox_resample_case(kind, r, cin, cout, gen))
+    vox_cases.append(vox_scatter_case(gen))
+
+    print(f"[8] one voxel U-Net train step, kernels vs plain [{card}]",
+          flush=True)
+    vox_step = vox_step_compare(card)
+
+    print(f"[9] api.fit on the voxel U-Net, then Predictor [{card}]",
+          flush=True)
+    vox_launches, vox_serve, vox_fitted = vox_fit(card)
+    unused = [k for k, v in vox_launches.items() if v == 0]
+    if unused:
+        raise AssertionError(f"kernels never launched on the voxel training "
+                             f"path: {unused}")
+
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
         "down2x_gn_act": ("act", "B8 64^3x16->32^3x32"),
@@ -862,9 +1333,32 @@ def main() -> int:
     for name, (label, shape) in main_case.items():
         mine = [c for c in cases if c["name"] == name]
         at = next(c for c in mine if c["case"] == label and c["shape"] == shape)
+        by_path = {"serving": launches[name],
+                   "voxel_fit": vox_launches[name],
+                   "voxel_fit_serving": vox_serve[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "shape": shape,
+        })
+    # voxel backward rows: numbers at the largest shape each has on the
+    # training path; launches from the api.fit run of phase 9
+    vox_main = {"conv3x3_dgrad": ("act", "B8 64^3 16->16"),
+                "conv3x3_wgrad": ("act", "B8 64^3 16->16"),
+                "down2x_bwd": ("act", "B8 64^3x16->32^3x32"),
+                "up2x_bwd": ("act", "B8 32^3x32->64^3x16"),
+                "trilinear_scatter": ("devox bwd", "B8 M8192 R64 C4")}
+    for name, (label, shape) in vox_main.items():
+        mine = [c for c in vox_cases if c["name"] == name]
+        at = next(c for c in mine if c["case"] == label and c["shape"] == shape)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": TRI_SOURCE if name == "trilinear_scatter" else SOURCE,
+            "replaces": VOX_REPLACES[name], "launches": vox_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -893,7 +1387,8 @@ def main() -> int:
         })
     print(json.dumps({"cases": cases, "serving": served,
                       "pointnet_cases": pn_cases, "pointnet_step": step,
-                      "pointnet_fit": fits}))
+                      "pointnet_fit": fits, "voxel_cases": vox_cases,
+                      "voxel_step": vox_step, "voxel_fit": vox_fitted}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """High-level API (counterpart of pcseg_tpu/api.py): ``fit`` on in-memory
-events, and serving of the voxel U-Net through ``predictor`` /
+events (PointNetSeg and the voxel U-Net), and serving of the voxel U-Net,
+for instance the best checkpoint ``fit`` wrote, through ``predictor`` /
 ``predict``. HDF5 datasets, resume and ``evaluate`` are not ported yet."""
 
 from __future__ import annotations

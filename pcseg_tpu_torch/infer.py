@@ -1,5 +1,6 @@
 """Serving: ``Predictor`` (counterpart of pcseg_tpu/infer.py for the voxel
-family).
+family), from weights in memory or from a checkpoint that ``api.fit``
+wrote.
 
 Events are padded to bucket lengths, and a short batch with all-masked
 dummy rows, as in the JAX package; the valid-point mask goes to voxelize

@@ -1,5 +1,5 @@
 """VoxelUNet3d — voxelize -> 3D U-Net -> devoxelize (counterpart of
-pcseg_tpu/models/voxel_unet.py, forward only).
+pcseg_tpu/models/voxel_unet.py).
 
 Architecture (grid R, widths w, 2w, 4w, ...): stem 3^3 conv -> per level
 two conv-GN-ReLU blocks and a stride-2 down conv -> per decoder level a
@@ -15,9 +15,16 @@ Two cores, as in the JAX model:
 - ``conv_impl="fused"``: the CUDA conv kernels of ops/conv3d_block.py,
   with each GroupNorm folded from the previous kernel's stats into the
   next kernel's prologue and the decoder concat never built
-  (``conv(up, W[:, :w]) + conv_add(skip, W[:, w:])``). bf16 only.
+  (``conv(up, W[:, :w]) + conv_add(skip, W[:, w:])``). bf16 only. Each
+  block is an autograd Function whose backward runs the backward kernels.
 - ``conv_impl="xla"``: plain torch convs and the two-pass GroupNorm, the
   CPU and f32 oracle.
+
+Training follows the JAX model's ``apply(train=True)``: there are no
+running statistics (GroupNorm), so ``apply`` returns ``(logits, {})`` and
+``load_batch_stats`` has nothing to load. The devoxelize backward's
+precision follows ``compute_dtype`` (the bf16 trilinear-scatter kernel
+for bf16 models, f32 for f32 models).
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ class _Params(nn.Module):
     def __init__(self, tensors: dict):
         super().__init__()
         for k, v in tensors.items():
-            self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            self.register_parameter(k, nn.Parameter(v))
 
     def as_dict(self) -> dict:
         return dict(self.named_parameters(recurse=False))
@@ -130,13 +137,23 @@ class VoxelUNet3d(nn.Module):
     def p(self, name: str) -> dict:
         return getattr(self, name).as_dict()
 
-    @torch.no_grad()
-    def forward(self, points: torch.Tensor, mask: torch.Tensor | None = None,
-                *, plain: bool = False) -> torch.Tensor:
-        """(B, M, 3+F) points -> (B, M, num_classes) f32 logits.
+    # -- the duck type of train/steps.train_step
+    def supports_fused_loss(self) -> bool:
+        return False
 
-        ``plain=True`` runs the fused core through the kernels' plain
-        versions on any device: the on-card reference of the kernel path.
+    def load_batch_stats(self, new_bn: dict) -> None:
+        """GroupNorm keeps no running statistics: nothing to load."""
+
+    def apply(self, points: torch.Tensor, *, train: bool = False,
+              mask: torch.Tensor | None = None, seeds=None,
+              plain: bool = False):
+        """(B, M, 3+F) points -> (B, M, num_classes) f32 logits, and
+        ``(logits, {})`` when ``train=True``. Differentiable with respect
+        to the parameters. ``seeds`` is unused (no dropout).
+
+        ``plain=True`` runs the fused core and the devoxelize backward
+        through the kernels' plain versions on any device: the on-card
+        reference of the kernel path.
         """
         dt = _DTYPES[self.compute_dtype]
         if mask is None:
@@ -149,17 +166,32 @@ class VoxelUNet3d(nn.Module):
             voxel_logits = self._unet_core_fused(x, plain)
         else:
             voxel_logits = self._unet_core(x, dt)
-        return devoxelize_trilinear(voxel_logits, points, mask, grid.lo,
-                                    grid.scale, impl=self.devox_impl)
+        logits = devoxelize_trilinear(voxel_logits, points, mask, grid.lo,
+                                      grid.scale, impl=self.devox_impl,
+                                      bwd_dtype=dt, plain=plain)
+        return (logits, {}) if train else logits
+
+    @torch.no_grad()
+    def forward(self, points: torch.Tensor, mask: torch.Tensor | None = None,
+                *, plain: bool = False) -> torch.Tensor:
+        """Serving: eval-mode logits without a graph."""
+        return self.apply(points, mask=mask, plain=plain)
 
     def _unet_core_fused(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
         """Mirror of the JAX ``_unet_core_fused``: 13 conv3x3 launches,
-        levels-1 down and levels-1 up launches per forward at levels=3."""
-        if plain:
-            conv, down, up = (cb.conv3x3_gn_act_plain, cb.down2x_gn_act_plain,
-                              cb.up2x_gn_act_plain)
-        else:
-            conv, down, up = cb.conv3x3_gn_act, cb.down2x_gn_act, cb.up2x_gn_act
+        levels-1 down and levels-1 up launches per forward at levels=3; the
+        backward launches 12 dgrads (none for the stem), 13 wgrads and
+        levels-1 of each resample backward."""
+
+        def conv(*args, **kw):
+            return cb.conv3x3_gn_act(*args, plain=plain, **kw)
+
+        def down(*args):
+            return cb.down2x_gn_act(*args, plain=plain)
+
+        def up(*args):
+            return cb.up2x_gn_act(*args, plain=plain)
+
         widths = self.widths
         rs = [self.grid_size // (2 ** i) for i in range(self.levels)]
 
@@ -169,15 +201,15 @@ class VoxelUNet3d(nn.Module):
                                         rs[lv] ** 3)
 
         # stem through the same kernel: input channels zero-padded to w0,
-        # the (3,3,3,cin,w0) kernel embedded in a square zero kernel
+        # the (3,3,3,cin,w0) kernel embedded in a square zero kernel (the
+        # pad rows get no gradient); its input is data, so no dgrad
         w0 = widths[0]
         cin = x.shape[-1]
         xp = torch.nn.functional.pad(x.to(torch.bfloat16), (0, w0 - cin))
         stem = self.p("stem")
-        kstem = torch.zeros(3, 3, 3, w0, w0, device=x.device)
-        kstem[..., :cin, :] = stem["kernel"]
+        kstem = torch.nn.functional.pad(stem["kernel"], (0, 0, 0, w0 - cin))
         xp, st = conv(xp.contiguous(), kstem, stem["bias"], None, None,
-                      activate=False)
+                      activate=False, need_dx=False)
         sc, sh = fold(st, "stem_gn", 0)
         skips = []
         for i in range(self.levels):

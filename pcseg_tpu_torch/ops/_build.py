@@ -37,6 +37,13 @@ SIGNATURES = {
         "pcseg_conv3x3_gn_act": [_P] * 8 + [_I] * 7 + [_P],
         "pcseg_down2x_gn_act": [_P] * 7 + [_I] * 6 + [_P],
         "pcseg_up2x_gn_act": [_P] * 7 + [_I] * 6 + [_P],
+        "pcseg_conv3x3_dgrad": [_P] * 10 + [_I] * 7 + [_P],
+        "pcseg_conv3x3_wgrad": [_P] * 8 + [_I] * 7 + [_P],
+        "pcseg_down2x_bwd": [_P] * 11 + [_I] * 6 + [_P],
+        "pcseg_up2x_bwd": [_P] * 11 + [_I] * 6 + [_P],
+    },
+    "onehot_contract": {
+        "pcseg_trilinear_scatter": [_P] * 3 + [_I] * 4 + [_P],
     },
     "pointnet_fused": {
         "pcseg_dropout": [_P, _P, _L, _U, _U, _F, _I, _P],

@@ -1,4 +1,5 @@
-"""Fused conv blocks of the voxel U-Net core: CUDA kernels + plain versions.
+"""Fused conv blocks of the voxel U-Net core: CUDA kernels, plain versions
+and their autograd.
 
 Counterpart of pcseg_tpu/ops/pallas/conv3d_block.py. Each block is
 ``relu(x * scale + shift) -> conv -> + bias (+ accum)``, bf16 out, with
@@ -11,13 +12,33 @@ and GroupNorm never needs a pass of its own:
 - ``down2x_gn_act``: the k2 s2 conv C -> 2C (``fused_down2x_p``);
 - ``up2x_gn_act``: the k2 s2 transposed conv 2C -> C (``fused_up2x_p``).
 
+Each is a ``torch.autograd.Function`` whose backward is the JAX custom
+VJP on kernels of its own. The stats output feeds the next GroupNorm, so
+its cotangent ``gstats`` comes back beside ``gy``, and the conv's
+cotangent is g' = gy + gs1 + 2 gs2 y, with y the stored bf16 output,
+folded into the kernels' gy reads:
+
+- ``conv3x3_dgrad``: dx = relu'(pre) * scale * conv(g', flip(W)^T) and the
+  per-(batch, channel) dscale/dshift (``_dgrad_pallas``), plus the bf16
+  g' itself, which is the add variant's accum gradient;
+- ``conv3x3_wgrad``: dW and dbias (``_wgrad_pallas``);
+- ``down2x_bwd`` / ``up2x_bwd``: dx, dscale/dshift, dW and dbias (the
+  backward kernels of ``fused_down2x_p`` / ``fused_up2x_p``).
+
+The 3^3 pair computes gy + (gs1 + 2 gs2 y) and rounds g' to bf16 before
+both products and before dbias; down/up compute (gy + gs1) + 2 gs2 y,
+take dbias from the f32 value and round only the product operand, as the
+TPU kernels do. ``need_dx=False`` (the stem, whose input is data) skips
+the dgrad launch.
+
 Everything is NDHWC. The TPU kernels' 128-lane packing of (W, C) and their
 (B, 128) lane-tiled scale/shift/stats existed only for the TPU's vector
 lanes; here scale/shift are (B, C) and stats (B, 2, C).
 
-Each wrapper runs its CUDA kernel (csrc/conv3d_block.cu) on a CUDA tensor
-and its plain PyTorch version on a CPU tensor; the plain version has the
-kernel's rounding points, so the two agree up to f32 summation order. On
+``*_cuda`` launch a kernel (csrc/conv3d_block.cu); ``*_plain`` are the
+plain PyTorch versions, with the kernels' rounding points, so the two agree
+up to f32 summation order. The differentiable ops run the kernels on a CUDA
+tensor and the plain versions on a CPU tensor or with ``plain=True``. On
 the card the plain versions are the reference the kernels are held to
 (chip_smoke.py), with TF32 off.
 """
@@ -38,7 +59,9 @@ from pcseg_tpu_torch.ops.conv3d import num_groups
 
 # launches per kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else
-LAUNCHES = {"conv3x3_gn_act": 0, "down2x_gn_act": 0, "up2x_gn_act": 0}
+LAUNCHES = {"conv3x3_gn_act": 0, "down2x_gn_act": 0, "up2x_gn_act": 0,
+            "conv3x3_dgrad": 0, "conv3x3_wgrad": 0, "down2x_bwd": 0,
+            "up2x_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -125,24 +148,104 @@ def _wq(w):
     return w.to(torch.bfloat16).float()
 
 
+def _ncdhw(t):
+    return t.permute(0, 4, 1, 2, 3)
+
+
+def _ndhwc(t):
+    return t.permute(0, 2, 3, 4, 1)
+
+
 def conv3x3_gn_act_plain(x, w, bias, scale, shift, accum=None, *,
                          activate=True, want_stats=True):
-    a = _prologue(x, scale, shift, activate).permute(0, 4, 1, 2, 3)
+    a = _ncdhw(_prologue(x, scale, shift, activate))
     yf = F.conv3d(a, _wq(w).permute(4, 3, 0, 1, 2), padding=1)
     return _finish(yf, bias, accum, want_stats)
 
 
 def down2x_gn_act_plain(x, w, bias, scale, shift):
-    a = _prologue(x, scale, shift, True).permute(0, 4, 1, 2, 3)
+    a = _ncdhw(_prologue(x, scale, shift, True))
     yf = F.conv3d(a, _wq(w).permute(4, 3, 0, 1, 2), stride=2)
     return _finish(yf, bias, None, True)
 
 
 def up2x_gn_act_plain(x, w, bias, scale, shift):
-    a = _prologue(x, scale, shift, True).permute(0, 4, 1, 2, 3)
+    a = _ncdhw(_prologue(x, scale, shift, True))
     wt = _wq(w).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
     yf = F.conv_transpose3d(a, wt, stride=2)
     return _finish(yf, bias, None, True)
+
+
+def _gprime(gy, y, gstats, order):
+    """The conv's f32 cotangent g' with the stats term: ``"3x3"`` computes
+    gy + (gs1 + 2 gs2 y), ``"updown"`` (gy + gs1) + 2 gs2 y."""
+    g = gy.float()
+    if gstats is None:
+        return g
+    gs1 = _bcast(gstats[:, 0])
+    t = _bcast(2.0 * gstats[:, 1]) * y.float()
+    if order == "3x3":
+        return g + (gs1 + t)
+    return (g + gs1) + t
+
+
+def _act_grad(da, x, scale, shift, activate):
+    """The dgrad epilogue: dx = bf16(da * [pre > 0] * scale) and the
+    per-(batch, channel) (sum dam * x, sum dam), or bf16(da) and None
+    without the activation."""
+    if not activate:
+        return da.to(torch.bfloat16).contiguous(), None
+    xs = x.float()
+    pre = xs * _bcast(scale) + _bcast(shift)
+    dam = torch.where(pre > 0, da, torch.zeros_like(da))
+    dx = (dam * _bcast(scale)).to(torch.bfloat16).contiguous()
+    dstats = torch.stack([(dam * xs).sum(dim=(1, 2, 3)),
+                          dam.sum(dim=(1, 2, 3))], dim=1)
+    return dx, dstats
+
+
+def conv3x3_dgrad_plain(gy, y, gstats, x, w, scale, shift, activate=True,
+                        want_gadj=False):
+    gp = _gprime(gy, y, gstats, "3x3").to(torch.bfloat16)
+    da = _ndhwc(F.conv_transpose3d(_ncdhw(gp.float()),
+                                   _wq(w).permute(4, 3, 0, 1, 2), padding=1))
+    dx, dstats = _act_grad(da, x, scale, shift, activate)
+    return dx, dstats, gp.contiguous() if want_gadj else None
+
+
+def conv3x3_wgrad_plain(x, scale, shift, gy, y, gstats, activate=True):
+    gp = _gprime(gy, y, gstats, "3x3").to(torch.bfloat16).float()
+    a = _prologue(x, scale, shift, activate)
+    cin, cout = x.shape[-1], gy.shape[-1]
+    dw = torch.nn.grad.conv3d_weight(_ncdhw(a), (cout, cin, 3, 3, 3),
+                                     _ncdhw(gp), padding=1)
+    return dw.permute(2, 3, 4, 1, 0).contiguous(), gp.sum(dim=(0, 1, 2, 3))
+
+
+def down2x_bwd_plain(x, w, scale, shift, gy, y, gstats):
+    ge = _gprime(gy, y, gstats, "updown")
+    gb = ge.to(torch.bfloat16).float()
+    b, d, h, wd, cin = x.shape
+    a = _prologue(x, scale, shift, True).reshape(
+        b, d // 2, 2, h // 2, 2, wd // 2, 2, cin)
+    dw = torch.einsum("bzpyqxri,bzyxo->pqrio", a, gb)
+    da = torch.einsum("bzyxo,pqrio->bzpyqxri", gb, _wq(w)).reshape(x.shape)
+    dx, dstats = _act_grad(da, x, scale, shift, True)
+    return dx, dstats, dw.contiguous(), ge.sum(dim=(0, 1, 2, 3))
+
+
+def up2x_bwd_plain(x, w, scale, shift, gy, y, gstats):
+    ge = _gprime(gy, y, gstats, "updown")
+    b, d, h, wd, _ = x.shape
+    gb = ge.to(torch.bfloat16).float().reshape(
+        b, d, 2, h, 2, wd, 2, gy.shape[-1])
+    a = _prologue(x, scale, shift, True)
+    # output 2i+d takes x[i] @ w[1-d]: in flipped taps, wf[d]
+    wf = _wq(w).flip(0, 1, 2)
+    dw = torch.einsum("bzyxi,bzpyqxro->pqrio", a, gb).flip(0, 1, 2)
+    da = torch.einsum("bzpyqxro,pqrio->bzyxi", gb, wf)
+    dx, dstats = _act_grad(da, x, scale, shift, True)
+    return dx, dstats, dw.contiguous(), ge.sum(dim=(0, 1, 2, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +265,7 @@ def _check(name, t, shape, dtype, device):
 
 
 def _common(x, w, bias, scale, shift, k, activate=True):
-    """Validate a launch and return (weights as f32 of bf16, bias f32)."""
+    """Validate a launch and return (weights as f32 of bf16, Cout)."""
     if x.dim() != 5:
         raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
     b, cin, dev = x.shape[0], x.shape[-1], x.device
@@ -173,7 +276,8 @@ def _common(x, w, bias, scale, shift, k, activate=True):
                          f"{tuple(w.shape)}")
     if cout % 4:
         raise ValueError(f"Cout={cout} must be a multiple of 4")
-    _check("bias", bias, (cout,), torch.float32, dev)
+    if bias is not None:
+        _check("bias", bias, (cout,), torch.float32, dev)
     if activate:
         _check("scale", scale, (b, cin), torch.float32, dev)
         _check("shift", shift, (b, cin), torch.float32, dev)
@@ -182,8 +286,40 @@ def _common(x, w, bias, scale, shift, k, activate=True):
     return _wq(w).contiguous(), cout
 
 
-def conv3x3_gn_act(x, w, bias, scale, shift, accum=None, *, activate=True,
-                   want_stats=True):
+def _cotangents(gy, y, gstats, shape):
+    """Validate a backward launch's gy (and y, gstats when given)."""
+    dev = gy.device
+    _check("gy", gy, shape, torch.bfloat16, dev)
+    if gstats is not None:
+        _check("y", y, shape, torch.bfloat16, dev)
+        _check("gstats", gstats, (shape[0], 2, shape[-1]), torch.float32,
+               dev)
+
+
+def _wgrad_checks(name, x, gy, y):
+    """The wgrad kernel stages 8 channels per 16-byte load: Cin and Cout
+    multiples of 8, Cout / 8 dividing 32, 16-byte aligned grids."""
+    cin, cout = x.shape[-1], gy.shape[-1]
+    if cin % 8 or cout % 8 or 32 % (cout // 8):
+        raise ValueError(f"{name} needs Cin % 8 == 0 and Cout in 8, 16, "
+                         f"..., 256, got {cin} -> {cout}")
+    for t in (x, gy, y):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned grids")
+
+
+def _wt(w):
+    """A dgrad's weights: the forward's bf16 weights with the taps flipped
+    and input/output swapped, f32."""
+    return _wq(w).flip(0, 1, 2).transpose(3, 4).contiguous()
+
+
+def _f32_zeros(like, *shape):
+    return torch.zeros(shape, dtype=torch.float32, device=like.device)
+
+
+def conv3x3_gn_act_cuda(x, w, bias, scale, shift, accum=None, *,
+                        activate=True, want_stats=True):
     """relu(x * scale + shift) -> 3^3 SAME conv -> + bias (+ accum).
 
     x (B, D, H, W, Cin) bf16; w (3, 3, 3, Cin, Cout) DHWIO, rounded to
@@ -191,9 +327,6 @@ def conv3x3_gn_act(x, w, bias, scale, shift, accum=None, *, activate=True,
     when ``activate=False``; accum (B, D, H, W, Cout) bf16 added in f32
     after the bias. Returns (y bf16, stats (B, 2, Cout) f32 or None).
     """
-    if not on_cuda(x):
-        return conv3x3_gn_act_plain(x, w, bias, scale, shift, accum,
-                                    activate=activate, want_stats=want_stats)
     wq, cout = _common(x, w, bias, scale, shift, 3, activate)
     b, d, h, wd, cin = x.shape
     if wd % 4:
@@ -202,8 +335,7 @@ def conv3x3_gn_act(x, w, bias, scale, shift, accum=None, *, activate=True,
         _check("accum", accum, (b, d, h, wd, cout), torch.bfloat16, x.device)
     y = torch.empty((b, d, h, wd, cout), dtype=torch.bfloat16,
                     device=x.device)
-    stats = (torch.zeros((b, 2, cout), dtype=torch.float32, device=x.device)
-             if want_stats else None)
+    stats = _f32_zeros(x, b, 2, cout) if want_stats else None
     rc = load_library().pcseg_conv3x3_gn_act(
         x.data_ptr(), wq.data_ptr(), bias.data_ptr(),
         ptr(scale) if activate else None, ptr(shift) if activate else None,
@@ -215,14 +347,12 @@ def conv3x3_gn_act(x, w, bias, scale, shift, accum=None, *, activate=True,
     return y, stats
 
 
-def down2x_gn_act(x, w, bias, scale, shift):
+def down2x_gn_act_cuda(x, w, bias, scale, shift):
     """relu(x * scale + shift) -> k2 s2 conv -> + bias.
 
     x (B, D, H, W, C) bf16 with D, H, W even; w (2, 2, 2, C, C2).
     Returns (y (B, D/2, H/2, W/2, C2) bf16, stats (B, 2, C2) f32).
     """
-    if not on_cuda(x):
-        return down2x_gn_act_plain(x, w, bias, scale, shift)
     wq, cout = _common(x, w, bias, scale, shift, 2)
     b, d, h, wd, cin = x.shape
     if d % 2 or h % 2 or wd % 8:
@@ -230,7 +360,7 @@ def down2x_gn_act(x, w, bias, scale, shift):
                          f"got {tuple(x.shape)}")
     y = torch.empty((b, d // 2, h // 2, wd // 2, cout), dtype=torch.bfloat16,
                     device=x.device)
-    stats = torch.zeros((b, 2, cout), dtype=torch.float32, device=x.device)
+    stats = _f32_zeros(x, b, 2, cout)
     rc = load_library().pcseg_down2x_gn_act(
         x.data_ptr(), wq.data_ptr(), bias.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), y.data_ptr(), stats.data_ptr(), b, d, h, wd, cin,
@@ -241,22 +371,20 @@ def down2x_gn_act(x, w, bias, scale, shift):
     return y, stats
 
 
-def up2x_gn_act(x, w, bias, scale, shift):
+def up2x_gn_act_cuda(x, w, bias, scale, shift):
     """relu(x * scale + shift) -> k2 s2 transposed conv -> + bias.
 
     x (B, D, H, W, C2) bf16; w (2, 2, 2, C2, C): output 2i+d takes
     x[i] @ w[1-d] per axis. Returns (y (B, 2D, 2H, 2W, C) bf16,
     stats (B, 2, C) f32).
     """
-    if not on_cuda(x):
-        return up2x_gn_act_plain(x, w, bias, scale, shift)
     wq, cout = _common(x, w, bias, scale, shift, 2)
     b, d, h, wd, cin = x.shape
     if wd % 2:
         raise ValueError(f"up2x needs even W, got {tuple(x.shape)}")
     y = torch.empty((b, 2 * d, 2 * h, 2 * wd, cout), dtype=torch.bfloat16,
                     device=x.device)
-    stats = torch.zeros((b, 2, cout), dtype=torch.float32, device=x.device)
+    stats = _f32_zeros(x, b, 2, cout)
     rc = load_library().pcseg_up2x_gn_act(
         x.data_ptr(), wq.data_ptr(), bias.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), y.data_ptr(), stats.data_ptr(), b, d, h, wd, cin,
@@ -265,3 +393,202 @@ def up2x_gn_act(x, w, bias, scale, shift):
     raise_on(rc, "up2x_gn_act")
     LAUNCHES["up2x_gn_act"] += 1
     return y, stats
+
+
+def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
+                       want_gadj=False):
+    """dgrad of the 3^3 block. gy (B, D, H, W, Cout) bf16; y the forward's
+    output and gstats (B, 2, Cout) its stats cotangent, or both None; x
+    the forward's input. Returns (dx bf16, dstats (B, 2, Cin) = (dscale,
+    dshift) or None without the activation, g' bf16 when ``want_gadj``)."""
+    _, cout = _common(x, w, None, scale, shift, 3, activate)
+    b, d, h, wd, cin = x.shape
+    if wd % 4 or cin % 4:
+        raise ValueError(f"dgrad needs W and Cin multiples of 4, got "
+                         f"{tuple(x.shape)}")
+    _cotangents(gy, y, gstats, (b, d, h, wd, cout))
+    dx = torch.empty_like(x)
+    dstats = _f32_zeros(x, b, 2, cin) if activate else None
+    gadj = torch.empty_like(gy) if want_gadj and gstats is not None else None
+    rc = load_library().pcseg_conv3x3_dgrad(
+        gy.data_ptr(), ptr(y) if gstats is not None else None, ptr(gstats),
+        x.data_ptr(), _wt(w).data_ptr(), ptr(scale) if activate else None,
+        ptr(shift) if activate else None, dx.data_ptr(), ptr(dstats),
+        ptr(gadj), b, d, h, wd, cin, cout, int(activate), stream_of(x),
+    )
+    raise_on(rc, "conv3x3_dgrad")
+    LAUNCHES["conv3x3_dgrad"] += 1
+    if want_gadj and gadj is None:
+        gadj = gy                     # no stats term: g' is gy
+    return dx, dstats, gadj
+
+
+def conv3x3_wgrad_cuda(x, scale, shift, gy, y, gstats, activate=True):
+    """wgrad of the 3^3 block: (dW (3, 3, 3, Cin, Cout), dbias (Cout,)),
+    f32; arguments as in ``conv3x3_dgrad_cuda``."""
+    b, d, h, wd, cin = x.shape
+    cout = gy.shape[-1]
+    _check("x", x, x.shape, torch.bfloat16, x.device)
+    if activate:
+        _check("scale", scale, (b, cin), torch.float32, x.device)
+        _check("shift", shift, (b, cin), torch.float32, x.device)
+    _cotangents(gy, y, gstats, (b, d, h, wd, cout))
+    _wgrad_checks("conv3x3_wgrad", x, gy, y)
+    dw = _f32_zeros(x, 3, 3, 3, cin, cout)
+    db = _f32_zeros(x, cout)
+    rc = load_library().pcseg_conv3x3_wgrad(
+        x.data_ptr(), ptr(scale) if activate else None,
+        ptr(shift) if activate else None, gy.data_ptr(),
+        ptr(y) if gstats is not None else None, ptr(gstats), dw.data_ptr(),
+        db.data_ptr(), b, d, h, wd, cin, cout, int(activate), stream_of(x),
+    )
+    raise_on(rc, "conv3x3_wgrad")
+    LAUNCHES["conv3x3_wgrad"] += 1
+    return dw, db
+
+
+def _resample_bwd_cuda(entry, x, w, scale, shift, gy, y, gstats, out_shape):
+    _common(x, w, None, scale, shift, 2)
+    b, d, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    _cotangents(gy, y, gstats, out_shape)
+    _wgrad_checks(entry, x, gy, y)
+    dx = torch.empty_like(x)
+    dstats = _f32_zeros(x, b, 2, cin)
+    dw = _f32_zeros(x, 2, 2, 2, cin, cout)
+    db = _f32_zeros(x, cout)
+    rc = getattr(load_library(), f"pcseg_{entry}")(
+        x.data_ptr(), _wt(w).data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        gy.data_ptr(), ptr(y) if gstats is not None else None, ptr(gstats),
+        dx.data_ptr(), dstats.data_ptr(), dw.data_ptr(), db.data_ptr(), b, d,
+        h, wd, cin, cout, stream_of(x),
+    )
+    raise_on(rc, entry)
+    LAUNCHES[entry] += 1
+    return dx, dstats, dw, db
+
+
+def down2x_bwd_cuda(x, w, scale, shift, gy, y, gstats):
+    """Backward of the down block: (dx bf16, dstats (B, 2, C) = (dscale,
+    dshift), dW (2, 2, 2, C, C2), dbias (C2,)); gy/y (B, D/2, H/2, W/2,
+    C2), gstats (B, 2, C2) or None (with y None)."""
+    b, d, h, wd, _ = x.shape
+    if d % 2 or h % 2 or wd % 8:
+        raise ValueError(f"down2x needs even D, H and W a multiple of 8, "
+                         f"got {tuple(x.shape)}")
+    return _resample_bwd_cuda("down2x_bwd", x, w, scale, shift, gy, y, gstats,
+                              (b, d // 2, h // 2, wd // 2, w.shape[-1]))
+
+
+def up2x_bwd_cuda(x, w, scale, shift, gy, y, gstats):
+    """Backward of the up block, dW in the forward's tap order; gy/y
+    (B, 2D, 2H, 2W, C), gstats (B, 2, C) or None."""
+    b, d, h, wd, _ = x.shape
+    if wd % 4:
+        raise ValueError(f"up2x backward needs W a multiple of 4, got "
+                         f"{tuple(x.shape)}")
+    return _resample_bwd_cuda("up2x_bwd", x, w, scale, shift, gy, y, gstats,
+                              (b, 2 * d, 2 * h, 2 * wd, w.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, accum, w, bias, scale, shift, activate, want_stats,
+                need_dx, plain):
+        kern = on_cuda(x, plain)
+        fwd = conv3x3_gn_act_cuda if kern else conv3x3_gn_act_plain
+        y, stats = fwd(x, w, bias, scale, shift, accum, activate=activate,
+                       want_stats=want_stats)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w, scale, shift, y if want_stats else None)
+        ctx.cfg = (kern, activate, want_stats, need_dx, accum is not None)
+        if stats is None:
+            stats = x.new_empty(0, dtype=torch.float32)
+            ctx.mark_non_differentiable(stats)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, gstats):
+        x, w, scale, shift, y = ctx.saved_tensors
+        kern, activate, want_stats, need_dx, has_accum = ctx.cfg
+        if gy is None:
+            gy = x.new_zeros(x.shape[:4] + (w.shape[-1],))
+        gy = gy.to(torch.bfloat16).contiguous()
+        if not want_stats or gstats is None:
+            gstats = y = None
+        else:
+            gstats = gstats.contiguous()
+        dx = dstats = gacc = None
+        # the stem's input is data: no dgrad (its dx would be dead)
+        if need_dx or activate or has_accum:
+            dgrad = conv3x3_dgrad_cuda if kern else conv3x3_dgrad_plain
+            dx, dstats, gacc = dgrad(gy, y, gstats, x, w, scale, shift,
+                                     activate, has_accum)
+        wgrad = conv3x3_wgrad_cuda if kern else conv3x3_wgrad_plain
+        dw, dbias = wgrad(x, scale, shift, gy, y, gstats, activate)
+        dscale = dshift = None
+        if dstats is not None:
+            dscale, dshift = dstats[:, 0], dstats[:, 1]
+        return dx, gacc, dw, dbias, dscale, dshift, None, None, None, None
+
+
+_RESAMPLE = {
+    # up: (forward cuda, forward plain, backward cuda, backward plain)
+    False: (down2x_gn_act_cuda, down2x_gn_act_plain, down2x_bwd_cuda,
+            down2x_bwd_plain),
+    True: (up2x_gn_act_cuda, up2x_gn_act_plain, up2x_bwd_cuda,
+           up2x_bwd_plain),
+}
+
+
+class _Resample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, scale, shift, up, plain):
+        kern = on_cuda(x, plain)
+        fwd_k, fwd_p, _, _ = _RESAMPLE[up]
+        y, stats = (fwd_k if kern else fwd_p)(x, w, bias, scale, shift)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w, scale, shift, y)
+        ctx.cfg = (kern, up)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, gstats):
+        x, w, scale, shift, y = ctx.saved_tensors
+        kern, up = ctx.cfg
+        gy = (torch.zeros_like(y) if gy is None
+              else gy.to(torch.bfloat16).contiguous())
+        if gstats is None:
+            y = None
+        else:
+            gstats = gstats.contiguous()
+        _, _, bwd_k, bwd_p = _RESAMPLE[up]
+        dx, dstats, dw, dbias = (bwd_k if kern else bwd_p)(
+            x, w, scale, shift, gy, y, gstats)
+        return dx, dw, dbias, dstats[:, 0], dstats[:, 1], None, None
+
+
+def conv3x3_gn_act(x, w, bias, scale, shift, accum=None, *, activate=True,
+                   want_stats=True, need_dx=True, plain=False):
+    """The differentiable 3^3 block (arguments as ``conv3x3_gn_act_cuda``).
+    ``need_dx=False`` with ``activate=False`` and no accum: the caller's
+    input is data, and the backward launches no dgrad. Returns (y, stats
+    or None)."""
+    y, stats = _Conv3x3.apply(x, accum, w, bias, scale, shift,
+                              bool(activate), bool(want_stats),
+                              bool(need_dx), bool(plain))
+    return y, stats if want_stats else None
+
+
+def down2x_gn_act(x, w, bias, scale, shift, *, plain=False):
+    """The differentiable down block (``down2x_gn_act_cuda``)."""
+    return _Resample.apply(x, w, bias, scale, shift, False, bool(plain))
+
+
+def up2x_gn_act(x, w, bias, scale, shift, *, plain=False):
+    """The differentiable up block (``up2x_gn_act_cuda``)."""
+    return _Resample.apply(x, w, bias, scale, shift, True, bool(plain))

@@ -1,11 +1,16 @@
-"""Where the PointNetSeg training time goes, on one CUDA card.
+"""Where the training time goes, on one CUDA card.
 
-    python -m pcseg_tpu_torch.profile_training [--out DIR]
+    python -m pcseg_tpu_torch.profile_training [--model MODEL] [--out DIR]
 
-Builds the training configuration of chip_smoke.py (PointNetSeg at full
-width, 4 classes, dropout 0.3, bf16, seeded random weights, Adam) and,
-for ``bn_stats`` "fused" and "exact", one B64 x 2048 batch of synthetic
-events (1100-2048 points each), reports:
+``--model pointnet_seg`` (the default) builds the PointNetSeg training
+configuration of chip_smoke.py (full width, 4 classes, dropout 0.3, bf16,
+seeded random weights, Adam) and, for ``bn_stats`` "fused" and "exact",
+one B64 x 2048 batch of synthetic events (1100-2048 points each).
+``--model voxel_unet3d`` builds the voxel U-Net training configuration
+of chip_smoke.py (64^3, width 16, 3 levels, 4 classes, bf16, fused conv
+kernels, scatter voxelize, gather devoxelize, seeded random weights,
+Adam) and one B8 x 8192 batch of synthetic events (4000-8192 points
+each). For each it reports:
 
 - host-clock stage times of a train step (pad on the host, copy to the
   card, ``train_step``), each ended by a synchronize, median of 5 after 3
@@ -31,17 +36,36 @@ from pcseg_tpu_torch.data.batching import pad_events
 from pcseg_tpu_torch.data.class_stats import scan_classes
 from pcseg_tpu_torch.data.synthetic import synthetic_events
 from pcseg_tpu_torch.models.pointnet import PointNetSeg
+from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
 from pcseg_tpu_torch.profile_serving import device_profile
 from pcseg_tpu_torch.train.steps import create_train_state, train_step
 
-B, M, CLASSES = 64, 2048, 4
+CLASSES = 4
+# (batch, bucket, min points) of each model's training configuration
+SHAPES = {"pointnet_seg": (64, 2048, 1100), "voxel_unet3d": (8, 8192, 4000)}
 
 
-def _stages(state, events, cw, gen):
+def _configs(model: str):
+    """(label, model) pairs to profile."""
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    if model == "voxel_unet3d":
+        return [("voxel", VoxelUNet3d(
+            CLASSES, grid_size=64, width=16, levels=3,
+            compute_dtype="bfloat16", conv_impl="fused",
+            voxelize_impl="scatter", devox_impl="gather", generator=gen()))]
+    return [(bn_stats, PointNetSeg(CLASSES, bn_stats=bn_stats,
+                                   compute_dtype="bfloat16",
+                                   generator=gen()))
+            for bn_stats in ("fused", "exact")]
+
+
+def _stages(state, events, cw, gen, b, m):
     rows = []
     for i in range(8):
         t0 = time.perf_counter()
-        batch = pad_events(events, M, batch_size=B)
+        batch = pad_events(events, m, batch_size=b)
         t1 = time.perf_counter()
         tensors = tuple(torch.from_numpy(a).cuda() for a in batch)
         torch.cuda.synchronize()
@@ -57,28 +81,31 @@ def _stages(state, events, cw, gen):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="pointnet_seg", choices=sorted(SHAPES))
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    events = list(synthetic_events(B, min_points=1100, max_points=M, seed=5))
+    b, m, min_points = SHAPES[args.model]
+    events = list(synthetic_events(b, min_points=min_points, max_points=m,
+                                   seed=5))
     cw = torch.from_numpy(scan_classes(events).weights).cuda()
     card = torch.cuda.get_device_name(0)
-    report = {"card": card, "batch": f"B{B} x {M}"}
-    for bn_stats in ("fused", "exact"):
-        model = PointNetSeg(CLASSES, bn_stats=bn_stats,
-                            compute_dtype="bfloat16",
-                            generator=torch.Generator().manual_seed(0))
+    report = {"card": card, "model": args.model, "batch": f"B{b} x {m}"}
+    for label, model in _configs(args.model):
+        torch.cuda.reset_peak_memory_stats()
         state = create_train_state(model.cuda())
         gen = torch.Generator().manual_seed(1)
-        stages, batch = _stages(state, events, cw, gen)
+        stages, batch = _stages(state, events, cw, gen, b, m)
         prof_res, prof = device_profile(
             lambda: train_step(state, batch, 1e-3, gen, cw))
-        report[bn_stats] = {"stages": stages,
-                            "points_per_s": B * M / (stages["step_ms"] / 1e3),
-                            **prof_res}
-        print(f"[{bn_stats}] {card}: stages {json.dumps(stages)}")
+        report[label] = {"stages": stages,
+                         "points_per_s": b * m / (stages["step_ms"] / 1e3),
+                         "peak_mem_gib":
+                             torch.cuda.max_memory_allocated() / 2 ** 30,
+                         **prof_res}
+        print(f"[{label}] {card}: stages {json.dumps(stages)}")
         print(f"  one step: wall {prof_res['wall_ms']:.3f} ms, device busy "
               f"{prof_res['device_busy_ms']:.3f} ms, idle share "
               f"{prof_res['idle_share']:.3f}")
@@ -86,7 +113,7 @@ def main() -> int:
             print(f"  {k['device_ms']:9.4f} ms  x{k['calls']:<4d} {k['name']}")
         if args.out:
             os.makedirs(args.out, exist_ok=True)
-            with open(os.path.join(args.out, f"profile_train_{bn_stats}.txt"),
+            with open(os.path.join(args.out, f"profile_train_{label}.txt"),
                       "w") as f:
                 f.write(prof.key_averages().table(
                     sort_by="self_device_time_total", row_limit=60))

@@ -4,7 +4,9 @@ pcseg_tpu/train/steps.py without its mesh data parallelism).
 - ``train_step``: forward + loss + backward + Adam + running stats. With
   ``bn_stats="fused"`` (and a point count divisible by 8) the loss is the
   fused chain's classifier + CE op; otherwise the logits go through
-  ``cross_entropy_sums``. The loss is the weighted CE, num / den.
+  ``cross_entropy_sums``. The loss is the weighted CE, num / den. The
+  voxel U-Net always takes the ``apply`` path; it has no running
+  statistics (GroupNorm), so its ``load_batch_stats`` loads nothing.
 - ``eval_step``: loss, accuracy and the confusion matrix in one pass.
 
 Metrics stay on the device as tensors; the caller reads them when it

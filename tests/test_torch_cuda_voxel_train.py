@@ -1,0 +1,162 @@
+"""The voxel U-Net's backward kernels against their plain versions, on the
+card, and one whole train step through them.
+
+Marked ``cuda``: each test skips where there is no CUDA device. On a
+machine with a card (and without JAX, which tests/conftest.py imports):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_voxel_train.py
+
+Tolerances as in chip_smoke.py: the same rounding points, f32 sums in
+another order (and with atomics), so a bf16 output may round to the
+neighbouring value, |d| <= 2^-7 |ref| + 1e-4 max|ref|, and an f32 sum
+agrees to 1e-3 of its largest value.
+"""
+
+import pytest
+import torch
+
+from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
+from pcseg_tpu_torch.ops import conv3d_block as cb
+from pcseg_tpu_torch.ops import voxel as vx
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rand(gen, *shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def _inputs(gen, b, r, cin, cout, k):
+    x = _rand(gen, b, r, r, r, cin).to(torch.bfloat16)
+    w = (torch.rand((k, k, k, cin, cout), generator=gen, device="cuda")
+         - 0.5) * (6.0 / (k ** 3 * cin)) ** 0.5
+    bias = _rand(gen, cout, scale=0.1)
+    scale = torch.rand((b, cin), generator=gen, device="cuda") + 0.5
+    shift = _rand(gen, b, cin, scale=0.3)
+    return x, w, bias, scale, shift
+
+
+def _cotangents(gen, shape):
+    gy = _rand(gen, *shape).to(torch.bfloat16)
+    gstats = torch.stack([_rand(gen, shape[0], shape[-1], scale=1e-2),
+                          _rand(gen, shape[0], shape[-1], scale=1e-3)], 1)
+    return gy, gstats
+
+
+def _bf16_close(got, ref):
+    g, r = got.float(), ref.float()
+    assert bool(((g - r).abs() <= 2.0 ** -7 * r.abs()
+                 + 1e-4 * r.abs().max()).all()), float((g - r).abs().max())
+
+
+def _sum_close(got, ref):
+    err = float((got - ref).abs().max())
+    assert err <= 1e-3 * float(ref.abs().max()) + 1e-12, err
+
+
+@pytest.mark.parametrize("case", ["act", "act+accum", "stem", "no-stats"])
+@pytest.mark.parametrize("r,c", [(16, 16), (8, 32), (8, 64)])
+def test_conv3x3_dgrad_wgrad_kernels(gen, case, r, c):
+    x, w, bias, scale, shift = _inputs(gen, 2, r, c, c, 3)
+    activate = case != "stem"
+    y, _ = cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift,
+                                  activate=activate)
+    gy, gstats = _cotangents(gen, y.shape)
+    if case == "no-stats":
+        y = gstats = None
+    want_gadj = case == "act+accum"
+    before = dict(cb.LAUNCHES)
+    dk = cb.conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate,
+                               want_gadj)
+    wk = cb.conv3x3_wgrad_cuda(x, scale, shift, gy, y, gstats, activate)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["conv3x3_dgrad"] == before["conv3x3_dgrad"] + 1
+    assert cb.LAUNCHES["conv3x3_wgrad"] == before["conv3x3_wgrad"] + 1
+    dp = cb.conv3x3_dgrad_plain(gy, y, gstats, x, w, scale, shift, activate,
+                                want_gadj)
+    wp = cb.conv3x3_wgrad_plain(x, scale, shift, gy, y, gstats, activate)
+    _bf16_close(dk[0], dp[0])
+    if activate:
+        _sum_close(dk[1], dp[1])
+    else:
+        assert dk[1] is None
+    if want_gadj:
+        assert torch.equal(dk[2], dp[2])
+    _sum_close(wk[0], wp[0])
+    _sum_close(wk[1], wp[1])
+
+
+@pytest.mark.parametrize("kind,r,cin,cout", [("down", 16, 16, 32),
+                                              ("down", 8, 32, 64),
+                                              ("up", 4, 64, 32),
+                                              ("up", 8, 32, 16)])
+def test_resample_bwd_kernels(gen, kind, r, cin, cout):
+    x, w, bias, scale, shift = _inputs(gen, 2, r, cin, cout, 2)
+    fwd = cb.down2x_gn_act_cuda if kind == "down" else cb.up2x_gn_act_cuda
+    y, _ = fwd(x, w, bias, scale, shift)
+    gy, gstats = _cotangents(gen, y.shape)
+    key = f"{kind}2x_bwd"
+    before = cb.LAUNCHES[key]
+    got = getattr(cb, f"{key}_cuda")(x, w, scale, shift, gy, y, gstats)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[key] == before + 1
+    ref = getattr(cb, f"{key}_plain")(x, w, scale, shift, gy, y, gstats)
+    _bf16_close(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        _sum_close(a, b)
+
+
+def test_trilinear_scatter_kernel(gen):
+    b, m, r, c = 2, 3000, 16, 4
+    u = torch.rand((b, m, 3), generator=gen, device="cuda") * (r + 1) - 1
+    u[0, :50] = u[0, :50].floor()         # frac == 0 and clipped duplicates
+    go = _rand(gen, b, m, c)
+    go[1, ::5] = 0.0                      # masked rows
+    before = vx.LAUNCHES["trilinear_scatter"]
+    got = vx.trilinear_scatter(u, go, r)
+    torch.cuda.synchronize()
+    assert vx.LAUNCHES["trilinear_scatter"] == before + 1
+    _sum_close(got, vx.trilinear_scatter_plain(u, go, r))
+
+
+def test_train_step_through_the_kernels(gen):
+    """Full depth (3 levels) at grid 16: one forward + backward launches
+    every kernel as often as the JAX structure does, and its gradients
+    point where the plain versions' do."""
+    model = VoxelUNet3d(4, grid_size=16, width=16, levels=3,
+                        compute_dtype="bfloat16", conv_impl="fused",
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    pts = torch.cat([_rand(gen, 2, 1024, 3, scale=5.0),
+                     torch.rand((2, 1024, 1), generator=gen,
+                                device="cuda")], -1)
+    mask = torch.rand((2, 1024), generator=gen, device="cuda") < 0.9
+    target = _rand(gen, 2, 1024, 4)
+
+    def grads(plain):
+        model.zero_grad(set_to_none=True)
+        out = model.apply(pts, train=True, mask=mask, plain=plain)[0]
+        ((out - target).square() * mask[..., None]).mean().backward()
+        return torch.cat([p.grad.flatten() for p in model.parameters()])
+
+    cb.reset_launches()
+    vx.reset_launches()
+    gk = grads(False)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == {"conv3x3_gn_act": 13, "down2x_gn_act": 2,
+                           "up2x_gn_act": 2, "conv3x3_dgrad": 12,
+                           "conv3x3_wgrad": 13, "down2x_bwd": 2,
+                           "up2x_bwd": 2}
+    assert vx.LAUNCHES == {"trilinear_scatter": 1}
+    gp = grads(True)
+    assert bool(torch.isfinite(gk).all())
+    cos = float(gk @ gp / (gk.norm() * gp.norm()))
+    assert cos > 0.99, cos
