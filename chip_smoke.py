@@ -42,11 +42,29 @@
    steps and one eval batch per epoch, 2 epochs): launch counts per step,
    finite losses, ms per step, points/s, peak memory; then serves the
    best checkpoint through Predictor on the card.
-10. Prints the kernels as one JSON line, the card's name and power limit,
+10. Holds each kernel of the voxel U-Net's default configuration (every
+   impl left at "auto": the one-hot voxelize_contract and trilinear_gather
+   and the fused head with its backward) against its plain version at the
+   shapes of a B8 x 8192, 64^3 batch, with edge cases (points on the box
+   faces, an all-masked row, a voxel hit by many points), and times
+   kernel, plain version, bound and one PyTorch call of the same function
+   (index_add_, grid_sample, bf16 matmuls; yardsticks only).
+11. Serves the default configuration as phase 3 serves the scatter/gather
+   one: launch counts per forward, logits against the plain versions.
+12. One default-configuration train step with the kernels, with the plain
+   versions and in f32, held as phase 8; then api.fit with no impl
+   override and Predictor on its checkpoint, held as phase 9.
+13. Prints the kernels as one JSON line, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
 any phase fails.
+
+    python3 chip_smoke.py --step-spread N
+
+builds the kernels, repeats only the whole-step comparisons of phases 8
+and 12 N times, and prints each loss reading as one JSON line: the spread
+their loss limits are set from. It holds nothing and prints no result.
 """
 
 from __future__ import annotations
@@ -58,6 +76,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
 SOURCE = "pcseg_tpu_torch/csrc/conv3d_block.cu"
 REPLACES = {
     "conv3x3_gn_act": "pcseg_tpu/ops/pallas/conv3d_block.py:429",
@@ -65,6 +84,10 @@ REPLACES = {
     "up2x_gn_act": "pcseg_tpu/ops/pallas/conv3d_block.py:1403",
 }
 PER_FORWARD = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2}
+# the default configuration (voxelize_impl / devox_impl "auto" -> the
+# one-hot forms at 64^3) adds the voxelizer, the fused head and the gather
+DEFAULT_PER_FORWARD = dict(PER_FORWARD, voxelize_contract=1, head_grid2=1,
+                           trilinear_gather=1)
 # tolerances, kernel vs plain version on identical inputs:
 # y is bf16 from f32 sums taken in another order, so an element may round
 # to the neighbouring bf16 value: |dy| <= 2^-7 |y| + 1e-4 max|y|.
@@ -295,7 +318,25 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
     return res
 
 
-def serve(card: str):
+def launch_counts() -> dict:
+    """The launch counts of the voxel path's kernel wrappers."""
+    from pcseg_tpu_torch.ops import conv3d_block as cb
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    return {**cb.LAUNCHES, **vx.LAUNCHES}
+
+
+def reset_counts() -> None:
+    from pcseg_tpu_torch.ops import conv3d_block as cb
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    cb.reset_launches()
+    vx.reset_launches()
+
+
+def serve(card: str, default: bool = False):
+    """Phase 3 (the scatter/gather forms) or, with ``default``, phase 11
+    (every impl at its default)."""
     import numpy as np
     import torch
 
@@ -303,13 +344,15 @@ def serve(card: str):
     from pcseg_tpu_torch.data.synthetic import synthetic_events
     from pcseg_tpu_torch.infer import Predictor
     from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
-    from pcseg_tpu_torch.ops import conv3d_block as cb
 
+    forms = {} if default else dict(conv_impl="fused",
+                                    voxelize_impl="scatter",
+                                    devox_impl="gather")
     model = VoxelUNet3d(
         num_classes=4, grid_size=64, width=16, levels=3,
-        compute_dtype="bfloat16", conv_impl="fused", voxelize_impl="scatter",
-        devox_impl="gather", generator=torch.Generator().manual_seed(0),
-    )
+        compute_dtype="bfloat16", generator=torch.Generator().manual_seed(0),
+        **forms)
+    per_forward = DEFAULT_PER_FORWARD if default else PER_FORWARD
     pred = Predictor(model.state_dict(), 4, model=model)
     events = [p for p, _ in synthetic_events(
         16, min_points=4000, max_points=8192, seed=0)]
@@ -318,15 +361,15 @@ def serve(card: str):
     n_batch_pts = sum(e.shape[0] for e in events)
 
     torch.cuda.reset_peak_memory_stats()
-    cb.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     preds = pred.predict_batch(events, batch_size=8)
     t1 = time.perf_counter()
     p_single = pred.predict(single)
     t2 = time.perf_counter()
-    launches = dict(cb.LAUNCHES)
+    launches = launch_counts()
     forwards = 3
-    expected = {k: PER_FORWARD.get(k, 0) * forwards for k in cb.LAUNCHES}
+    expected = {k: per_forward.get(k, 0) * forwards for k in launches}
     print(f"  main path: {forwards} forwards, launches {launches} "
           f"(expected {expected})", flush=True)
     if launches != expected:
@@ -372,7 +415,25 @@ def serve(card: str):
     if not ok:
         raise AssertionError(f"logits disagree with the plain model: max "
                              f"err {err}, argmax agreement {agree}")
+    if default:
+        # the same weights and points through the scatter/gather forms: the
+        # default forms' extra bf16 roundings (reported, not held)
+        sg = VoxelUNet3d(
+            num_classes=4, grid_size=64, width=16, levels=3,
+            compute_dtype="bfloat16", voxelize_impl="scatter",
+            devox_impl="gather").cuda()
+        sg.load_state_dict(model.state_dict())
+        out_sg = sg(points, mask)
+        vs_sg = {"max_abs_err": float((out_k - out_sg).abs().max()),
+                 "argmax_agreement": float(
+                     (out_k.argmax(-1) == out_sg.argmax(-1))[mask].float()
+                     .mean())}
+        print(f"  default vs scatter/gather forms, same weights: max|d| "
+              f"{vs_sg['max_abs_err']:.4e}, argmax agreement "
+              f"{vs_sg['argmax_agreement']:.6f}", flush=True)
     res = {
+        "forms": model.resolve_forms(),
+        "vs_scatter_gather": vs_sg if default else None,
         "first_call": first,
         "predict_batch_16_ms": batch_ms,
         "ms_per_event_batched": batch_ms / len(events),
@@ -383,7 +444,8 @@ def serve(card: str):
         "argmax_agreement": agree,
         "card": card,
     }
-    print(f"  serving [{card}]: predict_batch(16 events, {n_batch_pts} pts) "
+    print(f"  serving {res['forms']} [{card}]: predict_batch(16 events, "
+          f"{n_batch_pts} pts) "
           f"{batch_ms:.2f} ms = {res['ms_per_event_batched']:.2f} ms/event, "
           f"{res['points_per_s_batched']:.4e} points/s; predict(1000 pts) "
           f"{single_ms:.2f} ms; first calls {first['batch_ms']:.2f} / "
@@ -396,9 +458,9 @@ def serve(card: str):
 # PointNetSeg training (slice 2)
 # ---------------------------------------------------------------------------
 
-def _bound(nbytes: float, flops: float):
+def _bound(nbytes: float, flops: float, rate: float = BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -841,6 +903,10 @@ VOX_REPLACES = {
 VOX_PER_STEP = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
                 "conv3x3_dgrad": 12, "conv3x3_wgrad": 13, "down2x_bwd": 2,
                 "up2x_bwd": 2, "trilinear_scatter": 1}
+# the default configuration's step adds the one-hot forward kernels and
+# the fused head forward and backward
+DEFAULT_PER_STEP = dict(VOX_PER_STEP, voxelize_contract=1, head_grid2=1,
+                        trilinear_gather=1, head_grid2_bwd=1)
 # whole step, kernels vs plain versions: loss 1e-4 relative; the conv
 # kernels' gradient vector at cosine >= 0.998; each gradient's relative L2
 # within 3x the plain bf16 chain's own distance from the same step in f32
@@ -848,6 +914,11 @@ VOX_PER_STEP = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
 # BN backward does in phase 5), except the conv biases that a GroupNorm
 # follows, whose gradient is 0 up to rounding (reported, not held)
 VOX_LOSS_REL, VOX_KERNEL_COS, VOX_GRAD_RATIO = 1e-4, 0.998, 3.0
+# the default configuration's logits are bf16 (the fused head's grid2), so
+# a one-ulp flip of a voxel logit moves the loss: 7.6e-5 to 2.5e-4
+# relative over ten runs on one H100 (the stats atomics' order moves it
+# from run to run), held to 3x the largest
+DEFAULT_LOSS_REL = 7.5e-4
 
 
 def vox_bwd_cases():
@@ -916,7 +987,9 @@ def _vox_report(res):
           f"max|err| {res['max_abs_err']:.3e}  kernel {res['ms']:.4f} / "
           f"plain {res['plain_ms']:.4f} / library "
           f"{'-' if lib is None else f'{lib:.4f}'} / bound "
-          f"{res['bound_ms']:.4f} ms ({res['bound_by']})", flush=True)
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']})"
+          + (f"; wrapper {res['wrapper_ms']:.4f} ms" if "wrapper_ms" in res
+             else ""), flush=True)
     return res
 
 
@@ -1065,22 +1138,26 @@ def vox_scatter_case(gen):
     return _vox_report(res)
 
 
-def vox_model(dtype="bfloat16", impl="fused"):
+def vox_model(dtype="bfloat16", impl="fused", default=False):
+    """The phase 8 model (scatter/gather forms, conv ``impl``) or, with
+    ``default``, the default configuration (every impl at "auto")."""
     import torch
 
     from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
 
+    forms = {} if default else dict(conv_impl=impl, voxelize_impl="scatter",
+                                    devox_impl="gather")
     return VoxelUNet3d(
         num_classes=VOX_CLASSES, grid_size=VOX_R, width=VOX_W, levels=3,
-        compute_dtype=dtype, conv_impl=impl, voxelize_impl="scatter",
-        devox_impl="gather", generator=torch.Generator().manual_seed(0),
-    ).cuda()
+        compute_dtype=dtype, generator=torch.Generator().manual_seed(0),
+        **forms).cuda()
 
 
-def vox_step_compare(card):
+def vox_step_compare(card, default=False, hold=True):
     """One voxel train step with the kernels and with the plain versions,
     from the same weights and batch, and the same step in f32 on the plain
-    core as the yardstick of the bf16 chain's own rounding."""
+    core as the yardstick of the bf16 chain's own rounding (phase 8, or
+    phase 12 with ``default``); ``hold=False`` reports without failing."""
     import numpy as np
     import torch
 
@@ -1094,9 +1171,10 @@ def vox_step_compare(card):
     cw = torch.from_numpy(np.asarray(scan_classes(events).weights)).cuda()
     pts, labels, masks = (torch.from_numpy(a).cuda() for a in pad_events(
         events, VOX_M, batch_size=VOX_B))
-    model = vox_model()
-    model32 = vox_model("float32", "xla")
+    model = vox_model(default=default)
+    model32 = vox_model("float32", "xla", default=default)
     model32.load_state_dict(model.state_dict())
+    forms = {"bf16": model.resolve_forms(), "f32": model32.resolve_forms()}
 
     def step(m, plain):
         m.zero_grad(set_to_none=True)
@@ -1128,14 +1206,17 @@ def vox_step_compare(card):
     kp = torch.cat([gp[n].flatten() for n in kern])
     kcos = float(kk @ kp / (kk.norm() * kp.norm()))
     worst = max(ratio, key=ratio.get)
-    ok = (loss_rel <= VOX_LOSS_REL and kcos >= VOX_KERNEL_COS
+    loss_tol = DEFAULT_LOSS_REL if default else VOX_LOSS_REL
+    ok = (loss_rel <= loss_tol and kcos >= VOX_KERNEL_COS
           and ratio[worst] <= VOX_GRAD_RATIO
           and all(torch.isfinite(g).all() for g in gk.values()))
     ms_k = time_ms(lambda: step(model, False), iters=3)
     ms_p = time_ms(lambda: step(model, True), iters=3)
     ms_f = time_ms(lambda: step(model32, True), iters=3)
-    res = {"loss_kernels": float(lk), "loss_plain": float(lp),
+    res = {"forms": forms, "loss_kernels": float(lk),
+           "loss_plain": float(lp),
            "loss_f32": float(lf), "loss_rel_err": loss_rel,
+           "loss_tol": loss_tol,
            "kernel_grad_cosine": kcos,
            "grad_rel_err_kernels_vs_plain": rel,
            "grad_rel_err_plain_vs_f32": own, "grad_ratio": ratio,
@@ -1145,8 +1226,9 @@ def vox_step_compare(card):
            "zero_grad_bias_rel_err_max": max(rel[n] for n in zero),
            "fwd_bwd_ms_kernels": ms_k, "fwd_bwd_ms_plain": ms_p,
            "fwd_bwd_ms_f32_plain_core": ms_f, "card": card}
-    print(f"  loss kernels {float(lk):.6f} plain {float(lp):.6f} (rel "
-          f"{loss_rel:.2e}, tol {VOX_LOSS_REL:.0e}), f32 {float(lf):.6f}; "
+    print(f"  forms {forms}: loss kernels {float(lk):.6f} plain "
+          f"{float(lp):.6f} (rel "
+          f"{loss_rel:.2e}, tol {loss_tol:.2e}), f32 {float(lf):.6f}; "
           f"conv-kernel gradient cosine {kcos:.6f} (tol {VOX_KERNEL_COS}); "
           f"gradients kernels vs plain <= {res['grad_rel_err_max_held']:.3e}"
           f" (rel L2), plain vs f32 <= "
@@ -1154,15 +1236,17 @@ def vox_step_compare(card):
           f"{ratio[worst]:.3f} at {worst} (tol {VOX_GRAD_RATIO}); fwd+bwd "
           f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain, {ms_f:.2f} ms "
           f"f32 plain core [{card}]", flush=True)
-    if not ok:
+    if hold and not ok:
         raise AssertionError(f"voxel train step: kernels disagree with the "
                              f"plain versions: {res}")
     return res
 
 
-def vox_fit(card):
+def vox_fit(card, default=False):
     """The main path: api.fit on the voxel family, then Predictor on its
-    best checkpoint. Returns (fit launches, serving launches, result)."""
+    best checkpoint (phase 9 with the scatter/gather forms, or phase 12
+    with ``default``: no impl override). Returns (fit launches, serving
+    launches, result)."""
     import math
 
     import numpy as np
@@ -1171,34 +1255,36 @@ def vox_fit(card):
     from pcseg_tpu_torch import api
     from pcseg_tpu_torch.data.synthetic import synthetic_events
     from pcseg_tpu_torch.infer import Predictor
-    from pcseg_tpu_torch.ops import conv3d_block as cb
-    from pcseg_tpu_torch.ops import voxel as vx
 
     # 30 events: 24 train (3 batches of 8), 6 val (one eval batch)
     events = list(synthetic_events(30, min_points=4000, max_points=VOX_M,
                                    seed=3))
-    overrides = [
-        "model.name=voxel_unet3d", f"model.num_classes={VOX_CLASSES}",
-        f"model.grid_size={VOX_R}", f"model.unet_width={VOX_W}",
-        "model.levels=3", "model.compute_dtype=bfloat16", "model.impl=fused",
-        "model.voxelize_impl=scatter", "model.devox_impl=gather",
-        f"data.batch_size={VOX_B}", f"data.buckets={VOX_M}",
-        "train.num_epochs=2", "train.log_every_steps=0",
-        "train.checkpoint_dir=build/chip_smoke_ckpt_voxel"]
-
-    def counts():
-        return {**cb.LAUNCHES, **vx.LAUNCHES}
+    if default:
+        overrides = ["model.name=voxel_unet3d", "model.compute_dtype=bfloat16",
+                     f"data.batch_size={VOX_B}", f"data.buckets={VOX_M}",
+                     "train.checkpoint_dir=build/chip_smoke_ckpt_default"]
+        per_step, per_forward = DEFAULT_PER_STEP, DEFAULT_PER_FORWARD
+    else:
+        overrides = [
+            "model.name=voxel_unet3d", f"model.num_classes={VOX_CLASSES}",
+            f"model.grid_size={VOX_R}", f"model.unet_width={VOX_W}",
+            "model.levels=3", "model.compute_dtype=bfloat16",
+            "model.impl=fused", "model.voxelize_impl=scatter",
+            "model.devox_impl=gather", f"data.batch_size={VOX_B}",
+            f"data.buckets={VOX_M}",
+            "train.checkpoint_dir=build/chip_smoke_ckpt_voxel"]
+        per_step, per_forward = VOX_PER_STEP, PER_FORWARD
+    overrides += ["train.num_epochs=2", "train.log_every_steps=0"]
 
     torch.cuda.reset_peak_memory_stats()
-    cb.reset_launches()
-    vx.reset_launches()
+    reset_counts()
     res = api.fit(events, overrides=overrides, log=lambda _: None)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = sum(h["train_steps"] for h in res.history)
     evals = len(res.history)          # one eval batch per epoch
-    expected = {k: VOX_PER_STEP[k] * steps + PER_FORWARD.get(k, 0) * evals
+    expected = {k: per_step.get(k, 0) * steps + per_forward.get(k, 0) * evals
                 for k in launches}
     if launches != expected:
         raise AssertionError(f"voxel fit: launch counts {launches} != "
@@ -1211,15 +1297,14 @@ def vox_fit(card):
     ms_step = warm["train_seconds"] * 1e3 / warm["train_steps"]
 
     # the best checkpoint, served on the card
-    cb.reset_launches()
-    vx.reset_launches()
+    reset_counts()
     pred = Predictor.from_checkpoint(res.checkpoint_path)
     served = [p for p, _ in events[:VOX_B]]
     preds = pred.predict_batch(served, batch_size=VOX_B)
     logits = pred.logits(served[0])
     torch.cuda.synchronize()
-    serve_launches = counts()
-    want = {k: PER_FORWARD.get(k, 0) * 2 for k in serve_launches}
+    serve_launches = launch_counts()
+    want = {k: per_forward.get(k, 0) * 2 for k in serve_launches}
     if serve_launches != want:
         raise AssertionError(f"serving the checkpoint: launch counts "
                              f"{serve_launches} != {want}")
@@ -1227,8 +1312,9 @@ def vox_fit(card):
             not np.isfinite(logits).all():
         raise AssertionError("serving the checkpoint: bad predictions")
     out = {
+        "forms": pred.model.resolve_forms(),
         "steps": steps, "eval_batches": evals, "launches": launches,
-        "launches_per_step": {k: (v - PER_FORWARD.get(k, 0) * evals) / steps
+        "launches_per_step": {k: (v - per_forward.get(k, 0) * evals) / steps
                               for k, v in launches.items()},
         "train_loss": [h["train_loss"] for h in res.history],
         "val_loss": [h["val_loss"] for h in res.history],
@@ -1241,7 +1327,8 @@ def vox_fit(card):
         "peak_mem_gib": peak, "serve_launches": serve_launches,
         "served_events": len(preds), "card": card,
     }
-    print(f"  fit voxel_unet3d [{card}]: {steps} train steps at B{VOX_B} x "
+    print(f"  fit voxel_unet3d {out['forms']} [{card}]: {steps} train steps "
+          f"at B{VOX_B} x "
           f"{VOX_M}, launches per step {out['launches_per_step']}; train "
           f"loss {out['train_loss']}, val loss {out['val_loss']}; "
           f"{ms_step:.2f} ms/step (epoch 2; epoch 1 "
@@ -1249,6 +1336,226 @@ def vox_fit(card):
           f"{out['points_per_s']:.4e} points/s; peak {peak:.3f} GiB; best "
           f"checkpoint served {len(preds)} events", flush=True)
     return launches, serve_launches, out
+
+
+# ---------------------------------------------------------------------------
+# the voxel U-Net's default configuration
+# ---------------------------------------------------------------------------
+
+DEFAULT_REPLACES = {
+    "voxelize_contract": "pcseg_tpu/ops/pallas/onehot_contract.py:191",
+    "trilinear_gather": "pcseg_tpu/ops/pallas/onehot_contract.py:376",
+    "head_grid2": "pcseg_tpu/ops/pallas/conv3d_block.py:1543",
+    "head_grid2_bwd": "pcseg_tpu/ops/pallas/conv3d_block.py:1583",
+}
+# kernel vs plain version on identical inputs: the voxel counts exactly;
+# the voxel sums (bf16 values added in f32 in atomic order) and the gather
+# (its <= 8 taps in the plain version's order) to 1e-5 of the largest
+# |ref|; the head's bf16 y and dx as Y_RTOL / Y_ATOL_REL, its f32 sums over
+# the 2.1 M voxels as PN_SUM_TOL
+ONEHOT_TOL = 1e-5
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: its CUDA kernels summed by
+    torch.profiler over ``iters`` warm calls. Phase 10's calls are short
+    enough that CUDA events around back-to-back calls time the host's
+    launch rate instead (reported beside it as ``wrapper_ms``)."""
+    from pcseg_tpu_torch.profile_serving import device_profile
+
+    res, _ = device_profile(lambda: [fn() for _ in range(iters)])
+    return res["device_busy_ms"] / iters
+
+
+def _onehot_check(got, ref):
+    err = float((got - ref).abs().max())
+    return err, err <= ONEHOT_TOL * float(ref.abs().max())
+
+
+def default_batch():
+    """The B8 x 8192 batch of the default path (7 synthetic events of
+    4,000-8,192 points and an all-masked last row), with 2,000 points of
+    event 0 on one spot (a voxel hit by many points); each event's
+    extreme points lie on the faces of its box."""
+    import torch
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+
+    events = list(synthetic_events(VOX_B - 1, min_points=4000,
+                                   max_points=VOX_M, seed=7))
+    pts, _, mask = pad_events(events, VOX_M, batch_size=VOX_B)
+    pts[0, 1:2001, :3] = pts[0, 0, :3]
+    return torch.from_numpy(pts).cuda(), torch.from_numpy(mask).cuda()
+
+
+def default_voxelize_case(points, mask):
+    import torch
+
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    b, m, r = VOX_B, VOX_M, VOX_R
+    r3 = r ** 3
+    flat, ext, _, _ = vx.voxel_rows(points, mask, r)
+    c1 = ext.shape[-1]
+    k = vx.voxelize_contract(flat, ext, r)
+    torch.cuda.synchronize()
+    p = vx.voxelize_contract_plain(flat, ext, r)
+    zyx = (flat // (r * r), flat // r % r, flat % r)
+    faces = int((mask & torch.stack([(a == 0) | (a == r - 1) for a in zyx])
+                 .any(0)).sum())
+    hot = int(p[..., -1].max())
+    dcnt = float((k[..., -1] - p[..., -1]).abs().max())
+    checks = {"sums": _onehot_check(k, p), "counts": (dcnt, dcnt == 0.0),
+              "dummy row": (float(k[-1].abs().max()), not k[-1].any()),
+              "edge cases": (0.0, faces > 0 and hot >= 2000)}
+    err = _held("voxelize_contract", checks)
+    rows = (flat + torch.arange(b, device="cuda")[:, None] * (r3 + 1)
+            ).reshape(-1)
+    vals = ext.to(torch.bfloat16).float().reshape(-1, c1)
+    out = torch.zeros((b * (r3 + 1), c1), device="cuda")
+    n_real = int(mask.sum())
+    res = {
+        "name": "voxelize_contract", "case": "voxelize",
+        "shape": f"B{b} M{m} -> {r}^3x{c1}", "max_abs_err": err,
+        "points_on_faces": faces, "hot_voxel_points": hot,
+        "ms": device_ms(lambda: vx.voxelize_contract(flat, ext, r)),
+        "wrapper_ms": time_ms(lambda: vx.voxelize_contract(flat, ext, r)),
+        "plain_ms": device_ms(
+            lambda: vx.voxelize_contract_plain(flat, ext, r)),
+        # one index_add_ of the bf16-rounded rows at the same ids
+        "library_ms": device_ms(lambda: out.index_add_(0, rows, vals)),
+    }
+    # ids and rows read once, the f32 grid written once; C1 adds a point
+    res["bound_ms"], res["bound_by"] = _bound(
+        b * m * 4 + b * m * c1 * 4 + b * r3 * c1 * 4, n_real * c1,
+        F32_FLOP_PER_S)
+    return _vox_report(res)
+
+
+def default_gather_case(points, mask, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    b, m, r, c = VOX_B, VOX_M, VOX_R, VOX_CLASSES
+    _, _, lo, scale = vx.voxel_rows(points, mask, r)
+    u = vx.trilinear_u(points, mask, lo, scale)
+    g2 = torch.randn((b, r * r, r * c), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k = vx.trilinear_gather(u, mask, g2)
+    torch.cuda.synchronize()
+    p = vx.trilinear_gather_plain(u, mask, g2)
+    checks = {"out": _onehot_check(k, p),
+              "masked rows": (float(k[~mask].abs().max()),
+                              not k[~mask].any())}
+    err = _held("trilinear_gather", checks)
+    # the yardstick: grid_sample of the same clipped trilinear function in
+    # f32 (border padding clamps u to [0, R-1], as the per-tap clip does)
+    grid5 = g2.float().reshape(b, r, r, r, c).permute(0, 4, 1, 2, 3)
+    grid5 = grid5.contiguous()
+    coords = ((2 * u + 1) / r - 1).flip(-1).reshape(b, 1, 1, m, 3)
+
+    def library():
+        return F.grid_sample(grid5, coords, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    lib = library().reshape(b, c, m).transpose(1, 2)
+    lib_err = float((torch.where(mask[..., None], lib, 0.0)
+                     - vx.trilinear_gather_plain(u, mask, g2, False))
+                    .abs().max())
+    # the grid rows this data touches, each read once
+    zi, _, xs, _ = vx._tri_taps(u, r, lambda t: t)
+    base = torch.arange(b, device="cuda")[:, None] * r ** 3
+    touched = torch.cat([(base + z * r + x)[mask] for z in zi for x in xs])
+    n_rows = int(torch.unique(touched).numel())
+    n_real = int(mask.sum())
+    res = {
+        "name": "trilinear_gather", "case": "devox fwd",
+        "shape": f"B{b} M{m} R{r} C{c}", "max_abs_err": err,
+        "library_max_abs_err_vs_f32_plain": lib_err, "grid_rows_read": n_rows,
+        "ms": device_ms(lambda: vx.trilinear_gather(u, mask, g2)),
+        "wrapper_ms": time_ms(lambda: vx.trilinear_gather(u, mask, g2)),
+        "plain_ms": device_ms(lambda: vx.trilinear_gather_plain(u, mask, g2)),
+        "library_ms": device_ms(library),
+    }
+    # u, mask and the touched bf16 grid rows read once, out written once;
+    # a multiply and an add per tap and channel of every real point
+    res["bound_ms"], res["bound_by"] = _bound(
+        b * m * 3 * 4 + b * m + n_rows * c * 2 + b * m * c * 4,
+        2 * 8 * c * n_real, F32_FLOP_PER_S)
+    return _vox_report(res)
+
+
+def default_head_cases(gen):
+    """The fused head forward and backward at 64^3 x 16 -> 4: two rows."""
+    import torch
+
+    from pcseg_tpu_torch.ops import conv3d_block as cb
+
+    c, nc = VOX_W, VOX_CLASSES
+    x, w, bias, scale, shift = _vox_inputs(gen, VOX_R, c, nc, 1)
+    n = x.numel() // c
+    shape = f"B{VOX_B} {VOX_R}^3x{c}->{nc}"
+    fwd = (x, w, bias, scale, shift)
+    yk = cb.head_grid2_cuda(*fwd)
+    torch.cuda.synchronize()
+    err = _held("head_grid2", {"y": _bf16_check(yk, cb.head_grid2_plain(
+        *fwd))})
+    gy = torch.randn(yk.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    bwd = (x, gy, w, scale, shift)
+    gk = cb.head_grid2_bwd_cuda(*bwd)
+    torch.cuda.synchronize()
+    gp = cb.head_grid2_bwd_plain(*bwd)
+    checks = {"dx": _bf16_check(gk[0], gp[0])}
+    for name, a, r in zip(("dscale/dshift", "dW", "dbias"), gk[1:], gp[1:]):
+        checks[name] = _sum_check(a, r)
+    bwd_err = _held("head_grid2_bwd", checks)
+    a = cb.act(x, scale, shift).reshape(n, c)
+    wq = w.reshape(c, nc).to(torch.bfloat16)
+    g = gy.reshape(n, nc)
+    vec = c * nc * 4 + 2 * VOX_B * c * 4
+    fwd_res = {
+        "name": "head_grid2", "case": "head", "shape": shape,
+        "max_abs_err": err,
+        "ms": device_ms(lambda: cb.head_grid2_cuda(*fwd)),
+        "wrapper_ms": time_ms(lambda: cb.head_grid2_cuda(*fwd)),
+        "plain_ms": device_ms(lambda: cb.head_grid2_plain(*fwd)),
+        # the activated grid by the head's weights, one bf16 matmul
+        "library_ms": device_ms(lambda: a @ wq),
+    }
+    fwd_res["bound_ms"], fwd_res["bound_by"] = _bound(
+        n * c * 2 + n * nc * 2 + vec + nc * 4, 2 * n * c * nc)
+    bwd_res = {
+        "name": "head_grid2_bwd", "case": "head bwd", "shape": shape,
+        "max_abs_err": bwd_err,
+        "ms": device_ms(lambda: cb.head_grid2_bwd_cuda(*bwd)),
+        "wrapper_ms": time_ms(lambda: cb.head_grid2_bwd_cuda(*bwd)),
+        "plain_ms": device_ms(lambda: cb.head_grid2_bwd_plain(*bwd)),
+        # its two products, dY W^T and X^T dY, in bf16
+        "library_ms": device_ms(lambda: (g @ wq.t(), a.t() @ g)),
+    }
+    bwd_res["bound_ms"], bwd_res["bound_by"] = _bound(
+        n * c * 2 * 2 + n * nc * 2 + vec + 2 * VOX_B * c * 4 + c * nc * 4
+        + nc * 4, 4 * n * c * nc)
+    return [_vox_report(fwd_res), _vox_report(bwd_res)]
+
+
+def step_spread(card, n) -> int:
+    """Phases 8 and 12's step comparisons n times each; their loss and
+    worst gradient ratio as one JSON line."""
+    runs = {"phase8": False, "phase12": True}
+    out = {"card": card}
+    for _ in range(n):
+        for key, default in runs.items():
+            res = vox_step_compare(card, default=default, hold=False)
+            for field in ("loss_rel_err", "grad_ratio_max",
+                          "kernel_grad_cosine"):
+                out.setdefault(key, {}).setdefault(field, []).append(
+                    res[field])
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1270,6 +1577,8 @@ def main() -> int:
     for name in _build.SIGNATURES:
         _build.load_library(name)
     print(f"[1] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    if sys.argv[1:2] == ["--step-spread"]:
+        return step_spread(card, int(sys.argv[2]))
 
     print(f"[2] kernels vs plain versions [{card}]", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1319,10 +1628,31 @@ def main() -> int:
     print(f"[9] api.fit on the voxel U-Net, then Predictor [{card}]",
           flush=True)
     vox_launches, vox_serve, vox_fitted = vox_fit(card)
-    unused = [k for k, v in vox_launches.items() if v == 0]
+    unused = [k for k in VOX_PER_STEP if vox_launches[k] == 0]
     if unused:
         raise AssertionError(f"kernels never launched on the voxel training "
                              f"path: {unused}")
+
+    print(f"[10] default-configuration kernels vs plain versions, B{VOX_B} "
+          f"x {VOX_R}^3 [{card}]", flush=True)
+    points, mask = default_batch()
+    def_cases = [default_voxelize_case(points, mask),
+                 default_gather_case(points, mask, gen)]
+    def_cases += default_head_cases(gen)
+    del points, mask
+
+    print(f"[11] serving the default configuration [{card}]", flush=True)
+    def_launches, def_served = serve(card, default=True)
+
+    print(f"[12] one default-configuration train step, kernels vs plain; "
+          f"api.fit with no impl override, then Predictor [{card}]",
+          flush=True)
+    def_step = vox_step_compare(card, default=True)
+    def_fit_launches, def_fit_serve, def_fitted = vox_fit(card, default=True)
+    unused = [k for k in DEFAULT_PER_STEP if def_fit_launches[k] == 0]
+    if unused:
+        raise AssertionError(f"kernels never launched on the default "
+                             f"training path: {unused}")
 
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
@@ -1335,7 +1665,10 @@ def main() -> int:
         at = next(c for c in mine if c["case"] == label and c["shape"] == shape)
         by_path = {"serving": launches[name],
                    "voxel_fit": vox_launches[name],
-                   "voxel_fit_serving": vox_serve[name]}
+                   "voxel_fit_serving": vox_serve[name],
+                   "default_serving": def_launches[name],
+                   "default_fit": def_fit_launches[name],
+                   "default_fit_serving": def_fit_serve[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -1355,14 +1688,34 @@ def main() -> int:
     for name, (label, shape) in vox_main.items():
         mine = [c for c in vox_cases if c["name"] == name]
         at = next(c for c in mine if c["case"] == label and c["shape"] == shape)
+        by_path = {"voxel_fit": vox_launches[name],
+                   "default_fit": def_fit_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": TRI_SOURCE if name == "trilinear_scatter" else SOURCE,
-            "replaces": VOX_REPLACES[name], "launches": vox_launches[name],
+            "replaces": VOX_REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "shape": shape,
+        })
+    # default-configuration rows: numbers at the B8 x 8192, 64^3 shapes of
+    # phase 10; launches from phases 11 and 12
+    for at in def_cases:
+        name = at["name"]
+        by_path = {"default_serving": def_launches[name],
+                   "default_fit": def_fit_launches[name],
+                   "default_fit_serving": def_fit_serve[name]}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": SOURCE if name.startswith("head") else TRI_SOURCE,
+            "replaces": DEFAULT_REPLACES[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": at["max_abs_err"], "ms": at["ms"],
+            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "shape": at["shape"],
         })
     # PointNet rows: forward numbers at each kernel's largest shape, the
     # backward's beside them; launches are forward + backward on the main
@@ -1388,7 +1741,10 @@ def main() -> int:
     print(json.dumps({"cases": cases, "serving": served,
                       "pointnet_cases": pn_cases, "pointnet_step": step,
                       "pointnet_fit": fits, "voxel_cases": vox_cases,
-                      "voxel_step": vox_step, "voxel_fit": vox_fitted}))
+                      "voxel_step": vox_step, "voxel_fit": vox_fitted,
+                      "default_cases": def_cases, "default_serving":
+                      def_served, "default_step": def_step,
+                      "default_fit": def_fitted}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

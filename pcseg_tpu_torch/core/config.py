@@ -6,9 +6,9 @@ Ported: the PointNet and voxel ``ModelConfig`` fields, and the parts of
 ``DataConfig``, ``OptimConfig`` and ``TrainConfig`` that a one-device
 training run reads. Not yet: HDF5 paths and prefetch, resume/'latest'
 checkpoints, metrics logs, parallel strategies, the sparse family's
-fields. ``impl`` and the voxelize/devoxelize forms default to the ported
-ones: the JAX "auto" resolves to its one-hot matmul forms at 64^3, whose
-kernels are still to be ported.
+fields. The voxel fields default as the JAX package's do: ``impl``,
+``voxelize_impl`` and ``devox_impl`` "auto", which at 64^3 in bf16 resolve
+to the fused core and the one-hot matmul voxelize/devoxelize forms.
 """
 
 from __future__ import annotations
@@ -50,8 +50,10 @@ class ModelConfig:
     # torch convs, named after the JAX core it mirrors) or anything else
     # for "auto"
     impl: str = "auto"
-    voxelize_impl: str = "scatter"
-    devox_impl: str = "gather"
+    # "scatter" / "gather" (f32-exact), "matmul" (the one-hot contraction's
+    # values, ops/voxel.py) or "auto" (the JAX package's crossover rules)
+    voxelize_impl: str = "auto"
+    devox_impl: str = "auto"
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

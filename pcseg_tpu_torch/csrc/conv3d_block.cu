@@ -28,6 +28,25 @@
 //   pcseg_up2x_bwd        replaces the bwd of fused_up2x_p
 //                         (_up2x_bwd_kernel, pallas_call at :1439).
 //
+// The 1x1 head on the last decoder grid (_head_vjp of the same file):
+//
+//   pcseg_head_grid2      replaces fused_head_grid2 (_head_kernel,
+//                         pallas_call at :1543): y = bf16(bf16(relu(x *
+//                         scale + shift)) @ bf16(W) + bias), bf16 out.
+//   pcseg_head_grid2_bwd  replaces _head_bwd (_head_bwd_kernel, pallas_call
+//                         at :1583): dx = bf16([pre > 0] gy W^T * scale),
+//                         dscale = sum dam * x (the raw x), dshift = sum dam
+//                         per (batch, channel), dW = sum s gy^T, dbias =
+//                         sum gy. The TPU kernel's lane-tiled (B, 128)
+//                         dscale/dshift are here (B, C): the sums of the
+//                         lane copies of each channel.
+//
+// The head is one pass over the grid, bound by its bytes (B8 x 64^3 x 16
+// -> 4: x 67 MB and y 17 MB forward, x, gy and dx 151 MB backward): one
+// thread a voxel with 16-byte loads of x; the backward's sums go through
+// shared-memory tiles into registers and leave with one float atomic per
+// sum per block.
+//
 // g' is the cotangent entering the conv: the forward's stats output feeds
 // the next GroupNorm, so g' = gy + gs1 + 2 * gs2 * y per (batch, channel),
 // with y the STORED bf16 output. It is folded into the gy reads. The 3^3
@@ -695,6 +714,209 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(const WgradParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the 1x1 head on the activated last decoder grid (fused_head_grid2)
+// ---------------------------------------------------------------------------
+
+constexpr int kHeadMaxNC = 16;
+constexpr int kHeadTile = 128;   // voxels per backward tile = its threads
+constexpr int kHeadJobs = 10;    // reduction jobs per backward thread
+
+__device__ __forceinline__ void load_bf16x8(const __nv_bfloat16* p,
+                                            float out[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h;
+    *reinterpret_cast<uint32_t*>(&h) = words[i];
+    const float2 f = __bfloat1622float2(h);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store_bf16x8(__nv_bfloat16* p,
+                                             const float v[8]) {
+  uint32_t words[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    words[i] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(words[0], words[1], words[2],
+                                            words[3]);
+}
+
+// y[v, k] = bf16(sum_c bf16(relu(x[v, c] * scale[b, c] + shift[b, c]))
+// * w[c, k] + bias[k]): one thread a voxel, the weights (bf16 values as
+// f32) and bias in shared memory; x read 8 channels per 16-byte load, y
+// written 4 classes per 8-byte store when nc fills the NC slots. NC, the
+// class slots (4 or 16), is a template argument so that the class loops
+// unroll without predication; the slots past nc hold zero weights.
+template <int NC>
+__global__ void __launch_bounds__(kThreads) head_fwd_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ bias, const float* __restrict__ scale,
+    const float* __restrict__ shift, __nv_bfloat16* __restrict__ y,
+    long long n, long long nvox, int c, int nc) {
+  extern __shared__ float hs[];   // w (c, NC), then bias (NC), zero-padded
+  for (int i = threadIdx.x; i < c * NC + NC; i += blockDim.x) {
+    const int ci = i / NC, k = i % NC;
+    hs[i] = k >= nc ? 0.f : ci < c ? w[ci * nc + k] : bias[k];
+  }
+  __syncthreads();
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n) return;
+  const long long b = v / nvox;
+  const float* sc = scale + b * c;
+  const float* sh = shift + b * c;
+  float acc[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) acc[k] = 0.f;
+  for (int c0 = 0; c0 < c; c0 += 8) {
+    float xv[8];
+    load_bf16x8(x + v * c + c0, xv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int ci = c0 + j;
+      const float s = round_bf16(prologue(xv[j], sc[ci], sh[ci]));
+#pragma unroll
+      for (int k = 0; k < NC; ++k) acc[k] = fmaf(s, hs[ci * NC + k], acc[k]);
+    }
+  }
+  __nv_bfloat16* out = y + v * nc;
+  if (nc == NC) {
+#pragma unroll
+    for (int k = 0; k < NC; k += 4) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          __fadd_rn(acc[k], hs[c * NC + k]),
+          __fadd_rn(acc[k + 1], hs[c * NC + k + 1]));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(
+          __fadd_rn(acc[k + 2], hs[c * NC + k + 2]),
+          __fadd_rn(acc[k + 3], hs[c * NC + k + 3]));
+      *reinterpret_cast<uint2*>(out + k) = make_uint2(
+          *reinterpret_cast<const uint32_t*>(&lo),
+          *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      if (k < nc)
+        out[k] = __float2bfloat16_rn(__fadd_rn(acc[k], hs[c * NC + k]));
+  }
+}
+
+// The head's backward. Per voxel: pre = x * scale + shift, s = bf16(relu(
+// pre)), da = gy W^T, dam = [pre > 0] da, dx = bf16(dam * scale). Sums:
+// dscale[b, c] = sum dam * x, dshift[b, c] = sum dam, dW = sum s gy^T,
+// dbias = sum gy. A block walks tiles of kHeadTile voxels of one batch
+// element: each thread computes its voxel's dx and writes s, dam * x, dam
+// and gy to shared memory; then each thread owns up to kHeadJobs of the
+// c * nc + nc + 2c sums, adds the tile's terms to registers, and at the
+// end adds them to the outputs with one float atomic each. NC as in the
+// forward: gy W^T runs over the NC slots, whose weights past nc are zero.
+template <int NC>
+__global__ void __launch_bounds__(kHeadTile) head_bwd_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gy,
+    const float* __restrict__ w, const float* __restrict__ scale,
+    const float* __restrict__ shift, __nv_bfloat16* __restrict__ dx,
+    float* __restrict__ dstats, float* __restrict__ dw,
+    float* __restrict__ dbias, long long nvox, int c, int nc) {
+  // rows padded by one float so that a warp's row writes spread over banks
+  const int cp = c + 1, np = nc + 1;
+  extern __shared__ float hs[];
+  float* sw = hs;                          // (c, NC), zero-padded
+  float* ss = sw + c * NC;                 // kHeadTile rows of c: s
+  float* sxm = ss + kHeadTile * cp;        // dam * x
+  float* sdm = sxm + kHeadTile * cp;       // dam
+  float* sg = sdm + kHeadTile * cp;        // kHeadTile rows of nc: gy
+  for (int i = threadIdx.x; i < c * NC; i += blockDim.x)
+    sw[i] = i % NC < nc ? w[i / NC * nc + i % NC] : 0.f;
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const float* sc = scale + (size_t)b * c;
+  const float* sh = shift + (size_t)b * c;
+  const int njobs = c * nc + nc + 2 * c;
+  float jacc[kHeadJobs];
+#pragma unroll
+  for (int i = 0; i < kHeadJobs; ++i) jacc[i] = 0.f;
+  const long long ntiles = (nvox + kHeadTile - 1) / kHeadTile;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long vb = tile * kHeadTile + t;   // voxel within batch b
+    __syncthreads();                             // the last tile is read
+    if (vb < nvox) {
+      const long long v = (long long)b * nvox + vb;
+      float g[NC];
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        g[k] = k < nc ? __bfloat162float(gy[v * nc + k]) : 0.f;
+        if (k < nc) sg[t * np + k] = g[k];
+      }
+      for (int c0 = 0; c0 < c; c0 += 8) {
+        float xv[8], dv[8];
+        load_bf16x8(x + v * c + c0, xv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int ci = c0 + j;
+          const float pre = __fadd_rn(__fmul_rn(xv[j], sc[ci]), sh[ci]);
+          float da = 0.f;
+#pragma unroll
+          for (int k = 0; k < NC; ++k) da = fmaf(g[k], sw[ci * NC + k], da);
+          const float dam = pre > 0.f ? da : 0.f;
+          dv[j] = __fmul_rn(dam, sc[ci]);
+          ss[t * cp + ci] = round_bf16(fmaxf(pre, 0.f));
+          sxm[t * cp + ci] = __fmul_rn(dam, xv[j]);
+          sdm[t * cp + ci] = dam;
+        }
+        store_bf16x8(dx + v * c + c0, dv);
+      }
+    } else {
+      for (int k = 0; k < nc; ++k) sg[t * np + k] = 0.f;
+      for (int ci = 0; ci < c; ++ci)
+        ss[t * cp + ci] = sxm[t * cp + ci] = sdm[t * cp + ci] = 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kHeadJobs; ++i) {
+      const int j = t + i * kHeadTile;
+      if (j >= njobs) continue;
+      float p = 0.f;
+      if (j < c * nc) {
+        const int ci = j / nc, k = j % nc;
+        for (int q = 0; q < kHeadTile; ++q)
+          p = fmaf(ss[q * cp + ci], sg[q * np + k], p);
+      } else if (j < c * nc + nc) {
+        const int k = j - c * nc;
+        for (int q = 0; q < kHeadTile; ++q) p += sg[q * np + k];
+      } else {
+        const int ci = (j - c * nc - nc) % c;
+        const float* src = j < c * nc + nc + c ? sxm : sdm;
+        for (int q = 0; q < kHeadTile; ++q) p += src[q * cp + ci];
+      }
+      jacc[i] += p;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kHeadJobs; ++i) {
+    const int j = t + i * kHeadTile;
+    if (j >= njobs) continue;
+    if (j < c * nc) {
+      atomicAdd(&dw[j], jacc[i]);
+    } else if (j < c * nc + nc) {
+      atomicAdd(&dbias[j - c * nc], jacc[i]);
+    } else {
+      const int r = j - c * nc - nc;   // dscale (r < c), then dshift
+      atomicAdd(&dstats[(size_t)b * 2 * c + r], jacc[i]);
+    }
+  }
+}
+
+bool head_shape_ok(long long nvox, int B, int c, int nc) {
+  return nvox > 0 && B > 0 && c > 0 && c % 8 == 0 && nc > 0 &&
+         nc <= kHeadMaxNC && c * nc + nc + 2 * c <= kHeadJobs * kHeadTile;
+}
+
 // Rows per block: the largest of 4, 2, 1 whose patch fits the target, so
 // two blocks share an SM; fails only past the hardware limit.
 template <typename Bytes>
@@ -721,6 +943,42 @@ int num_sms() {
     if (sms <= 0) sms = 132;
   }
   return sms;
+}
+
+// The head kernels' class slots for nc classes: 4 (the repo's class
+// count) or 16, each a compiled instantiation.
+constexpr int head_slots(int nc) { return nc <= 4 ? 4 : kHeadMaxNC; }
+
+template <int NC>
+int head_fwd_launch(const __nv_bfloat16* x, const float* w, const float* bias,
+                    const float* scale, const float* shift, __nv_bfloat16* y,
+                    int B, int V, int C, int nc, cudaStream_t stream) {
+  const long long n = (long long)B * V;
+  const size_t smem = sizeof(float) * ((size_t)C * NC + NC);
+  head_fwd_kernel<NC><<<(int)((n + kThreads - 1) / kThreads), kThreads, smem,
+                        stream>>>(x, w, bias, scale, shift, y, n, V, C, nc);
+  return (int)cudaGetLastError();
+}
+
+// The backward's grid: per batch element, enough blocks of kHeadTile
+// voxels to fill the card about 16 blocks an SM deep, each walking its
+// share of the tiles; its sums leave with one atomic per block.
+template <int NC>
+int head_bwd_launch(const __nv_bfloat16* x, const __nv_bfloat16* gy,
+                    const float* w, const float* scale, const float* shift,
+                    __nv_bfloat16* dx, float* dstats, float* dw, float* dbias,
+                    int B, int V, int C, int nc, cudaStream_t stream) {
+  const size_t smem = sizeof(float) *
+      ((size_t)C * NC + (size_t)kHeadTile * (3 * (C + 1) + nc + 1));
+  cudaError_t err = allow_smem(head_bwd_kernel<NC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long ntiles = ((long long)V + kHeadTile - 1) / kHeadTile;
+  long long per_batch = (16LL * num_sms() + B - 1) / B;
+  if (per_batch > ntiles) per_batch = ntiles;
+  head_bwd_kernel<NC><<<dim3((unsigned)per_batch, B), kHeadTile, smem,
+                        stream>>>(x, gy, w, scale, shift, dx, dstats, dw,
+                                  dbias, V, C, nc);
+  return (int)cudaGetLastError();
 }
 
 // Host-side arguments of one forward or dgrad launch (see the kernels
@@ -1009,6 +1267,45 @@ int pcseg_up2x_bwd(const void* x, const void* wt, const void* scale,
       wgrad_params(x, scale, shift, gy, y, gstats, dw, dbias, B, D, H, W,
                    cin, 2 * D, 2 * H, 2 * W, cout, 1),
       stream);
+}
+
+// The 1x1 head of fused_head_grid2: x (B, V, C) bf16 (V voxels an event,
+// C a multiple of 8, 16-byte aligned); w (C, NC) f32 holding bf16 values;
+// bias (NC,) f32; scale/shift (B, C) f32. Writes y (B, V, NC) bf16.
+int pcseg_head_grid2(const void* x, const void* w, const void* bias,
+                     const void* scale, const void* shift, void* y, int B,
+                     int V, int C, int NC, void* stream) {
+  if (!head_shape_ok(V, B, C, NC)) return (int)cudaErrorInvalidValue;
+  const auto xb = (const __nv_bfloat16*)x;
+  const auto wf = (const float*)w, bf = (const float*)bias;
+  const auto sc = (const float*)scale, sh = (const float*)shift;
+  const auto st = (cudaStream_t)stream;
+  if (head_slots(NC) == 4)
+    return head_fwd_launch<4>(xb, wf, bf, sc, sh, (__nv_bfloat16*)y, B, V, C,
+                              NC, st);
+  return head_fwd_launch<kHeadMaxNC>(xb, wf, bf, sc, sh, (__nv_bfloat16*)y,
+                                     B, V, C, NC, st);
+}
+
+// Its backward: x, w, scale, shift as in the forward; gy (B, V, NC) bf16.
+// Writes dx (B, V, C) bf16 and adds into dstats (B, 2, C) = (dscale,
+// dshift), dw (C, NC) and dbias (NC,), all f32 and zeroed by the caller.
+int pcseg_head_grid2_bwd(const void* x, const void* gy, const void* w,
+                         const void* scale, const void* shift, void* dx,
+                         void* dstats, void* dw, void* dbias, int B, int V,
+                         int C, int NC, void* stream) {
+  if (!head_shape_ok(V, B, C, NC)) return (int)cudaErrorInvalidValue;
+  const auto xb = (const __nv_bfloat16*)x, gb = (const __nv_bfloat16*)gy;
+  const auto wf = (const float*)w;
+  const auto sc = (const float*)scale, sh = (const float*)shift;
+  const auto dxb = (__nv_bfloat16*)dx;
+  const auto ds = (float*)dstats, dwf = (float*)dw, db = (float*)dbias;
+  const auto st = (cudaStream_t)stream;
+  if (head_slots(NC) == 4)
+    return head_bwd_launch<4>(xb, gb, wf, sc, sh, dxb, ds, dwf, db, B, V, C,
+                              NC, st);
+  return head_bwd_launch<kHeadMaxNC>(xb, gb, wf, sc, sh, dxb, ds, dwf, db, B,
+                                     V, C, NC, st);
 }
 
 }  // extern "C"

@@ -1,30 +1,44 @@
 // One-hot plane kernels of voxelize / devoxelize for Hopper (sm_90a).
 //
-//   pcseg_trilinear_scatter  replaces pcseg_tpu/ops/pallas/onehot_contract.py
-//                            trilinear_scatter (_tri_scatter_kernel,
+//   pcseg_voxelize_contract  replaces pcseg_tpu/ops/pallas/onehot_contract.py
+//                            voxelize_contract (_vox_contract_kernel,
+//                            pallas_call at :191): the matmul voxelizer's
+//                            sums[b, v, k] = sum_p [flat_p == v] bf16(ext[p, k]).
+//   pcseg_trilinear_scatter  replaces trilinear_scatter (_tri_scatter_kernel,
 //                            pallas_call at :245): the devoxelize backward's
 //                            grid cotangent
 //                            dgrid[b, zy, x, k] = sum_p A[p, zy] Wx[p, x] go[p, k].
+//   pcseg_trilinear_gather   replaces trilinear_gather (_tri_gather_kernel,
+//                            pallas_call at :376): the matmul devoxelize
+//                            forward out[p, k] = mask_p sum_x Wx[p, x]
+//                            sum_zy A[p, zy] g2[zy, x, k].
 //
-// The TPU kernel builds the one-hot zy plane (R^2, Mc) and the x/channel
-// line (Mc, R*C) of a chunk of points in VMEM and contracts the point axis
-// on the MXU, because the MXU is the TPU's fast path and a scatter is not.
-// On the card a point touches at most 8 voxels, so the contraction is a
-// scatter: one thread per point computes its taps and adds its at most
-// 8 * C products into the f32 grid with float atomics. It is bound by
-// bytes (the f32 grid it writes, 33.5 MB at B8 x R64 x C4, zeroed by the
-// caller) and by atomic throughput, not by operations.
+// The TPU kernels build one-hot planes of a chunk of points in VMEM and
+// contract the point axis on the MXU, because the MXU is the TPU's fast
+// path and a scatter or a gather is not. On the card a point touches at
+// most 8 voxels (1 for voxelize), so each kernel is one thread per point:
+// voxelize and the scatter add their products into an f32 grid that the
+// caller zeroed with float atomics, the gather reads its at most 8 taps x C
+// bf16 values. All three are bound by bytes, not operations: the scatter
+// and voxelize by the f32 grid they write (33.5 / 25.2 MB at B8 x R64 with
+// C 4 / 3) and by atomic throughput, the gather by the per-point rows it
+// reads and writes (the taps of neighbouring points share cache lines).
 //
 // Rounding points (onehot_contract.py _axis_taps, _zy_plane,
-// _xline_weights, _tri_scatter_kernel): per axis the two taps floor(u) and
-// floor(u) + 1 are clipped to [0, R-1], with weights 1 - frac and frac;
+// _xline_weights and the three kernels): per axis the two taps floor(u)
+// and floor(u) + 1 are clipped to [0, R-1], with weights 1 - frac and frac;
 // the zy weight is wz * wy in f32, duplicate clipped taps summed in f32 in
-// the kernel's loop order, rounded to bf16 once; the x weights likewise
-// summed in f32 and rounded to bf16; the operand is bf16(wx * go) of bf16
-// values; products and sums in f32. Points whose cotangent row is zero
-// (masked points) add nothing and are skipped.
+// the kernels' loop order (z outer), rounded to bf16 once. The x weights'
+// duplicates are summed in f32; the scatter rounds them to bf16 and its
+// operand is bf16(wx * go) of bf16 values, the gather keeps them f32 and
+// takes, for each x tap, the zy sum of A * bf16(g2) first, then multiplies
+// by the x weight and sums over x, all in f32. voxelize rounds each ext
+// value to bf16 and sums in f32 (counts, a column of ones, are exact).
+// Points whose cotangent row is zero (masked points) add nothing to the
+// scatter and are skipped; voxelize skips the sentinel id R^3 of masked
+// points; the gather writes 0 for masked points.
 //
-// Plain C interface (loaded with ctypes): the entry returns
+// Plain C interface (loaded with ctypes): each entry returns
 // cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
@@ -51,6 +65,58 @@ __device__ __forceinline__ void axis_taps(float u, int r, int idx[2],
   w[1] = frac;
 }
 
+// The four zy taps of a point in the TPU kernels' loop order (z outer):
+// zi their flat z * R + y ids; first[t] marks the first copy of each
+// distinct id, whose a[t] is the bf16-rounded f32 sum of the weights
+// wz * wy of all its copies (later copies: first false, a 0).
+__device__ __forceinline__ void zy_taps(float uz, float uy, int r, int zi[4],
+                                        float a[4], bool first[4]) {
+  int iz[2], iy[2];
+  float wz[2], wy[2], zw[4];
+  axis_taps(uz, r, iz, wz);
+  axis_taps(uy, r, iy, wy);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      zi[2 * i + e] = iz[i] * r + iy[e];
+      zw[2 * i + e] = __fmul_rn(wz[i], wy[e]);
+    }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    first[t] = true;
+    for (int s = 0; s < t; ++s) first[t] &= zi[s] != zi[t];
+    float sum = 0.f;
+    for (int s = 0; s < 4; ++s)
+      if (zi[s] == zi[t]) sum = __fadd_rn(sum, zw[s]);
+    a[t] = first[t] ? round_bf16(sum) : 0.f;
+  }
+}
+
+// The x taps of a point: a duplicate (clipped edge) folds its weight into
+// the first, summed in f32. Returns the number of distinct taps (1 or 2).
+__device__ __forceinline__ int x_taps(float ux, int r, int ix[2],
+                                      float xw[2]) {
+  axis_taps(ux, r, ix, xw);
+  if (ix[0] != ix[1]) return 2;
+  xw[0] = __fadd_rn(xw[0], xw[1]);
+  xw[1] = 0.f;
+  return 1;
+}
+
+__global__ void __launch_bounds__(kThreads) voxelize_contract_kernel(
+    const int* __restrict__ flat, const float* __restrict__ ext,
+    float* __restrict__ out, long long n, int m, int r3, int c1) {
+  const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pt >= n) return;
+  const int f = flat[pt];
+  if (f < 0 || f >= r3) return;            // the masked points' sentinel
+  const long long b = pt / m;
+  float* row = out + (b * r3 + f) * c1;
+  const float* e = ext + pt * c1;
+  for (int k = 0; k < c1; ++k) atomicAdd(row + k, round_bf16(e[k]));
+}
+
 __global__ void __launch_bounds__(kThreads) trilinear_scatter_kernel(
     const float* __restrict__ u, const float* __restrict__ go,
     float* __restrict__ out, long long n, int m, int r, int c) {
@@ -65,49 +131,87 @@ __global__ void __launch_bounds__(kThreads) trilinear_scatter_kernel(
   }
   if (!any) return;
   const long long b = pt / m;
-  int iz[2], iy[2], ix[2];
-  float wz[2], wy[2], wx[2];
-  axis_taps(u[pt * 3 + 0], r, iz, wz);
-  axis_taps(u[pt * 3 + 1], r, iy, wy);
-  axis_taps(u[pt * 3 + 2], r, ix, wx);
-
-  // the four zy taps in the TPU kernel's loop order (z outer)
-  int zi[4];
-  float zw[4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      zi[2 * a + e] = iz[a] * r + iy[e];
-      zw[2 * a + e] = __fmul_rn(wz[a], wy[e]);
-    }
-  // x taps: a duplicate (clipped edge) folds into the first
-  const int nx = ix[0] == ix[1] ? 1 : 2;
-  float xw[2];
-  xw[0] = round_bf16(nx == 1 ? __fadd_rn(wx[0], wx[1]) : wx[0]);
-  xw[1] = round_bf16(wx[1]);
+  int zi[4], ix[2];
+  float a[4], xw[2];
+  bool first[4];
+  zy_taps(u[pt * 3 + 0], u[pt * 3 + 1], r, zi, a, first);
+  const int nx = x_taps(u[pt * 3 + 2], r, ix, xw);
+  xw[0] = round_bf16(xw[0]);
+  xw[1] = round_bf16(xw[1]);
 
   float* grid = out + b * (long long)r * r * r * c;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    bool first = true;
-    for (int s = 0; s < t; ++s) first &= zi[s] != zi[t];
-    if (!first) continue;
-    float sum = 0.f;
-    for (int s = 0; s < 4; ++s)
-      if (zi[s] == zi[t]) sum = __fadd_rn(sum, zw[s]);
-    const float a = round_bf16(sum);
+    if (!first[t]) continue;
     for (int e = 0; e < nx; ++e) {
       float* row = grid + ((long long)zi[t] * r + ix[e]) * c;
       for (int k = 0; k < c; ++k)
-        atomicAdd(row + k, a * round_bf16(__fmul_rn(xw[e], gb[k])));
+        atomicAdd(row + k, a[t] * round_bf16(__fmul_rn(xw[e], gb[k])));
     }
   }
 }
 
+__global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
+    const float* __restrict__ u, const uint8_t* __restrict__ mask,
+    const __nv_bfloat16* __restrict__ g2, float* __restrict__ out,
+    long long n, int m, int r, int c) {
+  const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pt >= n) return;
+  float* o = out + pt * c;
+  if (!mask[pt]) {
+    for (int k = 0; k < c; ++k) o[k] = 0.f;
+    return;
+  }
+  const long long b = pt / m;
+  int zi[4], ix[2];
+  float a[4], xw[2];
+  bool first[4];
+  zy_taps(u[pt * 3 + 0], u[pt * 3 + 1], r, zi, a, first);
+  const int nx = x_taps(u[pt * 3 + 2], r, ix, xw);
+
+  const __nv_bfloat16* grid = g2 + b * (long long)r * r * r * c;
+  float acc[kMaxC];
+#pragma unroll
+  for (int k = 0; k < kMaxC; ++k) acc[k] = 0.f;
+  for (int e = 0; e < nx; ++e) {
+    float s[kMaxC];
+#pragma unroll
+    for (int k = 0; k < kMaxC; ++k) s[k] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (!first[t]) continue;
+      const __nv_bfloat16* row = grid + ((long long)zi[t] * r + ix[e]) * c;
+#pragma unroll
+      for (int k = 0; k < kMaxC; ++k)
+        if (k < c)
+          s[k] = __fadd_rn(s[k], __fmul_rn(a[t], __bfloat162float(row[k])));
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxC; ++k)
+      if (k < c) acc[k] = __fadd_rn(acc[k], __fmul_rn(xw[e], s[k]));
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxC; ++k)
+    if (k < c) o[k] = acc[k];
+}
+
+int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+
 }  // namespace
 
 extern "C" {
+
+// flat (B, M) int32 voxel ids, R^3 for masked points; ext (B, M, C1) f32
+// point rows, masked rows zero; out (B, R^3, C1) f32, zeroed by the caller.
+int pcseg_voxelize_contract(const void* flat, const void* ext, void* out,
+                            int B, int M, int R, int C1, void* stream) {
+  if (B <= 0 || M <= 0 || R <= 0 || C1 <= 0) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * M;
+  voxelize_contract_kernel<<<blocks_for(n), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const int*)flat, (const float*)ext, (float*)out, n, M, R * R * R, C1);
+  return (int)cudaGetLastError();
+}
 
 // u (B, M, 3) f32 continuous voxel coords (masked points finite); go
 // (B, M, C) f32 point cotangents, masked rows zero; out (B, R^3, C) f32,
@@ -117,9 +221,24 @@ int pcseg_trilinear_scatter(const void* u, const void* go, void* out, int B,
   if (B <= 0 || M <= 0 || R <= 0 || C <= 0 || C > kMaxC)
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)B * M;
-  const int grid = (int)((n + kThreads - 1) / kThreads);
-  trilinear_scatter_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  trilinear_scatter_kernel<<<blocks_for(n), kThreads, 0,
+                             (cudaStream_t)stream>>>(
       (const float*)u, (const float*)go, (float*)out, n, M, R, C);
+  return (int)cudaGetLastError();
+}
+
+// u (B, M, 3) f32 continuous voxel coords; mask (B, M) bool (one byte a
+// point); g2 (B, R^3, C) bf16 in the same NDHWC order; out (B, M, C) f32.
+int pcseg_trilinear_gather(const void* u, const void* mask, const void* g2,
+                           void* out, int B, int M, int R, int C,
+                           void* stream) {
+  if (B <= 0 || M <= 0 || R <= 0 || C <= 0 || C > kMaxC)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * M;
+  trilinear_gather_kernel<<<blocks_for(n), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (const float*)u, (const uint8_t*)mask, (const __nv_bfloat16*)g2,
+      (float*)out, n, M, R, C);
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,7 @@ from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
 
 FAMILIES = ("pointnet_seg", "voxel_unet3d", "sparse_voxelnet")
 _NOT_PORTED = {
-    "sparse_voxelnet": "ROADMAP Queue B, slice 4 (the sparse family)",
+    "sparse_voxelnet": "ROADMAP Queue A item 8 and Queue B item 3",
 }
 
 

@@ -20,11 +20,19 @@ Two cores, as in the JAX model:
 - ``conv_impl="xla"``: plain torch convs and the two-pass GroupNorm, the
   CPU and f32 oracle.
 
+Voxelize and devoxelize take the JAX model's forms: ``voxelize_impl`` and
+``devox_impl`` default to "auto", which resolves to the one-hot "matmul"
+forms at 64^3, as in the JAX package. With the fused core and the matmul
+devoxelize, the head is ``fused_head_grid2`` (activation and 1x1 head in
+one kernel, bf16 logits in the grid2 layout) and devoxelize reads that
+grid2; otherwise the head is the plain ``head1x1`` with f32 logits. The
+voxelize and devoxelize precision follows ``compute_dtype``: bf16 models
+run the bf16 kernels (voxelize_contract, trilinear_gather and, in the
+backward, trilinear_scatter), f32 models the plain f32 forms.
+
 Training follows the JAX model's ``apply(train=True)``: there are no
 running statistics (GroupNorm), so ``apply`` returns ``(logits, {})`` and
-``load_batch_stats`` has nothing to load. The devoxelize backward's
-precision follows ``compute_dtype`` (the bf16 trilinear-scatter kernel
-for bf16 models, f32 for f32 models).
+``load_batch_stats`` has nothing to load.
 """
 
 from __future__ import annotations
@@ -40,7 +48,13 @@ from pcseg_tpu_torch.ops.conv3d import (
     group_norm,
     group_norm_init,
 )
-from pcseg_tpu_torch.ops.voxel import devoxelize_trilinear, voxelize
+from pcseg_tpu_torch.ops.voxel import (
+    devoxelize_trilinear,
+    devoxelize_trilinear_grid2,
+    resolve_devoxelize_impl,
+    resolve_voxelize_impl,
+    voxelize,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GROUPS = 8
@@ -62,7 +76,7 @@ class VoxelUNet3d(nn.Module):
     def __init__(self, num_classes: int, input_dim: int = 4,
                  grid_size: int = 64, width: int = 16, levels: int = 3,
                  compute_dtype: str = "float32", conv_impl: str = "auto",
-                 voxelize_impl: str = "scatter", devox_impl: str = "gather",
+                 voxelize_impl: str = "auto", devox_impl: str = "auto",
                  generator: torch.Generator | None = None):
         super().__init__()
         if compute_dtype not in _DTYPES:
@@ -134,6 +148,23 @@ class VoxelUNet3d(nn.Module):
             raise ValueError(f"unknown conv_impl {self.conv_impl!r}")
         return impl
 
+    def resolve_forms(self) -> dict:
+        """The forms ``apply`` takes, as the JAX ``apply`` resolves them:
+        the conv core, the voxelize and devoxelize forms, and the head
+        ("grid2": ``fused_head_grid2``, the fused core with the matmul
+        devoxelize; "1x1": ``head1x1``)."""
+        conv = self.resolve_conv_impl()
+        devox = resolve_devoxelize_impl(self.devox_impl, self.grid_size,
+                                        self.num_classes)
+        return {
+            "conv": conv,
+            "voxelize": resolve_voxelize_impl(
+                self.voxelize_impl, self.grid_size, self.in_channels),
+            "devoxelize": devox,
+            "head": "grid2" if conv == "fused" and devox == "matmul"
+            else "1x1",
+        }
+
     def p(self, name: str) -> dict:
         return getattr(self, name).as_dict()
 
@@ -151,24 +182,28 @@ class VoxelUNet3d(nn.Module):
         ``(logits, {})`` when ``train=True``. Differentiable with respect
         to the parameters. ``seeds`` is unused (no dropout).
 
-        ``plain=True`` runs the fused core and the devoxelize backward
-        through the kernels' plain versions on any device: the on-card
-        reference of the kernel path.
+        ``plain=True`` runs voxelize, the fused core, the head and
+        devoxelize with its backward through the kernels' plain versions
+        on any device: the on-card reference of the kernel path.
         """
         dt = _DTYPES[self.compute_dtype]
         if mask is None:
             mask = torch.ones(points.shape[:2], dtype=torch.bool,
                               device=points.device)
-        impl = self.resolve_conv_impl()
-        grid = voxelize(points, mask, self.grid_size, impl=self.voxelize_impl)
+        forms = self.resolve_forms()
+        grid = voxelize(points, mask, self.grid_size, impl=forms["voxelize"],
+                        matmul_dtype=dt, plain=plain)
+        # the matmul voxelizer's bf16 grid, zero-padded to w0 channels by
+        # the fused core, has the values of JAX voxelize_packed
         x = grid.features.to(dt)
-        if impl == "fused":
-            voxel_logits = self._unet_core_fused(x, plain)
+        grid2 = forms["head"] == "grid2"
+        if forms["conv"] == "fused":
+            voxel_logits = self._unet_core_fused(x, plain, grid2)
         else:
             voxel_logits = self._unet_core(x, dt)
-        logits = devoxelize_trilinear(voxel_logits, points, mask, grid.lo,
-                                      grid.scale, impl=self.devox_impl,
-                                      bwd_dtype=dt, plain=plain)
+        devox = devoxelize_trilinear_grid2 if grid2 else devoxelize_trilinear
+        logits = devox(voxel_logits, points, mask, grid.lo, grid.scale,
+                       forms["devoxelize"], bwd_dtype=dt, plain=plain)
         return (logits, {}) if train else logits
 
     @torch.no_grad()
@@ -177,11 +212,14 @@ class VoxelUNet3d(nn.Module):
         """Serving: eval-mode logits without a graph."""
         return self.apply(points, mask=mask, plain=plain)
 
-    def _unet_core_fused(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+    def _unet_core_fused(self, x: torch.Tensor, plain: bool,
+                         grid2_out: bool = False) -> torch.Tensor:
         """Mirror of the JAX ``_unet_core_fused``: 13 conv3x3 launches,
         levels-1 down and levels-1 up launches per forward at levels=3; the
         backward launches 12 dgrads (none for the stem), 13 wgrads and
-        levels-1 of each resample backward."""
+        levels-1 of each resample backward. ``grid2_out``: the head is
+        ``fused_head_grid2`` (one launch forward, one backward) with bf16
+        (B, R*R, R*NC) logits; else ``head1x1`` with f32 NDHWC logits."""
 
         def conv(*args, **kw):
             return cb.conv3x3_gn_act(*args, plain=plain, **kw)
@@ -240,6 +278,9 @@ class VoxelUNet3d(nn.Module):
             xp, st = conv(xp, prm["kernel"], prm["bias"], sc, sh)
             sc, sh = fold(st, f"dec{i}_b_gn", i)
         head = self.p("head")
+        if grid2_out:
+            return cb.fused_head_grid2(xp, head["kernel"], head["bias"], sc,
+                                       sh, self.num_classes, plain=plain)
         return cb.head1x1(cb.act(xp, sc, sh), head["kernel"], head["bias"])
 
     def _unet_core(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:

@@ -41,9 +41,13 @@ SIGNATURES = {
         "pcseg_conv3x3_wgrad": [_P] * 8 + [_I] * 7 + [_P],
         "pcseg_down2x_bwd": [_P] * 11 + [_I] * 6 + [_P],
         "pcseg_up2x_bwd": [_P] * 11 + [_I] * 6 + [_P],
+        "pcseg_head_grid2": [_P] * 6 + [_I] * 4 + [_P],
+        "pcseg_head_grid2_bwd": [_P] * 9 + [_I] * 4 + [_P],
     },
     "onehot_contract": {
+        "pcseg_voxelize_contract": [_P] * 3 + [_I] * 4 + [_P],
         "pcseg_trilinear_scatter": [_P] * 3 + [_I] * 4 + [_P],
+        "pcseg_trilinear_gather": [_P] * 4 + [_I] * 4 + [_P],
     },
     "pointnet_fused": {
         "pcseg_dropout": [_P, _P, _L, _U, _U, _F, _I, _P],

@@ -10,7 +10,10 @@ and GroupNorm never needs a pass of its own:
 - ``conv3x3_gn_act``: the 3^3 SAME conv (``fused_conv3x3_p`` and, with
   ``accum``, ``fused_conv3x3_add_p``);
 - ``down2x_gn_act``: the k2 s2 conv C -> 2C (``fused_down2x_p``);
-- ``up2x_gn_act``: the k2 s2 transposed conv 2C -> C (``fused_up2x_p``).
+- ``up2x_gn_act``: the k2 s2 transposed conv 2C -> C (``fused_up2x_p``);
+- ``fused_head_grid2``: the 1x1 head on the activated last grid, bf16
+  logits in the devoxelizer's (B, R*R, R*NC) grid2 layout
+  (``fused_head_grid2``).
 
 Each is a ``torch.autograd.Function`` whose backward is the JAX custom
 VJP on kernels of its own. The stats output feeds the next GroupNorm, so
@@ -23,7 +26,9 @@ folded into the kernels' gy reads:
   g' itself, which is the add variant's accum gradient;
 - ``conv3x3_wgrad``: dW and dbias (``_wgrad_pallas``);
 - ``down2x_bwd`` / ``up2x_bwd``: dx, dscale/dshift, dW and dbias (the
-  backward kernels of ``fused_down2x_p`` / ``fused_up2x_p``).
+  backward kernels of ``fused_down2x_p`` / ``fused_up2x_p``);
+- ``head_grid2_bwd``: the head's dx, dscale/dshift, dW and dbias
+  (``_head_bwd``); its cotangent has no stats term.
 
 The 3^3 pair computes gy + (gs1 + 2 gs2 y) and rounds g' to bf16 before
 both products and before dbias; down/up compute (gy + gs1) + 2 gs2 y,
@@ -61,7 +66,7 @@ from pcseg_tpu_torch.ops.conv3d import num_groups
 # one where it launches its kernel and nowhere else
 LAUNCHES = {"conv3x3_gn_act": 0, "down2x_gn_act": 0, "up2x_gn_act": 0,
             "conv3x3_dgrad": 0, "conv3x3_wgrad": 0, "down2x_bwd": 0,
-            "up2x_bwd": 0}
+            "up2x_bwd": 0, "head_grid2": 0, "head_grid2_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -117,8 +122,12 @@ def act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor):
 def head1x1(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
     """1x1 head on activated bf16 ``a``: bf16 operands, f32 product and
     bias, (B, D, H, W, NC) f32."""
-    k = w.reshape(w.shape[-2], w.shape[-1]).to(torch.bfloat16).float()
-    return a.float() @ k + bias.float()
+    return a.float() @ _wq(_head_w(w)) + bias.float()
+
+
+def _head_w(w):
+    """The head's (1, 1, 1, C, NC) kernel as (C, NC)."""
+    return w.reshape(w.shape[-2], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +255,25 @@ def up2x_bwd_plain(x, w, scale, shift, gy, y, gstats):
     da = torch.einsum("bzpyqxro,pqrio->bzyxi", gb, wf)
     dx, dstats = _act_grad(da, x, scale, shift, True)
     return dx, dstats, dw.contiguous(), ge.sum(dim=(0, 1, 2, 3))
+
+
+def head_grid2_plain(x, w, bias, scale, shift):
+    """The fused head: bf16(act(x) @ bf16(W) + bias), (B, D, H, W, NC)
+    bf16, the f32 sum over C taken before the bias."""
+    return head1x1(act(x, scale, shift), w, bias).to(torch.bfloat16)
+
+
+def head_grid2_bwd_plain(x, gy, w, scale, shift):
+    """The fused head's backward from its bf16 cotangent gy: (dx bf16,
+    dstats (B, 2, C) = (dscale, dshift), dW (C, NC), dbias (NC,)), f32 sums
+    (``_head_bwd_kernel``): dscale multiplies by the raw x, dW by the
+    activated bf16 s."""
+    g = gy.float()
+    s = act(x, scale, shift).float()
+    da = g @ _wq(_head_w(w)).t()
+    dx, dstats = _act_grad(da, x, scale, shift, True)
+    dw = s.reshape(-1, s.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+    return dx, dstats, dw, g.sum(dim=(0, 1, 2, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -491,6 +519,63 @@ def up2x_bwd_cuda(x, w, scale, shift, gy, y, gstats):
                               (b, 2 * d, 2 * h, 2 * wd, w.shape[-1]))
 
 
+def _head_checks(x, w, scale, shift):
+    """Validate a head launch; returns (B, V voxels an event, C, NC)."""
+    if x.dim() != 5:
+        raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
+    b, c, dev = x.shape[0], x.shape[-1], x.device
+    _check("x", x, x.shape, torch.bfloat16, dev)
+    _check("scale", scale, (b, c), torch.float32, dev)
+    _check("shift", shift, (b, c), torch.float32, dev)
+    nc = w.shape[-1]
+    if tuple(w.shape[:-1]) not in ((c,), (1, 1, 1, c)) or w.device != dev:
+        raise ValueError(f"w must be (1, 1, 1, {c}, NC) on {dev}, got "
+                         f"{tuple(w.shape)} on {w.device}")
+    # the class-count and shared-memory limits are head_shape_ok's in
+    # csrc/conv3d_block.cu, which rejects any other shape at launch
+    if c % 8 or x.data_ptr() % 16:
+        raise ValueError(f"the head kernels take C a multiple of 8 (16-byte "
+                         f"aligned x), got C={c}")
+    return b, x.numel() // (b * c), c, nc
+
+
+def head_grid2_cuda(x, w, bias, scale, shift):
+    """relu(x * scale + shift) -> 1x1 head -> + bias, bf16 out.
+
+    x (B, D, H, W, C) bf16; w (1, 1, 1, C, NC), rounded to bf16; bias
+    (NC,) f32; scale/shift (B, C) f32. Returns y (B, D, H, W, NC) bf16.
+    """
+    b, v, c, nc = _head_checks(x, w, scale, shift)
+    _check("bias", bias, (nc,), torch.float32, x.device)
+    y = torch.empty(x.shape[:4] + (nc,), dtype=torch.bfloat16,
+                    device=x.device)
+    rc = load_library().pcseg_head_grid2(
+        x.data_ptr(), _wq(_head_w(w)).contiguous().data_ptr(),
+        bias.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(), b,
+        v, c, nc, stream_of(x))
+    raise_on(rc, "head_grid2")
+    LAUNCHES["head_grid2"] += 1
+    return y
+
+
+def head_grid2_bwd_cuda(x, gy, w, scale, shift):
+    """Backward of the head from gy (B, D, H, W, NC) bf16: (dx bf16,
+    dstats (B, 2, C) = (dscale, dshift), dW (C, NC), dbias (NC,)) f32."""
+    b, v, c, nc = _head_checks(x, w, scale, shift)
+    _check("gy", gy, x.shape[:4] + (nc,), torch.bfloat16, x.device)
+    dx = torch.empty_like(x)
+    dstats = _f32_zeros(x, b, 2, c)
+    dw = _f32_zeros(x, c, nc)
+    db = _f32_zeros(x, nc)
+    rc = load_library().pcseg_head_grid2_bwd(
+        x.data_ptr(), gy.data_ptr(), _wq(_head_w(w)).contiguous().data_ptr(),
+        scale.data_ptr(), shift.data_ptr(), dx.data_ptr(), dstats.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), b, v, c, nc, stream_of(x))
+    raise_on(rc, "head_grid2_bwd")
+    LAUNCHES["head_grid2_bwd"] += 1
+    return dx, dstats, dw, db
+
+
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
@@ -592,3 +677,38 @@ def down2x_gn_act(x, w, bias, scale, shift, *, plain=False):
 def up2x_gn_act(x, w, bias, scale, shift, *, plain=False):
     """The differentiable up block (``up2x_gn_act_cuda``)."""
     return _Resample.apply(x, w, bias, scale, shift, True, bool(plain))
+
+
+class _HeadGrid2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, scale, shift, plain):
+        kern = on_cuda(x, plain)
+        y = (head_grid2_cuda if kern else head_grid2_plain)(
+            x, w, bias, scale, shift)
+        ctx.save_for_backward(x, w, scale, shift)
+        ctx.kern = kern
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, scale, shift = ctx.saved_tensors
+        bwd = head_grid2_bwd_cuda if ctx.kern else head_grid2_bwd_plain
+        dx, dstats, dw, dbias = bwd(x, gy.to(torch.bfloat16).contiguous(),
+                                    w, scale, shift)
+        return (dx, dw.reshape(w.shape).to(w.dtype), dbias, dstats[:, 0],
+                dstats[:, 1], None)
+
+
+def fused_head_grid2(x, w, bias, scale, shift, num_classes, *, plain=False):
+    """relu(x * scale + shift) -> 1x1 head -> + bias as bf16 logits in the
+    (B, D*H, W*NC) grid2 layout (JAX ``fused_head_grid2``; the NDHWC
+    (B, D, H, W, NC) output viewed, not copied). Differentiable: the
+    backward (``head_grid2_bwd_cuda``) returns dx, dW, dbias and the
+    per-(batch, channel) dscale/dshift, which flow on through
+    ``stats_scale_shift`` into the last conv's stats cotangent."""
+    if w.shape[-1] != num_classes:
+        raise ValueError(f"head kernel {tuple(w.shape)} does not end in "
+                         f"num_classes={num_classes}")
+    b, d, h, wd, _ = x.shape
+    y = _HeadGrid2.apply(x, w, bias, scale, shift, bool(plain))
+    return y.reshape(b, d * h, wd * num_classes)

@@ -2,19 +2,35 @@
 
 Quantize each event's points onto an R^3 grid over its own bounding box,
 scatter-mean the point features into voxels, and read per-point values
-back by trilinear interpolation. The forwards are the JAX package's
-f32-exact forms, ``voxelize(impl="scatter")`` and ``devoxelize_trilinear(
-impl="gather")``; its one-hot matmul forward forms exist only to keep
-scatters off the TPU and run through kernels that are not ported yet.
+back by trilinear interpolation. Each has the JAX package's two forms,
+picked by ``impl`` ("auto" resolves by the JAX package's crossover rules,
+``resolve_voxelize_impl`` / ``resolve_devoxelize_impl``; at 64^3 both
+resolve to "matmul"):
 
-``devoxelize_trilinear`` carries the JAX package's hand-written VJP:
-gradients flow to the grid only, through ``trilinear_scatter``, the CUDA
-kernel of csrc/onehot_contract.cu (JAX ``onehot_contract.trilinear_scatter``)
-in bf16 models, or an f32 scatter in f32 models.
+- ``voxelize``: "scatter", the f32-exact scatter-add; "matmul", the one-hot
+  contraction's values, the point features rounded to ``matmul_dtype``
+  before the f32 sums: ``voxelize_contract``, the CUDA kernel of
+  csrc/onehot_contract.cu (JAX ``onehot_contract.voxelize_contract``) in
+  bf16, a plain f32 scatter-add in f32.
+- ``devoxelize_trilinear`` / ``devoxelize_trilinear_grid2``: "gather", the
+  f32-exact 8-tap gather; "matmul", the one-hot contraction's values, with
+  bf16 zy tap weights and a bf16 grid when ``bwd_dtype`` is bf16:
+  ``trilinear_gather``, the CUDA kernel of the same file (JAX
+  ``onehot_contract.trilinear_gather``), or its plain f32 form in f32.
+
+Both devoxelize forms carry the JAX package's hand-written VJP: gradients
+flow to the grid only, through ``trilinear_scatter`` (JAX
+``onehot_contract.trilinear_scatter``) in bf16, an f32 scatter in f32.
+
+The bf16 forms are the kernels' contracts at every R. The JAX package
+takes its kernels only at R <= 64 (``_use_plane_kernels``, a VMEM limit of
+the TPU) and its XLA forms, which round the z and y weights separately,
+above; the port has no such gate.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -34,6 +50,34 @@ class VoxelGrid(NamedTuple):
     counts: torch.Tensor    # (B, R, R, R) points per voxel
     lo: torch.Tensor        # (B, 3) event-box lower corner
     scale: torch.Tensor     # (B, 3) voxels per unit length
+
+
+# launches since the last reset_launches(); each wrapper adds one where it
+# launches its kernel and nowhere else
+LAUNCHES = {"voxelize_contract": 0, "trilinear_gather": 0,
+            "trilinear_scatter": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def resolve_voxelize_impl(impl: str, grid_size: int, c: int) -> str:
+    """'auto' -> "matmul" while R^3 * C <= 4e6, else "scatter" (the JAX
+    package's measured crossover); c counts the occupancy channel."""
+    if impl != "auto":
+        return impl
+    return "matmul" if grid_size ** 3 * c <= 4_000_000 else "scatter"
+
+
+def resolve_devoxelize_impl(impl: str, grid_size: int, c: int) -> str:
+    """'auto' -> "matmul" while R^3 * (C + 1) <= 4e6, else "gather" (the
+    JAX package's rule, counting C + 1 columns: at a boundary channel
+    count the two resolvers can differ)."""
+    if impl != "auto":
+        return impl
+    return "matmul" if grid_size ** 3 * (c + 1) <= 4_000_000 else "gather"
 
 
 def _event_box(coords: torch.Tensor, mask: torch.Tensor):
@@ -62,43 +106,104 @@ def voxel_indices(coords: torch.Tensor, mask: torch.Tensor, grid_size: int):
     return flat, lo, scale
 
 
+# ---------------------------------------------------------------------------
+# voxelize: the sums of point rows per voxel
+# ---------------------------------------------------------------------------
+
+def voxelize_contract_plain(flat: torch.Tensor, ext: torch.Tensor, r: int,
+                            round_bf16: bool = True) -> torch.Tensor:
+    """sums[b, v, k] = sum_p [flat[b, p] == v] ext[b, p, k] as (B, R^3, C1)
+    f32, each value rounded to bf16 first unless ``round_bf16=False``: one
+    ``index_add_`` into an (R^3 + 1)-row table per event whose spill row,
+    where the sentinel ids of masked points land, is dropped."""
+    b, _, c1 = ext.shape
+    r3 = r ** 3
+    vals = ext.to(torch.bfloat16).float() if round_bf16 else ext.float()
+    rows = flat.long() + torch.arange(b, device=flat.device)[:, None] * (
+        r3 + 1)
+    out = torch.zeros(b * (r3 + 1), c1, dtype=torch.float32,
+                      device=ext.device)
+    out.index_add_(0, rows.reshape(-1), vals.reshape(-1, c1))
+    return out.reshape(b, r3 + 1, c1)[:, :r3]
+
+
+def voxelize_contract(flat: torch.Tensor, ext: torch.Tensor, r: int, *,
+                      plain: bool = False) -> torch.Tensor:
+    """The matmul voxelizer's sums (B, R^3, C1) f32 (JAX
+    ``onehot_contract.voxelize_contract``, whose (B, R^2, R*C1) output is
+    the same row-major memory): flat (B, M) voxel ids with the sentinel
+    R^3 for masked points; ext (B, M, C1) point rows, rounded to bf16.
+    Launches the CUDA kernel on a CUDA tensor."""
+    if not on_cuda(ext, plain):
+        return voxelize_contract_plain(flat, ext, r)
+    b, m, c1 = ext.shape
+    if tuple(flat.shape) != (b, m) or flat.device != ext.device:
+        raise ValueError(f"flat must be (B, M) = {(b, m)} on {ext.device}, "
+                         f"got {tuple(flat.shape)} on {flat.device}")
+    flat = flat.to(torch.int32).contiguous()
+    ext = ext.float().contiguous()
+    out = torch.zeros((b, r ** 3, c1), dtype=torch.float32,
+                      device=ext.device)
+    rc = load_library("onehot_contract").pcseg_voxelize_contract(
+        flat.data_ptr(), ext.data_ptr(), out.data_ptr(), b, m, r, c1,
+        stream_of(ext))
+    raise_on(rc, "voxelize_contract")
+    LAUNCHES["voxelize_contract"] += 1
+    return out
+
+
+def voxel_rows(points: torch.Tensor, mask: torch.Tensor, grid_size: int):
+    """The voxelizer's operands: flat (B, M) voxel ids (R^3 for masked
+    points), ext (B, M, C + 1) rows of the features (columns 3:), the
+    occupancy 1 and the count 1, masked rows zero, and the box (lo,
+    scale)."""
+    feats = points[..., 3:].float()
+    ones = torch.ones_like(feats[..., :1])
+    flat, lo, scale = voxel_indices(points[..., :3].float(), mask, grid_size)
+    ext = torch.cat([feats, ones, ones], dim=-1)
+    ext = torch.where(mask[..., None], ext, torch.zeros_like(ext))
+    return flat, ext, lo, scale
+
+
 def voxelize(points: torch.Tensor, mask: torch.Tensor, grid_size: int,
-             impl: str = "scatter") -> VoxelGrid:
+             impl: str = "scatter", matmul_dtype=torch.bfloat16, *,
+             plain: bool = False) -> VoxelGrid:
     """Scatter-mean point features into an R^3 grid (f32).
 
-    points (B, M, 3+F): the features scattered are columns 3: plus a
-    constant-1 occupancy channel, so C = F + 1. Sums and counts go into
-    an (R^3 + 1)-row table per event with ``index_add_``; masked points
-    land in the spill row, which is dropped.
+    points (B, M, 3+F): the features are columns 3: plus a constant-1
+    occupancy channel, so C = F + 1; a ones column beside them counts the
+    points. "scatter" sums in f32; "matmul" rounds the features to
+    ``matmul_dtype`` first (bf16: ``voxelize_contract``; f32: exact), as
+    the JAX one-hot contraction does; counts are exact in both. The mean
+    divides in f32.
     """
-    if impl != "scatter":
-        raise NotImplementedError(
-            f"voxelize impl {impl!r}: only 'scatter' is ported (the one-hot "
-            "matmul form waits for ROADMAP Queue B, default voxel "
-            "configuration)"
-        )
-    b, m = points.shape[:2]
-    coords = points[..., :3].float()
-    feats = points[..., 3:].float()
-    feats = torch.cat([feats, torch.ones_like(feats[..., :1])], dim=-1)
-    c = feats.shape[-1]
-    r3 = grid_size ** 3
-    flat, lo, scale = voxel_indices(coords, mask, grid_size)
-    feats = torch.where(mask[..., None], feats, torch.zeros_like(feats))
-
-    rows = (flat + torch.arange(b, device=flat.device)[:, None] * (r3 + 1))
-    rows = rows.reshape(-1)
-    sums = torch.zeros(b * (r3 + 1), c, device=points.device)
-    sums.index_add_(0, rows, feats.reshape(-1, c))
-    cnts = torch.zeros(b * (r3 + 1), device=points.device)
-    cnts.index_add_(0, rows, torch.ones(b * m, device=points.device))
-    sums = sums.reshape(b, r3 + 1, c)[:, :r3]
-    cnts = cnts.reshape(b, r3 + 1)[:, :r3]
-    mean = sums / torch.clamp(cnts[..., None], min=1.0)
+    b = points.shape[0]
+    flat, ext, lo, scale = voxel_rows(points, mask, grid_size)
+    c = ext.shape[-1] - 1
+    impl = resolve_voxelize_impl(impl, grid_size, c)
+    if impl == "scatter":
+        sums = voxelize_contract_plain(flat, ext, grid_size, round_bf16=False)
+    elif impl == "matmul":
+        if matmul_dtype == torch.bfloat16:
+            sums = voxelize_contract(flat, ext, grid_size, plain=plain)
+        elif matmul_dtype == torch.float32:
+            sums = voxelize_contract_plain(flat, ext, grid_size,
+                                           round_bf16=False)
+        else:
+            raise ValueError(f"matmul_dtype must be bf16 or f32, got "
+                             f"{matmul_dtype}")
+    else:
+        raise ValueError(f"unknown voxelize impl {impl!r}")
+    cnts = sums[..., c]
+    mean = sums[..., :c] / torch.clamp(cnts[..., None], min=1.0)
     shape = (b, grid_size, grid_size, grid_size)
     return VoxelGrid(mean.reshape(shape + (c,)), cnts.reshape(shape), lo,
                      scale)
 
+
+# ---------------------------------------------------------------------------
+# devoxelize: the trilinear taps
+# ---------------------------------------------------------------------------
 
 def trilinear_u(points: torch.Tensor, mask: torch.Tensor, lo: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
@@ -136,19 +241,6 @@ def _devox_gather(grid_feats, points, mask, lo, scale):
     return torch.where(mask[..., None], out, torch.zeros_like(out))
 
 
-# ---------------------------------------------------------------------------
-# devoxelize backward: the trilinear scatter of the point cotangents
-# ---------------------------------------------------------------------------
-
-# launches since the last reset_launches(); the wrapper adds one where it
-# launches its kernel and nowhere else
-LAUNCHES = {"trilinear_scatter": 0}
-
-
-def reset_launches() -> None:
-    LAUNCHES["trilinear_scatter"] = 0
-
-
 def _axis_taps(u1: torch.Tensor, r: int):
     """One axis' two (index, weight) taps, both indices clipped to
     [0, R-1] (so clipped edges give duplicates)."""
@@ -159,24 +251,13 @@ def _axis_taps(u1: torch.Tensor, r: int):
             ((i0 + 1).clamp(0, r - 1), frac))
 
 
-def trilinear_scatter_taps(u: torch.Tensor, go: torch.Tensor, r: int,
-                           round_bf16: bool = True):
-    """The scatter's terms: (rows (8, B*M) int64 into the flat (B*R^3, C)
-    grid, values (8, B*M, C) f32), one per (zy, x) tap pair, with the
-    kernel's rounding points (csrc/onehot_contract.cu): zy weights wz * wy
-    in f32, duplicate taps summed in f32 and rounded to bf16 once, x
-    weights likewise, operand bf16(wx * go). A duplicate tap's later
-    copies carry zero values. ``round_bf16=False`` keeps every weight and
-    operand in f32 (the f32 models' backward)."""
-    if round_bf16:
-        def rnd(t):
-            return t.to(torch.bfloat16).float()
-    else:
-        def rnd(t):
-            return t
-    b = go.shape[0]
-    u = u.float()
-    tz, ty, tx = (_axis_taps(u[..., a], r) for a in range(3))
+def _tri_taps(u: torch.Tensor, r: int, rnd):
+    """The kernels' taps (csrc/onehot_contract.cu zy_taps, x_taps): the four
+    zy ids z * R + y in z-outer order with their weights, wz * wy in f32,
+    duplicate ids summed in f32 and passed through ``rnd`` once, later
+    copies 0; and the two x ids with their f32 weights, a duplicate folded
+    into the first."""
+    tz, ty, tx = (_axis_taps(u[..., a].float(), r) for a in range(3))
     zi = [iz * r + iy for iz, _ in tz for iy, _ in ty]
     zw = [wz * wy for _, wz in tz for _, wy in ty]
     a = []
@@ -191,13 +272,105 @@ def trilinear_scatter_taps(u: torch.Tensor, go: torch.Tensor, r: int,
         a.append(torch.where(first, rnd(s), torch.zeros_like(s)))
     (x0, w0), (x1, w1) = tx
     dup = x0 == x1
-    wx = [rnd(torch.where(dup, w0 + w1, w0)),
-          torch.where(dup, torch.zeros_like(w1), rnd(w1))]
+    wx = [torch.where(dup, w0 + w1, w0), torch.where(dup, torch.zeros_like(w1),
+                                                     w1)]
+    return zi, a, (x0, x1), wx
+
+
+def _rounder(round_bf16: bool):
+    if round_bf16:
+        return lambda t: t.to(torch.bfloat16).float()
+    return lambda t: t
+
+
+# ---------------------------------------------------------------------------
+# devoxelize forward, matmul form: the trilinear gather
+# ---------------------------------------------------------------------------
+
+def _grid2_dims(g2: torch.Tensor):
+    b, rr, rc = g2.shape
+    r = math.isqrt(rr)
+    if r * r != rr or rc % r:
+        raise ValueError(f"grid2 shape {tuple(g2.shape)} is not "
+                         "(B, R*R, R*C)")
+    return b, r, rc // r
+
+
+def trilinear_gather_plain(u: torch.Tensor, mask: torch.Tensor,
+                           g2: torch.Tensor,
+                           round_bf16: bool = True) -> torch.Tensor:
+    """out[p, k] = mask_p sum_x Wx[p, x] sum_zy A[p, zy] g2[zy, x*C + k] as
+    (B, M, C) f32, with the kernel's taps (``_tri_taps``) and order of
+    sums: for each x tap the zy sum first, then times the x weight, summed
+    over x. ``round_bf16`` rounds the zy weights and the grid to bf16 (the
+    kernel's contract); False keeps f32 (the f32 models' form)."""
+    b, r, c = _grid2_dims(g2)
+    rnd = _rounder(round_bf16)
+    g = rnd(g2.float()).reshape(b, r ** 3, c)
+    zi, a, xs, wx = _tri_taps(u, r, rnd)
+    out = torch.zeros(u.shape[:2] + (c,), dtype=torch.float32,
+                      device=g2.device)
+    for xi, w in zip(xs, wx):
+        s = torch.zeros_like(out)
+        for t in range(4):
+            idx = (zi[t] * r + xi)[..., None].expand(-1, -1, c)
+            s = s + a[t][..., None] * torch.gather(g, 1, idx)
+        out = out + w[..., None] * s
+    return torch.where(mask[..., None], out, torch.zeros_like(out))
+
+
+def trilinear_gather(u: torch.Tensor, mask: torch.Tensor, g2: torch.Tensor,
+                     *, plain: bool = False) -> torch.Tensor:
+    """The matmul devoxelize forward (B, M, C) f32 (JAX
+    ``onehot_contract.trilinear_gather``). u (B, M, 3) continuous voxel
+    coords (``trilinear_u``); mask (B, M); g2 (B, R*R, R*C) grid2, rounded
+    to bf16. Launches the CUDA kernel on a CUDA tensor."""
+    if not on_cuda(g2, plain):
+        return trilinear_gather_plain(u, mask, g2)
+    b, r, c = _grid2_dims(g2)
+    m = u.shape[1]
+    if tuple(u.shape) != (b, m, 3) or tuple(mask.shape) != (b, m) or \
+            u.device != g2.device or mask.device != g2.device:
+        raise ValueError(f"u (B, M, 3) and mask (B, M) must lie on "
+                         f"{g2.device} with B = {b}, got {tuple(u.shape)}, "
+                         f"{tuple(mask.shape)}")
+    if c > 32:
+        raise ValueError(f"trilinear_gather takes at most 32 channels, "
+                         f"got {c}")
+    u = u.float().contiguous()
+    mask = mask.to(torch.bool).contiguous()
+    g2 = g2.to(torch.bfloat16).contiguous()
+    out = torch.empty((b, m, c), dtype=torch.float32, device=g2.device)
+    rc = load_library("onehot_contract").pcseg_trilinear_gather(
+        u.data_ptr(), mask.data_ptr(), g2.data_ptr(), out.data_ptr(), b, m,
+        r, c, stream_of(g2))
+    raise_on(rc, "trilinear_gather")
+    LAUNCHES["trilinear_gather"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# devoxelize backward: the trilinear scatter of the point cotangents
+# ---------------------------------------------------------------------------
+
+def trilinear_scatter_taps(u: torch.Tensor, go: torch.Tensor, r: int,
+                           round_bf16: bool = True):
+    """The scatter's terms: (rows (8, B*M) int64 into the flat (B*R^3, C)
+    grid, values (8, B*M, C) f32), one per (zy, x) tap pair, with the
+    kernel's rounding points (csrc/onehot_contract.cu): the taps of
+    ``_tri_taps`` with the x weights rounded to bf16 too, operand
+    bf16(wx * go). A duplicate tap's later copies carry zero values.
+    ``round_bf16=False`` keeps every weight and operand in f32 (the f32
+    models' backward)."""
+    rnd = _rounder(round_bf16)
+    b = go.shape[0]
+    zi, a, xs, wx = _tri_taps(u, r, rnd)
+    wx = [rnd(w) for w in wx]
     gob = rnd(go.float())
     base = (torch.arange(b, device=go.device) * r ** 3)[:, None]
     rows, vals = [], []
     for t in range(4):
-        for xi, wxe in zip((x0, x1), wx):
+        for xi, wxe in zip(xs, wx):
             rows.append((base + zi[t] * r + xi).reshape(-1))
             vals.append((a[t][..., None] * rnd(wxe[..., None] * gob))
                         .reshape(-1, go.shape[-1]))
@@ -245,11 +418,20 @@ def trilinear_scatter(u: torch.Tensor, go: torch.Tensor, r: int, *,
 
 class _Devoxelize(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, grid_feats, points, mask, lo, scale, bwd_dtype, plain):
+    def forward(ctx, grid_feats, points, mask, lo, scale, bwd_dtype, impl,
+                plain):
         ctx.save_for_backward(points, mask, lo, scale)
         ctx.cfg = (tuple(grid_feats.shape), grid_feats.dtype, bwd_dtype,
                    plain)
-        return _devox_gather(grid_feats, points, mask, lo, scale)
+        if impl == "gather":
+            return _devox_gather(grid_feats, points, mask, lo, scale)
+        b, r, c = grid_feats.shape[0], grid_feats.shape[1], \
+            grid_feats.shape[-1]
+        u = trilinear_u(points, mask, lo, scale)
+        g2 = grid_feats.reshape(b, r * r, r * c)
+        if bwd_dtype == torch.bfloat16:
+            return trilinear_gather(u, mask, g2, plain=plain)
+        return trilinear_gather_plain(u, mask, g2, round_bf16=False)
 
     @staticmethod
     def backward(ctx, go):
@@ -263,7 +445,7 @@ class _Devoxelize(torch.autograd.Function):
             dgrid = trilinear_scatter_plain(u, go, shape[1],
                                             round_bf16=False)
         return dgrid.reshape(shape).to(dtype), None, None, None, None, None, \
-            None
+            None, None
 
 
 def devoxelize_trilinear(grid_feats: torch.Tensor, points: torch.Tensor,
@@ -275,18 +457,36 @@ def devoxelize_trilinear(grid_feats: torch.Tensor, points: torch.Tensor,
     (B, R, R, R, C) -> (B, M, C) f32. Taps are clipped per axis to
     [0, R-1]; masked points give 0.
 
+    ``impl``: "gather" (f32-exact), "matmul" (``trilinear_gather`` with
+    bf16 zy weights and grid when ``bwd_dtype`` is bf16, its f32 form
+    otherwise) or "auto" (``resolve_devoxelize_impl``).
+
     Backward (the JAX custom VJP): the grid cotangent is
     ``trilinear_scatter`` of the masked point cotangents, with bf16
-    weights and operands when ``bwd_dtype`` is bf16 and in f32 otherwise;
-    points, lo and scale get none (they are data in every training
-    path)."""
-    if impl != "gather":
-        raise NotImplementedError(
-            f"devoxelize impl {impl!r}: only 'gather' is ported (the one-hot "
-            "matmul form waits for ROADMAP Queue B, default voxel "
-            "configuration)"
-        )
+    weights and operands when ``bwd_dtype`` is bf16 and in f32 otherwise,
+    cast to the grid's dtype; points, lo and scale get none (they are data
+    in every training path)."""
+    impl = resolve_devoxelize_impl(impl, grid_feats.shape[1],
+                                   grid_feats.shape[-1])
+    if impl not in ("gather", "matmul"):
+        raise ValueError(f"unknown devoxelize impl {impl!r}")
     if bwd_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"bwd_dtype must be bf16 or f32, got {bwd_dtype}")
     return _Devoxelize.apply(grid_feats, points, mask, lo, scale, bwd_dtype,
-                             bool(plain))
+                             impl, bool(plain))
+
+
+def devoxelize_trilinear_grid2(grid2: torch.Tensor, points: torch.Tensor,
+                               mask: torch.Tensor, lo: torch.Tensor,
+                               scale: torch.Tensor, impl: str = "matmul", *,
+                               bwd_dtype: torch.dtype = torch.bfloat16,
+                               plain: bool = False) -> torch.Tensor:
+    """``devoxelize_trilinear`` on the (B, R*R, R*C) "grid2" layout, as
+    the fused head (``conv3d_block.fused_head_grid2``) emits it. grid2 and
+    the NDHWC (B, R, R, R, C) grid are the same row-major memory, so this
+    is a view; the grid cotangent comes back in grid2's dtype (bf16 on the
+    default path), as the JAX ``_devox_grid2_bwd`` casts it."""
+    b, r, c = _grid2_dims(grid2)
+    return devoxelize_trilinear(grid2.reshape(b, r, r, r, c), points, mask,
+                                lo, scale, impl, bwd_dtype=bwd_dtype,
+                                plain=plain)

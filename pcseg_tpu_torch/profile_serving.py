@@ -2,15 +2,20 @@
 
     python -m pcseg_tpu_torch.profile_serving [--out DIR]
 
-Builds the serving configuration of chip_smoke.py (voxel U-Net 64^3, w16,
-3 levels, bf16, fused conv kernels, scatter voxelize, gather devoxelize,
-seeded random weights) and reports, for a B8 x 8192 batch and for one
-1000-point event:
+Builds the serving configurations of chip_smoke.py (voxel U-Net 64^3,
+w16, 3 levels, bf16, seeded random weights): ``default`` (every impl at
+"auto": fused conv kernels, the one-hot voxelize_contract and
+trilinear_gather, the fused grid2 head) and ``scatter_gather`` (fused conv
+kernels, scatter voxelize, gather devoxelize, the plain head), in turn.
+For each, for a B8 x 8192 batch and for one 1000-point event it
+reports:
 
 - host-clock stage times (pad on the host, copy to the card, forward,
   copy back), each ended by a synchronize;
-- device time by kernel from torch.profiler over one forward, and the
-  device's busy share of that forward's wall time.
+- device time by kernel from torch.profiler over one forward, the
+  device's busy share of that forward's wall time, and device time by
+  stage (``stage_of``: the conv kernels, the voxelize, head, gather and
+  scatter kernels, and the PyTorch glue around them).
 
 With ``--out`` the profiler table is also written to DIR/profile_*.txt.
 """
@@ -54,6 +59,32 @@ def _stages(model, events, bucket, batch):
                     med.tolist())), (points, mask)
 
 
+# kernel-name substring -> stage, first match wins; anything else is the
+# PyTorch glue (elementwise ops, reductions, copies, Adam, the loss)
+STAGES = (("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
+          ("voxelize_contract_kernel", "voxelize"),
+          ("trilinear_gather_kernel", "devox_gather"),
+          ("trilinear_scatter_kernel", "devox_scatter"),
+          ("conv_kernel", "conv"), ("up_kernel", "conv"),
+          ("wgrad_kernel", "conv"))
+
+
+def stage_of(kernel_name: str) -> str:
+    return next((st for key, st in STAGES if key in kernel_name), "glue")
+
+
+def voxel_model(forms: str) -> VoxelUNet3d:
+    """The 64^3/w16/L3 bf16 U-Net with its ``default`` forms or the
+    explicit ``scatter_gather`` ones (fused conv kernels, scatter voxelize,
+    gather devoxelize)."""
+    explicit = {} if forms == "default" else dict(
+        conv_impl="fused", voxelize_impl="scatter", devox_impl="gather")
+    return VoxelUNet3d(
+        num_classes=4, grid_size=64, width=16, levels=3,
+        compute_dtype="bfloat16", generator=torch.Generator().manual_seed(0),
+        **explicit)
+
+
 def device_profile(fn):
     """Profile one warm call of ``fn``: wall ms, device-busy ms, idle
     share and device time by kernel name, and the profiler itself."""
@@ -77,9 +108,13 @@ def device_profile(fn):
     kernels = [{"name": e.key[:90], "calls": e.count,
                 "device_ms": e.self_device_time_total / 1e3}
                for e in events]
+    by_stage: dict = {}
+    for e in events:
+        st = stage_of(e.key)
+        by_stage[st] = by_stage.get(st, 0.0) + e.self_device_time_total / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "kernels": kernels}, prof
+            "by_stage_ms": by_stage, "kernels": kernels}, prof
 
 
 def main() -> int:
@@ -90,34 +125,35 @@ def main() -> int:
         raise SystemExit("profile_serving needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = VoxelUNet3d(
-        num_classes=4, grid_size=64, width=16, levels=3,
-        compute_dtype="bfloat16", conv_impl="fused", voxelize_impl="scatter",
-        devox_impl="gather", generator=torch.Generator().manual_seed(0),
-    ).cuda().eval()
     batch = [p for p, _ in synthetic_events(8, min_points=4000,
                                             max_points=8192, seed=0)]
     single = [next(iter(synthetic_events(1, min_points=1000,
                                          max_points=1000, seed=1)))[0]]
     card = torch.cuda.get_device_name(0)
     report = {"card": card}
-    for label, events, bucket, b in (("batch8x8192", batch, 8192, 8),
-                                     ("single1000", single, 1024, 1)):
-        stages, (points, mask) = _stages(model, events, bucket, b)
-        prof_res, prof = device_profile(lambda: model(points, mask))
-        report[label] = {"stages": stages, **prof_res}
-        print(f"[{label}] {card}: stages {json.dumps(stages)}")
-        print(f"  one forward: wall {prof_res['wall_ms']:.3f} ms, device "
-              f"busy {prof_res['device_busy_ms']:.3f} ms, idle share "
-              f"{prof_res['idle_share']:.3f}")
-        for k in prof_res["kernels"][:15]:
-            print(f"  {k['device_ms']:9.4f} ms  x{k['calls']:<4d} {k['name']}")
-        if args.out:
-            os.makedirs(args.out, exist_ok=True)
-            with open(os.path.join(args.out, f"profile_{label}.txt"),
-                      "w") as f:
-                f.write(prof.key_averages().table(
-                    sort_by="self_device_time_total", row_limit=60))
+    for form in ("default", "scatter_gather"):
+        model = voxel_model(form).cuda().eval()
+        for label, events, bucket, b in (("batch8x8192", batch, 8192, 8),
+                                         ("single1000", single, 1024, 1)):
+            name = f"{form}_{label}"
+            stages, (points, mask) = _stages(model, events, bucket, b)
+            prof_res, prof = device_profile(lambda: model(points, mask))
+            report[name] = {"forms": model.resolve_forms(), "stages": stages,
+                            **prof_res}
+            print(f"[{name}] {card}: stages {json.dumps(stages)}")
+            print(f"  one forward: wall {prof_res['wall_ms']:.3f} ms, device "
+                  f"busy {prof_res['device_busy_ms']:.3f} ms, idle share "
+                  f"{prof_res['idle_share']:.3f}; by stage "
+                  f"{json.dumps(prof_res['by_stage_ms'])}")
+            for k in prof_res["kernels"][:15]:
+                print(f"  {k['device_ms']:9.4f} ms  x{k['calls']:<4d} "
+                      f"{k['name']}")
+            if args.out:
+                os.makedirs(args.out, exist_ok=True)
+                with open(os.path.join(args.out, f"profile_{name}.txt"),
+                          "w") as f:
+                    f.write(prof.key_averages().table(
+                        sort_by="self_device_time_total", row_limit=60))
     print(json.dumps(report))
     return 0
 

@@ -6,17 +6,20 @@
 configuration of chip_smoke.py (full width, 4 classes, dropout 0.3, bf16,
 seeded random weights, Adam) and, for ``bn_stats`` "fused" and "exact",
 one B64 x 2048 batch of synthetic events (1100-2048 points each).
-``--model voxel_unet3d`` builds the voxel U-Net training configuration
-of chip_smoke.py (64^3, width 16, 3 levels, 4 classes, bf16, fused conv
-kernels, scatter voxelize, gather devoxelize, seeded random weights,
-Adam) and one B8 x 8192 batch of synthetic events (4000-8192 points
-each). For each it reports:
+``--model voxel_unet3d`` builds the voxel U-Net training configurations
+of chip_smoke.py (64^3, width 16, 3 levels, 4 classes, bf16, seeded
+random weights, Adam): ``voxel_default`` (every impl at "auto": fused conv
+kernels, the one-hot voxelize_contract and trilinear_gather, the fused
+grid2 head) and ``voxel_scatter_gather`` (fused conv kernels, scatter
+voxelize, gather devoxelize), and one B8 x 8192 batch of synthetic events
+(4000-8192 points each). For each it reports:
 
 - host-clock stage times of a train step (pad on the host, copy to the
   card, ``train_step``), each ended by a synchronize, median of 5 after 3
   warm steps;
-- device time by kernel from torch.profiler over one train step, and the
-  device's busy share of that step's wall time.
+- device time by kernel from torch.profiler over one train step, the
+  device's busy share of that step's wall time, and device time by stage
+  (``profile_serving.stage_of``).
 
 With ``--out`` the profiler tables are also written to
 DIR/profile_train_*.txt.
@@ -36,8 +39,7 @@ from pcseg_tpu_torch.data.batching import pad_events
 from pcseg_tpu_torch.data.class_stats import scan_classes
 from pcseg_tpu_torch.data.synthetic import synthetic_events
 from pcseg_tpu_torch.models.pointnet import PointNetSeg
-from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
-from pcseg_tpu_torch.profile_serving import device_profile
+from pcseg_tpu_torch.profile_serving import device_profile, voxel_model
 from pcseg_tpu_torch.train.steps import create_train_state, train_step
 
 CLASSES = 4
@@ -51,10 +53,8 @@ def _configs(model: str):
         return torch.Generator().manual_seed(0)
 
     if model == "voxel_unet3d":
-        return [("voxel", VoxelUNet3d(
-            CLASSES, grid_size=64, width=16, levels=3,
-            compute_dtype="bfloat16", conv_impl="fused",
-            voxelize_impl="scatter", devox_impl="gather", generator=gen()))]
+        return [(f"voxel_{forms}", voxel_model(forms))
+                for forms in ("default", "scatter_gather")]
     return [(bn_stats, PointNetSeg(CLASSES, bn_stats=bn_stats,
                                    compute_dtype="bfloat16",
                                    generator=gen()))
@@ -108,7 +108,8 @@ def main() -> int:
         print(f"[{label}] {card}: stages {json.dumps(stages)}")
         print(f"  one step: wall {prof_res['wall_ms']:.3f} ms, device busy "
               f"{prof_res['device_busy_ms']:.3f} ms, idle share "
-              f"{prof_res['idle_share']:.3f}")
+              f"{prof_res['idle_share']:.3f}; by stage "
+              f"{json.dumps(prof_res['by_stage_ms'])}")
         for k in prof_res["kernels"][:15]:
             print(f"  {k['device_ms']:9.4f} ms  x{k['calls']:<4d} {k['name']}")
         if args.out:

@@ -1,0 +1,147 @@
+"""The kernels of the voxel U-Net's default configuration against their
+plain versions, on the card: ``voxelize_contract`` and ``trilinear_gather``
+(ops/voxel.py), the fused head and its backward (ops/conv3d_block.py),
+and the default model's launches per forward and per train step.
+
+Marked ``cuda``: each test skips where there is no CUDA device. On a
+machine with a card (and without JAX, which tests/conftest.py imports):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_voxel_default.py
+
+Tolerances as in chip_smoke.py: counts exact; f32 sums of the same terms
+in another order (and with atomics) to 1e-3 of their largest value (the
+voxel sums and the gather to 1e-5: a handful of terms each); bf16 outputs
+within |d| <= 2^-7 |ref| + 1e-4 max|ref|.
+"""
+
+import pytest
+import torch
+
+from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
+from pcseg_tpu_torch.ops import conv3d_block as cb
+from pcseg_tpu_torch.ops import voxel as vx
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rand(gen, *shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def _close(got, ref, rel):
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= rel * float(ref.float().abs().max()) + 1e-12, err
+
+
+def _bf16_close(got, ref):
+    g, r = got.float(), ref.float()
+    assert bool(((g - r).abs() <= 2.0 ** -7 * r.abs()
+                 + 1e-4 * r.abs().max()).all()), float((g - r).abs().max())
+
+
+@pytest.mark.parametrize("r", [6, 16])
+def test_voxelize_contract_kernel(gen, r):
+    b, m, c1 = 3, 2000, 3
+    r3 = r ** 3
+    flat = torch.randint(0, r3, (b, m), generator=gen, device="cuda")
+    flat[0, :300] = 5                       # one voxel hit by many points
+    masked = torch.rand((b, m), generator=gen, device="cuda") < 0.2
+    masked[-1] = True                       # an all-masked dummy row
+    flat = torch.where(masked, r3, flat)
+    ext = torch.cat([torch.rand((b, m, 1), generator=gen, device="cuda") * 4,
+                     torch.ones((b, m, 2), device="cuda")], -1)
+    ext = torch.where(masked[..., None], 0.0, ext)
+    before = vx.LAUNCHES["voxelize_contract"]
+    got = vx.voxelize_contract(flat, ext, r)
+    torch.cuda.synchronize()
+    assert vx.LAUNCHES["voxelize_contract"] == before + 1
+    ref = vx.voxelize_contract_plain(flat, ext, r)
+    assert torch.equal(got[..., -1], ref[..., -1])         # counts
+    assert not got[-1].any()
+    _close(got, ref, 1e-5)
+
+
+@pytest.mark.parametrize("r,c", [(6, 4), (16, 4), (16, 7)])
+def test_trilinear_gather_kernel(gen, r, c):
+    b, m = 2, 3000
+    u = torch.rand((b, m, 3), generator=gen, device="cuda") * (r + 1) - 1
+    u[0, :50] = u[0, :50].floor()           # frac == 0, clipped duplicates
+    u[1, :20] = torch.tensor([-0.5, r - 0.5, 0.0], device="cuda")  # faces
+    mask = torch.rand((b, m), generator=gen, device="cuda") < 0.8
+    g2 = _rand(gen, b, r * r, r * c).to(torch.bfloat16)
+    before = vx.LAUNCHES["trilinear_gather"]
+    got = vx.trilinear_gather(u, mask, g2)
+    torch.cuda.synchronize()
+    assert vx.LAUNCHES["trilinear_gather"] == before + 1
+    _close(got, vx.trilinear_gather_plain(u, mask, g2), 1e-5)
+    assert not got[~mask].any()
+
+
+@pytest.mark.parametrize("r,c,nc", [(8, 16, 4), (16, 16, 4), (8, 16, 3),
+                                     (8, 32, 5)])
+def test_head_grid2_kernels(gen, r, c, nc):
+    b = 2
+    x = _rand(gen, b, r, r, r, c).to(torch.bfloat16)
+    w = (torch.rand((1, 1, 1, c, nc), generator=gen, device="cuda") - 0.5)
+    bias = _rand(gen, nc, scale=0.1)
+    scale = torch.rand((b, c), generator=gen, device="cuda") + 0.5
+    shift = _rand(gen, b, c, scale=0.3)
+    gy = _rand(gen, b, r, r, r, nc).to(torch.bfloat16)
+    before = dict(cb.LAUNCHES)
+    y = cb.head_grid2_cuda(x, w, bias, scale, shift)
+    gk = cb.head_grid2_bwd_cuda(x, gy, w, scale, shift)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["head_grid2"] == before["head_grid2"] + 1
+    assert cb.LAUNCHES["head_grid2_bwd"] == before["head_grid2_bwd"] + 1
+    _bf16_close(y, cb.head_grid2_plain(x, w, bias, scale, shift))
+    gp = cb.head_grid2_bwd_plain(x, gy, w, scale, shift)
+    _bf16_close(gk[0], gp[0])
+    for a, p in zip(gk[1:], gp[1:]):
+        _close(a, p, 1e-3)
+
+
+def test_default_model_launches_and_matches_plain(gen):
+    """Full depth (3 levels) at grid 16 with every impl at its default: a
+    forward launches each kernel of the path as often as the JAX structure
+    does, a train step adds the backward kernels, and the logits agree
+    with the plain versions'."""
+    model = VoxelUNet3d(4, grid_size=16, width=16, levels=3,
+                        compute_dtype="bfloat16",
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    assert model.resolve_forms()["head"] == "grid2"
+    pts = torch.cat([_rand(gen, 2, 1024, 3, scale=5.0),
+                     torch.rand((2, 1024, 1), generator=gen,
+                                device="cuda")], -1)
+    mask = torch.rand((2, 1024), generator=gen, device="cuda") < 0.9
+    cb.reset_launches()
+    vx.reset_launches()
+    out = model(pts, mask)
+    torch.cuda.synchronize()
+    fwd = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
+           "head_grid2": 1}
+    assert cb.LAUNCHES == {k: fwd.get(k, 0) for k in cb.LAUNCHES}
+    assert vx.LAUNCHES == {"voxelize_contract": 1, "trilinear_gather": 1,
+                           "trilinear_scatter": 0}
+    ref = model(pts, mask, plain=True)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 4 * 2.0 ** -8 * float(
+        ref.abs().max())
+
+    cb.reset_launches()
+    vx.reset_launches()
+    logits, _ = model.apply(pts, train=True, mask=mask)
+    logits.square().mean().backward()
+    torch.cuda.synchronize()
+    step = dict(fwd, conv3x3_dgrad=12, conv3x3_wgrad=13, down2x_bwd=2,
+                up2x_bwd=2, head_grid2_bwd=1)
+    assert cb.LAUNCHES == {k: step.get(k, 0) for k in cb.LAUNCHES}
+    assert vx.LAUNCHES == {"voxelize_contract": 1, "trilinear_gather": 1,
+                           "trilinear_scatter": 1}

@@ -134,6 +134,7 @@ def test_train_step_through_the_kernels(gen):
     point where the plain versions' do."""
     model = VoxelUNet3d(4, grid_size=16, width=16, levels=3,
                         compute_dtype="bfloat16", conv_impl="fused",
+                        voxelize_impl="scatter", devox_impl="gather",
                         generator=torch.Generator().manual_seed(0)).cuda()
     pts = torch.cat([_rand(gen, 2, 1024, 3, scale=5.0),
                      torch.rand((2, 1024, 1), generator=gen,
@@ -154,8 +155,10 @@ def test_train_step_through_the_kernels(gen):
     assert cb.LAUNCHES == {"conv3x3_gn_act": 13, "down2x_gn_act": 2,
                            "up2x_gn_act": 2, "conv3x3_dgrad": 12,
                            "conv3x3_wgrad": 13, "down2x_bwd": 2,
-                           "up2x_bwd": 2}
-    assert vx.LAUNCHES == {"trilinear_scatter": 1}
+                           "up2x_bwd": 2, "head_grid2": 0,
+                           "head_grid2_bwd": 0}
+    assert vx.LAUNCHES == {"voxelize_contract": 0, "trilinear_gather": 0,
+                           "trilinear_scatter": 1}
     gp = grads(True)
     assert bool(torch.isfinite(gk).all())
     cos = float(gk @ gp / (gk.norm() * gp.norm()))

@@ -1,0 +1,173 @@
+"""The matmul voxelize / devoxelize forms of the port against the JAX
+package's.
+
+- ``voxelize_contract`` and ``trilinear_gather`` (plain versions, CPU)
+  against the JAX Pallas kernels of ``onehot_contract`` in interpret mode:
+  the same taps and bf16 rounding points, f32 sums in another order.
+- ``resolve_voxelize_impl`` / ``resolve_devoxelize_impl`` against the JAX
+  ones over a grid of sizes, channel counts and impl strings.
+- ``voxelize(impl="matmul")`` and ``devoxelize_trilinear(_grid2)(impl=
+  "matmul")`` with its VJP against the JAX functions, in f32 and in bf16.
+  On the CPU the JAX package takes its XLA forms, not its kernels
+  (``_use_plane_kernels``), and its bf16 devoxelize form rounds the z and y
+  weights separately; the bf16 cases patch ``_use_plane_kernels`` so that
+  the JAX functions reach their kernels in interpret mode, as they do on a
+  TPU at R <= 64 (the patch changes no file of the JAX package).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pcseg_tpu.ops import voxel as jv
+from pcseg_tpu.ops.pallas import onehot_contract as joc
+from pcseg_tpu_torch.ops import voxel as tv
+
+torch.set_num_threads(1)
+
+
+def test_voxelize_contract_matches_jax_kernel():
+    rng = np.random.default_rng(20)
+    b, m, r, c1 = 2, 600, 6, 3
+    r3 = r ** 3
+    flat = rng.integers(0, r3, (b, m)).astype(np.int32)
+    flat[0, :150] = 17                        # one voxel hit by many points
+    masked = rng.random((b, m)) < 0.2
+    masked[1, -50:] = True
+    flat[masked] = r3                         # the sentinel of masked points
+    ext = np.concatenate([rng.gamma(2.0, 1.0, (b, m, 1)),
+                          np.ones((b, m, 2))], axis=-1).astype(np.float32)
+    ext[masked] = 0.0
+    ref = np.asarray(joc.voxelize_contract(jnp.asarray(flat),
+                                           jnp.asarray(ext), r,
+                                           interpret=True))
+    got = tv.voxelize_contract(torch.from_numpy(flat), torch.from_numpy(ext),
+                               r).numpy()
+    assert got.shape == (b, r3, c1)
+    # (B, R^2, R*C1) and (B, R^3, C1) are the same row-major order
+    ref = ref.reshape(got.shape)
+    np.testing.assert_array_equal(got[..., -1], ref[..., -1])     # counts
+    assert got[0, 17, -1] >= 100
+    # bf16 values summed in f32 in another order
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
+
+
+def test_trilinear_gather_matches_jax_kernel():
+    rng = np.random.default_rng(21)
+    b, m, r, c = 2, 600, 6, 4
+    # coords spanning outside [0, R-1] exercise the clipped duplicate taps
+    u = (rng.random((b, m, 3)) * (r + 1) - 1).astype(np.float32)
+    u[0, :20] = np.floor(u[0, :20])           # integral coords: frac == 0
+    mask = rng.random((b, m)) < 0.85
+    g2 = rng.normal(size=(b, r * r, r * c)).astype(np.float32)
+    ref = np.asarray(joc.trilinear_gather(jnp.asarray(u), jnp.asarray(mask),
+                                          jnp.asarray(g2), interpret=True))
+    got = tv.trilinear_gather(torch.from_numpy(u), torch.from_numpy(mask),
+                              torch.from_numpy(g2)).numpy()
+    assert got.shape == (b, m, c)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    np.testing.assert_array_equal(got[~mask], 0.0)
+
+
+@pytest.mark.parametrize("r", [8, 64, 100, 128])
+@pytest.mark.parametrize("impl", ["auto", "scatter", "gather", "matmul"])
+def test_resolve_impls_match_jax(r, impl):
+    for c in range(1, 7):
+        assert tv.resolve_voxelize_impl(impl, r, c) == \
+            jv.resolve_voxelize_impl(impl, r, c)
+        assert tv.resolve_devoxelize_impl(impl, r, c) == \
+            jv.resolve_devoxelize_impl(impl, r, c)
+
+
+def _case(seed, b=3, m=300, r=8, c=4):
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.normal(size=(b, m, 3)) * 10.0,
+                          rng.gamma(2.0, 1.0, size=(b, m, 2))],
+                         axis=-1).astype(np.float32)
+    pts[0, :40, :3] = pts[0, :1, :3]          # one voxel hit by many points
+    mask = rng.random((b, m)) < 0.8
+    mask[0, :40] = True
+    mask[-1] = False                          # an all-masked dummy row
+    grid = rng.normal(size=(b, r, r, r, c)).astype(np.float32)
+    go = rng.normal(size=(b, m, c)).astype(np.float32)   # masked rows too
+    return pts, mask, grid, go
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_voxelize_matmul_matches_jax(dtype):
+    pts, mask, _, _ = _case(22)
+    r = 8
+    ref = jv.voxelize(jnp.asarray(pts), jnp.asarray(mask), r, impl="matmul",
+                      matmul_dtype=jnp.dtype(dtype))
+    got = tv.voxelize(torch.from_numpy(pts), torch.from_numpy(mask), r,
+                      impl="matmul", matmul_dtype=getattr(torch, dtype))
+    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(ref.counts))
+    assert float(got.counts.max()) >= 40
+    # the same (rounded) feature values summed in f32 in another order
+    np.testing.assert_allclose(got.features.numpy(),
+                               np.asarray(ref.features), rtol=1e-6,
+                               atol=1e-6)
+    for name in ("lo", "scale"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=1e-6, err_msg=name)
+    if dtype == "bfloat16":
+        # the features really were rounded: not the scatter's f32 means
+        exact = tv.voxelize(torch.from_numpy(pts), torch.from_numpy(mask), r)
+        assert not torch.equal(exact.features, got.features)
+
+
+def _plane_kernels(dt, r):
+    return jnp.dtype(dt) == jnp.bfloat16 and r <= 64
+
+
+@pytest.mark.parametrize("layout", ["ndhwc", "grid2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_devoxelize_matmul_and_vjp_match_jax(dtype, layout, monkeypatch):
+    """Forward and grid cotangent. f32: the port's f32 form against the
+    JAX XLA form, 1e-5 (the weights multiplied in another order). bf16: the
+    port's plain kernel forms against the JAX kernels in interpret mode,
+    forward to 1e-5 of scale (f32 order); the grid2 cotangent is bf16, as
+    the JAX VJP casts it to grid2's dtype, so within one bf16 ulp."""
+    if dtype == "bfloat16":
+        monkeypatch.setattr(jv, "_use_plane_kernels", _plane_kernels)
+    pts, mask, grid, go = _case(23)
+    b, r, c = grid.shape[0], grid.shape[1], grid.shape[-1]
+    tg = tv.voxelize(torch.from_numpy(pts), torch.from_numpy(mask), r)
+    lo, scale = tg.lo.numpy(), tg.scale.numpy()
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    if layout == "grid2":
+        grid = grid.reshape(b, r * r, r * c)
+        jgrid = jnp.asarray(grid, jdt)
+        tgrid = torch.from_numpy(grid).to(tdt)
+        jfn, tfn = jv.devoxelize_trilinear_grid2, tv.devoxelize_trilinear_grid2
+    else:
+        jgrid, tgrid = jnp.asarray(grid), torch.from_numpy(grid)
+        jfn, tfn = jv.devoxelize_trilinear, tv.devoxelize_trilinear
+    out, vjp = jax.vjp(
+        lambda g: jfn(g, jnp.asarray(pts), jnp.asarray(mask),
+                      jnp.asarray(lo), jnp.asarray(scale), bwd_dtype=jdt,
+                      impl="matmul"), jgrid)
+    (ref,) = vjp(jnp.asarray(go))
+    out = np.asarray(out)
+    ref = np.asarray(ref.astype(jnp.float32))
+
+    tgrid.requires_grad_(True)
+    got_out = tfn(tgrid, torch.from_numpy(pts), torch.from_numpy(mask),
+                  tg.lo, tg.scale, "matmul", bwd_dtype=tdt)
+    np.testing.assert_allclose(got_out.detach().numpy(), out, rtol=0,
+                               atol=1e-5 * np.abs(out).max())
+    np.testing.assert_array_equal(got_out.detach().numpy()[~mask], 0.0)
+    (got,) = torch.autograd.grad(got_out, tgrid, torch.from_numpy(go))
+    assert got.shape == tgrid.shape and got.dtype == tgrid.dtype
+    got = got.float().numpy()
+    big = np.abs(ref).max()
+    if tdt == torch.float32 or layout == "ndhwc":     # an f32 cotangent
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * big)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=2.0 ** -7, atol=1e-5 * big)
+    assert not got[-1].any()                  # the dummy row: no gradient
