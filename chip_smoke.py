@@ -54,7 +54,19 @@
 12. One default-configuration train step with the kernels, with the plain
    versions and in f32, held as phase 8; then api.fit with no impl
    override and Predictor on its checkpoint, held as phase 9.
-13. Prints the kernels as one JSON line, the card's name and power limit,
+13. Holds the sparse family's two kernels (the raw block conv and the
+   fused conv-bias + LayerNorm + ReLU + mask) against their plain versions
+   at every serving shape of the JAX package's sparse bench configuration
+   (SparseVoxelNet R64, width 64, depth 4, 2 levels, tile 8, tile
+   capacities (64, 32), bf16, on B8 x 8192 track events) and at width 16
+   in f32, and times kernel, plain version, bound and one PyTorch call of
+   the same function (cuDNN's conv3d on the materialized halo,
+   F.layer_norm; yardsticks only).
+14. Serves that model (seeded random weights) through Predictor as phase 3
+   serves the voxel U-Net: 8 / 10 / 1 block_conv / bias_ln_relu_mask /
+   voxelize_contract launches per forward, no dropped tile, logits
+   against the plain versions.
+15. Prints the kernels as one JSON line, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
@@ -318,20 +330,23 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
     return res
 
 
-def launch_counts() -> dict:
-    """The launch counts of the voxel path's kernel wrappers."""
+def _count_modules():
+    from pcseg_tpu_torch.ops import block_conv as bc
     from pcseg_tpu_torch.ops import conv3d_block as cb
+    from pcseg_tpu_torch.ops import fused_ln as fl
     from pcseg_tpu_torch.ops import voxel as vx
 
-    return {**cb.LAUNCHES, **vx.LAUNCHES}
+    return cb, vx, bc, fl
+
+
+def launch_counts() -> dict:
+    """The launch counts of the voxel and sparse paths' kernel wrappers."""
+    return {k: v for m in _count_modules() for k, v in m.LAUNCHES.items()}
 
 
 def reset_counts() -> None:
-    from pcseg_tpu_torch.ops import conv3d_block as cb
-    from pcseg_tpu_torch.ops import voxel as vx
-
-    cb.reset_launches()
-    vx.reset_launches()
+    for m in _count_modules():
+        m.reset_launches()
 
 
 def serve(card: str, default: bool = False):
@@ -1542,6 +1557,270 @@ def default_head_cases(gen):
     return [_vox_report(fwd_res), _vox_report(bwd_res)]
 
 
+# ---------------------------------------------------------------------------
+# the sparse family: serving the block-sparse SparseVoxelNet (slice 5)
+# ---------------------------------------------------------------------------
+
+# pcseg_tpu/bench.py:210-214's sparse configuration: R64, width 64, depth
+# 4, 2 levels, tile 8, tile capacities (64, 32), bf16, 4 classes, on
+# B8 x 8192 track events (bench.py:176-191)
+SP_R, SP_W, SP_T, SP_CAPS, SP_B, SP_M = 64, 64, 8, (64, 32), 8, 8192
+SP_SOURCES = {"block_conv": "pcseg_tpu_torch/csrc/block_conv.cu",
+              "bias_ln_relu_mask": "pcseg_tpu_torch/csrc/fused_ln.cu"}
+SP_REPLACES = {"block_conv": "pcseg_tpu/ops/pallas/block_conv.py:382",
+               "bias_ln_relu_mask": "pcseg_tpu/ops/pallas/fused_ln.py:178"}
+# wrapper launches per serving forward: depth 3^3 convs a level, the stem
+# included; an LN after each, after the down conv and after the up conv
+SP_PER_FORWARD = {"block_conv": 8, "bias_ln_relu_mask": 10,
+                  "voxelize_contract": 1}
+# kernel vs plain version on identical inputs: both sum in f32 and round
+# once, in another order; bf16 outputs as Y_RTOL / Y_ATOL_REL, f32 outputs
+# to 1e-5 of the largest |ref|
+SP_F32_TOL = 1e-5
+
+
+def sparse_levels(cap0=SP_CAPS[0]):
+    """The tiles of the bench batch (B8 x 8192 track events, seed 0) at
+    level 0 (capacity ``cap0``) and level 1, as the serving forward builds
+    them."""
+    import torch
+
+    from pcseg_tpu_torch.data.synthetic import track_events
+    from pcseg_tpu_torch.ops.block_sparse import (
+        block_pool,
+        block_sparse_voxelize,
+    )
+
+    pts = torch.from_numpy(track_events(SP_B, SP_M, 0)).cuda()
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda")
+    bs, _, _ = block_sparse_voxelize(pts, mask, SP_R, cap0, SP_T, plain=True)
+    return bs, block_pool(bs, SP_CAPS[1])[0]
+
+
+def _sp_check(got, ref):
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        return _bf16_check(got, ref)
+    err = float((got - ref).abs().max())
+    return err, err <= SP_F32_TOL * float(ref.abs().max())
+
+
+def sparse_conv_case(bs, label, cin, cout, dtype, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from pcseg_tpu_torch.ops import block_conv as bc
+    from pcseg_tpu_torch.ops.block_sparse import neighbor_slots
+
+    t, t3 = SP_T, SP_T ** 3
+    b, nt = bs.tile_mask.shape
+    real = bs.tile_mask
+    slots = neighbor_slots(bs)
+    x = torch.randn((b, nt, t3, cin), generator=gen, device="cuda")
+    x = torch.where(real[..., None, None], x, 0.0).to(dtype)
+    bound = (6.0 / (27 * cin)) ** 0.5
+    w2 = (torch.rand((27 * cin, cout), generator=gen, device="cuda") * 2
+          - 1) * bound
+    k = bc.block_conv(x, slots, w2)
+    torch.cuda.synchronize()
+    p = bc.block_conv_plain(x, slots, w2)
+    checks = {"y": _sp_check(k, p),
+              "padding rows": (float(k[~real].float().abs().max()),
+                               not k[~real].any())}
+    err = _held("block_conv", checks)
+    # the yardstick: cuDNN on the materialized (B*NT, Cin, 10, 10, 10) halo
+    halo = bc.gather_halo_slots(x.reshape(b, nt, t, t, t, cin), slots)
+    halo = halo.reshape(b * nt, t + 2, t + 2, t + 2, cin).permute(
+        0, 4, 1, 2, 3).contiguous()
+    wl = w2.to(dtype).reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2)
+    wl = wl.contiguous()
+    n_real = int(real.sum())
+    es = x.element_size()
+    res = {
+        "name": "block_conv", "case": label,
+        "shape": f"B{b} NT{nt} {cin}->{cout} {str(dtype)[6:]}",
+        "max_abs_err": err, "real_tiles": n_real,
+        "ms": time_ms(lambda: bc.block_conv(x, slots, w2)),
+        "plain_ms": time_ms(lambda: bc.block_conv_plain(x, slots, w2)),
+        "library_ms": time_ms(lambda: F.conv3d(halo, wl)),
+    }
+    # features, slots and weights read once, the output written once; the
+    # 27-tap products of every voxel of every real tile (padding rows are
+    # zero by construction)
+    res["bound_ms"], res["bound_by"] = _bound(
+        x.numel() * es + slots.numel() * 4 + w2.numel() * es
+        + b * nt * t3 * cout * es, 2 * 27 * cin * cout * t3 * n_real,
+        BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S)
+    return _vox_report(res)
+
+
+def sparse_ln_case(bs, label, c, dtype, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from pcseg_tpu_torch.ops import fused_ln as fl
+
+    active = bs.active.reshape(-1)
+    n = active.numel()
+    x = (torch.randn((n, c), generator=gen, device="cuda") * 2).to(dtype)
+    pre = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
+    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    args = (x, pre, scale, bias, active, 1e-5, dtype)
+    k = fl.bias_ln_relu_mask(*args)
+    torch.cuda.synchronize()
+    p = fl.bias_ln_relu_mask_plain(*args)
+    checks = {"out": _sp_check(k, p),
+              "inactive rows": (float(k[~active].float().abs().max()),
+                                not k[~active].any())}
+    err = _held("bias_ln_relu_mask", checks)
+    w, bb = scale.to(dtype), bias.to(dtype)
+    es = x.element_size()
+    res = {
+        "name": "bias_ln_relu_mask", "case": label,
+        "shape": f"{n}x{c} {str(dtype)[6:]}", "max_abs_err": err,
+        "active_rows": int(active.sum()),
+        "ms": device_ms(lambda: fl.bias_ln_relu_mask(*args)),
+        "wrapper_ms": time_ms(lambda: fl.bias_ln_relu_mask(*args)),
+        "plain_ms": device_ms(lambda: fl.bias_ln_relu_mask_plain(*args)),
+        # the yardstick: one LayerNorm of the same rows
+        "library_ms": device_ms(lambda: F.layer_norm(x, (c,), w, bb, 1e-5)),
+    }
+    # x read once and out written once, the mask and three vectors read
+    res["bound_ms"], res["bound_by"] = _bound(
+        2 * n * c * es + n + 3 * c * 4, 8 * n * c, F32_FLOP_PER_S)
+    return _vox_report(res)
+
+
+def sparse_cases(gen):
+    """Phase 13: both kernels at every serving shape of the bench
+    configuration, and an f32 case at width 16 (the factory default)."""
+    import torch
+
+    bf = torch.bfloat16
+    bs, bsc = sparse_levels()
+    cases = [sparse_conv_case(bs, "stem", 2, SP_W, bf, gen),
+             sparse_conv_case(bs, "level 0", SP_W, SP_W, bf, gen),
+             sparse_conv_case(bsc, "level 1", 2 * SP_W, 2 * SP_W, bf, gen),
+             sparse_ln_case(bs, "level 0", SP_W, bf, gen),
+             sparse_ln_case(bsc, "level 1", 2 * SP_W, bf, gen)]
+    bs128, _ = sparse_levels(cap0=128)
+    cases += [sparse_conv_case(bs128, "f32 w16", 16, 16, torch.float32, gen),
+              sparse_ln_case(bs128, "f32 w16", 16, torch.float32, gen)]
+    return cases
+
+
+def sparse_serve(card):
+    """Phase 14: Predictor on the full-width sparse model: launches per
+    forward, dropped tiles, logits against the plain versions, times."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.synthetic import track_events
+    from pcseg_tpu_torch.infer import Predictor
+    from pcseg_tpu_torch.ops.block_sparse import block_sparse_voxelize
+    from pcseg_tpu_torch.profile_serving import sparse_model
+
+    model = sparse_model()
+    pred = Predictor(model.state_dict(), 4, model=model,
+                     strict_capacity=True)
+    rng = np.random.default_rng(0)
+    events = [track_events(1, int(m), rng)[0]
+              for m in rng.integers(4000, SP_M + 1, 16)]
+    single = track_events(1, 1000, 1)[0]
+    n_batch_pts = sum(e.shape[0] for e in events)
+
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")        # no capacity overflow
+        reset_counts()
+        t0 = time.perf_counter()
+        preds = pred.predict_batch(events, batch_size=SP_B)
+        t1 = time.perf_counter()
+        p_single = pred.predict(single)
+        t2 = time.perf_counter()
+        launches = launch_counts()
+    forwards = 3
+    expected = {k: SP_PER_FORWARD.get(k, 0) * forwards for k in launches}
+    print(f"  main path: {forwards} forwards, launches {launches} "
+          f"(expected {expected})", flush=True)
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    if [p.shape[0] for p in preds] != [e.shape[0] for e in events] or \
+            p_single.shape != (single.shape[0],):
+        raise AssertionError("prediction shapes do not match the events")
+    first = {"batch_ms": (t1 - t0) * 1e3, "single_ms": (t2 - t1) * 1e3}
+
+    reps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_batch(events, batch_size=SP_B)
+        t1 = time.perf_counter()
+        pred.predict(single)
+        t2 = time.perf_counter()
+        reps.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    batch_ms = sorted(r[0] for r in reps)[1]
+    single_ms = sorted(r[1] for r in reps)[1]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # kernels vs plain versions through the whole model, one batch of 8
+    pts, _, msk = pad_events(
+        [(e, np.zeros(e.shape[0], np.int64)) for e in events[:SP_B]], SP_M,
+        batch_size=SP_B)
+    points = torch.from_numpy(pts).cuda()
+    mask = torch.from_numpy(msk).cuda()
+    out_k, dropped = model(points, mask, return_overflow=True)
+    out_p = model(points, mask, plain=True)
+    if out_k.shape != (SP_B, SP_M, 4) or not torch.isfinite(out_k).all() \
+            or out_k[~mask].any():
+        raise AssertionError(f"logits: shape {tuple(out_k.shape)}, "
+                             "non-finite values or nonzero masked rows")
+    if dropped.any():
+        raise AssertionError(f"dropped tiles {dropped.tolist()}")
+    d = (out_k - out_p).abs()
+    err = float(d.max())
+    scale = float(out_p.abs().max())
+    agree = float((out_k.argmax(-1) == out_p.argmax(-1))[mask].float()
+                  .mean())
+    print(f"  logits kernels vs plain on the card: max|err| {err:.4e} "
+          f"(max|logit| {scale:.3f}; tol {LOGITS_REL * scale:.4f}), argmax "
+          f"agreement {agree:.6f} (tol {ARGMAX_AGREE}); dropped tiles "
+          f"{dropped.tolist()}", flush=True)
+    if not (err <= LOGITS_REL * scale and agree >= ARGMAX_AGREE):
+        raise AssertionError(f"logits disagree with the plain model: max "
+                             f"err {err}, argmax agreement {agree}")
+    bs, _, _ = block_sparse_voxelize(points, mask, SP_R, SP_CAPS[0], SP_T,
+                                     plain=True)
+    res = {
+        "model": "SparseVoxelNet R64/w64/d4/L2 t8 caps (64, 32) bf16",
+        "first_call": first,
+        "predict_batch_16_ms": batch_ms,
+        "ms_per_event_batched": batch_ms / len(events),
+        "points_per_s_batched": n_batch_pts / (batch_ms / 1e3),
+        "predict_1000pt_ms": single_ms,
+        "peak_mem_gib": peak_gib,
+        "logits_max_abs_err": err,
+        "argmax_agreement": agree,
+        "dropped_tiles": int(dropped.sum()),
+        "occupied_tiles_level0": bs.tile_mask.sum(1).tolist(),
+        "active_voxels": bs.active.reshape(SP_B, -1).sum(1).tolist(),
+        "card": card,
+    }
+    print(f"  serving the sparse U-Net [{card}]: predict_batch(16 events, "
+          f"{n_batch_pts} pts) {batch_ms:.2f} ms = "
+          f"{res['ms_per_event_batched']:.2f} ms/event, "
+          f"{res['points_per_s_batched']:.4e} points/s; predict(1000 pts) "
+          f"{single_ms:.2f} ms; first calls {first['batch_ms']:.2f} / "
+          f"{first['single_ms']:.2f} ms; peak {peak_gib:.3f} GiB; tiles a "
+          f"level-0 event {res['occupied_tiles_level0']}", flush=True)
+    return launches, res
+
+
 def step_spread(card, n) -> int:
     """Phases 8 and 12's step comparisons n times each; their loss and
     worst gradient ratio as one JSON line."""
@@ -1654,6 +1933,13 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the default "
                              f"training path: {unused}")
 
+    print(f"[13] sparse kernels vs plain versions, B{SP_B} x {SP_M} track "
+          f"events [{card}]", flush=True)
+    sp_cases = sparse_cases(gen)
+
+    print(f"[14] serving the sparse U-Net [{card}]", flush=True)
+    sp_launches, sp_served = sparse_serve(card)
+
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
         "down2x_gn_act": ("act", "B8 64^3x16->32^3x32"),
@@ -1707,6 +1993,8 @@ def main() -> int:
         by_path = {"default_serving": def_launches[name],
                    "default_fit": def_fit_launches[name],
                    "default_fit_serving": def_fit_serve[name]}
+        if name in sp_launches and SP_PER_FORWARD.get(name):
+            by_path["sparse_serving"] = sp_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": SOURCE if name.startswith("head") else TRI_SOURCE,
@@ -1716,6 +2004,21 @@ def main() -> int:
             "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"], "library_ms": at["library_ms"],
             "shape": at["shape"],
+        })
+    # sparse rows: numbers at the level-0 64 -> 64 bf16 shape (the largest
+    # LN input; the level-1 conv's numbers are in the cases); launches from
+    # phase 14
+    for name in ("block_conv", "bias_ln_relu_mask"):
+        mine = [c for c in sp_cases if c["name"] == name]
+        at = next(c for c in mine if c["case"] == "level 0")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SP_SOURCES[name],
+            "replaces": SP_REPLACES[name], "launches": sp_launches[name],
+            "launches_by_path": {"sparse_serving": sp_launches[name]},
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "shape": at["shape"],
         })
     # PointNet rows: forward numbers at each kernel's largest shape, the
     # backward's beside them; launches are forward + backward on the main
@@ -1744,7 +2047,8 @@ def main() -> int:
                       "voxel_step": vox_step, "voxel_fit": vox_fitted,
                       "default_cases": def_cases, "default_serving":
                       def_served, "default_step": def_step,
-                      "default_fit": def_fitted}))
+                      "default_fit": def_fitted, "sparse_cases": sp_cases,
+                      "sparse_serving": sp_served}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

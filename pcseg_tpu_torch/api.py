@@ -1,7 +1,9 @@
 """High-level API (counterpart of pcseg_tpu/api.py): ``fit`` on in-memory
-events (PointNetSeg and the voxel U-Net), and serving of the voxel U-Net,
-for instance the best checkpoint ``fit`` wrote, through ``predictor`` /
-``predict``. HDF5 datasets, resume and ``evaluate`` are not ported yet."""
+events (PointNetSeg and the voxel U-Net), and serving, through
+``predictor`` / ``predict``, of a voxel U-Net or SparseVoxelNet checkpoint
+in the port's format: the best checkpoint ``fit`` wrote, or one saved
+from weights carried over from the JAX package. HDF5 datasets, resume and
+``evaluate`` are not ported yet."""
 
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ def fit(events: Sequence[tuple[np.ndarray, np.ndarray]], *,
 
 
 def predictor(checkpoint_path: str, **kw) -> Predictor:
-    """Load a checkpoint written by the port."""
+    """Load a checkpoint in the port's format (``Predictor.from_checkpoint``
+    keywords, e.g. ``device="cpu"``)."""
     return Predictor.from_checkpoint(checkpoint_path, **kw)
 
 

@@ -2,13 +2,14 @@
 (pcseg_tpu/core/config.py) with the fields the port reads, under the same
 names, defaults and meanings.
 
-Ported: the PointNet and voxel ``ModelConfig`` fields, and the parts of
-``DataConfig``, ``OptimConfig`` and ``TrainConfig`` that a one-device
+Ported: the ``ModelConfig`` fields of the three families, and the parts
+of ``DataConfig``, ``OptimConfig`` and ``TrainConfig`` that a one-device
 training run reads. Not yet: HDF5 paths and prefetch, resume/'latest'
-checkpoints, metrics logs, parallel strategies, the sparse family's
-fields. The voxel fields default as the JAX package's do: ``impl``,
-``voxelize_impl`` and ``devox_impl`` "auto", which at 64^3 in bf16 resolve
-to the fused core and the one-hot matmul voxelize/devoxelize forms.
+checkpoints, metrics logs, parallel strategies. The fields default as the
+JAX package's do: ``voxelize_impl`` and ``devox_impl`` "auto", which at
+64^3 in bf16 resolve to the one-hot matmul voxelize/devoxelize forms;
+``impl`` "block", the sparse family's block impl, which the voxel family
+reads as "auto" (the fused core in bf16).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ class DataConfig:
 
 @dataclass
 class ModelConfig:
-    name: str = "pointnet_seg"    # or "voxel_unet3d"
+    name: str = "pointnet_seg"    # or "voxel_unet3d", "sparse_voxelnet"
     num_classes: int = 0          # 0 = infer from the data
     input_dim: int = 4            # x, y, z + features
     dropout: float = 0.3
@@ -46,14 +47,29 @@ class ModelConfig:
     grid_size: int = 64
     unet_width: int = 16
     levels: int = 0               # 0 = family default (3)
-    # conv implementation: "fused" (the CUDA kernels), "xla" (plain
+    # voxel family: the conv core, "fused" (the CUDA kernels), "xla" (plain
     # torch convs, named after the JAX core it mirrors) or anything else
-    # for "auto"
-    impl: str = "auto"
+    # for "auto"; sparse family: "block" (the only impl ported)
+    impl: str = "block"
     # "scatter" / "gather" (f32-exact), "matmul" (the one-hot contraction's
     # values, ops/voxel.py) or "auto" (the JAX package's crossover rules)
     voxelize_impl: str = "auto"
     devox_impl: str = "auto"
+    # sparse family: conv blocks a level, the gather impl's site capacity,
+    # the block impl's occupied-tile capacity per event and tile edge,
+    # optional per-level capacities (level 0 first), and whether a nonzero
+    # overflow count raises instead of warning
+    depth: int = 4
+    max_active: int = 8192
+    max_tiles: int = 128
+    tile: int = 8
+    max_tiles_schedule: tuple = ()
+    strict_capacity: bool = False
+
+    def __post_init__(self):
+        # a checkpoint's JSON brings the schedule back as a list
+        self.max_tiles_schedule = tuple(int(v)
+                                        for v in self.max_tiles_schedule)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -1,8 +1,14 @@
 """Synthetic LArTPC-style events (copy of pcseg_tpu/data/synthetic.py).
 
-Ragged ``(N, 4)`` float32 point clouds (x, y, z, e) with one int label
-per point, built from a few noisy line tracks per class; class 2 is made
-rare. The same seed gives the same events as the JAX package's copy.
+``synthetic_events``: ragged ``(N, 4)`` float32 point clouds (x, y, z, e)
+with one int label per point, built from a few noisy line tracks per
+class; class 2 is made rare. The same seed gives the same events as the
+JAX package's copy.
+
+``track_events``: the sparse family's benchmark batch (copy of
+``_track_batch`` in pcseg_tpu/bench.py), points evenly spaced on four line
+segments in the unit cube, ~0.1 % voxel occupancy at R64; the same
+generator state gives the same batch.
 """
 
 from __future__ import annotations
@@ -43,3 +49,22 @@ def synthetic_events(
         labels = np.concatenate(labs, axis=0)
         perm = rng.permutation(points.shape[0])
         yield points[perm], labels[perm]
+
+
+def track_events(b: int, m: int, rng=0) -> np.ndarray:
+    """(b, m, 4) float32 track events; ``rng`` a seed or a numpy
+    Generator."""
+    rng = np.random.default_rng(rng)
+    pts = []
+    for _ in range(b):
+        k = 4
+        seg = []
+        for _ in range(k):
+            a, d = rng.random(3), rng.normal(size=3)
+            d /= np.linalg.norm(d)
+            s = np.linspace(0, 1, m // k + 1)[:, None]
+            seg.append(a + s * d * 0.8)
+        p = np.concatenate(seg)[:m]
+        e = rng.random((m, 1))
+        pts.append(np.concatenate([np.clip(p, 0, 1), e], axis=1))
+    return np.stack(pts).astype(np.float32)

@@ -1,14 +1,19 @@
 """Serving: ``Predictor`` (counterpart of pcseg_tpu/infer.py for the voxel
-family), from weights in memory or from a checkpoint that ``api.fit``
-wrote.
+and sparse families), from weights in memory or from a checkpoint that
+``api.fit`` wrote or that ``ckpt.checkpoint.save_checkpoint`` made from
+carried JAX weights.
 
 Events are padded to bucket lengths, and a short batch with all-masked
 dummy rows, as in the JAX package; the valid-point mask goes to voxelize
-and devoxelize, so padding never changes a prediction.
+and devoxelize, so padding never changes a prediction. A sparse model's
+forward also returns its count of occupied tiles beyond the static
+capacity: their points read zero logits, so a nonzero count warns, or
+raises with ``strict_capacity=True``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -26,8 +31,10 @@ class Predictor:
 
     ``variables``: the model's state_dict (``ckpt.convert.
     from_jax_variables`` makes one from JAX parameters). ``model``: the
-    module to load them into; serving the JAX default (PointNetSeg) is
-    not ported yet. ``device``: None for CUDA, ``"cpu"`` for the plain versions.
+    module to load them into, a VoxelUNet3d or a SparseVoxelNet; serving
+    the JAX default (PointNetSeg) is not ported yet. ``device``: None for
+    CUDA, ``"cpu"`` for the plain versions. ``strict_capacity``: raise
+    instead of warning when a sparse model drops occupied tiles.
     """
 
     def __init__(
@@ -38,34 +45,56 @@ class Predictor:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         model: torch.nn.Module | None = None,
         device=None,
+        strict_capacity: bool = False,
     ):
         self.device = resolve_device(device)
         if model is None or isinstance(model, PointNetSeg):
             raise NotImplementedError(
                 "serving PointNetSeg (the default model) through Predictor "
                 "is not ported to pcseg_tpu_torch yet (ROADMAP Queue A); "
-                "pass a VoxelUNet3d as model="
+                "pass a VoxelUNet3d or a SparseVoxelNet as model="
             )
         model.load_state_dict(variables)
         self.model = model.to(self.device).eval()
         self.num_classes = num_classes
         self.input_dim = input_dim
         self.buckets = tuple(sorted(buckets))
+        self.strict_capacity = strict_capacity
+        # sparse family: one forward returns (logits, dropped)
+        self._returns_overflow = hasattr(self.model, "overflow_counts")
+
+    def _check_capacity(self, dropped: np.ndarray) -> None:
+        """Warn, or raise with ``strict_capacity``, on a nonzero count of
+        occupied tiles beyond the model's static capacity."""
+        n = int(dropped.sum())
+        if n:
+            msg = (f"capacity overflow: {n} occupied tiles beyond the "
+                   f"model's static capacity; their points read zero "
+                   f"logits (raise max_tiles)")
+            if self.strict_capacity:
+                raise RuntimeError(msg)
+            warnings.warn(msg, stacklevel=3)
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "Predictor":
         """Load a checkpoint written by ``ckpt.checkpoint.save_checkpoint``;
-        the model is rebuilt from the config stored in it."""
+        the model is rebuilt from the config stored in it, and so is
+        ``strict_capacity``."""
         state, num_classes, cfg = load_checkpoint(path)
         if "model" not in kw:
             kw["model"] = build_model(cfg, num_classes)
         kw.setdefault("input_dim", cfg.input_dim)
+        kw.setdefault("strict_capacity", cfg.strict_capacity)
         return cls(state, num_classes, **kw)
 
     def _forward(self, pts: np.ndarray, msk: np.ndarray) -> np.ndarray:
         points = torch.from_numpy(pts).to(self.device)
         mask = torch.from_numpy(msk).to(self.device)
-        return self.model(points, mask).cpu().numpy()
+        if not self._returns_overflow:
+            return self.model(points, mask).cpu().numpy()
+        logits, dropped = self.model(points, mask, return_overflow=True)
+        self._check_capacity(dropped.cpu().numpy())
+        return logits.cpu().numpy()
 
     def logits(self, points: np.ndarray) -> np.ndarray:
         """(N, D) -> (N, C) float32 logits for one event."""

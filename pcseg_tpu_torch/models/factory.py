@@ -1,6 +1,7 @@
 """Model factory: config -> model instance (counterpart of
-pcseg_tpu/models/factory.py). PointNetSeg and the voxel U-Net are
-ported; the sparse family is not yet."""
+pcseg_tpu/models/factory.py), for the three families. The sparse family
+takes its width from ``unet_width`` and one level by default, as in the
+JAX package; only its block impl is ported."""
 
 from __future__ import annotations
 
@@ -8,12 +9,10 @@ import torch
 
 from pcseg_tpu_torch.core.config import ModelConfig
 from pcseg_tpu_torch.models.pointnet import PointNetSeg
+from pcseg_tpu_torch.models.sparse_unet import SparseVoxelNet
 from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
 
 FAMILIES = ("pointnet_seg", "voxel_unet3d", "sparse_voxelnet")
-_NOT_PORTED = {
-    "sparse_voxelnet": "ROADMAP Queue A item 8 and Queue B item 3",
-}
 
 
 def build_model(cfg: ModelConfig, num_classes: int,
@@ -41,9 +40,20 @@ def build_model(cfg: ModelConfig, num_classes: int,
             devox_impl=cfg.devox_impl,
             generator=generator,
         )
-    if cfg.name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {cfg.name!r} is not ported to pcseg_tpu_torch "
-            f"yet: {_NOT_PORTED[cfg.name]}"
+    if cfg.name == "sparse_voxelnet":
+        return SparseVoxelNet(
+            num_classes=num_classes,
+            input_dim=cfg.input_dim,
+            grid_size=cfg.grid_size,
+            width=cfg.unet_width,
+            depth=cfg.depth,
+            impl=cfg.impl,
+            max_tiles=cfg.max_tiles,
+            tile=cfg.tile,
+            max_tiles_schedule=tuple(cfg.max_tiles_schedule),
+            levels=cfg.levels or 1,
+            compute_dtype=cfg.compute_dtype,
+            voxelize_impl=cfg.voxelize_impl,
+            generator=generator,
         )
     raise ValueError(f"unknown model family {cfg.name!r}; options: {FAMILIES}")

@@ -56,11 +56,11 @@ from pcseg_tpu_torch.ops.voxel import (
     voxelize,
 )
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GROUPS = 8
 
 
-class _Params(nn.Module):
+class Params(nn.Module):
     """One JAX parameter group: a dict of named tensors."""
 
     def __init__(self, tensors: dict):
@@ -79,7 +79,7 @@ class VoxelUNet3d(nn.Module):
                  voxelize_impl: str = "auto", devox_impl: str = "auto",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if compute_dtype not in _DTYPES:
+        if compute_dtype not in DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.num_classes = num_classes
         self.input_dim = input_dim
@@ -94,28 +94,28 @@ class VoxelUNet3d(nn.Module):
         g = generator
         w = width
         widths = self.widths
-        self.stem = _Params(conv3d_init(3, self.in_channels, w, g))
-        self.stem_gn = _Params(group_norm_init(w))
+        self.stem = Params(conv3d_init(3, self.in_channels, w, g))
+        self.stem_gn = Params(group_norm_init(w))
         for i, wi in enumerate(widths):
-            self.add_module(f"enc{i}_a", _Params(conv3d_init(3, wi, wi, g)))
-            self.add_module(f"enc{i}_a_gn", _Params(group_norm_init(wi)))
-            self.add_module(f"enc{i}_b", _Params(conv3d_init(3, wi, wi, g)))
-            self.add_module(f"enc{i}_b_gn", _Params(group_norm_init(wi)))
+            self.add_module(f"enc{i}_a", Params(conv3d_init(3, wi, wi, g)))
+            self.add_module(f"enc{i}_a_gn", Params(group_norm_init(wi)))
+            self.add_module(f"enc{i}_b", Params(conv3d_init(3, wi, wi, g)))
+            self.add_module(f"enc{i}_b_gn", Params(group_norm_init(wi)))
             if i < levels - 1:
                 self.add_module(
-                    f"down{i}", _Params(conv3d_init(2, wi, widths[i + 1], g)))
+                    f"down{i}", Params(conv3d_init(2, wi, widths[i + 1], g)))
                 self.add_module(
-                    f"down{i}_gn", _Params(group_norm_init(widths[i + 1])))
+                    f"down{i}_gn", Params(group_norm_init(widths[i + 1])))
         for i in range(levels - 2, -1, -1):
             wi, wlow = widths[i], widths[i + 1]
-            self.add_module(f"up{i}", _Params(conv3d_init(2, wlow, wi, g)))
-            self.add_module(f"up{i}_gn", _Params(group_norm_init(wi)))
+            self.add_module(f"up{i}", Params(conv3d_init(2, wlow, wi, g)))
+            self.add_module(f"up{i}_gn", Params(group_norm_init(wi)))
             self.add_module(
-                f"dec{i}_a", _Params(conv3d_init(3, 2 * wi, wi, g)))
-            self.add_module(f"dec{i}_a_gn", _Params(group_norm_init(wi)))
-            self.add_module(f"dec{i}_b", _Params(conv3d_init(3, wi, wi, g)))
-            self.add_module(f"dec{i}_b_gn", _Params(group_norm_init(wi)))
-        self.head = _Params(conv3d_init(1, w, num_classes, g))
+                f"dec{i}_a", Params(conv3d_init(3, 2 * wi, wi, g)))
+            self.add_module(f"dec{i}_a_gn", Params(group_norm_init(wi)))
+            self.add_module(f"dec{i}_b", Params(conv3d_init(3, wi, wi, g)))
+            self.add_module(f"dec{i}_b_gn", Params(group_norm_init(wi)))
+        self.head = Params(conv3d_init(1, w, num_classes, g))
 
     @property
     def in_channels(self) -> int:
@@ -186,7 +186,7 @@ class VoxelUNet3d(nn.Module):
         devoxelize with its backward through the kernels' plain versions
         on any device: the on-card reference of the kernel path.
         """
-        dt = _DTYPES[self.compute_dtype]
+        dt = DTYPES[self.compute_dtype]
         if mask is None:
             mask = torch.ones(points.shape[:2], dtype=torch.bool,
                               device=points.device)

@@ -60,6 +60,12 @@ SIGNATURES = {
         "pcseg_seg4_ce_fwd": [_P] * 10 + [_L, _I, _I, _P],
         "pcseg_seg4_ce_bwd": [_P] * 16 + [_L, _I, _I, _P],
     },
+    "block_conv": {
+        "pcseg_block_conv": [_P] * 4 + [_I] * 6 + [_P],
+    },
+    "fused_ln": {
+        "pcseg_bias_ln_relu_mask": [_P] * 6 + [_L, _I, _F, _I, _I, _P],
+    },
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -82,12 +82,13 @@ def resolve_devoxelize_impl(impl: str, grid_size: int, c: int) -> str:
 
 def _event_box(coords: torch.Tensor, mask: torch.Tensor):
     """Masked per-event AABB. Rows with no valid point (batch padding)
-    get the unit box at the origin, so nothing downstream sees inf."""
-    big = torch.tensor(3.4e38, dtype=coords.dtype, device=coords.device)
+    get the unit box at the origin, so nothing downstream sees inf. The
+    sentinel is a Python scalar: a tensor made from it on the card would be
+    a blocking host-to-device copy in every voxelize."""
     m = mask[..., None]
     has_valid = mask.any(dim=1)[:, None]
-    lo = torch.where(m, coords, big).amin(dim=1)
-    hi = torch.where(m, coords, -big).amax(dim=1)
+    lo = torch.where(m, coords, 3.4e38).amin(dim=1)
+    hi = torch.where(m, coords, -3.4e38).amax(dim=1)
     lo = torch.where(has_valid, lo, torch.zeros_like(lo))
     hi = torch.where(has_valid, hi, torch.ones_like(hi))
     span = torch.clamp(hi - lo, min=_EPS)

@@ -1,21 +1,25 @@
 """Where the serving time goes, on one CUDA card.
 
-    python -m pcseg_tpu_torch.profile_serving [--out DIR]
+    python -m pcseg_tpu_torch.profile_serving [--model NAME] [--out DIR]
 
-Builds the serving configurations of chip_smoke.py (voxel U-Net 64^3,
-w16, 3 levels, bf16, seeded random weights): ``default`` (every impl at
-"auto": fused conv kernels, the one-hot voxelize_contract and
-trilinear_gather, the fused grid2 head) and ``scatter_gather`` (fused conv
-kernels, scatter voxelize, gather devoxelize, the plain head), in turn.
-For each, for a B8 x 8192 batch and for one 1000-point event it
-reports:
+Builds the serving configurations of chip_smoke.py with seeded random
+weights. ``--model voxel_unet3d`` (the default): the voxel U-Net 64^3,
+w16, 3 levels, bf16, as ``default`` (every impl at "auto": fused conv
+kernels, the one-hot voxelize_contract and trilinear_gather, the fused
+grid2 head) and ``scatter_gather`` (fused conv kernels, scatter voxelize,
+gather devoxelize, the plain head), in turn, on synthetic events.
+``--model sparse_voxelnet``: the block-sparse SparseVoxelNet of the JAX
+package's sparse bench (R64, w64, depth 4, 2 levels, tile 8, capacities
+(64, 32), bf16) on track events. For each, for a B8 x 8192 batch and for
+one 1000-point event it reports:
 
 - host-clock stage times (pad on the host, copy to the card, forward,
   copy back), each ended by a synchronize;
 - device time by kernel from torch.profiler over one forward, the
   device's busy share of that forward's wall time, and device time by
   stage (``stage_of``: the conv kernels, the voxelize, head, gather and
-  scatter kernels, and the PyTorch glue around them).
+  scatter kernels, the sparse block conv and LN kernels, and the PyTorch
+  glue around them).
 
 With ``--out`` the profiler table is also written to DIR/profile_*.txt.
 """
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 
 from pcseg_tpu_torch.data.batching import pad_events
-from pcseg_tpu_torch.data.synthetic import synthetic_events
+from pcseg_tpu_torch.data.synthetic import synthetic_events, track_events
+from pcseg_tpu_torch.models.sparse_unet import SparseVoxelNet
 from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
 
 
@@ -63,6 +68,8 @@ def _stages(model, events, bucket, batch):
 # PyTorch glue (elementwise ops, reductions, copies, Adam, the loss)
 STAGES = (("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
           ("voxelize_contract_kernel", "voxelize"),
+          ("block_conv", "block_conv"),
+          ("bias_ln_relu_mask_kernel", "ln"),
           ("trilinear_gather_kernel", "devox_gather"),
           ("trilinear_scatter_kernel", "devox_scatter"),
           ("conv_kernel", "conv"), ("up_kernel", "conv"),
@@ -83,6 +90,15 @@ def voxel_model(forms: str) -> VoxelUNet3d:
         num_classes=4, grid_size=64, width=16, levels=3,
         compute_dtype="bfloat16", generator=torch.Generator().manual_seed(0),
         **explicit)
+
+
+def sparse_model() -> SparseVoxelNet:
+    """The JAX package's sparse bench configuration (pcseg_tpu/bench.py
+    :210-214)."""
+    return SparseVoxelNet(
+        num_classes=4, grid_size=64, width=64, depth=4, levels=2, tile=8,
+        max_tiles=64, max_tiles_schedule=(64, 32), compute_dtype="bfloat16",
+        generator=torch.Generator().manual_seed(0))
 
 
 def device_profile(fn):
@@ -119,27 +135,37 @@ def device_profile(fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="voxel_unet3d",
+                    choices=("voxel_unet3d", "sparse_voxelnet"))
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    batch = [p for p, _ in synthetic_events(8, min_points=4000,
-                                            max_points=8192, seed=0)]
-    single = [next(iter(synthetic_events(1, min_points=1000,
-                                         max_points=1000, seed=1)))[0]]
+    if args.model == "sparse_voxelnet":
+        batch = list(track_events(8, 8192, 0))
+        single = [track_events(1, 1000, 1)[0]]
+        models = {"sparse": sparse_model}
+    else:
+        batch = [p for p, _ in synthetic_events(8, min_points=4000,
+                                                max_points=8192, seed=0)]
+        single = [next(iter(synthetic_events(1, min_points=1000,
+                                             max_points=1000, seed=1)))[0]]
+        models = {form: lambda form=form: voxel_model(form)
+                  for form in ("default", "scatter_gather")}
     card = torch.cuda.get_device_name(0)
-    report = {"card": card}
-    for form in ("default", "scatter_gather"):
-        model = voxel_model(form).cuda().eval()
+    report = {"card": card, "model": args.model}
+    for form, make in models.items():
+        model = make().cuda().eval()
+        forms = model.resolve_forms() if hasattr(model, "resolve_forms") \
+            else {"impl": model.impl}
         for label, events, bucket, b in (("batch8x8192", batch, 8192, 8),
                                          ("single1000", single, 1024, 1)):
             name = f"{form}_{label}"
             stages, (points, mask) = _stages(model, events, bucket, b)
             prof_res, prof = device_profile(lambda: model(points, mask))
-            report[name] = {"forms": model.resolve_forms(), "stages": stages,
-                            **prof_res}
+            report[name] = {"forms": forms, "stages": stages, **prof_res}
             print(f"[{name}] {card}: stages {json.dumps(stages)}")
             print(f"  one forward: wall {prof_res['wall_ms']:.3f} ms, device "
                   f"busy {prof_res['device_busy_ms']:.3f} ms, idle share "

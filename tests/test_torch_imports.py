@@ -15,6 +15,7 @@ from pcseg_tpu_torch.core.config import ModelConfig
 from pcseg_tpu_torch.infer import Predictor
 from pcseg_tpu_torch.models.factory import build_model
 from pcseg_tpu_torch.models.pointnet import PointNetSeg
+from pcseg_tpu_torch.models.sparse_unet import SparseVoxelNet
 
 
 def test_port_imports_no_jax():
@@ -62,8 +63,12 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 def test_unported_families_raise():
     model = build_model(ModelConfig(name="pointnet_seg"), 4)
     assert isinstance(model, PointNetSeg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ModelConfig(name="sparse_voxelnet"), 4)
+    # the sparse family builds with its block impl; the others wait
+    assert isinstance(build_model(ModelConfig(name="sparse_voxelnet"), 4),
+                      SparseVoxelNet)
+    for impl in ("dense", "gather"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(ModelConfig(name="sparse_voxelnet", impl=impl), 4)
     # PointNet trains in the port; serving it through Predictor waits
     with pytest.raises(NotImplementedError, match="PointNetSeg"):
         Predictor({}, 4, device="cpu")
