@@ -66,7 +66,24 @@
    serves the voxel U-Net: 8 / 10 / 1 block_conv / bias_ln_relu_mask /
    voxelize_contract launches per forward, no dropped tile, logits
    against the plain versions.
-15. Prints the kernels as one JSON line, the card's name and power limit,
+15. Holds the sparse family's training kernels (the LN backward, the block
+   conv's dgrad and wgrad, rowcol_scatter) against their plain versions at
+   every shape one B8 x 8192 train step of that configuration launches,
+   and every kernel of the family, forward and backward, at the shapes its
+   repair opened (LN at 256 and 24 channels, the conv at widths 8 and 24
+   and at tile 16); times kernel, plain version, bound and one PyTorch call
+   of the same function (cuDNN's convolution_backward on the materialized
+   halo, native_layer_norm_backward, index_add_; yardsticks only).
+16. One whole sparse train step (forward, loss, backward, Adam) with the
+   kernels, with the plain versions and in f32: loss, every gradient and
+   every Adam update.
+17. Trains that model through api.fit (bucket 8192, batch 8, 3 train steps
+   and one eval batch per epoch, 2 epochs, track events): launch counts
+   per step (8 / 7 / 8 / 10 / 10 / 1 / 1 block_conv / dgrad / wgrad / LN /
+   LN backward / voxelize_contract / rowcol_scatter), finite losses, no
+   dropped tile, ms per step, points/s, peak memory; then serves the best
+   checkpoint through Predictor on the card.
+18. Prints the kernels as one JSON line, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
@@ -74,9 +91,10 @@ any phase fails.
 
     python3 chip_smoke.py --step-spread N
 
-builds the kernels, repeats only the whole-step comparisons of phases 8
-and 12 N times, and prints each loss reading as one JSON line: the spread
-their loss limits are set from. It holds nothing and prints no result.
+builds the kernels, repeats only the whole-step comparisons of phases 8,
+12 and 16 N times, and prints each loss reading as one JSON line: the
+spread their loss limits are set from. It holds nothing and prints no
+result.
 """
 
 from __future__ import annotations
@@ -332,11 +350,12 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
 
 def _count_modules():
     from pcseg_tpu_torch.ops import block_conv as bc
+    from pcseg_tpu_torch.ops import block_sparse as bsp
     from pcseg_tpu_torch.ops import conv3d_block as cb
     from pcseg_tpu_torch.ops import fused_ln as fl
     from pcseg_tpu_torch.ops import voxel as vx
 
-    return cb, vx, bc, fl
+    return cb, vx, bc, fl, bsp
 
 
 def launch_counts() -> dict:
@@ -1579,10 +1598,10 @@ SP_PER_FORWARD = {"block_conv": 8, "bias_ln_relu_mask": 10,
 SP_F32_TOL = 1e-5
 
 
-def sparse_levels(cap0=SP_CAPS[0]):
+def sparse_levels(cap0=SP_CAPS[0], t=SP_T):
     """The tiles of the bench batch (B8 x 8192 track events, seed 0) at
-    level 0 (capacity ``cap0``) and level 1, as the serving forward builds
-    them."""
+    level 0 (tile edge ``t``, capacity ``cap0``) and level 1, as the
+    serving forward builds them."""
     import torch
 
     from pcseg_tpu_torch.data.synthetic import track_events
@@ -1593,7 +1612,7 @@ def sparse_levels(cap0=SP_CAPS[0]):
 
     pts = torch.from_numpy(track_events(SP_B, SP_M, 0)).cuda()
     mask = torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda")
-    bs, _, _ = block_sparse_voxelize(pts, mask, SP_R, cap0, SP_T, plain=True)
+    bs, _, _ = block_sparse_voxelize(pts, mask, SP_R, cap0, t, plain=True)
     return bs, block_pool(bs, SP_CAPS[1])[0]
 
 
@@ -1606,93 +1625,6 @@ def _sp_check(got, ref):
     return err, err <= SP_F32_TOL * float(ref.abs().max())
 
 
-def sparse_conv_case(bs, label, cin, cout, dtype, gen):
-    import torch
-    import torch.nn.functional as F
-
-    from pcseg_tpu_torch.ops import block_conv as bc
-    from pcseg_tpu_torch.ops.block_sparse import neighbor_slots
-
-    t, t3 = SP_T, SP_T ** 3
-    b, nt = bs.tile_mask.shape
-    real = bs.tile_mask
-    slots = neighbor_slots(bs)
-    x = torch.randn((b, nt, t3, cin), generator=gen, device="cuda")
-    x = torch.where(real[..., None, None], x, 0.0).to(dtype)
-    bound = (6.0 / (27 * cin)) ** 0.5
-    w2 = (torch.rand((27 * cin, cout), generator=gen, device="cuda") * 2
-          - 1) * bound
-    k = bc.block_conv(x, slots, w2)
-    torch.cuda.synchronize()
-    p = bc.block_conv_plain(x, slots, w2)
-    checks = {"y": _sp_check(k, p),
-              "padding rows": (float(k[~real].float().abs().max()),
-                               not k[~real].any())}
-    err = _held("block_conv", checks)
-    # the yardstick: cuDNN on the materialized (B*NT, Cin, 10, 10, 10) halo
-    halo = bc.gather_halo_slots(x.reshape(b, nt, t, t, t, cin), slots)
-    halo = halo.reshape(b * nt, t + 2, t + 2, t + 2, cin).permute(
-        0, 4, 1, 2, 3).contiguous()
-    wl = w2.to(dtype).reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2)
-    wl = wl.contiguous()
-    n_real = int(real.sum())
-    es = x.element_size()
-    res = {
-        "name": "block_conv", "case": label,
-        "shape": f"B{b} NT{nt} {cin}->{cout} {str(dtype)[6:]}",
-        "max_abs_err": err, "real_tiles": n_real,
-        "ms": time_ms(lambda: bc.block_conv(x, slots, w2)),
-        "plain_ms": time_ms(lambda: bc.block_conv_plain(x, slots, w2)),
-        "library_ms": time_ms(lambda: F.conv3d(halo, wl)),
-    }
-    # features, slots and weights read once, the output written once; the
-    # 27-tap products of every voxel of every real tile (padding rows are
-    # zero by construction)
-    res["bound_ms"], res["bound_by"] = _bound(
-        x.numel() * es + slots.numel() * 4 + w2.numel() * es
-        + b * nt * t3 * cout * es, 2 * 27 * cin * cout * t3 * n_real,
-        BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S)
-    return _vox_report(res)
-
-
-def sparse_ln_case(bs, label, c, dtype, gen):
-    import torch
-    import torch.nn.functional as F
-
-    from pcseg_tpu_torch.ops import fused_ln as fl
-
-    active = bs.active.reshape(-1)
-    n = active.numel()
-    x = (torch.randn((n, c), generator=gen, device="cuda") * 2).to(dtype)
-    pre = torch.randn((c,), generator=gen, device="cuda") * 0.1
-    scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
-    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
-    args = (x, pre, scale, bias, active, 1e-5, dtype)
-    k = fl.bias_ln_relu_mask(*args)
-    torch.cuda.synchronize()
-    p = fl.bias_ln_relu_mask_plain(*args)
-    checks = {"out": _sp_check(k, p),
-              "inactive rows": (float(k[~active].float().abs().max()),
-                                not k[~active].any())}
-    err = _held("bias_ln_relu_mask", checks)
-    w, bb = scale.to(dtype), bias.to(dtype)
-    es = x.element_size()
-    res = {
-        "name": "bias_ln_relu_mask", "case": label,
-        "shape": f"{n}x{c} {str(dtype)[6:]}", "max_abs_err": err,
-        "active_rows": int(active.sum()),
-        "ms": device_ms(lambda: fl.bias_ln_relu_mask(*args)),
-        "wrapper_ms": time_ms(lambda: fl.bias_ln_relu_mask(*args)),
-        "plain_ms": device_ms(lambda: fl.bias_ln_relu_mask_plain(*args)),
-        # the yardstick: one LayerNorm of the same rows
-        "library_ms": device_ms(lambda: F.layer_norm(x, (c,), w, bb, 1e-5)),
-    }
-    # x read once and out written once, the mask and three vectors read
-    res["bound_ms"], res["bound_by"] = _bound(
-        2 * n * c * es + n + 3 * c * 4, 8 * n * c, F32_FLOP_PER_S)
-    return _vox_report(res)
-
-
 def sparse_cases(gen):
     """Phase 13: both kernels at every serving shape of the bench
     configuration, and an f32 case at width 16 (the factory default)."""
@@ -1700,14 +1632,16 @@ def sparse_cases(gen):
 
     bf = torch.bfloat16
     bs, bsc = sparse_levels()
-    cases = [sparse_conv_case(bs, "stem", 2, SP_W, bf, gen),
-             sparse_conv_case(bs, "level 0", SP_W, SP_W, bf, gen),
-             sparse_conv_case(bsc, "level 1", 2 * SP_W, 2 * SP_W, bf, gen),
-             sparse_ln_case(bs, "level 0", SP_W, bf, gen),
-             sparse_ln_case(bsc, "level 1", 2 * SP_W, bf, gen)]
+    cases = [sp_conv_case("fwd", bs, "stem", 2, SP_W, bf, gen),
+             sp_conv_case("fwd", bs, "level 0", SP_W, SP_W, bf, gen),
+             sp_conv_case("fwd", bsc, "level 1", 2 * SP_W, 2 * SP_W, bf,
+                          gen),
+             sp_ln_case("fwd", bs.active, "level 0", SP_W, bf, gen),
+             sp_ln_case("fwd", bsc.active, "level 1", 2 * SP_W, bf, gen)]
     bs128, _ = sparse_levels(cap0=128)
-    cases += [sparse_conv_case(bs128, "f32 w16", 16, 16, torch.float32, gen),
-              sparse_ln_case(bs128, "f32 w16", 16, torch.float32, gen)]
+    f32 = torch.float32
+    cases += [sp_conv_case("fwd", bs128, "f32 w16", 16, 16, f32, gen),
+              sp_ln_case("fwd", bs128.active, "f32 w16", 16, f32, gen)]
     return cases
 
 
@@ -1821,18 +1755,528 @@ def sparse_serve(card):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# the sparse family's training (slice 6)
+# ---------------------------------------------------------------------------
+
+SP_BWD_REPLACES = {
+    "bias_ln_relu_mask_bwd": "pcseg_tpu/ops/pallas/fused_ln.py:198",
+    "block_conv_dgrad": "pcseg_tpu/ops/pallas/block_conv.py:657",
+    "block_conv_wgrad": "pcseg_tpu/ops/pallas/block_conv.py:555",
+    "rowcol_scatter": "pcseg_tpu/ops/pallas/onehot_contract.py:309",
+}
+SP_BWD_SOURCES = {
+    "bias_ln_relu_mask_bwd": SP_SOURCES["bias_ln_relu_mask"],
+    "block_conv_dgrad": SP_SOURCES["block_conv"],
+    "block_conv_wgrad": SP_SOURCES["block_conv"],
+    "rowcol_scatter": TRI_SOURCE,
+}
+# wrapper launches per train step of the bench configuration: the forward's
+# (SP_PER_FORWARD), a dgrad for each conv but the stem (whose input is
+# data), a wgrad for each conv, an LN backward for each LN, and one readout
+# backward
+SP_PER_STEP = dict(SP_PER_FORWARD, block_conv_dgrad=7, block_conv_wgrad=8,
+                   bias_ln_relu_mask_bwd=10, rowcol_scatter=1)
+# kernel vs plain version on identical inputs, for the long f32 sums (the
+# wgrad over ~10^5 voxels, the LN's column sums over ~10^5 rows, the
+# scatter's cells): both take the same terms in another order, so within
+# 1e-5 of the sum of the terms' magnitudes, plus one bf16 rounding (2^-8
+# |ref|) where the sum is rounded to bf16
+SP_SUM_TOL = 1e-5
+# whole sparse step, kernels vs plain versions (phase 16): the loss to
+# SP_LOSS_REL relative, 3x the largest --step-spread reading (4.69e-6 in
+# each of three runs on one H100: the sparse path's kernels sum in a fixed
+# order, only the voxelizer's and the scatter's atomics move); each
+# gradient's relative L2, and each parameter's Adam update's, within
+# VOX_GRAD_RATIO of the plain bf16 chain's own distance from the same
+# step in f32 (read: 0.193 and 0.699); the conv kernels' gradient vector
+# at cosine >= VOX_KERNEL_COS
+SP_LOSS_REL = 1.4e-5
+
+
+def _sp_sum_check(got, ref, mag, bf16):
+    g, r = got.float(), ref.float()
+    tol = SP_SUM_TOL * mag.float() + (2.0 ** -8 * r.abs() if bf16 else 0.0)
+    d = (g - r).abs()
+    return float(d.max()), bool((d <= tol).all())
+
+
+def kernel_ms(fn, keys, iters: int = 10) -> float:
+    """Device time of the kernels of one call of ``fn`` whose names hold
+    one of ``keys`` (torch.profiler over ``iters`` warm calls)."""
+    from pcseg_tpu_torch.profile_serving import device_profile
+
+    res, _ = device_profile(lambda: [fn() for _ in range(iters)])
+    return sum(k["device_ms"] for k in res["kernels"]
+               if any(key in k["name"] for key in keys)) / iters
+
+
+def sp_conv_case(kind, bs, label, cin, cout, dtype, gen):
+    """``kind`` "fwd", "dgrad" or "wgrad" of the raw block conv on the
+    tiles ``bs``: kernel vs plain version, times, bound and the cuDNN
+    call of the same conv on the materialized halo (``convolution`` or
+    ``convolution_backward`` for the input or weight gradient)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pcseg_tpu_torch.ops import block_conv as bc
+    from pcseg_tpu_torch.ops.block_sparse import neighbor_slots
+
+    t = bs.tile
+    t3 = t ** 3
+    b, nt = bs.tile_mask.shape
+    real = bs.tile_mask
+    slots = neighbor_slots(bs)
+    x = torch.randn((b, nt, t3, cin), generator=gen, device="cuda")
+    x = torch.where(real[..., None, None], x, 0.0).to(dtype)
+    gy = torch.randn((b, nt, t3, cout), generator=gen, device="cuda")
+    gy = torch.where(real[..., None, None], gy, 0.0).to(dtype)
+    bound = (6.0 / (27 * cin)) ** 0.5
+    w2 = ((torch.rand((27 * cin, cout), generator=gen, device="cuda") * 2
+           - 1) * bound).to(dtype)
+    bf16 = dtype == torch.bfloat16
+    if kind == "fwd":
+        run = (lambda: bc.block_conv_fwd(x, slots, w2))
+        plain = (lambda: bc.block_conv_plain(x, slots, w2))
+        name, n_out = "block_conv", x.numel() // cin * cout
+    elif kind == "dgrad":
+        run = (lambda: bc.block_conv_dgrad(gy, slots, w2))
+        plain = (lambda: bc.block_conv_dgrad_plain(gy, slots, w2))
+        name, n_out = "block_conv_dgrad", x.numel()
+    else:
+        run = (lambda: bc.block_conv_wgrad(x, slots, gy))
+        plain = (lambda: bc.block_conv_wgrad_plain(x, slots, gy))
+        name, n_out = "block_conv_wgrad", w2.numel()
+    k = run()
+    torch.cuda.synchronize()
+    p = plain()
+    if kind == "wgrad":
+        ref = bc.block_conv_wgrad_plain(x, slots, gy, torch.float32)
+        mag = bc.block_conv_wgrad_plain(x.abs(), slots, gy.abs(),
+                                        torch.float32)
+        checks = {"dW": _sp_sum_check(k, ref, mag, bf16)}
+    else:
+        checks = {"out": _sp_check(k, p),
+                  "padding rows": (float(k[~real].float().abs().max()),
+                                   not k[~real].any())}
+    err = _held(name, checks)
+    # the yardstick: cuDNN on the materialized (B*NT, Cin, t+2, t+2, t+2)
+    # halo, every tile
+    halo = bc.gather_halo_slots(x.reshape(b, nt, t, t, t, cin), slots)
+    halo = halo.reshape(b * nt, t + 2, t + 2, t + 2, cin).permute(
+        0, 4, 1, 2, 3).contiguous()
+    wl = w2.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous()
+    go = gy.reshape(b * nt, t, t, t, cout).permute(0, 4, 1, 2, 3)
+    go = go.contiguous()
+    if kind == "fwd":
+        def library():
+            return F.conv3d(halo, wl)
+    else:
+        mask = [kind == "dgrad", kind == "wgrad", False]
+
+        def library():
+            return torch.ops.aten.convolution_backward(
+                go, halo, wl, None, [1, 1, 1], [0, 0, 0], [1, 1, 1], False,
+                [0, 0, 0], 1, mask)
+    n_real = int(real.sum())
+    es = x.element_size()
+    res = {
+        "name": name, "case": label,
+        "shape": f"B{b} NT{nt} t{t} {cin}->{cout} {str(dtype)[6:]}",
+        "max_abs_err": err, "real_tiles": n_real,
+        "ms": time_ms(run), "plain_ms": time_ms(plain),
+        "library_ms": time_ms(library),
+    }
+    # inputs read once (features or cotangent, slots, weights), the output
+    # written once; the 27-tap products of every voxel of every real tile
+    ins = (x.numel() if kind != "dgrad" else 0) + (
+        gy.numel() if kind != "fwd" else 0) + (
+        w2.numel() if kind != "wgrad" else 0)
+    res["bound_ms"], res["bound_by"] = _bound(
+        ins * es + slots.numel() * 4 + n_out * es,
+        2 * 27 * cin * cout * t3 * n_real,
+        BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+    return _vox_report(res)
+
+
+def sp_ln_case(kind, active, label, c, dtype, gen):
+    """``kind`` "fwd" or "bwd" of bias_ln_relu_mask on rows with the
+    ``active`` mask: kernel vs plain version, device times, bound and one
+    LayerNorm call of PyTorch (``F.layer_norm`` / ``native_layer_norm_
+    backward``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pcseg_tpu_torch.ops import fused_ln as fl
+
+    active = active.reshape(-1)
+    n = active.numel()
+    x = (torch.randn((n, c), generator=gen, device="cuda") * 2).to(dtype)
+    pre = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
+    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    g = torch.randn((n, c), generator=gen, device="cuda").to(dtype)
+    w, bb = scale.to(dtype), bias.to(dtype)
+    es = x.element_size()
+    if kind == "fwd":
+        args = (x, pre, scale, bias, active, 1e-5, dtype)
+        k = fl.bias_ln_relu_mask_fwd(*args)
+        torch.cuda.synchronize()
+        p = fl.bias_ln_relu_mask_plain(*args)
+        checks = {"out": _sp_check(k, p),
+                  "inactive rows": (float(k[~active].float().abs().max()),
+                                    not k[~active].any())}
+        name, keys = "bias_ln_relu_mask", ("bias_ln_relu_mask_kernel",)
+
+        def run():
+            return fl.bias_ln_relu_mask_fwd(*args)
+
+        def plain():
+            return fl.bias_ln_relu_mask_plain(*args)
+
+        def library():
+            return F.layer_norm(x, (c,), w, bb, 1e-5)
+        nbytes, flops = 2 * n * c * es + n + 3 * c * 4, 8 * n * c
+    else:
+        args = (x, pre, scale, bias, active, g, 1e-5)
+        k = fl.bias_ln_relu_mask_bwd(*args)
+        torch.cuda.synchronize()
+        p = fl.bias_ln_relu_mask_bwd_plain(*args)
+        xf = x.float() + pre
+        mean = xf.mean(-1, keepdim=True)
+        xh = (xf - mean) * torch.rsqrt(
+            (xf * xf).mean(-1, keepdim=True) - mean * mean + 1e-5)
+        dz = torch.where(active[:, None] & (xh * scale + bias > 0),
+                         g.float(), 0.0)
+        mags = (p[0].float().abs().sum(0), (dz * xh).abs().sum(0),
+                dz.abs().sum(0))
+        checks = {"dx": _sp_check(k[0], p[0]),
+                  "inactive rows": (float(k[0][~active].float().abs().max()),
+                                    not k[0][~active].any())}
+        for i, nm in enumerate(("dpre_bias", "dscale", "dbias")):
+            checks[nm] = _sp_sum_check(k[i + 1], p[i + 1], mags[i], False)
+        name = "bias_ln_relu_mask_bwd"
+        keys = ("bias_ln_relu_mask_bwd", "column_sum")
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [c], w, bb,
+                                                            1e-5)
+
+        def run():
+            return fl.bias_ln_relu_mask_bwd(*args)
+
+        def plain():
+            return fl.bias_ln_relu_mask_bwd_plain(*args)
+
+        def library():
+            return torch.ops.aten.native_layer_norm_backward(
+                g, x, [c], lmean, lrstd, w, bb, [True, True, True])
+        # x and g read once, dx written once, the mask and three vectors
+        # read, three column sums written
+        nbytes = 3 * n * c * es + n + 6 * c * 4
+        flops = 30 * n * c
+    err = _held(name, checks)
+    res = {
+        "name": name, "case": label, "shape": f"{n}x{c} {str(dtype)[6:]}",
+        "max_abs_err": err, "active_rows": int(active.sum()),
+        "ms": kernel_ms(run, keys), "wrapper_ms": time_ms(run),
+        "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+    }
+    res["bound_ms"], res["bound_by"] = _bound(nbytes, flops, F32_FLOP_PER_S)
+    return _vox_report(res)
+
+
+def sp_rowcol_case(gen):
+    """rowcol_scatter at the bench batch's readout: (8, 8192, 4) point
+    cotangents into the (8, 64, 512 * 4) f32 table of the level-0 tiles."""
+    import torch
+
+    from pcseg_tpu_torch.data.synthetic import track_events
+    from pcseg_tpu_torch.ops import block_sparse as bsp
+
+    pts = torch.from_numpy(track_events(SP_B, SP_M, 0)).cuda()
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda")
+    bs = bsp.block_sparse_voxelize(pts, mask, SP_R, SP_CAPS[0], SP_T,
+                                   plain=True)[0]
+    slot, intra = bsp.point_cells(bs, pts, mask)
+    nt, t3 = bs.tile_mask.shape[1], SP_T ** 3
+    vals = torch.randn((SP_B, SP_M, 4), generator=gen, device="cuda")
+    vals[:, -100:] = 0.0                   # masked points' cotangents
+    k = bsp.rowcol_scatter(slot, intra, vals, nt, t3)
+    torch.cuda.synchronize()
+    p = bsp.rowcol_scatter_plain(slot, intra, vals, nt, t3)
+    mag = bsp.rowcol_scatter_plain(slot, intra, vals.abs(), nt, t3)
+    err = _held("rowcol_scatter", {"out": _sp_sum_check(k, p, mag, False)})
+    # the yardstick: one index_add_ of the bf16-rounded rows into the table
+    idx = torch.where(slot < nt, slot * t3 + intra, nt * t3)
+    idx = (idx + torch.arange(SP_B, device="cuda")[:, None]
+           * (nt * t3 + 1)).reshape(-1)
+    vb = vals.to(torch.bfloat16).float().reshape(-1, 4)
+    tab = torch.zeros((SP_B * (nt * t3 + 1), 4), device="cuda")
+    res = {
+        "name": "rowcol_scatter", "case": "readout bwd",
+        "shape": f"B{SP_B} M{SP_M} C4 -> NT{nt} x {t3}", "max_abs_err": err,
+        "ms": kernel_ms(lambda: bsp.rowcol_scatter(slot, intra, vals, nt,
+                                                   t3),
+                        ("rowcol_scatter",)),
+        "wrapper_ms": time_ms(lambda: bsp.rowcol_scatter(slot, intra, vals,
+                                                         nt, t3)),
+        "plain_ms": device_ms(lambda: bsp.rowcol_scatter_plain(
+            slot, intra, vals, nt, t3)),
+        "library_ms": device_ms(lambda: tab.index_add_(0, idx, vb)),
+    }
+    # rows, cols and values read once, the f32 table written once
+    res["bound_ms"], res["bound_by"] = _bound(
+        slot.numel() * 8 + vals.numel() * 4 + p.numel() * 4, vals.numel(),
+        F32_FLOP_PER_S)
+    return _vox_report(res)
+
+
+def sparse_bwd_cases(gen):
+    """Phase 15: the new kernels at every training shape of the bench
+    configuration, and every kernel of the family, forward and backward,
+    at the shapes the repair opened."""
+    import torch
+
+    bf = torch.bfloat16
+    bs, bsc = sparse_levels()
+    cases = [sp_ln_case("bwd", bs.active, "level 0", SP_W, bf, gen),
+             sp_ln_case("bwd", bsc.active, "level 1", 2 * SP_W, bf, gen),
+             sp_conv_case("dgrad", bs, "level 0", SP_W, SP_W, bf, gen),
+             sp_conv_case("dgrad", bsc, "level 1", 2 * SP_W, 2 * SP_W, bf,
+                          gen),
+             sp_conv_case("wgrad", bs, "stem", 2, SP_W, bf, gen),
+             sp_conv_case("wgrad", bs, "level 0", SP_W, SP_W, bf, gen),
+             sp_conv_case("wgrad", bsc, "level 1", 2 * SP_W, 2 * SP_W, bf,
+                          gen),
+             sp_rowcol_case(gen)]
+    # repaired shapes: LN at 256 and 24 channels, the conv at widths 8 and
+    # 24 and at tile 16 (R64: a 4^3 tile grid, capacity 16)
+    bs16, _ = sparse_levels(cap0=16, t=16)
+    for kind in ("fwd", "bwd"):
+        cases.append(sp_ln_case(kind, bsc.active, "repaired C256", 256, bf,
+                                gen))
+        cases.append(sp_ln_case(kind, bs.active, "repaired C24", 24, bf,
+                                gen))
+    for label, tiles, cin, cout in (("repaired w8", bs, 8, 8),
+                                    ("repaired w24", bs, 24, 24),
+                                    ("repaired t16", bs16, 16, 16)):
+        for kind in ("fwd", "dgrad", "wgrad"):
+            cases.append(sp_conv_case(kind, tiles, label, cin, cout, bf,
+                                      gen))
+    for label, tiles, cout in (("repaired stem w24", bs, 24),
+                               ("repaired stem t16", bs16, 16)):
+        for kind in ("fwd", "wgrad"):
+            cases.append(sp_conv_case(kind, tiles, label, 2, cout, bf, gen))
+    return cases
+
+
+def sparse_step_compare(card, hold=True):
+    """Phase 16: one sparse train step (forward, loss, backward, Adam) of
+    the bench configuration with the kernels and with the plain versions,
+    from the same weights, optimizer state and batch, and the same step in
+    f32 through the plain versions as the yardstick of the bf16 chain's own
+    rounding; ``hold=False`` reports without failing."""
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.models.sparse_unet import SparseVoxelNet
+    from pcseg_tpu_torch.ops.losses import cross_entropy_sums
+    from pcseg_tpu_torch.profile_serving import sparse_model
+    from pcseg_tpu_torch.profile_training import sparse_batch
+    from pcseg_tpu_torch.train.optim import make_optimizer
+
+    pts, labels, masks = (torch.from_numpy(a).cuda() for a in pad_events(
+        sparse_batch(SP_B, SP_M), SP_M, batch_size=SP_B))
+    cw = torch.ones(4, device="cuda")
+    model = sparse_model().cuda()
+    kw = {k: getattr(model, k) for k in (
+        "num_classes", "grid_size", "width", "depth", "levels", "tile",
+        "max_tiles", "max_tiles_schedule")}
+    model32 = SparseVoxelNet(**kw, compute_dtype="float32").cuda()
+    model32.load_state_dict(model.state_dict())
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def step(m, plain, lr=1e-3):
+        """loss, gradients and Adam updates of one step from ``start``"""
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                p.copy_(start[n])
+        opt = make_optimizer(m.parameters())
+        opt.zero_grad(set_to_none=True)
+        logits, aux = m.apply(pts, train=True, mask=masks, plain=plain)
+        num, den = cross_entropy_sums(logits, labels, cw)
+        loss = num / den
+        loss.backward()
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        grads = {n: p.grad.clone() for n, p in m.named_parameters()}
+        upd = {n: p.detach() - start[n] for n, p in m.named_parameters()}
+        return (float(loss.detach()), grads, upd,
+                int(aux["__overflow__"].sum()))
+
+    lk, gk, uk, dropped = step(model, False)
+    lp, gp, up, _ = step(model, True)
+    lf, gf, uf, _ = step(model32, True)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return {n: float((a[n] - b[n]).norm())
+                / max(float(b[n].norm()), 1e-30) for n in b}
+
+    def ratio(a, b, f):
+        return {n: float((a[n] - b[n]).norm())
+                / max(float((b[n] - f[n]).norm()), 1e-30) for n in b}
+
+    loss_rel = abs(lk - lp) / abs(lp)
+    g_ratio, u_ratio = ratio(gk, gp, gf), ratio(uk, up, uf)
+    kern = [n for n in gp if n.endswith(".kernel")]
+    kk = torch.cat([gk[n].flatten() for n in kern])
+    kp = torch.cat([gp[n].flatten() for n in kern])
+    kcos = float(kk @ kp / (kk.norm() * kp.norm()))
+    gw, uw = max(g_ratio, key=g_ratio.get), max(u_ratio, key=u_ratio.get)
+    ok = (loss_rel <= SP_LOSS_REL and kcos >= VOX_KERNEL_COS
+          and g_ratio[gw] <= VOX_GRAD_RATIO and u_ratio[uw] <= VOX_GRAD_RATIO
+          and dropped == 0 and np.isfinite(lk)
+          and all(torch.isfinite(g).all() for g in gk.values()))
+    ms_k = time_ms(lambda: step(model, False), iters=3)
+    ms_p = time_ms(lambda: step(model, True), iters=3)
+    res = {"loss_kernels": lk, "loss_plain": lp, "loss_f32": lf,
+           "loss_rel_err": loss_rel, "loss_tol": SP_LOSS_REL,
+           "kernel_grad_cosine": kcos, "dropped": dropped,
+           "grad_rel_err_kernels_vs_plain": rel(gk, gp),
+           "grad_rel_err_plain_vs_f32": rel(gp, gf), "grad_ratio": g_ratio,
+           "grad_ratio_max": g_ratio[gw], "grad_worst": gw,
+           "update_rel_err_kernels_vs_plain": rel(uk, up),
+           "update_ratio": u_ratio, "update_ratio_max": u_ratio[uw],
+           "update_worst": uw, "step_ms_kernels": ms_k,
+           "step_ms_plain": ms_p, "card": card}
+    print(f"  sparse step: loss kernels {lk:.6f} plain {lp:.6f} (rel "
+          f"{loss_rel:.2e}, tol {SP_LOSS_REL:.1e}), f32 {lf:.6f}; conv-kernel "
+          f"gradient cosine {kcos:.6f} (tol {VOX_KERNEL_COS}); gradient "
+          f"ratio <= {g_ratio[gw]:.3f} at {gw}, Adam update ratio <= "
+          f"{u_ratio[uw]:.3f} at {uw} (tol {VOX_GRAD_RATIO}); dropped "
+          f"{dropped}; step {ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain "
+          f"[{card}]", flush=True)
+    if hold and not ok:
+        raise AssertionError(f"sparse train step: kernels disagree with the "
+                             f"plain versions: {res}")
+    return res
+
+
+def sparse_fit(card):
+    """Phase 17, the main path: api.fit on the sparse bench configuration
+    (2 epochs of 3 train steps and one eval batch on track events of
+    4,000-8,192 points, labels drawn by numpy), then Predictor on its best
+    checkpoint. Returns (fit launches, serving launches, result)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch import api
+    from pcseg_tpu_torch.data.synthetic import track_events
+    from pcseg_tpu_torch.infer import Predictor
+
+    rng = np.random.default_rng(7)
+    # 30 events: 24 train (3 batches of 8), 6 val (one eval batch)
+    events = []
+    for m in rng.integers(4000, SP_M + 1, 30):
+        p = track_events(1, int(m), rng)[0]
+        events.append((p, rng.integers(0, 4, p.shape[0])))
+    overrides = [
+        "model.name=sparse_voxelnet", "model.num_classes=4",
+        f"model.grid_size={SP_R}", f"model.unet_width={SP_W}",
+        "model.depth=4", "model.levels=2", "model.impl=block",
+        f"model.tile={SP_T}", f"model.max_tiles={SP_CAPS[0]}",
+        "model.max_tiles_schedule=" + ",".join(map(str, SP_CAPS)),
+        "model.compute_dtype=bfloat16", "model.strict_capacity=true",
+        f"data.batch_size={SP_B}", f"data.buckets={SP_M}",
+        "train.checkpoint_dir=build/chip_smoke_ckpt_sparse",
+        "train.num_epochs=2", "train.log_every_steps=0"]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = api.fit(events, overrides=overrides, log=lambda _: None)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = sum(h["train_steps"] for h in res.history)
+    evals = len(res.history)          # one eval batch per epoch
+    expected = {k: SP_PER_STEP.get(k, 0) * steps
+                + SP_PER_FORWARD.get(k, 0) * evals for k in launches}
+    if launches != expected:
+        raise AssertionError(f"sparse fit: launch counts {launches} != "
+                             f"{expected} ({steps} train steps, {evals} "
+                             "eval batches)")
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_loss")]
+    dropped = [h[k] for h in res.history
+               for k in ("dropped_train", "dropped_val")]
+    if not all(math.isfinite(v) for v in losses) or any(dropped):
+        raise AssertionError(f"sparse fit: losses {losses}, dropped tiles "
+                             f"{dropped}")
+    warm = res.history[-1]
+    ms_step = warm["train_seconds"] * 1e3 / warm["train_steps"]
+
+    # the best checkpoint, served on the card
+    reset_counts()
+    pred = Predictor.from_checkpoint(res.checkpoint_path)
+    served = [p for p, _ in events[:SP_B]]
+    preds = pred.predict_batch(served, batch_size=SP_B)
+    logits = pred.logits(served[0])
+    torch.cuda.synchronize()
+    serve_launches = launch_counts()
+    want = {k: SP_PER_FORWARD.get(k, 0) * 2 for k in serve_launches}
+    if serve_launches != want:
+        raise AssertionError(f"serving the sparse checkpoint: launch counts "
+                             f"{serve_launches} != {want}")
+    if [p.shape[0] for p in preds] != [e.shape[0] for e in served] or \
+            not np.isfinite(logits).all():
+        raise AssertionError("serving the sparse checkpoint: bad "
+                             "predictions")
+    out = {
+        "model": "SparseVoxelNet R64/w64/d4/L2 t8 caps (64, 32) bf16",
+        "steps": steps, "eval_batches": evals, "launches": launches,
+        "launches_per_step": {k: (v - SP_PER_FORWARD.get(k, 0) * evals)
+                              / steps for k, v in launches.items()},
+        "train_loss": [h["train_loss"] for h in res.history],
+        "val_loss": [h["val_loss"] for h in res.history],
+        "dropped": dropped,
+        "first_epoch_train_ms_per_step":
+            res.history[0]["train_seconds"] * 1e3 / res.history[0][
+                "train_steps"],
+        "ms_per_step": ms_step,
+        "points_per_s": SP_B * SP_M / (ms_step / 1e3),
+        "epoch_seconds": [h["seconds"] for h in res.history],
+        "peak_mem_gib": peak, "serve_launches": serve_launches,
+        "served_events": len(preds), "card": card,
+    }
+    print(f"  fit sparse_voxelnet [{card}]: {steps} train steps at B{SP_B} x "
+          f"{SP_M}, launches per step {out['launches_per_step']}; train loss "
+          f"{out['train_loss']}, val loss {out['val_loss']}; dropped tiles "
+          f"{dropped}; {ms_step:.2f} ms/step (epoch 2; epoch 1 "
+          f"{out['first_epoch_train_ms_per_step']:.2f}), "
+          f"{out['points_per_s']:.4e} points/s; peak {peak:.3f} GiB; best "
+          f"checkpoint served {len(preds)} events", flush=True)
+    return launches, serve_launches, out
+
+
 def step_spread(card, n) -> int:
-    """Phases 8 and 12's step comparisons n times each; their loss and
+    """Phases 8, 12 and 16's step comparisons n times each; their loss and
     worst gradient ratio as one JSON line."""
-    runs = {"phase8": False, "phase12": True}
+    runs = {"phase8": lambda: vox_step_compare(card, hold=False),
+            "phase12": lambda: vox_step_compare(card, default=True,
+                                                hold=False),
+            "phase16": lambda: sparse_step_compare(card, hold=False)}
     out = {"card": card}
     for _ in range(n):
-        for key, default in runs.items():
-            res = vox_step_compare(card, default=default, hold=False)
+        for key, run in runs.items():
+            res = run()
             for field in ("loss_rel_err", "grad_ratio_max",
-                          "kernel_grad_cosine"):
-                out.setdefault(key, {}).setdefault(field, []).append(
-                    res[field])
+                          "kernel_grad_cosine", "update_ratio_max"):
+                if field in res:
+                    out.setdefault(key, {}).setdefault(field, []).append(
+                        res[field])
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1940,6 +2384,22 @@ def main() -> int:
     print(f"[14] serving the sparse U-Net [{card}]", flush=True)
     sp_launches, sp_served = sparse_serve(card)
 
+    print(f"[15] sparse training kernels vs plain versions, B{SP_B} x "
+          f"{SP_M} track events [{card}]", flush=True)
+    spb_cases = sparse_bwd_cases(gen)
+
+    print(f"[16] one sparse train step, kernels vs plain [{card}]",
+          flush=True)
+    sp_step = sparse_step_compare(card)
+
+    print(f"[17] api.fit on the sparse U-Net, then Predictor [{card}]",
+          flush=True)
+    spf_launches, spf_serve, sp_fitted = sparse_fit(card)
+    unused = [k for k in SP_PER_STEP if spf_launches[k] == 0]
+    if unused:
+        raise AssertionError(f"kernels never launched on the sparse training "
+                             f"path: {unused}")
+
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
         "down2x_gn_act": ("act", "B8 64^3x16->32^3x32"),
@@ -1995,6 +2455,8 @@ def main() -> int:
                    "default_fit_serving": def_fit_serve[name]}
         if name in sp_launches and SP_PER_FORWARD.get(name):
             by_path["sparse_serving"] = sp_launches[name]
+            by_path["sparse_fit"] = spf_launches[name]
+            by_path["sparse_fit_serving"] = spf_serve[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": SOURCE if name.startswith("head") else TRI_SOURCE,
@@ -2007,14 +2469,31 @@ def main() -> int:
         })
     # sparse rows: numbers at the level-0 64 -> 64 bf16 shape (the largest
     # LN input; the level-1 conv's numbers are in the cases); launches from
-    # phase 14
+    # phases 14 and 17; the training kernels' rows from phase 15 (rowcol
+    # at the readout's one shape)
     for name in ("block_conv", "bias_ln_relu_mask"):
-        mine = [c for c in sp_cases if c["name"] == name]
+        mine = [c for c in sp_cases + spb_cases if c["name"] == name]
         at = next(c for c in mine if c["case"] == "level 0")
+        by_path = {"sparse_serving": sp_launches[name],
+                   "sparse_fit": spf_launches[name],
+                   "sparse_fit_serving": spf_serve[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SP_SOURCES[name],
-            "replaces": SP_REPLACES[name], "launches": sp_launches[name],
-            "launches_by_path": {"sparse_serving": sp_launches[name]},
+            "replaces": SP_REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "shape": at["shape"],
+        })
+    for name in SP_BWD_REPLACES:
+        mine = [c for c in spb_cases if c["name"] == name]
+        at = next(c for c in mine if c["case"] in ("level 0", "readout bwd"))
+        kernels.append({
+            "name": name, "route": "cuda", "source": SP_BWD_SOURCES[name],
+            "replaces": SP_BWD_REPLACES[name],
+            "launches": spf_launches[name],
+            "launches_by_path": {"sparse_fit": spf_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -2048,7 +2527,9 @@ def main() -> int:
                       "default_cases": def_cases, "default_serving":
                       def_served, "default_step": def_step,
                       "default_fit": def_fitted, "sparse_cases": sp_cases,
-                      "sparse_serving": sp_served}))
+                      "sparse_serving": sp_served,
+                      "sparse_train_cases": spb_cases, "sparse_step": sp_step,
+                      "sparse_fit": sp_fitted}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

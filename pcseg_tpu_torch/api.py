@@ -1,5 +1,6 @@
 """High-level API (counterpart of pcseg_tpu/api.py): ``fit`` on in-memory
-events (PointNetSeg and the voxel U-Net), and serving, through
+events (PointNetSeg, the voxel U-Net and the block-sparse SparseVoxelNet,
+``model.name=sparse_voxelnet``), and serving, through
 ``predictor`` / ``predict``, of a voxel U-Net or SparseVoxelNet checkpoint
 in the port's format: the best checkpoint ``fit`` wrote, or one saved
 from weights carried over from the JAX package. HDF5 datasets, resume and
@@ -37,7 +38,9 @@ def fit(events: Sequence[tuple[np.ndarray, np.ndarray]], *,
         config: Config | None = None, overrides: Sequence[str] = (),
         device=None, log=print) -> TrainResult:
     """Train on in-memory (points (N, D), labels (N,)) events; returns the
-    TrainResult, whose ``checkpoint_path`` holds the best model.
+    TrainResult, whose ``checkpoint_path`` holds the best model and whose
+    history records, for the sparse family, the tiles dropped beyond the
+    capacities in each epoch (``dropped_train`` / ``dropped_val``).
     ``device``: None for CUDA, ``"cpu"`` for the plain versions."""
     cfg = config or Config()
     apply_overrides(cfg, overrides)

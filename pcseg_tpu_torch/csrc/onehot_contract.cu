@@ -12,6 +12,11 @@
 //                            pallas_call at :376): the matmul devoxelize
 //                            forward out[p, k] = mask_p sum_x Wx[p, x]
 //                            sum_zy A[p, zy] g2[zy, x, k].
+//   pcseg_rowcol_scatter     replaces rowcol_scatter (_rowcol_scatter_kernel,
+//                            pallas_call at :309): the block-sparse
+//                            readout's backward
+//                            out[b, row_p, col_p * C + k] += bf16(vals[p, k]),
+//                            a row >= nrows (the sentinel) adding nothing.
 //
 // The TPU kernels build one-hot planes of a chunk of points in VMEM and
 // contract the point axis on the MXU, because the MXU is the TPU's fast
@@ -19,10 +24,13 @@
 // most 8 voxels (1 for voxelize), so each kernel is one thread per point:
 // voxelize and the scatter add their products into an f32 grid that the
 // caller zeroed with float atomics, the gather reads its at most 8 taps x C
-// bf16 values. All three are bound by bytes, not operations: the scatter
-// and voxelize by the f32 grid they write (33.5 / 25.2 MB at B8 x R64 with
-// C 4 / 3) and by atomic throughput, the gather by the per-point rows it
-// reads and writes (the taps of neighbouring points share cache lines).
+// bf16 values; rowcol_scatter adds a point's C values into its (row, col)
+// cell with float atomics. All four are bound by bytes, not operations:
+// the scatter and voxelize by the f32 grid they write (33.5 / 25.2 MB at
+// B8 x R64 with C 4 / 3) and by atomic throughput, the gather by the
+// per-point rows it reads and writes (the taps of neighbouring points
+// share cache lines), rowcol_scatter by its point rows and the f32 table
+// (8.4 MB at B8 x NT64 x 512 x 4).
 //
 // Rounding points (onehot_contract.py _axis_taps, _zy_plane,
 // _xline_weights and the three kernels): per axis the two taps floor(u)
@@ -195,6 +203,26 @@ __global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
     if (k < c) o[k] = acc[k];
 }
 
+// rows / cols (B, M) int32, vals (B, M, C) f32 rounded to bf16 here; out
+// (B, nrows, ncols * C) f32 zeroed by the caller. Zero values (the masked
+// points' cotangents) add nothing and are skipped.
+__global__ void __launch_bounds__(kThreads) rowcol_scatter_kernel(
+    const int* __restrict__ rows, const int* __restrict__ cols,
+    const float* __restrict__ vals, float* __restrict__ out, long long n,
+    int m, int nrows, int ncols, int c) {
+  const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pt >= n) return;
+  const int r = rows[pt], col = cols[pt];
+  if (r < 0 || r >= nrows || col < 0 || col >= ncols) return;
+  const long long b = pt / m;
+  float* o = out + ((b * nrows + r) * ncols + col) * c;
+  const float* v = vals + pt * c;
+  for (int k = 0; k < c; ++k) {
+    const float vb = round_bf16(v[k]);
+    if (vb != 0.f) atomicAdd(o + k, vb);
+  }
+}
+
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -239,6 +267,21 @@ int pcseg_trilinear_gather(const void* u, const void* mask, const void* g2,
                             (cudaStream_t)stream>>>(
       (const float*)u, (const uint8_t*)mask, (const __nv_bfloat16*)g2,
       (float*)out, n, M, R, C);
+  return (int)cudaGetLastError();
+}
+
+// rows / cols (B, M) int32 (a row >= nrows adds nothing); vals (B, M, C)
+// f32; out (B, nrows, ncols * C) f32, zeroed by the caller.
+int pcseg_rowcol_scatter(const void* rows, const void* cols, const void* vals,
+                         void* out, int B, int M, int nrows, int ncols, int C,
+                         void* stream) {
+  if (B <= 0 || M <= 0 || nrows <= 0 || ncols <= 0 || C <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * M;
+  rowcol_scatter_kernel<<<blocks_for(n), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (const int*)rows, (const int*)cols, (const float*)vals, (float*)out, n,
+      M, nrows, ncols, C);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""SparseVoxelNet, block impl, serving forward (counterpart of
+"""SparseVoxelNet, block impl, serving and training (counterpart of
 pcseg_tpu/models/sparse_unet.py).
 
 Voxelize each event straight into its occupied t^3 tiles, run a stack of
@@ -22,8 +22,7 @@ Parameters carry the JAX names (``conv0``, ``ln0``, ``down1``,
 ``down1_ln``, ``l1_conv0``, ``l1_ln0``, ``up1``, ``up1_ln``, ``head``),
 so ``ckpt.convert.from_jax_variables`` maps JAX parameters one to one.
 Only ``impl="block"`` is ported; "dense" and "gather" raise
-(ROADMAP Queue A item 8). Training waits for the sparse family's training
-slice (ROADMAP Queue B item 3).
+(ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -123,20 +122,39 @@ class SparseVoxelNet(nn.Module):
             impl=self.voxelize_impl, matmul_dtype=DTYPES[self.compute_dtype],
             plain=plain)[0]
 
-    @torch.no_grad()
-    def forward(self, points: torch.Tensor,
-                mask: torch.Tensor | None = None, *,
-                return_overflow: bool = False, plain: bool = False):
-        """(B, M, 3+F) points -> (B, M, num_classes) f32 logits, and with
-        ``return_overflow`` the (B,) count of occupied tiles beyond the
-        capacities, every level summed. ``plain=True`` runs every kernel's
-        plain version on any device: the on-card reference."""
+    def supports_fused_loss(self) -> bool:
+        return False
+
+    def load_batch_stats(self, new_bn: dict) -> None:
+        """LayerNorm keeps no running statistics: nothing to load."""
+
+    def apply(self, points: torch.Tensor, *, train: bool = False,
+              mask: torch.Tensor | None = None, seeds=None,
+              return_overflow: bool = False, plain: bool = False):
+        """(B, M, 3+F) points -> (B, M, num_classes) f32 logits,
+        differentiable with respect to the parameters. ``train=True``
+        returns ``(logits, {"__overflow__": dropped})``, with
+        ``return_overflow`` (eval) ``(logits, dropped)``: the (B,) count of
+        occupied tiles beyond the capacities, every level summed.
+        ``seeds`` is unused (no dropout). ``plain=True`` runs every
+        kernel's plain version, forward and backward, on any device: the
+        on-card reference."""
         if mask is None:
             mask = torch.ones(points.shape[:2], dtype=torch.bool,
                               device=points.device)
         bs = self._voxelize(points, mask, plain)
         logits, dropped = self._apply_block(bs, points, mask, plain)
+        if train:
+            return logits, {"__overflow__": dropped}
         return (logits, dropped) if return_overflow else logits
+
+    @torch.no_grad()
+    def forward(self, points: torch.Tensor,
+                mask: torch.Tensor | None = None, *,
+                return_overflow: bool = False, plain: bool = False):
+        """Serving: ``apply`` in eval mode without a graph."""
+        return self.apply(points, mask=mask, return_overflow=return_overflow,
+                          plain=plain)
 
     @torch.no_grad()
     def overflow_counts(self, points: torch.Tensor,
@@ -184,7 +202,7 @@ class SparseVoxelNet(nn.Module):
                 bsc, slots = block_pool(cur, self.tile_cap(lv))
                 dropped = dropped + bsc.dropped
                 down = self.p(f"down{lv}")
-                h = block_down2x(down, skips[-1], bsc, slots, dt)
+                h = block_down2x(down, skips[-1], bsc, cur, slots, dt)
                 h = self._ln(h, down["bias"], f"down{lv}_ln", bsc.active,
                              plain)
                 h = self._block_stack(f"l{lv}_", h.to(dt), bsc, plain)
@@ -195,7 +213,8 @@ class SparseVoxelNet(nn.Module):
             h = skips[-1]
             for lv in range(self.levels - 1, 0, -1):
                 up = self.p(f"up{lv}")
-                u = block_up2x(up, h, bss[lv], bss[lv - 1], dt)
+                u = block_up2x(up, h, bss[lv], bss[lv - 1], slot_tables[lv],
+                               dt)
                 u = self._ln(u, up["bias"], f"up{lv}_ln", bss[lv - 1].active,
                              plain).to(dt)
                 h = skips[lv - 1] + u
@@ -203,5 +222,5 @@ class SparseVoxelNet(nn.Module):
         head = self.p("head")
         site_logits = x.to(dt).float() @ head["kernel"].to(dt).float() \
             + head["bias"]
-        return block_gather_point_logits(site_logits, bs, points, mask), \
-            dropped
+        return block_gather_point_logits(site_logits, bs, points, mask,
+                                         plain=plain), dropped

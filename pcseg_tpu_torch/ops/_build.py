@@ -48,6 +48,7 @@ SIGNATURES = {
         "pcseg_voxelize_contract": [_P] * 3 + [_I] * 4 + [_P],
         "pcseg_trilinear_scatter": [_P] * 3 + [_I] * 4 + [_P],
         "pcseg_trilinear_gather": [_P] * 4 + [_I] * 4 + [_P],
+        "pcseg_rowcol_scatter": [_P] * 4 + [_I] * 5 + [_P],
     },
     "pointnet_fused": {
         "pcseg_dropout": [_P, _P, _L, _U, _U, _F, _I, _P],
@@ -62,9 +63,15 @@ SIGNATURES = {
     },
     "block_conv": {
         "pcseg_block_conv": [_P] * 4 + [_I] * 6 + [_P],
+        "pcseg_block_conv_dgrad": [_P] * 4 + [_I] * 6 + [_P],
+        "pcseg_block_wgrad_groups": [_I] * 6,
+        "pcseg_block_wgrad": [_P] * 5 + [_I] * 7 + [_P],
     },
     "fused_ln": {
         "pcseg_bias_ln_relu_mask": [_P] * 6 + [_L, _I, _F, _I, _I, _P],
+        "pcseg_bias_ln_relu_mask_bwd_max_c": [],
+        "pcseg_bias_ln_relu_mask_bwd_blocks": [_L, _I],
+        "pcseg_bias_ln_relu_mask_bwd": [_P] * 9 + [_L, _I, _F, _I, _I, _P],
     },
 }
 

@@ -1,5 +1,6 @@
-"""Block-sparse voxels: the occupied t^3 tiles of each event, forward only
-(counterpart of pcseg_tpu/ops/block_sparse.py).
+"""Block-sparse voxels: the occupied t^3 tiles of each event, with the
+backward of the readout and the octant glue (counterpart of
+pcseg_tpu/ops/block_sparse.py).
 
 The R^3 grid is cut into (R/t)^3 tiles; each event keeps its occupied
 tiles, in ascending tile id, up to a static capacity (the first
@@ -15,8 +16,12 @@ JAX module's per-event ``vmap``s are batched indexing here.
 - ``neighbor_slots`` (JAX ``_neighbor_slots``), ``block_subm_conv`` (the
   raw form, through ops/block_conv.py, where the gather form of the JAX
   ``_gather_halo_slots`` lives beside the plain conv that uses it),
-  ``point_cells`` and ``readout`` (JAX ``_point_cells``,
-  ``_readout_raw``), ``block_gather_point_logits``.
+  ``point_cells`` and ``readout`` (JAX ``_point_cells``, ``_readout``),
+  ``block_gather_point_logits``. The readout's backward is
+  ``rowcol_scatter``, the form the TPU runs (JAX ``_readout_bwd``): the
+  per-point cotangents rounded to bf16 and summed in f32 into their
+  (slot, voxel) cells, on a CUDA tensor by ``pcseg_rowcol_scatter``
+  (csrc/onehot_contract.cu), on a CPU tensor by ``rowcol_scatter_plain``.
 - The hierarchy: ``block_pool`` (coarse skeleton, child slots, 2^3-pooled
   active mask), ``parent_rows``, ``octant_pack`` / ``octant_unpack``
   (JAX ``_octant_pack_raw`` / ``_octant_unpack_raw``), ``block_down2x``
@@ -31,6 +36,12 @@ from typing import NamedTuple
 
 import torch
 
+from pcseg_tpu_torch.ops._build import (
+    load_library,
+    on_cuda,
+    raise_on,
+    stream_of,
+)
 from pcseg_tpu_torch.ops.block_conv import block_conv
 from pcseg_tpu_torch.ops.voxel import (
     resolve_voxelize_impl,
@@ -38,6 +49,16 @@ from pcseg_tpu_torch.ops.voxel import (
     voxelize_contract,
     voxelize_contract_plain,
 )
+
+
+# launches since the last reset_launches(); the wrapper adds one where it
+# launches its kernel and nowhere else
+LAUNCHES = {"rowcol_scatter": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _offsets(n: int, base: int, device) -> torch.Tensor:
@@ -93,6 +114,7 @@ def _tile_coords(ids: torch.Tensor, nt: int) -> torch.Tensor:
     return torch.stack([ids // (nt * nt), (ids // nt) % nt, ids % nt], dim=-1)
 
 
+@torch.no_grad()
 def block_sparse_voxelize(points: torch.Tensor, mask: torch.Tensor,
                           grid_size: int, max_tiles: int, tile: int = 8,
                           impl: str = "auto",
@@ -146,6 +168,7 @@ def block_sparse_voxelize(points: torch.Tensor, mask: torch.Tensor,
     return bs, lo, scale
 
 
+@torch.no_grad()
 def neighbor_slots(bs: BlockSparseVoxels, sign: int = 1) -> torch.Tensor:
     """(B, NT, 27) slot of the tile at ``pos + sign * delta`` in tap order
     (-1 when out of the grid, unoccupied, or this row is padding)."""
@@ -179,6 +202,7 @@ def block_subm_conv(p: dict, bs: BlockSparseVoxels, feats: torch.Tensor,
     return y.reshape(b, nt, t, t, t, cout)
 
 
+@torch.no_grad()
 def point_cells(bs: BlockSparseVoxels, points: torch.Tensor,
                 mask: torch.Tensor):
     """Per point, its tile's slot and its intra-tile voxel id, (B, M) each;
@@ -196,22 +220,88 @@ def point_cells(bs: BlockSparseVoxels, points: torch.Tensor,
     return slot, intra
 
 
-def readout(site_flat: torch.Tensor, slot: torch.Tensor,
-            intra: torch.Tensor) -> torch.Tensor:
-    """site_flat (B, NT, t^3, C), slot / intra (B, M) -> (B, M, C); the
-    sentinel slot NT reads zeros."""
+def _readout_raw(site_flat, slot, intra):
     vpad = torch.cat([site_flat, torch.zeros_like(site_flat[:, :1])], dim=1)
     return vpad[_batch_index(slot), slot, intra]
 
 
+def rowcol_scatter_plain(rows: torch.Tensor, cols: torch.Tensor,
+                         vals: torch.Tensor, nrows: int, ncols: int
+                         ) -> torch.Tensor:
+    """out[b, r, col * C + k] = sum_p [rows_p = r, cols_p = col]
+    bf16(vals[b, p, k]) as (B, nrows, ncols * C) f32; a row >= nrows (the
+    sentinel) adds nothing. One ``index_add_`` into a table with a spill
+    row per event."""
+    b, _, c = vals.shape
+    cells = nrows * ncols
+    idx = torch.where(rows < nrows, rows.long() * ncols + cols.long(), cells)
+    idx = idx + torch.arange(b, device=vals.device)[:, None] * (cells + 1)
+    out = torch.zeros((b * (cells + 1), c), dtype=torch.float32,
+                      device=vals.device)
+    out.index_add_(0, idx.reshape(-1),
+                   vals.to(torch.bfloat16).float().reshape(-1, c))
+    return out.reshape(b, cells + 1, c)[:, :cells].reshape(b, nrows,
+                                                           ncols * c)
+
+
+def rowcol_scatter(rows: torch.Tensor, cols: torch.Tensor,
+                   vals: torch.Tensor, nrows: int, ncols: int, *,
+                   plain: bool = False) -> torch.Tensor:
+    """The block readout's backward (JAX ``onehot_contract.rowcol_scatter``,
+    arguments as ``rowcol_scatter_plain``). Launches the CUDA kernel on a
+    CUDA tensor."""
+    if not on_cuda(vals, plain):
+        return rowcol_scatter_plain(rows, cols, vals, nrows, ncols)
+    b, m, c = vals.shape
+    if tuple(rows.shape) != (b, m) or tuple(cols.shape) != (b, m):
+        raise ValueError(f"rows and cols must be {(b, m)}, got "
+                         f"{tuple(rows.shape)}, {tuple(cols.shape)}")
+    rows = rows.to(device=vals.device, dtype=torch.int32).contiguous()
+    cols = cols.to(device=vals.device, dtype=torch.int32).contiguous()
+    vals = vals.float().contiguous()
+    out = torch.zeros((b, nrows, ncols * c), dtype=torch.float32,
+                      device=vals.device)
+    rc = load_library("onehot_contract").pcseg_rowcol_scatter(
+        rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), out.data_ptr(), b,
+        m, nrows, ncols, c, stream_of(vals))
+    raise_on(rc, "rowcol_scatter")
+    LAUNCHES["rowcol_scatter"] += 1
+    return out
+
+
+class _Readout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, site_flat, slot, intra, plain):
+        ctx.save_for_backward(slot, intra)
+        ctx.cfg = (tuple(site_flat.shape), site_flat.dtype, plain)
+        return _readout_raw(site_flat, slot, intra)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, intra = ctx.saved_tensors
+        (b, nt, t3, c), dtype, plain = ctx.cfg
+        dv = rowcol_scatter(slot, intra, g, nt, t3, plain=plain)
+        return dv.reshape(b, nt, t3, c).to(dtype), None, None, None
+
+
+def readout(site_flat: torch.Tensor, slot: torch.Tensor,
+            intra: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """site_flat (B, NT, t^3, C), slot / intra (B, M) -> (B, M, C); the
+    sentinel slot NT reads zeros. The backward is ``rowcol_scatter``, cast
+    to site_flat's dtype."""
+    return _Readout.apply(site_flat, slot, intra, plain)
+
+
 def block_gather_point_logits(site_values: torch.Tensor,
                               bs: BlockSparseVoxels, points: torch.Tensor,
-                              mask: torch.Tensor) -> torch.Tensor:
+                              mask: torch.Tensor, *,
+                              plain: bool = False) -> torch.Tensor:
     """Per-point readout (nearest voxel) from the tile blocks; masked
     points and points of unoccupied or dropped tiles read zeros."""
     slot, intra = point_cells(bs, points, mask)
     b, nt = site_values.shape[:2]
-    out = readout(site_values.reshape(b, nt, bs.tile ** 3, -1), slot, intra)
+    out = readout(site_values.reshape(b, nt, bs.tile ** 3, -1), slot, intra,
+                  plain=plain)
     return torch.where(mask[..., None], out, torch.zeros_like(out))
 
 
@@ -219,6 +309,7 @@ def block_gather_point_logits(site_values: torch.Tensor,
 # the tile hierarchy: stride-2 down / transposed up between resolutions
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def block_pool(bs: BlockSparseVoxels, max_tiles: int):
     """The coarse level (grid R/2, same t) and its child slot table
     (B, NTc, 8): a coarse tile is occupied iff one of its 8 children is;
@@ -256,6 +347,7 @@ def block_pool(bs: BlockSparseVoxels, max_tiles: int):
     return bsc, slots
 
 
+@torch.no_grad()
 def parent_rows(bs_coarse: BlockSparseVoxels, bs_fine: BlockSparseVoxels):
     """(B, NTf) parent slot of each fine tile (-1 when dropped / padding)
     and its octant index in the parent."""
@@ -269,11 +361,8 @@ def parent_rows(bs_coarse: BlockSparseVoxels, bs_fine: BlockSparseVoxels):
     return pslot, octant
 
 
-def octant_pack(ych: torch.Tensor, child_slots: torch.Tensor
-                ) -> torch.Tensor:
-    """(B, NTf, th, th, th, C) + (B, NTc, 8) -> (B, NTc, 2th, 2th, 2th, C):
-    each parent assembled from its 8 children's blocks (zeros where a child
-    is absent)."""
+def _octant_pack_raw(ych: torch.Tensor, child_slots: torch.Tensor
+                     ) -> torch.Tensor:
     b, ntc = child_slots.shape[:2]
     th, c = ych.shape[2], ych.shape[-1]
     ch = _row_gather(ych, child_slots.reshape(b, -1)).reshape(
@@ -282,10 +371,8 @@ def octant_pack(ych: torch.Tensor, child_slots: torch.Tensor
     return asm.reshape(b, ntc, 2 * th, 2 * th, 2 * th, c)
 
 
-def octant_unpack(cf: torch.Tensor, pslot: torch.Tensor,
-                  octant: torch.Tensor) -> torch.Tensor:
-    """(B, NTc, 2th, 2th, 2th, C) + (B, NTf) x 2 -> (B, NTf, th, th, th,
-    C): each fine tile reads its parent's octant (zeros when absent)."""
+def _octant_unpack_raw(cf: torch.Tensor, pslot: torch.Tensor,
+                       octant: torch.Tensor) -> torch.Tensor:
     b, ntc = cf.shape[:2]
     th, c = cf.shape[2] // 2, cf.shape[-1]
     octs = cf.reshape(b, ntc, 2, th, 2, th, 2, th, c).permute(
@@ -294,15 +381,59 @@ def octant_unpack(cf: torch.Tensor, pslot: torch.Tensor,
     return _row_gather(octs, rows)
 
 
+class _OctantPack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ych, child_slots, pslot, octant):
+        ctx.save_for_backward(pslot, octant)
+        return _octant_pack_raw(ych, child_slots)
+
+    @staticmethod
+    def backward(ctx, g):
+        pslot, octant = ctx.saved_tensors
+        return _octant_unpack_raw(g, pslot, octant), None, None, None
+
+
+class _OctantUnpack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cf, pslot, octant, child_slots):
+        ctx.save_for_backward(child_slots)
+        return _octant_unpack_raw(cf, pslot, octant)
+
+    @staticmethod
+    def backward(ctx, g):
+        (child_slots,) = ctx.saved_tensors
+        return _octant_pack_raw(g, child_slots), None, None, None
+
+
+def octant_pack(ych: torch.Tensor, child_slots: torch.Tensor,
+                pslot: torch.Tensor, octant: torch.Tensor) -> torch.Tensor:
+    """(B, NTf, th, th, th, C) + (B, NTc, 8) -> (B, NTc, 2th, 2th, 2th, C):
+    each parent assembled from its 8 children's blocks (zeros where a child
+    is absent). The backward is ``octant_unpack``'s gather through the fine
+    tiles' parent rows (pslot, octant: ``parent_rows``)."""
+    return _OctantPack.apply(ych, child_slots, pslot, octant)
+
+
+def octant_unpack(cf: torch.Tensor, pslot: torch.Tensor,
+                  octant: torch.Tensor, child_slots: torch.Tensor
+                  ) -> torch.Tensor:
+    """(B, NTc, 2th, 2th, 2th, C) + (B, NTf) x 2 -> (B, NTf, th, th, th,
+    C): each fine tile reads its parent's octant (zeros when absent). The
+    backward is ``octant_pack``'s gather through the coarse tiles' child
+    slots."""
+    return _OctantUnpack.apply(cf, pslot, octant, child_slots)
+
+
 def block_down2x(p: dict, feats: torch.Tensor, bs_coarse: BlockSparseVoxels,
-                 child_slots: torch.Tensor,
+                 bs_fine: BlockSparseVoxels, child_slots: torch.Tensor,
                  compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The stride-2 k=2 conv, fine tiles -> coarse tiles, raw (JAX
     ``block_down2x(raw=True)``): feats (B, NTf, t, t, t, Cin), kernel
     (2, 2, 2, Cin, Cout) -> (B, NTc, t, t, t, Cout) in the compute dtype.
     The windows never cross a fine tile, so the conv runs on the fine
     tiles (an f32 product of dtype-valued operands, rounded once) and the
-    octants are assembled after it."""
+    octants are assembled after it (``octant_pack``, whose backward
+    gathers through the fine tiles' parent rows)."""
     dt = compute_dtype or feats.dtype
     b, ntf, t = feats.shape[:3]
     th = t // 2
@@ -313,24 +444,26 @@ def block_down2x(p: dict, feats: torch.Tensor, bs_coarse: BlockSparseVoxels,
                                                      8 * cin)
     w = p["kernel"].to(dt).float().reshape(8 * cin, cout)
     y = (x @ w).to(dt)
-    return octant_pack(y, child_slots)
+    return octant_pack(y, child_slots, *parent_rows(bs_coarse, bs_fine))
 
 
 def block_up2x(p: dict, cfeats: torch.Tensor, bs_coarse: BlockSparseVoxels,
-               bs_fine: BlockSparseVoxels,
+               bs_fine: BlockSparseVoxels, child_slots: torch.Tensor,
                compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The stride-2 k=2 transposed conv, coarse tiles -> fine tiles, raw
     (JAX ``block_up2x(raw=True)``): each fine tile reads its parent's
     octant and expands it, fine[2a+dz, 2b+dy, 2c+dx] = sub[a, b, c] @
     W[1-dz, 1-dy, 1-dx], summed in f32 on dtype-valued operands and
-    rounded once to the compute dtype."""
+    rounded once to the compute dtype. ``child_slots`` is the coarse
+    level's ``block_pool`` table, through which the backward of the octant
+    read gathers."""
     dt = compute_dtype or cfeats.dtype
     t = bs_fine.tile
     th = t // 2
     cin = cfeats.shape[-1]
     cout = p["kernel"].shape[-1]
     pslot, octant = parent_rows(bs_coarse, bs_fine)
-    sub = octant_unpack(cfeats, pslot, octant)       # (B, NTf, th^3, Cin)
+    sub = octant_unpack(cfeats, pslot, octant, child_slots)
     wflip = p["kernel"].flip(0, 1, 2).to(dt).float()
     w = wflip.permute(3, 0, 1, 2, 4).reshape(cin, 8 * cout)
     y = sub.to(dt).float() @ w                       # (..., 8 * Cout)

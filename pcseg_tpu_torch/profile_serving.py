@@ -69,7 +69,12 @@ def _stages(model, events, bucket, batch):
 STAGES = (("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
           ("voxelize_contract_kernel", "voxelize"),
           ("block_conv", "block_conv"),
+          ("block_dgrad", "block_conv_dgrad"),
+          ("block_wgrad", "block_conv_wgrad"),
+          ("wgrad_reduce", "block_conv_wgrad"),
           ("bias_ln_relu_mask_kernel", "ln"),
+          ("bias_ln_relu_mask_bwd", "ln_bwd"), ("column_sum", "ln_bwd"),
+          ("rowcol_scatter", "readout_bwd"),
           ("trilinear_gather_kernel", "devox_gather"),
           ("trilinear_scatter_kernel", "devox_scatter"),
           ("conv_kernel", "conv"), ("up_kernel", "conv"),

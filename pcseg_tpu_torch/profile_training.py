@@ -12,14 +12,21 @@ random weights, Adam): ``voxel_default`` (every impl at "auto": fused conv
 kernels, the one-hot voxelize_contract and trilinear_gather, the fused
 grid2 head) and ``voxel_scatter_gather`` (fused conv kernels, scatter
 voxelize, gather devoxelize), and one B8 x 8192 batch of synthetic events
-(4000-8192 points each). For each it reports:
+(4000-8192 points each). ``--model sparse_voxelnet`` builds the JAX
+package's sparse bench step (pcseg_tpu/bench.py:195-244: SparseVoxelNet
+R64, w64, depth 4, 2 levels, tile 8, capacities (64, 32), bf16, seeded
+random weights, Adam, unit class weights) on one B8 x 8192 batch of track
+events with labels drawn by numpy, as the bench draws them. For each it
+reports:
 
 - host-clock stage times of a train step (pad on the host, copy to the
   card, ``train_step``), each ended by a synchronize, median of 5 after 3
   warm steps;
 - device time by kernel from torch.profiler over one train step, the
   device's busy share of that step's wall time, and device time by stage
-  (``profile_serving.stage_of``).
+  (``profile_serving.stage_of``; for the sparse step: the conv forward,
+  its dgrad and wgrad, the LN forward and backward, the readout's
+  backward, the voxelizer and the PyTorch glue).
 
 With ``--out`` the profiler tables are also written to
 DIR/profile_train_*.txt.
@@ -37,14 +44,28 @@ import torch
 
 from pcseg_tpu_torch.data.batching import pad_events
 from pcseg_tpu_torch.data.class_stats import scan_classes
-from pcseg_tpu_torch.data.synthetic import synthetic_events
+from pcseg_tpu_torch.data.synthetic import synthetic_events, track_events
 from pcseg_tpu_torch.models.pointnet import PointNetSeg
-from pcseg_tpu_torch.profile_serving import device_profile, voxel_model
+from pcseg_tpu_torch.profile_serving import (
+    device_profile,
+    sparse_model,
+    voxel_model,
+)
 from pcseg_tpu_torch.train.steps import create_train_state, train_step
 
 CLASSES = 4
 # (batch, bucket, min points) of each model's training configuration
-SHAPES = {"pointnet_seg": (64, 2048, 1100), "voxel_unet3d": (8, 8192, 4000)}
+SHAPES = {"pointnet_seg": (64, 2048, 1100), "voxel_unet3d": (8, 8192, 4000),
+          "sparse_voxelnet": (8, 8192, 8192)}
+
+
+def sparse_batch(b: int, m: int, classes: int = CLASSES):
+    """The sparse bench's batch (pcseg_tpu/bench.py:220-223): b track
+    events of m points, then labels from the same numpy generator."""
+    rng = np.random.default_rng(0)
+    points = track_events(b, m, rng)
+    labels = rng.integers(0, classes, size=(b, m)).astype(np.int64)
+    return [(points[i], labels[i]) for i in range(b)]
 
 
 def _configs(model: str):
@@ -55,6 +76,8 @@ def _configs(model: str):
     if model == "voxel_unet3d":
         return [(f"voxel_{forms}", voxel_model(forms))
                 for forms in ("default", "scatter_gather")]
+    if model == "sparse_voxelnet":
+        return [("sparse", sparse_model())]
     return [(bn_stats, PointNetSeg(CLASSES, bn_stats=bn_stats,
                                    compute_dtype="bfloat16",
                                    generator=gen()))
@@ -88,9 +111,13 @@ def main() -> int:
         raise SystemExit("profile_training needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     b, m, min_points = SHAPES[args.model]
-    events = list(synthetic_events(b, min_points=min_points, max_points=m,
-                                   seed=5))
-    cw = torch.from_numpy(scan_classes(events).weights).cuda()
+    if args.model == "sparse_voxelnet":
+        events = sparse_batch(b, m)
+        cw = torch.ones(CLASSES, device="cuda")
+    else:
+        events = list(synthetic_events(b, min_points=min_points,
+                                       max_points=m, seed=5))
+        cw = torch.from_numpy(scan_classes(events).weights).cuda()
     card = torch.cuda.get_device_name(0)
     report = {"card": card, "model": args.model, "batch": f"B{b} x {m}"}
     for label, model in _configs(args.model):

@@ -3,7 +3,10 @@
 - class scan + weighting on the first <= ``class_scan_events`` events;
 - seeded train/val split (train = int((1 - val_fraction) * n));
 - per epoch: train pass, val pass, per-class F1 from the val pass's
-  confusion matrix, StepLR;
+  confusion matrix, StepLR; the sparse family's dropped tiles summed over
+  each pass, a warning in the log where any was dropped (points of a
+  dropped tile read zero logits), or an error with
+  ``model.strict_capacity``;
 - train/val loss = mean of the per-batch weighted-CE values;
 - best model: higher target-class F1, or equal F1 and lower val loss; the
   best checkpoint is written on improvement (the port's format,
@@ -86,7 +89,12 @@ def _run_epoch_train(state, batcher, lr, cw, gen, device, log,
     correct = sum(float(m["correct"]) for m in metrics)
     total = sum(float(m["total"]) for m in metrics)
     loss = float(np.mean(losses)) if losses else 0.0
-    return loss, 100.0 * correct / total if total > 0 else 0.0, len(metrics)
+    acc = 100.0 * correct / total if total > 0 else 0.0
+    return loss, acc, len(metrics), _dropped(metrics)
+
+
+def _dropped(metrics) -> int:
+    return sum(int(m["dropped"]) for m in metrics if "dropped" in m)
 
 
 def _run_epoch_eval(state, batcher, cw, num_classes, device):
@@ -99,7 +107,8 @@ def _run_epoch_eval(state, batcher, cw, num_classes, device):
     for m in metrics:
         cm += m["confusion"].cpu().numpy()
     loss = float(np.mean(losses)) if losses else 0.0
-    return loss, 100.0 * correct / total if total > 0 else 0.0, cm
+    acc = 100.0 * correct / total if total > 0 else 0.0
+    return loss, acc, cm, _dropped(metrics)
 
 
 def train_model(cfg: Config, dataset, *, device=None, log=print
@@ -146,13 +155,20 @@ def train_model(cfg: Config, dataset, *, device=None, log=print
         lr = step_lr(o_cfg.lr, epoch, o_cfg.lr_step_epochs, o_cfg.lr_gamma)
         t0 = time.perf_counter()
         state.model.train()
-        train_loss, train_acc, steps = _run_epoch_train(
+        train_loss, train_acc, steps, train_dropped = _run_epoch_train(
             state, train_batcher, lr, cw, drop_gen, dev, log,
             t_cfg.log_every_steps)
         t_train = time.perf_counter() - t0
         state.model.eval()
-        val_loss, val_acc, cm = _run_epoch_eval(state, val_batcher, cw,
-                                                num_classes, dev)
+        val_loss, val_acc, cm, val_dropped = _run_epoch_eval(
+            state, val_batcher, cw, num_classes, dev)
+        if train_dropped or val_dropped:
+            msg = (f"capacity overflow: {train_dropped} train / "
+                   f"{val_dropped} val occupied tiles beyond the static "
+                   "capacity this epoch (raise model.max_tiles)")
+            if m_cfg.strict_capacity:
+                raise RuntimeError(msg)
+            log(f"WARNING: {msg}")
         f1 = f1_from_confusion(cm)
         f1_target = (float(f1.per_class[t_cfg.target_class])
                      if len(f1.per_class) > t_cfg.target_class else 0.0)
@@ -162,6 +178,7 @@ def train_model(cfg: Config, dataset, *, device=None, log=print
             "train_acc": train_acc, "val_loss": val_loss, "val_acc": val_acc,
             "f1_macro": f1.macro, "f1_weighted": f1.weighted,
             "f1_per_class": f1.per_class.tolist(), "f1_target": f1_target,
+            "dropped_train": train_dropped, "dropped_val": val_dropped,
             "train_steps": steps, "train_seconds": t_train, "seconds": dt,
         })
         log(f"epoch {epoch + 1}/{t_cfg.num_epochs}: "

@@ -5,9 +5,14 @@ pcseg_tpu/train/steps.py without its mesh data parallelism).
   ``bn_stats="fused"`` (and a point count divisible by 8) the loss is the
   fused chain's classifier + CE op; otherwise the logits go through
   ``cross_entropy_sums``. The loss is the weighted CE, num / den. The
-  voxel U-Net always takes the ``apply`` path; it has no running
-  statistics (GroupNorm), so its ``load_batch_stats`` loads nothing.
-- ``eval_step``: loss, accuracy and the confusion matrix in one pass.
+  voxel U-Net and SparseVoxelNet always take the ``apply`` path; they have
+  no running statistics (GroupNorm, LayerNorm), so their
+  ``load_batch_stats`` loads nothing. The sparse family's capacity
+  overflow rides the aux dict under ``__overflow__``: it is popped before
+  the running stats load and summed over the batch into a ``dropped``
+  metric.
+- ``eval_step``: loss, accuracy and the confusion matrix in one pass, and
+  the sparse family's ``dropped`` count from the same forward.
 
 Metrics stay on the device as tensors; the caller reads them when it
 needs them, so a step never waits for the card on its own.
@@ -51,7 +56,9 @@ def train_step(state: TrainState, batch, lr: float,
     """One step on ``batch = (points (B,M,D), labels (B,M), masks (B,M))``
     tensors on the model's device. Updates the model, its running stats
     and the optimizer in place; returns (state, metrics) with metrics
-    {loss, correct, total} as device scalars."""
+    {loss, correct, total} as device scalars, and ``dropped`` (occupied
+    tiles beyond the capacities, summed over the batch) for the sparse
+    family."""
     points, labels, masks = batch
     model = state.model
     seeds = draw_seeds(generator)
@@ -70,24 +77,39 @@ def train_step(state: TrainState, batch, lr: float,
     for group in state.optimizer.param_groups:
         group["lr"] = lr
     state.optimizer.step()
+    overflow = (new_bn.pop("__overflow__", None)
+                if isinstance(new_bn, dict) else None)
     model.load_batch_stats(new_bn)
     state.step += 1
-    return state, {"loss": loss.detach(), "correct": correct.detach(),
-                   "total": total}
+    metrics = {"loss": loss.detach(), "correct": correct.detach(),
+               "total": total}
+    if overflow is not None:
+        metrics["dropped"] = overflow.sum()
+    return state, metrics
 
 
 @torch.no_grad()
 def eval_step(state: TrainState, batch, class_weights: torch.Tensor,
               num_classes: int) -> dict:
-    """{loss, correct, total, confusion (C, C)} of one batch."""
+    """{loss, correct, total, confusion (C, C)} of one batch, and
+    ``dropped`` for the sparse family."""
     points, labels, masks = batch
-    logits = state.model.apply(points, train=False, mask=masks)
+    model = state.model
+    surfaces_overflow = hasattr(model, "overflow_counts")
+    if surfaces_overflow:
+        logits, dropped = model.apply(points, train=False, mask=masks,
+                                      return_overflow=True)
+    else:
+        logits = model.apply(points, train=False, mask=masks)
     num, den = cross_entropy_sums(logits, labels, class_weights)
     correct, total = masked_accuracy(logits, labels, masks)
-    return {
+    metrics = {
         "loss": num / den.clamp_min(_TINY),
         "correct": correct,
         "total": total,
         "confusion": confusion_matrix(logits.argmax(dim=-1), labels, masks,
                                       num_classes),
     }
+    if surfaces_overflow:
+        metrics["dropped"] = dropped.sum()
+    return metrics
