@@ -83,7 +83,29 @@
    LN backward / voxelize_contract / rowcol_scatter), finite losses, no
    dropped tile, ms per step, points/s, peak memory; then serves the best
    checkpoint through Predictor on the card.
-18. Prints the kernels as one JSON line, the card's name and power limit,
+18. Holds the two kernels that no entry point reaches, in the JAX package
+   as here (row 14, the segment scatter of point rows by voxel id, and row
+   19, the BN-apply + ReLU + first-max global pool with its write-only
+   backward), against their plain versions: the pool at the PointNet
+   global layer's B64 x 2048 x 1024 bf16, the JAX test's B4 x 256 x 64 f32
+   and with all-negative channels, tied rows, 1000 rows a group and 20
+   channels (g, idx and every gradient bit for bit); the scatter at B8 x
+   8192 x 4 into 64^3 and 2048 points into 16^3, with spill ids, a segment
+   hit by every point of an event and ids outside the grid (no write
+   outside the output). Times kernel, plain version, bound and one PyTorch
+   call (torch.max over the activations, the reduction alone, and its
+   backward value_selecting_reduction_backward; index_add_).
+19. Serves PointNetSeg at full width (4 classes, seeded random weights
+   and running statistics) through Predictor, folded in f32 (the
+   default), folded in bf16 and unfolded: predict_batch on 16 events of
+   4,000-8,192 points and predict on one 1,000-point event; finite logits
+   on the card, folded f32 against unfolded, bf16 against f32 (its
+   argmax agreement reported),
+   an event alone against the same event in the batch, no kernel
+   launched (the JAX package runs this path on XLA matmuls too); then the
+   same weights as a reference best_model.pth through
+   Predictor.from_checkpoint and inference_example, identical logits.
+20. Prints the kernels as one JSON line, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
@@ -352,14 +374,20 @@ def _count_modules():
     from pcseg_tpu_torch.ops import block_conv as bc
     from pcseg_tpu_torch.ops import block_sparse as bsp
     from pcseg_tpu_torch.ops import conv3d_block as cb
+    from pcseg_tpu_torch.ops import dropout as dr
+    from pcseg_tpu_torch.ops import fused_block as fb
+    from pcseg_tpu_torch.ops import fused_ce as fc
+    from pcseg_tpu_torch.ops import fused_global as fg
     from pcseg_tpu_torch.ops import fused_ln as fl
+    from pcseg_tpu_torch.ops import fused_pool as fp
     from pcseg_tpu_torch.ops import voxel as vx
+    from pcseg_tpu_torch.ops import voxel_scatter as vs
 
-    return cb, vx, bc, fl, bsp
+    return cb, vx, bc, fl, bsp, fb, fg, fc, dr, fp, vs
 
 
 def launch_counts() -> dict:
-    """The launch counts of the voxel and sparse paths' kernel wrappers."""
+    """The launch counts of every kernel wrapper of the port."""
     return {k: v for m in _count_modules() for k, v in m.LAUNCHES.items()}
 
 
@@ -404,8 +432,10 @@ def serve(card: str, default: bool = False):
     launches = launch_counts()
     forwards = 3
     expected = {k: per_forward.get(k, 0) * forwards for k in launches}
-    print(f"  main path: {forwards} forwards, launches {launches} "
-          f"(expected {expected})", flush=True)
+    print(f"  main path: {forwards} forwards, launches "
+          f"{ {k: v for k, v in launches.items() if v} } (expected "
+          f"{ {k: v for k, v in expected.items() if v} }, none of the "
+          f"others)", flush=True)
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
     if [p.shape[0] for p in preds] != [e.shape[0] for e in events] or \
@@ -1349,7 +1379,7 @@ def vox_fit(card, default=False):
         "forms": pred.model.resolve_forms(),
         "steps": steps, "eval_batches": evals, "launches": launches,
         "launches_per_step": {k: (v - per_forward.get(k, 0) * evals) / steps
-                              for k, v in launches.items()},
+                              for k, v in launches.items() if v},
         "train_loss": [h["train_loss"] for h in res.history],
         "val_loss": [h["val_loss"] for h in res.history],
         "first_epoch_train_ms_per_step":
@@ -1680,8 +1710,10 @@ def sparse_serve(card):
         launches = launch_counts()
     forwards = 3
     expected = {k: SP_PER_FORWARD.get(k, 0) * forwards for k in launches}
-    print(f"  main path: {forwards} forwards, launches {launches} "
-          f"(expected {expected})", flush=True)
+    print(f"  main path: {forwards} forwards, launches "
+          f"{ {k: v for k, v in launches.items() if v} } (expected "
+          f"{ {k: v for k, v in expected.items() if v} }, none of the "
+          f"others)", flush=True)
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
     if [p.shape[0] for p in preds] != [e.shape[0] for e in events] or \
@@ -2238,7 +2270,7 @@ def sparse_fit(card):
         "model": "SparseVoxelNet R64/w64/d4/L2 t8 caps (64, 32) bf16",
         "steps": steps, "eval_batches": evals, "launches": launches,
         "launches_per_step": {k: (v - SP_PER_FORWARD.get(k, 0) * evals)
-                              / steps for k, v in launches.items()},
+                              / steps for k, v in launches.items() if v},
         "train_loss": [h["train_loss"] for h in res.history],
         "val_loss": [h["val_loss"] for h in res.history],
         "dropped": dropped,
@@ -2259,6 +2291,392 @@ def sparse_fit(card):
           f"{out['points_per_s']:.4e} points/s; peak {peak:.3f} GiB; best "
           f"checkpoint served {len(preds)} events", flush=True)
     return launches, serve_launches, out
+
+
+# ---------------------------------------------------------------------------
+# rows 14 and 19, reached only by tests, and PointNetSeg serving (slice 7)
+# ---------------------------------------------------------------------------
+
+TEST_ONLY_REPLACES = {
+    "fused_global_pool": "pcseg_tpu/ops/pallas/fused_pool.py:107",
+    "segment_scatter": "pcseg_tpu/ops/pallas/voxel_scatter.py:67"}
+TEST_ONLY_SOURCES = {"fused_global_pool": PN_SOURCE,
+                     "segment_scatter": TRI_SOURCE}
+# kernel vs plain version on identical inputs: the pool rounds z at the
+# plain version's points and its max is exact, so g, idx and every
+# gradient are held bit for bit; the scatter's float atomics add in
+# another order than index_add_: each sum within 1e-5 of the sum of its
+# terms' magnitudes
+SCATTER_TOL = 1e-5
+# PointNetSeg serving (phase 19): folded f32 against the unfolded model,
+# the same function up to reassociation, 1e-4 of max |logit|. Folded bf16
+# against folded f32 is another computation: bf16 rounds the inputs
+# (coordinates up to ~80, so 2^-9 relative), every layer's weights and
+# every activation; held to 2^-6 of max |logit| (four bf16 ulps of
+# scale). Its argmax agreement with f32 is reported, not held: with
+# seeded random weights the logits are small and near-tied, and bf16
+# breaks some of those ties the other way. Padding invariance, an event alone against the
+# same event in a padded batch (another matrix shape, so another
+# summation order): 1e-5 of max |logit| in f32, one bf16 ulp of scale
+# (2^-7) in bf16
+PN_SERVE_FOLD_TOL = 1e-4
+PN_SERVE_BF16_TOL = 2.0 ** -6
+PN_SERVE_PAD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
+
+def pool_case(label, b, rpb, c, dtype, gen, ties=False, negative=False):
+    """Row 19: fused_global_pool forward and backward, kernel vs plain on
+    identical inputs; ``ties``: row 4 of every group holds each channel's
+    max and rows 5-8 repeat it (the first must win); ``negative``: every
+    third channel has beta -100 (pools to 0 with row 0, no gradient)."""
+    import torch
+
+    from pcseg_tpu_torch.ops import fused_pool as fp
+
+    y = torch.randn((b, rpb, c), generator=gen, device="cuda")
+    if ties:
+        y[:, 4] += 20.0
+        y[:, 5:9] = y[:, 4:5]
+    y = y.reshape(b * rpb, c).to(dtype)
+    mu, inv, gamma, beta = _bn_vectors(gen, c)
+    if ties:
+        gamma = gamma.abs() + 0.1
+    if negative:
+        beta[::3] = -100.0
+    args = (y, mu, inv, gamma, beta)
+    dg = torch.randn((b, c), generator=gen, device="cuda")
+
+    g_k, idx_k = fp.fused_pool_fwd_cuda(*args, rpb)
+    g_p, idx_p = fp.fused_pool_fwd_plain(*args, rpb)
+
+    def vjp(plain):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        fp.fused_global_pool(*leaves, rpb, plain=plain).backward(dg)
+        return [t.grad for t in leaves]
+
+    grads_k, grads_p = vjp(False), vjp(True)
+    torch.cuda.synchronize()
+
+    def exact(a, b):
+        return float((a.float() - b.float()).abs().max()), bool(
+            torch.equal(a, b))
+
+    checks = {"g": exact(g_k, g_p), "idx": exact(idx_k, idx_p)}
+    for name, gk, gp in zip(("dy", "dmu", "dinv", "dgamma", "dbeta"),
+                            grads_k, grads_p):
+        checks[name] = exact(gk, gp)
+    if negative:
+        checks["negative channels pool to 0 at row 0"] = (0.0, bool(
+            (g_k[:, ::3] == 0).all() and (idx_k[:, ::3] == 0).all()
+            and (grads_k[0][:, ::3] == 0).all()))
+    if ties:
+        others = [k for k in range(c) if k % 3 or not negative]
+        checks["ties go to the first row"] = (0.0, bool(
+            (idx_k[:, others] == 4).all()))
+    err = _held(f"fused_global_pool {label}", checks)
+
+    n, esize = b * rpb, y.element_size()
+    val = torch.randn((b, c), generator=gen, device="cuda")
+    y3 = y.view(b, rpb, c)
+    # the backward of torch.max(dim=1): val at each winner row, zeros
+    # elsewhere, the same function as the write-only dy pass
+    lib_val, lib_idx = val.to(dtype), idx_k.long()
+    lib_bwd = torch.ops.aten.value_selecting_reduction_backward
+    if not torch.equal(
+            lib_bwd(lib_val, 1, lib_idx, (b, rpb, c), False).view(n, c),
+            fp.fused_pool_bwd_plain(idx_k, val, n, dtype)):
+        raise AssertionError(f"fused_global_pool {label}: the backward's "
+                             f"library yardstick computes another function")
+    res = {
+        "name": "fused_global_pool", "case": label,
+        "shape": f"B{b} x {rpb} x {c} {str(dtype).split('.')[-1]}",
+        "max_abs_err": err,
+        "ms": kernel_ms(lambda: fp.fused_pool_fwd_cuda(*args, rpb),
+                        ("pool_",)),
+        "wrapper_ms": time_ms(lambda: fp.fused_pool_fwd_cuda(*args, rpb)),
+        "plain_ms": device_ms(lambda: fp.fused_pool_fwd_plain(*args, rpb)),
+        "library": "torch.max(dim=1) over the (B, M, C) activations, the "
+                   "reduction alone",
+        "library_ms": device_ms(lambda: torch.max(y3, dim=1)),
+        "bwd_ms": kernel_ms(lambda: fp.fused_pool_bwd_cuda(idx_k, val, n,
+                                                           dtype),
+                            ("pool_bwd",)),
+        "bwd_wrapper_ms": time_ms(lambda: fp.fused_pool_bwd_cuda(
+            idx_k, val, n, dtype)),
+        "bwd_plain_ms": device_ms(lambda: fp.fused_pool_bwd_plain(
+            idx_k, val, n, dtype)),
+        "bwd_library": "value_selecting_reduction_backward, the backward "
+                       "of torch.max(dim=1)",
+        "bwd_library_ms": device_ms(lambda: lib_bwd(
+            lib_val, 1, lib_idx, (b, rpb, c), False)),
+    }
+    # forward: y and the four (C,) vectors read once, g and idx written
+    # once; six f32 operations an element (sub, mul, mul, add, relu,
+    # compare). backward: idx and val read once, dy written once
+    res["bound_ms"], res["bound_by"] = _bound(
+        n * c * esize + 4 * c * 4 + 2 * b * c * 4, 6 * n * c,
+        F32_FLOP_PER_S)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(
+        2 * b * c * 4 + n * c * esize, n * c, F32_FLOP_PER_S)
+    print(f"  ok  fused_global_pool {label:14s} {res['shape']:24s} exact "
+          f"(g, idx, dy, dmu, dinv, dgamma, dbeta); fwd kernel "
+          f"{res['ms']:.4f} (wrapper {res['wrapper_ms']:.4f}) / plain "
+          f"{res['plain_ms']:.4f} / torch.max {res['library_ms']:.4f} / "
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}); bwd kernel "
+          f"{res['bwd_ms']:.4f} (wrapper {res['bwd_wrapper_ms']:.4f}) / "
+          f"plain {res['bwd_plain_ms']:.4f} / max backward "
+          f"{res['bwd_library_ms']:.4f} / bound "
+          f"{res['bwd_bound_ms']:.4f} ms", flush=True)
+    return res
+
+
+def scatter_case(label, b, m, r, c, gen, hot=False, bad=False):
+    """Row 14: segment_scatter kernel vs plain on identical inputs, the
+    last eighth of every event's points masked (spill id, zero rows);
+    ``hot``: every point of event 0 in one segment; ``bad``: ids beyond
+    the spill row and negative ids in event 1, and the entry called into
+    a buffer with guard zones around the output."""
+    import torch
+
+    from pcseg_tpu_torch.ops import voxel_scatter as vs
+    from pcseg_tpu_torch.ops._build import load_library, stream_of
+
+    nseg = r ** 3
+    ids = torch.randint(0, nseg, (b, m), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    feats = torch.randn((b, m, c), generator=gen, device="cuda")
+    ids[:, -m // 8:] = nseg
+    feats[:, -m // 8:] = 0.0
+    if hot:
+        ids[0] = 7
+    if bad:
+        ids[1, ::4] = nseg + 5
+        ids[1, 1::4] = -1
+        ids[1, 2::4] = 2 ** 31 - 1
+    got = vs.segment_scatter(ids, feats, nseg)
+    ref = vs.segment_scatter_plain(ids, feats, nseg)
+    mag = vs.segment_scatter_plain(ids, feats.abs(), nseg)
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    checks = {"sums": (float(d.max()),
+                       bool((d <= SCATTER_TOL * mag).all()))}
+    if bad:
+        guard = 1 << 16
+        buf = torch.zeros(b * nseg * c + 2 * guard, device="cuda")
+        out = buf[guard:guard + b * nseg * c]
+        rc = load_library("onehot_contract").pcseg_segment_scatter(
+            ids.data_ptr(), feats.data_ptr(), out.data_ptr(), b, m, nseg, c,
+            stream_of(feats))
+        torch.cuda.synchronize()
+        checks["no write outside the output"] = (0.0, rc == 0 and bool(
+            (buf[:guard] == 0).all() and (buf[-guard:] == 0).all()))
+    err = _held(f"segment_scatter {label}", checks)
+
+    # the yardstick: one index_add_ of the same rows into a table with a
+    # spill row per event
+    gid = torch.where((ids >= 0) & (ids < nseg), ids.long(), nseg)
+    gid = (gid + torch.arange(b, device="cuda")[:, None] * (nseg + 1))
+    gid = gid.reshape(-1)
+    rows = feats.reshape(-1, c)
+    tab = torch.zeros((b * (nseg + 1), c), device="cuda")
+    res = {
+        "name": "segment_scatter", "case": label,
+        "shape": f"B{b} M{m} C{c} -> R{r}^3", "max_abs_err": err,
+        # the wrapper's device time: the zero fill of the output and the
+        # scatter kernel
+        "ms": device_ms(lambda: vs.segment_scatter(ids, feats, nseg)),
+        "kernel_only_ms": kernel_ms(lambda: vs.segment_scatter(
+            ids, feats, nseg), ("segment_scatter",)),
+        "wrapper_ms": time_ms(lambda: vs.segment_scatter(ids, feats, nseg)),
+        "plain_ms": device_ms(lambda: vs.segment_scatter_plain(
+            ids, feats, nseg)),
+        "library": "index_add_ of the rows into a table with spill rows",
+        "library_ms": device_ms(lambda: tab.index_add_(0, gid, rows)),
+    }
+    # ids and rows read once, the f32 grid written once; one add a value
+    res["bound_ms"], res["bound_by"] = _bound(
+        ids.numel() * 4 + feats.numel() * 4 + b * nseg * c * 4,
+        feats.numel(), F32_FLOP_PER_S)
+    print(f"  ok  segment_scatter {label:14s} {res['shape']:22s} max|err| "
+          f"{err:.3e}; kernel {res['ms']:.4f} (scatter alone "
+          f"{res['kernel_only_ms']:.4f}, wrapper {res['wrapper_ms']:.4f}) / "
+          f"plain {res['plain_ms']:.4f} / index_add_ "
+          f"{res['library_ms']:.4f} / bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']})", flush=True)
+    return res
+
+
+def test_only_cases(gen):
+    """Phase 18: rows 14 and 19 against their plain versions; returns
+    (cases, the wrappers' launches in this phase)."""
+    import torch
+
+    bf, f32 = torch.bfloat16, torch.float32
+    reset_counts()
+    cases = [pool_case("pointnet global", PN_B, PN_M, 1024, bf, gen),
+             pool_case("jax test", 4, 256, 64, f32, gen),
+             pool_case("beta -100", 8, 2048, 1024, bf, gen, negative=True),
+             pool_case("ties", 4, 512, 64, bf, gen, ties=True,
+                       negative=True),
+             pool_case("rows 1000", 8, 1000, 1024, bf, gen),
+             pool_case("C 20", 4, 1000, 20, bf, gen),
+             scatter_case("voxel R64", VOX_B, VOX_M, VOX_R, 4, gen),
+             scatter_case("jax doc R16", VOX_B, 2048, 16, 4, gen),
+             scatter_case("hot segment", VOX_B, VOX_M, VOX_R, 4, gen,
+                          hot=True),
+             scatter_case("bad ids", VOX_B, 2048, 16, 4, gen, bad=True)]
+    return cases, launch_counts()
+
+
+def pointnet_serve(card):
+    """Phase 19, the main path of slice 7: PointNetSeg at full width (4
+    classes, seeded random weights and running statistics) served by
+    Predictor folded in f32 (the default), folded in bf16 and unfolded:
+    predict_batch on 16 synthetic events of 4,000-8,192 points (batch 8,
+    bucket 8192) and predict on one 1,000-point event (bucket 1024); then
+    the same weights written as a reference best_model.pth and served
+    through Predictor.from_checkpoint and inference_example. Returns (the
+    wrappers' launches while serving, result)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.ckpt.torch_import import export_torch_state_dict
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+    from pcseg_tpu_torch.infer import Predictor, inference_example
+    from pcseg_tpu_torch.profile_serving import (
+        POINTNET_MODES,
+        pointnet_model,
+        pointnet_predictor,
+    )
+
+    model = pointnet_model()
+    events = [p for p, _ in synthetic_events(
+        16, min_points=4000, max_points=8192, seed=0)]
+    single, single_labels = next(iter(synthetic_events(
+        1, min_points=1000, max_points=1000, seed=1)))
+    n_batch_pts = sum(e.shape[0] for e in events)
+    pts, _, msk = pad_events(
+        [(e, np.zeros(e.shape[0], np.int64)) for e in events[:8]], 8192,
+        batch_size=8)
+    points = torch.from_numpy(pts).cuda()
+    mask = torch.from_numpy(msk).cuda()
+
+    modes, logits, launches = {}, {}, {}
+    for mode in POINTNET_MODES:
+        pred = pointnet_predictor(mode, model)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        preds = pred.predict_batch(events, batch_size=8)
+        t1 = time.perf_counter()
+        one = pred.logits(single)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        if [p.shape[0] for p in preds] != [e.shape[0] for e in events] or \
+                one.shape != (single.shape[0], 4) or \
+                not np.isfinite(one).all():
+            raise AssertionError(f"PointNet serving {mode}: bad predictions")
+        first = {"batch_ms": (t1 - t0) * 1e3, "single_ms": (t2 - t1) * 1e3}
+        reps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict_batch(events, batch_size=8)
+            t1 = time.perf_counter()
+            pred.predict(single)
+            t2 = time.perf_counter()
+            reps.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+        batch_ms = sorted(r[0] for r in reps)[1]
+        single_ms = sorted(r[1] for r in reps)[1]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out = pred.device_forward(points, mask)
+        if not out.is_cuda or out.shape != (8, 8192, 4) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"PointNet serving {mode}: logits of shape "
+                                 f"{tuple(out.shape)} on {out.device}")
+        # padding invariance: event 0 alone against its row in the batch
+        alone = torch.from_numpy(pred.logits(events[0])).cuda()
+        n0 = events[0].shape[0]
+        pad_err = float((alone - out[0, :n0]).abs().max())
+        pad_tol = PN_SERVE_PAD_TOL[POINTNET_MODES[mode][1]] * float(
+            out[0, :n0].abs().max())
+        if pad_err > pad_tol:
+            raise AssertionError(f"PointNet serving {mode}: event 0 alone "
+                                 f"vs in the batch {pad_err} > {pad_tol}")
+        logits[mode] = out
+        modes[mode] = {
+            "fold": POINTNET_MODES[mode][0], "dtype": POINTNET_MODES[mode][1],
+            "first_call": first, "predict_batch_16_ms": batch_ms,
+            "ms_per_event_batched": batch_ms / len(events),
+            "points_per_s_batched": n_batch_pts / (batch_ms / 1e3),
+            "predict_1000pt_ms": single_ms, "peak_mem_gib": peak,
+            "padding_max_abs_err": pad_err, "card": card}
+        print(f"  serving PointNetSeg {mode} [{card}]: predict_batch(16 "
+              f"events, {n_batch_pts} pts) {batch_ms:.2f} ms = "
+              f"{batch_ms / len(events):.2f} ms/event, "
+              f"{modes[mode]['points_per_s_batched']:.4e} points/s; "
+              f"predict(1000 pts) {single_ms:.2f} ms; first calls "
+              f"{first['batch_ms']:.2f} / {first['single_ms']:.2f} ms; peak "
+              f"{peak:.3f} GiB; padding max|d| {pad_err:.3e}", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"PointNet serving launched kernels: "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+
+    f32, unf = logits["folded_f32"][mask], logits["unfolded"][mask]
+    bf16 = logits["folded_bf16"][mask]
+    scale = float(unf.abs().max())
+    fold_err = float((f32 - unf).abs().max())
+    bf16_err = float((bf16 - f32).abs().max())
+    agree = float((bf16.argmax(-1) == f32.argmax(-1)).float().mean())
+    res_cmp = {"fold_max_abs_err": fold_err, "max_abs_logit": scale,
+               "bf16_max_abs_err": bf16_err, "bf16_argmax_agreement": agree}
+    print(f"  folded f32 vs unfolded: max|d| {fold_err:.4e} (max|logit| "
+          f"{scale:.4f}, tol {PN_SERVE_FOLD_TOL * scale:.4e}); bf16 vs f32: "
+          f"max|d| {bf16_err:.4e} (tol {PN_SERVE_BF16_TOL * scale:.4e}), "
+          f"argmax agreement {agree:.6f} (reported, not held)", flush=True)
+    if fold_err > PN_SERVE_FOLD_TOL * scale or \
+            bf16_err > PN_SERVE_BF16_TOL * scale:
+        raise AssertionError(f"PointNet serving: folded f32 vs unfolded or "
+                             f"bf16 vs f32 out of tolerance: {res_cmp}")
+
+    # the same weights as the reference's best_model.pth (pcs.py:373-382,
+    # a DataParallel state_dict under "module.")
+    sd = export_torch_state_dict({"params": model.params(),
+                                  "batch_stats": model.batch_stats()})
+    path = os.path.join("build", "chip_smoke_pth", "best_model.pth")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"epoch": 1,
+                "model_state_dict": {f"module.{k}": torch.from_numpy(v)
+                                     for k, v in sd.items()},
+                "optimizer_state_dict": {}, "train_loss": 0.0,
+                "val_loss": 0.0, "f1_class2": 0.0,
+                "f1_per_class": [0.0] * 4, "num_classes": 4}, path)
+    reset_counts()
+    from_pth = Predictor.from_checkpoint(path)
+    got = from_pth.logits(single)
+    ref = pointnet_predictor("folded_f32", model).logits(single)
+    demo = inference_example(path, [(single, single_labels)], 0,
+                             log=lambda _: None)
+    torch.cuda.synchronize()
+    for k, v in launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    if not np.array_equal(got, ref) or not np.array_equal(
+            demo, ref.argmax(-1)):
+        raise AssertionError(f"best_model.pth round trip: logits differ by "
+                             f"{float(np.abs(got - ref).max())}")
+    if any(launches.values()):
+        raise AssertionError(f"PointNet serving launched kernels: "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+    print(f"  best_model.pth (keys under module.) through "
+          f"Predictor.from_checkpoint and inference_example: identical "
+          f"logits ({got.shape[0]} points)", flush=True)
+    return launches, {"modes": modes, **res_cmp,
+                      "pth_identical_logits": True, "card": card}
 
 
 def step_spread(card, n) -> int:
@@ -2400,6 +2818,13 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the sparse training "
                              f"path: {unused}")
 
+    print(f"[18] rows 14 and 19 (reached only by tests) vs plain versions "
+          f"[{card}]", flush=True)
+    to_cases, to_launches = test_only_cases(gen)
+
+    print(f"[19] serving PointNetSeg through Predictor [{card}]", flush=True)
+    pns_launches, pn_served = pointnet_serve(card)
+
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
         "down2x_gn_act": ("act", "B8 64^3x16->32^3x32"),
@@ -2520,6 +2945,43 @@ def main() -> int:
             "bwd_ms": at["bwd_ms"], "bwd_plain_ms": at["bwd_plain_ms"],
             "bwd_bound_ms": at["bwd_bound_ms"],
         })
+    # rows 14 and 19: numbers at the PointNet global layer's shape and at
+    # the B8 x 8192, R64 voxel shape; no main path launches them
+    paths = {"serving": launches, "voxel_fit": vox_launches,
+             "voxel_fit_serving": vox_serve, "default_serving": def_launches,
+             "default_fit": def_fit_launches,
+             "default_fit_serving": def_fit_serve,
+             "sparse_serving": sp_launches, "sparse_fit": spf_launches,
+             "sparse_fit_serving": spf_serve,
+             "pointnet_serving": pns_launches}
+    for name, label, keys in (
+            ("fused_global_pool", "pointnet global",
+             ("fused_pool", "fused_pool_bwd")),
+            ("segment_scatter", "voxel R64", ("segment_scatter",))):
+        mine = [c for c in to_cases if c["name"] == name]
+        at = next(c for c in mine if c["case"] == label)
+        by_path = {path: sum(got[k] for k in keys)
+                   for path, got in paths.items()}
+        if any(by_path.values()):
+            raise AssertionError(f"{name} launched on a main path: "
+                                 f"{by_path}")
+        by_path["tests"] = sum(to_launches[k] for k in keys)
+        row = {
+            "name": name, "route": "cuda",
+            "source": TEST_ONLY_SOURCES[name],
+            "replaces": TEST_ONLY_REPLACES[name], "launches": 0,
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "library": at["library"],
+            "shape": at["shape"],
+        }
+        if "bwd_ms" in at:
+            row.update({k: at[k] for k in (
+                "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_library_ms",
+                "bwd_library")})
+        kernels.append(row)
     print(json.dumps({"cases": cases, "serving": served,
                       "pointnet_cases": pn_cases, "pointnet_step": step,
                       "pointnet_fit": fits, "voxel_cases": vox_cases,
@@ -2529,7 +2991,8 @@ def main() -> int:
                       "default_fit": def_fitted, "sparse_cases": sp_cases,
                       "sparse_serving": sp_served,
                       "sparse_train_cases": spb_cases, "sparse_step": sp_step,
-                      "sparse_fit": sp_fitted}))
+                      "sparse_fit": sp_fitted, "test_only_cases": to_cases,
+                      "pointnet_serving": pn_served}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """High-level API (counterpart of pcseg_tpu/api.py): ``fit`` on in-memory
 events (PointNetSeg, the voxel U-Net and the block-sparse SparseVoxelNet,
-``model.name=sparse_voxelnet``), and serving, through
-``predictor`` / ``predict``, of a voxel U-Net or SparseVoxelNet checkpoint
-in the port's format: the best checkpoint ``fit`` wrote, or one saved
-from weights carried over from the JAX package. HDF5 datasets, resume and
-``evaluate`` are not ported yet."""
+``model.name=sparse_voxelnet``), and serving, through ``predictor`` /
+``predict``, of a checkpoint of any of the three families in the port's
+format (the best checkpoint ``fit`` wrote, or one saved from weights
+carried over from the JAX package) or of the reference's
+``best_model.pth``. HDF5 datasets, resume and ``evaluate`` are not ported
+yet."""
 
 from __future__ import annotations
 
@@ -48,11 +49,13 @@ def fit(events: Sequence[tuple[np.ndarray, np.ndarray]], *,
 
 
 def predictor(checkpoint_path: str, **kw) -> Predictor:
-    """Load a checkpoint in the port's format (``Predictor.from_checkpoint``
-    keywords, e.g. ``device="cpu"``)."""
+    """Load a checkpoint in the port's format or a reference
+    ``best_model.pth`` (``Predictor.from_checkpoint`` keywords, e.g.
+    ``device="cpu"``, ``fold``, ``dtype``)."""
     return Predictor.from_checkpoint(checkpoint_path, **kw)
 
 
 def predict(checkpoint_path: str, points: np.ndarray, **kw) -> np.ndarray:
-    """One-shot: checkpoint + (N, D) points -> (N,) predicted classes."""
+    """One-shot: checkpoint (the port's or a ``best_model.pth``) + (N, D)
+    points -> (N,) predicted classes."""
     return predictor(checkpoint_path, **kw).predict(points)

@@ -17,6 +17,11 @@
 //                            readout's backward
 //                            out[b, row_p, col_p * C + k] += bf16(vals[p, k]),
 //                            a row >= nrows (the sentinel) adding nothing.
+//   pcseg_segment_scatter    replaces pcseg_tpu/ops/pallas/voxel_scatter.py
+//                            pallas_segment_scatter (pallas_call at :67):
+//                            out[b, id_p, k] += feats[p, k] for ids in
+//                            [0, nseg); the spill id nseg, and any other
+//                            id outside the range, adds nothing.
 //
 // The TPU kernels build one-hot planes of a chunk of points in VMEM and
 // contract the point axis on the MXU, because the MXU is the TPU's fast
@@ -31,6 +36,12 @@
 // per-point rows it reads and writes (the taps of neighbouring points
 // share cache lines), rowcol_scatter by its point rows and the f32 table
 // (8.4 MB at B8 x NT64 x 512 x 4).
+// The segment scatter keeps its whole grid in VMEM on the TPU and adds
+// the points one after another; here a thread takes one (point, channel)
+// value, so the point rows are read coalesced and the float atomics of
+// neighbouring channels land on one cache line. It is bound by the f32
+// grid it writes (33.6 MB at B8 x R64^3 x C4, zero-filled by the caller)
+// and, where many points share a segment, by that segment's atomics.
 //
 // Rounding points (onehot_contract.py _axis_taps, _zy_plane,
 // _xline_weights and the three kernels): per axis the two taps floor(u)
@@ -223,6 +234,20 @@ __global__ void __launch_bounds__(kThreads) rowcol_scatter_kernel(
   }
 }
 
+// ids (B, M) int32, feats (B, M, C) f32; out (B, nseg, C) f32 zeroed by
+// the caller. A thread per (point, channel).
+__global__ void __launch_bounds__(kThreads) segment_scatter_kernel(
+    const int* __restrict__ ids, const float* __restrict__ feats,
+    float* __restrict__ out, long long total, int m, int nseg, int c) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long pt = i / c;
+  const int id = ids[pt];
+  if (id < 0 || id >= nseg) return;          // the spill id, or worse
+  const long long b = pt / m;
+  atomicAdd(out + (b * nseg + id) * c + (i - pt * c), feats[i]);
+}
+
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -282,6 +307,20 @@ int pcseg_rowcol_scatter(const void* rows, const void* cols, const void* vals,
                           (cudaStream_t)stream>>>(
       (const int*)rows, (const int*)cols, (const float*)vals, (float*)out, n,
       M, nrows, ncols, C);
+  return (int)cudaGetLastError();
+}
+
+// ids (B, M) int32 (nseg is the spill id; any id outside [0, nseg) adds
+// nothing); feats (B, M, C) f32; out (B, nseg, C) f32, zeroed by the
+// caller.
+int pcseg_segment_scatter(const void* ids, const void* feats, void* out,
+                          int B, int M, int nseg, int C, void* stream) {
+  if (B <= 0 || M <= 0 || nseg <= 0 || C <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)B * M * C;
+  segment_scatter_kernel<<<blocks_for(total), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      (const int*)ids, (const float*)feats, (float*)out, total, M, nseg, C);
   return (int)cudaGetLastError();
 }
 

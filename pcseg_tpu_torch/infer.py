@@ -1,18 +1,22 @@
-"""Serving: ``Predictor`` (counterpart of pcseg_tpu/infer.py for the voxel
-and sparse families), from weights in memory or from a checkpoint that
+"""Serving: ``Predictor`` (counterpart of pcseg_tpu/infer.py) for the
+three families, from weights in memory, from a checkpoint that
 ``api.fit`` wrote or that ``ckpt.checkpoint.save_checkpoint`` made from
-carried JAX weights.
+carried JAX weights, or from the reference's ``best_model.pth``; and
+``inference_example``, the reference's demo.
 
 Events are padded to bucket lengths, and a short batch with all-masked
-dummy rows, as in the JAX package; the valid-point mask goes to voxelize
-and devoxelize, so padding never changes a prediction. A sparse model's
-forward also returns its count of occupied tiles beyond the static
-capacity: their points read zero logits, so a nonzero count warns, or
-raises with ``strict_capacity=True``.
+dummy rows, as in the JAX package; the valid-point mask goes to the
+global max pool (PointNetSeg) or to voxelize and devoxelize, so padding
+never changes a prediction. PointNetSeg serves BN-folded by default
+(``fold=True``, ops/fold.py: a matmul + ReLU chain in ``dtype``). A
+sparse model's forward also returns its count of occupied tiles beyond
+the static capacity: their points read zero logits, so a nonzero count
+warns, or raises with ``strict_capacity=True``.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Sequence
 
@@ -20,10 +24,16 @@ import numpy as np
 import torch
 
 from pcseg_tpu_torch.ckpt.checkpoint import load_checkpoint
+from pcseg_tpu_torch.ckpt.torch_import import load_best_model_pth
 from pcseg_tpu_torch.core.device import resolve_device
 from pcseg_tpu_torch.data.batching import DEFAULT_BUCKETS, pad_events, pick_bucket
 from pcseg_tpu_torch.models.factory import build_model
-from pcseg_tpu_torch.models.pointnet import PointNetSeg
+from pcseg_tpu_torch.models.pointnet import (
+    DTYPES,
+    PointNetSeg,
+    pointnet_apply_folded,
+)
+from pcseg_tpu_torch.ops.fold import fold_pointnet
 
 
 class Predictor:
@@ -31,10 +41,14 @@ class Predictor:
 
     ``variables``: the model's state_dict (``ckpt.convert.
     from_jax_variables`` makes one from JAX parameters). ``model``: the
-    module to load them into, a VoxelUNet3d or a SparseVoxelNet; serving
-    the JAX default (PointNetSeg) is not ported yet. ``device``: None for
-    CUDA, ``"cpu"`` for the plain versions. ``strict_capacity``: raise
-    instead of warning when a sparse model drops occupied tiles.
+    module to load them into; None builds ``PointNetSeg(num_classes,
+    input_dim)``, the JAX default. A PointNetSeg serves BN-folded
+    (``fold=True``) in ``dtype`` ("float32": logits within ~1e-5 of the
+    unfolded path; "bfloat16": the fast mode), or unfolded (``fold=False``)
+    with its pool masked, which a ``bn_stats="fused"`` model refuses
+    (ValueError), as in the JAX package. ``device``: None for CUDA,
+    ``"cpu"`` for the plain versions. ``strict_capacity``: raise instead of
+    warning when a sparse model drops occupied tiles.
     """
 
     def __init__(
@@ -46,16 +60,33 @@ class Predictor:
         model: torch.nn.Module | None = None,
         device=None,
         strict_capacity: bool = False,
+        fold: bool = True,
+        dtype: str = "float32",
     ):
         self.device = resolve_device(device)
-        if model is None or isinstance(model, PointNetSeg):
-            raise NotImplementedError(
-                "serving PointNetSeg (the default model) through Predictor "
-                "is not ported to pcseg_tpu_torch yet (ROADMAP Queue A); "
-                "pass a VoxelUNet3d or a SparseVoxelNet as model="
-            )
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {tuple(DTYPES)}, got "
+                             f"{dtype!r}")
+        if model is None:
+            model = PointNetSeg(num_classes=num_classes, input_dim=input_dim)
+        self._folded = None
+        if isinstance(model, PointNetSeg) and not fold:
+            if model.bn_stats == "fused":
+                raise ValueError(
+                    "bn_stats='fused' computes statistics over all padded "
+                    "positions and cannot honor mask_norm_and_pool=True; use "
+                    "bn_stats='exact'/'fast' for masked statistics")
+            # eval-mode BN reads running stats, so this masks only the
+            # global max pool
+            model.mask_norm_and_pool = True
         model.load_state_dict(variables)
         self.model = model.to(self.device).eval()
+        if isinstance(model, PointNetSeg) and fold:
+            with torch.no_grad():
+                self._folded = fold_pointnet({
+                    "params": self.model.params(),
+                    "batch_stats": self.model.batch_stats()})
+            self._dtype = DTYPES[dtype]
         self.num_classes = num_classes
         self.input_dim = input_dim
         self.buckets = tuple(sorted(buckets))
@@ -77,9 +108,13 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "Predictor":
-        """Load a checkpoint written by ``ckpt.checkpoint.save_checkpoint``;
-        the model is rebuilt from the config stored in it, and so is
-        ``strict_capacity``."""
+        """Load a reference ``best_model.pth`` (a PointNetSeg; its
+        ``num_classes`` from the file) or a checkpoint written by
+        ``ckpt.checkpoint.save_checkpoint``, whose stored config rebuilds
+        the model and sets ``strict_capacity``."""
+        if os.path.isfile(path) and path.endswith(".pth"):
+            state, meta = load_best_model_pth(path)
+            return cls(state, int(meta["num_classes"]), **kw)
         state, num_classes, cfg = load_checkpoint(path)
         if "model" not in kw:
             kw["model"] = build_model(cfg, num_classes)
@@ -87,14 +122,24 @@ class Predictor:
         kw.setdefault("strict_capacity", cfg.strict_capacity)
         return cls(state, num_classes, **kw)
 
+    @torch.no_grad()
+    def device_forward(self, points: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+        """(B, M, D) points and (B, M) bool mask on the device -> (B, M, C)
+        f32 logits there."""
+        if self._folded is not None:
+            return pointnet_apply_folded(self._folded, points, self._dtype,
+                                         pool_mask=mask)
+        if not self._returns_overflow:
+            return self.model(points, mask)
+        logits, dropped = self.model(points, mask, return_overflow=True)
+        self._check_capacity(dropped.cpu().numpy())
+        return logits
+
     def _forward(self, pts: np.ndarray, msk: np.ndarray) -> np.ndarray:
         points = torch.from_numpy(pts).to(self.device)
         mask = torch.from_numpy(msk).to(self.device)
-        if not self._returns_overflow:
-            return self.model(points, mask).cpu().numpy()
-        logits, dropped = self.model(points, mask, return_overflow=True)
-        self._check_capacity(dropped.cpu().numpy())
-        return logits.cpu().numpy()
+        return self.device_forward(points, mask).cpu().numpy()
 
     def logits(self, points: np.ndarray) -> np.ndarray:
         """(N, D) -> (N, C) float32 logits for one event."""
@@ -128,3 +173,17 @@ class Predictor:
             for j, i in enumerate(idx):
                 out[i] = np.argmax(logits[j, : events[i].shape[0]], axis=-1)
         return out
+
+
+def inference_example(checkpoint_path: str, dataset, event_idx: int = 0,
+                      log=print, **kw) -> np.ndarray:
+    """The reference demo: load a checkpoint, predict event ``event_idx``
+    of ``dataset`` (a sequence of (points, labels)), log the accuracy
+    against its labels and return the predictions. ``kw`` goes to
+    ``Predictor.from_checkpoint`` (e.g. ``device="cpu"``)."""
+    predictor = Predictor.from_checkpoint(checkpoint_path, **kw)
+    points, true_labels = dataset[event_idx]
+    preds = predictor.predict(points)
+    acc = float((preds == np.asarray(true_labels)).mean()) * 100.0
+    log(f"event {event_idx}: {points.shape[0]} points, accuracy {acc:.2f}%")
+    return preds

@@ -68,7 +68,7 @@ BN_FOR = {
 }
 DROPOUT_RATE = 0.3
 BN_STATS = ("exact", "fast", "fused")
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class _Group(nn.Module):
@@ -101,7 +101,7 @@ class PointNetSeg(nn.Module):
         if bn_stats not in BN_STATS:
             raise ValueError(f"bn_stats must be one of {BN_STATS}, got "
                              f"{bn_stats!r}")
-        if compute_dtype not in _DTYPES:
+        if compute_dtype not in DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         if bn_stats == "fused" and mask_norm_and_pool:
             raise ValueError(
@@ -176,7 +176,7 @@ class PointNetSeg(nn.Module):
             self.params(), self.batch_stats(), points, train=train,
             mask=mask, seeds=seeds, dropout_rate=self.dropout,
             mask_norm_and_pool=self.mask_norm_and_pool,
-            compute_dtype=_DTYPES[self.compute_dtype],
+            compute_dtype=DTYPES[self.compute_dtype],
             fast_bn_stats=self.bn_stats in ("fast", "fused"), plain=plain)
 
     def forward(self, points, mask=None):
@@ -241,3 +241,39 @@ def pointnet_apply(params: dict, batch_stats: dict, points: torch.Tensor, *,
     if train:
         return logits, new_bn
     return logits
+
+
+def pointnet_apply_folded(folded: dict, points: torch.Tensor,
+                          compute_dtype: torch.dtype = torch.bfloat16,
+                          pool_mask: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """Serving forward on BN-folded layers (ops/fold.py): a matmul + ReLU
+    chain, logits (B, M, C) f32. Equal to ``pointnet_apply(train=False)``
+    up to float reassociation.
+
+    ``pool_mask`` (B, M) bool restricts the global max pool to valid rows,
+    so bucket padding cannot win it: padded rows are zero-filled before
+    the max, which is exact for post-ReLU (>= 0) features as long as each
+    event has a valid point."""
+
+    def layer(name, x, relu=True):
+        y = pointwise_dense(folded[name], x, compute_dtype)
+        return torch.relu(y).to(compute_dtype) if relu else y
+
+    x = points.to(compute_dtype)
+    x = layer("conv1", x)
+    point_feat = layer("conv2", x)
+    x = layer("conv3", point_feat)
+    x = layer("conv4", x)
+    x = layer("conv5", x)
+    g = layer("global_feat", x)
+    if pool_mask is not None:
+        g = torch.where(pool_mask[..., None], g, torch.zeros((), dtype=g.dtype,
+                                                             device=g.device))
+    g = g.amax(dim=1)
+    g = g[:, None, :].expand(x.shape[0], x.shape[1], g.shape[-1])
+    x = torch.cat([point_feat, g.to(compute_dtype)], dim=-1)
+    x = layer("seg_conv1", x)
+    x = layer("seg_conv2", x)
+    x = layer("seg_conv3", x)
+    return layer("seg_conv4", x, relu=False).float()

@@ -49,6 +49,7 @@ SIGNATURES = {
         "pcseg_trilinear_scatter": [_P] * 3 + [_I] * 4 + [_P],
         "pcseg_trilinear_gather": [_P] * 4 + [_I] * 4 + [_P],
         "pcseg_rowcol_scatter": [_P] * 4 + [_I] * 5 + [_P],
+        "pcseg_segment_scatter": [_P] * 3 + [_I] * 4 + [_P],
     },
     "pointnet_fused": {
         "pcseg_dropout": [_P, _P, _L, _U, _U, _F, _I, _P],
@@ -60,6 +61,8 @@ SIGNATURES = {
         "pcseg_global_pool_bwd": [_P] * 17 + [_L, _I, _I, _L, _P],
         "pcseg_seg4_ce_fwd": [_P] * 10 + [_L, _I, _I, _P],
         "pcseg_seg4_ce_bwd": [_P] * 16 + [_L, _I, _I, _P],
+        "pcseg_fused_pool_fwd": [_P, _I] + [_P] * 7 + [_L, _I, _L, _P],
+        "pcseg_fused_pool_bwd": [_P] * 3 + [_I, _L, _I, _L, _P],
     },
     "block_conv": {
         "pcseg_block_conv": [_P] * 4 + [_I] * 6 + [_P],

@@ -51,7 +51,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _first_max(sm: torch.Tensor):
+def first_max(sm: torch.Tensor):
     """(nb, M, C) -> (max over M, first row attaining it) per (nb, C)."""
     best = sm.amax(dim=1)
     rows = torch.arange(sm.shape[1], device=sm.device)[None, :, None]
@@ -67,7 +67,7 @@ def global_pool_fwd_plain(x, mu, inv, gamma, beta, w, b, sign,
     s1, s2 = yf.sum(0), (yf * yf).sum(0)
     y = yf.to(torch.bfloat16)
     sm = y.float() * sign
-    best, idx = _first_max(sm.reshape(-1, rows_per_batch, sm.shape[1]))
+    best, idx = first_max(sm.reshape(-1, rows_per_batch, sm.shape[1]))
     return y, s1, s2, best, idx
 
 

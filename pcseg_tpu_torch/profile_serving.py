@@ -10,16 +10,20 @@ grid2 head) and ``scatter_gather`` (fused conv kernels, scatter voxelize,
 gather devoxelize, the plain head), in turn, on synthetic events.
 ``--model sparse_voxelnet``: the block-sparse SparseVoxelNet of the JAX
 package's sparse bench (R64, w64, depth 4, 2 levels, tile 8, capacities
-(64, 32), bf16) on track events. For each, for a B8 x 8192 batch and for
-one 1000-point event it reports:
+(64, 32), bf16) on track events. ``--model pointnet_seg``: PointNetSeg at
+full width (4 classes, seeded random weights and running statistics)
+served through ``Predictor`` BN-folded in f32 (the default), folded in
+bf16 and unfolded, on synthetic events. For each, for a B8 x 8192 batch
+and for one 1000-point event it reports:
 
 - host-clock stage times (pad on the host, copy to the card, forward,
   copy back), each ended by a synchronize;
 - device time by kernel from torch.profiler over one forward, the
   device's busy share of that forward's wall time, and device time by
   stage (``stage_of``: the conv kernels, the voxelize, head, gather and
-  scatter kernels, the sparse block conv and LN kernels, and the PyTorch
-  glue around them).
+  scatter kernels, the sparse block conv and LN kernels, for PointNet
+  serving the library's matrix products, and the PyTorch glue around
+  them).
 
 With ``--out`` the profiler table is also written to DIR/profile_*.txt.
 """
@@ -36,6 +40,8 @@ import torch
 
 from pcseg_tpu_torch.data.batching import pad_events
 from pcseg_tpu_torch.data.synthetic import synthetic_events, track_events
+from pcseg_tpu_torch.infer import Predictor
+from pcseg_tpu_torch.models.pointnet import PointNetSeg
 from pcseg_tpu_torch.models.sparse_unet import SparseVoxelNet
 from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
 
@@ -80,9 +86,17 @@ STAGES = (("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
           ("conv_kernel", "conv"), ("up_kernel", "conv"),
           ("wgrad_kernel", "conv"))
 
+# PointNet serving only: the library's matrix-product kernel families
+# (cuBLAS xmma, cuBLASLt nvjet and its split-K reduction, CUTLASS SIMT and
+# tensor-op, gemv) as their own stage, kept out of the other breakdowns
+# so that their "glue" means what it meant before
+LIBRARY_PRODUCTS = tuple((key, "matmul") for key in (
+    "xmma_gemm", "nvjet_", "splitKreduce_kernel", "cutlass_80_simt_sgemm",
+    "cutlass_80_tensorop", "gemv"))
 
-def stage_of(kernel_name: str) -> str:
-    return next((st for key, st in STAGES if key in kernel_name), "glue")
+
+def stage_of(kernel_name: str, stages=STAGES) -> str:
+    return next((st for key, st in stages if key in kernel_name), "glue")
 
 
 def voxel_model(forms: str) -> VoxelUNet3d:
@@ -106,9 +120,43 @@ def sparse_model() -> SparseVoxelNet:
         generator=torch.Generator().manual_seed(0))
 
 
-def device_profile(fn):
+# Predictor's PointNetSeg serving modes: (fold, dtype)
+POINTNET_MODES = {"folded_f32": (True, "float32"),
+                  "folded_bf16": (True, "bfloat16"),
+                  "unfolded": (False, "float32")}
+
+
+def pointnet_model(num_classes: int = 4, seed: int = 0) -> PointNetSeg:
+    """PointNetSeg at full width with seeded random weights, and BN scales,
+    shifts and running statistics drawn from the same generator (a trained
+    model's are not the init's 1 / 0 / 0 / 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    model = PointNetSeg(num_classes=num_classes, generator=gen)
+    with torch.no_grad():
+        for name, group in model.batch_stats().items():
+            c = group["mean"].shape[0]
+            params = getattr(model, name)
+            params.scale.copy_(0.5 + torch.rand(c, generator=gen))
+            params.bias.copy_(0.1 * torch.randn(c, generator=gen))
+            group["mean"].copy_(0.1 * torch.randn(c, generator=gen))
+            group["var"].copy_(0.5 + torch.rand(c, generator=gen))
+    return model
+
+
+def pointnet_predictor(mode: str, model: PointNetSeg | None = None,
+                       device=None) -> Predictor:
+    """``model`` (default ``pointnet_model()``) served by Predictor in one
+    of POINTNET_MODES."""
+    model = model or pointnet_model()
+    fold, dtype = POINTNET_MODES[mode]
+    return Predictor(model.state_dict(), model.num_classes, fold=fold,
+                     dtype=dtype, device=device)
+
+
+def device_profile(fn, stages=STAGES):
     """Profile one warm call of ``fn``: wall ms, device-busy ms, idle
-    share and device time by kernel name, and the profiler itself."""
+    share and device time by kernel name and by ``stages``, and the
+    profiler itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -131,7 +179,7 @@ def device_profile(fn):
                for e in events]
     by_stage: dict = {}
     for e in events:
-        st = stage_of(e.key)
+        st = stage_of(e.key, stages)
         by_stage[st] = by_stage.get(st, 0.0) + e.self_device_time_total / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1 - busy_ms / wall_ms),
@@ -141,7 +189,8 @@ def device_profile(fn):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="voxel_unet3d",
-                    choices=("voxel_unet3d", "sparse_voxelnet"))
+                    choices=("voxel_unet3d", "sparse_voxelnet",
+                             "pointnet_seg"))
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -151,25 +200,36 @@ def main() -> int:
     if args.model == "sparse_voxelnet":
         batch = list(track_events(8, 8192, 0))
         single = [track_events(1, 1000, 1)[0]]
-        models = {"sparse": sparse_model}
+        models = {"sparse": lambda: sparse_model().cuda().eval()}
     else:
         batch = [p for p, _ in synthetic_events(8, min_points=4000,
                                                 max_points=8192, seed=0)]
         single = [next(iter(synthetic_events(1, min_points=1000,
                                              max_points=1000, seed=1)))[0]]
-        models = {form: lambda form=form: voxel_model(form)
+    if args.model == "voxel_unet3d":
+        models = {form: lambda form=form: voxel_model(form).cuda().eval()
                   for form in ("default", "scatter_gather")}
+    elif args.model == "pointnet_seg":
+        models = {mode: lambda mode=mode: pointnet_predictor(
+            mode).device_forward for mode in POINTNET_MODES}
+    kernel_stages = STAGES + LIBRARY_PRODUCTS \
+        if args.model == "pointnet_seg" else STAGES
     card = torch.cuda.get_device_name(0)
     report = {"card": card, "model": args.model}
     for form, make in models.items():
-        model = make().cuda().eval()
-        forms = model.resolve_forms() if hasattr(model, "resolve_forms") \
-            else {"impl": model.impl}
+        model = make()
+        if form in POINTNET_MODES:
+            forms = dict(zip(("fold", "dtype"), POINTNET_MODES[form]))
+        elif hasattr(model, "resolve_forms"):
+            forms = model.resolve_forms()
+        else:
+            forms = {"impl": model.impl}
         for label, events, bucket, b in (("batch8x8192", batch, 8192, 8),
                                          ("single1000", single, 1024, 1)):
             name = f"{form}_{label}"
             stages, (points, mask) = _stages(model, events, bucket, b)
-            prof_res, prof = device_profile(lambda: model(points, mask))
+            prof_res, prof = device_profile(lambda: model(points, mask),
+                                            kernel_stages)
             report[name] = {"forms": forms, "stages": stages, **prof_res}
             print(f"[{name}] {card}: stages {json.dumps(stages)}")
             print(f"  one forward: wall {prof_res['wall_ms']:.3f} ms, device "

@@ -69,8 +69,7 @@ def test_unported_families_raise():
     for impl in ("dense", "gather"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(ModelConfig(name="sparse_voxelnet", impl=impl), 4)
-    # PointNet trains in the port; serving it through Predictor waits
-    with pytest.raises(NotImplementedError, match="PointNetSeg"):
-        Predictor({}, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="PointNetSeg"):
-        Predictor(model.state_dict(), 4, model=model, device="cpu")
+    # PointNet trains and serves in the port: Predictor's default model
+    served = Predictor(model.state_dict(), 4, device="cpu")
+    assert isinstance(served.model, PointNetSeg)
+    assert served.predict(np.zeros((10, 4), np.float32)).shape == (10,)
