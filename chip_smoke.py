@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from pcseg_tpu_torch/csrc/ (nvcc, sm_90a, one
-   process per source, all at once).
+   process per source, all at once), then prints ptxas's registers, shared
+   memory and spills of the wgmma library (pointnet_wgmma.cu, row 16) and
+   the HGMMA instructions in each of its wgmma kernels' SASS (cuobjdump),
+   failing if one has none.
 2. Holds each conv kernel against its plain PyTorch version at every
    shape the voxel serving path launches (batch 8, 64^3 grid, widths
    16/32/64), and times kernel, plain version and one cuDNN call of the
@@ -20,7 +23,10 @@
    block, the classifier + CE, dropout), forward and backward, against
    its plain version at every shape one train step at B64 x 2048 points
    launches, and times kernel, plain version, bound and one bf16
-   torch.matmul of the same product (a yardstick only).
+   torch.matmul of the same product (a yardstick only); the global pool
+   block also at 1000 rows a batch row (batch boundaries inside its
+   128-row tiles, a partial last tile) and, at the main shape, each of
+   its kernels by device time beside the op's CUDA-event time.
 5. One whole fused PointNetSeg train step (full width, 4 classes,
    dropout 0.3, seeded random weights) with the kernels and with the
    plain versions, from the same state and seeds: loss, gradients and
@@ -117,11 +123,17 @@ builds the kernels, repeats only the whole-step comparisons of phases 8,
 12 and 16 N times, and prints each loss reading as one JSON line: the
 spread their loss limits are set from. It holds nothing and prints no
 result.
+
+    python3 chip_smoke.py --row16
+
+builds the kernels, prints phase 1's wgmma report and runs only phase 4's
+two row-16 cases (held as in phase 4), as one JSON line; no result line.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -205,6 +217,56 @@ PN_LOSS_REL, PN_BN_REL, PN_GRAD_RATIO = 2.0 ** -8, 2.0 ** -7, 3.0
 PN_ZERO_GRAD = {f"{n}.bias" for n in ("conv1", "conv2", "conv3", "conv4",
                                       "conv5", "global_feat", "seg_conv1",
                                       "seg_conv2", "seg_conv3")}
+
+
+# row 16's wgmma kernels
+WGMMA_SOURCE = "pcseg_tpu_torch/csrc/pointnet_wgmma.cu"
+WGMMA_KERNELS = ("gp_wgmma_fwd_kernel", "gp_wgmma_dx_kernel",
+                 "gp_wgmma_dw_kernel")
+
+
+def wgmma_report() -> dict:
+    """Phase 1's look at the wgmma library: ptxas's registers, shared
+    memory and spills of each of its kernels (-Xptxas -v on a cubin of the
+    same source and flags) and, where cuobjdump is present, the HGMMA
+    instructions in each wgmma kernel's SASS; fails if one has none."""
+    import shutil
+    from pathlib import Path
+
+    from pcseg_tpu_torch.ops import _build
+
+    src = _build._CSRC / "pointnet_wgmma.cu"
+    cubin = _build.BUILD_DIR / "pointnet_wgmma.cubin"
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v",
+                           "-o", str(cubin), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -cubin failed:\n{proc.stdout}{proc.stderr}")
+    lines = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+             if "ptxas" in ln]
+    for ln in lines:
+        print(f"  {ln}", flush=True)
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).parent / "cuobjdump")
+    if not Path(tool).is_file():
+        print("  cuobjdump not found: HGMMA count not taken", flush=True)
+        return {"ptxas": lines, "hgmma": None}
+    sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                          text=True, check=True).stdout
+    hgmma = dict.fromkeys(WGMMA_KERNELS, 0)
+    current = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            current = next((k for k in WGMMA_KERNELS if k in m.group(1)), None)
+        elif current and "HGMMA" in ln:
+            hgmma[current] += 1
+    print(f"  HGMMA instructions in the SASS: {json.dumps(hgmma)}", flush=True)
+    if not all(hgmma.values()):
+        raise AssertionError(f"a row-16 kernel has no HGMMA: {hgmma}")
+    return {"ptxas": lines, "hgmma": hgmma}
 
 
 def card_line() -> str:
@@ -636,18 +698,35 @@ def pn_block_case(layer, cin, cout, normalize, drop, row_bias, gen):
     return _report(res)
 
 
-def pn_global_case(gen):
+def kernels_device_ms(fn, iters: int = 10) -> dict:
+    """Device ms per call of each kernel that one call of ``fn`` launches
+    (torch.profiler over ``iters`` warm calls), by short kernel name."""
+    from pcseg_tpu_torch.profile_serving import device_profile
+
+    res, _ = device_profile(lambda: [fn() for _ in range(iters)])
+    out: dict = {}
+    for k in res["kernels"]:
+        name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                      k["name"]).split("(")[0]
+        out[name] = out.get(name, 0.0) + k["device_ms"] / iters
+    return out
+
+
+def pn_global_case(gen, b=PN_B, m=PN_M, label="global_feat"):
+    """Row 16 (the wgmma kernels of pointnet_wgmma.cu) against its plain
+    version at b batch rows of m points, 1024 -> 1024; the main path's
+    shape also times each kernel by device time."""
     import torch
 
     from pcseg_tpu_torch.ops import fused_global as fg
 
-    n, cin, cout = PN_B * PN_M, 1024, 1024
+    n, cin, cout = b * m, 1024, 1024
     x = torch.randn((n, cin), generator=gen, device="cuda").to(torch.bfloat16)
     bn = _bn_vectors(gen, cin)
-    w, b = _dense(gen, cin, cout)
+    w, bias = _dense(gen, cin, cout)
     sign = torch.sign(torch.randn(cout, generator=gen, device="cuda"))
     sign[::97] = 0.0                  # gamma_global == 0: row 0 must win
-    fwd = (x, *bn, w, b, sign, PN_M)
+    fwd = (x, *bn, w, bias, sign, m)
     k = fg.global_pool_fwd_cuda(*fwd)
     torch.cuda.synchronize()
     p = fg.global_pool_fwd_plain(*fwd)
@@ -658,21 +737,21 @@ def pn_global_case(gen):
               "idx_ties": (0.0, bool((k[4][:, ::97] == 0).all()))}
     ds1 = torch.randn(cout, generator=gen, device="cuda") * 1e-2
     ds2 = torch.randn(cout, generator=gen, device="cuda") * 1e-3
-    pval = torch.randn((PN_B, cout), generator=gen, device="cuda")
+    pval = torch.randn((b, cout), generator=gen, device="cuda")
     # the backward from the kernel's y and winners on both sides
-    bwd = (x, *bn, w, k[0], ds1, ds2, pval, k[4], PN_M)
+    bwd = (x, *bn, w, k[0], ds1, ds2, pval, k[4], m)
     gk = fg.global_pool_bwd_cuda(*bwd)
     torch.cuda.synchronize()
     gp = fg.global_pool_bwd_plain(*bwd)
     checks["dx"] = _bf16_check(gk[0], gp[0])
     for name, a, r in zip(("dw", "db", "dgamma", "dbeta"), gk[1:], gp[1:]):
         checks[name] = _sum_check(a, r)
-    err = _held("fused_global_pool_block", checks)
+    err = _held(f"fused_global_pool_block {label}", checks)
     wq = w.to(torch.bfloat16)
     dyb = k[0]
     res = {
-        "name": "fused_global_pool_block", "case": "global_feat",
-        "shape": f"N{n} {cin}->{cout}", "max_abs_err": err,
+        "name": "fused_global_pool_block", "case": label,
+        "shape": f"B{b} M{m} {cin}->{cout}", "max_abs_err": err,
         "idx_agreement": agree,
         "ms": time_ms(lambda: fg.global_pool_fwd_cuda(*fwd)),
         "plain_ms": time_ms(lambda: fg.global_pool_fwd_plain(*fwd)),
@@ -681,12 +760,21 @@ def pn_global_case(gen):
         "bwd_plain_ms": time_ms(lambda: fg.global_pool_bwd_plain(*bwd)),
         "bwd_library_ms": time_ms(lambda: (dyb @ wq.t(), x.t() @ dyb)),
     }
+    if label == "global_feat":  # the main path's shape: each kernel's time
+        res["device_ms"] = kernels_device_ms(
+            lambda: fg.global_pool_fwd_cuda(*fwd))
+        res["bwd_device_ms"] = kernels_device_ms(
+            lambda: fg.global_pool_bwd_cuda(*bwd))
+        print(f"  row 16 device ms by kernel (CUDA-event ms of the op: fwd "
+              f"{res['ms']:.4f}, bwd {res['bwd_ms']:.4f}): fwd "
+              f"{json.dumps(res['device_ms'])}; bwd "
+              f"{json.dumps(res['bwd_device_ms'])}", flush=True)
     io = n * cin * 2 + cin * cout * 2 + cout * 8 + 4 * cin * 4
     res["bound_ms"], res["bound_by"] = _bound(
-        io + n * cout * 2 + 2 * cout * 4 + PN_B * cout * 8,
+        io + n * cout * 2 + 2 * cout * 4 + b * cout * 8,
         2 * n * cin * cout)
     res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(
-        io + n * cout * 2 + PN_B * cout * 8 + n * cin * 2 + cin * cout * 4,
+        io + n * cout * 2 + b * cout * 8 + n * cin * 2 + cin * cout * 4,
         4 * n * cin * cout)
     return _report(res)
 
@@ -2718,8 +2806,15 @@ def main() -> int:
     for name in _build.SIGNATURES:
         _build.load_library(name)
     print(f"[1] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    wgmma = wgmma_report()
     if sys.argv[1:2] == ["--step-spread"]:
         return step_spread(card, int(sys.argv[2]))
+    if sys.argv[1:2] == ["--row16"]:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        print(json.dumps({"card": card, "row16": [
+            pn_global_case(gen),
+            pn_global_case(gen, 64, 1000, "ragged M1000")]}))
+        return 0
 
     print(f"[2] kernels vs plain versions [{card}]", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2731,7 +2826,9 @@ def main() -> int:
     print(f"[4] PointNet training kernels vs plain versions, B{PN_B} x "
           f"{PN_M} [{card}]", flush=True)
     pn_cases = [pn_block_case(*blk, gen) for blk in PN_BLOCKS]
-    pn_cases += [pn_global_case(gen), pn_ce_case(gen)]
+    pn_cases += [pn_global_case(gen),
+                 pn_global_case(gen, 64, 1000, "ragged M1000"),
+                 pn_ce_case(gen)]
     pn_cases += [pn_dropout_case(c, gen) for c in (512, 256)]
 
     print(f"[5] one fused train step, kernels vs plain [{card}]", flush=True)
@@ -2934,7 +3031,9 @@ def main() -> int:
         mine = [c for c in pn_cases if c["name"] == name]
         at = next(c for c in mine if c["case"] == label)
         kernels.append({
-            "name": name, "route": "cuda", "source": PN_SOURCE,
+            "name": name, "route": "cuda",
+            "source": WGMMA_SOURCE if name == "fused_global_pool_block"
+            else PN_SOURCE,
             "replaces": PN_REPLACES[name],
             "launches": fit_launches[name] + fit_launches.get(
                 f"{name}_bwd", 0),
@@ -2944,6 +3043,8 @@ def main() -> int:
             "library_ms": at["library_ms"], "shape": at["shape"],
             "bwd_ms": at["bwd_ms"], "bwd_plain_ms": at["bwd_plain_ms"],
             "bwd_bound_ms": at["bwd_bound_ms"],
+            **{k: at[k] for k in ("bwd_library_ms", "device_ms",
+                                  "bwd_device_ms") if k in at},
         })
     # rows 14 and 19: numbers at the PointNet global layer's shape and at
     # the B8 x 8192, R64 voxel shape; no main path launches them
@@ -2992,7 +3093,7 @@ def main() -> int:
                       "sparse_serving": sp_served,
                       "sparse_train_cases": spb_cases, "sparse_step": sp_step,
                       "sparse_fit": sp_fitted, "test_only_cases": to_cases,
-                      "pointnet_serving": pn_served}))
+                      "pointnet_serving": pn_served, "wgmma": wgmma}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

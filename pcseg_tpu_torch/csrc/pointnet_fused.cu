@@ -1,5 +1,6 @@
 // PointNetSeg training kernels for Hopper (sm_90a): the fused layer
-// chain, its global pool, the classifier + cross-entropy, and dropout.
+// chain, the classifier + cross-entropy, dropout, and the BN + ReLU +
+// first-max pool that only tests reach.
 //
 // Entries (plain C interface, loaded with ctypes; each returns
 // cudaGetLastError() after its launches; pointers and the stream are
@@ -9,9 +10,8 @@
 //       fused_block.py fused_block (_fwd_pallas, pallas_call at :239;
 //       _bwd_pallas at :451): y = bf16(dropout(relu((x - mu) * inv *
 //       gamma + beta))) @ W + b [+ row_bias], stats s1/s2 of the f32 y.
-//   pcseg_global_pool_fwd / _bwd   replace fused_global.py
-//       fused_global_pool_block (:176, :224): the same layer plus the
-//       per-(batch, channel) max of sign * bf16(y) and its first row.
+//   (fused_global.py fused_global_pool_block, the same layer with the
+//   first-max pool, is pointnet_wgmma.cu's, on wgmma.)
 //   pcseg_seg4_ce_fwd / _bwd       replace fused_ce.py fused_seg4_ce
 //       (:264, :294): seg3-BN prologue, the Cin x C classifier and the
 //       weighted CE sums (num, den, correct), logits never stored.
@@ -32,19 +32,17 @@
 // stay f32.
 //
 // What bounds them on an H100: at B64 x 2048 points (N = 131,072 rows)
-// the 128->1024 and 1024->1024 layers carry ~85 % of the ~1.1 TFLOP of a
-// train step; as bf16 tensor-core GEMMs they are bound by operations
-// (e.g. 1024x1024: 0.28 TFLOP fwd / 989 TFLOP/s = 0.28 ms against 0.5 GB
-// of traffic / 3.35 TB/s = 0.16 ms); the narrow layers and dropout are
-// bound by bytes. Every product runs on the tensor cores through WMMA
+// every layer left here is bound by bytes, the widest, 128->1024, too
+// (0.3 GB of traffic / 3.35 TB/s = 0.09 ms against 0.034 TFLOP / 989
+// TFLOP/s = 0.035 ms as a bf16 tensor-core GEMM), and so is dropout. Every product runs on the tensor cores through WMMA
 // (bf16 16x16x16, f32 accumulators): a block of 8 warps owns a 128 x 128
 // output tile (each warp 64 x 32), K is staged 32 deep in shared memory
 // with 16-byte loads (8 elements; one at a time where a width is not a
 // multiple of 8), and the next K tile is loaded into registers while the
 // tensor cores work on this one. The prologue is applied while the A
 // tile is staged (so normalized activations never reach device memory),
-// and the column statistics, pool winners and gamma/beta-like sums are
-// reduced per thread over its rows of the tile and added with atomics.
+// and the column statistics and gamma/beta-like sums are reduced per
+// thread over its rows of the tile and added with atomics.
 // The backward runs three kernels: the effective cotangent (bf16 scratch
 // + db), dx (dY @ W^T with the prologue recomputed in the epilogue for
 // the ReLU/dropout masks and the gamma/beta-like sums) and dW (X^T @ dY,
@@ -56,7 +54,7 @@
 // TB/s). A thread loads 8 bf16 (4 f32) channels of a row in 16 bytes and
 // keeps their running maxima and rows in registers; a block folds its
 // threads' (value, row) keys in shared memory and adds one 64-bit
-// atomicMax a channel (the key the global pool block uses), so the TPU's
+// atomicMax a channel (the key of pointnet_wgmma.cu's pool), so the TPU's
 // sequential accumulation over row tiles needs no order between blocks.
 // The keys start at (0, row 0), so a group with no positive value pools
 // to 0 with row 0, as the TPU kernel's zero-initialised accumulator does.
@@ -67,6 +65,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "pool_keys.cuh"
 
 namespace {
 
@@ -287,26 +287,16 @@ __device__ __forceinline__ void store_acc(float* Cs, FragC (&acc)[FM][FN],
                               acc[i][j], LDC, wmma::mem_row_major);
 }
 
-// Order-preserving 64-bit key: the float above the inverted row, so the
-// larger value wins and, among equal values, the smaller row (-0 == +0).
-__device__ __forceinline__ unsigned long long pool_key(float v, long long r) {
-  if (v == 0.f) v = 0.f;
-  uint32_t u = __float_as_uint(v);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)u << 32) | (0xFFFFFFFFu - (uint32_t)r);
-}
-
 // --------------------------------------------------------------------------
-// forward: Y = prologue(X) @ W + b [+ row_bias]; stats; [pool]
+// forward: Y = prologue(X) @ W + b [+ row_bias]; stats
 // --------------------------------------------------------------------------
 
-template <int POOL, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(kGemmThreads, 2) fwd_kernel(
     const bf16* __restrict__ x, Prologue pro, const bf16* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ row_bias,
     long long rpb, void* __restrict__ y, int out_f32, float* __restrict__ s1,
-    float* __restrict__ s2, const float* __restrict__ sign,
-    unsigned long long* __restrict__ keys, long long n, int cin, int cout) {
+    float* __restrict__ s2, long long n, int cin, int cout) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + kTileElems;
@@ -342,10 +332,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) fwd_kernel(
   const int cc = n0 + c;
   if (cc >= cout) return;
   const float bc = bias[cc];
-  const float sg = POOL ? sign[cc] : 0.f;
   float a1 = 0.f, a2 = 0.f;
-  unsigned long long best = 0ull;
-  long long cur_b = -1;
   for (int m = tid / BN; m < BM; m += kGemmThreads / BN) {
     const long long row = m0 + m;
     if (row >= n) break;
@@ -358,49 +345,22 @@ __global__ void __launch_bounds__(kGemmThreads, 2) fwd_kernel(
       reinterpret_cast<bf16*>(y)[o] = __float2bfloat16_rn(v);
     a1 += v;
     a2 += v * v;
-    if (POOL) {
-      const long long b = row / rpb;
-      if (b != cur_b) {
-        if (cur_b >= 0) atomicMax(&keys[cur_b * cout + cc], best);
-        cur_b = b;
-        best = 0ull;
-      }
-      const unsigned long long key =
-          pool_key(round_bf16(v) * sg, row - b * rpb);
-      best = key > best ? key : best;
-    }
   }
   if (s1 != nullptr) {
     atomicAdd(&s1[cc], a1);
     atomicAdd(&s2[cc], a2);
   }
-  if (POOL && cur_b >= 0) atomicMax(&keys[cur_b * cout + cc], best);
-}
-
-__global__ void pool_finalize_kernel(const unsigned long long* __restrict__ keys,
-                                     float* __restrict__ best,
-                                     int* __restrict__ idx, long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const unsigned long long k = keys[i];
-  const uint32_t u = (uint32_t)(k >> 32);
-  const uint32_t bits = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
-  best[i] = __uint_as_float(bits);
-  idx[i] = (int)(0xFFFFFFFFu - (uint32_t)(k & 0xFFFFFFFFull));
 }
 
 // --------------------------------------------------------------------------
-// backward 1: the effective cotangent of y, rounded to bf16, and its
-// column sums (db) and per-batch-row column sums (d row_bias)
-//   MODE 0 (fused_block): d = (dy + ds1) + 2 y ds2   (stats terms optional)
-//   MODE 1 (global pool): d = (ds1 + 2 y ds2) + [row == idx] * pval
+// backward 1: the effective cotangent of y, d = (dy + ds1) + 2 y ds2 (stats
+// terms optional), rounded to bf16, and its column sums (db) and
+// per-batch-row column sums (d row_bias)
 // --------------------------------------------------------------------------
 
-template <int MODE>
 __global__ void __launch_bounds__(256) cotangent_kernel(
     const void* __restrict__ dy, int dy_f32, const bf16* __restrict__ y,
     const float* __restrict__ ds1, const float* __restrict__ ds2,
-    const float* __restrict__ pval, const int* __restrict__ idx,
     bf16* __restrict__ dyb, float* __restrict__ db, float* __restrict__ drb,
     long long rpb, long long n, int cout, int cw) {
   const int lanes = blockDim.x / cw, lane = threadIdx.x / cw;
@@ -416,18 +376,11 @@ __global__ void __launch_bounds__(256) cotangent_kernel(
   for (long long row = r0 + lane; row < r1; row += lanes) {
     const size_t o = (size_t)row * cout + c;
     const long long b = row / rpb;
-    float d;
-    if (MODE == 0) {
-      d = dy_f32 ? reinterpret_cast<const float*>(dy)[o]
-                 : __bfloat162float(reinterpret_cast<const bf16*>(dy)[o]);
-      if (stats)
-        d = __fadd_rn(__fadd_rn(d, d1),
-                      __fmul_rn(__fmul_rn(2.f, __bfloat162float(y[o])), d2));
-    } else {
-      d = __fadd_rn(d1, __fmul_rn(__fmul_rn(2.f, __bfloat162float(y[o])), d2));
-      const size_t bo = (size_t)b * cout + c;
-      d = __fadd_rn(d, idx[bo] == (int)(row - b * rpb) ? pval[bo] : 0.f);
-    }
+    float d = dy_f32 ? reinterpret_cast<const float*>(dy)[o]
+                     : __bfloat162float(reinterpret_cast<const bf16*>(dy)[o]);
+    if (stats)
+      d = __fadd_rn(__fadd_rn(d, d1),
+                    __fmul_rn(__fmul_rn(2.f, __bfloat162float(y[o])), d2));
     dyb[o] = __float2bfloat16_rn(d);
     acc += d;
     if (drb != nullptr) {
@@ -941,35 +894,31 @@ cudaError_t allow_smem(Kernel kernel) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
 }
 
-template <int POOL, bool VEC>
+template <bool VEC>
 cudaError_t launch_fwd(const void* x, const Prologue& pro, const void* w,
                        const void* b, const void* row_bias, long long rpb,
-                       void* y, int out_f32, void* s1, void* s2,
-                       const void* sign, void* keys, long long n, int cin,
-                       int cout, cudaStream_t s) {
-  cudaError_t err = allow_smem(fwd_kernel<POOL, VEC>);
+                       void* y, int out_f32, void* s1, void* s2, long long n,
+                       int cin, int cout, cudaStream_t s) {
+  cudaError_t err = allow_smem(fwd_kernel<VEC>);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv_int(n, BM), cdiv_int(cout, BN));
-  fwd_kernel<POOL, VEC><<<grid, kGemmThreads, kSmemBytes, s>>>(
+  fwd_kernel<VEC><<<grid, kGemmThreads, kSmemBytes, s>>>(
       static_cast<const bf16*>(x), pro, static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<const float*>(row_bias), rpb,
-      y, out_f32, static_cast<float*>(s1), static_cast<float*>(s2),
-      static_cast<const float*>(sign),
-      static_cast<unsigned long long*>(keys), n, cin, cout);
+      y, out_f32, static_cast<float*>(s1), static_cast<float*>(s2), n, cin,
+      cout);
   return cudaGetLastError();
 }
 
-template <int POOL>
 cudaError_t forward(const void* x, const Prologue& pro, const void* w,
                     const void* b, const void* row_bias, long long rpb,
-                    void* y, int out_f32, void* s1, void* s2,
-                    const void* sign, void* keys, long long n, int cin,
-                    int cout, cudaStream_t s) {
+                    void* y, int out_f32, void* s1, void* s2, long long n,
+                    int cin, int cout, cudaStream_t s) {
   if (use_vec(cin, cout, x, w))
-    return launch_fwd<POOL, true>(x, pro, w, b, row_bias, rpb, y, out_f32,
-                                  s1, s2, sign, keys, n, cin, cout, s);
-  return launch_fwd<POOL, false>(x, pro, w, b, row_bias, rpb, y, out_f32, s1,
-                                 s2, sign, keys, n, cin, cout, s);
+    return launch_fwd<true>(x, pro, w, b, row_bias, rpb, y, out_f32, s1, s2,
+                            n, cin, cout, s);
+  return launch_fwd<false>(x, pro, w, b, row_bias, rpb, y, out_f32, s1, s2,
+                           n, cin, cout, s);
 }
 
 template <bool VEC>
@@ -1138,8 +1087,8 @@ int pcseg_fused_block_fwd(const void* x, const void* mu, const void* inv,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Prologue pro =
       make_prologue(mu, inv, gamma, beta, relu, drop, key, thr, scale);
-  return (int)forward<0>(x, pro, w, b, row_bias, rpb, y, out_f32, s1, s2,
-                         nullptr, nullptr, n, cin, cout, s);
+  return (int)forward(x, pro, w, b, row_bias, rpb, y, out_f32, s1, s2, n,
+                      cin, cout, s);
 }
 
 int pcseg_fused_block_bwd(const void* x, const void* mu, const void* inv,
@@ -1157,50 +1106,10 @@ int pcseg_fused_block_bwd(const void* x, const void* mu, const void* inv,
   int cw;
   cotangent_grid(n, cout, &grid, &cw);
   bf16* dyb = static_cast<bf16*>(scratch);
-  cotangent_kernel<0><<<grid, 256, 0, s>>>(
+  cotangent_kernel<<<grid, 256, 0, s>>>(
       dy, dy_f32, static_cast<const bf16*>(y), static_cast<const float*>(ds1),
-      static_cast<const float*>(ds2), nullptr, nullptr, dyb,
+      static_cast<const float*>(ds2), dyb,
       static_cast<float*>(db), static_cast<float*>(drb), rpb, n, cout, cw);
-  return (int)layer_backward(x, pro, w, dyb, dx, dg, dbeta, dw, n, cin, cout,
-                             s);
-}
-
-int pcseg_global_pool_fwd(const void* x, const void* mu, const void* inv,
-                          const void* gamma, const void* beta, const void* w,
-                          const void* b, const void* sign, void* y, void* s1,
-                          void* s2, void* keys, void* best, void* idx,
-                          long long n, int cin, int cout, long long rpb,
-                          void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Prologue pro = make_prologue(mu, inv, gamma, beta, 1, 0, 0, 0, 1.f);
-  const cudaError_t err = forward<1>(x, pro, w, b, nullptr, rpb, y, 0, s1,
-                                     s2, sign, keys, n, cin, cout, s);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (n / rpb) * cout;
-  pool_finalize_kernel<<<cdiv_int(total, 256), 256, 0, s>>>(
-      static_cast<const unsigned long long*>(keys), static_cast<float*>(best),
-      static_cast<int*>(idx), total);
-  return (int)cudaGetLastError();
-}
-
-int pcseg_global_pool_bwd(const void* x, const void* mu, const void* inv,
-                          const void* gamma, const void* beta, const void* w,
-                          const void* y, const void* ds1, const void* ds2,
-                          const void* pval, const void* idx, void* dx,
-                          void* dw, void* db, void* dg, void* dbeta,
-                          void* scratch, long long n, int cin, int cout,
-                          long long rpb, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Prologue pro = make_prologue(mu, inv, gamma, beta, 1, 0, 0, 0, 1.f);
-  dim3 grid;
-  int cw;
-  cotangent_grid(n, cout, &grid, &cw);
-  bf16* dyb = static_cast<bf16*>(scratch);
-  cotangent_kernel<1><<<grid, 256, 0, s>>>(
-      nullptr, 0, static_cast<const bf16*>(y), static_cast<const float*>(ds1),
-      static_cast<const float*>(ds2), static_cast<const float*>(pval),
-      static_cast<const int*>(idx), dyb, static_cast<float*>(db), nullptr,
-      rpb, n, cout, cw);
   return (int)layer_backward(x, pro, w, dyb, dx, dg, dbeta, dw, n, cin, cout,
                              s);
 }

@@ -4,8 +4,10 @@ The sources under ``pcseg_tpu_torch/csrc/`` have a plain C interface. At
 first use each one is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/pcseg_tpu_torch/`` at the root of the checkout and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). The library
-file name carries a hash of the source, so an edited kernel is never
-served from a stale build.
+file name carries a hash of the source and of every ``csrc/*.cuh`` header
+it includes (``#include "name.cuh"``, found beside the source, so no -I
+flag is needed), so an edited kernel or header is never served from a
+stale build.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -57,12 +60,14 @@ SIGNATURES = {
                                              _F, _I, _I, _P],
         "pcseg_fused_block_bwd": [_P] * 17 + [_I, _L, _I, _I, _L, _I, _U,
                                              _U, _F, _I, _P],
-        "pcseg_global_pool_fwd": [_P] * 14 + [_L, _I, _I, _L, _P],
-        "pcseg_global_pool_bwd": [_P] * 17 + [_L, _I, _I, _L, _P],
         "pcseg_seg4_ce_fwd": [_P] * 10 + [_L, _I, _I, _P],
         "pcseg_seg4_ce_bwd": [_P] * 16 + [_L, _I, _I, _P],
         "pcseg_fused_pool_fwd": [_P, _I] + [_P] * 7 + [_L, _I, _L, _P],
         "pcseg_fused_pool_bwd": [_P] * 3 + [_I, _L, _I, _L, _P],
+    },
+    "pointnet_wgmma": {
+        "pcseg_gp_fwd": [_P] * 14 + [_L, _I, _I, _L, _P],
+        "pcseg_gp_bwd": [_P] * 18 + [_L, _I, _I, _L, _P],
     },
     "block_conv": {
         "pcseg_block_conv": [_P] * 4 + [_I] * 6 + [_P],
@@ -95,11 +100,30 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src: Path) -> str:
+    """Hash of a source and, recursively, of the headers it includes from
+    its own directory."""
+    h, seen, todo = hashlib.sha256(), set(), [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        todo += sorted(path.parent / m.decode() for m in _INCLUDE.findall(text)
+                       if (path.parent / m.decode()).is_file())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source
-    exists; returns the shared library's path."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source (and
+    its headers) exists; returns the shared library's path."""
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = source_digest(src)
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.is_file():
         return out

@@ -19,10 +19,13 @@ every row ties at 0 and row 0 wins.
 Backward: ``dy_eff = (ds1 + 2 * y * ds2) + onehot(idx) * dbest * sign``,
 then the layer backward of fused_block (dx, dW, db, dgamma/dbeta-like).
 
-On the card the forward kernel keeps (value, row) per (batch, channel) as
-one 64-bit key (an order-preserving map of the float above the inverted
-row) combined across blocks with ``atomicMax``, so the larger value wins
-and, among equal values, the smaller row.
+On the card (``csrc/pointnet_wgmma.cu``, TMA + wgmma kernels) the
+forward keeps (value, row) per (batch, channel) as one 64-bit key (an
+order-preserving map of the float above the inverted row) combined across
+blocks with ``atomicMax``, so the larger value wins and, among equal
+values, the smaller row. The kernels take Cin and Cout in multiples of 64
+(``check_widths`` raises ``ValueError`` for any other width before the
+library is built or loaded), any N and any rows_per_batch dividing N.
 """
 
 from __future__ import annotations
@@ -88,26 +91,47 @@ def global_pool_bwd_plain(x, mu, inv, gamma, beta, w, y, ds1, ds2, pval, idx,
     return dx, dw, db, (dz * x_hat).sum(0), dz.sum(0)
 
 
+def check_widths(cin: int, cout: int) -> None:
+    """The kernels' widths: Cin and Cout positive multiples of 64 (one
+    128-byte swizzled row of bf16 per K step and per output box)."""
+    if cin <= 0 or cout <= 0 or cin % 64 or cout % 64:
+        raise ValueError(f"fused_global_pool_block on a CUDA tensor takes "
+                         f"Cin and Cout in multiples of 64; got {cin} -> "
+                         f"{cout}")
+
+
+def _aligned(**tensors) -> None:
+    """TMA and the 16-byte loads need 16-byte aligned operands."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
 def global_pool_fwd_cuda(x, mu, inv, gamma, beta, w, b, sign,
                          rows_per_batch):
     n, cin = x.shape
     cout = w.shape[1]
+    check_widths(cin, cout)
     check("x", x, (n, cin), torch.bfloat16)
     wq = w.to(torch.bfloat16).contiguous()
     check("w", wq, (cin, cout), torch.bfloat16)
     norm = norm_vecs(mu, inv, gamma, beta, cin)
     bf, sg = f32_vec(b, cout, "b"), f32_vec(sign, cout, "sign")
+    _aligned(x=x, w=wq, mu=norm[0], inv=norm[1], gamma=norm[2],
+             beta=norm[3])
     if n % rows_per_batch:
         raise ValueError(f"N={n} is not a multiple of rows_per_batch="
                          f"{rows_per_batch}")
     nb, dev = n // rows_per_batch, x.device
     y = torch.empty((n, cout), dtype=torch.bfloat16, device=dev)
-    s1 = torch.zeros(cout, dtype=torch.float32, device=dev)
-    s2 = torch.zeros(cout, dtype=torch.float32, device=dev)
-    keys = torch.zeros((nb, cout), dtype=torch.int64, device=dev)
+    # s1, s2 and the pool keys start at zero: one fill for the three
+    zeros = torch.zeros(2 * cout + 2 * nb * cout, dtype=torch.float32,
+                        device=dev)
+    s1, s2 = zeros[:cout], zeros[cout:2 * cout]
+    keys = zeros[2 * cout:].view(torch.int64).view(nb, cout)
     best = torch.empty((nb, cout), dtype=torch.float32, device=dev)
     idx = torch.empty((nb, cout), dtype=torch.int32, device=dev)
-    rc = load_library("pointnet_fused").pcseg_global_pool_fwd(
+    rc = load_library("pointnet_wgmma").pcseg_gp_fwd(
         x.data_ptr(), *(t.data_ptr() for t in norm), wq.data_ptr(),
         bf.data_ptr(), sg.data_ptr(), y.data_ptr(), s1.data_ptr(),
         s2.data_ptr(), keys.data_ptr(), best.data_ptr(), idx.data_ptr(), n,
@@ -122,25 +146,39 @@ def global_pool_bwd_cuda(x, mu, inv, gamma, beta, w, y, ds1, ds2, pval, idx,
                          rows_per_batch):
     n, cin = x.shape
     cout = w.shape[1]
+    check_widths(cin, cout)
+    check("x", x, (n, cin), torch.bfloat16)
+    if n % rows_per_batch:
+        raise ValueError(f"N={n} is not a multiple of rows_per_batch="
+                         f"{rows_per_batch}")
     nb, dev = n // rows_per_batch, x.device
     wq = w.to(torch.bfloat16).contiguous()
+    check("w", wq, (cin, cout), torch.bfloat16)
     norm = norm_vecs(mu, inv, gamma, beta, cin)
     ds1, ds2 = f32_vec(ds1, cout, "ds1"), f32_vec(ds2, cout, "ds2")
     pval = pval.float().contiguous()
     check("pval", pval, (nb, cout), torch.float32)
     check("idx", idx, (nb, cout), torch.int32)
     check("y", y, (n, cout), torch.bfloat16)
+    _aligned(x=x, w=wq, y=y, ds1=ds1, ds2=ds2, mu=norm[0], inv=norm[1],
+             gamma=norm[2], beta=norm[3])
     dx = torch.empty((n, cin), dtype=x.dtype, device=dev)
-    dw = torch.zeros((cin, cout), dtype=torch.float32, device=dev)
-    db = torch.zeros(cout, dtype=torch.float32, device=dev)
-    dg = torch.zeros(cin, dtype=torch.float32, device=dev)
-    dbeta = torch.zeros(cin, dtype=torch.float32, device=dev)
+    # dW and the column sums are added into: one fill for the four
+    zeros = torch.zeros(cin * cout + cout + 2 * cin, dtype=torch.float32,
+                        device=dev)
+    dw = zeros[:cin * cout].view(cin, cout)
+    db = zeros[cin * cout:cin * cout + cout]
+    dg = zeros[cin * cout + cout:cin * cout + cout + cin]
+    dbeta = zeros[cin * cout + cout + cin:]
+    # d, and a = bf16(relu(bn5(x))) that the dx kernel writes for dW
     scratch = torch.empty((n, cout), dtype=torch.bfloat16, device=dev)
-    rc = load_library("pointnet_fused").pcseg_global_pool_bwd(
+    a_scratch = torch.empty((n, cin), dtype=torch.bfloat16, device=dev)
+    rc = load_library("pointnet_wgmma").pcseg_gp_bwd(
         x.data_ptr(), *(t.data_ptr() for t in norm), wq.data_ptr(),
         y.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), pval.data_ptr(),
         idx.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        dg.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(), n, cin, cout,
+        dg.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(),
+        a_scratch.data_ptr(), n, cin, cout,
         rows_per_batch, stream_of(x),
     )
     raise_on(rc, "fused_global_pool_block_bwd")

@@ -71,8 +71,27 @@ def _stages(model, events, bucket, batch):
 
 
 # kernel-name substring -> stage, first match wins; anything else is the
-# PyTorch glue (elementwise ops, reductions, copies, Adam, the loss)
-STAGES = (("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
+# PyTorch glue (elementwise ops, reductions, copies, Adam, the loss).
+# PointNet training: row 16's wgmma kernels ("global_pool", its backward
+# "global_pool_bwd"), the WMMA chain of row 15 ("pointnet_block", with the
+# dx / dW products that row 17's backward shares), row 17's classifier +
+# CE and dropout; the row-15 keys start at the anonymous namespace, so no
+# other kernel ending in the same name (row 19's pool_fwd_kernel) matches
+# them (a template kernel's name starts with "void ", another's does not)
+_PN = "(anonymous namespace)::"
+STAGES = (("gp_wgmma_fwd", "global_pool"),
+          # the key decoder row 16 shares with row 19, which no path runs
+          ("pool_finalize_kernel", "global_pool"),
+          ("gp_cotangent", "global_pool_bwd"),
+          ("gp_wgmma_dx", "global_pool_bwd"),
+          ("gp_wgmma_dw", "global_pool_bwd"),
+          (_PN + "fwd_kernel", "pointnet_block"),
+          (_PN + "cotangent_kernel", "pointnet_block"),
+          (_PN + "dx_kernel", "pointnet_block"),
+          (_PN + "dw_kernel", "pointnet_block"),
+          ("ce_fwd_kernel", "seg4_ce"), ("ce_dlogits_kernel", "seg4_ce"),
+          ("dropout_kernel", "dropout"),
+          ("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
           ("voxelize_contract_kernel", "voxelize"),
           ("block_conv", "block_conv"),
           ("block_dgrad", "block_conv_dgrad"),

@@ -26,7 +26,9 @@ reports:
   device's busy share of that step's wall time, and device time by stage
   (``profile_serving.stage_of``; for the sparse step: the conv forward,
   its dgrad and wgrad, the LN forward and backward, the readout's
-  backward, the voxelizer and the PyTorch glue).
+  backward, the voxelizer and the PyTorch glue; for PointNetSeg: row 16's
+  wgmma kernels forward and backward, the rest of the fused chain's WMMA
+  kernels, the classifier + CE, dropout and the glue).
 
 With ``--out`` the profiler tables are also written to
 DIR/profile_train_*.txt.

@@ -137,11 +137,31 @@ def test_fused_block_kernel(gen, case):
             _close_sum(a, r, name)
 
 
-def test_global_pool_kernel(gen):
-    b_, m_, cin, cout = 4, 512, 256, 512
+# (batch rows, rows_per_batch, cin, cout, tied rows): the first shape,
+# B64 x 2048 at 1024 -> 1024 (the main path), 1000 rows a batch row (batch
+# boundaries inside the 128-row tiles, a partial last tile, a partial
+# column tile and a K shorter than the ring), 100 rows a batch row (8-row
+# groups that straddle two batch rows) and repeated rows (first-max ties)
+GLOBAL_CASES = [
+    (4, 512, 256, 512, False),
+    (64, 2048, 1024, 1024, False),
+    (5, 1000, 192, 320, False),
+    (3, 100, 64, 128, False),
+    (4, 512, 256, 512, True),
+]
+
+
+@pytest.mark.parametrize(
+    "case", GLOBAL_CASES,
+    ids=lambda c: f"B{c[0]}xM{c[1]}-{c[2]}x{c[3]}" + ("-ties" if c[4] else ""))
+def test_global_pool_kernel(gen, case):
+    b_, m_, cin, cout, ties = case
     n = b_ * m_
-    x = torch.randn((n, cin), generator=gen, device="cuda").to(
-        torch.bfloat16)
+    x = torch.randn((b_, m_, cin), generator=gen, device="cuda")
+    if ties:  # rows 1-3 of each batch row repeat row 0; batch row 0 is flat
+        x[:, 1:4] = x[:, :1]
+        x[0] = x[0, :1]
+    x = x.reshape(n, cin).to(torch.bfloat16)
     bn = [t.detach() for t in _bn(gen, cin)]
     w, b = (t.detach() for t in _dense(gen, cin, cout))
     sign = torch.sign(torch.randn(cout, generator=gen, device="cuda"))
@@ -159,6 +179,10 @@ def test_global_pool_kernel(gen):
     assert bool((k[4][:, ::7] == 0).all())
     same = float((k[4] == p[4]).float().mean())
     assert same >= 0.99, same
+    if ties:
+        assert not bool(torch.isin(k[4], torch.tensor([1, 2, 3],
+                                                      device="cuda")).any())
+        assert bool((k[4][0] == 0).all())
     # the backward from one forward's y and winners, so a near-tie that
     # the two forwards broke differently does not move the comparison
     ds1 = torch.randn(cout, generator=gen, device="cuda") * 1e-2
@@ -168,9 +192,25 @@ def test_global_pool_kernel(gen):
     gk = fg.global_pool_bwd_cuda(*args)
     gp = fg.global_pool_bwd_plain(*args)
     torch.cuda.synchronize()
+    assert fg.LAUNCHES["fused_global_pool_block_bwd"] == \
+        before["fused_global_pool_block_bwd"] + 1
     _close_bf16(gk[0], gp[0], "dx")
     for name, a, r in zip(("dw", "db", "dg", "dbeta"), gk[1:], gp[1:]):
         _close_sum(a, r, name)
+
+
+@pytest.mark.parametrize("cin, cout", [(100, 128), (128, 96)])
+def test_global_pool_kernel_refuses_widths(gen, cin, cout):
+    """Widths that are not multiples of 64 raise before any launch."""
+    x = torch.randn((256, cin), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bn = [t.detach() for t in _bn(gen, cin)]
+    w, b = (t.detach() for t in _dense(gen, cin, cout))
+    sign = torch.ones(cout, device="cuda")
+    before = dict(fg.LAUNCHES)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fg.fused_global_pool_block(x, *bn, w, b, sign, 128)
+    assert fg.LAUNCHES == before
 
 
 @pytest.mark.parametrize("classes", [4, 13])

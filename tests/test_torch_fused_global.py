@@ -6,6 +6,11 @@ Ties by construction: rows 1-3 of each batch row repeat row 0, so their
 y are equal and the FIRST row must win; every 5th channel has sign 0
 (gamma_global == 0), so all its rows tie at 0 and row 0 must win.
 
+Two shapes: two batch rows of 64 at 128 -> 256, and three of 200 rows at
+128 -> 192 (the card kernels' 128-row tiles then hold batch boundaries
+and end partial, and 192 columns leave a partial 256-column tile); the
+JAX op takes the second with a 40-row tile (rows_per_batch % tile == 0).
+
 Tolerances: the same rounding points on both sides, f32 sums in another
 order, so every float output is held to atol = 2^-8 * max|ref| of its
 tensor (one bf16 ulp of its scale). The winners' rows are compared
@@ -16,6 +21,7 @@ bf16 ulp, and must all agree on the constructed ties.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from pcseg_tpu.ops.pallas.fused_global import (
@@ -33,17 +39,17 @@ def _bf16(a):
     return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
 
 
-def _inputs(seed):
+def _inputs(seed, b_=B, m_=M, cin=CIN, cout=COUT):
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(B, M, CIN)) * 2.0
+    x = rng.normal(size=(b_, m_, cin)) * 2.0
     x[:, 1:4] = x[:, :1]                      # tied rows
-    x = _bf16(x.reshape(N, CIN))
-    bn = [rng.normal(size=CIN) * 0.3, rng.uniform(0.5, 1.5, CIN),
-          rng.normal(size=CIN), rng.normal(size=CIN) * 0.3]
+    x = _bf16(x.reshape(b_ * m_, cin))
+    bn = [rng.normal(size=cin) * 0.3, rng.uniform(0.5, 1.5, cin),
+          rng.normal(size=cin), rng.normal(size=cin) * 0.3]
     bn = [a.astype(np.float32) for a in bn]
-    w = (rng.uniform(-1, 1, (CIN, COUT)) / np.sqrt(CIN)).astype(np.float32)
-    b = (rng.normal(size=COUT) * 0.1).astype(np.float32)
-    sign = np.sign(rng.normal(size=COUT)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (cin, cout)) / np.sqrt(cin)).astype(np.float32)
+    b = (rng.normal(size=cout) * 0.1).astype(np.float32)
+    sign = np.sign(rng.normal(size=cout)).astype(np.float32)
     sign[::5] = 0.0                          # gamma_global == 0 channels
     return x, bn, w, b, sign
 
@@ -57,8 +63,15 @@ def _assert_close(got, ref, name):
     assert err <= atol, f"{name}: max err {err} > {atol}"
 
 
-def test_fused_global_pool_block_matches_jax():
-    x, bn, w, b, sign = _inputs(0)
+# (batch rows, rows_per_batch, cin, cout, the JAX op's row tile)
+SHAPES = [(B, M, CIN, COUT, 64), (3, 200, 128, 192, 40)]
+
+
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=lambda s: f"B{s[0]}xM{s[1]}-{s[2]}x{s[3]}")
+def test_fused_global_pool_block_matches_jax(shape):
+    B, M, CIN, COUT, tile = shape
+    x, bn, w, b, sign = _inputs(0, B, M, CIN, COUT)
     rng = np.random.default_rng(1)
     ds1 = (rng.normal(size=COUT) * 0.01).astype(np.float32)
     ds2 = (rng.normal(size=COUT) * 0.001).astype(np.float32)
@@ -66,7 +79,7 @@ def test_fused_global_pool_block_matches_jax():
 
     def jf(x_, bn_, w_, b_):
         return jax_pool_block(x_, *bn_, w_.astype(jnp.bfloat16), b_,
-                              jnp.asarray(sign), M, 64)
+                              jnp.asarray(sign), M, tile)
 
     (js1, js2, jbest, jidx), vjp = jax.vjp(
         jf, jnp.asarray(x, jnp.bfloat16), [jnp.asarray(a) for a in bn],
@@ -128,3 +141,28 @@ def test_pool_gradient_goes_to_the_first_tied_row():
                                   pval, idx, M)[0]
     dx = dx.float().reshape(B, M, CIN)
     assert bool((dx[:, 1:] == 0).all()) and float(dx[:, 0].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_card_width_check_raises_before_the_library_loads(monkeypatch,
+                                                          direction):
+    """Cin or Cout not a multiple of 64 raises ValueError in the card
+    wrappers before the kernel library is built or loaded."""
+    def no_library(name):
+        raise AssertionError(f"library {name} loaded")
+
+    monkeypatch.setattr(fg, "load_library", no_library)
+    n, cin, cout, m = 256, 100, 128, 128
+    x = torch.zeros((n, cin), dtype=torch.bfloat16)
+    bn = [torch.ones(cin) for _ in range(4)]
+    w = torch.zeros((cin, cout))
+    with pytest.raises(ValueError, match="multiples of 64"):
+        if direction == "forward":
+            fg.global_pool_fwd_cuda(x, *bn, w, torch.zeros(cout),
+                                    torch.ones(cout), m)
+        else:
+            z = torch.zeros(cout)
+            fg.global_pool_bwd_cuda(
+                x, *bn, w, torch.zeros((n, cout), dtype=torch.bfloat16), z, z,
+                torch.zeros((n // m, cout)),
+                torch.zeros((n // m, cout), dtype=torch.int32), m)
