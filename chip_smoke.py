@@ -5,9 +5,9 @@
 
 1. Builds the CUDA kernels from pcseg_tpu_torch/csrc/ (nvcc, sm_90a, one
    process per source, all at once), then prints ptxas's registers, shared
-   memory and spills of the wgmma library (pointnet_wgmma.cu, row 16) and
-   the HGMMA instructions in each of its wgmma kernels' SASS (cuobjdump),
-   failing if one has none.
+   memory and spills of the wgmma libraries (pointnet_wgmma.cu, row 16;
+   pointnet_chain.cu, rows 15 and 17) and the HGMMA instructions in each
+   of their wgmma kernels' SASS (cuobjdump), failing if one has none.
 2. Holds each conv kernel against its plain PyTorch version at every
    shape the voxel serving path launches (batch 8, 64^3 grid, widths
    16/32/64), and times kernel, plain version and one cuDNN call of the
@@ -23,10 +23,14 @@
    block, the classifier + CE, dropout), forward and backward, against
    its plain version at every shape one train step at B64 x 2048 points
    launches, and times kernel, plain version, bound and one bf16
-   torch.matmul of the same product (a yardstick only); the global pool
-   block also at 1000 rows a batch row (batch boundaries inside its
-   128-row tiles, a partial last tile) and, at the main shape, each of
-   its kernels by device time beside the op's CUDA-event time.
+   torch.matmul of the same product (a yardstick only); fused_block
+   (seg1's shape with its row bias, on the split backward, and conv4's,
+   on the one-sweep backward) at B63 x 1000 rows (batch boundaries inside
+   the 128-row tiles, a partial last tile: N = 63,000) and the global
+   pool block at 1000 rows a batch row. Rows 15-17 print each kernel's
+   device time beside
+   the op's CUDA-event time, and row 15 its sums over the 8 launches of
+   a step.
 5. One whole fused PointNetSeg train step (full width, 4 classes,
    dropout 0.3, seeded random weights) with the kernels and with the
    plain versions, from the same state and seeds: loss, gradients and
@@ -124,10 +128,12 @@ builds the kernels, repeats only the whole-step comparisons of phases 8,
 spread their loss limits are set from. It holds nothing and prints no
 result.
 
-    python3 chip_smoke.py --row16
+    python3 chip_smoke.py --pointnet
 
 builds the kernels, prints phase 1's wgmma report and runs only phase 4's
-two row-16 cases (held as in phase 4), as one JSON line; no result line.
+PointNet cases of rows 15-17 (held as in phase 4, with each op's kernels
+by device time and row 15's sums over a step), as one JSON line; no
+result line.
 """
 
 from __future__ import annotations
@@ -168,6 +174,11 @@ LOGITS_REL, ARGMAX_AGREE = 4 * 2.0 ** -8, 0.999
 # PointNetSeg training: pcseg_tpu/bench.py's step, B64 x 2048 points,
 # 4 classes, dropout 0.3, bf16
 PN_SOURCE = "pcseg_tpu_torch/csrc/pointnet_fused.cu"
+CHAIN_SOURCE = "pcseg_tpu_torch/csrc/pointnet_chain.cu"
+PN_SOURCES = {"fused_block": CHAIN_SOURCE,
+              "fused_global_pool_block": "pcseg_tpu_torch/csrc/"
+                                         "pointnet_wgmma.cu",
+              "fused_seg4_ce": CHAIN_SOURCE, "dropout": PN_SOURCE}
 PN_REPLACES = {
     "fused_block": "pcseg_tpu/ops/pallas/fused_block.py:239",
     "fused_global_pool_block": "pcseg_tpu/ops/pallas/fused_global.py:176",
@@ -219,54 +230,70 @@ PN_ZERO_GRAD = {f"{n}.bias" for n in ("conv1", "conv2", "conv3", "conv4",
                                       "seg_conv2", "seg_conv3")}
 
 
-# row 16's wgmma kernels
-WGMMA_SOURCE = "pcseg_tpu_torch/csrc/pointnet_wgmma.cu"
-WGMMA_KERNELS = ("gp_wgmma_fwd_kernel", "gp_wgmma_dx_kernel",
-                 "gp_wgmma_dw_kernel")
+# the wgmma kernels of rows 16 and 15, by source
+WGMMA_SOURCES = {
+    "pointnet_wgmma": ("gp_wgmma_fwd_kernel", "gp_wgmma_dx_kernel",
+                       "gp_wgmma_dw_kernel"),
+    "pointnet_chain": ("chain_wgmma_fwd_kernel", "chain_wgmma_bwd_kernel",
+                       "chain_wgmma_dx_kernel", "chain_wgmma_dw_kernel"),
+}
 
 
 def wgmma_report() -> dict:
-    """Phase 1's look at the wgmma library: ptxas's registers, shared
-    memory and spills of each of its kernels (-Xptxas -v on a cubin of the
-    same source and flags) and, where cuobjdump is present, the HGMMA
-    instructions in each wgmma kernel's SASS; fails if one has none."""
+    """Phase 1's look at the wgmma libraries: ptxas's registers, shared
+    memory and spills of each kernel of each source (-Xptxas -v on a
+    cubin of the same source and flags) and, where cuobjdump is present,
+    the HGMMA instructions in each wgmma kernel's SASS; fails if one has
+    none."""
     import shutil
     from pathlib import Path
 
     from pcseg_tpu_torch.ops import _build
 
-    src = _build._CSRC / "pointnet_wgmma.cu"
-    cubin = _build.BUILD_DIR / "pointnet_wgmma.cubin"
     flags = [f for f in _build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v",
-                           "-o", str(cubin), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc -cubin failed:\n{proc.stdout}{proc.stderr}")
-    lines = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-             if "ptxas" in ln]
-    for ln in lines:
-        print(f"  {ln}", flush=True)
     tool = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
-    if not Path(tool).is_file():
-        print("  cuobjdump not found: HGMMA count not taken", flush=True)
-        return {"ptxas": lines, "hgmma": None}
-    sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
-                          text=True, check=True).stdout
-    hgmma = dict.fromkeys(WGMMA_KERNELS, 0)
-    current = None
-    for ln in sass.splitlines():
-        m = re.search(r"Function : (\S+)", ln)
-        if m:
-            current = next((k for k in WGMMA_KERNELS if k in m.group(1)), None)
-        elif current and "HGMMA" in ln:
-            hgmma[current] += 1
-    print(f"  HGMMA instructions in the SASS: {json.dumps(hgmma)}", flush=True)
-    if not all(hgmma.values()):
-        raise AssertionError(f"a row-16 kernel has no HGMMA: {hgmma}")
-    return {"ptxas": lines, "hgmma": hgmma}
+    out = {}
+    for name, kernels in WGMMA_SOURCES.items():
+        src = _build._CSRC / f"{name}.cu"
+        if not src.is_file():  # a checkout from before the source existed
+            print(f"  {name}.cu: not in this checkout", flush=True)
+            continue
+        cubin = _build.BUILD_DIR / f"{name}.cubin"
+        proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-Xptxas",
+                               "-v", "-o", str(cubin), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -cubin {name} failed:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        lines = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                 if "ptxas" in ln]
+        print(f"  {name}.cu:", flush=True)
+        for ln in lines:
+            print(f"    {ln}", flush=True)
+        if not Path(tool).is_file():
+            print("  cuobjdump not found: HGMMA count not taken", flush=True)
+            out[name] = {"ptxas": lines, "hgmma": None}
+            continue
+        sass = subprocess.run([tool, "-sass", str(cubin)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        hgmma = dict.fromkeys(kernels, 0)
+        current = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                current = next((k for k in kernels if k in m.group(1)), None)
+            elif current and "HGMMA" in ln:
+                hgmma[current] += 1
+        print(f"  HGMMA instructions in {name}'s SASS: {json.dumps(hgmma)}",
+              flush=True)
+        if not all(hgmma.values()):
+            raise AssertionError(f"a wgmma kernel of {name} has no HGMMA: "
+                                 f"{hgmma}")
+        out[name] = {"ptxas": lines, "hgmma": hgmma}
+    return out
 
 
 def card_line() -> str:
@@ -642,19 +669,25 @@ def _report(res):
     return res
 
 
-def pn_block_case(layer, cin, cout, normalize, drop, row_bias, gen):
+def pn_block_case(layer, cin, cout, normalize, drop, row_bias, gen, b=PN_B,
+                  m=PN_M):
+    """Row 15 at one layer's shape (b batch rows of m points) against its
+    plain version, forward and backward; times the op, its plain version,
+    one bf16 product (the forward's x @ wq; the backward's pair) and each
+    kernel of the op by device time."""
     import torch
 
     from pcseg_tpu_torch.ops import fused_block as fb
 
-    n = PN_B * PN_M
+    n = b * m
     x = torch.randn((n, cin), generator=gen, device="cuda").to(torch.bfloat16)
     bn = _bn_vectors(gen, cin) if normalize else [None] * 4
-    w, b = _dense(gen, cin, cout)
-    rb = (torch.randn((PN_B, cout), generator=gen, device="cuda")
+    w, bias = _dense(gen, cin, cout)
+    rb = (torch.randn((b, cout), generator=gen, device="cuda")
           if row_bias else None)
-    rpb = PN_M if row_bias else 0
-    fwd = (x, *bn, w, b, rb, 987, normalize, drop, True, rpb, torch.bfloat16)
+    rpb = m if row_bias else 0
+    fwd = (x, *bn, w, bias, rb, 987, normalize, drop, True, rpb,
+           torch.bfloat16)
     yk, s1k, s2k = fb.fused_block_fwd_cuda(*fwd)
     torch.cuda.synchronize()
     yp, s1p, s2p = fb.fused_block_fwd_plain(*fwd)
@@ -677,38 +710,67 @@ def pn_block_case(layer, cin, cout, normalize, drop, row_bias, gen):
 
     wq = w.to(torch.bfloat16)
     res = {
-        "name": "fused_block", "case": layer, "shape": f"N{n} {cin}->{cout}",
-        "max_abs_err": err,
+        "name": "fused_block", "case": layer,
+        "shape": f"B{b} M{m} {cin}->{cout}", "max_abs_err": err,
         "ms": time_ms(lambda: fb.fused_block_fwd_cuda(*fwd)),
         "plain_ms": time_ms(lambda: fb.fused_block_fwd_plain(*fwd)),
         "library_ms": time_ms(lambda: x @ wq),
         "bwd_ms": time_ms(lambda: fb.fused_block_bwd_cuda(*bwd)),
         "bwd_plain_ms": time_ms(lambda: fb.fused_block_bwd_plain(*bwd)),
         "bwd_library_ms": time_ms(lambda: (dy @ wq.t(), x.t() @ dy)),
+        "device_ms": kernels_device_ms(lambda: fb.fused_block_fwd_cuda(*fwd)),
+        "bwd_device_ms": kernels_device_ms(
+            lambda: fb.fused_block_bwd_cuda(*bwd)),
     }
     vec = 4 * cin * 4 if normalize else 0
     io = n * cin * 2 + cin * cout * 2 + cout * 4 + vec
     fwd_bytes = io + n * cout * 2 + 2 * cout * 4 + (
-        PN_B * cout * 4 if row_bias else 0)
+        b * cout * 4 if row_bias else 0)
     bwd_bytes = io + 2 * n * cout * 2 + n * cin * 2 + cin * cout * 4 + (
-        2 * cin * 4 if normalize else 0)
+        2 * cin * 4 if normalize else 0) + (b * cout * 4 if row_bias else 0)
     res["bound_ms"], res["bound_by"] = _bound(fwd_bytes, 2 * n * cin * cout)
     res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(bwd_bytes,
                                                       4 * n * cin * cout)
-    return _report(res)
+    _report(res)
+    _device_report(res)
+    return res
+
+
+def _device_report(res):
+    print(f"      device ms by kernel (op: fwd {res['ms']:.4f}, bwd "
+          f"{res['bwd_ms']:.4f}): fwd {json.dumps(res['device_ms'])}; bwd "
+          f"{json.dumps(res['bwd_device_ms'])}", flush=True)
+
+
+def pn_step_sums(pn_cases):
+    """Row 15's 8 launches of one train step (conv2 and conv3 share a
+    case), summed: op ms, bound and one bf16 product, forward and
+    backward."""
+    times = {"conv2/conv3": 2}
+    sums = {}
+    for key in ("ms", "bound_ms", "library_ms", "bwd_ms", "bwd_bound_ms",
+                "bwd_library_ms"):
+        sums[key] = sum(c[key] * times.get(c["case"], 1) for c in pn_cases
+                        if c["name"] == "fused_block"
+                        and c["case"] in {blk[0] for blk in PN_BLOCKS})
+    print(f"  row 15, the 8 launches of one step: fwd {sums['ms']:.4f} ms "
+          f"(bound {sums['bound_ms']:.4f}, x @ wq {sums['library_ms']:.4f}); "
+          f"bwd {sums['bwd_ms']:.4f} ms (bound {sums['bwd_bound_ms']:.4f}, "
+          f"product pairs {sums['bwd_library_ms']:.4f})", flush=True)
+    return sums
 
 
 def kernels_device_ms(fn, iters: int = 10) -> dict:
     """Device ms per call of each kernel that one call of ``fn`` launches
-    (torch.profiler over ``iters`` warm calls), by short kernel name."""
-    from pcseg_tpu_torch.profile_serving import device_profile
+    (torch.profiler over ``iters`` warm calls, profiled again while
+    launches go unrecorded), by short kernel name."""
+    from pcseg_tpu_torch.profile_serving import profile_calls
 
-    res, _ = device_profile(lambda: [fn() for _ in range(iters)])
     out: dict = {}
-    for k in res["kernels"]:
+    for full, ms in profile_calls(fn, iters).items():
         name = re.sub(r"^void |\(anonymous namespace\)::", "",
-                      k["name"]).split("(")[0]
-        out[name] = out.get(name, 0.0) + k["device_ms"] / iters
+                      full).split("(")[0]
+        out[name] = out.get(name, 0.0) + ms
     return out
 
 
@@ -828,12 +890,39 @@ def pn_ce_case(gen):
         # the backward's two products, dlogits W^T and x^T dlogits, on a
         # bf16 (N, C) cotangent, as the other rows' yardstick
         "bwd_library_ms": time_ms(lambda: (dl @ wq.t(), x.t() @ dl)),
+        "device_ms": kernels_device_ms(lambda: fc.seg4_ce_fwd_cuda(*args)),
+        "bwd_device_ms": kernels_device_ms(
+            lambda: fc.seg4_ce_bwd_cuda(*args, ct)),
     }
     io = n * cin * 2 + n * 8 + cin * c * 2 + 2 * c * 4 + 4 * cin * 4
     res["bound_ms"], res["bound_by"] = _bound(io + 3 * 4, 2 * n * cin * c)
     res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(
         io + n * cin * 2 + cin * c * 4, 4 * n * cin * c)
-    return _report(res)
+    _report(res)
+    _device_report(res)
+    return res
+
+
+def pn_training_cases(gen, dropout=True):
+    """Phase 4: rows 15-17 at every shape of a B64 x 2048 train step, row
+    15 also at B63 x 1000 rows (N = 63,000, not a multiple of 128: a
+    partial last tile, whose rows TMA fills with zeros) at seg1's shape
+    with its row bias (batch boundaries inside the row tiles; the split
+    backward) and at conv4's (the one-sweep backward), row 16 at
+    1000 rows a batch row; then dropout (row 18). Returns the cases and
+    row 15's sums over the 8 launches of a step."""
+    cases = [pn_block_case(*blk, gen) for blk in PN_BLOCKS]
+    cases.append(pn_block_case("seg1 ragged M1000", 64, 512, True, 0.0, True,
+                               gen, b=63, m=1000))
+    cases.append(pn_block_case("conv4 ragged M1000", 64, 128, True, 0.0,
+                               False, gen, b=63, m=1000))
+    sums = pn_step_sums(cases)
+    cases += [pn_global_case(gen),
+              pn_global_case(gen, 64, 1000, "ragged M1000"),
+              pn_ce_case(gen)]
+    if dropout:
+        cases += [pn_dropout_case(c, gen) for c in (512, 256)]
+    return cases, sums
 
 
 def pn_dropout_case(c, gen):
@@ -1512,11 +1601,14 @@ def device_ms(fn, iters: int = 10) -> float:
     """Device time of one call of ``fn``: its CUDA kernels summed by
     torch.profiler over ``iters`` warm calls. Phase 10's calls are short
     enough that CUDA events around back-to-back calls time the host's
-    launch rate instead (reported beside it as ``wrapper_ms``)."""
-    from pcseg_tpu_torch.profile_serving import device_profile
+    launch rate instead (reported beside it as ``wrapper_ms``); profiled
+    again while launches go unrecorded. A profile that keeps no kernel
+    time at all (late in a run, torch.max's reduction in phase 18 read 0)
+    gives way to CUDA events around the calls."""
+    from pcseg_tpu_torch.profile_serving import profile_calls
 
-    res, _ = device_profile(lambda: [fn() for _ in range(iters)])
-    return res["device_busy_ms"] / iters
+    ms = sum(profile_calls(fn, iters).values())
+    return ms if ms > 1e-4 else time_ms(fn, iters)
 
 
 def _onehot_check(got, ref):
@@ -1923,12 +2015,12 @@ def _sp_sum_check(got, ref, mag, bf16):
 
 def kernel_ms(fn, keys, iters: int = 10) -> float:
     """Device time of the kernels of one call of ``fn`` whose names hold
-    one of ``keys`` (torch.profiler over ``iters`` warm calls)."""
-    from pcseg_tpu_torch.profile_serving import device_profile
+    one of ``keys`` (torch.profiler over ``iters`` warm calls, profiled
+    again while launches go unrecorded)."""
+    from pcseg_tpu_torch.profile_serving import profile_calls
 
-    res, _ = device_profile(lambda: [fn() for _ in range(iters)])
-    return sum(k["device_ms"] for k in res["kernels"]
-               if any(key in k["name"] for key in keys)) / iters
+    return sum(ms for name, ms in profile_calls(fn, iters).items()
+               if any(key in name for key in keys))
 
 
 def sp_conv_case(kind, bs, label, cin, cout, dtype, gen):
@@ -2809,11 +2901,11 @@ def main() -> int:
     wgmma = wgmma_report()
     if sys.argv[1:2] == ["--step-spread"]:
         return step_spread(card, int(sys.argv[2]))
-    if sys.argv[1:2] == ["--row16"]:
+    if sys.argv[1:2] == ["--pointnet"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
-        print(json.dumps({"card": card, "row16": [
-            pn_global_case(gen),
-            pn_global_case(gen, 64, 1000, "ragged M1000")]}))
+        cases, sums = pn_training_cases(gen, dropout=False)
+        print(json.dumps({"card": card, "pointnet_cases": cases,
+                          "row15_step": sums}))
         return 0
 
     print(f"[2] kernels vs plain versions [{card}]", flush=True)
@@ -2825,11 +2917,7 @@ def main() -> int:
 
     print(f"[4] PointNet training kernels vs plain versions, B{PN_B} x "
           f"{PN_M} [{card}]", flush=True)
-    pn_cases = [pn_block_case(*blk, gen) for blk in PN_BLOCKS]
-    pn_cases += [pn_global_case(gen),
-                 pn_global_case(gen, 64, 1000, "ragged M1000"),
-                 pn_ce_case(gen)]
-    pn_cases += [pn_dropout_case(c, gen) for c in (512, 256)]
+    pn_cases, pn_sums = pn_training_cases(gen)
 
     print(f"[5] one fused train step, kernels vs plain [{card}]", flush=True)
     step = pn_step_compare(card)
@@ -3032,8 +3120,7 @@ def main() -> int:
         at = next(c for c in mine if c["case"] == label)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": WGMMA_SOURCE if name == "fused_global_pool_block"
-            else PN_SOURCE,
+            "source": PN_SOURCES[name],
             "replaces": PN_REPLACES[name],
             "launches": fit_launches[name] + fit_launches.get(
                 f"{name}_bwd", 0),
@@ -3045,6 +3132,7 @@ def main() -> int:
             "bwd_bound_ms": at["bwd_bound_ms"],
             **{k: at[k] for k in ("bwd_library_ms", "device_ms",
                                   "bwd_device_ms") if k in at},
+            **({"step_sums": pn_sums} if name == "fused_block" else {}),
         })
     # rows 14 and 19: numbers at the PointNet global layer's shape and at
     # the B8 x 8192, R64 voxel shape; no main path launches them
@@ -3084,7 +3172,8 @@ def main() -> int:
                 "bwd_library")})
         kernels.append(row)
     print(json.dumps({"cases": cases, "serving": served,
-                      "pointnet_cases": pn_cases, "pointnet_step": step,
+                      "pointnet_cases": pn_cases, "row15_step": pn_sums,
+                      "pointnet_step": step,
                       "pointnet_fit": fits, "voxel_cases": vox_cases,
                       "voxel_step": vox_step, "voxel_fit": vox_fitted,
                       "default_cases": def_cases, "default_serving":

@@ -56,14 +56,17 @@ SIGNATURES = {
     },
     "pointnet_fused": {
         "pcseg_dropout": [_P, _P, _L, _U, _U, _F, _I, _P],
-        "pcseg_fused_block_fwd": [_P] * 11 + [_L, _I, _I, _L, _I, _U, _U,
-                                             _F, _I, _I, _P],
-        "pcseg_fused_block_bwd": [_P] * 17 + [_I, _L, _I, _I, _L, _I, _U,
-                                             _U, _F, _I, _P],
-        "pcseg_seg4_ce_fwd": [_P] * 10 + [_L, _I, _I, _P],
-        "pcseg_seg4_ce_bwd": [_P] * 16 + [_L, _I, _I, _P],
         "pcseg_fused_pool_fwd": [_P, _I] + [_P] * 7 + [_L, _I, _L, _P],
         "pcseg_fused_pool_bwd": [_P] * 3 + [_I, _L, _I, _L, _P],
+    },
+    "pointnet_chain": {
+        "pcseg_chain_fwd": [_P] * 12 + [_L, _I, _I, _L, _I, _U, _U, _F, _I,
+                                       _I, _I, _P],
+        "pcseg_chain_bwd": [_P] * 19 + [_I, _I, _L, _I, _I, _L, _I, _U, _U,
+                                       _F, _I, _P],
+        "pcseg_chain_bwd_split": [_I] * 4,
+        "pcseg_seg4_ce_fwd": [_P] * 10 + [_I, _L, _I, _I, _P],
+        "pcseg_seg4_ce_bwd": [_P] * 15 + [_I, _L, _I, _I, _P],
     },
     "pointnet_wgmma": {
         "pcseg_gp_fwd": [_P] * 14 + [_L, _I, _I, _L, _P],
@@ -147,18 +150,45 @@ def build(name: str) -> Path:
     return out
 
 
+def _bind(path: Path, name: str) -> ctypes.CDLL:
+    """Load a library of source ``name`` with the argtypes and int return
+    type of every entry set."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        entry = getattr(lib, fn)
+        entry.argtypes = argtypes
+        entry.restype = ctypes.c_int
+    return lib
+
+
 def load_library(name: str = "conv3d_block") -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library, with the argtypes
-    and int return type of every entry set."""
+    """Build (if needed) and load one kernel library."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        for fn, argtypes in SIGNATURES[name].items():
-            entry = getattr(lib, fn)
-            entry.argtypes = argtypes
-            entry.restype = ctypes.c_int
-        _LOADED[name] = lib
+        lib = _LOADED[name] = _bind(build(name), name)
     return lib
+
+
+def build_variant(name: str, tag: str, defines=(), src: str | None = None
+                  ) -> ctypes.CDLL:
+    """A profiler's variant of ``csrc/<name>.cu``: the source (or ``src``,
+    an edited copy of it) and the headers copied to ``BUILD_DIR/<tag>``,
+    compiled with the extra ``-D`` ``defines`` and loaded with the regular
+    library's entries. Nothing of the package loads it."""
+    out = BUILD_DIR / tag
+    out.mkdir(parents=True, exist_ok=True)
+    text = src if src is not None else (_CSRC / f"{name}.cu").read_text()
+    (out / f"{name}.cu").write_text(text)
+    for header in _CSRC.glob("*.cuh"):
+        (out / header.name).write_text(header.read_text())
+    lib_path = out / "lib.so"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+         str(lib_path), str(out / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stderr}")
+    return _bind(lib_path, name)
 
 
 # -- launch helpers shared by the kernel wrappers

@@ -23,13 +23,21 @@ The cotangent of y is ``dy_eff = (dy + ds1) + 2 * y_bf16 * ds2``, rounded
 to bf16 for both backward products. Dropout masks are regenerated from
 the seed (ops/dropout.py), nothing is stored.
 
-``fused_block`` runs the CUDA kernels (csrc/pointnet_fused.cu) on CUDA
+``fused_block`` runs the CUDA kernels (csrc/pointnet_chain.cu) on CUDA
 tensors and the plain version on CPU tensors (or when ``plain=True``, the
 on-card reference). The plain version keeps the kernels' rounding points,
-so the two agree up to f32 summation order.
+so the two agree up to f32 summation order. On the card a width takes one
+of three routes (``route_of``): TMA + wgmma kernels for widths that are
+multiples of 64 (one launch forward; backward one sweep where a block's
+dW partial fits in registers, else three launches: the bf16 cotangent, dx,
+dW), and CUDA-core kernels for conv1 (Cin <= 16) and the logits layer
+(Cout <= 32), one launch each way; any other width raises ValueError
+before the library loads.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -59,16 +67,19 @@ def reset_launches() -> None:
 def check(name, t, shape, dtype):
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name} is on {t.device}, expected a CUDA device")
 
 
 def f32_vec(v, c, name):
+    if v.dtype == torch.float32 and v.shape == (c,) and v.is_contiguous() \
+            and v.is_cuda:  # as it comes on the main path: no conversion
+        return v
     out = v.float().contiguous()
     check(name, out, (c,), torch.float32)
     return out
@@ -163,10 +174,61 @@ def fused_block_bwd_plain(x, mu, inv, gamma, beta, w, y, dy, ds1, ds2,
 # kernel launches
 # ---------------------------------------------------------------------------
 
+def route_of(cin: int, cout: int) -> str:
+    """The kernel a width takes on a CUDA tensor (csrc/pointnet_chain.cu
+    route_of, the same rule): "simt" for conv1 (Cin <= 16, Cout 64, 128 or
+    256), "narrow" for the logits layer (Cin 128, Cout 1..32), "wgmma" for
+    Cin and Cout multiples of 64, up to 512 and 1024. Any other width
+    raises ValueError, before the library is built or loaded."""
+    if 1 <= cin <= 16 and cout in (64, 128, 256):
+        return "simt"
+    if cin == 128 and 1 <= cout <= 32:
+        return "narrow"
+    if 0 < cin <= 512 and 0 < cout <= 1024 and cin % 64 == 0 \
+            and cout % 64 == 0:
+        return "wgmma"
+    raise ValueError(
+        f"fused_block on a CUDA tensor takes Cin <= 16 with Cout 64, 128 or "
+        f"256, Cin 128 with Cout 1..32, or Cin and Cout multiples of 64 up "
+        f"to 512 and 1024; got {cin} -> {cout}")
+
+
+def w_operand(w, cin, cout):
+    """W as the kernels take it: f32 or bf16, contiguous (they round it to
+    bf16 themselves; the wgmma route into a permuted copy, the others as
+    they stage it). Returns (w, 1 if f32 else 0)."""
+    if w.dtype not in (torch.float32, torch.bfloat16) or \
+            not w.is_contiguous():
+        w = w.float().contiguous()
+    check("w", w, (cin, cout), w.dtype)
+    return w, int(w.dtype == torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_split(lib, cin, cout, dy_f32, row_bias) -> int:
+    """1 where the library runs the wgmma backward as split kernels (they
+    need the d and a scratch), 0 where it runs the one sweep."""
+    return lib.pcseg_chain_bwd_split(cin, cout, dy_f32, row_bias)
+
+
 def _drop_args(seed, drop_rate):
     if drop_rate > 0.0:
         return seed_key(seed), threshold(drop_rate), 1.0 / (1.0 - drop_rate), 1
     return 0, 0, 1.0, 0
+
+
+def _checked_row_bias(row_bias, n, rows_per_batch, cout, route):
+    if row_bias is None:
+        return None
+    if route != "wgmma":
+        raise ValueError("fused_block takes a row bias only at widths that "
+                         "are multiples of 64")
+    if rows_per_batch <= 0 or n % rows_per_batch:
+        raise ValueError(f"N={n} is not a multiple of rows_per_batch="
+                         f"{rows_per_batch}")
+    rb = row_bias.float().contiguous()
+    check("row_bias", rb, (n // rows_per_batch, cout), torch.float32)
+    return rb
 
 
 def fused_block_fwd_cuda(x, mu, inv, gamma, beta, w, b, row_bias, seed,
@@ -174,28 +236,26 @@ def fused_block_fwd_cuda(x, mu, inv, gamma, beta, w, b, row_bias, seed,
                          out_dtype):
     n, cin = x.shape
     cout = w.shape[1]
+    route = route_of(cin, cout)
     check("x", x, (n, cin), torch.bfloat16)
-    wq = w.to(torch.bfloat16).contiguous()
-    check("w", wq, (cin, cout), torch.bfloat16)
-    bf = f32_vec(b, cout, "b")
-    norm = norm_vecs(mu, inv, gamma, beta, cin)
-    rb = None
-    if row_bias is not None:
-        rb = row_bias.float().contiguous()
-        check("row_bias", rb, (n // rows_per_batch, cout), torch.float32)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bf16 or f32, got {out_dtype}")
+    wk, w_f32 = w_operand(w, cin, cout)
+    bf = f32_vec(b, cout, "b")
+    norm = norm_vecs(mu, inv, gamma, beta, cin)
+    rb = _checked_row_bias(row_bias, n, rows_per_batch, cout, route)
     dev = x.device
     y = torch.empty((n, cout), dtype=out_dtype, device=dev)
+    wq = (torch.empty(cin * cout, dtype=torch.bfloat16, device=dev)
+          if route == "wgmma" else None)  # W rounded and permuted
     s1 = s2 = None
-    if emit_stats:
-        s1 = torch.zeros(cout, dtype=torch.float32, device=dev)
-        s2 = torch.zeros(cout, dtype=torch.float32, device=dev)
+    if emit_stats:  # cleared by the kernel entry
+        s1, s2 = torch.empty((2, cout), dtype=torch.float32, device=dev)
     key, thr, scale, drop = _drop_args(seed, drop_rate)
-    rc = load_library("pointnet_fused").pcseg_fused_block_fwd(
-        x.data_ptr(), *(ptr(t) for t in norm), wq.data_ptr(), bf.data_ptr(),
-        ptr(rb), y.data_ptr(), ptr(s1), ptr(s2), n, cin, cout,
-        max(rows_per_batch, 1), int(relu), key, thr, scale, drop,
+    rc = load_library("pointnet_chain").pcseg_chain_fwd(
+        x.data_ptr(), *(ptr(t) for t in norm), wk.data_ptr(), ptr(wq),
+        bf.data_ptr(), ptr(rb), y.data_ptr(), ptr(s1), ptr(s2), n, cin, cout,
+        max(rows_per_batch, 1), int(relu), key, thr, scale, drop, w_f32,
         int(out_dtype == torch.float32), stream_of(x),
     )
     raise_on(rc, "fused_block")
@@ -207,10 +267,18 @@ def fused_block_bwd_cuda(x, mu, inv, gamma, beta, w, y, dy, ds1, ds2, seed,
                          relu, drop_rate, rows_per_batch, has_row_bias):
     n, cin = x.shape
     cout = w.shape[1]
+    route = route_of(cin, cout)
+    if has_row_bias and route != "wgmma":
+        raise ValueError("fused_block takes a row bias only at widths that "
+                         "are multiples of 64")
+    if has_row_bias and (rows_per_batch <= 0 or n % rows_per_batch):
+        raise ValueError(f"N={n} is not a multiple of rows_per_batch="
+                         f"{rows_per_batch}")
     dev = x.device
     check("x", x, (n, cin), torch.bfloat16)
-    wq = w.to(torch.bfloat16).contiguous()
-    dy = dy.contiguous()
+    wk, w_f32 = w_operand(w, cin, cout)
+    if not dy.is_contiguous():
+        dy = dy.contiguous()
     if dy.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"dy must be bf16 or f32, got {dy.dtype}")
     check("dy", dy, (n, cout), dy.dtype)
@@ -220,21 +288,37 @@ def fused_block_bwd_cuda(x, mu, inv, gamma, beta, w, y, dy, ds1, ds2, seed,
         check("y", y, (n, cout), torch.bfloat16)
         ds1 = f32_vec(ds1, cout, "ds1")
         ds2 = f32_vec(ds2, cout, "ds2")
-    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
+    # dW, db, dgamma, dbeta and d(row_bias) in one allocation; the kernel
+    # entry clears them
+    nb = n // rows_per_batch if has_row_bias else 0
+    sizes = [cin * cout, cout, cin if mu is not None else 0,
+             cin if mu is not None else 0, nb * cout]
+    sums = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    dw, db, dg, dbeta, drb = sums.split(sizes)
+    dw = dw.view(cin, cout)
+    dg = dg if mu is not None else None
+    dbeta = dbeta if mu is not None else None
+    drb = drb.view(nb, cout) if has_row_bias else None
     dx = torch.empty((n, cin), dtype=x.dtype, device=dev)
-    dw, db = zeros(cin, cout), zeros(cout)
-    dg = dbeta = None
-    if mu is not None:
-        dg, dbeta = zeros(cin), zeros(cin)
-    drb = zeros(n // rows_per_batch, cout) if has_row_bias else None
-    scratch = torch.empty((n, cout), dtype=torch.bfloat16, device=dev)
+    lib = load_library("pointnet_chain")
+    dy_f32 = int(dy.dtype == torch.float32)
+    wq = d_scr = a_scr = None
+    if route == "wgmma":  # bf16 scratch: W (permuted) and, where the split
+        # kernels run, d (N, Cout) and a (N, Cin); one allocation
+        split = _bwd_split(lib, cin, cout, dy_f32, int(has_row_bias))
+        scr = torch.empty(cin * cout + split * n * (cout + cin),
+                          dtype=torch.bfloat16, device=dev)
+        wq = scr.data_ptr()
+        if split:
+            d_scr = wq + 2 * cin * cout
+            a_scr = d_scr + 2 * n * cout
     key, thr, scale, drop = _drop_args(seed, drop_rate)
-    rc = load_library("pointnet_fused").pcseg_fused_block_bwd(
-        x.data_ptr(), *(ptr(t) for t in norm), wq.data_ptr(),
+    rc = lib.pcseg_chain_bwd(
+        x.data_ptr(), *(ptr(t) for t in norm), wk.data_ptr(), wq,
         ptr(y) if stats else None, dy.data_ptr(), ptr(ds1), ptr(ds2),
         dx.data_ptr(), dw.data_ptr(), db.data_ptr(), ptr(dg), ptr(dbeta),
-        ptr(drb), scratch.data_ptr(), int(dy.dtype == torch.float32), n, cin,
-        cout, max(rows_per_batch, 1), int(relu), key, thr, scale, drop,
+        ptr(drb), d_scr, a_scr, w_f32, dy_f32, n, cin, cout,
+        max(rows_per_batch, 1), int(relu), key, thr, scale, drop,
         stream_of(x),
     )
     raise_on(rc, "fused_block_bwd")

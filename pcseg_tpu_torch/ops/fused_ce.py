@@ -18,9 +18,13 @@ seeds ``dlogits = ct_num * w[y] * (softmax - onehot)`` (rounded to bf16
 for both products) into the seg4 backward: dx, dW (Cin, C) f32, db, and
 the gamma/beta-like sums with the same stats-input algebra as fused_block.
 
-On the card one thread takes one row: the block stages its rows'
-activations in shared memory, so the logits, the log-sum-exp and the
-argmax stay in registers. C <= 32.
+On the card (csrc/pointnet_chain.cu) each direction is one CUDA-core
+kernel: 16 lanes a row (32 above 8 classes) load its 128 channels in
+16-byte (8-byte) pieces, the logits come from FMAs and a butterfly of
+shuffles, and the backward forms dlogits in registers (no (N, C) scratch)
+and sums dW, db, dgamma and dbeta over its rows before one atomic a value
+and block. Cin 128 and C <= 32 (``check_widths`` raises ValueError for
+any other width before the library loads).
 """
 
 from __future__ import annotations
@@ -39,10 +43,12 @@ from pcseg_tpu_torch.ops.fused_block import (
     norm_vecs,
     prologue_plain,
     stats_cotangents,
+    w_operand,
 )
 
 LAUNCHES = {"fused_seg4_ce": 0, "fused_seg4_ce_bwd": 0}
 MAX_CLASSES = 32
+CIN = 128
 
 
 def reset_launches() -> None:
@@ -91,53 +97,63 @@ def seg4_ce_bwd_plain(x, mu, inv, gamma, beta, w, b, labels, class_weights,
     return dx, dw, db, (dz * x_hat).sum(0), dz.sum(0)
 
 
+def check_widths(cin: int, c: int) -> None:
+    """The kernels' widths: Cin 128 (PointNetSeg's seg3) and 1..32
+    classes; any other raises ValueError before the library loads."""
+    if cin != CIN or not 1 <= c <= MAX_CLASSES:
+        raise ValueError(f"fused_seg4_ce on a CUDA tensor takes Cin {CIN} "
+                         f"and 1..{MAX_CLASSES} classes; got {cin} -> {c}")
+
+
 def _common_cuda(x, mu, inv, gamma, beta, w, b, labels, class_weights):
     n, cin = x.shape
     c = w.shape[1]
-    if not 1 <= c <= MAX_CLASSES:
-        raise ValueError(f"fused_seg4_ce takes 1..{MAX_CLASSES} classes, "
-                         f"got {c}")
+    check_widths(cin, c)
     check("x", x, (n, cin), torch.bfloat16)
-    wq = w.to(torch.bfloat16).contiguous()
-    check("w", wq, (cin, c), torch.bfloat16)
+    wq, w_f32 = w_operand(w, cin, c)  # rounded to bf16 by the kernels
     norm = norm_vecs(mu, inv, gamma, beta, cin)
-    lab = labels.long().contiguous()
+    lab = labels
+    if lab.dtype != torch.int64 or not lab.is_contiguous():
+        lab = lab.long().contiguous()
     check("labels", lab, (n,), torch.int64)
-    return (n, cin, c, wq, norm, f32_vec(b, c, "b"), lab,
+    return (n, cin, c, wq, w_f32, norm, f32_vec(b, c, "b"), lab,
             f32_vec(class_weights, c, "class_weights"))
 
 
 def seg4_ce_fwd_cuda(x, mu, inv, gamma, beta, w, b, labels, class_weights):
-    n, cin, c, wq, norm, bf, lab, cw = _common_cuda(
+    n, cin, c, wq, w_f32, norm, bf, lab, cw = _common_cuda(
         x, mu, inv, gamma, beta, w, b, labels, class_weights)
-    acc = torch.zeros(3, dtype=torch.float32, device=x.device)
-    rc = load_library("pointnet_fused").pcseg_seg4_ce_fwd(
+    # num, den, correct; the kernel entry clears them
+    acc = torch.empty(3, dtype=torch.float32, device=x.device)
+    rc = load_library("pointnet_chain").pcseg_seg4_ce_fwd(
         x.data_ptr(), *(t.data_ptr() for t in norm), wq.data_ptr(),
-        bf.data_ptr(), lab.data_ptr(), cw.data_ptr(), acc.data_ptr(), n, cin,
-        c, stream_of(x),
+        bf.data_ptr(), lab.data_ptr(), cw.data_ptr(), acc.data_ptr(), w_f32,
+        n, cin, c, stream_of(x),
     )
     raise_on(rc, "fused_seg4_ce")
     LAUNCHES["fused_seg4_ce"] += 1
-    return acc[0].clone(), acc[1].clone(), acc[2].clone()
+    return acc.unbind()
 
 
 def seg4_ce_bwd_cuda(x, mu, inv, gamma, beta, w, b, labels, class_weights,
                      ct_num):
-    n, cin, c, wq, norm, bf, lab, cw = _common_cuda(
+    n, cin, c, wq, w_f32, norm, bf, lab, cw = _common_cuda(
         x, mu, inv, gamma, beta, w, b, labels, class_weights)
     dev = x.device
-    ct = ct_num.float().reshape(1).contiguous()
+    ct = ct_num  # one f32 value
+    if ct.dtype != torch.float32 or not ct.is_contiguous():
+        ct = ct.float().contiguous()
     dx = torch.empty((n, cin), dtype=x.dtype, device=dev)
-    dw = torch.zeros((cin, c), dtype=torch.float32, device=dev)
-    db = torch.zeros(c, dtype=torch.float32, device=dev)
-    dg = torch.zeros(cin, dtype=torch.float32, device=dev)
-    dbeta = torch.zeros(cin, dtype=torch.float32, device=dev)
-    scratch = torch.empty((n, c), dtype=torch.bfloat16, device=dev)
-    rc = load_library("pointnet_fused").pcseg_seg4_ce_bwd(
+    # dW, db, dgamma, dbeta in one allocation; the kernel entry clears them
+    sizes = [cin * c, c, cin, cin]
+    dw, db, dg, dbeta = torch.empty(sum(sizes), dtype=torch.float32,
+                                    device=dev).split(sizes)
+    dw = dw.view(cin, c)
+    rc = load_library("pointnet_chain").pcseg_seg4_ce_bwd(
         x.data_ptr(), *(t.data_ptr() for t in norm), wq.data_ptr(),
         bf.data_ptr(), lab.data_ptr(), cw.data_ptr(), ct.data_ptr(),
         dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dg.data_ptr(),
-        dbeta.data_ptr(), scratch.data_ptr(), n, cin, c, stream_of(x),
+        dbeta.data_ptr(), w_f32, n, cin, c, stream_of(x),
     )
     raise_on(rc, "fused_seg4_ce_bwd")
     LAUNCHES["fused_seg4_ce_bwd"] += 1

@@ -27,15 +27,15 @@ import argparse
 import ctypes
 import json
 import os
-import re
-import subprocess
 
 import numpy as np
 import torch
 
 from pcseg_tpu_torch.ops import _build
 from pcseg_tpu_torch.ops import fused_global as fg
-from pcseg_tpu_torch.profile_serving import device_profile
+from pcseg_tpu_torch.profile_serving import kernel_ms
+
+GP = r"(gp_\w+)"  # row 16's kernels
 
 B, M, C = 64, 2048, 1024
 PHASES = ("fill", "mainloop", "store_acc", "walk")
@@ -102,25 +102,6 @@ def no_prologue_source(src: str) -> str:
                         "iv.y == ga.x && be.y == 0.f)") + src[end:]
 
 
-def build_variant(name: str, src: str) -> ctypes.CDLL:
-    out = _build.BUILD_DIR / f"row16_{name}"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "pointnet_wgmma.cu").write_text(src)
-    for header in _build._CSRC.glob("*.cuh"):
-        (out / header.name).write_text(header.read_text())
-    lib_path = out / "lib.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                           str(lib_path), str(out / "pointnet_wgmma.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-    lib = ctypes.CDLL(str(lib_path))
-    for fn, argtypes in _build.SIGNATURES["pointnet_wgmma"].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
-
-
 def inputs():
     gen = torch.Generator(device="cuda").manual_seed(0)
     n = B * M
@@ -138,16 +119,6 @@ def inputs():
     bwd = (x, *bn, w, y, randn(C) * 1e-2, randn(C) * 1e-3, randn(B, C),
            idx, M)
     return fwd, bwd
-
-
-def kernel_ms(fn, iters: int = 10) -> dict:
-    res, _ = device_profile(lambda: [fn() for _ in range(iters)])
-    out = {}
-    for k in res["kernels"]:
-        m = re.search(r"(gp_\w+)", k["name"])
-        if m:
-            out[m.group(1)] = k["device_ms"] / iters
-    return out
 
 
 def phase_table(lib, fwd, bwd) -> dict:
@@ -198,16 +169,17 @@ def main() -> int:
     regular = _build.load_library("pointnet_wgmma")
     fwd, bwd = inputs()
     report = {"card": card, "shape": f"B{B} x {M}, {C} -> {C}",
-              "kernels_ms": kernel_ms(lambda: fg.global_pool_fwd_cuda(*fwd))}
+              "kernels_ms": kernel_ms(lambda: fg.global_pool_fwd_cuda(*fwd),
+                                      GP)}
     report["kernels_ms"].update(
-        kernel_ms(lambda: fg.global_pool_bwd_cuda(*bwd)))
-    report["phases"] = phase_table(build_variant("phases",
-                                                 phases_source(src)),
-                                   fwd, bwd)
-    _build._LOADED["pointnet_wgmma"] = build_variant(
-        "no_prologue", no_prologue_source(src))
+        kernel_ms(lambda: fg.global_pool_bwd_cuda(*bwd), GP))
+    report["phases"] = phase_table(
+        _build.build_variant("pointnet_wgmma", "row16_phases",
+                             src=phases_source(src)), fwd, bwd)
+    _build._LOADED["pointnet_wgmma"] = _build.build_variant(
+        "pointnet_wgmma", "row16_no_prologue", src=no_prologue_source(src))
     report["forward_no_prologue_ms"] = kernel_ms(
-        lambda: fg.global_pool_fwd_cuda(*fwd))["gp_wgmma_fwd_kernel"]
+        lambda: fg.global_pool_fwd_cuda(*fwd), GP)["gp_wgmma_fwd_kernel"]
     _build._LOADED["pointnet_wgmma"] = regular
     print(f"[{card}] kernels {json.dumps(report['kernels_ms'])}; forward "
           f"without the prologue {report['forward_no_prologue_ms']:.4f} ms",

@@ -33,6 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import time
 
 import numpy as np
@@ -73,23 +74,28 @@ def _stages(model, events, bucket, batch):
 # kernel-name substring -> stage, first match wins; anything else is the
 # PyTorch glue (elementwise ops, reductions, copies, Adam, the loss).
 # PointNet training: row 16's wgmma kernels ("global_pool", its backward
-# "global_pool_bwd"), the WMMA chain of row 15 ("pointnet_block", with the
-# dx / dW products that row 17's backward shares), row 17's classifier +
-# CE and dropout; the row-15 keys start at the anonymous namespace, so no
-# other kernel ending in the same name (row 19's pool_fwd_kernel) matches
-# them (a template kernel's name starts with "void ", another's does not)
-_PN = "(anonymous namespace)::"
+# "global_pool_bwd"), row 15's chain kernels ("pointnet_block", its
+# backward "pointnet_block_bwd"), row 17's classifier + CE forward and
+# backward ("seg4_ce") and dropout; every key is a whole kernel name's
+# stem, so none matches another kernel (row 19's pool_fwd_kernel, the
+# voxel conv_kernel)
 STAGES = (("gp_wgmma_fwd", "global_pool"),
           # the key decoder row 16 shares with row 19, which no path runs
           ("pool_finalize_kernel", "global_pool"),
           ("gp_cotangent", "global_pool_bwd"),
           ("gp_wgmma_dx", "global_pool_bwd"),
           ("gp_wgmma_dw", "global_pool_bwd"),
-          (_PN + "fwd_kernel", "pointnet_block"),
-          (_PN + "cotangent_kernel", "pointnet_block"),
-          (_PN + "dx_kernel", "pointnet_block"),
-          (_PN + "dw_kernel", "pointnet_block"),
-          ("ce_fwd_kernel", "seg4_ce"), ("ce_dlogits_kernel", "seg4_ce"),
+          ("chain_wgmma_fwd_kernel", "pointnet_block"),
+          ("chain_simt_fwd_kernel", "pointnet_block"),
+          ("chain_narrow_fwd_kernel", "pointnet_block"),
+          ("chain_wgmma_bwd_kernel", "pointnet_block_bwd"),
+          ("chain_cotangent_kernel", "pointnet_block_bwd"),
+          ("chain_wgmma_dx_kernel", "pointnet_block_bwd"),
+          ("chain_wgmma_dw_kernel", "pointnet_block_bwd"),
+          ("chain_simt_bwd_kernel", "pointnet_block_bwd"),
+          ("chain_narrow_bwd_kernel", "pointnet_block_bwd"),
+          ("ce_seg4_fwd_kernel", "seg4_ce"), ("ce_seg4_bwd_kernel", "seg4_ce"),
+          ("ce_seg4_bwd_mma_kernel", "seg4_ce"),
           ("dropout_kernel", "dropout"),
           ("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
           ("voxelize_contract_kernel", "voxelize"),
@@ -203,6 +209,46 @@ def device_profile(fn, stages=STAGES):
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "by_stage_ms": by_stage, "kernels": kernels}, prof
+
+
+def profile_calls(fn, iters: int = 10, attempts: int = 3) -> dict:
+    """Device ms per call of ``fn`` of each kernel it launches, by name,
+    from torch.profiler over ``iters`` warm calls. Late in a long process
+    the profiler records only some launches, or none, so ``fn`` is
+    profiled again (up to ``attempts`` times) while a kernel's recorded
+    launches are not a whole multiple of ``iters``; a kernel's time per
+    call is then its mean time per recorded launch (from the attempt that
+    recorded most of it) times its launches per call (recorded launches
+    over ``iters``, rounded up, the most any attempt saw). A complete
+    profile gives its device time over ``iters``."""
+    seen: dict = {}  # name -> (launches, mean ms a launch, launches a call)
+    for _ in range(attempts):
+        res, _ = device_profile(lambda: [fn() for _ in range(iters)])
+        rec: dict = {}
+        for k in res["kernels"]:
+            ms, calls = rec.get(k["name"], (0.0, 0))
+            rec[k["name"]] = (ms + k["device_ms"], calls + k["calls"])
+        for name, (ms, calls) in rec.items():
+            best, mean, per = seen.get(name, (0, 0.0, 0))
+            if calls > best:
+                best, mean = calls, ms / calls
+            seen[name] = (best, mean, max(per, -(-calls // iters)))
+        if rec and all(calls % iters == 0 for _, calls in rec.values()):
+            break
+    return {name: mean * per for name, (_, mean, per) in seen.items()}
+
+
+def kernel_ms(fn, pattern: str, iters: int = 10) -> dict:
+    """Device ms per call of ``fn`` of the kernels whose names match
+    ``pattern``, keyed by its first group (the profilers of rows 15-17 and
+    16); ``profile_calls`` keeps launches the profiler drops from reading
+    as faster kernels."""
+    out: dict = {}
+    for name, ms in profile_calls(fn, iters).items():
+        m = re.search(pattern, name)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + ms
+    return out
 
 
 def main() -> int:

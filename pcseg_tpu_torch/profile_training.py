@@ -27,8 +27,10 @@ reports:
   (``profile_serving.stage_of``; for the sparse step: the conv forward,
   its dgrad and wgrad, the LN forward and backward, the readout's
   backward, the voxelizer and the PyTorch glue; for PointNetSeg: row 16's
-  wgmma kernels forward and backward, the rest of the fused chain's WMMA
-  kernels, the classifier + CE, dropout and the glue).
+  wgmma kernels forward and backward, row 15's chain kernels forward
+  ("pointnet_block") and backward ("pointnet_block_bwd"), row 17's
+  classifier + CE forward and backward ("seg4_ce"), dropout and the
+  glue).
 
 With ``--out`` the profiler tables are also written to
 DIR/profile_train_*.txt.

@@ -85,21 +85,36 @@ def test_dropout_kernel_is_exact(gen, dtype):
     assert abs(keep - 0.7) < 0.01
 
 
-CASES = [  # (cin, cout, normalize, relu, drop, row bias, out f32)
-    (4, 64, False, False, 0.0, False, False),
-    (64, 64, True, True, 0.0, False, False),
-    (128, 1024, True, True, 0.0, False, False),
-    (64, 512, True, True, 0.0, True, False),
-    (512, 256, True, True, 0.3, False, False),
-    (256, 128, True, True, 0.3, False, False),
-    (128, 4, True, True, 0.0, False, True),
+CASES = [  # (cin, cout, normalize, relu, drop, row bias, out f32, B, M)
+    (4, 64, False, False, 0.0, False, False, 4, 1024),     # conv1
+    (3, 64, False, False, 0.0, False, False, 4, 1024),     # input_dim 3
+    (64, 64, True, True, 0.0, False, False, 4, 1024),      # conv2, conv3
+    (64, 128, True, True, 0.0, False, False, 4, 1024),     # conv4
+    (128, 1024, True, True, 0.0, False, False, 4, 1024),   # conv5
+    (64, 512, True, True, 0.0, True, False, 4, 1024),      # seg1
+    # N = 3000, not a multiple of 128: a partial last tile (its rows past N
+    # are TMA's zeros); seg1's batch boundaries inside the 128-row tiles
+    (64, 512, True, True, 0.0, True, False, 3, 1000),
+    (64, 64, True, True, 0.0, False, False, 3, 1000),     # one sweep:
+    (64, 128, True, True, 0.0, False, False, 3, 1000),    # its three
+    (128, 128, True, True, 0.3, False, False, 3, 1000),   # instances
+    (512, 256, True, True, 0.3, False, False, 4, 1024),    # seg2
+    (256, 128, True, True, 0.3, False, False, 4, 1024),    # seg3
+    (128, 4, True, True, 0.0, False, True, 4, 1024),       # logits
+    (128, 13, True, True, 0.0, False, True, 4, 1024),
+    # the one-sweep backward without stats (no y read), an f32 output
+    (64, 64, True, True, 0.0, False, True, 4, 1024),
 ]
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}")
+def _case_id(c):
+    return (f"{c[0]}x{c[1]}" + ("" if c[8] == 1024 else f"-M{c[8]}")
+            + ("-f32out" if c[6] and c[1] % 64 == 0 else ""))
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_fused_block_kernel(gen, case):
-    cin, cout, norm, relu, drop, has_rb, out_f32 = case
-    b_, m_ = 4, 1024
+    cin, cout, norm, relu, drop, has_rb, out_f32, b_, m_ = case
     n = b_ * m_
     x = torch.randn((n, cin), generator=gen, device="cuda").to(
         torch.bfloat16).requires_grad_()
@@ -119,9 +134,11 @@ def test_fused_block_kernel(gen, case):
         return fb.fused_block(x, *bn, w, b, rb, 99, relu, drop, emit, m_,
                               out_dtype, plain=plain)
 
+    before = dict(fb.LAUNCHES)
     yk, s1k, s2k = run(False)
     yp, s1p, s2p = run(True)
     torch.cuda.synchronize()
+    assert fb.LAUNCHES["fused_block"] == before["fused_block"] + 1
     _close_bf16(yk, yp, "y")
     if emit:
         _close_sum(s1k, s1p, "s1")
@@ -129,12 +146,49 @@ def test_fused_block_kernel(gen, case):
     gk = _grads(lambda: run(False), leaves, cts)
     gp = _grads(lambda: run(True), leaves, cts)
     torch.cuda.synchronize()
+    assert fb.LAUNCHES["fused_block_bwd"] == before["fused_block_bwd"] + 1
     for leaf, a, r in zip(leaves, gk, gp):
         name = f"grad {tuple(leaf.shape)}"
         if leaf is x:
             _close_bf16(a, r, name)
         else:
             _close_sum(a, r, name)
+
+
+@pytest.mark.parametrize("cin, cout", [(64, 64), (128, 128)])
+def test_fused_block_bwd_kernel_f32_cotangent(gen, cin, cout):
+    """An f32 dy (the split backward, where the sweep takes bf16) against
+    the plain version."""
+    n = 3000
+    x = torch.randn((n, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    bn = [t.detach() for t in _bn(gen, cin)]
+    w, b = (t.detach() for t in _dense(gen, cin, cout))
+    y = fb.fused_block_fwd_cuda(x, *bn, w, b, None, 5, True, 0.3, True, 0,
+                                torch.bfloat16)[0]
+    dy = torch.randn((n, cout), generator=gen, device="cuda")
+    ds1 = torch.randn(cout, generator=gen, device="cuda") * 1e-2
+    ds2 = torch.randn(cout, generator=gen, device="cuda") * 1e-3
+    args = (x, *bn, w, y, dy, ds1, ds2, 5, True, 0.3, 0, False)
+    gk = fb.fused_block_bwd_cuda(*args)
+    gp = fb.fused_block_bwd_plain(*args)
+    torch.cuda.synchronize()
+    _close_bf16(gk[0], gp[0], "dx")
+    for name, a, r in zip(("dw", "db", "dgamma", "dbeta"), gk[1:5], gp[1:5]):
+        _close_sum(a, r, name)
+
+
+@pytest.mark.parametrize("cin, cout", [(96, 64), (64, 96), (32, 64),
+                                       (128, 40)])
+def test_fused_block_kernel_refuses_widths(gen, cin, cout):
+    """Widths that no route takes raise ValueError before any launch."""
+    x = torch.randn((256, cin), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bn = [t.detach() for t in _bn(gen, cin)]
+    w, b = (t.detach() for t in _dense(gen, cin, cout))
+    before = dict(fb.LAUNCHES)
+    with pytest.raises(ValueError, match="fused_block on a CUDA tensor"):
+        fb.fused_block(x, *bn, w, b)
+    assert fb.LAUNCHES == before
 
 
 # (batch rows, rows_per_batch, cin, cout, tied rows): the first shape,
@@ -213,14 +267,18 @@ def test_global_pool_kernel_refuses_widths(gen, cin, cout):
     assert fg.LAUNCHES == before
 
 
-@pytest.mark.parametrize("classes", [4, 13])
-def test_seg4_ce_kernel(gen, classes):
-    n, cin = 8192, 128
+# (classes, rows): the last case is ragged (no multiple of a block's rows)
+# with a run of padded rows
+@pytest.mark.parametrize("classes, n", [(4, 8192), (13, 8192), (32, 4096),
+                                        (4, 5003)])
+def test_seg4_ce_kernel(gen, classes, n):
+    cin = 128
     x = torch.randn((n, cin), generator=gen, device="cuda").to(
         torch.bfloat16).requires_grad_()
     bn = _bn(gen, cin)
     w, b = _dense(gen, cin, classes)
     labels = torch.randint(-1, classes, (n,), generator=gen, device="cuda")
+    labels[n // 2:n // 2 + 300] = -1
     cw = torch.rand(classes, generator=gen, device="cuda") + 0.5
     leaves = [x, *bn, w, b]
 

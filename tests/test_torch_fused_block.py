@@ -174,3 +174,38 @@ def test_fused_block_dropout_masks_forward_and_backward():
         assert float((r.float() - ref).abs().max()) <= tol
     # the dropped elements get no gradient
     assert bool((got[0][~keep] == 0).all())
+
+
+@pytest.mark.parametrize("cin, cout, route", [
+    (4, 64, "simt"), (3, 256, "simt"), (128, 4, "narrow"), (128, 32, "narrow"),
+    (64, 64, "wgmma"), (128, 1024, "wgmma"), (512, 256, "wgmma"),
+    (1088 - 1024, 512, "wgmma")])
+def test_route_of_takes_every_pointnet_width(cin, cout, route):
+    assert fb.route_of(cin, cout) == route
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("cin, cout", [(96, 64), (32, 64), (128, 40),
+                                       (4, 96), (2048, 64)])
+def test_card_width_check_raises_before_the_library_loads(
+        monkeypatch, direction, cin, cout):
+    """A width no route takes raises ValueError in the card wrappers before
+    the kernel library is built or loaded."""
+    def no_library(name):
+        raise AssertionError(f"library {name} loaded")
+
+    monkeypatch.setattr(fb, "load_library", no_library)
+    n = 256
+    x = torch.zeros((n, cin), dtype=torch.bfloat16)
+    bn = [torch.ones(cin) for _ in range(4)]
+    w = torch.zeros((cin, cout))
+    with pytest.raises(ValueError, match="fused_block on a CUDA tensor"):
+        if direction == "forward":
+            fb.fused_block_fwd_cuda(x, *bn, w, torch.zeros(cout), None, 0,
+                                    True, 0.0, True, 0, torch.bfloat16)
+        else:
+            z = torch.zeros(cout)
+            fb.fused_block_bwd_cuda(
+                x, *bn, w, torch.zeros((n, cout), dtype=torch.bfloat16),
+                torch.zeros((n, cout)), z, z, 0, True, 0.0, 0, False)
+

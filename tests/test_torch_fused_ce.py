@@ -107,3 +107,23 @@ def test_fused_seg4_ce_is_the_loss_contract():
     pred = logits.argmax(dim=1).numpy()
     assert not (pred == 1).any()             # the tie goes to class 0
     assert float(cor) == float(((pred == labels) & (labels >= 0)).sum())
+
+
+@pytest.mark.parametrize("cin, classes", [(64, 4), (128, 33), (256, 4)])
+def test_card_width_check_raises_before_the_library_loads(monkeypatch, cin,
+                                                          classes):
+    """Cin other than 128 or more than 32 classes raise ValueError in the
+    card wrappers before the kernel library is built or loaded."""
+    def no_library(name):
+        raise AssertionError(f"library {name} loaded")
+
+    monkeypatch.setattr(fc, "load_library", no_library)
+    n = 64
+    args = (torch.zeros((n, cin), dtype=torch.bfloat16),
+            *[torch.ones(cin) for _ in range(4)], torch.zeros((cin, classes)),
+            torch.zeros(classes), torch.zeros(n, dtype=torch.int64),
+            torch.ones(classes))
+    with pytest.raises(ValueError, match="fused_seg4_ce on a CUDA tensor"):
+        fc.seg4_ce_fwd_cuda(*args)
+    with pytest.raises(ValueError, match="fused_seg4_ce on a CUDA tensor"):
+        fc.seg4_ce_bwd_cuda(*args, torch.ones(()))
