@@ -9,7 +9,10 @@
 //                         fused_conv3x3_p / fused_conv3x3_add_p (_kernel,
 //                         pallas_call at :429): 3^3 SAME conv, Cin -> Cout.
 //   pcseg_down2x_gn_act   replaces fused_down2x_p (_down2x_kernel,
-//                         pallas_call at :1318): k2 s2 conv, C -> 2C.
+//                         pallas_call at :1318): k2 s2 conv, C -> Cout,
+//                         for the widths csrc/resample.cu's tensor-core
+//                         kernel does not take (C < 8 or above 64, Cout !=
+//                         2C; ops/conv3d_block.py's _mma_route).
 //   pcseg_up2x_gn_act     replaces fused_up2x_p (_up2x_kernel,
 //                         pallas_call at :1403): k2 s2 transposed conv,
 //                         2C -> C, output 2i+d takes x[i] @ w[1-d] per axis.
@@ -26,7 +29,9 @@
 //   pcseg_down2x_bwd      replaces the bwd of fused_down2x_p
 //                         (_down2x_bwd_kernel, pallas_call at :1353).
 //   pcseg_up2x_bwd        replaces the bwd of fused_up2x_p
-//                         (_up2x_bwd_kernel, pallas_call at :1439).
+//                         (_up2x_bwd_kernel, pallas_call at :1439), for
+//                         the widths csrc/resample.cu's one-sweep kernel
+//                         does not take (C > 64, coarse width != 2C).
 //
 // The 1x1 head on the last decoder grid (_head_vjp of the same file):
 //

@@ -1,0 +1,917 @@
+// The voxel U-Net's stride-2 resampling on Hopper's tensor cores (sm_90a):
+// gathered GEMMs with fixed-order sums.
+//
+//   pcseg_down2x_mma   replaces pcseg_tpu/ops/pallas/conv3d_block.py
+//                      fused_down2x_p (_down2x_kernel, pallas_call at
+//                      :1318): a = bf16(relu(x * scale + shift)), the k2 s2
+//                      conv C -> 2C, + bias, bf16 y and the next GroupNorm's
+//                      per-(batch, channel) (sum, sumsq) of the f32 value.
+//   pcseg_up2x_bwd_mma replaces the backward of fused_up2x_p
+//                      (_up2x_bwd_kernel, pallas_call at :1439): g' = (gy +
+//                      gs1) + 2 gs2 y, dbias = sum g' (f32), da = bf16(g') @
+//                      flipped W^T, dx = bf16([pre > 0] da * scale), dscale
+//                      = sum dam * x, dshift = sum dam, dW = sum
+//                      bf16(relu(pre))^T bf16(g') in the forward's tap order.
+//
+// A k2 s2 conv pairs each coarse voxel with its 2 x 2 x 2 fine children and
+// nothing else, so both are one GEMM over rows of coarse voxels. A row is
+// the eight children's C channels, k = ((dz * 2 + dy) * 2 + dx) * C + c
+// (``gather_rows`` in ops/conv3d_block.py): for each (dz, dy) the 2C
+// contiguous bf16 of the fine pair (2w, 2w + 1), four 16-byte aligned
+// segments a row, each fine byte read once.
+//
+// - down2x: y (M x 2C) = A (M x 8C) @ W (8C x 2C), W the (2, 2, 2, C, 2C)
+//   weights as rows (``pack_down_w``); the prologue runs on A's fragments
+//   in registers, once an element.
+// - up2x's backward: the same gather of gy and y gives G = bf16(g') (M x
+//   8C); da (M x 2C) = G @ Wd with Wd[(d, o)][i] = w[1 - d][i][o]
+//   (``pack_up_wt``), and dW^T (8C x 2C) += G^T @ a over the same tile,
+//   kept in the accumulators across a block's tiles.
+//
+// What bounds them on an H100: bytes. B8 64^3 x 16 -> 32^3 x 32 moves 84
+// MB (x read once, y written once) for 2.1 GFLOP, 0.025 ms at 3.35 TB/s;
+// up2x's backward 168 MB (gy, y and x read once, dx written once), 0.050
+// ms. The products run on mma.sync m16n8k16 (bf16 in, f32 sums) only to
+// keep the FMAs off the critical path. The design keeps the loads going:
+//
+// - persistent blocks over tiles of 64 coarse voxels of one batch element
+//   (grid (blocks a batch element, B)), two an SM so that one block's
+//   syncs and loads overlap the other's work (one for up2x's backward at
+//   C >= 32, whose dW takes 64 registers a thread); cp.async 16-byte
+//   copies with computed addresses into a ring of 1-4 shared-memory
+//   stages, so one tile's loads overlap the products and stores of the
+//   ones before it; rows past the grid's end read zeros and are masked
+//   at the stores;
+// - tiles in shared memory swizzled in 16-byte units (``swz``) so that
+//   ldmatrix (plain and .trans) reads them without bank conflicts;
+// - W (bf16, rounded from the f32 weights the caller passes) staged once a
+//   block; scale/shift, bias and the stats in registers;
+// - outputs staged through shared memory for 16-byte stores;
+// - no float atomics: each block writes its sums as one row of a partial
+//   table (scratch the wrapper allocates) and fixed_sum_kernel adds the
+//   rows in a fixed order, so two calls on the same inputs give the same
+//   bits.
+//
+// Widths: C in {8, 16, 32, 64} with 2C on the coarse side, the widths the
+// JAX fused core allows (pcseg_tpu/models/voxel_unet.py:234-240); other
+// shapes keep conv3d_block.cu's CUDA-core kernels (ops/conv3d_block.py
+// chooses by shape before the launch). up2x's backward at C = 64 holds dW
+// (512 x 128) as four 32-column slices, one a block (grid z): each slice
+// block gathers the whole G and computes its columns of dx and dW.
+//
+// Plain C interface (loaded with ctypes): every entry returns
+// cudaGetLastError() after its launches.
+
+#include "hopper.cuh"
+
+namespace {
+
+using hopper::bf16_hi;
+using hopper::bf16_lo;
+using hopper::pack_bf16x2;
+using hopper::smem_u32;
+
+constexpr int kRows = 64;            // coarse voxels a tile
+constexpr int kDownThreads = 128;    // down2x: 4 warps of 16 rows
+constexpr int kUpThreads = 256;      // up2x bwd: 8 warps
+constexpr int kSmemMax = 227 * 1024;
+
+// ---------------------------------------------------------------- pieces
+
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte unit c of row r in a tile of rows of cpr units:
+// the unit's column XOR the row (cpr >= 8), or the unit index XOR its
+// 128-byte line (narrower rows), so the 8 rows an ldmatrix matrix reads
+// at one column fall in 8 distinct bank groups.
+__device__ __forceinline__ uint32_t swz(int r, int c, int cpr) {
+  if (cpr >= 8) return (uint32_t)(r * cpr + (c ^ (r & 7))) * 16u;
+  const int u = r * cpr + c;
+  return (uint32_t)(u ^ ((u >> 3) & 7)) * 16u;
+}
+
+// lane's row / unit for ldmatrix x4 of the 16 x 16 block at (r0, unit c0)
+// in the order a0..a3 of an mma A fragment (rows major) or, with .trans
+// on a [k][n] tile, b0, b1 of the n8 tiles at units c0 and c0 + 1
+__device__ __forceinline__ int lrow(int r0, int lane) {
+  return r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int lcol(int c0, int lane) { return c0 + (lane >> 4); }
+
+// relu(v * sc + sh) of a bf16 pair in f32 without FMA contraction, rounded
+// back to a bf16 pair (conv3d_block.cu's prologue, then round_bf16)
+__device__ __forceinline__ uint32_t act2(uint32_t v, float sc0, float sc1,
+                                         float sh0, float sh1) {
+  return pack_bf16x2(fmaxf(__fadd_rn(__fmul_rn(bf16_lo(v), sc0), sh0), 0.f),
+                     fmaxf(__fadd_rn(__fmul_rn(bf16_hi(v), sc1), sh1), 0.f));
+}
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = bf16_lo(w[i]);
+    f[2 * i + 1] = bf16_hi(w[i]);
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+
+__device__ __forceinline__ float group_sum(float v) {
+  // the 8 lanes that share lane % 4 (the rows of an mma fragment)
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// A tile's rows walk coarse voxels m = tile * 64 + r of one batch element;
+// a thread keeps one row's coarse (z, y, x) and steps it by `step` rows.
+struct RowWalk {
+  long long m;
+  int z, y, x;
+  __device__ RowWalk(long long m0, int H2, int W2) : m(m0) {
+    const long long q = m0 / W2;
+    x = (int)(m0 - q * W2);
+    y = (int)(q % H2);
+    z = (int)(q / H2);
+  }
+  __device__ void step(int rows, int H2, int W2) {
+    m += rows;
+    x += rows;
+    while (x >= W2) {
+      x -= W2;
+      if (++y == H2) {
+        y = 0;
+        ++z;
+      }
+    }
+  }
+};
+
+// Stages the gathered rows of a tile of a fine grid (B, 2 D2, 2 H2, 2 W2, C)
+// bf16 into a swizzled [64][8C] tile: the thread's 16-byte unit column j
+// of rows r0, r0 + step, ... (step = threads / C).
+template <int C>
+__device__ __forceinline__ void gather_tile(uint32_t dst,
+                                            const __nv_bfloat16* src, int b,
+                                            long long tile, long long Mb,
+                                            int D2, int H2, int W2, int tid,
+                                            int threads) {
+  const int j = tid % C;
+  const int seg = j / (C / 4), ju = j % (C / 4);
+  const int dz = seg >> 1, dy = seg & 1;
+  const int step = threads / C;
+  RowWalk w(tile * kRows + tid / C, H2, W2);
+  for (int r = tid / C; r < kRows; r += step) {
+    const bool ok = w.m < Mb;
+    const __nv_bfloat16* p =
+        src + ((((size_t)b * 2 * D2 + 2 * w.z + dz) * 2 * H2 + 2 * w.y + dy) *
+                   2 * W2 + 2 * w.x) * C + ju * 8;
+    cp16(dst + swz(r, j, C), ok ? p : src, ok);
+    w.step(step, H2, W2);
+  }
+}
+
+// ---------------------------------------------------------------- down2x
+
+struct DownArgs {
+  const __nv_bfloat16* x;   // (B, D, H, W, C) fine
+  const float* w;           // (2, 2, 2, C, 2C) f32: (8C x 2C) rows
+  const float* bias;        // (2C,)
+  const float* scale;       // (B, C)
+  const float* shift;
+  __nv_bfloat16* y;         // (B, D/2, H/2, W/2, 2C)
+  float* part;              // (B, gridDim.x, 2, 2C) block sums
+  int D2, H2, W2, tiles;
+};
+
+template <int C>
+struct DownCfg {
+  static constexpr int N = 2 * C, K = 8 * C, NT = N / 8, KS = K / 16;
+  static constexpr int kW = K * N * 2;
+  static constexpr int kStage = kRows * K * 2;
+  static constexpr int kFit = (110 * 1024 - kW) / kStage;
+  static constexpr int kStages = kFit >= 4 ? 4 : kFit >= 1 ? kFit : 1;
+  static constexpr int kSmem = kW + kStages * kStage;
+  // k-steps whose channels (k % C) differ: C / 16, or 1 at C = 8
+  static constexpr int P = C >= 16 ? C / 16 : 1;
+  static constexpr int kPitch = (2 * N + 16) | 16;   // staged y row, bytes
+};
+
+// One block: tiles blockIdx.x, blockIdx.x + gridDim.x, ... of batch element
+// blockIdx.y. Warp w computes rows 16w..16w+15 of a tile against all of W:
+// per k-step one ldmatrix of A (then the prologue on the fragment) and one
+// .trans ldmatrix of W a pair of n8 tiles.
+template <int C>
+__global__ void __launch_bounds__(kDownThreads) down2x_mma_kernel(
+    const DownArgs p) {
+  using Cfg = DownCfg<C>;
+  constexpr int N = Cfg::N, K = Cfg::K, NT = Cfg::NT, P = Cfg::P;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* sw = smem;
+  uint8_t* stages = smem + Cfg::kW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y;
+  const long long Mb = (long long)p.D2 * p.H2 * p.W2;
+  const int ntile = blockIdx.x < p.tiles
+                        ? (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                        : 0;
+
+  // W rounded to bf16, [k][n] in units of 8 n
+  for (int i = tid; i < K * N / 8; i += kDownThreads) {
+    const int k = i / (N / 8), cu = i % (N / 8);
+    const float4 lo = *reinterpret_cast<const float4*>(p.w + (size_t)k * N +
+                                                       cu * 8);
+    const float4 hi = *reinterpret_cast<const float4*>(p.w + (size_t)k * N +
+                                                       cu * 8 + 4);
+    *reinterpret_cast<uint4*>(sw + swz(k, cu, N / 8)) =
+        make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
+                   pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+  }
+  // the prologue's scale/shift of this lane's fragment columns: k-step s
+  // reads channels 16 (s % P) + 2t (+1) and (16 (s % P) + 8 + 2t) % C (+1)
+  float sc[P][4], sh[P][4];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int c0 = (16 * q + 2 * t) % C, c1 = (16 * q + 8 + 2 * t) % C;
+    const float* s = p.scale + (size_t)b * C;
+    const float* h = p.shift + (size_t)b * C;
+    sc[q][0] = s[c0]; sc[q][1] = s[c0 + 1]; sc[q][2] = s[c1]; sc[q][3] = s[c1 + 1];
+    sh[q][0] = h[c0]; sh[q][1] = h[c0 + 1]; sh[q][2] = h[c1]; sh[q][3] = h[c1 + 1];
+  }
+  float bv[NT][2], s1[NT][2], s2[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      bv[nt][j] = p.bias[8 * nt + 2 * t + j];
+      s1[nt][j] = s2[nt][j] = 0.f;
+    }
+
+  auto load = [&](int i) {
+    if (i < ntile)
+      gather_tile<C>(smem_u32(stages + (i % Cfg::kStages) * Cfg::kStage), p.x,
+                     b, blockIdx.x + (long long)i * gridDim.x, Mb, p.D2, p.H2,
+                     p.W2, tid, kDownThreads);
+    cp_commit();
+  };
+  for (int i = 0; i < Cfg::kStages - 1; ++i) load(i);
+
+  const uint32_t sw_u = smem_u32(sw);
+  for (int i = 0; i < ntile; ++i) {
+    load(i + Cfg::kStages - 1);
+    cp_wait<Cfg::kStages - 1>();
+    __syncthreads();
+    uint8_t* sa = stages + (i % Cfg::kStages) * Cfg::kStage;
+    const uint32_t sa_u = smem_u32(sa);
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < Cfg::KS; ++s) {
+      uint32_t a[4];
+      ldsm4(a, sa_u + swz(lrow(16 * warp, lane), lcol(2 * s, lane), C));
+      const int q = s % P;
+      a[0] = act2(a[0], sc[q][0], sc[q][1], sh[q][0], sh[q][1]);
+      a[1] = act2(a[1], sc[q][0], sc[q][1], sh[q][0], sh[q][1]);
+      a[2] = act2(a[2], sc[q][2], sc[q][3], sh[q][2], sh[q][3]);
+      a[3] = act2(a[3], sc[q][2], sc[q][3], sh[q][2], sh[q][3]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bb[4];
+        ldsm4t(bb, sw_u + swz(lrow(16 * s, lane), lcol(2 * np, lane), N / 8));
+        mma(acc[2 * np], a, bb[0], bb[1]);
+        mma(acc[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+    // epilogue: + bias, stats of the f32 value, bf16 staged in this warp's
+    // own (now read) rows of the A tile, then 16-byte stores
+    const long long m0 =
+        (blockIdx.x + (long long)i * gridDim.x) * kRows + 16 * warp;
+    const bool va = m0 + g < Mb, vb = m0 + g + 8 < Mb;
+    uint8_t* st = sa + warp * 16 * K * 2;
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float y0 = acc[nt][0] + bv[nt][0], y1 = acc[nt][1] + bv[nt][1];
+      const float y2 = acc[nt][2] + bv[nt][0], y3 = acc[nt][3] + bv[nt][1];
+      if (va) {
+        s1[nt][0] += y0; s2[nt][0] += y0 * y0;
+        s1[nt][1] += y1; s2[nt][1] += y1 * y1;
+      }
+      if (vb) {
+        s1[nt][0] += y2; s2[nt][0] += y2 * y2;
+        s1[nt][1] += y3; s2[nt][1] += y3 * y3;
+      }
+      *reinterpret_cast<uint32_t*>(st + g * Cfg::kPitch + (8 * nt + 2 * t) * 2) =
+          pack_bf16x2(y0, y1);
+      *reinterpret_cast<uint32_t*>(st + (g + 8) * Cfg::kPitch +
+                                   (8 * nt + 2 * t) * 2) = pack_bf16x2(y2, y3);
+    }
+    __syncwarp();
+    for (int u = lane; u < 16 * NT; u += 32) {
+      const int row = u / NT, cu = u % NT;
+      if (m0 + row < Mb)
+        *reinterpret_cast<uint4*>(p.y + ((size_t)b * Mb + m0 + row) * N +
+                                  cu * 8) =
+            *reinterpret_cast<const uint4*>(st + row * Cfg::kPitch + cu * 16);
+    }
+    __syncthreads();   // the stage is refilled by a later load
+  }
+
+  // the block's sums: the 8 row lanes of each warp, then the 4 warps, in
+  // a fixed order
+  cp_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(stages);   // [4][2][N]
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float a = group_sum(s1[nt][j]), c = group_sum(s2[nt][j]);
+      if (g == 0) {
+        red[warp * 2 * N + 8 * nt + 2 * t + j] = a;
+        red[warp * 2 * N + N + 8 * nt + 2 * t + j] = c;
+      }
+    }
+  __syncthreads();
+  for (int j = tid; j < 2 * N; j += kDownThreads) {
+    float v = red[j];
+#pragma unroll
+    for (int w = 1; w < kDownThreads / 32; ++w) v += red[w * 2 * N + j];
+    p.part[((size_t)b * gridDim.x + blockIdx.x) * 2 * N + j] = v;
+  }
+}
+
+// ---------------------------------------------------------------- up2x bwd
+
+struct UpBwdArgs {
+  const __nv_bfloat16* x;    // (B, D, H, W, 2C) coarse: the forward's input
+  const float* w;            // (2, 2, 2, 2C, C) f32, the forward's taps
+  const float* scale;        // (B, 2C)
+  const float* shift;
+  const __nv_bfloat16* gy;   // (B, 2D, 2H, 2W, C)
+  const __nv_bfloat16* y;    // the forward's y (read with gstats only)
+  const float* gstats;       // (B, 2, C) or null
+  __nv_bfloat16* dx;         // (B, D, H, W, 2C)
+  float* part;               // (B * gridDim.x, L) block sums, L below
+  int B, D2, H2, W2, tiles;
+};
+
+// a block's row of the partial table: dW (2, 2, 2, 2C, C) | dbias (C) |
+// dstats (B, 2, 2C), zeros for the other batch elements
+__host__ __device__ constexpr long long up_row(int C, int B) {
+  return 16LL * C * C + C + 4LL * B * C;
+}
+
+template <int C, int NS>
+struct UpCfg {
+  static constexpr int C2 = 2 * C, K = 8 * C, KS = K / 16;
+  static constexpr int NTW = NS / 16;   // dx: n8 tiles a warp (2 along NS)
+  static constexpr int MTW = C / 8;     // dW: m16 tiles of K a warp (4 along K)
+  static constexpr int kW = K * NS * 2;
+  static constexpr int kA = kRows * NS * 2;
+  static constexpr int kPitch = (NS + 16) | 16;   // staged dx half row
+  static constexpr int kStaging = 8 * 16 * kPitch;
+  static constexpr int kVec = (2 * NS + 2 * C) * 4;
+  static constexpr int kFixed = kW + kA + kStaging + kVec;
+  static constexpr int kG = kRows * K * 2;
+  static constexpr int kStage = 2 * kG + kRows * NS * 2;   // gy/G, y, x
+  // two blocks an SM where dW takes <= 16 registers a thread (C <= 16),
+  // so that one block's loads and syncs overlap the other's work
+  static constexpr int kBlocks = K * NS <= 128 * 32 ? 2 : 1;
+  static constexpr int kFit = (220 * 1024 / kBlocks - kFixed) / kStage;
+  static constexpr int kStages = kFit >= 3 ? 3 : kFit >= 1 ? kFit : 1;
+  static constexpr int kSmem = kFixed + kStages * kStage;
+  static_assert(kSmem <= kSmemMax, "up2x bwd tile exceeds shared memory");
+  static_assert(kStage >= kUpThreads * 8 * 4 + 4 * 2 * NS * 4,
+                "reduction scratch");
+};
+
+// One block: tiles of batch element blockIdx.y, coarse channels [i0, i0 +
+// NS) with i0 = blockIdx.z * NS. Per tile: g' formed in place over the
+// staged gy (dbias partial from its f32 value), a = bf16(relu(pre)) of the
+// slice, then dx = epilogue(G @ Wd) (warps 4 along rows x 2 along NS) and
+// dW^T += G^T @ a (warps 4 along K x 2 along NS).
+template <int C, int NS>
+__global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
+    up2x_bwd_mma_kernel(
+    const UpBwdArgs p) {
+  using Cfg = UpCfg<C, NS>;
+  constexpr int C2 = Cfg::C2, K = Cfg::K, NTW = Cfg::NTW, MTW = Cfg::MTW;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* sw = smem;                         // Wd slice [K][NS]
+  uint8_t* sa = sw + Cfg::kW;                 // a [64][NS]
+  uint8_t* sst = sa + Cfg::kA;                // dx staging, 16 rows a warp
+  float* vsc = reinterpret_cast<float*>(sst + Cfg::kStaging);
+  float* vsh = vsc + NS;
+  float* vg1 = vsh + NS;                      // gs1
+  float* vg2 = vg1 + C;                       // 2 gs2 (exact)
+  uint8_t* stages = reinterpret_cast<uint8_t*>(vg2 + C);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int b = blockIdx.y, i0 = blockIdx.z * NS;
+  const long long Mb = (long long)p.D2 * p.H2 * p.W2;
+  const int ntile = blockIdx.x < p.tiles
+                        ? (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                        : 0;
+  const bool stats = p.gstats != nullptr;
+
+  // Wd[k = d C + o][ii] = w[7 - d][i0 + ii][o], rounded to bf16
+  for (int e = tid; e < K * NS / 8; e += kUpThreads) {
+    const int k = e / (NS / 8), cu = e % (NS / 8);
+    const int d = k / C, o = k % C;
+    const float* src = p.w + ((size_t)(7 - d) * C2 + i0 + cu * 8) * C + o;
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = src[(size_t)j * C];
+    *reinterpret_cast<uint4*>(sw + swz(k, cu, NS / 8)) = pack8(v);
+  }
+  for (int e = tid; e < NS; e += kUpThreads) {
+    vsc[e] = p.scale[(size_t)b * C2 + i0 + e];
+    vsh[e] = p.shift[(size_t)b * C2 + i0 + e];
+  }
+  for (int e = tid; e < C; e += kUpThreads) {
+    vg1[e] = stats ? p.gstats[(size_t)b * 2 * C + e] : 0.f;
+    vg2[e] = stats ? 2.f * p.gstats[(size_t)b * 2 * C + C + e] : 0.f;
+  }
+  __syncthreads();
+  // the dx epilogue's scale/shift of this lane's columns
+  float scv[NTW][2], shv[NTW][2];
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      scv[nt][j] = vsc[wn * NS / 2 + 8 * nt + 2 * t + j];
+      shv[nt][j] = vsh[wn * NS / 2 + 8 * nt + 2 * t + j];
+    }
+
+  auto load = [&](int i) {
+    if (i < ntile) {
+      uint8_t* st = stages + (i % Cfg::kStages) * Cfg::kStage;
+      const long long tile = blockIdx.x + (long long)i * gridDim.x;
+      gather_tile<C>(smem_u32(st), p.gy, b, tile, Mb, p.D2, p.H2, p.W2, tid,
+                     kUpThreads);
+      if (stats)
+        gather_tile<C>(smem_u32(st + Cfg::kG), p.y, b, tile, Mb, p.D2, p.H2,
+                       p.W2, tid, kUpThreads);
+      const uint32_t sx = smem_u32(st + 2 * Cfg::kG);
+      for (int e = tid; e < kRows * NS / 8; e += kUpThreads) {
+        const int r = e / (NS / 8), cu = e % (NS / 8);
+        const long long m = tile * kRows + r;
+        const bool ok = m < Mb;
+        const __nv_bfloat16* src =
+            p.x + ((size_t)b * Mb + m) * C2 + i0 + cu * 8;
+        cp16(sx + swz(r, cu, NS / 8), ok ? src : p.x, ok);
+      }
+    }
+    cp_commit();
+  };
+  for (int i = 0; i < Cfg::kStages - 1; ++i) load(i);
+
+  float db[8] = {};                       // dbias of channels o0..o0+7
+  const int o0 = 8 * (tid % (C / 8));     // this thread's unit column's
+  float ds1[NTW][2] = {}, ds2[NTW][2] = {};
+  float dw[MTW][NTW][4] = {};
+  const uint32_t sw_u = smem_u32(sw), sa_u = smem_u32(sa);
+  uint8_t* my_st = sst + warp * 16 * Cfg::kPitch;
+
+  for (int i = 0; i < ntile; ++i) {
+    load(i + Cfg::kStages - 1);
+    cp_wait<Cfg::kStages - 1>();
+    __syncthreads();
+    uint8_t* sg = stages + (i % Cfg::kStages) * Cfg::kStage;
+    const uint8_t* sy = sg + Cfg::kG;
+    const uint8_t* sx = sg + 2 * Cfg::kG;
+    const long long mt0 = (blockIdx.x + (long long)i * gridDim.x) * kRows;
+
+    // 1. G = bf16(g') in place; dbias from the f32 g' of real rows
+    {
+      const int j = tid % C;
+      for (int r = tid / C; r < kRows; r += kUpThreads / C) {
+        uint4* pg = reinterpret_cast<uint4*>(sg + swz(r, j, C));
+        if (mt0 + r >= Mb) {
+          *pg = make_uint4(0, 0, 0, 0);
+          continue;
+        }
+        float f[8];
+        unpack8(*pg, f);
+        if (stats) {
+          float yv[8];
+          unpack8(*reinterpret_cast<const uint4*>(sy + swz(r, j, C)), yv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            f[e] = __fadd_rn(__fadd_rn(f[e], vg1[o0 + e]),
+                             __fmul_rn(vg2[o0 + e], yv[e]));
+          *pg = pack8(f);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) db[e] += f[e];
+      }
+    }
+    // 2. a = bf16(relu(x * scale + shift)) of the slice
+    for (int e = tid; e < kRows * NS / 8; e += kUpThreads) {
+      const int r = e / (NS / 8), cu = e % (NS / 8);
+      const uint4 xv = *reinterpret_cast<const uint4*>(sx + swz(r, cu, NS / 8));
+      const uint32_t w4[4] = {xv.x, xv.y, xv.z, xv.w};
+      uint32_t o4[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = cu * 8 + 2 * q;
+        o4[q] = act2(w4[q], vsc[c], vsc[c + 1], vsh[c], vsh[c + 1]);
+      }
+      *reinterpret_cast<uint4*>(sa + swz(r, cu, NS / 8)) =
+          make_uint4(o4[0], o4[1], o4[2], o4[3]);
+    }
+    __syncthreads();
+
+    // 3. dx: rows 16 wm.., columns wn NS/2.. of G @ Wd
+    {
+      float acc[NTW][4] = {};
+      const uint32_t sg_u = smem_u32(sg);
+#pragma unroll
+      for (int s = 0; s < Cfg::KS; ++s) {
+        uint32_t a[4];
+        ldsm4(a, sg_u + swz(lrow(16 * wm, lane), lcol(2 * s, lane), C));
+        if constexpr (NTW == 1) {
+          uint32_t bb[2];
+          ldsm2t(bb, sw_u + swz(lrow(16 * s, lane), wn, NS / 8));
+          mma(acc[0], a, bb[0], bb[1]);
+        } else {
+#pragma unroll
+          for (int np = 0; np < NTW / 2; ++np) {
+            uint32_t bb[4];
+            ldsm4t(bb, sw_u + swz(lrow(16 * s, lane),
+                                  lcol(wn * NTW + 2 * np, lane), NS / 8));
+            mma(acc[2 * np], a, bb[0], bb[1]);
+            mma(acc[2 * np + 1], a, bb[2], bb[3]);
+          }
+        }
+      }
+      // dam = [x scale + shift > 0] da; dx = bf16(dam scale); rows past
+      // the grid have G = 0, so da = dam = 0 there
+      __syncwarp();
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt) {
+        const int cc = wn * NS / 2 + 8 * nt + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wm + g + 8 * h;
+          const uint32_t xp = *reinterpret_cast<const uint32_t*>(
+              sx + swz(r, cc / 8, NS / 8) + (cc % 8) * 2);
+          const float xs[2] = {bf16_lo(xp), bf16_hi(xp)};
+          float o[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float pre = __fadd_rn(__fmul_rn(xs[j], scv[nt][j]),
+                                        shv[nt][j]);
+            const float dam = pre > 0.f ? acc[nt][2 * h + j] : 0.f;
+            o[j] = __fmul_rn(dam, scv[nt][j]);
+            ds1[nt][j] += dam * xs[j];
+            ds2[nt][j] += dam;
+          }
+          *reinterpret_cast<uint32_t*>(my_st + (g + 8 * h) * Cfg::kPitch +
+                                       (8 * nt + 2 * t) * 2) =
+              pack_bf16x2(o[0], o[1]);
+        }
+      }
+      __syncwarp();
+      const long long m0 = mt0 + 16 * wm;
+      for (int u = lane; u < 16 * NTW; u += 32) {
+        const int row = u / NTW, cu = u % NTW;
+        if (m0 + row < Mb)
+          *reinterpret_cast<uint4*>(p.dx + ((size_t)b * Mb + m0 + row) * C2 +
+                                    i0 + wn * NS / 2 + cu * 8) =
+              *reinterpret_cast<const uint4*>(my_st + row * Cfg::kPitch +
+                                              cu * 16);
+      }
+    }
+
+    // 4. dW^T (rows 2C wm.., columns wn NS/2..) += G^T @ a over the tile
+    {
+      const uint32_t sg_u = smem_u32(sg);
+#pragma unroll
+      for (int s = 0; s < kRows / 16; ++s) {
+        uint32_t bf[NTW][2];
+        if constexpr (NTW == 1) {
+          ldsm2t(bf[0], sa_u + swz(lrow(16 * s, lane), wn, NS / 8));
+        } else {
+#pragma unroll
+          for (int np = 0; np < NTW / 2; ++np) {
+            uint32_t bb[4];
+            ldsm4t(bb, sa_u + swz(lrow(16 * s, lane),
+                                  lcol(wn * NTW + 2 * np, lane), NS / 8));
+            bf[2 * np][0] = bb[0];
+            bf[2 * np][1] = bb[1];
+            bf[2 * np + 1][0] = bb[2];
+            bf[2 * np + 1][1] = bb[3];
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MTW; ++mt) {
+          // G^T's 16 x 16 block (rows k0.., columns 16 s..) by .trans:
+          // matrices (rows 16s.., unit k0/8), (16s.., k0/8 + 1), (16s+8..,
+          // k0/8), (16s+8.., k0/8 + 1)
+          const int k0 = wm * 2 * C + 16 * mt;
+          uint32_t a[4];
+          ldsm4t(a, sg_u + swz(16 * s + (lane & 7) + (lane >> 4) * 8,
+                               k0 / 8 + ((lane >> 3) & 1), C));
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt) mma(dw[mt][nt], a, bf[nt][0], bf[nt][1]);
+        }
+      }
+    }
+    __syncthreads();   // the stage, a and the staging are rewritten next
+  }
+
+  // the block's row of the partial table
+  cp_wait<0>();
+  __syncthreads();
+  const long long L = up_row(C, p.B);
+  float* row = p.part + ((size_t)b * gridDim.x + blockIdx.x) * L;
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = wm * 2 * C + 16 * mt + g + 8 * h;
+        const int d = k / C, o = k % C;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = i0 + wn * NS / 2 + 8 * nt + 2 * t + j;
+          row[((size_t)(7 - d) * C2 + i) * C + o] = dw[mt][nt][2 * h + j];
+        }
+      }
+  float* rdb = reinterpret_cast<float*>(stages);   // [256][8]
+  float* rds = rdb + kUpThreads * 8;               // [4][2][NS]
+#pragma unroll
+  for (int e = 0; e < 8; ++e) rdb[tid * 8 + e] = db[e];
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float a = group_sum(ds1[nt][j]), c = group_sum(ds2[nt][j]);
+      if (g == 0) {
+        rds[wm * 2 * NS + wn * NS / 2 + 8 * nt + 2 * t + j] = a;
+        rds[wm * 2 * NS + NS + wn * NS / 2 + 8 * nt + 2 * t + j] = c;
+      }
+    }
+  __syncthreads();
+  if (blockIdx.z == 0) {
+    // threads with tid % (C / 8) == o / 8 hold channel o, in tid order
+    for (int o = tid; o < C; o += kUpThreads) {
+      float v = 0.f;
+      for (int th = o / 8; th < kUpThreads; th += C / 8) v += rdb[th * 8 + o % 8];
+      row[16LL * C * C + o] = v;
+    }
+  }
+  float* rst = row + 16LL * C * C + C;
+  for (int e = tid; e < p.B * 2 * NS; e += kUpThreads) {
+    const int bb = e / (2 * NS), s = (e / NS) % 2, ii = e % NS;
+    float v = 0.f;
+    if (bb == b) {
+      v = rds[s * NS + ii];
+#pragma unroll
+      for (int w = 1; w < 4; ++w) v += rds[w * 2 * NS + s * NS + ii];
+    }
+    rst[((size_t)bb * 2 + s) * C2 + i0 + ii] = v;
+  }
+}
+
+// out[s, j] = sum over g of part[s, g, j], g in order: 8 g-strides a
+// column, then their 8 sums in order
+__global__ void __launch_bounds__(256) fixed_sum_kernel(
+    const float* __restrict__ part, float* __restrict__ out, int G,
+    long long L) {
+  __shared__ float red[8][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const long long j = (long long)blockIdx.x * 32 + tx;
+  const float* src = part + (size_t)blockIdx.y * G * L;
+  float s = 0.f;
+  if (j < L)
+    for (int g = ty; g < G; g += 8) s += src[(size_t)g * L + j];
+  red[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && j < L) {
+    float v = red[0][tx];
+#pragma unroll
+    for (int k = 1; k < 8; ++k) v += red[k][tx];
+    out[(size_t)blockIdx.y * L + j] = v;
+  }
+}
+
+// ---------------------------------------------------------------- host
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// blocks a batch element: at most `cap` resident blocks an SM over the
+// whole grid, rounded down so that no block waits for a second wave
+template <typename Kernel>
+int blocks_per_batch(Kernel kernel, int threads, int smem, int cap, int B,
+                     int slices, int tiles) {
+  if (allow_smem(kernel, smem) != cudaSuccess) return 0;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess ||
+      per_sm < 1)
+    return 0;
+  if (per_sm > cap) per_sm = cap;
+  int gx = per_sm * hopper_host::sm_count() / (B * slices);
+  if (gx < 1) gx = 1;
+  return gx < tiles ? gx : tiles;
+}
+
+template <int C>
+int down_grid(int B, int tiles) {
+  return blocks_per_batch(down2x_mma_kernel<C>, kDownThreads,
+                          DownCfg<C>::kSmem, 2, B, 1, tiles);
+}
+
+template <int C>
+int up_grid(int B, int tiles) {
+  constexpr int NS = C == 64 ? 32 : 2 * C;
+  return blocks_per_batch(up2x_bwd_mma_kernel<C, NS>, kUpThreads,
+                          UpCfg<C, NS>::kSmem, UpCfg<C, NS>::kBlocks, B,
+                          2 * C / NS, tiles);
+}
+
+template <int C>
+int down_launch(const DownArgs& a, float* stats, int B, int gx,
+                cudaStream_t st) {
+  using Cfg = DownCfg<C>;
+  cudaError_t err = allow_smem(down2x_mma_kernel<C>, Cfg::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  down2x_mma_kernel<C><<<dim3(gx, B), kDownThreads, Cfg::kSmem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fixed_sum_kernel<<<dim3((2 * Cfg::N + 31) / 32, B), 256, 0, st>>>(
+      a.part, stats, gx, 2 * Cfg::N);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int up_launch(const UpBwdArgs& a, float* out, int gx, cudaStream_t st) {
+  constexpr int NS = C == 64 ? 32 : 2 * C;
+  using Cfg = UpCfg<C, NS>;
+  cudaError_t err = allow_smem(up2x_bwd_mma_kernel<C, NS>, Cfg::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  up2x_bwd_mma_kernel<C, NS>
+      <<<dim3(gx, a.B, 2 * C / NS), kUpThreads, Cfg::kSmem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long L = up_row(C, a.B);
+  fixed_sum_kernel<<<dim3((unsigned)((L + 31) / 32), 1), 256, 0, st>>>(
+      a.part, out, gx * a.B, L);
+  return (int)cudaGetLastError();
+}
+
+long long tiles_of(int D2, int H2, int W2) {
+  return ((long long)D2 * H2 * W2 + kRows - 1) / kRows;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks a batch element of a launch (the partial table has B times that
+// many rows): kind 0 down2x, 1 up2x's backward, at fine width C over
+// `tiles` tiles a batch element; 0 for a width the kernels do not take.
+int pcseg_resample_grid(int kind, int B, int C, int tiles) {
+  if (B <= 0 || tiles <= 0) return 0;
+  switch (C) {
+    case 8: return kind == 0 ? down_grid<8>(B, tiles) : up_grid<8>(B, tiles);
+    case 16: return kind == 0 ? down_grid<16>(B, tiles) : up_grid<16>(B, tiles);
+    case 32: return kind == 0 ? down_grid<32>(B, tiles) : up_grid<32>(B, tiles);
+    case 64: return kind == 0 ? down_grid<64>(B, tiles) : up_grid<64>(B, tiles);
+    default: return 0;
+  }
+}
+
+// down2x: x (B, D, H, W, C) bf16 (D, H, W even; 16-byte aligned), w (2, 2,
+// 2, C, 2C) f32 (16-byte aligned), bias (2C,), scale/shift (B, C) f32.
+// Writes y (B, D/2, H/2, W/2, 2C) bf16 and stats (B, 2, 2C) f32 through
+// part, (B, gx, 2, 2C) f32 scratch; gx from pcseg_resample_grid(0, ...).
+int pcseg_down2x_mma(const void* x, const void* w, const void* bias,
+                     const void* scale, const void* shift, void* y,
+                     void* stats, void* part, int B, int D, int H, int W,
+                     int C, int gx, void* stream) {
+  if (B <= 0 || gx <= 0 || D <= 0 || H <= 0 || W <= 0 || D % 2 || H % 2 ||
+      W % 2)
+    return (int)cudaErrorInvalidValue;
+  DownArgs a{};
+  a.x = (const __nv_bfloat16*)x;
+  a.w = (const float*)w;
+  a.bias = (const float*)bias;
+  a.scale = (const float*)scale;
+  a.shift = (const float*)shift;
+  a.y = (__nv_bfloat16*)y;
+  a.part = (float*)part;
+  a.D2 = D / 2; a.H2 = H / 2; a.W2 = W / 2;
+  a.tiles = (int)tiles_of(a.D2, a.H2, a.W2);
+  float* s = (float*)stats;
+  const auto st = (cudaStream_t)stream;
+  switch (C) {
+    case 8: return down_launch<8>(a, s, B, gx, st);
+    case 16: return down_launch<16>(a, s, B, gx, st);
+    case 32: return down_launch<32>(a, s, B, gx, st);
+    case 64: return down_launch<64>(a, s, B, gx, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// up2x's backward: x (B, D, H, W, 2C) bf16 coarse; w (2, 2, 2, 2C, C) f32;
+// scale/shift (B, 2C); gy and y (B, 2D, 2H, 2W, C) bf16 (y unread without
+// gstats), gstats (B, 2, C) or null; all grids 16-byte aligned. Writes dx
+// (B, D, H, W, 2C) bf16 and out = [dW (2, 2, 2, 2C, C) | dbias (C) |
+// dstats (B, 2, 2C)] f32 through part, (B gx, 16 C^2 + C + 4 B C) f32
+// scratch; gx from pcseg_resample_grid(1, ...).
+int pcseg_up2x_bwd_mma(const void* x, const void* w, const void* scale,
+                       const void* shift, const void* gy, const void* y,
+                       const void* gstats, void* dx, void* out, void* part,
+                       int B, int D, int H, int W, int C, int gx,
+                       void* stream) {
+  if (B <= 0 || gx <= 0 || D <= 0 || H <= 0 || W <= 0)
+    return (int)cudaErrorInvalidValue;
+  UpBwdArgs a{};
+  a.x = (const __nv_bfloat16*)x;
+  a.w = (const float*)w;
+  a.scale = (const float*)scale;
+  a.shift = (const float*)shift;
+  a.gy = (const __nv_bfloat16*)gy;
+  a.y = (const __nv_bfloat16*)y;
+  a.gstats = (const float*)gstats;
+  a.dx = (__nv_bfloat16*)dx;
+  a.part = (float*)part;
+  a.B = B; a.D2 = D; a.H2 = H; a.W2 = W;
+  a.tiles = (int)tiles_of(D, H, W);
+  float* o = (float*)out;
+  const auto st = (cudaStream_t)stream;
+  switch (C) {
+    case 8: return up_launch<8>(a, o, gx, st);
+    case 16: return up_launch<16>(a, o, gx, st);
+    case 32: return up_launch<32>(a, o, gx, st);
+    case 64: return up_launch<64>(a, o, gx, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -40,6 +40,16 @@ Everything is NDHWC. The TPU kernels' 128-lane packing of (W, C) and their
 (B, 128) lane-tiled scale/shift/stats existed only for the TPU's vector
 lanes; here scale/shift are (B, C) and stats (B, 2, C).
 
+The down block's forward and the up block's backward run, for C in 8,
+16, 32, 64 with 2C on the coarse side (the widths the JAX fused core
+allows), as gathered tensor-core GEMMs (csrc/resample.cu): a coarse
+voxel's row is its eight children's channels (``gather_rows``), so the
+down conv is ``gather_rows(act(x)) @ pack_down_w(w)`` and the up block's
+dgrad ``gather_rows(g') @ pack_up_wt(w)``, its wgrad the transpose of
+the same product. Other shapes take the CUDA-core kernels of
+csrc/conv3d_block.cu, chosen by shape before the launch
+(``_mma_route``).
+
 ``*_cuda`` launch a kernel (csrc/conv3d_block.cu); ``*_plain`` are the
 plain PyTorch versions, with the kernels' rounding points, so the two agree
 up to f32 summation order. The differentiable ops run the kernels on a CUDA
@@ -49,6 +59,8 @@ the card the plain versions are the reference the kernels are held to
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -63,10 +75,13 @@ from pcseg_tpu_torch.ops._build import (
 from pcseg_tpu_torch.ops.conv3d import num_groups
 
 # launches per kernel since the last reset_launches(); each wrapper adds
-# one where it launches its kernel and nowhere else
+# one where it launches its kernel and nowhere else. The op keys count
+# either route; "down2x_mma" and "up2x_bwd_mma" count the launches of
+# csrc/resample.cu's gathered tensor-core kernels among them.
 LAUNCHES = {"conv3x3_gn_act": 0, "down2x_gn_act": 0, "up2x_gn_act": 0,
             "conv3x3_dgrad": 0, "conv3x3_wgrad": 0, "down2x_bwd": 0,
-            "up2x_bwd": 0, "head_grid2": 0, "head_grid2_bwd": 0}
+            "up2x_bwd": 0, "head_grid2": 0, "head_grid2_bwd": 0,
+            "down2x_mma": 0, "up2x_bwd_mma": 0}
 
 
 def reset_launches() -> None:
@@ -257,6 +272,33 @@ def up2x_bwd_plain(x, w, scale, shift, gy, y, gstats):
     return dx, dstats, dw.contiguous(), ge.sum(dim=(0, 1, 2, 3))
 
 
+# ---------------------------------------------------------------------------
+# the gathered-GEMM layout of csrc/resample.cu
+# ---------------------------------------------------------------------------
+
+def gather_rows(t):
+    """(B, D, H, W, C) fine grid -> (B, D/2, H/2, W/2, 8C): each coarse
+    voxel's row of its eight children, k = ((dz * 2 + dy) * 2 + dx) * C +
+    c (for each (dz, dy) the 2C contiguous values of the fine pair)."""
+    b, d, h, w, c = t.shape
+    return (t.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c)
+            .permute(0, 1, 3, 5, 2, 4, 6, 7)
+            .reshape(b, d // 2, h // 2, w // 2, 8 * c))
+
+
+def pack_down_w(w):
+    """The down conv's (2, 2, 2, C, N) weights as the (8C, N) matrix the
+    gathered rows multiply: row (tap, c)."""
+    return w.reshape(-1, w.shape[-1])
+
+
+def pack_up_wt(w):
+    """The up conv's (2, 2, 2, C2, C) weights as its dgrad's (8C, C2)
+    matrix: row (d, o) holds w[1 - d][:, o], the tap that sends coarse
+    channel i to child d's channel o."""
+    return w.flip(0, 1, 2).transpose(3, 4).reshape(-1, w.shape[3])
+
+
 def head_grid2_plain(x, w, bias, scale, shift):
     """The fused head: bf16(act(x) @ bf16(W) + bias), (B, D, H, W, NC)
     bf16, the f32 sum over C taken before the bias."""
@@ -293,7 +335,7 @@ def _check(name, t, shape, dtype, device):
 
 
 def _common(x, w, bias, scale, shift, k, activate=True):
-    """Validate a launch and return (weights as f32 of bf16, Cout)."""
+    """Validate a launch and return Cout."""
     if x.dim() != 5:
         raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
     b, cin, dev = x.shape[0], x.shape[-1], x.device
@@ -311,7 +353,7 @@ def _common(x, w, bias, scale, shift, k, activate=True):
         _check("shift", shift, (b, cin), torch.float32, dev)
     if w.device != dev:
         raise ValueError(f"w is on {w.device}, expected {dev}")
-    return _wq(w).contiguous(), cout
+    return cout
 
 
 def _cotangents(gy, y, gstats, shape):
@@ -355,7 +397,8 @@ def conv3x3_gn_act_cuda(x, w, bias, scale, shift, accum=None, *,
     when ``activate=False``; accum (B, D, H, W, Cout) bf16 added in f32
     after the bias. Returns (y bf16, stats (B, 2, Cout) f32 or None).
     """
-    wq, cout = _common(x, w, bias, scale, shift, 3, activate)
+    cout = _common(x, w, bias, scale, shift, 3, activate)
+    wq = _wq(w).contiguous()
     b, d, h, wd, cin = x.shape
     if wd % 4:
         raise ValueError(f"W={wd} must be a multiple of 4")
@@ -375,26 +418,66 @@ def conv3x3_gn_act_cuda(x, w, bias, scale, shift, accum=None, *,
     return y, stats
 
 
+def _mma_route(c, c2, *grids):
+    """True where csrc/resample.cu's gathered tensor-core kernels take a
+    resample launch: fine width C of 8, 16, 32 or 64, coarse width 2C and
+    16-byte aligned grids (its 16-byte copies). Other shapes run on the
+    CUDA-core kernels of csrc/conv3d_block.cu."""
+    return c in (8, 16, 32, 64) and c2 == 2 * c and all(
+        t is None or t.data_ptr() % 16 == 0 for t in grids)
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_grid(kind, b, c, tiles, device_index):
+    """Blocks a batch element of a resample.cu launch (kind 0 down2x, 1
+    up2x's backward): the rows of its partial table are B times this."""
+    with torch.cuda.device(device_index):
+        gx = load_library("resample").pcseg_resample_grid(kind, b, c, tiles)
+    if gx <= 0:
+        raise RuntimeError(f"resample.cu: no launch grid for C={c}")
+    return gx
+
+
+def _tiles(d2, h2, w2):
+    """64-voxel tiles of a coarse grid (csrc/resample.cu's kRows)."""
+    return -(-(d2 * h2 * w2) // 64)
+
+
 def down2x_gn_act_cuda(x, w, bias, scale, shift):
     """relu(x * scale + shift) -> k2 s2 conv -> + bias.
 
     x (B, D, H, W, C) bf16 with D, H, W even; w (2, 2, 2, C, C2).
     Returns (y (B, D/2, H/2, W/2, C2) bf16, stats (B, 2, C2) f32).
     """
-    wq, cout = _common(x, w, bias, scale, shift, 2)
+    cout = _common(x, w, bias, scale, shift, 2)
     b, d, h, wd, cin = x.shape
     if d % 2 or h % 2 or wd % 8:
         raise ValueError(f"down2x needs even D, H and W a multiple of 8, "
                          f"got {tuple(x.shape)}")
     y = torch.empty((b, d // 2, h // 2, wd // 2, cout), dtype=torch.bfloat16,
                     device=x.device)
-    stats = _f32_zeros(x, b, 2, cout)
-    rc = load_library().pcseg_down2x_gn_act(
-        x.data_ptr(), wq.data_ptr(), bias.data_ptr(), scale.data_ptr(),
-        shift.data_ptr(), y.data_ptr(), stats.data_ptr(), b, d, h, wd, cin,
-        cout, stream_of(x),
-    )
-    raise_on(rc, "down2x_gn_act")
+    w32 = w.float().contiguous()
+    if _mma_route(cin, cout, x, w32):
+        gx = _mma_grid(0, b, cin, _tiles(d // 2, h // 2, wd // 2),
+                       x.device.index)
+        stats = torch.empty((b, 2, cout), dtype=torch.float32,
+                            device=x.device)
+        part = torch.empty((b, gx, 2, cout), dtype=torch.float32,
+                           device=x.device)
+        rc = load_library("resample").pcseg_down2x_mma(
+            x.data_ptr(), w32.data_ptr(), bias.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), y.data_ptr(), stats.data_ptr(), part.data_ptr(),
+            b, d, h, wd, cin, gx, stream_of(x))
+        raise_on(rc, "down2x_mma")
+        LAUNCHES["down2x_mma"] += 1
+    else:
+        stats = _f32_zeros(x, b, 2, cout)
+        rc = load_library().pcseg_down2x_gn_act(
+            x.data_ptr(), _wq(w).contiguous().data_ptr(), bias.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
+            stats.data_ptr(), b, d, h, wd, cin, cout, stream_of(x),
+        )
+        raise_on(rc, "down2x_gn_act")
     LAUNCHES["down2x_gn_act"] += 1
     return y, stats
 
@@ -406,7 +489,8 @@ def up2x_gn_act_cuda(x, w, bias, scale, shift):
     x[i] @ w[1-d] per axis. Returns (y (B, 2D, 2H, 2W, C) bf16,
     stats (B, 2, C) f32).
     """
-    wq, cout = _common(x, w, bias, scale, shift, 2)
+    cout = _common(x, w, bias, scale, shift, 2)
+    wq = _wq(w).contiguous()
     b, d, h, wd, cin = x.shape
     if wd % 2:
         raise ValueError(f"up2x needs even W, got {tuple(x.shape)}")
@@ -429,7 +513,7 @@ def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
     output and gstats (B, 2, Cout) its stats cotangent, or both None; x
     the forward's input. Returns (dx bf16, dstats (B, 2, Cin) = (dscale,
     dshift) or None without the activation, g' bf16 when ``want_gadj``)."""
-    _, cout = _common(x, w, None, scale, shift, 3, activate)
+    cout = _common(x, w, None, scale, shift, 3, activate)
     b, d, h, wd, cin = x.shape
     if wd % 4 or cin % 4:
         raise ValueError(f"dgrad needs W and Cin multiples of 4, got "
@@ -510,13 +594,36 @@ def down2x_bwd_cuda(x, w, scale, shift, gy, y, gstats):
 
 def up2x_bwd_cuda(x, w, scale, shift, gy, y, gstats):
     """Backward of the up block, dW in the forward's tap order; gy/y
-    (B, 2D, 2H, 2W, C), gstats (B, 2, C) or None."""
-    b, d, h, wd, _ = x.shape
+    (B, 2D, 2H, 2W, C), gstats (B, 2, C) or None. One sweep of the
+    gathered tensor-core kernel where ``_mma_route`` takes the shape."""
+    b, d, h, wd, c2 = x.shape
+    c = w.shape[-1]
     if wd % 4:
         raise ValueError(f"up2x backward needs W a multiple of 4, got "
                          f"{tuple(x.shape)}")
-    return _resample_bwd_cuda("up2x_bwd", x, w, scale, shift, gy, y, gstats,
-                              (b, 2 * d, 2 * h, 2 * wd, w.shape[-1]))
+    out_shape = (b, 2 * d, 2 * h, 2 * wd, c)
+    if not _mma_route(c, c2, x, gy, y if gstats is not None else None):
+        return _resample_bwd_cuda("up2x_bwd", x, w, scale, shift, gy, y,
+                                  gstats, out_shape)
+    _common(x, w, None, scale, shift, 2)
+    _cotangents(gy, y, gstats, out_shape)
+    gx = _mma_grid(1, b, c, _tiles(d, h, wd), x.device.index)
+    dx = torch.empty_like(x)
+    n_dw = 16 * c * c
+    out = torch.empty(n_dw + c + 4 * b * c, dtype=torch.float32,
+                      device=x.device)
+    part = torch.empty((b * gx, out.numel()), dtype=torch.float32,
+                       device=x.device)
+    rc = load_library("resample").pcseg_up2x_bwd_mma(
+        x.data_ptr(), w.float().contiguous().data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), gy.data_ptr(),
+        ptr(y) if gstats is not None else None, ptr(gstats), dx.data_ptr(),
+        out.data_ptr(), part.data_ptr(), b, d, h, wd, c, gx, stream_of(x))
+    raise_on(rc, "up2x_bwd_mma")
+    LAUNCHES["up2x_bwd_mma"] += 1
+    LAUNCHES["up2x_bwd"] += 1
+    dw = out[:n_dw].view(2, 2, 2, c2, c)
+    return dx, out[n_dw + c:].view(b, 2, c2), dw, out[n_dw:n_dw + c]
 
 
 def _head_checks(x, w, scale, shift):

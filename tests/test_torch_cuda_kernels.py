@@ -79,6 +79,46 @@ def test_up2x_kernel(gen, r, c):
     _close(got, cb.up2x_gn_act_plain(x, w, bias, scale, shift))
 
 
+def _grid(gen, b, dhw, cin, cout):
+    """_inputs on a (D, H, W) grid that need not be a cube."""
+    x, w, bias, scale, shift = _inputs(gen, b, 2, cin, cout, 2)
+    x = torch.randn((b, *dhw, cin), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return x, w, bias, scale, shift
+
+
+@pytest.mark.parametrize("b,dhw,c", [(2, (8, 8, 8), 8), (2, (16, 16, 16), 16),
+                                     (2, (8, 8, 16), 32), (2, (8, 8, 8), 64),
+                                     (1, (6, 10, 24), 16)])
+def test_down2x_mma_kernel(gen, b, dhw, c):
+    """csrc/resample.cu's gathered tensor-core kernel at every fine width
+    it takes (B1 6 x 10 x 24: 180 coarse voxels, a ragged last tile whose
+    rows cross the coarse grid's rows), against the plain version, and bit
+    for bit the same in a second call."""
+    x, w, bias, scale, shift = _grid(gen, b, dhw, c, 2 * c)
+    before = dict(cb.LAUNCHES)
+    got = cb.down2x_gn_act(x, w, bias, scale, shift)
+    again = cb.down2x_gn_act(x, w, bias, scale, shift)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["down2x_mma"] == before["down2x_mma"] + 2
+    assert cb.LAUNCHES["down2x_gn_act"] == before["down2x_gn_act"] + 2
+    _close(got, cb.down2x_gn_act_plain(x, w, bias, scale, shift))
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 8), (16, 24)])
+def test_down2x_other_widths_take_the_cuda_core_kernel(gen, cin, cout):
+    """Shapes outside resample.cu's widths keep conv3d_block.cu's kernel,
+    a route declared by shape."""
+    x, w, bias, scale, shift = _inputs(gen, 2, 8, cin, cout, 2)
+    before = dict(cb.LAUNCHES)
+    got = cb.down2x_gn_act(x, w, bias, scale, shift)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["down2x_mma"] == before["down2x_mma"]
+    assert cb.LAUNCHES["down2x_gn_act"] == before["down2x_gn_act"] + 1
+    _close(got, cb.down2x_gn_act_plain(x, w, bias, scale, shift))
+
+
 def test_wrapper_rejects_bad_input(gen):
     x, w, bias, scale, shift = _inputs(gen, 2, 8, 16, 16, 3)
     with pytest.raises(TypeError):

@@ -126,7 +126,7 @@ def test_default_model_launches_and_matches_plain(gen):
     out = model(pts, mask)
     torch.cuda.synchronize()
     fwd = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
-           "head_grid2": 1}
+           "head_grid2": 1, "down2x_mma": 2}
     assert cb.LAUNCHES == {k: fwd.get(k, 0) for k in cb.LAUNCHES}
     assert vx.LAUNCHES == {"voxelize_contract": 1, "trilinear_gather": 1,
                            "trilinear_scatter": 0}
@@ -141,7 +141,7 @@ def test_default_model_launches_and_matches_plain(gen):
     logits.square().mean().backward()
     torch.cuda.synchronize()
     step = dict(fwd, conv3x3_dgrad=12, conv3x3_wgrad=13, down2x_bwd=2,
-                up2x_bwd=2, head_grid2_bwd=1)
+                up2x_bwd=2, head_grid2_bwd=1, up2x_bwd_mma=2)
     assert cb.LAUNCHES == {k: step.get(k, 0) for k in cb.LAUNCHES}
     assert vx.LAUNCHES == {"voxelize_contract": 1, "trilinear_gather": 1,
                            "trilinear_scatter": 1}

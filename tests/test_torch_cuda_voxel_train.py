@@ -115,6 +115,52 @@ def test_resample_bwd_kernels(gen, kind, r, cin, cout):
         _sum_close(a, b)
 
 
+@pytest.mark.parametrize("b,dhw,c,stats", [
+    (2, (4, 4, 4), 8, True), (2, (8, 8, 8), 16, True),
+    (2, (4, 4, 8), 32, True), (2, (4, 4, 4), 64, True),
+    (2, (8, 8, 8), 16, False), (1, (3, 5, 12), 16, True)])
+def test_up2x_bwd_mma_kernel(gen, b, dhw, c, stats):
+    """csrc/resample.cu's one-sweep up2x backward at every fine width it
+    takes (C 64 in four 32-column slices; without the stats cotangent; B1
+    3 x 5 x 12: 180 coarse voxels, a ragged last tile), against the plain
+    version, and bit for bit the same in a second call."""
+    x = _rand(gen, b, *dhw, 2 * c).to(torch.bfloat16)
+    _, w, bias, scale, shift = _inputs(gen, b, 2, 2 * c, c, 2)
+    y, _ = cb.up2x_gn_act_cuda(x, w, bias, scale, shift)
+    gy, gstats = _cotangents(gen, y.shape)
+    if not stats:
+        y = gstats = None
+    before = dict(cb.LAUNCHES)
+    got = cb.up2x_bwd_cuda(x, w, scale, shift, gy, y, gstats)
+    again = cb.up2x_bwd_cuda(x, w, scale, shift, gy, y, gstats)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["up2x_bwd_mma"] == before["up2x_bwd_mma"] + 2
+    assert cb.LAUNCHES["up2x_bwd"] == before["up2x_bwd"] + 2
+    ref = cb.up2x_bwd_plain(x, w, scale, shift, gy, y, gstats)
+    _bf16_close(got[0], ref[0])
+    for a, r in zip(got[1:], ref[1:]):
+        _sum_close(a, r)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def test_up2x_bwd_other_widths_take_the_cuda_core_kernels(gen):
+    """2C != C2 (here 24 coarse channels over 16 fine ones) keeps
+    conv3d_block.cu's dgrad and wgrad kernels, a route declared by
+    shape."""
+    x, w, bias, scale, shift = _inputs(gen, 2, 4, 24, 16, 2)
+    y, _ = cb.up2x_gn_act_cuda(x, w, bias, scale, shift)
+    gy, gstats = _cotangents(gen, y.shape)
+    before = dict(cb.LAUNCHES)
+    got = cb.up2x_bwd_cuda(x, w, scale, shift, gy, y, gstats)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["up2x_bwd_mma"] == before["up2x_bwd_mma"]
+    assert cb.LAUNCHES["up2x_bwd"] == before["up2x_bwd"] + 1
+    ref = cb.up2x_bwd_plain(x, w, scale, shift, gy, y, gstats)
+    _bf16_close(got[0], ref[0])
+    for a, r in zip(got[1:], ref[1:]):
+        _sum_close(a, r)
+
+
 def test_trilinear_scatter_kernel(gen):
     b, m, r, c = 2, 3000, 16, 4
     u = torch.rand((b, m, 3), generator=gen, device="cuda") * (r + 1) - 1
@@ -156,7 +202,8 @@ def test_train_step_through_the_kernels(gen):
                            "up2x_gn_act": 2, "conv3x3_dgrad": 12,
                            "conv3x3_wgrad": 13, "down2x_bwd": 2,
                            "up2x_bwd": 2, "head_grid2": 0,
-                           "head_grid2_bwd": 0}
+                           "head_grid2_bwd": 0, "down2x_mma": 2,
+                           "up2x_bwd_mma": 2}
     assert vx.LAUNCHES == {"voxelize_contract": 0, "trilinear_gather": 0,
                            "trilinear_scatter": 1}
     gp = grads(True)

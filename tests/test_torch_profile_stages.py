@@ -57,6 +57,19 @@ def test_pointnet_kernels_have_their_stage(name, stage):
     assert stage_of(name) == stage
 
 
+@pytest.mark.parametrize("name", [
+    NS + "down2x_mma_kernel<16>((anonymous namespace)::DownArgs)",
+    NS + "up2x_bwd_mma_kernel<16, 32>((anonymous namespace)::UpBwdArgs)",
+    "(anonymous namespace)::fixed_sum_kernel(float const*, float*, int, "
+    "long long)",
+])
+def test_resample_kernels_are_conv_stage(name):
+    """csrc/resample.cu's kernels (rows 4 and 7 and their fixed-order
+    sums) book under the voxel U-Net's conv stage, as the kernels they
+    took over from did."""
+    assert stage_of(name) == "conv"
+
+
 def _fake_profiles(monkeypatch, attempts):
     """profile_serving.device_profile answering each call with the next
     of ``attempts``: lists of (kernel name, device ms, recorded calls)."""
