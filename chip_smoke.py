@@ -6,9 +6,10 @@
 1. Builds the CUDA kernels from pcseg_tpu_torch/csrc/ (nvcc, sm_90a, one
    process per source, all at once), then prints ptxas's registers, shared
    memory and spills of the tensor-core libraries (pointnet_wgmma.cu, row
-   16; pointnet_chain.cu, rows 15 and 17; resample.cu, rows 4 and 7) and
-   the HGMMA (wgmma) or HMMA (mma.sync) instructions in each of their
-   tensor-core kernels' SASS (cuobjdump), failing if one has none.
+   16; pointnet_chain.cu, rows 15 and 17; resample.cu, rows 4, 7 and 5;
+   conv3d_dgrad.cu, row 2) and the HGMMA (wgmma) or HMMA (mma.sync)
+   instructions in each of their tensor-core kernels' SASS (cuobjdump),
+   failing if one has none.
 2. Holds each conv kernel against its plain PyTorch version at every
    shape the voxel serving path launches (batch 8, 64^3 grid, widths
    16/32/64), and times kernel, plain version and one cuDNN call of the
@@ -30,26 +31,36 @@
    (seg1's shape with its row bias, on the split backward, and conv4's,
    on the one-sweep backward) at B63 x 1000 rows (batch boundaries inside
    the 128-row tiles, a partial last tile: N = 63,000) and the global
-   pool block at 1000 rows a batch row. Rows 15-17 print each kernel's
-   device time beside
-   the op's CUDA-event time, and row 15 its sums over the 8 launches of
-   a step.
+   pool block at 1000 rows a batch row; conv1 at input_dim 20 (K
+   chunks), the logits layer and the classifier + CE at 40 classes (the
+   wide tiles): the widths past the bench's that the JAX fused chain
+   trains. Rows 15-17 print each kernel's device time beside the op's
+   CUDA-event time, and row 15 its sums over the 8 launches of a step.
 5. One whole fused PointNetSeg train step (full width, 4 classes,
    dropout 0.3, seeded random weights) with the kernels and with the
    plain versions, from the same state and seeds: loss, gradients and
-   new batch_stats.
+   new batch_stats; the same at 40 classes and at input_dim 20, whose
+   launch counts (8 + 8 fused_block, 1 + 1 fused_seg4_ce) show rows 15
+   and 17 took those widths.
 6. Trains PointNetSeg through api.fit on synthetic events (bucket 2048,
    batch 64, 4 train steps and one eval batch per epoch, 2 epochs), with
-   bn_stats="fused" and "exact": launch counts per step, finite losses,
-   ms per step, points/s, peak memory.
+   bn_stats="fused" and "exact", and "fused" at 40 classes and at
+   input_dim 20: launch counts per step, finite losses, ms per step,
+   points/s, peak memory.
 7. Holds each voxel U-Net backward kernel (the 3^3 dgrad and wgrad, the
    down and up backward, the trilinear scatter of the devoxelize VJP)
    against its plain version at every shape one B8 x 8192 train step at
    64^3/w16/L3 launches, and times kernel, plain version, bound and one
    PyTorch call of the same function (cuDNN's convolution_backward,
-   index_add_; yardsticks only); the up block's backward (resample.cu)
-   also by device time, its cuDNN call too, and two calls held bit for
-   bit.
+   index_add_; yardsticks only); the tensor-core kernels (the 3^3 dgrad,
+   conv3d_dgrad.cu, by variant and level; the down and up backward,
+   resample.cu, by shape) also by device time, their cuDNN calls too,
+   and two calls held bit for bit; and the 3^3 dgrad and the down
+   backward at one shape each off their tensor-core routes (8^3 x 32,
+   the 8^3 level of a grid-32 model; a width-64 U-Net's 16^3 x 128 ->
+   8^3 x 256 down block), which keep the CUDA-core kernels of
+   conv3d_block.cu: held the same way, with the tensor-core launch
+   counts unmoved.
 8. One whole voxel U-Net train step (seeded random weights, one batch of
    synthetic events) with the kernels, with the plain versions, and in f32
    on the plain core: loss and gradients; and the kernel step again from
@@ -165,7 +176,13 @@ PER_FORWARD = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
 # rows 4 and 7's kernels in csrc/resample.cu, by the op key they count
 # under and their own launch key
 RESAMPLE_SOURCE = "pcseg_tpu_torch/csrc/resample.cu"
-MMA_KEY = {"down2x_gn_act": "down2x_mma", "up2x_bwd": "up2x_bwd_mma"}
+# row 2's implicit GEMM
+DGRAD_SOURCE = "pcseg_tpu_torch/csrc/conv3d_dgrad.cu"
+# the tensor-core kernels (rows 4, 7, 5, 2) by the op key they count under
+# and their own launch key
+MMA_KEY = {"down2x_gn_act": "down2x_mma", "up2x_bwd": "up2x_bwd_mma",
+           "down2x_bwd": "down2x_bwd_mma",
+           "conv3x3_dgrad": "conv3x3_dgrad_mma"}
 # the default configuration (voxelize_impl / devox_impl "auto" -> the
 # one-hot forms at 64^3) adds the voxelizer, the fused head and the gather
 DEFAULT_PER_FORWARD = dict(PER_FORWARD, voxelize_contract=1, head_grid2=1,
@@ -216,6 +233,10 @@ PN_FUSED_PER_STEP = {
     "fused_seg4_ce": 1, "fused_seg4_ce_bwd": 1, "dropout": 0,
 }
 PN_EXACT_PER_STEP = dict({k: 0 for k in PN_FUSED_PER_STEP}, dropout=4)
+# (classes, input_dim) past the bench's that the JAX fused chain trains
+# and the card's kernels take since Queue C's repair: the classifier + CE
+# and the logits layer past 32 classes, conv1 past 16 input features
+PN_WIDTHS = [(40, 4), (4, 20)]
 # f32 outputs that are sums over the N = 131,072 rows (stats, dW, db, the
 # gamma/beta-like sums, num/den) take the same terms in another order and
 # with atomics: |d| <= 1e-3 of the largest |ref| of the tensor. bf16
@@ -251,7 +272,9 @@ WGMMA_SOURCES = {
                                  "chain_wgmma_bwd_kernel",
                                  "chain_wgmma_dx_kernel",
                                  "chain_wgmma_dw_kernel")),
-    "resample": ("HMMA", ("down2x_mma_kernel", "up2x_bwd_mma_kernel")),
+    "resample": ("HMMA", ("down2x_mma_kernel", "up2x_bwd_mma_kernel",
+                          "down2x_bwd_mma_kernel")),
+    "conv3d_dgrad": ("HMMA", ("dgrad_mma_kernel",)),
 }
 
 
@@ -482,10 +505,10 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
 
 
 def _mma_report(run, library, first) -> dict:
-    """Rows 4 and 7 (csrc/resample.cu): the op's kernels and the library
-    call by device time, and whether a second call on the same inputs
-    gives the same bits as ``first`` (raises if not: their sums take a
-    fixed order)."""
+    """Rows 4, 7, 5 and 2 (csrc/resample.cu, csrc/conv3d_dgrad.cu): the
+    op's kernels and the library call by device time, and whether a
+    second call on the same inputs gives the same bits as ``first``
+    (raises if not: their sums take a fixed order)."""
     import torch
 
     again = run()
@@ -888,12 +911,12 @@ def pn_global_case(gen, b=PN_B, m=PN_M, label="global_feat"):
     return _report(res)
 
 
-def pn_ce_case(gen):
+def pn_ce_case(gen, c=PN_CLASSES, label="seg4+CE"):
     import torch
 
     from pcseg_tpu_torch.ops import fused_ce as fc
 
-    n, cin, c = PN_B * PN_M, 128, PN_CLASSES
+    n, cin = PN_B * PN_M, 128
     x = torch.randn((n, cin), generator=gen, device="cuda").to(torch.bfloat16)
     bn = _bn_vectors(gen, cin)
     w, b = _dense(gen, cin, c)
@@ -927,7 +950,7 @@ def pn_ce_case(gen):
     wq = w.to(torch.bfloat16)
     dl = torch.randn((n, c), generator=gen, device="cuda").to(torch.bfloat16)
     res = {
-        "name": "fused_seg4_ce", "case": "seg4+CE",
+        "name": "fused_seg4_ce", "case": label,
         "shape": f"N{n} {cin}->{c}", "max_abs_err": err,
         "ms": time_ms(lambda: fc.seg4_ce_fwd_cuda(*args)),
         "plain_ms": time_ms(lambda: fc.seg4_ce_fwd_plain(*args)),
@@ -964,9 +987,21 @@ def pn_training_cases(gen, dropout=True):
     cases.append(pn_block_case("conv4 ragged M1000", 64, 128, True, 0.0,
                                False, gen, b=63, m=1000))
     sums = pn_step_sums(cases)
+    # the widths past the bench's that the JAX fused chain trains (Queue
+    # C's repair): conv1 at input_dim 20 (K chunks), the logits layer and
+    # the classifier + CE at 40 classes (the wide tiles)
+    for classes, input_dim in PN_WIDTHS:
+        if input_dim != 4:
+            cases.append(pn_block_case(f"conv1 input_dim {input_dim}",
+                                       input_dim, 64, False, 0.0, False, gen))
+        if classes != PN_CLASSES:
+            cases.append(pn_block_case(f"logits {classes}", 128, classes,
+                                       True, 0.0, False, gen))
     cases += [pn_global_case(gen),
               pn_global_case(gen, 64, 1000, "ragged M1000"),
               pn_ce_case(gen)]
+    cases += [pn_ce_case(gen, classes, f"seg4+CE {classes}")
+              for classes, _ in PN_WIDTHS if classes != PN_CLASSES]
     if dropout:
         cases += [pn_dropout_case(c, gen) for c in (512, 256)]
     return cases, sums
@@ -1006,35 +1041,56 @@ def pn_dropout_case(c, gen):
     return res
 
 
-def pn_batch(seed: int):
+def pn_events(n, seed, classes=PN_CLASSES, input_dim=4):
+    """n synthetic events of 1100-2048 points with ``classes`` classes;
+    past 4 input features, seeded normal features appended to each
+    point."""
+    import numpy as np
+
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+
+    rng = np.random.default_rng(seed)
+    events = []
+    for pts, lab in synthetic_events(n, num_classes=classes, min_points=1100,
+                                     max_points=PN_M, seed=seed):
+        extra = rng.normal(size=(pts.shape[0], input_dim - pts.shape[1]))
+        events.append((np.concatenate([pts, extra.astype(np.float32)], 1),
+                       lab))
+    return events
+
+
+def pn_batch(seed: int, classes=PN_CLASSES, input_dim=4):
     """One B64 x 2048 batch of synthetic events (1100-2048 points)."""
     import numpy as np
 
     from pcseg_tpu_torch.data.batching import pad_events
     from pcseg_tpu_torch.data.class_stats import scan_classes
-    from pcseg_tpu_torch.data.synthetic import synthetic_events
 
-    events = list(synthetic_events(PN_B, min_points=1100, max_points=PN_M,
-                                   seed=seed))
+    events = pn_events(PN_B, seed, classes, input_dim)
     cw = scan_classes(events).weights
-    return pad_events(events, PN_M, batch_size=PN_B), np.asarray(cw)
+    return (pad_events(events, PN_M, batch_size=PN_B, feature_dim=input_dim),
+            np.asarray(cw))
 
 
-def pn_step_compare(card):
+def pn_step_compare(card, classes=PN_CLASSES, input_dim=4):
     """One fused train step with the kernels and with the plain versions,
     from the same weights, batch and dropout seeds, and the same step in
-    f32 on plain layers as the yardstick of the chain's own rounding."""
+    f32 on plain layers as the yardstick of the chain's own rounding; at
+    the bench's widths or at ``classes`` / ``input_dim`` (PN_WIDTHS),
+    where the launch counts of one step show rows 15 and 17 took them."""
     import torch
 
     from pcseg_tpu_torch.models.pointnet import PointNetSeg, pointnet_apply
+    from pcseg_tpu_torch.ops import fused_block as fb
+    from pcseg_tpu_torch.ops import fused_ce as fc
     from pcseg_tpu_torch.ops.losses import cross_entropy_sums
 
-    (pts, labels, _), cw = pn_batch(5)
+    (pts, labels, _), cw = pn_batch(5, classes, input_dim)
     points = torch.from_numpy(pts).cuda()
     labels = torch.from_numpy(labels).cuda()
     cw = torch.from_numpy(cw).cuda()
-    model = PointNetSeg(PN_CLASSES, dropout=PN_DROP, bn_stats="fused",
-                        compute_dtype="bfloat16",
+    model = PointNetSeg(classes, input_dim=input_dim, dropout=PN_DROP,
+                        bn_stats="fused", compute_dtype="bfloat16",
                         generator=torch.Generator().manual_seed(0)).cuda()
     seeds = (11, 22)
 
@@ -1059,8 +1115,16 @@ def pn_step_compare(card):
     def grads():
         return {n: p.grad.clone() for n, p in model.named_parameters()}
 
+    fb.reset_launches()
+    fc.reset_launches()
     lk, bnk = step(False)
     gk = grads()
+    launches = dict(fb.LAUNCHES, **fc.LAUNCHES)
+    want = {k: PN_FUSED_PER_STEP[k] for k in launches}
+    if launches != want:
+        raise AssertionError(f"fused train step at {classes} classes, "
+                             f"input_dim {input_dim}: launches {launches} "
+                             f"!= {want}")
     lp, bnp = step(True)
     gp = grads()
     lf = step_f32()
@@ -1093,8 +1157,10 @@ def pn_step_compare(card):
            "grad_rel_err_plain_vs_f32_max_held": max(own[n] for n in held),
            "zero_grad_bias_norm_rel": zero_scale, "batch_stats_rel_err":
            bn_rel, "fwd_bwd_ms_kernels": ms_k, "fwd_bwd_ms_plain": ms_p,
-           "fwd_bwd_ms_f32_plain_layers": ms_f, "card": card}
-    print(f"  loss kernels {float(lk):.6f} plain {float(lp):.6f} (rel "
+           "fwd_bwd_ms_f32_plain_layers": ms_f, "classes": classes,
+           "input_dim": input_dim, "launches": launches, "card": card}
+    print(f"  {classes} classes, input_dim {input_dim}, launches "
+          f"{launches}: loss kernels {float(lk):.6f} plain {float(lp):.6f} (rel "
           f"{loss_rel:.2e}, tol {PN_LOSS_REL:.2e}), f32 {float(lf):.6f}; "
           f"gradients kernels vs plain <= {res['grad_rel_err_max_held']:.3e}"
           f" (rel L2), plain vs f32 <= "
@@ -1110,8 +1176,9 @@ def pn_step_compare(card):
     return res
 
 
-def pn_fit(card, bn_stats, events):
-    """The main path: api.fit on the card. Returns (launches, result)."""
+def pn_fit(card, bn_stats, events, classes=PN_CLASSES, input_dim=4):
+    """The main path: api.fit on the card (at the bench's widths, or at
+    ``classes`` / ``input_dim``). Returns (launches, result)."""
     import math
 
     import torch
@@ -1124,6 +1191,8 @@ def pn_fit(card, bn_stats, events):
 
     mods = (fb, fg, fc, dr)
     overrides = [f"model.bn_stats={bn_stats}", "model.compute_dtype=bfloat16",
+                 f"model.num_classes={classes}",
+                 f"model.input_dim={input_dim}",
                  f"data.batch_size={PN_B}", f"data.buckets={PN_M}",
                  "train.num_epochs=2", "train.log_every_steps=0",
                  "train.checkpoint_dir=build/chip_smoke_ckpt"]
@@ -1138,7 +1207,8 @@ def pn_fit(card, bn_stats, events):
     per_step = PN_FUSED_PER_STEP if bn_stats == "fused" else PN_EXACT_PER_STEP
     expected = {k: v * steps for k, v in per_step.items()}
     if launches != expected:
-        raise AssertionError(f"fit {bn_stats}: launch counts {launches} != "
+        raise AssertionError(f"fit {bn_stats} ({classes} classes, input_dim "
+                             f"{input_dim}): launch counts {launches} != "
                              f"{expected}")
     losses = [h[k] for h in res.history for k in ("train_loss", "val_loss")]
     if not all(math.isfinite(v) for v in losses):
@@ -1146,7 +1216,8 @@ def pn_fit(card, bn_stats, events):
     warm = res.history[-1]
     ms_step = warm["train_seconds"] * 1e3 / warm["train_steps"]
     out = {
-        "bn_stats": bn_stats, "steps": steps, "launches": launches,
+        "bn_stats": bn_stats, "classes": classes, "input_dim": input_dim,
+        "steps": steps, "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "train_loss": [h["train_loss"] for h in res.history],
         "val_loss": [h["val_loss"] for h in res.history],
@@ -1158,7 +1229,8 @@ def pn_fit(card, bn_stats, events):
         "epoch_seconds": [h["seconds"] for h in res.history],
         "peak_mem_gib": peak, "card": card,
     }
-    print(f"  fit bn_stats={bn_stats} [{card}]: {steps} train steps at "
+    print(f"  fit bn_stats={bn_stats}, {classes} classes, input_dim "
+          f"{input_dim} [{card}]: {steps} train steps at "
           f"B{PN_B} x {PN_M}, launches per step "
           f"{ {k: v for k, v in out['launches_per_step'].items() if v} }; "
           f"train loss {out['train_loss']}, val loss {out['val_loss']}; "
@@ -1191,7 +1263,12 @@ VOX_REPLACES = {
 VOX_PER_STEP = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
                 "conv3x3_dgrad": 12, "conv3x3_wgrad": 13, "down2x_bwd": 2,
                 "up2x_bwd": 2, "trilinear_scatter": 1, "down2x_mma": 2,
-                "up2x_bwd_mma": 2}
+                "up2x_bwd_mma": 2, "down2x_bwd_mma": 2,
+                "conv3x3_dgrad_mma": 12}
+# the voxel backward rows' sources
+VOX_SOURCES = {"conv3x3_dgrad": DGRAD_SOURCE, "conv3x3_wgrad": SOURCE,
+               "down2x_bwd": RESAMPLE_SOURCE, "up2x_bwd": RESAMPLE_SOURCE,
+               "trilinear_scatter": TRI_SOURCE}
 # the default configuration's step adds the one-hot forward kernels and
 # the fused head forward and backward
 DEFAULT_PER_STEP = dict(VOX_PER_STEP, voxelize_contract=1, head_grid2=1,
@@ -1220,7 +1297,8 @@ def vox_bwd_cases():
     """(kernel, label, r, cin, cout, kwargs) at every shape the backward
     of one train step launches: the 3^3 blocks at each level (the accum
     and stats-free y1 halves of the decoder at levels 0 and 1, the stem at
-    level 0), the two down and the two up blocks."""
+    level 0), the two down and the two up blocks; then the dgrad and the
+    down backward at one shape each off their tensor-core routes."""
     cases = [("conv3x3", "act", r, c, c, {})
              for r, c in ((64, 16), (32, 32), (16, 64))]
     for r, c in ((64, 16), (32, 32)):
@@ -1231,7 +1309,25 @@ def vox_bwd_cases():
               ("down2x_bwd", "act", 32, 32, 64, {}),
               ("up2x_bwd", "act", 16, 64, 32, {}),
               ("up2x_bwd", "act", 32, 32, 16, {})]
+    # off the tensor-core routes (ops/conv3d_block.py _dgrad_route,
+    # _mma_route): W = 8, and C = 128 with its coarse 256
+    cases += [("conv3x3", "accum off-route", 8, 32, 32,
+               {"accum": True, "off_route": True}),
+              ("down2x_bwd", "act off-route", 16, 128, 256,
+               {"off_route": True})]
     return cases
+
+
+def _route_taken(name, before, off_route):
+    """Asserts that the launch just made took the tensor-core kernel of
+    op ``name`` (its MMA_KEY count moved) or, ``off_route``, the CUDA-core
+    one (it did not); ``before`` are the counts before the launch."""
+    after = launch_counts()
+    mma = after[MMA_KEY[name]] - before[MMA_KEY[name]]
+    if after[name] - before[name] != 1 or mma != (0 if off_route else 1):
+        raise AssertionError(
+            f"{name}: {mma} tensor-core launches of 1, expected "
+            f"{0 if off_route else 1}")
 
 
 def _vox_inputs(gen, r, cin, cout, k):
@@ -1290,7 +1386,8 @@ def _vox_report(res):
 
 def vox_conv3x3_case(label, r, cin, cout, kw, gen):
     """dgrad and wgrad of one 3^3 block at one shape: two result rows
-    (the stem, whose input is data, launches no dgrad: one row)."""
+    (the stem, whose input is data, launches no dgrad: one row; a shape
+    off the dgrad's tensor-core route: its dgrad row only)."""
     import torch
 
     from pcseg_tpu_torch.ops import conv3d_block as cb
@@ -1311,29 +1408,42 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
     vec = 2 * VOX_B * cin * 4 if activate else 0
     shape = f"B{VOX_B} {r}^3 {cin}->{cout}"
     rows = []
+    off_route = bool(kw.get("off_route"))
     if activate:
         dargs = (gy, y, gstats, x, w, scale, shift, activate, want_gadj)
+        before = launch_counts()
         dk = cb.conv3x3_dgrad_cuda(*dargs)
         torch.cuda.synchronize()
+        _route_taken("conv3x3_dgrad", before, off_route)
         dp = cb.conv3x3_dgrad_plain(*dargs)
         checks = {"dx": _bf16_check(dk[0], dp[0]),
                   "dscale/dshift": _sum_check(dk[1], dp[1])}
         if want_gadj:
             checks["g'"] = (float((dk[2].float() - dp[2].float()).abs()
                                   .max()), bool(torch.equal(dk[2], dp[2])))
+
+        def library():
+            return _library_bwd(gy, x, wl, 1, 1, False, [True, False, False])
+
         res = {
             "name": "conv3x3_dgrad", "case": label, "shape": shape,
             "max_abs_err": _held(f"conv3x3_dgrad {label} {shape}", checks),
             "ms": time_ms(lambda: cb.conv3x3_dgrad_cuda(*dargs)),
             "plain_ms": time_ms(lambda: cb.conv3x3_dgrad_plain(*dargs),
                                 iters=3),
-            "library_ms": time_ms(lambda: _library_bwd(
-                gy, x, wl, 1, 1, False, [True, False, False])),
+            "library_ms": time_ms(library),
         }
+        if not off_route:
+            res.update(_mma_report(lambda: cb.conv3x3_dgrad_cuda(*dargs),
+                                   library, dk))
         nbytes = (cot + n * cin * 2 * 2 + 27 * cin * cout * 2 + vec
                   + 2 * VOX_B * cin * 4 + (n * cout * 2 if want_gadj else 0))
         res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
         rows.append(_vox_report(res))
+        if not off_route:
+            _print_mma(res)
+        else:
+            return rows               # the wgrad has one route
     wargs = (x, scale, shift, gy, y, gstats, activate)
     wk = cb.conv3x3_wgrad_cuda(*wargs)
     torch.cuda.synchronize()
@@ -1354,12 +1464,13 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
     return rows
 
 
-def vox_resample_case(name, r, cin, cout, gen):
+def vox_resample_case(name, label, r, cin, cout, kw, gen):
     import torch
 
     from pcseg_tpu_torch.ops import conv3d_block as cb
 
     up = name == "up2x_bwd"
+    mma = not kw.get("off_route")
     x, w, bias, scale, shift = _vox_inputs(gen, r, cin, cout, 2)
     fwd = cb.up2x_gn_act_cuda if up else cb.down2x_gn_act_cuda
     y, _ = fwd(x, w, bias, scale, shift)
@@ -1367,8 +1478,10 @@ def vox_resample_case(name, r, cin, cout, gen):
     args = (x, w, scale, shift, gy, y, gstats)
     kern = getattr(cb, f"{name}_cuda")
     plain = getattr(cb, f"{name}_plain")
+    before = launch_counts()
     gk = kern(*args)
     torch.cuda.synchronize()
+    _route_taken(name, before, not mma)
     gp = plain(*args)
     checks = {"dx": _bf16_check(gk[0], gp[0])}
     for k, a, b in zip(("dscale/dshift", "dW", "dbias"), gk[1:], gp[1:]):
@@ -1383,13 +1496,13 @@ def vox_resample_case(name, r, cin, cout, gen):
         return _library_bwd(gy, x, wl, 2, 0, up, [True, True, True])
 
     res = {
-        "name": name, "case": "act", "shape": shape,
-        "max_abs_err": _held(f"{name} {shape}", checks),
+        "name": name, "case": label, "shape": shape,
+        "max_abs_err": _held(f"{name} {label} {shape}", checks),
         "ms": time_ms(lambda: kern(*args)),
         "plain_ms": time_ms(lambda: plain(*args), iters=3),
         "library_ms": time_ms(library),
     }
-    if name in MMA_KEY:
+    if mma:
         res.update(_mma_report(lambda: kern(*args), library, gk))
     n_in, n_out = VOX_B * r ** 3, VOX_B * ro ** 3
     nbytes = (n_in * cin * 2 * 2 + n_out * cout * 2 * 2 + 8 * cin * cout * 2
@@ -1399,7 +1512,7 @@ def vox_resample_case(name, r, cin, cout, gen):
     flops = 2 * 2 * max(n_in, n_out) * cin * cout
     res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
     _vox_report(res)
-    if name in MMA_KEY:
+    if mma:
         _print_mma(res)
     return res
 
@@ -2932,16 +3045,23 @@ def pointnet_serve(card):
 
 
 def _mma_fields(at, cases) -> dict:
-    """Rows 4 and 7's device times at the row's shape and each shape's
-    (device ms, library device ms) beside them; nothing for the others."""
+    """The tensor-core rows' device times at the row's shape and each
+    case's (device ms, library device ms, bound ms) beside them, keyed by
+    variant and shape, and the cases off the tensor-core route (op ms,
+    plain ms, library ms); nothing for the other rows."""
     if "device_ms" not in at:
         return {}
+    mma = [c for c in cases if "device_ms" in c]
     return {"device_ms": at["device_ms"],
             "library_device_ms": at["library_device_ms"],
-            "by_shape": {c["shape"]: [c["device_ms"], c["library_device_ms"],
-                                      c["bound_ms"]] for c in cases},
+            "by_shape": {f"{c['case']} {c['shape']}": [
+                c["device_ms"], c["library_device_ms"], c["bound_ms"]]
+                for c in mma},
             "repeat_bit_identical": all(c["repeat_bit_identical"]
-                                        for c in cases)}
+                                        for c in mma),
+            "off_route": {f"{c['case']} {c['shape']}": [
+                c["ms"], c["plain_ms"], c["library_ms"]]
+                for c in cases if "device_ms" not in c}}
 
 
 def step_spread(card, n) -> int:
@@ -3007,6 +3127,8 @@ def main() -> int:
 
     print(f"[5] one fused train step, kernels vs plain [{card}]", flush=True)
     step = pn_step_compare(card)
+    step_widths = [pn_step_compare(card, classes, input_dim)
+                   for classes, input_dim in PN_WIDTHS]
 
     print(f"[6] api.fit on the card [{card}]", flush=True)
     from pcseg_tpu_torch.data.synthetic import synthetic_events
@@ -3016,6 +3138,12 @@ def main() -> int:
     fit_launches, fits = {}, {}
     for bn_stats in ("fused", "exact"):
         got, fits[bn_stats] = pn_fit(card, bn_stats, events)
+        for k, v in got.items():
+            fit_launches[k] = fit_launches.get(k, 0) + v
+    for classes, input_dim in PN_WIDTHS:
+        got, fits[f"fused {classes} classes, input_dim {input_dim}"] = \
+            pn_fit(card, "fused", pn_events(3 * PN_B, 7, classes, input_dim),
+                   classes, input_dim)
         for k, v in got.items():
             fit_launches[k] = fit_launches.get(k, 0) + v
     unused = [k for k, v in fit_launches.items() if v == 0]
@@ -3030,7 +3158,8 @@ def main() -> int:
         if kind == "conv3x3":
             vox_cases += vox_conv3x3_case(label, r, cin, cout, kw, gen)
         else:
-            vox_cases.append(vox_resample_case(kind, r, cin, cout, gen))
+            vox_cases.append(vox_resample_case(kind, label, r, cin, cout,
+                                               kw, gen))
     vox_cases.append(vox_scatter_case(gen))
 
     print(f"[8] one voxel U-Net train step, kernels vs plain [{card}]",
@@ -3137,9 +3266,7 @@ def main() -> int:
         by_path = {"voxel_fit": vox_launches[key],
                    "default_fit": def_fit_launches[key]}
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": TRI_SOURCE if name == "trilinear_scatter" else
-            RESAMPLE_SOURCE if name in MMA_KEY else SOURCE,
+            "name": name, "route": "cuda", "source": VOX_SOURCES[name],
             "replaces": VOX_REPLACES[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
@@ -3266,6 +3393,7 @@ def main() -> int:
     print(json.dumps({"cases": cases, "serving": served,
                       "pointnet_cases": pn_cases, "row15_step": pn_sums,
                       "pointnet_step": step,
+                      "pointnet_step_widths": step_widths,
                       "pointnet_fit": fits, "voxel_cases": vox_cases,
                       "voxel_step": vox_step, "voxel_fit": vox_fitted,
                       "default_cases": def_cases, "default_serving":

@@ -23,11 +23,15 @@
 //                         at :546): dx = relu'(pre) * scale * conv(g',
 //                         flip(W)^T), dscale = sum dam * x, dshift = sum dam
 //                         per (batch, channel), and the bf16 g' itself (the
-//                         accum gradient of the add variant).
+//                         accum gradient of the add variant), for the shapes
+//                         csrc/conv3d_dgrad.cu's implicit GEMM does not
+//                         take (ops/conv3d_block.py's _dgrad_route).
 //   pcseg_conv3x3_wgrad   replaces _wgrad_pallas (_wgrad_kernel, pallas_call
 //                         at :648): dW (3,3,3,Cin,Cout) and dbias.
 //   pcseg_down2x_bwd      replaces the bwd of fused_down2x_p
-//                         (_down2x_bwd_kernel, pallas_call at :1353).
+//                         (_down2x_bwd_kernel, pallas_call at :1353), for
+//                         the widths csrc/resample.cu's one-sweep kernel
+//                         does not take (C > 64, coarse width != 2C).
 //   pcseg_up2x_bwd        replaces the bwd of fused_up2x_p
 //                         (_up2x_bwd_kernel, pallas_call at :1439), for
 //                         the widths csrc/resample.cu's one-sweep kernel

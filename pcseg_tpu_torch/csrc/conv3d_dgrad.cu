@@ -1,0 +1,528 @@
+// The voxel U-Net's 3^3 dgrad on Hopper's tensor cores (sm_90a): an
+// implicit GEMM with fixed-order sums.
+//
+//   pcseg_conv3x3_dgrad_mma  replaces pcseg_tpu/ops/pallas/conv3d_block.py
+//       _dgrad_pallas (_dgrad_kernel, pallas_call at :546): g' = bf16(gy +
+//       (gs1 + 2 gs2 y)) (gy itself without the stats cotangent), da =
+//       conv(g', flip(W)^T) with zero padding, dx = bf16([pre > 0] da
+//       scale) with pre = x scale + shift, dscale = sum dam x and dshift =
+//       sum dam per (batch, channel), and, with gadj, the bf16 g' of every
+//       voxel (the add variant's accum gradient). Without the activation
+//       dx = bf16(da) and there are no sums.
+//
+// For each voxel (a row of M) the GEMM has K = 27 Cout (the taps' g'
+// channels) and N = Cin. What bounds it on an H100: bytes. B8 64^3 x 16
+// moves gy, y, x and dx once (268 MB, 0.080 ms at 3.35 TB/s) for 29 GFLOP
+// (0.029 ms at 989 TFLOP/s); 32^3 x 32 and 16^3 x 64 move 4x and 16x
+// fewer bytes for the same FLOPs. The design keeps every g' element
+// staged about 1.5 times and every product on mma.sync:
+//
+// - walking depth: a block owns one batch element, TH rows of all W (TH
+//   W = 256 voxels, 128 at 64 channels) and a range of depth planes. It
+//   keeps a ring of three g' planes in shared memory, each (TH + 2) x (W
+//   + 2) voxels x Cout bf16 with a zero halo: output plane d reads planes
+//   d - 1, d, d + 1 (the TPU kernel's rolling 3-plane window) while plane
+//   d + 2's gy and y are in flight in registers, loaded before plane d's
+//   products and stored after them into the slot that plane d - 1 leaves;
+//   the depth ranges are as many as keep the grid in one wave of resident
+//   blocks (two an SM at up to 16 channels);
+// - g' is formed once an element on its way into shared memory:
+//   bf16(gy + (gs1 + 2 gs2 y)), zeros outside the grid; with gadj the same
+//   step writes the g' of the block's own voxels, each exactly once;
+// - the taps: a voxel's Cout channels are whole 16-byte units, so each of
+//   the 27 taps is the ring read at a shifted voxel by ldmatrix; the units
+//   are swizzled by bits of their voxel (swl) so that the 8 voxels of an
+//   ldmatrix matrix meet 8 distinct bank groups at any shift. A warp's
+//   m16 tiles are stacked along H, so one A fragment (a ring row at one
+//   kx shift) serves the three ky taps of up to two tiles: the A
+//   traffic, which bounds the sweep on shared memory at 16 channels (N =
+//   16: two n8 tiles an A fragment), is (MW + 2) / 3 MW of a tap-by-tap
+//   walk;
+// - W (the forward's f32 weights, taps flipped, rounded to bf16) is
+//   staged once a block as [tap][Cin][Cout]; at Cin 64 a block takes 32
+//   of the Cin columns (grid z), so that W and the ring fit;
+// - the epilogue reads x from a tile that cp.async brought a plane ahead,
+//   writes dx over it in place (each element by the thread that read it)
+//   and stores the tile in 16-byte units; dscale / dshift stay in
+//   registers;
+// - no float atomics: each block writes its dscale / dshift as one row of
+//   a partial table and fixed_sum_kernel adds the rows in a fixed order,
+//   so two calls on the same inputs give the same bits.
+//
+// Shapes: Cin = Cout in {8, 16, 32, 64} (the JAX fused core's widths,
+// m16n8k8 at 8), W in {16, 32, 64} (16, 32 at 64 channels), H a multiple
+// of the tile's rows; ops/conv3d_block.py _dgrad_route states the rule,
+// and every other shape keeps conv3d_block.cu's conv_kernel.
+//
+// Plain C interface (loaded with ctypes): every entry returns
+// cudaGetLastError() after its launches, or cudaErrorInvalidValue before
+// any launch for a shape it does not take.
+
+#include "hopper.cuh"
+#include "mma_sync.cuh"
+
+namespace {
+
+using namespace mma_sync;
+using hopper::bf16_hi;
+using hopper::bf16_lo;
+using hopper::pack_bf16x2;
+using hopper::smem_u32;
+
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kSmemMax = 227 * 1024;
+
+// Byte offset of 16-byte unit u of a tile whose voxels hold U units: the
+// unit's index within its voxel XOR bits of the voxel (u >> 3 is the
+// voxel's index over 8 / U), so that one unit of any 8 consecutive voxels
+// falls in 8 distinct bank groups.
+__device__ __forceinline__ uint32_t swl(int u, int U) {
+  return (uint32_t)(u ^ ((u >> 3) & (U - 1))) * 16u;
+}
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = bf16_lo(w[i]);
+    f[2 * i + 1] = bf16_hi(w[i]);
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+
+struct DgradArgs {
+  const __nv_bfloat16* gy;    // (B, D, H, W, C)
+  const __nv_bfloat16* y;     // the forward's y (read with gstats only)
+  const float* gstats;        // (B, 2, C) or null
+  const __nv_bfloat16* x;     // the forward's input (read with scale)
+  const float* w;             // (3, 3, 3, C, C) f32, the forward's taps
+  const float* scale;         // (B, C), or null: no activation
+  const float* shift;
+  __nv_bfloat16* dx;          // (B, D, H, W, C)
+  __nv_bfloat16* gadj;        // bf16 g' (B, D, H, W, C) or null
+  float* part;                // (B, gridDim.x, 2, C) block sums (scale)
+  int D, H, W, TH, DD;        // TH rows and DD planes a block
+};
+
+template <int C>
+struct DgradCfg {
+  static constexpr int NS = C == 64 ? 32 : C;   // Cin columns a block
+  // m16 tiles a warp, stacked along H, so that one A fragment (a ring
+  // row at one kx shift) serves up to three of them (the three ky taps)
+  static constexpr int MW = C == 64 ? 1 : 2;
+  static constexpr int M = kWarps * MW * 16;    // voxels a plane tile
+  static constexpr int U = C / 8;               // g' units a voxel
+  static constexpr int UX = NS / 8;             // x / dx units a voxel
+  static constexpr int NW = NS / 8;             // n8 tiles a warp
+  static constexpr int KS = C >= 16 ? C / 16 : 1;   // k-steps a tap
+  static constexpr int kW = 27 * NS * C * 2;    // W slice [27][NS][C]
+  static constexpr int kX = M * NS * 2;         // x / dx tile of a plane
+  static constexpr int kVec = (2 * NS + 2 * C) * 4;
+  // a ring slot's voxels at the widest W taken (the most of any W)
+  static constexpr int kWmax = C == 64 ? 32 : 64;
+  static constexpr int kSlotMax = (M / kWmax + 2) * (kWmax + 2);
+  static constexpr int RPT = (kSlotMax * U + kThreads - 1) / kThreads;
+  static constexpr int kBlocks = C <= 16 ? 2 : 1;
+};
+
+// One block: batch element blockIdx.y, Cin columns [z NS, (z + 1) NS) (z
+// = blockIdx.z), rows [h0, h0 + TH) and planes [d0, d1) by blockIdx.x.
+// Warp w takes the 16 voxels at column group w % (W / 16) of MW
+// consecutive rows of each output plane, against the slice's NS columns.
+template <int C>
+__global__ void __launch_bounds__(kThreads, (DgradCfg<C>::kBlocks))
+    dgrad_mma_kernel(const DgradArgs p) {
+  using Cfg = DgradCfg<C>;
+  constexpr int NS = Cfg::NS, MW = Cfg::MW, U = Cfg::U, UX = Cfg::UX;
+  constexpr int NW = Cfg::NW, KS = Cfg::KS, M = Cfg::M, RPT = Cfg::RPT;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* sw = smem;                            // W slice
+  float* vsc = reinterpret_cast<float*>(sw + Cfg::kW);
+  float* vsh = vsc + NS;
+  float* vg1 = vsh + NS;                         // gs1
+  float* vg2 = vg1 + C;                          // 2 gs2 (exact)
+  uint8_t* sxt = reinterpret_cast<uint8_t*>(vg2 + C);   // 2 x tiles
+  uint8_t* ring = sxt + 2 * Cfg::kX;             // 3 slots
+  const int W = p.W, H = p.H, D = p.D, TH = p.TH;
+  const int PW = W + 2, PV = (TH + 2) * PW;     // a ring slot's voxels
+  const int slot_bytes = PV * C * 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nht = H / TH;
+  const int h0 = (blockIdx.x % nht) * TH;
+  const int d0 = (blockIdx.x / nht) * p.DD;
+  const int d1 = min(D, d0 + p.DD);
+  const int b = blockIdx.y, z = blockIdx.z;
+  const bool stats = p.gstats != nullptr, act = p.scale != nullptr;
+
+  // W slice: row (tap, n) holds w[26 - tap][z NS + n][:], rounded to bf16
+  for (int e = tid; e < 27 * NS * U; e += kThreads) {
+    const int tap = e / (NS * U), n = (e / U) % NS, ku = e % U;
+    const float* src =
+        p.w + ((size_t)(26 - tap) * C + z * NS + n) * C + ku * 8;
+    const float4 lo = *reinterpret_cast<const float4*>(src);
+    const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+    *reinterpret_cast<uint4*>(sw + swl(e, U)) =
+        make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
+                   pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+  }
+  for (int e = tid; e < NS; e += kThreads) {
+    vsc[e] = act ? p.scale[(size_t)b * C + z * NS + e] : 0.f;
+    vsh[e] = act ? p.shift[(size_t)b * C + z * NS + e] : 0.f;
+  }
+  for (int e = tid; e < C; e += kThreads) {
+    vg1[e] = stats ? p.gstats[(size_t)b * 2 * C + e] : 0.f;
+    vg2[e] = stats ? 2.f * p.gstats[(size_t)b * 2 * C + C + e] : 0.f;
+  }
+
+  // a plane of gy (and y) in flight in registers: unit e = tid + 256 i
+  // of a ring slot, zeros outside the grid
+  uint4 rgy[RPT], ryv[RPT];
+  uint32_t inside = 0;   // bit i: unit i is in the grid
+  auto fetch = [&](int pd) {
+    const bool pin = pd >= 0 && pd < D;
+    inside = 0;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int e = tid + i * kThreads;
+      const int v = e / U, cu = e % U;
+      const int hh = h0 - 1 + v / PW, ww = v % PW - 1;
+      const bool ok = e < PV * U && pin && hh >= 0 && hh < H && ww >= 0 &&
+                      ww < W;
+      rgy[i] = ryv[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (ok) {
+        const size_t off =
+            ((((size_t)b * D + pd) * H + hh) * W + ww) * C + cu * 8;
+        rgy[i] = *reinterpret_cast<const uint4*>(p.gy + off);
+        if (stats) ryv[i] = *reinterpret_cast<const uint4*>(p.y + off);
+        inside |= 1u << i;
+      }
+    }
+  };
+  // g' = bf16(gy + (gs1 + 2 gs2 y)) of the fetched plane pd into its ring
+  // slot, and gadj of the block's own voxels
+  auto put = [&](int pd) {
+    uint8_t* slot = ring + ((pd % 3 + 3) % 3) * slot_bytes;
+    const bool own = p.gadj != nullptr && z == 0 && pd >= d0 && pd < d1;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int e = tid + i * kThreads;
+      if (e >= PV * U) break;
+      uint4 q = rgy[i];
+      if (stats && (inside >> i & 1)) {
+        const int cu = e % U;
+        float f[8], yv[8];
+        unpack8(q, f);
+        unpack8(ryv[i], yv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = cu * 8 + j;
+          f[j] = __fadd_rn(f[j],
+                           __fadd_rn(vg1[c], __fmul_rn(vg2[c], yv[j])));
+        }
+        q = pack8(f);
+        const int v = e / U, r = v / PW;
+        if (own && r >= 1 && r <= TH)
+          *reinterpret_cast<uint4*>(
+              p.gadj + ((((size_t)b * D + pd) * H + h0 - 1 + r) * W +
+                        v % PW - 1) * C + cu * 8) = q;
+      }
+      *reinterpret_cast<uint4*>(slot + swl(e, U)) = q;
+    }
+  };
+  // x of plane pd's tile (the slice's channels) into x tile pd & 1
+  auto load_x = [&](int pd) {
+    if (!act) return;
+    const uint32_t xs = smem_u32(sxt + (pd & 1) * Cfg::kX);
+    for (int e = tid; e < M * UX; e += kThreads) {
+      const int v = e / UX, cu = e % UX;
+      const size_t off =
+          ((((size_t)b * D + pd) * H + h0 + v / W) * W + v % W) * C +
+          z * NS + cu * 8;
+      cp16(xs + swl(e, UX), p.x + off, true);
+    }
+  };
+
+  __syncthreads();   // the vectors (put reads them)
+  for (int pd = d0 - 1; pd <= d0 + 1; ++pd) {
+    fetch(pd);
+    put(pd);
+  }
+  load_x(d0);
+  cp_commit();
+  __syncthreads();
+
+  // this warp's tiles: column group cg, rows rg MW .. rg MW + MW - 1;
+  // vring: the lane's ldmatrix row in a ring slot at ring row rg MW, no
+  // shift; vtile: its first tile's first voxel in the x tile
+  const int cgs = W / 16, cg = warp % cgs, rg = warp / cgs;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int vring = rg * MW * PW + cg * 16 + lrow;
+  const int vtile = rg * MW * W + cg * 16;
+  float ds1[NW][2] = {}, ds2[NW][2] = {};
+  const uint32_t sw_u = smem_u32(sw);
+
+  for (int d = d0; d < d1; ++d) {
+    const bool next = d + 2 <= d1;   // plane d + 2 is read at d + 1
+    if (next) fetch(d + 2);
+    if (d + 1 < d1) load_x(d + 1);
+    cp_commit();
+
+    float acc[MW][NW][4] = {};
+    for (int kz = 0; kz < 3; ++kz) {
+      const int pd = d + kz - 1;
+      if (pd < 0 || pd >= D) continue;   // zero padding: no products
+      const uint32_t slot_u =
+          smem_u32(ring + ((pd % 3 + 3) % 3) * slot_bytes);
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          if constexpr (C == 8) {
+            // m16n8k8: one n8 tile, one k8 step a tap
+            uint32_t bq[3];
+#pragma unroll
+            for (int ky = 0; ky < 3; ++ky)
+              ldsm1(bq[ky], sw_u + swl(((kz * 3 + ky) * 3 + kx) * NS +
+                                           (lane & 7), U));
+#pragma unroll
+            for (int sr = 0; sr < MW + 2; ++sr) {
+              uint32_t a[2];
+              ldsm2(a, slot_u + swl(vring + sr * PW + kx, U));
+#pragma unroll
+              for (int mw = 0; mw < MW; ++mw)
+                if (sr - mw >= 0 && sr - mw < 3)
+                  mma_k8(acc[mw][0], a, bq[sr - mw]);
+            }
+          } else {
+            uint32_t bf[3][NW][2];
+#pragma unroll
+            for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+              for (int np = 0; np < NW / 2; ++np) {
+                uint32_t bb[4];
+                ldsm4(bb, sw_u + swl((((kz * 3 + ky) * 3 + kx) * NS +
+                                      16 * np + (lane & 7) +
+                                      (lane >> 4) * 8) * U + 2 * ks +
+                                         ((lane >> 3) & 1),
+                                     U));
+                bf[ky][2 * np][0] = bb[0];
+                bf[ky][2 * np][1] = bb[1];
+                bf[ky][2 * np + 1][0] = bb[2];
+                bf[ky][2 * np + 1][1] = bb[3];
+              }
+#pragma unroll
+            for (int sr = 0; sr < MW + 2; ++sr) {
+              uint32_t a[4];
+              ldsm4(a, slot_u + swl((vring + sr * PW + kx) * U + 2 * ks +
+                                        (lane >> 4),
+                                    U));
+#pragma unroll
+              for (int mw = 0; mw < MW; ++mw)
+                if (sr - mw >= 0 && sr - mw < 3)
+#pragma unroll
+                  for (int nt = 0; nt < NW; ++nt)
+                    mma(acc[mw][nt], a, bf[sr - mw][nt][0],
+                        bf[sr - mw][nt][1]);
+            }
+          }
+        }
+    }
+    cp_wait<1>();
+    __syncthreads();   // x of plane d is in; the ring slot of d - 1 is free
+
+    // epilogue: dam = [x scale + shift > 0] da, dx = bf16(dam scale) over
+    // x in place (bf16(da) without the activation)
+    uint8_t* xs = sxt + (d & 1) * Cfg::kX;
+#pragma unroll
+    for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+      for (int nt = 0; nt < NW; ++nt) {
+        const int c = 8 * nt + 2 * t;
+        const float sc[2] = {vsc[c], vsc[c + 1]}, sh[2] = {vsh[c], vsh[c + 1]};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t* px = reinterpret_cast<uint32_t*>(
+              xs + swl((vtile + mw * W + g + 8 * h) * UX + nt, UX) + 4 * t);
+          float o[2];
+          if (act) {
+            const uint32_t xp = *px;
+            const float xv[2] = {bf16_lo(xp), bf16_hi(xp)};
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float pre = __fadd_rn(__fmul_rn(xv[j], sc[j]), sh[j]);
+              const float dam = pre > 0.f ? acc[mw][nt][2 * h + j] : 0.f;
+              o[j] = __fmul_rn(dam, sc[j]);
+              ds1[nt][j] += dam * xv[j];
+              ds2[nt][j] += dam;
+            }
+          } else {
+            o[0] = acc[mw][nt][2 * h];
+            o[1] = acc[mw][nt][2 * h + 1];
+          }
+          *px = pack_bf16x2(o[0], o[1]);
+        }
+      }
+    __syncthreads();
+    // dx to the grid, g' of plane d + 2 into the freed ring slot
+    for (int e = tid; e < M * UX; e += kThreads) {
+      const int v = e / UX, cu = e % UX;
+      *reinterpret_cast<uint4*>(
+          p.dx + ((((size_t)b * D + d) * H + h0 + v / W) * W + v % W) * C +
+          z * NS + cu * 8) = *reinterpret_cast<const uint4*>(xs + swl(e, UX));
+    }
+    if (next) put(d + 2);
+    __syncthreads();
+  }
+  if (!act) return;
+
+  // the block's row of the partial table: the 8 row lanes of each warp,
+  // then the warps, in a fixed order
+  float* red = reinterpret_cast<float*>(ring);   // [8 warps][2][NS]
+#pragma unroll
+  for (int nt = 0; nt < NW; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float a = group_sum(ds1[nt][j]), c = group_sum(ds2[nt][j]);
+      if (g == 0) {
+        red[warp * 2 * NS + 8 * nt + 2 * t + j] = a;
+        red[warp * 2 * NS + NS + 8 * nt + 2 * t + j] = c;
+      }
+    }
+  __syncthreads();
+  for (int e = tid; e < 2 * NS; e += kThreads) {
+    float v = red[e];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += red[w * 2 * NS + e];
+    p.part[(((size_t)b * gridDim.x + blockIdx.x) * 2 + e / NS) * C + z * NS +
+           e % NS] = v;
+  }
+}
+
+// ---------------------------------------------------------------- host
+
+template <int C>
+size_t dgrad_smem(int W) {
+  using Cfg = DgradCfg<C>;
+  if (W % 16 || W > Cfg::kWmax || Cfg::M % W) return 0;
+  const size_t slot = (size_t)(Cfg::M / W + 2) * (W + 2) * C * 2;
+  return Cfg::kW + Cfg::kVec + 2 * Cfg::kX + 3 * slot;
+}
+
+// The launch of one dgrad: blocks a (batch element, slice), with the rows
+// (TH) and planes (DD) a block takes; false for a shape the kernel does
+// not take. The depth ranges are as many as keep the whole grid in one
+// wave of the resident blocks.
+struct Plan {
+  int gx, TH, DD;
+  size_t smem;
+};
+
+template <int C>
+bool dgrad_plan(int B, int D, int H, int W, Plan& pl) {
+  using Cfg = DgradCfg<C>;
+  pl.smem = dgrad_smem<C>(W);
+  if (pl.smem == 0 || pl.smem > (size_t)kSmemMax) return false;
+  pl.TH = Cfg::M / W;
+  if (H % pl.TH) return false;
+  if (cudaFuncSetAttribute(dgrad_mma_kernel<C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)pl.smem) != cudaSuccess)
+    return false;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dgrad_mma_kernel<C>, kThreads, pl.smem) != cudaSuccess ||
+      per_sm < 1)
+    return false;
+  const int nht = H / pl.TH, S = C / Cfg::NS;
+  int nd = per_sm * hopper_host::sm_count() / (B * S * nht);
+  nd = nd < 1 ? 1 : nd > D ? D : nd;
+  pl.DD = (D + nd - 1) / nd;
+  pl.gx = nht * ((D + pl.DD - 1) / pl.DD);
+  return true;
+}
+
+template <int C>
+int dgrad_grid(int B, int D, int H, int W) {
+  Plan pl;
+  return dgrad_plan<C>(B, D, H, W, pl) ? pl.gx : 0;
+}
+
+template <int C>
+int dgrad_launch(DgradArgs a, float* dstats, int B, int gx,
+                 cudaStream_t st) {
+  Plan pl;
+  if (!dgrad_plan<C>(B, a.D, a.H, a.W, pl) || pl.gx != gx)
+    return (int)cudaErrorInvalidValue;
+  a.TH = pl.TH;
+  a.DD = pl.DD;
+  dgrad_mma_kernel<C>
+      <<<dim3(gx, B, C / DgradCfg<C>::NS), kThreads, pl.smem, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.scale == nullptr) return (int)err;
+  fixed_sum_kernel<<<dim3((2 * C + 31) / 32, B), 256, 0, st>>>(a.part, dstats,
+                                                              gx, 2 * C);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks a (batch element, Cin slice) of the dgrad of a (B, D, H, W, C)
+// grid at Cin = Cout = C (its partial table has B times that many rows);
+// 0 for a shape the kernel does not take.
+int pcseg_dgrad_grid(int B, int C, int D, int H, int W) {
+  if (B <= 0 || D <= 0 || H <= 0 || W <= 0) return 0;
+  switch (C) {
+    case 8: return dgrad_grid<8>(B, D, H, W);
+    case 16: return dgrad_grid<16>(B, D, H, W);
+    case 32: return dgrad_grid<32>(B, D, H, W);
+    case 64: return dgrad_grid<64>(B, D, H, W);
+    default: return 0;
+  }
+}
+
+// gy (B, D, H, W, C) bf16; y the forward's output and gstats (B, 2, C), or
+// both null; x (B, D, H, W, C) bf16 the forward's input; w (3, 3, 3, C, C)
+// f32, the forward's weights; scale/shift (B, C) f32, null without the
+// activation. Writes dx (B, D, H, W, C) bf16, dstats (B, 2, C) = (dscale,
+// dshift) through part, (B, gx, 2, C) f32 scratch (both unused without the
+// activation), and, if gadj is not null, the bf16 g'. All grids 16-byte
+// aligned; gx from pcseg_dgrad_grid.
+int pcseg_conv3x3_dgrad_mma(const void* gy, const void* y, const void* gstats,
+                            const void* x, const void* w, const void* scale,
+                            const void* shift, void* dx, void* dstats,
+                            void* gadj, void* part, int B, int D, int H,
+                            int W, int C, int gx, void* stream) {
+  if (B <= 0 || gx <= 0 || (scale != nullptr && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  DgradArgs a{};
+  a.gy = (const __nv_bfloat16*)gy;
+  a.y = (const __nv_bfloat16*)y;
+  a.gstats = (const float*)gstats;
+  a.x = (const __nv_bfloat16*)x;
+  a.w = (const float*)w;
+  a.scale = (const float*)scale;
+  a.shift = (const float*)shift;
+  a.dx = (__nv_bfloat16*)dx;
+  a.gadj = (__nv_bfloat16*)gadj;
+  a.part = (float*)part;
+  a.D = D; a.H = H; a.W = W;
+  float* ds = (float*)dstats;
+  const auto st = (cudaStream_t)stream;
+  switch (C) {
+    case 8: return dgrad_launch<8>(a, ds, B, gx, st);
+    case 16: return dgrad_launch<16>(a, ds, B, gx, st);
+    case 32: return dgrad_launch<32>(a, ds, B, gx, st);
+    case 64: return dgrad_launch<64>(a, ds, B, gx, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

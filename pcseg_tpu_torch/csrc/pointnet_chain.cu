@@ -25,7 +25,8 @@
 // sums in f32. Dropout bits are ops/dropout.py's hash of (seed, row * Cin
 // + column), regenerated in the backward.
 //
-// Three routes, by width (ops/fused_block.py route_of, the same rule):
+// Three routes, by width (ops/fused_block.py route_of, the same rule; the
+// first that takes a width):
 //
 // wgmma (Cin, Cout multiples of 64, at most 512 and 1024): at B64 x 2048
 // points (N = 131,072) every layer is bound by bytes (conv5, 128 -> 1024,
@@ -88,10 +89,13 @@
 //             d crosses kernels (written once, read twice: 2 x N x Cout x
 //             2 bytes beyond the bound, 0.54 GB at conv5) and so does a (2
 //             x N x Cin x 2).
-// simt-K (Cin <= 16, Cout 64, 128 or 256: conv1, K = input_dim): rows of
-//             8 bytes, below TMA's 16-byte stride, and 4 FMAs an output;
-//             the CUDA cores, 8 output columns a thread, 16-byte stores,
-//             one block an SM. Backward in one kernel: d, db, dx, dW.
+// simt-K (any other Cin at Cout 64, 128 or 256: conv1, K = input_dim): rows
+//             of 2 Cin bytes, below TMA's 16-byte stride where Cin < 8, and
+//             Cin FMAs an output; the CUDA cores, 8 output columns a
+//             thread, 16-byte stores, one block an SM. K runs in chunks of
+//             up to 16 columns staged in shared memory (a pass of rows
+//             restages each chunk where Cin > 16). Backward in one kernel,
+//             a sweep of the rows a K chunk: d, db (first chunk), dx, dW.
 // narrow (Cin 128, Cout 1..32: the logits layer, and row 17): a product
 //             too narrow for wgmma's 64 rows to pay. 16 lanes a row (32
 //             above 8 classes), each 8 (4) channels in one 16-byte (8-byte)
@@ -102,7 +106,11 @@
 //             (from dy, or from the CE), dA = dlogits @ W^T, the ReLU mask,
 //             dx, and dW / db / dgamma / dbeta summed in registers across
 //             rows, added once a block. 1 launch an op (+ a memset of the
-//             sums).
+//             sums). From 33 to 128 classes (the JAX kernel's LANES; on
+//             the logits layer every Cout but 64 and 128, which take
+//             wgmma) the same op runs as wide_body's tiles of 32 rows
+//             through shared memory (W, a, x and bf16(dlogits)), the
+//             softmax a warp's shuffles, dW's partial spread over the block.
 //
 // The bound (chip_smoke.py phase 4) counts each input read once and each
 // output written once; PERF.md section 6 gives each layer's time beside
@@ -1366,8 +1374,9 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_bwd_kernel(
 }
 
 // --------------------------------------------------------------------------
-// simt-K (conv1): Cin <= KP <= 16, Cout = 8 CW; a thread takes 8 adjacent
-// output columns of a row, CW threads a row, blockDim / CW rows a pass
+// simt-K (conv1): any Cin, Cout = 8 CW; K in chunks of KP <= 16 (one chunk
+// where Cin <= KP); a thread takes 8 adjacent output columns of a row, CW
+// threads a row, blockDim / CW rows a pass
 // --------------------------------------------------------------------------
 
 struct SimtArgs {
@@ -1399,60 +1408,77 @@ struct SimtArgs {
   Pro pro;
 };
 
-// W as f32 [KP][cout] (zero rows past Cin) and the prologue vectors
+// chunk k0 of W as f32 [KP][cout] (zero rows past Cin) and of the
+// prologue vectors
 template <int KP>
-__device__ __forceinline__ void simt_stage(const SimtArgs& p, float* ws,
-                                           float* vec) {
+__device__ __forceinline__ void simt_stage(const SimtArgs& p, int k0,
+                                           float* ws, float* vec) {
   for (int i = threadIdx.x; i < KP * p.cout; i += blockDim.x) {
-    const int k = i / p.cout;
-    ws[i] = k < p.cin ? round_bf16(w_at(p.w, p.w_f32, i)) : 0.f;
+    const int k = k0 + i / p.cout;
+    ws[i] = k < p.cin
+                ? round_bf16(w_at(p.w, p.w_f32, (size_t)k0 * p.cout + i))
+                : 0.f;
   }
-  if (threadIdx.x < p.cin && p.pro.norm) {
+  if (threadIdx.x < KP && k0 + (int)threadIdx.x < p.cin && p.pro.norm) {
     const int k = threadIdx.x;
-    vec[k] = p.mu[k];
-    vec[16 + k] = p.inv[k];
-    vec[32 + k] = p.gamma[k];
-    vec[48 + k] = p.beta[k];
+    vec[k] = p.mu[k0 + k];
+    vec[16 + k] = p.inv[k0 + k];
+    vec[32 + k] = p.gamma[k0 + k];
+    vec[48 + k] = p.beta[k0 + k];
   }
 }
 
-template <int KP>
+// the prologue of x[r, k0 + k] (k the chunk's column)
 __device__ __forceinline__ Elem simt_elem(const SimtArgs& p, const float* vec,
-                                          long long r, int k) {
-  const uint64_t i = (uint64_t)r * p.cin + k;
+                                          long long r, int k0, int k) {
+  const uint64_t i = (uint64_t)r * p.cin + k0 + k;
   return pro_elem(__bfloat162float(p.x[i]), vec[k], vec[16 + k], vec[32 + k],
                   vec[48 + k], i, p.pro);
 }
 
+// y = a @ W + b over all K chunks; where Cin > KP a pass of rows restages
+// each chunk (block-uniform trips: the stages sync the block)
 template <int KP, int CW>
 __global__ void chain_simt_fwd_kernel(
     const SimtArgs p) {
   const int kLanes = blockDim.x / CW;
+  const int nk = (p.cin + KP - 1) / KP;
   __shared__ __align__(16) float ws[KP * 8 * CW];
   __shared__ float vec[64];
   __shared__ float ss[2][8 * CW];
   const int tid = threadIdx.x, c0 = (tid % CW) * 8, rl = tid / CW;
-  simt_stage<KP>(p, ws, vec);
+  simt_stage<KP>(p, 0, ws, vec);
   for (int i = tid; i < 2 * 8 * CW; i += blockDim.x) (&ss[0][0])[i] = 0.f;
   __syncthreads();
   float b8[8], s1a[8], s2a[8];
   load8(p.bias + c0, b8);
 #pragma unroll
   for (int j = 0; j < 8; ++j) s1a[j] = s2a[j] = 0.f;
-  for (long long r = (long long)blockIdx.x * kLanes + rl; r < p.n;
-       r += (long long)gridDim.x * kLanes) {
+  for (long long base = (long long)blockIdx.x * kLanes; base < p.n;
+       base += (long long)gridDim.x * kLanes) {
+    const long long r = base + rl;
+    const bool valid = r < p.n;
     float v[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) v[j] = 0.f;
+    for (int kc = 0; kc < nk; ++kc) {
+      if (nk > 1) {
+        __syncthreads();
+        simt_stage<KP>(p, kc * KP, ws, vec);
+        __syncthreads();
+      }
+      if (!valid) continue;
 #pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      if (k >= p.cin) break;
-      const float a = round_bf16(simt_elem<KP>(p, vec, r, k).a);
-      float w8[8];
-      load8(ws + k * p.cout + c0, w8);
+      for (int k = 0; k < KP; ++k) {
+        if (kc * KP + k >= p.cin) break;
+        const float a = round_bf16(simt_elem(p, vec, r, kc * KP, k).a);
+        float w8[8];
+        load8(ws + k * p.cout + c0, w8);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = fmaf(a, w8[j], v[j]);
+        for (int j = 0; j < 8; ++j) v[j] = fmaf(a, w8[j], v[j]);
+      }
     }
+    if (!valid) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       v[j] += b8[j];
@@ -1486,141 +1512,154 @@ __global__ void chain_simt_fwd_kernel(
   }
 }
 
-// one pass: d = bf16((dy + ds1) + 2 y ds2), db, dA = d @ W^T summed over
-// the CW lanes of a row, dx (the row's first lane), dW, dgamma, dbeta
+// one pass a K chunk: d = bf16((dy + ds1) + 2 y ds2) (db in the first),
+// dA = d @ W^T summed over the CW lanes of a row, dx (the row's first
+// lane), dW, dgamma, dbeta of the chunk's columns; every column of dx, dW
+// and the sums belongs to one chunk, so a chunk's pass needs no other
 template <int KP, int CW>
 __global__ void chain_simt_bwd_kernel(
     const SimtArgs p) {
   const int kLanes = blockDim.x / CW;
+  const int nk = (p.cin + KP - 1) / KP;
   __shared__ __align__(16) float ws[KP * 8 * CW];
   __shared__ float vec[64];
   __shared__ float red[KP * 8 * CW + 8 * CW + 2 * KP];
   const int tid = threadIdx.x, cg = tid % CW, c0 = cg * 8, rl = tid / CW;
-  simt_stage<KP>(p, ws, vec);
-  for (int i = tid; i < KP * 8 * CW + 8 * CW + 2 * KP; i += blockDim.x) red[i] = 0.f;
-  __syncthreads();
   const bool stats = p.ds1 != nullptr;
   float d1[8], d2[8];
   if (stats) {
     load8(p.ds1 + c0, d1);
     load8(p.ds2 + c0, d2);
   }
-  float dba[8], dwa[KP][8], dga[KP], dbt[KP];
+  for (int kc = 0; kc < nk; ++kc) {
+    const int k0 = kc * KP;
+    if (kc > 0) __syncthreads();  // the last chunk's sums are read
+    simt_stage<KP>(p, k0, ws, vec);
+    for (int i = tid; i < KP * 8 * CW + 8 * CW + 2 * KP; i += blockDim.x)
+      red[i] = 0.f;
+    __syncthreads();
+    float dba[8], dwa[KP][8], dga[KP], dbt[KP];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) dba[j] = 0.f;
-#pragma unroll
-  for (int k = 0; k < KP; ++k) {
-    dga[k] = dbt[k] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dwa[k][j] = 0.f;
-  }
-  // warp-uniform trips: the shuffles below need every lane
-  for (long long base = (long long)blockIdx.x * kLanes; base < p.n;
-       base += (long long)gridDim.x * kLanes) {
-    const long long r = base + rl;
-    const bool valid = r < p.n;
-    float dv[8], dl[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dv[j] = 0.f;
-    if (valid) {
-      const size_t o = (size_t)r * p.cout + c0;
-      if (p.dy_f32)
-        load8(static_cast<const float*>(p.dy) + o, dv);
-      else
-        unpack8(*reinterpret_cast<const uint4*>(
-                    static_cast<const bf16*>(p.dy) + o), dv);
-      if (stats) {
-        float yv[8];
-        unpack8(*reinterpret_cast<const uint4*>(p.yin + o), yv);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          dv[j] = __fadd_rn(__fadd_rn(dv[j], d1[j]),
-                            __fmul_rn(__fmul_rn(2.f, yv[j]), d2[j]));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      dba[j] += dv[j];
-      dl[j] = round_bf16(dv[j]);
-    }
-    float da[KP];
-    Elem e[KP];
+    for (int j = 0; j < 8; ++j) dba[j] = 0.f;
 #pragma unroll
     for (int k = 0; k < KP; ++k) {
-      da[k] = 0.f;
-      e[k] = Elem{0.f, 0.f, 0.f, true};
-      if (k < p.cin && valid) {
-        e[k] = simt_elem<KP>(p, vec, r, k);
-        const float a = round_bf16(e[k].a);
-        float w8[8];
-        load8(ws + k * p.cout + c0, w8);
+      dga[k] = dbt[k] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          da[k] = fmaf(dl[j], w8[j], da[k]);
-          dwa[k][j] = fmaf(a, dl[j], dwa[k][j]);
+      for (int j = 0; j < 8; ++j) dwa[k][j] = 0.f;
+    }
+    // warp-uniform trips: the shuffles below need every lane
+    for (long long base = (long long)blockIdx.x * kLanes; base < p.n;
+         base += (long long)gridDim.x * kLanes) {
+      const long long r = base + rl;
+      const bool valid = r < p.n;
+      float dv[8], dl[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dv[j] = 0.f;
+      if (valid) {
+        const size_t o = (size_t)r * p.cout + c0;
+        if (p.dy_f32)
+          load8(static_cast<const float*>(p.dy) + o, dv);
+        else
+          unpack8(*reinterpret_cast<const uint4*>(
+                      static_cast<const bf16*>(p.dy) + o), dv);
+        if (stats) {
+          float yv[8];
+          unpack8(*reinterpret_cast<const uint4*>(p.yin + o), yv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            dv[j] = __fadd_rn(__fadd_rn(dv[j], d1[j]),
+                              __fmul_rn(__fmul_rn(2.f, yv[j]), d2[j]));
         }
       }
-    }
 #pragma unroll
-    for (int k = 0; k < KP; ++k)
-#pragma unroll
-      for (int o = CW / 2; o > 0; o >>= 1)
-        da[k] += __shfl_xor_sync(kFull, da[k], o);
-    if (cg == 0 && valid) {
+      for (int j = 0; j < 8; ++j) {
+        dba[j] += dv[j];
+        dl[j] = round_bf16(dv[j]);
+      }
+      float da[KP];
+      Elem e[KP];
 #pragma unroll
       for (int k = 0; k < KP; ++k) {
-        if (k >= p.cin) break;
-        const float dz = pro_dz(da[k], e[k], p.pro);
-        p.dx[(size_t)r * p.cin + k] = __float2bfloat16_rn(
-            p.pro.norm ? __fmul_rn(__fmul_rn(dz, vec[32 + k]), vec[16 + k])
-                       : dz);
-        dga[k] += __fmul_rn(dz, e[k].xh);
-        dbt[k] += dz;
+        da[k] = 0.f;
+        e[k] = Elem{0.f, 0.f, 0.f, true};
+        if (k0 + k < p.cin && valid) {
+          e[k] = simt_elem(p, vec, r, k0, k);
+          const float a = round_bf16(e[k].a);
+          float w8[8];
+          load8(ws + k * p.cout + c0, w8);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            da[k] = fmaf(dl[j], w8[j], da[k]);
+            dwa[k][j] = fmaf(a, dl[j], dwa[k][j]);
+          }
+        }
       }
-    }
-  }
-  float* rdw = red;
-  float* rdb = red + KP * 8 * CW;
-  float* rdg = rdb + 8 * CW;
-  // fold the rows of a warp, then the warps add in turn (plain stores: a
-  // float atomic on shared memory is a compare-and-swap loop)
-#pragma unroll
-  for (int o = CW; o < 32; o <<= 1) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      dba[j] += __shfl_xor_sync(kFull, dba[j], o);
 #pragma unroll
       for (int k = 0; k < KP; ++k)
-        dwa[k][j] += __shfl_xor_sync(kFull, dwa[k][j], o);
-    }
 #pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      dga[k] += __shfl_xor_sync(kFull, dga[k], o);
-      dbt[k] += __shfl_xor_sync(kFull, dbt[k], o);
-    }
-  }
-  for (int w = 0; w < (int)(blockDim.x / 32); ++w) {
-    if (tid / 32 == w && (tid & 31) < CW) {
+        for (int o = CW / 2; o > 0; o >>= 1)
+          da[k] += __shfl_xor_sync(kFull, da[k], o);
+      if (cg == 0 && valid) {
 #pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        if (k >= p.cin) break;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) rdw[k * p.cout + c0 + j] += dwa[k][j];
-        if (cg == 0) {
-          rdg[k] += dga[k];
-          rdg[KP + k] += dbt[k];
+        for (int k = 0; k < KP; ++k) {
+          if (k0 + k >= p.cin) break;
+          const float dz = pro_dz(da[k], e[k], p.pro);
+          p.dx[(size_t)r * p.cin + k0 + k] = __float2bfloat16_rn(
+              p.pro.norm
+                  ? __fmul_rn(__fmul_rn(dz, vec[32 + k]), vec[16 + k])
+                  : dz);
+          dga[k] += __fmul_rn(dz, e[k].xh);
+          dbt[k] += dz;
         }
       }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) rdb[c0 + j] += dba[j];
     }
-    __syncthreads();
-  }
-  for (int i = tid; i < p.cin * p.cout; i += blockDim.x) atomicAdd(&p.dw[i], rdw[i]);
-  for (int i = tid; i < p.cout; i += blockDim.x) atomicAdd(&p.db[i], rdb[i]);
-  if (p.pro.norm && tid < p.cin) {
-    atomicAdd(&p.dg[tid], rdg[tid]);
-    atomicAdd(&p.dbeta[tid], rdg[KP + tid]);
+    float* rdw = red;
+    float* rdb = red + KP * 8 * CW;
+    float* rdg = rdb + 8 * CW;
+    // fold the rows of a warp, then the warps add in turn (plain stores: a
+    // float atomic on shared memory is a compare-and-swap loop)
+#pragma unroll
+    for (int o = CW; o < 32; o <<= 1) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dba[j] += __shfl_xor_sync(kFull, dba[j], o);
+#pragma unroll
+        for (int k = 0; k < KP; ++k)
+          dwa[k][j] += __shfl_xor_sync(kFull, dwa[k][j], o);
+      }
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        dga[k] += __shfl_xor_sync(kFull, dga[k], o);
+        dbt[k] += __shfl_xor_sync(kFull, dbt[k], o);
+      }
+    }
+    for (int w = 0; w < (int)(blockDim.x / 32); ++w) {
+      if (tid / 32 == w && (tid & 31) < CW) {
+#pragma unroll
+        for (int k = 0; k < KP; ++k) {
+          if (k0 + k >= p.cin) break;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) rdw[k * p.cout + c0 + j] += dwa[k][j];
+          if (cg == 0) {
+            rdg[k] += dga[k];
+            rdg[KP + k] += dbt[k];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) rdb[c0 + j] += dba[j];
+      }
+      __syncthreads();
+    }
+    const int kn = min(KP, p.cin - k0);
+    for (int i = tid; i < kn * p.cout; i += blockDim.x)
+      atomicAdd(&p.dw[(size_t)k0 * p.cout + i], rdw[i]);
+    if (kc == 0)
+      for (int i = tid; i < p.cout; i += blockDim.x)
+        atomicAdd(&p.db[i], rdb[i]);
+    if (p.pro.norm && tid < kn) {
+      atomicAdd(&p.dg[k0 + tid], rdg[tid]);
+      atomicAdd(&p.dbeta[k0 + tid], rdg[KP + tid]);
+    }
   }
 }
 
@@ -2022,10 +2061,10 @@ __device__ __forceinline__ void narrow_body(const NarrowArgs& p) {
 // rows, mma.sync m16n8k16 (bf16, f32 sums) runs the logits, dlogits @ W^T
 // and a^T @ dlogits; the prologue, softmax and ReLU mask work in the
 // fragments' layouts, so no value is moved between lanes but dlogits'
-// 8 x 8 blocks (movmatrix). Above 8 classes (to the op's 32) the FMA
-// narrow_body pass runs instead: here a thread would hold dW's 128 x C
-// partial in 4 C registers (128 at 32 classes) beside dgamma / dbeta's 64
-// and the 64 of x and a, which spills
+// 8 x 8 blocks (movmatrix). From 9 to 32 classes the FMA narrow_body
+// pass runs instead (the wide tiles above 32): here a thread would hold
+// dW's 128 x C partial in 4 C registers (128 at 32 classes) beside
+// dgamma / dbeta's 64 and the 64 of x and a, which spills
 // --------------------------------------------------------------------------
 
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
@@ -2277,8 +2316,8 @@ __global__ void __launch_bounds__(kCeMmaThreads) ce_seg4_bwd_mma_kernel(
   if (tid < C) atomicAdd(&p.db[tid], rdb[tid]);
 }
 
-// the logits layer (row 15 at Cout <= 32) and row 17, by name for the
-// profilers' stages
+// the logits layer (row 15 at Cin 128, Cout <= 32) and row 17, by name
+// for the profilers' stages
 template <int MAXC, int LPR>
 __global__ void chain_narrow_fwd_kernel(
     const NarrowArgs p) {
@@ -2301,6 +2340,359 @@ template <int MAXC, int LPR>
 __global__ void ce_seg4_bwd_kernel(
     const NarrowArgs p) {
   narrow_body<MAXC, LPR, kModeCEBwd>(p);
+}
+
+// --------------------------------------------------------------------------
+// wide: Cin 128 and 33..128 classes (row 17 and the logits layer past the
+// narrow pass's 32), MAXC 64 or 128. A 128 x C dW partial cannot stay in
+// the narrow pass's FMA registers (4 C a thread), so a block works a tile
+// of 32 rows through shared memory: W (f32 of bf16, [k][c] padded to MAXC
+// + 1 columns so that lanes on k or on c meet no bank twice), the tile's
+// a = bf16(prologue(x)) and, backward, x and bf16(dlogits). Warp w owns
+// rows w + 8 i, lane l classes l + 32 j (the logits in registers, so the
+// softmax is a warp's shuffles) and, for dx and dW, channels l + 32 i.
+// One atomic a value and block, as in the narrow pass.
+// --------------------------------------------------------------------------
+
+constexpr int kWideRows = 32;      // rows a tile
+constexpr int kWideThreads = 256;  // 8 warps
+constexpr int kMaxClasses = 128;   // the JAX kernel's LANES
+
+template <int MAXC, int MODE>
+struct WideCfg {
+  static constexpr bool kBwd = MODE >= kModeDy;
+  static constexpr int kWs = kNarrowCin * (MAXC + 1);
+  static constexpr int kTile = kWideRows * kNarrowCin;
+  static constexpr int kSmem =
+      (kWs + kTile * (kBwd ? 2 : 1) + (kBwd ? kWideRows * MAXC : 0) +
+       4 * kNarrowCin + 2 * MAXC) *
+      4;
+};
+
+template <int MAXC, int MODE>
+__device__ __forceinline__ void wide_body(const NarrowArgs& p) {
+  using Cfg = WideCfg<MAXC, MODE>;
+  constexpr int CPT = MAXC / 32;        // classes a lane
+  constexpr int RPW = kWideRows / 8;    // rows a warp
+  constexpr int KPL = kNarrowCin / 32;  // channels a lane (dx, dW)
+  constexpr int WS = MAXC + 1;
+  constexpr bool kBwd = Cfg::kBwd;
+  constexpr bool kCE = MODE == kModeCE || MODE == kModeCEBwd;
+  extern __shared__ __align__(16) float wsm[];
+  float* ws = wsm;                        // [128][WS]
+  float* sa = ws + Cfg::kWs;              // [32][128] a
+  float* sx = sa + Cfg::kTile;            // [32][128] x (backward)
+  float* sdl = sx + (kBwd ? Cfg::kTile : 0);          // [32][MAXC]
+  float* vec = sdl + (kBwd ? kWideRows * MAXC : 0);   // mu, inv, gamma, beta
+  float* bias = vec + 4 * kNarrowCin;
+  float* cwt = bias + MAXC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = p.c;
+  for (int e = tid; e < kNarrowCin * MAXC; e += kWideThreads) {
+    const int k = e / MAXC, c = e % MAXC;
+    ws[k * WS + c] =
+        c < C ? round_bf16(w_at(p.w, p.w_f32, (size_t)k * C + c)) : 0.f;
+  }
+  if (p.pro.norm)
+    stage_vectors(vec, p.mu, p.inv, p.gamma, p.beta, kNarrowCin, tid,
+                  kWideThreads);
+  for (int c = tid; c < MAXC; c += kWideThreads) {
+    bias[c] = c < C && p.bias != nullptr ? p.bias[c] : 0.f;
+    cwt[c] = c < C && p.cw != nullptr ? p.cw[c] : 0.f;
+  }
+  // row 17's prologue is normalize + ReLU without dropout
+  Pro pro = p.pro;
+  if constexpr (kCE) {
+    pro.norm = 1;
+    pro.relu = 1;
+    pro.drop = 0;
+  }
+  const float ct = MODE == kModeCEBwd ? p.ct[0] : 0.f;
+  float s1a[CPT], s2a[CPT], dba[CPT], dga[KPL], dbt[KPL];
+  float dwa[kBwd ? KPL : 1][kBwd ? MAXC / 8 : 1];
+  float num = 0.f, den = 0.f, cor = 0.f;
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) s1a[j] = s2a[j] = dba[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    dga[i] = dbt[i] = 0.f;
+    if constexpr (kBwd)
+#pragma unroll
+      for (int j = 0; j < MAXC / 8; ++j) dwa[i][j] = 0.f;
+  }
+  __syncthreads();
+
+  for (long long t0 = (long long)blockIdx.x * kWideRows; t0 < p.n;
+       t0 += (long long)gridDim.x * kWideRows) {
+    // 1. the tile's a (and x) in shared memory, zeros past N
+    for (int e = tid; e < Cfg::kTile / 8; e += kWideThreads) {
+      const int r = e / (kNarrowCin / 8), k0 = (e % (kNarrowCin / 8)) * 8;
+      const long long row = t0 + r;
+      float xv[8], av[8];
+      if (row < p.n) {
+        unpack8(*reinterpret_cast<const uint4*>(p.x + row * kNarrowCin + k0),
+                xv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = k0 + i;
+          av[i] = round_bf16(pro_elem(xv[i], vec[k], vec[kNarrowCin + k],
+                                      vec[2 * kNarrowCin + k],
+                                      vec[3 * kNarrowCin + k],
+                                      (uint64_t)row * kNarrowCin + k, pro)
+                                 .a);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) xv[i] = av[i] = 0.f;
+      }
+      float* da = sa + r * kNarrowCin + k0;
+      *reinterpret_cast<float4*>(da) = make_float4(av[0], av[1], av[2], av[3]);
+      *reinterpret_cast<float4*>(da + 4) =
+          make_float4(av[4], av[5], av[6], av[7]);
+      if constexpr (kBwd) {
+        float* dx = sx + r * kNarrowCin + k0;
+        *reinterpret_cast<float4*>(dx) = make_float4(xv[0], xv[1], xv[2], xv[3]);
+        *reinterpret_cast<float4*>(dx + 4) =
+            make_float4(xv[4], xv[5], xv[6], xv[7]);
+      }
+    }
+    __syncthreads();
+
+    // 2. the warp's rows' logits, lane l holding classes l + 32 j
+    float lg[RPW][CPT];
+    if constexpr (MODE != kModeDy) {
+#pragma unroll
+      for (int i = 0; i < RPW; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) lg[i][j] = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < kNarrowCin; ++k) {
+        float wv[CPT], av[RPW];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) wv[j] = ws[k * WS + lane + 32 * j];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) av[i] = sa[(warp + 8 * i) * kNarrowCin + k];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) lg[i][j] = fmaf(av[i], wv[j], lg[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < RPW; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) lg[i][j] += bias[lane + 32 * j];
+    }
+
+    // 3. per row: y and its sums, the CE, or bf16(dlogits) (db from the
+    // f32 value)
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + 8 * i;
+      const long long row = t0 + r;
+      const bool valid = row < p.n;
+      if constexpr (MODE == kModeY) {
+        if (valid)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            const int c = lane + 32 * j;
+            if (c >= C) continue;
+            const float v = lg[i][j];
+            if (p.out_f32)
+              static_cast<float*>(p.y)[row * C + c] = v;
+            else
+              static_cast<bf16*>(p.y)[row * C + c] = __float2bfloat16_rn(v);
+            s1a[j] += v;
+            s2a[j] += v * v;
+          }
+      } else if constexpr (MODE == kModeDy) {
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int c = lane + 32 * j;
+          float d = 0.f;
+          if (valid && c < C) {
+            const long long o = row * C + c;
+            d = p.dy_f32 ? static_cast<const float*>(p.dy)[o]
+                         : __bfloat162float(static_cast<const bf16*>(p.dy)[o]);
+            if (p.ds1 != nullptr)
+              d = __fadd_rn(__fadd_rn(d, p.ds1[c]),
+                            __fmul_rn(__fmul_rn(2.f, __bfloat162float(
+                                                         p.yin[o])),
+                                      p.ds2[c]));
+          }
+          dba[j] += d;
+          sdl[r * MAXC + c] = round_bf16(d);
+        }
+      } else {
+        const long long lab = valid ? p.labels[row] : -1;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j)
+          if (lane + 32 * j < C) mx = fmaxf(mx, lg[i][j]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+        float ex[CPT], se = 0.f;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          ex[j] = lane + 32 * j < C ? expf(lg[i][j] - mx) : 0.f;
+          se += ex[j];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) se += __shfl_xor_sync(kFull, se, o);
+        if constexpr (MODE == kModeCE) {
+          // the first class at the maximum (descending j: the lane's
+          // smallest wins), then the warp's smallest
+          int pred = kMaxClasses;
+          float tl = 0.f;
+#pragma unroll
+          for (int j = CPT - 1; j >= 0; --j) {
+            if (lane + 32 * j < C && lg[i][j] == mx) pred = lane + 32 * j;
+            if (lane + 32 * j == lab) tl = lg[i][j];
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            pred = min(pred, __shfl_xor_sync(kFull, pred, o));
+          tl = __shfl_sync(kFull, tl, (int)(lab & 31));
+          if (lane == 0 && lab >= 0 && lab < C) {
+            const float wr = cwt[lab];
+            num += wr * ((logf(se) + mx) - tl);
+            den += wr;
+            cor += pred == lab ? 1.f : 0.f;
+          }
+        } else {
+          const float wr = (lab >= 0 && lab < C) ? cwt[lab] : 0.f;
+          const float s = __fmul_rn(ct, wr);
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            const int c = lane + 32 * j;
+            const float d =
+                c < C ? __fmul_rn(s, __fsub_rn(__fdiv_rn(ex[j], se),
+                                               c == lab ? 1.f : 0.f))
+                      : 0.f;
+            dba[j] += d;
+            sdl[r * MAXC + c] = round_bf16(d);
+          }
+        }
+      }
+    }
+
+    if constexpr (kBwd) {
+      __syncthreads();
+      // 4. dA = dlogits @ W^T, then dz, dx, dgamma, dbeta: lane l's
+      // channels l + 32 q of the warp's rows
+      float da[RPW][KPL];
+#pragma unroll
+      for (int i = 0; i < RPW; ++i)
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) da[i][q] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < MAXC; ++c) {
+        float wv[KPL], dv[RPW];
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) wv[q] = ws[(lane + 32 * q) * WS + c];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) dv[i] = sdl[(warp + 8 * i) * MAXC + c];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i)
+#pragma unroll
+          for (int q = 0; q < KPL; ++q) da[i][q] = fmaf(dv[i], wv[q], da[i][q]);
+      }
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const int r = warp + 8 * i;
+        const long long row = t0 + r;
+        if (row >= p.n) continue;
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) {
+          const int k = lane + 32 * q;
+          const Elem e = pro_elem(sx[r * kNarrowCin + k], vec[k],
+                                  vec[kNarrowCin + k], vec[2 * kNarrowCin + k],
+                                  vec[3 * kNarrowCin + k],
+                                  (uint64_t)row * kNarrowCin + k, pro);
+          const float dz = pro_dz(da[i][q], e, pro);
+          p.dx[row * kNarrowCin + k] = __float2bfloat16_rn(
+              pro.norm ? __fmul_rn(__fmul_rn(dz, vec[2 * kNarrowCin + k]),
+                                   vec[kNarrowCin + k])
+                       : dz);
+          dga[q] += __fmul_rn(dz, e.xh);
+          dbt[q] += dz;
+        }
+      }
+      // 5. dW += a^T @ bf16(dlogits): lane l's channels l + 32 q, the
+      // warp's classes w + 8 j (rows past N have a = dlogits = 0)
+#pragma unroll 2
+      for (int r = 0; r < kWideRows; ++r) {
+        float av[KPL];
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) av[q] = sa[r * kNarrowCin + lane + 32 * q];
+#pragma unroll
+        for (int j = 0; j < MAXC / 8; ++j) {
+          const float dv = sdl[r * MAXC + warp + 8 * j];
+#pragma unroll
+          for (int q = 0; q < KPL; ++q) dwa[q][j] = fmaf(av[q], dv, dwa[q][j]);
+        }
+      }
+    }
+    __syncthreads();  // the tile's shared rows are rewritten next
+  }
+
+  // one atomic a value and block (the sums that several warps hold: one
+  // a warp)
+  if constexpr (MODE == kModeY) {
+    if (p.s1 != nullptr)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        if (lane + 32 * j < C) {
+          atomicAdd(&p.s1[lane + 32 * j], s1a[j]);
+          atomicAdd(&p.s2[lane + 32 * j], s2a[j]);
+        }
+  } else if constexpr (MODE == kModeCE) {
+    if (lane == 0) {
+      atomicAdd(&p.acc[0], num);
+      atomicAdd(&p.acc[1], den);
+      atomicAdd(&p.acc[2], cor);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int k = lane + 32 * q;
+#pragma unroll
+      for (int j = 0; j < MAXC / 8; ++j)
+        if (warp + 8 * j < C)
+          atomicAdd(&p.dw[(size_t)k * C + warp + 8 * j], dwa[q][j]);
+      if (p.pro.norm) {
+        atomicAdd(&p.dg[k], dga[q]);
+        atomicAdd(&p.dbeta[k], dbt[q]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      if (lane + 32 * j < C) atomicAdd(&p.db[lane + 32 * j], dba[j]);
+  }
+}
+
+template <int MAXC>
+__global__ void __launch_bounds__(kWideThreads, 1) chain_wide_fwd_kernel(
+    const NarrowArgs p) {
+  wide_body<MAXC, kModeY>(p);
+}
+
+template <int MAXC>
+__global__ void __launch_bounds__(kWideThreads, 1) chain_wide_bwd_kernel(
+    const NarrowArgs p) {
+  wide_body<MAXC, kModeDy>(p);
+}
+
+template <int MAXC>
+__global__ void __launch_bounds__(kWideThreads, 1) ce_seg4_wide_fwd_kernel(
+    const NarrowArgs p) {
+  wide_body<MAXC, kModeCE>(p);
+}
+
+template <int MAXC>
+__global__ void __launch_bounds__(kWideThreads, 1) ce_seg4_wide_bwd_kernel(
+    const NarrowArgs p) {
+  wide_body<MAXC, kModeCEBwd>(p);
 }
 
 // --------------------------------------------------------------------------
@@ -2362,12 +2754,11 @@ enum Route { kInvalid = 0, kWgmma = 1, kSimt = 2, kNarrow = 3 };
 
 // the same rule as ops/fused_block.py route_of
 Route route_of(int cin, int cout) {
-  if (cin >= 1 && cin <= 16 && (cout == 64 || cout == 128 || cout == 256))
-    return kSimt;
-  if (cin == kNarrowCin && cout >= 1 && cout <= 32) return kNarrow;
   if (cin > 0 && cout > 0 && cin % 64 == 0 && cout % 64 == 0 &&
       cin <= kMaxCin && cout <= kMaxCout)
     return kWgmma;
+  if (cin >= 1 && (cout == 64 || cout == 128 || cout == 256)) return kSimt;
+  if (cin == kNarrowCin && cout >= 1 && cout <= kMaxClasses) return kNarrow;
   return kInvalid;
 }
 
@@ -2643,6 +3034,7 @@ cudaError_t simt_by_width(bool fwd, const SimtArgs& a, cudaStream_t s) {
   return launch_simt<KP, 32>(fwd, a, s);
 }
 
+// K chunks of 4, 8 or 16 columns (16 with a chunk loop above 16)
 cudaError_t simt(bool fwd, const SimtArgs& a, cudaStream_t s) {
   if (a.cin <= 4) return simt_by_width<4>(fwd, a, s);
   if (a.cin <= 8) return simt_by_width<8>(fwd, a, s);
@@ -2667,7 +3059,49 @@ cudaError_t launch_narrow(int mode, const NarrowArgs& a, cudaStream_t s) {
   }
 }
 
+// the wide tile kernels, one block or more an SM by their shared memory
+template <typename Kernel>
+cudaError_t launch_tile(Kernel kernel, int smem, const NarrowArgs& a,
+                        cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 1;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kWideThreads, smem);
+  if (err != cudaSuccess) return err;
+  long long grid = (long long)(per_sm > 1 ? per_sm : 1) *
+                   hopper_host::sm_count();
+  const long long tiles = (a.n + kWideRows - 1) / kWideRows;
+  if (grid > tiles) grid = tiles;
+  kernel<<<(int)grid, kWideThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int MAXC>
+cudaError_t launch_wide_c(int mode, const NarrowArgs& a, cudaStream_t s) {
+  switch (mode) {
+    case kModeY:
+      return launch_tile(chain_wide_fwd_kernel<MAXC>,
+                         WideCfg<MAXC, kModeY>::kSmem, a, s);
+    case kModeDy:
+      return launch_tile(chain_wide_bwd_kernel<MAXC>,
+                         WideCfg<MAXC, kModeDy>::kSmem, a, s);
+    case kModeCE:
+      return launch_tile(ce_seg4_wide_fwd_kernel<MAXC>,
+                         WideCfg<MAXC, kModeCE>::kSmem, a, s);
+    default:
+      return launch_tile(ce_seg4_wide_bwd_kernel<MAXC>,
+                         WideCfg<MAXC, kModeCEBwd>::kSmem, a, s);
+  }
+}
+
+// up to 8 classes the CE backward on mma.sync; up to 32 the narrow FMA
+// pass; above, the wide tile kernels
 cudaError_t narrow(int mode, const NarrowArgs& a, cudaStream_t s) {
+  if (a.c > 32)
+    return a.c <= 64 ? launch_wide_c<64>(mode, a, s)
+                     : launch_wide_c<128>(mode, a, s);
   if (mode == kModeCEBwd && a.c <= 8) {
     ce_seg4_bwd_mma_kernel<<<hopper_host::sm_count(), kCeMmaThreads, 0, s>>>(
         a);
@@ -2928,14 +3362,14 @@ int pcseg_chain_bwd_split(int cin, int cout, int dy_f32, int row_bias) {
 }
 
 // x (N, 128) bf16; mu, inv, gamma, beta (128,) f32; w (128, C) f32
-// (w_f32) or bf16, C <= 32; b, cw (C,) f32; labels (N,) int64, -1 at padding; acc (3,) f32
+// (w_f32) or bf16, C <= 128; b, cw (C,) f32; labels (N,) int64, -1 at padding; acc (3,) f32
 // (zeroed here): num, den, correct.
 int pcseg_seg4_ce_fwd(const void* x, const void* mu, const void* inv,
                       const void* gamma, const void* beta, const void* w,
                       const void* b, const void* labels, const void* cw,
                       void* acc, int w_f32, long long n, int cin, int c,
                       void* stream) {
-  if (cin != kNarrowCin || c < 1 || c > 32 || n <= 0 || n >= (1ll << 31) ||
+  if (cin != kNarrowCin || c < 1 || c > kMaxClasses || n <= 0 || n >= (1ll << 31) ||
       mu == nullptr)
     return (int)cudaErrorInvalidValue;
   NarrowArgs a = narrow_args(x, mu, inv, gamma, beta, w, w_f32, b, n, c,
@@ -2957,7 +3391,7 @@ int pcseg_seg4_ce_bwd(const void* x, const void* mu, const void* inv,
                       const void* ct, void* dx, void* dw, void* db, void* dg,
                       void* dbeta, int w_f32, long long n, int cin, int c,
                       void* stream) {
-  if (cin != kNarrowCin || c < 1 || c > 32 || n <= 0 || n >= (1ll << 31) ||
+  if (cin != kNarrowCin || c < 1 || c > kMaxClasses || n <= 0 || n >= (1ll << 31) ||
       mu == nullptr)
     return (int)cudaErrorInvalidValue;
   NarrowArgs a = narrow_args(x, mu, inv, gamma, beta, w, w_f32, b, n, c,

@@ -12,6 +12,11 @@
 //                      flipped W^T, dx = bf16([pre > 0] da * scale), dscale
 //                      = sum dam * x, dshift = sum dam, dW = sum
 //                      bf16(relu(pre))^T bf16(g') in the forward's tap order.
+//   pcseg_down2x_bwd_mma replaces the backward of fused_down2x_p
+//                      (_down2x_bwd_kernel, pallas_call at :1353): the same
+//                      g', dbias and epilogue on the coarse side's G =
+//                      bf16(g'), da = G @ W^T scattered to the children, dW
+//                      = A^T @ G with A = bf16(relu(pre)) gathered.
 //
 // A k2 s2 conv pairs each coarse voxel with its 2 x 2 x 2 fine children and
 // nothing else, so both are one GEMM over rows of coarse voxels. A row is
@@ -27,6 +32,14 @@
 //   8C); da (M x 2C) = G @ Wd with Wd[(d, o)][i] = w[1 - d][i][o]
 //   (``pack_up_wt``), and dW^T (8C x 2C) += G^T @ a over the same tile,
 //   kept in the accumulators across a block's tiles.
+// - down2x's backward, the transposed pair of its forward: G = bf16(g')
+//   (M x 2C, coarse, contiguous), dA (M x 8C) = G @ Wd^T (Wd =
+//   ``pack_down_w``) whose epilogue reads pre from the gathered x tile and
+//   writes dx over it, the tile going back through the gather's inverse
+//   (``ungather_rows``); dW (8C x 2C) += A^T @ G with A = bf16(relu(pre))
+//   formed on the x tile's fragments, kept in the accumulators (at C = 64
+//   in four slices of the 8C columns, one a block). 168 MB at 64^3 x 16
+//   -> 32^3 x 32 (x, gy and y read once, dx written once), 0.050 ms.
 //
 // What bounds them on an H100: bytes. B8 64^3 x 16 -> 32^3 x 32 moves 84
 // MB (x read once, y written once) for 2.1 GFLOP, 0.025 ms at 3.35 TB/s;
@@ -36,8 +49,8 @@
 //
 // - persistent blocks over tiles of 64 coarse voxels of one batch element
 //   (grid (blocks a batch element, B)), two an SM so that one block's
-//   syncs and loads overlap the other's work (one for up2x's backward at
-//   C >= 32, whose dW takes 64 registers a thread); cp.async 16-byte
+//   syncs and loads overlap the other's work (one for the backward sweeps
+//   at C >= 32, whose dW takes 64 registers a thread); cp.async 16-byte
 //   copies with computed addresses into a ring of 1-4 shared-memory
 //   stages, so one tile's loads overlap the products and stores of the
 //   ones before it; rows past the grid's end read zeros and are masked
@@ -63,9 +76,11 @@
 // cudaGetLastError() after its launches.
 
 #include "hopper.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
+using namespace mma_sync;
 using hopper::bf16_hi;
 using hopper::bf16_lo;
 using hopper::pack_bf16x2;
@@ -73,59 +88,10 @@ using hopper::smem_u32;
 
 constexpr int kRows = 64;            // coarse voxels a tile
 constexpr int kDownThreads = 128;    // down2x: 4 warps of 16 rows
-constexpr int kUpThreads = 256;      // up2x bwd: 8 warps
+constexpr int kBwdThreads = 256;     // the backward sweeps: 8 warps
 constexpr int kSmemMax = 227 * 1024;
 
 // ---------------------------------------------------------------- pieces
-
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Byte offset of 16-byte unit c of row r in a tile of rows of cpr units:
 // the unit's column XOR the row (cpr >= 8), or the unit index XOR its
@@ -167,14 +133,6 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
                     pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
 }
 
-__device__ __forceinline__ float group_sum(float v) {
-  // the 8 lanes that share lane % 4 (the rows of an mma fragment)
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 16);
-  return v;
-}
-
 // A tile's rows walk coarse voxels m = tile * 64 + r of one batch element;
 // a thread keeps one row's coarse (z, y, x) and steps it by `step` rows.
 struct RowWalk {
@@ -199,26 +157,58 @@ struct RowWalk {
   }
 };
 
-// Stages the gathered rows of a tile of a fine grid (B, 2 D2, 2 H2, 2 W2, C)
-// bf16 into a swizzled [64][8C] tile: the thread's 16-byte unit column j
-// of rows r0, r0 + step, ... (step = threads / C).
+// Address of the 16-byte unit J (of a gathered row's C) of coarse voxel
+// (z, y, x) in a fine grid (B, 2 D2, 2 H2, 2 W2, C): segment J / (C / 4)
+// is the fine pair (dz, dy), unit J % (C / 4) of its 2C contiguous values.
 template <int C>
+__device__ __forceinline__ const __nv_bfloat16* fine_unit(
+    const __nv_bfloat16* src, int b, const RowWalk& w, int D2, int H2,
+    int W2, int J) {
+  const int seg = J / (C / 4), ju = J % (C / 4);
+  const int dz = seg >> 1, dy = seg & 1;
+  return src + ((((size_t)b * 2 * D2 + 2 * w.z + dz) * 2 * H2 + 2 * w.y +
+                 dy) * 2 * W2 + 2 * w.x) * C + ju * 8;
+}
+
+// Stages the gathered rows of a tile of a fine grid (B, 2 D2, 2 H2, 2 W2, C)
+// bf16 into a swizzled [64][8C / S] tile, slice z of S of each row (units
+// z C / S ..): the thread's 16-byte unit column j of rows r0, r0 + step,
+// ... (step = threads / (C / S)).
+template <int C, int S = 1>
 __device__ __forceinline__ void gather_tile(uint32_t dst,
                                             const __nv_bfloat16* src, int b,
                                             long long tile, long long Mb,
                                             int D2, int H2, int W2, int tid,
-                                            int threads) {
-  const int j = tid % C;
-  const int seg = j / (C / 4), ju = j % (C / 4);
-  const int dz = seg >> 1, dy = seg & 1;
-  const int step = threads / C;
-  RowWalk w(tile * kRows + tid / C, H2, W2);
-  for (int r = tid / C; r < kRows; r += step) {
+                                            int threads, int z = 0) {
+  constexpr int U = C / S;
+  const int j = tid % U;
+  const int step = threads / U;
+  RowWalk w(tile * kRows + tid / U, H2, W2);
+  for (int r = tid / U; r < kRows; r += step) {
     const bool ok = w.m < Mb;
-    const __nv_bfloat16* p =
-        src + ((((size_t)b * 2 * D2 + 2 * w.z + dz) * 2 * H2 + 2 * w.y + dy) *
-                   2 * W2 + 2 * w.x) * C + ju * 8;
-    cp16(dst + swz(r, j, C), ok ? p : src, ok);
+    cp16(dst + swz(r, j, U),
+         ok ? fine_unit<C>(src, b, w, D2, H2, W2, z * U + j) : src, ok);
+    w.step(step, H2, W2);
+  }
+}
+
+// The inverse: a swizzled [64][8C / S] tile back to its places in the fine
+// grid (rows past the grid's end are not stored), 16 bytes a copy.
+template <int C, int S>
+__device__ __forceinline__ void scatter_tile(__nv_bfloat16* dst,
+                                             const uint8_t* tile_s, int b,
+                                             long long tile, long long Mb,
+                                             int D2, int H2, int W2, int tid,
+                                             int threads, int z) {
+  constexpr int U = C / S;
+  const int j = tid % U;
+  const int step = threads / U;
+  RowWalk w(tile * kRows + tid / U, H2, W2);
+  for (int r = tid / U; r < kRows; r += step) {
+    if (w.m < Mb)
+      *reinterpret_cast<uint4*>(const_cast<__nv_bfloat16*>(
+          fine_unit<C>(dst, b, w, D2, H2, W2, z * U + j))) =
+          *reinterpret_cast<const uint4*>(tile_s + swz(r, j, U));
     w.step(step, H2, W2);
   }
 }
@@ -437,7 +427,7 @@ struct UpCfg {
   static constexpr int kStages = kFit >= 3 ? 3 : kFit >= 1 ? kFit : 1;
   static constexpr int kSmem = kFixed + kStages * kStage;
   static_assert(kSmem <= kSmemMax, "up2x bwd tile exceeds shared memory");
-  static_assert(kStage >= kUpThreads * 8 * 4 + 4 * 2 * NS * 4,
+  static_assert(kStage >= kBwdThreads * 8 * 4 + 4 * 2 * NS * 4,
                 "reduction scratch");
 };
 
@@ -447,7 +437,7 @@ struct UpCfg {
 // slice, then dx = epilogue(G @ Wd) (warps 4 along rows x 2 along NS) and
 // dW^T += G^T @ a (warps 4 along K x 2 along NS).
 template <int C, int NS>
-__global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
+__global__ void __launch_bounds__(kBwdThreads, (UpCfg<C, NS>::kBlocks))
     up2x_bwd_mma_kernel(
     const UpBwdArgs p) {
   using Cfg = UpCfg<C, NS>;
@@ -472,7 +462,7 @@ __global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
   const bool stats = p.gstats != nullptr;
 
   // Wd[k = d C + o][ii] = w[7 - d][i0 + ii][o], rounded to bf16
-  for (int e = tid; e < K * NS / 8; e += kUpThreads) {
+  for (int e = tid; e < K * NS / 8; e += kBwdThreads) {
     const int k = e / (NS / 8), cu = e % (NS / 8);
     const int d = k / C, o = k % C;
     const float* src = p.w + ((size_t)(7 - d) * C2 + i0 + cu * 8) * C + o;
@@ -481,11 +471,11 @@ __global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
     for (int j = 0; j < 8; ++j) v[j] = src[(size_t)j * C];
     *reinterpret_cast<uint4*>(sw + swz(k, cu, NS / 8)) = pack8(v);
   }
-  for (int e = tid; e < NS; e += kUpThreads) {
+  for (int e = tid; e < NS; e += kBwdThreads) {
     vsc[e] = p.scale[(size_t)b * C2 + i0 + e];
     vsh[e] = p.shift[(size_t)b * C2 + i0 + e];
   }
-  for (int e = tid; e < C; e += kUpThreads) {
+  for (int e = tid; e < C; e += kBwdThreads) {
     vg1[e] = stats ? p.gstats[(size_t)b * 2 * C + e] : 0.f;
     vg2[e] = stats ? 2.f * p.gstats[(size_t)b * 2 * C + C + e] : 0.f;
   }
@@ -505,12 +495,12 @@ __global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
       uint8_t* st = stages + (i % Cfg::kStages) * Cfg::kStage;
       const long long tile = blockIdx.x + (long long)i * gridDim.x;
       gather_tile<C>(smem_u32(st), p.gy, b, tile, Mb, p.D2, p.H2, p.W2, tid,
-                     kUpThreads);
+                     kBwdThreads);
       if (stats)
         gather_tile<C>(smem_u32(st + Cfg::kG), p.y, b, tile, Mb, p.D2, p.H2,
-                       p.W2, tid, kUpThreads);
+                       p.W2, tid, kBwdThreads);
       const uint32_t sx = smem_u32(st + 2 * Cfg::kG);
-      for (int e = tid; e < kRows * NS / 8; e += kUpThreads) {
+      for (int e = tid; e < kRows * NS / 8; e += kBwdThreads) {
         const int r = e / (NS / 8), cu = e % (NS / 8);
         const long long m = tile * kRows + r;
         const bool ok = m < Mb;
@@ -542,7 +532,7 @@ __global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
     // 1. G = bf16(g') in place; dbias from the f32 g' of real rows
     {
       const int j = tid % C;
-      for (int r = tid / C; r < kRows; r += kUpThreads / C) {
+      for (int r = tid / C; r < kRows; r += kBwdThreads / C) {
         uint4* pg = reinterpret_cast<uint4*>(sg + swz(r, j, C));
         if (mt0 + r >= Mb) {
           *pg = make_uint4(0, 0, 0, 0);
@@ -564,7 +554,7 @@ __global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
       }
     }
     // 2. a = bf16(relu(x * scale + shift)) of the slice
-    for (int e = tid; e < kRows * NS / 8; e += kUpThreads) {
+    for (int e = tid; e < kRows * NS / 8; e += kBwdThreads) {
       const int r = e / (NS / 8), cu = e % (NS / 8);
       const uint4 xv = *reinterpret_cast<const uint4*>(sx + swz(r, cu, NS / 8));
       const uint32_t w4[4] = {xv.x, xv.y, xv.z, xv.w};
@@ -698,7 +688,7 @@ __global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
         }
       }
   float* rdb = reinterpret_cast<float*>(stages);   // [256][8]
-  float* rds = rdb + kUpThreads * 8;               // [4][2][NS]
+  float* rds = rdb + kBwdThreads * 8;               // [4][2][NS]
 #pragma unroll
   for (int e = 0; e < 8; ++e) rdb[tid * 8 + e] = db[e];
 #pragma unroll
@@ -714,14 +704,14 @@ __global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
   __syncthreads();
   if (blockIdx.z == 0) {
     // threads with tid % (C / 8) == o / 8 hold channel o, in tid order
-    for (int o = tid; o < C; o += kUpThreads) {
+    for (int o = tid; o < C; o += kBwdThreads) {
       float v = 0.f;
-      for (int th = o / 8; th < kUpThreads; th += C / 8) v += rdb[th * 8 + o % 8];
+      for (int th = o / 8; th < kBwdThreads; th += C / 8) v += rdb[th * 8 + o % 8];
       row[16LL * C * C + o] = v;
     }
   }
   float* rst = row + 16LL * C * C + C;
-  for (int e = tid; e < p.B * 2 * NS; e += kUpThreads) {
+  for (int e = tid; e < p.B * 2 * NS; e += kBwdThreads) {
     const int bb = e / (2 * NS), s = (e / NS) % 2, ii = e % NS;
     float v = 0.f;
     if (bb == b) {
@@ -733,25 +723,336 @@ __global__ void __launch_bounds__(kUpThreads, (UpCfg<C, NS>::kBlocks))
   }
 }
 
-// out[s, j] = sum over g of part[s, g, j], g in order: 8 g-strides a
-// column, then their 8 sums in order
-__global__ void __launch_bounds__(256) fixed_sum_kernel(
-    const float* __restrict__ part, float* __restrict__ out, int G,
-    long long L) {
-  __shared__ float red[8][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const long long j = (long long)blockIdx.x * 32 + tx;
-  const float* src = part + (size_t)blockIdx.y * G * L;
-  float s = 0.f;
-  if (j < L)
-    for (int g = ty; g < G; g += 8) s += src[(size_t)g * L + j];
-  red[ty][tx] = s;
+// ---------------------------------------------------------------- down2x bwd
+
+struct DownBwdArgs {
+  const __nv_bfloat16* x;    // (B, D, H, W, C) fine: the forward's input
+  const float* w;            // (2, 2, 2, C, 2C) f32: (8C x 2C) rows
+  const float* scale;        // (B, C)
+  const float* shift;
+  const __nv_bfloat16* gy;   // (B, D/2, H/2, W/2, 2C)
+  const __nv_bfloat16* y;    // the forward's y (read with gstats only)
+  const float* gstats;       // (B, 2, 2C) or null
+  __nv_bfloat16* dx;         // (B, D, H, W, C)
+  float* part;               // (B * gridDim.x * S, L) block rows, L below
+  int B, D2, H2, W2, tiles;
+};
+
+// a block's row of the partial table: dW (2, 2, 2, C, 2C) | dbias (2C) |
+// dstats (B, 2, C), zeros outside the block's slice and batch element
+__host__ __device__ constexpr long long down_row(int C, int B) {
+  return 16LL * C * C + 2 * C + 2LL * B * C;
+}
+
+// S slices of the 8C gathered columns, one a block (grid z): dW's partial
+// (8C / S x 2C) stays in registers (64 a thread at C = 32 and, with four
+// slices, at C = 64)
+template <int C>
+constexpr int down_bwd_slices() { return C == 64 ? 4 : 1; }
+
+template <int C, int S>
+struct DownBwdCfg {
+  static constexpr int N = 2 * C;          // coarse width: G's and dW's columns
+  static constexpr int NF = 8 * C / S;     // the slice's gathered columns
+  static constexpr int U = NF / 8;         // its 16-byte units a row
+  static constexpr int KS = N / 16;        // dA's k-steps (K = 2C)
+  static constexpr int MT = NF / 16, NT = N / 8;   // dW's m16 / n8 tiles
+  static constexpr int WM = MT < 8 ? MT : 8, WN = 8 / WM;
+  static constexpr int MTW = MT / WM, NTW = NT / WN;   // a warp's
+  static constexpr int DCW = NF / 2;       // dA: a warp's columns (2 along)
+  static constexpr int kChunks = DCW / 32; // of 4 n8 tiles
+  static constexpr int kW = NF * N * 2;    // Wd slice [NF][N] bf16
+  static constexpr int kVec = (2 * C + 2 * N) * 4;
+  static constexpr int kFixed = kW + kVec;
+  static constexpr int kG = kRows * N * 2;
+  static constexpr int kX = kRows * NF * 2;
+  static constexpr int kStage = 2 * kG + kX;   // gy / G, y, x
+  // two blocks an SM where dW takes <= 16 registers a thread (C <= 16)
+  static constexpr int kBlocks = NF * N <= 128 * 32 ? 2 : 1;
+  static constexpr int kFit = (220 * 1024 / kBlocks - kFixed) / kStage;
+  static constexpr int kStages = kFit >= 3 ? 3 : kFit >= 1 ? kFit : 1;
+  static constexpr int kSmem = kFixed + kStages * kStage;
+  static_assert(kSmem <= kSmemMax, "down2x bwd tile exceeds shared memory");
+  static_assert(kStage >= kBwdThreads * 8 * 4 + 8 * 2 * C * 4,
+                "reduction scratch");
+  static_assert(kChunks >= 1 && NTW >= 1 && MTW >= 1, "tiling");
+};
+
+// One block: tiles of batch element blockIdx.y, gathered columns [z NF, (z
+// + 1) NF), z = blockIdx.z. Per tile: G = bf16(g') formed in place over
+// the staged gy (dbias from its f32 value); dW (NF x 2C) += A^T @ G with
+// A = bf16(relu(x scale + shift)) formed on the x tile's fragments (warps
+// WM along NF x WN along 2C); then dA = G @ Wd^T in
+// chunks of 32 columns (warps 4 along rows x 2 along NF), whose epilogue
+// reads pre from the x tile and writes dx over it in place (each element
+// by the thread that read it); the tile goes back to the fine grid through
+// the gather's inverse.
+template <int C, int S>
+__global__ void __launch_bounds__(kBwdThreads, (DownBwdCfg<C, S>::kBlocks))
+    down2x_bwd_mma_kernel(const DownBwdArgs p) {
+  using Cfg = DownBwdCfg<C, S>;
+  constexpr int N = Cfg::N, NF = Cfg::NF, U = Cfg::U, KS = Cfg::KS;
+  constexpr int WM = Cfg::WM, MTW = Cfg::MTW, NTW = Cfg::NTW;
+  constexpr int DCW = Cfg::DCW;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* sw = smem;                               // Wd slice [NF][N]
+  float* vsc = reinterpret_cast<float*>(sw + Cfg::kW);
+  float* vsh = vsc + C;
+  float* vg1 = vsh + C;                             // gs1
+  float* vg2 = vg1 + N;                             // 2 gs2 (exact)
+  uint8_t* stages = reinterpret_cast<uint8_t*>(vg2 + N);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y, z = blockIdx.z;
+  const long long Mb = (long long)p.D2 * p.H2 * p.W2;
+  const int ntile = blockIdx.x < p.tiles
+                        ? (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                        : 0;
+  const bool stats = p.gstats != nullptr;
+
+  // Wd[n][k] = w's row z NF + n (tap, fine channel), rounded to bf16
+  for (int e = tid; e < NF * N / 8; e += kBwdThreads) {
+    const int n = e / (N / 8), ku = e % (N / 8);
+    const float* src = p.w + ((size_t)z * NF + n) * N + ku * 8;
+    const float4 lo = *reinterpret_cast<const float4*>(src);
+    const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+    *reinterpret_cast<uint4*>(sw + swz(n, ku, N / 8)) =
+        make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
+                   pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+  }
+  for (int e = tid; e < C; e += kBwdThreads) {
+    vsc[e] = p.scale[(size_t)b * C + e];
+    vsh[e] = p.shift[(size_t)b * C + e];
+  }
+  for (int e = tid; e < N; e += kBwdThreads) {
+    vg1[e] = stats ? p.gstats[(size_t)b * 2 * N + e] : 0.f;
+    vg2[e] = stats ? 2.f * p.gstats[(size_t)b * 2 * N + N + e] : 0.f;
+  }
   __syncthreads();
-  if (ty == 0 && j < L) {
-    float v = red[0][tx];
+  // dW: this warp's rows (gathered columns) and their scale/shift
+  const int wmw = warp % WM, wnw = warp / WM;
+  float sca[MTW][2], sha[MTW][2];
 #pragma unroll
-    for (int k = 1; k < 8; ++k) v += red[k][tx];
-    out[(size_t)blockIdx.y * L + j] = v;
+  for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = (16 * (wmw * MTW + mt) + g + 8 * h) % C;
+      sca[mt][h] = vsc[c];
+      sha[mt][h] = vsh[c];
+    }
+
+  auto load = [&](int i) {
+    if (i < ntile) {
+      uint8_t* st = stages + (i % Cfg::kStages) * Cfg::kStage;
+      const long long tile = blockIdx.x + (long long)i * gridDim.x;
+      for (int e = tid; e < kRows * N / 8; e += kBwdThreads) {
+        const int r = e / (N / 8), cu = e % (N / 8);
+        const long long m = tile * kRows + r;
+        const bool ok = m < Mb;
+        const size_t off = ((size_t)b * Mb + m) * N + cu * 8;
+        cp16(smem_u32(st) + swz(r, cu, N / 8), ok ? p.gy + off : p.gy, ok);
+        if (stats)
+          cp16(smem_u32(st + Cfg::kG) + swz(r, cu, N / 8),
+               ok ? p.y + off : p.y, ok);
+      }
+      gather_tile<C, S>(smem_u32(st + 2 * Cfg::kG), p.x, b, tile, Mb, p.D2,
+                        p.H2, p.W2, tid, kBwdThreads, z);
+    }
+    cp_commit();
+  };
+  for (int i = 0; i < Cfg::kStages - 1; ++i) load(i);
+
+  float db[8] = {};                        // dbias of channels o0..o0+7
+  const int o0 = 8 * (tid % (N / 8));      // this thread's unit column's
+  float ds1[C / 8][2] = {}, ds2[C / 8][2] = {};
+  float dw[MTW][NTW][4] = {};
+  const uint32_t sw_u = smem_u32(sw);
+  const int wm = warp & 3, wn = warp >> 2;
+
+  for (int i = 0; i < ntile; ++i) {
+    load(i + Cfg::kStages - 1);
+    cp_wait<Cfg::kStages - 1>();
+    __syncthreads();
+    uint8_t* sg = stages + (i % Cfg::kStages) * Cfg::kStage;
+    const uint8_t* sy = sg + Cfg::kG;
+    uint8_t* sx = sg + 2 * Cfg::kG;
+    const uint32_t sg_u = smem_u32(sg), sx_u = smem_u32(sx);
+    const long long tile = blockIdx.x + (long long)i * gridDim.x;
+    const long long mt0 = tile * kRows;
+
+    // 1. G = bf16(g') in place; dbias from the f32 g' of real rows
+    for (int r = tid / (N / 8); r < kRows; r += kBwdThreads / (N / 8)) {
+      uint4* pg = reinterpret_cast<uint4*>(sg + swz(r, o0 / 8, N / 8));
+      if (mt0 + r >= Mb) {
+        *pg = make_uint4(0, 0, 0, 0);
+        continue;
+      }
+      float f[8];
+      unpack8(*pg, f);
+      if (stats) {
+        float yv[8];
+        unpack8(*reinterpret_cast<const uint4*>(sy + swz(r, o0 / 8, N / 8)),
+                yv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          f[e] = __fadd_rn(__fadd_rn(f[e], vg1[o0 + e]),
+                           __fmul_rn(vg2[o0 + e], yv[e]));
+        *pg = pack8(f);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) db[e] += f[e];
+    }
+    __syncthreads();
+
+    // 2. dW (rows 16 MTW wmw.., columns 8 NTW wnw..) += A^T @ G; A's
+    // fragments hold one gathered column (one channel) a register
+#pragma unroll
+    for (int s = 0; s < kRows / 16; ++s) {
+      uint32_t bf[NTW][2];
+      if constexpr (NTW == 1) {
+        ldsm2t(bf[0], sg_u + swz(lrow(16 * s, lane), wnw, N / 8));
+      } else {
+#pragma unroll
+        for (int np = 0; np < NTW / 2; ++np) {
+          uint32_t bb[4];
+          ldsm4t(bb, sg_u + swz(lrow(16 * s, lane),
+                                lcol(wnw * NTW + 2 * np, lane), N / 8));
+          bf[2 * np][0] = bb[0];
+          bf[2 * np][1] = bb[1];
+          bf[2 * np + 1][0] = bb[2];
+          bf[2 * np + 1][1] = bb[3];
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MTW; ++mt) {
+        const int m0 = 16 * (wmw * MTW + mt);
+        uint32_t a[4];
+        ldsm4t(a, sx_u + swz(16 * s + (lane & 7) + (lane >> 4) * 8,
+                             m0 / 8 + ((lane >> 3) & 1), U));
+        a[0] = act2(a[0], sca[mt][0], sca[mt][0], sha[mt][0], sha[mt][0]);
+        a[1] = act2(a[1], sca[mt][1], sca[mt][1], sha[mt][1], sha[mt][1]);
+        a[2] = act2(a[2], sca[mt][0], sca[mt][0], sha[mt][0], sha[mt][0]);
+        a[3] = act2(a[3], sca[mt][1], sca[mt][1], sha[mt][1], sha[mt][1]);
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) mma(dw[mt][nt], a, bf[nt][0], bf[nt][1]);
+      }
+    }
+    __syncthreads();   // the x tile is overwritten with dx below
+
+    // 3. dA (rows 16 wm.., columns wn DCW..) = G @ Wd^T in chunks of 32
+    // columns; dam = [x scale + shift > 0] dA, dx = bf16(dam scale) over
+    // x in place; rows past the grid have G = 0, so dam = 0 there
+    {
+      uint32_t ga[KS][4];
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+        ldsm4(ga[s], sg_u + swz(lrow(16 * wm, lane), lcol(2 * s, lane),
+                                N / 8));
+#pragma unroll
+      for (int ch = 0; ch < Cfg::kChunks; ++ch) {
+        const int n0 = wn * DCW + 32 * ch;
+        float acc[4][4] = {};
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t bb[4];
+            ldsm4(bb, sw_u + swz(n0 + 16 * np + (lane & 7) + (lane >> 4) * 8,
+                                 2 * s + ((lane >> 3) & 1), N / 8));
+            mma(acc[2 * np], ga[s], bb[0], bb[1]);
+            mma(acc[2 * np + 1], ga[s], bb[2], bb[3]);
+          }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int kk = n0 + 8 * nt + 2 * t;   // gathered column (even)
+          const int c = kk % C;
+          constexpr int Q = C / 8;
+          const int q = (4 * ch + nt) % Q;       // c = 8 q + 2 t
+          const float sc0 = vsc[c], sc1 = vsc[c + 1];
+          const float sh0 = vsh[c], sh1 = vsh[c + 1];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * wm + g + 8 * h;
+            uint32_t* px = reinterpret_cast<uint32_t*>(
+                sx + swz(r, kk / 8, U) + (kk % 8) * 2);
+            const uint32_t xp = *px;
+            const float xs[2] = {bf16_lo(xp), bf16_hi(xp)};
+            const float sc[2] = {sc0, sc1}, sh[2] = {sh0, sh1};
+            float o[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float pre = __fadd_rn(__fmul_rn(xs[j], sc[j]), sh[j]);
+              const float dam = pre > 0.f ? acc[nt][2 * h + j] : 0.f;
+              o[j] = __fmul_rn(dam, sc[j]);
+              ds1[q][j] += dam * xs[j];
+              ds2[q][j] += dam;
+            }
+            *px = pack_bf16x2(o[0], o[1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // 4. dx back to the fine grid
+    scatter_tile<C, S>(p.dx, sx, b, tile, Mb, p.D2, p.H2, p.W2, tid,
+                       kBwdThreads, z);
+    __syncthreads();   // the stage is refilled by a later load
+  }
+
+  // the block's row of the partial table, in a fixed order
+  cp_wait<0>();
+  __syncthreads();
+  const long long L = down_row(C, p.B);
+  float* row = p.part + (((size_t)b * gridDim.x + blockIdx.x) * S + z) * L;
+  if constexpr (S > 1)   // the other slices' dW entries
+    for (int e = tid; e < 16 * C * C; e += kBwdThreads)
+      if (e / N / NF != z) row[e] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * (wmw * MTW + mt) + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = 8 * (wnw * NTW + nt) + 2 * t + j;
+          row[((size_t)z * NF + m) * N + n] = dw[mt][nt][2 * h + j];
+        }
+      }
+  float* rdb = reinterpret_cast<float*>(stages);   // [256][8]
+  float* rds = rdb + kBwdThreads * 8;               // [8 warps][2][C]
+#pragma unroll
+  for (int e = 0; e < 8; ++e) rdb[tid * 8 + e] = db[e];
+#pragma unroll
+  for (int q = 0; q < C / 8; ++q)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float a = group_sum(ds1[q][j]), c = group_sum(ds2[q][j]);
+      if (g == 0) {
+        rds[warp * 2 * C + 8 * q + 2 * t + j] = a;
+        rds[warp * 2 * C + C + 8 * q + 2 * t + j] = c;
+      }
+    }
+  __syncthreads();
+  // threads with tid % (N / 8) == o / 8 hold channel o, in tid order
+  for (int o = tid; o < N; o += kBwdThreads) {
+    float v = 0.f;
+    if (z == 0)
+      for (int th = o / 8; th < kBwdThreads; th += N / 8)
+        v += rdb[th * 8 + o % 8];
+    row[16LL * C * C + o] = v;
+  }
+  float* rst = row + 16LL * C * C + N;
+  for (int e = tid; e < p.B * 2 * C; e += kBwdThreads) {
+    const int bb = e / (2 * C), sc = e % (2 * C);
+    float v = 0.f;
+    if (bb == b) {
+      v = rds[sc];
+#pragma unroll
+      for (int w = 1; w < kBwdThreads / 32; ++w) v += rds[w * 2 * C + sc];
+    }
+    rst[e] = v;
   }
 }
 
@@ -789,9 +1090,34 @@ int down_grid(int B, int tiles) {
 template <int C>
 int up_grid(int B, int tiles) {
   constexpr int NS = C == 64 ? 32 : 2 * C;
-  return blocks_per_batch(up2x_bwd_mma_kernel<C, NS>, kUpThreads,
+  return blocks_per_batch(up2x_bwd_mma_kernel<C, NS>, kBwdThreads,
                           UpCfg<C, NS>::kSmem, UpCfg<C, NS>::kBlocks, B,
                           2 * C / NS, tiles);
+}
+
+template <int C>
+int down_bwd_grid(int B, int tiles) {
+  constexpr int S = down_bwd_slices<C>();
+  return blocks_per_batch(down2x_bwd_mma_kernel<C, S>, kBwdThreads,
+                          DownBwdCfg<C, S>::kSmem, DownBwdCfg<C, S>::kBlocks,
+                          B, S, tiles);
+}
+
+template <int C>
+int down_bwd_launch(const DownBwdArgs& a, float* out, int gx,
+                    cudaStream_t st) {
+  constexpr int S = down_bwd_slices<C>();
+  using Cfg = DownBwdCfg<C, S>;
+  cudaError_t err = allow_smem(down2x_bwd_mma_kernel<C, S>, Cfg::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  down2x_bwd_mma_kernel<C, S>
+      <<<dim3(gx, a.B, S), kBwdThreads, Cfg::kSmem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long L = down_row(C, a.B);
+  fixed_sum_kernel<<<dim3((unsigned)((L + 31) / 32), 1), 256, 0, st>>>(
+      a.part, out, gx * a.B * S, L);
+  return (int)cudaGetLastError();
 }
 
 template <int C>
@@ -815,13 +1141,22 @@ int up_launch(const UpBwdArgs& a, float* out, int gx, cudaStream_t st) {
   cudaError_t err = allow_smem(up2x_bwd_mma_kernel<C, NS>, Cfg::kSmem);
   if (err != cudaSuccess) return (int)err;
   up2x_bwd_mma_kernel<C, NS>
-      <<<dim3(gx, a.B, 2 * C / NS), kUpThreads, Cfg::kSmem, st>>>(a);
+      <<<dim3(gx, a.B, 2 * C / NS), kBwdThreads, Cfg::kSmem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long L = up_row(C, a.B);
   fixed_sum_kernel<<<dim3((unsigned)((L + 31) / 32), 1), 256, 0, st>>>(
       a.part, out, gx * a.B, L);
   return (int)cudaGetLastError();
+}
+
+template <int C>
+int grid_of(int kind, int B, int tiles) {
+  switch (kind) {
+    case 0: return down_grid<C>(B, tiles);
+    case 1: return up_grid<C>(B, tiles);
+    default: return down_bwd_grid<C>(B, tiles);
+  }
 }
 
 long long tiles_of(int D2, int H2, int W2) {
@@ -833,15 +1168,28 @@ long long tiles_of(int D2, int H2, int W2) {
 extern "C" {
 
 // Blocks a batch element of a launch (the partial table has B times that
-// many rows): kind 0 down2x, 1 up2x's backward, at fine width C over
-// `tiles` tiles a batch element; 0 for a width the kernels do not take.
+// many rows, times the slices for down2x's backward): kind 0 down2x, 1
+// up2x's backward, 2 down2x's backward, at fine width C over `tiles`
+// tiles a batch element; 0 for a width the kernels do not take.
 int pcseg_resample_grid(int kind, int B, int C, int tiles) {
-  if (B <= 0 || tiles <= 0) return 0;
+  if (B <= 0 || tiles <= 0 || kind < 0 || kind > 2) return 0;
   switch (C) {
-    case 8: return kind == 0 ? down_grid<8>(B, tiles) : up_grid<8>(B, tiles);
-    case 16: return kind == 0 ? down_grid<16>(B, tiles) : up_grid<16>(B, tiles);
-    case 32: return kind == 0 ? down_grid<32>(B, tiles) : up_grid<32>(B, tiles);
-    case 64: return kind == 0 ? down_grid<64>(B, tiles) : up_grid<64>(B, tiles);
+    case 8: return grid_of<8>(kind, B, tiles);
+    case 16: return grid_of<16>(kind, B, tiles);
+    case 32: return grid_of<32>(kind, B, tiles);
+    case 64: return grid_of<64>(kind, B, tiles);
+    default: return 0;
+  }
+}
+
+// Slices of down2x's backward at fine width C (grid z; the partial table
+// has B gx times that many rows), 0 for a width it does not take.
+int pcseg_down2x_bwd_slices(int C) {
+  switch (C) {
+    case 8: return down_bwd_slices<8>();
+    case 16: return down_bwd_slices<16>();
+    case 32: return down_bwd_slices<32>();
+    case 64: return down_bwd_slices<64>();
     default: return 0;
   }
 }
@@ -910,6 +1258,44 @@ int pcseg_up2x_bwd_mma(const void* x, const void* w, const void* scale,
     case 16: return up_launch<16>(a, o, gx, st);
     case 32: return up_launch<32>(a, o, gx, st);
     case 64: return up_launch<64>(a, o, gx, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// down2x's backward: x (B, D, H, W, C) bf16 fine (D, H, W even); w (2, 2,
+// 2, C, 2C) f32; scale/shift (B, C); gy and y (B, D/2, H/2, W/2, 2C) bf16
+// (y unread without gstats), gstats (B, 2, 2C) or null; all grids 16-byte
+// aligned. Writes dx (B, D, H, W, C) bf16 and out = [dW (2, 2, 2, C, 2C) |
+// dbias (2C) | dstats (B, 2, C)] f32 through part, (B gx S, 16 C^2 + 2C +
+// 2 B C) f32 scratch; gx from pcseg_resample_grid(2, ...), S from
+// pcseg_down2x_bwd_slices.
+int pcseg_down2x_bwd_mma(const void* x, const void* w, const void* scale,
+                         const void* shift, const void* gy, const void* y,
+                         const void* gstats, void* dx, void* out, void* part,
+                         int B, int D, int H, int W, int C, int gx,
+                         void* stream) {
+  if (B <= 0 || gx <= 0 || D <= 0 || H <= 0 || W <= 0 || D % 2 || H % 2 ||
+      W % 2)
+    return (int)cudaErrorInvalidValue;
+  DownBwdArgs a{};
+  a.x = (const __nv_bfloat16*)x;
+  a.w = (const float*)w;
+  a.scale = (const float*)scale;
+  a.shift = (const float*)shift;
+  a.gy = (const __nv_bfloat16*)gy;
+  a.y = (const __nv_bfloat16*)y;
+  a.gstats = (const float*)gstats;
+  a.dx = (__nv_bfloat16*)dx;
+  a.part = (float*)part;
+  a.B = B; a.D2 = D / 2; a.H2 = H / 2; a.W2 = W / 2;
+  a.tiles = (int)tiles_of(a.D2, a.H2, a.W2);
+  float* o = (float*)out;
+  const auto st = (cudaStream_t)stream;
+  switch (C) {
+    case 8: return down_bwd_launch<8>(a, o, gx, st);
+    case 16: return down_bwd_launch<16>(a, o, gx, st);
+    case 32: return down_bwd_launch<32>(a, o, gx, st);
+    case 64: return down_bwd_launch<64>(a, o, gx, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -47,10 +47,16 @@ SIGNATURES = {
         "pcseg_head_grid2": [_P] * 6 + [_I] * 4 + [_P],
         "pcseg_head_grid2_bwd": [_P] * 9 + [_I] * 4 + [_P],
     },
+    "conv3d_dgrad": {
+        "pcseg_dgrad_grid": [_I] * 5,
+        "pcseg_conv3x3_dgrad_mma": [_P] * 11 + [_I] * 6 + [_P],
+    },
     "resample": {
         "pcseg_resample_grid": [_I] * 4,
         "pcseg_down2x_mma": [_P] * 8 + [_I] * 6 + [_P],
         "pcseg_up2x_bwd_mma": [_P] * 10 + [_I] * 6 + [_P],
+        "pcseg_down2x_bwd_slices": [_I],
+        "pcseg_down2x_bwd_mma": [_P] * 10 + [_I] * 6 + [_P],
     },
     "onehot_contract": {
         "pcseg_voxelize_contract": [_P] * 3 + [_I] * 4 + [_P],

@@ -40,15 +40,17 @@ Everything is NDHWC. The TPU kernels' 128-lane packing of (W, C) and their
 (B, 128) lane-tiled scale/shift/stats existed only for the TPU's vector
 lanes; here scale/shift are (B, C) and stats (B, 2, C).
 
-The down block's forward and the up block's backward run, for C in 8,
-16, 32, 64 with 2C on the coarse side (the widths the JAX fused core
-allows), as gathered tensor-core GEMMs (csrc/resample.cu): a coarse
-voxel's row is its eight children's channels (``gather_rows``), so the
-down conv is ``gather_rows(act(x)) @ pack_down_w(w)`` and the up block's
-dgrad ``gather_rows(g') @ pack_up_wt(w)``, its wgrad the transpose of
-the same product. Other shapes take the CUDA-core kernels of
-csrc/conv3d_block.cu, chosen by shape before the launch
-(``_mma_route``).
+The down block's forward and both blocks' backward run, for C in 8, 16,
+32, 64 with 2C on the coarse side (the widths the JAX fused core allows),
+as gathered tensor-core GEMMs (csrc/resample.cu): a coarse voxel's row is
+its eight children's channels (``gather_rows``), so the down conv is
+``gather_rows(act(x)) @ pack_down_w(w)`` and the up block's dgrad
+``gather_rows(g') @ pack_up_wt(w)``, its wgrad the transpose of the same
+product; the down block's backward is the transposed pair,
+``ungather_rows(G @ pack_down_w(w)^T)`` for dx and ``gather_rows(act(x))^T
+@ G`` for dW, with G = bf16(g') on the coarse grid. Other shapes take the
+CUDA-core kernels of csrc/conv3d_block.cu, chosen by shape before the
+launch (``_mma_route``).
 
 ``*_cuda`` launch a kernel (csrc/conv3d_block.cu); ``*_plain`` are the
 plain PyTorch versions, with the kernels' rounding points, so the two agree
@@ -76,12 +78,14 @@ from pcseg_tpu_torch.ops.conv3d import num_groups
 
 # launches per kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else. The op keys count
-# either route; "down2x_mma" and "up2x_bwd_mma" count the launches of
-# csrc/resample.cu's gathered tensor-core kernels among them.
+# either route; "down2x_mma", "up2x_bwd_mma" and "down2x_bwd_mma" count
+# the launches of csrc/resample.cu's gathered tensor-core kernels among
+# them, "conv3x3_dgrad_mma" those of csrc/conv3d_dgrad.cu's implicit GEMM.
 LAUNCHES = {"conv3x3_gn_act": 0, "down2x_gn_act": 0, "up2x_gn_act": 0,
             "conv3x3_dgrad": 0, "conv3x3_wgrad": 0, "down2x_bwd": 0,
             "up2x_bwd": 0, "head_grid2": 0, "head_grid2_bwd": 0,
-            "down2x_mma": 0, "up2x_bwd_mma": 0}
+            "down2x_mma": 0, "up2x_bwd_mma": 0, "down2x_bwd_mma": 0,
+            "conv3x3_dgrad_mma": 0}
 
 
 def reset_launches() -> None:
@@ -286,6 +290,16 @@ def gather_rows(t):
             .reshape(b, d // 2, h // 2, w // 2, 8 * c))
 
 
+def ungather_rows(rows):
+    """The inverse of ``gather_rows``: (B, D/2, H/2, W/2, 8C) coarse rows
+    back to the (B, D, H, W, C) fine grid (the down block's dx, scattered)."""
+    b, d2, h2, w2, k = rows.shape
+    c = k // 8
+    return (rows.reshape(b, d2, h2, w2, 2, 2, 2, c)
+            .permute(0, 1, 4, 2, 5, 3, 6, 7)
+            .reshape(b, 2 * d2, 2 * h2, 2 * w2, c))
+
+
 def pack_down_w(w):
     """The down conv's (2, 2, 2, C, N) weights as the (8C, N) matrix the
     gathered rows multiply: row (tap, c)."""
@@ -297,6 +311,60 @@ def pack_up_wt(w):
     matrix: row (d, o) holds w[1 - d][:, o], the tap that sends coarse
     channel i to child d's channel o."""
     return w.flip(0, 1, 2).transpose(3, 4).reshape(-1, w.shape[3])
+
+
+# ---------------------------------------------------------------------------
+# the implicit-GEMM layout of csrc/conv3d_dgrad.cu
+# ---------------------------------------------------------------------------
+
+def dgrad_taps():
+    """The dgrad's tap order: tap t = (kz * 3 + ky) * 3 + kx reads g' at
+    the voxel offset (kz - 1, ky - 1, kx - 1) and multiplies row t of
+    ``pack_dgrad_w``."""
+    return [(kz - 1, ky - 1, kx - 1) for kz in range(3) for ky in range(3)
+            for kx in range(3)]
+
+
+def pack_dgrad_w(w):
+    """The forward's (3, 3, 3, Cin, Cout) weights as the dgrad's B operand
+    (27, Cin, Cout): row t holds the flipped tap 26 - t, [n = ci][k = co]
+    (K contiguous), so da = sum_t A_t @ pack_dgrad_w(w)[t]^T."""
+    return w.reshape(27, w.shape[3], w.shape[4]).flip(0)
+
+
+def ring_slot(g, b, pd, h0, th):
+    """A ring slot of the dgrad: plane pd of g' (B, D, H, W, C), rows h0 - 1
+    .. h0 + th and columns -1 .. W as ((th + 2) (W + 2), C), zeros outside
+    the grid (the conv's zero padding). Position v = r (W + 2) + c holds
+    voxel (h0 - 1 + r, c - 1)."""
+    _, d, h, w, c = g.shape
+    out = g.new_zeros((th + 2, w + 2, c))
+    if 0 <= pd < d:
+        lo, hi = max(h0 - 1, 0), min(h0 + th + 1, h)
+        out[lo - h0 + 1:hi - h0 + 1, 1:w + 1] = g[b, pd, lo:hi]
+    return out.reshape(-1, c)
+
+
+def ring_swizzle(u, units):
+    """The stored place of 16-byte unit u of a tile whose voxels hold
+    ``units`` units (csrc/conv3d_dgrad.cu swl): the unit's index within
+    its voxel XOR bits of the voxel."""
+    return u ^ ((u >> 3) & (units - 1))
+
+
+def dgrad_plane(g, wpk, b, d, h0, th):
+    """Rows h0 .. h0 + th of output plane d of da (th, W, Cin), as the
+    kernel's GEMM: sum over the taps of the ring slots of planes d - 1, d,
+    d + 1 read at the tap's shift, times ``pack_dgrad_w``'s row."""
+    w = g.shape[3]
+    slots = {pd: ring_slot(g, b, pd, h0, th) for pd in (d - 1, d, d + 1)}
+    r = torch.arange(th)[:, None]
+    c = torch.arange(w)[None, :]
+    da = 0.0
+    for t, (dz, dy, dx) in enumerate(dgrad_taps()):
+        v = ((r + 1 + dy) * (w + 2) + (c + 1 + dx)).reshape(-1)
+        da = da + slots[d + dz][v] @ wpk[t].t()
+    return da.reshape(th, w, -1)
 
 
 def head_grid2_plain(x, w, bias, scale, shift):
@@ -430,7 +498,8 @@ def _mma_route(c, c2, *grids):
 @functools.lru_cache(maxsize=None)
 def _mma_grid(kind, b, c, tiles, device_index):
     """Blocks a batch element of a resample.cu launch (kind 0 down2x, 1
-    up2x's backward): the rows of its partial table are B times this."""
+    up2x's backward, 2 down2x's backward): the rows of its partial table
+    are B times this (times ``_down_bwd_slices`` for kind 2)."""
     with torch.cuda.device(device_index):
         gx = load_library("resample").pcseg_resample_grid(kind, b, c, tiles)
     if gx <= 0:
@@ -507,12 +576,45 @@ def up2x_gn_act_cuda(x, w, bias, scale, shift):
     return y, stats
 
 
+# voxels of the implicit-GEMM dgrad's plane tile, TH rows of all W
+# (csrc/conv3d_dgrad.cu DgradCfg::M)
+_DGRAD_TILE = {8: 256, 16: 256, 32: 256, 64: 128}
+
+
+def _dgrad_route(cin, cout, shape, *grids):
+    """True where csrc/conv3d_dgrad.cu's tensor-core implicit GEMM takes a
+    3^3 dgrad of a (B, D, H, W, C) grid: Cin = Cout in 8, 16, 32, 64 (the
+    JAX fused core's widths), W in 16, 32, 64 (not 64 at 64 channels,
+    whose ring of planes would not fit in shared memory), H a multiple of
+    the plane tile's rows and 16-byte aligned grids (its 16-byte copies).
+    Other shapes run on conv3d_block.cu's conv_kernel."""
+    h, w = shape[2], shape[3]
+    tile = _DGRAD_TILE.get(cin)
+    return (tile is not None and cout == cin and w in (16, 32, 64)
+            and not (cin == 64 and w == 64) and h % (tile // w) == 0
+            and all(t is None or t.data_ptr() % 16 == 0 for t in grids))
+
+
+@functools.lru_cache(maxsize=None)
+def _dgrad_grid(b, c, d, h, w, device_index):
+    """Blocks a (batch element, Cin slice) of a conv3d_dgrad.cu launch:
+    the rows of its partial table are B times this."""
+    with torch.cuda.device(device_index):
+        gx = load_library("conv3d_dgrad").pcseg_dgrad_grid(b, c, d, h, w)
+    if gx <= 0:
+        raise RuntimeError(f"conv3d_dgrad.cu: no launch grid for C={c}, "
+                           f"grid {d}x{h}x{w}")
+    return gx
+
+
 def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
                        want_gadj=False):
     """dgrad of the 3^3 block. gy (B, D, H, W, Cout) bf16; y the forward's
     output and gstats (B, 2, Cout) its stats cotangent, or both None; x
     the forward's input. Returns (dx bf16, dstats (B, 2, Cin) = (dscale,
-    dshift) or None without the activation, g' bf16 when ``want_gadj``)."""
+    dshift) or None without the activation, g' bf16 when ``want_gadj``).
+    The tensor-core implicit GEMM where ``_dgrad_route`` takes the
+    shape."""
     cout = _common(x, w, None, scale, shift, 3, activate)
     b, d, h, wd, cin = x.shape
     if wd % 4 or cin % 4:
@@ -520,15 +622,34 @@ def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
                          f"{tuple(x.shape)}")
     _cotangents(gy, y, gstats, (b, d, h, wd, cout))
     dx = torch.empty_like(x)
-    dstats = _f32_zeros(x, b, 2, cin) if activate else None
     gadj = torch.empty_like(gy) if want_gadj and gstats is not None else None
-    rc = load_library().pcseg_conv3x3_dgrad(
-        gy.data_ptr(), ptr(y) if gstats is not None else None, ptr(gstats),
-        x.data_ptr(), _wt(w).data_ptr(), ptr(scale) if activate else None,
-        ptr(shift) if activate else None, dx.data_ptr(), ptr(dstats),
-        ptr(gadj), b, d, h, wd, cin, cout, int(activate), stream_of(x),
-    )
-    raise_on(rc, "conv3x3_dgrad")
+    if _dgrad_route(cin, cout, x.shape, x, gy,
+                    y if gstats is not None else None):
+        gx = _dgrad_grid(b, cin, d, h, wd, x.device.index)
+        dstats = part = None
+        if activate:
+            dstats = torch.empty((b, 2, cin), dtype=torch.float32,
+                                 device=x.device)
+            part = torch.empty((b, gx, 2, cin), dtype=torch.float32,
+                               device=x.device)
+        rc = load_library("conv3d_dgrad").pcseg_conv3x3_dgrad_mma(
+            gy.data_ptr(), ptr(y) if gstats is not None else None,
+            ptr(gstats), x.data_ptr(), w.float().contiguous().data_ptr(),
+            ptr(scale) if activate else None,
+            ptr(shift) if activate else None, dx.data_ptr(), ptr(dstats),
+            ptr(gadj), ptr(part), b, d, h, wd, cin, gx, stream_of(x))
+        raise_on(rc, "conv3x3_dgrad_mma")
+        LAUNCHES["conv3x3_dgrad_mma"] += 1
+    else:
+        dstats = _f32_zeros(x, b, 2, cin) if activate else None
+        rc = load_library().pcseg_conv3x3_dgrad(
+            gy.data_ptr(), ptr(y) if gstats is not None else None,
+            ptr(gstats), x.data_ptr(), _wt(w).data_ptr(),
+            ptr(scale) if activate else None,
+            ptr(shift) if activate else None, dx.data_ptr(), ptr(dstats),
+            ptr(gadj), b, d, h, wd, cin, cout, int(activate), stream_of(x),
+        )
+        raise_on(rc, "conv3x3_dgrad")
     LAUNCHES["conv3x3_dgrad"] += 1
     if want_gadj and gadj is None:
         gadj = gy                     # no stats term: g' is gy
@@ -580,16 +701,47 @@ def _resample_bwd_cuda(entry, x, w, scale, shift, gy, y, gstats, out_shape):
     return dx, dstats, dw, db
 
 
+@functools.lru_cache(maxsize=None)
+def _down_bwd_slices(c):
+    """Blocks a tile of down2x's backward splits the 8C gathered columns
+    into (grid z; csrc/resample.cu down_bwd_slices): its partial table has
+    B gx times that many rows."""
+    return load_library("resample").pcseg_down2x_bwd_slices(c)
+
+
 def down2x_bwd_cuda(x, w, scale, shift, gy, y, gstats):
     """Backward of the down block: (dx bf16, dstats (B, 2, C) = (dscale,
     dshift), dW (2, 2, 2, C, C2), dbias (C2,)); gy/y (B, D/2, H/2, W/2,
-    C2), gstats (B, 2, C2) or None (with y None)."""
-    b, d, h, wd, _ = x.shape
+    C2), gstats (B, 2, C2) or None (with y None). One sweep of the
+    gathered tensor-core kernel where ``_mma_route`` takes the shape."""
+    b, d, h, wd, c = x.shape
     if d % 2 or h % 2 or wd % 8:
         raise ValueError(f"down2x needs even D, H and W a multiple of 8, "
                          f"got {tuple(x.shape)}")
-    return _resample_bwd_cuda("down2x_bwd", x, w, scale, shift, gy, y, gstats,
-                              (b, d // 2, h // 2, wd // 2, w.shape[-1]))
+    c2 = w.shape[-1]
+    out_shape = (b, d // 2, h // 2, wd // 2, c2)
+    if not _mma_route(c, c2, x, gy, y if gstats is not None else None):
+        return _resample_bwd_cuda("down2x_bwd", x, w, scale, shift, gy, y,
+                                  gstats, out_shape)
+    _common(x, w, None, scale, shift, 2)
+    _cotangents(gy, y, gstats, out_shape)
+    gx = _mma_grid(2, b, c, _tiles(d // 2, h // 2, wd // 2), x.device.index)
+    dx = torch.empty_like(x)
+    n_dw = 16 * c * c
+    out = torch.empty(n_dw + c2 + 2 * b * c, dtype=torch.float32,
+                      device=x.device)
+    part = torch.empty((b * gx * _down_bwd_slices(c), out.numel()),
+                       dtype=torch.float32, device=x.device)
+    rc = load_library("resample").pcseg_down2x_bwd_mma(
+        x.data_ptr(), w.float().contiguous().data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), gy.data_ptr(),
+        ptr(y) if gstats is not None else None, ptr(gstats), dx.data_ptr(),
+        out.data_ptr(), part.data_ptr(), b, d, h, wd, c, gx, stream_of(x))
+    raise_on(rc, "down2x_bwd_mma")
+    LAUNCHES["down2x_bwd_mma"] += 1
+    LAUNCHES["down2x_bwd"] += 1
+    dw = out[:n_dw].view(2, 2, 2, c, c2)
+    return (dx, out[n_dw + c2:].view(b, 2, c), dw, out[n_dw:n_dw + c2])
 
 
 def up2x_bwd_cuda(x, w, scale, shift, gy, y, gstats):

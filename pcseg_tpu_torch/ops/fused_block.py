@@ -30,9 +30,9 @@ so the two agree up to f32 summation order. On the card a width takes one
 of three routes (``route_of``): TMA + wgmma kernels for widths that are
 multiples of 64 (one launch forward; backward one sweep where a block's
 dW partial fits in registers, else three launches: the bf16 cotangent, dx,
-dW), and CUDA-core kernels for conv1 (Cin <= 16) and the logits layer
-(Cout <= 32), one launch each way; any other width raises ValueError
-before the library loads.
+dW), and CUDA-core kernels for conv1 (any other Cin, Cout 64, 128 or
+256) and the logits layer (Cin 128, Cout 1..128), one launch each way; any
+other width raises ValueError before the library loads.
 """
 
 from __future__ import annotations
@@ -53,6 +53,9 @@ from pcseg_tpu_torch.ops.dropout import keep_mask, seed_key, threshold
 # launches since the last reset; each wrapper adds one where it launches
 # its kernel entry and nowhere else
 LAUNCHES = {"fused_block": 0, "fused_block_bwd": 0}
+# the logits layer's and the classifier + CE's widest class count (the JAX
+# fused_seg4_ce's LANES, pcseg_tpu/ops/pallas/fused_ce.py:38)
+MAX_CLASSES = 128
 
 
 def reset_launches() -> None:
@@ -176,21 +179,22 @@ def fused_block_bwd_plain(x, mu, inv, gamma, beta, w, y, dy, ds1, ds2,
 
 def route_of(cin: int, cout: int) -> str:
     """The kernel a width takes on a CUDA tensor (csrc/pointnet_chain.cu
-    route_of, the same rule): "simt" for conv1 (Cin <= 16, Cout 64, 128 or
-    256), "narrow" for the logits layer (Cin 128, Cout 1..32), "wgmma" for
-    Cin and Cout multiples of 64, up to 512 and 1024. Any other width
-    raises ValueError, before the library is built or loaded."""
-    if 1 <= cin <= 16 and cout in (64, 128, 256):
-        return "simt"
-    if cin == 128 and 1 <= cout <= 32:
-        return "narrow"
+    route_of, the same rule; the first that takes it): "wgmma" for Cin and
+    Cout multiples of 64, up to 512 and 1024; "simt" for conv1 (any other
+    Cin >= 1, Cout 64, 128 or 256); "narrow" for the logits layer (Cin
+    128, Cout 1..128). Any other width raises ValueError, before the
+    library is built or loaded."""
     if 0 < cin <= 512 and 0 < cout <= 1024 and cin % 64 == 0 \
             and cout % 64 == 0:
         return "wgmma"
+    if cin >= 1 and cout in (64, 128, 256):
+        return "simt"
+    if cin == 128 and 1 <= cout <= MAX_CLASSES:
+        return "narrow"
     raise ValueError(
-        f"fused_block on a CUDA tensor takes Cin <= 16 with Cout 64, 128 or "
-        f"256, Cin 128 with Cout 1..32, or Cin and Cout multiples of 64 up "
-        f"to 512 and 1024; got {cin} -> {cout}")
+        f"fused_block on a CUDA tensor takes Cin and Cout multiples of 64 up "
+        f"to 512 and 1024, any Cin with Cout 64, 128 or 256, or Cin 128 with "
+        f"Cout 1..{MAX_CLASSES}; got {cin} -> {cout}")
 
 
 def w_operand(w, cin, cout):

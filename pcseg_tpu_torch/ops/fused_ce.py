@@ -19,12 +19,15 @@ for both products) into the seg4 backward: dx, dW (Cin, C) f32, db, and
 the gamma/beta-like sums with the same stats-input algebra as fused_block.
 
 On the card (csrc/pointnet_chain.cu) each direction is one CUDA-core
-kernel: 16 lanes a row (32 above 8 classes) load its 128 channels in
-16-byte (8-byte) pieces, the logits come from FMAs and a butterfly of
-shuffles, and the backward forms dlogits in registers (no (N, C) scratch)
-and sums dW, db, dgamma and dbeta over its rows before one atomic a value
-and block. Cin 128 and C <= 32 (``check_widths`` raises ValueError for
-any other width before the library loads).
+kernel: up to 32 classes 16 lanes a row (32 above 8 classes) load its 128
+channels in 16-byte (8-byte) pieces, the logits come from FMAs and a
+butterfly of shuffles, and the backward forms dlogits in registers (no
+(N, C) scratch; on mma.sync up to 8 classes) and sums dW, db, dgamma and
+dbeta over its rows before one atomic a value and block; from 33 to 128
+classes tiles of 32 rows go through shared memory, the softmax a warp's
+shuffles. Cin 128 and 1..128 classes, the JAX kernel's range
+(``check_widths`` raises ValueError for any other width before the library
+loads).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from pcseg_tpu_torch.ops._build import (
     stream_of,
 )
 from pcseg_tpu_torch.ops.fused_block import (
+    MAX_CLASSES,
     check,
     f32_vec,
     norm_vecs,
@@ -47,7 +51,6 @@ from pcseg_tpu_torch.ops.fused_block import (
 )
 
 LAUNCHES = {"fused_seg4_ce": 0, "fused_seg4_ce_bwd": 0}
-MAX_CLASSES = 32
 CIN = 128
 
 
@@ -98,7 +101,7 @@ def seg4_ce_bwd_plain(x, mu, inv, gamma, beta, w, b, labels, class_weights,
 
 
 def check_widths(cin: int, c: int) -> None:
-    """The kernels' widths: Cin 128 (PointNetSeg's seg3) and 1..32
+    """The kernels' widths: Cin 128 (PointNetSeg's seg3) and 1..128
     classes; any other raises ValueError before the library loads."""
     if cin != CIN or not 1 <= c <= MAX_CLASSES:
         raise ValueError(f"fused_seg4_ce on a CUDA tensor takes Cin {CIN} "

@@ -88,14 +88,18 @@ STAGES = (("gp_wgmma_fwd", "global_pool"),
           ("chain_wgmma_fwd_kernel", "pointnet_block"),
           ("chain_simt_fwd_kernel", "pointnet_block"),
           ("chain_narrow_fwd_kernel", "pointnet_block"),
+          ("chain_wide_fwd_kernel", "pointnet_block"),
           ("chain_wgmma_bwd_kernel", "pointnet_block_bwd"),
           ("chain_cotangent_kernel", "pointnet_block_bwd"),
           ("chain_wgmma_dx_kernel", "pointnet_block_bwd"),
           ("chain_wgmma_dw_kernel", "pointnet_block_bwd"),
           ("chain_simt_bwd_kernel", "pointnet_block_bwd"),
           ("chain_narrow_bwd_kernel", "pointnet_block_bwd"),
+          ("chain_wide_bwd_kernel", "pointnet_block_bwd"),
           ("ce_seg4_fwd_kernel", "seg4_ce"), ("ce_seg4_bwd_kernel", "seg4_ce"),
           ("ce_seg4_bwd_mma_kernel", "seg4_ce"),
+          ("ce_seg4_wide_fwd_kernel", "seg4_ce"),
+          ("ce_seg4_wide_bwd_kernel", "seg4_ce"),
           ("dropout_kernel", "dropout"),
           ("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
           ("voxelize_contract_kernel", "voxelize"),
@@ -110,7 +114,8 @@ STAGES = (("gp_wgmma_fwd", "global_pool"),
           ("trilinear_scatter_kernel", "devox_scatter"),
           ("conv_kernel", "conv"), ("up_kernel", "conv"),
           ("wgrad_kernel", "conv"), ("down2x_mma_kernel", "conv"),
-          ("up2x_bwd_mma_kernel", "conv"), ("fixed_sum_kernel", "conv"))
+          ("up2x_bwd_mma_kernel", "conv"), ("down2x_bwd_mma_kernel", "conv"),
+          ("dgrad_mma_kernel", "conv"), ("fixed_sum_kernel", "conv"))
 
 # PointNet serving only: the library's matrix-product kernel families
 # (cuBLAS xmma, cuBLASLt nvjet and its split-K reduction, CUTLASS SIMT and

@@ -102,6 +102,15 @@ CASES = [  # (cin, cout, normalize, relu, drop, row bias, out f32, B, M)
     (256, 128, True, True, 0.3, False, False, 4, 1024),    # seg3
     (128, 4, True, True, 0.0, False, True, 4, 1024),       # logits
     (128, 13, True, True, 0.0, False, True, 4, 1024),
+    # conv1 at input_dim 20 and 33 (K chunks of 16, a partial last one),
+    # the simt route with a normalize prologue and dropout over 13 chunks;
+    # the logits layer past 32 classes (the wide tiles), one with stats
+    (20, 64, False, False, 0.0, False, False, 4, 1024),
+    (33, 64, False, False, 0.0, False, False, 3, 1000),
+    (200, 128, True, True, 0.3, False, False, 4, 1024),
+    (128, 40, True, True, 0.0, False, True, 4, 1024),
+    (128, 100, True, True, 0.0, False, True, 3, 1000),
+    (128, 127, True, True, 0.0, False, False, 4, 1024),
     # the one-sweep backward without stats (no y read), an f32 output
     (64, 64, True, True, 0.0, False, True, 4, 1024),
 ]
@@ -177,8 +186,8 @@ def test_fused_block_bwd_kernel_f32_cotangent(gen, cin, cout):
         _close_sum(a, r, name)
 
 
-@pytest.mark.parametrize("cin, cout", [(96, 64), (64, 96), (32, 64),
-                                       (128, 40)])
+@pytest.mark.parametrize("cin, cout", [(96, 96), (64, 96), (32, 32),
+                                       (128, 129)])
 def test_fused_block_kernel_refuses_widths(gen, cin, cout):
     """Widths that no route takes raise ValueError before any launch."""
     x = torch.randn((256, cin), generator=gen, device="cuda").to(
@@ -270,7 +279,8 @@ def test_global_pool_kernel_refuses_widths(gen, cin, cout):
 # (classes, rows): the last case is ragged (no multiple of a block's rows)
 # with a run of padded rows
 @pytest.mark.parametrize("classes, n", [(4, 8192), (13, 8192), (32, 4096),
-                                        (4, 5003)])
+                                        (4, 5003), (40, 8192), (100, 4096),
+                                        (128, 5003)])
 def test_seg4_ce_kernel(gen, classes, n):
     cin = 128
     x = torch.randn((n, cin), generator=gen, device="cuda").to(
@@ -300,3 +310,67 @@ def test_seg4_ce_kernel(gen, classes, n):
             _close_bf16(a, r, "dx")
         else:
             _close_sum(a, r, f"grad {tuple(leaf.shape)}")
+
+
+# the conv biases that a train-mode BN follows: gradient 0 up to rounding
+ZERO_GRAD = {f"{n}.bias" for n in ("conv1", "conv2", "conv3", "conv4",
+                                   "conv5", "global_feat", "seg_conv1",
+                                   "seg_conv2", "seg_conv3")}
+
+
+# (classes, input_dim): the widths the JAX fused chain trains beyond the
+# bench's, 40 classes (rows 15 and 17 past 32 classes) and 20 input
+# features (conv1 on K chunks)
+@pytest.mark.parametrize("classes, input_dim", [(40, 4), (4, 20)])
+def test_fused_pointnet_step_at_new_widths(gen, classes, input_dim):
+    """One fused train step of PointNetSeg through the kernels (8 + 8
+    fused_block launches, 1 + 1 of the classifier + CE) against the same
+    step on the plain versions: the loss to 2^-8, each gradient within 3x
+    the plain chain's own distance from the same step in f32 (the
+    train-mode BN backward amplifies one-ulp bf16 flips; phase 5 of
+    chip_smoke.py holds the bench step so), except the biases that a BN
+    follows (0 up to rounding)."""
+    from pcseg_tpu_torch.models.pointnet import PointNetSeg, pointnet_apply
+    from pcseg_tpu_torch.ops.losses import cross_entropy_sums
+
+    b_, m_ = 4, 1024
+    pts = torch.randn((b_, m_, input_dim), generator=gen, device="cuda")
+    labels = torch.randint(0, classes, (b_, m_), generator=gen,
+                           device="cuda")
+    labels[1, 700:] = -1
+    pts[1, 700:] = 0.0
+    cw = torch.rand(classes, generator=gen, device="cuda") + 0.5
+    model = PointNetSeg(classes, input_dim=input_dim, dropout=0.0,
+                        bn_stats="fused", compute_dtype="bfloat16",
+                        generator=torch.Generator().manual_seed(1)).cuda()
+
+    def step(plain):
+        model.zero_grad(set_to_none=True)
+        (num, den, _), _ = model.fused_train_loss(pts, labels, cw,
+                                                  seeds=(0, 0), plain=plain)
+        (num / den).backward()
+        return float(num / den), {n: p.grad.clone()
+                                  for n, p in model.named_parameters()}
+
+    fb.reset_launches()
+    fc.reset_launches()
+    lk, gk = step(False)
+    assert fb.LAUNCHES == {"fused_block": 8, "fused_block_bwd": 8}
+    assert fc.LAUNCHES == {"fused_seg4_ce": 1, "fused_seg4_ce_bwd": 1}
+    lp, gp = step(True)
+    model.zero_grad(set_to_none=True)
+    logits, _ = pointnet_apply(model.params(), model.batch_stats(), pts,
+                               train=True, seeds=(0, 0), dropout_rate=0.0,
+                               compute_dtype=torch.float32,
+                               fast_bn_stats=True, plain=True)
+    num, den = cross_entropy_sums(logits, labels, cw)
+    (num / den).backward()
+    gf = {n: p.grad.clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    assert abs(lk - lp) <= 2.0 ** -8 * abs(lp)
+    for n in gp:
+        assert bool(torch.isfinite(gk[n]).all()), n
+        if n in ZERO_GRAD:
+            continue
+        own = float((gp[n] - gf[n]).norm())
+        assert float((gk[n] - gp[n]).norm()) <= 3.0 * own + 1e-6, n

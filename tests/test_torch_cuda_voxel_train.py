@@ -161,6 +161,129 @@ def test_up2x_bwd_other_widths_take_the_cuda_core_kernels(gen):
         _sum_close(a, r)
 
 
+def _same_bits(got, again):
+    return all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, again))
+
+
+# (B, grid, C, variant): row 2's shapes on the B8 x 8192 voxel step's path
+# (the five variants' three kinds at 64^3 x 16 and 32^3 x 32, "act" at
+# 16^3 x 64), C 8 (m16n8k8), the stem's variant without the activation,
+# non-cubic grids (planes in ranges of unequal length; the other W of
+# each width: 64 channels at W 32, 8 at W 64, 16 at W 32)
+DGRAD_CASES = [
+    (8, (64, 64, 64), 16, "act"), (8, (64, 64, 64), 16, "accum"),
+    (8, (64, 64, 64), 16, "no-stats"), (8, (32, 32, 32), 32, "act"),
+    (8, (32, 32, 32), 32, "accum"), (8, (32, 32, 32), 32, "no-stats"),
+    (8, (16, 16, 16), 64, "act"), (2, (8, 16, 16), 8, "act"),
+    (2, (16, 16, 16), 16, "stem"), (1, (7, 8, 32), 32, "accum"),
+    (2, (6, 8, 32), 64, "accum"), (2, (5, 8, 64), 8, "no-stats"),
+    (2, (9, 16, 32), 16, "act"),
+]
+
+
+@pytest.mark.parametrize("b,dhw,c,case", DGRAD_CASES,
+                         ids=lambda v: str(v).replace(" ", ""))
+def test_conv3x3_dgrad_mma_kernel(gen, b, dhw, c, case):
+    """csrc/conv3d_dgrad.cu's implicit GEMM against the plain version, and
+    bit for bit the same in a second call (dx, dstats, g')."""
+    x = _rand(gen, b, *dhw, c).to(torch.bfloat16)
+    _, w, bias, scale, shift = _inputs(gen, b, 2, c, c, 3)
+    activate = case != "stem"
+    y, _ = cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift,
+                                  activate=activate)
+    gy, gstats = _cotangents(gen, y.shape)
+    if case == "no-stats":
+        y = gstats = None
+    want_gadj = case == "accum"
+    args = (gy, y, gstats, x, w, scale, shift, activate, want_gadj)
+    before = dict(cb.LAUNCHES)
+    got = cb.conv3x3_dgrad_cuda(*args)
+    again = cb.conv3x3_dgrad_cuda(*args)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["conv3x3_dgrad_mma"] == before["conv3x3_dgrad_mma"] + 2
+    assert cb.LAUNCHES["conv3x3_dgrad"] == before["conv3x3_dgrad"] + 2
+    ref = cb.conv3x3_dgrad_plain(*args)
+    _bf16_close(got[0], ref[0])
+    if activate:
+        _sum_close(got[1], ref[1])
+    else:
+        assert got[1] is None
+    if want_gadj:
+        assert torch.equal(got[2], ref[2])
+    assert _same_bits(got, again)
+
+
+def test_conv3x3_dgrad_other_widths_take_the_direct_kernel(gen):
+    """W = 8 (here 8^3 x 32, the 8^3 level of a 16^3 model) keeps
+    conv3d_block.cu's conv_kernel, a route declared by shape."""
+    x, w, bias, scale, shift = _inputs(gen, 2, 8, 32, 32, 3)
+    y, _ = cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift)
+    gy, gstats = _cotangents(gen, y.shape)
+    args = (gy, y, gstats, x, w, scale, shift, True, True)
+    before = dict(cb.LAUNCHES)
+    got = cb.conv3x3_dgrad_cuda(*args)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["conv3x3_dgrad_mma"] == before["conv3x3_dgrad_mma"]
+    assert cb.LAUNCHES["conv3x3_dgrad"] == before["conv3x3_dgrad"] + 1
+    ref = cb.conv3x3_dgrad_plain(*args)
+    _bf16_close(got[0], ref[0])
+    _sum_close(got[1], ref[1])
+    assert torch.equal(got[2], ref[2])
+
+
+# (B, fine grid, C, stats): row 5's two shapes on the voxel step's path
+# (64^3 x 16 -> 32^3 x 32, 32^3 x 32 -> 16^3 x 64), C 8 and C 64 (four
+# column slices), without the stats cotangent, and a ragged last tile
+DOWN_CASES = [
+    (8, (64, 64, 64), 16, True), (8, (32, 32, 32), 32, True),
+    (2, (8, 8, 16), 8, True), (2, (8, 8, 8), 64, True),
+    (2, (16, 16, 16), 16, False), (1, (6, 10, 24), 16, True),
+]
+
+
+@pytest.mark.parametrize("b,dhw,c,stats", DOWN_CASES,
+                         ids=lambda v: str(v).replace(" ", ""))
+def test_down2x_bwd_mma_kernel(gen, b, dhw, c, stats):
+    """csrc/resample.cu's one-sweep down2x backward against the plain
+    version, and bit for bit the same in a second call."""
+    x = _rand(gen, b, *dhw, c).to(torch.bfloat16)
+    _, w, bias, scale, shift = _inputs(gen, b, 2, c, 2 * c, 2)
+    y, _ = cb.down2x_gn_act_cuda(x, w, bias, scale, shift)
+    gy, gstats = _cotangents(gen, y.shape)
+    if not stats:
+        y = gstats = None
+    before = dict(cb.LAUNCHES)
+    got = cb.down2x_bwd_cuda(x, w, scale, shift, gy, y, gstats)
+    again = cb.down2x_bwd_cuda(x, w, scale, shift, gy, y, gstats)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["down2x_bwd_mma"] == before["down2x_bwd_mma"] + 2
+    assert cb.LAUNCHES["down2x_bwd"] == before["down2x_bwd"] + 2
+    ref = cb.down2x_bwd_plain(x, w, scale, shift, gy, y, gstats)
+    _bf16_close(got[0], ref[0])
+    for a, r in zip(got[1:], ref[1:]):
+        _sum_close(a, r)
+    assert _same_bits(got, again)
+
+
+def test_down2x_bwd_other_widths_take_the_cuda_core_kernels(gen):
+    """C2 != 2C (here 16 fine channels to 16 coarse ones) keeps
+    conv3d_block.cu's dgrad and wgrad kernels, a route declared by
+    shape."""
+    x, w, bias, scale, shift = _inputs(gen, 2, 8, 16, 16, 2)
+    y, _ = cb.down2x_gn_act_cuda(x, w, bias, scale, shift)
+    gy, gstats = _cotangents(gen, y.shape)
+    before = dict(cb.LAUNCHES)
+    got = cb.down2x_bwd_cuda(x, w, scale, shift, gy, y, gstats)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["down2x_bwd_mma"] == before["down2x_bwd_mma"]
+    assert cb.LAUNCHES["down2x_bwd"] == before["down2x_bwd"] + 1
+    ref = cb.down2x_bwd_plain(x, w, scale, shift, gy, y, gstats)
+    _bf16_close(got[0], ref[0])
+    for a, r in zip(got[1:], ref[1:]):
+        _sum_close(a, r)
+
+
 def test_trilinear_scatter_kernel(gen):
     b, m, r, c = 2, 3000, 16, 4
     u = torch.rand((b, m, 3), generator=gen, device="cuda") * (r + 1) - 1
@@ -198,12 +321,15 @@ def test_train_step_through_the_kernels(gen):
     vx.reset_launches()
     gk = grads(False)
     torch.cuda.synchronize()
+    # grid 16: the five level-0 dgrads take the implicit GEMM (W 16), the
+    # 8^3 and 4^3 ones the direct kernel
     assert cb.LAUNCHES == {"conv3x3_gn_act": 13, "down2x_gn_act": 2,
                            "up2x_gn_act": 2, "conv3x3_dgrad": 12,
                            "conv3x3_wgrad": 13, "down2x_bwd": 2,
                            "up2x_bwd": 2, "head_grid2": 0,
                            "head_grid2_bwd": 0, "down2x_mma": 2,
-                           "up2x_bwd_mma": 2}
+                           "up2x_bwd_mma": 2, "down2x_bwd_mma": 2,
+                           "conv3x3_dgrad_mma": 5}
     assert vx.LAUNCHES == {"voxelize_contract": 0, "trilinear_gather": 0,
                            "trilinear_scatter": 1}
     gp = grads(True)

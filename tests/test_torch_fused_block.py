@@ -179,14 +179,15 @@ def test_fused_block_dropout_masks_forward_and_backward():
 @pytest.mark.parametrize("cin, cout, route", [
     (4, 64, "simt"), (3, 256, "simt"), (128, 4, "narrow"), (128, 32, "narrow"),
     (64, 64, "wgmma"), (128, 1024, "wgmma"), (512, 256, "wgmma"),
-    (1088 - 1024, 512, "wgmma")])
+    (1088 - 1024, 512, "wgmma"), (20, 64, "simt"), (96, 128, "simt"),
+    (128, 40, "narrow"), (128, 128, "wgmma")])
 def test_route_of_takes_every_pointnet_width(cin, cout, route):
     assert fb.route_of(cin, cout) == route
 
 
 @pytest.mark.parametrize("direction", ["forward", "backward"])
-@pytest.mark.parametrize("cin, cout", [(96, 64), (32, 64), (128, 40),
-                                       (4, 96), (2048, 64)])
+@pytest.mark.parametrize("cin, cout", [(96, 96), (32, 32), (128, 129),
+                                       (4, 96), (2048, 1000)])
 def test_card_width_check_raises_before_the_library_loads(
         monkeypatch, direction, cin, cout):
     """A width no route takes raises ValueError in the card wrappers before

@@ -109,11 +109,12 @@ def test_fused_seg4_ce_is_the_loss_contract():
     assert float(cor) == float(((pred == labels) & (labels >= 0)).sum())
 
 
-@pytest.mark.parametrize("cin, classes", [(64, 4), (128, 33), (256, 4)])
+@pytest.mark.parametrize("cin, classes", [(64, 4), (128, 129), (256, 4)])
 def test_card_width_check_raises_before_the_library_loads(monkeypatch, cin,
                                                           classes):
-    """Cin other than 128 or more than 32 classes raise ValueError in the
-    card wrappers before the kernel library is built or loaded."""
+    """Cin other than 128 or more than 128 classes (the JAX kernel's
+    LANES) raise ValueError in the card wrappers before the kernel library
+    is built or loaded."""
     def no_library(name):
         raise AssertionError(f"library {name} loaded")
 

@@ -46,6 +46,15 @@ NS = "void (anonymous namespace)::"
      "seg4_ce"),
     ("(anonymous namespace)::ce_seg4_bwd_mma_kernel((anonymous namespace)::"
      "NarrowArgs)", "seg4_ce"),
+    # past 32 classes: the wide tile kernels of rows 15 and 17
+    (NS + "chain_wide_fwd_kernel<64>((anonymous namespace)::NarrowArgs)",
+     "pointnet_block"),
+    (NS + "chain_wide_bwd_kernel<128>((anonymous namespace)::NarrowArgs)",
+     "pointnet_block_bwd"),
+    (NS + "ce_seg4_wide_fwd_kernel<64>((anonymous namespace)::NarrowArgs)",
+     "seg4_ce"),
+    (NS + "ce_seg4_wide_bwd_kernel<64>((anonymous namespace)::NarrowArgs)",
+     "seg4_ce"),
     (NS + "dropout_kernel<float>(float const*, float*)", "dropout"),
     # row 19's pool and PyTorch's own kernels are not PointNet stages
     (NS + "pool_fwd_kernel<__nv_bfloat16, 8>(__nv_bfloat16 const*)", "glue"),
@@ -60,13 +69,15 @@ def test_pointnet_kernels_have_their_stage(name, stage):
 @pytest.mark.parametrize("name", [
     NS + "down2x_mma_kernel<16>((anonymous namespace)::DownArgs)",
     NS + "up2x_bwd_mma_kernel<16, 32>((anonymous namespace)::UpBwdArgs)",
-    "(anonymous namespace)::fixed_sum_kernel(float const*, float*, int, "
-    "long long)",
+    NS + "down2x_bwd_mma_kernel<16, 1>((anonymous namespace)::"
+    "DownBwdArgs)",
+    NS + "dgrad_mma_kernel<16>((anonymous namespace)::DgradArgs)",
+    "mma_sync::fixed_sum_kernel(float const*, float*, int, long long)",
 ])
 def test_resample_kernels_are_conv_stage(name):
-    """csrc/resample.cu's kernels (rows 4 and 7 and their fixed-order
-    sums) book under the voxel U-Net's conv stage, as the kernels they
-    took over from did."""
+    """csrc/resample.cu's and csrc/conv3d_dgrad.cu's kernels (rows 4, 5,
+    7 and 2 and their fixed-order sums) book under the voxel U-Net's conv
+    stage, as the kernels they took over from did."""
     assert stage_of(name) == "conv"
 
 

@@ -1,12 +1,14 @@
 """The operand layout of csrc/resample.cu's gathered tensor-core kernels
-(the down block's forward, the up block's backward), on the CPU.
+(the down block's forward and backward, the up block's backward), on the
+CPU.
 
-``gather_rows``, ``pack_down_w`` and ``pack_up_wt`` state the layout
-the kernels compute by index: each is checked element by element, and
-the gathered GEMMs built from them (the kernels' products, with the
-plain versions' rounding points) against the plain versions and the JAX
-package's Pallas kernels (``fused_down2x_p``, the VJP of
-``fused_up2x_p``) in interpret mode, on the same numpy-seeded inputs.
+``gather_rows``, ``ungather_rows``, ``pack_down_w`` and ``pack_up_wt``
+state the layout the kernels compute by index: each is checked element
+by element, and the gathered GEMMs built from them (the kernels'
+products, with the plain versions' rounding points) against the plain
+versions and the JAX package's Pallas kernels (``fused_down2x_p`` and
+its VJP, the VJP of ``fused_up2x_p``) in interpret mode, on the same
+numpy-seeded inputs.
 
 Tolerances: every side rounds the activated input, g' and the weights to
 bf16 at the same points and sums the products in f32 in another order.
@@ -95,6 +97,20 @@ def up2x_bwd_gathered(x, w, scale, shift, gy, y, gstats):
             ge.sum(dim=(0, 1, 2, 3)))
 
 
+def down2x_bwd_gathered(x, w, scale, shift, gy, y, gstats):
+    """The down block's backward as the one-sweep kernel's GEMMs, the
+    transposed pair of the forward's: G = bf16(g') on the coarse grid, dx
+    from ungather_rows(G @ Wd^T) and dW = gather_rows(a)^T @ G, with Wd =
+    pack_down_w(w) and a = bf16(relu(x scale + shift))."""
+    ge = tcb._gprime(gy, y, gstats, "updown")
+    g = ge.to(torch.bfloat16).float()
+    da = tcb.ungather_rows(g @ tcb._wq(tcb.pack_down_w(w)).t())
+    dx, dstats = tcb._act_grad(da, x, scale, shift, True)
+    a = tcb.gather_rows(tcb._prologue(x, scale, shift, True))
+    dw = a.reshape(-1, a.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+    return dx, dstats, dw.reshape(w.shape), ge.sum(dim=(0, 1, 2, 3))
+
+
 def _grid_inputs(rng, b, dhw, cin, cout):
     x = _bf16(rng.normal(size=(b, *dhw, cin)))
     bound = np.sqrt(6.0 / (8 * cin))
@@ -130,6 +146,14 @@ def test_layout_helpers_index_by_index(c):
                 assert torch.equal(wd[ks], w_down[dz, dy, dx])
                 assert torch.equal(wt[ks], w_up[1 - dz, 1 - dy, 1 - dx].t())
     assert torch.equal(unpack_up_dw(wt, c), w_up)
+    # ungather_rows puts each row element back where gather_rows took it;
+    # the backward's four column slices at C = 64 (resample.cu
+    # down_bwd_slices) are the fine pairs (dz, dy), 2C columns each
+    assert torch.equal(tcb.ungather_rows(rows), t)
+    for z in range(4):
+        dz, dy = divmod(z, 2)
+        assert torch.equal(rows[..., 2 * c * z:2 * c * (z + 1)].reshape(
+            2, 2, 3, 4, 2, c), t[:, dz::2, dy::2].reshape(2, 2, 3, 4, 2, c))
 
 
 @pytest.mark.parametrize("c,dhw", SHAPES)
@@ -195,6 +219,51 @@ def test_gathered_up2x_bwd_matches_plain_and_jax_vjp(c, dhw):
     assert got[2].shape == (2, 2, 2, 2 * c, c)
 
 
+@pytest.mark.parametrize("c,dhw", SHAPES)
+@pytest.mark.parametrize("stats", [True, False])
+def test_gathered_down2x_bwd_matches_plain_and_jax_vjp(c, dhw, stats):
+    """Row 5's sweep: dx, dscale/dshift, dW and dbias of the down block,
+    with and without the stats cotangent (y unread without it)."""
+    rng = np.random.default_rng(60 + c)
+    b = 2
+    coarse = tuple(n // 2 for n in dhw)
+    x, w, bias, scale, shift = _grid_inputs(rng, b, dhw, c, 2 * c)
+    gy = _bf16(rng.normal(size=(b, *coarse, 2 * c)))
+    gstats = np.stack([rng.normal(size=(b, 2 * c)) * 1e-2,
+                       rng.normal(size=(b, 2 * c)) * 1e-3],
+                      axis=1).astype(np.float32)
+    if not stats:
+        gstats[:] = 0.0
+
+    xp, meta = jcb.pack_grid(jnp.asarray(x, jnp.bfloat16))
+    gyp, _ = jcb.pack_grid(jnp.asarray(gy, jnp.bfloat16))
+
+    def f(*a):
+        yp, _, st = jcb.fused_down2x_p(*a, meta, True)
+        return yp, st
+
+    _, vjp = jax.vjp(f, xp, jnp.asarray(w), jnp.asarray(bias),
+                     _lanes(scale, c), _lanes(shift, c))
+    dxp, dw_j, db_j, dsc_j, dsh_j = vjp((gyp, _lanes(gstats, 2 * c)))
+    jax_ref = (jcb.unpack_grid(dxp, *dhw[1:], c),
+               np.stack([_fold_lanes(dsc_j, c), _fold_lanes(dsh_j, c)],
+                        axis=1), dw_j, db_j)
+
+    tx = _t(x, torch.bfloat16)
+    y, _ = tcb.down2x_gn_act_plain(tx, _t(w), _t(bias), _t(scale),
+                                   _t(shift))
+    args = (tx, _t(w), _t(scale), _t(shift), _t(gy, torch.bfloat16),
+            y if stats else None, _t(gstats) if stats else None)
+    got = down2x_bwd_gathered(*args)
+    plain = tcb.down2x_bwd_plain(*args)
+    names = ("dx", "dscale/dshift", "dW", "dbias")
+    for ref, label in ((jax_ref, "jax"), (plain, "plain")):
+        _bf16_close(got[0], ref[0], f"dx vs {label}")
+        for name, a, r in zip(names[1:], got[1:], ref[1:]):
+            _sum_close(a, r, f"{name} vs {label}")
+    assert got[0].shape == x.shape and got[2].shape == (2, 2, 2, c, 2 * c)
+
+
 @pytest.mark.parametrize("c,c2,route", [(4, 8, False), (8, 16, True),
                                         (16, 32, True), (32, 64, True),
                                         (64, 128, True), (128, 256, False),
@@ -212,3 +281,43 @@ def test_mma_route_needs_16_byte_aligned_grids():
     shifted = base[1:-7].view(2, 4, 4, 8, 16)
     assert tcb._mma_route(16, 32, x)
     assert not tcb._mma_route(16, 32, shifted)
+
+
+class _FakeLibrary:
+    """Records the entries a wrapper calls; every entry succeeds."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("c2,entry", [(32, "pcseg_down2x_bwd_mma"),
+                                      (16, "pcseg_down2x_bwd")])
+def test_down2x_bwd_launches_the_kernel_its_route_names(monkeypatch, c2,
+                                                        entry):
+    """down2x_bwd_cuda launches resample.cu's sweep exactly where
+    ``_mma_route`` takes the shape (C 16 -> 32), else conv3d_block.cu's
+    pair (16 -> 16), and counts the launch under its keys."""
+    calls = []
+    monkeypatch.setattr(tcb, "load_library",
+                        lambda name=None: _FakeLibrary(calls))
+    monkeypatch.setattr(tcb, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tcb, "_mma_grid", lambda *a: 1)
+    monkeypatch.setattr(tcb, "_down_bwd_slices", lambda c: 1)
+    c = 16
+    x = torch.zeros(2, 4, 4, 8, c, dtype=torch.bfloat16)
+    w = torch.zeros(2, 2, 2, c, c2)
+    vec = torch.ones(2, c)
+    gy = torch.zeros(2, 2, 2, 4, c2, dtype=torch.bfloat16)
+    gstats = torch.zeros(2, 2, c2)
+    before = dict(tcb.LAUNCHES)
+    tcb.down2x_bwd_cuda(x, w, vec, vec, gy, gy.clone(), gstats)
+    assert calls == [entry]
+    mma = int(entry.endswith("_mma"))
+    assert tcb.LAUNCHES["down2x_bwd"] == before["down2x_bwd"] + 1
+    assert tcb.LAUNCHES["down2x_bwd_mma"] == before["down2x_bwd_mma"] + mma
