@@ -6,16 +6,20 @@
 1. Builds the CUDA kernels from pcseg_tpu_torch/csrc/ (nvcc, sm_90a, one
    process per source, all at once), then prints ptxas's registers, shared
    memory and spills of the tensor-core libraries (pointnet_wgmma.cu, row
-   16; pointnet_chain.cu, rows 15 and 17; resample.cu, rows 4, 7 and 5;
-   conv3d_dgrad.cu, row 2) and the HGMMA (wgmma) or HMMA (mma.sync)
-   instructions in each of their tensor-core kernels' SASS (cuobjdump),
-   failing if one has none.
+   16; pointnet_chain.cu, rows 15 and 17; resample.cu, rows 4, 6, 7 and
+   5; conv3d_dgrad.cu, rows 1 and 2) and the HGMMA (wgmma) or HMMA
+   (mma.sync) instructions in each of their tensor-core kernels' SASS
+   (cuobjdump), failing if one has none.
 2. Holds each conv kernel against its plain PyTorch version at every
    shape the voxel serving path launches (batch 8, 64^3 grid, widths
    16/32/64), and times kernel, plain version and one cuDNN call of the
    same convolution (a yardstick only: the port never calls it); the
-   down block (resample.cu) also by device time, its cuDNN call too, and
-   two calls on the same inputs held bit for bit.
+   tensor-core kernels (the 3^3 conv, conv3d_dgrad.cu; the down and up
+   blocks, resample.cu) also by device time, their cuDNN calls too, and
+   two calls on the same inputs held bit for bit; every launch asserts
+   the route it took; and one shape each off the 3^3 conv's and the up
+   block's tensor-core routes (B8 8^3 x 32 with accum; B2 8^3 x 256 ->
+   16^3 x 128), which keep conv3d_block.cu's CUDA-core kernels.
 3. Serves the voxel U-Net at full width (64^3, w16, 3 levels, 4 classes,
    bf16, scatter voxelize, gather devoxelize, seeded random weights)
    through Predictor.predict_batch (16 events, 4000-8192 points: two
@@ -62,10 +66,11 @@
    conv3d_block.cu: held the same way, with the tensor-core launch
    counts unmoved.
 8. One whole voxel U-Net train step (seeded random weights, one batch of
-   synthetic events) with the kernels, with the plain versions, and in f32
+   synthetic events) with the kernels (each kernel of the path launched
+   as often as in a step of api.fit), with the plain versions, and in f32
    on the plain core: loss and gradients; and the kernel step again from
    the same weights and batch, whose loss difference is the run-to-run
-   floor the kernels' atomics leave.
+   floor the float atomics left on the path leave.
 9. Trains the voxel U-Net through api.fit (bucket 8192, batch 8, 3 train
    steps and one eval batch per epoch, 2 epochs): launch counts per step,
    finite losses, ms per step, points/s, peak memory; then serves the
@@ -172,15 +177,19 @@ REPLACES = {
     "up2x_gn_act": "pcseg_tpu/ops/pallas/conv3d_block.py:1403",
 }
 PER_FORWARD = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
-               "down2x_mma": 2}
-# rows 4 and 7's kernels in csrc/resample.cu, by the op key they count
-# under and their own launch key
+               "conv3x3_mma": 13, "down2x_mma": 2, "up2x_mma": 2}
+# rows 4, 6, 7 and 5's kernels: the gathered GEMMs
 RESAMPLE_SOURCE = "pcseg_tpu_torch/csrc/resample.cu"
-# row 2's implicit GEMM
+# rows 1 and 2's implicit GEMM
 DGRAD_SOURCE = "pcseg_tpu_torch/csrc/conv3d_dgrad.cu"
-# the tensor-core kernels (rows 4, 7, 5, 2) by the op key they count under
-# and their own launch key
-MMA_KEY = {"down2x_gn_act": "down2x_mma", "up2x_bwd": "up2x_bwd_mma",
+# the serving rows' sources: the tensor-core kernels their main shapes take
+FWD_SOURCES = {"conv3x3_gn_act": DGRAD_SOURCE,
+               "down2x_gn_act": RESAMPLE_SOURCE,
+               "up2x_gn_act": RESAMPLE_SOURCE}
+# the tensor-core kernels (rows 1, 4, 6, 7, 5, 2) by the op key they count
+# under and their own launch key
+MMA_KEY = {"conv3x3_gn_act": "conv3x3_mma", "down2x_gn_act": "down2x_mma",
+           "up2x_gn_act": "up2x_mma", "up2x_bwd": "up2x_bwd_mma",
            "down2x_bwd": "down2x_bwd_mma",
            "conv3x3_dgrad": "conv3x3_dgrad_mma"}
 # the default configuration (voxelize_impl / devox_impl "auto" -> the
@@ -191,8 +200,9 @@ DEFAULT_PER_FORWARD = dict(PER_FORWARD, voxelize_contract=1, head_grid2=1,
 # y is bf16 from f32 sums taken in another order, so an element may round
 # to the neighbouring bf16 value: |dy| <= 2^-7 |y| + 1e-4 max|y|.
 Y_RTOL, Y_ATOL_REL = 2.0 ** -7, 1e-4
-# stats are f32 sums of 10^5-10^6 terms in another order (and with
-# atomics): |ds| <= 1e-3 of the largest |s| of its (batch, sum|sumsq) row.
+# stats are f32 sums of 10^5-10^6 terms in another order (and, off the
+# tensor-core routes, with atomics): |ds| <= 1e-3 of the largest |s| of
+# its (batch, sum|sumsq) row.
 STATS_TOL = 1e-3
 # end-to-end logits: a one-ulp bf16 flip (2^-8 relative) in an early
 # layer's y propagates through the 17 layers after it, so the logits are
@@ -264,7 +274,7 @@ PN_ZERO_GRAD = {f"{n}.bias" for n in ("conv1", "conv2", "conv3", "conv4",
 
 
 # the tensor-core kernels by source, with their SASS opcode: wgmma (rows
-# 16 and 15) or mma.sync (rows 4 and 7)
+# 16 and 15) or mma.sync (rows 1, 2, 4, 5, 6 and 7)
 WGMMA_SOURCES = {
     "pointnet_wgmma": ("HGMMA", ("gp_wgmma_fwd_kernel", "gp_wgmma_dx_kernel",
                                  "gp_wgmma_dw_kernel")),
@@ -272,9 +282,9 @@ WGMMA_SOURCES = {
                                  "chain_wgmma_bwd_kernel",
                                  "chain_wgmma_dx_kernel",
                                  "chain_wgmma_dw_kernel")),
-    "resample": ("HMMA", ("down2x_mma_kernel", "up2x_bwd_mma_kernel",
-                          "down2x_bwd_mma_kernel")),
-    "conv3d_dgrad": ("HMMA", ("dgrad_mma_kernel",)),
+    "resample": ("HMMA", ("down2x_mma_kernel", "up2x_mma_kernel",
+                          "up2x_bwd_mma_kernel", "down2x_bwd_mma_kernel")),
+    "conv3d_dgrad": ("HMMA", ("conv3x3_mma_kernel", "dgrad_mma_kernel")),
 }
 
 
@@ -378,6 +388,13 @@ def kernel_cases():
     cases.append(("down2x_gn_act", "act", 8, 32, 32, 64, {}))
     cases.append(("up2x_gn_act", "act", 8, 16, 64, 32, {}))
     cases.append(("up2x_gn_act", "act", 8, 32, 32, 16, {}))
+    # off the tensor-core routes (ops/conv3d_block.py _conv_route,
+    # _mma_route): W = 8, and a width-64 U-Net's C = 128 with its coarse
+    # 256
+    cases.append(("conv3x3_gn_act", "act+accum off-route", 8, 8, 32, 32,
+                  {"accum": True, "off_route": True}))
+    cases.append(("up2x_gn_act", "act off-route", 2, 8, 256, 128,
+                  {"off_route": True}))
     return cases
 
 
@@ -447,8 +464,11 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
             return F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), wl, stride=2)
         taps = 1
 
+    off_route = bool(kw.get("off_route"))
+    before = launch_counts()
     y_k, st_k = run()
     torch.cuda.synchronize()
+    _route_taken(kernel, before, off_route)
     y_p, st_p = plain()
     yk, yp = y_k.float(), y_p.float()
     if y_k.shape != y_p.shape or not torch.isfinite(yk).all():
@@ -471,7 +491,7 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
     plain_ms = time_ms(plain)
     library_ms = time_ms(library)
     mma = {}
-    if kernel in MMA_KEY:
+    if not off_route:
         mma = _mma_report(run, library, (y_k, st_k))
     nbytes = (x.numel() * 2 + w.numel() * 2 + cout * 4 + y_k.numel() * 2
               + (2 * b * cin * 4 if activate else 0)
@@ -505,7 +525,7 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
 
 
 def _mma_report(run, library, first) -> dict:
-    """Rows 4, 7, 5 and 2 (csrc/resample.cu, csrc/conv3d_dgrad.cu): the
+    """Rows 1, 2, 4, 5, 6 and 7 (csrc/resample.cu, csrc/conv3d_dgrad.cu): the
     op's kernels and the library call by device time, and whether a
     second call on the same inputs gives the same bits as ``first``
     (raises if not: their sums take a fixed order)."""
@@ -1260,11 +1280,9 @@ VOX_REPLACES = {
 # wrapper launches per train step on the main path, as the JAX structure
 # has them: 13 3^3 convs, of which the stem (input = data) runs no dgrad;
 # levels-1 down and up blocks; one devoxelize backward
-VOX_PER_STEP = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
-                "conv3x3_dgrad": 12, "conv3x3_wgrad": 13, "down2x_bwd": 2,
-                "up2x_bwd": 2, "trilinear_scatter": 1, "down2x_mma": 2,
-                "up2x_bwd_mma": 2, "down2x_bwd_mma": 2,
-                "conv3x3_dgrad_mma": 12}
+VOX_PER_STEP = dict(PER_FORWARD, conv3x3_dgrad=12, conv3x3_wgrad=13,
+                    down2x_bwd=2, up2x_bwd=2, trilinear_scatter=1,
+                    up2x_bwd_mma=2, down2x_bwd_mma=2, conv3x3_dgrad_mma=12)
 # the voxel backward rows' sources
 VOX_SOURCES = {"conv3x3_dgrad": DGRAD_SOURCE, "conv3x3_wgrad": SOURCE,
                "down2x_bwd": RESAMPLE_SOURCE, "up2x_bwd": RESAMPLE_SOURCE,
@@ -1279,18 +1297,21 @@ DEFAULT_PER_STEP = dict(VOX_PER_STEP, voxelize_contract=1, head_grid2=1,
 # the same step in f32 (the train-mode GroupNorm backward amplifies
 # one-ulp bf16 flips, as the BN backward does in phase 5), except the conv
 # biases that a GroupNorm follows, whose gradient is 0 up to rounding
-# (reported, not held). The loss moves from run to run with the order of
-# the float atomics left in the forward's stats (rows 1 and 6): over 20
-# readings of --step-spread 20 on an H100 80GB HBM3 at 700 W, kernels vs
-# plain 2.0e-6 to 1.23e-4 (median 5.4e-5) and the same kernel step twice
-# 9.3e-6 to 1.33e-4 (median 4.5e-5), the same spread; held to 3x the
-# largest kernels-vs-plain reading, as phases 12 and 16 are
-VOX_LOSS_REL, VOX_KERNEL_COS, VOX_GRAD_RATIO = 3.7e-4, 0.998, 3.0
+# (reported, not held). The voxel forward's conv kernels sum in a fixed
+# order (rows 1, 4 and 6 since PR 12), so the loss moves only with the
+# scatter voxelizer's index_add_ (float atomics, in the kernel step and the
+# plain one alike): over 20 readings of --step-spread 20 on an H100 80GB
+# HBM3 at 700 W, kernels vs plain 5.965e-5 (16) or 2.932e-5 (4), the same
+# kernel step twice 0 (15) or 3.03e-5 (5); held to 3x the largest
+# kernels-vs-plain reading, as phases 12 and 16 are (3.7e-4 before, from
+# the forward's stats atomics)
+VOX_LOSS_REL, VOX_KERNEL_COS, VOX_GRAD_RATIO = 1.8e-4, 0.998, 3.0
 # the default configuration's logits are bf16 (the fused head's grid2), so
-# a one-ulp flip of a voxel logit moves the loss: 7.6e-5 to 2.5e-4
-# relative over ten runs on one H100 (the stats atomics' order moves it
-# from run to run), held to 3x the largest
-DEFAULT_LOSS_REL = 7.5e-4
+# a one-ulp flip of a voxel logit moves the loss: 1.242e-4 relative in
+# each of 20 readings on the same card, the kernel step twice identical in
+# all 20 (its voxelize_contract atomics did not move it), held to 3x the
+# largest (7.5e-4 before)
+DEFAULT_LOSS_REL = 3.8e-4
 
 
 def vox_bwd_cases():
@@ -1309,7 +1330,7 @@ def vox_bwd_cases():
               ("down2x_bwd", "act", 32, 32, 64, {}),
               ("up2x_bwd", "act", 16, 64, 32, {}),
               ("up2x_bwd", "act", 32, 32, 16, {})]
-    # off the tensor-core routes (ops/conv3d_block.py _dgrad_route,
+    # off the tensor-core routes (ops/conv3d_block.py _conv_route,
     # _mma_route): W = 8, and C = 128 with its coarse 256
     cases += [("conv3x3", "accum off-route", 8, 32, 32,
                {"accum": True, "off_route": True}),
@@ -1601,10 +1622,20 @@ def vox_step_compare(card, default=False, hold=True):
     def grads(m):
         return {n: p.grad.clone() for n, p in m.named_parameters()}
 
+    reset_counts()
     lk = step(model, False)
     gk = grads(model)
-    # the same kernel step again: the run-to-run floor of the kernels'
-    # float atomics, beside the kernels-vs-plain reading
+    torch.cuda.synchronize()
+    # the kernel step went through every kernel of the path, as often as
+    # a step of api.fit does
+    launches = launch_counts()
+    per_step = DEFAULT_PER_STEP if default else VOX_PER_STEP
+    if launches != {k: per_step.get(k, 0) for k in launches}:
+        raise AssertionError(f"voxel train step: launch counts {launches} "
+                             f"!= {per_step}")
+    # the same kernel step again: the run-to-run floor of the float
+    # atomics left on the path (the scatter voxelizer's index_add_),
+    # beside the kernels-vs-plain reading
     lk2 = step(model, False)
     gk2 = grads(model)
     lp = step(model, True)
@@ -1649,7 +1680,11 @@ def vox_step_compare(card, default=False, hold=True):
            "grad_rel_err_plain_vs_f32_max_held": max(own[n] for n in ratio),
            "zero_grad_bias_rel_err_max": max(rel[n] for n in zero),
            "fwd_bwd_ms_kernels": ms_k, "fwd_bwd_ms_plain": ms_p,
-           "fwd_bwd_ms_f32_plain_core": ms_f, "card": card}
+           "fwd_bwd_ms_f32_plain_core": ms_f,
+           "launches": {k: v for k, v in launches.items() if v},
+           "card": card}
+    print(f"  forms {forms}: kernel step launches {res['launches']}",
+          flush=True)
     print(f"  forms {forms}: loss kernels {float(lk):.6f} plain "
           f"{float(lp):.6f} (rel "
           f"{loss_rel:.2e}, tol {loss_tol:.2e}), f32 {float(lf):.6f}, "
@@ -3242,8 +3277,7 @@ def main() -> int:
                    "default_fit": def_fit_launches[key],
                    "default_fit_serving": def_fit_serve[key]}
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": RESAMPLE_SOURCE if name in MMA_KEY else SOURCE,
+            "name": name, "route": "cuda", "source": FWD_SOURCES[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in mine),

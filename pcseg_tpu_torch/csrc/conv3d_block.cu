@@ -7,7 +7,10 @@
 //
 //   pcseg_conv3x3_gn_act  replaces pcseg_tpu/ops/pallas/conv3d_block.py
 //                         fused_conv3x3_p / fused_conv3x3_add_p (_kernel,
-//                         pallas_call at :429): 3^3 SAME conv, Cin -> Cout.
+//                         pallas_call at :429): 3^3 SAME conv, Cin -> Cout,
+//                         for the shapes csrc/conv3d_dgrad.cu's implicit
+//                         GEMM does not take (ops/conv3d_block.py's
+//                         _conv_route).
 //   pcseg_down2x_gn_act   replaces fused_down2x_p (_down2x_kernel,
 //                         pallas_call at :1318): k2 s2 conv, C -> Cout,
 //                         for the widths csrc/resample.cu's tensor-core
@@ -15,7 +18,9 @@
 //                         2C; ops/conv3d_block.py's _mma_route).
 //   pcseg_up2x_gn_act     replaces fused_up2x_p (_up2x_kernel,
 //                         pallas_call at :1403): k2 s2 transposed conv,
-//                         2C -> C, output 2i+d takes x[i] @ w[1-d] per axis.
+//                         2C -> C, output 2i+d takes x[i] @ w[1-d] per axis,
+//                         for the widths csrc/resample.cu's gathered GEMM
+//                         does not take (_mma_route).
 //
 // Backward (the custom VJPs of the same file):
 //
@@ -25,7 +30,7 @@
 //                         per (batch, channel), and the bf16 g' itself (the
 //                         accum gradient of the add variant), for the shapes
 //                         csrc/conv3d_dgrad.cu's implicit GEMM does not
-//                         take (ops/conv3d_block.py's _dgrad_route).
+//                         take (ops/conv3d_block.py's _conv_route).
 //   pcseg_conv3x3_wgrad   replaces _wgrad_pallas (_wgrad_kernel, pallas_call
 //                         at :648): dW (3,3,3,Cin,Cout) and dbias.
 //   pcseg_down2x_bwd      replaces the bwd of fused_down2x_p

@@ -1,35 +1,51 @@
-// The voxel U-Net's 3^3 dgrad on Hopper's tensor cores (sm_90a): an
-// implicit GEMM with fixed-order sums.
+// The voxel U-Net's 3^3 SAME conv, forward and dgrad, on Hopper's tensor
+// cores (sm_90a): one implicit GEMM with fixed-order sums.
 //
-//   pcseg_conv3x3_dgrad_mma  replaces pcseg_tpu/ops/pallas/conv3d_block.py
-//       _dgrad_pallas (_dgrad_kernel, pallas_call at :546): g' = bf16(gy +
-//       (gs1 + 2 gs2 y)) (gy itself without the stats cotangent), da =
-//       conv(g', flip(W)^T) with zero padding, dx = bf16([pre > 0] da
-//       scale) with pre = x scale + shift, dscale = sum dam x and dshift =
-//       sum dam per (batch, channel), and, with gadj, the bf16 g' of every
-//       voxel (the add variant's accum gradient). Without the activation
-//       dx = bf16(da) and there are no sums.
+//   pcseg_conv3x3_mma  replaces pcseg_tpu/ops/pallas/conv3d_block.py
+//       fused_conv3x3_p / fused_conv3x3_add_p (_kernel, pallas_call at
+//       :429): a = bf16(relu(x scale + shift)) computed in f32 without FMA
+//       contraction (x itself without the activation), zeros outside the
+//       grid (the padding of the activated input), v = conv(a, W) + bias
+//       (+ accum) with bf16 W and f32 sums, y = bf16(v) and, with the
+//       stats, the per-(batch, channel) (sum v, sum v^2) of the f32 v.
+//   pcseg_conv3x3_dgrad_mma  replaces _dgrad_pallas (_dgrad_kernel,
+//       pallas_call at :546): g' = bf16(gy + (gs1 + 2 gs2 y)) (gy itself
+//       without the stats cotangent), da = conv(g', flip(W)^T) with zero
+//       padding, dx = bf16([pre > 0] da scale) with pre = x scale + shift,
+//       dscale = sum dam x and dshift = sum dam per (batch, channel), and,
+//       with gadj, the bf16 g' of every voxel (the add variant's accum
+//       gradient). Without the activation dx = bf16(da) and there are no
+//       sums.
 //
-// For each voxel (a row of M) the GEMM has K = 27 Cout (the taps' g'
-// channels) and N = Cin. What bounds it on an H100: bytes. B8 64^3 x 16
-// moves gy, y, x and dx once (268 MB, 0.080 ms at 3.35 TB/s) for 29 GFLOP
-// (0.029 ms at 989 TFLOP/s); 32^3 x 32 and 16^3 x 64 move 4x and 16x
-// fewer bytes for the same FLOPs. The design keeps every g' element
+// A 3^3 dgrad is a 3^3 SAME conv of g' with the taps flipped and the
+// weights' input and output axes swapped, so both run one kernel template
+// (ring_gemm<C, FWD>). For each voxel (a row of M) the GEMM has K = 27 C
+// (the taps' input channels) and N = C. The two differ in three places:
+// how a ring plane is formed (the forward's prologue, or g'), the packed
+// weights the wrapper hands over (ops/conv3d_block.py pack_conv_w, row t =
+// W[t]^T; pack_dgrad_w, row t = W[26 - t]; both [tap][n][k], bf16), and
+// the epilogue (+ bias (+ accum) and the stats, or the activation's
+// gradient and dscale / dshift). What bounds them on an H100: bytes. At
+// B8 64^3 x 16 the forward moves x and y once (134 MB, 0.040 ms at 3.35
+// TB/s) and the dgrad gy, y, x and dx (268 MB, 0.080 ms), each for 29
+// GFLOP (0.029 ms at 989 TFLOP/s); 32^3 x 32 and 16^3 x 64 move 4x and
+// 16x fewer bytes for the same FLOPs. The design keeps every input element
 // staged about 1.5 times and every product on mma.sync:
 //
 // - walking depth: a block owns one batch element, TH rows of all W (TH
 //   W = 256 voxels, 128 at 64 channels) and a range of depth planes. It
-//   keeps a ring of three g' planes in shared memory, each (TH + 2) x (W
-//   + 2) voxels x Cout bf16 with a zero halo: output plane d reads planes
+//   keeps a ring of three input planes in shared memory, each (TH + 2) x
+//   (W + 2) voxels x C bf16 with a zero halo: output plane d reads planes
 //   d - 1, d, d + 1 (the TPU kernel's rolling 3-plane window) while plane
-//   d + 2's gy and y are in flight in registers, loaded before plane d's
+//   d + 2's source is in flight in registers, loaded before plane d's
 //   products and stored after them into the slot that plane d - 1 leaves;
 //   the depth ranges are as many as keep the grid in one wave of resident
 //   blocks (two an SM at up to 16 channels);
-// - g' is formed once an element on its way into shared memory:
-//   bf16(gy + (gs1 + 2 gs2 y)), zeros outside the grid; with gadj the same
-//   step writes the g' of the block's own voxels, each exactly once;
-// - the taps: a voxel's Cout channels are whole 16-byte units, so each of
+// - a ring element is formed once on its way into shared memory: the
+//   forward's bf16(relu(x scale + shift)) or the dgrad's bf16(gy + (gs1 +
+//   2 gs2 y)), zeros outside the grid; with gadj the dgrad's same step
+//   writes the g' of the block's own voxels, each exactly once;
+// - the taps: a voxel's C channels are whole 16-byte units, so each of
 //   the 27 taps is the ring read at a shifted voxel by ldmatrix; the units
 //   are swizzled by bits of their voxel (swl) so that the 8 voxels of an
 //   ldmatrix matrix meet 8 distinct bank groups at any shift. A warp's
@@ -38,20 +54,20 @@
 //   traffic, which bounds the sweep on shared memory at 16 channels (N =
 //   16: two n8 tiles an A fragment), is (MW + 2) / 3 MW of a tap-by-tap
 //   walk;
-// - W (the forward's f32 weights, taps flipped, rounded to bf16) is
-//   staged once a block as [tap][Cin][Cout]; at Cin 64 a block takes 32
-//   of the Cin columns (grid z), so that W and the ring fit;
-// - the epilogue reads x from a tile that cp.async brought a plane ahead,
-//   writes dx over it in place (each element by the thread that read it)
-//   and stores the tile in 16-byte units; dscale / dshift stay in
-//   registers;
-// - no float atomics: each block writes its dscale / dshift as one row of
-//   a partial table and fixed_sum_kernel adds the rows in a fixed order,
-//   so two calls on the same inputs give the same bits.
+// - W is staged once a block as [tap][n][k] bf16, straight from the
+//   wrapper's packing; at 64 channels a block takes 32 of the N columns
+//   (grid z), so that W and the ring fit;
+// - the epilogue reads its own voxels' input (the forward's accum, the
+//   dgrad's x) from a tile that cp.async brought a plane ahead, writes the
+//   output over it in place (each element by the thread that read it) and
+//   stores the tile in 16-byte units; the sums stay in registers;
+// - no float atomics: each block writes its sums as one row of a partial
+//   table and fixed_sum_kernel adds the rows in a fixed order, so two
+//   calls on the same inputs give the same bits.
 //
-// Shapes: Cin = Cout in {8, 16, 32, 64} (the JAX fused core's widths,
+// Shapes: Cin = Cout = C in {8, 16, 32, 64} (the JAX fused core's widths,
 // m16n8k8 at 8), W in {16, 32, 64} (16, 32 at 64 channels), H a multiple
-// of the tile's rows; ops/conv3d_block.py _dgrad_route states the rule,
+// of the tile's rows; ops/conv3d_block.py _conv_route states the rule,
 // and every other shape keeps conv3d_block.cu's conv_kernel.
 //
 // Plain C interface (loaded with ctypes): every entry returns
@@ -95,33 +111,35 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
                     pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
 }
 
-struct DgradArgs {
-  const __nv_bfloat16* gy;    // (B, D, H, W, C)
-  const __nv_bfloat16* y;     // the forward's y (read with gstats only)
-  const float* gstats;        // (B, 2, C) or null
-  const __nv_bfloat16* x;     // the forward's input (read with scale)
-  const float* w;             // (3, 3, 3, C, C) f32, the forward's taps
+struct RingArgs {
+  const __nv_bfloat16* src;   // the ring's planes (B, D, H, W, C): x or gy
+  const __nv_bfloat16* y;     // dgrad: the forward's y (with gstats only)
+  const float* gstats;        // dgrad: (B, 2, C) or null
+  const __nv_bfloat16* tile;  // the epilogue's own voxels (B, D, H, W, C):
+                              // accum (forward) or x (dgrad), or null
+  const __nv_bfloat16* w;     // (27, C, C) bf16 [tap][n][k], packed
   const float* scale;         // (B, C), or null: no activation
   const float* shift;
-  __nv_bfloat16* dx;          // (B, D, H, W, C)
-  __nv_bfloat16* gadj;        // bf16 g' (B, D, H, W, C) or null
-  float* part;                // (B, gridDim.x, 2, C) block sums (scale)
+  const float* bias;          // forward: (C,)
+  __nv_bfloat16* out;         // y or dx (B, D, H, W, C)
+  __nv_bfloat16* gadj;        // dgrad: bf16 g' (B, D, H, W, C) or null
+  float* part;                // (B, gridDim.x, 2, C) block sums, or null
   int D, H, W, TH, DD;        // TH rows and DD planes a block
 };
 
 template <int C>
-struct DgradCfg {
-  static constexpr int NS = C == 64 ? 32 : C;   // Cin columns a block
+struct RingCfg {
+  static constexpr int NS = C == 64 ? 32 : C;   // N columns a block
   // m16 tiles a warp, stacked along H, so that one A fragment (a ring
   // row at one kx shift) serves up to three of them (the three ky taps)
   static constexpr int MW = C == 64 ? 1 : 2;
   static constexpr int M = kWarps * MW * 16;    // voxels a plane tile
-  static constexpr int U = C / 8;               // g' units a voxel
-  static constexpr int UX = NS / 8;             // x / dx units a voxel
+  static constexpr int U = C / 8;               // ring units a voxel
+  static constexpr int UX = NS / 8;             // epilogue units a voxel
   static constexpr int NW = NS / 8;             // n8 tiles a warp
   static constexpr int KS = C >= 16 ? C / 16 : 1;   // k-steps a tap
   static constexpr int kW = 27 * NS * C * 2;    // W slice [27][NS][C]
-  static constexpr int kX = M * NS * 2;         // x / dx tile of a plane
+  static constexpr int kX = M * NS * 2;         // epilogue tile of a plane
   static constexpr int kVec = (2 * NS + 2 * C) * 4;
   // a ring slot's voxels at the widest W taken (the most of any W)
   static constexpr int kWmax = C == 64 ? 32 : 64;
@@ -130,23 +148,26 @@ struct DgradCfg {
   static constexpr int kBlocks = C <= 16 ? 2 : 1;
 };
 
-// One block: batch element blockIdx.y, Cin columns [z NS, (z + 1) NS) (z
-// = blockIdx.z), rows [h0, h0 + TH) and planes [d0, d1) by blockIdx.x.
-// Warp w takes the 16 voxels at column group w % (W / 16) of MW
-// consecutive rows of each output plane, against the slice's NS columns.
-template <int C>
-__global__ void __launch_bounds__(kThreads, (DgradCfg<C>::kBlocks))
-    dgrad_mma_kernel(const DgradArgs p) {
-  using Cfg = DgradCfg<C>;
+// One block: batch element blockIdx.y, N columns [z NS, (z + 1) NS) (z =
+// blockIdx.z), rows [h0, h0 + TH) and planes [d0, d1) by blockIdx.x. Warp
+// w takes the 16 voxels at column group w % (W / 16) of MW consecutive
+// rows of each output plane, against the slice's NS columns. FWD: the
+// forward conv; else the dgrad.
+template <int C, bool FWD>
+__device__ __forceinline__ void ring_gemm(const RingArgs& p) {
+  using Cfg = RingCfg<C>;
   constexpr int NS = Cfg::NS, MW = Cfg::MW, U = Cfg::U, UX = Cfg::UX;
   constexpr int NW = Cfg::NW, KS = Cfg::KS, M = Cfg::M, RPT = Cfg::RPT;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* sw = smem;                            // W slice
-  float* vsc = reinterpret_cast<float*>(sw + Cfg::kW);
-  float* vsh = vsc + NS;
-  float* vg1 = vsh + NS;                         // gs1
-  float* vg2 = vg1 + C;                          // 2 gs2 (exact)
-  uint8_t* sxt = reinterpret_cast<uint8_t*>(vg2 + C);   // 2 x tiles
+  // the epilogue's per-column vectors (forward: bias; dgrad: scale,
+  // shift) and the ring's per-channel ones (forward: scale, shift;
+  // dgrad: gs1, 2 gs2 (exact))
+  float* vn1 = reinterpret_cast<float*>(sw + Cfg::kW);
+  float* vn2 = vn1 + NS;
+  float* vk1 = vn2 + NS;
+  float* vk2 = vk1 + C;
+  uint8_t* sxt = reinterpret_cast<uint8_t*>(vk2 + C);   // 2 tiles
   uint8_t* ring = sxt + 2 * Cfg::kX;             // 3 slots
   const int W = p.W, H = p.H, D = p.D, TH = p.TH;
   const int PW = W + 2, PV = (TH + 2) * PW;     // a ring slot's voxels
@@ -159,30 +180,37 @@ __global__ void __launch_bounds__(kThreads, (DgradCfg<C>::kBlocks))
   const int d1 = min(D, d0 + p.DD);
   const int b = blockIdx.y, z = blockIdx.z;
   const bool stats = p.gstats != nullptr, act = p.scale != nullptr;
+  const bool has_tile = p.tile != nullptr;
 
-  // W slice: row (tap, n) holds w[26 - tap][z NS + n][:], rounded to bf16
+  // W slice: row (tap, n) is the packed row tap, column z NS + n
   for (int e = tid; e < 27 * NS * U; e += kThreads) {
     const int tap = e / (NS * U), n = (e / U) % NS, ku = e % U;
-    const float* src =
-        p.w + ((size_t)(26 - tap) * C + z * NS + n) * C + ku * 8;
-    const float4 lo = *reinterpret_cast<const float4*>(src);
-    const float4 hi = *reinterpret_cast<const float4*>(src + 4);
     *reinterpret_cast<uint4*>(sw + swl(e, U)) =
-        make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
-                   pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+        *reinterpret_cast<const uint4*>(
+            p.w + ((size_t)tap * C + z * NS + n) * C + ku * 8);
   }
   for (int e = tid; e < NS; e += kThreads) {
-    vsc[e] = act ? p.scale[(size_t)b * C + z * NS + e] : 0.f;
-    vsh[e] = act ? p.shift[(size_t)b * C + z * NS + e] : 0.f;
+    if constexpr (FWD) {
+      vn1[e] = p.bias[z * NS + e];
+      vn2[e] = 0.f;
+    } else {
+      vn1[e] = act ? p.scale[(size_t)b * C + z * NS + e] : 0.f;
+      vn2[e] = act ? p.shift[(size_t)b * C + z * NS + e] : 0.f;
+    }
   }
   for (int e = tid; e < C; e += kThreads) {
-    vg1[e] = stats ? p.gstats[(size_t)b * 2 * C + e] : 0.f;
-    vg2[e] = stats ? 2.f * p.gstats[(size_t)b * 2 * C + C + e] : 0.f;
+    if constexpr (FWD) {
+      vk1[e] = act ? p.scale[(size_t)b * C + e] : 0.f;
+      vk2[e] = act ? p.shift[(size_t)b * C + e] : 0.f;
+    } else {
+      vk1[e] = stats ? p.gstats[(size_t)b * 2 * C + e] : 0.f;
+      vk2[e] = stats ? 2.f * p.gstats[(size_t)b * 2 * C + C + e] : 0.f;
+    }
   }
 
-  // a plane of gy (and y) in flight in registers: unit e = tid + 256 i
-  // of a ring slot, zeros outside the grid
-  uint4 rgy[RPT], ryv[RPT];
+  // a plane of the source (and the dgrad's y) in flight in registers:
+  // unit e = tid + 256 i of a ring slot, zeros outside the grid
+  uint4 rsrc[RPT], ryv[RPT];
   uint32_t inside = 0;   // bit i: unit i is in the grid
   auto fetch = [&](int pd) {
     const bool pin = pd >= 0 && pd < D;
@@ -194,57 +222,69 @@ __global__ void __launch_bounds__(kThreads, (DgradCfg<C>::kBlocks))
       const int hh = h0 - 1 + v / PW, ww = v % PW - 1;
       const bool ok = e < PV * U && pin && hh >= 0 && hh < H && ww >= 0 &&
                       ww < W;
-      rgy[i] = ryv[i] = make_uint4(0u, 0u, 0u, 0u);
+      rsrc[i] = ryv[i] = make_uint4(0u, 0u, 0u, 0u);
       if (ok) {
         const size_t off =
             ((((size_t)b * D + pd) * H + hh) * W + ww) * C + cu * 8;
-        rgy[i] = *reinterpret_cast<const uint4*>(p.gy + off);
-        if (stats) ryv[i] = *reinterpret_cast<const uint4*>(p.y + off);
+        rsrc[i] = *reinterpret_cast<const uint4*>(p.src + off);
+        if (!FWD && stats) ryv[i] = *reinterpret_cast<const uint4*>(p.y + off);
         inside |= 1u << i;
       }
     }
   };
-  // g' = bf16(gy + (gs1 + 2 gs2 y)) of the fetched plane pd into its ring
-  // slot, and gadj of the block's own voxels
+  // the fetched plane pd into its ring slot: the forward's prologue, or
+  // g' = bf16(gy + (gs1 + 2 gs2 y)) and gadj of the block's own voxels
   auto put = [&](int pd) {
     uint8_t* slot = ring + ((pd % 3 + 3) % 3) * slot_bytes;
-    const bool own = p.gadj != nullptr && z == 0 && pd >= d0 && pd < d1;
+    const bool own = !FWD && p.gadj != nullptr && z == 0 && pd >= d0 &&
+                     pd < d1;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int e = tid + i * kThreads;
       if (e >= PV * U) break;
-      uint4 q = rgy[i];
-      if (stats && (inside >> i & 1)) {
+      uint4 q = rsrc[i];
+      if (FWD ? act && (inside >> i & 1) : stats && (inside >> i & 1)) {
         const int cu = e % U;
-        float f[8], yv[8];
+        float f[8];
         unpack8(q, f);
-        unpack8(ryv[i], yv);
+        if constexpr (FWD) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = cu * 8 + j;
-          f[j] = __fadd_rn(f[j],
-                           __fadd_rn(vg1[c], __fmul_rn(vg2[c], yv[j])));
+          for (int j = 0; j < 8; ++j) {
+            const int c = cu * 8 + j;
+            f[j] = fmaxf(__fadd_rn(__fmul_rn(f[j], vk1[c]), vk2[c]), 0.f);
+          }
+          q = pack8(f);
+        } else {
+          float yv[8];
+          unpack8(ryv[i], yv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = cu * 8 + j;
+            f[j] = __fadd_rn(f[j],
+                             __fadd_rn(vk1[c], __fmul_rn(vk2[c], yv[j])));
+          }
+          q = pack8(f);
+          const int v = e / U, r = v / PW;
+          if (own && r >= 1 && r <= TH)
+            *reinterpret_cast<uint4*>(
+                p.gadj + ((((size_t)b * D + pd) * H + h0 - 1 + r) * W +
+                          v % PW - 1) * C + cu * 8) = q;
         }
-        q = pack8(f);
-        const int v = e / U, r = v / PW;
-        if (own && r >= 1 && r <= TH)
-          *reinterpret_cast<uint4*>(
-              p.gadj + ((((size_t)b * D + pd) * H + h0 - 1 + r) * W +
-                        v % PW - 1) * C + cu * 8) = q;
       }
       *reinterpret_cast<uint4*>(slot + swl(e, U)) = q;
     }
   };
-  // x of plane pd's tile (the slice's channels) into x tile pd & 1
-  auto load_x = [&](int pd) {
-    if (!act) return;
+  // the epilogue's input of plane pd's tile (the slice's channels) into
+  // tile pd & 1
+  auto load_tile = [&](int pd) {
+    if (!has_tile) return;
     const uint32_t xs = smem_u32(sxt + (pd & 1) * Cfg::kX);
     for (int e = tid; e < M * UX; e += kThreads) {
       const int v = e / UX, cu = e % UX;
       const size_t off =
           ((((size_t)b * D + pd) * H + h0 + v / W) * W + v % W) * C +
           z * NS + cu * 8;
-      cp16(xs + swl(e, UX), p.x + off, true);
+      cp16(xs + swl(e, UX), p.tile + off, true);
     }
   };
 
@@ -253,13 +293,13 @@ __global__ void __launch_bounds__(kThreads, (DgradCfg<C>::kBlocks))
     fetch(pd);
     put(pd);
   }
-  load_x(d0);
+  load_tile(d0);
   cp_commit();
   __syncthreads();
 
   // this warp's tiles: column group cg, rows rg MW .. rg MW + MW - 1;
   // vring: the lane's ldmatrix row in a ring slot at ring row rg MW, no
-  // shift; vtile: its first tile's first voxel in the x tile
+  // shift; vtile: its first tile's first voxel in the epilogue tile
   const int cgs = W / 16, cg = warp % cgs, rg = warp / cgs;
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int vring = rg * MW * PW + cg * 16 + lrow;
@@ -270,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, (DgradCfg<C>::kBlocks))
   for (int d = d0; d < d1; ++d) {
     const bool next = d + 2 <= d1;   // plane d + 2 is read at d + 1
     if (next) fetch(d + 2);
-    if (d + 1 < d1) load_x(d + 1);
+    if (d + 1 < d1) load_tile(d + 1);
     cp_commit();
 
     float acc[MW][NW][4] = {};
@@ -334,30 +374,45 @@ __global__ void __launch_bounds__(kThreads, (DgradCfg<C>::kBlocks))
         }
     }
     cp_wait<1>();
-    __syncthreads();   // x of plane d is in; the ring slot of d - 1 is free
+    __syncthreads();   // tile d is in; the ring slot of d - 1 is free
 
-    // epilogue: dam = [x scale + shift > 0] da, dx = bf16(dam scale) over
-    // x in place (bf16(da) without the activation)
+    // epilogue over the tile in place. Forward: v = (acc + bias) (+
+    // accum), y = bf16(v), (sum v, sum v^2). Dgrad: dam = [x scale +
+    // shift > 0] da, dx = bf16(dam scale) (bf16(da) without the
+    // activation), (sum dam x, sum dam).
     uint8_t* xs = sxt + (d & 1) * Cfg::kX;
 #pragma unroll
     for (int mw = 0; mw < MW; ++mw)
 #pragma unroll
       for (int nt = 0; nt < NW; ++nt) {
         const int c = 8 * nt + 2 * t;
-        const float sc[2] = {vsc[c], vsc[c + 1]}, sh[2] = {vsh[c], vsh[c + 1]};
+        const float n1[2] = {vn1[c], vn1[c + 1]}, n2[2] = {vn2[c], vn2[c + 1]};
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           uint32_t* px = reinterpret_cast<uint32_t*>(
               xs + swl((vtile + mw * W + g + 8 * h) * UX + nt, UX) + 4 * t);
           float o[2];
-          if (act) {
+          if constexpr (FWD) {
+            o[0] = acc[mw][nt][2 * h] + n1[0];
+            o[1] = acc[mw][nt][2 * h + 1] + n1[1];
+            if (has_tile) {
+              const uint32_t ap = *px;
+              o[0] += bf16_lo(ap);
+              o[1] += bf16_hi(ap);
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              ds1[nt][j] += o[j];
+              ds2[nt][j] += o[j] * o[j];
+            }
+          } else if (act) {
             const uint32_t xp = *px;
             const float xv[2] = {bf16_lo(xp), bf16_hi(xp)};
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-              const float pre = __fadd_rn(__fmul_rn(xv[j], sc[j]), sh[j]);
+              const float pre = __fadd_rn(__fmul_rn(xv[j], n1[j]), n2[j]);
               const float dam = pre > 0.f ? acc[mw][nt][2 * h + j] : 0.f;
-              o[j] = __fmul_rn(dam, sc[j]);
+              o[j] = __fmul_rn(dam, n1[j]);
               ds1[nt][j] += dam * xv[j];
               ds2[nt][j] += dam;
             }
@@ -369,17 +424,17 @@ __global__ void __launch_bounds__(kThreads, (DgradCfg<C>::kBlocks))
         }
       }
     __syncthreads();
-    // dx to the grid, g' of plane d + 2 into the freed ring slot
+    // the tile to the grid, plane d + 2 into the freed ring slot
     for (int e = tid; e < M * UX; e += kThreads) {
       const int v = e / UX, cu = e % UX;
       *reinterpret_cast<uint4*>(
-          p.dx + ((((size_t)b * D + d) * H + h0 + v / W) * W + v % W) * C +
+          p.out + ((((size_t)b * D + d) * H + h0 + v / W) * W + v % W) * C +
           z * NS + cu * 8) = *reinterpret_cast<const uint4*>(xs + swl(e, UX));
     }
     if (next) put(d + 2);
     __syncthreads();
   }
-  if (!act) return;
+  if (p.part == nullptr) return;
 
   // the block's row of the partial table: the 8 row lanes of each warp,
   // then the warps, in a fixed order
@@ -404,39 +459,60 @@ __global__ void __launch_bounds__(kThreads, (DgradCfg<C>::kBlocks))
   }
 }
 
-// ---------------------------------------------------------------- host
+template <int C>
+__global__ void __launch_bounds__(kThreads, (RingCfg<C>::kBlocks))
+    conv3x3_mma_kernel(const RingArgs p) {
+  ring_gemm<C, true>(p);
+}
 
 template <int C>
-size_t dgrad_smem(int W) {
-  using Cfg = DgradCfg<C>;
+__global__ void __launch_bounds__(kThreads, (RingCfg<C>::kBlocks))
+    dgrad_mma_kernel(const RingArgs p) {
+  ring_gemm<C, false>(p);
+}
+
+// ---------------------------------------------------------------- host
+
+template <int C, bool FWD>
+auto ring_kernel() {
+  if constexpr (FWD)
+    return conv3x3_mma_kernel<C>;
+  else
+    return dgrad_mma_kernel<C>;
+}
+
+template <int C>
+size_t ring_smem(int W) {
+  using Cfg = RingCfg<C>;
   if (W % 16 || W > Cfg::kWmax || Cfg::M % W) return 0;
   const size_t slot = (size_t)(Cfg::M / W + 2) * (W + 2) * C * 2;
   return Cfg::kW + Cfg::kVec + 2 * Cfg::kX + 3 * slot;
 }
 
-// The launch of one dgrad: blocks a (batch element, slice), with the rows
-// (TH) and planes (DD) a block takes; false for a shape the kernel does
-// not take. The depth ranges are as many as keep the whole grid in one
-// wave of the resident blocks.
+// The launch of one forward or dgrad: blocks a (batch element, slice),
+// with the rows (TH) and planes (DD) a block takes; false for a shape the
+// kernel does not take. The depth ranges are as many as keep the whole
+// grid in one wave of the resident blocks.
 struct Plan {
   int gx, TH, DD;
   size_t smem;
 };
 
-template <int C>
-bool dgrad_plan(int B, int D, int H, int W, Plan& pl) {
-  using Cfg = DgradCfg<C>;
-  pl.smem = dgrad_smem<C>(W);
+template <int C, bool FWD>
+bool ring_plan(int B, int D, int H, int W, Plan& pl) {
+  using Cfg = RingCfg<C>;
+  pl.smem = ring_smem<C>(W);
   if (pl.smem == 0 || pl.smem > (size_t)kSmemMax) return false;
   pl.TH = Cfg::M / W;
   if (H % pl.TH) return false;
-  if (cudaFuncSetAttribute(dgrad_mma_kernel<C>,
+  if (cudaFuncSetAttribute(ring_kernel<C, FWD>(),
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)pl.smem) != cudaSuccess)
     return false;
   int per_sm = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, dgrad_mma_kernel<C>, kThreads, pl.smem) != cudaSuccess ||
+          &per_sm, ring_kernel<C, FWD>(), kThreads, pl.smem) !=
+          cudaSuccess ||
       per_sm < 1)
     return false;
   const int nht = H / pl.TH, S = C / Cfg::NS;
@@ -447,82 +523,120 @@ bool dgrad_plan(int B, int D, int H, int W, Plan& pl) {
   return true;
 }
 
-template <int C>
-int dgrad_grid(int B, int D, int H, int W) {
+template <int C, bool FWD>
+int ring_grid(int B, int D, int H, int W) {
   Plan pl;
-  return dgrad_plan<C>(B, D, H, W, pl) ? pl.gx : 0;
+  return ring_plan<C, FWD>(B, D, H, W, pl) ? pl.gx : 0;
 }
 
-template <int C>
-int dgrad_launch(DgradArgs a, float* dstats, int B, int gx,
-                 cudaStream_t st) {
+template <int C, bool FWD>
+int ring_launch(RingArgs a, float* sums, int B, int gx, cudaStream_t st) {
   Plan pl;
-  if (!dgrad_plan<C>(B, a.D, a.H, a.W, pl) || pl.gx != gx)
+  if (!ring_plan<C, FWD>(B, a.D, a.H, a.W, pl) || pl.gx != gx)
     return (int)cudaErrorInvalidValue;
   a.TH = pl.TH;
   a.DD = pl.DD;
-  dgrad_mma_kernel<C>
-      <<<dim3(gx, B, C / DgradCfg<C>::NS), kThreads, pl.smem, st>>>(a);
+  const dim3 grid(gx, B, C / RingCfg<C>::NS);
+  if constexpr (FWD)
+    conv3x3_mma_kernel<C><<<grid, kThreads, pl.smem, st>>>(a);
+  else
+    dgrad_mma_kernel<C><<<grid, kThreads, pl.smem, st>>>(a);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.scale == nullptr) return (int)err;
-  fixed_sum_kernel<<<dim3((2 * C + 31) / 32, B), 256, 0, st>>>(a.part, dstats,
+  if (err != cudaSuccess || a.part == nullptr) return (int)err;
+  fixed_sum_kernel<<<dim3((2 * C + 31) / 32, B), 256, 0, st>>>(a.part, sums,
                                                               gx, 2 * C);
   return (int)cudaGetLastError();
+}
+
+template <bool FWD>
+int ring_dispatch(const RingArgs& a, float* sums, int B, int C, int gx,
+                  cudaStream_t st) {
+  switch (C) {
+    case 8: return ring_launch<8, FWD>(a, sums, B, gx, st);
+    case 16: return ring_launch<16, FWD>(a, sums, B, gx, st);
+    case 32: return ring_launch<32, FWD>(a, sums, B, gx, st);
+    case 64: return ring_launch<64, FWD>(a, sums, B, gx, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks a (batch element, Cin slice) of the dgrad of a (B, D, H, W, C)
-// grid at Cin = Cout = C (its partial table has B times that many rows);
-// 0 for a shape the kernel does not take.
-int pcseg_dgrad_grid(int B, int C, int D, int H, int W) {
+// Blocks a (batch element, N slice) of the forward (fwd != 0) or the dgrad
+// of a (B, D, H, W, C) grid at Cin = Cout = C (the partial table has B
+// times that many rows); 0 for a shape the kernel does not take.
+int pcseg_ring_grid(int fwd, int B, int C, int D, int H, int W) {
   if (B <= 0 || D <= 0 || H <= 0 || W <= 0) return 0;
   switch (C) {
-    case 8: return dgrad_grid<8>(B, D, H, W);
-    case 16: return dgrad_grid<16>(B, D, H, W);
-    case 32: return dgrad_grid<32>(B, D, H, W);
-    case 64: return dgrad_grid<64>(B, D, H, W);
+    case 8: return fwd ? ring_grid<8, true>(B, D, H, W)
+                       : ring_grid<8, false>(B, D, H, W);
+    case 16: return fwd ? ring_grid<16, true>(B, D, H, W)
+                        : ring_grid<16, false>(B, D, H, W);
+    case 32: return fwd ? ring_grid<32, true>(B, D, H, W)
+                        : ring_grid<32, false>(B, D, H, W);
+    case 64: return fwd ? ring_grid<64, true>(B, D, H, W)
+                        : ring_grid<64, false>(B, D, H, W);
     default: return 0;
   }
 }
 
-// gy (B, D, H, W, C) bf16; y the forward's output and gstats (B, 2, C), or
-// both null; x (B, D, H, W, C) bf16 the forward's input; w (3, 3, 3, C, C)
-// f32, the forward's weights; scale/shift (B, C) f32, null without the
-// activation. Writes dx (B, D, H, W, C) bf16, dstats (B, 2, C) = (dscale,
-// dshift) through part, (B, gx, 2, C) f32 scratch (both unused without the
-// activation), and, if gadj is not null, the bf16 g'. All grids 16-byte
-// aligned; gx from pcseg_dgrad_grid.
+// The forward: x (B, D, H, W, C) bf16; w (27, C, C) bf16, pack_conv_w's
+// [tap][Cout][Cin]; bias (C,) f32; scale/shift (B, C) f32, or both null
+// (no activation: the ring holds x itself); accum (B, D, H, W, C) bf16 or
+// null. Writes y (B, D, H, W, C) bf16 and, if stats is not null, stats (B,
+// 2, C) = (sum v, sum v^2) through part, (B, gx, 2, C) f32 scratch. All
+// grids 16-byte aligned; gx from pcseg_ring_grid(1, ...).
+int pcseg_conv3x3_mma(const void* x, const void* w, const void* bias,
+                      const void* scale, const void* shift, const void* accum,
+                      void* y, void* stats, void* part, int B, int D, int H,
+                      int W, int C, int gx, void* stream) {
+  if (B <= 0 || gx <= 0 || bias == nullptr || (scale == nullptr) !=
+      (shift == nullptr) || (stats == nullptr) != (part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  RingArgs a{};
+  a.src = (const __nv_bfloat16*)x;
+  a.tile = (const __nv_bfloat16*)accum;
+  a.w = (const __nv_bfloat16*)w;
+  a.scale = (const float*)scale;
+  a.shift = (const float*)shift;
+  a.bias = (const float*)bias;
+  a.out = (__nv_bfloat16*)y;
+  a.part = (float*)part;
+  a.D = D; a.H = H; a.W = W;
+  return ring_dispatch<true>(a, (float*)stats, B, C, gx,
+                             (cudaStream_t)stream);
+}
+
+// The dgrad: gy (B, D, H, W, C) bf16; y the forward's output and gstats
+// (B, 2, C), or both null; x (B, D, H, W, C) bf16 the forward's input; w
+// (27, C, C) bf16, pack_dgrad_w's [tap][Cin][Cout]; scale/shift (B, C)
+// f32, null without the activation. Writes dx (B, D, H, W, C) bf16,
+// dstats (B, 2, C) = (dscale, dshift) through part, (B, gx, 2, C) f32
+// scratch (both null without the activation), and, if gadj is not null,
+// the bf16 g'. All grids 16-byte aligned; gx from pcseg_ring_grid(0, ...).
 int pcseg_conv3x3_dgrad_mma(const void* gy, const void* y, const void* gstats,
                             const void* x, const void* w, const void* scale,
                             const void* shift, void* dx, void* dstats,
                             void* gadj, void* part, int B, int D, int H,
                             int W, int C, int gx, void* stream) {
-  if (B <= 0 || gx <= 0 || (scale != nullptr && part == nullptr))
+  if (B <= 0 || gx <= 0 || (scale == nullptr) != (part == nullptr))
     return (int)cudaErrorInvalidValue;
-  DgradArgs a{};
-  a.gy = (const __nv_bfloat16*)gy;
+  RingArgs a{};
+  a.src = (const __nv_bfloat16*)gy;
   a.y = (const __nv_bfloat16*)y;
   a.gstats = (const float*)gstats;
-  a.x = (const __nv_bfloat16*)x;
-  a.w = (const float*)w;
+  a.tile = scale != nullptr ? (const __nv_bfloat16*)x : nullptr;
+  a.w = (const __nv_bfloat16*)w;
   a.scale = (const float*)scale;
   a.shift = (const float*)shift;
-  a.dx = (__nv_bfloat16*)dx;
+  a.out = (__nv_bfloat16*)dx;
   a.gadj = (__nv_bfloat16*)gadj;
   a.part = (float*)part;
   a.D = D; a.H = H; a.W = W;
-  float* ds = (float*)dstats;
-  const auto st = (cudaStream_t)stream;
-  switch (C) {
-    case 8: return dgrad_launch<8>(a, ds, B, gx, st);
-    case 16: return dgrad_launch<16>(a, ds, B, gx, st);
-    case 32: return dgrad_launch<32>(a, ds, B, gx, st);
-    case 64: return dgrad_launch<64>(a, ds, B, gx, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return ring_dispatch<false>(a, (float*)dstats, B, C, gx,
+                              (cudaStream_t)stream);
 }
 
 }  // extern "C"

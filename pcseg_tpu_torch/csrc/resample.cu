@@ -6,6 +6,12 @@
 //                      :1318): a = bf16(relu(x * scale + shift)), the k2 s2
 //                      conv C -> 2C, + bias, bf16 y and the next GroupNorm's
 //                      per-(batch, channel) (sum, sumsq) of the f32 value.
+//   pcseg_up2x_mma     replaces fused_up2x_p (_up2x_kernel, pallas_call at
+//                      :1403): a = bf16(relu(x * scale + shift)) on the
+//                      coarse grid (2C channels), child 2i + d of coarse
+//                      voxel i gets a[i] @ w[1 - d] + bias (f32), bf16 y and
+//                      the per-(batch, channel) (sum, sumsq) of the f32
+//                      value.
 //   pcseg_up2x_bwd_mma replaces the backward of fused_up2x_p
 //                      (_up2x_bwd_kernel, pallas_call at :1439): g' = (gy +
 //                      gs1) + 2 gs2 y, dbias = sum g' (f32), da = bf16(g') @
@@ -28,6 +34,13 @@
 // - down2x: y (M x 2C) = A (M x 8C) @ W (8C x 2C), W the (2, 2, 2, C, 2C)
 //   weights as rows (``pack_down_w``); the prologue runs on A's fragments
 //   in registers, once an element.
+// - up2x, the transposed half of down2x's backward: Y (M x 8C) = A (M x
+//   2C, coarse, contiguous) @ Wu with Wu[i][(d, o)] = w[1 - d][i][o]
+//   (``pack_up_w``); the prologue runs on A's fragments, once an element;
+//   the epilogue adds the bias and sums the stats of channel o over the
+//   eight children's columns, and y leaves through the gather's inverse
+//   (``ungather_rows``) in 16-byte units. 84 MB at 32^3 x 32 -> 64^3 x 16
+//   (x read once, y written once), 0.025 ms.
 // - up2x's backward: the same gather of gy and y gives G = bf16(g') (M x
 //   8C); da (M x 2C) = G @ Wd with Wd[(d, o)][i] = w[1 - d][i][o]
 //   (``pack_up_wt``), and dW^T (8C x 2C) += G^T @ a over the same tile,
@@ -49,16 +62,19 @@
 //
 // - persistent blocks over tiles of 64 coarse voxels of one batch element
 //   (grid (blocks a batch element, B)), two an SM so that one block's
-//   syncs and loads overlap the other's work (one for the backward sweeps
-//   at C >= 32, whose dW takes 64 registers a thread); cp.async 16-byte
+//   syncs and loads overlap the other's work (up to four for up2x, whose
+//   warps store 4x the bytes they load, each on its own after a
+//   __syncwarp; one for the backward sweeps at C >= 32, whose dW takes 64
+//   registers a thread); cp.async 16-byte
 //   copies with computed addresses into a ring of 1-4 shared-memory
 //   stages, so one tile's loads overlap the products and stores of the
 //   ones before it; rows past the grid's end read zeros and are masked
 //   at the stores;
 // - tiles in shared memory swizzled in 16-byte units (``swz``) so that
 //   ldmatrix (plain and .trans) reads them without bank conflicts;
-// - W (bf16, rounded from the f32 weights the caller passes) staged once a
-//   block; scale/shift, bias and the stats in registers;
+// - W (bf16, in the layout the wrapper packs: ``pack_down_w``,
+//   ``pack_up_w``, ``pack_up_wt``) staged once a block; scale/shift, bias
+//   and the stats in registers or shared vectors;
 // - outputs staged through shared memory for 16-byte stores;
 // - no float atomics: each block writes its sums as one row of a partial
 //   table (scratch the wrapper allocates) and fixed_sum_kernel adds the
@@ -87,7 +103,7 @@ using hopper::pack_bf16x2;
 using hopper::smem_u32;
 
 constexpr int kRows = 64;            // coarse voxels a tile
-constexpr int kDownThreads = 128;    // down2x: 4 warps of 16 rows
+constexpr int kDownThreads = 128;    // down2x, up2x: 4 warps of 16 rows
 constexpr int kBwdThreads = 256;     // the backward sweeps: 8 warps
 constexpr int kSmemMax = 227 * 1024;
 
@@ -217,7 +233,7 @@ __device__ __forceinline__ void scatter_tile(__nv_bfloat16* dst,
 
 struct DownArgs {
   const __nv_bfloat16* x;   // (B, D, H, W, C) fine
-  const float* w;           // (2, 2, 2, C, 2C) f32: (8C x 2C) rows
+  const __nv_bfloat16* w;   // (8C, 2C) bf16: pack_down_w
   const float* bias;        // (2C,)
   const float* scale;       // (B, C)
   const float* shift;
@@ -259,16 +275,11 @@ __global__ void __launch_bounds__(kDownThreads) down2x_mma_kernel(
                         ? (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
                         : 0;
 
-  // W rounded to bf16, [k][n] in units of 8 n
+  // W, [k][n] in units of 8 n
   for (int i = tid; i < K * N / 8; i += kDownThreads) {
     const int k = i / (N / 8), cu = i % (N / 8);
-    const float4 lo = *reinterpret_cast<const float4*>(p.w + (size_t)k * N +
-                                                       cu * 8);
-    const float4 hi = *reinterpret_cast<const float4*>(p.w + (size_t)k * N +
-                                                       cu * 8 + 4);
     *reinterpret_cast<uint4*>(sw + swz(k, cu, N / 8)) =
-        make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
-                   pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+        *reinterpret_cast<const uint4*>(p.w + (size_t)k * N + cu * 8);
   }
   // the prologue's scale/shift of this lane's fragment columns: k-step s
   // reads channels 16 (s % P) + 2t (+1) and (16 (s % P) + 8 + 2t) % C (+1)
@@ -386,11 +397,224 @@ __global__ void __launch_bounds__(kDownThreads) down2x_mma_kernel(
   }
 }
 
+// ---------------------------------------------------------------- up2x
+
+struct UpArgs {
+  const __nv_bfloat16* x;   // (B, D2, H2, W2, 2C) coarse
+  const __nv_bfloat16* w;   // (2C, 8C) bf16: pack_up_w
+  const float* bias;        // (C,)
+  const float* scale;       // (B, 2C)
+  const float* shift;
+  __nv_bfloat16* y;         // (B, 2 D2, 2 H2, 2 W2, C)
+  float* part;              // (B, gridDim.x, 2, C) block sums
+  int D2, H2, W2, tiles;
+};
+
+template <int C>
+struct UpFwdCfg {
+  static constexpr int K = 2 * C, N = 8 * C, KS = K / 16;
+  static constexpr int NC = 64;           // columns a chunk: 8 units a row
+  static constexpr int NCH = N / NC, NT = NC / 8;
+  static constexpr int Q = C / 8;         // the n8 tiles' channel groups
+  static constexpr int kW = K * N * 2;
+  static constexpr int kStage = kRows * K * 2;
+  static constexpr int kPitch = (2 * NC + 16) | 16;   // staged y row, bytes
+  static constexpr int kStaging = 4 * 16 * kPitch;
+  static constexpr int kVec = 2 * K * 4;
+  static constexpr int kFit = (200 * 1024 - kW - kStaging - kVec) / kStage;
+  static constexpr int kStages = kFit >= 4 ? 4 : kFit >= 2 ? kFit : 2;
+  static constexpr int kSmem = kW + kStaging + kVec + kStages * kStage;
+  static_assert(kSmem <= kSmemMax, "up2x tile exceeds shared memory");
+  static_assert(kStage >= 4 * 2 * C * 4, "reduction scratch");
+};
+
+// One block: tiles blockIdx.x, blockIdx.x + gridDim.x, ... of batch element
+// blockIdx.y. Warp w takes rows 16w..16w+15 of a tile: their A fragments
+// (all of K = 2C) by ldmatrix, activated in registers once an element,
+// then the 8C columns of Wu in chunks of 64: products, + bias, the stats
+// of the f32 value, bf16 staged in the warp's own rows and stored to the
+// fine grid through the gather's inverse, 16 bytes a copy.
+template <int C>
+__global__ void __launch_bounds__(kDownThreads) up2x_mma_kernel(
+    const UpArgs p) {
+  using Cfg = UpFwdCfg<C>;
+  constexpr int K = Cfg::K, N = Cfg::N, KS = Cfg::KS, NC = Cfg::NC;
+  constexpr int NT = Cfg::NT, Q = Cfg::Q;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* sw = smem;                                 // Wu [K][N]
+  uint8_t* sst = sw + Cfg::kW;                        // y staging
+  float* vsc = reinterpret_cast<float*>(sst + Cfg::kStaging);
+  float* vsh = vsc + K;
+  uint8_t* stages = reinterpret_cast<uint8_t*>(vsh + K);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y;
+  const int H2 = p.H2, W2 = p.W2;
+  const long long Mb = (long long)p.D2 * H2 * W2;
+  const int ntile = blockIdx.x < p.tiles
+                        ? (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                        : 0;
+
+  // Wu by cp.async, in the first tile's copy group
+  for (int i = tid; i < K * N / 8; i += kDownThreads) {
+    const int k = i / (N / 8), cu = i % (N / 8);
+    cp16(smem_u32(sw) + swz(k, cu, N / 8), p.w + (size_t)k * N + cu * 8,
+         true);
+  }
+  for (int i = tid; i < K; i += kDownThreads) {
+    vsc[i] = p.scale[(size_t)b * K + i];
+    vsh[i] = p.shift[(size_t)b * K + i];
+  }
+  // a column n = (child) C + o of chunk ch is 64 ch + 8 nt + 2 t (+1), so
+  // its channel o is 8 (nt % Q) + 2 t (+1): bias and sums by (nt % Q)
+  float bv[Q][2], s1[Q][2], s2[Q][2];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      bv[q][j] = p.bias[8 * q + 2 * t + j];
+      s1[q][j] = s2[q][j] = 0.f;
+    }
+
+  auto load = [&](int i) {
+    if (i < ntile) {
+      const uint32_t dst =
+          smem_u32(stages + (i % Cfg::kStages) * Cfg::kStage);
+      const long long m0 = (blockIdx.x + (long long)i * gridDim.x) * kRows;
+      for (int e = tid; e < kRows * K / 8; e += kDownThreads) {
+        const int r = e / (K / 8), cu = e % (K / 8);
+        const bool ok = m0 + r < Mb;
+        cp16(dst + swz(r, cu, K / 8),
+             ok ? p.x + ((size_t)b * Mb + m0 + r) * K + cu * 8 : p.x, ok);
+      }
+    }
+    cp_commit();
+  };
+  for (int i = 0; i < Cfg::kStages - 1; ++i) load(i);
+
+  const uint32_t sw_u = smem_u32(sw);
+  uint8_t* my_st = sst + warp * 16 * Cfg::kPitch;
+  // the lane's store column (8 units a chunk row) and rows lane / 8 + 4 i
+  const int su = lane & 7, sr0 = lane >> 3;
+  for (int i = 0; i < ntile; ++i) {
+    cp_wait<Cfg::kStages - 2>();
+    __syncthreads();   // tile i (and Wu, the vectors) are in; every warp
+                       // is done with tile i - 1
+    load(i + Cfg::kStages - 1);
+    const long long tile = blockIdx.x + (long long)i * gridDim.x;
+    const uint32_t sa_u =
+        smem_u32(stages + (i % Cfg::kStages) * Cfg::kStage);
+    // A = bf16(relu(x scale + shift)): k-step s holds channels 16 s + 2 t
+    // (+1) in a[0], a[1] and 16 s + 8 + 2 t (+1) in a[2], a[3]
+    uint32_t ga[KS][4];
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      ldsm4(ga[s], sa_u + swz(lrow(16 * warp, lane), lcol(2 * s, lane),
+                              K / 8));
+      const int c0 = 16 * s + 2 * t, c1 = c0 + 8;
+      ga[s][0] = act2(ga[s][0], vsc[c0], vsc[c0 + 1], vsh[c0], vsh[c0 + 1]);
+      ga[s][1] = act2(ga[s][1], vsc[c0], vsc[c0 + 1], vsh[c0], vsh[c0 + 1]);
+      ga[s][2] = act2(ga[s][2], vsc[c1], vsc[c1 + 1], vsh[c1], vsh[c1 + 1]);
+      ga[s][3] = act2(ga[s][3], vsc[c1], vsc[c1 + 1], vsh[c1], vsh[c1 + 1]);
+    }
+    const long long m0 = tile * kRows + 16 * warp;
+    const bool va = m0 + g < Mb, vb = m0 + g + 8 < Mb;
+    // the fine grid's (2z, 2y, 2x) voxel of the lane's store rows
+    __nv_bfloat16* dst[4];
+    bool dok[4];
+    {
+      RowWalk w(m0 + sr0, H2, W2);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        dok[r] = w.m < Mb;
+        dst[r] = p.y + ((((size_t)b * 2 * p.D2 + 2 * w.z) * 2 * H2 +
+                         2 * w.y) * 2 * W2 + 2 * w.x) * C;
+        w.step(4, H2, W2);
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < Cfg::NCH; ++ch) {
+      float acc[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4];
+          ldsm4t(bb, sw_u + swz(lrow(16 * s, lane),
+                                lcol(NC / 8 * ch + 2 * np, lane), N / 8));
+          mma(acc[2 * np], ga[s], bb[0], bb[1]);
+          mma(acc[2 * np + 1], ga[s], bb[2], bb[3]);
+        }
+      // + bias, the stats of the f32 value of real rows, bf16 staged
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int q = nt % Q;
+        const float y0 = acc[nt][0] + bv[q][0], y1 = acc[nt][1] + bv[q][1];
+        const float y2 = acc[nt][2] + bv[q][0], y3 = acc[nt][3] + bv[q][1];
+        if (va) {
+          s1[q][0] += y0; s2[q][0] += y0 * y0;
+          s1[q][1] += y1; s2[q][1] += y1 * y1;
+        }
+        if (vb) {
+          s1[q][0] += y2; s2[q][0] += y2 * y2;
+          s1[q][1] += y3; s2[q][1] += y3 * y3;
+        }
+        *reinterpret_cast<uint32_t*>(my_st + g * Cfg::kPitch +
+                                     (8 * nt + 2 * t) * 2) =
+            pack_bf16x2(y0, y1);
+        *reinterpret_cast<uint32_t*>(my_st + (g + 8) * Cfg::kPitch +
+                                     (8 * nt + 2 * t) * 2) =
+            pack_bf16x2(y2, y3);
+      }
+      __syncwarp();
+      // unit J = 8 ch + su of a row: fine pair (dz, dy) = J / (C / 4),
+      // unit J % (C / 4) of its 2C contiguous values
+      const int J = NC / 8 * ch + su, seg = J / (C / 4);
+      const size_t off =
+          ((size_t)(seg >> 1) * 2 * H2 * 2 * W2 + (seg & 1) * 2 * W2) * C +
+          (J % (C / 4)) * 8;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (dok[r])
+          *reinterpret_cast<uint4*>(dst[r] + off) =
+              *reinterpret_cast<const uint4*>(
+                  my_st + (sr0 + 4 * r) * Cfg::kPitch + su * 16);
+      __syncwarp();
+    }
+  }
+
+  // the block's sums: the 8 row lanes of each warp, then the 4 warps, in
+  // a fixed order
+  cp_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(stages);   // [4][2][C]
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float a = group_sum(s1[q][j]), c = group_sum(s2[q][j]);
+      if (g == 0) {
+        red[warp * 2 * C + 8 * q + 2 * t + j] = a;
+        red[warp * 2 * C + C + 8 * q + 2 * t + j] = c;
+      }
+    }
+  __syncthreads();
+  for (int j = tid; j < 2 * C; j += kDownThreads) {
+    float v = red[j];
+#pragma unroll
+    for (int w = 1; w < kDownThreads / 32; ++w) v += red[w * 2 * C + j];
+    p.part[((size_t)b * gridDim.x + blockIdx.x) * 2 * C + j] = v;
+  }
+}
+
 // ---------------------------------------------------------------- up2x bwd
 
 struct UpBwdArgs {
   const __nv_bfloat16* x;    // (B, D, H, W, 2C) coarse: the forward's input
-  const float* w;            // (2, 2, 2, 2C, C) f32, the forward's taps
+  const __nv_bfloat16* w;    // (8C, 2C) bf16: pack_up_wt
   const float* scale;        // (B, 2C)
   const float* shift;
   const __nv_bfloat16* gy;   // (B, 2D, 2H, 2W, C)
@@ -461,15 +685,11 @@ __global__ void __launch_bounds__(kBwdThreads, (UpCfg<C, NS>::kBlocks))
                         : 0;
   const bool stats = p.gstats != nullptr;
 
-  // Wd[k = d C + o][ii] = w[7 - d][i0 + ii][o], rounded to bf16
+  // Wd[k = d C + o][ii] = w[7 - d][i0 + ii][o] (pack_up_wt's row k)
   for (int e = tid; e < K * NS / 8; e += kBwdThreads) {
     const int k = e / (NS / 8), cu = e % (NS / 8);
-    const int d = k / C, o = k % C;
-    const float* src = p.w + ((size_t)(7 - d) * C2 + i0 + cu * 8) * C + o;
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = src[(size_t)j * C];
-    *reinterpret_cast<uint4*>(sw + swz(k, cu, NS / 8)) = pack8(v);
+    *reinterpret_cast<uint4*>(sw + swz(k, cu, NS / 8)) =
+        *reinterpret_cast<const uint4*>(p.w + (size_t)k * C2 + i0 + cu * 8);
   }
   for (int e = tid; e < NS; e += kBwdThreads) {
     vsc[e] = p.scale[(size_t)b * C2 + i0 + e];
@@ -727,7 +947,7 @@ __global__ void __launch_bounds__(kBwdThreads, (UpCfg<C, NS>::kBlocks))
 
 struct DownBwdArgs {
   const __nv_bfloat16* x;    // (B, D, H, W, C) fine: the forward's input
-  const float* w;            // (2, 2, 2, C, 2C) f32: (8C x 2C) rows
+  const __nv_bfloat16* w;    // (8C, 2C) bf16: pack_down_w
   const float* scale;        // (B, C)
   const float* shift;
   const __nv_bfloat16* gy;   // (B, D/2, H/2, W/2, 2C)
@@ -810,15 +1030,12 @@ __global__ void __launch_bounds__(kBwdThreads, (DownBwdCfg<C, S>::kBlocks))
                         : 0;
   const bool stats = p.gstats != nullptr;
 
-  // Wd[n][k] = w's row z NF + n (tap, fine channel), rounded to bf16
+  // Wd[n][k] = w's row z NF + n (tap, fine channel)
   for (int e = tid; e < NF * N / 8; e += kBwdThreads) {
     const int n = e / (N / 8), ku = e % (N / 8);
-    const float* src = p.w + ((size_t)z * NF + n) * N + ku * 8;
-    const float4 lo = *reinterpret_cast<const float4*>(src);
-    const float4 hi = *reinterpret_cast<const float4*>(src + 4);
     *reinterpret_cast<uint4*>(sw + swz(n, ku, N / 8)) =
-        make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
-                   pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+        *reinterpret_cast<const uint4*>(p.w + ((size_t)z * NF + n) * N +
+                                        ku * 8);
   }
   for (int e = tid; e < C; e += kBwdThreads) {
     vsc[e] = p.scale[(size_t)b * C + e];
@@ -1088,6 +1305,12 @@ int down_grid(int B, int tiles) {
 }
 
 template <int C>
+int up_fwd_grid(int B, int tiles) {
+  return blocks_per_batch(up2x_mma_kernel<C>, kDownThreads,
+                          UpFwdCfg<C>::kSmem, 4, B, 1, tiles);
+}
+
+template <int C>
 int up_grid(int B, int tiles) {
   constexpr int NS = C == 64 ? 32 : 2 * C;
   return blocks_per_batch(up2x_bwd_mma_kernel<C, NS>, kBwdThreads,
@@ -1135,6 +1358,20 @@ int down_launch(const DownArgs& a, float* stats, int B, int gx,
 }
 
 template <int C>
+int up_fwd_launch(const UpArgs& a, float* stats, int B, int gx,
+                  cudaStream_t st) {
+  using Cfg = UpFwdCfg<C>;
+  cudaError_t err = allow_smem(up2x_mma_kernel<C>, Cfg::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  up2x_mma_kernel<C><<<dim3(gx, B), kDownThreads, Cfg::kSmem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fixed_sum_kernel<<<dim3((2 * C + 31) / 32, B), 256, 0, st>>>(a.part, stats,
+                                                              gx, 2 * C);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
 int up_launch(const UpBwdArgs& a, float* out, int gx, cudaStream_t st) {
   constexpr int NS = C == 64 ? 32 : 2 * C;
   using Cfg = UpCfg<C, NS>;
@@ -1155,7 +1392,8 @@ int grid_of(int kind, int B, int tiles) {
   switch (kind) {
     case 0: return down_grid<C>(B, tiles);
     case 1: return up_grid<C>(B, tiles);
-    default: return down_bwd_grid<C>(B, tiles);
+    case 2: return down_bwd_grid<C>(B, tiles);
+    default: return up_fwd_grid<C>(B, tiles);
   }
 }
 
@@ -1169,10 +1407,10 @@ extern "C" {
 
 // Blocks a batch element of a launch (the partial table has B times that
 // many rows, times the slices for down2x's backward): kind 0 down2x, 1
-// up2x's backward, 2 down2x's backward, at fine width C over `tiles`
-// tiles a batch element; 0 for a width the kernels do not take.
+// up2x's backward, 2 down2x's backward, 3 up2x, at fine width C over
+// `tiles` tiles a batch element; 0 for a width the kernels do not take.
 int pcseg_resample_grid(int kind, int B, int C, int tiles) {
-  if (B <= 0 || tiles <= 0 || kind < 0 || kind > 2) return 0;
+  if (B <= 0 || tiles <= 0 || kind < 0 || kind > 3) return 0;
   switch (C) {
     case 8: return grid_of<8>(kind, B, tiles);
     case 16: return grid_of<16>(kind, B, tiles);
@@ -1194,8 +1432,9 @@ int pcseg_down2x_bwd_slices(int C) {
   }
 }
 
-// down2x: x (B, D, H, W, C) bf16 (D, H, W even; 16-byte aligned), w (2, 2,
-// 2, C, 2C) f32 (16-byte aligned), bias (2C,), scale/shift (B, C) f32.
+// down2x: x (B, D, H, W, C) bf16 (D, H, W even; 16-byte aligned), w (8C,
+// 2C) bf16 (pack_down_w, 16-byte aligned), bias (2C,), scale/shift (B, C)
+// f32.
 // Writes y (B, D/2, H/2, W/2, 2C) bf16 and stats (B, 2, 2C) f32 through
 // part, (B, gx, 2, 2C) f32 scratch; gx from pcseg_resample_grid(0, ...).
 int pcseg_down2x_mma(const void* x, const void* w, const void* bias,
@@ -1207,7 +1446,7 @@ int pcseg_down2x_mma(const void* x, const void* w, const void* bias,
     return (int)cudaErrorInvalidValue;
   DownArgs a{};
   a.x = (const __nv_bfloat16*)x;
-  a.w = (const float*)w;
+  a.w = (const __nv_bfloat16*)w;
   a.bias = (const float*)bias;
   a.scale = (const float*)scale;
   a.shift = (const float*)shift;
@@ -1226,7 +1465,39 @@ int pcseg_down2x_mma(const void* x, const void* w, const void* bias,
   }
 }
 
-// up2x's backward: x (B, D, H, W, 2C) bf16 coarse; w (2, 2, 2, 2C, C) f32;
+// up2x: x (B, D, H, W, 2C) bf16 coarse (16-byte aligned), w (2C, 8C) bf16
+// (pack_up_w, 16-byte aligned), bias (C,), scale/shift (B, 2C) f32. Writes
+// y (B, 2D, 2H, 2W, C) bf16 and stats (B, 2, C) f32 through part, (B, gx,
+// 2, C) f32 scratch; gx from pcseg_resample_grid(3, ...).
+int pcseg_up2x_mma(const void* x, const void* w, const void* bias,
+                   const void* scale, const void* shift, void* y, void* stats,
+                   void* part, int B, int D, int H, int W, int C, int gx,
+                   void* stream) {
+  if (B <= 0 || gx <= 0 || D <= 0 || H <= 0 || W <= 0)
+    return (int)cudaErrorInvalidValue;
+  UpArgs a{};
+  a.x = (const __nv_bfloat16*)x;
+  a.w = (const __nv_bfloat16*)w;
+  a.bias = (const float*)bias;
+  a.scale = (const float*)scale;
+  a.shift = (const float*)shift;
+  a.y = (__nv_bfloat16*)y;
+  a.part = (float*)part;
+  a.D2 = D; a.H2 = H; a.W2 = W;
+  a.tiles = (int)tiles_of(D, H, W);
+  float* s = (float*)stats;
+  const auto st = (cudaStream_t)stream;
+  switch (C) {
+    case 8: return up_fwd_launch<8>(a, s, B, gx, st);
+    case 16: return up_fwd_launch<16>(a, s, B, gx, st);
+    case 32: return up_fwd_launch<32>(a, s, B, gx, st);
+    case 64: return up_fwd_launch<64>(a, s, B, gx, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// up2x's backward: x (B, D, H, W, 2C) bf16 coarse; w (8C, 2C) bf16
+// (pack_up_wt);
 // scale/shift (B, 2C); gy and y (B, 2D, 2H, 2W, C) bf16 (y unread without
 // gstats), gstats (B, 2, C) or null; all grids 16-byte aligned. Writes dx
 // (B, D, H, W, 2C) bf16 and out = [dW (2, 2, 2, 2C, C) | dbias (C) |
@@ -1241,7 +1512,7 @@ int pcseg_up2x_bwd_mma(const void* x, const void* w, const void* scale,
     return (int)cudaErrorInvalidValue;
   UpBwdArgs a{};
   a.x = (const __nv_bfloat16*)x;
-  a.w = (const float*)w;
+  a.w = (const __nv_bfloat16*)w;
   a.scale = (const float*)scale;
   a.shift = (const float*)shift;
   a.gy = (const __nv_bfloat16*)gy;
@@ -1262,8 +1533,9 @@ int pcseg_up2x_bwd_mma(const void* x, const void* w, const void* scale,
   }
 }
 
-// down2x's backward: x (B, D, H, W, C) bf16 fine (D, H, W even); w (2, 2,
-// 2, C, 2C) f32; scale/shift (B, C); gy and y (B, D/2, H/2, W/2, 2C) bf16
+// down2x's backward: x (B, D, H, W, C) bf16 fine (D, H, W even); w (8C,
+// 2C) bf16 (pack_down_w); scale/shift (B, C); gy and y (B, D/2, H/2, W/2,
+// 2C) bf16
 // (y unread without gstats), gstats (B, 2, 2C) or null; all grids 16-byte
 // aligned. Writes dx (B, D, H, W, C) bf16 and out = [dW (2, 2, 2, C, 2C) |
 // dbias (2C) | dstats (B, 2, C)] f32 through part, (B gx S, 16 C^2 + 2C +
@@ -1279,7 +1551,7 @@ int pcseg_down2x_bwd_mma(const void* x, const void* w, const void* scale,
     return (int)cudaErrorInvalidValue;
   DownBwdArgs a{};
   a.x = (const __nv_bfloat16*)x;
-  a.w = (const float*)w;
+  a.w = (const __nv_bfloat16*)w;
   a.scale = (const float*)scale;
   a.shift = (const float*)shift;
   a.gy = (const __nv_bfloat16*)gy;

@@ -48,12 +48,14 @@ SIGNATURES = {
         "pcseg_head_grid2_bwd": [_P] * 9 + [_I] * 4 + [_P],
     },
     "conv3d_dgrad": {
-        "pcseg_dgrad_grid": [_I] * 5,
+        "pcseg_ring_grid": [_I] * 6,
+        "pcseg_conv3x3_mma": [_P] * 9 + [_I] * 6 + [_P],
         "pcseg_conv3x3_dgrad_mma": [_P] * 11 + [_I] * 6 + [_P],
     },
     "resample": {
         "pcseg_resample_grid": [_I] * 4,
         "pcseg_down2x_mma": [_P] * 8 + [_I] * 6 + [_P],
+        "pcseg_up2x_mma": [_P] * 8 + [_I] * 6 + [_P],
         "pcseg_up2x_bwd_mma": [_P] * 10 + [_I] * 6 + [_P],
         "pcseg_down2x_bwd_slices": [_I],
         "pcseg_down2x_bwd_mma": [_P] * 10 + [_I] * 6 + [_P],

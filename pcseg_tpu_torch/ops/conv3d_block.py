@@ -40,17 +40,28 @@ Everything is NDHWC. The TPU kernels' 128-lane packing of (W, C) and their
 (B, 128) lane-tiled scale/shift/stats existed only for the TPU's vector
 lanes; here scale/shift are (B, C) and stats (B, 2, C).
 
-The down block's forward and both blocks' backward run, for C in 8, 16,
-32, 64 with 2C on the coarse side (the widths the JAX fused core allows),
-as gathered tensor-core GEMMs (csrc/resample.cu): a coarse voxel's row is
+Both resampling blocks, forward and backward, run, for C in 8, 16, 32,
+64 with 2C on the coarse side (the widths the JAX fused core allows), as
+gathered tensor-core GEMMs (csrc/resample.cu): a coarse voxel's row is
 its eight children's channels (``gather_rows``), so the down conv is
-``gather_rows(act(x)) @ pack_down_w(w)`` and the up block's dgrad
+``gather_rows(act(x)) @ pack_down_w(w)``, the up conv
+``ungather_rows(act(x) @ pack_up_w(w))`` and the up block's dgrad
 ``gather_rows(g') @ pack_up_wt(w)``, its wgrad the transpose of the same
 product; the down block's backward is the transposed pair,
 ``ungather_rows(G @ pack_down_w(w)^T)`` for dx and ``gather_rows(act(x))^T
 @ G`` for dW, with G = bf16(g') on the coarse grid. Other shapes take the
 CUDA-core kernels of csrc/conv3d_block.cu, chosen by shape before the
 launch (``_mma_route``).
+
+The 3^3 conv, forward and dgrad, runs for Cin = Cout in 8, 16, 32, 64 on
+W 16, 32, 64 as one implicit GEMM (csrc/conv3d_dgrad.cu): a plane tile's
+output is the sum over the 27 taps of ring slots of three input planes
+(``ring_slot``) read at the tap's shift, times the packed weights' row
+(``ring_plane``; ``pack_conv_w`` for the forward, ``pack_dgrad_w`` for
+the dgrad). Other shapes take conv3d_block.cu's direct kernel
+(``_conv_route``). The tensor-core kernels read the bf16 weights these
+``pack_*`` helpers return, so the layout the CPU tests hold is the one
+the kernels read.
 
 ``*_cuda`` launch a kernel (csrc/conv3d_block.cu); ``*_plain`` are the
 plain PyTorch versions, with the kernels' rounding points, so the two agree
@@ -78,14 +89,15 @@ from pcseg_tpu_torch.ops.conv3d import num_groups
 
 # launches per kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else. The op keys count
-# either route; "down2x_mma", "up2x_bwd_mma" and "down2x_bwd_mma" count
-# the launches of csrc/resample.cu's gathered tensor-core kernels among
-# them, "conv3x3_dgrad_mma" those of csrc/conv3d_dgrad.cu's implicit GEMM.
+# either route; "down2x_mma", "up2x_mma", "up2x_bwd_mma" and
+# "down2x_bwd_mma" count the launches of csrc/resample.cu's gathered
+# tensor-core kernels among them, "conv3x3_mma" and "conv3x3_dgrad_mma"
+# those of csrc/conv3d_dgrad.cu's implicit GEMM.
 LAUNCHES = {"conv3x3_gn_act": 0, "down2x_gn_act": 0, "up2x_gn_act": 0,
             "conv3x3_dgrad": 0, "conv3x3_wgrad": 0, "down2x_bwd": 0,
             "up2x_bwd": 0, "head_grid2": 0, "head_grid2_bwd": 0,
-            "down2x_mma": 0, "up2x_bwd_mma": 0, "down2x_bwd_mma": 0,
-            "conv3x3_dgrad_mma": 0}
+            "conv3x3_mma": 0, "down2x_mma": 0, "up2x_mma": 0,
+            "up2x_bwd_mma": 0, "down2x_bwd_mma": 0, "conv3x3_dgrad_mma": 0}
 
 
 def reset_launches() -> None:
@@ -313,16 +325,30 @@ def pack_up_wt(w):
     return w.flip(0, 1, 2).transpose(3, 4).reshape(-1, w.shape[3])
 
 
+def pack_up_w(w):
+    """The up conv's (2, 2, 2, C2, C) weights as its forward's (C2, 8C)
+    matrix, the transpose of ``pack_up_wt``: Wu[i][(d, o)] = w[1 - d][i][o],
+    so the up conv is ``ungather_rows(act(x) @ pack_up_w(w))``."""
+    return w.flip(0, 1, 2).permute(3, 0, 1, 2, 4).reshape(w.shape[3], -1)
+
+
 # ---------------------------------------------------------------------------
 # the implicit-GEMM layout of csrc/conv3d_dgrad.cu
 # ---------------------------------------------------------------------------
 
-def dgrad_taps():
-    """The dgrad's tap order: tap t = (kz * 3 + ky) * 3 + kx reads g' at
-    the voxel offset (kz - 1, ky - 1, kx - 1) and multiplies row t of
-    ``pack_dgrad_w``."""
+def ring_taps():
+    """The 3^3 GEMM's tap order: tap t = (kz * 3 + ky) * 3 + kx reads the
+    ring at the voxel offset (kz - 1, ky - 1, kx - 1) and multiplies row t
+    of the packed weights (``pack_conv_w``, ``pack_dgrad_w``)."""
     return [(kz - 1, ky - 1, kx - 1) for kz in range(3) for ky in range(3)
             for kx in range(3)]
+
+
+def pack_conv_w(w):
+    """The forward's (3, 3, 3, Cin, Cout) weights as its B operand (27,
+    Cout, Cin): row t holds tap t, [n = co][k = ci] (K contiguous), so y =
+    sum_t A_t @ pack_conv_w(w)[t]^T."""
+    return w.reshape(27, w.shape[3], w.shape[4]).transpose(1, 2)
 
 
 def pack_dgrad_w(w):
@@ -333,10 +359,11 @@ def pack_dgrad_w(w):
 
 
 def ring_slot(g, b, pd, h0, th):
-    """A ring slot of the dgrad: plane pd of g' (B, D, H, W, C), rows h0 - 1
-    .. h0 + th and columns -1 .. W as ((th + 2) (W + 2), C), zeros outside
-    the grid (the conv's zero padding). Position v = r (W + 2) + c holds
-    voxel (h0 - 1 + r, c - 1)."""
+    """A ring slot: plane pd of the ring's source (B, D, H, W, C), the
+    forward's activated input or the dgrad's g', rows h0 - 1 .. h0 + th and
+    columns -1 .. W as ((th + 2) (W + 2), C), zeros outside the grid (the
+    conv's zero padding). Position v = r (W + 2) + c holds voxel (h0 - 1 +
+    r, c - 1)."""
     _, d, h, w, c = g.shape
     out = g.new_zeros((th + 2, w + 2, c))
     if 0 <= pd < d:
@@ -352,16 +379,18 @@ def ring_swizzle(u, units):
     return u ^ ((u >> 3) & (units - 1))
 
 
-def dgrad_plane(g, wpk, b, d, h0, th):
-    """Rows h0 .. h0 + th of output plane d of da (th, W, Cin), as the
-    kernel's GEMM: sum over the taps of the ring slots of planes d - 1, d,
-    d + 1 read at the tap's shift, times ``pack_dgrad_w``'s row."""
+def ring_plane(g, wpk, b, d, h0, th):
+    """Rows h0 .. h0 + th of output plane d (th, W, N) of the kernel's GEMM:
+    sum over the taps of the ring slots of planes d - 1, d, d + 1 of the
+    source g read at the tap's shift, times the packed weights' row (the
+    dgrad's da with g' and ``pack_dgrad_w``, the forward's conv with the
+    activated input and ``pack_conv_w``)."""
     w = g.shape[3]
     slots = {pd: ring_slot(g, b, pd, h0, th) for pd in (d - 1, d, d + 1)}
     r = torch.arange(th)[:, None]
     c = torch.arange(w)[None, :]
     da = 0.0
-    for t, (dz, dy, dx) in enumerate(dgrad_taps()):
+    for t, (dz, dy, dx) in enumerate(ring_taps()):
         v = ((r + 1 + dy) * (w + 2) + (c + 1 + dx)).reshape(-1)
         da = da + slots[d + dz][v] @ wpk[t].t()
     return da.reshape(th, w, -1)
@@ -463,10 +492,10 @@ def conv3x3_gn_act_cuda(x, w, bias, scale, shift, accum=None, *,
     x (B, D, H, W, Cin) bf16; w (3, 3, 3, Cin, Cout) DHWIO, rounded to
     bf16; bias (Cout,) f32; scale/shift (B, Cin) f32, ignored (may be None)
     when ``activate=False``; accum (B, D, H, W, Cout) bf16 added in f32
-    after the bias. Returns (y bf16, stats (B, 2, Cout) f32 or None).
+    after the bias. Returns (y bf16, stats (B, 2, Cout) f32 or None). The
+    tensor-core implicit GEMM where ``_conv_route`` takes the shape.
     """
     cout = _common(x, w, bias, scale, shift, 3, activate)
-    wq = _wq(w).contiguous()
     b, d, h, wd, cin = x.shape
     if wd % 4:
         raise ValueError(f"W={wd} must be a multiple of 4")
@@ -474,16 +503,38 @@ def conv3x3_gn_act_cuda(x, w, bias, scale, shift, accum=None, *,
         _check("accum", accum, (b, d, h, wd, cout), torch.bfloat16, x.device)
     y = torch.empty((b, d, h, wd, cout), dtype=torch.bfloat16,
                     device=x.device)
-    stats = _f32_zeros(x, b, 2, cout) if want_stats else None
-    rc = load_library().pcseg_conv3x3_gn_act(
-        x.data_ptr(), wq.data_ptr(), bias.data_ptr(),
-        ptr(scale) if activate else None, ptr(shift) if activate else None,
-        ptr(accum), y.data_ptr(), ptr(stats), b, d, h, wd, cin, cout,
-        int(activate), stream_of(x),
-    )
-    raise_on(rc, "conv3x3_gn_act")
+    vecs = (ptr(scale) if activate else None,
+            ptr(shift) if activate else None)
+    if _conv_route(cin, cout, x.shape, x, accum):
+        gx = _ring_grid(1, b, cin, d, h, wd, x.device.index)
+        stats = part = None
+        if want_stats:
+            stats = torch.empty((b, 2, cout), dtype=torch.float32,
+                                device=x.device)
+            part = torch.empty((b, gx, 2, cout), dtype=torch.float32,
+                               device=x.device)
+        rc = load_library("conv3d_dgrad").pcseg_conv3x3_mma(
+            x.data_ptr(), _bf16_packed(pack_conv_w(w)).data_ptr(),
+            bias.data_ptr(), *vecs, ptr(accum), y.data_ptr(), ptr(stats),
+            ptr(part), b, d, h, wd, cin, gx, stream_of(x))
+        raise_on(rc, "conv3x3_mma")
+        LAUNCHES["conv3x3_mma"] += 1
+    else:
+        stats = _f32_zeros(x, b, 2, cout) if want_stats else None
+        rc = load_library().pcseg_conv3x3_gn_act(
+            x.data_ptr(), _wq(w).contiguous().data_ptr(), bias.data_ptr(),
+            *vecs, ptr(accum), y.data_ptr(), ptr(stats), b, d, h, wd, cin,
+            cout, int(activate), stream_of(x),
+        )
+        raise_on(rc, "conv3x3_gn_act")
     LAUNCHES["conv3x3_gn_act"] += 1
     return y, stats
+
+
+def _bf16_packed(w):
+    """A tensor-core kernel's B operand: packed weights as contiguous bf16
+    (the rounding the plain versions take in ``_wq``)."""
+    return w.to(torch.bfloat16).contiguous()
 
 
 def _mma_route(c, c2, *grids):
@@ -498,8 +549,8 @@ def _mma_route(c, c2, *grids):
 @functools.lru_cache(maxsize=None)
 def _mma_grid(kind, b, c, tiles, device_index):
     """Blocks a batch element of a resample.cu launch (kind 0 down2x, 1
-    up2x's backward, 2 down2x's backward): the rows of its partial table
-    are B times this (times ``_down_bwd_slices`` for kind 2)."""
+    up2x's backward, 2 down2x's backward, 3 up2x): the rows of its partial
+    table are B times this (times ``_down_bwd_slices`` for kind 2)."""
     with torch.cuda.device(device_index):
         gx = load_library("resample").pcseg_resample_grid(kind, b, c, tiles)
     if gx <= 0:
@@ -525,8 +576,7 @@ def down2x_gn_act_cuda(x, w, bias, scale, shift):
                          f"got {tuple(x.shape)}")
     y = torch.empty((b, d // 2, h // 2, wd // 2, cout), dtype=torch.bfloat16,
                     device=x.device)
-    w32 = w.float().contiguous()
-    if _mma_route(cin, cout, x, w32):
+    if _mma_route(cin, cout, x):
         gx = _mma_grid(0, b, cin, _tiles(d // 2, h // 2, wd // 2),
                        x.device.index)
         stats = torch.empty((b, 2, cout), dtype=torch.float32,
@@ -534,9 +584,10 @@ def down2x_gn_act_cuda(x, w, bias, scale, shift):
         part = torch.empty((b, gx, 2, cout), dtype=torch.float32,
                            device=x.device)
         rc = load_library("resample").pcseg_down2x_mma(
-            x.data_ptr(), w32.data_ptr(), bias.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), y.data_ptr(), stats.data_ptr(), part.data_ptr(),
-            b, d, h, wd, cin, gx, stream_of(x))
+            x.data_ptr(), _bf16_packed(pack_down_w(w)).data_ptr(),
+            bias.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            y.data_ptr(), stats.data_ptr(), part.data_ptr(), b, d, h, wd,
+            cin, gx, stream_of(x))
         raise_on(rc, "down2x_mma")
         LAUNCHES["down2x_mma"] += 1
     else:
@@ -556,51 +607,66 @@ def up2x_gn_act_cuda(x, w, bias, scale, shift):
 
     x (B, D, H, W, C2) bf16; w (2, 2, 2, C2, C): output 2i+d takes
     x[i] @ w[1-d] per axis. Returns (y (B, 2D, 2H, 2W, C) bf16,
-    stats (B, 2, C) f32).
+    stats (B, 2, C) f32). The gathered tensor-core GEMM where
+    ``_mma_route`` takes the shape.
     """
     cout = _common(x, w, bias, scale, shift, 2)
-    wq = _wq(w).contiguous()
     b, d, h, wd, cin = x.shape
     if wd % 2:
         raise ValueError(f"up2x needs even W, got {tuple(x.shape)}")
     y = torch.empty((b, 2 * d, 2 * h, 2 * wd, cout), dtype=torch.bfloat16,
                     device=x.device)
-    stats = _f32_zeros(x, b, 2, cout)
-    rc = load_library().pcseg_up2x_gn_act(
-        x.data_ptr(), wq.data_ptr(), bias.data_ptr(), scale.data_ptr(),
-        shift.data_ptr(), y.data_ptr(), stats.data_ptr(), b, d, h, wd, cin,
-        cout, stream_of(x),
-    )
-    raise_on(rc, "up2x_gn_act")
+    if _mma_route(cout, cin, x):
+        gx = _mma_grid(3, b, cout, _tiles(d, h, wd), x.device.index)
+        stats = torch.empty((b, 2, cout), dtype=torch.float32,
+                            device=x.device)
+        part = torch.empty((b, gx, 2, cout), dtype=torch.float32,
+                           device=x.device)
+        rc = load_library("resample").pcseg_up2x_mma(
+            x.data_ptr(), _bf16_packed(pack_up_w(w)).data_ptr(),
+            bias.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            y.data_ptr(), stats.data_ptr(), part.data_ptr(), b, d, h, wd,
+            cout, gx, stream_of(x))
+        raise_on(rc, "up2x_mma")
+        LAUNCHES["up2x_mma"] += 1
+    else:
+        stats = _f32_zeros(x, b, 2, cout)
+        rc = load_library().pcseg_up2x_gn_act(
+            x.data_ptr(), _wq(w).contiguous().data_ptr(), bias.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
+            stats.data_ptr(), b, d, h, wd, cin, cout, stream_of(x),
+        )
+        raise_on(rc, "up2x_gn_act")
     LAUNCHES["up2x_gn_act"] += 1
     return y, stats
 
 
-# voxels of the implicit-GEMM dgrad's plane tile, TH rows of all W
-# (csrc/conv3d_dgrad.cu DgradCfg::M)
-_DGRAD_TILE = {8: 256, 16: 256, 32: 256, 64: 128}
+# voxels of the implicit GEMM's plane tile, TH rows of all W
+# (csrc/conv3d_dgrad.cu RingCfg::M)
+_RING_TILE = {8: 256, 16: 256, 32: 256, 64: 128}
 
 
-def _dgrad_route(cin, cout, shape, *grids):
+def _conv_route(cin, cout, shape, *grids):
     """True where csrc/conv3d_dgrad.cu's tensor-core implicit GEMM takes a
-    3^3 dgrad of a (B, D, H, W, C) grid: Cin = Cout in 8, 16, 32, 64 (the
-    JAX fused core's widths), W in 16, 32, 64 (not 64 at 64 channels,
-    whose ring of planes would not fit in shared memory), H a multiple of
-    the plane tile's rows and 16-byte aligned grids (its 16-byte copies).
-    Other shapes run on conv3d_block.cu's conv_kernel."""
+    3^3 forward or dgrad of a (B, D, H, W, C) grid: Cin = Cout in 8, 16,
+    32, 64 (the JAX fused core's widths), W in 16, 32, 64 (not 64 at 64
+    channels, whose ring of planes would not fit in shared memory), H a
+    multiple of the plane tile's rows and 16-byte aligned grids (its
+    16-byte copies). Other shapes run on conv3d_block.cu's conv_kernel."""
     h, w = shape[2], shape[3]
-    tile = _DGRAD_TILE.get(cin)
+    tile = _RING_TILE.get(cin)
     return (tile is not None and cout == cin and w in (16, 32, 64)
             and not (cin == 64 and w == 64) and h % (tile // w) == 0
             and all(t is None or t.data_ptr() % 16 == 0 for t in grids))
 
 
 @functools.lru_cache(maxsize=None)
-def _dgrad_grid(b, c, d, h, w, device_index):
-    """Blocks a (batch element, Cin slice) of a conv3d_dgrad.cu launch:
-    the rows of its partial table are B times this."""
+def _ring_grid(fwd, b, c, d, h, w, device_index):
+    """Blocks a (batch element, N slice) of a conv3d_dgrad.cu forward
+    (``fwd`` 1) or dgrad (0): the rows of its partial table are B times
+    this."""
     with torch.cuda.device(device_index):
-        gx = load_library("conv3d_dgrad").pcseg_dgrad_grid(b, c, d, h, w)
+        gx = load_library("conv3d_dgrad").pcseg_ring_grid(fwd, b, c, d, h, w)
     if gx <= 0:
         raise RuntimeError(f"conv3d_dgrad.cu: no launch grid for C={c}, "
                            f"grid {d}x{h}x{w}")
@@ -613,7 +679,7 @@ def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
     output and gstats (B, 2, Cout) its stats cotangent, or both None; x
     the forward's input. Returns (dx bf16, dstats (B, 2, Cin) = (dscale,
     dshift) or None without the activation, g' bf16 when ``want_gadj``).
-    The tensor-core implicit GEMM where ``_dgrad_route`` takes the
+    The tensor-core implicit GEMM where ``_conv_route`` takes the
     shape."""
     cout = _common(x, w, None, scale, shift, 3, activate)
     b, d, h, wd, cin = x.shape
@@ -623,9 +689,9 @@ def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
     _cotangents(gy, y, gstats, (b, d, h, wd, cout))
     dx = torch.empty_like(x)
     gadj = torch.empty_like(gy) if want_gadj and gstats is not None else None
-    if _dgrad_route(cin, cout, x.shape, x, gy,
-                    y if gstats is not None else None):
-        gx = _dgrad_grid(b, cin, d, h, wd, x.device.index)
+    if _conv_route(cin, cout, x.shape, x, gy,
+                   y if gstats is not None else None):
+        gx = _ring_grid(0, b, cin, d, h, wd, x.device.index)
         dstats = part = None
         if activate:
             dstats = torch.empty((b, 2, cin), dtype=torch.float32,
@@ -634,7 +700,8 @@ def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
                                device=x.device)
         rc = load_library("conv3d_dgrad").pcseg_conv3x3_dgrad_mma(
             gy.data_ptr(), ptr(y) if gstats is not None else None,
-            ptr(gstats), x.data_ptr(), w.float().contiguous().data_ptr(),
+            ptr(gstats), x.data_ptr(),
+            _bf16_packed(pack_dgrad_w(w)).data_ptr(),
             ptr(scale) if activate else None,
             ptr(shift) if activate else None, dx.data_ptr(), ptr(dstats),
             ptr(gadj), ptr(part), b, d, h, wd, cin, gx, stream_of(x))
@@ -733,8 +800,8 @@ def down2x_bwd_cuda(x, w, scale, shift, gy, y, gstats):
     part = torch.empty((b * gx * _down_bwd_slices(c), out.numel()),
                        dtype=torch.float32, device=x.device)
     rc = load_library("resample").pcseg_down2x_bwd_mma(
-        x.data_ptr(), w.float().contiguous().data_ptr(), scale.data_ptr(),
-        shift.data_ptr(), gy.data_ptr(),
+        x.data_ptr(), _bf16_packed(pack_down_w(w)).data_ptr(),
+        scale.data_ptr(), shift.data_ptr(), gy.data_ptr(),
         ptr(y) if gstats is not None else None, ptr(gstats), dx.data_ptr(),
         out.data_ptr(), part.data_ptr(), b, d, h, wd, c, gx, stream_of(x))
     raise_on(rc, "down2x_bwd_mma")
@@ -767,8 +834,8 @@ def up2x_bwd_cuda(x, w, scale, shift, gy, y, gstats):
     part = torch.empty((b * gx, out.numel()), dtype=torch.float32,
                        device=x.device)
     rc = load_library("resample").pcseg_up2x_bwd_mma(
-        x.data_ptr(), w.float().contiguous().data_ptr(), scale.data_ptr(),
-        shift.data_ptr(), gy.data_ptr(),
+        x.data_ptr(), _bf16_packed(pack_up_wt(w)).data_ptr(),
+        scale.data_ptr(), shift.data_ptr(), gy.data_ptr(),
         ptr(y) if gstats is not None else None, ptr(gstats), dx.data_ptr(),
         out.data_ptr(), part.data_ptr(), b, d, h, wd, c, gx, stream_of(x))
     raise_on(rc, "up2x_bwd_mma")

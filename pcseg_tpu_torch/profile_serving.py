@@ -113,7 +113,8 @@ STAGES = (("gp_wgmma_fwd", "global_pool"),
           ("trilinear_gather_kernel", "devox_gather"),
           ("trilinear_scatter_kernel", "devox_scatter"),
           ("conv_kernel", "conv"), ("up_kernel", "conv"),
-          ("wgrad_kernel", "conv"), ("down2x_mma_kernel", "conv"),
+          ("wgrad_kernel", "conv"), ("conv3x3_mma_kernel", "conv"),
+          ("down2x_mma_kernel", "conv"), ("up2x_mma_kernel", "conv"),
           ("up2x_bwd_mma_kernel", "conv"), ("down2x_bwd_mma_kernel", "conv"),
           ("dgrad_mma_kernel", "conv"), ("fixed_sum_kernel", "conv"))
 

@@ -125,8 +125,12 @@ def test_default_model_launches_and_matches_plain(gen):
     vx.reset_launches()
     out = model(pts, mask)
     torch.cuda.synchronize()
+    # grid 16: the six level-0 3^3 forwards take the implicit GEMM (W 16),
+    # the 8^3 and 4^3 ones the direct kernel; both up blocks the gathered
+    # GEMM
     fwd = {"conv3x3_gn_act": 13, "down2x_gn_act": 2, "up2x_gn_act": 2,
-           "head_grid2": 1, "down2x_mma": 2}
+           "head_grid2": 1, "conv3x3_mma": 6, "down2x_mma": 2,
+           "up2x_mma": 2}
     assert cb.LAUNCHES == {k: fwd.get(k, 0) for k in cb.LAUNCHES}
     assert vx.LAUNCHES == {"voxelize_contract": 1, "trilinear_gather": 1,
                            "trilinear_scatter": 0}

@@ -321,13 +321,14 @@ def test_train_step_through_the_kernels(gen):
     vx.reset_launches()
     gk = grads(False)
     torch.cuda.synchronize()
-    # grid 16: the five level-0 dgrads take the implicit GEMM (W 16), the
-    # 8^3 and 4^3 ones the direct kernel
+    # grid 16: the six level-0 forwards and five level-0 dgrads take the
+    # implicit GEMM (W 16), the 8^3 and 4^3 ones the direct kernel
     assert cb.LAUNCHES == {"conv3x3_gn_act": 13, "down2x_gn_act": 2,
                            "up2x_gn_act": 2, "conv3x3_dgrad": 12,
                            "conv3x3_wgrad": 13, "down2x_bwd": 2,
                            "up2x_bwd": 2, "head_grid2": 0,
-                           "head_grid2_bwd": 0, "down2x_mma": 2,
+                           "head_grid2_bwd": 0, "conv3x3_mma": 6,
+                           "down2x_mma": 2, "up2x_mma": 2,
                            "up2x_bwd_mma": 2, "down2x_bwd_mma": 2,
                            "conv3x3_dgrad_mma": 5}
     assert vx.LAUNCHES == {"voxelize_contract": 0, "trilinear_gather": 0,

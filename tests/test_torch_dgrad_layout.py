@@ -1,10 +1,10 @@
 """The operand layout of csrc/conv3d_dgrad.cu's implicit-GEMM 3^3 dgrad,
 on the CPU.
 
-``dgrad_taps``, ``pack_dgrad_w``, ``ring_slot`` and ``ring_swizzle``
+``ring_taps``, ``pack_dgrad_w``, ``ring_slot`` and ``ring_swizzle``
 state the layout the kernel computes by index: each is checked element
 by element, and the GEMM built from them plane by plane
-(``dgrad_plane``, with the plain version's rounding points: g' and the
+(``ring_plane``, with the plain version's rounding points: g' and the
 weights in bf16, f32 sums) against ``conv3x3_dgrad_plain`` and the VJP of
 the JAX package's ``fused_conv3x3_p`` / ``fused_conv3x3_add_p`` in
 interpret mode, on the same numpy-seeded inputs, for the variants the
@@ -74,13 +74,13 @@ def test_taps_and_packed_weights_index_by_index():
     w = _t(rng.normal(size=(3, 3, 3, 8, 16)))
     wpk = tcb.pack_dgrad_w(w)
     assert wpk.shape == (27, 8, 16)
-    for t, (dz, dy, dx) in enumerate(tcb.dgrad_taps()):
+    for t, (dz, dy, dx) in enumerate(tcb.ring_taps()):
         kz, ky, kx = dz + 1, dy + 1, dx + 1
         assert t == (kz * 3 + ky) * 3 + kx
         assert torch.equal(wpk[t], w[2 - kz, 2 - ky, 2 - kx])
     # the flipped, IO-swapped weights of the direct kernel, transposed back
     wt = tcb._wt(w)
-    for t, (dz, dy, dx) in enumerate(tcb.dgrad_taps()):
+    for t, (dz, dy, dx) in enumerate(tcb.ring_taps()):
         assert torch.equal(tcb._wq(wpk[t]).t(), wt[dz + 1, dy + 1, dx + 1])
 
 
@@ -172,7 +172,7 @@ def test_implicit_gemm_matches_plain_and_jax_vjp(c, dhw, th, case):
     gp = tcb._gprime(tgy, ty, tgs, "3x3").to(torch.bfloat16)
     wpk = tcb.pack_dgrad_w(tcb._wq(tw))
     da = torch.stack([torch.stack([
-        torch.cat([tcb.dgrad_plane(gp.float(), wpk, bi, di, h0, th)
+        torch.cat([tcb.ring_plane(gp.float(), wpk, bi, di, h0, th)
                    for h0 in range(0, h, th)]) for di in range(d)])
         for bi in range(b)])
     dx, dstats = tcb._act_grad(da, tx, tsc, tsh, True)
@@ -195,14 +195,16 @@ def test_implicit_gemm_matches_plain_and_jax_vjp(c, dhw, th, case):
     (16, 16, (8, 6, 64), False), (16, 16, (8, 16, 48), False)])
 def test_dgrad_route_is_declared_by_shape(cin, cout, dhw, route):
     """conv3d_dgrad.cu takes Cin = Cout in 8..64 with W in 16, 32, 64 (not
-    64 at 64 channels) and H a multiple of the plane tile's rows; every
-    other shape the wrapper accepts stays on conv3d_block.cu's kernel."""
+    64 at 64 channels) and H a multiple of the plane tile's rows, for the
+    dgrad and the forward alike (one kernel template, one rule:
+    ``_conv_route``); every other shape the wrappers accept stays on
+    conv3d_block.cu's kernel."""
     x = torch.zeros(1, *dhw, cin, dtype=torch.bfloat16)
-    assert tcb._dgrad_route(cin, cout, x.shape, x) is route
+    assert tcb._conv_route(cin, cout, x.shape, x) is route
 
 
 def _dgrad_cfg(c):
-    """csrc/conv3d_dgrad.cu's DgradCfg<C> and launch constants, evaluated
+    """csrc/conv3d_dgrad.cu's RingCfg<C> and launch constants, evaluated
     from the source (its ternaries and integer divisions)."""
     src = (Path(tcb.__file__).resolve().parents[1] / "csrc"
            / "conv3d_dgrad.cu").read_text()
@@ -210,7 +212,7 @@ def _dgrad_cfg(c):
     for name in ("kThreads", "kWarps", "kSmemMax"):
         env[name] = eval(re.search(rf"constexpr int {name} = ([^;]+);",
                                    src)[1].replace("/", "//"), {}, env)
-    body = re.search(r"struct DgradCfg \{(.*?)\n\};", src, re.S)[1]
+    body = re.search(r"struct RingCfg \{(.*?)\n\};", src, re.S)[1]
     for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);",
                                  body):
         expr = expr.replace("/", "//")
@@ -223,28 +225,30 @@ def _dgrad_cfg(c):
 
 @pytest.mark.parametrize("c", [8, 16, 32, 64])
 def test_dgrad_tile_table_matches_the_kernel(c):
-    """``_DGRAD_TILE`` and ``_dgrad_route``'s W set restate what
-    conv3d_dgrad.cu's dgrad_plan takes (DgradCfg<C>::M voxels a plane
+    """``_RING_TILE`` and ``_conv_route``'s W set restate what
+    conv3d_dgrad.cu's ring_plan takes (RingCfg<C>::M voxels a plane
     tile; W a multiple of 16 up to kWmax that divides M; the ring, W, the
     x tiles and the vectors within kSmemMax): the same at every W."""
     cfg = _dgrad_cfg(c)
     m = cfg["M"]
-    assert tcb._DGRAD_TILE[c] == m
+    assert tcb._RING_TILE[c] == m
     for w in range(8, 129, 8):
         kernel = w % 16 == 0 and w <= cfg["kWmax"] and m % w == 0
         if kernel:
             slot = (m // w + 2) * (w + 2) * c * 2
             smem = cfg["kW"] + cfg["kVec"] + 2 * cfg["kX"] + 3 * slot
             assert smem <= cfg["kSmemMax"], (c, w, smem)
-        assert tcb._dgrad_route(c, c, (1, 2, m, w, c)) is kernel, (c, w)
+        assert tcb._conv_route(c, c, (1, 2, m, w, c)) is kernel, (c, w)
 
 
 def test_dgrad_route_needs_16_byte_aligned_grids():
     base = torch.zeros(2 * 4 * 16 * 16 * 16 + 8, dtype=torch.bfloat16)
     x = base[:-8].view(2, 4, 16, 16, 16)
     shifted = base[1:-7].view(2, 4, 16, 16, 16)
-    assert tcb._dgrad_route(16, 16, x.shape, x)
-    assert not tcb._dgrad_route(16, 16, x.shape, shifted)
+    assert tcb._conv_route(16, 16, x.shape, x)
+    assert not tcb._conv_route(16, 16, x.shape, shifted)
+    # a second grid (the forward's accum, the dgrad's gy) is held alike
+    assert not tcb._conv_route(16, 16, x.shape, x, shifted)
 
 
 class _FakeLibrary:
@@ -264,13 +268,13 @@ class _FakeLibrary:
                                      (8, "pcseg_conv3x3_dgrad")])
 def test_dgrad_launches_the_kernel_its_route_names(monkeypatch, w, entry):
     """conv3x3_dgrad_cuda launches conv3d_dgrad.cu's implicit GEMM exactly
-    where ``_dgrad_route`` takes the shape (W 16), else conv3d_block.cu's
+    where ``_conv_route`` takes the shape (W 16), else conv3d_block.cu's
     direct kernel (W 8), and counts the launch under its keys."""
     calls = []
     monkeypatch.setattr(tcb, "load_library",
                         lambda name=None: _FakeLibrary(calls))
     monkeypatch.setattr(tcb, "stream_of", lambda t: 0)
-    monkeypatch.setattr(tcb, "_dgrad_grid", lambda *a: 1)
+    monkeypatch.setattr(tcb, "_ring_grid", lambda *a: 1)
     c = 16
     x = torch.zeros(2, 4, 16, w, c, dtype=torch.bfloat16)
     wt = torch.zeros(3, 3, 3, c, c)

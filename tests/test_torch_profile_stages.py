@@ -71,13 +71,17 @@ def test_pointnet_kernels_have_their_stage(name, stage):
     NS + "up2x_bwd_mma_kernel<16, 32>((anonymous namespace)::UpBwdArgs)",
     NS + "down2x_bwd_mma_kernel<16, 1>((anonymous namespace)::"
     "DownBwdArgs)",
-    NS + "dgrad_mma_kernel<16>((anonymous namespace)::DgradArgs)",
+    NS + "dgrad_mma_kernel<16>((anonymous namespace)::RingArgs)",
+    NS + "conv3x3_mma_kernel<16>((anonymous namespace)::RingArgs)",
+    NS + "conv3x3_mma_kernel<64>((anonymous namespace)::RingArgs)",
+    NS + "up2x_mma_kernel<16>((anonymous namespace)::UpArgs)",
+    NS + "up2x_mma_kernel<32>((anonymous namespace)::UpArgs)",
     "mma_sync::fixed_sum_kernel(float const*, float*, int, long long)",
 ])
 def test_resample_kernels_are_conv_stage(name):
     """csrc/resample.cu's and csrc/conv3d_dgrad.cu's kernels (rows 4, 5,
-    7 and 2 and their fixed-order sums) book under the voxel U-Net's conv
-    stage, as the kernels they took over from did."""
+    7, 2, 1 and 6 and their fixed-order sums) book under the voxel U-Net's
+    conv stage, as the kernels they took over from did."""
     assert stage_of(name) == "conv"
 
 

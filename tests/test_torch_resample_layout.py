@@ -1,13 +1,12 @@
 """The operand layout of csrc/resample.cu's gathered tensor-core kernels
-(the down block's forward and backward, the up block's backward), on the
-CPU.
+(both resampling blocks, forward and backward), on the CPU.
 
-``gather_rows``, ``ungather_rows``, ``pack_down_w`` and ``pack_up_wt``
-state the layout the kernels compute by index: each is checked element
-by element, and the gathered GEMMs built from them (the kernels'
-products, with the plain versions' rounding points) against the plain
-versions and the JAX package's Pallas kernels (``fused_down2x_p`` and
-its VJP, the VJP of ``fused_up2x_p``) in interpret mode, on the same
+``gather_rows``, ``ungather_rows``, ``pack_down_w``, ``pack_up_w`` and
+``pack_up_wt`` state the layout the kernels compute by index: each is
+checked element by element, and the gathered GEMMs built from them (the
+kernels' products, with the plain versions' rounding points) against the
+plain versions and the JAX package's Pallas kernels (``fused_down2x_p``
+and ``fused_up2x_p`` and their VJPs) in interpret mode, on the same
 numpy-seeded inputs.
 
 Tolerances: every side rounds the activated input, g' and the weights to
@@ -84,6 +83,15 @@ def down2x_gathered(x, w, bias, scale, shift):
     return tcb._finish(yf, bias, None, True)
 
 
+def up2x_gathered(x, w, bias, scale, shift):
+    """The up block as the gathered GEMM resample.cu runs: y =
+    ungather_rows(act(x) @ pack_up_w(w)) + bias, (y bf16, stats (B, 2,
+    C))."""
+    a = tcb._prologue(x, scale, shift, True)
+    yf = tcb.ungather_rows(a @ tcb._wq(tcb.pack_up_w(w)))
+    return tcb._finish(yf.permute(0, 4, 1, 2, 3), bias, None, True)
+
+
 def up2x_bwd_gathered(x, w, scale, shift, gy, y, gstats):
     """The up block's backward as the one-sweep kernel's GEMMs: da = G @
     Wd and dW^T = G^T @ a with G = gather_rows(bf16(g'))."""
@@ -146,6 +154,14 @@ def test_layout_helpers_index_by_index(c):
                 assert torch.equal(wd[ks], w_down[dz, dy, dx])
                 assert torch.equal(wt[ks], w_up[1 - dz, 1 - dy, 1 - dx].t())
     assert torch.equal(unpack_up_dw(wt, c), w_up)
+    # pack_up_w is pack_up_wt's transpose: Wu[i][(d, o)] = w[1 - d][i][o]
+    wu = tcb.pack_up_w(w_up)
+    assert wu.shape == (2 * c, 8 * c) and torch.equal(wu, wt.t())
+    for tap, (dz, dy, dx) in enumerate(np.ndindex(2, 2, 2)):
+        for i in range(2 * c):
+            for o in range(c):
+                assert wu[i, tap * c + o] == w_up[1 - dz, 1 - dy, 1 - dx, i,
+                                                  o]
     # ungather_rows puts each row element back where gather_rows took it;
     # the backward's four column slices at C = 64 (resample.cu
     # down_bwd_slices) are the fine pairs (dz, dy), 2C columns each
@@ -173,6 +189,33 @@ def test_gathered_down2x_matches_plain_and_jax(c, dhw):
     y, stats = down2x_gathered(*args)
     y_p, stats_p = tcb.down2x_gn_act_plain(*args)
     assert y.dtype == torch.bfloat16 and y.shape == (b, d2, h2, w2, 2 * c)
+    for ref, label in ((y_jax, "jax"), (y_p, "plain")):
+        _bf16_close(y, ref, f"y vs {label}")
+    for ref in (st_jax, stats_p):
+        np.testing.assert_allclose(_np(stats), _np(ref), rtol=1e-4,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("c,dhw", SHAPES)
+def test_gathered_up2x_matches_plain_and_jax(c, dhw):
+    """Row 6's product: the coarse rows times pack_up_w, back to the fine
+    grid through the gather's inverse, + bias, with the stats of the f32
+    value per (batch, channel) over the eight children."""
+    rng = np.random.default_rng(80 + c)
+    b = 2
+    coarse = tuple(n // 2 for n in dhw)
+    x, w, bias, scale, shift = _grid_inputs(rng, b, coarse, 2 * c, c)
+    xp, meta = jcb.pack_grid(jnp.asarray(x, jnp.bfloat16))
+    yp, (h, _, c1), st = jcb.fused_up2x_p(
+        xp, jnp.asarray(w), jnp.asarray(bias), _lanes(scale, 2 * c),
+        _lanes(shift, 2 * c), meta, interpret=True)
+    y_jax = jcb.unpack_grid(yp, h, dhw[2], c1)
+    st_jax = _fold_lanes(st, c1)
+
+    args = (_t(x, torch.bfloat16), _t(w), _t(bias), _t(scale), _t(shift))
+    y, stats = up2x_gathered(*args)
+    y_p, stats_p = tcb.up2x_gn_act_plain(*args)
+    assert y.dtype == torch.bfloat16 and y.shape == (b, *dhw, c)
     for ref, label in ((y_jax, "jax"), (y_p, "plain")):
         _bf16_close(y, ref, f"y vs {label}")
     for ref in (st_jax, stats_p):
@@ -321,3 +364,29 @@ def test_down2x_bwd_launches_the_kernel_its_route_names(monkeypatch, c2,
     mma = int(entry.endswith("_mma"))
     assert tcb.LAUNCHES["down2x_bwd"] == before["down2x_bwd"] + 1
     assert tcb.LAUNCHES["down2x_bwd_mma"] == before["down2x_bwd_mma"] + mma
+
+
+@pytest.mark.parametrize("cin,cout,entry", [(32, 16, "pcseg_up2x_mma"),
+                                            (64, 32, "pcseg_up2x_mma"),
+                                            (24, 16, "pcseg_up2x_gn_act"),
+                                            (256, 128, "pcseg_up2x_gn_act")])
+def test_up2x_launches_the_kernel_its_route_names(monkeypatch, cin, cout,
+                                                  entry):
+    """up2x_gn_act_cuda launches resample.cu's gathered GEMM exactly where
+    ``_mma_route`` takes the shape (fine C 8..64 from 2C coarse), else
+    conv3d_block.cu's up_kernel, and counts the launch under its keys."""
+    calls = []
+    monkeypatch.setattr(tcb, "load_library",
+                        lambda name=None: _FakeLibrary(calls))
+    monkeypatch.setattr(tcb, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tcb, "_mma_grid", lambda *a: 1)
+    x = torch.zeros(2, 2, 2, 4, cin, dtype=torch.bfloat16)
+    w = torch.zeros(2, 2, 2, cin, cout)
+    vec = torch.ones(2, cin)
+    before = dict(tcb.LAUNCHES)
+    y, stats = tcb.up2x_gn_act_cuda(x, w, torch.zeros(cout), vec, vec)
+    assert calls == [entry]
+    assert y.shape == (2, 4, 4, 8, cout) and stats.shape == (2, 2, cout)
+    mma = int(entry.endswith("_mma"))
+    assert tcb.LAUNCHES["up2x_gn_act"] == before["up2x_gn_act"] + 1
+    assert tcb.LAUNCHES["up2x_mma"] == before["up2x_mma"] + mma
