@@ -7,7 +7,7 @@
    process per source, all at once), then prints ptxas's registers, shared
    memory and spills of the tensor-core libraries (pointnet_wgmma.cu, row
    16; pointnet_chain.cu, rows 15 and 17; resample.cu, rows 4, 6, 7 and
-   5; conv3d_dgrad.cu, rows 1 and 2) and the HGMMA (wgmma) or HMMA
+   5; conv3d_dgrad.cu, rows 1, 2 and 3) and the HGMMA (wgmma) or HMMA
    (mma.sync) instructions in each of their tensor-core kernels' SASS
    (cuobjdump), failing if one has none.
 2. Holds each conv kernel against its plain PyTorch version at every
@@ -56,15 +56,15 @@
    against its plain version at every shape one B8 x 8192 train step at
    64^3/w16/L3 launches, and times kernel, plain version, bound and one
    PyTorch call of the same function (cuDNN's convolution_backward,
-   index_add_; yardsticks only); the tensor-core kernels (the 3^3 dgrad,
-   conv3d_dgrad.cu, by variant and level; the down and up backward,
-   resample.cu, by shape) also by device time, their cuDNN calls too,
-   and two calls held bit for bit; and the 3^3 dgrad and the down
-   backward at one shape each off their tensor-core routes (8^3 x 32,
-   the 8^3 level of a grid-32 model; a width-64 U-Net's 16^3 x 128 ->
-   8^3 x 256 down block), which keep the CUDA-core kernels of
-   conv3d_block.cu: held the same way, with the tensor-core launch
-   counts unmoved.
+   index_add_; yardsticks only); the tensor-core kernels (the 3^3 dgrad
+   and wgrad, conv3d_dgrad.cu, by variant and level; the down and up
+   backward, resample.cu, by shape) also by device time, their cuDNN
+   calls too, and two calls held bit for bit; and the 3^3 dgrad and
+   wgrad and the down backward at one shape each off their tensor-core
+   routes (8^3 x 32, the 8^3 level of a grid-32 model; a width-64
+   U-Net's 16^3 x 128 -> 8^3 x 256 down block), which keep the CUDA-core
+   kernels of conv3d_block.cu: held the same way, with the tensor-core
+   launch counts unmoved.
 8. One whole voxel U-Net train step (seeded random weights, one batch of
    synthetic events) with the kernels (each kernel of the path launched
    as often as in a step of api.fit), with the plain versions, and in f32
@@ -186,12 +186,13 @@ DGRAD_SOURCE = "pcseg_tpu_torch/csrc/conv3d_dgrad.cu"
 FWD_SOURCES = {"conv3x3_gn_act": DGRAD_SOURCE,
                "down2x_gn_act": RESAMPLE_SOURCE,
                "up2x_gn_act": RESAMPLE_SOURCE}
-# the tensor-core kernels (rows 1, 4, 6, 7, 5, 2) by the op key they count
-# under and their own launch key
+# the tensor-core kernels (rows 1, 4, 6, 7, 5, 2, 3) by the op key they
+# count under and their own launch key
 MMA_KEY = {"conv3x3_gn_act": "conv3x3_mma", "down2x_gn_act": "down2x_mma",
            "up2x_gn_act": "up2x_mma", "up2x_bwd": "up2x_bwd_mma",
            "down2x_bwd": "down2x_bwd_mma",
-           "conv3x3_dgrad": "conv3x3_dgrad_mma"}
+           "conv3x3_dgrad": "conv3x3_dgrad_mma",
+           "conv3x3_wgrad": "conv3x3_wgrad_mma"}
 # the default configuration (voxelize_impl / devox_impl "auto" -> the
 # one-hot forms at 64^3) adds the voxelizer, the fused head and the gather
 DEFAULT_PER_FORWARD = dict(PER_FORWARD, voxelize_contract=1, head_grid2=1,
@@ -284,7 +285,8 @@ WGMMA_SOURCES = {
                                  "chain_wgmma_dw_kernel")),
     "resample": ("HMMA", ("down2x_mma_kernel", "up2x_mma_kernel",
                           "up2x_bwd_mma_kernel", "down2x_bwd_mma_kernel")),
-    "conv3d_dgrad": ("HMMA", ("conv3x3_mma_kernel", "dgrad_mma_kernel")),
+    "conv3d_dgrad": ("HMMA", ("conv3x3_mma_kernel", "dgrad_mma_kernel",
+                              "wgrad_mma_kernel")),
 }
 
 
@@ -525,7 +527,7 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
 
 
 def _mma_report(run, library, first) -> dict:
-    """Rows 1, 2, 4, 5, 6 and 7 (csrc/resample.cu, csrc/conv3d_dgrad.cu): the
+    """Rows 1-7 (csrc/resample.cu, csrc/conv3d_dgrad.cu): the
     op's kernels and the library call by device time, and whether a
     second call on the same inputs gives the same bits as ``first``
     (raises if not: their sums take a fixed order)."""
@@ -1282,9 +1284,10 @@ VOX_REPLACES = {
 # levels-1 down and up blocks; one devoxelize backward
 VOX_PER_STEP = dict(PER_FORWARD, conv3x3_dgrad=12, conv3x3_wgrad=13,
                     down2x_bwd=2, up2x_bwd=2, trilinear_scatter=1,
-                    up2x_bwd_mma=2, down2x_bwd_mma=2, conv3x3_dgrad_mma=12)
+                    up2x_bwd_mma=2, down2x_bwd_mma=2, conv3x3_dgrad_mma=12,
+                    conv3x3_wgrad_mma=13)
 # the voxel backward rows' sources
-VOX_SOURCES = {"conv3x3_dgrad": DGRAD_SOURCE, "conv3x3_wgrad": SOURCE,
+VOX_SOURCES = {"conv3x3_dgrad": DGRAD_SOURCE, "conv3x3_wgrad": DGRAD_SOURCE,
                "down2x_bwd": RESAMPLE_SOURCE, "up2x_bwd": RESAMPLE_SOURCE,
                "trilinear_scatter": TRI_SOURCE}
 # the default configuration's step adds the one-hot forward kernels and
@@ -1318,8 +1321,9 @@ def vox_bwd_cases():
     """(kernel, label, r, cin, cout, kwargs) at every shape the backward
     of one train step launches: the 3^3 blocks at each level (the accum
     and stats-free y1 halves of the decoder at levels 0 and 1, the stem at
-    level 0), the two down and the two up blocks; then the dgrad and the
-    down backward at one shape each off their tensor-core routes."""
+    level 0), the two down and the two up blocks; then the 3^3 dgrad and
+    wgrad and the down backward at one shape each off their tensor-core
+    routes."""
     cases = [("conv3x3", "act", r, c, c, {})
              for r, c in ((64, 16), (32, 32), (16, 64))]
     for r, c in ((64, 16), (32, 32)):
@@ -1407,8 +1411,9 @@ def _vox_report(res):
 
 def vox_conv3x3_case(label, r, cin, cout, kw, gen):
     """dgrad and wgrad of one 3^3 block at one shape: two result rows
-    (the stem, whose input is data, launches no dgrad: one row; a shape
-    off the dgrad's tensor-core route: its dgrad row only)."""
+    (the stem, whose input is data, launches no dgrad: one row). Each
+    launch asserts its route: the tensor-core kernels on the route, the
+    CUDA-core ones (conv_kernel, wgrad_kernel<kConv3>) off it."""
     import torch
 
     from pcseg_tpu_torch.ops import conv3d_block as cb
@@ -1463,25 +1468,33 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
         rows.append(_vox_report(res))
         if not off_route:
             _print_mma(res)
-        else:
-            return rows               # the wgrad has one route
     wargs = (x, scale, shift, gy, y, gstats, activate)
+    before = launch_counts()
     wk = cb.conv3x3_wgrad_cuda(*wargs)
     torch.cuda.synchronize()
+    _route_taken("conv3x3_wgrad", before, off_route)
     wp = cb.conv3x3_wgrad_plain(*wargs)
     checks = {"dW": _sum_check(wk[0], wp[0]), "dbias": _sum_check(wk[1],
                                                                  wp[1])}
+
+    def library():
+        return _library_bwd(gy, x, wl, 1, 1, False, [False, True, True])
+
     res = {
         "name": "conv3x3_wgrad", "case": label, "shape": shape,
         "max_abs_err": _held(f"conv3x3_wgrad {label} {shape}", checks),
         "ms": time_ms(lambda: cb.conv3x3_wgrad_cuda(*wargs)),
         "plain_ms": time_ms(lambda: cb.conv3x3_wgrad_plain(*wargs), iters=3),
-        "library_ms": time_ms(lambda: _library_bwd(
-            gy, x, wl, 1, 1, False, [False, True, True])),
+        "library_ms": time_ms(library),
     }
+    if not off_route:
+        res.update(_mma_report(lambda: cb.conv3x3_wgrad_cuda(*wargs),
+                               library, wk))
     nbytes = cot + n * cin * 2 + vec + 27 * cin * cout * 4 + cout * 4
     res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
     rows.append(_vox_report(res))
+    if not off_route:
+        _print_mma(res)
     return rows
 
 

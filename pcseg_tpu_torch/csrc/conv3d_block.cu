@@ -32,7 +32,9 @@
 //                         csrc/conv3d_dgrad.cu's implicit GEMM does not
 //                         take (ops/conv3d_block.py's _conv_route).
 //   pcseg_conv3x3_wgrad   replaces _wgrad_pallas (_wgrad_kernel, pallas_call
-//                         at :648): dW (3,3,3,Cin,Cout) and dbias.
+//                         at :648): dW (3,3,3,Cin,Cout) and dbias, for the
+//                         shapes csrc/conv3d_dgrad.cu's split-K GEMM does
+//                         not take (the same _conv_route).
 //   pcseg_down2x_bwd      replaces the bwd of fused_down2x_p
 //                         (_down2x_bwd_kernel, pallas_call at :1353), for
 //                         the widths csrc/resample.cu's one-sweep kernel

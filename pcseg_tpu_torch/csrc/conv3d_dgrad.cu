@@ -1,5 +1,6 @@
-// The voxel U-Net's 3^3 SAME conv, forward and dgrad, on Hopper's tensor
-// cores (sm_90a): one implicit GEMM with fixed-order sums.
+// The voxel U-Net's 3^3 SAME conv, forward, dgrad and wgrad, on Hopper's
+// tensor cores (sm_90a): implicit GEMMs on one ring of planes with
+// fixed-order sums.
 //
 //   pcseg_conv3x3_mma  replaces pcseg_tpu/ops/pallas/conv3d_block.py
 //       fused_conv3x3_p / fused_conv3x3_add_p (_kernel, pallas_call at
@@ -16,35 +17,45 @@
 //       with gadj, the bf16 g' of every voxel (the add variant's accum
 //       gradient). Without the activation dx = bf16(da) and there are no
 //       sums.
+//   pcseg_conv3x3_wgrad_mma  replaces _wgrad_pallas (_wgrad_kernel,
+//       pallas_call at :648): dW[t][ci][co] = sum over voxels v of a[v +
+//       delta_t][ci] g'[v][co] with the forward's a (zero padding) and the
+//       dgrad's g', and dbias = sum g', bf16 products, f32 sums, dW as (3,
+//       3, 3, Cin, Cout).
 //
 // A 3^3 dgrad is a 3^3 SAME conv of g' with the taps flipped and the
-// weights' input and output axes swapped, so both run one kernel template
-// (ring_gemm<C, FWD>). For each voxel (a row of M) the GEMM has K = 27 C
-// (the taps' input channels) and N = C. The two differ in three places:
-// how a ring plane is formed (the forward's prologue, or g'), the packed
-// weights the wrapper hands over (ops/conv3d_block.py pack_conv_w, row t =
-// W[t]^T; pack_dgrad_w, row t = W[26 - t]; both [tap][n][k], bf16), and
-// the epilogue (+ bias (+ accum) and the stats, or the activation's
-// gradient and dscale / dshift). What bounds them on an H100: bytes. At
-// B8 64^3 x 16 the forward moves x and y once (134 MB, 0.040 ms at 3.35
-// TB/s) and the dgrad gy, y, x and dx (268 MB, 0.080 ms), each for 29
-// GFLOP (0.029 ms at 989 TFLOP/s); 32^3 x 32 and 16^3 x 64 move 4x and
-// 16x fewer bytes for the same FLOPs. The design keeps every input element
-// staged about 1.5 times and every product on mma.sync:
+// weights' input and output axes swapped, so forward and dgrad run one
+// kernel template (ring_gemm<C, FWD>). For each voxel (a row of M) the
+// GEMM has K = 27 C (the taps' input channels) and N = C. The two differ
+// in three places: how a ring plane is formed (the forward's prologue, or
+// g'), the packed weights the wrapper hands over (ops/conv3d_block.py
+// pack_conv_w, row t = W[t]^T; pack_dgrad_w, row t = W[26 - t]; both
+// [tap][n][k], bf16), and the epilogue (+ bias (+ accum) and the stats, or
+// the activation's gradient and dscale / dshift). The wgrad is the third
+// GEMM on the same ring: for each tap, M = Cin, N = Cout and K = the
+// voxels, both operands voxel-major in shared memory (the ring at the
+// tap's shift, the tile's own g'), so both are read by ldmatrix.trans.
+// What bounds them on an H100: bytes. At B8 64^3 x 16 the forward moves
+// x and y once (134 MB, 0.040 ms at 3.35 TB/s), the dgrad gy, y, x and dx
+// (268 MB, 0.080 ms) and the wgrad x, gy and y (201 MB, 0.060 ms), each
+// for 29 GFLOP (0.029 ms at 989 TFLOP/s); 32^3 x 32 and 16^3 x 64 move 4x
+// and 16x fewer bytes for the same FLOPs. The design keeps every input
+// element staged about 1.5 times and every product on mma.sync:
 //
 // - walking depth: a block owns one batch element, TH rows of all W (TH
 //   W = 256 voxels, 128 at 64 channels) and a range of depth planes. It
-//   keeps a ring of three input planes in shared memory, each (TH + 2) x
-//   (W + 2) voxels x C bf16 with a zero halo: output plane d reads planes
-//   d - 1, d, d + 1 (the TPU kernel's rolling 3-plane window) while plane
-//   d + 2's source is in flight in registers, loaded before plane d's
-//   products and stored after them into the slot that plane d - 1 leaves;
-//   the depth ranges are as many as keep the grid in one wave of resident
-//   blocks (two an SM at up to 16 channels);
+//   keeps a ring of three input planes in shared memory (Ring), each (TH +
+//   2) x (W + 2) voxels x C bf16 with a zero halo: output plane d reads
+//   planes d - 1, d, d + 1 (the TPU kernel's rolling 3-plane window) while
+//   plane d + 2's source is in flight in registers, loaded before plane
+//   d's products and stored after them into the slot that plane d - 1
+//   leaves; the depth ranges are as many as keep the grid in one wave of
+//   resident blocks (two an SM at up to 16 channels);
 // - a ring element is formed once on its way into shared memory: the
-//   forward's bf16(relu(x scale + shift)) or the dgrad's bf16(gy + (gs1 +
-//   2 gs2 y)), zeros outside the grid; with gadj the dgrad's same step
-//   writes the g' of the block's own voxels, each exactly once;
+//   forward's (and the wgrad's) bf16(relu(x scale + shift)) or the
+//   dgrad's bf16(gy + (gs1 + 2 gs2 y)), zeros outside the grid; with gadj
+//   the dgrad's same step writes the g' of the block's own voxels, each
+//   exactly once;
 // - the taps: a voxel's C channels are whole 16-byte units, so each of
 //   the 27 taps is the ring read at a shifted voxel by ldmatrix; the units
 //   are swizzled by bits of their voxel (swl) so that the 8 voxels of an
@@ -61,14 +72,24 @@
 //   dgrad's x) from a tile that cp.async brought a plane ahead, writes the
 //   output over it in place (each element by the thread that read it) and
 //   stores the tile in 16-byte units; the sums stay in registers;
+// - the wgrad keeps dW in its warps' accumulators over the block's whole
+//   depth range (WgCfg: a warp holds up to 4 taps' Cin x Cout, 128 f32 a
+//   thread at most; at 64 channels one tap a warp and four tap groups as
+//   grid z); the tile's own gy and y come a plane ahead by cp.async and
+//   each thread forms g' in place on what it copied, adding it to its
+//   dbias sums; the per-tap addresses are set once a plane, so the K loop
+//   runs little besides ldmatrix and mma;
 // - no float atomics: each block writes its sums as one row of a partial
-//   table and fixed_sum_kernel adds the rows in a fixed order, so two
-//   calls on the same inputs give the same bits.
+//   table (the wgrad: its taps' slice of its K range's row, no larger in
+//   all than the x and gy it reduces) and fixed_sum_kernel adds the rows
+//   in a fixed order, so two calls on the same inputs give the same bits.
 //
 // Shapes: Cin = Cout = C in {8, 16, 32, 64} (the JAX fused core's widths,
-// m16n8k8 at 8), W in {16, 32, 64} (16, 32 at 64 channels), H a multiple
+// m16n8k8 at 8 for the forward and dgrad; the wgrad stacks two taps in an
+// m16 tile there), W in {16, 32, 64} (16, 32 at 64 channels), H a multiple
 // of the tile's rows; ops/conv3d_block.py _conv_route states the rule,
-// and every other shape keeps conv3d_block.cu's conv_kernel.
+// and every other shape keeps conv3d_block.cu's conv_kernel and
+// wgrad_kernel.
 //
 // Plain C interface (loaded with ctypes): every entry returns
 // cudaGetLastError() after its launches, or cudaErrorInvalidValue before
@@ -148,6 +169,105 @@ struct RingCfg {
   static constexpr int kBlocks = C <= 16 ? 2 : 1;
 };
 
+// The ring of three input planes a block keeps in shared memory, each
+// (TH + 2) x (W + 2) voxels x C bf16 with a zero halo, and the plane in
+// flight to it. fetch(pd) loads plane pd's source (and the dgrad's y) into
+// registers, unit e = tid + 256 i of a slot, zeros outside the grid;
+// put(pd, own) forms each element once on its way into the slot of plane
+// pd: the forward's bf16(relu(x scale + shift)) (x itself without the
+// activation), or the dgrad's g' = bf16(gy + (gs1 + 2 gs2 y)) (gy itself
+// without the stats cotangent), and with ``own`` writes the g' of the
+// block's own rows to gadj. The forward, the dgrad and the wgrad (whose
+// ring is the forward's) all fill their ring through it.
+template <int C, bool FWD>
+struct Ring {
+  static constexpr int U = C / 8, RPT = RingCfg<C>::RPT;
+  const __nv_bfloat16* src;
+  const __nv_bfloat16* y;
+  __nv_bfloat16* gadj;
+  const float* k1;   // forward: scale; dgrad: gs1
+  const float* k2;   // forward: shift; dgrad: 2 gs2
+  uint8_t* base;
+  int D, H, W, TH, b, h0, PW, PV, slot_bytes, tid;
+  bool form;         // forward: the activation; dgrad: the stats term
+  uint4 rsrc[RPT], ryv[RPT];
+  uint32_t inside = 0;   // bit i: unit i is in the grid
+
+  __device__ __forceinline__ Ring(const RingArgs& p, const float* k1_,
+                                  const float* k2_, uint8_t* base_, int b_,
+                                  int h0_, int tid_, bool form_)
+      : src(p.src), y(p.y), gadj(p.gadj), k1(k1_), k2(k2_), base(base_),
+        D(p.D), H(p.H), W(p.W), TH(p.TH), b(b_), h0(h0_), PW(p.W + 2),
+        PV((p.TH + 2) * (p.W + 2)), slot_bytes(PV * C * 2), tid(tid_),
+        form(form_) {}
+
+  __device__ __forceinline__ uint8_t* slot_ptr(int pd) const {
+    return base + ((pd % 3 + 3) % 3) * slot_bytes;
+  }
+  __device__ __forceinline__ uint32_t slot(int pd) const {
+    return smem_u32(slot_ptr(pd));
+  }
+
+  __device__ __forceinline__ void fetch(int pd) {
+    const bool pin = pd >= 0 && pd < D;
+    inside = 0;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int e = tid + i * kThreads;
+      const int v = e / U, cu = e % U;
+      const int hh = h0 - 1 + v / PW, ww = v % PW - 1;
+      const bool ok = e < PV * U && pin && hh >= 0 && hh < H && ww >= 0 &&
+                      ww < W;
+      rsrc[i] = ryv[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (ok) {
+        const size_t off =
+            ((((size_t)b * D + pd) * H + hh) * W + ww) * C + cu * 8;
+        rsrc[i] = *reinterpret_cast<const uint4*>(src + off);
+        if (!FWD && form) ryv[i] = *reinterpret_cast<const uint4*>(y + off);
+        inside |= 1u << i;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void put(int pd, bool own) {
+    uint8_t* s = slot_ptr(pd);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int e = tid + i * kThreads;
+      if (e >= PV * U) break;
+      uint4 q = rsrc[i];
+      if (form && (inside >> i & 1)) {
+        const int cu = e % U;
+        float f[8];
+        unpack8(q, f);
+        if constexpr (FWD) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = cu * 8 + j;
+            f[j] = fmaxf(__fadd_rn(__fmul_rn(f[j], k1[c]), k2[c]), 0.f);
+          }
+          q = pack8(f);
+        } else {
+          float yv[8];
+          unpack8(ryv[i], yv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = cu * 8 + j;
+            f[j] = __fadd_rn(f[j], __fadd_rn(k1[c], __fmul_rn(k2[c], yv[j])));
+          }
+          q = pack8(f);
+          const int v = e / U, r = v / PW;
+          if (own && r >= 1 && r <= TH)
+            *reinterpret_cast<uint4*>(
+                gadj + ((((size_t)b * D + pd) * H + h0 - 1 + r) * W +
+                        v % PW - 1) * C + cu * 8) = q;
+        }
+      }
+      *reinterpret_cast<uint4*>(s + swl(e, U)) = q;
+    }
+  }
+};
+
 // One block: batch element blockIdx.y, N columns [z NS, (z + 1) NS) (z =
 // blockIdx.z), rows [h0, h0 + TH) and planes [d0, d1) by blockIdx.x. Warp
 // w takes the 16 voxels at column group w % (W / 16) of MW consecutive
@@ -157,7 +277,7 @@ template <int C, bool FWD>
 __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
   using Cfg = RingCfg<C>;
   constexpr int NS = Cfg::NS, MW = Cfg::MW, U = Cfg::U, UX = Cfg::UX;
-  constexpr int NW = Cfg::NW, KS = Cfg::KS, M = Cfg::M, RPT = Cfg::RPT;
+  constexpr int NW = Cfg::NW, KS = Cfg::KS, M = Cfg::M;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* sw = smem;                            // W slice
   // the epilogue's per-column vectors (forward: bias; dgrad: scale,
@@ -170,8 +290,7 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
   uint8_t* sxt = reinterpret_cast<uint8_t*>(vk2 + C);   // 2 tiles
   uint8_t* ring = sxt + 2 * Cfg::kX;             // 3 slots
   const int W = p.W, H = p.H, D = p.D, TH = p.TH;
-  const int PW = W + 2, PV = (TH + 2) * PW;     // a ring slot's voxels
-  const int slot_bytes = PV * C * 2;
+  const int PW = W + 2;                          // a ring row's voxels
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int nht = H / TH;
@@ -208,72 +327,8 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
     }
   }
 
-  // a plane of the source (and the dgrad's y) in flight in registers:
-  // unit e = tid + 256 i of a ring slot, zeros outside the grid
-  uint4 rsrc[RPT], ryv[RPT];
-  uint32_t inside = 0;   // bit i: unit i is in the grid
-  auto fetch = [&](int pd) {
-    const bool pin = pd >= 0 && pd < D;
-    inside = 0;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int e = tid + i * kThreads;
-      const int v = e / U, cu = e % U;
-      const int hh = h0 - 1 + v / PW, ww = v % PW - 1;
-      const bool ok = e < PV * U && pin && hh >= 0 && hh < H && ww >= 0 &&
-                      ww < W;
-      rsrc[i] = ryv[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (ok) {
-        const size_t off =
-            ((((size_t)b * D + pd) * H + hh) * W + ww) * C + cu * 8;
-        rsrc[i] = *reinterpret_cast<const uint4*>(p.src + off);
-        if (!FWD && stats) ryv[i] = *reinterpret_cast<const uint4*>(p.y + off);
-        inside |= 1u << i;
-      }
-    }
-  };
-  // the fetched plane pd into its ring slot: the forward's prologue, or
-  // g' = bf16(gy + (gs1 + 2 gs2 y)) and gadj of the block's own voxels
-  auto put = [&](int pd) {
-    uint8_t* slot = ring + ((pd % 3 + 3) % 3) * slot_bytes;
-    const bool own = !FWD && p.gadj != nullptr && z == 0 && pd >= d0 &&
-                     pd < d1;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int e = tid + i * kThreads;
-      if (e >= PV * U) break;
-      uint4 q = rsrc[i];
-      if (FWD ? act && (inside >> i & 1) : stats && (inside >> i & 1)) {
-        const int cu = e % U;
-        float f[8];
-        unpack8(q, f);
-        if constexpr (FWD) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int c = cu * 8 + j;
-            f[j] = fmaxf(__fadd_rn(__fmul_rn(f[j], vk1[c]), vk2[c]), 0.f);
-          }
-          q = pack8(f);
-        } else {
-          float yv[8];
-          unpack8(ryv[i], yv);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int c = cu * 8 + j;
-            f[j] = __fadd_rn(f[j],
-                             __fadd_rn(vk1[c], __fmul_rn(vk2[c], yv[j])));
-          }
-          q = pack8(f);
-          const int v = e / U, r = v / PW;
-          if (own && r >= 1 && r <= TH)
-            *reinterpret_cast<uint4*>(
-                p.gadj + ((((size_t)b * D + pd) * H + h0 - 1 + r) * W +
-                          v % PW - 1) * C + cu * 8) = q;
-        }
-      }
-      *reinterpret_cast<uint4*>(slot + swl(e, U)) = q;
-    }
-  };
+  Ring<C, FWD> rs(p, vk1, vk2, ring, b, h0, tid,
+                  FWD ? act : stats);
   // the epilogue's input of plane pd's tile (the slice's channels) into
   // tile pd & 1
   auto load_tile = [&](int pd) {
@@ -288,10 +343,12 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
     }
   };
 
+  // with gadj, the dgrad's put writes the g' of the block's own voxels
+  const bool gadj = !FWD && p.gadj != nullptr && z == 0;
   __syncthreads();   // the vectors (put reads them)
   for (int pd = d0 - 1; pd <= d0 + 1; ++pd) {
-    fetch(pd);
-    put(pd);
+    rs.fetch(pd);
+    rs.put(pd, gadj && pd >= d0 && pd < d1);
   }
   load_tile(d0);
   cp_commit();
@@ -309,7 +366,7 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
 
   for (int d = d0; d < d1; ++d) {
     const bool next = d + 2 <= d1;   // plane d + 2 is read at d + 1
-    if (next) fetch(d + 2);
+    if (next) rs.fetch(d + 2);
     if (d + 1 < d1) load_tile(d + 1);
     cp_commit();
 
@@ -317,8 +374,7 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
     for (int kz = 0; kz < 3; ++kz) {
       const int pd = d + kz - 1;
       if (pd < 0 || pd >= D) continue;   // zero padding: no products
-      const uint32_t slot_u =
-          smem_u32(ring + ((pd % 3 + 3) % 3) * slot_bytes);
+      const uint32_t slot_u = rs.slot(pd);
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
@@ -431,7 +487,7 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
           p.out + ((((size_t)b * D + d) * H + h0 + v / W) * W + v % W) * C +
           z * NS + cu * 8) = *reinterpret_cast<const uint4*>(xs + swl(e, UX));
     }
-    if (next) put(d + 2);
+    if (next) rs.put(d + 2, gadj && d + 2 < d1);
     __syncthreads();
   }
   if (p.part == nullptr) return;
@@ -471,73 +527,341 @@ __global__ void __launch_bounds__(kThreads, (RingCfg<C>::kBlocks))
   ring_gemm<C, false>(p);
 }
 
-// ---------------------------------------------------------------- host
+// ---------------------------------------------------------------- wgrad
 
-template <int C, bool FWD>
-auto ring_kernel() {
-  if constexpr (FWD)
-    return conv3x3_mma_kernel<C>;
-  else
-    return dgrad_mma_kernel<C>;
+// The wgrad's split of its 27 products dW[t] = A_t^T G' (Cin x Cout, K =
+// the voxels, A_t the ring read at tap t's shift): a fragment is one tap's
+// Cin x Cout (MT m16 x NT n8 tiles) or, at 8 channels, two taps' 8 x 8
+// stacked in one m16 tile (taps 2f and 2f + 1; tap 27 is none). Warp w of
+// tap group z (grid z) keeps fragments z FG + w + 8 j, j < TPW, in its
+// accumulators for the block's whole depth range (at most 128 f32 a
+// thread); a row of the partial table is one K range's dW and dbias.
+template <int C>
+struct WgCfg {
+  static constexpr int NF = C == 8 ? 14 : 27;       // fragments
+  static constexpr int TPW = C == 64 ? 1 : C == 8 ? 2 : 4;   // a warp
+  static constexpr int MT = C == 8 ? 1 : C / 16;    // m16 tiles a fragment
+  static constexpr int NT = C / 8;                  // n8 tiles a fragment
+  static constexpr int FG = kWarps * TPW;           // fragments a block
+  static constexpr int Z = (NF + FG - 1) / FG;      // tap groups (grid z)
+  static constexpr int L = 27 * C * C + C;          // a table row
+  static constexpr int kG = RingCfg<C>::M * C * 2;  // a g' tile
+  static constexpr int kVec = 4 * C * 4;
+  static constexpr int kBlocks = C <= 16 ? 2 : 1;
+};
+
+// One block: batch element blockIdx.y, tap group blockIdx.z, rows [h0, h0
+// + TH) and planes [d0, d1) by blockIdx.x, walked as the forward walks
+// them. The ring holds the activated input a of planes d - 1, d, d + 1
+// (the forward's prologue, through Ring); gy and y of the block's own
+// voxels of plane d + 1 come by cp.async while plane d's products run, and
+// each thread forms g' = bf16(gy + (gs1 + 2 gs2 y)) in place on the units
+// it copied, adding it to its dbias sums. For each 16 own voxels of a row
+// (a K step) a warp reads g' (voxels x Cout) by ldmatrix.trans once and,
+// for each of its taps, the ring at the tap's shift (voxels x Cin) by
+// ldmatrix.trans, the swizzle keeping both conflict-free. At the end the
+// block writes its dW fragments (and, tap group 0, dbias: its threads'
+// sums in thread order) to row b gridDim.x + blockIdx.x of the table.
+template <int C>
+__global__ void __launch_bounds__(kThreads, (WgCfg<C>::kBlocks))
+    wgrad_mma_kernel(const RingArgs p) {
+  using Cfg = RingCfg<C>;
+  using Wg = WgCfg<C>;
+  constexpr int U = Cfg::U, M = Cfg::M, MT = Wg::MT, NT = Wg::NT;
+  constexpr int TPW = Wg::TPW;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* sg = smem;                     // 2 g' tiles [M][C]
+  uint8_t* sy = sg + 2 * Wg::kG;          // y of the tile in flight
+  float* vk1 = reinterpret_cast<float*>(sy + Wg::kG);   // scale
+  float* vk2 = vk1 + C;                   // shift
+  float* vg1 = vk2 + C;                   // gs1
+  float* vg2 = vg1 + C;                   // 2 gs2 (exact)
+  uint8_t* ring = reinterpret_cast<uint8_t*>(vg2 + C);  // 3 slots
+  const int W = p.W, H = p.H, D = p.D, TH = p.TH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nht = H / TH;
+  const int h0 = (blockIdx.x % nht) * TH;
+  const int d0 = (blockIdx.x / nht) * p.DD;
+  const int d1 = min(D, d0 + p.DD);
+  const int b = blockIdx.y, z = blockIdx.z;
+  const bool stats = p.gstats != nullptr, act = p.scale != nullptr;
+
+  for (int e = tid; e < C; e += kThreads) {
+    vk1[e] = act ? p.scale[(size_t)b * C + e] : 0.f;
+    vk2[e] = act ? p.shift[(size_t)b * C + e] : 0.f;
+    vg1[e] = stats ? p.gstats[(size_t)b * 2 * C + e] : 0.f;
+    vg2[e] = stats ? 2.f * p.gstats[(size_t)b * 2 * C + C + e] : 0.f;
+  }
+  Ring<C, true> rs(p, vk1, vk2, ring, b, h0, tid, act);
+
+  // gy (and y) of plane pd's own voxels into g' tile pd & 1 (and sy)
+  auto load_g = [&](int pd) {
+    const uint32_t gs = smem_u32(sg + (pd & 1) * Wg::kG), ys = smem_u32(sy);
+    for (int e = tid; e < M * U; e += kThreads) {
+      const int v = e / U;
+      const size_t off =
+          ((((size_t)b * D + pd) * H + h0 + v / W) * W + v % W) * C +
+          (e % U) * 8;
+      cp16(gs + swl(e, U), p.tile + off, true);
+      if (stats) cp16(ys + swl(e, U), p.y + off, true);
+    }
+  };
+  // g' of tile pd & 1 in place, each unit by the thread that copied it
+  // (channels c0 .. c0 + 7, the same for all its units), into its sums
+  float bsum[8] = {};
+  const int c0 = (tid % U) * 8;
+  auto form_g = [&](int pd) {
+    uint8_t* gt = sg + (pd & 1) * Wg::kG;
+    for (int e = tid; e < M * U; e += kThreads) {
+      uint4* q = reinterpret_cast<uint4*>(gt + swl(e, U));
+      float f[8];
+      unpack8(*q, f);
+      if (stats) {
+        float yv[8];
+        unpack8(*reinterpret_cast<const uint4*>(sy + swl(e, U)), yv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          f[j] = __fadd_rn(f[j], __fadd_rn(vg1[c0 + j],
+                                           __fmul_rn(vg2[c0 + j], yv[j])));
+        const uint4 r = pack8(f);
+        *q = r;
+        unpack8(r, f);   // dbias sums the bf16 g'
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bsum[j] += f[j];
+    }
+  };
+
+  __syncthreads();   // the vectors (put and form_g read them)
+  for (int pd = d0 - 1; pd <= d0 + 1; ++pd) {
+    rs.fetch(pd);
+    rs.put(pd, false);
+  }
+  load_g(d0);
+  cp_commit();
+  cp_wait<0>();
+  form_g(d0);
+  __syncthreads();
+
+  // the lane's ldmatrix rows: A (ring, .trans) voxel lv of a K step's 16
+  // and 8-row half lh (matrices: voxels 0-7 | 8-15 x half 0 | 1); B (g',
+  // .trans) voxel bv (matrices: voxels 0-7 | 8-15 x n8 tile)
+  const int lh = (lane >> 3) & 1;
+  const int lv = (lane & 7) + (lane >> 4) * 8;
+  const int bv = (lane & 7) + lh * 8;
+  float acc[TPW][MT][NT][4] = {};
+
+  for (int d = d0; d < d1; ++d) {
+    const bool next = d + 2 <= d1;   // plane d + 2 is read at d + 1
+    if (next) rs.fetch(d + 2);
+    if (d + 1 < d1) load_g(d + 1);
+    cp_commit();
+
+    // this plane's A operand of each fragment: the ring slot of its tap's
+    // plane (0: none, the fragment is empty or its plane outside the grid:
+    // zero padding, no products; at 8 channels the slot of a plane outside
+    // the grid holds zeros) and the lane's ring voxel at row 0, column 0
+    // of the tile; tap 27 (8 channels) reads tap 26's and is dropped
+    uint32_t a_slot[TPW];
+    int a_off[TPW];
+#pragma unroll
+    for (int j = 0; j < TPW; ++j) {
+      const int f = z * Wg::FG + warp + 8 * j;
+      const int tap = C == 8 ? min(2 * f + lh, 26) : f;
+      const int dz = tap / 9 - 1, dy = tap / 3 % 3 - 1, dx = tap % 3 - 1;
+      const bool live =
+          f < Wg::NF && (C == 8 || (d + dz >= 0 && d + dz < D));
+      a_slot[j] = live ? rs.slot(d + dz) : 0u;
+      a_off[j] = (1 + dy) * (W + 2) + 1 + dx + lv;
+    }
+    const uint32_t g_u = smem_u32(sg + (d & 1) * Wg::kG);
+    for (int r = 0; r < TH; ++r)
+      for (int cc = 0; cc < W; cc += 16) {
+        const int vb = r * W + cc + bv, vr = r * (W + 2) + cc;
+        uint32_t bf[NT][2];
+        if constexpr (NT == 1) {
+          uint32_t bb[2];
+          ldsm2t(bb, g_u + swl(vb * U, U));
+          bf[0][0] = bb[0];
+          bf[0][1] = bb[1];
+        } else {
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t bb[4];
+            ldsm4t(bb, g_u + swl(vb * U + 2 * np + (lane >> 4), U));
+            bf[2 * np][0] = bb[0];
+            bf[2 * np][1] = bb[1];
+            bf[2 * np + 1][0] = bb[2];
+            bf[2 * np + 1][1] = bb[3];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < TPW; ++j) {
+          if (a_slot[j] == 0u) continue;
+          const int va = vr + a_off[j];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t a[4];
+            ldsm4t(a, a_slot[j] +
+                          swl(va * U + (C == 8 ? 0 : 2 * mt + lh), U));
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma(acc[j][mt][nt], a, bf[nt][0], bf[nt][1]);
+          }
+        }
+      }
+    cp_wait<0>();
+    __syncthreads();   // the ring slot of d - 1 and g' tile d are free
+    if (next) rs.put(d + 2, false);
+    if (d + 1 < d1) form_g(d + 1);
+    __syncthreads();
+  }
+
+  // the block's row of the partial table: row g + 8 h of an m16 tile is
+  // input channel 16 mt + g + 8 h of the fragment's tap (at 8 channels
+  // channel g of tap 2f + h), column 8 nt + 2 t (+ 1) output channel
+  float* row = p.part + ((size_t)b * gridDim.x + blockIdx.x) * Wg::L;
+#pragma unroll
+  for (int j = 0; j < TPW; ++j) {
+    const int f = z * Wg::FG + warp + 8 * j;
+    if (f >= Wg::NF) continue;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tap = C == 8 ? 2 * f + h : f;
+        const int ci = C == 8 ? g : 16 * mt + g + 8 * h;
+        if (tap >= 27) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          *reinterpret_cast<float2*>(row + ((size_t)tap * C + ci) * C +
+                                     8 * nt + 2 * t) =
+              make_float2(acc[j][mt][nt][2 * h], acc[j][mt][nt][2 * h + 1]);
+      }
+  }
+  if (z != 0) return;
+  // dbias: channel c is held by the threads with tid % U == c / 8, summed
+  // in thread order (the ring is no longer read)
+  float* red = reinterpret_cast<float*>(ring);   // [256][8]
+#pragma unroll
+  for (int j = 0; j < 8; ++j) red[tid * 8 + j] = bsum[j];
+  __syncthreads();
+  for (int c = tid; c < C; c += kThreads) {
+    float v = 0.f;
+    for (int th = c / 8; th < kThreads; th += U) v += red[th * 8 + c % 8];
+    row[27 * C * C + c] = v;
+  }
 }
 
-template <int C>
+// ---------------------------------------------------------------- host
+
+enum Kind { kDgrad = 0, kFwd = 1, kWgrad = 2 };
+
+template <int C, int K>
+auto ring_kernel() {
+  if constexpr (K == kFwd)
+    return conv3x3_mma_kernel<C>;
+  else if constexpr (K == kDgrad)
+    return dgrad_mma_kernel<C>;
+  else
+    return wgrad_mma_kernel<C>;
+}
+
+// Shared memory of a launch at width W (0 for a W the kernel does not
+// take): the forward's and the dgrad's W slice, vectors, epilogue tiles
+// and ring; the wgrad's g' tiles, y stage, vectors and ring.
+template <int C, int K>
 size_t ring_smem(int W) {
   using Cfg = RingCfg<C>;
   if (W % 16 || W > Cfg::kWmax || Cfg::M % W) return 0;
   const size_t slot = (size_t)(Cfg::M / W + 2) * (W + 2) * C * 2;
-  return Cfg::kW + Cfg::kVec + 2 * Cfg::kX + 3 * slot;
+  if constexpr (K == kWgrad)
+    return 3 * WgCfg<C>::kG + WgCfg<C>::kVec + 3 * slot;
+  else
+    return Cfg::kW + Cfg::kVec + 2 * Cfg::kX + 3 * slot;
 }
 
-// The launch of one forward or dgrad: blocks a (batch element, slice),
-// with the rows (TH) and planes (DD) a block takes; false for a shape the
-// kernel does not take. The depth ranges are as many as keep the whole
-// grid in one wave of the resident blocks.
+// The launch of one forward, dgrad or wgrad: blocks a (batch element,
+// slice or tap group), with the rows (TH) and planes (DD) a block takes;
+// false for a shape the kernel does not take. The depth ranges are as many
+// as keep the whole grid in one wave of the resident blocks, and for the
+// wgrad no more than keep its partial table (a row of 27 C^2 + C floats a
+// (batch element, blockIdx.x)) within the bytes of the x and gy it
+// reduces.
 struct Plan {
   int gx, TH, DD;
   size_t smem;
 };
 
-template <int C, bool FWD>
+template <int C, int K>
 bool ring_plan(int B, int D, int H, int W, Plan& pl) {
   using Cfg = RingCfg<C>;
-  pl.smem = ring_smem<C>(W);
+  pl.smem = ring_smem<C, K>(W);
   if (pl.smem == 0 || pl.smem > (size_t)kSmemMax) return false;
   pl.TH = Cfg::M / W;
   if (H % pl.TH) return false;
-  if (cudaFuncSetAttribute(ring_kernel<C, FWD>(),
+  if (cudaFuncSetAttribute(ring_kernel<C, K>(),
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)pl.smem) != cudaSuccess)
     return false;
   int per_sm = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ring_kernel<C, FWD>(), kThreads, pl.smem) !=
-          cudaSuccess ||
+          &per_sm, ring_kernel<C, K>(), kThreads, pl.smem) != cudaSuccess ||
       per_sm < 1)
     return false;
-  const int nht = H / pl.TH, S = C / Cfg::NS;
-  int nd = per_sm * hopper_host::sm_count() / (B * S * nht);
+  const int nht = H / pl.TH;
+  const int S = K == kWgrad ? WgCfg<C>::Z : C / Cfg::NS;
+  long long nd = per_sm * hopper_host::sm_count() / (B * S * nht);
+  if (K == kWgrad) {
+    const long long most =
+        (long long)D * H * W * C / ((long long)WgCfg<C>::L * nht);
+    nd = nd < most ? nd : most;
+  }
   nd = nd < 1 ? 1 : nd > D ? D : nd;
-  pl.DD = (D + nd - 1) / nd;
+  pl.DD = (int)((D + nd - 1) / nd);
   pl.gx = nht * ((D + pl.DD - 1) / pl.DD);
   return true;
 }
 
-template <int C, bool FWD>
+template <int C, int K>
 int ring_grid(int B, int D, int H, int W) {
   Plan pl;
-  return ring_plan<C, FWD>(B, D, H, W, pl) ? pl.gx : 0;
+  return ring_plan<C, K>(B, D, H, W, pl) ? pl.gx : 0;
 }
 
-template <int C, bool FWD>
+template <int C>
+int ring_grid_of(int kind, int B, int D, int H, int W) {
+  switch (kind) {
+    case kDgrad: return ring_grid<C, kDgrad>(B, D, H, W);
+    case kFwd: return ring_grid<C, kFwd>(B, D, H, W);
+    case kWgrad: return ring_grid<C, kWgrad>(B, D, H, W);
+    default: return 0;
+  }
+}
+
+// One launch and its fixed-order sum: the forward's and the dgrad's
+// (B, gx, 2, C) table into sums (B, 2, C), the wgrad's (B gx, 27 C^2 + C)
+// table into sums (27 C^2 + C): dW as (3, 3, 3, Cin, Cout), then dbias.
+template <int C, int K>
 int ring_launch(RingArgs a, float* sums, int B, int gx, cudaStream_t st) {
   Plan pl;
-  if (!ring_plan<C, FWD>(B, a.D, a.H, a.W, pl) || pl.gx != gx)
+  if (!ring_plan<C, K>(B, a.D, a.H, a.W, pl) || pl.gx != gx)
     return (int)cudaErrorInvalidValue;
   a.TH = pl.TH;
   a.DD = pl.DD;
+  if constexpr (K == kWgrad) {
+    wgrad_mma_kernel<C>
+        <<<dim3(gx, B, WgCfg<C>::Z), kThreads, pl.smem, st>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    constexpr long long L = WgCfg<C>::L;
+    fixed_sum_kernel<<<dim3((int)((L + 31) / 32), 1), 256, 0, st>>>(
+        a.part, sums, B * gx, L);
+    return (int)cudaGetLastError();
+  }
   const dim3 grid(gx, B, C / RingCfg<C>::NS);
-  if constexpr (FWD)
+  if constexpr (K == kFwd)
     conv3x3_mma_kernel<C><<<grid, kThreads, pl.smem, st>>>(a);
   else
     dgrad_mma_kernel<C><<<grid, kThreads, pl.smem, st>>>(a);
@@ -548,14 +872,14 @@ int ring_launch(RingArgs a, float* sums, int B, int gx, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <bool FWD>
+template <int K>
 int ring_dispatch(const RingArgs& a, float* sums, int B, int C, int gx,
                   cudaStream_t st) {
   switch (C) {
-    case 8: return ring_launch<8, FWD>(a, sums, B, gx, st);
-    case 16: return ring_launch<16, FWD>(a, sums, B, gx, st);
-    case 32: return ring_launch<32, FWD>(a, sums, B, gx, st);
-    case 64: return ring_launch<64, FWD>(a, sums, B, gx, st);
+    case 8: return ring_launch<8, K>(a, sums, B, gx, st);
+    case 16: return ring_launch<16, K>(a, sums, B, gx, st);
+    case 32: return ring_launch<32, K>(a, sums, B, gx, st);
+    case 64: return ring_launch<64, K>(a, sums, B, gx, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -564,20 +888,18 @@ int ring_dispatch(const RingArgs& a, float* sums, int B, int C, int gx,
 
 extern "C" {
 
-// Blocks a (batch element, N slice) of the forward (fwd != 0) or the dgrad
-// of a (B, D, H, W, C) grid at Cin = Cout = C (the partial table has B
-// times that many rows); 0 for a shape the kernel does not take.
-int pcseg_ring_grid(int fwd, int B, int C, int D, int H, int W) {
+// The x blocks of a launch of kind 1 (the forward), 0 (the dgrad) or 2
+// (the wgrad) of a (B, D, H, W, C) grid at Cin = Cout = C: the forward's
+// and the dgrad's partial tables have B times that many rows a (batch
+// element, N slice), the wgrad's B times that many in all; 0 for a shape
+// the kernel does not take.
+int pcseg_ring_grid(int kind, int B, int C, int D, int H, int W) {
   if (B <= 0 || D <= 0 || H <= 0 || W <= 0) return 0;
   switch (C) {
-    case 8: return fwd ? ring_grid<8, true>(B, D, H, W)
-                       : ring_grid<8, false>(B, D, H, W);
-    case 16: return fwd ? ring_grid<16, true>(B, D, H, W)
-                        : ring_grid<16, false>(B, D, H, W);
-    case 32: return fwd ? ring_grid<32, true>(B, D, H, W)
-                        : ring_grid<32, false>(B, D, H, W);
-    case 64: return fwd ? ring_grid<64, true>(B, D, H, W)
-                        : ring_grid<64, false>(B, D, H, W);
+    case 8: return ring_grid_of<8>(kind, B, D, H, W);
+    case 16: return ring_grid_of<16>(kind, B, D, H, W);
+    case 32: return ring_grid_of<32>(kind, B, D, H, W);
+    case 64: return ring_grid_of<64>(kind, B, D, H, W);
     default: return 0;
   }
 }
@@ -605,7 +927,7 @@ int pcseg_conv3x3_mma(const void* x, const void* w, const void* bias,
   a.out = (__nv_bfloat16*)y;
   a.part = (float*)part;
   a.D = D; a.H = H; a.W = W;
-  return ring_dispatch<true>(a, (float*)stats, B, C, gx,
+  return ring_dispatch<kFwd>(a, (float*)stats, B, C, gx,
                              (cudaStream_t)stream);
 }
 
@@ -635,8 +957,36 @@ int pcseg_conv3x3_dgrad_mma(const void* gy, const void* y, const void* gstats,
   a.gadj = (__nv_bfloat16*)gadj;
   a.part = (float*)part;
   a.D = D; a.H = H; a.W = W;
-  return ring_dispatch<false>(a, (float*)dstats, B, C, gx,
-                              (cudaStream_t)stream);
+  return ring_dispatch<kDgrad>(a, (float*)dstats, B, C, gx,
+                               (cudaStream_t)stream);
+}
+
+// The wgrad: x (B, D, H, W, C) bf16 the forward's input; scale/shift (B,
+// C) f32, or both null (no activation); gy (B, D, H, W, C) bf16; y the
+// forward's output and gstats (B, 2, C), or both null. Writes out (27 C^2
+// + C) f32, dW as (3, 3, 3, Cin, Cout) then dbias, through part, (B gx,
+// 27 C^2 + C) f32 scratch. All grids 16-byte aligned; gx from
+// pcseg_ring_grid(2, ...).
+int pcseg_conv3x3_wgrad_mma(const void* x, const void* scale,
+                            const void* shift, const void* gy, const void* y,
+                            const void* gstats, void* out, void* part, int B,
+                            int D, int H, int W, int C, int gx,
+                            void* stream) {
+  if (B <= 0 || gx <= 0 || out == nullptr || part == nullptr ||
+      (scale == nullptr) != (shift == nullptr) ||
+      (y == nullptr) != (gstats == nullptr))
+    return (int)cudaErrorInvalidValue;
+  RingArgs a{};
+  a.src = (const __nv_bfloat16*)x;
+  a.tile = (const __nv_bfloat16*)gy;
+  a.y = (const __nv_bfloat16*)y;
+  a.gstats = (const float*)gstats;
+  a.scale = (const float*)scale;
+  a.shift = (const float*)shift;
+  a.part = (float*)part;
+  a.D = D; a.H = H; a.W = W;
+  return ring_dispatch<kWgrad>(a, (float*)out, B, C, gx,
+                               (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -30,7 +30,10 @@
 // voxelize and the scatter add their products into an f32 grid that the
 // caller zeroed with float atomics, the gather reads its at most 8 taps x C
 // bf16 values; rowcol_scatter adds a point's C values into its (row, col)
-// cell with float atomics. All four are bound by bytes, not operations:
+// cell, the points of a warp that share a cell summed first in lane order
+// (consecutive track points share cells: about 30 a cell at R64), one
+// vector reduction for 4 channels by the group's leader. All four are
+// bound by bytes, not operations:
 // the scatter and voxelize by the f32 grid they write (33.5 / 25.2 MB at
 // B8 x R64 with C 4 / 3) and by atomic throughput, the gather by the
 // per-point rows it reads and writes (the taps of neighbouring points
@@ -214,23 +217,81 @@ __global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
     if (k < c) o[k] = acc[k];
 }
 
+// out[0..3] += v with one vector reduction (sm_90; out 16-byte aligned)
+__device__ __forceinline__ void red_add_v4(float* out, const float (&v)[4]) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(out),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
 // rows / cols (B, M) int32, vals (B, M, C) f32 rounded to bf16 here; out
-// (B, nrows, ncols * C) f32 zeroed by the caller. Zero values (the masked
-// points' cotangents) add nothing and are skipped.
+// (B, nrows, ncols * C) f32 zeroed by the caller. A thread a point reads
+// its values 4 channels at a time (one 16-byte load where C % 4 == 0, a
+// scalar tail otherwise). The lanes of a warp whose points fall in one
+// (b, row, col) cell (__match_any_sync) sum their values in lane order,
+// and the group's lowest lane adds the sum: one red.global.add.v4.f32 for
+// 4 channels where C % 4 == 0, else a scalar atomic a channel. A point
+// outside the table (the sentinel row) joins no group, and a zero sum (a
+// masked point's cotangent) is not added.
 __global__ void __launch_bounds__(kThreads) rowcol_scatter_kernel(
     const int* __restrict__ rows, const int* __restrict__ cols,
     const float* __restrict__ vals, float* __restrict__ out, long long n,
     int m, int nrows, int ncols, int c) {
+  constexpr unsigned kAll = 0xffffffffu;
   const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pt >= n) return;
-  const int r = rows[pt], col = cols[pt];
-  if (r < 0 || r >= nrows || col < 0 || col >= ncols) return;
-  const long long b = pt / m;
-  float* o = out + ((b * nrows + r) * ncols + col) * c;
-  const float* v = vals + pt * c;
-  for (int k = 0; k < c; ++k) {
-    const float vb = round_bf16(v[k]);
-    if (vb != 0.f) atomicAdd(o + k, vb);
+  const int lane = threadIdx.x & 31;
+  const bool vec = (c & 3) == 0;
+  long long cell = -1;   // (b nrows + row) ncols + col, or -1: none
+  if (pt < n) {
+    const int r = rows[pt], col = cols[pt];
+    if (r >= 0 && r < nrows && col >= 0 && col < ncols)
+      cell = (pt / m * nrows + r) * ncols + col;
+  }
+  const unsigned grp = __match_any_sync(kAll, (unsigned long long)cell);
+  const int size = cell >= 0 ? __popc(grp) : 0;
+  const int most = (int)__reduce_max_sync(kAll, (unsigned)size);
+  const bool lead = cell >= 0 && __ffs(grp) - 1 == lane;
+  const float* v = vals + (cell >= 0 ? pt * c : 0);
+  float* o = out + (cell >= 0 ? cell * c : 0);
+  for (int k0 = 0; k0 < c; k0 += 4) {
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (cell >= 0) {
+      if (vec) {
+        const float4 q = *reinterpret_cast<const float4*>(v + k0);
+        x[0] = q.x;
+        x[1] = q.y;
+        x[2] = q.z;
+        x[3] = q.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k0 + j < c) x[j] = v[k0 + j];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = round_bf16(x[j]);
+    }
+    // the group's sum, its lanes in ascending order: step i reads the
+    // lane of the i-th set bit of the group's mask
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+    unsigned rest = grp;
+    for (int i = 0; i < most; ++i) {
+      const int src = rest ? __ffs(rest) - 1 : lane;
+      rest &= rest - 1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float y = __shfl_sync(kAll, x[j], src);
+        if (i < size) sum[j] += y;
+      }
+    }
+    if (!lead) continue;
+    if (vec) {
+      if (sum[0] != 0.f || sum[1] != 0.f || sum[2] != 0.f || sum[3] != 0.f)
+        red_add_v4(o + k0, sum);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (k0 + j < c && sum[j] != 0.f) atomicAdd(o + k0 + j, sum[j]);
+    }
   }
 }
 

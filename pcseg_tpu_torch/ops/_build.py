@@ -51,6 +51,7 @@ SIGNATURES = {
         "pcseg_ring_grid": [_I] * 6,
         "pcseg_conv3x3_mma": [_P] * 9 + [_I] * 6 + [_P],
         "pcseg_conv3x3_dgrad_mma": [_P] * 11 + [_I] * 6 + [_P],
+        "pcseg_conv3x3_wgrad_mma": [_P] * 8 + [_I] * 6 + [_P],
     },
     "resample": {
         "pcseg_resample_grid": [_I] * 4,

@@ -53,15 +53,19 @@ product; the down block's backward is the transposed pair,
 CUDA-core kernels of csrc/conv3d_block.cu, chosen by shape before the
 launch (``_mma_route``).
 
-The 3^3 conv, forward and dgrad, runs for Cin = Cout in 8, 16, 32, 64 on
-W 16, 32, 64 as one implicit GEMM (csrc/conv3d_dgrad.cu): a plane tile's
-output is the sum over the 27 taps of ring slots of three input planes
-(``ring_slot``) read at the tap's shift, times the packed weights' row
-(``ring_plane``; ``pack_conv_w`` for the forward, ``pack_dgrad_w`` for
-the dgrad). Other shapes take conv3d_block.cu's direct kernel
-(``_conv_route``). The tensor-core kernels read the bf16 weights these
-``pack_*`` helpers return, so the layout the CPU tests hold is the one
-the kernels read.
+The 3^3 conv, forward, dgrad and wgrad, runs for Cin = Cout in 8, 16, 32,
+64 on W 16, 32, 64 as implicit GEMMs on one ring of planes
+(csrc/conv3d_dgrad.cu): a plane tile's output is the sum over the 27 taps
+of ring slots of three input planes (``ring_slot``) read at the tap's
+shift, times the packed weights' row (``ring_plane``; ``pack_conv_w`` for
+the forward, ``pack_dgrad_w`` for the dgrad); the wgrad's dW[t] is the
+sum over plane tiles of the forward's ring read at tap t's shift,
+transposed, times the tile's own g', split over tap groups and depth
+ranges into a partial table that one fixed-order pass sums
+(tests/test_torch_wgrad_layout.py emulates that order). Other shapes take
+conv3d_block.cu's direct kernels (``_conv_route``). The tensor-core
+kernels read the bf16 weights these ``pack_*`` helpers return, so the
+layout the CPU tests hold is the one the kernels read.
 
 ``*_cuda`` launch a kernel (csrc/conv3d_block.cu); ``*_plain`` are the
 plain PyTorch versions, with the kernels' rounding points, so the two agree
@@ -91,13 +95,14 @@ from pcseg_tpu_torch.ops.conv3d import num_groups
 # one where it launches its kernel and nowhere else. The op keys count
 # either route; "down2x_mma", "up2x_mma", "up2x_bwd_mma" and
 # "down2x_bwd_mma" count the launches of csrc/resample.cu's gathered
-# tensor-core kernels among them, "conv3x3_mma" and "conv3x3_dgrad_mma"
-# those of csrc/conv3d_dgrad.cu's implicit GEMM.
+# tensor-core kernels among them, "conv3x3_mma", "conv3x3_dgrad_mma" and
+# "conv3x3_wgrad_mma" those of csrc/conv3d_dgrad.cu's implicit GEMMs.
 LAUNCHES = {"conv3x3_gn_act": 0, "down2x_gn_act": 0, "up2x_gn_act": 0,
             "conv3x3_dgrad": 0, "conv3x3_wgrad": 0, "down2x_bwd": 0,
             "up2x_bwd": 0, "head_grid2": 0, "head_grid2_bwd": 0,
             "conv3x3_mma": 0, "down2x_mma": 0, "up2x_mma": 0,
-            "up2x_bwd_mma": 0, "down2x_bwd_mma": 0, "conv3x3_dgrad_mma": 0}
+            "up2x_bwd_mma": 0, "down2x_bwd_mma": 0, "conv3x3_dgrad_mma": 0,
+            "conv3x3_wgrad_mma": 0}
 
 
 def reset_launches() -> None:
@@ -647,12 +652,14 @@ _RING_TILE = {8: 256, 16: 256, 32: 256, 64: 128}
 
 
 def _conv_route(cin, cout, shape, *grids):
-    """True where csrc/conv3d_dgrad.cu's tensor-core implicit GEMM takes a
-    3^3 forward or dgrad of a (B, D, H, W, C) grid: Cin = Cout in 8, 16,
-    32, 64 (the JAX fused core's widths), W in 16, 32, 64 (not 64 at 64
-    channels, whose ring of planes would not fit in shared memory), H a
-    multiple of the plane tile's rows and 16-byte aligned grids (its
-    16-byte copies). Other shapes run on conv3d_block.cu's conv_kernel."""
+    """True where csrc/conv3d_dgrad.cu's tensor-core implicit GEMMs take a
+    3^3 forward, dgrad or wgrad of a (B, D, H, W, C) grid: Cin = Cout in
+    8, 16, 32, 64 (the JAX fused core's widths), W in 16, 32, 64 (not 64
+    at 64 channels, whose forward ring and W slice would not fit in shared
+    memory), H a multiple of the plane tile's rows and 16-byte aligned
+    grids (their 16-byte copies). One rule for the three, since they walk
+    one ring; other shapes run on conv3d_block.cu's conv_kernel and
+    wgrad_kernel."""
     h, w = shape[2], shape[3]
     tile = _RING_TILE.get(cin)
     return (tile is not None and cout == cin and w in (16, 32, 64)
@@ -661,12 +668,13 @@ def _conv_route(cin, cout, shape, *grids):
 
 
 @functools.lru_cache(maxsize=None)
-def _ring_grid(fwd, b, c, d, h, w, device_index):
-    """Blocks a (batch element, N slice) of a conv3d_dgrad.cu forward
-    (``fwd`` 1) or dgrad (0): the rows of its partial table are B times
-    this."""
+def _ring_grid(kind, b, c, d, h, w, device_index):
+    """x blocks of a conv3d_dgrad.cu forward (``kind`` 1), dgrad (0) or
+    wgrad (2): the rows of its partial table are B times this (for the
+    forward and the dgrad a (batch element, N slice))."""
     with torch.cuda.device(device_index):
-        gx = load_library("conv3d_dgrad").pcseg_ring_grid(fwd, b, c, d, h, w)
+        gx = load_library("conv3d_dgrad").pcseg_ring_grid(kind, b, c, d, h,
+                                                          w)
     if gx <= 0:
         raise RuntimeError(f"conv3d_dgrad.cu: no launch grid for C={c}, "
                            f"grid {d}x{h}x{w}")
@@ -725,7 +733,10 @@ def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
 
 def conv3x3_wgrad_cuda(x, scale, shift, gy, y, gstats, activate=True):
     """wgrad of the 3^3 block: (dW (3, 3, 3, Cin, Cout), dbias (Cout,)),
-    f32; arguments as in ``conv3x3_dgrad_cuda``."""
+    f32; arguments as in ``conv3x3_dgrad_cuda``. The tensor-core split-K
+    GEMM on the forward's ring where ``_conv_route`` takes the shape (a
+    partial table summed in a fixed order: two calls give the same bits),
+    else conv3d_block.cu's wgrad_kernel."""
     b, d, h, wd, cin = x.shape
     cout = gy.shape[-1]
     _check("x", x, x.shape, torch.bfloat16, x.device)
@@ -734,6 +745,23 @@ def conv3x3_wgrad_cuda(x, scale, shift, gy, y, gstats, activate=True):
         _check("shift", shift, (b, cin), torch.float32, x.device)
     _cotangents(gy, y, gstats, (b, d, h, wd, cout))
     _wgrad_checks("conv3x3_wgrad", x, gy, y)
+    if _conv_route(cin, cout, x.shape, x, gy,
+                   y if gstats is not None else None):
+        gx = _ring_grid(2, b, cin, d, h, wd, x.device.index)
+        n_dw = 27 * cin * cout
+        out = torch.empty(n_dw + cout, dtype=torch.float32, device=x.device)
+        part = torch.empty((b * gx, n_dw + cout), dtype=torch.float32,
+                           device=x.device)
+        rc = load_library("conv3d_dgrad").pcseg_conv3x3_wgrad_mma(
+            x.data_ptr(), ptr(scale) if activate else None,
+            ptr(shift) if activate else None, gy.data_ptr(),
+            ptr(y) if gstats is not None else None, ptr(gstats),
+            out.data_ptr(), part.data_ptr(), b, d, h, wd, cin, gx,
+            stream_of(x))
+        raise_on(rc, "conv3x3_wgrad_mma")
+        LAUNCHES["conv3x3_wgrad_mma"] += 1
+        LAUNCHES["conv3x3_wgrad"] += 1
+        return out[:n_dw].view(3, 3, 3, cin, cout), out[n_dw:]
     dw = _f32_zeros(x, 3, 3, 3, cin, cout)
     db = _f32_zeros(x, cout)
     rc = load_library().pcseg_conv3x3_wgrad(

@@ -116,7 +116,8 @@ STAGES = (("gp_wgmma_fwd", "global_pool"),
           ("wgrad_kernel", "conv"), ("conv3x3_mma_kernel", "conv"),
           ("down2x_mma_kernel", "conv"), ("up2x_mma_kernel", "conv"),
           ("up2x_bwd_mma_kernel", "conv"), ("down2x_bwd_mma_kernel", "conv"),
-          ("dgrad_mma_kernel", "conv"), ("fixed_sum_kernel", "conv"))
+          ("dgrad_mma_kernel", "conv"), ("wgrad_mma_kernel", "conv"),
+          ("fixed_sum_kernel", "conv"))
 
 # PointNet serving only: the library's matrix-product kernel families
 # (cuBLAS xmma, cuBLASLt nvjet and its split-K reduction, CUTLASS SIMT and

@@ -261,12 +261,25 @@ def test_block_conv_wgrad_kernel(gen, dtype, r, t, cap, cin, cout):
         _sum_close(got32, ref, mag)
 
 
-@pytest.mark.parametrize("b,m,nt,t3,c", [(8, 8192, 64, 512, 4),
-                                         (3, 1000, 5, 64, 3)])
-def test_rowcol_scatter_kernel(gen, b, m, nt, t3, c):
+# (B, M, NT, T^3, C, layout): random cells with a crowded slot; runs of
+# 37 consecutive points in one cell (runs that cross warp boundaries, as
+# consecutive track points share cells); the first 256 points of every
+# event (a whole block) in one cell
+ROWCOL_CASES = [(8, 8192, 64, 512, 4, "random"), (3, 1000, 5, 64, 3, "random")]
+ROWCOL_CASES += [(3, 1000, 5, 64, c, layout) for layout in ("runs", "block")
+                 for c in (1, 3, 4, 8)]
+
+
+@pytest.mark.parametrize("b,m,nt,t3,c,layout", ROWCOL_CASES)
+def test_rowcol_scatter_kernel(gen, b, m, nt, t3, c, layout):
     rows = torch.randint(0, nt + 1, (b, m), generator=gen, device="cuda")
     cols = torch.randint(0, t3, (b, m), generator=gen, device="cuda")
     rows[0, : m // 4] = 3                   # a crowded slot
+    if layout == "runs":
+        run = torch.arange(b * m, device="cuda").reshape(b, m) // 37
+        rows, cols = run % (nt + 1), run * 7 % t3
+    elif layout == "block":
+        rows[:, :256], cols[:, :256] = 2, 5
     vals = torch.randn((b, m, c), generator=gen, device="cuda")
     vals[:, -10:] = 0.0                      # masked points' cotangents
     before = bsp.LAUNCHES["rowcol_scatter"]

@@ -144,11 +144,11 @@ def test_default_model_launches_and_matches_plain(gen):
     logits, _ = model.apply(pts, train=True, mask=mask)
     logits.square().mean().backward()
     torch.cuda.synchronize()
-    # grid 16: the five level-0 dgrads take the implicit GEMM (W 16), the
-    # 8^3 and 4^3 ones the direct kernel
+    # grid 16: the five level-0 dgrads and six level-0 wgrads take the
+    # implicit GEMMs (W 16), the 8^3 and 4^3 ones the direct kernels
     step = dict(fwd, conv3x3_dgrad=12, conv3x3_wgrad=13, down2x_bwd=2,
                 up2x_bwd=2, head_grid2_bwd=1, up2x_bwd_mma=2,
-                down2x_bwd_mma=2, conv3x3_dgrad_mma=5)
+                down2x_bwd_mma=2, conv3x3_dgrad_mma=5, conv3x3_wgrad_mma=6)
     assert cb.LAUNCHES == {k: step.get(k, 0) for k in cb.LAUNCHES}
     assert vx.LAUNCHES == {"voxelize_contract": 1, "trilinear_gather": 1,
                            "trilinear_scatter": 1}

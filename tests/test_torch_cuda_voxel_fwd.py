@@ -184,4 +184,5 @@ def test_bench_forward_and_step_launch_counts(gen):
     torch.cuda.synchronize()
     assert {k: v for k, v in cb.LAUNCHES.items() if v} == dict(
         forward, conv3x3_dgrad=12, conv3x3_dgrad_mma=12, conv3x3_wgrad=13,
-        down2x_bwd=2, down2x_bwd_mma=2, up2x_bwd=2, up2x_bwd_mma=2)
+        conv3x3_wgrad_mma=13, down2x_bwd=2, down2x_bwd_mma=2, up2x_bwd=2,
+        up2x_bwd_mma=2)

@@ -232,6 +232,80 @@ def test_conv3x3_dgrad_other_widths_take_the_direct_kernel(gen):
     assert torch.equal(got[2], ref[2])
 
 
+# (B, grid, C, variant): row 3's shapes on the voxel step's path (its
+# four variants at 64^3 x 16, three at 32^3 x 32, "act" at 16^3 x 64), C 8
+# (two taps an m16 tile), non-cubic grids (depth ranges of unequal length;
+# the other W of each width) and a batch of 3 at 64 channels (four tap
+# groups)
+WGRAD_CASES = [
+    (8, (64, 64, 64), 16, "act"), (8, (64, 64, 64), 16, "accum"),
+    (8, (64, 64, 64), 16, "no-stats"), (8, (64, 64, 64), 16, "stem"),
+    (8, (32, 32, 32), 32, "act"), (8, (32, 32, 32), 32, "accum"),
+    (8, (32, 32, 32), 32, "no-stats"), (8, (16, 16, 16), 64, "act"),
+    (2, (8, 16, 16), 8, "act"), (2, (5, 8, 64), 8, "stem"),
+    (1, (7, 8, 32), 32, "accum"), (2, (6, 8, 32), 64, "no-stats"),
+    (2, (9, 16, 32), 16, "act"), (3, (5, 32, 16), 64, "act"),
+]
+
+
+@pytest.mark.parametrize("b,dhw,c,case", WGRAD_CASES,
+                         ids=lambda v: str(v).replace(" ", ""))
+def test_conv3x3_wgrad_mma_kernel(gen, b, dhw, c, case):
+    """csrc/conv3d_dgrad.cu's split-K wgrad against the plain version, and
+    bit for bit the same in a second call (dW, dbias)."""
+    x = _rand(gen, b, *dhw, c).to(torch.bfloat16)
+    _, w, bias, scale, shift = _inputs(gen, b, 2, c, c, 3)
+    activate = case != "stem"
+    accum = (_rand(gen, b, *dhw, c).to(torch.bfloat16) if case == "accum"
+             else None)
+    y, _ = cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift, accum,
+                                  activate=activate)
+    gy, gstats = _cotangents(gen, y.shape)
+    if case == "no-stats":
+        y = gstats = None
+    args = (x, scale, shift, gy, y, gstats, activate)
+    before = dict(cb.LAUNCHES)
+    got = cb.conv3x3_wgrad_cuda(*args)
+    again = cb.conv3x3_wgrad_cuda(*args)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["conv3x3_wgrad_mma"] == before["conv3x3_wgrad_mma"] + 2
+    assert cb.LAUNCHES["conv3x3_wgrad"] == before["conv3x3_wgrad"] + 2
+    ref = cb.conv3x3_wgrad_plain(*args)
+    _sum_close(got[0], ref[0])
+    _sum_close(got[1], ref[1])
+    assert _same_bits(got, again)
+
+
+def test_conv3x3_wgrad_other_widths_take_the_cuda_core_kernel(gen):
+    """W = 8 (here 8^3 x 32) keeps conv3d_block.cu's wgrad_kernel<kConv3>,
+    a route declared by shape."""
+    x, w, bias, scale, shift = _inputs(gen, 2, 8, 32, 32, 3)
+    y, _ = cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift)
+    gy, gstats = _cotangents(gen, y.shape)
+    args = (x, scale, shift, gy, y, gstats, True)
+    before = dict(cb.LAUNCHES)
+    got = cb.conv3x3_wgrad_cuda(*args)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["conv3x3_wgrad_mma"] == before["conv3x3_wgrad_mma"]
+    assert cb.LAUNCHES["conv3x3_wgrad"] == before["conv3x3_wgrad"] + 1
+    ref = cb.conv3x3_wgrad_plain(*args)
+    _sum_close(got[0], ref[0])
+    _sum_close(got[1], ref[1])
+
+
+@pytest.mark.parametrize("r,c", [(64, 16), (32, 32), (16, 64)])
+def test_wgrad_partial_table_stays_within_its_operands(gen, r, c):
+    """At the voxel step's shapes the wgrad's partial table (a row of 27
+    C^2 + C floats a (batch element, x block)) is no larger than the x and
+    gy it reduces, unless a block already takes all the planes of its
+    rows."""
+    b = 8
+    gx = cb._ring_grid(2, b, c, r, r, r, torch.cuda.current_device())
+    nht = r // (cb._RING_TILE[c] // r)
+    table = b * gx * (27 * c * c + c) * 4
+    assert table <= 2 * b * r ** 3 * c * 2 or gx == nht, (gx, table)
+
+
 # (B, fine grid, C, stats): row 5's two shapes on the voxel step's path
 # (64^3 x 16 -> 32^3 x 32, 32^3 x 32 -> 16^3 x 64), C 8 and C 64 (four
 # column slices), without the stats cotangent, and a ragged last tile
@@ -321,8 +395,9 @@ def test_train_step_through_the_kernels(gen):
     vx.reset_launches()
     gk = grads(False)
     torch.cuda.synchronize()
-    # grid 16: the six level-0 forwards and five level-0 dgrads take the
-    # implicit GEMM (W 16), the 8^3 and 4^3 ones the direct kernel
+    # grid 16: the six level-0 forwards, five level-0 dgrads and six
+    # level-0 wgrads take the implicit GEMMs (W 16), the 8^3 and 4^3 ones
+    # the direct kernels
     assert cb.LAUNCHES == {"conv3x3_gn_act": 13, "down2x_gn_act": 2,
                            "up2x_gn_act": 2, "conv3x3_dgrad": 12,
                            "conv3x3_wgrad": 13, "down2x_bwd": 2,
@@ -330,7 +405,7 @@ def test_train_step_through_the_kernels(gen):
                            "head_grid2_bwd": 0, "conv3x3_mma": 6,
                            "down2x_mma": 2, "up2x_mma": 2,
                            "up2x_bwd_mma": 2, "down2x_bwd_mma": 2,
-                           "conv3x3_dgrad_mma": 5}
+                           "conv3x3_dgrad_mma": 5, "conv3x3_wgrad_mma": 6}
     assert vx.LAUNCHES == {"voxelize_contract": 0, "trilinear_gather": 0,
                            "trilinear_scatter": 1}
     gp = grads(True)

@@ -72,6 +72,8 @@ def test_pointnet_kernels_have_their_stage(name, stage):
     NS + "down2x_bwd_mma_kernel<16, 1>((anonymous namespace)::"
     "DownBwdArgs)",
     NS + "dgrad_mma_kernel<16>((anonymous namespace)::RingArgs)",
+    NS + "wgrad_mma_kernel<16>((anonymous namespace)::RingArgs)",
+    NS + "wgrad_mma_kernel<64>((anonymous namespace)::RingArgs)",
     NS + "conv3x3_mma_kernel<16>((anonymous namespace)::RingArgs)",
     NS + "conv3x3_mma_kernel<64>((anonymous namespace)::RingArgs)",
     NS + "up2x_mma_kernel<16>((anonymous namespace)::UpArgs)",
@@ -80,8 +82,8 @@ def test_pointnet_kernels_have_their_stage(name, stage):
 ])
 def test_resample_kernels_are_conv_stage(name):
     """csrc/resample.cu's and csrc/conv3d_dgrad.cu's kernels (rows 4, 5,
-    7, 2, 1 and 6 and their fixed-order sums) book under the voxel U-Net's
-    conv stage, as the kernels they took over from did."""
+    7, 2, 1, 6 and 3 and their fixed-order sums) book under the voxel
+    U-Net's conv stage, as the kernels they took over from did."""
     assert stage_of(name) == "conv"
 
 
