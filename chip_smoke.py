@@ -55,8 +55,13 @@
    down and up backward, the trilinear scatter of the devoxelize VJP)
    against its plain version at every shape one B8 x 8192 train step at
    64^3/w16/L3 launches, and times kernel, plain version, bound and one
-   PyTorch call of the same function (cuDNN's convolution_backward,
-   index_add_; yardsticks only); the tensor-core kernels (the 3^3 dgrad
+   PyTorch call of the same function (cuDNN's convolution_backward;
+   yardsticks only); the trilinear scatter by device time (its binning,
+   tile and long-tile kernels summed) beside its CUDA-event op time, with
+   f32 and with the bf16 output the step runs, two calls held bit for bit
+   and the bf16 output held to the f32 sums rounded once, against
+   torch.zeros + index_add_ (the same function from scratch) and
+   index_add_ alone; the tensor-core kernels (the 3^3 dgrad
    and wgrad, conv3d_dgrad.cu, by variant and level; the down and up
    backward, resample.cu, by shape) also by device time, their cuDNN
    calls too, and two calls held bit for bit; and the 3^3 dgrad and
@@ -81,7 +86,9 @@
    shapes of a B8 x 8192, 64^3 batch, with edge cases (points on the box
    faces, an all-masked row, a voxel hit by many points), and times
    kernel, plain version, bound and one PyTorch call of the same function
-   (index_add_, grid_sample, bf16 matmuls; yardsticks only).
+   (index_add_, grid_sample, bf16 matmuls; yardsticks only); the gather
+   and voxelizer by device time; the trilinear scatter again on this
+   batch, as phase 7 holds and times it.
 11. Serves the default configuration as phase 3 serves the scatter/gather
    one: launch counts per forward, logits against the plain versions.
 12. One default-configuration train step with the kernels, with the plain
@@ -1551,40 +1558,106 @@ def vox_resample_case(name, label, r, cin, cout, kw, gen):
     return res
 
 
-def vox_scatter_case(gen):
+def tri_scatter_case(label, u, go):
+    """Row 11 (the devoxelize backward's trilinear scatter) on one batch:
+    the kernels against the plain version (f32 sums to PN_SUM_TOL of the
+    largest), two calls bit for bit, the bf16 output the f32 sums rounded
+    once, no gradient for an all-masked row; device time (all of the op's
+    kernels: binning, tiles, long tiles) beside the op's CUDA-event time,
+    f32 and bf16 output; yardsticks: torch.zeros + index_add_ of the
+    precomputed tap rows (the same function from scratch) and index_add_
+    alone into a grid zeroed once outside the timing."""
     import torch
 
     from pcseg_tpu_torch.ops import voxel as vx
 
     b, m, r, c = VOX_B, VOX_M, VOX_R, VOX_CLASSES
-    # continuous voxel coords over the event box, 3/4 of the points real
+    k = vx.trilinear_scatter(u, go, r)
+    again = vx.trilinear_scatter(u, go, r)
+    half = vx.trilinear_scatter(u, go, r, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    p = vx.trilinear_scatter_plain(u, go, r)
+    masked = ~(go != 0).any(-1).any(-1)
+    checks = {"dgrid": _sum_check(k, p),
+              "two calls": (float((k - again).abs().max()),
+                            torch.equal(k, again)),
+              "bf16 out": (float((half.float() - k).abs().max()),
+                           torch.equal(half, k.to(torch.bfloat16))),
+              "masked rows": (float(k[masked].abs().max())
+                              if masked.any() else 0.0,
+                              not k[masked].any())}
+    err = _held(f"trilinear_scatter {label}", checks)
+    rows, vals = vx.trilinear_scatter_taps(u, go, r)
+    rows, vals = rows.reshape(-1), vals.reshape(-1, c)
+    zeroed = torch.zeros((b * r ** 3, c), device="cuda")
+
+    def from_scratch():
+        return torch.zeros((b * r ** 3, c), device="cuda").index_add_(
+            0, rows, vals)
+
+    def op(dtype=torch.float32):
+        return lambda: vx.trilinear_scatter(u, go, r, out_dtype=dtype)
+
+    res = {
+        "name": "trilinear_scatter", "case": label,
+        "shape": f"B{b} M{m} R{r} C{c}", "max_abs_err": err,
+        "ms": device_ms(op()), "op_ms": time_ms(op()),
+        "bf16_ms": device_ms(op(torch.bfloat16)),
+        "bf16_op_ms": time_ms(op(torch.bfloat16)),
+        "plain_ms": time_ms(lambda: vx.trilinear_scatter_plain(u, go, r),
+                            iters=3),
+        "library": "torch.zeros + index_add_",
+        "library_ms": device_ms(from_scratch),
+        "library_op_ms": time_ms(from_scratch),
+        "index_add_alone_ms": device_ms(
+            lambda: zeroed.index_add_(0, rows, vals)),
+        "index_add_alone_op_ms": time_ms(
+            lambda: zeroed.index_add_(0, rows, vals)),
+        "wrapper_ms": time_ms(op()),
+    }
+    # read u and go once, write the grid once (f32; bf16 beside it); 8 taps
+    # x C products of each real point
+    n_real = int((go != 0).any(-1).sum())
+    points = b * m * 3 * 4 + b * m * c * 4
+    res["bound_ms"], res["bound_by"] = _bound(
+        points + b * r ** 3 * c * 4, 2 * 8 * c * n_real)
+    res["bf16_bound_ms"] = _bound(points + b * r ** 3 * c * 2,
+                                  2 * 8 * c * n_real)[0]
+    print(f"      {label}: device f32 {res['ms']:.4f} / bf16 "
+          f"{res['bf16_ms']:.4f} ms (op {res['op_ms']:.4f} / "
+          f"{res['bf16_op_ms']:.4f}); zeros + index_add_ "
+          f"{res['library_ms']:.4f}, index_add_ alone "
+          f"{res['index_add_alone_ms']:.4f}; bounds {res['bound_ms']:.4f} / "
+          f"{res['bf16_bound_ms']:.4f}", flush=True)
+    return _vox_report(res)
+
+
+def vox_scatter_case(gen):
+    """Row 11 at the step's shape, points uniform over the grid, 3/4 of
+    them real."""
+    import torch
+
+    b, m, r, c = VOX_B, VOX_M, VOX_R, VOX_CLASSES
     u = torch.rand((b, m, 3), generator=gen, device="cuda") * r - 0.5
     valid = torch.rand((b, m), generator=gen, device="cuda") < 0.75
     go = torch.randn((b, m, c), generator=gen, device="cuda") * 1e-3
-    go = torch.where(valid[..., None], go, 0.0)
-    k = vx.trilinear_scatter(u, go, r)
-    torch.cuda.synchronize()
-    p = vx.trilinear_scatter_plain(u, go, r)
-    err = _held("trilinear_scatter", {"dgrid": _sum_check(k, p)})
-    rows, vals = vx.trilinear_scatter_taps(u, go, r)
-    rows, vals = rows.reshape(-1), vals.reshape(-1, c)
-    out = torch.zeros((b * r ** 3, c), device="cuda")
-    res = {
-        "name": "trilinear_scatter", "case": "devox bwd",
-        "shape": f"B{b} M{m} R{r} C{c}", "max_abs_err": err,
-        "ms": time_ms(lambda: vx.trilinear_scatter(u, go, r)),
-        "plain_ms": time_ms(lambda: vx.trilinear_scatter_plain(u, go, r),
-                            iters=3),
-        # one index_add_ of the precomputed 8 B M weighted tap rows
-        "library_ms": time_ms(lambda: out.index_add_(0, rows, vals)),
-    }
-    # read u and go once, write the f32 grid once; 8 taps x C products
-    # of each real point
-    n_real = int(valid.sum())
-    res["bound_ms"], res["bound_by"] = _bound(
-        b * m * 3 * 4 + b * m * c * 4 + b * r ** 3 * c * 4,
-        2 * 8 * c * n_real)
-    return _vox_report(res)
+    return tri_scatter_case("devox bwd", u, torch.where(valid[..., None], go,
+                                                    0.0))
+
+
+def default_scatter_case(points, mask, gen):
+    """Row 11 on phase [10]'s default batch: track events, 2,000 points
+    of event 0 on one spot, points on the box faces, an all-masked row."""
+    import torch
+
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    _, _, lo, scale = vx.voxel_rows(points, mask, VOX_R)
+    u = vx.trilinear_u(points, mask, lo, scale)
+    go = torch.randn((VOX_B, VOX_M, VOX_CLASSES), generator=gen,
+                     device="cuda") * 1e-3
+    return tri_scatter_case("devox bwd, default batch", u,
+                        torch.where(mask[..., None], go, 0.0))
 
 
 def vox_model(dtype="bfloat16", impl="fused", default=False):
@@ -3112,6 +3185,18 @@ def _mma_fields(at, cases) -> dict:
                 for c in cases if "device_ms" not in c}}
 
 
+def _scatter_fields(cases) -> dict:
+    """Row 11's op times, bf16 output, second yardstick and default-batch
+    numbers beside its row; nothing for the other rows."""
+    if cases[0]["name"] != "trilinear_scatter":
+        return {}
+    keys = ("op_ms", "bf16_ms", "bf16_op_ms", "bf16_bound_ms", "library",
+            "library_op_ms", "index_add_alone_ms", "index_add_alone_op_ms")
+    return {"by_case": {c["case"]: {k: c[k] for k in ("ms",) + keys}
+                        for c in cases},
+            **{k: cases[0][k] for k in keys}}
+
+
 def step_spread(card, n) -> int:
     """Phases 8, 12 and 16's step comparisons n times each; their loss and
     worst gradient ratio as one JSON line."""
@@ -3227,6 +3312,7 @@ def main() -> int:
     points, mask = default_batch()
     def_cases = [default_voxelize_case(points, mask),
                  default_gather_case(points, mask, gen)]
+    vox_cases.append(default_scatter_case(points, mask, gen))
     def_cases += default_head_cases(gen)
     del points, mask
 
@@ -3320,7 +3406,7 @@ def main() -> int:
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "shape": shape,
-            **_mma_fields(at, mine),
+            **_mma_fields(at, mine), **_scatter_fields(mine),
         })
     # default-configuration rows: numbers at the B8 x 8192, 64^3 shapes of
     # phase 10; launches from phases 11 and 12

@@ -26,19 +26,67 @@
 // The TPU kernels build one-hot planes of a chunk of points in VMEM and
 // contract the point axis on the MXU, because the MXU is the TPU's fast
 // path and a scatter or a gather is not. On the card a point touches at
-// most 8 voxels (1 for voxelize), so each kernel is one thread per point:
-// voxelize and the scatter add their products into an f32 grid that the
-// caller zeroed with float atomics, the gather reads its at most 8 taps x C
-// bf16 values; rowcol_scatter adds a point's C values into its (row, col)
-// cell, the points of a warp that share a cell summed first in lane order
-// (consecutive track points share cells: about 30 a cell at R64), one
-// vector reduction for 4 channels by the group's leader. All four are
-// bound by bytes, not operations:
-// the scatter and voxelize by the f32 grid they write (33.5 / 25.2 MB at
-// B8 x R64 with C 4 / 3) and by atomic throughput, the gather by the
-// per-point rows it reads and writes (the taps of neighbouring points
-// share cache lines), rowcol_scatter by its point rows and the f32 table
-// (8.4 MB at B8 x NT64 x 512 x 4).
+// most 8 voxels (1 for voxelize), so none of them is a product.
+//
+// voxelize is one thread per point, adding its bf16-rounded row into an
+// f32 grid that the caller zeroed with float atomics. rowcol_scatter adds
+// a point's C values into its (row, col) cell, the points of a warp that
+// share a cell summed first in lane order (consecutive track points share
+// cells: about 30 a cell at R64), one vector reduction for 4 channels by
+// the group's leader. Both are bound by bytes: voxelize by the f32 grid
+// it writes (25.2 MB at B8 x R64 with C 3) and by atomic throughput,
+// rowcol_scatter by its point rows and the f32 table (8.4 MB at B8 x NT64
+// x 512 x 4).
+//
+// trilinear_scatter (row 11, _tri_scatter_kernel) is bound by the grid it
+// writes: at B8 x R64 x C4 33.5 MB of f32 (16.8 MB of bf16, the step's
+// form) against 1.8 MB of point rows. A thread a point adding 8 x C float
+// atomics into a grid the caller zeroed moves the grid three times (the
+// zero fill, the atomics, the caller's bf16 cast) and gives other bits on
+// every call. Here each grid tile is written once, by its owner, with no
+// global atomics, in three kernels:
+//   - binning (trilinear_scatter_bin_kernel): a block of kBinThreads
+//     points sorts its points, stably, by the bin of their base row q =
+//     z0 * R + y0 (bins of h zy rows, at most kMaxBins an event): warp
+//     counts by __match_any_sync, one scan over (bin, warp), then entries
+//     {u, point, bf16 cotangents} in (bin, point) order and each bin's
+//     start. Points whose cotangent row is zero (masked points) are
+//     dropped.
+//   - tiles (trilinear_scatter_tile_kernel): a tile is `band` zy rows (at
+//     most kTileBytes of f32) and a warp owns one. A point's taps land on
+//     rows q, q + 1, q + R, q + R + 1, so the tile of rows [r0, r1) reads
+//     the bins of q in [r0 - R - 1, r1 - 1 - R] and [r0 - 1, r1 - 1] of
+//     every binning block: its list, 32 entries a chunk, a lane an entry,
+//     summed in shared memory. Each tap's owners write their lane to the
+//     cell's one-byte tag and read it back: a tap with no cell twice adds
+//     with plain shared-memory adds. Where a cell repeats (tracks put many
+//     points in a voxel) the chunk's lanes are sorted by base cell
+//     (bitonic, stable), each run of one cell is summed by a segmented
+//     scan and its last lane adds the sum; runs of one cell apart
+//     (clipped taps) go through __match_any_sync groups first. The tile
+//     is then written once, coalesced, zeros included, in f32 or bf16
+//     (each f32 sum rounded once), so the caller allocates the grid
+//     uninitialized and casts nothing.
+//   - long tiles (trilinear_scatter_long_kernel): a tile whose list is
+//     longer than kLongChunks chunks (track events put 100-2,300 points
+//     in a bin) is left by its warp on a list that persistent blocks of
+//     kLongWarps warps take one tile at a time: chunk k goes to warp k %
+//     wl, each warp sums into its own copy of the tile, and the copies
+//     are added in warp order.
+//   Every order of every sum is fixed by the data, so two calls give the
+//   same bits. What bounds it is latency, not bytes: each tile waits on
+//   two dependent loads (its bins' starts, then its entries), so the
+//   tiles run at 2-3x the time of the write alone (PERF.md section 7).
+//
+// trilinear_gather (row 13, _tri_gather_kernel) reads a point's <= 8
+// bf16 rows of C values and writes C f32s: 0.6 us of bytes at B8 x M8192
+// x C4, so it is bound by the instructions and latency of a thread a
+// point. Each width the models use is its own instantiation (C 1-8, 16,
+// 32; other widths take the next one with masked lanes), so the loops
+// are unrolled at their real width; a thread issues its 8 tap loads (8
+// bytes a tap at C4) before any sum and writes its C outputs with one
+// vector store.
+//
 // The segment scatter keeps its whole grid in VMEM on the TPU and adds
 // the points one after another; here a thread takes one (point, channel)
 // value, so the point rows are read coalesced and the float atomics of
@@ -139,40 +187,792 @@ __global__ void __launch_bounds__(kThreads) voxelize_contract_kernel(
   for (int k = 0; k < c1; ++k) atomicAdd(row + k, round_bf16(e[k]));
 }
 
-__global__ void __launch_bounds__(kThreads) trilinear_scatter_kernel(
-    const float* __restrict__ u, const float* __restrict__ go,
-    float* __restrict__ out, long long n, int m, int r, int c) {
-  const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pt >= n) return;
-  const float* g = go + pt * c;
-  float gb[kMaxC];
-  bool any = false;
-  for (int k = 0; k < c; ++k) {
-    gb[k] = round_bf16(g[k]);
-    any |= g[k] != 0.f;
-  }
-  if (!any) return;
-  const long long b = pt / m;
-  int zi[4], ix[2];
-  float a[4], xw[2];
-  bool first[4];
-  zy_taps(u[pt * 3 + 0], u[pt * 3 + 1], r, zi, a, first);
-  const int nx = x_taps(u[pt * 3 + 2], r, ix, xw);
-  xw[0] = round_bf16(xw[0]);
-  xw[1] = round_bf16(xw[1]);
+// ---------------------------------------------------------------------------
+// rows of C values: bf16 / f32 loads and f32 stores at a compile-time width
+// CW; EXACT: the row is CW wide and loaded by the widest vector its bytes
+// allow (the wrappers hand over 16-byte aligned bases), else c < CW values
+// one by one with the lanes past c zero
+// ---------------------------------------------------------------------------
 
-  float* grid = out + b * (long long)r * r * r * c;
+constexpr unsigned kAll = 0xffffffffu;
+
+template <int Bytes>
+struct Vec;
+template <>
+struct Vec<16> { using T = uint4; };
+template <>
+struct Vec<8> { using T = uint2; };
+template <>
+struct Vec<4> { using T = unsigned; };
+template <>
+struct Vec<2> { using T = unsigned short; };
+
+__host__ __device__ constexpr int granule(int bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
+}
+
+// CW bf16 values at p as f32
+template <int CW, bool EXACT>
+__device__ __forceinline__ void load_bf16_row(const __nv_bfloat16* p, int c,
+                                              float (&v)[CW]) {
+  if constexpr (EXACT) {
+    constexpr int kG = granule(2 * CW);
+    using T = typename Vec<kG>::T;
+    constexpr int kWords = kG / 2 >= 2 ? kG / 4 : 1;  // 32-bit words a load
+    const T* q = reinterpret_cast<const T*>(p);
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (!first[t]) continue;
-    for (int e = 0; e < nx; ++e) {
-      float* row = grid + ((long long)zi[t] * r + ix[e]) * c;
-      for (int k = 0; k < c; ++k)
-        atomicAdd(row + k, a[t] * round_bf16(__fmul_rn(xw[e], gb[k])));
+    for (int i = 0; i < 2 * CW / kG; ++i) {
+      const T x = q[i];
+      if constexpr (kG == 2) {
+        v[i] = __uint_as_float((unsigned)x << 16);
+      } else {
+        const unsigned* w = reinterpret_cast<const unsigned*>(&x);
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) {
+          v[i * kG / 2 + 2 * j] = __uint_as_float(w[j] << 16);
+          v[i * kG / 2 + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CW; ++k)
+      v[k] = k < c ? __bfloat162float(p[k]) : 0.f;
+  }
+}
+
+// CW f32 values at p
+template <int CW, bool EXACT>
+__device__ __forceinline__ void load_f32_row(const float* p, int c,
+                                             float (&v)[CW]) {
+  if constexpr (EXACT) {
+    constexpr int kG = granule(4 * CW) < 4 ? 4 : granule(4 * CW);
+    using T = typename Vec<kG>::T;
+    const T* q = reinterpret_cast<const T*>(p);
+#pragma unroll
+    for (int i = 0; i < 4 * CW / kG; ++i) {
+      const T x = q[i];
+      const float* f = reinterpret_cast<const float*>(&x);
+#pragma unroll
+      for (int j = 0; j < kG / 4; ++j) v[i * kG / 4 + j] = f[j];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CW; ++k) v[k] = k < c ? p[k] : 0.f;
+  }
+}
+
+template <int CW, bool EXACT>
+__device__ __forceinline__ void store_f32_row(float* p, int c,
+                                              const float (&v)[CW]) {
+  if constexpr (EXACT) {
+    constexpr int kG = granule(4 * CW) < 4 ? 4 : granule(4 * CW);
+    using T = typename Vec<kG>::T;
+    T* q = reinterpret_cast<T*>(p);
+#pragma unroll
+    for (int i = 0; i < 4 * CW / kG; ++i) {
+      T x;
+      float* f = reinterpret_cast<float*>(&x);
+#pragma unroll
+      for (int j = 0; j < kG / 4; ++j) f[j] = v[i * kG / 4 + j];
+      q[i] = x;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CW; ++k)
+      if (k < c) p[k] = v[k];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// row 11: the trilinear scatter, each grid tile written once by its owner
+// ---------------------------------------------------------------------------
+
+// The plan's constants. A tile is `band` zy rows of at most kTileBytes of
+// f32 (one row at least). A tile block has up to kWarps warps, each
+// owning a tile; a tile whose list is longer than kLongChunks chunks of
+// 32 entries goes to a block of up to kLongWarps warps that take its
+// chunks in turn, each into its own copy of the tile. A binning block
+// takes kBinThreads points and sorts them into at
+// most kMaxBins bins of h zy rows an event
+// (tests/test_torch_devox_layout.py reads these and emulates the plan).
+struct ScatterCfg {
+  static constexpr int kWarps = 8;
+  static constexpr int kLongWarps = 16;
+  static constexpr int kTileBytes = 4096;
+  static constexpr int kLongChunks = 2;
+  static constexpr int kBinThreads = 512;
+  static constexpr int kMaxBins = 2048;
+  static constexpr int kSmemMax = 231424;  // of 232,448, less static
+  static constexpr int kBinWarps = kBinThreads / 32;
+  static constexpr int kBinSmem =
+      kBinWarps * kMaxBins * 2 + kMaxBins * 4 + (kBinWarps + 1) * 4;
+};
+static_assert(ScatterCfg::kMaxBins == 4 * ScatterCfg::kBinThreads,
+              "a binning thread scans four bins");
+
+struct ScatterPlan {
+  int rows;    // R^2 zy rows of an event
+  int band;    // zy rows a tile
+  int w;       // warps a tile block
+  int bands;   // tiles an event
+  int h;       // zy rows a bin
+  int bins;    // bins an event
+  int chunks;  // binning blocks an event
+  int ent;     // 16-byte units an entry: {u, point}, then C bf16 of go
+  int smem;    // dynamic shared bytes of a tile block: w tiles and w x 8
+               // one-byte tags a cell of a tile
+  int wl;      // warps a long-tile block
+  int smem_l;  // its shared bytes: wl copies of a tile and their tags
+};
+
+// false where no plan fits: C outside [1, 32], B past 65,535, or one zy
+// row of f32 past the shared memory of a block
+bool scatter_plan(int B, int M, int R, int C, ScatterPlan* p) {
+  if (B <= 0 || B > 65535 || M <= 0 || R <= 0 || C <= 0 || C > kMaxC)
+    return false;
+  const long long rows = (long long)R * R;
+  const long long row_bytes = (long long)R * C * 4;
+  if (rows > (1LL << 30)) return false;
+  long long band = ScatterCfg::kTileBytes / row_bytes;
+  band = band < 1 ? 1 : band > rows ? rows : band;
+  int w = ScatterCfg::kWarps;
+  auto smem = [&](int nw) { return nw * band * (row_bytes + R * 8LL); };
+  while (w > 1 && smem(w) > ScatterCfg::kSmemMax) w /= 2;
+  if (smem(w) > ScatterCfg::kSmemMax) return false;
+  p->rows = (int)rows;
+  p->band = (int)band;
+  p->w = w;
+  p->bands = (int)((rows + band - 1) / band);
+  if ((long long)B * p->bands > 0x7fffffffLL) return false;
+  p->h = (int)((rows + ScatterCfg::kMaxBins - 1) / ScatterCfg::kMaxBins);
+  p->bins = (int)((rows + p->h - 1) / p->h);
+  p->chunks = (M + ScatterCfg::kBinThreads - 1) / ScatterCfg::kBinThreads;
+  p->ent = 1 + (C + 7) / 8;
+  p->smem = (int)smem(w);
+  int wl = ScatterCfg::kLongWarps;
+  while (wl > 1 && smem(wl) > ScatterCfg::kSmemMax) wl /= 2;
+  p->wl = wl;
+  p->smem_l = (int)smem(wl);
+  return true;
+}
+
+// the scratch of a call in 16-byte units: B M entries, then the offsets,
+// then the long tiles' count, cursor and list
+long long scatter_scratch(int B, int M, const ScatterPlan& p) {
+  const long long ints =
+      (long long)B * p.chunks * (p.bins + 1) + 2 + (long long)B * p.bands;
+  return (long long)B * M * p.ent + (ints + 3) / 4;
+}
+
+// the point's base zy row: clipped floor(uz) * R + clipped floor(uy),
+// zy_taps' zi[0]; its taps land on rows q, q + 1, q + R, q + R + 1 only
+__device__ __forceinline__ int base_row(float uz, float uy, int r) {
+  const int iz = min(max((int)floorf(uz), 0), r - 1);
+  const int iy = min(max((int)floorf(uy), 0), r - 1);
+  return iz * r + iy;
+}
+
+// Block (chunk j, event b): the event's points j * kBinThreads + [0,
+// kBinThreads), a thread each. Entry i of the chunk (ent 16-byte units at
+// entries + (b M + j kBinThreads + i) ent) is its i-th binned point in
+// (bin, point) order: {u0, u1, u2, point index in the event}, then its C
+// cotangents rounded to bf16, 8 a unit; offs[(b chunks + j)(bins + 1) +
+// k]: the start of bin k in the chunk, offs[... + bins] the chunk's count.
+// Block (0, 0) also clears the long-tile count and cursor (longs).
+__global__ void __launch_bounds__(ScatterCfg::kBinThreads)
+    trilinear_scatter_bin_kernel(const float* __restrict__ u,
+                                 const float* __restrict__ go,
+                                 uint4* __restrict__ entries,
+                                 int* __restrict__ offs,
+                                 int* __restrict__ longs, int m, int r, int c,
+                                 int h, int bins, int chunks, int ent) {
+  constexpr int kW = ScatterCfg::kBinWarps;
+  constexpr int kBins = ScatterCfg::kMaxBins;
+  extern __shared__ __align__(16) unsigned char bin_smem[];
+  unsigned short* cnt = reinterpret_cast<unsigned short*>(bin_smem);
+  int* start = reinterpret_cast<int*>(bin_smem + kW * kBins * 2);
+  int* wsum = start + kBins;  // kW warp sums, then the chunk's count
+  const int b = blockIdx.y, j = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  uint4* z = reinterpret_cast<uint4*>(cnt);
+  for (int i = tid; i < kW * kBins * 2 / 16; i += blockDim.x)
+    z[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  const int mi = j * ScatterCfg::kBinThreads + tid;
+  const long long pt = (long long)b * m + mi;
+  const float* g = go + pt * c;
+  int key = -1;
+  float u0 = 0.f, u1 = 0.f, u2 = 0.f;
+  if (mi < m) {
+    bool any = false;
+    for (int k = 0; k < c; ++k) any |= g[k] != 0.f;
+    if (any) {
+      u0 = u[pt * 3 + 0];
+      u1 = u[pt * 3 + 1];
+      u2 = u[pt * 3 + 2];
+      key = base_row(u0, u1, r) / h;
+    }
+  }
+  __syncthreads();
+  const unsigned grp = __match_any_sync(kAll, key);
+  const int rank = __popc(grp & ((1u << lane) - 1u));
+  if (key >= 0 && rank == 0)
+    cnt[warp * kBins + key] = (unsigned short)__popc(grp);
+  __syncthreads();
+
+  // bins 4 tid .. 4 tid + 3: the prefix over the warps in place, then the
+  // block's exclusive scan of the bins' totals
+  unsigned long long* c64 = reinterpret_cast<unsigned long long*>(cnt);
+  int run[4] = {0, 0, 0, 0};
+  for (int w = 0; w < kW; ++w) {
+    const unsigned long long v = c64[w * (kBins / 4) + tid];
+    unsigned long long pre = 0;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      pre |= (unsigned long long)run[s] << (16 * s);
+      run[s] += (int)((v >> (16 * s)) & 0xffffu);
+    }
+    c64[w * (kBins / 4) + tid] = pre;
+  }
+  const int mine = run[0] + run[1] + run[2] + run[3];
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kAll, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < kW ? wsum[lane] : 0;
+    int s = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kAll, s, d);
+      if (lane >= d) s += y;
+    }
+    if (lane < kW) wsum[lane] = s - v;
+    if (lane == kW - 1) wsum[kW] = s;
+  }
+  __syncthreads();
+  int at = wsum[warp] + incl - mine;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    start[4 * tid + s] = at;
+    at += run[s];
+  }
+  __syncthreads();
+  int* off = offs + ((long long)b * chunks + j) * (bins + 1);
+  for (int k = tid; k <= bins; k += blockDim.x)
+    off[k] = k < kBins ? start[k] : wsum[kW];
+  if (b == 0 && j == 0 && tid < 2) longs[tid] = 0;
+  if (key >= 0) {
+    const int pos = start[key] + cnt[warp * kBins + key] + rank;
+    uint4* e = entries +
+               ((long long)b * m + (long long)j * ScatterCfg::kBinThreads +
+                pos) * ent;
+    e[0] = make_uint4(__float_as_uint(u0), __float_as_uint(u1),
+                      __float_as_uint(u2), (unsigned)mi);
+    for (int i = 1; i < ent; ++i) {
+      unsigned w4[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 8 * (i - 1) + 2 * q;
+        const __nv_bfloat162 two = __floats2bfloat162_rn(
+            k < c ? g[k] : 0.f, k + 1 < c ? g[k + 1] : 0.f);
+        w4[q] = *reinterpret_cast<const unsigned*>(&two);
+      }
+      e[i] = make_uint4(w4[0], w4[1], w4[2], w4[3]);
     }
   }
 }
 
+struct ScatterArgs {
+  const uint4* entries;
+  const int* offs;
+  int* longs;  // the long tiles: count, cursor, then their indices
+  void* out;
+  int m, r, c, rows, band, w, h, bins, chunks, ent, tiles;
+  int bf16;  // out is bf16 (each f32 sum rounded once), else f32
+};
+
+// the bins a tile of rows [r0, r1) reads: q in [r0 - R - 1, r1 - 1 - R]
+// and [r0 - 1, r1 - 1], as one or two bin ranges (merged where they meet,
+// so no entry is read twice)
+struct BinRanges {
+  int n, lo0, hi0, lo1, hi1;
+};
+
+__device__ __forceinline__ BinRanges bin_ranges(const ScatterArgs& a, int r0,
+                                                int r1) {
+  BinRanges br;
+  const int blo = max(r0 - 1, 0) / a.h, bhi = (r1 - 1) / a.h;
+  const int top = r1 - 1 - a.r;
+  br.n = 1;
+  br.lo0 = br.lo1 = blo;
+  br.hi0 = br.hi1 = bhi;
+  if (top >= 0) {
+    const int alo = max(r0 - a.r - 1, 0) / a.h, ahi = top / a.h;
+    br.lo0 = alo;
+    if (ahi < blo - 1) {
+      br.n = 2;
+      br.hi0 = ahi;
+    }
+  }
+  return br;
+}
+
+// segment s of a tile's list (range s / chunks, binning block s %
+// chunks): its first entry and its length
+__device__ __forceinline__ void segment(const ScatterArgs& a, int b,
+                                        const BinRanges& br, int s,
+                                        long long& beg, int& len) {
+  beg = 0;
+  len = 0;
+  if (s >= br.n * a.chunks) return;
+  const int ri = s >= a.chunks, j = s - ri * a.chunks;
+  const int* off = a.offs + ((long long)b * a.chunks + j) * (a.bins + 1);
+  const int s0 = off[ri ? br.lo1 : br.lo0];
+  const int s1 = off[(ri ? br.hi1 : br.hi0) + 1];
+  beg = (long long)b * a.m + (long long)j * ScatterCfg::kBinThreads + s0;
+  len = s1 - s0;
+}
+
+__device__ __forceinline__ int warp_incl_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kAll, v, d);
+    if (lane >= d) v += y;
+  }
+  return v;
+}
+
+// the lane of the k-th (from 0) set bit of g
+__device__ __forceinline__ int nth_bit(unsigned g, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) {
+    const int n = __popc(g & ((1u << w) - 1u));
+    if (k >= n) {
+      k -= n;
+      g >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// The owners (own) of one tap whose cells repeat apart from each other:
+// the owners of each cell (a __match_any_sync group) summed into the
+// lowest of them in a tree fixed by their lanes; only the lowest keeps
+// own.
+template <int CW>
+__device__ __forceinline__ bool group_sum(bool own, int cell,
+                                          float (&v)[CW]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned grp = __match_any_sync(kAll, own ? cell : -1 - lane);
+  const int n = own ? __popc(grp) : 1;
+  const int rank = __popc(grp & ((1u << lane) - 1u));
+  const int most = (int)__reduce_max_sync(kAll, (unsigned)n);
+  for (int d = 1; d < most; d <<= 1) {
+    const bool take = (rank & (2 * d - 1)) == 0 && rank + d < n;
+    const int src = take ? nth_bit(grp, rank + d) : lane;
+#pragma unroll
+    for (int k = 0; k < CW; ++k) {
+      const float y = __shfl_sync(kAll, v[k], src);
+      if (take) v[k] = __fadd_rn(v[k], y);
+    }
+  }
+  return own && rank == 0;
+}
+
+// An entry as loaded: {u, point}, then the cotangents' bf16 units.
+template <int CW>
+struct Entry {
+  uint4 head;
+  uint4 body[(CW + 7) / 8];
+};
+
+template <int CW>
+__device__ __forceinline__ Entry<CW> load_entry(const ScatterArgs& a,
+                                                bool valid, long long e) {
+  Entry<CW> x;
+  const uint4* ep = a.entries + (valid ? e : 0) * a.ent;
+  x.head = ep[0];
+#pragma unroll
+  for (int i = 0; i < (CW + 7) / 8; ++i)
+    x.body[i] = 1 + i < a.ent ? ep[1 + i] : make_uint4(0u, 0u, 0u, 0u);
+  return x;
+}
+
+// The source lane of each lane's place when the warp's keys are sorted
+// ascending, ties by lane (a bitonic network over the 32 lanes).
+__device__ __forceinline__ int sort_src(unsigned key) {
+  const int lane = threadIdx.x & 31;
+  int src = lane;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      const unsigned pk = __shfl_xor_sync(kAll, key, j);
+      const int ps = __shfl_xor_sync(kAll, src, j);
+      const bool less = pk < key || (pk == key && ps < src);
+      if (((lane & size) == 0) == ((lane & j) == 0) ? less : !less) {
+        key = pk;
+        src = ps;
+      }
+    }
+  return src;
+}
+
+// An entry's 8 taps (t, x) in the tile's rows [r0, r1): which exist
+// (own), their cells (row - r0) R + x, and their values
+// aw[t] bf16(xw[x] bf16(go)).
+template <int CW>
+struct Taps {
+  bool own[8];
+  int cell[8];
+  float aw[4], xw[2], gb[CW];
+  __device__ __forceinline__ Taps(const ScatterArgs& a, bool valid,
+                                  const Entry<CW>& en, int r0, int r1) {
+#pragma unroll
+    for (int k = 0; k < CW; ++k) {
+      const unsigned w2 = (&en.body[k / 8].x)[(k % 8) / 2];
+      gb[k] = __uint_as_float(k % 2 ? w2 & 0xffff0000u : w2 << 16);
+    }
+    int zi[4], ix[2];
+    bool first[4];
+    zy_taps(__uint_as_float(en.head.x), __uint_as_float(en.head.y), a.r, zi,
+            aw, first);
+    const int nx = x_taps(__uint_as_float(en.head.z), a.r, ix, xw);
+    xw[0] = round_bf16(xw[0]);
+    xw[1] = round_bf16(xw[1]);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int t = s / 2, x = s % 2;
+      own[s] = valid && first[t] && zi[t] >= r0 && zi[t] < r1 && x < nx;
+      cell[s] = (zi[t] - r0) * a.r + ix[x];
+    }
+  }
+  __device__ __forceinline__ void value(int s, float (&v)[CW]) const {
+#pragma unroll
+    for (int k = 0; k < CW; ++k)
+      v[k] = own[s] ? __fmul_rn(aw[s / 2], round_bf16(__fmul_rn(xw[s % 2],
+                                                                gb[k])))
+                    : 0.f;
+  }
+};
+
+template <int CW, bool EXACT>
+__device__ __forceinline__ void add_cell(float* o, const float (&v)[CW],
+                                         int c) {
+  if constexpr (EXACT && CW % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < CW; k += 4) {
+      float4 y = *reinterpret_cast<float4*>(o + k);
+      y.x = __fadd_rn(y.x, v[k]);
+      y.y = __fadd_rn(y.y, v[k + 1]);
+      y.z = __fadd_rn(y.z, v[k + 2]);
+      y.w = __fadd_rn(y.w, v[k + 3]);
+      *reinterpret_cast<float4*>(o + k) = y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CW; ++k)
+      if (k < c) o[k] = __fadd_rn(o[k], v[k]);
+  }
+}
+
+// The lanes that hold tap s of one cell (owners, sorted by cell so that
+// they are neighbours) summed into the last of each run, in a segmented
+// scan fixed by their lanes; returns whether this lane holds a run's sum.
+template <int CW>
+__device__ __forceinline__ bool run_sum(bool own, int cell, float (&v)[CW]) {
+  const int lane = threadIdx.x & 31;
+  const int pc = __shfl_up_sync(kAll, cell, 1);
+  const bool po = __shfl_up_sync(kAll, own, 1);
+  const int nc = __shfl_down_sync(kAll, cell, 1);
+  const bool no = __shfl_down_sync(kAll, own, 1);
+  const bool head = !(lane > 0 && po && pc == cell);
+  int hp = head ? lane : 0;  // the run's first lane
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kAll, hp, d);
+    if (lane >= d) hp = max(hp, y);
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1)
+#pragma unroll
+    for (int k = 0; k < CW; ++k) {
+      const float y = __shfl_up_sync(kAll, v[k], d);
+      if (lane - d >= hp) v[k] = __fadd_rn(y, v[k]);
+    }
+  return own && !(lane < 31 && no && nc == cell);
+}
+
+// One 32-entry chunk of a list, a lane's entry each (valid: the lane has
+// one): the 8 taps (t, x) of each that land in the tile's rows [r0, r1)
+// are added to dst (row r0 at dst), tap by tap. Each owner first writes
+// its lane to its cell's tag of that tap (tags: 8 x (r1 - r0) R bytes); a
+// tap whose owners all read back their own lane has no cell twice and
+// each owner adds its value with a plain shared-memory add. Where some
+// tap has a cell twice, the lanes are first sorted by their entry's base
+// cell (stably, so points keep their order), which puts the owners of one
+// cell of a tap side by side: each run is summed by run_sum and its last
+// lane adds the sum; runs of one cell apart from each other (clipped taps
+// at the grid's faces) are summed by group_sum first.
+template <int CW, bool EXACT>
+__device__ __forceinline__ void scatter_chunk(const ScatterArgs& a,
+                                              bool valid, Entry<CW> en,
+                                              int r0, int r1, float* dst,
+                                              uint8_t* tags) {
+  const int lane = threadIdx.x & 31;
+  const int ncell = (r1 - r0) * a.r;
+  Taps<CW> tp(a, valid, en, r0, r1);
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    if (tp.own[s]) tags[s * ncell + tp.cell[s]] = (uint8_t)lane;
+  __syncwarp();
+  unsigned dup = 0;
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    if (tp.own[s] && tags[s * ncell + tp.cell[s]] != lane) dup |= 1u << s;
+  dup = __reduce_or_sync(kAll, dup);
+  __syncwarp();
+  const unsigned key = valid ? (unsigned)(tp.cell[0] + r0 * a.r) : ~0u;
+  if (dup && !__all_sync(kAll, key == __shfl_sync(kAll, key, 0))) {
+    const int src = sort_src(key);
+    valid = __shfl_sync(kAll, valid, src);
+    en.head.x = __shfl_sync(kAll, en.head.x, src);
+    en.head.y = __shfl_sync(kAll, en.head.y, src);
+    en.head.z = __shfl_sync(kAll, en.head.z, src);
+#pragma unroll
+    for (int i = 0; i < (CW + 7) / 8; ++i) {
+      en.body[i].x = __shfl_sync(kAll, en.body[i].x, src);
+      en.body[i].y = __shfl_sync(kAll, en.body[i].y, src);
+      en.body[i].z = __shfl_sync(kAll, en.body[i].z, src);
+      en.body[i].w = __shfl_sync(kAll, en.body[i].w, src);
+    }
+    tp = Taps<CW>(a, valid, en, r0, r1);
+  }
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    if (!__any_sync(kAll, tp.own[s])) continue;
+    float v[CW];
+    tp.value(s, v);
+    bool add = tp.own[s];
+    if ((dup >> s) & 1u) {
+      add = run_sum<CW>(add, tp.cell[s], v);
+      uint8_t* tg = tags + s * ncell;
+      if (add) tg[tp.cell[s]] = (uint8_t)lane;
+      __syncwarp();
+      if (__any_sync(kAll, add && tg[tp.cell[s]] != lane))
+        add = group_sum<CW>(add, tp.cell[s], v);
+    }
+    if (add) add_cell<CW, EXACT>(dst + tp.cell[s] * a.c, v, a.c);
+    __syncwarp();
+  }
+}
+
+// The list of the tile of rows [r0, r1), into dst (row r0 at dst; tags
+// the warp's tags): the chunks numbered k over the whole list with k %
+// stride == first, in order, each chunk's entries loaded while the one
+// before is summed. Segments go 32 at a time, lane i holding segment s0 +
+// i; (beg0, len0) is this lane's segment of the first 32.
+template <int CW, bool EXACT>
+__device__ void scatter_walk(const ScatterArgs& a, int b, int r0, int r1,
+                             float* dst, uint8_t* tags, int first,
+                             int stride, long long beg0, int len0) {
+  const int lane = threadIdx.x & 31;
+  const BinRanges br = bin_ranges(a, r0, r1);
+  const int nseg = br.n * a.chunks;
+  int k0 = 0;  // chunks of the groups before this one
+  for (int s0 = 0; s0 < nseg; s0 += 32) {
+    long long beg = beg0;
+    int len = len0;
+    if (s0) segment(a, b, br, s0 + lane, beg, len);
+    const int incl = warp_incl_scan(len);
+    const int excl = incl - len;
+    const int total = __shfl_sync(kAll, incl, 31);
+    const int nk = (total + 31) / 32;
+    int k = ((first - k0) % stride + stride) % stride;
+    k0 += nk;
+    // entry of chunk kk's lane (the first lane whose segments reach past
+    // the lane's list position holds its segment)
+    auto locate = [&](int kk, bool& valid) {
+      const int p = kk * 32 + lane;
+      int seg = 0;
+#pragma unroll
+      for (int step = 16; step; step >>= 1)
+        if (__shfl_sync(kAll, incl, seg + step - 1) <= p) seg += step;
+      const long long sb = __shfl_sync(kAll, beg, seg);
+      const int se = __shfl_sync(kAll, excl, seg);
+      valid = p < total;
+      return sb + (p - se);
+    };
+    if (k >= nk) continue;
+    bool valid;
+    const long long e = locate(k, valid);
+    Entry<CW> cur = load_entry<CW>(a, valid, e);
+    for (; k < nk; k += stride) {
+      bool nvalid = false;
+      Entry<CW> nxt = cur;
+      if (k + stride < nk) {
+        const long long ne = locate(k + stride, nvalid);
+        nxt = load_entry<CW>(a, nvalid, ne);
+      }
+      scatter_chunk<CW, EXACT>(a, valid, cur, r0, r1, dst, tags);
+      cur = nxt;
+      valid = nvalid;
+    }
+  }
+}
+
+// The length of the list of the tile of rows [r0, r1), and this lane's
+// segment of its first 32 (scatter_walk's beg0, len0).
+__device__ __forceinline__ int scatter_list_len(const ScatterArgs& a, int b,
+                                                int r0, int r1,
+                                                long long& beg0, int& len0) {
+  const int lane = threadIdx.x & 31;
+  const BinRanges br = bin_ranges(a, r0, r1);
+  const int nseg = br.n * a.chunks;
+  segment(a, b, br, lane, beg0, len0);
+  int n = __shfl_sync(kAll, warp_incl_scan(len0), 31);
+  for (int s0 = 32; s0 < nseg; s0 += 32) {
+    long long beg;
+    int len;
+    segment(a, b, br, s0 + lane, beg, len);
+    n += __shfl_sync(kAll, warp_incl_scan(len), 31);
+  }
+  return n;
+}
+
+// Tile `tile` (event tile / bands, rows row0 + [0, nrows)) written once
+// from the w0 copies at src (stride floats apart; threads i0 + k step),
+// added in copy order, in f32 or bf16.
+__device__ __forceinline__ void write_tile(const ScatterArgs& a, int tile,
+                                           const float* src, int copies,
+                                           int stride, int i0, int step) {
+  const int bands = (a.rows + a.band - 1) / a.band;
+  const int b = tile / bands, row0 = (tile - b * bands) * a.band;
+  const int len = min(a.band, a.rows - row0) * a.r * a.c;
+  const long long base = ((long long)b * a.rows + row0) * a.r * a.c;
+  if ((base & 3) == 0 && (len & 3) == 0 && (stride & 3) == 0) {
+    for (int i = i0; i < len / 4; i += step) {
+      float4 s = reinterpret_cast<const float4*>(src)[i];
+      for (int v = 1; v < copies; ++v) {
+        const float4 y = reinterpret_cast<const float4*>(src + v * stride)[i];
+        s.x = __fadd_rn(s.x, y.x);
+        s.y = __fadd_rn(s.y, y.y);
+        s.z = __fadd_rn(s.z, y.z);
+        s.w = __fadd_rn(s.w, y.w);
+      }
+      if (a.bf16) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
+        uint2 y;
+        y.x = *reinterpret_cast<const unsigned*>(&lo);
+        y.y = *reinterpret_cast<const unsigned*>(&hi);
+        reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.out) +
+                                 base)[i] = y;
+      } else {
+        reinterpret_cast<float4*>(static_cast<float*>(a.out) + base)[i] = s;
+      }
+    }
+  } else {
+    for (int i = i0; i < len; i += step) {
+      float s = src[i];
+      for (int v = 1; v < copies; ++v) s = __fadd_rn(s, src[v * stride + i]);
+      if (a.bf16)
+        static_cast<__nv_bfloat16*>(a.out)[base + i] = __float2bfloat16_rn(s);
+      else
+        static_cast<float*>(a.out)[base + i] = s;
+    }
+  }
+}
+
+// Warp w of block X owns tile X w' + w (w' warps a block): its list is
+// summed into the warp's tile in shared memory and the tile written once,
+// zeros included. A tile whose list is longer than kLongChunks chunks is
+// left to trilinear_scatter_long_kernel: its index joins the long list.
+template <int CW, bool EXACT>
+__global__ void __launch_bounds__(ScatterCfg::kWarps * 32, 4)
+    trilinear_scatter_tile_kernel(const ScatterArgs a) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile = blockIdx.x * a.w + warp;
+  if (tile >= a.tiles) return;
+  const int bands = (a.rows + a.band - 1) / a.band;
+  const int b = tile / bands, row0 = (tile - b * bands) * a.band;
+  const int nrows = min(a.band, a.rows - row0);
+  const int stride = a.band * a.r * a.c;
+  float* buf = tile_smem + warp * stride;
+  uint8_t* tags = reinterpret_cast<uint8_t*>(tile_smem + a.w * stride) +
+                  warp * 8 * a.band * a.r;
+  long long beg0;
+  int len0;
+  const int n = scatter_list_len(a, b, row0, row0 + nrows, beg0, len0);
+  if (n > ScatterCfg::kLongChunks * 32) {
+    if (lane == 0) a.longs[2 + atomicAdd(a.longs, 1)] = tile;
+    return;
+  }
+  for (int i = lane; i < nrows * a.r * a.c; i += 32) buf[i] = 0.f;
+  __syncwarp();
+  if (n) scatter_walk<CW, EXACT>(a, b, row0, row0 + nrows, buf, tags, 0, 1,
+                                 beg0, len0);
+  __syncwarp();
+  write_tile(a, tile, buf, 1, stride, lane, 32);
+}
+
+// The long tiles, one at a time a block (taken from the long list's
+// cursor): warp w sums the chunks k % wl == w of the tile's list into its
+// own copy, and the wl copies are added in warp order as the tile is
+// written.
+template <int CW, bool EXACT>
+__global__ void __launch_bounds__(ScatterCfg::kLongWarps * 32, 2)
+    trilinear_scatter_long_kernel(const ScatterArgs a) {
+  extern __shared__ __align__(16) float tile_smem[];
+  __shared__ int next;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wl = blockDim.x >> 5;
+  const int bands = (a.rows + a.band - 1) / a.band;
+  const int stride = a.band * a.r * a.c;
+  float* copy = tile_smem + warp * stride;
+  uint8_t* tags = reinterpret_cast<uint8_t*>(tile_smem + wl * stride) +
+                  warp * 8 * a.band * a.r;
+  const int count = a.longs[0];
+  for (;;) {
+    if (threadIdx.x == 0) next = atomicAdd(a.longs + 1, 1);
+    __syncthreads();
+    const int idx = next;
+    if (idx >= count) return;
+    const int tile = a.longs[2 + idx];
+    const int b = tile / bands, row0 = (tile - b * bands) * a.band;
+    const int nrows = min(a.band, a.rows - row0);
+    for (int i = lane; i < nrows * a.r * a.c; i += 32) copy[i] = 0.f;
+    __syncwarp();
+    long long beg0;
+    int len0;
+    segment(a, b, bin_ranges(a, row0, row0 + nrows), lane, beg0, len0);
+    scatter_walk<CW, EXACT>(a, b, row0, row0 + nrows, copy, tags, warp, wl,
+                            beg0, len0);
+    __syncthreads();
+    write_tile(a, tile, tile_smem, wl, stride, threadIdx.x, blockDim.x);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// row 13: the trilinear gather at a compile-time width
+// ---------------------------------------------------------------------------
+
+// A thread a point: its <= 8 tap rows loaded before any sum (per x tap
+// above 8 channels, to bound the registers), the sums in the plain
+// version's order, one vector store.
+template <int CW, bool EXACT>
 __global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
     const float* __restrict__ u, const uint8_t* __restrict__ mask,
     const __nv_bfloat16* __restrict__ g2, float* __restrict__ out,
@@ -180,8 +980,11 @@ __global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
   const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (pt >= n) return;
   float* o = out + pt * c;
+  float acc[CW];
+#pragma unroll
+  for (int k = 0; k < CW; ++k) acc[k] = 0.f;
   if (!mask[pt]) {
-    for (int k = 0; k < c; ++k) o[k] = 0.f;
+    store_f32_row<CW, EXACT>(o, c, acc);
     return;
   }
   const long long b = pt / m;
@@ -190,31 +993,34 @@ __global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
   bool first[4];
   zy_taps(u[pt * 3 + 0], u[pt * 3 + 1], r, zi, a, first);
   const int nx = x_taps(u[pt * 3 + 2], r, ix, xw);
-
   const __nv_bfloat16* grid = g2 + b * (long long)r * r * r * c;
-  float acc[kMaxC];
+  constexpr int kX = CW <= 8 ? 2 : 1;  // x taps whose rows load together
 #pragma unroll
-  for (int k = 0; k < kMaxC; ++k) acc[k] = 0.f;
-  for (int e = 0; e < nx; ++e) {
-    float s[kMaxC];
+  for (int e0 = 0; e0 < 2; e0 += kX) {
+    float v[kX][4][CW];
 #pragma unroll
-    for (int k = 0; k < kMaxC; ++k) s[k] = 0.f;
+    for (int x = 0; x < kX; ++x)
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      if (!first[t]) continue;
-      const __nv_bfloat16* row = grid + ((long long)zi[t] * r + ix[e]) * c;
+      for (int t = 0; t < 4; ++t)
+        load_bf16_row<CW, EXACT>(
+            grid + ((long long)zi[t] * r + ix[e0 + x]) * c, c, v[x][t]);
 #pragma unroll
-      for (int k = 0; k < kMaxC; ++k)
-        if (k < c)
-          s[k] = __fadd_rn(s[k], __fmul_rn(a[t], __bfloat162float(row[k])));
+    for (int x = 0; x < kX; ++x) {
+      float s[CW];
+#pragma unroll
+      for (int k = 0; k < CW; ++k) s[k] = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int k = 0; k < CW; ++k)
+          if (first[t]) s[k] = __fadd_rn(s[k], __fmul_rn(a[t], v[x][t][k]));
+      if (e0 + x < nx)
+#pragma unroll
+        for (int k = 0; k < CW; ++k)
+          acc[k] = __fadd_rn(acc[k], __fmul_rn(xw[e0 + x], s[k]));
     }
-#pragma unroll
-    for (int k = 0; k < kMaxC; ++k)
-      if (k < c) acc[k] = __fadd_rn(acc[k], __fmul_rn(xw[e], s[k]));
   }
-#pragma unroll
-  for (int k = 0; k < kMaxC; ++k)
-    if (k < c) o[k] = acc[k];
+  store_f32_row<CW, EXACT>(o, c, acc);
 }
 
 // out[0..3] += v with one vector reduction (sm_90; out 16-byte aligned)
@@ -237,7 +1043,6 @@ __global__ void __launch_bounds__(kThreads) rowcol_scatter_kernel(
     const int* __restrict__ rows, const int* __restrict__ cols,
     const float* __restrict__ vals, float* __restrict__ out, long long n,
     int m, int nrows, int ncols, int c) {
-  constexpr unsigned kAll = 0xffffffffu;
   const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const bool vec = (c & 3) == 0;
@@ -311,6 +1116,50 @@ __global__ void __launch_bounds__(kThreads) segment_scatter_kernel(
 
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
+// The tiles of a call: trilinear_scatter_tile_kernel, a tile a warp, then
+// trilinear_scatter_long_kernel on the long list, two blocks an SM.
+template <int CW, bool EXACT>
+int launch_tile(const ScatterArgs& a, const ScatterPlan& p, cudaStream_t st) {
+  static int sms = 0;
+  if (!sms) {
+    for (const void* k : {(const void*)trilinear_scatter_tile_kernel<CW, EXACT>,
+                          (const void*)trilinear_scatter_long_kernel<CW, EXACT>}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          ScatterCfg::kSmemMax);
+      if (e != cudaSuccess) return (int)e;
+    }
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) return (int)cudaErrorInvalidValue;
+  }
+  trilinear_scatter_tile_kernel<CW, EXACT>
+      <<<(a.tiles + a.w - 1) / a.w, 32 * a.w, p.smem, st>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  trilinear_scatter_long_kernel<CW, EXACT>
+      <<<min(2 * sms, a.tiles), 32 * p.wl, p.smem_l, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+struct Gather {
+  const float* u;
+  const uint8_t* mask;
+  const __nv_bfloat16* g2;
+  float* out;
+  long long n;
+  int m, r, c;
+  cudaStream_t st;
+};
+
+template <int CW, bool EXACT>
+int launch_gather(const Gather& g) {
+  trilinear_gather_kernel<CW, EXACT><<<blocks_for(g.n), kThreads, 0, g.st>>>(
+      g.u, g.mask, g.g2, g.out, g.n, g.m, g.r, g.c);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -327,33 +1176,97 @@ int pcseg_voxelize_contract(const void* flat, const void* ext, void* out,
   return (int)cudaGetLastError();
 }
 
+// The scratch pcseg_trilinear_scatter needs at (B, M, R, C), in 16-byte
+// units, or -1 where it takes no such call (C outside [1, 32], B past
+// 65,535, one zy row of f32 past a block's shared memory, or a scratch
+// past 2^31 units).
+int pcseg_trilinear_scatter_scratch(int B, int M, int R, int C) {
+  ScatterPlan p;
+  if (!scatter_plan(B, M, R, C, &p)) return -1;
+  const long long n = scatter_scratch(B, M, p);
+  return n > 0x7fffffffLL ? -1 : (int)n;
+}
+
 // u (B, M, 3) f32 continuous voxel coords (masked points finite); go
-// (B, M, C) f32 point cotangents, masked rows zero; out (B, R^3, C) f32,
-// zeroed by the caller, NDHWC order (z * R + y) * R * C + x * C + k.
-int pcseg_trilinear_scatter(const void* u, const void* go, void* out, int B,
-                            int M, int R, int C, void* stream) {
-  if (B <= 0 || M <= 0 || R <= 0 || C <= 0 || C > kMaxC)
-    return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * M;
-  trilinear_scatter_kernel<<<blocks_for(n), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const float*)u, (const float*)go, (float*)out, n, M, R, C);
-  return (int)cudaGetLastError();
+// (B, M, C) f32 point cotangents, masked rows zero; out (B, R^3, C), f32
+// or (out_bf16) bf16, NDHWC order (z * R + y) * R * C + x * C + k, every
+// value written; scratch pcseg_trilinear_scatter_scratch 16-byte units,
+// 16-byte aligned, as is out.
+int pcseg_trilinear_scatter(const void* u, const void* go, void* out,
+                            void* scratch, int B, int M, int R, int C,
+                            int out_bf16, void* stream) {
+  ScatterPlan p;
+  if (!scatter_plan(B, M, R, C, &p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  static bool bin_ready = false;
+  if (!bin_ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        trilinear_scatter_bin_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, ScatterCfg::kBinSmem);
+    if (e != cudaSuccess) return (int)e;
+    bin_ready = true;
+  }
+  uint4* entries = (uint4*)scratch;
+  int* offs = (int*)(entries + (long long)B * M * p.ent);
+  int* longs = offs + (long long)B * p.chunks * (p.bins + 1);
+  trilinear_scatter_bin_kernel<<<dim3(p.chunks, B), ScatterCfg::kBinThreads,
+                                 ScatterCfg::kBinSmem, st>>>(
+      (const float*)u, (const float*)go, entries, offs, longs, M, R, C, p.h,
+      p.bins, p.chunks, p.ent);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ScatterArgs a{entries, offs, longs, out, M, R, C, p.rows, p.band, p.w,
+                p.h, p.bins, p.chunks, p.ent, B * p.bands,
+                out_bf16 ? 1 : 0};
+  switch (C) {
+#define PCSEG_TILE(CW, EXACT)                                               \
+  return launch_tile<CW, EXACT>(a, p, st)
+    case 1: PCSEG_TILE(1, true);
+    case 2: PCSEG_TILE(2, true);
+    case 3: PCSEG_TILE(3, true);
+    case 4: PCSEG_TILE(4, true);
+    case 5: PCSEG_TILE(5, true);
+    case 6: PCSEG_TILE(6, true);
+    case 7: PCSEG_TILE(7, true);
+    case 8: PCSEG_TILE(8, true);
+    case 16: PCSEG_TILE(16, true);
+    case 32: PCSEG_TILE(32, true);
+    default:
+      if (C < 16) PCSEG_TILE(16, false);
+      PCSEG_TILE(32, false);
+#undef PCSEG_TILE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // u (B, M, 3) f32 continuous voxel coords; mask (B, M) bool (one byte a
-// point); g2 (B, R^3, C) bf16 in the same NDHWC order; out (B, M, C) f32.
+// point); g2 (B, R^3, C) bf16 in the same NDHWC order, 16-byte aligned;
+// out (B, M, C) f32, 16-byte aligned.
 int pcseg_trilinear_gather(const void* u, const void* mask, const void* g2,
                            void* out, int B, int M, int R, int C,
                            void* stream) {
   if (B <= 0 || M <= 0 || R <= 0 || C <= 0 || C > kMaxC)
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)B * M;
-  trilinear_gather_kernel<<<blocks_for(n), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)u, (const uint8_t*)mask, (const __nv_bfloat16*)g2,
-      (float*)out, n, M, R, C);
-  return (int)cudaGetLastError();
+  const Gather g{(const float*)u, (const uint8_t*)mask,
+                 (const __nv_bfloat16*)g2, (float*)out, n, M, R, C,
+                 (cudaStream_t)stream};
+  switch (C) {
+    case 1: return launch_gather<1, true>(g);
+    case 2: return launch_gather<2, true>(g);
+    case 3: return launch_gather<3, true>(g);
+    case 4: return launch_gather<4, true>(g);
+    case 5: return launch_gather<5, true>(g);
+    case 6: return launch_gather<6, true>(g);
+    case 7: return launch_gather<7, true>(g);
+    case 8: return launch_gather<8, true>(g);
+    case 16: return launch_gather<16, true>(g);
+    case 32: return launch_gather<32, true>(g);
+    default:
+      return C < 16 ? launch_gather<16, false>(g)
+                    : launch_gather<32, false>(g);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // rows / cols (B, M) int32 (a row >= nrows adds nothing); vals (B, M, C)

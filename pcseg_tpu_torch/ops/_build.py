@@ -63,7 +63,8 @@ SIGNATURES = {
     },
     "onehot_contract": {
         "pcseg_voxelize_contract": [_P] * 3 + [_I] * 4 + [_P],
-        "pcseg_trilinear_scatter": [_P] * 3 + [_I] * 4 + [_P],
+        "pcseg_trilinear_scatter_scratch": [_I] * 4,
+        "pcseg_trilinear_scatter": [_P] * 4 + [_I] * 5 + [_P],
         "pcseg_trilinear_gather": [_P] * 4 + [_I] * 4 + [_P],
         "pcseg_rowcol_scatter": [_P] * 4 + [_I] * 5 + [_P],
         "pcseg_segment_scatter": [_P] * 3 + [_I] * 4 + [_P],

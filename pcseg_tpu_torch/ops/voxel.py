@@ -320,6 +320,12 @@ def trilinear_gather_plain(u: torch.Tensor, mask: torch.Tensor,
     return torch.where(mask[..., None], out, torch.zeros_like(out))
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes
+    (the gather loads grid rows with vector loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def trilinear_gather(u: torch.Tensor, mask: torch.Tensor, g2: torch.Tensor,
                      *, plain: bool = False) -> torch.Tensor:
     """The matmul devoxelize forward (B, M, C) f32 (JAX
@@ -340,7 +346,7 @@ def trilinear_gather(u: torch.Tensor, mask: torch.Tensor, g2: torch.Tensor,
                          f"got {c}")
     u = u.float().contiguous()
     mask = mask.to(torch.bool).contiguous()
-    g2 = g2.to(torch.bfloat16).contiguous()
+    g2 = _aligned(g2.to(torch.bfloat16).contiguous())
     out = torch.empty((b, m, c), dtype=torch.float32, device=g2.device)
     rc = load_library("onehot_contract").pcseg_trilinear_gather(
         u.data_ptr(), mask.data_ptr(), g2.data_ptr(), out.data_ptr(), b, m,
@@ -379,39 +385,67 @@ def trilinear_scatter_taps(u: torch.Tensor, go: torch.Tensor, r: int,
 
 
 def trilinear_scatter_plain(u: torch.Tensor, go: torch.Tensor, r: int,
-                            round_bf16: bool = True) -> torch.Tensor:
+                            round_bf16: bool = True,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
     """dgrid[b, (z*R + y)*R + x, k] = sum_p A[p, zy] Wx[p, x] go[p, k] as
-    (B, R^3, C) f32: the terms of ``trilinear_scatter_taps`` added with
-    ``index_add_``."""
+    (B, R^3, C): the terms of ``trilinear_scatter_taps`` added with
+    ``index_add_`` in f32, each sum rounded once to ``out_dtype``."""
     b, _, c = go.shape
     out = torch.zeros(b * r ** 3, c, dtype=torch.float32, device=go.device)
     rows, vals = trilinear_scatter_taps(u, go, r, round_bf16)
     for rw, vl in zip(rows, vals):
         out.index_add_(0, rw, vl)
-    return out.reshape(b, r ** 3, c)
+    return out.reshape(b, r ** 3, c).to(out_dtype)
+
+
+_SCATTER_SCRATCH: dict = {}
+
+
+def _scatter_scratch(b: int, m: int, r: int, c: int) -> int:
+    """The 16-byte units of scratch the scatter's kernels use at this shape
+    (the library's plan; -1 where it takes no such call)."""
+    key = (b, m, r, c)
+    n = _SCATTER_SCRATCH.get(key)
+    if n is None:
+        n = _SCATTER_SCRATCH[key] = load_library(
+            "onehot_contract").pcseg_trilinear_scatter_scratch(b, m, r, c)
+    return n
 
 
 def trilinear_scatter(u: torch.Tensor, go: torch.Tensor, r: int, *,
+                      out_dtype: torch.dtype = torch.float32,
                       plain: bool = False) -> torch.Tensor:
-    """The devoxelize backward's grid cotangent (B, R^3, C) f32 (JAX
-    ``onehot_contract.trilinear_scatter``). u (B, M, 3) continuous voxel
-    coords (``trilinear_u``); go (B, M, C) point cotangents, masked rows
-    zero. Launches the CUDA kernel on a CUDA tensor."""
+    """The devoxelize backward's grid cotangent (B, R^3, C) (JAX
+    ``onehot_contract.trilinear_scatter``): f32 sums, each rounded once to
+    ``out_dtype`` (f32, the JAX kernel's output, or bf16). u (B, M, 3)
+    continuous voxel coords (``trilinear_u``); go (B, M, C) point
+    cotangents, masked rows zero. Launches the CUDA kernels (binning, then
+    one block per grid tile) on a CUDA tensor."""
     if not on_cuda(go, plain):
-        return trilinear_scatter_plain(u, go, r)
+        return trilinear_scatter_plain(u, go, r, out_dtype=out_dtype)
     b, m, c = go.shape
-    u = u.float().contiguous()
-    go = go.float().contiguous()
     if tuple(u.shape) != (b, m, 3) or u.device != go.device:
         raise ValueError(f"u must be (B, M, 3) on {go.device}, got "
                          f"{tuple(u.shape)} on {u.device}")
     if c > 32:
         raise ValueError(f"trilinear_scatter takes at most 32 channels, "
                          f"got {c}")
-    out = torch.zeros((b, r ** 3, c), dtype=torch.float32, device=go.device)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"trilinear_scatter writes f32 or bf16, not "
+                         f"{out_dtype}")
+    units = _scatter_scratch(b, m, r, c)
+    if units < 0:
+        raise ValueError(f"trilinear_scatter takes no (B, M, R, C) = "
+                         f"{(b, m, r, c)}: one zy row of f32 must fit a "
+                         "block's shared memory")
+    u = u.float().contiguous()
+    go = go.float().contiguous()
+    out = torch.empty((b, r ** 3, c), dtype=out_dtype, device=go.device)
+    scratch = torch.empty((units, 4), dtype=torch.int32, device=go.device)
     rc = load_library("onehot_contract").pcseg_trilinear_scatter(
-        u.data_ptr(), go.data_ptr(), out.data_ptr(), b, m, r, c,
-        stream_of(go))
+        u.data_ptr(), go.data_ptr(), out.data_ptr(), scratch.data_ptr(), b,
+        m, r, c, int(out_dtype == torch.bfloat16), stream_of(go))
     raise_on(rc, "trilinear_scatter")
     LAUNCHES["trilinear_scatter"] += 1
     return out
@@ -441,12 +475,12 @@ class _Devoxelize(torch.autograd.Function):
         u = trilinear_u(points, mask, lo, scale)
         go = torch.where(mask[..., None], go.float(), 0.0)
         if bwd_dtype == torch.bfloat16:
-            dgrid = trilinear_scatter(u, go, shape[1], plain=plain)
+            dgrid = trilinear_scatter(u, go, shape[1], out_dtype=dtype,
+                                      plain=plain)
         else:
             dgrid = trilinear_scatter_plain(u, go, shape[1],
-                                            round_bf16=False)
-        return dgrid.reshape(shape).to(dtype), None, None, None, None, None, \
-            None, None
+                                            round_bf16=False, out_dtype=dtype)
+        return dgrid.reshape(shape), None, None, None, None, None, None, None
 
 
 def devoxelize_trilinear(grid_feats: torch.Tensor, points: torch.Tensor,
@@ -465,8 +499,9 @@ def devoxelize_trilinear(grid_feats: torch.Tensor, points: torch.Tensor,
     Backward (the JAX custom VJP): the grid cotangent is
     ``trilinear_scatter`` of the masked point cotangents, with bf16
     weights and operands when ``bwd_dtype`` is bf16 and in f32 otherwise,
-    cast to the grid's dtype; points, lo and scale get none (they are data
-    in every training path)."""
+    its f32 sums rounded once to the grid's dtype (the kernel writes that
+    dtype itself); points, lo and scale get none (they are data in every
+    training path)."""
     impl = resolve_devoxelize_impl(impl, grid_feats.shape[1],
                                    grid_feats.shape[-1])
     if impl not in ("gather", "matmul"):

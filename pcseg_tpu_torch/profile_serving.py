@@ -111,7 +111,9 @@ STAGES = (("gp_wgmma_fwd", "global_pool"),
           ("bias_ln_relu_mask_bwd", "ln_bwd"), ("column_sum", "ln_bwd"),
           ("rowcol_scatter", "readout_bwd"),
           ("trilinear_gather_kernel", "devox_gather"),
-          ("trilinear_scatter_kernel", "devox_scatter"),
+          ("trilinear_scatter_bin_kernel", "devox_scatter"),
+          ("trilinear_scatter_tile_kernel", "devox_scatter"),
+          ("trilinear_scatter_long_kernel", "devox_scatter"),
           ("conv_kernel", "conv"), ("up_kernel", "conv"),
           ("wgrad_kernel", "conv"), ("conv3x3_mma_kernel", "conv"),
           ("down2x_mma_kernel", "conv"), ("up2x_mma_kernel", "conv"),

@@ -69,13 +69,27 @@ def test_voxelize_contract_kernel(gen, r):
     _close(got, ref, 1e-5)
 
 
-@pytest.mark.parametrize("r,c", [(6, 4), (16, 4), (16, 7)])
+# every instantiated width at every grid size, and two widths that take
+# the next instantiation with masked lanes
+GATHER_CASES = [(r, c) for r in (6, 16, 64, 128)
+                for c in (1, 3, 4, 7, 16, 32)] + [(16, 12), (16, 20)]
+
+
+@pytest.mark.parametrize("r,c", GATHER_CASES)
 def test_trilinear_gather_kernel(gen, r, c):
-    b, m = 2, 3000
+    """Every instantiated width (and two that take the next one with
+    masked lanes) against the plain version: clipped duplicate taps,
+    integral coords, points on the faces, an event whose points all sit on
+    one spot, an all-masked row."""
+    b, m = 3, 3000
     u = torch.rand((b, m, 3), generator=gen, device="cuda") * (r + 1) - 1
-    u[0, :50] = u[0, :50].floor()           # frac == 0, clipped duplicates
-    u[1, :20] = torch.tensor([-0.5, r - 0.5, 0.0], device="cuda")  # faces
+    u[0] = u[0, :1]                         # one voxel hit by every point
+    u[1, :50] = u[1, :50].floor()           # frac == 0, clipped duplicates
+    u[1, 50:70] = torch.tensor([-0.5, r - 0.5, 0.0], device="cuda")  # faces
+    u[1, 70:90] = torch.tensor([r - 0.5, -0.5, r - 0.5], device="cuda")
     mask = torch.rand((b, m), generator=gen, device="cuda") < 0.8
+    mask[0] = True
+    mask[-1] = False                        # an all-masked row
     g2 = _rand(gen, b, r * r, r * c).to(torch.bfloat16)
     before = vx.LAUNCHES["trilinear_gather"]
     got = vx.trilinear_gather(u, mask, g2)
@@ -83,6 +97,21 @@ def test_trilinear_gather_kernel(gen, r, c):
     assert vx.LAUNCHES["trilinear_gather"] == before + 1
     _close(got, vx.trilinear_gather_plain(u, mask, g2), 1e-5)
     assert not got[~mask].any()
+    # a grid that does not start on 16 bytes is copied, not misread
+    shifted = torch.empty(g2.numel() + 1, dtype=torch.bfloat16,
+                          device="cuda")[1:].view(g2.shape)
+    shifted.copy_(g2)
+    assert torch.equal(vx.trilinear_gather(u, mask, shifted), got)
+
+
+def test_trilinear_gather_refuses_33_channels_before_any_launch(gen):
+    u = torch.rand((1, 64, 3), generator=gen, device="cuda") * 8
+    mask = torch.ones((1, 64), dtype=torch.bool, device="cuda")
+    g2 = _rand(gen, 1, 64, 8 * 33).to(torch.bfloat16)
+    before = vx.LAUNCHES["trilinear_gather"]
+    with pytest.raises(ValueError, match="at most 32 channels"):
+        vx.trilinear_gather(u, mask, g2)
+    assert vx.LAUNCHES["trilinear_gather"] == before
 
 
 @pytest.mark.parametrize("r,c,nc", [(8, 16, 4), (16, 16, 4), (8, 16, 3),

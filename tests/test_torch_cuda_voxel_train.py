@@ -358,17 +358,60 @@ def test_down2x_bwd_other_widths_take_the_cuda_core_kernels(gen):
         _sum_close(a, r)
 
 
-def test_trilinear_scatter_kernel(gen):
-    b, m, r, c = 2, 3000, 16, 4
-    u = torch.rand((b, m, 3), generator=gen, device="cuda") * (r + 1) - 1
-    u[0, :50] = u[0, :50].floor()         # frac == 0 and clipped duplicates
-    go = _rand(gen, b, m, c)
-    go[1, ::5] = 0.0                      # masked rows
+def _devox_edge_inputs(gen, r, c, m=3000):
+    """Three events: event 0 with every point on one spot (one voxel hit
+    by all of them), event 1 with coords past both faces (clipped
+    duplicate taps), integral coords (frac == 0) and points on the faces,
+    event 2 all masked."""
+    u = torch.rand((3, m, 3), generator=gen, device="cuda") * (r + 1) - 1
+    u[0] = u[0, :1]
+    u[1, :50] = u[1, :50].floor()
+    u[1, 50:70] = torch.tensor([-0.5, r - 0.5, 0.0], device="cuda")
+    u[1, 70:90] = torch.tensor([r - 0.5, -0.5, r - 0.5], device="cuda")
+    mask = torch.ones((3, m), dtype=torch.bool, device="cuda")
+    mask[1, ::5] = False
+    mask[2] = False
+    return u, mask
+
+
+# every instantiated width at every grid size, and two widths that take
+# the next instantiation with masked lanes
+DEVOX_CASES = [(r, c) for r in (6, 16, 64, 128)
+               for c in (1, 3, 4, 7, 16, 32)] + [(16, 12), (16, 20)]
+
+
+@pytest.mark.parametrize("r,c", DEVOX_CASES)
+def test_trilinear_scatter_kernel(gen, r, c):
+    """The owner-computes scatter against its plain version, each event
+    to 1e-3 of its own largest sum (event 0's one voxel sums 3000
+    points), f32 and bf16 out: one launch count an op, two calls bit for
+    bit, bf16 the f32 sums rounded once, nothing for masked points."""
+    u, mask = _devox_edge_inputs(gen, r, c)
+    go = torch.where(mask[..., None], _rand(gen, 3, u.shape[1], c), 0.0)
     before = vx.LAUNCHES["trilinear_scatter"]
     got = vx.trilinear_scatter(u, go, r)
+    again = vx.trilinear_scatter(u, go, r)
+    half = vx.trilinear_scatter(u, go, r, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    assert vx.LAUNCHES["trilinear_scatter"] == before + 1
-    _sum_close(got, vx.trilinear_scatter_plain(u, go, r))
+    assert vx.LAUNCHES["trilinear_scatter"] == before + 3
+    assert got.dtype == torch.float32 and half.dtype == torch.bfloat16
+    ref = vx.trilinear_scatter_plain(u, go, r)
+    for event in range(2):
+        _sum_close(got[event], ref[event])
+    assert torch.equal(got, again)
+    assert torch.equal(half, got.to(torch.bfloat16))
+    assert not got[2].any()
+
+
+def test_trilinear_scatter_refuses_33_channels_before_any_launch(gen):
+    u = torch.rand((1, 64, 3), generator=gen, device="cuda") * 8
+    go = _rand(gen, 1, 64, 33)
+    before = vx.LAUNCHES["trilinear_scatter"]
+    with pytest.raises(ValueError, match="at most 32 channels"):
+        vx.trilinear_scatter(u, go, 8)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        vx.trilinear_scatter(u, go[..., :4], 8, out_dtype=torch.float16)
+    assert vx.LAUNCHES["trilinear_scatter"] == before
 
 
 def test_train_step_through_the_kernels(gen):

@@ -87,6 +87,25 @@ def test_resample_kernels_are_conv_stage(name):
     assert stage_of(name) == "conv"
 
 
+@pytest.mark.parametrize("name, stage", [
+    ("(anonymous namespace)::trilinear_scatter_bin_kernel(float const*, "
+     "float const*, uint4*, int*, int*, int, int, int, int, int, int, int)",
+     "devox_scatter"),
+    (NS + "trilinear_scatter_tile_kernel<4, true>((anonymous namespace)::"
+     "ScatterArgs)", "devox_scatter"),
+    (NS + "trilinear_scatter_long_kernel<32, false>((anonymous namespace)::"
+     "ScatterArgs)", "devox_scatter"),
+    (NS + "trilinear_gather_kernel<4, true>(float const*, unsigned char "
+     "const*, __nv_bfloat16 const*, float*, long long, int, int, int)",
+     "devox_gather"),
+])
+def test_devoxelize_kernels_have_their_stage(name, stage):
+    """Rows 11 and 13's kernels (the scatter's binning, tile and long-tile
+    kernels; the gather at each width) book under the devoxelize stages,
+    not as glue."""
+    assert stage_of(name) == stage
+
+
 def _fake_profiles(monkeypatch, attempts):
     """profile_serving.device_profile answering each call with the next
     of ``attempts``: lists of (kernel name, device ms, recorded calls)."""
