@@ -87,8 +87,10 @@
    faces, an all-masked row, a voxel hit by many points), and times
    kernel, plain version, bound and one PyTorch call of the same function
    (index_add_, grid_sample, bf16 matmuls; yardsticks only); the gather
-   and voxelizer by device time; the trilinear scatter again on this
-   batch, as phase 7 holds and times it.
+   and voxelizer by device time (the voxelizer's yardstick torch.zeros +
+   index_add_, the same function from scratch, beside index_add_ alone
+   and its own atomics kernel without the zero fill); the trilinear
+   scatter again on this batch, as phase 7 holds and times it.
 11. Serves the default configuration as phase 3 serves the scatter/gather
    one: launch counts per forward, logits against the plain versions.
 12. One default-configuration train step with the kernels, with the plain
@@ -101,26 +103,32 @@
    capacities (64, 32), bf16, on B8 x 8192 track events) and at width 16
    in f32, and times kernel, plain version, bound and one PyTorch call of
    the same function (cuDNN's conv3d on the materialized halo,
-   F.layer_norm; yardsticks only).
+   F.layer_norm; yardsticks only). Every bf16 t = 8 conv there takes the
+   tensor-core route (its "_mma" launch count moves, one launch each) and
+   two calls give the same bits.
 14. Serves that model (seeded random weights) through Predictor as phase 3
    serves the voxel U-Net: 8 / 10 / 1 block_conv / bias_ln_relu_mask /
-   voxelize_contract launches per forward, no dropped tile, logits
-   against the plain versions.
+   voxelize_contract launches per forward (the 8 convs on the tensor-core
+   route), no dropped tile, logits against the plain versions.
 15. Holds the sparse family's training kernels (the LN backward, the block
    conv's dgrad and wgrad, rowcol_scatter) against their plain versions at
    every shape one B8 x 8192 train step of that configuration launches,
    and every kernel of the family, forward and backward, at the shapes its
    repair opened (LN at 256 and 24 channels, the conv at widths 8 and 24
-   and at tile 16); times kernel, plain version, bound and one PyTorch call
-   of the same function (cuDNN's convolution_backward on the materialized
-   halo, native_layer_norm_backward, index_add_; yardsticks only).
+   and at tile 16), and the conv's tensor-core routes at a partial K
+   chunk and 96 outputs; the route of every conv launch and two calls bit
+   for bit as in phase 13; times kernel, plain version, bound and one
+   PyTorch call of the same function (cuDNN's convolution_backward on the
+   materialized halo, native_layer_norm_backward, index_add_; yardsticks
+   only).
 16. One whole sparse train step (forward, loss, backward, Adam) with the
    kernels, with the plain versions and in f32: loss, every gradient and
    every Adam update.
 17. Trains that model through api.fit (bucket 8192, batch 8, 3 train steps
    and one eval batch per epoch, 2 epochs, track events): launch counts
    per step (8 / 7 / 8 / 10 / 10 / 1 / 1 block_conv / dgrad / wgrad / LN /
-   LN backward / voxelize_contract / rowcol_scatter), finite losses, no
+   LN backward / voxelize_contract / rowcol_scatter; the convs all on the
+   tensor-core routes), finite losses, no
    dropped tile, ms per step, points/s, peak memory; then serves the best
    checkpoint through Predictor on the card.
 18. Holds the two kernels that no entry point reaches, in the JAX package
@@ -282,18 +290,25 @@ PN_ZERO_GRAD = {f"{n}.bias" for n in ("conv1", "conv2", "conv3", "conv4",
 
 
 # the tensor-core kernels by source, with their SASS opcode: wgmma (rows
-# 16 and 15) or mma.sync (rows 1, 2, 4, 5, 6 and 7)
+# 16 and 15, row 21's forms at 64 and 128 outputs and its 64 x 64 wgrad)
+# or mma.sync (rows 1, 2, 4, 5, 6 and 7, row 21's other forms)
 WGMMA_SOURCES = {
-    "pointnet_wgmma": ("HGMMA", ("gp_wgmma_fwd_kernel", "gp_wgmma_dx_kernel",
-                                 "gp_wgmma_dw_kernel")),
-    "pointnet_chain": ("HGMMA", ("chain_wgmma_fwd_kernel",
-                                 "chain_wgmma_bwd_kernel",
-                                 "chain_wgmma_dx_kernel",
-                                 "chain_wgmma_dw_kernel")),
-    "resample": ("HMMA", ("down2x_mma_kernel", "up2x_mma_kernel",
-                          "up2x_bwd_mma_kernel", "down2x_bwd_mma_kernel")),
-    "conv3d_dgrad": ("HMMA", ("conv3x3_mma_kernel", "dgrad_mma_kernel",
-                              "wgrad_mma_kernel")),
+    "pointnet_wgmma": [("HGMMA", ("gp_wgmma_fwd_kernel", "gp_wgmma_dx_kernel",
+                                  "gp_wgmma_dw_kernel"))],
+    "pointnet_chain": [("HGMMA", ("chain_wgmma_fwd_kernel",
+                                  "chain_wgmma_bwd_kernel",
+                                  "chain_wgmma_dx_kernel",
+                                  "chain_wgmma_dw_kernel"))],
+    "resample": [("HMMA", ("down2x_mma_kernel", "up2x_mma_kernel",
+                           "up2x_bwd_mma_kernel", "down2x_bwd_mma_kernel"))],
+    "conv3d_dgrad": [("HMMA", ("conv3x3_mma_kernel", "dgrad_mma_kernel",
+                               "wgrad_mma_kernel"))],
+    "block_conv": [("HGMMA", ("block_conv_wgmma_kernel",
+                              "block_dgrad_wgmma_kernel",
+                              "block_wgrad_wgmma_kernel")),
+                   ("HMMA", ("block_conv_mma_kernel",
+                             "block_dgrad_mma_kernel",
+                             "block_wgrad_mma_kernel"))],
 }
 
 
@@ -313,7 +328,7 @@ def wgmma_report() -> dict:
     tool = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
     out = {}
-    for name, (opcode, kernels) in WGMMA_SOURCES.items():
+    for name, specs in WGMMA_SOURCES.items():
         src = _build._CSRC / f"{name}.cu"
         if not src.is_file():  # a checkout from before the source existed
             print(f"  {name}.cu: not in this checkout", flush=True)
@@ -331,26 +346,30 @@ def wgmma_report() -> dict:
         for ln in lines:
             print(f"    {ln}", flush=True)
         if not Path(tool).is_file():
-            print(f"  cuobjdump not found: {opcode} count not taken",
+            print("  cuobjdump not found: HGMMA / HMMA count not taken",
                   flush=True)
             out[name] = {"ptxas": lines, "hgmma": None}
             continue
         sass = subprocess.run([tool, "-sass", str(cubin)],
                               capture_output=True, text=True,
                               check=True).stdout
-        hgmma = dict.fromkeys(kernels, 0)
-        current = None
-        for ln in sass.splitlines():
-            m = re.search(r"Function : (\S+)", ln)
-            if m:
-                current = next((k for k in kernels if k in m.group(1)), None)
-            elif current and re.search(rf"\b{opcode}\b", ln):
-                hgmma[current] += 1
-        print(f"  {opcode} instructions in {name}'s SASS: "
-              f"{json.dumps(hgmma)}", flush=True)
-        if not all(hgmma.values()):
-            raise AssertionError(f"a tensor-core kernel of {name} has no "
-                                 f"{opcode}: {hgmma}")
+        hgmma = {}
+        for opcode, kernels in specs:
+            found = dict.fromkeys(kernels, 0)
+            current = None
+            for ln in sass.splitlines():
+                m = re.search(r"Function : (\S+)", ln)
+                if m:
+                    current = next((k for k in kernels if k in m.group(1)),
+                                   None)
+                elif current and re.search(rf"\b{opcode}\b", ln):
+                    found[current] += 1
+            print(f"  {opcode} instructions in {name}'s SASS: "
+                  f"{json.dumps(found)}", flush=True)
+            if not all(found.values()):
+                raise AssertionError(f"a tensor-core kernel of {name} has no "
+                                     f"{opcode}: {found}")
+            hgmma.update(found)
         out[name] = {"ptxas": lines, "hgmma": hgmma}
     return out
 
@@ -1412,7 +1431,11 @@ def _vox_report(res):
           f"{'-' if lib is None else f'{lib:.4f}'} / bound "
           f"{res['bound_ms']:.4f} ms ({res['bound_by']})"
           + (f"; wrapper {res['wrapper_ms']:.4f} ms" if "wrapper_ms" in res
-             else ""), flush=True)
+             else "")
+          + "".join(f"; {k[:-3].replace('_', ' ')} {res[k]:.4f} ms"
+                    for k in ("device_ms", "library_device_ms", "kernel_ms",
+                              "index_add_alone_ms") if k in res)
+          + (f"; {res['route']}" if "route" in res else ""), flush=True)
     return res
 
 
@@ -1965,16 +1988,28 @@ def default_voxelize_case(points, mask):
     vals = ext.to(torch.bfloat16).float().reshape(-1, c1)
     out = torch.zeros((b * (r3 + 1), c1), device="cuda")
     n_real = int(mask.sum())
+
+    def from_scratch():
+        return torch.zeros((b * (r3 + 1), c1), device="cuda").index_add_(
+            0, rows, vals)
+
     res = {
         "name": "voxelize_contract", "case": "voxelize",
         "shape": f"B{b} M{m} -> {r}^3x{c1}", "max_abs_err": err,
         "points_on_faces": faces, "hot_voxel_points": hot,
         "ms": device_ms(lambda: vx.voxelize_contract(flat, ext, r)),
+        # the atomics kernel alone, without the op's zero fill of the grid
+        "kernel_ms": kernel_ms(lambda: vx.voxelize_contract(flat, ext, r),
+                               ("voxelize_contract_kernel",)),
         "wrapper_ms": time_ms(lambda: vx.voxelize_contract(flat, ext, r)),
         "plain_ms": device_ms(
             lambda: vx.voxelize_contract_plain(flat, ext, r)),
+        # the same function from scratch: torch.zeros of the grid, then
         # one index_add_ of the bf16-rounded rows at the same ids
-        "library_ms": device_ms(lambda: out.index_add_(0, rows, vals)),
+        "library_ms": device_ms(from_scratch),
+        # index_add_ alone, into a grid zeroed once outside the timing
+        "index_add_alone_ms": device_ms(lambda: out.index_add_(0, rows,
+                                                               vals)),
     }
     # ids and rows read once, the f32 grid written once; C1 adds a point
     res["bound_ms"], res["bound_by"] = _bound(
@@ -2105,9 +2140,10 @@ SP_SOURCES = {"block_conv": "pcseg_tpu_torch/csrc/block_conv.cu",
 SP_REPLACES = {"block_conv": "pcseg_tpu/ops/pallas/block_conv.py:382",
                "bias_ln_relu_mask": "pcseg_tpu/ops/pallas/fused_ln.py:178"}
 # wrapper launches per serving forward: depth 3^3 convs a level, the stem
-# included; an LN after each, after the down conv and after the up conv
-SP_PER_FORWARD = {"block_conv": 8, "bias_ln_relu_mask": 10,
-                  "voxelize_contract": 1}
+# included, all on the tensor-core route (bf16, t = 8, widths 64 and 128);
+# an LN after each, after the down conv and after the up conv
+SP_PER_FORWARD = {"block_conv": 8, "block_conv_mma": 8,
+                  "bias_ln_relu_mask": 10, "voxelize_contract": 1}
 # kernel vs plain version on identical inputs: both sum in f32 and round
 # once, in another order; bf16 outputs as Y_RTOL / Y_ATOL_REL, f32 outputs
 # to 1e-5 of the largest |ref|
@@ -2294,6 +2330,7 @@ SP_BWD_SOURCES = {
 # data), a wgrad for each conv, an LN backward for each LN, and one readout
 # backward
 SP_PER_STEP = dict(SP_PER_FORWARD, block_conv_dgrad=7, block_conv_wgrad=8,
+                   block_conv_dgrad_mma=7, block_conv_wgrad_mma=8,
                    bias_ln_relu_mask_bwd=10, rowcol_scatter=1)
 # kernel vs plain version on identical inputs, for the long f32 sums (the
 # wgrad over ~10^5 voxels, the LN's column sums over ~10^5 rows, the
@@ -2329,11 +2366,27 @@ def kernel_ms(fn, keys, iters: int = 10) -> float:
                if any(key in name for key in keys))
 
 
+def _sp_route(kind, t, cin, cout, dtype):
+    """True where csrc/block_conv.cu's rule (block_route) sends a launch to
+    its tensor-core kernels: bf16 at t = 8 with an output width that is a
+    multiple of 32, up to 128 for the forward and the dgrad, whose input
+    width must also be a multiple of 8."""
+    import torch
+
+    n = cin if kind == "dgrad" else cout
+    if dtype != torch.bfloat16 or t != 8 or n % 32:
+        return False
+    return kind == "wgrad" or (n <= 128 and (kind == "fwd" or cout % 8 == 0))
+
+
 def sp_conv_case(kind, bs, label, cin, cout, dtype, gen):
     """``kind`` "fwd", "dgrad" or "wgrad" of the raw block conv on the
-    tiles ``bs``: kernel vs plain version, times, bound and the cuDNN
-    call of the same conv on the materialized halo (``convolution`` or
-    ``convolution_backward`` for the input or weight gradient)."""
+    tiles ``bs``: kernel vs plain version, the route its launch took (the
+    tensor-core one where ``_sp_route`` says so), two calls bit for bit,
+    times (CUDA events around back-to-back calls, and device time), bound
+    and the cuDNN call of the same conv on the materialized halo
+    (``convolution`` or ``convolution_backward`` for the input or weight
+    gradient)."""
     import torch
     import torch.nn.functional as F
 
@@ -2365,8 +2418,15 @@ def sp_conv_case(kind, bs, label, cin, cout, dtype, gen):
         run = (lambda: bc.block_conv_wgrad(x, slots, gy))
         plain = (lambda: bc.block_conv_wgrad_plain(x, slots, gy))
         name, n_out = "block_conv_wgrad", w2.numel()
+    mma = _sp_route(kind, t, cin, cout, dtype)
+    before = dict(bc.LAUNCHES)
     k = run()
     torch.cuda.synchronize()
+    took = bc.LAUNCHES[f"{name}_mma"] - before[f"{name}_mma"]
+    if bc.LAUNCHES[name] - before[name] != 1 or took != int(mma):
+        raise AssertionError(f"{name} {label}: {took} tensor-core launches "
+                             f"of 1, expected {int(mma)}")
+    repeat = bool(torch.equal(k, run()))
     p = plain()
     if kind == "wgrad":
         ref = bc.block_conv_wgrad_plain(x, slots, gy, torch.float32)
@@ -2377,6 +2437,7 @@ def sp_conv_case(kind, bs, label, cin, cout, dtype, gen):
         checks = {"out": _sp_check(k, p),
                   "padding rows": (float(k[~real].float().abs().max()),
                                    not k[~real].any())}
+    checks["two calls identical"] = (0.0, repeat)
     err = _held(name, checks)
     # the yardstick: cuDNN on the materialized (B*NT, Cin, t+2, t+2, t+2)
     # halo, every tile
@@ -2402,8 +2463,10 @@ def sp_conv_case(kind, bs, label, cin, cout, dtype, gen):
         "name": name, "case": label,
         "shape": f"B{b} NT{nt} t{t} {cin}->{cout} {str(dtype)[6:]}",
         "max_abs_err": err, "real_tiles": n_real,
-        "ms": time_ms(run), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(library),
+        "route": "tensor cores" if mma else "CUDA cores",
+        "ms": time_ms(run), "device_ms": device_ms(run),
+        "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+        "library_device_ms": device_ms(library),
     }
     # inputs read once (features or cotangent, slots, weights), the output
     # written once; the 27-tap products of every voxel of every real tile
@@ -2584,6 +2647,12 @@ def sparse_bwd_cases(gen):
                                ("repaired stem t16", bs16, 16)):
         for kind in ("fwd", "wgrad"):
             cases.append(sp_conv_case(kind, tiles, label, 2, cout, bf, gen))
+    # the tensor-core routes at a partial K chunk (48 = 32 + 16 input
+    # channels) and an output width of 96 (6 n8 tiles a warp); the dgrad's
+    # 48 outputs stay on the CUDA cores
+    for kind in ("fwd", "dgrad", "wgrad"):
+        cases.append(sp_conv_case(kind, bs, "partial chunks", 48, 96, bf,
+                                  gen))
     return cases
 
 
@@ -2643,8 +2712,14 @@ def sparse_step_compare(card, hold=True):
                 / max(float(b[n].norm()), 1e-30) for n in b}
 
     def ratio(a, b, f):
+        # the yardstick ||b - f|| is floored at the f32 resolution of b
+        # (2^-23 ||b||): Adam's first update saturates at +-lr where |g|
+        # >> eps, so the plain bf16 and the f32 steps can give a
+        # parameter (head.bias) the same bits, and a one-ulp difference of
+        # the kernel step there would read as an unbounded ratio
         return {n: float((a[n] - b[n]).norm())
-                / max(float((b[n] - f[n]).norm()), 1e-30) for n in b}
+                / max(float((b[n] - f[n]).norm()),
+                      2.0 ** -23 * float(b[n].norm()), 1e-30) for n in b}
 
     loss_rel = abs(lk - lp) / abs(lp)
     g_ratio, u_ratio = ratio(gk, gp, gf), ratio(uk, up, uf)
@@ -3460,6 +3535,31 @@ def main() -> int:
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "shape": at["shape"],
+        })
+    # row 21's tensor-core routes (the launches of the op rows above that
+    # took them): numbers at level 0 64 -> 64, every on-route case's error
+    for name, replaces in (("block_conv", SP_REPLACES["block_conv"]),
+                           ("block_conv_dgrad",
+                            SP_BWD_REPLACES["block_conv_dgrad"]),
+                           ("block_conv_wgrad",
+                            SP_BWD_REPLACES["block_conv_wgrad"])):
+        key = f"{name}_mma"
+        mine = [c for c in sp_cases + spb_cases
+                if c["name"] == name and c["route"] == "tensor cores"]
+        at = next(c for c in mine if c["case"] == "level 0")
+        by_path = {"sparse_fit": spf_launches[key]}
+        if name == "block_conv":
+            by_path.update(sparse_serving=sp_launches[key],
+                           sparse_fit_serving=spf_serve[key])
+        kernels.append({
+            "name": key, "route": "cuda", "source": SP_SOURCES["block_conv"],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": at["ms"], "device_ms": at["device_ms"],
+            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "shape": at["shape"],
         })
     # PointNet rows: forward numbers at each kernel's largest shape, the
     # backward's beside them; launches are forward + backward on the main

@@ -88,10 +88,11 @@ SIGNATURES = {
         "pcseg_gp_bwd": [_P] * 18 + [_L, _I, _I, _L, _P],
     },
     "block_conv": {
+        "pcseg_block_route": [_I] * 6,
         "pcseg_block_conv": [_P] * 4 + [_I] * 6 + [_P],
         "pcseg_block_conv_dgrad": [_P] * 4 + [_I] * 6 + [_P],
-        "pcseg_block_wgrad_groups": [_I] * 6,
-        "pcseg_block_wgrad": [_P] * 5 + [_I] * 7 + [_P],
+        "pcseg_block_wgrad_groups": [_I] * 7,
+        "pcseg_block_wgrad": [_P] * 5 + [_I] * 8 + [_P],
     },
     "fused_ln": {
         "pcseg_bias_ln_relu_mask": [_P] * 6 + [_L, _I, _F, _I, _I, _P],

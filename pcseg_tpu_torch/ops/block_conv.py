@@ -24,6 +24,17 @@ any channel counts); on a CPU tensor they run ``block_conv_plain``,
 each tile's (t+2)^3 halo from the slot table (the gather form of the JAX
 ``_gather_halo_slots``) and sum the 27 taps in f32 on dtype-valued
 operands.
+
+On the card, bf16 at t = 8 with an output width that is a multiple of 32
+(up to 128 for the forward and the dgrad; every conv of the sparse U-Net)
+runs the tensor-core implicit GEMMs of csrc/block_conv.cu, everything else
+its CUDA-core kernels. The route is decided before the launch by the
+library's own rule (``pcseg_block_route``, which the entries apply too),
+and the tensor-core launches are counted apart ("block_conv_mma",
+"block_conv_dgrad_mma", "block_conv_wgrad_mma"). Both dgrad routes read
+the forward's taps flipped in place: ``flip_w2`` serves the plain version
+only. tests/test_torch_block_conv_layout.py emulates the tensor-core
+kernels' staging, swizzle and summation order on the CPU.
 """
 
 from __future__ import annotations
@@ -38,8 +49,13 @@ from pcseg_tpu_torch.ops._build import (
 )
 
 # launches since the last reset_launches(); the wrapper adds one where it
-# launches its kernel and nowhere else
-LAUNCHES = {"block_conv": 0, "block_conv_dgrad": 0, "block_conv_wgrad": 0}
+# launches its kernel and nowhere else. The op keys count either route,
+# the "_mma" keys the tensor-core launches among them
+LAUNCHES = {"block_conv": 0, "block_conv_dgrad": 0, "block_conv_wgrad": 0,
+            "block_conv_mma": 0, "block_conv_dgrad_mma": 0,
+            "block_conv_wgrad_mma": 0}
+# pcseg_block_route's kinds
+_FWD, _DGRAD, _WGRAD = 0, 1, 2
 MAX_TILE = 16
 # (dz, dy, dx) of tap / slot d, d = (dz+1)*9 + (dy+1)*3 + (dx+1)
 TAPS = [(dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
@@ -157,21 +173,42 @@ def _check(feats, slots, w2_shape, cout):
     return b, nt, t, cin
 
 
-def _launch(entry, key, feats, slots, w2, cin_k, cout_k):
+def _aligned(*tensors) -> int:
+    return int(all(x.data_ptr() % 16 == 0 for x in tensors))
+
+
+def _route(lib, kind, t, k, n, dtype, aligned) -> bool:
+    """True where the library takes a launch of ``kind`` with GEMM input
+    and output channels k and n on its tensor-core route (its own rule,
+    which its entries apply to the same arguments)."""
+    return bool(lib.pcseg_block_route(kind, t, k, n,
+                                      int(dtype == torch.bfloat16), aligned))
+
+
+def _launch(entry, key, kind, feats, slots, w2, cin_k, cout_k, w2_shape):
     """One conv kernel launch (forward or dgrad) of feats (B, NT, t^3,
-    cin_k) with taps w2 (27 * cin_k, cout_k) -> (B, NT, t^3, cout_k)."""
-    b, nt, t, _ = _check(feats, slots, w2.shape, cout_k)
+    cin_k) with the forward's taps w2 (``w2_shape``) -> (B, NT, t^3,
+    cout_k)."""
+    b, nt, t, _ = _check(feats, slots, (27 * cin_k, cout_k), cout_k)
+    if tuple(w2.shape) != tuple(w2_shape):
+        raise ValueError(f"w2 must be {tuple(w2_shape)}, got "
+                         f"{tuple(w2.shape)}")
     feats = feats.contiguous()
     slots = slots.to(device=feats.device, dtype=torch.int32).contiguous()
     w2 = w2.to(device=feats.device, dtype=feats.dtype).contiguous()
     out = torch.empty((b, nt, t ** 3, cout_k), dtype=feats.dtype,
                       device=feats.device)
-    rc = getattr(load_library("block_conv"), entry)(
+    lib = load_library("block_conv")
+    mma = _route(lib, kind, t, cin_k, cout_k, feats.dtype,
+                 _aligned(feats, slots, w2, out))
+    rc = getattr(lib, entry)(
         feats.data_ptr(), slots.data_ptr(), w2.data_ptr(), out.data_ptr(), b,
         nt, t, cin_k, cout_k, int(feats.dtype == torch.bfloat16),
         stream_of(feats))
     raise_on(rc, key)
     LAUNCHES[key] += 1
+    if mma:
+        LAUNCHES[f"{key}_mma"] += 1
     return out
 
 
@@ -181,19 +218,22 @@ def block_conv_fwd(feats: torch.Tensor, slots: torch.Tensor,
     CUDA kernel on a CUDA tensor."""
     if not on_cuda(feats, plain):
         return block_conv_plain(feats, slots, w2)
-    return _launch("pcseg_block_conv", "block_conv", feats, slots, w2,
-                   feats.shape[-1], w2.shape[-1])
+    cin, cout = feats.shape[-1], w2.shape[-1]
+    return _launch("pcseg_block_conv", "block_conv", _FWD, feats, slots, w2,
+                   cin, cout, (27 * cin, cout))
 
 
 def block_conv_dgrad(g: torch.Tensor, slots: torch.Tensor, w2: torch.Tensor,
                      *, plain: bool = False) -> torch.Tensor:
     """dx (B, NT, t^3, Cin) of the raw conv from its cotangent g (B, NT,
     t^3, Cout) in the feature dtype. Launches the forward's kernel body
-    (entry ``pcseg_block_conv_dgrad``) on a CUDA tensor."""
+    (entry ``pcseg_block_conv_dgrad``) on a CUDA tensor, which reads the
+    forward's taps w2 flipped in place."""
     if not on_cuda(g, plain):
         return block_conv_dgrad_plain(g, slots, w2)
-    return _launch("pcseg_block_conv_dgrad", "block_conv_dgrad", g, slots,
-                   flip_w2(w2), g.shape[-1], w2.shape[0] // 27)
+    cin, cout = w2.shape[0] // 27, w2.shape[-1]
+    return _launch("pcseg_block_conv_dgrad", "block_conv_dgrad", _DGRAD, g,
+                   slots, w2, cout, cin, (27 * cin, cout))
 
 
 def block_conv_wgrad(feats: torch.Tensor, slots: torch.Tensor,
@@ -201,7 +241,8 @@ def block_conv_wgrad(feats: torch.Tensor, slots: torch.Tensor,
                      *, plain: bool = False) -> torch.Tensor:
     """dW (27 * Cin, Cout) in ``out_dtype`` (feats' dtype by default) from
     the features and the cotangent g (B, NT, t^3, Cout), both in the
-    feature dtype. Launches the CUDA kernel on a CUDA tensor."""
+    feature dtype. Launches the CUDA kernel and its fixed-order sum on a
+    CUDA tensor."""
     out_dtype = out_dtype or feats.dtype
     if not on_cuda(feats, plain):
         return block_conv_wgrad_plain(feats, slots, g, out_dtype)
@@ -215,18 +256,23 @@ def block_conv_wgrad(feats: torch.Tensor, slots: torch.Tensor,
                          f"{out_dtype}")
     is_bf16 = int(feats.dtype == torch.bfloat16)
     lib = load_library("block_conv")
-    groups = lib.pcseg_block_wgrad_groups(b, nt, t, cin, cout, is_bf16)
     feats, g = feats.contiguous(), g.contiguous()
     slots = slots.to(device=feats.device, dtype=torch.int32).contiguous()
+    aligned = _aligned(feats, slots, g)
+    mma = _route(lib, _WGRAD, t, cin, cout, feats.dtype, aligned)
+    groups = lib.pcseg_block_wgrad_groups(b, nt, t, cin, cout, is_bf16,
+                                          aligned)
     partial = torch.empty((groups, 27 * cin, cout), dtype=torch.float32,
                           device=feats.device)
     dw = torch.empty((27 * cin, cout), dtype=out_dtype, device=feats.device)
     rc = lib.pcseg_block_wgrad(
         feats.data_ptr(), slots.data_ptr(), g.data_ptr(), partial.data_ptr(),
         dw.data_ptr(), b, nt, t, cin, cout, is_bf16,
-        int(out_dtype == torch.bfloat16), stream_of(feats))
+        int(out_dtype == torch.bfloat16), groups, stream_of(feats))
     raise_on(rc, "block_conv_wgrad")
     LAUNCHES["block_conv_wgrad"] += 1
+    if mma:
+        LAUNCHES["block_conv_wgrad_mma"] += 1
     return dw
 
 

@@ -229,4 +229,6 @@ def test_block_conv_stem_takes_no_dgrad(tiles):
     y.sum().backward()
     assert tw.grad is not None and tw.grad.shape == (54, COUT)
     assert bc.LAUNCHES == {"block_conv": 0, "block_conv_dgrad": 0,
-                           "block_conv_wgrad": 0}
+                           "block_conv_wgrad": 0, "block_conv_mma": 0,
+                           "block_conv_dgrad_mma": 0,
+                           "block_conv_wgrad_mma": 0}

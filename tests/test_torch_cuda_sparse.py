@@ -140,8 +140,12 @@ def test_sparse_model_launches_and_matches_plain(gen, dtype):
     vx.reset_launches()
     out, dropped = model(pts, mask, return_overflow=True)
     torch.cuda.synchronize()
+    # level 1's two convs (32 outputs) take the tensor cores in bf16
+    mma = 2 if dtype == "bfloat16" else 0
     assert bc.LAUNCHES == {"block_conv": 4, "block_conv_dgrad": 0,
-                           "block_conv_wgrad": 0}
+                           "block_conv_wgrad": 0, "block_conv_mma": mma,
+                           "block_conv_dgrad_mma": 0,
+                           "block_conv_wgrad_mma": 0}
     assert fl.LAUNCHES == {"bias_ln_relu_mask": 6,
                            "bias_ln_relu_mask_bwd": 0}
     assert vx.LAUNCHES["voxelize_contract"] == int(dtype == "bfloat16")
@@ -294,7 +298,8 @@ def test_rowcol_scatter_kernel(gen, b, m, nt, t3, c, layout):
 
 def test_sparse_train_step_launches_and_matches_plain(gen):
     """Two levels, depth 2, bf16: one train step's forward and backward
-    launch block_conv 4 / dgrad 3 (none for the stem) / wgrad 4,
+    launch block_conv 4 / dgrad 3 (none for the stem) / wgrad 4, level
+    1's two of each (32 channels) on the tensor-core routes,
     bias_ln_relu_mask 6 + 6, rowcol_scatter 1 and the voxelizer 1; the
     loss agrees with the plain versions' to 1e-3 relative and each
     gradient to 5 % of its norm (bf16 chain, one rounding moved
@@ -321,7 +326,9 @@ def test_sparse_train_step_launches_and_matches_plain(gen):
     lk, gk = step(False)
     torch.cuda.synchronize()
     assert bc.LAUNCHES == {"block_conv": 4, "block_conv_dgrad": 3,
-                           "block_conv_wgrad": 4}
+                           "block_conv_wgrad": 4, "block_conv_mma": 2,
+                           "block_conv_dgrad_mma": 2,
+                           "block_conv_wgrad_mma": 2}
     assert fl.LAUNCHES == {"bias_ln_relu_mask": 6,
                            "bias_ln_relu_mask_bwd": 6}
     assert bsp.LAUNCHES == {"rowcol_scatter": 1}
@@ -332,3 +339,63 @@ def test_sparse_train_step_launches_and_matches_plain(gen):
         assert bool(torch.isfinite(gk[n]).all()), n
         rel = float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
         assert rel <= 0.05, (n, rel)
+
+
+# (kind, dtype, r, t, cap, cin, cout, tensor cores): the tensor-core
+# routes of csrc/block_conv.cu (block_route: bf16, t = 8, an output width
+# that is a multiple of 32, up to 128 for the forward and the dgrad, whose
+# input width must also be a multiple of 8) at the sparse U-Net's stem,
+# level 0 and level 1 and at a partial K chunk (48 = 32 + 16) and 96
+# outputs, with padding tiles present; and shapes off them
+ROUTE_CASES = [
+    ("fwd", torch.bfloat16, 64, 8, 64, 2, 64, True),
+    ("fwd", torch.bfloat16, 64, 8, 64, 64, 64, True),
+    ("fwd", torch.bfloat16, 32, 8, 32, 128, 128, True),
+    ("fwd", torch.bfloat16, 64, 8, 64, 48, 96, True),
+    ("fwd", torch.bfloat16, 64, 8, 64, 20, 32, True),    # Cin % 8 != 0
+    ("dgrad", torch.bfloat16, 64, 8, 64, 64, 64, True),
+    ("dgrad", torch.bfloat16, 32, 8, 32, 128, 128, True),
+    ("dgrad", torch.bfloat16, 64, 8, 64, 96, 48, True),
+    ("wgrad", torch.bfloat16, 64, 8, 64, 2, 64, True),
+    ("wgrad", torch.bfloat16, 64, 8, 64, 64, 64, True),
+    ("wgrad", torch.bfloat16, 32, 8, 32, 128, 128, True),
+    ("wgrad", torch.bfloat16, 64, 8, 64, 48, 96, True),
+    ("fwd", torch.bfloat16, 64, 8, 64, 64, 256, False),  # Cout > 128
+    ("fwd", torch.bfloat16, 64, 8, 64, 64, 16, False),
+    ("dgrad", torch.bfloat16, 64, 8, 64, 48, 96, False),  # 48 outputs
+    ("wgrad", torch.bfloat16, 64, 8, 64, 64, 16, False),
+    ("fwd", torch.float32, 64, 8, 64, 64, 64, False),
+    ("wgrad", torch.bfloat16, 64, 16, 16, 16, 32, False),  # t = 16
+]
+
+
+@pytest.mark.parametrize("kind,dtype,r,t,cap,cin,cout,mma", ROUTE_CASES)
+def test_block_conv_routes(gen, kind, dtype, r, t, cap, cin, cout, mma):
+    """Each launch takes the route the rule names (its "_mma" count moves
+    or not), matches its plain version, writes zeros on padding tiles,
+    and two calls give the same bits."""
+    bs = _tiles(2, 4096, r, t, cap)
+    assert not bs.tile_mask.all()           # padding tiles present
+    slots = neighbor_slots(bs)
+    x, gy, w2 = _conv_operands(gen, bs, t, cin, cout, dtype)
+    name = {"fwd": "block_conv", "dgrad": "block_conv_dgrad",
+            "wgrad": "block_conv_wgrad"}[kind]
+    run = {"fwd": lambda: bc.block_conv_fwd(x, slots, w2),
+           "dgrad": lambda: bc.block_conv_dgrad(gy, slots, w2),
+           "wgrad": lambda: bc.block_conv_wgrad(x, slots, gy)}[kind]
+    before = dict(bc.LAUNCHES)
+    got = run()
+    torch.cuda.synchronize()
+    assert bc.LAUNCHES[name] == before[name] + 1
+    assert bc.LAUNCHES[f"{name}_mma"] == before[f"{name}_mma"] + int(mma)
+    assert torch.equal(got, run())
+    if kind == "wgrad":
+        ref = bc.block_conv_wgrad_plain(x, slots, gy, torch.float32)
+        mag = bc.block_conv_wgrad_plain(x.abs(), slots, gy.abs(),
+                                        torch.float32)
+        _sum_close(got, ref, mag, bf16=dtype == torch.bfloat16)
+        return
+    ref = (bc.block_conv_plain(x, slots, w2) if kind == "fwd"
+           else bc.block_conv_dgrad_plain(gy, slots, w2))
+    _close(got, ref, dtype)
+    assert not got[~bs.tile_mask].any()
