@@ -90,12 +90,18 @@
    and voxelizer by device time (the voxelizer's yardstick torch.zeros +
    index_add_, the same function from scratch, beside index_add_ alone
    and its own atomics kernel without the zero fill); the trilinear
-   scatter again on this batch, as phase 7 holds and times it.
+   scatter again on this batch, as phase 7 holds and times it. The head
+   also at the widths its repair opened (20 classes at 32^3 x 16, C 128 ->
+   8 classes), its backward's two calls bit for bit.
 11. Serves the default configuration as phase 3 serves the scatter/gather
    one: launch counts per forward, logits against the plain versions.
 12. One default-configuration train step with the kernels, with the plain
    versions and in f32, held as phase 8; then api.fit with no impl
    override and Predictor on its checkpoint, held as phase 9.
+12b. Serves VoxelUNet3d(20 classes, 32^3, width 16, 3 levels, bf16),
+   which the JAX package routes through its fused grid2 head, through
+   Predictor and trains it one step: the head's launches, logits to
+   LOGITS_REL and the loss to DEFAULT_LOSS_REL of the plain versions.
 13. Holds the sparse family's two kernels (the raw block conv and the
    fused conv-bias + LayerNorm + ReLU + mask) against their plain versions
    at every serving shape of the JAX package's sparse bench configuration
@@ -120,7 +126,9 @@
    for bit as in phase 13; times kernel, plain version, bound and one
    PyTorch call of the same function (cuDNN's convolution_backward on the
    materialized halo, native_layer_norm_backward, index_add_; yardsticks
-   only).
+   only). The LN backward also in f32 at level 0, each case's route
+   (vector where C is a multiple of 8 up to 256) and two calls bit for
+   bit.
 16. One whole sparse train step (forward, loss, backward, Adam) with the
    kernels, with the plain versions and in f32: loss, every gradient and
    every Adam update.
@@ -128,7 +136,8 @@
    and one eval batch per epoch, 2 epochs, track events): launch counts
    per step (8 / 7 / 8 / 10 / 10 / 1 / 1 block_conv / dgrad / wgrad / LN /
    LN backward / voxelize_contract / rowcol_scatter; the convs all on the
-   tensor-core routes), finite losses, no
+   tensor-core routes, the LN backwards on the vector route), finite
+   losses, no
    dropped tile, ms per step, points/s, peak memory; then serves the best
    checkpoint through Predictor on the card.
 18. Holds the two kernels that no entry point reaches, in the JAX package
@@ -2073,16 +2082,33 @@ def default_gather_case(points, mask, gen):
     return _vox_report(res)
 
 
+# the head at widths the JAX package's fused head takes beyond the
+# bench's: 20 classes at 32^3 x 16 (the VoxelUNet3d of phase 12b) and C
+# 128 -> 8 classes, B8 each, held as the 64^3 case
+HEAD_WIDTHS = ((32, 16, 20), (32, 128, 8))
+
+
 def default_head_cases(gen):
     """The fused head forward and backward at 64^3 x 16 -> 4: two rows."""
+    return _head_cases(gen, VOX_R, VOX_W, VOX_CLASSES)
+
+
+def head_width_cases(gen):
+    """The head at HEAD_WIDTHS: two rows each."""
+    return [row for r, c, nc in HEAD_WIDTHS
+            for row in _head_cases(gen, r, c, nc)]
+
+
+def _head_cases(gen, r, c, nc):
+    """The fused head forward and backward at B8 r^3 x c -> nc against
+    their plain versions, the backward's two calls bit for bit."""
     import torch
 
     from pcseg_tpu_torch.ops import conv3d_block as cb
 
-    c, nc = VOX_W, VOX_CLASSES
-    x, w, bias, scale, shift = _vox_inputs(gen, VOX_R, c, nc, 1)
+    x, w, bias, scale, shift = _vox_inputs(gen, r, c, nc, 1)
     n = x.numel() // c
-    shape = f"B{VOX_B} {VOX_R}^3x{c}->{nc}"
+    shape = f"B{VOX_B} {r}^3x{c}->{nc}"
     fwd = (x, w, bias, scale, shift)
     yk = cb.head_grid2_cuda(*fwd)
     torch.cuda.synchronize()
@@ -2094,8 +2120,12 @@ def default_head_cases(gen):
     torch.cuda.synchronize()
     gp = cb.head_grid2_bwd_plain(*bwd)
     checks = {"dx": _bf16_check(gk[0], gp[0])}
-    for name, a, r in zip(("dscale/dshift", "dW", "dbias"), gk[1:], gp[1:]):
-        checks[name] = _sum_check(a, r)
+    for name, a, ref in zip(("dscale/dshift", "dW", "dbias"), gk[1:],
+                            gp[1:]):
+        checks[name] = _sum_check(a, ref)
+    # fixed-order sums, no float atomics: two calls give the same bits
+    checks["two calls identical"] = (0.0, all(
+        torch.equal(a, b) for a, b in zip(gk, cb.head_grid2_bwd_cuda(*bwd))))
     bwd_err = _held("head_grid2_bwd", checks)
     a = cb.act(x, scale, shift).reshape(n, c)
     wq = w.reshape(c, nc).to(torch.bfloat16)
@@ -2115,6 +2145,7 @@ def default_head_cases(gen):
     bwd_res = {
         "name": "head_grid2_bwd", "case": "head bwd", "shape": shape,
         "max_abs_err": bwd_err,
+        # its two kernels: the tile kernel and the fixed-order sums
         "ms": device_ms(lambda: cb.head_grid2_bwd_cuda(*bwd)),
         "wrapper_ms": time_ms(lambda: cb.head_grid2_bwd_cuda(*bwd)),
         "plain_ms": device_ms(lambda: cb.head_grid2_bwd_plain(*bwd)),
@@ -2125,6 +2156,105 @@ def default_head_cases(gen):
         n * c * 2 * 2 + n * nc * 2 + vec + 2 * VOX_B * c * 4 + c * nc * 4
         + nc * 4, 4 * n * c * nc)
     return [_vox_report(fwd_res), _vox_report(bwd_res)]
+
+
+# phase 12b: a U-Net whose fused head has 20 classes. The JAX package
+# routes VoxelUNet3d(20 classes, 32^3, width 16, 3 levels,
+# bf16) through fused_head_grid2, as R^3 (NC + 1) <= 4e6 gives the matmul
+# devoxelize (pcseg_tpu/ops/voxel.py resolve_devoxelize_impl)
+WIDE_CLASSES, WIDE_R = 20, 32
+
+
+def wide_head_phase(card):
+    """Phase 12b: the 20-class 32^3 U-Net served by Predictor and trained
+    one step through its fused grid2 head on the card, each against the
+    plain versions: logits to LOGITS_REL, the loss to DEFAULT_LOSS_REL,
+    finite gradients; the launches of each run counted from 0."""
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+    from pcseg_tpu_torch.infer import Predictor
+    from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
+    from pcseg_tpu_torch.ops.losses import cross_entropy_sums
+
+    model = VoxelUNet3d(
+        num_classes=WIDE_CLASSES, grid_size=WIDE_R, width=VOX_W, levels=3,
+        compute_dtype="bfloat16",
+        generator=torch.Generator().manual_seed(0)).cuda()
+    forms = model.resolve_forms()
+    if forms["head"] != "grid2":
+        raise AssertionError(f"20-class U-Net: forms {forms}, not the fused "
+                             f"grid2 head")
+    events = [p for p, _ in synthetic_events(
+        VOX_B, min_points=4000, max_points=VOX_M, seed=6)]
+    pred = Predictor(model.state_dict(), WIDE_CLASSES, model=model)
+    reset_counts()
+    preds = pred.predict_batch(events, batch_size=VOX_B)
+    torch.cuda.synchronize()
+    served = launch_counts()
+    want = {"head_grid2": 1, "voxelize_contract": 1, "trilinear_gather": 1}
+    if any(served[k] != v for k, v in want.items()) or \
+            served["head_grid2_bwd"]:
+        raise AssertionError(f"20-class serving launches {served}")
+    if [p.shape[0] for p in preds] != [e.shape[0] for e in events]:
+        raise AssertionError("20-class predictions do not match the events")
+
+    rng = np.random.default_rng(6)
+    pts, labels, masks = (torch.from_numpy(a).cuda() for a in pad_events(
+        [(e, rng.integers(0, WIDE_CLASSES, e.shape[0])) for e in events],
+        VOX_M, batch_size=VOX_B))
+    out_k = model(pts, masks)
+    out_p = model(pts, masks, plain=True)
+    err = float((out_k - out_p).abs().max())
+    scale = float(out_p.abs().max())
+    if out_k.shape != (VOX_B, VOX_M, WIDE_CLASSES) or not bool(
+            torch.isfinite(out_k).all()) or err > LOGITS_REL * scale:
+        raise AssertionError(f"20-class logits: shape {tuple(out_k.shape)}, "
+                             f"max|err| {err} vs max|logit| {scale}")
+    cw = torch.ones(WIDE_CLASSES, device="cuda")
+
+    def step(plain):
+        model.zero_grad(set_to_none=True)
+        logits, _ = model.apply(pts, train=True, mask=masks, plain=plain)
+        num, den = cross_entropy_sums(logits, labels, cw)
+        (num / den).backward()
+        return float((num / den).detach()), {
+            n: q.grad.clone() for n, q in model.named_parameters()}
+
+    reset_counts()
+    lk, gk = step(False)
+    torch.cuda.synchronize()
+    stepped = launch_counts()
+    if stepped["head_grid2"] != 1 or stepped["head_grid2_bwd"] != 1:
+        raise AssertionError(f"20-class train step launches {stepped}")
+    lp, gp = step(True)
+    loss_rel = abs(lk - lp) / abs(lp)
+    rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
+           for n in gp}
+    finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+    res = {"model": f"VoxelUNet3d({WIDE_CLASSES}, grid_size={WIDE_R}, "
+                    f"width={VOX_W}, levels=3, bf16)", "forms": forms,
+           "logits_max_abs_err": err, "max_abs_logit": scale,
+           "loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
+           "loss_tol": DEFAULT_LOSS_REL,
+           "head_grad_rel_err": {n: rel[n] for n in rel
+                                 if n.startswith("head")},
+           "grad_rel_err_max": max(rel.values()),
+           "serving_launches": {k: v for k, v in served.items() if v},
+           "step_launches": {k: v for k, v in stepped.items() if v},
+           "card": card}
+    print(f"  20-class 32^3 U-Net [{card}]: served {len(preds)} events "
+          f"(logits max|err| {err:.3e}, max|logit| {scale:.3f}); train "
+          f"step loss kernels {lk:.6f} plain {lp:.6f} (rel {loss_rel:.2e}, "
+          f"tol {DEFAULT_LOSS_REL:.2e}); gradients rel <= "
+          f"{res['grad_rel_err_max']:.3e}; launches {res['step_launches']}",
+          flush=True)
+    if loss_rel > DEFAULT_LOSS_REL or not finite:
+        raise AssertionError(f"20-class train step disagrees with the plain "
+                             f"versions: {res}")
+    return served, stepped, res
 
 
 # ---------------------------------------------------------------------------
@@ -2331,7 +2461,8 @@ SP_BWD_SOURCES = {
 # backward
 SP_PER_STEP = dict(SP_PER_FORWARD, block_conv_dgrad=7, block_conv_wgrad=8,
                    block_conv_dgrad_mma=7, block_conv_wgrad_mma=8,
-                   bias_ln_relu_mask_bwd=10, rowcol_scatter=1)
+                   bias_ln_relu_mask_bwd=10, bias_ln_relu_mask_bwd_vec=10,
+                   rowcol_scatter=1)
 # kernel vs plain version on identical inputs, for the long f32 sums (the
 # wgrad over ~10^5 voxels, the LN's column sums over ~10^5 rows, the
 # scatter's cells): both take the same terms in another order, so within
@@ -2520,8 +2651,11 @@ def sp_ln_case(kind, active, label, c, dtype, gen):
         nbytes, flops = 2 * n * c * es + n + 3 * c * 4, 8 * n * c
     else:
         args = (x, pre, scale, bias, active, g, 1e-5)
+        vec = fl.LAUNCHES["bias_ln_relu_mask_bwd_vec"]
         k = fl.bias_ln_relu_mask_bwd(*args)
         torch.cuda.synchronize()
+        vec = fl.LAUNCHES["bias_ln_relu_mask_bwd_vec"] - vec
+        again = fl.bias_ln_relu_mask_bwd(*args)
         p = fl.bias_ln_relu_mask_bwd_plain(*args)
         xf = x.float() + pre
         mean = xf.mean(-1, keepdim=True)
@@ -2536,8 +2670,13 @@ def sp_ln_case(kind, active, label, c, dtype, gen):
                                     not k[0][~active].any())}
         for i, nm in enumerate(("dpre_bias", "dscale", "dbias")):
             checks[nm] = _sp_sum_check(k[i + 1], p[i + 1], mags[i], False)
+        # fixed-order sums: two calls give the same bits; C a multiple of
+        # 8 up to 256 takes the vector route
+        checks["two calls identical"] = (0.0, all(
+            torch.equal(a, b) for a, b in zip(k, again)))
+        checks["route"] = (0.0, vec == int(c % 8 == 0 and c <= 256))
         name = "bias_ln_relu_mask_bwd"
-        keys = ("bias_ln_relu_mask_bwd", "column_sum")
+        keys = ("bias_ln_relu_mask_bwd", "ln_bwd_vec_kernel", "column_sum")
         _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [c], w, bb,
                                                             1e-5)
 
@@ -2561,6 +2700,8 @@ def sp_ln_case(kind, active, label, c, dtype, gen):
         "ms": kernel_ms(run, keys), "wrapper_ms": time_ms(run),
         "plain_ms": device_ms(plain), "library_ms": device_ms(library),
     }
+    if kind == "bwd":
+        res["route"] = "vector" if vec else "strided"
     res["bound_ms"], res["bound_by"] = _bound(nbytes, flops, F32_FLOP_PER_S)
     return _vox_report(res)
 
@@ -2621,6 +2762,8 @@ def sparse_bwd_cases(gen):
     bs, bsc = sparse_levels()
     cases = [sp_ln_case("bwd", bs.active, "level 0", SP_W, bf, gen),
              sp_ln_case("bwd", bsc.active, "level 1", 2 * SP_W, bf, gen),
+             sp_ln_case("bwd", bs.active, "level 0 f32", SP_W,
+                        torch.float32, gen),
              sp_conv_case("dgrad", bs, "level 0", SP_W, SP_W, bf, gen),
              sp_conv_case("dgrad", bsc, "level 1", 2 * SP_W, 2 * SP_W, bf,
                           gen),
@@ -3389,6 +3532,7 @@ def main() -> int:
                  default_gather_case(points, mask, gen)]
     vox_cases.append(default_scatter_case(points, mask, gen))
     def_cases += default_head_cases(gen)
+    head_widths = head_width_cases(gen)
     del points, mask
 
     print(f"[11] serving the default configuration [{card}]", flush=True)
@@ -3403,6 +3547,10 @@ def main() -> int:
     if unused:
         raise AssertionError(f"kernels never launched on the default "
                              f"training path: {unused}")
+
+    print(f"[12b] the 20-class 32^3 U-Net through the fused head: serving "
+          f"and one train step, kernels vs plain [{card}]", flush=True)
+    wide_served, wide_stepped, wide = wide_head_phase(card)
 
     print(f"[13] sparse kernels vs plain versions, B{SP_B} x {SP_M} track "
           f"events [{card}]", flush=True)
@@ -3489,7 +3637,9 @@ def main() -> int:
         name = at["name"]
         by_path = {"default_serving": def_launches[name],
                    "default_fit": def_fit_launches[name],
-                   "default_fit_serving": def_fit_serve[name]}
+                   "default_fit_serving": def_fit_serve[name],
+                   "wide_head_serving": wide_served[name],
+                   "wide_head_step": wide_stepped[name]}
         if name in sp_launches and SP_PER_FORWARD.get(name):
             by_path["sparse_serving"] = sp_launches[name]
             by_path["sparse_fit"] = spf_launches[name]
@@ -3536,6 +3686,23 @@ def main() -> int:
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "shape": at["shape"],
         })
+    # row 20's backward on its vector route (the launches of the op row
+    # above that took it): numbers at level 0, every on-route case's error
+    mine = [c for c in spb_cases if c["name"] == "bias_ln_relu_mask_bwd"
+            and c["route"] == "vector"]
+    at = next(c for c in mine if c["case"] == "level 0")
+    kernels.append({
+        "name": "bias_ln_relu_mask_bwd_vec", "route": "cuda",
+        "source": SP_SOURCES["bias_ln_relu_mask"],
+        "replaces": SP_BWD_REPLACES["bias_ln_relu_mask_bwd"],
+        "launches": spf_launches["bias_ln_relu_mask_bwd_vec"],
+        "launches_by_path": {
+            "sparse_fit": spf_launches["bias_ln_relu_mask_bwd_vec"]},
+        "max_abs_err": max(c["max_abs_err"] for c in mine),
+        "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+        "library_ms": at["library_ms"], "shape": at["shape"],
+    })
     # row 21's tensor-core routes (the launches of the op rows above that
     # took them): numbers at level 0 64 -> 64, every on-route case's error
     for name, replaces in (("block_conv", SP_REPLACES["block_conv"]),
@@ -3631,6 +3798,8 @@ def main() -> int:
                       "voxel_step": vox_step, "voxel_fit": vox_fitted,
                       "default_cases": def_cases, "default_serving":
                       def_served, "default_step": def_step,
+                      "head_width_cases": head_widths,
+                      "wide_head": wide,
                       "default_fit": def_fitted, "sparse_cases": sp_cases,
                       "sparse_serving": sp_served,
                       "sparse_train_cases": spb_cases, "sparse_step": sp_step,

@@ -57,11 +57,15 @@
 //                         dscale/dshift are here (B, C): the sums of the
 //                         lane copies of each channel.
 //
-// The head is one pass over the grid, bound by its bytes (B8 x 64^3 x 16
-// -> 4: x 67 MB and y 17 MB forward, x, gy and dx 151 MB backward): one
-// thread a voxel with 16-byte loads of x; the backward's sums go through
-// shared-memory tiles into registers and leave with one float atomic per
-// sum per block.
+// The head takes C a multiple of 8 up to 128 and 1 to 128 classes (every
+// width the JAX package's fused head takes on the port's routing). It is
+// one pass over the grid, bound by its bytes (B8 x 64^3 x 16 -> 4: x 67
+// MB and y 17 MB forward, x, gy and dx 151 MB backward). Forward: one
+// thread a voxel with 16-byte loads of x, a pass a 16 classes. Backward:
+// 8 channels a lane (one 16-byte load of x and store of dx), x and gy a
+// tile ahead by cp.async, dW and dbias on the tensor cores (mma.sync) in
+// the warps' registers, dscale / dshift in the lanes' registers, and a
+// partial row a block summed in a fixed order: no float atomics.
 //
 // g' is the cotangent entering the conv: the forward's stats output feeds
 // the next GroupNorm, so g' = gy + gs1 + 2 * gs2 * y per (batch, channel),
@@ -113,6 +117,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -734,9 +740,15 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(const WgradParams p) {
 // the 1x1 head on the activated last decoder grid (fused_head_grid2)
 // ---------------------------------------------------------------------------
 
-constexpr int kHeadMaxNC = 16;
-constexpr int kHeadTile = 128;   // voxels per backward tile = its threads
-constexpr int kHeadJobs = 10;    // reduction jobs per backward thread
+constexpr int kHeadMaxC = 128;     // channels: a multiple of 8 up to this
+constexpr int kHeadMaxNC = 128;    // classes: 1 up to this
+constexpr int kHeadSlots = 16;     // forward: class slots a pass over x
+constexpr int kHeadThreads = 256;  // backward: threads a block
+constexpr int kHeadWarps = kHeadThreads / 32;
+constexpr int kHeadMaxTile = 256;  // backward: voxels a tile at most
+constexpr int kHeadStages = 4;     // backward: x / gy tiles in the ring
+constexpr int kHeadSmallNC = 4;    // backward: weights in registers up to
+constexpr size_t kHeadSmemTarget = 110 * 1024;  // two blocks an SM
 
 __device__ __forceinline__ void load_bf16x8(const __nv_bfloat16* p,
                                             float out[8]) {
@@ -767,18 +779,22 @@ __device__ __forceinline__ void store_bf16x8(__nv_bfloat16* p,
 // y[v, k] = bf16(sum_c bf16(relu(x[v, c] * scale[b, c] + shift[b, c]))
 // * w[c, k] + bias[k]): one thread a voxel, the weights (bf16 values as
 // f32) and bias in shared memory; x read 8 channels per 16-byte load, y
-// written 4 classes per 8-byte store when nc fills the NC slots. NC, the
-// class slots (4 or 16), is a template argument so that the class loops
-// unroll without predication; the slots past nc hold zero weights.
+// written 4 classes per 8-byte store where nc is a multiple of 4. NC, the
+// class slots of one pass over the voxel's x (4 or 16), is a template
+// argument so that the class loops unroll without predication; above 16
+// classes the thread makes one pass a 16 classes (x read again, from L1),
+// and the slots past nc hold zero weights. Every class's sum runs over the
+// channels in order, so the bits do not depend on the passes.
 template <int NC>
 __global__ void __launch_bounds__(kThreads) head_fwd_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ scale,
     const float* __restrict__ shift, __nv_bfloat16* __restrict__ y,
     long long n, long long nvox, int c, int nc) {
-  extern __shared__ float hs[];   // w (c, NC), then bias (NC), zero-padded
-  for (int i = threadIdx.x; i < c * NC + NC; i += blockDim.x) {
-    const int ci = i / NC, k = i % NC;
+  const int ncp = (nc + NC - 1) / NC * NC;
+  extern __shared__ float hs[];   // w (c, ncp), then bias (ncp), zero-padded
+  for (int i = threadIdx.x; i < c * ncp + ncp; i += blockDim.x) {
+    const int ci = i / ncp, k = i % ncp;
     hs[i] = k >= nc ? 0.f : ci < c ? w[ci * nc + k] : bias[k];
   }
   __syncthreads();
@@ -787,150 +803,448 @@ __global__ void __launch_bounds__(kThreads) head_fwd_kernel(
   const long long b = v / nvox;
   const float* sc = scale + b * c;
   const float* sh = shift + b * c;
-  float acc[NC];
-#pragma unroll
-  for (int k = 0; k < NC; ++k) acc[k] = 0.f;
-  for (int c0 = 0; c0 < c; c0 += 8) {
-    float xv[8];
-    load_bf16x8(x + v * c + c0, xv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int ci = c0 + j;
-      const float s = round_bf16(prologue(xv[j], sc[ci], sh[ci]));
-#pragma unroll
-      for (int k = 0; k < NC; ++k) acc[k] = fmaf(s, hs[ci * NC + k], acc[k]);
-    }
-  }
+  const float* hb = hs + c * ncp;
   __nv_bfloat16* out = y + v * nc;
-  if (nc == NC) {
+  for (int k0 = 0; k0 < nc; k0 += NC) {
+    float acc[NC];
 #pragma unroll
-    for (int k = 0; k < NC; k += 4) {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(
-          __fadd_rn(acc[k], hs[c * NC + k]),
-          __fadd_rn(acc[k + 1], hs[c * NC + k + 1]));
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(
-          __fadd_rn(acc[k + 2], hs[c * NC + k + 2]),
-          __fadd_rn(acc[k + 3], hs[c * NC + k + 3]));
-      *reinterpret_cast<uint2*>(out + k) = make_uint2(
-          *reinterpret_cast<const uint32_t*>(&lo),
-          *reinterpret_cast<const uint32_t*>(&hi));
+    for (int k = 0; k < NC; ++k) acc[k] = 0.f;
+    for (int c0 = 0; c0 < c; c0 += 8) {
+      float xv[8];
+      load_bf16x8(x + v * c + c0, xv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ci = c0 + j;
+        const float s = round_bf16(prologue(xv[j], sc[ci], sh[ci]));
+#pragma unroll
+        for (int k = 0; k < NC; ++k)
+          acc[k] = fmaf(s, hs[ci * ncp + k0 + k], acc[k]);
+      }
     }
-  } else {
+    if (nc % 4 == 0 && k0 + NC <= nc) {
 #pragma unroll
-    for (int k = 0; k < NC; ++k)
-      if (k < nc)
-        out[k] = __float2bfloat16_rn(__fadd_rn(acc[k], hs[c * NC + k]));
+      for (int k = 0; k < NC; k += 4) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            __fadd_rn(acc[k], hb[k0 + k]),
+            __fadd_rn(acc[k + 1], hb[k0 + k + 1]));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(
+            __fadd_rn(acc[k + 2], hb[k0 + k + 2]),
+            __fadd_rn(acc[k + 3], hb[k0 + k + 3]));
+        *reinterpret_cast<uint2*>(out + k0 + k) = make_uint2(
+            *reinterpret_cast<const uint32_t*>(&lo),
+            *reinterpret_cast<const uint32_t*>(&hi));
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NC; ++k)
+        if (k0 + k < nc)
+          out[k0 + k] =
+              __float2bfloat16_rn(__fadd_rn(acc[k], hb[k0 + k]));
+    }
   }
+}
+
+// The backward's plan at (c, nc), the same for every launch of that
+// width: lanes a voxel (a power of two >= c / 8, each lane on 8
+// consecutive channels), voxels a tile, the m16 tiles over the c + 1 rows
+// of dW^T's product (the last row is dbias: a column of ones beside s)
+// and the n8 tiles over the classes, the (m, n) tile pairs a warp, the
+// warps that share one pair's K steps (where there are fewer pairs than
+// warps, so that every warp takes part in the products), the shared
+// tiles' row strides in bf16 (an odd number of 16-byte units, so
+// that ldmatrix's eight rows fall in distinct banks), the raw gy span's
+// length, and the shared bytes a block.
+struct HeadBwdPlan {
+  int lanes, tile, mt, nt, pw, ksplit, sp, gp, raw;
+  bool small;
+  size_t smem;
+};
+
+// Arguments of one backward launch; part is the partial table, a row of
+// c nc + nc + 2 c floats a block (dW, dbias, dscale, dshift).
+struct HeadBwdArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* gy;
+  const float* w;
+  const float* scale;
+  const float* shift;
+  __nv_bfloat16* dx;
+  float* part;
+  long long nvox;
+  int c, nc, lanes, tile, mt, nt, ksplit, sp, gp, raw;
+};
+
+__device__ __forceinline__ uint32_t head_smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// a 16-byte cp.async reading its first ``bytes`` (0 to 16) and zeroing
+// the rest
+__device__ __forceinline__ void cp16n(uint32_t dst, const void* src,
+                                      int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
 // The head's backward. Per voxel: pre = x * scale + shift, s = bf16(relu(
 // pre)), da = gy W^T, dam = [pre > 0] da, dx = bf16(dam * scale). Sums:
 // dscale[b, c] = sum dam * x, dshift[b, c] = sum dam, dW = sum s gy^T,
-// dbias = sum gy. A block walks tiles of kHeadTile voxels of one batch
-// element: each thread computes its voxel's dx and writes s, dam * x, dam
-// and gy to shared memory; then each thread owns up to kHeadJobs of the
-// c * nc + nc + 2c sums, adds the tile's terms to registers, and at the
-// end adds them to the outputs with one float atomic each. NC as in the
-// forward: gy W^T runs over the NC slots, whose weights past nc are zero.
-template <int NC>
-__global__ void __launch_bounds__(kHeadTile) head_bwd_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gy,
-    const float* __restrict__ w, const float* __restrict__ scale,
-    const float* __restrict__ shift, __nv_bfloat16* __restrict__ dx,
-    float* __restrict__ dstats, float* __restrict__ dw,
-    float* __restrict__ dbias, long long nvox, int c, int nc) {
-  // rows padded by one float so that a warp's row writes spread over banks
-  const int cp = c + 1, np = nc + 1;
-  extern __shared__ float hs[];
-  float* sw = hs;                          // (c, NC), zero-padded
-  float* ss = sw + c * NC;                 // kHeadTile rows of c: s
-  float* sxm = ss + kHeadTile * cp;        // dam * x
-  float* sdm = sxm + kHeadTile * cp;       // dam
-  float* sg = sdm + kHeadTile * cp;        // kHeadTile rows of nc: gy
-  for (int i = threadIdx.x; i < c * NC; i += blockDim.x)
-    sw[i] = i % NC < nc ? w[i / NC * nc + i % NC] : 0.f;
+// dbias = sum gy.
+//
+// A block of 8 warps walks the tiles of ``tile`` voxels of one batch
+// element (grid y) that are its by a static assignment (tile t to block
+// t mod gridDim.x), so the order of every sum is fixed. Each tile's x and
+// gy come by cp.async through a ring of kHeadStages tiles, three tiles
+// ahead (x as it lies, gy as the raw span of its rows from the 16-byte
+// boundary below it). Per voxel, its lanes each take 8 channels: one
+// 16-byte shared load of x, da from FMAs over the classes, one 16-byte
+// store of dx, and dscale / dshift in the lane's registers.
+//
+// The voxel's gy row goes into a gy tile (classes padded to n8 tiles); W
+// sits in the lane's registers up to kHeadSmallNC classes (SMALL; the
+// repo's 4), else W^T in shared memory; s goes to an s tile beside a
+// column of ones (written once), and the warps run dW^T
+// (and dbias, the ones row) += [s | 1]^T gy with mma.sync m16n8k16 (bf16
+// s and gy, f32 sums), each warp on its (m, n) tile pairs, whose sums
+// stay in its registers over the block's tiles; with fewer pairs than
+// warps, ksplit warps share a pair, each on every ksplit-th K step, and
+// their sums are added in warp order at the end. The s and gy tiles have
+// two slots, so the products of tile t - 1 run after step 1 of tile t
+// with one barrier a tile.
+//
+// At the end each block writes its row of the partial table (sums over
+// the warp's voxel groups by shuffles, then the warps in order);
+// head_bwd_sum_kernel adds the rows in a fixed order. No float atomics,
+// no zero fills: two calls give the same bits.
+template <int PW, bool SMALL>
+__global__ void __launch_bounds__(kHeadThreads, PW <= 4 ? 2 : 1)
+    head_bwd_kernel(const HeadBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char hsm[];
+  const int c = a.c, nc = a.nc, L = a.lanes, R = 32 / L, tv = a.tile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sl = lane % L, grp = lane / L, k0 = 8 * sl;
+  const bool on = k0 < c;   // lanes past c / 8 hold no channels
   const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const float* sc = scale + (size_t)b * c;
-  const float* sh = shift + (size_t)b * c;
-  const int njobs = c * nc + nc + 2 * c;
-  float jacc[kHeadJobs];
+  // x tiles [S][tv][c], raw gy spans [S][raw], s tiles [2][tv][sp], gy
+  // tiles [2][tv][gp], then (above kHeadSmallNC classes) W^T [nc][c] f32
+  constexpr int S = kHeadStages;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(hsm);
+  __nv_bfloat16* gr = xs + S * tv * c;
+  __nv_bfloat16* ss = gr + S * a.raw;
+  __nv_bfloat16* gt = ss + 2 * tv * a.sp;
+  float* wt = reinterpret_cast<float*>(gt + 2 * tv * a.gp);
+  const uint32_t xs_u = head_smem_u32(xs), gr_u = head_smem_u32(gr);
+  const uint32_t ss_u = head_smem_u32(ss), gt_u = head_smem_u32(gt);
+  // the s and gy tiles' pad columns (zeros) and the ones column beside s
+  // (dbias's row of the products; a voxel past the tile's end has gy = 0)
+  // are written here and never again
+  for (int i = tid; i < 2 * tv * (a.sp + a.gp) / 8; i += kHeadThreads)
+    reinterpret_cast<uint4*>(ss)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  for (int v = tid; v < 2 * tv; v += kHeadThreads)
+    ss[v * a.sp + c] = __float2bfloat16_rn(1.f);
+  // up to kHeadSmallNC classes, W in the lane's registers
+  float wr[SMALL ? 8 : 1][kHeadSmallNC];
+  if constexpr (SMALL) {
 #pragma unroll
-  for (int i = 0; i < kHeadJobs; ++i) jacc[i] = 0.f;
-  const long long ntiles = (nvox + kHeadTile - 1) / kHeadTile;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long vb = tile * kHeadTile + t;   // voxel within batch b
-    __syncthreads();                             // the last tile is read
-    if (vb < nvox) {
-      const long long v = (long long)b * nvox + vb;
-      float g[NC];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        g[k] = k < nc ? __bfloat162float(gy[v * nc + k]) : 0.f;
-        if (k < nc) sg[t * np + k] = g[k];
+      for (int k = 0; k < kHeadSmallNC; ++k)
+        wr[j][k] = on && k < nc ? a.w[(k0 + j) * nc + k] : 0.f;
+  } else {
+    for (int i = tid; i < nc * c; i += kHeadThreads)
+      wt[i] = a.w[(i % c) * nc + i / c];
+  }
+  float scv[8], shv[8], ds[8], dh[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    scv[j] = on ? a.scale[(size_t)b * c + k0 + j] : 0.f;
+    shv[j] = on ? a.shift[(size_t)b * c + k0 + j] : 0.f;
+    ds[j] = dh[j] = 0.f;
+  }
+  float acc[PW][4];
+#pragma unroll
+  for (int i = 0; i < PW; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const int pairs = a.mt * a.nt, ks_n = a.ksplit;
+  // the warp's first pair and K phase: ksplit > 1 gives warp w pair w mod
+  // pairs at phase w / pairs (one pair a warp), else pairs w PW + i
+  const int p0 = ks_n > 1 ? warp % pairs : warp * PW;
+  const int kp = ks_n > 1 ? warp / pairs : 0;
+  const long long ntiles = (a.nvox + tv - 1) / tv;
+  const long long etot = (long long)gridDim.y * a.nvox * nc;
+
+  // tile t into ring slot buf; a commit group either way, so that every
+  // thread's groups count one a tile
+  auto issue = [&](long long t, int buf) {
+    if (t >= ntiles) {
+      mma_sync::cp_commit();
+      return;
+    }
+    const long long v0 = t * tv;
+    const long long cnt = min((long long)tv, a.nvox - v0);
+    const __nv_bfloat16* xsrc = a.x + ((long long)b * a.nvox + v0) * c;
+    const int xok = (int)cnt * c / 8;
+    for (int i = tid; i < tv * c / 8; i += kHeadThreads)
+      cp16n(xs_u + (uint32_t)(buf * tv * c + 8 * i) * 2,
+            i < xok ? xsrc + 8 * i : xsrc, i < xok ? 16 : 0);
+    const long long e0 = ((long long)b * a.nvox + v0) * nc;
+    const long long a0 = e0 & ~7LL, e1 = e0 + cnt * nc;
+    for (int i = tid; i < (int)((e1 - a0 + 7) / 8); i += kHeadThreads) {
+      const long long e = a0 + 8LL * i;
+      const long long left = (etot - e) * 2;
+      cp16n(gr_u + (uint32_t)(buf * a.raw + 8 * i) * 2, a.gy + e,
+            left >= 16 ? 16 : (int)left);
+    }
+    mma_sync::cp_commit();
+  };
+
+  // the warp's pairs: whether each is its, and the byte offsets of the
+  // lane's ldmatrix rows in the s and gy tiles at its first K step, so
+  // that a K step costs two ldmatrix, one mma and two adds (the kernel is
+  // bound by issued instructions as much as by bytes)
+  bool use[PW];
+  uint32_t a_off[PW], b_off[PW];
+#pragma unroll
+  for (int i = 0; i < PW; ++i) {
+    const int p = p0 + i;
+    use[i] = ks_n > 1 ? i == 0 && kp < ks_n : p < pairs;
+    const int mt = use[i] ? p / a.nt : 0, nt = use[i] ? p % a.nt : 0;
+    a_off[i] = (uint32_t)(((16 * kp + (lane & 7) + (lane >> 4) * 8) * a.sp
+                           + (2 * mt + ((lane >> 3) & 1)) * 8) * 2);
+    b_off[i] = (uint32_t)(((16 * kp + (lane & 15)) * a.gp + 8 * nt) * 2);
+  }
+  const int nks = kp < tv / 16 ? (tv / 16 - kp + ks_n - 1) / ks_n : 0;
+  const uint32_t a_step = (uint32_t)(16 * ks_n * a.sp * 2);
+  const uint32_t b_step = (uint32_t)(16 * ks_n * a.gp * 2);
+  // dW^T and dbias += [s | 1]^T gy over a tile's voxels, from s / gy
+  // tile slot sb
+  auto products = [&](int sb) {
+    uint32_t s_u = ss_u + (uint32_t)(sb * tv * a.sp) * 2;
+    uint32_t g_u = gt_u + (uint32_t)(sb * tv * a.gp) * 2;
+    for (int k = 0; k < nks; ++k, s_u += a_step, g_u += b_step) {
+#pragma unroll
+      for (int i = 0; i < PW; ++i) {
+        if (use[i]) {
+          uint32_t af[4], bf[2];
+          mma_sync::ldsm4t(af, s_u + a_off[i]);
+          mma_sync::ldsm2t(bf, g_u + b_off[i]);
+          mma_sync::mma(acc[i], af, bf[0], bf[1]);
+        }
       }
-      for (int c0 = 0; c0 < c; c0 += 8) {
-        float xv[8], dv[8];
-        load_bf16x8(x + v * c + c0, xv);
+    }
+  };
+
+  long long t = blockIdx.x;
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) issue(t + (long long)i * gridDim.x, i);
+  int it = 0;   // tiles done
+  for (int buf = 0; t < ntiles; t += gridDim.x, buf = (buf + 1) % S, ++it) {
+    mma_sync::cp_wait<S - 2>();
+    // tile t is in; step 1 of the last tile and the products of the one
+    // before it are done, so their s / gy tile slot is free
+    __syncthreads();
+    issue(t + (long long)(S - 1) * gridDim.x, (buf + S - 1) % S);
+    const int sb = it & 1;   // this tile's s / gy tile slot
+    __nv_bfloat16* st = ss + sb * tv * a.sp;
+    __nv_bfloat16* gtt = gt + sb * tv * a.gp;
+    const long long v0 = t * tv;
+    const int cnt = (int)min((long long)tv, a.nvox - v0);
+    // (where nc % 4 == 0, e0 and so this offset are multiples of 4)
+    const __nv_bfloat16* graw =
+        gr + buf * a.raw + (int)((((long long)b * a.nvox + v0) * nc) & 7);
+    const __nv_bfloat16* xt = xs + buf * tv * c;
+    // 1. per voxel: the gy tile's row (zeros past the tile's end), dx, s
+    // and the dstats terms
+    for (int vw = warp * R; vw < tv; vw += kHeadWarps * R) {
+      const int v = vw + grp;
+      const bool in = v < tv, valid = v < cnt;
+      // the voxel's gy row into the gy tile, 8 classes a lane a step
+      if (in) {
+        for (int q = sl; q < a.nt; q += L) {
+          uint32_t u[4] = {0, 0, 0, 0};
+          if (nc % 4 == 0) {   // the span's rows start 8-byte aligned
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (valid && 8 * q + 4 * h < nc) {
+                const uint2 w2 = *reinterpret_cast<const uint2*>(
+                    graw + v * nc + 8 * q + 4 * h);
+                u[2 * h] = w2.x;
+                u[2 * h + 1] = w2.y;
+              }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int k = 8 * q + j;
+              if (valid && k < nc)
+                u[j / 2] |=
+                    (uint32_t)__bfloat16_as_ushort(graw[v * nc + k])
+                    << (16 * (j & 1));
+            }
+          }
+          *reinterpret_cast<uint4*>(gtt + v * a.gp + 8 * q) =
+              make_uint4(u[0], u[1], u[2], u[3]);
+        }
+      }
+      __syncwarp();
+      if (in && on) {
+        float xv[8], da[8];
+        load_bf16x8(xt + v * c + k0, xv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) da[j] = 0.f;
+        if constexpr (SMALL) {
+          float g8[8];
+          load_bf16x8(gtt + v * a.gp, g8);
+#pragma unroll
+          for (int k = 0; k < kHeadSmallNC; ++k)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) da[j] = fmaf(g8[k], wr[j][k], da[j]);
+        } else {
+          for (int q = 0; q < a.nt; ++q) {
+            float g8[8];
+            load_bf16x8(gtt + v * a.gp + 8 * q, g8);
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {
+              const int k = 8 * q + kk;
+              if (k < nc) {
+                const float4 w0 =
+                    *reinterpret_cast<const float4*>(wt + k * c + k0);
+                const float4 w1 =
+                    *reinterpret_cast<const float4*>(wt + k * c + k0 + 4);
+                const float wk[8] = {w0.x, w0.y, w0.z, w0.w,
+                                     w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                  da[j] = fmaf(g8[kk], wk[j], da[j]);
+              }
+            }
+          }
+        }
+        // (a voxel past the tile's end has x = 0 and gy = 0, so da = dam
+        // = 0 and its s meets only zeros in the products: no test a term)
+        float sv[8], dv[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int ci = c0 + j;
-          const float pre = __fadd_rn(__fmul_rn(xv[j], sc[ci]), sh[ci]);
-          float da = 0.f;
-#pragma unroll
-          for (int k = 0; k < NC; ++k) da = fmaf(g[k], sw[ci * NC + k], da);
-          const float dam = pre > 0.f ? da : 0.f;
-          dv[j] = __fmul_rn(dam, sc[ci]);
-          ss[t * cp + ci] = round_bf16(fmaxf(pre, 0.f));
-          sxm[t * cp + ci] = __fmul_rn(dam, xv[j]);
-          sdm[t * cp + ci] = dam;
+          const float pre = __fadd_rn(__fmul_rn(xv[j], scv[j]), shv[j]);
+          const float dam = pre > 0.f ? da[j] : 0.f;
+          dv[j] = __fmul_rn(dam, scv[j]);
+          sv[j] = fmaxf(pre, 0.f);   // rounded once below
+          ds[j] = __fadd_rn(ds[j], __fmul_rn(dam, xv[j]));
+          dh[j] = __fadd_rn(dh[j], dam);
         }
-        store_bf16x8(dx + v * c + c0, dv);
+        store_bf16x8(st + v * a.sp + k0, sv);
+        if (valid)
+          store_bf16x8(a.dx + ((long long)b * a.nvox + v0 + v) * c + k0,
+                       dv);
       }
-    } else {
-      for (int k = 0; k < nc; ++k) sg[t * np + k] = 0.f;
-      for (int ci = 0; ci < c; ++ci)
-        ss[t * cp + ci] = sxm[t * cp + ci] = sdm[t * cp + ci] = 0.f;
     }
-    __syncthreads();
+    // 2. the last tile's products, while other warps are still in this
+    // tile's step 1
+    if (it > 0) products(sb ^ 1);
+  }
+  __syncthreads();
+  if (it > 0) products((it - 1) & 1);
+  // 3. this block's row of the partial table
+  const int wl = c * nc + nc;
+  float* prow =
+      a.part + ((long long)b * gridDim.x + blockIdx.x) * (wl + 2 * c);
+  const int g = lane >> 2, t4 = lane & 3;
+  __syncthreads();   // the ring is free (only empty groups are in flight)
+  float* red = reinterpret_cast<float*>(hsm);   // [warps][2 c], then
+  float* kred = red + kHeadWarps * 2 * c;       // [warps][32 lanes][4]
+  if (ks_n > 1) {   // the K phases of a pair, in warp order
 #pragma unroll
-    for (int i = 0; i < kHeadJobs; ++i) {
-      const int j = t + i * kHeadTile;
-      if (j >= njobs) continue;
-      float p = 0.f;
-      if (j < c * nc) {
-        const int ci = j / nc, k = j % nc;
-        for (int q = 0; q < kHeadTile; ++q)
-          p = fmaf(ss[q * cp + ci], sg[q * np + k], p);
-      } else if (j < c * nc + nc) {
-        const int k = j - c * nc;
-        for (int q = 0; q < kHeadTile; ++q) p += sg[q * np + k];
-      } else {
-        const int ci = (j - c * nc - nc) % c;
-        const float* src = j < c * nc + nc + c ? sxm : sdm;
-        for (int q = 0; q < kHeadTile; ++q) p += src[q * cp + ci];
+    for (int e = 0; e < 4; ++e)
+      kred[(warp * 32 + lane) * 4 + e] = acc[0][e];
+    __syncthreads();
+    if (warp < pairs) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sum = kred[(warp * 32 + lane) * 4 + e];
+        for (int q = 1; q < ks_n; ++q)
+          sum = __fadd_rn(sum,
+                          kred[((warp + q * pairs) * 32 + lane) * 4 + e]);
+        acc[0][e] = sum;
       }
-      jacc[i] += p;
     }
   }
 #pragma unroll
-  for (int i = 0; i < kHeadJobs; ++i) {
-    const int j = t + i * kHeadTile;
-    if (j >= njobs) continue;
-    if (j < c * nc) {
-      atomicAdd(&dw[j], jacc[i]);
-    } else if (j < c * nc + nc) {
-      atomicAdd(&dbias[j - c * nc], jacc[i]);
-    } else {
-      const int r = j - c * nc - nc;   // dscale (r < c), then dshift
-      atomicAdd(&dstats[(size_t)b * 2 * c + r], jacc[i]);
+  for (int i = 0; i < PW; ++i) {
+    const int p = p0 + i;
+    if (ks_n > 1 ? i == 0 && warp < pairs : p < pairs) {
+      const int mt = p / a.nt, nt = p % a.nt;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 16 * mt + g + 8 * (e >> 1);
+        const int n = 8 * nt + 2 * t4 + (e & 1);
+        if (n < nc && m <= c)
+          prow[m < c ? m * nc + n : c * nc + n] = acc[i][e];
+      }
     }
+  }
+  // dscale / dshift: the lanes of one channel chunk across the warp's
+  // voxel groups (butterfly), then the warps in order
+  for (int off = L; off < 32; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ds[j] = __fadd_rn(ds[j], __shfl_xor_sync(0xffffffffu, ds[j], off));
+      dh[j] = __fadd_rn(dh[j], __shfl_xor_sync(0xffffffffu, dh[j], off));
+    }
+  }
+  if (grp == 0 && on) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      red[warp * 2 * c + k0 + j] = ds[j];
+      red[warp * 2 * c + c + k0 + j] = dh[j];
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < 2 * c; k += kHeadThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kHeadWarps; ++w) s = __fadd_rn(s, red[w * 2 * c + k]);
+    prow[wl + k] = s;
+  }
+}
+
+// The backward's sums from its partial table (rows b gb + i: batch
+// element b's blocks): dW and dbias over every row, dscale / dshift of b
+// over its gb rows. 32 outputs a block, 32 row lanes each adding every
+// 32nd row in order, then the lanes in order.
+__global__ void __launch_bounds__(1024) head_bwd_sum_kernel(
+    const float* __restrict__ part, int gb, int nb, int c, int nc,
+    float* __restrict__ dw, float* __restrict__ dbias,
+    float* __restrict__ dstats) {
+  __shared__ float red[32][33];
+  const int wl = c * nc + nc, rl = wl + 2 * c;
+  const long long outs = wl + (long long)nb * 2 * c;
+  const long long o = (long long)blockIdx.x * 32 + threadIdx.x;
+  long long col = o, r0 = 0, r1 = (long long)nb * gb;
+  if (o >= wl) {
+    const long long j = o - wl, b = j / (2 * c);
+    col = wl + j % (2 * c);
+    r0 = b * gb;
+    r1 = r0 + gb;
+  }
+  float acc = 0.f;
+  if (o < outs)
+    for (long long r = r0 + threadIdx.y; r < r1; r += 32)
+      acc = __fadd_rn(acc, part[r * rl + col]);
+  red[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && o < outs) {
+    float s = 0.f;
+    for (int r = 0; r < 32; ++r) s = __fadd_rn(s, red[r][threadIdx.x]);
+    if (o < (long long)c * nc) dw[o] = s;
+    else if (o < wl) dbias[o - (long long)c * nc] = s;
+    else dstats[o - wl] = s;
   }
 }
 
 bool head_shape_ok(long long nvox, int B, int c, int nc) {
-  return nvox > 0 && B > 0 && c > 0 && c % 8 == 0 && nc > 0 &&
-         nc <= kHeadMaxNC && c * nc + nc + 2 * c <= kHeadJobs * kHeadTile;
+  return nvox > 0 && B > 0 && B <= 65535 && c >= 8 && c <= kHeadMaxC &&
+         c % 8 == 0 && nc >= 1 && nc <= kHeadMaxNC;
 }
 
 // Rows per block: the largest of 4, 2, 1 whose patch fits the target, so
@@ -961,40 +1275,86 @@ int num_sms() {
   return sms;
 }
 
-// The head kernels' class slots for nc classes: 4 (the repo's class
-// count) or 16, each a compiled instantiation.
-constexpr int head_slots(int nc) { return nc <= 4 ? 4 : kHeadMaxNC; }
+// The forward's class slots for nc classes: 4 (the repo's class count)
+// or passes of 16, each a compiled instantiation.
+constexpr int head_slots(int nc) { return nc <= 4 ? 4 : kHeadSlots; }
 
 template <int NC>
 int head_fwd_launch(const __nv_bfloat16* x, const float* w, const float* bias,
                     const float* scale, const float* shift, __nv_bfloat16* y,
                     int B, int V, int C, int nc, cudaStream_t stream) {
   const long long n = (long long)B * V;
-  const size_t smem = sizeof(float) * ((size_t)C * NC + NC);
+  const int ncp = (nc + NC - 1) / NC * NC;
+  const size_t smem = sizeof(float) * ((size_t)C * ncp + ncp);
+  cudaError_t err = allow_smem(head_fwd_kernel<NC>, smem);
+  if (err != cudaSuccess) return (int)err;
   head_fwd_kernel<NC><<<(int)((n + kThreads - 1) / kThreads), kThreads, smem,
                         stream>>>(x, w, bias, scale, shift, y, n, V, C, nc);
   return (int)cudaGetLastError();
 }
 
-// The backward's grid: per batch element, enough blocks of kHeadTile
-// voxels to fill the card about 16 blocks an SM deep, each walking its
-// share of the tiles; its sums leave with one atomic per block.
-template <int NC>
-int head_bwd_launch(const __nv_bfloat16* x, const __nv_bfloat16* gy,
-                    const float* w, const float* scale, const float* shift,
-                    __nv_bfloat16* dx, float* dstats, float* dw, float* dbias,
-                    int B, int V, int C, int nc, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      ((size_t)C * NC + (size_t)kHeadTile * (3 * (C + 1) + nc + 1));
-  cudaError_t err = allow_smem(head_bwd_kernel<NC>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long ntiles = ((long long)V + kHeadTile - 1) / kHeadTile;
-  long long per_batch = (16LL * num_sms() + B - 1) / B;
-  if (per_batch > ntiles) per_batch = ntiles;
-  head_bwd_kernel<NC><<<dim3((unsigned)per_batch, B), kHeadTile, smem,
-                        stream>>>(x, gy, w, scale, shift, dx, dstats, dw,
-                                  dbias, V, C, nc);
-  return (int)cudaGetLastError();
+// The backward's plan at (c, nc) (see HeadBwdPlan): the largest tile of
+// 256, 128, ... 16 voxels whose shared memory lets two blocks share an
+// SM, else the largest that fits one; false past the hardware limit.
+bool head_bwd_plan(int c, int nc, HeadBwdPlan* p) {
+  p->lanes = 1;
+  while (p->lanes * 8 < c) p->lanes *= 2;
+  p->mt = (c + 16) / 16;   // c + 1 rows: the channels, then the ones row
+  p->nt = (nc + 7) / 8;
+  const int pairs = p->mt * p->nt;
+  p->pw = (pairs + kHeadWarps - 1) / kHeadWarps;
+  p->ksplit = pairs < kHeadWarps ? kHeadWarps / pairs : 1;
+  p->sp = 16 * p->mt + 8;
+  p->gp = 8 * (p->nt | 1);
+  p->small = nc <= kHeadSmallNC;
+  auto bytes = [&](int tv) {
+    const int raw = 8 * ((tv * nc + 14) / 8);
+    const size_t ring =
+        (size_t)2 * (kHeadStages * (tv * c + raw) +
+                     2 * tv * (p->sp + p->gp)) +
+        (p->small ? 0 : (size_t)4 * nc * c);
+    // the end's sums reuse it: dscale / dshift and the K phases a warp
+    const size_t sums = (size_t)4 * kHeadWarps * (2 * c + 128);
+    return ring > sums ? ring : sums;
+  };
+  int fit = 0;
+  for (int tv = kHeadMaxTile; tv >= 16 && !fit; tv /= 2)
+    if (bytes(tv) <= kHeadSmemTarget) fit = tv;
+  for (int tv = kHeadMaxTile; tv >= 16 && !fit; tv /= 2)
+    if (bytes(tv) <= kSmemMax) fit = tv;
+  if (!fit) return false;
+  p->tile = fit;
+  p->raw = 8 * ((fit * nc + 14) / 8);
+  p->smem = bytes(fit);
+  return true;
+}
+
+using HeadBwdKernel = void (*)(const HeadBwdArgs);
+
+HeadBwdKernel head_bwd_kernel_for(const HeadBwdPlan& p) {
+  if (p.small) return p.pw <= 1 ? head_bwd_kernel<1, true>
+                                : head_bwd_kernel<2, true>;
+  if (p.pw <= 1) return head_bwd_kernel<1, false>;
+  if (p.pw <= 2) return head_bwd_kernel<2, false>;
+  if (p.pw <= 4) return head_bwd_kernel<4, false>;
+  if (p.pw <= 8) return head_bwd_kernel<8, false>;
+  return head_bwd_kernel<18, false>;   // 9 x 16 pairs at 128 x 128
+}
+
+// Blocks a batch element: the card's SMs times the blocks an SM holds,
+// shared out over the batch, at most one a tile; 0 on an error.
+int head_bwd_blocks(const HeadBwdPlan& p, HeadBwdKernel k, int B,
+                    long long V) {
+  if (allow_smem(k, p.smem) != cudaSuccess) return 0;
+  int occ = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k, kHeadThreads,
+                                                    p.smem) != cudaSuccess)
+    return 0;
+  if (occ < 1) occ = 1;
+  const long long ntiles = (V + p.tile - 1) / p.tile;
+  long long gb = ((long long)num_sms() * occ + B - 1) / B;
+  if (gb > ntiles) gb = ntiles;
+  return (int)gb;
 }
 
 // Host-side arguments of one forward or dgrad launch (see the kernels
@@ -1303,25 +1663,45 @@ int pcseg_head_grid2(const void* x, const void* w, const void* bias,
                                      B, V, C, NC, st);
 }
 
-// Its backward: x, w, scale, shift as in the forward; gy (B, V, NC) bf16.
-// Writes dx (B, V, C) bf16 and adds into dstats (B, 2, C) = (dscale,
-// dshift), dw (C, NC) and dbias (NC,), all f32 and zeroed by the caller.
+// The scratch pcseg_head_grid2_bwd needs at (B, V, C, NC), in floats
+// (its partial table: a row of C NC + NC + 2 C a block), or -1 for a
+// shape it does not take.
+int pcseg_head_grid2_bwd_scratch(int B, int V, int C, int NC) {
+  HeadBwdPlan p;
+  if (!head_shape_ok(V, B, C, NC) || !head_bwd_plan(C, NC, &p)) return -1;
+  const int gb = head_bwd_blocks(p, head_bwd_kernel_for(p), B, V);
+  const long long n = (long long)B * gb * (C * NC + NC + 2 * C);
+  return gb < 1 || n > 0x7fffffffLL ? -1 : (int)n;
+}
+
+// Its backward: x, w, scale, shift as in the forward (x and gy 16-byte
+// aligned); gy (B, V, NC) bf16. Writes dx (B, V, C) bf16, dstats (B, 2,
+// C) = (dscale, dshift), dw (C, NC) and dbias (NC,), all f32 and every
+// value; scratch pcseg_head_grid2_bwd_scratch floats.
 int pcseg_head_grid2_bwd(const void* x, const void* gy, const void* w,
                          const void* scale, const void* shift, void* dx,
-                         void* dstats, void* dw, void* dbias, int B, int V,
-                         int C, int NC, void* stream) {
-  if (!head_shape_ok(V, B, C, NC)) return (int)cudaErrorInvalidValue;
-  const auto xb = (const __nv_bfloat16*)x, gb = (const __nv_bfloat16*)gy;
-  const auto wf = (const float*)w;
-  const auto sc = (const float*)scale, sh = (const float*)shift;
-  const auto dxb = (__nv_bfloat16*)dx;
-  const auto ds = (float*)dstats, dwf = (float*)dw, db = (float*)dbias;
+                         void* dstats, void* dw, void* dbias, void* scratch,
+                         int B, int V, int C, int NC, void* stream) {
+  HeadBwdPlan p;
+  if (!head_shape_ok(V, B, C, NC) || !head_bwd_plan(C, NC, &p))
+    return (int)cudaErrorInvalidValue;
+  const HeadBwdKernel k = head_bwd_kernel_for(p);
+  const int gb = head_bwd_blocks(p, k, B, V);
+  if (gb < 1) return (int)cudaErrorInvalidValue;
   const auto st = (cudaStream_t)stream;
-  if (head_slots(NC) == 4)
-    return head_bwd_launch<4>(xb, gb, wf, sc, sh, dxb, ds, dwf, db, B, V, C,
-                              NC, st);
-  return head_bwd_launch<kHeadMaxNC>(xb, gb, wf, sc, sh, dxb, ds, dwf, db, B,
-                                     V, C, NC, st);
+  const HeadBwdArgs a{(const __nv_bfloat16*)x, (const __nv_bfloat16*)gy,
+                      (const float*)w, (const float*)scale,
+                      (const float*)shift, (__nv_bfloat16*)dx,
+                      (float*)scratch, V, C, NC, p.lanes, p.tile, p.mt,
+                      p.nt, p.ksplit, p.sp, p.gp, p.raw};
+  k<<<dim3((unsigned)gb, (unsigned)B), kHeadThreads, p.smem, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long outs = (long long)C * NC + NC + 2LL * B * C;
+  head_bwd_sum_kernel<<<(unsigned)((outs + 31) / 32), dim3(32, 32), 0, st>>>(
+      (const float*)scratch, gb, B, C, NC, (float*)dw, (float*)dbias,
+      (float*)dstats);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

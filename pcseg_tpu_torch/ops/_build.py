@@ -45,7 +45,8 @@ SIGNATURES = {
         "pcseg_down2x_bwd": [_P] * 11 + [_I] * 6 + [_P],
         "pcseg_up2x_bwd": [_P] * 11 + [_I] * 6 + [_P],
         "pcseg_head_grid2": [_P] * 6 + [_I] * 4 + [_P],
-        "pcseg_head_grid2_bwd": [_P] * 9 + [_I] * 4 + [_P],
+        "pcseg_head_grid2_bwd_scratch": [_I] * 4,
+        "pcseg_head_grid2_bwd": [_P] * 10 + [_I] * 4 + [_P],
     },
     "conv3d_dgrad": {
         "pcseg_ring_grid": [_I] * 6,
@@ -97,8 +98,10 @@ SIGNATURES = {
     "fused_ln": {
         "pcseg_bias_ln_relu_mask": [_P] * 6 + [_L, _I, _F, _I, _I, _P],
         "pcseg_bias_ln_relu_mask_bwd_max_c": [],
-        "pcseg_bias_ln_relu_mask_bwd_blocks": [_L, _I],
-        "pcseg_bias_ln_relu_mask_bwd": [_P] * 9 + [_L, _I, _F, _I, _I, _P],
+        "pcseg_bias_ln_relu_mask_bwd_vec_ok": [_I],
+        "pcseg_bias_ln_relu_mask_bwd_blocks": [_L, _I, _I, _I, _I],
+        "pcseg_bias_ln_relu_mask_bwd": [_P] * 9 + [_L, _I, _F, _I, _I, _I,
+                                                  _P],
     },
 }
 

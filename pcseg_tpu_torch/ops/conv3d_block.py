@@ -917,14 +917,25 @@ def head_grid2_bwd_cuda(x, gy, w, scale, shift):
     dstats (B, 2, C) = (dscale, dshift), dW (C, NC), dbias (NC,)) f32."""
     b, v, c, nc = _head_checks(x, w, scale, shift)
     _check("gy", gy, x.shape[:4] + (nc,), torch.bfloat16, x.device)
+    if gy.data_ptr() % 16:
+        gy = gy.clone()
+    lib = load_library()
+    n_part = lib.pcseg_head_grid2_bwd_scratch(b, v, c, nc)
+    if n_part < 0:
+        raise ValueError(f"the head backward takes C a multiple of 8 up to "
+                         f"128 and 1 to 128 classes, got C={c}, NC={nc}")
+    # every output is written by the kernels: no zero fills
     dx = torch.empty_like(x)
-    dstats = _f32_zeros(x, b, 2, c)
-    dw = _f32_zeros(x, c, nc)
-    db = _f32_zeros(x, nc)
-    rc = load_library().pcseg_head_grid2_bwd(
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dstats = torch.empty((b, 2, c), **f32)
+    dw = torch.empty((c, nc), **f32)
+    db = torch.empty((nc,), **f32)
+    part = torch.empty((n_part,), **f32)
+    rc = lib.pcseg_head_grid2_bwd(
         x.data_ptr(), gy.data_ptr(), _wq(_head_w(w)).contiguous().data_ptr(),
         scale.data_ptr(), shift.data_ptr(), dx.data_ptr(), dstats.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), b, v, c, nc, stream_of(x))
+        dw.data_ptr(), db.data_ptr(), part.data_ptr(), b, v, c, nc,
+        stream_of(x))
     raise_on(rc, "head_grid2_bwd")
     LAUNCHES["head_grid2_bwd"] += 1
     return dx, dstats, dw, db

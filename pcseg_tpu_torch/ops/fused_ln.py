@@ -19,8 +19,10 @@ moments from x and gives, from the cotangent g of out,
     sums over the N rows, dx before its rounding).
 
 On a CUDA tensor the forward launches ``pcseg_bias_ln_relu_mask`` and the
-backward ``pcseg_bias_ln_relu_mask_bwd`` (csrc/fused_ln.cu, one warp a
-row, any C); on a CPU tensor they run ``bias_ln_relu_mask_plain`` and
+backward ``pcseg_bias_ln_relu_mask_bwd`` (csrc/fused_ln.cu, lane groups
+of a warp a row, any C; the backward on 8 channels a lane with vector
+loads where C is a multiple of 8 up to 256, ``bwd_route``); on a CPU
+tensor they run ``bias_ln_relu_mask_plain`` and
 ``bias_ln_relu_mask_bwd_plain``, the same formulas in PyTorch.
 """
 
@@ -37,7 +39,11 @@ from pcseg_tpu_torch.ops._build import (
 
 # launches since the last reset_launches(); a wrapper adds one where it
 # launches its kernel and nowhere else
-LAUNCHES = {"bias_ln_relu_mask": 0, "bias_ln_relu_mask_bwd": 0}
+# (``bias_ln_relu_mask_bwd_vec`` counts the backward launches that took
+# the vector route; every backward launch also counts as
+# ``bias_ln_relu_mask_bwd``)
+LAUNCHES = {"bias_ln_relu_mask": 0, "bias_ln_relu_mask_bwd": 0,
+            "bias_ln_relu_mask_bwd_vec": 0}
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -128,6 +134,16 @@ def bias_ln_relu_mask_fwd(x: torch.Tensor, pre_bias: torch.Tensor,
     return out
 
 
+def bwd_route(lib, x: torch.Tensor, g: torch.Tensor) -> int:
+    """1 where the backward takes the vector route (csrc/fused_ln.cu's
+    ``bwd_vec_ok``: C a multiple of 8 up to 256) on 16-byte aligned x and
+    g (dx is allocated aligned), else 0: decided by shape before the
+    launch."""
+    aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+    return int(aligned and bool(
+        lib.pcseg_bias_ln_relu_mask_bwd_vec_ok(x.shape[1])))
+
+
 def bias_ln_relu_mask_bwd(x, pre_bias, scale, bias, active, g,
                           eps: float = 1e-5, *, plain: bool = False):
     """The backward: x (N, C) and g (N, C), the cotangent of the output
@@ -138,16 +154,20 @@ def bias_ln_relu_mask_bwd(x, pre_bias, scale, bias, active, g,
                                            g, eps)
     vecs, active = _checked(x, pre_bias, scale, bias, active)
     n, c = x.shape
+    if tuple(g.shape) != (n, c) or g.dtype not in _DTYPES:
+        raise ValueError(f"g must be ({n}, {c}) bf16 or f32, got "
+                         f"{tuple(g.shape)} {g.dtype}")
     lib = load_library("fused_ln")
-    blocks = lib.pcseg_bias_ln_relu_mask_bwd_blocks(n, c)
+    x, g = x.contiguous(), g.contiguous()
+    x_bf16, g_bf16 = int(x.dtype == torch.bfloat16), int(
+        g.dtype == torch.bfloat16)
+    vec = bwd_route(lib, x, g)
+    blocks = lib.pcseg_bias_ln_relu_mask_bwd_blocks(n, c, vec, x_bf16,
+                                                    g_bf16)
     if c > lib.pcseg_bias_ln_relu_mask_bwd_max_c() or blocks < 1:
         raise ValueError(f"the bias_ln_relu_mask backward takes up to "
                          f"{lib.pcseg_bias_ln_relu_mask_bwd_max_c()} "
                          f"channels, got {tuple(x.shape)}")
-    if tuple(g.shape) != (n, c) or g.dtype not in _DTYPES:
-        raise ValueError(f"g must be ({n}, {c}) bf16 or f32, got "
-                         f"{tuple(g.shape)} {g.dtype}")
-    x, g = x.contiguous(), g.contiguous()
     dx = torch.empty_like(x)
     partial = torch.empty((blocks, 3 * c), dtype=torch.float32,
                           device=x.device)
@@ -155,10 +175,10 @@ def bias_ln_relu_mask_bwd(x, pre_bias, scale, bias, active, g,
     rc = lib.pcseg_bias_ln_relu_mask_bwd(
         x.data_ptr(), *(v.data_ptr() for v in vecs), active.data_ptr(),
         g.data_ptr(), dx.data_ptr(), partial.data_ptr(), sums.data_ptr(), n,
-        c, float(eps), int(x.dtype == torch.bfloat16),
-        int(g.dtype == torch.bfloat16), stream_of(x))
+        c, float(eps), x_bf16, g_bf16, vec, stream_of(x))
     raise_on(rc, "bias_ln_relu_mask_bwd")
     LAUNCHES["bias_ln_relu_mask_bwd"] += 1
+    LAUNCHES["bias_ln_relu_mask_bwd_vec"] += vec
     dscale, dbias, dpre = sums
     return dx, dpre, dscale, dbias
 

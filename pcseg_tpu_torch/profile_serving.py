@@ -102,13 +102,15 @@ STAGES = (("gp_wgmma_fwd", "global_pool"),
           ("ce_seg4_wide_bwd_kernel", "seg4_ce"),
           ("dropout_kernel", "dropout"),
           ("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
+          ("head_bwd_sum_kernel", "head_bwd"),
           ("voxelize_contract_kernel", "voxelize"),
           ("block_conv", "block_conv"),
           ("block_dgrad", "block_conv_dgrad"),
           ("block_wgrad", "block_conv_wgrad"),
           ("wgrad_reduce", "block_conv_wgrad"),
           ("bias_ln_relu_mask_kernel", "ln"),
-          ("bias_ln_relu_mask_bwd", "ln_bwd"), ("column_sum", "ln_bwd"),
+          ("bias_ln_relu_mask_bwd", "ln_bwd"),
+          ("ln_bwd_vec_kernel", "ln_bwd"), ("column_sum", "ln_bwd"),
           ("rowcol_scatter", "readout_bwd"),
           ("trilinear_gather_kernel", "devox_gather"),
           ("trilinear_scatter_bin_kernel", "devox_scatter"),

@@ -147,7 +147,8 @@ def test_sparse_model_launches_and_matches_plain(gen, dtype):
                            "block_conv_dgrad_mma": 0,
                            "block_conv_wgrad_mma": 0}
     assert fl.LAUNCHES == {"bias_ln_relu_mask": 6,
-                           "bias_ln_relu_mask_bwd": 0}
+                           "bias_ln_relu_mask_bwd": 0,
+                           "bias_ln_relu_mask_bwd_vec": 0}
     assert vx.LAUNCHES["voxelize_contract"] == int(dtype == "bfloat16")
     assert not dropped.any()
     ref = model(pts, mask, plain=True)
@@ -166,6 +167,7 @@ def _sum_close(got, ref, abs_sum, bf16=False):
 
 
 @pytest.mark.parametrize("n,c,x_dt,g_dt", [
+    (262144, 64, torch.bfloat16, torch.bfloat16),   # the sparse level 0
     (5000, 64, torch.bfloat16, torch.bfloat16),
     (3001, 128, torch.bfloat16, torch.bfloat16),
     (2000, 256, torch.bfloat16, torch.bfloat16),    # repaired: C > 128
@@ -182,10 +184,19 @@ def test_bias_ln_relu_mask_bwd_kernel(gen, n, c, x_dt, g_dt):
     active = torch.rand((n,), generator=gen, device="cuda") < 0.7
     g = torch.randn((n, c), generator=gen, device="cuda").to(g_dt)
     args = (x, pre, scale, bias, active, g, 1e-5)
-    before = fl.LAUNCHES["bias_ln_relu_mask_bwd"]
+    before = dict(fl.LAUNCHES)
     got = fl.bias_ln_relu_mask_bwd(*args)
     torch.cuda.synchronize()
-    assert fl.LAUNCHES["bias_ln_relu_mask_bwd"] == before + 1
+    assert fl.LAUNCHES["bias_ln_relu_mask_bwd"] == \
+        before["bias_ln_relu_mask_bwd"] + 1
+    # the vector route: C a multiple of 8 up to 256 (aligned tensors)
+    vec = int(c % 8 == 0 and c <= 256)
+    assert fl.LAUNCHES["bias_ln_relu_mask_bwd_vec"] == \
+        before["bias_ln_relu_mask_bwd_vec"] + vec
+    # fixed-order sums: a second call gives the same bits
+    again = fl.bias_ln_relu_mask_bwd(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
     ref = fl.bias_ln_relu_mask_bwd_plain(*args)
     assert got[0].dtype == x_dt
     _close(got[0], ref[0], x_dt)
@@ -329,8 +340,10 @@ def test_sparse_train_step_launches_and_matches_plain(gen):
                            "block_conv_wgrad": 4, "block_conv_mma": 2,
                            "block_conv_dgrad_mma": 2,
                            "block_conv_wgrad_mma": 2}
+    # widths 16 and 32: every LN backward on the vector route
     assert fl.LAUNCHES == {"bias_ln_relu_mask": 6,
-                           "bias_ln_relu_mask_bwd": 6}
+                           "bias_ln_relu_mask_bwd": 6,
+                           "bias_ln_relu_mask_bwd_vec": 6}
     assert bsp.LAUNCHES == {"rowcol_scatter": 1}
     assert vx.LAUNCHES["voxelize_contract"] == 1
     lp, gp = step(True)

@@ -115,7 +115,12 @@ def test_trilinear_gather_refuses_33_channels_before_any_launch(gen):
 
 
 @pytest.mark.parametrize("r,c,nc", [(8, 16, 4), (16, 16, 4), (8, 16, 3),
-                                     (8, 32, 5)])
+                                     (8, 32, 5),
+                                     # every width the JAX fused head
+                                     # takes: 20 classes (at 32^3 in the
+                                     # model), C 128, odd class counts
+                                     (16, 16, 20), (8, 128, 8), (8, 8, 1),
+                                     (8, 24, 13), (8, 128, 128)])
 def test_head_grid2_kernels(gen, r, c, nc):
     b = 2
     x = _rand(gen, b, r, r, r, c).to(torch.bfloat16)
@@ -135,6 +140,9 @@ def test_head_grid2_kernels(gen, r, c, nc):
     _bf16_close(gk[0], gp[0])
     for a, p in zip(gk[1:], gp[1:]):
         _close(a, p, 1e-3)
+    # the backward sums in a fixed order: a second call gives the same bits
+    for a, p in zip(gk, cb.head_grid2_bwd_cuda(x, gy, w, scale, shift)):
+        assert torch.equal(a, p)
 
 
 def test_default_model_launches_and_matches_plain(gen):

@@ -106,6 +106,30 @@ def test_devoxelize_kernels_have_their_stage(name, stage):
     assert stage_of(name) == stage
 
 
+@pytest.mark.parametrize("name, stage", [
+    # row 20's backward: the strided route, the vector route, their sums
+    (NS + "bias_ln_relu_mask_bwd_kernel<__nv_bfloat16, __nv_bfloat16, 8>("
+     "__nv_bfloat16 const*, float const*)", "ln_bwd"),
+    (NS + "ln_bwd_vec_kernel<__nv_bfloat16, __nv_bfloat16, 8>(__nv_bfloat16 "
+     "const*, float const*)", "ln_bwd"),
+    ("(anonymous namespace)::column_sum_kernel(float const*, int, int, "
+     "float*)", "ln_bwd"),
+    (NS + "bias_ln_relu_mask_kernel<__nv_bfloat16, __nv_bfloat16, 8>("
+     "__nv_bfloat16 const*)", "ln"),
+    # row 9: the tile kernel and its fixed-order sums; row 8
+    (NS + "head_bwd_kernel<1, true>((anonymous namespace)::HeadBwdArgs)",
+     "head_bwd"),
+    ("(anonymous namespace)::head_bwd_sum_kernel(float const*, int, int, "
+     "int, int, float*, float*, float*)", "head_bwd"),
+    (NS + "head_fwd_kernel<16>(__nv_bfloat16 const*, float const*)",
+     "head"),
+])
+def test_ln_and_head_kernels_have_their_stage(name, stage):
+    """Rows 20 and 9 (both backward routes and the sum kernels) book under
+    "ln" / "ln_bwd" and "head" / "head_bwd", not as glue."""
+    assert stage_of(name) == stage
+
+
 def _fake_profiles(monkeypatch, attempts):
     """profile_serving.device_profile answering each call with the next
     of ``attempts``: lists of (kernel name, device ms, recorded calls)."""
