@@ -89,19 +89,24 @@
    (index_add_, grid_sample, bf16 matmuls; yardsticks only); the gather
    and voxelizer by device time (the voxelizer's yardstick torch.zeros +
    index_add_, the same function from scratch, beside index_add_ alone
-   and its own atomics kernel without the zero fill); the trilinear
-   scatter again on this batch, as phase 7 holds and times it. The head
-   also at the widths its repair opened (20 classes at 32^3 x 16, C 128 ->
-   8 classes), its backward's two calls bit for bit.
+   and its own atomics kernel without the zero fill), also at the sparse
+   model's call site (tile-major ids of phase 13's track events, C1 2);
+   the trilinear scatter again on this batch,
+   as phase 7 holds and times it, and the gather and the scatter at 33,
+   40, 64 and 121 channels on a 32^3 grid (two calls bit for bit). The
+   head also at the widths its repair opened (20 and 40 classes at 32^3
+   x 16, C 128 -> 8 classes), both directions' two calls bit for bit.
 11. Serves the default configuration as phase 3 serves the scatter/gather
    one: launch counts per forward, logits against the plain versions.
 12. One default-configuration train step with the kernels, with the plain
    versions and in f32, held as phase 8; then api.fit with no impl
    override and Predictor on its checkpoint, held as phase 9.
-12b. Serves VoxelUNet3d(20 classes, 32^3, width 16, 3 levels, bf16),
-   which the JAX package routes through its fused grid2 head, through
-   Predictor and trains it one step: the head's launches, logits to
-   LOGITS_REL and the loss to DEFAULT_LOSS_REL of the plain versions.
+12b. Serves VoxelUNet3d(20 and 40 classes, 32^3, width 16, 3 levels,
+   bf16), which the JAX package routes through its fused grid2 head,
+   through Predictor and trains each one step: the launches of rows 8, 9,
+   10, 11 and 13, logits to LOGITS_REL and the loss to DEFAULT_LOSS_REL of
+   the plain versions (at 40 classes the devoxelize runs past 32
+   channels).
 13. Holds the sparse family's two kernels (the raw block conv and the
    fused conv-bias + LayerNorm + ReLU + mask) against their plain versions
    at every serving shape of the JAX package's sparse bench configuration
@@ -1971,46 +1976,53 @@ def default_batch():
     return torch.from_numpy(pts).cuda(), torch.from_numpy(mask).cuda()
 
 
-def default_voxelize_case(points, mask):
+def voxelize_site_case(flat, ext, r, case, edges=None):
+    """Row 10 on one call site's ids and rows: kernel vs plain version
+    (counts exact, sums to ONEHOT_TOL, nothing for the all-masked row when
+    there is one), whether two calls give the same bits (float atomics:
+    reported, not held), and its times: the op (id cast, zero fill and
+    atomics kernel) by device time, the atomics kernel alone, the plain
+    version, torch.zeros + index_add_ (the same function from scratch) and
+    index_add_ alone; ``edges``: further (err, ok) checks."""
     import torch
 
     from pcseg_tpu_torch.ops import voxel as vx
 
-    b, m, r = VOX_B, VOX_M, VOX_R
+    b, m, c1 = ext.shape
     r3 = r ** 3
-    flat, ext, _, _ = vx.voxel_rows(points, mask, r)
-    c1 = ext.shape[-1]
     k = vx.voxelize_contract(flat, ext, r)
     torch.cuda.synchronize()
     p = vx.voxelize_contract_plain(flat, ext, r)
-    zyx = (flat // (r * r), flat // r % r, flat % r)
-    faces = int((mask & torch.stack([(a == 0) | (a == r - 1) for a in zyx])
-                 .any(0)).sum())
     hot = int(p[..., -1].max())
     dcnt = float((k[..., -1] - p[..., -1]).abs().max())
     checks = {"sums": _onehot_check(k, p), "counts": (dcnt, dcnt == 0.0),
-              "dummy row": (float(k[-1].abs().max()), not k[-1].any()),
-              "edge cases": (0.0, faces > 0 and hot >= 2000)}
-    err = _held("voxelize_contract", checks)
+              **(edges or {})}
+    if bool(flat[-1].eq(r3).all()):     # an all-masked row: nothing
+        checks["dummy row"] = (float(k[-1].abs().max()), not k[-1].any())
+    err = _held(f"voxelize_contract {case}", checks)
     rows = (flat + torch.arange(b, device="cuda")[:, None] * (r3 + 1)
             ).reshape(-1)
     vals = ext.to(torch.bfloat16).float().reshape(-1, c1)
     out = torch.zeros((b * (r3 + 1), c1), device="cuda")
-    n_real = int(mask.sum())
+    n_real = int((flat < r3).sum())
+
+    def kernel():
+        return vx.voxelize_contract(flat, ext, r)
 
     def from_scratch():
         return torch.zeros((b * (r3 + 1), c1), device="cuda").index_add_(
             0, rows, vals)
 
     res = {
-        "name": "voxelize_contract", "case": "voxelize",
+        "name": "voxelize_contract", "case": case,
         "shape": f"B{b} M{m} -> {r}^3x{c1}", "max_abs_err": err,
-        "points_on_faces": faces, "hot_voxel_points": hot,
-        "ms": device_ms(lambda: vx.voxelize_contract(flat, ext, r)),
-        # the atomics kernel alone, without the op's zero fill of the grid
-        "kernel_ms": kernel_ms(lambda: vx.voxelize_contract(flat, ext, r),
-                               ("voxelize_contract_kernel",)),
-        "wrapper_ms": time_ms(lambda: vx.voxelize_contract(flat, ext, r)),
+        "hot_voxel_points": hot,
+        "ms": device_ms(kernel),
+        # the atomics kernel alone, without the zero fill and id cast
+        "kernel_ms": kernel_ms(kernel, ("voxelize_contract_kernel",)),
+        # float atomics: two calls may differ in their last bits
+        "two_calls_identical": bool(torch.equal(k, kernel())),
+        "wrapper_ms": time_ms(kernel),
         "plain_ms": device_ms(
             lambda: vx.voxelize_contract_plain(flat, ext, r)),
         # the same function from scratch: torch.zeros of the grid, then
@@ -2025,6 +2037,103 @@ def default_voxelize_case(points, mask):
         b * m * 4 + b * m * c1 * 4 + b * r3 * c1 * 4, n_real * c1,
         F32_FLOP_PER_S)
     return _vox_report(res)
+
+
+def default_voxelize_case(points, mask):
+    """Row 10 at the default voxel model's call site (ops/voxel.py
+    voxelize): the B8 x 8192 default batch at 64^3, C1 3, with points on
+    the box faces, a voxel hit by 2,000 points and an all-masked row."""
+    import torch
+
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    r = VOX_R
+    flat, ext, _, _ = vx.voxel_rows(points, mask, r)
+    zyx = (flat // (r * r), flat // r % r, flat % r)
+    faces = int((mask & torch.stack([(a == 0) | (a == r - 1) for a in zyx])
+                 .any(0)).sum())
+    hot = int((flat[0] == flat[0, 0]).sum())
+    res = voxelize_site_case(flat, ext, r, "voxelize", {
+        "edge cases": (0.0, faces > 0 and hot >= 2000
+                       and bool(flat[-1].eq(r ** 3).all()))})
+    res["points_on_faces"] = faces
+    return res
+
+
+def sparse_voxelize_case():
+    """Row 10 at the sparse model's call site (ops/block_sparse.py
+    block_sparse_voxelize): tile-major ids of phase 13's B8 x 8192 track
+    events at R64 in tiles of 8^3, C1 2 (the feature and the count)."""
+    import torch
+
+    from pcseg_tpu_torch.data.synthetic import track_events
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    r, t = SP_R, SP_T
+    pts = torch.from_numpy(track_events(SP_B, SP_M, 0)).cuda()
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda")
+    flat, _, _ = vx.voxel_indices(pts[..., :3].float(), mask, r)
+    i, j, k = flat // (r * r), (flat // r) % r, flat % r
+    nt = r // t
+    tid = ((i // t) * nt + (j // t)) * nt + (k // t)
+    intra = ((i % t) * t + (j % t)) * t + (k % t)
+    blocked = torch.where(flat >= r ** 3, r ** 3, tid * t ** 3 + intra)
+    ext = torch.cat([pts[..., 3:].float(),
+                     torch.ones_like(pts[..., :1].float())], -1)
+    return voxelize_site_case(blocked, ext, r, "voxelize sparse")
+
+
+# rows 11 and 13 past 32 channels: the class counts the matmul devoxelize
+# takes at 32^3 reach 121 (R^3 (NC + 1) <= 4e6); each on the default batch
+# at 32^3, bf16 grid cotangent as the step writes it, held as at C4 and
+# two calls bit for bit
+WIDE_DEVOX_C = (33, 40, 64, 121)
+
+
+def wide_devox_cases(points, mask, gen):
+    """Rows 13 and 11 at B8 x 8192, 32^3, C in WIDE_DEVOX_C."""
+    import torch
+
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    b, m, r = VOX_B, VOX_M, 32
+    _, _, lo, scale = vx.voxel_rows(points, mask, r)
+    u = vx.trilinear_u(points, mask, lo, scale)
+    out = []
+    for c in WIDE_DEVOX_C:
+        g2 = torch.randn((b, r * r, r * c), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        k = vx.trilinear_gather(u, mask, g2)
+        torch.cuda.synchronize()
+        err = _held(f"trilinear_gather C{c}", {
+            "out": _onehot_check(k, vx.trilinear_gather_plain(u, mask, g2)),
+            "masked rows": (float(k[~mask].abs().max()), not k[~mask].any()),
+            "two calls identical": (0.0, bool(torch.equal(
+                k, vx.trilinear_gather(u, mask, g2))))})
+        out.append({"name": "trilinear_gather", "shape":
+                    f"B{b} M{m} R{r} C{c}", "max_abs_err": err,
+                    "ms": device_ms(lambda: vx.trilinear_gather(u, mask,
+                                                                g2))})
+        go = torch.where(mask[..., None], torch.randn(
+            (b, m, c), generator=gen, device="cuda"), 0.0)
+        ks = vx.trilinear_scatter(u, go, r, out_dtype=torch.bfloat16)
+        k32 = vx.trilinear_scatter(u, go, r)
+        torch.cuda.synchronize()
+        ps = vx.trilinear_scatter_plain(u, go, r)
+        err = _held(f"trilinear_scatter C{c}", {
+            "f32 sums": _sum_check(k32, ps),
+            "bf16 out": _bf16_check(ks, ps.to(torch.bfloat16)),
+            "bf16 is the f32 sums rounded once": (0.0, bool(torch.equal(
+                ks, k32.to(torch.bfloat16)))),
+            "two calls identical": (0.0, bool(torch.equal(
+                k32, vx.trilinear_scatter(u, go, r))))})
+        out.append({"name": "trilinear_scatter", "shape":
+                    f"B{b} M{m} R{r} C{c} bf16", "max_abs_err": err,
+                    "ms": device_ms(lambda: vx.trilinear_scatter(
+                        u, go, r, out_dtype=torch.bfloat16))})
+        print(f"  rows 13 / 11 at C{c}: {out[-2]['ms']:.4f} / "
+              f"{out[-1]['ms']:.4f} ms", flush=True)
+    return out
 
 
 def default_gather_case(points, mask, gen):
@@ -2083,9 +2192,9 @@ def default_gather_case(points, mask, gen):
 
 
 # the head at widths the JAX package's fused head takes beyond the
-# bench's: 20 classes at 32^3 x 16 (the VoxelUNet3d of phase 12b) and C
-# 128 -> 8 classes, B8 each, held as the 64^3 case
-HEAD_WIDTHS = ((32, 16, 20), (32, 128, 8))
+# bench's: 20 and 40 classes at 32^3 x 16 (the VoxelUNet3d models of phase
+# 12b) and C 128 -> 8 classes, B8 each, held as the 64^3 case
+HEAD_WIDTHS = ((32, 16, 20), (32, 16, 40), (32, 128, 8))
 
 
 def default_head_cases(gen):
@@ -2112,8 +2221,11 @@ def _head_cases(gen, r, c, nc):
     fwd = (x, w, bias, scale, shift)
     yk = cb.head_grid2_cuda(*fwd)
     torch.cuda.synchronize()
-    err = _held("head_grid2", {"y": _bf16_check(yk, cb.head_grid2_plain(
-        *fwd))})
+    err = _held("head_grid2", {
+        "y": _bf16_check(yk, cb.head_grid2_plain(*fwd)),
+        # the tensor-core sums' order is fixed by the shapes
+        "two calls identical": (0.0, bool(torch.equal(
+            yk, cb.head_grid2_cuda(*fwd))))})
     gy = torch.randn(yk.shape, generator=gen, device="cuda").to(torch.bfloat16)
     bwd = (x, gy, w, scale, shift)
     gk = cb.head_grid2_bwd_cuda(*bwd)
@@ -2158,18 +2270,28 @@ def _head_cases(gen, r, c, nc):
     return [_vox_report(fwd_res), _vox_report(bwd_res)]
 
 
-# phase 12b: a U-Net whose fused head has 20 classes. The JAX package
-# routes VoxelUNet3d(20 classes, 32^3, width 16, 3 levels,
+# phase 12b: U-Nets whose fused head has 20 and 40 classes. The JAX
+# package routes VoxelUNet3d(20 or 40 classes, 32^3, width 16, 3 levels,
 # bf16) through fused_head_grid2, as R^3 (NC + 1) <= 4e6 gives the matmul
-# devoxelize (pcseg_tpu/ops/voxel.py resolve_devoxelize_impl)
-WIDE_CLASSES, WIDE_R = 20, 32
+# devoxelize (pcseg_tpu/ops/voxel.py resolve_devoxelize_impl); at 40
+# classes its gather and scatter run past 32 channels
+WIDE_CLASSES, WIDE_R = (20, 40), 32
+# the launches of one served forward and of one train step of such a
+# model: rows 10, 13 and 8, and rows 9 and 11 in the step
+WIDE_SERVED = {"head_grid2": 1, "voxelize_contract": 1,
+               "trilinear_gather": 1, "head_grid2_bwd": 0,
+               "trilinear_scatter": 0}
+WIDE_STEPPED = {"head_grid2": 1, "voxelize_contract": 1,
+                "trilinear_gather": 1, "head_grid2_bwd": 1,
+                "trilinear_scatter": 1}
 
 
-def wide_head_phase(card):
-    """Phase 12b: the 20-class 32^3 U-Net served by Predictor and trained
-    one step through its fused grid2 head on the card, each against the
-    plain versions: logits to LOGITS_REL, the loss to DEFAULT_LOSS_REL,
-    finite gradients; the launches of each run counted from 0."""
+def wide_head_phase(card, classes):
+    """Phase 12b: the ``classes``-class 32^3 U-Net served by Predictor and
+    trained one step through its fused grid2 head on the card, each
+    against the plain versions: logits to LOGITS_REL, the loss to
+    DEFAULT_LOSS_REL, finite gradients; the launches of each run counted
+    from 0."""
     import numpy as np
     import torch
 
@@ -2180,40 +2302,40 @@ def wide_head_phase(card):
     from pcseg_tpu_torch.ops.losses import cross_entropy_sums
 
     model = VoxelUNet3d(
-        num_classes=WIDE_CLASSES, grid_size=WIDE_R, width=VOX_W, levels=3,
+        num_classes=classes, grid_size=WIDE_R, width=VOX_W, levels=3,
         compute_dtype="bfloat16",
         generator=torch.Generator().manual_seed(0)).cuda()
     forms = model.resolve_forms()
     if forms["head"] != "grid2":
-        raise AssertionError(f"20-class U-Net: forms {forms}, not the fused "
-                             f"grid2 head")
+        raise AssertionError(f"{classes}-class U-Net: forms {forms}, not "
+                             f"the fused grid2 head")
     events = [p for p, _ in synthetic_events(
         VOX_B, min_points=4000, max_points=VOX_M, seed=6)]
-    pred = Predictor(model.state_dict(), WIDE_CLASSES, model=model)
+    pred = Predictor(model.state_dict(), classes, model=model)
     reset_counts()
     preds = pred.predict_batch(events, batch_size=VOX_B)
     torch.cuda.synchronize()
     served = launch_counts()
-    want = {"head_grid2": 1, "voxelize_contract": 1, "trilinear_gather": 1}
-    if any(served[k] != v for k, v in want.items()) or \
-            served["head_grid2_bwd"]:
-        raise AssertionError(f"20-class serving launches {served}")
+    if any(served[k] != v for k, v in WIDE_SERVED.items()):
+        raise AssertionError(f"{classes}-class serving launches {served}")
     if [p.shape[0] for p in preds] != [e.shape[0] for e in events]:
-        raise AssertionError("20-class predictions do not match the events")
+        raise AssertionError(f"{classes}-class predictions do not match the "
+                             f"events")
 
     rng = np.random.default_rng(6)
     pts, labels, masks = (torch.from_numpy(a).cuda() for a in pad_events(
-        [(e, rng.integers(0, WIDE_CLASSES, e.shape[0])) for e in events],
+        [(e, rng.integers(0, classes, e.shape[0])) for e in events],
         VOX_M, batch_size=VOX_B))
     out_k = model(pts, masks)
     out_p = model(pts, masks, plain=True)
     err = float((out_k - out_p).abs().max())
     scale = float(out_p.abs().max())
-    if out_k.shape != (VOX_B, VOX_M, WIDE_CLASSES) or not bool(
+    if out_k.shape != (VOX_B, VOX_M, classes) or not bool(
             torch.isfinite(out_k).all()) or err > LOGITS_REL * scale:
-        raise AssertionError(f"20-class logits: shape {tuple(out_k.shape)}, "
-                             f"max|err| {err} vs max|logit| {scale}")
-    cw = torch.ones(WIDE_CLASSES, device="cuda")
+        raise AssertionError(f"{classes}-class logits: shape "
+                             f"{tuple(out_k.shape)}, max|err| {err} vs "
+                             f"max|logit| {scale}")
+    cw = torch.ones(classes, device="cuda")
 
     def step(plain):
         model.zero_grad(set_to_none=True)
@@ -2227,14 +2349,15 @@ def wide_head_phase(card):
     lk, gk = step(False)
     torch.cuda.synchronize()
     stepped = launch_counts()
-    if stepped["head_grid2"] != 1 or stepped["head_grid2_bwd"] != 1:
-        raise AssertionError(f"20-class train step launches {stepped}")
+    if any(stepped[k] != v for k, v in WIDE_STEPPED.items()):
+        raise AssertionError(f"{classes}-class train step launches "
+                             f"{stepped}")
     lp, gp = step(True)
     loss_rel = abs(lk - lp) / abs(lp)
     rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
            for n in gp}
     finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
-    res = {"model": f"VoxelUNet3d({WIDE_CLASSES}, grid_size={WIDE_R}, "
+    res = {"model": f"VoxelUNet3d({classes}, grid_size={WIDE_R}, "
                     f"width={VOX_W}, levels=3, bf16)", "forms": forms,
            "logits_max_abs_err": err, "max_abs_logit": scale,
            "loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
@@ -2245,15 +2368,15 @@ def wide_head_phase(card):
            "serving_launches": {k: v for k, v in served.items() if v},
            "step_launches": {k: v for k, v in stepped.items() if v},
            "card": card}
-    print(f"  20-class 32^3 U-Net [{card}]: served {len(preds)} events "
+    print(f"  {classes}-class 32^3 U-Net [{card}]: served {len(preds)} events "
           f"(logits max|err| {err:.3e}, max|logit| {scale:.3f}); train "
           f"step loss kernels {lk:.6f} plain {lp:.6f} (rel {loss_rel:.2e}, "
           f"tol {DEFAULT_LOSS_REL:.2e}); gradients rel <= "
           f"{res['grad_rel_err_max']:.3e}; launches {res['step_launches']}",
           flush=True)
     if loss_rel > DEFAULT_LOSS_REL or not finite:
-        raise AssertionError(f"20-class train step disagrees with the plain "
-                             f"versions: {res}")
+        raise AssertionError(f"{classes}-class train step disagrees with "
+                             f"the plain versions: {res}")
     return served, stepped, res
 
 
@@ -3533,6 +3656,10 @@ def main() -> int:
     vox_cases.append(default_scatter_case(points, mask, gen))
     def_cases += default_head_cases(gen)
     head_widths = head_width_cases(gen)
+    # row 10 at the sparse model's call site; rows 13 and 11 past 32
+    # channels
+    row10_sparse = sparse_voxelize_case()
+    wide_devox = wide_devox_cases(points, mask, gen)
     del points, mask
 
     print(f"[11] serving the default configuration [{card}]", flush=True)
@@ -3548,9 +3675,16 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the default "
                              f"training path: {unused}")
 
-    print(f"[12b] the 20-class 32^3 U-Net through the fused head: serving "
-          f"and one train step, kernels vs plain [{card}]", flush=True)
-    wide_served, wide_stepped, wide = wide_head_phase(card)
+    print(f"[12b] the 20- and 40-class 32^3 U-Nets through the fused head: "
+          f"serving and one train step each, kernels vs plain [{card}]",
+          flush=True)
+    wide_served, wide_stepped, wide = {}, {}, []
+    for classes in WIDE_CLASSES:
+        served_c, stepped_c, res_c = wide_head_phase(card, classes)
+        for got, into in ((served_c, wide_served), (stepped_c, wide_stepped)):
+            for k, v in got.items():
+                into[k] = into.get(k, 0) + v
+        wide.append(res_c)
 
     print(f"[13] sparse kernels vs plain versions, B{SP_B} x {SP_M} track "
           f"events [{card}]", flush=True)
@@ -3799,6 +3933,8 @@ def main() -> int:
                       "default_cases": def_cases, "default_serving":
                       def_served, "default_step": def_step,
                       "head_width_cases": head_widths,
+                      "voxelize_sparse_site": row10_sparse,
+                      "wide_devox_cases": wide_devox,
                       "wide_head": wide,
                       "default_fit": def_fitted, "sparse_cases": sp_cases,
                       "sparse_serving": sp_served,

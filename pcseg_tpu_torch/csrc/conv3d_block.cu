@@ -60,8 +60,12 @@
 // The head takes C a multiple of 8 up to 128 and 1 to 128 classes (every
 // width the JAX package's fused head takes on the port's routing). It is
 // one pass over the grid, bound by its bytes (B8 x 64^3 x 16 -> 4: x 67
-// MB and y 17 MB forward, x, gy and dx 151 MB backward). Forward: one
-// thread a voxel with 16-byte loads of x, a pass a 16 classes. Backward:
+// MB and y 17 MB forward, x, gy and dx 151 MB backward). Forward: a
+// warp a run of m16 tiles of voxels on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, f32 sums), its A fragments loaded straight
+// from x (8 bytes a row and lane, a run ahead), the prologue applied to
+// them in registers, W^T in shared memory as bf16, y staged a tile at a
+// time and written as one span. Backward:
 // 8 channels a lane (one 16-byte load of x and store of dx), x and gy a
 // tile ahead by cp.async, dW and dbias on the tensor cores (mma.sync) in
 // the warps' registers, dscale / dshift in the lanes' registers, and a
@@ -117,6 +121,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_sync.cuh"
 
@@ -742,7 +748,7 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(const WgradParams p) {
 
 constexpr int kHeadMaxC = 128;     // channels: a multiple of 8 up to this
 constexpr int kHeadMaxNC = 128;    // classes: 1 up to this
-constexpr int kHeadSlots = 16;     // forward: class slots a pass over x
+constexpr int kFwdWarps = 8;       // forward: warps a block
 constexpr int kHeadThreads = 256;  // backward: threads a block
 constexpr int kHeadWarps = kHeadThreads / 32;
 constexpr int kHeadMaxTile = 256;  // backward: voxels a tile at most
@@ -776,25 +782,229 @@ __device__ __forceinline__ void store_bf16x8(__nv_bfloat16* p,
                                             words[3]);
 }
 
+// The forward's plan at (c, nc): the k16 steps over the channels and the
+// steps the loads cover (kp: ks, or ks rounded up to pairs where two
+// steps load together), the n8 tiles over the classes, W^T's shared row
+// stride in bf16 (so that a quarter warp's 8- or 16-byte reads of its
+// class rows fall on distinct banks: 16 ks + 8 at one step, else the
+// least multiple of 32 past 16 kp that is 32 mod 64), a warp's y staging
+// in bf16 (16 rows of nc, whole 16-byte units), and the shared bytes of a
+// block (W^T, scale and shift, the warps' staging).
+struct HeadFwdPlan {
+  int ks, kp, nt, ws, ys;
+  size_t smem;
+};
+
+struct HeadFwdArgs {
+  const __nv_bfloat16* x;
+  const float* w;
+  const float* bias;
+  const float* scale;
+  const float* shift;
+  __nv_bfloat16* y;
+  long long nvox;
+  int c, nc, kp, nt, ws, ys;
+};
+
+__device__ __forceinline__ uint32_t head_smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// a 16-byte cp.async reading its first ``bytes`` (0 to 16) and zeroing
+// the rest
+__device__ __forceinline__ void cp16n(uint32_t dst, const void* src,
+                                      int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// the prologue on one A fragment register: two bf16 x values of channels
+// k, k + 1 -> bf16(relu(x * scale + shift)) of each; p = (scale_k,
+// shift_k, scale_k+1, shift_k+1)
+__device__ __forceinline__ uint32_t act_pair(uint32_t w, const float4& p) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      prologue(__uint_as_float(w << 16), p.x, p.y),
+      prologue(__uint_as_float(w & 0xffff0000u), p.z, p.w));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// The lane's channels of k16 step s, as the A and B fragments hold them:
+// k slots 2 t, 2 t + 1 and 2 t + 8, 2 t + 9 of lane t (t = lane % 4) are
+// channels ch, ch + 1 and ch + 2, ch + 3 with ch = 4 t at one k16 step (a
+// row's 4 channels in one 8-byte load), or, where two steps are loaded
+// together (KSM >= 2), ch = 32 (s / 2) + 8 t + 4 (s % 2) (a row's 8
+// channels of the two steps in one 16-byte load). Either map is a
+// permutation of the step's channels, the same for A and B.
+template <int KSM>
+__device__ __forceinline__ int head_fwd_ch(int s, int t4) {
+  return KSM == 1 ? 4 * t4 : 32 * (s / 2) + 8 * t4 + 4 * (s % 2);
+}
+
 // y[v, k] = bf16(sum_c bf16(relu(x[v, c] * scale[b, c] + shift[b, c]))
-// * w[c, k] + bias[k]): one thread a voxel, the weights (bf16 values as
-// f32) and bias in shared memory; x read 8 channels per 16-byte load, y
-// written 4 classes per 8-byte store where nc is a multiple of 4. NC, the
-// class slots of one pass over the voxel's x (4 or 16), is a template
-// argument so that the class loops unroll without predication; above 16
-// classes the thread makes one pass a 16 classes (x read again, from L1),
-// and the slots past nc hold zero weights. Every class's sum runs over the
-// channels in order, so the bits do not depend on the passes.
-template <int NC>
-__global__ void __launch_bounds__(kThreads) head_fwd_kernel(
+// * w[c, k] + bias[k]) on the tensor cores, mma.sync m16n8k16 with bf16
+// operands and f32 sums. A warp takes m16 tiles (16 voxels each) of one
+// batch element (grid y), every (gridDim.x x kFwdWarps)-th one, and loads
+// its A fragments straight from x on the channel map of head_fwd_ch:
+// lane (g, t) loads rows g and g + 8 with one 8-byte (one k16 step) or
+// 16-byte (two steps) load a row, and a warp's load reads whole 32-byte
+// sectors. W^T's B fragments follow the same map (one 8- or 16-byte
+// shared load a class row), so the product is the same sum. D tiles of x
+// are in flight a warp, loaded D tiles ahead into registers: no shared
+// memory for x, no barrier. The prologue is applied to the fragment's
+// registers, each lane knowing its channels from its lane; channels past
+// C load as zeros with zero weights. The epilogue adds the f32 bias,
+// rounds once to bf16 and stages the tile's 16 rows in the warp's shared
+// memory, which the warp writes as one span with 16-byte stores. The
+// sums' order is fixed by the shapes: two calls give the same bits. KSM
+// bounds the k16 steps and NTM the n8 tiles.
+template <int KSM, int NTM>
+__global__ void __launch_bounds__(kFwdWarps * 32) head_fwd_kernel(
+    const HeadFwdArgs a) {
+  extern __shared__ __align__(16) unsigned char hsm[];
+  constexpr int D = KSM <= 2 ? 4 : 2;         // m16 tiles in flight
+  constexpr int L = KSM == 1 ? 1 : KSM / 2;   // x loads a row and tile
+  using XW = typename std::conditional<KSM == 1, uint2, uint4>::type;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c = a.c, nc = a.nc, ws = a.ws, b = blockIdx.y;
+  // W^T [nt 8][ws] bf16, zero past nc and C; (scale, shift) [16 kp][2]
+  // zero past C; then each warp's y staging (ys bf16)
+  __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(hsm);
+  float* sst = reinterpret_cast<float*>(wt + a.nt * 8 * ws);
+  __nv_bfloat16* ys =
+      reinterpret_cast<__nv_bfloat16*>(sst + 32 * a.kp) + warp * a.ys;
+  for (int i = tid; i < a.nt * 8 * 16 * a.kp; i += blockDim.x) {
+    const int k = i / (16 * a.kp), ci = i - k * 16 * a.kp;
+    wt[k * ws + ci] = __float2bfloat16_rn(k < nc && ci < c ? a.w[ci * nc + k]
+                                                           : 0.f);
+  }
+  for (int i = tid; i < 16 * a.kp; i += blockDim.x) {
+    sst[2 * i] = i < c ? a.scale[(size_t)b * c + i] : 0.f;
+    sst[2 * i + 1] = i < c ? a.shift[(size_t)b * c + i] : 0.f;
+  }
+  float bv[NTM][2];
+#pragma unroll
+  for (int j = 0; j < NTM; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int k = 8 * j + 2 * t4 + e;
+      bv[j][e] = k < nc ? a.bias[k] : 0.f;
+    }
+  __syncthreads();
+  const long long nm = (a.nvox + 15) / 16;
+  const long long stride = (long long)gridDim.x * kFwdWarps;
+  const long long first = (long long)blockIdx.x * kFwdWarps + warp;
+  const __nv_bfloat16* xb = a.x + (long long)b * a.nvox * c;
+  __nv_bfloat16* yb = a.y + (long long)b * a.nvox * nc;
+  // y spans start on 16 bytes where the batch element's rows do
+  const bool vec = ((reinterpret_cast<size_t>(yb)) & 15) == 0;
+
+  // the lane's x words of m16 tile mt: rows g and g + 8, load l's
+  // channels (zeros past the grid and past C)
+  auto load = [&](long long mt, XW (&r)[L][2]) {
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = mt * 16 + g + 8 * h;
+        const int ch = head_fwd_ch<KSM>(2 * l, t4);
+        r[l][h] = row < a.nvox && ch < c
+                      ? *reinterpret_cast<const XW*>(xb + row * c + ch)
+                      : XW{};
+      }
+  };
+
+  XW xr[D][L][2];
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    if (first + d * stride < nm) load(first + d * stride, xr[d]);
+  for (long long base = first; base < nm; base += D * stride) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const long long mt = base + d * stride;
+      if (mt >= nm) break;
+      float acc[NTM][4];
+#pragma unroll
+      for (int j = 0; j < NTM; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KSM; ++s) {
+        if (s < a.kp) {   // (a pair's second step may hold real channels)
+          const int ch = head_fwd_ch<KSM>(s, t4);
+          const float4 p0 = *reinterpret_cast<const float4*>(sst + 2 * ch);
+          const float4 p1 =
+              *reinterpret_cast<const float4*>(sst + 2 * ch + 4);
+          const uint32_t* r0 =
+              reinterpret_cast<const uint32_t*>(&xr[d][s / 2][0]);
+          const uint32_t* r1 =
+              reinterpret_cast<const uint32_t*>(&xr[d][s / 2][1]);
+          const int o = KSM == 1 ? 0 : 2 * (s % 2);
+          const uint32_t af[4] = {act_pair(r0[o], p0), act_pair(r1[o], p0),
+                                  act_pair(r0[o + 1], p1),
+                                  act_pair(r1[o + 1], p1)};
+#pragma unroll
+          for (int j = 0; j < NTM; ++j) {
+            if (j < a.nt) {
+              const uint2 bw = *reinterpret_cast<const uint2*>(
+                  wt + (8 * j + g) * ws + ch);
+              mma_sync::mma(acc[j], af, bw.x, bw.y);
+            }
+          }
+        }
+      }
+      // the slot's next tile, D tiles ahead
+      if (mt + D * stride < nm) load(mt + D * stride, xr[d]);
+      // rows g and g + 8, classes 8 j + 2 t4 + {0, 1}, into the staging
+#pragma unroll
+      for (int j = 0; j < NTM; ++j) {
+        const int k = 8 * j + 2 * t4;
+        if (j < a.nt && k < nc) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float lo = __fadd_rn(acc[j][2 * h], bv[j][0]);
+            const float hi = __fadd_rn(acc[j][2 * h + 1], bv[j][1]);
+            __nv_bfloat16* o = ys + (g + 8 * h) * nc + k;
+            if ((nc & 1) == 0) {
+              *reinterpret_cast<__nv_bfloat162*>(o) =
+                  __floats2bfloat162_rn(lo, hi);
+            } else {
+              o[0] = __float2bfloat16_rn(lo);
+              if (k + 1 < nc) o[1] = __float2bfloat16_rn(hi);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      // the tile's valid rows: one span of y
+      const int n = (int)min(16LL, a.nvox - mt * 16) * nc;
+      __nv_bfloat16* dst = yb + mt * 16 * nc;
+      const int done = vec ? n / 8 * 8 : 0;
+      for (int i = lane; i < done / 8; i += 32)
+        reinterpret_cast<uint4*>(dst)[i] =
+            reinterpret_cast<const uint4*>(ys)[i];
+      for (int i = done + lane; i < n; i += 32) dst[i] = ys[i];
+      __syncwarp();
+    }
+  }
+}
+
+// The byte-streaming route of the 1x1 head, at up to 4 classes (the
+// default 64^3 x 16 -> 4, where the tensor-core kernel reads x at a
+// lower rate: PERF.md section 6): one thread a voxel, x read 8 channels
+// per 16-byte load, the weights (bf16 values as f32) and bias in shared
+// memory, each class's sum over the channels in order with f32 FMAs, y
+// written 4 classes per 8-byte store where nc is 4.
+__global__ void __launch_bounds__(kThreads) head_fwd_stream_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ scale,
     const float* __restrict__ shift, __nv_bfloat16* __restrict__ y,
     long long n, long long nvox, int c, int nc) {
-  const int ncp = (nc + NC - 1) / NC * NC;
-  extern __shared__ float hs[];   // w (c, ncp), then bias (ncp), zero-padded
-  for (int i = threadIdx.x; i < c * ncp + ncp; i += blockDim.x) {
-    const int ci = i / ncp, k = i % ncp;
+  constexpr int NC = 4;
+  __shared__ float hs[kHeadMaxC * NC + NC];   // w (c, 4), then bias (4)
+  for (int i = threadIdx.x; i < c * NC + NC; i += blockDim.x) {
+    const int ci = i / NC, k = i % NC;
     hs[i] = k >= nc ? 0.f : ci < c ? w[ci * nc + k] : bias[k];
   }
   __syncthreads();
@@ -803,44 +1013,34 @@ __global__ void __launch_bounds__(kThreads) head_fwd_kernel(
   const long long b = v / nvox;
   const float* sc = scale + b * c;
   const float* sh = shift + b * c;
-  const float* hb = hs + c * ncp;
+  const float* hb = hs + c * NC;
   __nv_bfloat16* out = y + v * nc;
-  for (int k0 = 0; k0 < nc; k0 += NC) {
-    float acc[NC];
+  float acc[NC];
 #pragma unroll
-    for (int k = 0; k < NC; ++k) acc[k] = 0.f;
-    for (int c0 = 0; c0 < c; c0 += 8) {
-      float xv[8];
-      load_bf16x8(x + v * c + c0, xv);
+  for (int k = 0; k < NC; ++k) acc[k] = 0.f;
+  for (int c0 = 0; c0 < c; c0 += 8) {
+    float xv[8];
+    load_bf16x8(x + v * c + c0, xv);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int ci = c0 + j;
-        const float s = round_bf16(prologue(xv[j], sc[ci], sh[ci]));
+    for (int j = 0; j < 8; ++j) {
+      const int ci = c0 + j;
+      const float s = round_bf16(prologue(xv[j], sc[ci], sh[ci]));
 #pragma unroll
-        for (int k = 0; k < NC; ++k)
-          acc[k] = fmaf(s, hs[ci * ncp + k0 + k], acc[k]);
-      }
+      for (int k = 0; k < NC; ++k) acc[k] = fmaf(s, hs[ci * NC + k], acc[k]);
     }
-    if (nc % 4 == 0 && k0 + NC <= nc) {
+  }
+  if (nc == NC) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(
+        __fadd_rn(acc[0], hb[0]), __fadd_rn(acc[1], hb[1]));
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(
+        __fadd_rn(acc[2], hb[2]), __fadd_rn(acc[3], hb[3]));
+    *reinterpret_cast<uint2*>(out) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+  } else {
 #pragma unroll
-      for (int k = 0; k < NC; k += 4) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(
-            __fadd_rn(acc[k], hb[k0 + k]),
-            __fadd_rn(acc[k + 1], hb[k0 + k + 1]));
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(
-            __fadd_rn(acc[k + 2], hb[k0 + k + 2]),
-            __fadd_rn(acc[k + 3], hb[k0 + k + 3]));
-        *reinterpret_cast<uint2*>(out + k0 + k) = make_uint2(
-            *reinterpret_cast<const uint32_t*>(&lo),
-            *reinterpret_cast<const uint32_t*>(&hi));
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < NC; ++k)
-        if (k0 + k < nc)
-          out[k0 + k] =
-              __float2bfloat16_rn(__fadd_rn(acc[k], hb[k0 + k]));
-    }
+    for (int k = 0; k < NC; ++k)
+      if (k < nc) out[k] = __float2bfloat16_rn(__fadd_rn(acc[k], hb[k]));
   }
 }
 
@@ -873,19 +1073,6 @@ struct HeadBwdArgs {
   long long nvox;
   int c, nc, lanes, tile, mt, nt, ksplit, sp, gp, raw;
 };
-
-__device__ __forceinline__ uint32_t head_smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// a 16-byte cp.async reading its first ``bytes`` (0 to 16) and zeroing
-// the rest
-__device__ __forceinline__ void cp16n(uint32_t dst, const void* src,
-                                      int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
 
 // The head's backward. Per voxel: pre = x * scale + shift, s = bf16(relu(
 // pre)), da = gy W^T, dam = [pre > 0] da, dx = bf16(dam * scale). Sums:
@@ -1275,22 +1462,44 @@ int num_sms() {
   return sms;
 }
 
-// The forward's class slots for nc classes: 4 (the repo's class count)
-// or passes of 16, each a compiled instantiation.
-constexpr int head_slots(int nc) { return nc <= 4 ? 4 : kHeadSlots; }
+// The forward's plan at (c, nc) (see HeadFwdPlan).
+void head_fwd_plan(int c, int nc, HeadFwdPlan* p) {
+  p->ks = (c + 15) / 16;
+  p->kp = p->ks == 1 ? 1 : (p->ks + 1) / 2 * 2;
+  p->nt = (nc + 7) / 8;
+  p->ws = p->ks == 1 ? 24 : (16 * p->kp + 31) / 64 * 64 + 32;
+  p->ys = (16 * nc + 7) / 8 * 8;
+  p->smem = 2 * (size_t)p->nt * 8 * p->ws + 8 * 16 * (size_t)p->kp +
+            2 * (size_t)kFwdWarps * p->ys;
+}
 
-template <int NC>
-int head_fwd_launch(const __nv_bfloat16* x, const float* w, const float* bias,
-                    const float* scale, const float* shift, __nv_bfloat16* y,
-                    int B, int V, int C, int nc, cudaStream_t stream) {
-  const long long n = (long long)B * V;
-  const int ncp = (nc + NC - 1) / NC * NC;
-  const size_t smem = sizeof(float) * ((size_t)C * ncp + ncp);
-  cudaError_t err = allow_smem(head_fwd_kernel<NC>, smem);
+// a grid of as many blocks as the card holds at once, split over the
+// batch elements, no more than the m16 tiles need
+template <int KSM, int NTM>
+int head_fwd_launch(const HeadFwdArgs& a, const HeadFwdPlan& p, int B,
+                    cudaStream_t stream) {
+  cudaError_t err = allow_smem(head_fwd_kernel<KSM, NTM>, p.smem);
   if (err != cudaSuccess) return (int)err;
-  head_fwd_kernel<NC><<<(int)((n + kThreads - 1) / kThreads), kThreads, smem,
-                        stream>>>(x, w, bias, scale, shift, y, n, V, C, nc);
+  int occ = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, head_fwd_kernel<KSM, NTM>, kFwdWarps * 32, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = ((a.nvox + 15) / 16 + kFwdWarps - 1) / kFwdWarps;
+  long long gx = ((long long)(occ < 1 ? 1 : occ) * num_sms() + B - 1) / B;
+  gx = gx > need ? need : gx < 1 ? 1 : gx;
+  head_fwd_kernel<KSM, NTM><<<dim3((unsigned)gx, (unsigned)B),
+                              kFwdWarps * 32, p.smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int KSM>
+int head_fwd_nt(const HeadFwdArgs& a, const HeadFwdPlan& p, int B,
+                cudaStream_t st) {
+  if (p.nt <= 1) return head_fwd_launch<KSM, 1>(a, p, B, st);
+  if (p.nt <= 2) return head_fwd_launch<KSM, 2>(a, p, B, st);
+  if (p.nt <= 4) return head_fwd_launch<KSM, 4>(a, p, B, st);
+  if (p.nt <= 8) return head_fwd_launch<KSM, 8>(a, p, B, st);
+  return head_fwd_launch<KSM, 16>(a, p, B, st);
 }
 
 // The backward's plan at (c, nc) (see HeadBwdPlan): the largest tile of
@@ -1652,15 +1861,26 @@ int pcseg_head_grid2(const void* x, const void* w, const void* bias,
                      const void* scale, const void* shift, void* y, int B,
                      int V, int C, int NC, void* stream) {
   if (!head_shape_ok(V, B, C, NC)) return (int)cudaErrorInvalidValue;
-  const auto xb = (const __nv_bfloat16*)x;
-  const auto wf = (const float*)w, bf = (const float*)bias;
-  const auto sc = (const float*)scale, sh = (const float*)shift;
   const auto st = (cudaStream_t)stream;
-  if (head_slots(NC) == 4)
-    return head_fwd_launch<4>(xb, wf, bf, sc, sh, (__nv_bfloat16*)y, B, V, C,
-                              NC, st);
-  return head_fwd_launch<kHeadMaxNC>(xb, wf, bf, sc, sh, (__nv_bfloat16*)y,
-                                     B, V, C, NC, st);
+  if (NC <= 4) {   // the byte-streaming route
+    const long long n = (long long)B * V;
+    head_fwd_stream_kernel<<<(int)((n + kThreads - 1) / kThreads), kThreads,
+                             0, st>>>(
+        (const __nv_bfloat16*)x, (const float*)w, (const float*)bias,
+        (const float*)scale, (const float*)shift, (__nv_bfloat16*)y, n, V,
+        C, NC);
+    return (int)cudaGetLastError();
+  }
+  HeadFwdPlan p;
+  head_fwd_plan(C, NC, &p);
+  const HeadFwdArgs a{(const __nv_bfloat16*)x, (const float*)w,
+                      (const float*)bias, (const float*)scale,
+                      (const float*)shift, (__nv_bfloat16*)y, V, C, NC,
+                      p.kp, p.nt, p.ws, p.ys};
+  if (p.ks <= 1) return head_fwd_nt<1>(a, p, B, st);
+  if (p.ks <= 2) return head_fwd_nt<2>(a, p, B, st);
+  if (p.ks <= 4) return head_fwd_nt<4>(a, p, B, st);
+  return head_fwd_nt<8>(a, p, B, st);
 }
 
 // The scratch pcseg_head_grid2_bwd needs at (B, V, C, NC), in floats

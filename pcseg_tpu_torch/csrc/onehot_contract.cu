@@ -28,15 +28,15 @@
 // path and a scatter or a gather is not. On the card a point touches at
 // most 8 voxels (1 for voxelize), so none of them is a product.
 //
-// voxelize is one thread per point, adding its bf16-rounded row into an
-// f32 grid that the caller zeroed with float atomics. rowcol_scatter adds
-// a point's C values into its (row, col) cell, the points of a warp that
-// share a cell summed first in lane order (consecutive track points share
-// cells: about 30 a cell at R64), one vector reduction for 4 channels by
-// the group's leader. Both are bound by bytes: voxelize by the f32 grid
-// it writes (25.2 MB at B8 x R64 with C 3) and by atomic throughput,
-// rowcol_scatter by its point rows and the f32 table (8.4 MB at B8 x NT64
-// x 512 x 4).
+// voxelize (row 10) is one thread per point, adding its bf16-rounded
+// row into an f32 grid that the caller zeroed with float atomics, bound
+// by the grid it writes (25.2 MB at B8 x R64 with C1 3) and, where many
+// points share a voxel, by that voxel's atomics.
+// rowcol_scatter adds a point's C values into its (row, col) cell, the
+// points of a warp that share a cell summed first in lane order
+// (consecutive track points share cells: about 30 a cell at R64), one
+// vector reduction for 4 channels by the group's leader, bound by its
+// point rows and the f32 table (8.4 MB at B8 x NT64 x 512 x 4).
 //
 // trilinear_scatter (row 11, _tri_scatter_kernel) is bound by the grid it
 // writes: at B8 x R64 x C4 33.5 MB of f32 (16.8 MB of bf16, the step's
@@ -77,6 +77,11 @@
 //   same bits. What bounds it is latency, not bytes: each tile waits on
 //   two dependent loads (its bins' starts, then its entries), so the
 //   tiles run at 2-3x the time of the write alone (PERF.md section 7).
+//   Above kChunkC channels the binning runs once and the tile and
+//   long-tile kernels run per column chunk of kChunkC channels (grid y;
+//   a last, narrower chunk in a launch of its own), so a tile's shared
+//   row stays one chunk wide; each channel's sums keep their order, so
+//   the bits at C <= kChunkC are those of one chunk.
 //
 // trilinear_gather (row 13, _tri_gather_kernel) reads a point's <= 8
 // bf16 rows of C values and writes C f32s: 0.6 us of bytes at B8 x M8192
@@ -85,7 +90,8 @@
 // 32; other widths take the next one with masked lanes), so the loops
 // are unrolled at their real width; a thread issues its 8 tap loads (8
 // bytes a tap at C4) before any sum and writes its C outputs with one
-// vector store.
+// vector store. Above kChunkC channels a thread takes one column chunk
+// of its point (grid y), the rows read at the grid's row stride.
 //
 // The segment scatter keeps its whole grid in VMEM on the TPU and adds
 // the points one after another; here a thread takes one (point, channel)
@@ -118,7 +124,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxC = 32;
+constexpr int kChunkC = 32;   // channels a column chunk (rows 11 and 13)
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -172,19 +178,6 @@ __device__ __forceinline__ int x_taps(float ux, int r, int ix[2],
   xw[0] = __fadd_rn(xw[0], xw[1]);
   xw[1] = 0.f;
   return 1;
-}
-
-__global__ void __launch_bounds__(kThreads) voxelize_contract_kernel(
-    const int* __restrict__ flat, const float* __restrict__ ext,
-    float* __restrict__ out, long long n, int m, int r3, int c1) {
-  const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pt >= n) return;
-  const int f = flat[pt];
-  if (f < 0 || f >= r3) return;            // the masked points' sentinel
-  const long long b = pt / m;
-  float* row = out + (b * r3 + f) * c1;
-  const float* e = ext + pt * c1;
-  for (int k = 0; k < c1; ++k) atomicAdd(row + k, round_bf16(e[k]));
 }
 
 // ---------------------------------------------------------------------------
@@ -313,6 +306,8 @@ static_assert(ScatterCfg::kMaxBins == 4 * ScatterCfg::kBinThreads,
 
 struct ScatterPlan {
   int rows;    // R^2 zy rows of an event
+  int full;    // column chunks of kChunkC channels: C / kChunkC
+  int tail;    // channels of the last, narrower chunk: C % kChunkC
   int band;    // zy rows a tile
   int w;       // warps a tile block
   int bands;   // tiles an event
@@ -320,19 +315,22 @@ struct ScatterPlan {
   int bins;    // bins an event
   int chunks;  // binning blocks an event
   int ent;     // 16-byte units an entry: {u, point}, then C bf16 of go
-  int smem;    // dynamic shared bytes of a tile block: w tiles and w x 8
-               // one-byte tags a cell of a tile
+  int smem;    // dynamic shared bytes of a tile block: w tiles of one
+               // column chunk and w x 8 one-byte tags a cell of a tile
   int wl;      // warps a long-tile block
   int smem_l;  // its shared bytes: wl copies of a tile and their tags
 };
 
-// false where no plan fits: C outside [1, 32], B past 65,535, or one zy
-// row of f32 past the shared memory of a block
+// false where no plan fits: B past 65,535, more than 65,535 column
+// chunks, or one zy row of a column chunk in f32 past the shared memory
+// of a block
 bool scatter_plan(int B, int M, int R, int C, ScatterPlan* p) {
-  if (B <= 0 || B > 65535 || M <= 0 || R <= 0 || C <= 0 || C > kMaxC)
+  if (B <= 0 || B > 65535 || M <= 0 || R <= 0 || C <= 0 ||
+      C / kChunkC > 65535)
     return false;
   const long long rows = (long long)R * R;
-  const long long row_bytes = (long long)R * C * 4;
+  const int cw = C < kChunkC ? C : kChunkC;
+  const long long row_bytes = (long long)R * cw * 4;
   if (rows > (1LL << 30)) return false;
   long long band = ScatterCfg::kTileBytes / row_bytes;
   band = band < 1 ? 1 : band > rows ? rows : band;
@@ -341,6 +339,8 @@ bool scatter_plan(int B, int M, int R, int C, ScatterPlan* p) {
   while (w > 1 && smem(w) > ScatterCfg::kSmemMax) w /= 2;
   if (smem(w) > ScatterCfg::kSmemMax) return false;
   p->rows = (int)rows;
+  p->full = C / kChunkC;
+  p->tail = C % kChunkC;
   p->band = (int)band;
   p->w = w;
   p->bands = (int)((rows + band - 1) / band);
@@ -358,10 +358,11 @@ bool scatter_plan(int B, int M, int R, int C, ScatterPlan* p) {
 }
 
 // the scratch of a call in 16-byte units: B M entries, then the offsets,
-// then the long tiles' count, cursor and list
+// then the long tiles' count, the cursors of the full chunks' and the
+// last chunk's long-tile kernels, and the long tiles' list
 long long scatter_scratch(int B, int M, const ScatterPlan& p) {
   const long long ints =
-      (long long)B * p.chunks * (p.bins + 1) + 2 + (long long)B * p.bands;
+      (long long)B * p.chunks * (p.bins + 1) + 3 + (long long)B * p.bands;
   return (long long)B * M * p.ent + (ints + 3) / 4;
 }
 
@@ -373,48 +374,23 @@ __device__ __forceinline__ int base_row(float uz, float uy, int r) {
   return iz * r + iy;
 }
 
-// Block (chunk j, event b): the event's points j * kBinThreads + [0,
-// kBinThreads), a thread each. Entry i of the chunk (ent 16-byte units at
-// entries + (b M + j kBinThreads + i) ent) is its i-th binned point in
-// (bin, point) order: {u0, u1, u2, point index in the event}, then its C
-// cotangents rounded to bf16, 8 a unit; offs[(b chunks + j)(bins + 1) +
-// k]: the start of bin k in the chunk, offs[... + bins] the chunk's count.
-// Block (0, 0) also clears the long-tile count and cursor (longs).
-__global__ void __launch_bounds__(ScatterCfg::kBinThreads)
-    trilinear_scatter_bin_kernel(const float* __restrict__ u,
-                                 const float* __restrict__ go,
-                                 uint4* __restrict__ entries,
-                                 int* __restrict__ offs,
-                                 int* __restrict__ longs, int m, int r, int c,
-                                 int h, int bins, int chunks, int ent) {
+// A binning block's stable counting sort (row 11): kBinThreads
+// threads, a key each (its bin, < bins <= kMaxBins; -1: none). Warp
+// counts by __match_any_sync, one scan over (bin, warp); off[0..bins]
+// gets the start of each bin among the block's keyed threads and their
+// count. Returns the thread's place in (bin, thread) order (-1: none).
+__device__ int bin_place(int key, int bins, int* __restrict__ off,
+                         unsigned char* smem) {
   constexpr int kW = ScatterCfg::kBinWarps;
   constexpr int kBins = ScatterCfg::kMaxBins;
-  extern __shared__ __align__(16) unsigned char bin_smem[];
-  unsigned short* cnt = reinterpret_cast<unsigned short*>(bin_smem);
-  int* start = reinterpret_cast<int*>(bin_smem + kW * kBins * 2);
-  int* wsum = start + kBins;  // kW warp sums, then the chunk's count
-  const int b = blockIdx.y, j = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  unsigned short* cnt = reinterpret_cast<unsigned short*>(smem);
+  int* start = reinterpret_cast<int*>(smem + kW * kBins * 2);
+  int* wsum = start + kBins;  // kW warp sums, then the block's count
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   uint4* z = reinterpret_cast<uint4*>(cnt);
   for (int i = tid; i < kW * kBins * 2 / 16; i += blockDim.x)
     z[i] = make_uint4(0u, 0u, 0u, 0u);
-
-  const int mi = j * ScatterCfg::kBinThreads + tid;
-  const long long pt = (long long)b * m + mi;
-  const float* g = go + pt * c;
-  int key = -1;
-  float u0 = 0.f, u1 = 0.f, u2 = 0.f;
-  if (mi < m) {
-    bool any = false;
-    for (int k = 0; k < c; ++k) any |= g[k] != 0.f;
-    if (any) {
-      u0 = u[pt * 3 + 0];
-      u1 = u[pt * 3 + 1];
-      u2 = u[pt * 3 + 2];
-      key = base_row(u0, u1, r) / h;
-    }
-  }
   __syncthreads();
   const unsigned grp = __match_any_sync(kAll, key);
   const int rank = __popc(grp & ((1u << lane) - 1u));
@@ -464,12 +440,46 @@ __global__ void __launch_bounds__(ScatterCfg::kBinThreads)
     at += run[s];
   }
   __syncthreads();
-  int* off = offs + ((long long)b * chunks + j) * (bins + 1);
   for (int k = tid; k <= bins; k += blockDim.x)
     off[k] = k < kBins ? start[k] : wsum[kW];
-  if (b == 0 && j == 0 && tid < 2) longs[tid] = 0;
+  return key >= 0 ? start[key] + cnt[warp * kBins + key] + rank : -1;
+}
+
+// Block (chunk j, event b): the event's points j * kBinThreads + [0,
+// kBinThreads), a thread each. Entry i of the chunk (ent 16-byte units at
+// entries + (b M + j kBinThreads + i) ent) is its i-th binned point in
+// (bin, point) order: {u0, u1, u2, point index in the event}, then its C
+// cotangents rounded to bf16, 8 a unit; offs[(b chunks + j)(bins + 1) +
+// k]: the start of bin k in the chunk, offs[... + bins] the chunk's count.
+// Block (0, 0) also clears the long-tile count and cursors (longs).
+__global__ void __launch_bounds__(ScatterCfg::kBinThreads)
+    trilinear_scatter_bin_kernel(const float* __restrict__ u,
+                                 const float* __restrict__ go,
+                                 uint4* __restrict__ entries,
+                                 int* __restrict__ offs,
+                                 int* __restrict__ longs, int m, int r, int c,
+                                 int h, int bins, int chunks, int ent) {
+  extern __shared__ __align__(16) unsigned char bin_smem[];
+  const int b = blockIdx.y, j = blockIdx.x, tid = threadIdx.x;
+  const int mi = j * ScatterCfg::kBinThreads + tid;
+  const long long pt = (long long)b * m + mi;
+  const float* g = go + pt * c;
+  int key = -1;
+  float u0 = 0.f, u1 = 0.f, u2 = 0.f;
+  if (mi < m) {
+    bool any = false;
+    for (int k = 0; k < c; ++k) any |= g[k] != 0.f;
+    if (any) {
+      u0 = u[pt * 3 + 0];
+      u1 = u[pt * 3 + 1];
+      u2 = u[pt * 3 + 2];
+      key = base_row(u0, u1, r) / h;
+    }
+  }
+  const int pos = bin_place(
+      key, bins, offs + ((long long)b * chunks + j) * (bins + 1), bin_smem);
+  if (b == 0 && j == 0 && tid < 3) longs[tid] = 0;
   if (key >= 0) {
-    const int pos = start[key] + cnt[warp * kBins + key] + rank;
     uint4* e = entries +
                ((long long)b * m + (long long)j * ScatterCfg::kBinThreads +
                 pos) * ent;
@@ -492,10 +502,13 @@ __global__ void __launch_bounds__(ScatterCfg::kBinThreads)
 struct ScatterArgs {
   const uint4* entries;
   const int* offs;
-  int* longs;  // the long tiles: count, cursor, then their indices
+  int* longs;  // the long tiles: count, two cursors, then their indices
   void* out;
   int m, r, c, rows, band, w, h, bins, chunks, ent, tiles;
   int bf16;  // out is bf16 (each f32 sum rounded once), else f32
+  int cs;    // C, the output's row stride (c: the launch's chunk width)
+  int k0;    // the launch's first channel (chunk y: k0 + kChunkC y)
+  int nk;    // the launch's column chunks
 };
 
 // the bins a tile of rows [r0, r1) reads: q in [r0 - R - 1, r1 - 1 - R]
@@ -596,15 +609,18 @@ struct Entry {
   uint4 body[(CW + 7) / 8];
 };
 
+// (the cotangents of channels kc.. of the entry: kc a multiple of 8)
 template <int CW>
 __device__ __forceinline__ Entry<CW> load_entry(const ScatterArgs& a,
-                                                bool valid, long long e) {
+                                                bool valid, long long e,
+                                                int kc) {
   Entry<CW> x;
   const uint4* ep = a.entries + (valid ? e : 0) * a.ent;
   x.head = ep[0];
+  const int u0 = 1 + kc / 8;
 #pragma unroll
   for (int i = 0; i < (CW + 7) / 8; ++i)
-    x.body[i] = 1 + i < a.ent ? ep[1 + i] : make_uint4(0u, 0u, 0u, 0u);
+    x.body[i] = u0 + i < a.ent ? ep[u0 + i] : make_uint4(0u, 0u, 0u, 0u);
   return x;
 }
 
@@ -778,14 +794,15 @@ __device__ __forceinline__ void scatter_chunk(const ScatterArgs& a,
 }
 
 // The list of the tile of rows [r0, r1), into dst (row r0 at dst; tags
-// the warp's tags): the chunks numbered k over the whole list with k %
-// stride == first, in order, each chunk's entries loaded while the one
-// before is summed. Segments go 32 at a time, lane i holding segment s0 +
-// i; (beg0, len0) is this lane's segment of the first 32.
+// the warp's tags) for the channels kc..: the chunks numbered k over the
+// whole list with k % stride == first, in order, each chunk's entries
+// loaded while the one before is summed. Segments go 32 at a time, lane i
+// holding segment s0 + i; (beg0, len0) is this lane's segment of the
+// first 32.
 template <int CW, bool EXACT>
 __device__ void scatter_walk(const ScatterArgs& a, int b, int r0, int r1,
                              float* dst, uint8_t* tags, int first,
-                             int stride, long long beg0, int len0) {
+                             int stride, long long beg0, int len0, int kc) {
   const int lane = threadIdx.x & 31;
   const BinRanges br = bin_ranges(a, r0, r1);
   const int nseg = br.n * a.chunks;
@@ -816,13 +833,13 @@ __device__ void scatter_walk(const ScatterArgs& a, int b, int r0, int r1,
     if (k >= nk) continue;
     bool valid;
     const long long e = locate(k, valid);
-    Entry<CW> cur = load_entry<CW>(a, valid, e);
+    Entry<CW> cur = load_entry<CW>(a, valid, e, kc);
     for (; k < nk; k += stride) {
       bool nvalid = false;
       Entry<CW> nxt = cur;
       if (k + stride < nk) {
         const long long ne = locate(k + stride, nvalid);
-        nxt = load_entry<CW>(a, nvalid, ne);
+        nxt = load_entry<CW>(a, nvalid, ne, kc);
       }
       scatter_chunk<CW, EXACT>(a, valid, cur, r0, r1, dst, tags);
       cur = nxt;
@@ -850,60 +867,83 @@ __device__ __forceinline__ int scatter_list_len(const ScatterArgs& a, int b,
   return n;
 }
 
-// Tile `tile` (event tile / bands, rows row0 + [0, nrows)) written once
-// from the w0 copies at src (stride floats apart; threads i0 + k step),
-// added in copy order, in f32 or bf16.
+// Tile `tile` (event tile / bands, rows row0 + [0, nrows)) of channels
+// kc..kc + c written once from the w0 copies at src (stride floats apart;
+// threads i0 + k step), added in copy order, in f32 or bf16: one span
+// where the tile holds whole output rows (c == C), else a run of c
+// values an output row.
 __device__ __forceinline__ void write_tile(const ScatterArgs& a, int tile,
-                                           const float* src, int copies,
-                                           int stride, int i0, int step) {
+                                           int kc, const float* src,
+                                           int copies, int stride, int i0,
+                                           int step) {
   const int bands = (a.rows + a.band - 1) / a.band;
   const int b = tile / bands, row0 = (tile - b * bands) * a.band;
-  const int len = min(a.band, a.rows - row0) * a.r * a.c;
-  const long long base = ((long long)b * a.rows + row0) * a.r * a.c;
-  if ((base & 3) == 0 && (len & 3) == 0 && (stride & 3) == 0) {
+  const int cells = min(a.band, a.rows - row0) * a.r;
+  const long long cell0 = ((long long)b * a.rows + row0) * a.r;
+  const int len = cells * a.c;
+  // float4s where the copies and the output rows fall in whole float4s
+  const bool span = a.c == a.cs;
+  const bool vec = (stride & 3) == 0 &&
+                   (span ? ((cell0 * a.c) & 3) == 0 && (len & 3) == 0
+                         : (a.c & 3) == 0 && (a.cs & 3) == 0);
+  auto sum4 = [&](int i) {
+    float4 s = reinterpret_cast<const float4*>(src)[i];
+    for (int v = 1; v < copies; ++v) {
+      const float4 y = reinterpret_cast<const float4*>(src + v * stride)[i];
+      s.x = __fadd_rn(s.x, y.x);
+      s.y = __fadd_rn(s.y, y.y);
+      s.z = __fadd_rn(s.z, y.z);
+      s.w = __fadd_rn(s.w, y.w);
+    }
+    return s;
+  };
+  if (vec) {
+    const int q = a.c / 4;  // float4s a cell
     for (int i = i0; i < len / 4; i += step) {
-      float4 s = reinterpret_cast<const float4*>(src)[i];
-      for (int v = 1; v < copies; ++v) {
-        const float4 y = reinterpret_cast<const float4*>(src + v * stride)[i];
-        s.x = __fadd_rn(s.x, y.x);
-        s.y = __fadd_rn(s.y, y.y);
-        s.z = __fadd_rn(s.z, y.z);
-        s.w = __fadd_rn(s.w, y.w);
-      }
+      const float4 s = sum4(i);
+      const long long o = span ? cell0 * a.c + 4LL * i
+                               : (cell0 + i / q) * a.cs + kc + 4 * (i % q);
       if (a.bf16) {
         const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
         const __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
         uint2 y;
         y.x = *reinterpret_cast<const unsigned*>(&lo);
         y.y = *reinterpret_cast<const unsigned*>(&hi);
-        reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.out) +
-                                 base)[i] = y;
+        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.out) + o) =
+            y;
       } else {
-        reinterpret_cast<float4*>(static_cast<float*>(a.out) + base)[i] = s;
+        *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o) = s;
       }
     }
   } else {
     for (int i = i0; i < len; i += step) {
       float s = src[i];
       for (int v = 1; v < copies; ++v) s = __fadd_rn(s, src[v * stride + i]);
+      const long long o = span ? cell0 * a.c + i
+                               : (cell0 + i / a.c) * a.cs + kc + i % a.c;
       if (a.bf16)
-        static_cast<__nv_bfloat16*>(a.out)[base + i] = __float2bfloat16_rn(s);
+        static_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16_rn(s);
       else
-        static_cast<float*>(a.out)[base + i] = s;
+        static_cast<float*>(a.out)[o] = s;
     }
   }
 }
 
-// Warp w of block X owns tile X w' + w (w' warps a block): its list is
-// summed into the warp's tile in shared memory and the tile written once,
-// zeros included. A tile whose list is longer than kLongChunks chunks is
-// left to trilinear_scatter_long_kernel: its index joins the long list.
+// Warp w of block (X, y) owns tile X w' + w (w' warps a block) in column
+// chunk y of the launch: its list is summed into the warp's tile in
+// shared memory and the tile written once, zeros included. A tile whose
+// list is longer than kLongChunks chunks is left to
+// trilinear_scatter_long_kernel: chunk 0 of the first launch adds its
+// index to the long list.
+// (above 8 channels a chunk, two blocks an SM: the 64 registers of four
+// spilled the lane's tap values)
 template <int CW, bool EXACT>
-__global__ void __launch_bounds__(ScatterCfg::kWarps * 32, 4)
+__global__ void __launch_bounds__(ScatterCfg::kWarps * 32, CW > 8 ? 2 : 4)
     trilinear_scatter_tile_kernel(const ScatterArgs a) {
   extern __shared__ __align__(16) float tile_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tile = blockIdx.x * a.w + warp;
+  const int kc = a.k0 + kChunkC * blockIdx.y;
   if (tile >= a.tiles) return;
   const int bands = (a.rows + a.band - 1) / a.band;
   const int b = tile / bands, row0 = (tile - b * bands) * a.band;
@@ -916,23 +956,24 @@ __global__ void __launch_bounds__(ScatterCfg::kWarps * 32, 4)
   int len0;
   const int n = scatter_list_len(a, b, row0, row0 + nrows, beg0, len0);
   if (n > ScatterCfg::kLongChunks * 32) {
-    if (lane == 0) a.longs[2 + atomicAdd(a.longs, 1)] = tile;
+    if (lane == 0 && kc == 0) a.longs[3 + atomicAdd(a.longs, 1)] = tile;
     return;
   }
   for (int i = lane; i < nrows * a.r * a.c; i += 32) buf[i] = 0.f;
   __syncwarp();
   if (n) scatter_walk<CW, EXACT>(a, b, row0, row0 + nrows, buf, tags, 0, 1,
-                                 beg0, len0);
+                                 beg0, len0, kc);
   __syncwarp();
-  write_tile(a, tile, buf, 1, stride, lane, 32);
+  write_tile(a, tile, kc, buf, 1, stride, lane, 32);
 }
 
-// The long tiles, one at a time a block (taken from the long list's
-// cursor): warp w sums the chunks k % wl == w of the tile's list into its
-// own copy, and the wl copies are added in warp order as the tile is
-// written.
+// The long tiles of the launch's column chunks, one (tile, chunk) at a
+// time a block (taken from the launch's cursor: the full chunks' or the
+// last chunk's): warp w sums the chunks k % wl == w of the tile's list
+// into its own copy, and the wl copies are added in warp order as the
+// tile is written.
 template <int CW, bool EXACT>
-__global__ void __launch_bounds__(ScatterCfg::kLongWarps * 32, 2)
+__global__ void __launch_bounds__(ScatterCfg::kLongWarps * 32, CW > 8 ? 1 : 2)
     trilinear_scatter_long_kernel(const ScatterArgs a) {
   extern __shared__ __align__(16) float tile_smem[];
   __shared__ int next;
@@ -944,12 +985,14 @@ __global__ void __launch_bounds__(ScatterCfg::kLongWarps * 32, 2)
   uint8_t* tags = reinterpret_cast<uint8_t*>(tile_smem + wl * stride) +
                   warp * 8 * a.band * a.r;
   const int count = a.longs[0];
+  int* cursor = a.longs + (a.k0 ? 2 : 1);
   for (;;) {
-    if (threadIdx.x == 0) next = atomicAdd(a.longs + 1, 1);
+    if (threadIdx.x == 0) next = atomicAdd(cursor, 1);
     __syncthreads();
     const int idx = next;
-    if (idx >= count) return;
-    const int tile = a.longs[2 + idx];
+    if (idx >= count * a.nk) return;
+    const int tile = a.longs[3 + idx / a.nk];
+    const int kc = a.k0 + kChunkC * (idx % a.nk);
     const int b = tile / bands, row0 = (tile - b * bands) * a.band;
     const int nrows = min(a.band, a.rows - row0);
     for (int i = lane; i < nrows * a.r * a.c; i += 32) copy[i] = 0.f;
@@ -958,28 +1001,47 @@ __global__ void __launch_bounds__(ScatterCfg::kLongWarps * 32, 2)
     int len0;
     segment(a, b, bin_ranges(a, row0, row0 + nrows), lane, beg0, len0);
     scatter_walk<CW, EXACT>(a, b, row0, row0 + nrows, copy, tags, warp, wl,
-                            beg0, len0);
+                            beg0, len0, kc);
     __syncthreads();
-    write_tile(a, tile, tile_smem, wl, stride, threadIdx.x, blockDim.x);
+    write_tile(a, tile, kc, tile_smem, wl, stride, threadIdx.x, blockDim.x);
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------------
+// row 10: the voxelizer, a thread a point
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) voxelize_contract_kernel(
+    const int* __restrict__ flat, const float* __restrict__ ext,
+    float* __restrict__ out, long long n, int m, int r3, int c1) {
+  const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pt >= n) return;
+  const int f = flat[pt];
+  if (f < 0 || f >= r3) return;            // the masked points' sentinel
+  const long long b = pt / m;
+  float* row = out + (b * r3 + f) * c1;
+  const float* e = ext + pt * c1;
+  for (int k = 0; k < c1; ++k) atomicAdd(row + k, round_bf16(e[k]));
 }
 
 // ---------------------------------------------------------------------------
 // row 13: the trilinear gather at a compile-time width
 // ---------------------------------------------------------------------------
 
-// A thread a point: its <= 8 tap rows loaded before any sum (per x tap
-// above 8 channels, to bound the registers), the sums in the plain
+// A thread a point and column chunk (channels k0 + kChunkC y + [0, c) of
+// rows cs wide, grid y): its <= 8 tap rows loaded before any sum (per x
+// tap above 8 channels, to bound the registers), the sums in the plain
 // version's order, one vector store.
 template <int CW, bool EXACT>
 __global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
     const float* __restrict__ u, const uint8_t* __restrict__ mask,
     const __nv_bfloat16* __restrict__ g2, float* __restrict__ out,
-    long long n, int m, int r, int c) {
+    long long n, int m, int r, int c, int cs, int k0) {
   const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (pt >= n) return;
-  float* o = out + pt * c;
+  const int kc = k0 + kChunkC * blockIdx.y;
+  float* o = out + pt * cs + kc;
   float acc[CW];
 #pragma unroll
   for (int k = 0; k < CW; ++k) acc[k] = 0.f;
@@ -993,7 +1055,7 @@ __global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
   bool first[4];
   zy_taps(u[pt * 3 + 0], u[pt * 3 + 1], r, zi, a, first);
   const int nx = x_taps(u[pt * 3 + 2], r, ix, xw);
-  const __nv_bfloat16* grid = g2 + b * (long long)r * r * r * c;
+  const __nv_bfloat16* grid = g2 + b * (long long)r * r * r * cs + kc;
   constexpr int kX = CW <= 8 ? 2 : 1;  // x taps whose rows load together
 #pragma unroll
   for (int e0 = 0; e0 < 2; e0 += kX) {
@@ -1003,7 +1065,7 @@ __global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
 #pragma unroll
       for (int t = 0; t < 4; ++t)
         load_bf16_row<CW, EXACT>(
-            grid + ((long long)zi[t] * r + ix[e0 + x]) * c, c, v[x][t]);
+            grid + ((long long)zi[t] * r + ix[e0 + x]) * cs, c, v[x][t]);
 #pragma unroll
     for (int x = 0; x < kX; ++x) {
       float s[CW];
@@ -1135,12 +1197,40 @@ int launch_tile(const ScatterArgs& a, const ScatterPlan& p, cudaStream_t st) {
     if (sms <= 0) return (int)cudaErrorInvalidValue;
   }
   trilinear_scatter_tile_kernel<CW, EXACT>
-      <<<(a.tiles + a.w - 1) / a.w, 32 * a.w, p.smem, st>>>(a);
+      <<<dim3((a.tiles + a.w - 1) / a.w, a.nk), 32 * a.w, p.smem, st>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   trilinear_scatter_long_kernel<CW, EXACT>
-      <<<min(2 * sms, a.tiles), 32 * p.wl, p.smem_l, st>>>(a);
+      <<<(int)min(2LL * sms, (long long)a.tiles * a.nk), 32 * p.wl,
+         p.smem_l, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The tile kernels of one launch: nk column chunks of width c from
+// channel k0 (the full chunks at kChunkC, or the last chunk at its
+// width); a width with an instantiation of its own is exact.
+int launch_tiles(ScatterArgs a, const ScatterPlan& p, int k0, int c, int nk,
+                 cudaStream_t st) {
+  a.k0 = k0;
+  a.c = c;
+  a.nk = nk;
+  switch (c) {
+#define PCSEG_TILE(CW, EXACT) return launch_tile<CW, EXACT>(a, p, st)
+    case 1: PCSEG_TILE(1, true);
+    case 2: PCSEG_TILE(2, true);
+    case 3: PCSEG_TILE(3, true);
+    case 4: PCSEG_TILE(4, true);
+    case 5: PCSEG_TILE(5, true);
+    case 6: PCSEG_TILE(6, true);
+    case 7: PCSEG_TILE(7, true);
+    case 8: PCSEG_TILE(8, true);
+    case 16: PCSEG_TILE(16, true);
+    case 32: PCSEG_TILE(32, true);
+    default:
+      if (c < 16) PCSEG_TILE(16, false);
+      PCSEG_TILE(32, false);
+#undef PCSEG_TILE
+  }
 }
 
 struct Gather {
@@ -1149,15 +1239,39 @@ struct Gather {
   const __nv_bfloat16* g2;
   float* out;
   long long n;
-  int m, r, c;
+  int m, r, cs;
   cudaStream_t st;
 };
 
 template <int CW, bool EXACT>
-int launch_gather(const Gather& g) {
-  trilinear_gather_kernel<CW, EXACT><<<blocks_for(g.n), kThreads, 0, g.st>>>(
-      g.u, g.mask, g.g2, g.out, g.n, g.m, g.r, g.c);
+int launch_gather(const Gather& g, int k0, int c, int nk) {
+  trilinear_gather_kernel<CW, EXACT>
+      <<<dim3(blocks_for(g.n), nk), kThreads, 0, g.st>>>(
+          g.u, g.mask, g.g2, g.out, g.n, g.m, g.r, c, g.cs, k0);
   return (int)cudaGetLastError();
+}
+
+// nk column chunks of width c from channel k0; exact (vector loads and
+// stores) at a width with an instantiation of its own where the rows
+// allow it (``aligned``: C <= kChunkC, or C a multiple of 8)
+int gather_chunks(const Gather& g, int k0, int c, int nk, bool aligned) {
+  if (aligned) {
+    switch (c) {
+      case 1: return launch_gather<1, true>(g, k0, c, nk);
+      case 2: return launch_gather<2, true>(g, k0, c, nk);
+      case 3: return launch_gather<3, true>(g, k0, c, nk);
+      case 4: return launch_gather<4, true>(g, k0, c, nk);
+      case 5: return launch_gather<5, true>(g, k0, c, nk);
+      case 6: return launch_gather<6, true>(g, k0, c, nk);
+      case 7: return launch_gather<7, true>(g, k0, c, nk);
+      case 8: return launch_gather<8, true>(g, k0, c, nk);
+      case 16: return launch_gather<16, true>(g, k0, c, nk);
+      case 32: return launch_gather<32, true>(g, k0, c, nk);
+      default: break;
+    }
+  }
+  return c <= 16 ? launch_gather<16, false>(g, k0, c, nk)
+                 : launch_gather<32, false>(g, k0, c, nk);
 }
 
 }  // namespace
@@ -1177,9 +1291,9 @@ int pcseg_voxelize_contract(const void* flat, const void* ext, void* out,
 }
 
 // The scratch pcseg_trilinear_scatter needs at (B, M, R, C), in 16-byte
-// units, or -1 where it takes no such call (C outside [1, 32], B past
-// 65,535, one zy row of f32 past a block's shared memory, or a scratch
-// past 2^31 units).
+// units, or -1 where it takes no such call (B past 65,535, more than
+// 65,535 column chunks, one zy row of a column chunk in f32 past a
+// block's shared memory, or a scratch past 2^31 units).
 int pcseg_trilinear_scatter_scratch(int B, int M, int R, int C) {
   ScatterPlan p;
   if (!scatter_plan(B, M, R, C, &p)) return -1;
@@ -1191,7 +1305,8 @@ int pcseg_trilinear_scatter_scratch(int B, int M, int R, int C) {
 // (B, M, C) f32 point cotangents, masked rows zero; out (B, R^3, C), f32
 // or (out_bf16) bf16, NDHWC order (z * R + y) * R * C + x * C + k, every
 // value written; scratch pcseg_trilinear_scatter_scratch 16-byte units,
-// 16-byte aligned, as is out.
+// 16-byte aligned, as is out. Binning once, then the tile kernels of the
+// full column chunks (one launch, grid y) and of the last, narrower one.
 int pcseg_trilinear_scatter(const void* u, const void* go, void* out,
                             void* scratch, int B, int M, int R, int C,
                             int out_bf16, void* stream) {
@@ -1217,56 +1332,34 @@ int pcseg_trilinear_scatter(const void* u, const void* go, void* out,
   if (e != cudaSuccess) return (int)e;
   ScatterArgs a{entries, offs, longs, out, M, R, C, p.rows, p.band, p.w,
                 p.h, p.bins, p.chunks, p.ent, B * p.bands,
-                out_bf16 ? 1 : 0};
-  switch (C) {
-#define PCSEG_TILE(CW, EXACT)                                               \
-  return launch_tile<CW, EXACT>(a, p, st)
-    case 1: PCSEG_TILE(1, true);
-    case 2: PCSEG_TILE(2, true);
-    case 3: PCSEG_TILE(3, true);
-    case 4: PCSEG_TILE(4, true);
-    case 5: PCSEG_TILE(5, true);
-    case 6: PCSEG_TILE(6, true);
-    case 7: PCSEG_TILE(7, true);
-    case 8: PCSEG_TILE(8, true);
-    case 16: PCSEG_TILE(16, true);
-    case 32: PCSEG_TILE(32, true);
-    default:
-      if (C < 16) PCSEG_TILE(16, false);
-      PCSEG_TILE(32, false);
-#undef PCSEG_TILE
+                out_bf16 ? 1 : 0, C, 0, 1};
+  if (p.full) {
+    const int rc = launch_tiles(a, p, 0, kChunkC, p.full, st);
+    if (rc) return rc;
   }
-  return (int)cudaErrorInvalidValue;
+  return p.tail ? launch_tiles(a, p, p.full * kChunkC, p.tail, 1, st) : 0;
 }
 
 // u (B, M, 3) f32 continuous voxel coords; mask (B, M) bool (one byte a
 // point); g2 (B, R^3, C) bf16 in the same NDHWC order, 16-byte aligned;
-// out (B, M, C) f32, 16-byte aligned.
+// out (B, M, C) f32, 16-byte aligned. Above kChunkC channels: the full
+// column chunks in one launch (grid y), the last, narrower one in a
+// second.
 int pcseg_trilinear_gather(const void* u, const void* mask, const void* g2,
                            void* out, int B, int M, int R, int C,
                            void* stream) {
-  if (B <= 0 || M <= 0 || R <= 0 || C <= 0 || C > kMaxC)
+  if (B <= 0 || M <= 0 || R <= 0 || C <= 0 || C / kChunkC > 65535)
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * M;
   const Gather g{(const float*)u, (const uint8_t*)mask,
-                 (const __nv_bfloat16*)g2, (float*)out, n, M, R, C,
-                 (cudaStream_t)stream};
-  switch (C) {
-    case 1: return launch_gather<1, true>(g);
-    case 2: return launch_gather<2, true>(g);
-    case 3: return launch_gather<3, true>(g);
-    case 4: return launch_gather<4, true>(g);
-    case 5: return launch_gather<5, true>(g);
-    case 6: return launch_gather<6, true>(g);
-    case 7: return launch_gather<7, true>(g);
-    case 8: return launch_gather<8, true>(g);
-    case 16: return launch_gather<16, true>(g);
-    case 32: return launch_gather<32, true>(g);
-    default:
-      return C < 16 ? launch_gather<16, false>(g)
-                    : launch_gather<32, false>(g);
+                 (const __nv_bfloat16*)g2, (float*)out, (long long)B * M, M,
+                 R, C, (cudaStream_t)stream};
+  const bool aligned = C <= kChunkC || C % 8 == 0;
+  const int full = C / kChunkC, tail = C % kChunkC;
+  if (full) {
+    const int rc = gather_chunks(g, 0, kChunkC, full, aligned);
+    if (rc) return rc;
   }
-  return (int)cudaErrorInvalidValue;
+  return tail ? gather_chunks(g, full * kChunkC, tail, 1, aligned) : 0;
 }
 
 // rows / cols (B, M) int32 (a row >= nrows adds nothing); vals (B, M, C)

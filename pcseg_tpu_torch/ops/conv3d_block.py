@@ -898,6 +898,9 @@ def head_grid2_cuda(x, w, bias, scale, shift):
 
     x (B, D, H, W, C) bf16; w (1, 1, 1, C, NC), rounded to bf16; bias
     (NC,) f32; scale/shift (B, C) f32. Returns y (B, D, H, W, NC) bf16.
+    Above 4 classes the kernel is a tensor-core tile kernel (mma.sync,
+    f32 sums in the hardware's order), at up to 4 a thread a voxel with
+    in-order FMAs (csrc/conv3d_block.cu ``pcseg_head_grid2``).
     """
     b, v, c, nc = _head_checks(x, w, scale, shift)
     _check("bias", bias, (nc,), torch.float32, x.device)

@@ -331,7 +331,8 @@ def trilinear_gather(u: torch.Tensor, mask: torch.Tensor, g2: torch.Tensor,
     """The matmul devoxelize forward (B, M, C) f32 (JAX
     ``onehot_contract.trilinear_gather``). u (B, M, 3) continuous voxel
     coords (``trilinear_u``); mask (B, M); g2 (B, R*R, R*C) grid2, rounded
-    to bf16. Launches the CUDA kernel on a CUDA tensor."""
+    to bf16. Launches the CUDA kernel on a CUDA tensor (above 32 channels,
+    a thread a point and 32-channel column chunk)."""
     if not on_cuda(g2, plain):
         return trilinear_gather_plain(u, mask, g2)
     b, r, c = _grid2_dims(g2)
@@ -341,9 +342,9 @@ def trilinear_gather(u: torch.Tensor, mask: torch.Tensor, g2: torch.Tensor,
         raise ValueError(f"u (B, M, 3) and mask (B, M) must lie on "
                          f"{g2.device} with B = {b}, got {tuple(u.shape)}, "
                          f"{tuple(mask.shape)}")
-    if c > 32:
-        raise ValueError(f"trilinear_gather takes at most 32 channels, "
-                         f"got {c}")
+    if c > 32 * 65535:
+        raise ValueError(f"trilinear_gather takes at most 65,535 column "
+                         f"chunks of 32 channels, got {c} channels")
     u = u.float().contiguous()
     mask = mask.to(torch.bool).contiguous()
     g2 = _aligned(g2.to(torch.bfloat16).contiguous())
@@ -421,24 +422,23 @@ def trilinear_scatter(u: torch.Tensor, go: torch.Tensor, r: int, *,
     ``out_dtype`` (f32, the JAX kernel's output, or bf16). u (B, M, 3)
     continuous voxel coords (``trilinear_u``); go (B, M, C) point
     cotangents, masked rows zero. Launches the CUDA kernels (binning, then
-    one block per grid tile) on a CUDA tensor."""
+    one warp per grid tile, 32 channels at a time above 32) on a CUDA
+    tensor."""
     if not on_cuda(go, plain):
         return trilinear_scatter_plain(u, go, r, out_dtype=out_dtype)
     b, m, c = go.shape
     if tuple(u.shape) != (b, m, 3) or u.device != go.device:
         raise ValueError(f"u must be (B, M, 3) on {go.device}, got "
                          f"{tuple(u.shape)} on {u.device}")
-    if c > 32:
-        raise ValueError(f"trilinear_scatter takes at most 32 channels, "
-                         f"got {c}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"trilinear_scatter writes f32 or bf16, not "
                          f"{out_dtype}")
     units = _scatter_scratch(b, m, r, c)
     if units < 0:
         raise ValueError(f"trilinear_scatter takes no (B, M, R, C) = "
-                         f"{(b, m, r, c)}: one zy row of f32 must fit a "
-                         "block's shared memory")
+                         f"{(b, m, r, c)}: B <= 65,535 and one zy row of a "
+                         "32-channel chunk in f32 within a block's shared "
+                         "memory")
     u = u.float().contiguous()
     go = go.float().contiguous()
     out = torch.empty((b, r ** 3, c), dtype=out_dtype, device=go.device)

@@ -1,8 +1,10 @@
-"""Rows 11 and 13, the matmul devoxelize's backward and forward
-(csrc/onehot_contract.cu ``trilinear_scatter`` and ``trilinear_gather``),
-at the voxel step's shape on one card, with their PyTorch yardsticks.
+"""Rows 11, 13 and 10, the matmul devoxelize's backward and forward and
+the matmul voxelizer (csrc/onehot_contract.cu ``trilinear_scatter``,
+``trilinear_gather`` and ``voxelize_contract``), at the voxel step's
+shapes on one card, with their PyTorch yardsticks.
 
     python -m pcseg_tpu_torch.profile_devox [--tree DIR] [--out DIR]
+        [--only voxelize]
 
 Two batches of B8 x 8192 points on a 64^3 grid with C = 4 channels:
 "uniform" (continuous coords uniform over the grid, 3/4 of the points
@@ -20,9 +22,22 @@ event 0 on one spot). For each:
 - row 13 by device time and CUDA events, with ``F.grid_sample`` of the
   same clipped trilinear function in f32;
 - each op's bound: its inputs read once and its output written once at
-  3.35 TB/s.
+  3.35 TB/s;
+- a digest (sha256) of each op's output, so that two checkouts' bits can
+  be compared (rows 11 and 13 keep theirs at C <= 32).
 
-``--tree DIR`` imports ``pcseg_tpu_torch`` from the checkout at DIR (an
+Row 10 at its two call sites: the default voxel model's voxelize on the
+"default" batch (B8 x 8192 at 64^3, C1 3) and the sparse model's
+block-sparse voxelize of chip_smoke.py's track events (tile-major ids,
+C1 2), and on ids uniform over the grid (C1 3): device and op ms, two
+calls bit for bit, max |err| against the plain version, the bound (ids
+and rows read, the f32 table written), and ``torch.zeros`` +
+``index_add_`` (the same function from scratch) and ``index_add_``
+alone. Rows 11 and 13 also at 40 channels on a 32^3 grid
+(the 40-class U-Net's devoxelize; a checkout that refuses the width
+records the refusal).
+
+``--only voxelize`` times row 10 alone. ``--tree DIR`` imports ``pcseg_tpu_torch`` from the checkout at DIR (an
 earlier commit unpacked with ``git archive``), so that two versions are
 timed by this script, one process each, in one call. A version whose
 ``trilinear_scatter`` has no ``out_dtype`` is timed with the
@@ -41,6 +56,7 @@ import sys
 from pathlib import Path
 
 B, M, R, C = 8, 8192, 64, 4
+WIDE_R, WIDE_C = 32, 40
 HBM_BYTES_PER_S = 3.35e12
 ITERS = 20
 
@@ -62,6 +78,16 @@ def _package(tree: str | None):
     if tree and not Path(vx.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {vx.__file__}, not from {root}")
     return vx, pad_events, synthetic_events
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    import hashlib
+
+    import torch
+
+    raw = t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
 
 
 def kernel_ms(fn, iters: int = ITERS, attempts: int = 3) -> dict:
@@ -118,6 +144,18 @@ def _both(fn) -> dict:
             "kernels": {k[:60]: v for k, v in by_kernel.items()}}
 
 
+def default_points(pad_events, synthetic_events):
+    """chip_smoke.py's default batch: seven synthetic events and an
+    all-masked row, 2,000 points of event 0 on one spot."""
+    import torch
+
+    events = list(synthetic_events(B - 1, min_points=4000, max_points=M,
+                                   seed=7))
+    pts, _, mask = pad_events(events, M, batch_size=B)
+    pts[0, 1:2001, :3] = pts[0, 0, :3]
+    return torch.from_numpy(pts).cuda(), torch.from_numpy(mask).cuda()
+
+
 def batches(vx, pad_events, synthetic_events):
     """(name, u, mask, go) of the two batches, from fixed seeds."""
     import torch
@@ -128,12 +166,7 @@ def batches(vx, pad_events, synthetic_events):
     go = torch.randn((B, M, C), generator=gen, device="cuda") * 1e-3
     out = [("uniform", u, valid, torch.where(valid[..., None], go, 0.0))]
 
-    events = list(synthetic_events(B - 1, min_points=4000, max_points=M,
-                                   seed=7))
-    pts, _, mask = pad_events(events, M, batch_size=B)
-    pts[0, 1:2001, :3] = pts[0, 0, :3]
-    points = torch.from_numpy(pts).cuda()
-    mask = torch.from_numpy(mask).cuda()
+    points, mask = default_points(pad_events, synthetic_events)
     _, _, lo, scale = vx.voxel_rows(points, mask, R)
     u = vx.trilinear_u(points, mask, lo, scale)
     go = torch.randn((B, M, C), generator=gen, device="cuda") * 1e-3
@@ -141,83 +174,156 @@ def batches(vx, pad_events, synthetic_events):
     return out
 
 
-def scatter_case(vx, u, go) -> dict:
+def scatter_case(vx, u, go, r=R) -> dict:
     import torch
+
+    c = go.shape[-1]
 
     has_dtype = "out_dtype" in inspect.signature(
         vx.trilinear_scatter).parameters
     if has_dtype:
         def half():
-            return vx.trilinear_scatter(u, go, R, out_dtype=torch.bfloat16)
+            return vx.trilinear_scatter(u, go, r, out_dtype=torch.bfloat16)
     else:
         def half():
-            return vx.trilinear_scatter(u, go, R).to(torch.bfloat16)
+            return vx.trilinear_scatter(u, go, r).to(torch.bfloat16)
 
     def full():
-        return vx.trilinear_scatter(u, go, R)
+        return vx.trilinear_scatter(u, go, r)
 
     a, b = full(), full()
-    ref = vx.trilinear_scatter_plain(u, go, R)
-    rows, vals = vx.trilinear_scatter_taps(u, go, R)
-    rows, vals = rows.reshape(-1), vals.reshape(-1, C)
-    zeroed = torch.zeros((B * R ** 3, C), device="cuda")
+    ref = vx.trilinear_scatter_plain(u, go, r)
+    rows, vals = vx.trilinear_scatter_taps(u, go, r)
+    rows, vals = rows.reshape(-1), vals.reshape(-1, c)
+    zeroed = torch.zeros((B * r ** 3, c), device="cuda")
 
     def from_scratch():
-        return torch.zeros((B * R ** 3, C), device="cuda").index_add_(
+        return torch.zeros((B * r ** 3, c), device="cuda").index_add_(
             0, rows, vals)
 
     def add_only():
         return zeroed.index_add_(0, rows, vals)
 
     n_real = int((go != 0).any(-1).sum())
-    point_bytes = B * M * 3 * 4 + B * M * C * 4
+    point_bytes = B * M * 3 * 4 + B * M * c * 4
     return {
         "max_abs_err": float((a - ref).abs().max()),
         "max_abs_ref": float(ref.abs().max()),
         "two_calls_identical": bool(torch.equal(a, b)),
         "bf16_is_f32_rounded": bool(torch.equal(half(), a.to(torch.bfloat16))),
+        "sha_f32": digest(a), "sha_bf16": digest(half()),
         "real_points": n_real,
         "f32": _both(full), "bf16": _both(half),
         "zeros_index_add": _both(from_scratch),
         "index_add_alone": _both(add_only),
-        "bound_ms_f32": (point_bytes + B * R ** 3 * C * 4)
+        "bound_ms_f32": (point_bytes + B * r ** 3 * c * 4)
         / HBM_BYTES_PER_S * 1e3,
-        "bound_ms_bf16": (point_bytes + B * R ** 3 * C * 2)
+        "bound_ms_bf16": (point_bytes + B * r ** 3 * c * 2)
         / HBM_BYTES_PER_S * 1e3,
     }
 
 
-def gather_case(vx, u, mask) -> dict:
+def gather_case(vx, u, mask, r=R, c=C) -> dict:
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    g2 = torch.randn((B, R * R, R * C), generator=gen,
+    g2 = torch.randn((B, r * r, r * c), generator=gen,
                      device="cuda").to(torch.bfloat16)
 
     def kernel():
         return vx.trilinear_gather(u, mask, g2)
 
-    err = float((kernel() - vx.trilinear_gather_plain(u, mask, g2))
-                .abs().max())
-    grid5 = g2.float().reshape(B, R, R, R, C).permute(0, 4, 1, 2, 3)
+    out = kernel()
+    err = float((out - vx.trilinear_gather_plain(u, mask, g2)).abs().max())
+    grid5 = g2.float().reshape(B, r, r, r, c).permute(0, 4, 1, 2, 3)
     grid5 = grid5.contiguous()
-    coords = ((2 * u + 1) / R - 1).flip(-1).reshape(B, 1, 1, M, 3)
+    coords = ((2 * u + 1) / r - 1).flip(-1).reshape(B, 1, 1, M, 3)
 
     def library():
         return F.grid_sample(grid5, coords, mode="bilinear",
                              padding_mode="border", align_corners=False)
 
-    zi, _, xs, _ = vx._tri_taps(u, R, lambda t: t)
-    base = torch.arange(B, device="cuda")[:, None] * R ** 3
-    touched = torch.cat([(base + z * R + x)[mask] for z in zi for x in xs])
+    zi, _, xs, _ = vx._tri_taps(u, r, lambda t: t)
+    base = torch.arange(B, device="cuda")[:, None] * r ** 3
+    touched = torch.cat([(base + z * r + x)[mask] for z in zi for x in xs])
     n_rows = int(torch.unique(touched).numel())
     return {
-        "max_abs_err": err, "grid_rows_read": n_rows,
+        "max_abs_err": err, "grid_rows_read": n_rows, "sha": digest(out),
+        "two_calls_identical": bool(torch.equal(out, kernel())),
         "kernel": _both(kernel), "grid_sample": _both(library),
-        "bound_ms": (B * M * 3 * 4 + B * M + n_rows * C * 2 + B * M * C * 4)
+        "bound_ms": (B * M * 3 * 4 + B * M + n_rows * c * 2 + B * M * c * 4)
         / HBM_BYTES_PER_S * 1e3,
     }
+
+
+def voxelize_case(vx, flat, ext, r=R) -> dict:
+    """Row 10 on one call site's ids and rows."""
+    import torch
+
+    c1 = ext.shape[-1]
+
+    def kernel():
+        return vx.voxelize_contract(flat, ext, r)
+
+    a = kernel()
+    ref = vx.voxelize_contract_plain(flat, ext, r)
+    rows = (flat.long() + torch.arange(B, device="cuda")[:, None]
+            * (r ** 3 + 1)).reshape(-1)
+    vals = ext.to(torch.bfloat16).float().reshape(-1, c1)
+    zeroed = torch.zeros((B * (r ** 3 + 1), c1), device="cuda")
+
+    def from_scratch():
+        return torch.zeros((B * (r ** 3 + 1), c1), device="cuda").index_add_(
+            0, rows, vals)
+
+    return {
+        "shape": f"B{B} M{M} -> {r}^3x{c1}",
+        "max_abs_err": float((a - ref).abs().max()),
+        "max_abs_ref": float(ref.abs().max()),
+        "counts_exact": bool(torch.equal(a[..., -1], ref[..., -1])),
+        "two_calls_identical": bool(torch.equal(a, kernel())),
+        "hot_voxel_points": int(ref[..., -1].max()),
+        "kernel": _both(kernel),
+        "zeros_index_add": _both(from_scratch),
+        "index_add_alone": _both(lambda: zeroed.index_add_(0, rows, vals)),
+        # ids and rows read once, the f32 table written once
+        "bound_ms": (B * M * 4 + B * M * c1 * 4 + B * r ** 3 * c1 * 4)
+        / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def voxelize_sites(vx, points, mask) -> dict:
+    """Row 10 at its two call sites: the default batch's voxel rows, and
+    the sparse model's tile-major ids on track events (C1 2); and on ids
+    uniform over the grid (3/4 of the points real, C1 3: no voxel holds
+    many points)."""
+    import torch
+
+    from pcseg_tpu_torch.data.synthetic import track_events
+
+    flat, ext, _, _ = vx.voxel_rows(points, mask, R)
+    out = {"default": voxelize_case(vx, flat, ext)}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    real = torch.rand((B, M), generator=gen, device="cuda") < 0.75
+    ids = torch.randint(0, R ** 3, (B, M), generator=gen, device="cuda")
+    rows = torch.cat([torch.rand((B, M, 1), generator=gen, device="cuda"),
+                      torch.ones((B, M, 2), device="cuda")], -1)
+    out["uniform"] = voxelize_case(vx, torch.where(real, ids, R ** 3),
+                                   torch.where(real[..., None], rows, 0.0))
+    pts = torch.from_numpy(track_events(B, M, 0)).cuda()
+    tmask = torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda")
+    t = 8
+    flat, _, _ = vx.voxel_indices(pts[..., :3].float(), tmask, R)
+    i, j, k = flat // (R * R), (flat // R) % R, flat % R
+    nt = R // t
+    tid = ((i // t) * nt + (j // t)) * nt + (k // t)
+    intra = ((i % t) * t + (j % t)) * t + (k % t)
+    blocked = torch.where(flat >= R ** 3, R ** 3, tid * t ** 3 + intra)
+    ext = torch.cat([pts[..., 3:].float(),
+                     torch.ones_like(pts[..., :1].float())], -1)
+    out["sparse"] = voxelize_case(vx, blocked, ext)
+    return out
 
 
 def main() -> int:
@@ -225,6 +331,7 @@ def main() -> int:
     ap.add_argument("--tree", default=None)
     ap.add_argument("--tag", default=None)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--only", choices=("voxelize",), default=None)
     args = ap.parse_args()
 
     import torch
@@ -239,9 +346,33 @@ def main() -> int:
     vx, pad_events, synthetic_events = _package(args.tree)
     res = {"card": card, "tree": args.tree or ".",
            "shape": f"B{B} M{M} R{R} C{C}", "cases": {}}
-    for name, u, mask, go in batches(vx, pad_events, synthetic_events):
+    points, mask = default_points(pad_events, synthetic_events)
+    res["voxelize"] = voxelize_sites(vx, points, mask)
+    if args.only:
+        return _emit(res, args)
+    for name, u, mask_u, go in batches(vx, pad_events, synthetic_events):
         res["cases"][name] = {"scatter": scatter_case(vx, u, go),
-                              "gather": gather_case(vx, u, mask)}
+                              "gather": gather_case(vx, u, mask_u)}
+    # the 40-class 32^3 U-Net's devoxelize pair
+    _, _, lo, scale = vx.voxel_rows(points, mask, WIDE_R)
+    u = vx.trilinear_u(points, mask, lo, scale)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    go = torch.randn((B, M, WIDE_C), generator=gen, device="cuda") * 1e-3
+    go = torch.where(mask[..., None], go, 0.0)
+    wide = {}
+    for name, fn in (("scatter", lambda: scatter_case(vx, u, go, WIDE_R)),
+                     ("gather", lambda: gather_case(vx, u, mask, WIDE_R,
+                                                    WIDE_C))):
+        try:
+            wide[name] = fn()
+        except ValueError as err:      # a checkout that refuses C 40
+            wide[name] = {"refused": str(err)}
+    res["wide"] = {"shape": f"B{B} M{M} R{WIDE_R} C{WIDE_C}", **wide}
+    return _emit(res, args)
+
+
+def _emit(res: dict, args) -> int:
+    """Print the JSON line, and write it under ``--out``."""
     line = json.dumps(res)
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -1,7 +1,8 @@
-"""Rows 20 (backward) and 9: the sparse U-Net's LayerNorm backward
+"""Rows 20 (backward), 9 and 8: the sparse U-Net's LayerNorm backward
 (csrc/fused_ln.cu, ``bias_ln_relu_mask_bwd``) and the voxel head's
-backward (csrc/conv3d_block.cu, ``head_grid2_bwd``), timed against their
-bounds and one PyTorch call of the same function.
+backward and forward (csrc/conv3d_block.cu, ``head_grid2_bwd``,
+``head_grid2``), timed against their bounds and one PyTorch call of the
+same function.
 
     python -m pcseg_tpu_torch.profile_lnhead [--tree DIR] [--out DIR]
 
@@ -11,10 +12,10 @@ Shapes, bf16 throughout:
   (chip_smoke.py's B8 x 8192 track events, seed 0, 64^3 in tiles of 8^3,
   capacities (64, 32)): level 0, 262,144 rows x 64, and level 1, 131,072
   x 128, each row active where its tile is real;
-- row 9 at the default voxel step's head, B8 64^3 x 16 -> 4, and at two
-  wider heads the JAX package's fused head takes: 20 classes on a 32^3
-  grid (16 channels) and C 128 -> 8 classes on a 32^3 grid (a checkout
-  whose kernels refuse a width records the refusal).
+- rows 9 and 8 at the default voxel step's head, B8 64^3 x 16 -> 4, and
+  at wider heads the JAX package's fused head takes: 20 and 40 classes on
+  a 32^3 grid (16 channels) and C 128 -> 8 classes on a 32^3 grid (a
+  checkout whose kernels refuse a width records the refusal).
 
 For each: the op's device time (torch.profiler, every kernel of the call
 summed, each kernel's share beside it) and its CUDA-event time around
@@ -24,8 +25,10 @@ checkout has one; the bound (the larger of the bytes it must move, each
 input read once and each output written once, at 3.35 TB/s, and its
 flops at 989 TFLOP/s bf16 / 67 TFLOP/s f32); and the library call:
 ``native_layer_norm_backward`` (which leaves out the mask, the ReLU and
-the pre-bias) and, for the head, its two bf16 products (``gy @ W^T``,
-``s^T @ gy``).
+the pre-bias) and, for the head's backward, its two bf16 products (``gy
+@ W^T``, ``s^T @ gy``), for its forward the bf16 product of the activated
+grid and the weights (``s @ W``). Row 8 also reports its plain version's
+device time.
 
 ``--tree DIR`` imports ``pcseg_tpu_torch`` from the checkout at DIR (an
 earlier commit unpacked with ``git archive``), as profile_blockconv.py
@@ -43,6 +46,12 @@ them), each with one part of ``head_bwd_kernel`` changed:
   results, the same bits).
 
 Each variant's max |d| from the regular build's outputs is reported.
+Where the checkout's row 8 is the older one-thread-a-voxel kernel (it
+launches ``head_fwd_launch<kHeadMaxNC>`` above 4 classes), ``--variants``
+also times row 8 at its shapes from a build with
+``head_fwd_launch<kHeadSlots>`` there (passes of 16 class slots, as its
+comment says): the dispatch's share of its time apart from the design's;
+this works with ``--tree`` too.
 
 One JSON line at the end; with ``--out`` it is also written to
 DIR/profile_lnhead[_<tag>].json.
@@ -66,6 +75,7 @@ F32_FLOP_PER_S = 67e12
 LN_SHAPES = [("level 0", 0, 64), ("level 1", 1, 128)]
 HEAD_SHAPES = [("B8 64^3x16->4", 8, 64, 16, 4),
                ("B8 32^3x16->20", 8, 32, 16, 20),
+               ("B8 32^3x16->40", 8, 32, 16, 40),
                ("B8 32^3x128->8", 8, 32, 128, 8)]
 
 
@@ -147,6 +157,96 @@ def head_case(cb, b, r, c, nc, gen) -> dict:
             "kernel": _both(lambda: cb.head_grid2_bwd_cuda(*args)),
             "library": _both(lambda: (g @ wq.t(), a.t() @ g)),
             "bound_ms": bound, "bound_by": by}
+
+
+def head_fwd_inputs(b, r, c, nc, gen):
+    import torch
+
+    x = torch.randn((b, r, r, r, c), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.rand((1, 1, 1, c, nc), generator=gen, device="cuda") - 0.5
+    bias = torch.randn((nc,), generator=gen, device="cuda") * 0.1
+    scale = torch.rand((b, c), generator=gen, device="cuda") + 0.5
+    shift = torch.randn((b, c), generator=gen, device="cuda") * 0.3
+    return x, w, bias, scale, shift
+
+
+def head_fwd_case(cb, b, r, c, nc, gen) -> dict:
+    """Row 8: device and op ms, max |err| against the plain version and
+    whether every element is within one bf16 step of it (2^-7 |ref| +
+    1e-4 max |ref|), two calls bit for bit, the bound (x read, y written,
+    the weights, bias, scale and shift read; 2 n c nc flops bf16), the
+    plain version's device ms and one bf16 matmul of the activated grid."""
+    import torch
+
+    args = head_fwd_inputs(b, r, c, nc, gen)
+    got = cb.head_grid2_cuda(*args)
+    torch.cuda.synchronize()
+    ref = cb.head_grid2_plain(*args).float()
+    d = (got.float() - ref).abs()
+    n = b * r ** 3
+    a = cb.act(*args[:1], *args[3:]).reshape(n, c)
+    wq = args[1].reshape(c, nc).to(torch.bfloat16)
+    bound, by = _bound(n * c * 2 + n * nc * 2 + c * nc * 4 + nc * 4
+                       + 2 * b * c * 4, 2 * n * c * nc, BF16_FLOP_PER_S)
+    return {"shape": f"B{b} {r}^3x{c}->{nc} bf16",
+            "max_abs_err": float(d.max()),
+            "within_bf16_step": bool((d <= 2.0 ** -7 * ref.abs()
+                                      + 1e-4 * ref.abs().max()).all()),
+            "two_calls_identical": bool(torch.equal(
+                got, cb.head_grid2_cuda(*args))),
+            "kernel": _both(lambda: cb.head_grid2_cuda(*args)),
+            "plain": _both(lambda: cb.head_grid2_plain(*args)),
+            "library": _both(lambda: a @ wq),
+            "bound_ms": bound, "bound_by": by}
+
+
+# the line of csrc/conv3d_block.cu the row-8 variant edits (present only
+# in a checkout whose forward is the older one-thread-a-voxel kernel)
+_FWD_VARIANT_EDITS = {
+    "slots16": (("head_fwd_launch<kHeadMaxNC>(",
+                 "head_fwd_launch<kHeadSlots>("),),
+}
+
+
+def head_fwd_variants(cb, gen) -> dict:
+    """Row 8 at HEAD_SHAPES from each applicable variant build beside the
+    regular one: device ms, and max |d| from the regular build's y."""
+    import torch
+
+    from pcseg_tpu_torch.ops import _build
+
+    src = (_build._CSRC / "conv3d_block.cu").read_text()
+    libs = {"regular": _build.load_library("conv3d_block")}
+    for name, edits in _FWD_VARIANT_EDITS.items():
+        if not all(old in src for old, _ in edits):
+            continue
+        text = src
+        for old, new in edits:
+            text = text.replace(old, new, 1)
+        libs[name] = _build.build_variant("conv3d_block", f"lnhead_{name}",
+                                          (), text)
+    if len(libs) == 1:
+        return {}
+    out = {}
+    for label, b, r, c, nc in HEAD_SHAPES:
+        args = head_fwd_inputs(b, r, c, nc, gen)
+        row, ref = {}, None
+        for name, lib in libs.items():
+            saved = _build._LOADED["conv3d_block"]
+            _build._LOADED["conv3d_block"] = lib
+            try:
+                got = cb.head_grid2_cuda(*args)
+                row[name] = {"kernel": _both(
+                    lambda: cb.head_grid2_cuda(*args))}
+            finally:
+                _build._LOADED["conv3d_block"] = saved
+            if ref is None:
+                ref = got
+            row[name]["max_abs_d_vs_regular"] = float(
+                (got.float() - ref.float()).abs().max())
+        out[label] = row
+    return out
 
 
 # the lines of csrc/conv3d_block.cu each row-9 variant edits
@@ -232,7 +332,7 @@ def main() -> int:
     tiles = levels(bsp, track_events)
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {"card": card, "tree": args.tree or ".", "ln_bwd": {},
-           "head_bwd": {}}
+           "head_bwd": {}, "head_fwd": {}}
     for label, lv, c in LN_SHAPES:
         res["ln_bwd"][label] = ln_case(fl, tiles[lv].active, c, gen)
     for label, b, r, c, nc in HEAD_SHAPES:
@@ -240,8 +340,15 @@ def main() -> int:
             res["head_bwd"][label] = head_case(cb, b, r, c, nc, gen)
         except (ValueError, RuntimeError) as err:   # a checkout before
             res["head_bwd"][label] = {"refused": str(err)}   # the repair
-    if args.variants and not args.tree:
-        res["head_bwd_variants"] = head_variants(cb, gen)
+    for label, b, r, c, nc in HEAD_SHAPES:
+        try:
+            res["head_fwd"][label] = head_fwd_case(cb, b, r, c, nc, gen)
+        except (ValueError, RuntimeError) as err:
+            res["head_fwd"][label] = {"refused": str(err)}
+    if args.variants:
+        if not args.tree:
+            res["head_bwd_variants"] = head_variants(cb, gen)
+        res["head_fwd_variants"] = head_fwd_variants(cb, gen)
     line = json.dumps(res)
     if args.out:
         os.makedirs(args.out, exist_ok=True)

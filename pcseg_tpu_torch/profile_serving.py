@@ -101,7 +101,8 @@ STAGES = (("gp_wgmma_fwd", "global_pool"),
           ("ce_seg4_wide_fwd_kernel", "seg4_ce"),
           ("ce_seg4_wide_bwd_kernel", "seg4_ce"),
           ("dropout_kernel", "dropout"),
-          ("head_fwd_kernel", "head"), ("head_bwd_kernel", "head_bwd"),
+          ("head_fwd_kernel", "head"), ("head_fwd_stream_kernel", "head"),
+          ("head_bwd_kernel", "head_bwd"),
           ("head_bwd_sum_kernel", "head_bwd"),
           ("voxelize_contract_kernel", "voxelize"),
           ("block_conv", "block_conv"),

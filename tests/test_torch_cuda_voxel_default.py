@@ -47,16 +47,22 @@ def _bf16_close(got, ref):
                  + 1e-4 * r.abs().max()).all()), float((g - r).abs().max())
 
 
-@pytest.mark.parametrize("r", [6, 16])
-def test_voxelize_contract_kernel(gen, r):
-    b, m, c1 = 3, 2000, 3
+@pytest.mark.parametrize("r,c1", [(6, 3), (16, 3), (16, 2), (64, 3),
+                                  (8, 5), (8, 40)])
+def test_voxelize_contract_kernel(gen, r, c1):
+    """The voxelizer (a thread a point, float atomics) against its plain
+    version: counts exact, sums to 1e-5 (bf16 values in f32, both sides
+    in another order), nothing for masked points; the default row width
+    (C1 3), the sparse model's (2), an odd one and one past 32 columns."""
+    b, m = 3, 2000
     r3 = r ** 3
     flat = torch.randint(0, r3, (b, m), generator=gen, device="cuda")
     flat[0, :300] = 5                       # one voxel hit by many points
     masked = torch.rand((b, m), generator=gen, device="cuda") < 0.2
     masked[-1] = True                       # an all-masked dummy row
     flat = torch.where(masked, r3, flat)
-    ext = torch.cat([torch.rand((b, m, 1), generator=gen, device="cuda") * 4,
+    ext = torch.cat([torch.rand((b, m, c1 - 2), generator=gen,
+                                device="cuda") * 4,
                      torch.ones((b, m, 2), device="cuda")], -1)
     ext = torch.where(masked[..., None], 0.0, ext)
     before = vx.LAUNCHES["voxelize_contract"]
@@ -67,6 +73,35 @@ def test_voxelize_contract_kernel(gen, r):
     assert torch.equal(got[..., -1], ref[..., -1])         # counts
     assert not got[-1].any()
     _close(got, ref, 1e-5)
+
+
+def test_voxelize_contract_at_both_call_sites(gen):
+    """The two callers' shapes: the default voxel model's voxelize (B8 x
+    8192 at 64^3, C1 3, 2,000 points of event 0 on one voxel) and the
+    sparse model's block-sparse voxelize (tile-major ids, C1 2): each
+    against the plain version."""
+    from pcseg_tpu_torch.ops import block_sparse as bsp
+
+    b, m, r = 8, 8192, 64
+    pts = torch.cat([_rand(gen, b, m, 3, scale=5.0),
+                     torch.rand((b, m, 1), generator=gen, device="cuda")],
+                    -1)
+    pts[0, 1:2001, :3] = pts[0, 0, :3]
+    mask = torch.rand((b, m), generator=gen, device="cuda") < 0.9
+    mask[-1] = False
+    flat, ext, _, _ = vx.voxel_rows(pts, mask, r)
+    got = vx.voxelize_contract(flat, ext, r)
+    ref = vx.voxelize_contract_plain(flat, ext, r)
+    assert torch.equal(got[..., -1], ref[..., -1])
+    _close(got, ref, 1e-5)
+    before = vx.LAUNCHES["voxelize_contract"]
+    bs, _, _ = bsp.block_sparse_voxelize(pts, mask, r, 512, 8)
+    plain, _, _ = bsp.block_sparse_voxelize(pts, mask, r, 512, 8,
+                                            plain=True)
+    torch.cuda.synchronize()
+    assert vx.LAUNCHES["voxelize_contract"] == before + 1
+    assert torch.equal(bs.active, plain.active)
+    _close(bs.feats, plain.feats, 1e-5)
 
 
 # every instantiated width at every grid size, and two widths that take
@@ -104,14 +139,29 @@ def test_trilinear_gather_kernel(gen, r, c):
     assert torch.equal(vx.trilinear_gather(u, mask, shifted), got)
 
 
-def test_trilinear_gather_refuses_33_channels_before_any_launch(gen):
-    u = torch.rand((1, 64, 3), generator=gen, device="cuda") * 8
-    mask = torch.ones((1, 64), dtype=torch.bool, device="cuda")
-    g2 = _rand(gen, 1, 64, 8 * 33).to(torch.bfloat16)
+@pytest.mark.parametrize("c", [33, 40, 64, 121])
+def test_trilinear_gather_kernel_past_32_channels(gen, c):
+    """Above 32 channels (121: the most classes the matmul devoxelize
+    takes at 32^3) a thread takes 32 columns of a point: against the
+    plain version as below 32, and each column chunk's bits those of the
+    same channels gathered alone."""
+    b, m, r = 3, 3000, 16
+    u = torch.rand((b, m, 3), generator=gen, device="cuda") * (r + 1) - 1
+    u[1, :50] = u[1, :50].floor()
+    mask = torch.rand((b, m), generator=gen, device="cuda") < 0.8
+    mask[-1] = False
+    g2 = _rand(gen, b, r * r, r * c).to(torch.bfloat16)
     before = vx.LAUNCHES["trilinear_gather"]
-    with pytest.raises(ValueError, match="at most 32 channels"):
-        vx.trilinear_gather(u, mask, g2)
-    assert vx.LAUNCHES["trilinear_gather"] == before
+    got = vx.trilinear_gather(u, mask, g2)
+    torch.cuda.synchronize()
+    assert vx.LAUNCHES["trilinear_gather"] == before + 1
+    _close(got, vx.trilinear_gather_plain(u, mask, g2), 1e-5)
+    assert not got[~mask].any()
+    grid = g2.reshape(b, r * r, r, c)
+    for k0 in range(0, c, 32):
+        part = grid[..., k0:k0 + 32].reshape(b, r * r, -1).contiguous()
+        assert torch.equal(got[..., k0:k0 + 32],
+                           vx.trilinear_gather(u, mask, part))
 
 
 @pytest.mark.parametrize("r,c,nc", [(8, 16, 4), (16, 16, 4), (8, 16, 3),
@@ -143,6 +193,31 @@ def test_head_grid2_kernels(gen, r, c, nc):
     # the backward sums in a fixed order: a second call gives the same bits
     for a, p in zip(gk, cb.head_grid2_bwd_cuda(x, gy, w, scale, shift)):
         assert torch.equal(a, p)
+
+
+HEAD_FWD_WIDTHS = [(c, nc) for c in range(8, 129, 8)
+                   for nc in (1, 3, 4, 8, 13, 20, 40, 121, 128)]
+
+
+@pytest.mark.parametrize("c,nc", HEAD_FWD_WIDTHS)
+def test_head_grid2_forward_every_width(gen, c, nc):
+    """Row 8 on the tensor cores at every channel count it takes and
+    class counts from 1 to 128 (odd ones, one and several n8 tiles, 40
+    and 121 as the 32^3 models have), at a grid whose voxels end in a
+    partial tile: the plain version's y within one bf16 step, two calls
+    bit for bit."""
+    b, r = 2, 7
+    x = _rand(gen, b, r, r, r, c).to(torch.bfloat16)
+    w = (torch.rand((1, 1, 1, c, nc), generator=gen, device="cuda") - 0.5)
+    bias = _rand(gen, nc, scale=0.1)
+    scale = torch.rand((b, c), generator=gen, device="cuda") + 0.5
+    shift = _rand(gen, b, c, scale=0.3)
+    before = cb.LAUNCHES["head_grid2"]
+    y = cb.head_grid2_cuda(x, w, bias, scale, shift)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["head_grid2"] == before + 1
+    _bf16_close(y, cb.head_grid2_plain(x, w, bias, scale, shift))
+    assert torch.equal(y, cb.head_grid2_cuda(x, w, bias, scale, shift))
 
 
 def test_default_model_launches_and_matches_plain(gen):

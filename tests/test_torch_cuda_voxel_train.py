@@ -403,14 +403,40 @@ def test_trilinear_scatter_kernel(gen, r, c):
     assert not got[2].any()
 
 
-def test_trilinear_scatter_refuses_33_channels_before_any_launch(gen):
-    u = torch.rand((1, 64, 3), generator=gen, device="cuda") * 8
-    go = _rand(gen, 1, 64, 33)
+@pytest.mark.parametrize("c", [33, 40, 64, 121])
+def test_trilinear_scatter_kernel_past_32_channels(gen, c):
+    """Above 32 channels (121: the most classes the matmul devoxelize
+    takes at 32^3) the tiles go 32 columns at a time: against the plain
+    version as below 32, two calls bit for bit, and each column chunk's
+    bits those of the same channels scattered as a 32-channel input (the
+    same plan: each channel's sums keep their order); a row of one chunk
+    past a block's shared memory,
+    or another output dtype, refused before any launch."""
+    r = 16
+    u, mask = _devox_edge_inputs(gen, r, c)
+    go = torch.where(mask[..., None], _rand(gen, 3, u.shape[1], c), 0.0)
     before = vx.LAUNCHES["trilinear_scatter"]
-    with pytest.raises(ValueError, match="at most 32 channels"):
-        vx.trilinear_scatter(u, go, 8)
+    got = vx.trilinear_scatter(u, go, r)
+    half = vx.trilinear_scatter(u, go, r, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert vx.LAUNCHES["trilinear_scatter"] == before + 2
+    ref = vx.trilinear_scatter_plain(u, go, r)
+    for event in range(2):
+        _sum_close(got[event], ref[event])
+    assert torch.equal(got, vx.trilinear_scatter(u, go, r))
+    assert torch.equal(half, got.to(torch.bfloat16))
+    assert not got[2].any()
+    for k0 in range(0, c, 32):
+        # a 32-channel input has the same plan (tiles, lists, orders)
+        part = torch.zeros_like(go[..., :32])
+        part[..., :min(32, c - k0)] = go[..., k0:k0 + 32]
+        assert torch.equal(got[..., k0:k0 + 32],
+                           vx.trilinear_scatter(u, part, r)[..., :c - k0])
+    before = vx.LAUNCHES["trilinear_scatter"]
+    with pytest.raises(ValueError, match="shared memory"):
+        vx.trilinear_scatter(u[:, :64] * 100, go[:, :64], 2000)
     with pytest.raises(ValueError, match="f32 or bf16"):
-        vx.trilinear_scatter(u, go[..., :4], 8, out_dtype=torch.float16)
+        vx.trilinear_scatter(u, go, r, out_dtype=torch.float16)
     assert vx.LAUNCHES["trilinear_scatter"] == before
 
 

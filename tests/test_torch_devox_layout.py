@@ -30,9 +30,10 @@ SRC = Path(tv.__file__).resolve().parents[1] / "csrc" / "onehot_contract.cu"
 
 
 def _cfg():
-    """ScatterCfg's constants and kMaxC, evaluated from the source."""
+    """ScatterCfg's constants and kChunkC, evaluated from the source."""
     src = SRC.read_text()
-    env = {"kMaxC": int(re.search(r"constexpr int kMaxC = (\d+);", src)[1])}
+    env = {"kChunkC": int(re.search(r"constexpr int kChunkC = (\d+);",
+                                    src)[1])}
     body = re.search(r"struct ScatterCfg \{(.*?)\n\};", src, re.S)[1]
     for name, expr in re.findall(r"static constexpr int (\w+) =\s*([^;]+);",
                                  body):
@@ -44,10 +45,15 @@ CFG = _cfg()
 
 
 def plan(b, m, r, c):
-    """scatter_plan: None where the kernels take no such call."""
-    if not (0 < b <= 65535 and m > 0 and r > 0 and 0 < c <= CFG["kMaxC"]):
+    """scatter_plan: None where the kernels take no such call. Above
+    kChunkC channels the tiles go a column chunk at a time: ``full`` chunks
+    of kChunkC, then one of ``tail``; a tile's shared row is one chunk
+    (``cw``) wide."""
+    if not (0 < b <= 65535 and m > 0 and r > 0 and c > 0
+            and c // CFG["kChunkC"] <= 65535):
         return None
-    rows, row_bytes = r * r, r * c * 4
+    cw = min(c, CFG["kChunkC"])
+    rows, row_bytes = r * r, r * cw * 4
     band = min(max(CFG["kTileBytes"] // row_bytes, 1), rows)
     w = CFG["kWarps"]
 
@@ -62,7 +68,9 @@ def plan(b, m, r, c):
     while wl > 1 and smem(wl) > CFG["kSmemMax"]:
         wl //= 2
     h = -(-rows // CFG["kMaxBins"])
-    return {"rows": rows, "band": band, "w": w, "bands": -(-rows // band),
+    return {"rows": rows, "cw": cw, "full": c // CFG["kChunkC"],
+            "tail": c % CFG["kChunkC"], "band": band, "w": w,
+            "bands": -(-rows // band),
             "h": h, "bins": -(-rows // h),
             "chunks": -(-m // CFG["kBinThreads"]), "ent": 1 + -(-c // 8),
             "smem": smem(w), "wl": wl, "smem_l": smem(wl)}
@@ -73,18 +81,28 @@ def test_plan_at_the_step_shape_and_its_limits():
     tile and a tag a cell and tap (48 KB), 16 warps with a copy each for a
     long tile (96 KB), bins of 2 rows, 16 binning blocks an event, entries
     of 32 bytes; R128 x C32 a row a tile, 8 warps for a long one; a R512 x
-    C32 row (64 KB) leaves 2 warps; 33 channels, or a row past a block's
-    shared memory, refused."""
+    C32 row (64 KB) leaves 2 warps; past 32 channels (33, 40, 121: the
+    classes the matmul devoxelize takes at 32^3) column chunks of 32 with
+    the tiles of a 32-channel plan and whole entries; a row of one chunk
+    past a block's shared memory refused, at any C."""
     assert plan(8, 8192, 64, 4) == {
-        "rows": 4096, "band": 4, "w": 8, "bands": 1024, "h": 2,
-        "bins": 2048, "chunks": 16, "ent": 2, "smem": 49152, "wl": 16,
-        "smem_l": 98304}
+        "rows": 4096, "cw": 4, "full": 0, "tail": 4, "band": 4, "w": 8,
+        "bands": 1024, "h": 2, "bins": 2048, "chunks": 16, "ent": 2,
+        "smem": 49152, "wl": 16, "smem_l": 98304}
     assert plan(2, 3000, 128, 32)["band"] == 1
     assert (plan(2, 3000, 128, 32)["w"], plan(2, 3000, 128, 32)["wl"]) \
         == (8, 8)
     assert (plan(1, 10, 512, 32)["w"], plan(1, 10, 512, 32)["wl"]) == (2, 2)
-    assert plan(8, 8192, 64, 33) is None
+    at32 = plan(8, 8192, 32, 32)
+    for c, full, tail in ((33, 1, 1), (40, 1, 8), (121, 3, 25)):
+        p = plan(8, 8192, 32, c)
+        assert (p["cw"], p["full"], p["tail"]) == (32, full, tail)
+        assert p["ent"] == 1 + -(-c // 8)
+        assert {k: p[k] for k in ("band", "w", "smem", "wl", "smem_l")} == \
+            {k: at32[k] for k in ("band", "w", "smem", "wl", "smem_l")}
+    assert plan(8, 8192, 64, 33)["smem"] == plan(8, 8192, 64, 32)["smem"]
     assert plan(1, 10, 2000, 32) is None
+    assert plan(1, 10, 2000, 121) is None
     assert CFG["kMaxBins"] == 4 * CFG["kBinThreads"]
     assert CFG["kBinSmem"] <= CFG["kSmemMax"]
 

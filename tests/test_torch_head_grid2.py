@@ -56,9 +56,10 @@ def _sum_close(got, ref, name):
                                atol=1e-3 * np.abs(ref).max(), err_msg=name)
 
 
-# (16, 20) and (128, 8): widths the JAX fused head takes past the
-# bench's (20 classes, as at 32^3; C 128)
-@pytest.mark.parametrize("c,nc", [(16, 4), (32, 5), (16, 20), (128, 8)])
+# (16, 20), (16, 40) and (128, 8): widths the JAX fused head takes past
+# the bench's (20 and 40 classes, as at 32^3; C 128)
+@pytest.mark.parametrize("c,nc", [(16, 4), (32, 5), (16, 20), (128, 8),
+                                  (16, 40)])
 def test_head_grid2_fwd_and_vjp_match_jax(c, nc):
     rng = np.random.default_rng(30 + c)
     b, r = 2, 8

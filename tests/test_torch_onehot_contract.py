@@ -55,6 +55,63 @@ def test_voxelize_contract_matches_jax_kernel():
                                atol=1e-6 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("r,c1", [(8, 2), (5, 5), (4, 40), (3, 1),
+                                  (16, 3), (2, 4)])
+def test_voxelize_contract_widths_match_jax_kernel(r, c1):
+    """The sparse model's row width (C1 2), odd and wide rows, a grid of
+    8 and of 4,096 voxels, against the JAX kernel in interpret mode:
+    counts exact, sums as above, an all-masked event zero."""
+    rng = np.random.default_rng(r * 100 + c1)
+    b, m = 3, 400
+    r3 = r ** 3
+    flat = rng.integers(0, r3, (b, m)).astype(np.int32)
+    flat[0, ::4] = r3 // 2                    # one voxel hit by 100 points
+    masked = rng.random((b, m)) < 0.2
+    masked[-1] = True
+    flat[masked] = r3
+    ext = np.concatenate([rng.normal(0, 2, (b, m, c1 - 1)),
+                          np.ones((b, m, 1))], axis=-1).astype(np.float32)
+    ext[masked] = 0.0
+    ref = np.asarray(joc.voxelize_contract(jnp.asarray(flat),
+                                           jnp.asarray(ext), r,
+                                           interpret=True)).reshape(b, r3, c1)
+    got = tv.voxelize_contract(torch.from_numpy(flat), torch.from_numpy(ext),
+                               r).numpy()
+    np.testing.assert_array_equal(got[..., -1], ref[..., -1])
+    assert got[0, r3 // 2, -1] >= 75
+    assert not got[-1].any()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("round_bf16", [True, False])
+def test_voxelize_contract_plain_adds_nothing_for_the_sentinel(dtype,
+                                                              round_bf16):
+    """The plain version adds a row at its voxel id, rounded to bf16 or
+    not, and adds nothing for the sentinel R^3 of masked points."""
+    r, c1 = 3, 2
+    flat = torch.tensor([[0, 26, 27, 26], [27, 27, 5, 0]], dtype=dtype)
+    ext = torch.tensor([[[1.0, 1.0], [2.0, 1.0], [9.0, 1.0],
+                         [1.0 + 2 ** -12, 1.0]],
+                        [[7.0, 1.0], [7.0, 1.0], [3.0, 1.0], [4.0, 1.0]]])
+    got = tv.voxelize_contract_plain(flat, ext, r, round_bf16=round_bf16)
+    assert got.shape == (2, 27, c1)
+    want = torch.zeros(2, 27, c1)
+    want[0, 0] = torch.tensor([1.0, 1.0])
+    want[0, 26] = torch.tensor([3.0 if round_bf16 else 3.0 + 2 ** -12,
+                                2.0])
+    want[1, 5] = torch.tensor([3.0, 1.0])
+    want[1, 0] = torch.tensor([4.0, 1.0])
+    assert torch.equal(got, want)
+
+
+def test_voxelize_contract_plain_of_an_all_masked_batch_is_zero():
+    flat = torch.full((2, 50), 4 ** 3)
+    ext = torch.randn(2, 50, 3)
+    assert not tv.voxelize_contract_plain(flat, ext, 4).any()
+
+
 def test_trilinear_gather_matches_jax_kernel():
     rng = np.random.default_rng(21)
     b, m, r, c = 2, 600, 6, 4
@@ -71,6 +128,39 @@ def test_trilinear_gather_matches_jax_kernel():
     np.testing.assert_allclose(got, ref, rtol=0,
                                atol=1e-5 * np.abs(ref).max())
     np.testing.assert_array_equal(got[~mask], 0.0)
+
+
+@pytest.mark.parametrize("c", [33, 40])
+def test_trilinear_pair_past_32_channels_matches_jax_kernels(c):
+    """Rows 13 and 11 above 32 channels (the classes the matmul devoxelize
+    takes at 32^3 reach 121): the port's plain gather and scatter against
+    the JAX kernels in interpret mode, f32 sums of the same bf16 terms in
+    another order, to 1e-5 of scale."""
+    rng = np.random.default_rng(24 + c)
+    b, m, r = 2, 300, 5
+    u = (rng.random((b, m, 3)) * (r + 1) - 1).astype(np.float32)
+    u[0, :20] = np.floor(u[0, :20])
+    mask = rng.random((b, m)) < 0.85
+    g2 = rng.normal(size=(b, r * r, r * c)).astype(np.float32)
+    ref = np.asarray(joc.trilinear_gather(jnp.asarray(u), jnp.asarray(mask),
+                                          jnp.asarray(g2), interpret=True))
+    got = tv.trilinear_gather(torch.from_numpy(u), torch.from_numpy(mask),
+                              torch.from_numpy(g2)).numpy()
+    assert got.shape == (b, m, c)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    np.testing.assert_array_equal(got[~mask], 0.0)
+
+    go = np.where(mask[..., None], rng.normal(size=(b, m, c)), 0.0)
+    go = go.astype(np.float32)
+    ref = np.asarray(joc.trilinear_scatter(jnp.asarray(u), jnp.asarray(go),
+                                           r, interpret=True))
+    got = tv.trilinear_scatter(torch.from_numpy(u), torch.from_numpy(go),
+                               r).numpy()
+    assert got.shape == (b, r ** 3, c)
+    # (B, R^2, R*C) and (B, R^3, C) are the same row-major order
+    np.testing.assert_allclose(got, ref.reshape(got.shape), rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("r", [8, 64, 100, 128])

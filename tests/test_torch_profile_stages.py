@@ -123,10 +123,19 @@ def test_devoxelize_kernels_have_their_stage(name, stage):
      "int, int, float*, float*, float*)", "head_bwd"),
     (NS + "head_fwd_kernel<16>(__nv_bfloat16 const*, float const*)",
      "head"),
+    # row 8: the tensor-core kernel and the streaming route
+    (NS + "head_fwd_kernel<1, 4>((anonymous namespace)::HeadFwdArgs)",
+     "head"),
+    ("(anonymous namespace)::head_fwd_stream_kernel(__nv_bfloat16 const*, "
+     "float const*)", "head"),
+    # row 10: the voxelizer's kernel
+    ("(anonymous namespace)::voxelize_contract_kernel(int const*, float "
+     "const*, float*, long long, int, int, int)", "voxelize"),
 ])
 def test_ln_and_head_kernels_have_their_stage(name, stage):
-    """Rows 20 and 9 (both backward routes and the sum kernels) book under
-    "ln" / "ln_bwd" and "head" / "head_bwd", not as glue."""
+    """Rows 20, 9, 8 and 10 (both backward routes and the sum kernels,
+    both head routes, the voxelizer's kernel) book under "ln" /
+    "ln_bwd", "head" / "head_bwd" and "voxelize", not as glue."""
     assert stage_of(name) == stage
 
 
