@@ -88,9 +88,10 @@
    kernel, plain version, bound and one PyTorch call of the same function
    (index_add_, grid_sample, bf16 matmuls; yardsticks only); the gather
    and voxelizer by device time (the voxelizer's yardstick torch.zeros +
-   index_add_, the same function from scratch, beside index_add_ alone
-   and its own atomics kernel without the zero fill), also at the sparse
-   model's call site (tile-major ids of phase 13's track events, C1 2);
+   index_add_, the same function from scratch, beside index_add_ alone;
+   the voxelizer held to one kernel a call, its table's zeros included),
+   also at the sparse model's call site (tile-major ids of phase 13's
+   track events, C1 2) and on ids uniform over the grid (C1 3);
    the trilinear scatter again on this batch,
    as phase 7 holds and times it, and the gather and the scatter at 33,
    40, 64 and 121 channels on a 32^3 grid (two calls bit for bit). The
@@ -1976,14 +1977,35 @@ def default_batch():
     return torch.from_numpy(pts).cuda(), torch.from_numpy(mask).cuda()
 
 
+def one_kernel_a_call(fn, key, iters: int = 10, attempts: int = 3):
+    """(0, ok): ``iters`` warm calls of ``fn`` launch no device kernel or
+    memset whose name lacks ``key``, and at most ``iters`` of those, at
+    least one recorded (torch.profiler; late in a long process it drops
+    launches, so a profile that recorded none is taken again; copies,
+    which another thread of the process may issue meanwhile, are not
+    counted)."""
+    from pcseg_tpu_torch.profile_serving import device_profile
+
+    for _ in range(attempts):
+        res, _ = device_profile(lambda: [fn() for _ in range(iters)])
+        got = {k["name"]: k["calls"] for k in res["kernels"]
+               if not k["name"].startswith("Memcpy")}
+        if got:
+            break
+    n = sum(got.values())
+    print(f"  kernels of {iters} calls: {got}", flush=True)
+    return 0.0, 0 < n <= iters and all(key in name for name in got)
+
+
 def voxelize_site_case(flat, ext, r, case, edges=None):
-    """Row 10 on one call site's ids and rows: kernel vs plain version
-    (counts exact, sums to ONEHOT_TOL, nothing for the all-masked row when
-    there is one), whether two calls give the same bits (float atomics:
-    reported, not held), and its times: the op (id cast, zero fill and
-    atomics kernel) by device time, the atomics kernel alone, the plain
-    version, torch.zeros + index_add_ (the same function from scratch) and
-    index_add_ alone; ``edges``: further (err, ok) checks."""
+    """Row 10 on one call site's ids and rows, int64 as the callers pass
+    them: kernel vs plain version (counts exact, sums to ONEHOT_TOL,
+    nothing for the all-masked row when there is one, one kernel a call:
+    no zero fill, no id cast), whether two calls give the same bits
+    (float atomics: reported, not held), and its times: the op (one
+    launch) by device time, the plain version, torch.zeros + index_add_
+    (the same function from scratch) and index_add_ alone; ``edges``:
+    further (err, ok) checks."""
     import torch
 
     from pcseg_tpu_torch.ops import voxel as vx
@@ -1996,6 +2018,9 @@ def voxelize_site_case(flat, ext, r, case, edges=None):
     hot = int(p[..., -1].max())
     dcnt = float((k[..., -1] - p[..., -1]).abs().max())
     checks = {"sums": _onehot_check(k, p), "counts": (dcnt, dcnt == 0.0),
+              "one kernel": one_kernel_a_call(
+                  lambda: vx.voxelize_contract(flat, ext, r),
+                  "voxelize_contract_kernel"),
               **(edges or {})}
     if bool(flat[-1].eq(r3).all()):     # an all-masked row: nothing
         checks["dummy row"] = (float(k[-1].abs().max()), not k[-1].any())
@@ -2018,7 +2043,7 @@ def voxelize_site_case(flat, ext, r, case, edges=None):
         "shape": f"B{b} M{m} -> {r}^3x{c1}", "max_abs_err": err,
         "hot_voxel_points": hot,
         "ms": device_ms(kernel),
-        # the atomics kernel alone, without the zero fill and id cast
+        # the one launch: the op's device time
         "kernel_ms": kernel_ms(kernel, ("voxelize_contract_kernel",)),
         # float atomics: two calls may differ in their last bits
         "two_calls_identical": bool(torch.equal(k, kernel())),
@@ -2032,10 +2057,11 @@ def voxelize_site_case(flat, ext, r, case, edges=None):
         "index_add_alone_ms": device_ms(lambda: out.index_add_(0, rows,
                                                                vals)),
     }
-    # ids and rows read once, the f32 grid written once; C1 adds a point
+    # ids (as passed) and rows read once, the f32 grid written once; C1
+    # adds a point
     res["bound_ms"], res["bound_by"] = _bound(
-        b * m * 4 + b * m * c1 * 4 + b * r3 * c1 * 4, n_real * c1,
-        F32_FLOP_PER_S)
+        b * m * flat.element_size() + b * m * c1 * 4 + b * r3 * c1 * 4,
+        n_real * c1, F32_FLOP_PER_S)
     return _vox_report(res)
 
 
@@ -2081,6 +2107,25 @@ def sparse_voxelize_case():
     ext = torch.cat([pts[..., 3:].float(),
                      torch.ones_like(pts[..., :1].float())], -1)
     return voxelize_site_case(blocked, ext, r, "voxelize sparse")
+
+
+def uniform_voxelize_case():
+    """Row 10 on ids uniform over the 64^3 grid, 3/4 of B8 x 8192 points
+    real, C1 3 (a feature, occupancy and count): no voxel holds many
+    points, so the table's write sets the time."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    r = VOX_R
+    real = torch.rand((VOX_B, VOX_M), generator=gen, device="cuda") < 0.75
+    ids = torch.randint(0, r ** 3, (VOX_B, VOX_M), generator=gen,
+                        device="cuda")
+    rows = torch.cat([torch.rand((VOX_B, VOX_M, 1), generator=gen,
+                                 device="cuda"),
+                      torch.ones((VOX_B, VOX_M, 2), device="cuda")], -1)
+    return voxelize_site_case(torch.where(real, ids, r ** 3),
+                              torch.where(real[..., None], rows, 0.0), r,
+                              "voxelize uniform")
 
 
 # rows 11 and 13 past 32 channels: the class counts the matmul devoxelize
@@ -3656,9 +3701,10 @@ def main() -> int:
     vox_cases.append(default_scatter_case(points, mask, gen))
     def_cases += default_head_cases(gen)
     head_widths = head_width_cases(gen)
-    # row 10 at the sparse model's call site; rows 13 and 11 past 32
-    # channels
+    # row 10 at the sparse model's call site and on uniform ids; rows 13
+    # and 11 past 32 channels
     row10_sparse = sparse_voxelize_case()
+    row10_uniform = uniform_voxelize_case()
     wide_devox = wide_devox_cases(points, mask, gen)
     del points, mask
 
@@ -3934,6 +3980,7 @@ def main() -> int:
                       def_served, "default_step": def_step,
                       "head_width_cases": head_widths,
                       "voxelize_sparse_site": row10_sparse,
+                      "voxelize_uniform": row10_uniform,
                       "wide_devox_cases": wide_devox,
                       "wide_head": wide,
                       "default_fit": def_fitted, "sparse_cases": sp_cases,

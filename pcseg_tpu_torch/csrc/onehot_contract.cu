@@ -28,10 +28,19 @@
 // path and a scatter or a gather is not. On the card a point touches at
 // most 8 voxels (1 for voxelize), so none of them is a product.
 //
-// voxelize (row 10) is one thread per point, adding its bf16-rounded
-// row into an f32 grid that the caller zeroed with float atomics, bound
-// by the grid it writes (25.2 MB at B8 x R64 with C1 3) and, where many
-// points share a voxel, by that voxel's atomics.
+// voxelize (row 10) is bound by the table it writes (25.2 MB of f32 at B8
+// x R64 with C1 3, against 1.3 MB of int64 ids and rows) and, where many
+// points share a voxel (2,000 consecutive points of one event at the
+// default call site), by that voxel's atomics. It is one cooperative
+// launch of a resident grid. A warp takes 32 consecutive points; it loads
+// its first chunk, groups the lanes of one (event, voxel) and sums their
+// bf16-rounded rows in lane order before the fill, while the memory
+// system is still idle; the grid writes the table's zeros with 16-byte
+// stores; one grid barrier; then each group's lowest lane adds its sums
+// with vector reductions (a hot voxel's 2,000 adds a channel become ~64).
+// The caller allocates the table uninitialized and passes int32 or int64
+// ids as they are. Sums that several warps add land in atomic order, so
+// two calls may differ in their last bits.
 // rowcol_scatter adds a point's C values into its (row, col) cell, the
 // points of a warp that share a cell summed first in lane order
 // (consecutive track points share cells: about 30 a cell at R64), one
@@ -117,6 +126,7 @@
 // Plain C interface (loaded with ctypes): each entry returns
 // cudaGetLastError() after its launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1009,20 +1019,321 @@ __global__ void __launch_bounds__(ScatterCfg::kLongWarps * 32, CW > 8 ? 1 : 2)
 }
 
 // ---------------------------------------------------------------------------
-// row 10: the voxelizer, a thread a point
+// row 10: the voxelizer, one persistent launch
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) voxelize_contract_kernel(
-    const int* __restrict__ flat, const float* __restrict__ ext,
-    float* __restrict__ out, long long n, int m, int r3, int c1) {
-  const long long pt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pt >= n) return;
-  const int f = flat[pt];
-  if (f < 0 || f >= r3) return;            // the masked points' sentinel
-  const long long b = pt / m;
-  float* row = out + (b * r3 + f) * c1;
-  const float* e = ext + pt * c1;
-  for (int k = 0; k < c1; ++k) atomicAdd(row + k, round_bf16(e[k]));
+// out[0..3] += v with one vector reduction (sm_90; out 16-byte aligned)
+__device__ __forceinline__ void red_add_v4(float* out, const float (&v)[4]) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(out),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+// out[0..1] += (x, y) with one vector reduction (out 8-byte aligned)
+__device__ __forceinline__ void red_add_v2(float* out, float x, float y) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(out), "f"(x),
+               "f"(y)
+               : "memory");
+}
+
+// Variant hooks of profile_devox.py --variants (the package builds none
+// of them). PCSEG_VOX_FILL: 0 the table in rounds of a block's 512
+// float4s, block i writing the i-th of each round (the package's); 1 a
+// contiguous slab a block, 16-byte stores; 2 the slab by TMA bulk stores
+// of a zeroed shared buffer. PCSEG_VOX_SLAB_FLAGS (with slabs): a ready
+// flag a slab, released after its fill and acquired before the first add
+// into it, in place of the grid barrier. PCSEG_VOX_FILL_ONLY: 1 stops
+// after the barrier (the fill and barrier's time), 2 after the fill (the
+// fill's alone). PCSEG_VOX_MIN_BLOCKS: the blocks an SM (at most).
+#ifndef PCSEG_VOX_FILL
+#define PCSEG_VOX_FILL 0
+#endif
+#ifndef PCSEG_VOX_SLAB_FLAGS
+#define PCSEG_VOX_SLAB_FLAGS 0
+#endif
+#ifndef PCSEG_VOX_FILL_ONLY
+#define PCSEG_VOX_FILL_ONLY 0
+#endif
+#ifndef PCSEG_VOX_MIN_BLOCKS
+#define PCSEG_VOX_MIN_BLOCKS 2
+#endif
+#if PCSEG_VOX_SLAB_FLAGS && PCSEG_VOX_FILL == 0
+#error "slab flags need the slab fill"
+#endif
+
+constexpr int kVoxThreads = 512;
+constexpr int kVoxMinBlocks = PCSEG_VOX_MIN_BLOCKS;
+constexpr int kVoxWarps = kVoxThreads / 32;
+constexpr int kVoxMaxBlocks = 4096;     // the grid's cap (slab flags)
+constexpr int kVoxZeroBytes = 8192;     // the TMA fill's shared buffer
+
+template <typename Id>
+struct VoxArgs {
+  const Id* flat;     // (B, M) voxel ids, R^3 for masked points
+  const float* ext;   // (B, M, C1) point rows
+  float* out;         // (B, R^3, C1), 16-byte aligned, not initialized
+  long long n;        // points, B * M
+  long long len;      // floats of the table, B R^3 C1
+  long long slab;     // slab fills: floats a block zeroes, a multiple of 4
+  int m, r3, c1;
+  int vec;            // rows read as float4 (C1 % 4 == 0, ext aligned)
+  unsigned epoch;     // slab flags: the value this call's fills release
+};
+
+#if PCSEG_VOX_SLAB_FLAGS
+__device__ unsigned g_vox_ready[kVoxMaxBlocks];
+#endif
+
+// A lane's point: key b R^3 + id (-1 for a masked point or a lane past
+// the end), its index and its first 4 channels, unrounded.
+struct VoxPoint {
+  long long key, pt;
+  float x[4];
+};
+
+// channels k0 .. k0 + 3 of a row (0 past c1)
+__device__ __forceinline__ void vox_load4(const float* e, int k0, int c1,
+                                          bool vec, float (&x)[4]) {
+  if (vec) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(e + k0));
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = k0 + j < c1 ? __ldg(e + k0 + j) : 0.f;
+  }
+}
+
+// Point chunk * 32 + lane; its id and row loads are independent, so both
+// are in flight together.
+template <typename Id>
+__device__ __forceinline__ VoxPoint vox_point(const VoxArgs<Id>& a,
+                                              long long chunk, int lane) {
+  VoxPoint p{-1, chunk * 32 + lane, {0.f, 0.f, 0.f, 0.f}};
+  if (p.pt < a.n) {
+    const long long f = (long long)__ldg(a.flat + p.pt);
+    vox_load4(a.ext + p.pt * a.c1, 0, a.c1, a.vec, p.x);
+    if (f >= 0 && f < a.r3) p.key = p.pt / a.m * a.r3 + f;
+  }
+  return p;
+}
+
+// Phase A: the table's zeros. The package's form writes its float4s in
+// rounds of a block's 512, block i taking the i-th of each round, so the
+// grid's stores move through the table together (the slab form, with
+// the same 16-byte stores, read 0.0002-0.0004 ms slower at both call
+// sites and on uniform ids: PERF.md section 6); block 0 writes the floats
+// past the last float4. The slab forms: block i
+// zeroes floats [i slab, (i + 1) slab).
+template <typename Id>
+__device__ __forceinline__ void vox_fill(const VoxArgs<Id>& a) {
+#if PCSEG_VOX_FILL == 0
+  float4* o = reinterpret_cast<float4*>(a.out);
+  const long long n4 = a.len >> 2;
+  for (long long i = (long long)blockIdx.x * kVoxThreads + threadIdx.x;
+       i < n4; i += (long long)gridDim.x * kVoxThreads)
+    o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (blockIdx.x == 0 && threadIdx.x < (a.len & 3))
+    a.out[(n4 << 2) + threadIdx.x] = 0.f;
+#else
+  const long long beg = (long long)blockIdx.x * a.slab;
+  const long long end = min(beg + a.slab, a.len);
+  if (beg >= end) return;                  // block-uniform
+  const long long vend = beg + ((end - beg) & ~3LL);
+#if PCSEG_VOX_FILL == 2
+  __shared__ __align__(128) float4 zero[kVoxZeroBytes / 16];
+  for (int i = threadIdx.x; i < kVoxZeroBytes / 16; i += kVoxThreads)
+    zero[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned src = (unsigned)__cvta_generic_to_shared(zero);
+  if (lane == 0) {
+    constexpr long long kPiece = kVoxZeroBytes / 4;   // floats
+    for (long long o = beg + warp * kPiece; o < vend;
+         o += kVoxWarps * kPiece) {
+      const unsigned bytes = (unsigned)(min(kPiece, vend - o) * 4);
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+              a.out + o),
+          "r"(src), "r"(bytes)
+          : "memory");
+    }
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+  }
+#else
+  float4* o = reinterpret_cast<float4*>(a.out + beg);
+  const long long n4 = (vend - beg) >> 2;
+  for (long long i = threadIdx.x; i < n4; i += kVoxThreads)
+    o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#endif
+  for (long long i = vend + threadIdx.x; i < end; i += kVoxThreads)
+    a.out[i] = 0.f;
+#endif
+}
+
+#if PCSEG_VOX_SLAB_FLAGS
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+#endif
+
+// Phase B: no add before the zeros it lands on.
+template <typename Id>
+__device__ __forceinline__ void vox_barrier(const VoxArgs<Id>& a) {
+#if PCSEG_VOX_SLAB_FLAGS
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(
+                     g_vox_ready + blockIdx.x),
+                 "r"(a.epoch)
+                 : "memory");
+  }
+#else
+  cooperative_groups::this_grid().sync();
+#endif
+}
+
+// The slab-flag variant's wait for the slabs of floats [off, off + w).
+template <typename Id>
+__device__ __forceinline__ void vox_wait(const VoxArgs<Id>& a, long long off,
+                                         int w) {
+#if PCSEG_VOX_SLAB_FLAGS
+  for (long long s = off / a.slab; s <= (off + w - 1) / a.slab; ++s)
+    while (ld_acquire(g_vox_ready + s) != a.epoch) __nanosleep(32);
+#endif
+}
+
+// A warp chunk's groups: the lanes of one (event, voxel) key
+// (__match_any_sync), a masked point in none; ``most`` is the largest group (0: nothing to add), ``lead`` its
+// lowest lane.
+struct VoxGroup {
+  unsigned grp;
+  int size, most;
+  bool lead;
+};
+
+template <typename Id>
+__device__ __forceinline__ VoxGroup vox_group(const VoxArgs<Id>& a,
+                                              const VoxPoint& p, int lane) {
+  VoxGroup g;
+  g.grp = __match_any_sync(kAll, (unsigned long long)p.key);
+  g.size = p.key >= 0 ? __popc(g.grp) : 0;
+  g.most = (int)__reduce_max_sync(kAll, (unsigned)g.size);
+  g.lead = p.key >= 0 && __ffs(g.grp) - 1 == lane;
+  return g;
+}
+
+// The group's sums of 4 channels x (unrounded; rounded to bf16 here), its
+// lanes in ascending order: step i reads the lane of the i-th set bit of
+// the group's mask.
+__device__ __forceinline__ void vox_sum4(const VoxGroup& g, int lane,
+                                         const float (&x)[4],
+                                         float (&sum)[4]) {
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[j] = round_bf16(x[j]);
+    sum[j] = 0.f;
+  }
+  unsigned rest = g.grp;
+  for (int i = 0; i < g.most; ++i) {
+    const int src = rest ? __ffs(rest) - 1 : lane;
+    rest &= rest - 1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float y = __shfl_sync(kAll, v[j], src);
+      if (i < g.size) sum[j] += y;
+    }
+  }
+}
+
+// The leader's add of channels k0 .. k0 + 3 (those below c1) at float g of
+// the table, each by the widest reduction its address allows (v4 at 16
+// bytes, v2 at 8, else scalar).
+template <typename Id>
+__device__ __forceinline__ void vox_red4(const VoxArgs<Id>& a, long long g,
+                                         int k0, const float (&sum)[4]) {
+  const int w = min(4, a.c1 - k0);
+  float* o = a.out + g;
+  int next = 0;                            // channels added
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < next || j >= w) continue;
+    if (j == 0 && w == 4 && (g & 3) == 0) {
+      red_add_v4(o, sum);
+      next = 4;
+    } else if (j < 3 && j + 2 <= w && ((g + j) & 1) == 0) {
+      red_add_v2(o + j, sum[j], sum[j + 1]);
+      next = j + 2;
+    } else {
+      atomicAdd(o + j, sum[j]);
+      next = j + 1;
+    }
+  }
+}
+
+// Phase C for one warp chunk whose groups ``g`` and first 4 channels'
+// sums ``s`` are known: the leaders add them, then channels 4.. of the
+// row, loaded, summed and added 4 at a time.
+template <typename Id>
+__device__ __forceinline__ void vox_add(const VoxArgs<Id>& a,
+                                        const VoxPoint& p, const VoxGroup& g,
+                                        const float (&s)[4], int lane) {
+  if (g.most == 0) return;                 // warp-uniform
+  const long long row = p.key >= 0 ? p.key * a.c1 : 0;
+  if (g.lead) {
+    vox_wait(a, row, a.c1);
+    vox_red4(a, row, 0, s);
+  }
+  const float* e = a.ext + (p.key >= 0 ? p.pt * a.c1 : 0);
+  for (int k0 = 4; k0 < a.c1; k0 += 4) {
+    float x[4] = {0.f, 0.f, 0.f, 0.f}, sum[4];
+    if (p.key >= 0) vox_load4(e, k0, a.c1, a.vec, x);
+    vox_sum4(g, lane, x, sum);
+    if (g.lead) vox_red4(a, row + k0, k0, sum);
+  }
+}
+
+// One cooperative launch of a co-resident grid. A warp takes chunks of 32
+// consecutive points, chunk w G + b for warp w of block b in a grid of G,
+// then grid-stride. Before the fill it loads its first chunk and forms its
+// groups and their sums of the first 4 channels (a warp without points
+// goes straight to the fill); the grid zeroes the table; it waits at one
+// barrier; the leaders add. Each later chunk's loads are issued before
+// the adds of the one before.
+template <typename Id>
+__global__ void __launch_bounds__(kVoxThreads, kVoxMinBlocks)
+    voxelize_contract_kernel(const VoxArgs<Id> a) {
+  const int lane = threadIdx.x & 31;
+  const long long chunks = (a.n + 31) >> 5;
+  const long long step = (long long)gridDim.x * kVoxWarps;
+  long long chunk = (long long)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  VoxPoint p = vox_point(a, chunk, lane);
+  VoxGroup g = vox_group(a, p, lane);
+  float s[4];
+  vox_sum4(g, lane, p.x, s);
+  vox_fill(a);
+  if (PCSEG_VOX_FILL_ONLY == 2) return;
+  vox_barrier(a);
+  if (PCSEG_VOX_FILL_ONLY) return;
+  for (; chunk < chunks; chunk += step) {
+    const VoxPoint next = vox_point(a, chunk + step, lane);
+    vox_add(a, p, g, s, lane);
+    p = next;
+    g = vox_group(a, p, lane);
+    vox_sum4(g, lane, p.x, s);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1083,13 +1394,6 @@ __global__ void __launch_bounds__(kThreads) trilinear_gather_kernel(
     }
   }
   store_f32_row<CW, EXACT>(o, c, acc);
-}
-
-// out[0..3] += v with one vector reduction (sm_90; out 16-byte aligned)
-__device__ __forceinline__ void red_add_v4(float* out, const float (&v)[4]) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(out),
-               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
-               : "memory");
 }
 
 // rows / cols (B, M) int32, vals (B, M, C) f32 rounded to bf16 here; out
@@ -1177,6 +1481,47 @@ __global__ void __launch_bounds__(kThreads) segment_scatter_kernel(
 }
 
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+
+constexpr int kMaxDevices = 64;
+
+// Row 10's cooperative launch: blocks = SMs x the blocks an SM holds (the
+// occupancy API, once a device), so that the whole grid is resident and
+// its barrier cannot wait on a block that never starts; a refused launch
+// returns its error.
+template <typename Id>
+int voxelize_launch(const void* flat, const void* ext, void* out, int B,
+                    int M, int R, int C1, cudaStream_t st) {
+  static int grid_on[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (grid_on[dev] == 0) {
+    int sms = 0, per = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, voxelize_contract_kernel<Id>, kVoxThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per < 1) return (int)cudaErrorLaunchOutOfResources;
+    per = per < kVoxMinBlocks ? per : kVoxMinBlocks;
+    grid_on[dev] = sms * per < kVoxMaxBlocks ? sms * per : kVoxMaxBlocks;
+  }
+  const int grid = grid_on[dev];
+  const long long r3 = (long long)R * R * R;
+  const long long len = B * r3 * C1;
+  const long long slab = ((len + grid - 1) / grid + 3) & ~3LL;
+  static unsigned epoch = 0;
+  if (++epoch == 0) epoch = 1;
+  const bool vec = C1 % 4 == 0 && ((uintptr_t)ext & 15) == 0;
+  VoxArgs<Id> a{(const Id*)flat, (const float*)ext, (float*)out,
+                (long long)B * M, len, slab, M, (int)r3, C1, vec ? 1 : 0,
+                epoch};
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel((const void*)voxelize_contract_kernel<Id>,
+                                  dim3(grid), dim3(kVoxThreads), args, 0, st);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
 
 // The tiles of a call: trilinear_scatter_tile_kernel, a tile a warp, then
 // trilinear_scatter_long_kernel on the long list, two blocks an SM.
@@ -1278,16 +1623,21 @@ int gather_chunks(const Gather& g, int k0, int c, int nk, bool aligned) {
 
 extern "C" {
 
-// flat (B, M) int32 voxel ids, R^3 for masked points; ext (B, M, C1) f32
-// point rows, masked rows zero; out (B, R^3, C1) f32, zeroed by the caller.
-int pcseg_voxelize_contract(const void* flat, const void* ext, void* out,
-                            int B, int M, int R, int C1, void* stream) {
-  if (B <= 0 || M <= 0 || R <= 0 || C1 <= 0) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * M;
-  voxelize_contract_kernel<<<blocks_for(n), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const int*)flat, (const float*)ext, (float*)out, n, M, R * R * R, C1);
-  return (int)cudaGetLastError();
+// flat (B, M) voxel ids of id_bytes 4 (int32) or 8 (int64), R^3 for
+// masked points; ext (B, M, C1) f32 point rows; out (B, R^3, C1) f32,
+// 16-byte aligned, every value written (zeros included) by the one launch.
+int pcseg_voxelize_contract(const void* flat, int id_bytes, const void* ext,
+                            void* out, int B, int M, int R, int C1,
+                            void* stream) {
+  if (B <= 0 || M <= 0 || R <= 0 || C1 <= 0 ||
+      (long long)R * R * R > 0x7fffffffLL || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (id_bytes == 4)
+    return voxelize_launch<int>(flat, ext, out, B, M, R, C1, st);
+  if (id_bytes == 8)
+    return voxelize_launch<long long>(flat, ext, out, B, M, R, C1, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The scratch pcseg_trilinear_scatter needs at (B, M, R, C), in 16-byte

@@ -63,7 +63,7 @@ SIGNATURES = {
         "pcseg_down2x_bwd_mma": [_P] * 10 + [_I] * 6 + [_P],
     },
     "onehot_contract": {
-        "pcseg_voxelize_contract": [_P] * 3 + [_I] * 4 + [_P],
+        "pcseg_voxelize_contract": [_P, _I, _P, _P] + [_I] * 4 + [_P],
         "pcseg_trilinear_scatter_scratch": [_I] * 4,
         "pcseg_trilinear_scatter": [_P] * 4 + [_I] * 5 + [_P],
         "pcseg_trilinear_gather": [_P] * 4 + [_I] * 4 + [_P],

@@ -132,22 +132,25 @@ def voxelize_contract(flat: torch.Tensor, ext: torch.Tensor, r: int, *,
                       plain: bool = False) -> torch.Tensor:
     """The matmul voxelizer's sums (B, R^3, C1) f32 (JAX
     ``onehot_contract.voxelize_contract``, whose (B, R^2, R*C1) output is
-    the same row-major memory): flat (B, M) voxel ids with the sentinel
-    R^3 for masked points; ext (B, M, C1) point rows, rounded to bf16.
-    Launches the CUDA kernel on a CUDA tensor."""
+    the same row-major memory): flat (B, M) int32 or int64 voxel ids with
+    the sentinel R^3 for masked points; ext (B, M, C1) point rows, rounded
+    to bf16. On a CUDA tensor one kernel launch writes the whole table,
+    its zeros included, from the ids as they come."""
     if not on_cuda(ext, plain):
         return voxelize_contract_plain(flat, ext, r)
     b, m, c1 = ext.shape
     if tuple(flat.shape) != (b, m) or flat.device != ext.device:
         raise ValueError(f"flat must be (B, M) = {(b, m)} on {ext.device}, "
                          f"got {tuple(flat.shape)} on {flat.device}")
-    flat = flat.to(torch.int32).contiguous()
+    if flat.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"flat must be int32 or int64, got {flat.dtype}")
+    flat = flat.contiguous()
     ext = ext.float().contiguous()
-    out = torch.zeros((b, r ** 3, c1), dtype=torch.float32,
+    out = torch.empty((b, r ** 3, c1), dtype=torch.float32,
                       device=ext.device)
     rc = load_library("onehot_contract").pcseg_voxelize_contract(
-        flat.data_ptr(), ext.data_ptr(), out.data_ptr(), b, m, r, c1,
-        stream_of(ext))
+        flat.data_ptr(), flat.element_size(), ext.data_ptr(), out.data_ptr(),
+        b, m, r, c1, stream_of(ext))
     raise_on(rc, "voxelize_contract")
     LAUNCHES["voxelize_contract"] += 1
     return out

@@ -4,7 +4,7 @@ the matmul voxelizer (csrc/onehot_contract.cu ``trilinear_scatter``,
 shapes on one card, with their PyTorch yardsticks.
 
     python -m pcseg_tpu_torch.profile_devox [--tree DIR] [--out DIR]
-        [--only voxelize]
+        [--only voxelize] [--variants]
 
 Two batches of B8 x 8192 points on a 64^3 grid with C = 4 channels:
 "uniform" (continuous coords uniform over the grid, 3/4 of the points
@@ -29,16 +29,25 @@ event 0 on one spot). For each:
 Row 10 at its two call sites: the default voxel model's voxelize on the
 "default" batch (B8 x 8192 at 64^3, C1 3) and the sparse model's
 block-sparse voxelize of chip_smoke.py's track events (tile-major ids,
-C1 2), and on ids uniform over the grid (C1 3): device and op ms, two
-calls bit for bit, max |err| against the plain version, the bound (ids
-and rows read, the f32 table written), and ``torch.zeros`` +
-``index_add_`` (the same function from scratch) and ``index_add_``
-alone. Rows 11 and 13 also at 40 channels on a 32^3 grid
+C1 2), and on ids uniform over the grid (C1 3): device and op ms by
+kernel (the op is one launch, its table's zeros included), two calls bit
+for bit, max |err| against the plain version, the bound (ids as the
+callers pass them and rows read, the f32 table written), and
+``torch.zeros`` + ``index_add_`` (the same function from scratch) and
+``index_add_`` alone. Rows 11 and 13 also at 40 channels on a 32^3 grid
 (the 40-class U-Net's devoxelize; a checkout that refuses the width
 records the refusal).
 
-``--only voxelize`` times row 10 alone. ``--tree DIR`` imports ``pcseg_tpu_torch`` from the checkout at DIR (an
-earlier commit unpacked with ``git archive``), so that two versions are
+``--only voxelize`` times row 10 alone. ``--variants`` adds row 10 from
+variant builds of ``csrc/onehot_contract.cu`` under
+``build/pcseg_tpu_torch/devox_*`` (``VOX_VARIANTS``: a contiguous slab
+of the table a block, by 16-byte stores or by TMA bulk stores; slab
+flags in place of the grid barrier; the fill and barrier without the
+adds, the fill alone; 1 and 4 blocks an SM), each by device time and,
+where it computes the function, against the plain version; this
+checkout only, not with ``--tree``. ``--tree DIR`` imports
+``pcseg_tpu_torch`` from the checkout at DIR (an earlier commit
+unpacked with ``git archive``), so that two versions are
 timed by this script, one process each, in one call. A version whose
 ``trilinear_scatter`` has no ``out_dtype`` is timed with the
 ``.to(torch.bfloat16)`` cast its step ran. One JSON line at the end; with
@@ -56,6 +65,17 @@ import sys
 from pathlib import Path
 
 B, M, R, C = 8, 8192, 64, 4
+# row 10's variant builds (csrc/onehot_contract.cu's PCSEG_VOX_* hooks):
+# tag -> (-D defines, whether it computes the function)
+VOX_VARIANTS = {
+    "fill_slabs": (("PCSEG_VOX_FILL=1",), True),
+    "tma_fill": (("PCSEG_VOX_FILL=2",), True),
+    "slab_flags": (("PCSEG_VOX_FILL=1", "PCSEG_VOX_SLAB_FLAGS=1"), True),
+    "fill_barrier": (("PCSEG_VOX_FILL_ONLY=1",), False),
+    "fill_alone": (("PCSEG_VOX_FILL_ONLY=2",), False),
+    "blocks_1": (("PCSEG_VOX_MIN_BLOCKS=1",), True),
+    "blocks_4": (("PCSEG_VOX_MIN_BLOCKS=4",), True),
+}
 WIDE_R, WIDE_C = 32, 40
 HBM_BYTES_PER_S = 3.35e12
 ITERS = 20
@@ -257,11 +277,41 @@ def gather_case(vx, u, mask, r=R, c=C) -> dict:
     }
 
 
-def voxelize_case(vx, flat, ext, r=R) -> dict:
-    """Row 10 on one call site's ids and rows."""
+def variant_libs() -> dict:
+    """Row 10's variant builds of this checkout, one nvcc each, together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pcseg_tpu_torch.ops._build import build_variant
+
+    with ThreadPoolExecutor(len(VOX_VARIANTS)) as pool:
+        libs = pool.map(lambda kv: build_variant(
+            "onehot_contract", f"devox_{kv[0]}", kv[1][0]),
+            VOX_VARIANTS.items())
+        return dict(zip(VOX_VARIANTS, libs))
+
+
+def variant_call(lib, flat, ext, r):
+    """The wrapper's launch (ops/voxel.py voxelize_contract) through a
+    variant build's entry."""
+    import torch
+
+    from pcseg_tpu_torch.ops._build import raise_on, stream_of
+
+    b, m, c1 = ext.shape
+    out = torch.empty((b, r ** 3, c1), device=ext.device)
+    raise_on(lib.pcseg_voxelize_contract(
+        flat.data_ptr(), flat.element_size(), ext.data_ptr(), out.data_ptr(),
+        b, m, r, c1, stream_of(ext)), "voxelize_contract variant")
+    return out
+
+
+def voxelize_case(vx, flat, ext, r=R, libs=None) -> dict:
+    """Row 10 on one call site's ids and rows (and on ``libs``, variant
+    builds by tag)."""
     import torch
 
     c1 = ext.shape[-1]
+    flat, ext = flat.contiguous(), ext.float().contiguous()
 
     def kernel():
         return vx.voxelize_contract(flat, ext, r)
@@ -277,8 +327,20 @@ def voxelize_case(vx, flat, ext, r=R) -> dict:
         return torch.zeros((B * (r ** 3 + 1), c1), device="cuda").index_add_(
             0, rows, vals)
 
+    variants = {}
+    for tag, lib in (libs or {}).items():
+        def call(lib=lib):
+            return variant_call(lib, flat, ext, r)
+
+        got = call()
+        variants[tag] = _both(call)
+        if VOX_VARIANTS[tag][1]:
+            variants[tag].update(
+                max_abs_err=float((got - ref).abs().max()),
+                counts_exact=bool(torch.equal(got[..., -1], ref[..., -1])))
     return {
         "shape": f"B{B} M{M} -> {r}^3x{c1}",
+        "id_bytes": flat.element_size(),
         "max_abs_err": float((a - ref).abs().max()),
         "max_abs_ref": float(ref.abs().max()),
         "counts_exact": bool(torch.equal(a[..., -1], ref[..., -1])),
@@ -288,12 +350,13 @@ def voxelize_case(vx, flat, ext, r=R) -> dict:
         "zeros_index_add": _both(from_scratch),
         "index_add_alone": _both(lambda: zeroed.index_add_(0, rows, vals)),
         # ids and rows read once, the f32 table written once
-        "bound_ms": (B * M * 4 + B * M * c1 * 4 + B * r ** 3 * c1 * 4)
-        / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": (B * M * flat.element_size() + B * M * c1 * 4
+                     + B * r ** 3 * c1 * 4) / HBM_BYTES_PER_S * 1e3,
+        "variants": variants,
     }
 
 
-def voxelize_sites(vx, points, mask) -> dict:
+def voxelize_sites(vx, points, mask, libs=None) -> dict:
     """Row 10 at its two call sites: the default batch's voxel rows, and
     the sparse model's tile-major ids on track events (C1 2); and on ids
     uniform over the grid (3/4 of the points real, C1 3: no voxel holds
@@ -303,14 +366,15 @@ def voxelize_sites(vx, points, mask) -> dict:
     from pcseg_tpu_torch.data.synthetic import track_events
 
     flat, ext, _, _ = vx.voxel_rows(points, mask, R)
-    out = {"default": voxelize_case(vx, flat, ext)}
+    out = {"default": voxelize_case(vx, flat, ext, libs=libs)}
     gen = torch.Generator(device="cuda").manual_seed(3)
     real = torch.rand((B, M), generator=gen, device="cuda") < 0.75
     ids = torch.randint(0, R ** 3, (B, M), generator=gen, device="cuda")
     rows = torch.cat([torch.rand((B, M, 1), generator=gen, device="cuda"),
                       torch.ones((B, M, 2), device="cuda")], -1)
     out["uniform"] = voxelize_case(vx, torch.where(real, ids, R ** 3),
-                                   torch.where(real[..., None], rows, 0.0))
+                                   torch.where(real[..., None], rows, 0.0),
+                                   libs=libs)
     pts = torch.from_numpy(track_events(B, M, 0)).cuda()
     tmask = torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda")
     t = 8
@@ -322,7 +386,7 @@ def voxelize_sites(vx, points, mask) -> dict:
     blocked = torch.where(flat >= R ** 3, R ** 3, tid * t ** 3 + intra)
     ext = torch.cat([pts[..., 3:].float(),
                      torch.ones_like(pts[..., :1].float())], -1)
-    out["sparse"] = voxelize_case(vx, blocked, ext)
+    out["sparse"] = voxelize_case(vx, blocked, ext, libs=libs)
     return out
 
 
@@ -332,7 +396,10 @@ def main() -> int:
     ap.add_argument("--tag", default=None)
     ap.add_argument("--out", default=None)
     ap.add_argument("--only", choices=("voxelize",), default=None)
+    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
+    if args.variants and args.tree:
+        ap.error("--variants builds this checkout's variants: no --tree")
 
     import torch
 
@@ -347,7 +414,8 @@ def main() -> int:
     res = {"card": card, "tree": args.tree or ".",
            "shape": f"B{B} M{M} R{R} C{C}", "cases": {}}
     points, mask = default_points(pad_events, synthetic_events)
-    res["voxelize"] = voxelize_sites(vx, points, mask)
+    libs = variant_libs() if args.variants else None
+    res["voxelize"] = voxelize_sites(vx, points, mask, libs)
     if args.only:
         return _emit(res, args)
     for name, u, mask_u, go in batches(vx, pad_events, synthetic_events):

@@ -47,23 +47,40 @@ def _bf16_close(got, ref):
                  + 1e-4 * r.abs().max()).all()), float((g - r).abs().max())
 
 
-@pytest.mark.parametrize("r,c1", [(6, 3), (16, 3), (16, 2), (64, 3),
-                                  (8, 5), (8, 40)])
-def test_voxelize_contract_kernel(gen, r, c1):
-    """The voxelizer (a thread a point, float atomics) against its plain
-    version: counts exact, sums to 1e-5 (bf16 values in f32, both sides
-    in another order), nothing for masked points; the default row width
-    (C1 3), the sparse model's (2), an odd one and one past 32 columns."""
-    b, m = 3, 2000
+# (B, M, R, C1): the default row width (C1 3), the sparse model's (2), odd
+# ones and one past 32 columns; M 2,000 and 1,000 are not multiples of 32,
+# so warp chunks straddle events; R 2 and 3 give tables smaller than the
+# grid's share of the fill and not 16-byte aligned at odd C1; B16 x 65,536
+# at R64 runs the grid-stride loops several times
+VOXELIZE_CASES = [(3, 2000, 6, 3), (3, 2000, 16, 3), (3, 2000, 16, 2),
+                  (3, 2000, 64, 3), (3, 2000, 8, 5), (3, 2000, 8, 40),
+                  (3, 1000, 2, 3), (3, 1000, 3, 5), (3, 1000, 2, 1),
+                  (3, 1000, 3, 40), (16, 65536, 64, 3)]
+
+
+@pytest.mark.parametrize("b,m,r,c1", VOXELIZE_CASES)
+@pytest.mark.parametrize("layout", ["hot", "whole"])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_voxelize_contract_kernel(gen, b, m, r, c1, layout, id_dtype):
+    """The voxelizer (one persistent launch: the table's zeros, then
+    warp-aggregated float atomics) against its plain version: counts
+    exact, sums to 1e-5 (bf16 values in f32, both sides in another
+    order), nothing for masked points; ids int32 or int64 as they come;
+    "hot": 300 points of event 0 on one voxel, "whole": all M points of
+    event 0 on one voxel."""
     r3 = r ** 3
     flat = torch.randint(0, r3, (b, m), generator=gen, device="cuda")
-    flat[0, :300] = 5                       # one voxel hit by many points
     masked = torch.rand((b, m), generator=gen, device="cuda") < 0.2
+    if layout == "hot":
+        flat[0, :300] = 5 % r3             # one voxel hit by many points
+    else:
+        flat[0] = 5 % r3                   # a whole event on one voxel
+        masked[0] = False
     masked[-1] = True                       # an all-masked dummy row
-    flat = torch.where(masked, r3, flat)
-    ext = torch.cat([torch.rand((b, m, c1 - 2), generator=gen,
+    flat = torch.where(masked, r3, flat).to(id_dtype)
+    ext = torch.cat([torch.rand((b, m, max(c1 - 2, 0)), generator=gen,
                                 device="cuda") * 4,
-                     torch.ones((b, m, 2), device="cuda")], -1)
+                     torch.ones((b, m, min(c1, 2)), device="cuda")], -1)
     ext = torch.where(masked[..., None], 0.0, ext)
     before = vx.LAUNCHES["voxelize_contract"]
     got = vx.voxelize_contract(flat, ext, r)
@@ -72,7 +89,35 @@ def test_voxelize_contract_kernel(gen, r, c1):
     ref = vx.voxelize_contract_plain(flat, ext, r)
     assert torch.equal(got[..., -1], ref[..., -1])         # counts
     assert not got[-1].any()
+    if layout == "whole":
+        assert float(got[0, 5 % r3, -1]) == m
     _close(got, ref, 1e-5)
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_voxelize_contract_is_one_kernel(gen, id_dtype):
+    """A call is one device kernel: no zero fill of the table and no cast
+    of the ids beside the voxelizer's own launch (torch.profiler's kernel
+    list of one warm call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, m, r = 8, 8192, 64
+    flat = torch.randint(0, r ** 3 + 1, (b, m), generator=gen,
+                         device="cuda").to(id_dtype)
+    ext = torch.rand((b, m, 3), generator=gen, device="cuda")
+    vx.voxelize_contract(flat, ext, r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        vx.voxelize_contract(flat, ext, r)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    assert len(kernels) == 1, kernels
+    (name, calls), = kernels.items()
+    assert "voxelize_contract_kernel" in name and calls == 1, kernels
 
 
 def test_voxelize_contract_at_both_call_sites(gen):

@@ -84,6 +84,105 @@ def test_voxelize_contract_widths_match_jax_kernel(r, c1):
                                atol=1e-6 * np.abs(ref).max())
 
 
+def _site_layout(layout, seed):
+    """Ids and rows of B3 x 1000 points on 8^3 (M not a multiple of 32, so
+    warp chunks straddle events): "hot", the default call site's shape at
+    this size (event 0 has 250 consecutive points on one voxel, the last
+    event is all masked), or "tracks", runs of 1-40 consecutive points on
+    one voxel, as track events give the sparse call site."""
+    rng = np.random.default_rng(seed)
+    b, m, r, c1 = 3, 1000, 8, 3
+    r3 = r ** 3
+    if layout == "hot":
+        flat = rng.integers(0, r3, (b, m))
+        flat[0, 1:251] = flat[0, 0]
+        masked = rng.random((b, m)) < 0.2
+        masked[-1] = True
+    else:
+        runs = np.repeat(rng.integers(0, r3, b * m),
+                         rng.integers(1, 41, b * m))[:b * m]
+        flat = runs.reshape(b, m)
+        masked = rng.random((b, m)) < 0.05
+    flat = np.where(masked, r3, flat)
+    ext = np.concatenate([rng.gamma(2.0, 1.0, (b, m, c1 - 2)),
+                          np.ones((b, m, 2))], axis=-1).astype(np.float32)
+    ext[masked] = 0.0
+    return flat, ext, r
+
+
+def _kernel_plan_sums(flat, ext, r, rng):
+    """csrc/onehot_contract.cu voxelize_contract_kernel's summation plan:
+    warp chunks of 32 consecutive points of the flattened (B, M) batch,
+    each lane keyed by (event, voxel), masked points in no group; each
+    group's bf16-rounded rows summed in f32 in lane order; then the
+    groups' partials added in f32 into a zero table in a shuffled order
+    (the atomics' order is the hardware's)."""
+    b, m, c1 = ext.shape
+    r3 = r ** 3
+    vals = torch.from_numpy(ext).to(torch.bfloat16).float().numpy()
+    vals = vals.reshape(-1, c1)
+    ids = flat.reshape(-1).astype(np.int64)
+    key = np.where((ids >= 0) & (ids < r3), np.arange(b * m) // m * r3 + ids,
+                   -1)
+    partials = []
+    for c0 in range(0, b * m, 32):
+        ks = key[c0:c0 + 32]
+        for k in dict.fromkeys(ks[ks >= 0].tolist()):
+            s = np.zeros(c1, np.float32)
+            for lane in np.flatnonzero(ks == k):
+                s = s + vals[c0 + lane]
+            partials.append((k, s))
+    out = np.zeros((b * r3, c1), np.float32)
+    for i in rng.permutation(len(partials)):
+        k, s = partials[i]
+        out[k] = out[k] + s
+    return out.reshape(b, r3, c1), len(partials)
+
+
+@pytest.mark.parametrize("layout", ["hot", "tracks"])
+def test_voxelize_kernel_plan_matches_jax_kernel(layout):
+    """The card kernel's plan (warp groups summed in lane order, partials
+    added in any order) against the JAX kernel in interpret mode: counts
+    exact, sums to 1e-6 of the largest (bf16 values in f32, another
+    order); the groups cut the hot voxel's adds about 32-fold."""
+    flat, ext, r = _site_layout(layout, 7)
+    b, m, c1 = ext.shape
+    ref = np.asarray(joc.voxelize_contract(
+        jnp.asarray(flat.astype(np.int32)), jnp.asarray(ext), r,
+        interpret=True)).reshape(b, r ** 3, c1)
+    got, n_partials = _kernel_plan_sums(flat, ext, r,
+                                        np.random.default_rng(1))
+    np.testing.assert_array_equal(got[..., -1], ref[..., -1])
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
+    real = int((flat < r ** 3).sum())
+    if layout == "hot":
+        # points 1-250 of event 0 lie in 8 chunks: at most 8 partials
+        hot = int((flat[0, 1:251] < r ** 3).sum())
+        assert hot >= 150 and ref[0, ..., -1].max() >= hot
+        assert not got[-1].any()
+        assert n_partials <= real - hot + 8
+    else:
+        assert n_partials < real // 4
+
+
+@pytest.mark.parametrize("layout", ["hot", "tracks"])
+def test_voxelize_contract_int64_ids_match_jax_kernel(layout):
+    """The port's voxelize_contract on int64 ids (the callers' dtype, which
+    the card kernel now reads as it comes) against the JAX kernel on the
+    same ids as int32."""
+    flat, ext, r = _site_layout(layout, 11)
+    b, m, c1 = ext.shape
+    ref = np.asarray(joc.voxelize_contract(
+        jnp.asarray(flat.astype(np.int32)), jnp.asarray(ext), r,
+        interpret=True)).reshape(b, r ** 3, c1)
+    ids = torch.from_numpy(flat.astype(np.int64))
+    got = tv.voxelize_contract(ids, torch.from_numpy(ext), r).numpy()
+    np.testing.assert_array_equal(got[..., -1], ref[..., -1])
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("round_bf16", [True, False])
 def test_voxelize_contract_plain_adds_nothing_for_the_sentinel(dtype,

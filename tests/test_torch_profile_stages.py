@@ -128,9 +128,12 @@ def test_devoxelize_kernels_have_their_stage(name, stage):
      "head"),
     ("(anonymous namespace)::head_fwd_stream_kernel(__nv_bfloat16 const*, "
      "float const*)", "head"),
-    # row 10: the voxelizer's kernel
-    ("(anonymous namespace)::voxelize_contract_kernel(int const*, float "
-     "const*, float*, long long, int, int, int)", "voxelize"),
+    # row 10: the voxelizer's one launch (its table's zeros included), on
+    # int32 and on int64 ids
+    (NS + "voxelize_contract_kernel<int>((anonymous namespace)::"
+     "VoxArgs<int>)", "voxelize"),
+    (NS + "voxelize_contract_kernel<long long>((anonymous namespace)::"
+     "VoxArgs<long long>)", "voxelize"),
 ])
 def test_ln_and_head_kernels_have_their_stage(name, stage):
     """Rows 20, 9, 8 and 10 (both backward routes and the sum kernels,
