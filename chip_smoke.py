@@ -168,7 +168,29 @@
    launched (the JAX package runs this path on XLA matmuls too); then the
    same weights as a reference best_model.pth through
    Predictor.from_checkpoint and inference_example, identical logits.
-20. Prints the kernels as one JSON line, the card's name and power limit,
+20. The voxel U-Net's 128^3 remat configuration (BASELINE config 3,
+   experiments/bench_128_step.py: 4 classes, width 16, 3 levels, bf16,
+   remat, every impl "auto", which at 128^3 is the scatter voxelizer, the
+   gather devoxelize and the plain head1x1) on B1 x 16,384 points: (a)
+   one train step with the kernels against the plain versions and f32,
+   held as phase 8, and against the same kernel step without remat (held
+   to phase 8's limits, the cause of any difference named: the levels
+   whose convs run off the tensor-core route, and the scatter
+   voxelizer's atomics), launches by row (rows 1, 4 and 6 twice the
+   no-remat count, rows 2, 3, 5, 7 and 11 the same), the memory the step
+   keeps after its forward and its peak, with remat and without, and
+   each row's device ms in one profiled remat step beside its bound;
+   (b) api.fit for 2 epochs of 3 steps with the metrics log and the
+   profiler trace (the stages "voxelize", "core", "head", "devoxelize"
+   and the kernels in it), and a fresh 1-epoch run resumed from its
+   'latest' checkpoint for epoch 2, both epoch-2 train losses printed;
+   (c) api.evaluate of the best checkpoint against that epoch's
+   validation pass, and Predictor serving it; every path's launches held
+   to the step's and the forward's counts. Then one 256^3 remat step
+   (experiments/bench_256_step.py, B1 x 32,768) through the kernels:
+   finite loss and gradients, launches by row, peak memory, and its loss
+   and conv-kernel gradients against the plain versions.
+21. Prints the kernels as one JSON line, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
@@ -180,6 +202,11 @@ builds the kernels, repeats only the whole-step comparisons of phases 8,
 12 and 16 N times, and prints each loss reading (phases 8 and 12 also
 kernels against kernels) as one JSON line: the spread their loss limits
 are set from. It holds nothing and prints no result.
+
+    python3 chip_smoke.py --r128
+
+builds the kernels and runs only phase 20, printing its readings as one
+JSON line; no result line.
 
     python3 chip_smoke.py --pointnet
 
@@ -1767,12 +1794,44 @@ def vox_step_compare(card, default=False, hold=True):
     lf = step(model32, True)
     gf = grads(model32)
     torch.cuda.synchronize()
-    zero = {n for n in gp if n.endswith(".bias") and not n.startswith(
-        "head") and n.replace(".bias", ".kernel") in gp}
-    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    loss_tol = DEFAULT_LOSS_REL if default else VOX_LOSS_REL
+    ok, held, zero = _step_readings(lk, gk, lp, gp, lf, gf, loss_tol)
     loss_rel_kk = abs(float(lk2) - float(lk)) / abs(float(lk))
     rel_kk = max(float((gk2[n] - gk[n]).norm() / gk[n].norm()) for n in gk
                  if n not in zero)
+    ms_k = time_ms(lambda: step(model, False), iters=3)
+    ms_p = time_ms(lambda: step(model, True), iters=3)
+    ms_f = time_ms(lambda: step(model32, True), iters=3)
+    res = {"forms": forms, **held, "loss_kernels_again": float(lk2),
+           "loss_rel_kernels_vs_kernels": loss_rel_kk,
+           "grad_rel_err_kernels_vs_kernels_max_held": rel_kk,
+           "fwd_bwd_ms_kernels": ms_k, "fwd_bwd_ms_plain": ms_p,
+           "fwd_bwd_ms_f32_plain_core": ms_f,
+           "launches": {k: v for k, v in launches.items() if v},
+           "card": card}
+    print(f"  forms {forms}: kernel step launches {res['launches']}",
+          flush=True)
+    print(f"  forms {forms}: {_readings_line(held)}, "
+          f"kernels again {float(lk2):.6f} (rel {loss_rel_kk:.2e}; "
+          f"gradients <= {rel_kk:.3e}); fwd+bwd "
+          f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain, {ms_f:.2f} ms "
+          f"f32 plain core [{card}]", flush=True)
+    if hold and not ok:
+        raise AssertionError(f"voxel train step: kernels disagree with the "
+                             f"plain versions: {res}")
+    return res
+
+
+def _step_readings(lk, gk, lp, gp, lf, gf, loss_tol):
+    """Phase 8's readings of a kernel step (loss lk, gradients gk) against
+    the same step through the plain versions (lp, gp) and in f32 on the
+    plain core (lf, gf): (held, readings, the names of the conv biases
+    that a GroupNorm follows, whose gradient is 0 up to rounding)."""
+    import torch
+
+    zero = {n for n in gp if n.endswith(".bias") and not n.startswith(
+        "head") and n.replace(".bias", ".kernel") in gp}
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm()) for n in gp}
     own = {n: float((gp[n] - gf[n]).norm() / gf[n].norm()) for n in gp}
     ratio = {n: float((gk[n] - gp[n]).norm())
@@ -1783,48 +1842,32 @@ def vox_step_compare(card, default=False, hold=True):
     kp = torch.cat([gp[n].flatten() for n in kern])
     kcos = float(kk @ kp / (kk.norm() * kp.norm()))
     worst = max(ratio, key=ratio.get)
-    loss_tol = DEFAULT_LOSS_REL if default else VOX_LOSS_REL
     ok = (loss_rel <= loss_tol and kcos >= VOX_KERNEL_COS
           and ratio[worst] <= VOX_GRAD_RATIO
           and all(torch.isfinite(g).all() for g in gk.values()))
-    ms_k = time_ms(lambda: step(model, False), iters=3)
-    ms_p = time_ms(lambda: step(model, True), iters=3)
-    ms_f = time_ms(lambda: step(model32, True), iters=3)
-    res = {"forms": forms, "loss_kernels": float(lk),
-           "loss_plain": float(lp),
-           "loss_f32": float(lf), "loss_rel_err": loss_rel,
-           "loss_tol": loss_tol, "loss_kernels_again": float(lk2),
-           "loss_rel_kernels_vs_kernels": loss_rel_kk,
-           "grad_rel_err_kernels_vs_kernels_max_held": rel_kk,
-           "kernel_grad_cosine": kcos,
-           "grad_rel_err_kernels_vs_plain": rel,
-           "grad_rel_err_plain_vs_f32": own, "grad_ratio": ratio,
-           "grad_ratio_max": ratio[worst], "grad_worst": worst,
-           "grad_rel_err_max_held": max(rel[n] for n in ratio),
-           "grad_rel_err_plain_vs_f32_max_held": max(own[n] for n in ratio),
-           "zero_grad_bias_rel_err_max": max(rel[n] for n in zero),
-           "fwd_bwd_ms_kernels": ms_k, "fwd_bwd_ms_plain": ms_p,
-           "fwd_bwd_ms_f32_plain_core": ms_f,
-           "launches": {k: v for k, v in launches.items() if v},
-           "card": card}
-    print(f"  forms {forms}: kernel step launches {res['launches']}",
-          flush=True)
-    print(f"  forms {forms}: loss kernels {float(lk):.6f} plain "
-          f"{float(lp):.6f} (rel "
-          f"{loss_rel:.2e}, tol {loss_tol:.2e}), f32 {float(lf):.6f}, "
-          f"kernels again {float(lk2):.6f} (rel {loss_rel_kk:.2e}; "
-          f"gradients <= {rel_kk:.3e}); "
-          f"conv-kernel gradient cosine {kcos:.6f} (tol {VOX_KERNEL_COS}); "
-          f"gradients kernels vs plain <= {res['grad_rel_err_max_held']:.3e}"
-          f" (rel L2), plain vs f32 <= "
-          f"{res['grad_rel_err_plain_vs_f32_max_held']:.3e}; worst ratio "
-          f"{ratio[worst]:.3f} at {worst} (tol {VOX_GRAD_RATIO}); fwd+bwd "
-          f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain, {ms_f:.2f} ms "
-          f"f32 plain core [{card}]", flush=True)
-    if hold and not ok:
-        raise AssertionError(f"voxel train step: kernels disagree with the "
-                             f"plain versions: {res}")
-    return res
+    return ok, {
+        "loss_kernels": float(lk), "loss_plain": float(lp),
+        "loss_f32": float(lf), "loss_rel_err": loss_rel,
+        "loss_tol": loss_tol, "kernel_grad_cosine": kcos,
+        "grad_rel_err_kernels_vs_plain": rel,
+        "grad_rel_err_plain_vs_f32": own, "grad_ratio": ratio,
+        "grad_ratio_max": ratio[worst], "grad_worst": worst,
+        "grad_rel_err_max_held": max(rel[n] for n in ratio),
+        "grad_rel_err_plain_vs_f32_max_held": max(own[n] for n in ratio),
+        "zero_grad_bias_rel_err_max": max(rel[n] for n in zero),
+    }, zero
+
+
+def _readings_line(r) -> str:
+    return (f"loss kernels {r['loss_kernels']:.6f} plain "
+            f"{r['loss_plain']:.6f} (rel {r['loss_rel_err']:.2e}, tol "
+            f"{r['loss_tol']:.2e}), f32 {r['loss_f32']:.6f}; conv-kernel "
+            f"gradient cosine {r['kernel_grad_cosine']:.6f} (tol "
+            f"{VOX_KERNEL_COS}); gradients kernels vs plain <= "
+            f"{r['grad_rel_err_max_held']:.3e} (rel L2), plain vs f32 <= "
+            f"{r['grad_rel_err_plain_vs_f32_max_held']:.3e}; worst ratio "
+            f"{r['grad_ratio_max']:.3f} at {r['grad_worst']} (tol "
+            f"{VOX_GRAD_RATIO})")
 
 
 def vox_fit(card, default=False):
@@ -3551,6 +3594,481 @@ def pointnet_serve(card):
                       "pth_identical_logits": True, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the voxel U-Net's 128^3 remat configuration through training
+# around the step, and one 256^3 remat step
+# ---------------------------------------------------------------------------
+
+# BASELINE config 3 (experiments/bench_128_step.py): VoxelUNet3d(4 classes,
+# 128^3, width 16, 3 levels, bf16, remat) on B1 x 16,384 points, every impl
+# "auto" (at 128^3 the scatter voxelizer, the gather devoxelize and the
+# plain head1x1 with f32 logits); the single-chip leg of config 4
+# (experiments/bench_256_step.py): 256^3 on B1 x 32,768
+R128, R128_M, R256, R256_M = 128, 16384, 256, 32768
+# the rows of the path by the op key each wrapper counts under; remat runs
+# the forward rows twice a step
+R128_ROWS = {1: "conv3x3_gn_act", 2: "conv3x3_dgrad", 3: "conv3x3_wgrad",
+             4: "down2x_gn_act", 5: "down2x_bwd", 6: "up2x_gn_act",
+             7: "up2x_bwd", 11: "trilinear_scatter"}
+R128_FWD_ROWS = (1, 4, 6)
+# api.evaluate on the best checkpoint against that epoch's validation
+# pass: the same weights and batch, but the scatter voxelizer's index_add_
+# and the level-0 convs off the tensor-core route (W = 128: conv_kernel's
+# and wgrad_kernel's float atomics) sum in atomic order, so a bf16 value
+# may round the other way: the loss to VOX_LOSS_REL (the kernels-vs-plain
+# limit of phase 8) and the accuracy to 0.1 percentage points (the argmax
+# flips only at near-ties, ARGMAX_AGREE)
+R128_EVAL_ACC_POINTS = 0.1
+R128_CKPT = "build/chip_smoke_ckpt_128"
+R128_TRACE = "build/chip_smoke_trace_128"
+
+
+def _row_of_kernel(name: str):
+    """The table row (1-7, 11) a kernel of the 128^3 step belongs to, from
+    its name as torch.profiler reports it; "sums" for fixed_sum_kernel,
+    the partial-sum kernel that rows 1-7's tensor-core forms share; None
+    for PyTorch's own kernels."""
+    for key, row in (("conv3x3_mma_kernel", 1), ("dgrad_mma_kernel", 2),
+                     ("wgrad_mma_kernel", 3), ("down2x_bwd_mma_kernel", 5),
+                     ("down2x_mma_kernel", 4), ("up2x_bwd_mma_kernel", 7),
+                     ("up2x_mma_kernel", 6), ("trilinear_scatter", 11),
+                     ("fixed_sum_kernel", "sums")):
+        if key in name:
+            return row
+    # conv3d_block.cu's CUDA-core kernels: conv_kernel<K, S, P, BWD>
+    # (3^3: rows 1 / 2; k2 s2: the down forward 4 / the up's dgrad 7),
+    # up_kernel<BWD> (6 / the down's dgrad 5), wgrad_kernel<MODE>
+    m = re.search(r"conv_kernel<(\d), \d, \d, (true|false)>", name)
+    if m:
+        return {("3", "false"): 1, ("3", "true"): 2, ("2", "false"): 4,
+                ("2", "true"): 7}[m.groups()]
+    m = re.search(r"up_kernel<(true|false)>", name)
+    if m:
+        return 5 if m.group(1) == "true" else 6
+    m = re.search(r"wgrad_kernel<(\d)>", name)
+    if m:
+        return {"0": 3, "1": 5, "2": 7}[m.group(1)]
+    return None
+
+
+def unet_step_bounds(r, w, levels, m, nc, n_real, remat) -> dict:
+    """Row -> (launches, bound ms summed over them) of one train step of
+    the fused core with the scatter/gather forms and head1x1, batch 1:
+    each launch reads its inputs once and writes its outputs once (bf16
+    grids, f32 row 11 output), its products at the dense bf16 peak."""
+    rs = [r >> i for i in range(levels)]
+    cs = [w << i for i in range(levels)]
+    rows = {k: [0, 0.0] for k in R128_ROWS}
+    fwd = 2 if remat else 1
+
+    def add(row, nbytes, flops, times=1):
+        for _ in range(times):
+            rows[row][0] += 1
+            rows[row][1] += _bound(nbytes, flops)[0]
+
+    def conv(lv, accum=False, stats=True, dgrad=True, gadj=False):
+        v, c = rs[lv] ** 3, cs[lv]
+        t, wb, fl = v * c * 2, 27 * c * c * 2, 2 * v * 27 * c * c
+        # x in, y out (+ accum in); gy, y, x in, dx (+ g') out; x, gy, y
+        # in, dW out
+        add(1, 2 * t + (t if accum else 0) + wb, fl, fwd)
+        if dgrad:
+            add(2, (3 if stats else 2) * t + t + wb + (t if gadj else 0), fl)
+        add(3, (3 if stats else 2) * t + 27 * c * c * 4, fl)
+
+    def resample(lv, up):
+        lo, hi = (lv + 1, lv) if up else (lv, lv + 1)
+        t_in = rs[lo] ** 3 * cs[lo] * 2
+        t_out = rs[hi] ** 3 * cs[hi] * 2
+        fl = 2 * max(rs[lo] ** 3, rs[hi] ** 3) * cs[lv] * cs[lv + 1]
+        wb = 8 * cs[lv] * cs[lv + 1] * 2
+        add(6 if up else 4, t_in + t_out + wb, fl, fwd)
+        add(7 if up else 5, 2 * t_in + 2 * t_out + wb, 2 * fl)
+
+    conv(0, dgrad=False)                      # stem
+    for i in range(levels):
+        conv(i)
+        conv(i)
+        if i < levels - 1:
+            resample(i, up=False)
+    for i in range(levels - 2, -1, -1):
+        resample(i, up=True)
+        conv(i, stats=False)                  # dec_a on the up input
+        conv(i, accum=True, gadj=True)        # dec_a on the skip, + accum
+        conv(i)                               # dec_b
+    add(11, m * 3 * 4 + m * nc * 4 + r ** 3 * nc * 4, 2 * 8 * nc * n_real)
+    return {k: tuple(v) for k, v in rows.items()}
+
+
+def _remat_model(r, remat, dtype="bfloat16", impl="auto"):
+    import torch
+
+    from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
+
+    return VoxelUNet3d(
+        num_classes=VOX_CLASSES, grid_size=r, width=VOX_W, levels=3,
+        compute_dtype=dtype, conv_impl=impl, remat=remat,
+        generator=torch.Generator().manual_seed(0)).cuda()
+
+
+def _remat_batch(r, m, seed):
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.class_stats import scan_classes
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+
+    events = list(synthetic_events(1, min_points=3 * m // 4, max_points=m,
+                                   seed=seed))
+    cw = torch.from_numpy(np.asarray(scan_classes(events).weights)).cuda()
+    pts, labels, masks = (torch.from_numpy(a).cuda() for a in pad_events(
+        events, m, batch_size=1))
+    return pts, labels, masks, cw
+
+
+def _measured_step(model, batch, plain=False):
+    """One train step's loss, gradients and launches, and its memory: the
+    bytes allocated after the forward (what the step keeps for the
+    backward) and the step's peak, both above what was allocated before
+    it, in GiB."""
+    import torch
+
+    from pcseg_tpu_torch.ops.losses import cross_entropy_sums
+
+    pts, labels, masks, cw = batch
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits, _ = model.apply(pts, train=True, mask=masks, plain=plain)
+    num, den = cross_entropy_sums(logits, labels, cw)
+    loss = num / den
+    kept = torch.cuda.memory_allocated() - base
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    return loss.detach(), grads, launch_counts(), {
+        "after_forward_gib": kept / 2 ** 30,
+        "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+
+
+def _rows(launches) -> dict:
+    return {row: launches[key] for row, key in R128_ROWS.items()}
+
+
+def _off_route_levels(r, w, levels):
+    """The levels whose 3^3 convs ops/conv3d_block.py ``_conv_route``
+    leaves to conv3d_block.cu's CUDA-core kernels (float atomics in the
+    stats and dW)."""
+    from pcseg_tpu_torch.ops import conv3d_block as cb
+
+    out = []
+    for i in range(levels):
+        ri, ci = r >> i, w << i
+        if not cb._conv_route(ci, ci, (1, ri, ri, ri, ci)):
+            out.append(f"level {i}: {ri}^3 x {ci}")
+    return out
+
+
+def r128_step(card):
+    """(a): one 128^3 remat train step with the kernels against the plain
+    versions (phase 8's checks), against the same kernel step without
+    remat, launches by row, memory, device ms by row and bounds."""
+    import torch
+
+    from pcseg_tpu_torch.profile_serving import device_profile
+
+    batch = _remat_batch(R128, R128_M, 20)
+    model = _remat_model(R128, True)
+    forms = model.resolve_forms()
+    want = {"conv": "fused", "voxelize": "scatter", "devoxelize": "gather",
+            "head": "1x1"}
+    if forms != want:
+        raise AssertionError(f"128^3 forms {forms} != {want}")
+    kept = _remat_model(R128, False)
+    kept.load_state_dict(model.state_dict())
+    f32 = _remat_model(R128, False, "float32", "xla")
+    f32.load_state_dict(model.state_dict())
+
+    lr, gr, launch_r, mem_r = _measured_step(model, batch)
+    ln, gn, launch_n, mem_n = _measured_step(kept, batch)
+    lp, gp, launch_p, _ = _measured_step(model, batch, plain=True)
+    lf, gf, _, _ = _measured_step(f32, batch, plain=True)
+    if any(launch_p.values()):
+        raise AssertionError(f"128^3 plain step launched kernels: "
+                             f"{launch_p}")
+    # no kernel of the path fell back: every op of the step launched, the
+    # forward rows twice with remat
+    per_step = {k: VOX_PER_STEP[k] for k in R128_ROWS.values()}
+    got_n = {k: launch_n[k] for k in per_step}
+    want_r = {k: v * (2 if row in R128_FWD_ROWS else 1)
+              for (row, k), v in zip(R128_ROWS.items(), per_step.values())}
+    got_r = {k: launch_r[k] for k in per_step}
+    if got_n != per_step or got_r != want_r:
+        raise AssertionError(f"128^3 launches: no remat {got_n} != "
+                             f"{per_step}, remat {got_r} != {want_r}")
+    ok, held, _ = _step_readings(lr, gr, lp, gp, lf, gf, VOX_LOSS_REL)
+    ok_n, held_n, _ = _step_readings(lr, gr, ln, gn, lf, gf, VOX_LOSS_REL)
+    identical = {n: bool(torch.equal(gr[n], gn[n])) for n in gr}
+    off_route = _off_route_levels(R128, VOX_W, 3)
+    cause = ("" if all(identical.values()) and float(lr) == float(ln) else
+             "each step voxelizes anew with the scatter voxelizer's "
+             "index_add_ (atomic order), and the recomputed core's "
+             + (", ".join(off_route) + " convs run off the tensor-core "
+                "route (conv_kernel / wgrad_kernel float atomics)"
+                if off_route else "convs all on the tensor-core routes"))
+
+    prof, _ = device_profile(lambda: _measured_step(model, batch))
+    by_row: dict = {}
+    for k in prof["kernels"]:
+        row = _row_of_kernel(k["name"])
+        if row is not None:
+            ms, calls = by_row.get(row, (0.0, 0))
+            by_row[row] = (ms + k["device_ms"], calls + k["calls"])
+    n_real = int(batch[2].sum())
+    bounds = unet_step_bounds(R128, VOX_W, 3, R128_M, VOX_CLASSES, n_real,
+                              remat=True)
+    table = {str(row): {
+        "launches": _rows(launch_r)[row],
+        "kernel_launches_profiled": by_row.get(row, (0, 0))[1],
+        "device_ms": by_row.get(row, (0.0, 0))[0],
+        "bound_ms": bounds[row][1], "bound_launches": bounds[row][0]}
+        for row in R128_ROWS}
+    table["sums"] = {"device_ms": by_row.get("sums", (0.0, 0))[0],
+                     "kernel_launches_profiled": by_row.get("sums",
+                                                            (0, 0))[1]}
+    res = {"forms": forms, **held, "remat_vs_kept": {
+        k: held_n[k] for k in ("loss_plain", "loss_rel_err",
+                               "kernel_grad_cosine", "grad_ratio_max",
+                               "grad_worst", "grad_rel_err_max_held")},
+        "remat_vs_kept_bit_identical": all(identical.values()),
+        "remat_vs_kept_cause": cause, "off_route_levels": off_route,
+        "launches_remat": {k: v for k, v in launch_r.items() if v},
+        "launches_kept": {k: v for k, v in launch_n.items() if v},
+        "launches_by_row_remat": _rows(launch_r),
+        "launches_by_row_kept": _rows(launch_n),
+        "memory_remat": mem_r, "memory_kept": mem_n,
+        "step_device_busy_ms": prof["device_busy_ms"],
+        "step_wall_ms": prof["wall_ms"], "idle_share": prof["idle_share"],
+        "by_stage_ms": prof["by_stage_ms"], "rows": table, "card": card}
+    print(f"  128^3 remat step, forms {forms}: {_readings_line(held)}",
+          flush=True)
+    print(f"  remat vs kept core: loss {float(lr):.6f} / {float(ln):.6f} "
+          f"(rel {held_n['loss_rel_err']:.2e}), gradients bit-identical "
+          f"{all(identical.values())}, conv-kernel cosine "
+          f"{held_n['kernel_grad_cosine']:.6f}, worst ratio "
+          f"{held_n['grad_ratio_max']:.3f} at {held_n['grad_worst']}"
+          + (f"; cause: {cause}" if cause else ""), flush=True)
+    print(f"  launches by row, remat {_rows(launch_r)}, kept "
+          f"{_rows(launch_n)}; off the tensor-core route: {off_route}",
+          flush=True)
+    print(f"  memory (GiB above the step's start): remat kept "
+          f"{mem_r['after_forward_gib']:.3f} after the forward, peak "
+          f"{mem_r['peak_gib']:.3f}; without remat "
+          f"{mem_n['after_forward_gib']:.3f} / {mem_n['peak_gib']:.3f} "
+          f"[{card}]", flush=True)
+    for row, t in table.items():
+        print(f"    row {row}: {t}", flush=True)
+    if not ok:
+        raise AssertionError(f"128^3 remat step: kernels disagree with the "
+                             f"plain versions: {res}")
+    if not ok_n:
+        raise AssertionError(f"128^3 remat step outside phase 8's limits "
+                             f"of the kept-core step: {held_n}")
+    del model, kept, f32
+    torch.cuda.empty_cache()
+    return res, launch_r, launch_n
+
+
+def r128_fit(card, per_step, per_forward):
+    """(b) and (c): api.fit for 2 epochs of 3 steps with the metrics log
+    and the profiler trace, a fresh 1-epoch run resumed from 'latest' for
+    epoch 2, api.evaluate of the best checkpoint against its epoch's
+    validation pass, and Predictor on it. Returns (launches by path,
+    result)."""
+    import math
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch import api
+    from pcseg_tpu_torch.ckpt.checkpoint import latest_path
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+    from pcseg_tpu_torch.infer import Predictor
+    from pcseg_tpu_torch.train.loop import split_indices
+    from pcseg_tpu_torch.utils.observe import TRACE_NAME
+
+    # 4 events: 3 train steps of 1, 1 eval batch
+    events = list(synthetic_events(4, min_points=3 * R128_M // 4,
+                                   max_points=R128_M, seed=21))
+    resumed_dir = R128_CKPT + "_resume"
+    for d in (R128_CKPT, resumed_dir, R128_TRACE):
+        shutil.rmtree(d, ignore_errors=True)
+    common = ["model.name=voxel_unet3d", f"model.num_classes={VOX_CLASSES}",
+              f"model.grid_size={R128}", f"model.unet_width={VOX_W}",
+              "model.levels=3", "model.compute_dtype=bfloat16",
+              "model.remat=true", "data.batch_size=1",
+              f"data.buckets={R128_M}", "train.log_every_steps=0"]
+    quiet = dict(log=lambda _: None)
+    paths: dict = {}
+
+    def driven(name, fn, steps, forwards):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        want = {k: per_step.get(k, 0) * steps + per_forward.get(k, 0)
+                * forwards for k in got}
+        if got != want:
+            raise AssertionError(f"128^3 {name}: launches {got} != {want} "
+                                 f"({steps} steps, {forwards} forwards)")
+        paths[name] = got
+        return out
+
+    metrics = os.path.join(R128_CKPT, "metrics.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    res = driven("r128_fit", lambda: api.fit(events, overrides=common + [
+        "train.num_epochs=2", f"train.checkpoint_dir={R128_CKPT}",
+        f"train.metrics_log={metrics}", f"train.profile_dir={R128_TRACE}"],
+        **quiet), 6, 2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_loss")]
+    if [h["train_steps"] for h in res.history] != [3, 3] or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"128^3 fit: history {res.history}")
+    records = [json.loads(ln) for ln in open(metrics)]
+    if [r["epoch"] for r in records] != [0, 1]:
+        raise AssertionError(f"128^3 fit: metrics log {records}")
+    trace_path = os.path.join(R128_TRACE, TRACE_NAME)
+    trace = json.load(open(trace_path))["traceEvents"]
+    names = {ev.get("name") for ev in trace}
+    kernels = sum(ev.get("cat") == "kernel" for ev in trace)
+    stages = {"voxelize", "core", "head", "devoxelize"}
+    if not stages <= names or not kernels:
+        raise AssertionError(f"128^3 fit: the trace lacks stages "
+                             f"{stages - names} or kernels ({kernels})")
+
+    # a fresh run of one epoch, then resumed from its 'latest' for epoch 2
+    driven("r128_resume_first", lambda: api.fit(events, overrides=common + [
+        "train.num_epochs=1", f"train.checkpoint_dir={resumed_dir}"],
+        **quiet), 3, 1)
+    again = driven("r128_resume", lambda: api.fit(
+        events, overrides=common + ["train.num_epochs=2",
+                                    f"train.checkpoint_dir={resumed_dir}"],
+        resume_from=latest_path(resumed_dir), **quiet), 3, 1)
+    if [h["epoch"] for h in again.history] != [1] or again.state.step != 6:
+        raise AssertionError(f"128^3 resume: history {again.history}, step "
+                             f"{again.state.step}")
+    loss2, loss2_resumed = (res.history[1]["train_loss"],
+                            again.history[0]["train_loss"])
+
+    # (c) the best checkpoint on its epoch's validation events
+    _, val_idx = split_indices(len(events), 0.2, 0)
+    val = [events[i] for i in val_idx]
+    best = res.history[res.best_epoch]
+    ev = driven("r128_evaluate", lambda: api.evaluate(
+        res.checkpoint_path, val, batch_size=1, buckets=(R128_M,)), 0,
+        len(val))
+    eval_rel = abs(ev["loss"] - best["val_loss"]) / abs(best["val_loss"])
+    acc_diff = abs(ev["accuracy"] - best["val_acc"])
+    if eval_rel > VOX_LOSS_REL or acc_diff > R128_EVAL_ACC_POINTS:
+        raise AssertionError(f"128^3 evaluate: loss {ev['loss']} / accuracy "
+                             f"{ev['accuracy']} against the val pass's "
+                             f"{best['val_loss']} / {best['val_acc']}")
+    one = synthetic_events(1, min_points=1000, max_points=1000, seed=23)
+    served = [p for p, _ in val] + [p for p, _ in one]
+    pred = Predictor.from_checkpoint(res.checkpoint_path,
+                                     buckets=(1024, R128_M))
+    preds, logits = driven("r128_serving", lambda: (pred.predict_batch(
+        served, batch_size=1), pred.logits(served[-1])), 0, len(served) + 1)
+    if [p.shape[0] for p in preds] != [e.shape[0] for e in served] or \
+            not np.isfinite(logits).all():
+        raise AssertionError("128^3 serving: bad predictions")
+    warm = res.history[-1]
+    out = {
+        "train_loss": [h["train_loss"] for h in res.history],
+        "val_loss": [h["val_loss"] for h in res.history],
+        "epoch2_train_loss": loss2, "epoch2_train_loss_resumed":
+            loss2_resumed, "epoch2_train_loss_diff": loss2_resumed - loss2,
+        "resumed_step": again.state.step,
+        "ms_per_step": warm["train_seconds"] * 1e3 / warm["train_steps"],
+        "peak_mem_gib": peak, "metrics_records": len(records),
+        "trace_bytes": os.path.getsize(trace_path),
+        "trace_kernel_events": kernels,
+        "evaluate": {k: ev[k] for k in ("loss", "accuracy", "f1_macro",
+                                        "dropped")},
+        "evaluate_vs_val_pass": {"best_epoch": res.best_epoch,
+                                 "val_loss": best["val_loss"],
+                                 "val_acc": best["val_acc"],
+                                 "loss_rel": eval_rel,
+                                 "accuracy_diff_points": acc_diff},
+        "served_events": len(preds), "launches": paths, "card": card}
+    print(f"  fit 128^3 remat [{card}]: train loss {out['train_loss']}, val "
+          f"loss {out['val_loss']}; {out['ms_per_step']:.2f} ms/step (epoch "
+          f"2), peak {peak:.3f} GiB; metrics log {len(records)} records, "
+          f"trace {out['trace_bytes']} bytes, {kernels} kernel events",
+          flush=True)
+    print(f"  epoch-2 train loss: uninterrupted {loss2:.6f}, resumed from "
+          f"'latest' {loss2_resumed:.6f} (difference "
+          f"{loss2_resumed - loss2:.3e})", flush=True)
+    print(f"  evaluate best (epoch {res.best_epoch}): loss {ev['loss']:.6f} "
+          f"accuracy {ev['accuracy']:.3f} vs val pass "
+          f"{best['val_loss']:.6f} / {best['val_acc']:.3f} (rel "
+          f"{eval_rel:.2e}, tol {VOX_LOSS_REL}); Predictor served "
+          f"{len(preds)} events", flush=True)
+    return paths, out
+
+
+def r256_step(card):
+    """One 256^3 remat train step (B1 x 32,768) through the kernels:
+    finite loss and gradients, launches, peak memory, and the loss and
+    conv-kernel gradients against the same step through the plain
+    versions."""
+    import torch
+
+    batch = _remat_batch(R256, R256_M, 24)
+    model = _remat_model(R256, True)
+    t0 = time.perf_counter()
+    lk, gk, launches, mem = _measured_step(model, batch)
+    ms_k = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(lk)) and all(
+        bool(torch.isfinite(g).all()) for g in gk.values())
+    want = {k: VOX_PER_STEP[k] * (2 if row in R128_FWD_ROWS else 1)
+            for row, k in R128_ROWS.items()}
+    got = {k: launches[k] for k in want}
+    t0 = time.perf_counter()
+    lp, gp, _, _ = _measured_step(model, batch, plain=True)
+    ms_p = (time.perf_counter() - t0) * 1e3
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    kern = [n for n in gp if n.endswith(".kernel")]
+    kk = torch.cat([gk[n].flatten() for n in kern])
+    kp = torch.cat([gp[n].flatten() for n in kern])
+    kcos = float(kk @ kp / (kk.norm() * kp.norm()))
+    res = {"loss_kernels": float(lk), "loss_plain": float(lp),
+           "loss_rel_err": loss_rel, "kernel_grad_cosine": kcos,
+           "finite": finite, "launches_by_row": _rows(launches),
+           "off_route_levels": _off_route_levels(R256, VOX_W, 3),
+           "memory": mem, "step_ms_kernels_first": ms_k,
+           "step_ms_plain_first": ms_p, "card": card}
+    print(f"  256^3 remat step [{card}]: loss kernels {float(lk):.6f} plain "
+          f"{float(lp):.6f} (rel {loss_rel:.2e}), conv-kernel gradient "
+          f"cosine {kcos:.6f}, finite {finite}; launches by row "
+          f"{_rows(launches)}; kept {mem['after_forward_gib']:.3f} GiB "
+          f"after the forward, peak {mem['peak_gib']:.3f} GiB; first step "
+          f"{ms_k:.0f} ms kernels, {ms_p:.0f} ms plain", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    if not finite or got != want or loss_rel > VOX_LOSS_REL or \
+            kcos < VOX_KERNEL_COS:
+        raise AssertionError(f"256^3 remat step: {res}, launches {got} != "
+                             f"{want}")
+    return res
+
+
 def _mma_fields(at, cases) -> dict:
     """The tensor-core rows' device times at the row's shape and each
     case's (device ms, library device ms, bound ms) beside them, keyed by
@@ -3569,6 +4087,13 @@ def _mma_fields(at, cases) -> dict:
             "off_route": {f"{c['case']} {c['shape']}": [
                 c["ms"], c["plain_ms"], c["library_ms"]]
                 for c in cases if "device_ms" not in c}}
+
+
+def _r128_fields(name, r128) -> dict:
+    """Row ``name``'s device ms, launches and bound in one 128^3 remat
+    step (phase 20), beside its row."""
+    row = next(r for r, k in R128_ROWS.items() if k == name)
+    return {"r128_remat_step": r128["rows"][str(row)]}
 
 
 def _scatter_fields(cases) -> dict:
@@ -3626,6 +4151,13 @@ def main() -> int:
     wgmma = wgmma_report()
     if sys.argv[1:2] == ["--step-spread"]:
         return step_spread(card, int(sys.argv[2]))
+    if sys.argv[1:2] == ["--r128"]:
+        r128, launch_r, launch_n = r128_step(card)
+        _, fitted = r128_fit(card, launch_r,
+                             {k: launch_n[k] for k in PER_FORWARD})
+        print(json.dumps({"card": card, "r128_step": r128,
+                          "r128_fit": fitted, "r256_step": r256_step(card)}))
+        return 0
     if sys.argv[1:2] == ["--pointnet"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
         cases, sums = pn_training_cases(gen, dropout=False)
@@ -3762,6 +4294,14 @@ def main() -> int:
     print(f"[19] serving PointNetSeg through Predictor [{card}]", flush=True)
     pns_launches, pn_served = pointnet_serve(card)
 
+    print(f"[20] the {R128}^3 remat U-Net: one step vs plain and without "
+          f"remat; api.fit, resume from 'latest', api.evaluate, Predictor; "
+          f"one {R256}^3 remat step [{card}]", flush=True)
+    r128, r128_launch_r, r128_launch_n = r128_step(card)
+    r128_paths, r128_fitted = r128_fit(
+        card, r128_launch_r, {k: r128_launch_n[k] for k in PER_FORWARD})
+    r256 = r256_step(card)
+
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
         "down2x_gn_act": ("act", "B8 64^3x16->32^3x32"),
@@ -3777,7 +4317,8 @@ def main() -> int:
                    "voxel_fit_serving": vox_serve[key],
                    "default_serving": def_launches[key],
                    "default_fit": def_fit_launches[key],
-                   "default_fit_serving": def_fit_serve[key]}
+                   "default_fit_serving": def_fit_serve[key],
+                   **{p: got[key] for p, got in r128_paths.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": FWD_SOURCES[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -3786,7 +4327,7 @@ def main() -> int:
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "shape": shape,
-            **_mma_fields(at, mine),
+            **_mma_fields(at, mine), **_r128_fields(name, r128),
         })
     # voxel backward rows: numbers at the largest shape each has on the
     # training path; launches from the api.fit run of phase 9
@@ -3800,7 +4341,8 @@ def main() -> int:
         at = next(c for c in mine if c["case"] == label and c["shape"] == shape)
         key = MMA_KEY.get(name, name)
         by_path = {"voxel_fit": vox_launches[key],
-                   "default_fit": def_fit_launches[key]}
+                   "default_fit": def_fit_launches[key],
+                   **{p: got[key] for p, got in r128_paths.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": VOX_SOURCES[name],
             "replaces": VOX_REPLACES[name], "launches": sum(by_path.values()),
@@ -3810,6 +4352,7 @@ def main() -> int:
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "shape": shape,
             **_mma_fields(at, mine), **_scatter_fields(mine),
+            **_r128_fields(name, r128),
         })
     # default-configuration rows: numbers at the B8 x 8192, 64^3 shapes of
     # phase 10; launches from phases 11 and 12
@@ -3987,7 +4530,9 @@ def main() -> int:
                       "sparse_serving": sp_served,
                       "sparse_train_cases": spb_cases, "sparse_step": sp_step,
                       "sparse_fit": sp_fitted, "test_only_cases": to_cases,
-                      "pointnet_serving": pn_served, "wgmma": wgmma}))
+                      "pointnet_serving": pn_served, "wgmma": wgmma,
+                      "r128_step": r128, "r128_fit": r128_fitted,
+                      "r256_step": r256}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

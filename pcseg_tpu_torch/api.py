@@ -1,10 +1,12 @@
 """High-level API (counterpart of pcseg_tpu/api.py): ``fit`` on in-memory
 events (PointNetSeg, the voxel U-Net and the block-sparse SparseVoxelNet,
-``model.name=sparse_voxelnet``), and serving, through ``predictor`` /
-``predict``, of a checkpoint of any of the three families in the port's
-format (the best checkpoint ``fit`` wrote, or one saved from weights
-carried over from the JAX package) or of the reference's
-``best_model.pth``. HDF5 datasets, resume and ``evaluate`` are not ported
+``model.name=sparse_voxelnet``), resumed from a checkpoint it wrote with
+``resume_from`` (usually ``<checkpoint_dir>/latest.pt``); ``evaluate``,
+the validation pass's metrics of a checkpoint on labelled events; and
+serving, through ``predictor`` / ``predict``, of a checkpoint of any of
+the three families in the port's format (the best checkpoint ``fit``
+wrote, or one saved from weights carried over from the JAX package) or
+of the reference's ``best_model.pth``. HDF5 datasets are not ported
 yet."""
 
 from __future__ import annotations
@@ -12,10 +14,21 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from pcseg_tpu_torch.ckpt.checkpoint import load_checkpoint, load_train_state
 from pcseg_tpu_torch.core.config import Config, apply_overrides
+from pcseg_tpu_torch.core.device import resolve_device
+from pcseg_tpu_torch.data.batching import DEFAULT_BUCKETS, BucketBatcher
 from pcseg_tpu_torch.infer import Predictor
-from pcseg_tpu_torch.train.loop import TrainResult, train_model
+from pcseg_tpu_torch.models.factory import build_model
+from pcseg_tpu_torch.ops.metrics import f1_from_confusion
+from pcseg_tpu_torch.train.loop import (
+    TrainResult,
+    _run_epoch_eval,
+    train_model,
+)
+from pcseg_tpu_torch.train.steps import TrainState
 
 
 class ArrayDataset:
@@ -37,15 +50,57 @@ class ArrayDataset:
 
 def fit(events: Sequence[tuple[np.ndarray, np.ndarray]], *,
         config: Config | None = None, overrides: Sequence[str] = (),
-        device=None, log=print) -> TrainResult:
+        resume_from: str | None = None, device=None,
+        log=print) -> TrainResult:
     """Train on in-memory (points (N, D), labels (N,)) events; returns the
     TrainResult, whose ``checkpoint_path`` holds the best model and whose
     history records, for the sparse family, the tiles dropped beyond the
     capacities in each epoch (``dropped_train`` / ``dropped_val``).
-    ``device``: None for CUDA, ``"cpu"`` for the plain versions."""
+    ``resume_from``: a checkpoint a run wrote (usually
+    ``<checkpoint_dir>/latest.pt``) to continue from: the parameters,
+    Adam's state and step, the epoch counter and the best-model selection
+    state all restore. ``device``: None for CUDA, ``"cpu"`` for the plain
+    versions."""
     cfg = config or Config()
     apply_overrides(cfg, overrides)
-    return train_model(cfg, ArrayDataset(events), device=device, log=log)
+    return train_model(cfg, ArrayDataset(events), device=device,
+                       resume_from=resume_from, log=log)
+
+
+def evaluate(checkpoint_path: str,
+             events: Sequence[tuple[np.ndarray, np.ndarray]], *,
+             batch_size: int = 64, buckets: Sequence[int] = DEFAULT_BUCKETS,
+             device=None) -> dict:
+    """A checkpoint in the port's format (any family) on labelled events:
+    {loss, accuracy, f1_macro, f1_weighted, f1_per_class, dropped,
+    confusion}, computed as the training run's validation pass computes
+    them (the class weights the run stored, ones for a checkpoint without
+    them; ``dropped``: the sparse family's occupied tiles beyond its
+    capacities over the events, 0 elsewhere). ``device``: None for CUDA,
+    ``"cpu"`` for the plain versions."""
+    dev = resolve_device(device)
+    state_dict, num_classes, model_cfg = load_checkpoint(checkpoint_path)
+    _, meta = load_train_state(checkpoint_path)
+    model = build_model(model_cfg, num_classes)
+    model.load_state_dict(state_dict)
+    model.to(dev).eval()
+    cw = torch.tensor(meta.get("class_weights") or np.ones(num_classes),
+                      dtype=torch.float32, device=dev)
+    batcher = BucketBatcher(ArrayDataset(events), batch_size,
+                            buckets=buckets, feature_dim=model_cfg.input_dim)
+    loss, acc, cm, dropped = _run_epoch_eval(
+        TrainState(model=model, optimizer=None), batcher, cw, num_classes,
+        dev)
+    f1 = f1_from_confusion(cm)
+    return {
+        "loss": loss,
+        "accuracy": acc,
+        "f1_macro": f1.macro,
+        "f1_weighted": f1.weighted,
+        "f1_per_class": f1.per_class.tolist(),
+        "dropped": dropped,
+        "confusion": cm.tolist(),
+    }
 
 
 def predictor(checkpoint_path: str, **kw) -> Predictor:

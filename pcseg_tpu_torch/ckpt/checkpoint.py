@@ -2,6 +2,15 @@
 count and the model config as JSON, and for a training run the optimizer
 state and metadata (epoch, metrics, class weights).
 
+A training run writes two: the best model (``train.checkpoint_name``) on
+improvement, and the rolling resume target ``latest.pt``
+(``latest_path``) every ``train.save_latest_every`` epochs, both in
+``train.checkpoint_dir``. The 'latest' metadata carries the JAX package's
+keys (``epoch``, ``num_classes``, ``class_weights``, ``config``,
+``best_f1_target``, ``best_val_loss``, ``best_epoch``,
+``patience_counter``) and the optimizer ``step``; ``train_model
+(resume_from=)`` reads either checkpoint.
+
 Written with ``torch.save`` to a temporary file in the same directory and
 renamed into place, so a crash never leaves a torn checkpoint; read with
 ``torch.load(weights_only=True)``, which unpickles tensors and plain
@@ -18,6 +27,13 @@ import tempfile
 import torch
 
 from pcseg_tpu_torch.core.config import ModelConfig
+
+LATEST_NAME = "latest.pt"
+
+
+def latest_path(checkpoint_dir: str) -> str:
+    """Where a training run writes its 'latest' checkpoint."""
+    return os.path.join(checkpoint_dir, LATEST_NAME)
 
 
 def _to_cpu(tree):

@@ -4,8 +4,9 @@ names, defaults and meanings.
 
 Ported: the ``ModelConfig`` fields of the three families, and the parts
 of ``DataConfig``, ``OptimConfig`` and ``TrainConfig`` that a one-device
-training run reads. Not yet: HDF5 paths and prefetch, resume/'latest'
-checkpoints, metrics logs, parallel strategies. The fields default as the
+training run reads, resume's 'latest' checkpoints, the metrics log, the
+profiler trace and ``debug_nans`` among them. Not yet: HDF5 paths and
+prefetch, parallel strategies. The fields default as the
 JAX package's do: ``voxelize_impl`` and ``devox_impl`` "auto", which at
 64^3 in bf16 resolve to the one-hot matmul voxelize/devoxelize forms;
 ``impl`` "block", the sparse family's block impl, which the voxel family
@@ -47,6 +48,9 @@ class ModelConfig:
     grid_size: int = 64
     unet_width: int = 16
     levels: int = 0               # 0 = family default (3)
+    # voxel family: recompute the U-Net core in the backward
+    # (torch.utils.checkpoint) instead of keeping its activations
+    remat: bool = False
     # voxel family: the conv core, "fused" (the CUDA kernels), "xla" (plain
     # torch convs, named after the JAX core it mirrors) or anything else
     # for "auto"; sparse family: "block" (the only impl ported)
@@ -96,6 +100,16 @@ class TrainConfig:
     checkpoint_dir: str = "checkpoints"
     checkpoint_name: str = "best_model.pt"
     log_every_steps: int = 20     # 0 = off
+    # also write the 'latest' checkpoint (the resume target) every N
+    # epochs, after selection; 0 = only the best-model checkpoint
+    save_latest_every: int = 1
+    # raise FloatingPointError at the first non-finite loss or gradient
+    # (one host sync a step)
+    debug_nans: bool = False
+    profile_dir: str = ""         # non-empty => torch.profiler trace of
+                                  # the first epoch run
+    metrics_log: str = ""         # non-empty => JSONL per-epoch metrics
+    tensorboard_dir: str = ""     # non-empty => TensorBoard scalars
 
 
 @dataclass

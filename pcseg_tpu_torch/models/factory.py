@@ -34,6 +34,7 @@ def build_model(cfg: ModelConfig, num_classes: int,
             grid_size=cfg.grid_size,
             width=cfg.unet_width,
             levels=cfg.levels or 3,
+            remat=cfg.remat,
             compute_dtype=cfg.compute_dtype,
             conv_impl=cfg.impl if cfg.impl in ("fused", "xla") else "auto",
             voxelize_impl=cfg.voxelize_impl,

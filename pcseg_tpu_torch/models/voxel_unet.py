@@ -32,13 +32,20 @@ backward, trilinear_scatter), f32 models the plain f32 forms.
 
 Training follows the JAX model's ``apply(train=True)``: there are no
 running statistics (GroupNorm), so ``apply`` returns ``(logits, {})`` and
-``load_batch_stats`` has nothing to load.
+``load_batch_stats`` has nothing to load. ``remat=True`` recomputes the
+core (the convs and the head; not voxelize or devoxelize) in the
+backward, ``torch.utils.checkpoint`` in place of the JAX
+``jax.checkpoint``: the step keeps the core's input and output instead of
+its activations, and runs the core's forward kernels twice. The stages
+run under ``utils.observe.named_scope`` ("voxelize", "core", "head",
+"devoxelize"), which a profiler trace shows.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pcseg_tpu_torch.ops import conv3d_block as cb
 from pcseg_tpu_torch.ops.conv3d import (
@@ -55,6 +62,7 @@ from pcseg_tpu_torch.ops.voxel import (
     resolve_voxelize_impl,
     voxelize,
 )
+from pcseg_tpu_torch.utils.observe import named_scope
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GROUPS = 8
@@ -77,6 +85,7 @@ class VoxelUNet3d(nn.Module):
                  grid_size: int = 64, width: int = 16, levels: int = 3,
                  compute_dtype: str = "float32", conv_impl: str = "auto",
                  voxelize_impl: str = "auto", devox_impl: str = "auto",
+                 remat: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         if compute_dtype not in DTYPES:
@@ -90,6 +99,7 @@ class VoxelUNet3d(nn.Module):
         self.conv_impl = conv_impl
         self.voxelize_impl = voxelize_impl
         self.devox_impl = devox_impl
+        self.remat = remat
 
         g = generator
         w = width
@@ -191,19 +201,29 @@ class VoxelUNet3d(nn.Module):
             mask = torch.ones(points.shape[:2], dtype=torch.bool,
                               device=points.device)
         forms = self.resolve_forms()
-        grid = voxelize(points, mask, self.grid_size, impl=forms["voxelize"],
-                        matmul_dtype=dt, plain=plain)
-        # the matmul voxelizer's bf16 grid, zero-padded to w0 channels by
-        # the fused core, has the values of JAX voxelize_packed
-        x = grid.features.to(dt)
+        with named_scope("voxelize"):
+            grid = voxelize(points, mask, self.grid_size,
+                            impl=forms["voxelize"], matmul_dtype=dt,
+                            plain=plain)
+            # the matmul voxelizer's bf16 grid, zero-padded to w0 channels
+            # by the fused core, has the values of JAX voxelize_packed
+            x = grid.features.to(dt)
         grid2 = forms["head"] == "grid2"
         if forms["conv"] == "fused":
-            voxel_logits = self._unet_core_fused(x, plain, grid2)
+            def core(v):
+                return self._unet_core_fused(v, plain, grid2)
         else:
-            voxel_logits = self._unet_core(x, dt)
+            def core(v):
+                return self._unet_core(v, dt)
+        with named_scope("core"):
+            if self.remat and torch.is_grad_enabled():
+                voxel_logits = checkpoint(core, x, use_reentrant=False)
+            else:
+                voxel_logits = core(x)
         devox = devoxelize_trilinear_grid2 if grid2 else devoxelize_trilinear
-        logits = devox(voxel_logits, points, mask, grid.lo, grid.scale,
-                       forms["devoxelize"], bwd_dtype=dt, plain=plain)
+        with named_scope("devoxelize"):
+            logits = devox(voxel_logits, points, mask, grid.lo, grid.scale,
+                           forms["devoxelize"], bwd_dtype=dt, plain=plain)
         return (logits, {}) if train else logits
 
     @torch.no_grad()
@@ -278,10 +298,13 @@ class VoxelUNet3d(nn.Module):
             xp, st = conv(xp, prm["kernel"], prm["bias"], sc, sh)
             sc, sh = fold(st, f"dec{i}_b_gn", i)
         head = self.p("head")
-        if grid2_out:
-            return cb.fused_head_grid2(xp, head["kernel"], head["bias"], sc,
-                                       sh, self.num_classes, plain=plain)
-        return cb.head1x1(cb.act(xp, sc, sh), head["kernel"], head["bias"])
+        with named_scope("head"):
+            if grid2_out:
+                return cb.fused_head_grid2(xp, head["kernel"], head["bias"],
+                                           sc, sh, self.num_classes,
+                                           plain=plain)
+            return cb.head1x1(cb.act(xp, sc, sh), head["kernel"],
+                              head["bias"])
 
     def _unet_core(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         """Mirror of the JAX ``_unet_core``: plain convs + GroupNorm."""
@@ -305,4 +328,5 @@ class VoxelUNet3d(nn.Module):
             x = torch.cat([x, skips[i].to(dt)], dim=-1)
             x = block(f"dec{i}_a", x)
             x = block(f"dec{i}_b", x)
-        return conv3d(self.p("head"), x, compute_dtype=dt).float()
+        with named_scope("head"):
+            return conv3d(self.p("head"), x, compute_dtype=dt).float()

@@ -206,9 +206,11 @@ def device_profile(fn, stages=STAGES):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels only: a CPU op's self device time repeats its kernels'
+    # kernels only: a CPU op's self device time repeats its kernels', and
+    # so does a named stage's range on the device (utils/observe.py)
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3

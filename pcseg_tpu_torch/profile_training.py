@@ -55,7 +55,11 @@ from pcseg_tpu_torch.profile_serving import (
     sparse_model,
     voxel_model,
 )
-from pcseg_tpu_torch.train.steps import create_train_state, train_step
+from pcseg_tpu_torch.train.steps import (
+    create_train_state,
+    dropout_seeds,
+    train_step,
+)
 
 CLASSES = 4
 # (batch, bucket, min points) of each model's training configuration
@@ -88,7 +92,7 @@ def _configs(model: str):
             for bn_stats in ("fused", "exact")]
 
 
-def _stages(state, events, cw, gen, b, m):
+def _stages(state, events, cw, b, m):
     rows = []
     for i in range(8):
         t0 = time.perf_counter()
@@ -97,7 +101,8 @@ def _stages(state, events, cw, gen, b, m):
         tensors = tuple(torch.from_numpy(a).cuda() for a in batch)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        train_step(state, tensors, 1e-3, gen, cw)
+        train_step(state, tensors, 1e-3, dropout_seeds(1, 0, state.step),
+                   cw)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         if i >= 3:
@@ -127,10 +132,10 @@ def main() -> int:
     for label, model in _configs(args.model):
         torch.cuda.reset_peak_memory_stats()
         state = create_train_state(model.cuda())
-        gen = torch.Generator().manual_seed(1)
-        stages, batch = _stages(state, events, cw, gen, b, m)
+        stages, batch = _stages(state, events, cw, b, m)
         prof_res, prof = device_profile(
-            lambda: train_step(state, batch, 1e-3, gen, cw))
+            lambda: train_step(state, batch, 1e-3,
+                               dropout_seeds(1, 0, state.step), cw))
         report[label] = {"stages": stages,
                          "points_per_s": b * m / (stages["step_ms"] / 1e3),
                          "peak_mem_gib":

@@ -12,15 +12,29 @@
   best checkpoint is written on improvement (the port's format,
   ckpt/checkpoint.py); early stop after ``patience`` epochs without one.
 
+- the 'latest' checkpoint (ckpt/checkpoint.py ``latest_path``) every
+  ``save_latest_every`` epochs, written after selection so that it holds
+  this epoch's selection state; ``resume_from`` (a 'latest' or a best
+  checkpoint) restores the model, Adam's state and step, and the
+  selection state, and continues at the checkpoint's epoch + 1 (a best
+  checkpoint falls back to its own metrics and zero patience);
+- one ``MetricsLogger`` record an epoch (``metrics_log``,
+  ``tensorboard_dir``), the first epoch run under ``profile_trace`` when
+  ``profile_dir`` is set, and ``debug_nans``: FloatingPointError at the
+  first non-finite loss or gradient, naming the epoch and step.
+
 Metrics stay on the device during a pass and are read once at its end.
-Randomness comes from ``train.seed``: one generator each for the
-parameters and the dropout seeds. Not ported yet: HDF5 datasets,
-prefetch, resume and 'latest' checkpoints, metrics logs, parallel
-strategies.
+Randomness comes from ``train.seed``: a generator for the parameters, and
+dropout seeds per (seed, epoch, step) (``steps.dropout_seeds``). As in
+the JAX package, a resumed run's batchers count epochs from 0 again, so
+its shuffle orders are those of the first epochs, not the ones an
+uninterrupted run would reach. Not ported yet: HDF5 datasets, prefetch,
+parallel strategies.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -28,7 +42,12 @@ import time
 import numpy as np
 import torch
 
-from pcseg_tpu_torch.ckpt.checkpoint import save_checkpoint
+from pcseg_tpu_torch.ckpt.checkpoint import (
+    latest_path,
+    load_checkpoint,
+    load_train_state,
+    save_checkpoint,
+)
 from pcseg_tpu_torch.core.config import Config
 from pcseg_tpu_torch.core.device import resolve_device
 from pcseg_tpu_torch.data.batching import BucketBatcher
@@ -39,9 +58,11 @@ from pcseg_tpu_torch.train.optim import step_lr
 from pcseg_tpu_torch.train.steps import (
     TrainState,
     create_train_state,
+    dropout_seeds,
     eval_step,
     train_step,
 )
+from pcseg_tpu_torch.utils.observe import MetricsLogger, profile_trace
 
 _PURPOSES = {"params": 0, "dropout": 1}
 
@@ -77,11 +98,17 @@ def _to_device(batch, device):
                  for a in batch)
 
 
-def _run_epoch_train(state, batcher, lr, cw, gen, device, log,
-                     log_every=0):
+def _run_epoch_train(state, batcher, lr, cw, seed, epoch, device, log,
+                     log_every=0, debug_nans=False):
     metrics = []
     for i, batch in enumerate(batcher):
-        state, m = train_step(state, _to_device(batch, device), lr, gen, cw)
+        try:
+            state, m = train_step(state, _to_device(batch, device), lr,
+                                  dropout_seeds(seed, epoch, i), cw,
+                                  debug_nans=debug_nans)
+        except FloatingPointError as e:
+            raise FloatingPointError(f"epoch {epoch}, step {i}: {e}") \
+                from None
         metrics.append(m)
         if log_every and (i + 1) % log_every == 0:
             log(f"  step {i + 1}: loss {float(m['loss']):.4f}")
@@ -111,10 +138,27 @@ def _run_epoch_eval(state, batcher, cw, num_classes, device):
     return loss, acc, cm, _dropped(metrics)
 
 
-def train_model(cfg: Config, dataset, *, device=None, log=print
-                ) -> TrainResult:
+def _selection_state(meta: dict):
+    """(best_f1_target, best_val_loss, best_epoch, patience_counter) of a
+    resumed run: a 'latest' checkpoint's own, a best checkpoint's metrics
+    and zero patience, or a fresh run's start (JAX
+    pcseg_tpu/train/loop.py:322-339)."""
+    best_f1 = float(meta.get("best_f1_target",
+                             meta.get("f1_class_target", 0.0)))
+    best_loss = float(meta.get("best_val_loss",
+                               meta.get("val_loss", float("inf"))))
+    best_epoch = int(meta.get("best_epoch", meta.get("epoch", -1))
+                     if best_f1 > 0.0 or "best_epoch" in meta else -1)
+    return best_f1, best_loss, best_epoch, int(meta.get("patience_counter",
+                                                        0))
+
+
+def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
+                log=print) -> TrainResult:
     """Full training run on a map-style dataset of (points, labels)
-    events. ``device``: None for CUDA, ``"cpu"`` for the plain versions."""
+    events. ``device``: None for CUDA, ``"cpu"`` for the plain versions.
+    ``resume_from``: a checkpoint this function wrote (usually
+    ``<checkpoint_dir>/latest.pt``) to continue from."""
     dev = resolve_device(device)
     t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.model
 
@@ -142,22 +186,38 @@ def train_model(cfg: Config, dataset, *, device=None, log=print
 
     model = build_model(m_cfg, num_classes,
                         generator=purpose_generator(t_cfg.seed, "params"))
+    start_epoch, resume_meta = 0, {}
+    if resume_from:
+        sd, _, _ = load_checkpoint(resume_from)
+        model.load_state_dict(sd)
     state = create_train_state(model.to(dev), cfg.optim)
-    drop_gen = purpose_generator(t_cfg.seed, "dropout")
+    if resume_from:
+        opt_state, resume_meta = load_train_state(resume_from)
+        if opt_state is not None:
+            state.optimizer.load_state_dict(opt_state)
+        state.step = int(resume_meta.get("step", 0))
+        start_epoch = int(resume_meta.get("epoch", -1)) + 1
+        log(f"resumed from {resume_from} at epoch {start_epoch}")
     cw = torch.from_numpy(class_weights).to(dev)
     ckpt_path = os.path.join(t_cfg.checkpoint_dir, t_cfg.checkpoint_name)
+    metrics_logger = MetricsLogger(t_cfg.metrics_log or None,
+                                   t_cfg.tensorboard_dir)
 
-    best_f1_target, best_val_loss, best_epoch = 0.0, float("inf"), -1
-    patience_counter = 0
+    best_f1_target, best_val_loss, best_epoch, patience_counter = \
+        _selection_state(resume_meta)
     history: list[dict] = []
     o_cfg = cfg.optim
-    for epoch in range(t_cfg.num_epochs):
+    for epoch in range(start_epoch, t_cfg.num_epochs):
         lr = step_lr(o_cfg.lr, epoch, o_cfg.lr_step_epochs, o_cfg.lr_gamma)
         t0 = time.perf_counter()
         state.model.train()
-        train_loss, train_acc, steps, train_dropped = _run_epoch_train(
-            state, train_batcher, lr, cw, drop_gen, dev, log,
-            t_cfg.log_every_steps)
+        trace = (profile_trace(t_cfg.profile_dir)
+                 if t_cfg.profile_dir and epoch == start_epoch
+                 else contextlib.nullcontext())
+        with trace:
+            train_loss, train_acc, steps, train_dropped = _run_epoch_train(
+                state, train_batcher, lr, cw, t_cfg.seed, epoch, dev, log,
+                t_cfg.log_every_steps, t_cfg.debug_nans)
         t_train = time.perf_counter() - t0
         state.model.eval()
         val_loss, val_acc, cm, val_dropped = _run_epoch_eval(
@@ -173,14 +233,16 @@ def train_model(cfg: Config, dataset, *, device=None, log=print
         f1_target = (float(f1.per_class[t_cfg.target_class])
                      if len(f1.per_class) > t_cfg.target_class else 0.0)
         dt = time.perf_counter() - t0
-        history.append({
+        record = {
             "epoch": epoch, "lr": lr, "train_loss": train_loss,
             "train_acc": train_acc, "val_loss": val_loss, "val_acc": val_acc,
             "f1_macro": f1.macro, "f1_weighted": f1.weighted,
             "f1_per_class": f1.per_class.tolist(), "f1_target": f1_target,
             "dropped_train": train_dropped, "dropped_val": val_dropped,
             "train_steps": steps, "train_seconds": t_train, "seconds": dt,
-        })
+        }
+        history.append(record)
+        metrics_logger.log(epoch, record)
         log(f"epoch {epoch + 1}/{t_cfg.num_epochs}: "
             f"train {train_loss:.4f}/{train_acc:.2f}% "
             f"val {val_loss:.4f}/{val_acc:.2f}% "
@@ -211,10 +273,29 @@ def train_model(cfg: Config, dataset, *, device=None, log=print
             patience_counter += 1
             log(f"no improvement for {patience_counter}/{t_cfg.patience} "
                 "epochs")
+        # the resume target, after selection so that it holds this
+        # epoch's selection state
+        if t_cfg.save_latest_every > 0 and \
+                (epoch + 1) % t_cfg.save_latest_every == 0:
+            save_checkpoint(
+                latest_path(t_cfg.checkpoint_dir), state.model.state_dict(),
+                num_classes, m_cfg,
+                optimizer_state=state.optimizer.state_dict(),
+                metadata={
+                    "epoch": epoch, "step": state.step,
+                    "num_classes": num_classes,
+                    "class_weights": class_weights.tolist(),
+                    "config": cfg.to_dict(),
+                    "best_f1_target": best_f1_target,
+                    "best_val_loss": best_val_loss,
+                    "best_epoch": best_epoch,
+                    "patience_counter": patience_counter,
+                })
         if patience_counter >= t_cfg.patience:
             log("early stopping")
             break
 
+    metrics_logger.close()
     return TrainResult(
         state=state, num_classes=num_classes, class_weights=class_weights,
         best_f1_target=best_f1_target, best_val_loss=best_val_loss,

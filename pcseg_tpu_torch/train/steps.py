@@ -15,13 +15,20 @@ pcseg_tpu/train/steps.py without its mesh data parallelism).
   the sparse family's ``dropped`` count from the same forward.
 
 Metrics stay on the device as tensors; the caller reads them when it
-needs them, so a step never waits for the card on its own.
+needs them, so a step never waits for the card on its own, unless
+``debug_nans`` asks it to check the loss and every gradient.
+
+Dropout seeds come from ``dropout_seeds(seed, epoch, step)``, a stateless
+function of the run's seed and the step's place in it (the JAX package
+folds (epoch * 1,000,000 + step) into its dropout key), so a resumed
+epoch draws the uninterrupted run's masks.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from pcseg_tpu_torch.core.config import OptimConfig
@@ -45,23 +52,44 @@ def create_train_state(model: torch.nn.Module,
                       optimizer=make_optimizer(model.parameters(), optim_cfg))
 
 
-def draw_seeds(generator: torch.Generator) -> tuple[int, int]:
-    """Two 31-bit dropout seeds from a CPU generator (no device sync)."""
-    s = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator)
-    return int(s[0]), int(s[1])
+# the purpose tag of the dropout stream (the JAX package's core/prng.py)
+_DROPOUT_PURPOSE = 1
 
 
-def train_step(state: TrainState, batch, lr: float,
-               generator: torch.Generator, class_weights: torch.Tensor):
+def dropout_seeds(seed: int, epoch: int, step: int) -> tuple[int, int]:
+    """Two 31-bit dropout seeds of step ``step`` of epoch ``epoch`` of a
+    run seeded ``seed``: a pure function of the three, on the host."""
+    words = np.random.SeedSequence(
+        [seed, _DROPOUT_PURPOSE, epoch * 1_000_000 + step]).generate_state(2)
+    return int(words[0] >> 1), int(words[1] >> 1)
+
+
+def _check_finite(loss: torch.Tensor, model: torch.nn.Module, step: int):
+    """FloatingPointError naming the non-finite loss or gradients (one
+    host sync)."""
+    named = [("loss", loss)] + [(n, p.grad) for n, p in
+                                model.named_parameters()
+                                if p.grad is not None]
+    finite = torch.stack([t.detach().isfinite().all() for _, t in named])
+    if not bool(finite.all()):
+        bad = [n for (n, _), ok in zip(named, finite.tolist()) if not ok]
+        raise FloatingPointError(
+            f"non-finite values at optimizer step {step}: {bad[:8]}"
+            + (f" and {len(bad) - 8} more" if len(bad) > 8 else ""))
+
+
+def train_step(state: TrainState, batch, lr: float, seeds: tuple[int, int],
+               class_weights: torch.Tensor, *, debug_nans: bool = False):
     """One step on ``batch = (points (B,M,D), labels (B,M), masks (B,M))``
-    tensors on the model's device. Updates the model, its running stats
-    and the optimizer in place; returns (state, metrics) with metrics
-    {loss, correct, total} as device scalars, and ``dropped`` (occupied
-    tiles beyond the capacities, summed over the batch) for the sparse
-    family."""
+    tensors on the model's device. ``seeds``: the step's two dropout seeds
+    (``dropout_seeds``). Updates the
+    model, its running stats and the optimizer in place; returns (state,
+    metrics) with metrics {loss, correct, total} as device scalars, and
+    ``dropped`` (occupied tiles beyond the capacities, summed over the
+    batch) for the sparse family. ``debug_nans``: raise FloatingPointError
+    before the update when the loss or a gradient is not finite."""
     points, labels, masks = batch
     model = state.model
-    seeds = draw_seeds(generator)
     if model.supports_fused_loss() and points.shape[1] % 8 == 0:
         (num, den, correct), new_bn = model.fused_train_loss(
             points, labels, class_weights, seeds=seeds)
@@ -74,6 +102,8 @@ def train_step(state: TrainState, batch, lr: float,
     loss = num / den.clamp_min(_TINY)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if debug_nans:
+        _check_finite(loss, model, state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
     state.optimizer.step()

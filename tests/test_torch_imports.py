@@ -31,6 +31,7 @@ def test_port_imports_no_jax():
                                             "h5py", "pcseg_tpu"))
         assert not bad, bad
         assert "pcseg_tpu_torch.ops.conv3d_block" in names
+        assert "pcseg_tpu_torch.utils.observe" in names
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

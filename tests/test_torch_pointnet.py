@@ -39,7 +39,12 @@ from pcseg_tpu_torch.data.synthetic import synthetic_events
 from pcseg_tpu_torch.models.factory import build_model
 from pcseg_tpu_torch.models.pointnet import BN_FOR, PointNetSeg, _stages
 from pcseg_tpu_torch.ops.losses import cross_entropy_sums
-from pcseg_tpu_torch.train.steps import create_train_state, eval_step, train_step
+from pcseg_tpu_torch.train.steps import (
+    create_train_state,
+    dropout_seeds,
+    eval_step,
+    train_step,
+)
 
 torch.set_num_threads(1)
 
@@ -245,7 +250,7 @@ def test_train_step_matches_jax(jax_step):
     state = create_train_state(model)
     batch = _tensors(pts, labels, masks)
     state, metrics = train_step(state, batch, 1e-3,
-                                torch.Generator().manual_seed(0),
+                                dropout_seeds(0, 0, 0),
                                 torch.from_numpy(cw))
     assert state.step == 1
     np.testing.assert_allclose(float(metrics["loss"]), float(jm["loss"]),
@@ -354,7 +359,7 @@ def test_point_counts_off_the_fused_tiling_take_the_plain_path(monkeypatch):
         pts, labels, masks, cw = _batch(6, 2, m, [m, m - 5])
         calls.clear()
         _, metrics = train_step(state, _tensors(pts, labels, masks), 1e-3,
-                                torch.Generator().manual_seed(0),
+                                dropout_seeds(0, 0, 0),
                                 torch.from_numpy(cw))
         assert bool(calls) == fused and np.isfinite(float(metrics["loss"]))
 

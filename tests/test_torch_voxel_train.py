@@ -32,7 +32,11 @@ from pcseg_tpu_torch.infer import Predictor
 from pcseg_tpu_torch.models.factory import build_model
 from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
 from pcseg_tpu_torch.ops.losses import cross_entropy_sums
-from pcseg_tpu_torch.train.steps import create_train_state, train_step
+from pcseg_tpu_torch.train.steps import (
+    create_train_state,
+    dropout_seeds,
+    train_step,
+)
 
 torch.set_num_threads(1)
 
@@ -165,7 +169,7 @@ def test_f32_adam_step_matches_jax():
     tstate = create_train_state(model)
     batch = tuple(torch.from_numpy(a) for a in (pts, labels, mask))
     tstate, metrics = train_step(tstate, batch, 1e-3,
-                                 torch.Generator().manual_seed(0),
+                                 dropout_seeds(0, 0, 0),
                                  torch.from_numpy(cw))
     assert tstate.step == 1
     np.testing.assert_allclose(float(metrics["loss"]),
@@ -214,7 +218,7 @@ def test_fit_trains_and_predictor_serves_the_checkpoint(tmp_path):
     pts, labels, mask, cw = _batch(4, 2, 64)
     state, m = train_step(state, tuple(torch.from_numpy(a) for a in
                                        (pts, labels, mask)),
-                          1e-3, torch.Generator().manual_seed(0),
+                          1e-3, dropout_seeds(0, 0, 0),
                           torch.from_numpy(cw))
     assert np.isfinite(float(m["loss"]))
 
