@@ -190,7 +190,24 @@
    (experiments/bench_256_step.py, B1 x 32,768) through the kernels:
    finite loss and gradients, launches by row, peak memory, and its loss
    and conv-kernel gradients against the plain versions.
-21. Prints the kernels as one JSON line, the card's name and power limit,
+21. The data on disk: (a) `python -m pcseg_tpu_torch.cli synth` writes
+   10,000 events (the size of the reference's train_xyze_1e4.h5; the
+   CLI's defaults, 100-2,000 points, 4 classes) with the port's HDF5
+   writer, and the port's reader returns every event bit for bit as
+   generated (write and read events/s); (b) `cli train` trains
+   PointNetSeg at full width (fused, bf16, batch 64, 2 epochs of 125
+   steps and 32 val batches, prefetch depth 2) from those files: rows
+   15-17's launches a step held to phase 6's, finite losses; one train
+   epoch of the prefetched device batches against the inline ones
+   (torch.equal), the native packer's batches against numpy's byte for
+   byte with its call counts, and one train epoch timed (then one
+   profiled: idle share) at prefetch depth 0 and 2, packer on and off;
+   (c) `cli eval` of the best checkpoint equal to its epoch's validation
+   pass, `cli infer` of event 0 equal to Predictor.predict; (d) `cli
+   train` of the default voxel U-Net (64^3/w16/L3 bf16, batch 8, bucket
+   8192) for one epoch from a 512-event file, its launches a step and a
+   forward held to phase 12's.
+22. Prints the kernels as one JSON line, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
@@ -206,6 +223,11 @@ are set from. It holds nothing and prints no result.
     python3 chip_smoke.py --r128
 
 builds the kernels and runs only phase 20, printing its readings as one
+JSON line; no result line.
+
+    python3 chip_smoke.py --files
+
+builds the kernels and runs only phase 21, printing its readings as one
 JSON line; no result line.
 
     python3 chip_smoke.py --pointnet
@@ -4069,6 +4091,372 @@ def r256_step(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the data on disk
+# ---------------------------------------------------------------------------
+
+# (a) the size of the reference's train_xyze_1e4.h5, with the CLI synth's
+# defaults (100-2,000 points, 4 classes, seed 0); (b) PointNetSeg at full
+# width from those files through `cli train` (its default buckets, which
+# `cli eval` shares, so the evaluation repeats the validation batches),
+# 2 epochs of 125 train steps and 32 val batches; (d) the default voxel
+# U-Net one epoch from a 512-event file
+FILES_EVENTS, FILES_VOX_EVENTS = 10_000, 512
+FILES_PN = ["model.bn_stats=fused", "model.compute_dtype=bfloat16",
+            f"data.batch_size={PN_B}", "data.prefetch_depth=2",
+            "train.num_epochs=2", "train.log_every_steps=0"]
+FILES_VOX = ["model.name=voxel_unet3d", "model.compute_dtype=bfloat16",
+             f"data.batch_size={VOX_B}", f"data.buckets={VOX_M}",
+             "train.num_epochs=1", "train.log_every_steps=0"]
+FILES_CKPT = "build/chip_smoke_ckpt_files"
+
+
+def _cli(argv) -> tuple[dict, str]:
+    """``pcseg_tpu_torch.cli.main(argv)`` in this process (so the launch
+    counts see it): its JSON line and everything it printed."""
+    import contextlib
+    import io
+
+    from pcseg_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited {rc}:\n{out[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1]), out
+
+
+def _synth(tmp, name, events) -> tuple[str, str, dict]:
+    """``python -m pcseg_tpu_torch.cli synth`` as a user runs it."""
+    import os
+
+    data, labels = (os.path.join(tmp, f"{name}_xyze.h5"),
+                    os.path.join(tmp, f"{name}_label.h5"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pcseg_tpu_torch.cli", "synth", "--data",
+         data, "--labels", labels, "--events", str(events)],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli synth failed:\n{proc.stderr[-3000:]}")
+    return data, labels, json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _epoch_points(item) -> int:
+    """Padded points of a batch, host or placed (shape only, no sync)."""
+    pts = getattr(item, "tensors", item)[0]
+    return int(pts.shape[0] * pts.shape[1])
+
+
+# the idle share is read over a window of this many train steps; the
+# host-clock epochs are timed this many times each
+FILES_PROFILE_STEPS, FILES_ROUNDS = 30, 3
+
+
+def files_feed(card, ds, train_idx, cw):
+    """(b)'s feed checks and timings on the training split of ``ds``: the
+    prefetched device batches against the inline ones (torch.equal), the
+    packer's batches (gathered straight from the files) against numpy's
+    from events read one by one, byte for byte, with its call counts; one
+    timed train epoch and a profiled window (idle share) at prefetch
+    depth 0 and 2, packer on and off."""
+    import itertools
+
+    import torch
+
+    from pcseg_tpu_torch.core.config import ModelConfig
+    from pcseg_tpu_torch.data import native
+    from pcseg_tpu_torch.data.batching import BucketBatcher
+    from pcseg_tpu_torch.data.prefetch import (
+        DevicePlace,
+        device_batch,
+        prefetch,
+    )
+    from pcseg_tpu_torch.models.factory import build_model
+    from pcseg_tpu_torch.profile_serving import device_profile
+    from pcseg_tpu_torch.train.loop import _run_epoch_train
+    from pcseg_tpu_torch.train.steps import create_train_state
+
+    dev = torch.device("cuda")
+
+    def batcher(use_native=True):
+        return BucketBatcher(ds, PN_B, indices=train_idx, shuffle=True,
+                             seed=0, use_native=use_native)
+
+    # the prefetched device batches against the inline ones
+    place = DevicePlace(dev)
+    fetched = prefetch(batcher(), 2, place)
+    n_equal = 0
+    try:
+        for item, host in zip(fetched, batcher()):
+            a, b = device_batch(item, dev), device_batch(host, dev)
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"prefetched batch {n_equal} differs "
+                                     "from the inline one")
+            n_equal += 1
+    finally:
+        fetched.close()
+    if n_equal != len(batcher()):
+        raise AssertionError(f"prefetch gave {n_equal} batches")
+
+    # the packer against numpy, byte for byte, on the same epoch
+    native.reset_calls()
+    n_native = 0
+    for a, b in zip(batcher(True), batcher(False)):
+        if any(x.tobytes() != y.tobytes() for x, y in zip(a, b)):
+            raise AssertionError(f"packer batch {n_native} differs")
+        n_native += 1
+    calls = dict(native.CALLS)
+    if calls != {"pack_batch": 0, "pack_gather": n_native,
+                 "bucket_sort_windows": 1}:
+        raise AssertionError(f"packer calls {calls} for {n_native} batches")
+
+    real = sum(ds.num_points(int(i)) for i in train_idx)
+    model = build_model(ModelConfig(bn_stats="fused",
+                                    compute_dtype="bfloat16"), PN_CLASSES,
+                        generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model.cuda(), None)
+    state.model.train()
+    timing, epochs = {}, itertools.count()
+
+    def epoch(depth, use_native, max_steps=None):
+        """Train steps over one epoch (or its first ``max_steps``): (s,
+        steps, padded points)."""
+        it = batcher(use_native)
+        it = prefetch(it, depth, place) if depth else it
+        pts = [0]
+
+        def counted():
+            for item in itertools.islice(it, max_steps):
+                pts[0] += _epoch_points(item)
+                yield item
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            _, _, steps, _ = _run_epoch_train(
+                state, counted(), 1e-4, cw, 0, next(epochs), dev,
+                lambda _: None)
+        finally:
+            if depth:
+                it.close()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, steps, pts[0]
+
+    # host-clock epochs vary from run to run on a shared host: each
+    # setting is timed FILES_ROUNDS times, in turns (ABCD DCBA ABCD)
+    settings = [(d, n) for d in (0, 2) for n in (True, False)]
+    runs = {k: [] for k in settings}
+    for r in range(FILES_ROUNDS):
+        for depth, use_native in (settings if r % 2 == 0 else
+                                  settings[::-1]):
+            runs[depth, use_native].append(epoch(depth, use_native))
+    for depth, use_native in settings:
+        prof, _ = device_profile(
+            lambda: epoch(depth, use_native, FILES_PROFILE_STEPS), stages=())
+        ms = sorted(sec * 1e3 / steps for sec, steps, _ in
+                    runs[depth, use_native])
+        _, steps, padded = runs[depth, use_native][0]
+        key = f"depth{depth}_{'native' if use_native else 'numpy'}"
+        med = ms[len(ms) // 2]
+        timing[key] = {
+            "ms_per_step": med, "ms_per_step_runs": ms, "steps": steps,
+            "padded_points_per_s": padded / (med * steps / 1e3),
+            "points_per_s": real / (med * steps / 1e3),
+            "profiled_steps": FILES_PROFILE_STEPS,
+            "profiled_wall_ms_per_step":
+                prof["wall_ms"] / FILES_PROFILE_STEPS,
+            "device_busy_ms_per_step":
+                prof["device_busy_ms"] / FILES_PROFILE_STEPS,
+            "idle_share": prof["idle_share"]}
+        print(f"  epoch at prefetch depth {depth}, "
+              f"{'packer' if use_native else 'numpy'} [{card}]: median "
+              f"{med:.3f} ms/step of {len(ms)} epochs of {steps} steps "
+              f"({ms[0]:.3f}-{ms[-1]:.3f}), "
+              f"{timing[key]['points_per_s']:.4e} points/s "
+              f"({timing[key]['padded_points_per_s']:.4e} padded); "
+              f"{FILES_PROFILE_STEPS} profiled steps: busy "
+              f"{timing[key]['device_busy_ms_per_step']:.3f} ms/step, "
+              f"idle share {prof['idle_share']:.3f}", flush=True)
+    del state, model
+    torch.cuda.empty_cache()
+    return {"prefetched_batches_equal": n_equal,
+            "packer_batches_equal": n_native, "packer_calls": calls,
+            "timing": timing}
+
+
+def files_phase(card):
+    """Phase 21: (a) 10,000 events written by ``cli synth`` and read back
+    bit for bit by the port's reader (events/s both ways); (b) PointNetSeg
+    trained from them by ``cli train`` (rows 15-17's launches a step held
+    to phase 6's, finite losses) and the feed checks of ``files_feed``;
+    (c) ``cli eval`` of the best checkpoint against its epoch's
+    validation pass (its events written to files of their own), ``cli
+    infer`` of event 0 against ``Predictor.predict``; (d) the default
+    voxel U-Net one epoch from a 512-event file through ``cli train``,
+    its launches a step and a forward held to phase 12's. Returns
+    (PointNet launches, voxel launches, result)."""
+    import math
+    import os
+    import tempfile
+
+    import torch
+
+    from pcseg_tpu_torch.data.hdf5 import (
+        PointCloudDataset,
+        write_event_files,
+    )
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+    from pcseg_tpu_torch.infer import Predictor
+    from pcseg_tpu_torch.train.loop import split_indices
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"[{time.perf_counter() - t_phase:.1f} s]"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) write, then read every event back
+        data, labels, synth = _synth(tmp, "train", FILES_EVENTS)
+        events = list(synthetic_events(FILES_EVENTS))
+        t0 = time.perf_counter()
+        with PointCloudDataset(data, labels) as ds:
+            for i, (p, y) in enumerate(events):
+                got_p, got_y = ds[i]
+                if got_p.tobytes() != p.tobytes() or \
+                        got_y.tobytes() != y.tobytes():
+                    raise AssertionError(f"event {i} read back differs")
+        read_s = time.perf_counter() - t0
+        out["io"] = {
+            "events": synth["events"],
+            "bytes": os.path.getsize(data) + os.path.getsize(labels),
+            "write_events_per_s": synth["events"] / synth["write_seconds"],
+            "read_events_per_s": FILES_EVENTS / read_s,
+            "points": int(sum(p.shape[0] for p, _ in events))}
+        print(f"  (a) cli synth: {synth['events']} events, "
+              f"{out['io']['bytes'] / 2 ** 20:.1f} MiB, written at "
+              f"{out['io']['write_events_per_s']:.0f} events/s, read back "
+              f"bit for bit at {out['io']['read_events_per_s']:.0f} "
+              f"events/s [{card}] {at()}", flush=True)
+
+        # (b) cli train from the files
+        metrics = os.path.join(FILES_CKPT, "metrics.jsonl")
+        if os.path.exists(metrics):
+            os.unlink(metrics)
+        reset_counts()
+        res, _ = _cli(["train", "--data", data, "--labels", labels,
+                       *FILES_PN, f"train.checkpoint_dir={FILES_CKPT}",
+                       f"train.metrics_log={metrics}"])
+        torch.cuda.synchronize()
+        pn_launches = launch_counts()
+        hist = [json.loads(ln) for ln in open(metrics)]
+        steps = sum(h["train_steps"] for h in hist)
+        want = {k: PN_FUSED_PER_STEP.get(k, 0) * steps for k in pn_launches}
+        per_epoch = -(-int(0.8 * FILES_EVENTS) // PN_B)    # 125
+        if [h["train_steps"] for h in hist] != [per_epoch] * 2 or \
+                pn_launches != want:
+            raise AssertionError(f"cli train: {len(hist)} epochs, steps "
+                                 f"{[h['train_steps'] for h in hist]}, "
+                                 f"launches {pn_launches} != {want}")
+        losses = [h[k] for h in hist for k in ("train_loss", "val_loss")]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"cli train: non-finite loss {losses}")
+        out["pointnet_fit"] = {
+            "steps": steps,
+            "launches_per_step": {k: v / steps for k, v in
+                                  pn_launches.items() if v},
+            "train_loss": [h["train_loss"] for h in hist],
+            "val_loss": [h["val_loss"] for h in hist],
+            "ms_per_step": [h["train_seconds"] * 1e3 / h["train_steps"]
+                            for h in hist],
+            "epoch_seconds": [h["seconds"] for h in hist],
+            "best_epoch": res["best_epoch"]}
+        print(f"  (b) cli train PointNetSeg fused bf16 B{PN_B}, prefetch "
+              f"depth 2 [{card}]: {steps} steps, launches per step "
+              f"{out['pointnet_fit']['launches_per_step']}; train loss "
+              f"{out['pointnet_fit']['train_loss']}, val loss "
+              f"{out['pointnet_fit']['val_loss']}; ms/step "
+              f"{out['pointnet_fit']['ms_per_step']} {at()}", flush=True)
+
+        with PointCloudDataset(data, labels) as ds:
+            train_idx, val_idx = split_indices(len(ds), 0.2, 0)
+            cw = torch.tensor([1.0] * PN_CLASSES, device="cuda")
+            out["feed"] = files_feed(card, ds, train_idx, cw)
+            print(f"  (b) feed checks and timings done {at()}", flush=True)
+            val = [ds[int(i)] for i in val_idx]
+            event0 = ds[0][0]
+
+        # (c) cli eval on the validation events, cli infer on event 0
+        vdata, vlabels = (os.path.join(tmp, "val_xyze.h5"),
+                          os.path.join(tmp, "val_label.h5"))
+        write_event_files(vdata, vlabels, val)
+        ckpt = res["checkpoint"]
+        ev, _ = _cli(["eval", "--checkpoint", ckpt, "--data", vdata,
+                      "--labels", vlabels])
+        best = hist[res["best_epoch"]]
+        if ev["loss"] != best["val_loss"] or ev["accuracy"] != \
+                best["val_acc"]:
+            raise AssertionError(f"cli eval {ev['loss']} / {ev['accuracy']} "
+                                 f"!= the val pass's {best['val_loss']} / "
+                                 f"{best['val_acc']}")
+        inf, _ = _cli(["infer", "--checkpoint", ckpt, "--data", data,
+                       "--labels", labels, "--event", "0", "--dump"])
+        want_pred = Predictor.from_checkpoint(ckpt).predict(event0)
+        if inf["predictions"] != want_pred.tolist():
+            raise AssertionError("cli infer disagrees with Predictor")
+        out["eval"] = {"loss": ev["loss"], "accuracy": ev["accuracy"],
+                       "best_epoch": res["best_epoch"],
+                       "val_pass": [best["val_loss"], best["val_acc"]]}
+        out["infer"] = {"event": 0, "num_points": inf["num_points"],
+                        "accuracy": inf["accuracy"]}
+        print(f"  (c) cli eval of the best checkpoint (epoch "
+              f"{res['best_epoch']}): loss {ev['loss']:.6f}, accuracy "
+              f"{ev['accuracy']:.3f} %, equal to its val pass; cli infer "
+              f"event 0 ({inf['num_points']} points) equal to "
+              f"Predictor.predict [{card}] {at()}", flush=True)
+
+        # (d) the default voxel U-Net from a 512-event file
+        vd, vl, _ = _synth(tmp, "voxel", FILES_VOX_EVENTS)
+        vmetrics = os.path.join(FILES_CKPT + "_voxel", "metrics.jsonl")
+        if os.path.exists(vmetrics):
+            os.unlink(vmetrics)
+        reset_counts()
+        _cli(["train", "--data", vd, "--labels", vl, *FILES_VOX,
+              f"train.checkpoint_dir={FILES_CKPT}_voxel",
+              f"train.metrics_log={vmetrics}"])
+        torch.cuda.synchronize()
+        vox_launches = launch_counts()
+        (h,) = [json.loads(ln) for ln in open(vmetrics)]
+        n_train = int(0.8 * FILES_VOX_EVENTS)
+        steps = -(-n_train // VOX_B)
+        evals = -(-(FILES_VOX_EVENTS - n_train) // VOX_B)
+        want = {k: DEFAULT_PER_STEP.get(k, 0) * steps
+                + DEFAULT_PER_FORWARD.get(k, 0) * evals for k in vox_launches}
+        if h["train_steps"] != steps or vox_launches != want:
+            raise AssertionError(f"cli train voxel: {h['train_steps']} steps,"
+                                 f" launches {vox_launches} != {want}")
+        if not (math.isfinite(h["train_loss"]) and
+                math.isfinite(h["val_loss"])):
+            raise AssertionError(f"cli train voxel: {h}")
+        out["voxel_fit"] = {
+            "steps": steps, "eval_batches": evals,
+            "launches_per_step": {k: DEFAULT_PER_STEP.get(k, 0) for k, v in
+                                  vox_launches.items() if v},
+            "train_loss": h["train_loss"], "val_loss": h["val_loss"],
+            "ms_per_step": h["train_seconds"] * 1e3 / steps,
+            "epoch_seconds": h["seconds"]}
+        print(f"  (d) cli train voxel_unet3d default 64^3/w16/L3 bf16 "
+              f"B{VOX_B} x {VOX_M} [{card}]: {steps} steps + {evals} eval "
+              f"batches, launches held to phase 12's; train loss "
+              f"{h['train_loss']:.4f}, val loss {h['val_loss']:.4f}; "
+              f"{out['voxel_fit']['ms_per_step']:.2f} ms/step (first epoch) "
+              f"{at()}", flush=True)
+    del events, val
+    return pn_launches, vox_launches, out
+
+
 def _mma_fields(at, cases) -> dict:
     """The tensor-core rows' device times at the row's shape and each
     case's (device ms, library device ms, bound ms) beside them, keyed by
@@ -4157,6 +4545,9 @@ def main() -> int:
                              {k: launch_n[k] for k in PER_FORWARD})
         print(json.dumps({"card": card, "r128_step": r128,
                           "r128_fit": fitted, "r256_step": r256_step(card)}))
+        return 0
+    if sys.argv[1:2] == ["--files"]:
+        print(json.dumps({"card": card, "files": files_phase(card)[2]}))
         return 0
     if sys.argv[1:2] == ["--pointnet"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4302,6 +4693,12 @@ def main() -> int:
         card, r128_launch_r, {k: r128_launch_n[k] for k in PER_FORWARD})
     r256 = r256_step(card)
 
+    print(f"[21] the data on disk: cli synth of {FILES_EVENTS} events, cli "
+          f"train / eval / infer from the files (PointNetSeg, then the "
+          f"default voxel U-Net), prefetch and the native packer [{card}]",
+          flush=True)
+    files_pn, files_vox, files = files_phase(card)
+
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
         "down2x_gn_act": ("act", "B8 64^3x16->32^3x32"),
@@ -4318,7 +4715,8 @@ def main() -> int:
                    "default_serving": def_launches[key],
                    "default_fit": def_fit_launches[key],
                    "default_fit_serving": def_fit_serve[key],
-                   **{p: got[key] for p, got in r128_paths.items()}}
+                   **{p: got[key] for p, got in r128_paths.items()},
+                   "files_voxel_fit": files_vox[key]}
         kernels.append({
             "name": name, "route": "cuda", "source": FWD_SOURCES[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -4342,7 +4740,8 @@ def main() -> int:
         key = MMA_KEY.get(name, name)
         by_path = {"voxel_fit": vox_launches[key],
                    "default_fit": def_fit_launches[key],
-                   **{p: got[key] for p, got in r128_paths.items()}}
+                   **{p: got[key] for p, got in r128_paths.items()},
+                   "files_voxel_fit": files_vox[key]}
         kernels.append({
             "name": name, "route": "cuda", "source": VOX_SOURCES[name],
             "replaces": VOX_REPLACES[name], "launches": sum(by_path.values()),
@@ -4362,7 +4761,8 @@ def main() -> int:
                    "default_fit": def_fit_launches[name],
                    "default_fit_serving": def_fit_serve[name],
                    "wide_head_serving": wide_served[name],
-                   "wide_head_step": wide_stepped[name]}
+                   "wide_head_step": wide_stepped[name],
+                   "files_voxel_fit": files_vox[name]}
         if name in sp_launches and SP_PER_FORWARD.get(name):
             by_path["sparse_serving"] = sp_launches[name]
             by_path["sparse_fit"] = spf_launches[name]
@@ -4460,12 +4860,14 @@ def main() -> int:
     for name, label in pn_main.items():
         mine = [c for c in pn_cases if c["name"] == name]
         at = next(c for c in mine if c["case"] == label)
+        by_path = {p: got[name] + got.get(f"{name}_bwd", 0)
+                   for p, got in (("fit", fit_launches),
+                                  ("files_pointnet_fit", files_pn))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": PN_SOURCES[name],
             "replaces": PN_REPLACES[name],
-            "launches": fit_launches[name] + fit_launches.get(
-                f"{name}_bwd", 0),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -4484,7 +4886,8 @@ def main() -> int:
              "default_fit_serving": def_fit_serve,
              "sparse_serving": sp_launches, "sparse_fit": spf_launches,
              "sparse_fit_serving": spf_serve,
-             "pointnet_serving": pns_launches}
+             "pointnet_serving": pns_launches,
+             "files_pointnet_fit": files_pn, "files_voxel_fit": files_vox}
     for name, label, keys in (
             ("fused_global_pool", "pointnet global",
              ("fused_pool", "fused_pool_bwd")),
@@ -4532,7 +4935,7 @@ def main() -> int:
                       "sparse_fit": sp_fitted, "test_only_cases": to_cases,
                       "pointnet_serving": pn_served, "wgmma": wgmma,
                       "r128_step": r128, "r128_fit": r128_fitted,
-                      "r256_step": r256}))
+                      "r256_step": r256, "files": files}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

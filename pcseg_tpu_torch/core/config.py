@@ -4,9 +4,10 @@ names, defaults and meanings.
 
 Ported: the ``ModelConfig`` fields of the three families, and the parts
 of ``DataConfig``, ``OptimConfig`` and ``TrainConfig`` that a one-device
-training run reads, resume's 'latest' checkpoints, the metrics log, the
-profiler trace and ``debug_nans`` among them. Not yet: HDF5 paths and
-prefetch, parallel strategies. The fields default as the
+training run reads: the HDF5 event files and the prefetch depth, resume's
+'latest' checkpoints, the metrics log, the profiler trace and
+``debug_nans`` among them. Not yet: parallel strategies. The fields
+default as the
 JAX package's do: ``voxelize_impl`` and ``devox_impl`` "auto", which at
 64^3 in bf16 resolve to the one-hot matmul voxelize/devoxelize forms;
 ``impl`` "block", the sparse family's block impl, which the voxel family
@@ -22,6 +23,10 @@ from typing import Any, Sequence
 
 @dataclass
 class DataConfig:
+    # HDF5 event files: datasets 'data' (flat float arrays reshaped (N, 4))
+    # and 'labels' (int (N,)), data/hdf5.py
+    data_path: str = "data/train_xyze_1e4.h5"
+    label_path: str = "data/train_label_1e4.h5"
     batch_size: int = 64
     val_fraction: float = 0.2
     split_seed: int = 0
@@ -30,6 +35,9 @@ class DataConfig:
     # ragged -> static batching: the per-batch max point count is padded
     # up to one of these lengths
     buckets: Sequence[int] = (256, 512, 1024, 2048, 4096, 8192)
+    # batches read, packed and copied to the device ahead of the step by a
+    # thread (data/prefetch.py); 0 = inline
+    prefetch_depth: int = 2
 
 
 @dataclass

@@ -1,10 +1,13 @@
-"""Ragged events -> static-shape padded batches (numpy).
+"""Ragged events -> static-shape padded batches.
 
 Copies of ``DEFAULT_BUCKETS``, ``pick_bucket``, ``pad_events`` and
-``BucketBatcher`` from pcseg_tpu/data/batching.py, without its native C++
-packer and window sort (the numpy forms give identical batches). Padding
-to a few bucket lengths keeps the set of batch shapes small; a short
-batch is filled with all-masked rows.
+``BucketBatcher`` from pcseg_tpu/data/batching.py. Padding to a few
+bucket lengths keeps the set of batch shapes small; a short batch is
+filled with all-masked rows. The packing and the epoch plan's window sort
+run in the native packer (``data/native.py``; a dataset with a
+``pack_batch`` method, the HDF5 one, packs its batches itself) unless the
+caller passes ``use_native=False``, which takes the numpy forms: the
+same bytes.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
+
+from pcseg_tpu_torch.data import native
 
 DEFAULT_BUCKETS = (256, 512, 1024, 2048, 4096, 8192)
 
@@ -31,13 +36,17 @@ def pad_events(
     max_points: int,
     batch_size: Optional[int] = None,
     feature_dim: int = 4,
+    use_native: bool = True,
 ):
     """Pad a list of ragged events to (B, max_points, ...) dense arrays.
 
     Returns (points f32 (B,M,D), labels i64 (B,M) with -1 padding,
     masks bool (B,M)). ``batch_size`` > len(events) adds fully-masked rows.
+    ``use_native``: the C++ packer (else numpy, byte-identical).
     """
     b = batch_size if batch_size is not None else len(events)
+    if use_native:
+        return native.pack_batch(events, max_points, b, feature_dim)
     points = np.zeros((b, max_points, feature_dim), np.float32)
     labels = np.full((b, max_points), -1, np.int64)
     masks = np.zeros((b, max_points), bool)
@@ -62,7 +71,8 @@ class BucketBatcher:
     pads each to the smallest bucket >= its max point count. The order is
     sorted by point count inside windows of ``WINDOW_BATCHES`` batches, so
     batches are homogeneous in length (less padding) while staying
-    shuffled across epochs. A short final batch is kept.
+    shuffled across epochs. A short final batch is kept. ``use_native``:
+    pack and sort with the C++ packer (else numpy, the same batches).
     """
 
     def __init__(
@@ -74,6 +84,7 @@ class BucketBatcher:
         shuffle: bool = False,
         seed: int = 0,
         feature_dim: int = 4,
+        use_native: bool = True,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -84,6 +95,7 @@ class BucketBatcher:
         self.shuffle = shuffle
         self.seed = seed
         self.feature_dim = feature_dim
+        self.use_native = use_native
         self.epoch = 0
         self._lengths: Optional[np.ndarray] = None
 
@@ -107,6 +119,8 @@ class BucketBatcher:
             return order
         lengths = self._all_lengths()
         window = WINDOW_BATCHES * self.batch_size
+        if self.use_native:
+            return native.window_sort(order, lengths, window)
         return np.concatenate([
             win[np.argsort(lengths[win], kind="stable")]
             for win in (order[s : s + window]
@@ -116,9 +130,19 @@ class BucketBatcher:
         order = self._epoch_order()
         self.epoch += 1
         bs = self.batch_size
+        # an HDF5 dataset packs a batch straight from its files
+        gather = self.use_native and hasattr(self.dataset, "pack_batch") \
+            and self.dataset.feature_dim == self.feature_dim
         for s in range(0, len(order), bs):
-            events = [self.dataset[int(i)] for i in order[s : s + bs]]
+            idx = order[s : s + bs]
+            if gather:
+                bucket = pick_bucket(int(self._all_lengths()[idx].max()),
+                                     self.buckets)
+                yield self.dataset.pack_batch(idx, bucket, bs)
+                continue
+            events = [self.dataset[int(i)] for i in idx]
             bucket = pick_bucket(max(e[0].shape[0] for e in events),
                                  self.buckets)
             yield pad_events(events, bucket, batch_size=bs,
-                             feature_dim=self.feature_dim)
+                             feature_dim=self.feature_dim,
+                             use_native=self.use_native)

@@ -1,8 +1,10 @@
 """Serving: ``Predictor`` (counterpart of pcseg_tpu/infer.py) for the
 three families, from weights in memory, from a checkpoint that
 ``api.fit`` wrote or that ``ckpt.checkpoint.save_checkpoint`` made from
-carried JAX weights, or from the reference's ``best_model.pth``; and
-``inference_example``, the reference's demo.
+carried JAX weights, from a JAX checkpoint directory, or from the
+reference's ``best_model.pth``; and ``inference_example``, the
+reference's demo, on any dataset of (points, labels) events (an HDF5
+``data.hdf5.PointCloudDataset`` included).
 
 Events are padded to bucket lengths, and a short batch with all-masked
 dummy rows, as in the JAX package; the valid-point mask goes to the
@@ -109,9 +111,10 @@ class Predictor:
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "Predictor":
         """Load a reference ``best_model.pth`` (a PointNetSeg; its
-        ``num_classes`` from the file) or a checkpoint written by
-        ``ckpt.checkpoint.save_checkpoint``, whose stored config rebuilds
-        the model and sets ``strict_capacity``."""
+        ``num_classes`` from the file), a checkpoint written by
+        ``ckpt.checkpoint.save_checkpoint`` or a JAX checkpoint directory,
+        whose stored config rebuilds the model (PointNetSeg where a JAX
+        directory has none) and sets ``strict_capacity``."""
         if os.path.isfile(path) and path.endswith(".pth"):
             state, meta = load_best_model_pth(path)
             return cls(state, int(meta["num_classes"]), **kw)

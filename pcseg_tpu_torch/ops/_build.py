@@ -8,6 +8,10 @@ file name carries a hash of the source and of every ``csrc/*.cuh`` header
 it includes (``#include "name.cuh"``, found beside the source, so no -I
 flag is needed), so an edited kernel or header is never served from a
 stale build.
+
+``build_host`` compiles a host C++ source of the same directory
+(``csrc/collate.cpp``, the batch packer) the same way with ``g++``, the
+compiler ``nvcc`` itself drives.
 """
 
 from __future__ import annotations
@@ -141,32 +145,48 @@ def source_digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source (and
-    its headers) exists; returns the shared library's path."""
-    src = _CSRC / f"{name}.cu"
-    digest = source_digest(src)
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    if out.is_file():
-        return out
+def _compile(cmd: list, src: Path, out: Path) -> Path:
+    """Run ``cmd + [-o tmp, src]`` into ``out`` (atomically renamed), or
+    raise with the compiler's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True,
-        )
+        proc = subprocess.run([*cmd, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed for {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
+                f"{Path(cmd[0]).name} failed for {src} (exit "
+                f"{proc.returncode}):\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source (and
+    its headers) exists; returns the shared library's path."""
+    src = _CSRC / f"{name}.cu"
+    out = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
+    return out if out.is_file() else _compile([_nvcc(), *NVCC_FLAGS], src,
+                                              out)
+
+
+def build_host(name: str) -> Path:
+    """Compile the host source ``csrc/<name>.cpp`` with ``g++`` unless a
+    build of this exact source exists; returns the library's path."""
+    src = _CSRC / f"{name}.cpp"
+    out = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
+    if out.is_file():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {src} is compiled at "
+                           "first use")
+    return _compile([cxx, "-O3", "-std=c++17", "-shared", "-fPIC"], src, out)
 
 
 def _bind(path: Path, name: str) -> ctypes.CDLL:

@@ -28,7 +28,13 @@ Randomness comes from ``train.seed``: a generator for the parameters, and
 dropout seeds per (seed, epoch, step) (``steps.dropout_seeds``). As in
 the JAX package, a resumed run's batchers count epochs from 0 again, so
 its shuffle orders are those of the first epochs, not the ones an
-uninterrupted run would reach. Not ported yet: HDF5 datasets, prefetch,
+uninterrupted run would reach.
+
+The dataset is any map-style one (``api.ArrayDataset``, the HDF5
+``data.hdf5.PointCloudDataset``). With ``data.prefetch_depth`` above 0
+both batchers run in prefetch threads (``data/prefetch.py``) that read,
+pack and copy each batch to the device ahead of the step, as the JAX
+loop does; the batches and their order do not change. Not ported yet:
 parallel strategies.
 """
 
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 
 from pcseg_tpu_torch.ckpt.checkpoint import (
+    is_jax_checkpoint,
     latest_path,
     load_checkpoint,
     load_train_state,
@@ -52,6 +59,12 @@ from pcseg_tpu_torch.core.config import Config
 from pcseg_tpu_torch.core.device import resolve_device
 from pcseg_tpu_torch.data.batching import BucketBatcher
 from pcseg_tpu_torch.data.class_stats import scan_classes
+from pcseg_tpu_torch.data.prefetch import (
+    DevicePlace,
+    Prefetcher,
+    device_batch,
+    prefetch,
+)
 from pcseg_tpu_torch.models.factory import build_model
 from pcseg_tpu_torch.ops.metrics import f1_from_confusion
 from pcseg_tpu_torch.train.optim import step_lr
@@ -93,17 +106,12 @@ def split_indices(n: int, val_fraction: float, seed: int):
     return perm[:n_train], perm[n_train:]
 
 
-def _to_device(batch, device):
-    return tuple(torch.from_numpy(a).to(device, non_blocking=True)
-                 for a in batch)
-
-
 def _run_epoch_train(state, batcher, lr, cw, seed, epoch, device, log,
                      log_every=0, debug_nans=False):
     metrics = []
     for i, batch in enumerate(batcher):
         try:
-            state, m = train_step(state, _to_device(batch, device), lr,
+            state, m = train_step(state, device_batch(batch, device), lr,
                                   dropout_seeds(seed, epoch, i), cw,
                                   debug_nans=debug_nans)
         except FloatingPointError as e:
@@ -125,7 +133,7 @@ def _dropped(metrics) -> int:
 
 
 def _run_epoch_eval(state, batcher, cw, num_classes, device):
-    metrics = [eval_step(state, _to_device(b, device), cw, num_classes)
+    metrics = [eval_step(state, device_batch(b, device), cw, num_classes)
                for b in batcher]
     losses = [float(m["loss"]) for m in metrics]
     correct = sum(float(m["correct"]) for m in metrics)
@@ -158,8 +166,14 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
     """Full training run on a map-style dataset of (points, labels)
     events. ``device``: None for CUDA, ``"cpu"`` for the plain versions.
     ``resume_from``: a checkpoint this function wrote (usually
-    ``<checkpoint_dir>/latest.pt``) to continue from."""
+    ``<checkpoint_dir>/latest.pt``) to continue from (not a JAX
+    checkpoint directory: its optax state is not ported)."""
     dev = resolve_device(device)
+    if resume_from and is_jax_checkpoint(resume_from):
+        raise NotImplementedError(
+            f"{resume_from} is a JAX checkpoint directory: resuming from "
+            "its optax state is not ported (ROADMAP); serve or evaluate it "
+            "instead")
     t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.model
 
     stats = scan_classes(dataset, scan_events=d_cfg.class_scan_events,
@@ -207,95 +221,111 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
         _selection_state(resume_meta)
     history: list[dict] = []
     o_cfg = cfg.optim
-    for epoch in range(start_epoch, t_cfg.num_epochs):
-        lr = step_lr(o_cfg.lr, epoch, o_cfg.lr_step_epochs, o_cfg.lr_gamma)
-        t0 = time.perf_counter()
-        state.model.train()
-        trace = (profile_trace(t_cfg.profile_dir)
-                 if t_cfg.profile_dir and epoch == start_epoch
-                 else contextlib.nullcontext())
-        with trace:
-            train_loss, train_acc, steps, train_dropped = _run_epoch_train(
-                state, train_batcher, lr, cw, t_cfg.seed, epoch, dev, log,
-                t_cfg.log_every_steps, t_cfg.debug_nans)
-        t_train = time.perf_counter() - t0
-        state.model.eval()
-        val_loss, val_acc, cm, val_dropped = _run_epoch_eval(
-            state, val_batcher, cw, num_classes, dev)
-        if train_dropped or val_dropped:
-            msg = (f"capacity overflow: {train_dropped} train / "
-                   f"{val_dropped} val occupied tiles beyond the static "
-                   "capacity this epoch (raise model.max_tiles)")
-            if m_cfg.strict_capacity:
-                raise RuntimeError(msg)
-            log(f"WARNING: {msg}")
-        f1 = f1_from_confusion(cm)
-        f1_target = (float(f1.per_class[t_cfg.target_class])
-                     if len(f1.per_class) > t_cfg.target_class else 0.0)
-        dt = time.perf_counter() - t0
-        record = {
-            "epoch": epoch, "lr": lr, "train_loss": train_loss,
-            "train_acc": train_acc, "val_loss": val_loss, "val_acc": val_acc,
-            "f1_macro": f1.macro, "f1_weighted": f1.weighted,
-            "f1_per_class": f1.per_class.tolist(), "f1_target": f1_target,
-            "dropped_train": train_dropped, "dropped_val": val_dropped,
-            "train_steps": steps, "train_seconds": t_train, "seconds": dt,
-        }
-        history.append(record)
-        metrics_logger.log(epoch, record)
-        log(f"epoch {epoch + 1}/{t_cfg.num_epochs}: "
-            f"train {train_loss:.4f}/{train_acc:.2f}% "
-            f"val {val_loss:.4f}/{val_acc:.2f}% "
-            f"f1[c{t_cfg.target_class}] {f1_target:.4f} "
-            f"macro {f1.macro:.4f} lr {lr:.6f} ({dt:.1f}s)")
+    # prefetch threads read, pack and copy ahead of the step (JAX
+    # pcseg_tpu/train/loop.py:298-306)
+    if d_cfg.prefetch_depth > 0:
+        place = DevicePlace(dev)
+        train_iter = prefetch(train_batcher, d_cfg.prefetch_depth, place)
+        val_iter = prefetch(val_batcher, d_cfg.prefetch_depth, place)
+    else:
+        train_iter, val_iter = train_batcher, val_batcher
+    try:
+        for epoch in range(start_epoch, t_cfg.num_epochs):
+            lr = step_lr(o_cfg.lr, epoch, o_cfg.lr_step_epochs, o_cfg.lr_gamma)
+            t0 = time.perf_counter()
+            state.model.train()
+            trace = (profile_trace(t_cfg.profile_dir)
+                     if t_cfg.profile_dir and epoch == start_epoch
+                     else contextlib.nullcontext())
+            with trace:
+                train_loss, train_acc, steps, train_dropped = _run_epoch_train(
+                    state, train_iter, lr, cw, t_cfg.seed, epoch, dev, log,
+                    t_cfg.log_every_steps, t_cfg.debug_nans)
+            t_train = time.perf_counter() - t0
+            state.model.eval()
+            val_loss, val_acc, cm, val_dropped = _run_epoch_eval(
+                state, val_iter, cw, num_classes, dev)
+            if train_dropped or val_dropped:
+                msg = (f"capacity overflow: {train_dropped} train / "
+                       f"{val_dropped} val occupied tiles beyond the static "
+                       "capacity this epoch (raise model.max_tiles)")
+                if m_cfg.strict_capacity:
+                    raise RuntimeError(msg)
+                log(f"WARNING: {msg}")
+            f1 = f1_from_confusion(cm)
+            f1_target = (float(f1.per_class[t_cfg.target_class])
+                         if len(f1.per_class) > t_cfg.target_class else 0.0)
+            dt = time.perf_counter() - t0
+            record = {
+                "epoch": epoch, "lr": lr, "train_loss": train_loss,
+                "train_acc": train_acc, "val_loss": val_loss,
+                "val_acc": val_acc,
+                "f1_macro": f1.macro, "f1_weighted": f1.weighted,
+                "f1_per_class": f1.per_class.tolist(), "f1_target": f1_target,
+                "dropped_train": train_dropped, "dropped_val": val_dropped,
+                "train_steps": steps, "train_seconds": t_train, "seconds": dt,
+            }
+            history.append(record)
+            metrics_logger.log(epoch, record)
+            log(f"epoch {epoch + 1}/{t_cfg.num_epochs}: "
+                f"train {train_loss:.4f}/{train_acc:.2f}% "
+                f"val {val_loss:.4f}/{val_acc:.2f}% "
+                f"f1[c{t_cfg.target_class}] {f1_target:.4f} "
+                f"macro {f1.macro:.4f} lr {lr:.6f} ({dt:.1f}s)")
 
-        improved = False
-        if f1_target > best_f1_target:
-            best_f1_target, best_val_loss, improved = f1_target, val_loss, True
-        elif f1_target == best_f1_target and val_loss < best_val_loss:
-            best_val_loss, improved = val_loss, True
-        if improved:
-            patience_counter = 0
-            best_epoch = epoch
-            save_checkpoint(
-                ckpt_path, state.model.state_dict(), num_classes, m_cfg,
-                optimizer_state=state.optimizer.state_dict(),
-                metadata={
-                    "epoch": epoch, "step": state.step,
-                    "train_loss": train_loss, "val_loss": val_loss,
-                    "f1_class_target": f1_target,
-                    "f1_per_class": f1.per_class.tolist(),
-                    "class_weights": class_weights.tolist(),
-                    "config": cfg.to_dict(),
-                })
-            log(f"saved best checkpoint (f1={f1_target:.4f}) -> {ckpt_path}")
-        else:
-            patience_counter += 1
-            log(f"no improvement for {patience_counter}/{t_cfg.patience} "
-                "epochs")
-        # the resume target, after selection so that it holds this
-        # epoch's selection state
-        if t_cfg.save_latest_every > 0 and \
-                (epoch + 1) % t_cfg.save_latest_every == 0:
-            save_checkpoint(
-                latest_path(t_cfg.checkpoint_dir), state.model.state_dict(),
-                num_classes, m_cfg,
-                optimizer_state=state.optimizer.state_dict(),
-                metadata={
-                    "epoch": epoch, "step": state.step,
-                    "num_classes": num_classes,
-                    "class_weights": class_weights.tolist(),
-                    "config": cfg.to_dict(),
-                    "best_f1_target": best_f1_target,
-                    "best_val_loss": best_val_loss,
-                    "best_epoch": best_epoch,
-                    "patience_counter": patience_counter,
-                })
-        if patience_counter >= t_cfg.patience:
-            log("early stopping")
-            break
-
-    metrics_logger.close()
+            improved = False
+            if f1_target > best_f1_target:
+                best_f1_target, best_val_loss = f1_target, val_loss
+                improved = True
+            elif f1_target == best_f1_target and val_loss < best_val_loss:
+                best_val_loss, improved = val_loss, True
+            if improved:
+                patience_counter = 0
+                best_epoch = epoch
+                save_checkpoint(
+                    ckpt_path, state.model.state_dict(), num_classes, m_cfg,
+                    optimizer_state=state.optimizer.state_dict(),
+                    metadata={
+                        "epoch": epoch, "step": state.step,
+                        "train_loss": train_loss, "val_loss": val_loss,
+                        "f1_class_target": f1_target,
+                        "f1_per_class": f1.per_class.tolist(),
+                        "class_weights": class_weights.tolist(),
+                        "config": cfg.to_dict(),
+                    })
+                log(f"saved best checkpoint (f1={f1_target:.4f}) -> "
+                    f"{ckpt_path}")
+            else:
+                patience_counter += 1
+                log(f"no improvement for {patience_counter}/{t_cfg.patience} "
+                    "epochs")
+            # the resume target, after selection so that it holds this
+            # epoch's selection state
+            if t_cfg.save_latest_every > 0 and \
+                    (epoch + 1) % t_cfg.save_latest_every == 0:
+                save_checkpoint(
+                    latest_path(t_cfg.checkpoint_dir),
+                    state.model.state_dict(),
+                    num_classes, m_cfg,
+                    optimizer_state=state.optimizer.state_dict(),
+                    metadata={
+                        "epoch": epoch, "step": state.step,
+                        "num_classes": num_classes,
+                        "class_weights": class_weights.tolist(),
+                        "config": cfg.to_dict(),
+                        "best_f1_target": best_f1_target,
+                        "best_val_loss": best_val_loss,
+                        "best_epoch": best_epoch,
+                        "patience_counter": patience_counter,
+                    })
+            if patience_counter >= t_cfg.patience:
+                log("early stopping")
+                break
+    finally:
+        for it in (train_iter, val_iter):
+            if isinstance(it, Prefetcher):
+                it.close()
+        metrics_logger.close()
     return TrainResult(
         state=state, num_classes=num_classes, class_weights=class_weights,
         best_f1_target=best_f1_target, best_val_loss=best_val_loss,

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from pcseg_tpu_torch import api
+from pcseg_tpu_torch import api, cli
 from pcseg_tpu_torch.core.device import resolve_device
 from pcseg_tpu_torch.core.config import ModelConfig
 from pcseg_tpu_torch.infer import Predictor
@@ -28,10 +28,11 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "h5py", "pcseg_tpu"))
+                                            "h5py", "msgpack", "pcseg_tpu"))
         assert not bad, bad
-        assert "pcseg_tpu_torch.ops.conv3d_block" in names
-        assert "pcseg_tpu_torch.utils.observe" in names
+        for name in ("ops.conv3d_block", "utils.observe", "data.hdf5",
+                     "data.prefetch", "data.native", "cli"):
+            assert "pcseg_tpu_torch." + name in names, name
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -59,6 +60,11 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     events = [(np.zeros((5, 4), np.float32), np.zeros(5, np.int64))] * 2
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.fit(events)
+    # and the CLI, unless given --device cpu
+    for cmd in ("train", "infer", "eval"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([cmd, "--checkpoint", "x.pt", "--data", "d.h5",
+                      "--labels", "l.h5"] if cmd != "train" else [cmd])
 
 
 def test_unported_families_raise():
