@@ -207,7 +207,29 @@
    train` of the default voxel U-Net (64^3/w16/L3 bf16, batch 8, bucket
    8192) for one epoch from a 512-event file, its launches a step and a
    forward held to phase 12's.
-22. Prints the kernels as one JSON line, the card's name and power limit,
+22. SparseVoxelNet's masked-dense and rulebook-gather impls at the sparse
+   bench's widths (R64, w64, depth 4, 2 levels, bf16, max_active 8192,
+   the same seeded weights), on track events: (a) row 20 at the dense
+   impl's shapes (2,097,152 x 64 and 262,144 x 128, f32 in and bf16 out,
+   forward and backward with its route; the up conv's bf16 input at level
+   0) and row 10 at their voxelizer's call site (B8 M8192 R64 C1 3,
+   row-major ids), each against its plain version with times and bound;
+   (b) Predictor serving each impl (predict_batch on 16 events of
+   4,000-8,192 points, predict on one of 1,000): the dense impl launches
+   row 10 once and row 20 ten times a forward, the gather impl row 10
+   once, no site dropped, logits against the plain versions, and dense
+   against gather in f32 (reported); (c) one train step of each, kernels
+   against plain versions, held as phase 16 (the dense impl's row 20
+   backward ten times a step, on the vector route); (d) api.fit of each
+   (2 epochs of 3 steps + one eval batch; launches a step, finite losses,
+   ms a step, points/s, peak memory), its best checkpoint served; (e) the
+   gather impl at max_active 192: its dropped count with the kernels
+   equal to the plain forward's, overflow_counts' and one counted from
+   the points in numpy, Predictor warning and raising with
+   strict_capacity; (f) a JAX-format TrainState directory of the gather
+   impl written by tests/jax_format.py, resumed by api.fit (Adam's state
+   equal to the directory's, then one epoch trained).
+23. Prints the kernels as one JSON line, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
@@ -230,6 +252,11 @@ JSON line; no result line.
 builds the kernels and runs only phase 21, printing its readings as one
 JSON line; no result line.
 
+    python3 chip_smoke.py --sparse-impls
+
+builds the kernels and runs only phase 22, printing its readings as one
+JSON line; no result line.
+
     python3 chip_smoke.py --pointnet
 
 builds the kernels, prints phase 1's wgmma report and runs only phase 4's
@@ -240,7 +267,9 @@ result line.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2844,27 +2873,29 @@ def sp_conv_case(kind, bs, label, cin, cout, dtype, gen):
     return _vox_report(res)
 
 
-def sp_ln_case(kind, active, label, c, dtype, gen):
+def sp_ln_case(kind, active, label, c, dtype, gen, out_dtype=None):
     """``kind`` "fwd" or "bwd" of bias_ln_relu_mask on rows with the
-    ``active`` mask: kernel vs plain version, device times, bound and one
-    LayerNorm call of PyTorch (``F.layer_norm`` / ``native_layer_norm_
-    backward``)."""
+    ``active`` mask, x in ``dtype`` and the output (and so its cotangent)
+    in ``out_dtype`` (``dtype`` by default): kernel vs plain version,
+    device times, bound and one LayerNorm call of PyTorch
+    (``F.layer_norm`` / ``native_layer_norm_backward``)."""
     import torch
     import torch.nn.functional as F
 
     from pcseg_tpu_torch.ops import fused_ln as fl
 
+    out_dtype = out_dtype or dtype
     active = active.reshape(-1)
     n = active.numel()
     x = (torch.randn((n, c), generator=gen, device="cuda") * 2).to(dtype)
     pre = torch.randn((c,), generator=gen, device="cuda") * 0.1
     scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
     bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
-    g = torch.randn((n, c), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((n, c), generator=gen, device="cuda").to(out_dtype)
     w, bb = scale.to(dtype), bias.to(dtype)
-    es = x.element_size()
+    es, eo = x.element_size(), g.element_size()
     if kind == "fwd":
-        args = (x, pre, scale, bias, active, 1e-5, dtype)
+        args = (x, pre, scale, bias, active, 1e-5, out_dtype)
         k = fl.bias_ln_relu_mask_fwd(*args)
         torch.cuda.synchronize()
         p = fl.bias_ln_relu_mask_plain(*args)
@@ -2881,7 +2912,7 @@ def sp_ln_case(kind, active, label, c, dtype, gen):
 
         def library():
             return F.layer_norm(x, (c,), w, bb, 1e-5)
-        nbytes, flops = 2 * n * c * es + n + 3 * c * 4, 8 * n * c
+        nbytes, flops = n * c * (es + eo) + n + 3 * c * 4, 8 * n * c
     else:
         args = (x, pre, scale, bias, active, g, 1e-5)
         vec = fl.LAUNCHES["bias_ln_relu_mask_bwd_vec"]
@@ -2912,6 +2943,7 @@ def sp_ln_case(kind, active, label, c, dtype, gen):
         keys = ("bias_ln_relu_mask_bwd", "ln_bwd_vec_kernel", "column_sum")
         _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [c], w, bb,
                                                             1e-5)
+        gl = g.to(dtype)      # PyTorch's LayerNorm takes g in x's dtype
 
         def run():
             return fl.bias_ln_relu_mask_bwd(*args)
@@ -2921,14 +2953,16 @@ def sp_ln_case(kind, active, label, c, dtype, gen):
 
         def library():
             return torch.ops.aten.native_layer_norm_backward(
-                g, x, [c], lmean, lrstd, w, bb, [True, True, True])
+                gl, x, [c], lmean, lrstd, w, bb, [True, True, True])
         # x and g read once, dx written once, the mask and three vectors
         # read, three column sums written
-        nbytes = 3 * n * c * es + n + 6 * c * 4
+        nbytes = n * c * (2 * es + eo) + n + 6 * c * 4
         flops = 30 * n * c
     err = _held(name, checks)
+    shape = f"{n}x{c} {str(dtype)[6:]}" + (
+        f" -> {str(out_dtype)[6:]}" if out_dtype != dtype else "")
     res = {
-        "name": name, "case": label, "shape": f"{n}x{c} {str(dtype)[6:]}",
+        "name": name, "case": label, "shape": shape,
         "max_abs_err": err, "active_rows": int(active.sum()),
         "ms": kernel_ms(run, keys), "wrapper_ms": time_ms(run),
         "plain_ms": device_ms(plain), "library_ms": device_ms(library),
@@ -3032,12 +3066,13 @@ def sparse_bwd_cases(gen):
     return cases
 
 
-def sparse_step_compare(card, hold=True):
+def sparse_step_compare(card, hold=True, model=None):
     """Phase 16: one sparse train step (forward, loss, backward, Adam) of
-    the bench configuration with the kernels and with the plain versions,
-    from the same weights, optimizer state and batch, and the same step in
-    f32 through the plain versions as the yardstick of the bf16 chain's own
-    rounding; ``hold=False`` reports without failing."""
+    the bench configuration (or of ``model``, phase 22's impls) with the
+    kernels and with the plain versions, from the same weights, optimizer
+    state and batch, and the same step in f32 through the plain versions as
+    the yardstick of the bf16 chain's own rounding; ``hold=False`` reports
+    without failing."""
     import numpy as np
     import torch
 
@@ -3051,10 +3086,10 @@ def sparse_step_compare(card, hold=True):
     pts, labels, masks = (torch.from_numpy(a).cuda() for a in pad_events(
         sparse_batch(SP_B, SP_M), SP_M, batch_size=SP_B))
     cw = torch.ones(4, device="cuda")
-    model = sparse_model().cuda()
+    model = (model or sparse_model()).cuda()
     kw = {k: getattr(model, k) for k in (
         "num_classes", "grid_size", "width", "depth", "levels", "tile",
-        "max_tiles", "max_tiles_schedule")}
+        "max_tiles", "max_tiles_schedule", "impl", "max_active")}
     model32 = SparseVoxelNet(**kw, compute_dtype="float32").cuda()
     model32.load_state_dict(model.state_dict())
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -3076,7 +3111,7 @@ def sparse_step_compare(card, hold=True):
         grads = {n: p.grad.clone() for n, p in m.named_parameters()}
         upd = {n: p.detach() - start[n] for n, p in m.named_parameters()}
         return (float(loss.detach()), grads, upd,
-                int(aux["__overflow__"].sum()))
+                int(aux.get("__overflow__", loss.new_zeros(())).sum()))
 
     lk, gk, uk, dropped = step(model, False)
     lp, gp, up, _ = step(model, True)
@@ -3119,8 +3154,8 @@ def sparse_step_compare(card, hold=True):
            "update_rel_err_kernels_vs_plain": rel(uk, up),
            "update_ratio": u_ratio, "update_ratio_max": u_ratio[uw],
            "update_worst": uw, "step_ms_kernels": ms_k,
-           "step_ms_plain": ms_p, "card": card}
-    print(f"  sparse step: loss kernels {lk:.6f} plain {lp:.6f} (rel "
+           "step_ms_plain": ms_p, "impl": model.impl, "card": card}
+    print(f"  sparse {model.impl} step: loss kernels {lk:.6f} plain {lp:.6f} (rel "
           f"{loss_rel:.2e}, tol {SP_LOSS_REL:.1e}), f32 {lf:.6f}; conv-kernel "
           f"gradient cosine {kcos:.6f} (tol {VOX_KERNEL_COS}); gradient "
           f"ratio <= {g_ratio[gw]:.3f} at {gw}, Adam update ratio <= "
@@ -3228,6 +3263,574 @@ def sparse_fit(card):
           f"{out['points_per_s']:.4e} points/s; peak {peak:.3f} GiB; best "
           f"checkpoint served {len(preds)} events", flush=True)
     return launches, serve_launches, out
+
+
+# ---------------------------------------------------------------------------
+# SparseVoxelNet's masked-dense and rulebook-gather impls (slice 10)
+# ---------------------------------------------------------------------------
+
+IMPLS = ("dense", "gather")
+# the gather impl's site capacity: ModelConfig's default, which drops none
+# of the track events' 174-298 occupied voxels at R64 (87-150 at level 1)
+IMPL_ACTIVE = 8192
+# phase 22(e)'s capacity, between those counts: level 0 drops, level 1
+# does not
+IMPL_SMALL_CAP = 192
+# wrapper launches per forward: row 10 once; the dense impl's 10 LNs (4
+# at level 0, the down conv's, 4 at level 1, the up conv's) on row 20,
+# C 64 and 128 both multiples of 8; per train step also each LN's
+# backward, on the vector route
+# dense vs gather in f32 (phase 22(b)): the same products summed in
+# another order; logits 1e-5 of max|logit|, as
+# tests/test_torch_sparse_impls.py holds them. Gradients by each
+# parameter's norm, 2e-3: row 10's float atomics make two voxelizations
+# differ in their last bits, and a ReLU whose input lies within rounding
+# of 0 can then take the other side in one of the two runs, which moves
+# single terms of a gradient (2.5e-3 of l1_conv3.kernel's max, 7.3e-4 of
+# its norm, on this batch). The phase also runs the dense impl with
+# cuDNN's TF32 let in (ops/conv3d's guard swapped for a no-op), which
+# both bounds must refuse
+IMPL_F32_REL, IMPL_F32_GRAD_REL = 1e-5, 2e-3
+IMPL_PER_FORWARD = {"dense": {"voxelize_contract": 1,
+                              "bias_ln_relu_mask": 10},
+                    "gather": {"voxelize_contract": 1}}
+IMPL_PER_STEP = {"dense": dict(IMPL_PER_FORWARD["dense"],
+                               bias_ln_relu_mask_bwd=10,
+                               bias_ln_relu_mask_bwd_vec=10),
+                 "gather": dict(IMPL_PER_FORWARD["gather"])}
+
+
+def impl_model(impl, dtype="bfloat16", max_active=IMPL_ACTIVE):
+    """SparseVoxelNet(4 classes, R64, w64, d4, L2) with ``impl``, seeded
+    random weights: the same for every impl (they share the parameters'
+    names, shapes and init order) and for the block impl of phase 14."""
+    import torch
+
+    from pcseg_tpu_torch.models.sparse_unet import SparseVoxelNet
+
+    return SparseVoxelNet(
+        num_classes=4, grid_size=SP_R, width=SP_W, depth=4, levels=2,
+        compute_dtype=dtype, impl=impl, max_active=max_active,
+        generator=torch.Generator().manual_seed(0))
+
+
+def _impl_batch():
+    """Phase 13's B8 x 8192 track events (seed 0) on the card."""
+    import torch
+
+    from pcseg_tpu_torch.data.synthetic import track_events
+
+    pts = torch.from_numpy(track_events(SP_B, SP_M, 0)).cuda()
+    return pts, torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda")
+
+
+def impl_kernel_cases(gen):
+    """Phase 22(a): row 20 at the dense impl's shapes, f32 conv outputs in
+    and bf16 out, forward and backward (the backward's cotangent bf16) on
+    the batch's level-0 and level-1 occupancy, and the up conv's bf16 input
+    at level 0; at level 0 also at 12 channels (a dense model of width 12:
+    no multiple of 8, the strided backward); row 10 at the dense and
+    gather impls' call site (ops/voxel.py voxelize: row-major ids, C1
+    3)."""
+    import torch
+
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    f32, bf = torch.float32, torch.bfloat16
+    pts, mask = _impl_batch()
+    grid = vx.voxelize(pts, mask, SP_R, "matmul", plain=True)
+    a0 = grid.counts > 0
+    r1 = SP_R // 2
+    a1 = a0.reshape(SP_B, r1, 2, r1, 2, r1, 2).any(6).any(4).any(2)
+    cases = []
+    for kind in ("fwd", "bwd"):
+        cases += [sp_ln_case(kind, a0, "dense level 0", SP_W, f32, gen, bf),
+                  sp_ln_case(kind, a1, "dense level 1", 2 * SP_W, f32, gen,
+                             bf),
+                  sp_ln_case(kind, a0, "dense up", SP_W, bf, gen),
+                  sp_ln_case(kind, a0, "dense level 0, width 12", 12, f32,
+                             gen, bf)]
+    flat, ext, _, _ = vx.voxel_rows(pts, mask, SP_R)
+    cases.append(voxelize_site_case(flat, ext, SP_R,
+                                    "voxelize dense/gather"))
+    return cases
+
+
+def _impl_logits_check(model, points, mask, label):
+    """Logits of one batch with the kernels against the plain versions,
+    as phase 14 holds them, and the forward's dropped count."""
+    import torch
+
+    out_k, dropped = model(points, mask, return_overflow=True)
+    out_p, dropped_p = model(points, mask, return_overflow=True, plain=True)
+    if out_k.shape != (points.shape[0], points.shape[1], 4) or \
+            not torch.isfinite(out_k).all() or out_k[~mask].any():
+        raise AssertionError(f"{label} logits: shape {tuple(out_k.shape)}, "
+                             "non-finite values or nonzero masked rows")
+    err = float((out_k - out_p).abs().max())
+    scale = float(out_p.abs().max())
+    agree = float((out_k.argmax(-1) == out_p.argmax(-1))[mask].float()
+                  .mean())
+    if not (err <= LOGITS_REL * scale and agree >= ARGMAX_AGREE
+            and torch.equal(dropped, dropped_p)):
+        raise AssertionError(f"{label}: logits disagree with the plain "
+                             f"model: max err {err} (max |logit| {scale}), "
+                             f"argmax agreement {agree}, dropped "
+                             f"{dropped.tolist()} vs {dropped_p.tolist()}")
+    return err, scale, agree, dropped
+
+
+def impl_serve(card, impl):
+    """Phase 22(b): Predictor on ``impl``: launches per forward, no site
+    dropped, logits against the plain versions, times, peak memory."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.synthetic import track_events
+    from pcseg_tpu_torch.infer import Predictor
+
+    model = impl_model(impl)
+    pred = Predictor(model.state_dict(), 4, model=model,
+                     strict_capacity=True)
+    rng = np.random.default_rng(0)
+    events = [track_events(1, int(m), rng)[0]
+              for m in rng.integers(4000, SP_M + 1, 16)]
+    single = track_events(1, 1000, 1)[0]
+    n_batch_pts = sum(e.shape[0] for e in events)
+    per_forward = IMPL_PER_FORWARD[impl]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")        # no capacity overflow
+        reset_counts()
+        t0 = time.perf_counter()
+        preds = pred.predict_batch(events, batch_size=SP_B)
+        t1 = time.perf_counter()
+        p_single = pred.predict(single)
+        t2 = time.perf_counter()
+        launches = launch_counts()
+    forwards = 3
+    expected = {k: per_forward.get(k, 0) * forwards for k in launches}
+    print(f"  {impl} main path: {forwards} forwards, launches "
+          f"{ {k: v for k, v in launches.items() if v} } (expected "
+          f"{ {k: v for k, v in expected.items() if v} }, none of the "
+          f"others)", flush=True)
+    if launches != expected:
+        raise AssertionError(f"{impl} serving: launch counts {launches} != "
+                             f"{expected}")
+    if [p.shape[0] for p in preds] != [e.shape[0] for e in events] or \
+            p_single.shape != (single.shape[0],):
+        raise AssertionError("prediction shapes do not match the events")
+    first = {"batch_ms": (t1 - t0) * 1e3, "single_ms": (t2 - t1) * 1e3}
+    reps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_batch(events, batch_size=SP_B)
+        t1 = time.perf_counter()
+        pred.predict(single)
+        t2 = time.perf_counter()
+        reps.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    batch_ms = sorted(r[0] for r in reps)[1]
+    single_ms = sorted(r[1] for r in reps)[1]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    pts, _, msk = pad_events(
+        [(e, np.zeros(e.shape[0], np.int64)) for e in events[:SP_B]], SP_M,
+        batch_size=SP_B)
+    points, mask = torch.from_numpy(pts).cuda(), torch.from_numpy(msk).cuda()
+    err, scale, agree, dropped = _impl_logits_check(model, points, mask,
+                                                    f"{impl} serving")
+    if dropped.any():
+        raise AssertionError(f"{impl}: dropped sites {dropped.tolist()}")
+    res = {
+        "model": f"SparseVoxelNet R64/w64/d4/L2 {impl} max_active "
+                 f"{IMPL_ACTIVE} bf16",
+        "launches_per_forward": {k: v / forwards for k, v in launches.items()
+                                 if v},
+        "first_call": first, "predict_batch_16_ms": batch_ms,
+        "ms_per_event_batched": batch_ms / len(events),
+        "points_per_s_batched": n_batch_pts / (batch_ms / 1e3),
+        "predict_1000pt_ms": single_ms, "peak_mem_gib": peak_gib,
+        "logits_max_abs_err": err, "max_abs_logit": scale,
+        "argmax_agreement": agree, "dropped_sites": int(dropped.sum()),
+        "card": card,
+    }
+    print(f"  serving {impl} [{card}]: predict_batch(16 events, "
+          f"{n_batch_pts} pts) {batch_ms:.2f} ms = "
+          f"{res['ms_per_event_batched']:.2f} ms/event, "
+          f"{res['points_per_s_batched']:.4e} points/s; predict(1000 pts) "
+          f"{single_ms:.2f} ms; first calls {first['batch_ms']:.2f} / "
+          f"{first['single_ms']:.2f} ms; peak {peak_gib:.3f} GiB; logits "
+          f"vs plain max|err| {err:.4e} (max|logit| {scale:.3f}), argmax "
+          f"agreement {agree:.6f}", flush=True)
+    return launches, res, (points, mask)
+
+
+def impl_dense_vs_gather(points, mask):
+    """Phase 22(b): the dense and gather impls in f32 on the same weights
+    and batch, kernels on, with cuDNN's TF32 at PyTorch's default (on):
+    the same function where no site drops, so the logits are held to
+    IMPL_F32_REL of max|logit| with ARGMAX_AGREE, and one train step's
+    gradients (weighted CE on seeded labels), parameter by parameter, to
+    IMPL_F32_GRAD_REL of their norm (max|diff| / max|grad| reported).
+    The gather impl has no kernel of its own (row 10 only), so this is
+    its witness on the card. Then the control: the dense impl with TF32
+    let into its convs must fail both bounds."""
+    import contextlib
+
+    import torch
+
+    from pcseg_tpu_torch.ops import conv3d as c3
+    from pcseg_tpu_torch.ops.losses import cross_entropy_sums
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    labels = torch.randint(0, 4, mask.shape, generator=gen, device="cuda")
+    labels = torch.where(mask, labels, -1)
+    cw = torch.tensor([1.0, 2.0, 0.5, 1.5], device="cuda")
+
+    def run(impl):
+        model = impl_model(impl, "float32").cuda()
+        with torch.no_grad():
+            logits = model(points, mask)
+        out, _ = model.apply(points, train=True, mask=mask)
+        num, den = cross_entropy_sums(out, labels, cw)
+        (num / den).backward()
+        return logits, {n: p.grad for n, p in model.named_parameters()}
+
+    def compare(a, b):
+        """max|diff| / max|logit|, argmax agreement, and per parameter
+        |diff| / |grad| by norm (held) and by max (reported)."""
+        rel = float((a[0] - b[0]).abs().max() / b[0].abs().max())
+        agree = float((a[0].argmax(-1) == b[0].argmax(-1))[mask].float()
+                      .mean())
+        norm_rel, at, max_rel, max_at = 0.0, "", 0.0, ""
+        for name, want in b[1].items():
+            d = a[1][name] - want
+            r = float(d.norm() / want.norm().clamp_min(1e-30))
+            m = float(d.abs().max() / want.abs().max().clamp_min(1e-30))
+            if r >= norm_rel:
+                norm_rel, at = r, name
+            if m >= max_rel:
+                max_rel, max_at = m, name
+        return {"max_abs_diff_over_max_logit": rel, "argmax_agreement": agree,
+                "grad_norm_rel": norm_rel, "grad_norm_rel_at": at,
+                "grad_max_rel": max_rel, "grad_max_rel_at": max_at}
+
+    guard = c3._cudnn_without_tf32
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        gather = run("gather")
+        res = compare(run("dense"), gather)
+        c3._cudnn_without_tf32 = contextlib.nullcontext
+        control = compare(run("dense"), gather)
+    finally:
+        c3._cudnn_without_tf32 = guard
+        torch.backends.cudnn.allow_tf32 = before
+    for label, r in (("", res), ("control, TF32 let in: ", control)):
+        print(f"  dense vs gather in f32 (cuDNN TF32 at PyTorch's default), "
+              f"{label}max|diff| / max|logit| "
+              f"{r['max_abs_diff_over_max_logit']:.3e} (tol {IMPL_F32_REL}), "
+              f"argmax agreement {r['argmax_agreement']:.6f} (tol "
+              f"{ARGMAX_AGREE}); gradients: worst |diff| / |grad| "
+              f"{r['grad_norm_rel']:.3e} at {r['grad_norm_rel_at']} (tol "
+              f"{IMPL_F32_GRAD_REL}), worst max|diff| / max|grad| "
+              f"{r['grad_max_rel']:.3e} at {r['grad_max_rel_at']}",
+              flush=True)
+    if not (res["max_abs_diff_over_max_logit"] <= IMPL_F32_REL
+            and res["argmax_agreement"] >= ARGMAX_AGREE
+            and res["grad_norm_rel"] <= IMPL_F32_GRAD_REL):
+        raise AssertionError(f"dense vs gather in f32: {res}")
+    if control["max_abs_diff_over_max_logit"] <= IMPL_F32_REL or \
+            control["grad_norm_rel"] <= IMPL_F32_GRAD_REL:
+        raise AssertionError(f"dense vs gather in f32: with TF32 let into "
+                             f"the dense convs a bound still held: "
+                             f"{control}")
+    return dict(res, cudnn_allow_tf32=True, control_tf32_in_convs=control)
+
+
+def _impl_events(seed, n):
+    """n track events of 4,000-8,192 points with labels drawn by numpy."""
+    import numpy as np
+
+    from pcseg_tpu_torch.data.synthetic import track_events
+
+    rng = np.random.default_rng(seed)
+    events = []
+    for m in rng.integers(4000, SP_M + 1, n):
+        p = track_events(1, int(m), rng)[0]
+        events.append((p, rng.integers(0, 4, p.shape[0])))
+    return events
+
+
+def _impl_overrides(impl, ckpt, epochs=2):
+    return ["model.name=sparse_voxelnet", "model.num_classes=4",
+            f"model.grid_size={SP_R}", f"model.unet_width={SP_W}",
+            "model.depth=4", "model.levels=2", f"model.impl={impl}",
+            f"model.max_active={IMPL_ACTIVE}",
+            "model.compute_dtype=bfloat16", "model.strict_capacity=true",
+            f"data.batch_size={SP_B}", f"data.buckets={SP_M}",
+            f"train.checkpoint_dir={ckpt}", f"train.num_epochs={epochs}",
+            "train.log_every_steps=0"]
+
+
+def _impl_fit_checks(impl, res, launches, label):
+    """Launches held to the impl's per-step and per-forward counts (one
+    eval batch an epoch), finite losses, nothing dropped."""
+    import math
+
+    steps = sum(h["train_steps"] for h in res.history)
+    evals = len(res.history)
+    expected = {k: IMPL_PER_STEP[impl].get(k, 0) * steps
+                + IMPL_PER_FORWARD[impl].get(k, 0) * evals for k in launches}
+    if launches != expected:
+        raise AssertionError(f"{label}: launch counts {launches} != "
+                             f"{expected} ({steps} train steps, {evals} eval "
+                             "batches)")
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_loss")]
+    dropped = [h[k] for h in res.history
+               for k in ("dropped_train", "dropped_val")]
+    if not all(math.isfinite(v) for v in losses) or any(dropped):
+        raise AssertionError(f"{label}: losses {losses}, dropped {dropped}")
+    return steps, evals
+
+
+def impl_fit(card, impl):
+    """Phase 22(d), the main path: api.fit on ``impl`` (2 epochs of 3 train
+    steps and one eval batch), then Predictor on its best checkpoint.
+    Returns (fit launches, serving launches, result)."""
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch import api
+    from pcseg_tpu_torch.infer import Predictor
+
+    events = _impl_events(7, 30)     # 24 train (3 batches), 6 val
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = api.fit(events, overrides=_impl_overrides(
+        impl, f"build/chip_smoke_ckpt_{impl}"), log=lambda _: None)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, evals = _impl_fit_checks(impl, res, launches, f"{impl} fit")
+    warm = res.history[-1]
+    ms_step = warm["train_seconds"] * 1e3 / warm["train_steps"]
+
+    reset_counts()
+    pred = Predictor.from_checkpoint(res.checkpoint_path)
+    served = [p for p, _ in events[:SP_B]]
+    preds = pred.predict_batch(served, batch_size=SP_B)
+    logits = pred.logits(served[0])
+    torch.cuda.synchronize()
+    serve_launches = launch_counts()
+    want = {k: IMPL_PER_FORWARD[impl].get(k, 0) * 2 for k in serve_launches}
+    if serve_launches != want or pred.model.impl != impl:
+        raise AssertionError(f"serving the {impl} checkpoint: launch counts "
+                             f"{serve_launches} != {want}")
+    if [p.shape[0] for p in preds] != [e.shape[0] for e in served] or \
+            not np.isfinite(logits).all():
+        raise AssertionError(f"serving the {impl} checkpoint: bad "
+                             "predictions")
+    out = {
+        "steps": steps, "eval_batches": evals, "launches": launches,
+        "launches_per_step": {k: (v - IMPL_PER_FORWARD[impl].get(k, 0)
+                                  * evals) / steps
+                              for k, v in launches.items() if v},
+        "train_loss": [h["train_loss"] for h in res.history],
+        "val_loss": [h["val_loss"] for h in res.history],
+        "first_epoch_train_ms_per_step":
+            res.history[0]["train_seconds"] * 1e3 / res.history[0][
+                "train_steps"],
+        "ms_per_step": ms_step,
+        "points_per_s": SP_B * SP_M / (ms_step / 1e3),
+        "peak_mem_gib": peak, "serve_launches": serve_launches,
+        "card": card,
+    }
+    print(f"  fit {impl} [{card}]: {steps} train steps at B{SP_B} x {SP_M}, "
+          f"launches per step {out['launches_per_step']}; train loss "
+          f"{out['train_loss']}, val loss {out['val_loss']}; {ms_step:.2f} "
+          f"ms/step (epoch 2; epoch 1 "
+          f"{out['first_epoch_train_ms_per_step']:.2f}), "
+          f"{out['points_per_s']:.4e} points/s; peak {peak:.3f} GiB; best "
+          f"checkpoint served", flush=True)
+    return launches, serve_launches, out
+
+
+def _occupancy_count(points, r, cap):
+    """The gather impl's dropped count from the points alone, in numpy:
+    each event's occupied voxels past ``cap``, then those of its first
+    ``cap`` voxels' parents at R/2 past ``cap``."""
+    import numpy as np
+
+    out = []
+    for p in points:
+        lo, hi = p[:, :3].min(0), p[:, :3].max(0)
+        scale = r / np.maximum(hi - lo, 1e-6)
+        ijk = np.clip(np.floor((p[:, :3] - lo) * scale).astype(np.int64), 0,
+                      r - 1)
+        ids = np.unique((ijk[:, 0] * r + ijk[:, 1]) * r + ijk[:, 2])
+        kept = ids[:cap]
+        rc = r // 2
+        parents = np.unique(((kept // (r * r)) // 2 * rc
+                             + (kept // r % r) // 2) * rc + (kept % r) // 2)
+        out.append(max(len(ids) - cap, 0) + max(len(parents) - cap, 0))
+    return out
+
+
+def impl_capacity(card):
+    """Phase 22(e): the gather impl at max_active=192 on the batch: the
+    forward's dropped count with the kernels equals the plain forward's,
+    overflow_counts' and a count from the points in numpy; Predictor warns
+    naming sites and max_active, and raises with strict_capacity."""
+    import warnings
+
+    import torch
+
+    from pcseg_tpu_torch.infer import Predictor
+
+    pts, mask = _impl_batch()
+    model = impl_model("gather", max_active=IMPL_SMALL_CAP).cuda()
+    _, _, _, dropped = _impl_logits_check(model, pts, mask,
+                                          "gather at max_active 192")
+    counted = model.overflow_counts(pts, mask)
+    want = _occupancy_count(pts.cpu().numpy(), SP_R, IMPL_SMALL_CAP)
+    if dropped.tolist() != want or counted.tolist() != want or \
+            not sum(want):
+        raise AssertionError(f"gather at max_active {IMPL_SMALL_CAP}: "
+                             f"dropped {dropped.tolist()}, overflow_counts "
+                             f"{counted.tolist()}, from the points {want}")
+    event = pts[int(dropped.argmax())].cpu().numpy()
+    pred = Predictor(model.state_dict(), 4, model=model)
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        pred.predict(event)
+    msgs = [str(w.message) for w in got
+            if "sites" in str(w.message) and "max_active" in str(w.message)]
+    warned = bool(msgs)
+    strict = Predictor(model.state_dict(), 4, model=model,
+                       strict_capacity=True)
+    try:
+        strict.predict(event)
+        raised = False
+    except RuntimeError as e:
+        raised = "sites" in str(e)
+    if not (warned and raised):
+        raise AssertionError(f"gather overflow: warned {msgs}, strict "
+                             f"raised {raised}")
+    res = {"max_active": IMPL_SMALL_CAP, "dropped": dropped.tolist(),
+           "warning": msgs[0], "strict_raises": raised, "card": card}
+    print(f"  gather at max_active {IMPL_SMALL_CAP}: dropped "
+          f"{dropped.tolist()} = plain = overflow_counts = numpy; Predictor "
+          f"warned ({msgs[0]!r}) and raised with strict_capacity", flush=True)
+    return res
+
+
+def impl_resume(card):
+    """Phase 22(f): a JAX-format TrainState directory of the gather impl
+    (tests/jax_format.py: the phase's weights, numpy Adam moments, count
+    and step 5, meta.json at epoch 0 with 'latest' selection keys),
+    resumed by api.fit on the card: first restored only (Adam's state
+    equal to the directory's, bit for bit), then trained for epoch 1
+    (launches as 22(d), the step counter on from 5)."""
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch import api
+    from pcseg_tpu_torch.core.config import ModelConfig
+
+    # by path: the card's Python may have a "tests" package of its own
+    spec = importlib.util.spec_from_file_location(
+        "jax_format", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "jax_format.py"))
+    jax_format = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_format)
+    write_jax_checkpoint = jax_format.write_jax_checkpoint
+
+    impl = "gather"
+    model = impl_model(impl)
+    params = {}
+    for name, t in model.state_dict().items():
+        group, leaf = name.split(".")
+        params.setdefault(group, {})[leaf] = t.numpy()
+    rng = np.random.default_rng(5)
+    mu = {g: {k: (rng.normal(size=a.shape) * 1e-3).astype(np.float32)
+              for k, a in grp.items()} for g, grp in params.items()}
+    nu = {g: {k: rng.uniform(0, 1e-6, a.shape).astype(np.float32)
+              for k, a in grp.items()} for g, grp in params.items()}
+    cfg = dict(ModelConfig(name="sparse_voxelnet", grid_size=SP_R,
+                           unet_width=SP_W, depth=4, levels=2, impl=impl,
+                           max_active=IMPL_ACTIVE,
+                           compute_dtype="bfloat16").to_dict())
+    path = write_jax_checkpoint(
+        "build/chip_smoke_jax_gather", 5, params, {}, 5, mu, nu,
+        {"epoch": 0, "num_classes": 4, "config": {"model": cfg},
+         "best_f1_target": 0.0, "best_val_loss": 9.0, "best_epoch": 0,
+         "patience_counter": 0})
+    events = _impl_events(7, 30)
+    ckpt = "build/chip_smoke_ckpt_resume"
+    restored = api.fit(events, overrides=_impl_overrides(impl, ckpt, 1),
+                       resume_from=path, log=lambda _: None)
+    state = restored.state
+    exact = state.step == 5 and restored.history == []
+    for name, p in state.model.named_parameters():
+        group, leaf = name.split(".")
+        st = state.optimizer.state[p]
+        exact = exact and float(st["step"]) == 5.0 and all(
+            torch.equal(st[key].cpu(), torch.from_numpy(tree[group][leaf]))
+            for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu)))
+    if not exact:
+        raise AssertionError("resuming the JAX directory: Adam's state or "
+                             "the step differ from the directory's")
+    reset_counts()
+    res = api.fit(events, overrides=_impl_overrides(impl, ckpt, 2),
+                  resume_from=path, log=lambda _: None)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    steps, _ = _impl_fit_checks(impl, res, launches, "resumed gather fit")
+    if [h["epoch"] for h in res.history] != [1] or \
+            res.state.step != 5 + steps:
+        raise AssertionError(f"resumed run: epochs "
+                             f"{[h['epoch'] for h in res.history]}, step "
+                             f"{res.state.step}")
+    out = {"adam_state_equal": True, "epochs": [1], "steps": steps,
+           "step_counter": res.state.step,
+           "train_loss": res.history[0]["train_loss"], "card": card}
+    print(f"  resumed the JAX-format gather directory [{card}]: Adam state "
+          f"equal, epoch 1 trained ({steps} steps, step counter "
+          f"{res.state.step}, train loss {out['train_loss']:.4f})",
+          flush=True)
+    return launches, out
+
+
+def sparse_impls_phase(card, gen):
+    """Phase 22: (a) kernels at the impls' shapes, (b) serving each impl,
+    (c) one train step each, kernels vs plain, (d) api.fit each, (e) the
+    gather impl's capacity, (f) a resume from a JAX-format directory.
+    Returns (launches by path, readings)."""
+    cases = impl_kernel_cases(gen)
+    paths, out = {}, {"cases": cases}
+    batch = None
+    for impl in IMPLS:
+        paths[f"sparse_{impl}_serving"], out[f"{impl}_serving"], batch = \
+            impl_serve(card, impl)
+    out["dense_vs_gather_f32"] = impl_dense_vs_gather(*batch)
+    del batch
+    for impl in IMPLS:
+        out[f"{impl}_step"] = sparse_step_compare(card,
+                                                  model=impl_model(impl))
+    for impl in IMPLS:
+        (paths[f"sparse_{impl}_fit"], paths[f"sparse_{impl}_fit_serving"],
+         out[f"{impl}_fit"]) = impl_fit(card, impl)
+    out["gather_capacity"] = impl_capacity(card)
+    paths["sparse_gather_resume"], out["gather_resume"] = impl_resume(card)
+    return paths, out
 
 
 # ---------------------------------------------------------------------------
@@ -4549,6 +5152,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--files"]:
         print(json.dumps({"card": card, "files": files_phase(card)[2]}))
         return 0
+    if sys.argv[1:2] == ["--sparse-impls"]:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        print(json.dumps({"card": card, "sparse_impls": sparse_impls_phase(
+            card, gen)[1]}))
+        return 0
     if sys.argv[1:2] == ["--pointnet"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
         cases, sums = pn_training_cases(gen, dropout=False)
@@ -4699,6 +5307,14 @@ def main() -> int:
           flush=True)
     files_pn, files_vox, files = files_phase(card)
 
+    print(f"[22] SparseVoxelNet's dense and gather impls (R64/w64/d4/L2 "
+          f"bf16, max_active {IMPL_ACTIVE}): rows 20 and 10 at their "
+          f"shapes, serving, one train step each vs plain, api.fit, "
+          f"capacity, a resume from a JAX-format directory [{card}]",
+          flush=True)
+    impl_paths, impls = sparse_impls_phase(card, gen)
+
+    print(f"[23] the kernels and the result [{card}]", flush=True)
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
         "down2x_gn_act": ("act", "B8 64^3x16->32^3x32"),
@@ -4767,6 +5383,7 @@ def main() -> int:
             by_path["sparse_serving"] = sp_launches[name]
             by_path["sparse_fit"] = spf_launches[name]
             by_path["sparse_fit_serving"] = spf_serve[name]
+            by_path.update({p: got[name] for p, got in impl_paths.items()})
         kernels.append({
             "name": name, "route": "cuda",
             "source": SOURCE if name.startswith("head") else TRI_SOURCE,
@@ -4787,6 +5404,9 @@ def main() -> int:
         by_path = {"sparse_serving": sp_launches[name],
                    "sparse_fit": spf_launches[name],
                    "sparse_fit_serving": spf_serve[name]}
+        if name == "bias_ln_relu_mask":
+            by_path.update({p: got[name] for p, got in impl_paths.items()
+                            if "dense" in p})
         kernels.append({
             "name": name, "route": "cuda", "source": SP_SOURCES[name],
             "replaces": SP_REPLACES[name], "launches": sum(by_path.values()),
@@ -4799,11 +5419,14 @@ def main() -> int:
     for name in SP_BWD_REPLACES:
         mine = [c for c in spb_cases if c["name"] == name]
         at = next(c for c in mine if c["case"] in ("level 0", "readout bwd"))
+        by_path = {"sparse_fit": spf_launches[name]}
+        if name == "bias_ln_relu_mask_bwd":
+            by_path["sparse_dense_fit"] = impl_paths["sparse_dense_fit"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": SP_BWD_SOURCES[name],
             "replaces": SP_BWD_REPLACES[name],
-            "launches": spf_launches[name],
-            "launches_by_path": {"sparse_fit": spf_launches[name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -4814,13 +5437,15 @@ def main() -> int:
     mine = [c for c in spb_cases if c["name"] == "bias_ln_relu_mask_bwd"
             and c["route"] == "vector"]
     at = next(c for c in mine if c["case"] == "level 0")
+    by_path = {p: got["bias_ln_relu_mask_bwd_vec"] for p, got in (
+        ("sparse_fit", spf_launches),
+        ("sparse_dense_fit", impl_paths["sparse_dense_fit"]))}
     kernels.append({
         "name": "bias_ln_relu_mask_bwd_vec", "route": "cuda",
         "source": SP_SOURCES["bias_ln_relu_mask"],
         "replaces": SP_BWD_REPLACES["bias_ln_relu_mask_bwd"],
-        "launches": spf_launches["bias_ln_relu_mask_bwd_vec"],
-        "launches_by_path": {
-            "sparse_fit": spf_launches["bias_ln_relu_mask_bwd_vec"]},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max(c["max_abs_err"] for c in mine),
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -4887,7 +5512,8 @@ def main() -> int:
              "sparse_serving": sp_launches, "sparse_fit": spf_launches,
              "sparse_fit_serving": spf_serve,
              "pointnet_serving": pns_launches,
-             "files_pointnet_fit": files_pn, "files_voxel_fit": files_vox}
+             "files_pointnet_fit": files_pn, "files_voxel_fit": files_vox,
+             **impl_paths}
     for name, label, keys in (
             ("fused_global_pool", "pointnet global",
              ("fused_pool", "fused_pool_bwd")),
@@ -4935,7 +5561,8 @@ def main() -> int:
                       "sparse_fit": sp_fitted, "test_only_cases": to_cases,
                       "pointnet_serving": pn_served, "wgmma": wgmma,
                       "r128_step": r128, "r128_fit": r128_fitted,
-                      "r256_step": r256, "files": files}))
+                      "r256_step": r256, "files": files,
+                      "sparse_impls": impls}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,17 @@ nil; ext 1, an ndarray as (shape, dtype name, bytes), and ext 3, a numpy
 scalar; bfloat16 arrays widen to float32), ``meta.json``'s
 ``config.model`` rebuilds the model and ``convert.from_jax_variables``
 carries the weights. Any other ext, and flax's chunked form of arrays
-past 2^30 bytes, raise naming it. Resuming training from a JAX directory
-(its optax state) is not ported.
+past 2^30 bytes, raise naming it.
+
+A JAX directory of a whole TrainState (``step``, ``params``,
+``batch_stats``, ``opt_state``, as the JAX ``train_model`` saves it) also
+resumes training: ``load_train_state(path, model, optimizer)`` maps the
+optax chain's Adam state (``opt_state`` = {"0": add_decayed_weights'
+empty state, "1": {"count", "mu", "nu"}}, ``mu`` / ``nu`` nested as the
+parameters) onto ``torch.optim.Adam``'s per-parameter ``step`` /
+``exp_avg`` / ``exp_avg_sq`` under the names ``from_jax_variables`` gives
+the parameters, and adds the TrainState's ``step`` to ``meta.json``'s
+epoch and selection state. A directory without that Adam state raises.
 """
 
 from __future__ import annotations
@@ -102,11 +111,17 @@ def load_checkpoint(path: str):
     return payload["state_dict"], int(payload["num_classes"]), cfg
 
 
-def load_train_state(path: str):
+def load_train_state(path: str, model: torch.nn.Module | None = None,
+                     optimizer: torch.optim.Optimizer | None = None):
     """-> (optimizer state_dict or None, metadata dict) of a training
-    checkpoint (a JAX directory: None and its ``meta.json``)."""
+    checkpoint. A JAX directory: with the ``model`` and its Adam
+    ``optimizer`` to resume, its optax state as ``optimizer``'s state_dict
+    and its ``meta.json`` with the TrainState's ``step``
+    (``jax_adam_state``); without them None and its ``meta.json``."""
     if is_jax_checkpoint(path):
-        return None, _jax_meta(path)
+        if optimizer is None:
+            return None, _jax_meta(path)
+        return jax_adam_state(path, model, optimizer)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     meta = json.loads(payload["metadata"]) if "metadata" in payload else {}
     return payload.get("optimizer"), meta
@@ -133,6 +148,48 @@ def load_jax_checkpoint(path: str):
         state = msgpack_decode(f.read())
     variables = {k: state.get(k) or {} for k in ("params", "batch_stats")}
     return variables, _jax_meta(path)
+
+
+def _leaves(tree: dict) -> dict:
+    """{name: {leaf: array}} -> {"name.leaf": array}, as
+    ``from_jax_variables`` names the parameters."""
+    return {f"{name}.{leaf}": arr for name, group in tree.items()
+            for leaf, arr in group.items()}
+
+
+def jax_adam_state(path: str, model: torch.nn.Module,
+                   optimizer: torch.optim.Optimizer):
+    """A JAX TrainState directory -> (``optimizer``'s state_dict holding
+    the optax Adam state, metadata with the TrainState's ``step``). optax's
+    ``count`` is each parameter's Adam ``step`` (both count the updates
+    made; the bias corrections use the count after the next one), ``mu``
+    its ``exp_avg`` and ``nu`` its ``exp_avg_sq``, bit for bit."""
+    with open(os.path.join(path, "state.msgpack"), "rb") as f:
+        state = msgpack_decode(f.read())
+    opt = state.get("opt_state")
+    adam = opt.get("1") if isinstance(opt, dict) else None
+    if not (isinstance(adam, dict) and {"count", "mu", "nu"} <= adam.keys()):
+        raise ValueError(f"{path} holds no optax Adam state (an opt_state "
+                         "with count / mu / nu): serve or evaluate it, or "
+                         "train from its weights without resume_from")
+    mu, nu = _leaves(adam["mu"]), _leaves(adam["nu"])
+    names = [n for n, _ in model.named_parameters()]
+    if set(names) != set(mu) or set(names) != set(nu):
+        raise ValueError(f"{path}: the optax state's parameters "
+                         f"{sorted(set(mu) ^ set(names))} do not match the "
+                         "model's")
+    sd = optimizer.state_dict()
+    ids = [i for group in sd["param_groups"] for i in group["params"]]
+    if len(ids) != len(names):
+        raise ValueError("the optimizer must hold every parameter of the "
+                         "model, in its order")
+    count = float(np.asarray(adam["count"]))
+    sd["state"] = {i: {"step": torch.tensor(count),
+                       "exp_avg": torch.from_numpy(np.array(mu[n])),
+                       "exp_avg_sq": torch.from_numpy(np.array(nu[n]))}
+                   for i, n in zip(ids, names)}
+    meta = dict(_jax_meta(path), step=int(np.asarray(state["step"])))
+    return sd, meta
 
 
 def _ndarray(payload: bytes) -> np.ndarray:

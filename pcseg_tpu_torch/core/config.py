@@ -61,7 +61,7 @@ class ModelConfig:
     remat: bool = False
     # voxel family: the conv core, "fused" (the CUDA kernels), "xla" (plain
     # torch convs, named after the JAX core it mirrors) or anything else
-    # for "auto"; sparse family: "block" (the only impl ported)
+    # for "auto"; sparse family: "block", "gather" or "dense"
     impl: str = "block"
     # "scatter" / "gather" (f32-exact), "matmul" (the one-hot contraction's
     # values, ops/voxel.py) or "auto" (the JAX package's crossover rules)

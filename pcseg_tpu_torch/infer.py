@@ -11,9 +11,10 @@ dummy rows, as in the JAX package; the valid-point mask goes to the
 global max pool (PointNetSeg) or to voxelize and devoxelize, so padding
 never changes a prediction. PointNetSeg serves BN-folded by default
 (``fold=True``, ops/fold.py: a matmul + ReLU chain in ``dtype``). A
-sparse model's forward also returns its count of occupied tiles beyond
-the static capacity: their points read zero logits, so a nonzero count
-warns, or raises with ``strict_capacity=True``.
+sparse model's forward also returns its count of occupied tiles (block
+impl) or sites (gather impl) beyond the static capacity: their points
+read zero logits, so a nonzero count warns, or raises with
+``strict_capacity=True`` (the dense impl has no capacity).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from pcseg_tpu_torch.models.pointnet import (
     PointNetSeg,
     pointnet_apply_folded,
 )
+from pcseg_tpu_torch.models.sparse_unet import capacity_words
 from pcseg_tpu_torch.ops.fold import fold_pointnet
 
 
@@ -50,7 +52,7 @@ class Predictor:
     with its pool masked, which a ``bn_stats="fused"`` model refuses
     (ValueError), as in the JAX package. ``device``: None for CUDA,
     ``"cpu"`` for the plain versions. ``strict_capacity``: raise instead of
-    warning when a sparse model drops occupied tiles.
+    warning when a sparse model drops occupied tiles or sites.
     """
 
     def __init__(
@@ -98,12 +100,13 @@ class Predictor:
 
     def _check_capacity(self, dropped: np.ndarray) -> None:
         """Warn, or raise with ``strict_capacity``, on a nonzero count of
-        occupied tiles beyond the model's static capacity."""
+        occupied tiles (sites) beyond the model's static capacity."""
         n = int(dropped.sum())
         if n:
-            msg = (f"capacity overflow: {n} occupied tiles beyond the "
+            what, knob = capacity_words(self.model.impl)
+            msg = (f"capacity overflow: {n} occupied {what} beyond the "
                    f"model's static capacity; their points read zero "
-                   f"logits (raise max_tiles)")
+                   f"logits (raise {knob})")
             if self.strict_capacity:
                 raise RuntimeError(msg)
             warnings.warn(msg, stacklevel=3)

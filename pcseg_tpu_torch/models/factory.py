@@ -1,7 +1,8 @@
 """Model factory: config -> model instance (counterpart of
 pcseg_tpu/models/factory.py), for the three families. The sparse family
-takes its width from ``unet_width`` and one level by default, as in the
-JAX package; only its block impl is ported."""
+takes its width from ``unet_width``, one level by default and its impl
+("block", "gather" or "dense") and capacities from the config, as in the
+JAX package."""
 
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ def build_model(cfg: ModelConfig, num_classes: int,
             grid_size=cfg.grid_size,
             width=cfg.unet_width,
             depth=cfg.depth,
+            max_active=cfg.max_active,
             impl=cfg.impl,
             max_tiles=cfg.max_tiles,
             tile=cfg.tile,

@@ -4,14 +4,63 @@ Counterpart of pcseg_tpu/ops/conv3d.py. Activations stay NDHWC and
 kernels DHWIO at every public function, as in the JAX package; the
 permutes to PyTorch's NCDHW / OIDHW happen only inside these functions.
 Padding is XLA's "SAME".
+
+Every conv here runs through ``convolution``, which keeps cuDNN's TF32
+off in its forward and its backward: PyTorch lets cuDNN take TF32 for
+f32 convs by default, and an f32 compute dtype means f32 sums, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def _cudnn_without_tf32():
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+class _Convolution(torch.autograd.Function):
+    """``aten.convolution`` (no bias, dilation 1, one group), its forward
+    and its backward run with cuDNN's TF32 off."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.conf = ([stride] * 3, [padding] * 3, transposed)
+        with _cudnn_without_tf32():
+            return torch.ops.aten.convolution(
+                x, w, None, [stride] * 3, [padding] * 3, [1] * 3,
+                transposed, [0] * 3, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, transposed = ctx.conf
+        with _cudnn_without_tf32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, [1] * 3, transposed,
+                [0] * 3, 1, [ctx.needs_input_grad[0],
+                             ctx.needs_input_grad[1], False])
+        return dx, dw, None, None, None
+
+
+def convolution(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                padding: int = 0, transposed: bool = False) -> torch.Tensor:
+    """``F.conv3d`` (``F.conv_transpose3d`` with ``transposed``) of NCDHW
+    x and w, with f32 sums in f32: cuDNN's TF32 off, whatever the process
+    set."""
+    return _Convolution.apply(x, w, stride, padding, transposed)
 
 
 def conv3d_init(k: int, cin: int, cout: int,
@@ -38,7 +87,7 @@ def conv3d(p: dict, x: torch.Tensor, stride: int = 1,
         pads.extend(_same_pad(n, k, stride))
     xt = F.pad(x.to(dt).permute(0, 4, 1, 2, 3), pads)
     w = p["kernel"].to(dt).permute(4, 3, 0, 1, 2)
-    y = F.conv3d(xt, w, stride=stride).permute(0, 2, 3, 4, 1)
+    y = convolution(xt, w, stride).permute(0, 2, 3, 4, 1)
     return y + p["bias"].to(y.dtype)
 
 
@@ -54,7 +103,8 @@ def conv3d_transpose(p: dict, x: torch.Tensor, stride: int = 2,
         raise ValueError(f"conv3d_transpose needs kernel == stride, got "
                          f"{k} vs {stride}")
     w = p["kernel"].to(dt).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
-    y = F.conv_transpose3d(x.to(dt).permute(0, 4, 1, 2, 3), w, stride=stride)
+    y = convolution(x.to(dt).permute(0, 4, 1, 2, 3), w, stride,
+                    transposed=True)
     y = y.permute(0, 2, 3, 4, 1)
     return y + p["bias"].to(y.dtype)
 

@@ -21,6 +21,8 @@ resolve to "matmul"):
 Both devoxelize forms carry the JAX package's hand-written VJP: gradients
 flow to the grid only, through ``trilinear_scatter`` (JAX
 ``onehot_contract.trilinear_scatter``) in bf16, an f32 scatter in f32.
+``devoxelize_nearest`` (the masked-dense SparseVoxelNet's readout) reads
+each point's own voxel, a gather.
 
 The bf16 forms are the kernels' contracts at every R. The JAX package
 takes its kernels only at R <= 64 (``_use_plane_kernels``, a VMEM limit of
@@ -203,6 +205,22 @@ def voxelize(points: torch.Tensor, mask: torch.Tensor, grid_size: int,
     shape = (b, grid_size, grid_size, grid_size)
     return VoxelGrid(mean.reshape(shape + (c,)), cnts.reshape(shape), lo,
                      scale)
+
+
+def devoxelize_nearest(grid_feats: torch.Tensor, points: torch.Tensor,
+                       mask: torch.Tensor, lo: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """Each point's voxel value: grid_feats (B, R, R, R, C) -> (B, M, C),
+    masked points zero."""
+    b, r, c = grid_feats.shape[0], grid_feats.shape[1], grid_feats.shape[-1]
+    coords = points[..., :3].float()
+    ijk = torch.floor((coords - lo[:, None, :]) * scale[:, None, :])
+    ijk = ijk.to(torch.int64).clamp(0, r - 1)
+    flat = (ijk[..., 0] * r + ijk[..., 1]) * r + ijk[..., 2]
+    flat = torch.where(mask, flat, 0)
+    out = torch.gather(grid_feats.reshape(b, r ** 3, c), 1,
+                       flat[..., None].expand(-1, -1, c))
+    return torch.where(mask[..., None], out, torch.zeros_like(out))
 
 
 # ---------------------------------------------------------------------------

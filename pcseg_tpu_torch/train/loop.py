@@ -3,9 +3,9 @@
 - class scan + weighting on the first <= ``class_scan_events`` events;
 - seeded train/val split (train = int((1 - val_fraction) * n));
 - per epoch: train pass, val pass, per-class F1 from the val pass's
-  confusion matrix, StepLR; the sparse family's dropped tiles summed over
-  each pass, a warning in the log where any was dropped (points of a
-  dropped tile read zero logits), or an error with
+  confusion matrix, StepLR; the sparse family's dropped tiles (block
+  impl) or sites (gather impl) summed over each pass, a warning in the log
+  where any was dropped (their points read zero logits), or an error with
   ``model.strict_capacity``;
 - train/val loss = mean of the per-batch weighted-CE values;
 - best model: higher target-class F1, or equal F1 and lower val loss; the
@@ -17,7 +17,9 @@
   this epoch's selection state; ``resume_from`` (a 'latest' or a best
   checkpoint) restores the model, Adam's state and step, and the
   selection state, and continues at the checkpoint's epoch + 1 (a best
-  checkpoint falls back to its own metrics and zero patience);
+  checkpoint falls back to its own metrics and zero patience); a JAX
+  checkpoint directory resumes the same way, its optax Adam state mapped
+  onto ``torch.optim.Adam``'s (``ckpt.checkpoint.jax_adam_state``);
 - one ``MetricsLogger`` record an epoch (``metrics_log``,
   ``tensorboard_dir``), the first epoch run under ``profile_trace`` when
   ``profile_dir`` is set, and ``debug_nans``: FloatingPointError at the
@@ -49,7 +51,6 @@ import numpy as np
 import torch
 
 from pcseg_tpu_torch.ckpt.checkpoint import (
-    is_jax_checkpoint,
     latest_path,
     load_checkpoint,
     load_train_state,
@@ -66,6 +67,7 @@ from pcseg_tpu_torch.data.prefetch import (
     prefetch,
 )
 from pcseg_tpu_torch.models.factory import build_model
+from pcseg_tpu_torch.models.sparse_unet import capacity_words
 from pcseg_tpu_torch.ops.metrics import f1_from_confusion
 from pcseg_tpu_torch.train.optim import step_lr
 from pcseg_tpu_torch.train.steps import (
@@ -166,14 +168,9 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
     """Full training run on a map-style dataset of (points, labels)
     events. ``device``: None for CUDA, ``"cpu"`` for the plain versions.
     ``resume_from``: a checkpoint this function wrote (usually
-    ``<checkpoint_dir>/latest.pt``) to continue from (not a JAX
-    checkpoint directory: its optax state is not ported)."""
+    ``<checkpoint_dir>/latest.pt``) or a JAX checkpoint directory of a
+    TrainState to continue from."""
     dev = resolve_device(device)
-    if resume_from and is_jax_checkpoint(resume_from):
-        raise NotImplementedError(
-            f"{resume_from} is a JAX checkpoint directory: resuming from "
-            "its optax state is not ported (ROADMAP); serve or evaluate it "
-            "instead")
     t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.model
 
     stats = scan_classes(dataset, scan_events=d_cfg.class_scan_events,
@@ -206,7 +203,8 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
         model.load_state_dict(sd)
     state = create_train_state(model.to(dev), cfg.optim)
     if resume_from:
-        opt_state, resume_meta = load_train_state(resume_from)
+        opt_state, resume_meta = load_train_state(
+            resume_from, state.model, state.optimizer)
         if opt_state is not None:
             state.optimizer.load_state_dict(opt_state)
         state.step = int(resume_meta.get("step", 0))
@@ -246,9 +244,10 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
             val_loss, val_acc, cm, val_dropped = _run_epoch_eval(
                 state, val_iter, cw, num_classes, dev)
             if train_dropped or val_dropped:
+                what, knob = capacity_words(m_cfg.impl)
                 msg = (f"capacity overflow: {train_dropped} train / "
-                       f"{val_dropped} val occupied tiles beyond the static "
-                       "capacity this epoch (raise model.max_tiles)")
+                       f"{val_dropped} val occupied {what} beyond the static "
+                       f"capacity this epoch (raise model.{knob})")
                 if m_cfg.strict_capacity:
                     raise RuntimeError(msg)
                 log(f"WARNING: {msg}")

@@ -85,7 +85,7 @@ def train_step(state: TrainState, batch, lr: float, seeds: tuple[int, int],
     (``dropout_seeds``). Updates the
     model, its running stats and the optimizer in place; returns (state,
     metrics) with metrics {loss, correct, total} as device scalars, and
-    ``dropped`` (occupied tiles beyond the capacities, summed over the
+    ``dropped`` (occupied tiles or sites beyond the capacities, summed over the
     batch) for the sparse family. ``debug_nans``: raise FloatingPointError
     before the update when the loss or a gradient is not finite."""
     points, labels, masks = batch

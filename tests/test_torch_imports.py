@@ -70,12 +70,17 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 def test_unported_families_raise():
     model = build_model(ModelConfig(name="pointnet_seg"), 4)
     assert isinstance(model, PointNetSeg)
-    # the sparse family builds with its block impl; the others wait
+    # the sparse family builds with each of its three impls, the gather
+    # impl at the config's site capacity
     assert isinstance(build_model(ModelConfig(name="sparse_voxelnet"), 4),
                       SparseVoxelNet)
     for impl in ("dense", "gather"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(ModelConfig(name="sparse_voxelnet", impl=impl), 4)
+        built = build_model(ModelConfig(name="sparse_voxelnet", impl=impl,
+                                        max_active=96), 4)
+        assert isinstance(built, SparseVoxelNet)
+        assert (built.impl, built.max_active) == (impl, 96)
+    with pytest.raises(ValueError, match="impl"):
+        build_model(ModelConfig(name="sparse_voxelnet", impl="hash"), 4)
     # PointNet trains and serves in the port: Predictor's default model
     served = Predictor(model.state_dict(), 4, device="cpu")
     assert isinstance(served.model, PointNetSeg)

@@ -5,9 +5,10 @@ TrainState: step, params, batch_stats and the optax state, as
 ``train_model`` saves it) read bit for bit for all three families, served
 by ``Predictor.from_checkpoint`` with the logits of a ``Predictor`` built
 from ``from_jax_variables`` of the same weights, and evaluated by
-``api.evaluate`` as the same weights in the port's own file. Resuming
-training from such a directory is refused (its optax state is not
-ported)."""
+``api.evaluate`` as the same weights in the port's own file. Training
+resumes from such a directory with Adam's state equal to optax's, and a
+directory without an optax state is refused
+(tests/test_torch_jax_resume.py holds the resumed step to JAX's)."""
 
 import dataclasses
 
@@ -145,11 +146,55 @@ def test_directory_without_config_is_a_pointnet(tmp_path):
 
 
 def test_resume_from_a_jax_directory_is_refused(tmp_path):
-    path = _jax_dir(str(tmp_path / "ck"), "pointnet_seg",
-                    _variables("pointnet_seg"))
+    """A directory of weights without an optax state is refused; a whole
+    TrainState directory resumes: Adam's step / exp_avg / exp_avg_sq
+    equal optax's count / mu / nu bit for bit, parameter by parameter,
+    the step counter is the TrainState's and the epoch and selection state
+    are meta.json's ('latest' keys)."""
+    variables = _variables("pointnet_seg")
     events = list(synthetic_events(6, min_points=20, max_points=100, seed=1))
-    with pytest.raises(NotImplementedError, match="optax state"):
-        api.fit(events, resume_from=path, device="cpu", log=lambda *a: None)
+    bare = str(tmp_path / "bare")
+    jax_save(bare, {"params": variables["params"],
+                    "batch_stats": variables["batch_stats"]},
+             {"epoch": 0, "num_classes": C})
+    with pytest.raises(ValueError, match="optax"):
+        api.fit(events, resume_from=bare, device="cpu", log=lambda *a: None)
+
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    rng = np.random.default_rng(8)
+    moments = [jax.tree.map(lambda a: jnp.asarray(
+        rng.uniform(lo, hi, a.shape).astype(np.float32)), params)
+        for lo, hi in ((-1e-2, 1e-2), (1e-8, 1e-4))]
+    opt = make_optimizer().init(params)
+    opt = (opt[0], opt[1]._replace(count=jnp.asarray(6, jnp.int32),
+                                   mu=moments[0], nu=moments[1]))
+    state = JaxTrainState(step=jnp.asarray(6, jnp.int32), params=params,
+                          batch_stats=variables["batch_stats"],
+                          opt_state=opt)
+    path = str(tmp_path / "latest")
+    jax_save(path, state, {
+        "epoch": 2, "num_classes": C, "class_weights": [1, 2, 0.5, 1],
+        "best_f1_target": 0.375, "best_val_loss": 1.5, "best_epoch": 1,
+        "patience_counter": 1})
+    # num_epochs = the checkpoint's epoch + 1: the run restores and stops
+    res = api.fit(events, overrides=["model.num_classes=4",
+                                     "train.num_epochs=3"],
+                  resume_from=path, device="cpu", log=lambda *a: None)
+    assert res.history == [] and res.state.step == 6
+    assert (res.best_f1_target, res.best_val_loss, res.best_epoch) == (
+        0.375, 1.5, 1)
+    opt_state = res.state.optimizer.state
+    named = dict(res.state.model.named_parameters())
+    assert named.keys() == from_jax_variables(
+        {"params": variables["params"]}).keys()
+    for name, p in named.items():
+        group, leaf = name.split(".")
+        st = opt_state[p]
+        assert float(st["step"]) == 6.0
+        for key, tree in (("exp_avg", moments[0]), ("exp_avg_sq",
+                                                    moments[1])):
+            want = np.asarray(tree[group][leaf])
+            assert st[key].numpy().tobytes() == want.tobytes(), (name, key)
 
 
 def test_msgpack_decoder_matches_the_library():
