@@ -229,8 +229,25 @@
    strict_capacity; (f) a JAX-format TrainState directory of the gather
    impl written by tests/jax_format.py, resumed by api.fit (Adam's state
    equal to the directory's, then one epoch trained).
-23. Prints the kernels as one JSON line, the card's name and power limit,
-   and as the last line {"ok": true, "device": {...}}.
+23. Exported serving artifacts (pcseg_tpu_torch/serve.py): the default
+   voxel U-Net of phase 11, the sparse U-Net of phase 14 and PointNetSeg
+   folded f32 of phase 19 exported by export_predictor at batches (1, 8)
+   x buckets (1024, 8192) (seconds a program, bytes); each artifact
+   replayed in a fresh interpreter that imports no model code
+   (predict_batch on the phase's 16 events, predict on the 1,000-point
+   event: launches a forward held to phases 11 / 14 / 19's, logits
+   against the live Predictor's, bit for bit for PointNet, within
+   LOGITS_REL and ARGMAX_AGREE for the bf16 models, whose row 10 sums
+   with float atomics), its time from the spawn to the first prediction
+   against Predictor.from_checkpoint's, and the live and replayed serving
+   ms in turns in this process; one artifact of the voxel U-Net exported
+   for ("cuda", "cpu") replayed on both (the CPU through the same op
+   nodes' plain versions, no launch), held as kernels to plain; and
+   torch.library.opcheck of the eight pcseg:: ops on CUDA tensors at the
+   arguments of a B1 x 1024 serving forward.
+24. Prints the kernels as one JSON line (with the exported replays'
+   launches), the card's name and power limit, and as the last line
+   {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
 any phase fails.
@@ -255,6 +272,11 @@ JSON line; no result line.
     python3 chip_smoke.py --sparse-impls
 
 builds the kernels and runs only phase 22, printing its readings as one
+JSON line; no result line.
+
+    python3 chip_smoke.py --export
+
+builds the kernels and runs only phase 23, printing its readings as one
 JSON line; no result line.
 
     python3 chip_smoke.py --pointnet
@@ -5060,6 +5082,312 @@ def files_phase(card):
     return pn_launches, vox_launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: exported serving artifacts (slice 11)
+# ---------------------------------------------------------------------------
+
+EXPORT_DIR = "build/chip_smoke_export"
+EXPORT_BATCHES, EXPORT_BUCKETS = (1, 8), (1024, 8192)
+# a fresh interpreter replays an artifact as a serving host would: the
+# serving module alone, then predict (the first prediction, timed from
+# the parent's clock just before the spawn), predict_batch and logits on
+# the phase's events; it prints its launches, its imports of model code
+# and its first-prediction time, and saves its logits
+EXPORT_REPLAY = """
+import json, sys, time
+import numpy as np
+import torch
+from pcseg_tpu_torch.serve import load_exported
+from pcseg_tpu_torch.ops import conv3d_block, voxel, fused_ln, block_conv
+art, inputs, out, t_spawn = sys.argv[1:5]
+d = np.load(inputs)
+events = np.split(d["events"], np.cumsum(d["sizes"])[:-1])
+served = load_exported(art, strict_capacity=True)
+served.predict(d["single"])
+first_s = time.time() - float(t_spawn)
+mods = (conv3d_block, voxel, fused_ln, block_conv)
+for m in mods:
+    m.reset_launches()
+preds = served.predict_batch(events)
+single = served.logits(d["single"])
+torch.cuda.synchronize()
+launches = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+batch = served.device_forward(torch.from_numpy(d["points"]).cuda(),
+                              torch.from_numpy(d["mask"]).cuda())
+np.savez(out, batch=batch.cpu().numpy(), single=single)
+ok = [p.shape[0] for p in preds] == [e.shape[0] for e in events]
+model_code = sorted(k for k in sys.modules if k.startswith((
+    "pcseg_tpu_torch.models", "pcseg_tpu_torch.infer",
+    "pcseg_tpu_torch.ops.fold")))
+print(json.dumps({"first_prediction_s": first_s, "launches": launches,
+                  "shapes_ok": ok, "model_code_imported": model_code}))
+"""
+# the same first prediction from the checkpoint, rebuilding the model
+EXPORT_FROM_CKPT = """
+import json, sys, time
+import numpy as np
+from pcseg_tpu_torch.infer import Predictor
+ckpt, inputs, t_spawn = sys.argv[1:4]
+Predictor.from_checkpoint(ckpt).predict(np.load(inputs)["single"])
+print(json.dumps({"first_prediction_s": time.time() - float(t_spawn)}))
+"""
+
+
+def _export_configs():
+    """(label, live Predictor, ModelConfig of its checkpoint, launches a
+    forward, events, 1,000-point event) of phases 11, 14 and 19
+    (profile_dispatch.serving_configs)."""
+    from pcseg_tpu_torch.core.config import ModelConfig
+    from pcseg_tpu_torch.profile_dispatch import serving_configs
+
+    configs = {
+        "voxel_default": (ModelConfig(
+            name="voxel_unet3d", grid_size=64, unet_width=16, levels=3,
+            compute_dtype="bfloat16"), DEFAULT_PER_FORWARD),
+        "sparse_block": (ModelConfig(
+            name="sparse_voxelnet", grid_size=SP_R, unet_width=SP_W,
+            depth=4, levels=2, tile=SP_T, max_tiles=SP_CAPS[0],
+            max_tiles_schedule=SP_CAPS, compute_dtype="bfloat16",
+            strict_capacity=True), SP_PER_FORWARD),
+        "pointnet_folded_f32": (ModelConfig(), {}),
+    }
+    for label, pred, events, single in serving_configs():
+        yield (label, pred, *configs[label], events, single)
+
+
+def _spawn(code, *args) -> dict:
+    """Run ``code`` in a new interpreter from the repo root (args after
+    the spawn time) and return its last JSON line."""
+    t_spawn = time.time()
+    proc = subprocess.run([sys.executable, "-c", code, *map(str, args),
+                           repr(t_spawn)], capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"replay process failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _logits_held(label, got, ref, mask, exact):
+    """Replay against live logits: bit for bit where ``exact``, else the
+    kernel-vs-plain bf16 limits of phases 11 and 14."""
+    import numpy as np
+
+    err = float(np.abs(got - ref).max())
+    scale = float(np.abs(ref).max())
+    agree = float((got.argmax(-1) == ref.argmax(-1))[mask].mean())
+    ok = err == 0.0 if exact else (err <= LOGITS_REL * scale and
+                                   agree >= ARGMAX_AGREE)
+    if not ok:
+        raise AssertionError(f"{label}: replay vs live logits max|d| {err} "
+                             f"(max|logit| {scale}), argmax agreement "
+                             f"{agree}")
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "argmax_agreement": agree}
+
+
+def _served_ms(pred, events, single):
+    """(ms per 16 events through predict_batch, ms per 1,000-point
+    predict), one round."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.predict_batch(events, batch_size=8)
+    t1 = time.perf_counter()
+    pred.predict(single)
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def export_config(card, label, pred, cfg, per_forward, events, single):
+    """One configuration: export at batches (1, 8) x buckets (1024, 8192),
+    replay in a fresh process (launches a forward, logits, no model code),
+    time to first prediction against Predictor.from_checkpoint, and the
+    live and replayed serving ms in turns in this process."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.ckpt.checkpoint import save_checkpoint
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.serve import export_predictor, load_exported
+
+    art = os.path.join(EXPORT_DIR, label)
+    shutil.rmtree(art, ignore_errors=True)
+    ckpt = save_checkpoint(os.path.join(EXPORT_DIR, f"{label}.pt"),
+                           pred.model.state_dict(), 4, cfg)
+    t0 = time.perf_counter()
+    manifest = export_predictor(pred, art, batch_sizes=EXPORT_BATCHES,
+                                buckets=EXPORT_BUCKETS)
+    export_s = time.perf_counter() - t0
+    programs = len(EXPORT_BATCHES) * len(EXPORT_BUCKETS)
+    nbytes = {f: os.path.getsize(os.path.join(root, f))
+              for root, _, files in os.walk(art) for f in files}
+    pts, _, msk = pad_events(
+        [(e, np.zeros(e.shape[0], np.int64)) for e in events[:8]], 8192,
+        batch_size=8)
+    inputs = os.path.join(EXPORT_DIR, f"{label}_inputs.npz")
+    np.savez(inputs, events=np.concatenate(events),
+             sizes=[e.shape[0] for e in events], single=single, points=pts,
+             mask=msk)
+    out = os.path.join(EXPORT_DIR, f"{label}_replay.npz")
+    replay = _spawn(EXPORT_REPLAY, art, inputs, out)
+    rebuilt = _spawn(EXPORT_FROM_CKPT, ckpt, inputs)
+    want = {k: v * 3 for k, v in per_forward.items() if v}
+    if replay["launches"] != want or not replay["shapes_ok"] or \
+            replay["model_code_imported"]:
+        raise AssertionError(f"{label} replay: {replay} (launches expected "
+                             f"{want})")
+    got = np.load(out)
+    live_batch = pred.device_forward(torch.from_numpy(pts).cuda(),
+                                     torch.from_numpy(msk).cuda())
+    exact = label.startswith("pointnet")
+    held = {"batch": _logits_held(label, got["batch"],
+                                  live_batch.cpu().numpy(), msk, exact),
+            "single": _logits_held(label, got["single"],
+                                   pred.logits(single),
+                                   np.ones(single.shape[0], bool), exact)}
+
+    # in this process: the replay's launches, then live and replay timed
+    # in turns (live, replay, replay, live; 3 rounds each, medians)
+    served = load_exported(art, strict_capacity=True)
+    served.predict_batch(events)
+    served.predict(single)
+    reset_counts()
+    served.predict_batch(events)
+    served.predict(single)
+    torch.cuda.synchronize()
+    here = {k: v for k, v in launch_counts().items() if v}
+    if here != want:
+        raise AssertionError(f"{label} replay here: launches {here} != "
+                             f"{want}")
+    rounds = {"live": [], "replay": []}
+    for who in ("live", "replay", "replay", "live"):
+        p = pred if who == "live" else served
+        rounds[who] += [_served_ms(p, events, single) for _ in range(3)]
+    ms = {who: {"predict_batch_16_ms": float(np.median([r[0] for r in v])),
+                "predict_1000pt_ms": float(np.median([r[1] for r in v]))}
+          for who, v in rounds.items()}
+    res = {"export_s_per_program": export_s / programs,
+           "artifact_bytes": sum(nbytes.values()),
+           "program_bytes": max(v for f, v in nbytes.items()
+                                if f.endswith(".pt2")),
+           "weights_bytes": nbytes["weights.pt"],
+           "manifest": manifest, "replay_launches_per_forward": {
+               k: v // 3 for k, v in replay["launches"].items()},
+           "first_prediction_s": {"load_exported": replay[
+               "first_prediction_s"], "from_checkpoint": rebuilt[
+               "first_prediction_s"]},
+           "logits": held, "live": ms["live"], "replay": ms["replay"],
+           "card": card}
+    print(f"  {label} [{card}]: exported {programs} programs in "
+          f"{export_s:.2f} s ({res['export_s_per_program']:.2f} s each), "
+          f"{res['artifact_bytes']} bytes (largest program "
+          f"{res['program_bytes']}, weights {res['weights_bytes']}); fresh "
+          f"process: launches a forward {res['replay_launches_per_forward']}"
+          f", no model code imported, first prediction "
+          f"{replay['first_prediction_s']:.2f} s (from_checkpoint "
+          f"{rebuilt['first_prediction_s']:.2f} s); logits vs live "
+          f"{held['batch']['max_abs_err']:.4e} / "
+          f"{held['single']['max_abs_err']:.4e}; 16 events live "
+          f"{ms['live']['predict_batch_16_ms']:.2f} ms, replay "
+          f"{ms['replay']['predict_batch_16_ms']:.2f} ms; 1,000 points live "
+          f"{ms['live']['predict_1000pt_ms']:.2f} ms, replay "
+          f"{ms['replay']['predict_1000pt_ms']:.2f} ms", flush=True)
+    return here, res
+
+
+def export_phase(card):
+    """Phase 23: the three configurations' artifacts (``export_config``),
+    one artifact of the default voxel U-Net replayed on the card and on the
+    CPU, and torch.library.opcheck of the eight ops at their shapes in a
+    B1 x 1024 serving forward. Returns (the replays' launches in this
+    process by configuration, result)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.serve import export_predictor, load_exported
+
+    t0 = time.perf_counter()
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    launches, res, preds = {}, {}, {}
+    for label, pred, cfg, per_forward, events, single in _export_configs():
+        launches[label], res[label] = export_config(
+            card, label, pred, cfg, per_forward, events, single)
+        preds[label] = (pred, single)
+
+    # one artifact, both platforms: the card through the kernels, the CPU
+    # through the same op nodes' plain versions
+    pred, single = preds["voxel_default"]
+    art = os.path.join(EXPORT_DIR, "voxel_default_both")
+    manifest = export_predictor(pred, art, batch_sizes=(1,), buckets=(1024,),
+                                platforms=("cuda", "cpu"))
+    reset_counts()
+    on_card = load_exported(art).logits(single)
+    torch.cuda.synchronize()
+    card_launches = {k: v for k, v in launch_counts().items() if v}
+    reset_counts()
+    on_cpu = load_exported(art, device="cpu").logits(single)
+    cpu_launches = {k: v for k, v in launch_counts().items() if v}
+    want = {k: v for k, v in DEFAULT_PER_FORWARD.items() if v}
+    if card_launches != want or cpu_launches:
+        raise AssertionError(f"both-platform artifact: launches on the card "
+                             f"{card_launches} (expected {want}), on the "
+                             f"CPU {cpu_launches}")
+    both = {"platforms": manifest["platforms"],
+            **_logits_held("cpu vs card", on_cpu, on_card,
+                           np.ones(single.shape[0], bool), False)}
+    print(f"  one artifact, platforms {manifest['platforms']}: the card "
+          f"launches {card_launches}, the CPU none; CPU vs card logits "
+          f"max|d| {both['max_abs_err']:.4e} (max|logit| "
+          f"{both['max_abs_logit']:.3f}, tol "
+          f"{LOGITS_REL * both['max_abs_logit']:.4f}), argmax agreement "
+          f"{both['argmax_agreement']:.6f}", flush=True)
+
+    # torch.library.opcheck of the eight ops on CUDA tensors, at the
+    # arguments of a B1 x 1024 serving forward of the voxel and sparse
+    # configurations
+    from pcseg_tpu_torch.data.batching import pad_events
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Capture(TorchDispatchMode):
+        """The first call's arguments of each pcseg:: op."""
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__.split(".")[0]
+            if func.namespace == "pcseg" and name not in captured:
+                captured[name] = tuple(a.clone() if isinstance(
+                    a, torch.Tensor) else a for a in args)
+            return func(*args, **(kwargs or {}))
+
+    captured = {}
+    for label in ("voxel_default", "sparse_block"):
+        p, one = preds[label]
+        pts, _, msk = pad_events([(one, np.zeros(len(one), np.int64))], 1024,
+                                 batch_size=1)
+        with Capture():
+            p.device_forward(torch.from_numpy(pts).cuda(),
+                             torch.from_numpy(msk).cuda())
+    if len(captured) != 8:
+        raise AssertionError(f"captured ops {sorted(captured)}")
+    checked = {}
+    for name, args in sorted(captured.items()):
+        torch.library.opcheck(getattr(torch.ops.pcseg, name), args)
+        checked[name] = [list(a.shape) for a in args
+                         if isinstance(a, torch.Tensor)]
+    seconds = time.perf_counter() - t0
+    print(f"  torch.library.opcheck on CUDA tensors: {sorted(checked)} "
+          f"passed; phase 23 took {seconds:.1f} s", flush=True)
+    return launches, {**res, "both_platforms": both, "opcheck": checked,
+                      "seconds": seconds, "card": card}
+
+
 def _mma_fields(at, cases) -> dict:
     """The tensor-core rows' device times at the row's shape and each
     case's (device ms, library device ms, bound ms) beside them, keyed by
@@ -5156,6 +5484,9 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         print(json.dumps({"card": card, "sparse_impls": sparse_impls_phase(
             card, gen)[1]}))
+        return 0
+    if sys.argv[1:2] == ["--export"]:
+        print(json.dumps({"card": card, "export": export_phase(card)[1]}))
         return 0
     if sys.argv[1:2] == ["--pointnet"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5314,7 +5645,14 @@ def main() -> int:
           flush=True)
     impl_paths, impls = sparse_impls_phase(card, gen)
 
-    print(f"[23] the kernels and the result [{card}]", flush=True)
+    print(f"[23] exported serving artifacts: the default voxel U-Net, the "
+          f"sparse U-Net and PointNetSeg folded f32 exported at batches "
+          f"{EXPORT_BATCHES} x buckets {EXPORT_BUCKETS}, replayed in a fresh "
+          f"process and here; one artifact on the card and the CPU; "
+          f"opcheck of the eight ops [{card}]", flush=True)
+    exp_launches, exported = export_phase(card)
+
+    print(f"[24] the kernels and the result [{card}]", flush=True)
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
         "down2x_gn_act": ("act", "B8 64^3x16->32^3x32"),
@@ -5542,6 +5880,15 @@ def main() -> int:
                 "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_library_ms",
                 "bwd_library")})
         kernels.append(row)
+    # the exported replays (phase 23) launch the forward kernels of the
+    # default voxel and the sparse configurations
+    for row in kernels:
+        key = MMA_KEY.get(row["name"], row["name"]) if row["name"] in \
+            main_case else row["name"]
+        for label, got in exp_launches.items():
+            if got.get(key):
+                row["launches_by_path"][f"exported_{label}"] = got[key]
+                row["launches"] += got[key]
     print(json.dumps({"cases": cases, "serving": served,
                       "pointnet_cases": pn_cases, "row15_step": pn_sums,
                       "pointnet_step": step,
@@ -5562,7 +5909,7 @@ def main() -> int:
                       "pointnet_serving": pn_served, "wgmma": wgmma,
                       "r128_step": r128, "r128_fit": r128_fitted,
                       "r256_step": r256, "files": files,
-                      "sparse_impls": impls}))
+                      "sparse_impls": impls, "export": exported}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,14 @@
 - ``eval``: ``api.evaluate`` of a checkpoint on the files;
 - ``convert``: a reference ``best_model.pth`` to the port's checkpoint
   file, or the port's checkpoint or a JAX checkpoint directory (a
-  PointNetSeg) to a ``.pth``.
+  PointNetSeg) to a ``.pth``;
+- ``export``: a checkpoint's serving forward as an exported artifact
+  (``serve.export_predictor``; replay it with ``serve.load_exported``).
 
 Each prints one JSON line last, as the JAX commands do. ``train``,
-``infer`` and ``eval`` run on CUDA unless given ``--device cpu`` (the
-plain versions), and refuse to start without a card otherwise. The JAX
-package's ``export`` and ``bench`` are not ported (ROADMAP A7).
+``infer``, ``eval`` and ``export`` run on CUDA unless given ``--device
+cpu`` (the plain versions), and refuse to start without a card otherwise.
+The JAX package's ``bench`` is not ported (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -156,6 +158,23 @@ def cmd_convert(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    from pcseg_tpu_torch.infer import Predictor
+    from pcseg_tpu_torch.serve import export_predictor
+
+    kw = {"dtype": args.dtype} if args.dtype else {}
+    predictor = Predictor.from_checkpoint(
+        args.checkpoint, fold=not args.no_fold, device=args.device, **kw)
+    manifest = export_predictor(
+        predictor, args.out,
+        batch_sizes=tuple(int(x) for x in args.batch_sizes.split(",")),
+        buckets=(tuple(int(x) for x in args.buckets.split(","))
+                 if args.buckets else None),
+        platforms=args.platforms.split(",") if args.platforms else None)
+    print(json.dumps({"exported": args.out, **manifest}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="pcseg_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -207,6 +226,25 @@ def main(argv=None) -> int:
     p.add_argument("src")
     p.add_argument("dst")
     p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser(
+        "export", help="export a checkpoint's serving forward as an "
+        "artifact that serves without model code (serve.py)")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--out", required=True, help="artifact directory")
+    p.add_argument("--batch-sizes", default="1,8")
+    p.add_argument("--buckets", default=None,
+                   help="comma-separated pad buckets (default: the "
+                   "predictor's)")
+    p.add_argument("--platforms", default=None,
+                   help="comma-separated devices the artifact replays on, "
+                   "of cuda and cpu (default: the exporting device)")
+    p.add_argument("--dtype", default=None,
+                   help="PointNetSeg's folded serving dtype")
+    p.add_argument("--no-fold", action="store_true",
+                   help="export PointNetSeg's unfolded eval path")
+    _device(p)
+    p.set_defaults(fn=cmd_export)
 
     # overrides may also come after options (parse_args takes one run of
     # positionals)

@@ -60,6 +60,29 @@ def pad_events(
     return points, labels, masks
 
 
+def predict_in_buckets(forward, events: Sequence[np.ndarray],
+                       batch_size: int, buckets: Sequence[int],
+                       feature_dim: int = 4) -> list:
+    """Per-point argmax predictions of ragged (N, D) f32 ``events`` through
+    ``forward(points, mask) -> (B, M, C) logits`` on padded numpy batches,
+    ``batch_size`` events a call, grouped by length so that each group pads
+    to one bucket (the serving loop of ``infer.Predictor`` and
+    ``serve.ExportedPredictor``)."""
+    order = sorted(range(len(events)), key=lambda i: events[i].shape[0])
+    out: list = [None] * len(events)
+    for s in range(0, len(order), batch_size):
+        idx = order[s : s + batch_size]
+        group = [events[i] for i in idx]
+        bucket = pick_bucket(max(e.shape[0] for e in group), buckets)
+        pts, _, msk = pad_events(
+            [(e, np.zeros(e.shape[0], np.int64)) for e in group], bucket,
+            batch_size=batch_size, feature_dim=feature_dim)
+        logits = forward(pts, msk)
+        for j, i in enumerate(idx):
+            out[i] = np.argmax(logits[j, : events[i].shape[0]], axis=-1)
+    return out
+
+
 # length sorting happens inside windows of this many batches
 WINDOW_BATCHES = 32
 

@@ -29,7 +29,12 @@ import torch
 from pcseg_tpu_torch.ckpt.checkpoint import load_checkpoint
 from pcseg_tpu_torch.ckpt.torch_import import load_best_model_pth
 from pcseg_tpu_torch.core.device import resolve_device
-from pcseg_tpu_torch.data.batching import DEFAULT_BUCKETS, pad_events, pick_bucket
+from pcseg_tpu_torch.data.batching import (
+    DEFAULT_BUCKETS,
+    pad_events,
+    pick_bucket,
+    predict_in_buckets,
+)
 from pcseg_tpu_torch.models.factory import build_model
 from pcseg_tpu_torch.models.pointnet import (
     DTYPES,
@@ -164,21 +169,9 @@ class Predictor:
                       batch_size: int = 8) -> list[np.ndarray]:
         """Ragged events -> per-point predictions, ``batch_size`` events
         per forward, grouped by length so each group pads to one bucket."""
-        events = [np.asarray(e, np.float32) for e in events]
-        order = sorted(range(len(events)), key=lambda i: events[i].shape[0])
-        out: list = [None] * len(events)
-        for s in range(0, len(order), batch_size):
-            idx = order[s : s + batch_size]
-            group = [events[i] for i in idx]
-            bucket = pick_bucket(max(e.shape[0] for e in group), self.buckets)
-            pts, _, msk = pad_events(
-                [(e, np.zeros(e.shape[0], np.int64)) for e in group], bucket,
-                batch_size=batch_size, feature_dim=self.input_dim,
-            )
-            logits = self._forward(pts, msk)
-            for j, i in enumerate(idx):
-                out[i] = np.argmax(logits[j, : events[i].shape[0]], axis=-1)
-        return out
+        return predict_in_buckets(
+            self._forward, [np.asarray(e, np.float32) for e in events],
+            batch_size, self.buckets, self.input_dim)
 
 
 def inference_example(checkpoint_path: str, dataset, event_idx: int = 0,

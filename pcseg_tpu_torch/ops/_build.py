@@ -25,6 +25,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pcseg_tpu_torch"
 NVCC_FLAGS = (
@@ -245,8 +247,6 @@ def on_cuda(x, plain: bool = False) -> bool:
 
 def stream_of(t) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
-    import torch
-
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -258,6 +258,30 @@ def raise_on(rc: int, name: str) -> None:
     """Raise if a kernel entry returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+# the kernels' registered ops, and name -> (plain, cuda) of each
+# (define_op)
+_OPS = torch.library.Library("pcseg", "DEF")
+OP_IMPLS: dict = {}
+
+
+def define_op(schema: str, plain, cuda, fake):
+    """Register the op ``pcseg::<schema>``: ``cuda`` (the kernel's
+    launch) runs it on CUDA tensors, ``plain`` (the plain version) on CPU
+    tensors, and ``fake`` gives its outputs' shapes and dtypes under fake
+    tensors, so a ``torch.export`` graph holds each launch as one node.
+    Defined through ``torch.library.Library``: ``torch.library.custom_op``
+    wraps every call in Python frames of its own and imports
+    ``torch._dynamo`` at the first one (seconds at start-up). Returns the
+    op."""
+    name = schema.split("(")[0]
+    _OPS.define(schema)
+    _OPS.impl(name, plain, "CPU")
+    _OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"pcseg::{name}", fake, lib=_OPS)
+    OP_IMPLS[name] = (plain, cuda)
+    return getattr(torch.ops.pcseg, name).default
 
 
 def build_all() -> list[Path]:

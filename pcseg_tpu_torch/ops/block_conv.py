@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from pcseg_tpu_torch.ops._build import (
+    define_op,
     load_library,
     on_cuda,
     raise_on,
@@ -214,13 +215,29 @@ def _launch(entry, key, kind, feats, slots, w2, cin_k, cout_k, w2_shape):
 
 def block_conv_fwd(feats: torch.Tensor, slots: torch.Tensor,
                    w2: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-    """The raw block conv without a graph (module docstring). Launches the
-    CUDA kernel on a CUDA tensor."""
-    if not on_cuda(feats, plain):
+    """The raw block conv without a graph (module docstring): the
+    registered op ``pcseg::block_conv``, which launches the CUDA kernel on
+    a CUDA tensor and runs the plain version on a CPU tensor (or with
+    ``plain``)."""
+    if plain:
         return block_conv_plain(feats, slots, w2)
+    on_cuda(feats)                # refuses a device other than CPU or CUDA
+    return _fwd_op(feats, slots, w2)
+
+
+def block_conv_cuda(feats: torch.Tensor, slots: torch.Tensor,
+                    w2: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's launch on CUDA tensors."""
     cin, cout = feats.shape[-1], w2.shape[-1]
     return _launch("pcseg_block_conv", "block_conv", _FWD, feats, slots, w2,
                    cin, cout, (27 * cin, cout))
+
+
+_fwd_op = define_op(
+    "block_conv(Tensor feats, Tensor slots, Tensor w2) -> Tensor",
+    block_conv_plain, block_conv_cuda,
+    lambda feats, slots, w2: feats.new_empty(feats.shape[:3] +
+                                             (w2.shape[-1],)))
 
 
 def block_conv_dgrad(g: torch.Tensor, slots: torch.Tensor, w2: torch.Tensor,

@@ -83,6 +83,7 @@ import torch
 import torch.nn.functional as F
 
 from pcseg_tpu_torch.ops._build import (
+    define_op,
     load_library,
     on_cuda,
     ptr,
@@ -945,6 +946,69 @@ def head_grid2_bwd_cuda(x, gy, w, scale, shift):
 
 
 # ---------------------------------------------------------------------------
+# the forward kernels as registered ops (pcseg::*, ``_build.define_op``): a
+# CUDA tensor launches the ``*_cuda`` wrapper, a CPU tensor runs the plain
+# version, and the fake gives their output shapes, so a torch.export graph
+# holds each launch as one node. A launch without stats returns an empty
+# stats tensor.
+# ---------------------------------------------------------------------------
+
+def _no_stats(x):
+    return x.new_empty(0, dtype=torch.float32)
+
+
+def _stats_fake(x, cout, want_stats=True):
+    return x.new_empty((x.shape[0], 2, cout) if want_stats else (0,),
+                       dtype=torch.float32)
+
+
+def _conv3x3_with(fn):
+    def op(x, w, bias, scale, shift, accum, activate, want_stats):
+        y, stats = fn(x, w, bias, scale, shift, accum, activate=activate,
+                      want_stats=want_stats)
+        return y, _no_stats(x) if stats is None else stats
+    return op
+
+
+def _conv3x3_fake(x, w, bias, scale, shift, accum, activate, want_stats):
+    cout = w.shape[-1]
+    return (x.new_empty(x.shape[:4] + (cout,), dtype=torch.bfloat16),
+            _stats_fake(x, cout, want_stats))
+
+
+_conv3x3_plain = _conv3x3_with(conv3x3_gn_act_plain)
+_conv3x3_op = define_op(
+    "conv3x3_gn_act(Tensor x, Tensor w, Tensor bias, Tensor? scale, "
+    "Tensor? shift, Tensor? accum, bool activate, bool want_stats) -> "
+    "(Tensor, Tensor)", _conv3x3_plain, _conv3x3_with(conv3x3_gn_act_cuda),
+    _conv3x3_fake)
+
+_RESAMPLE_SCHEMA = ("(Tensor x, Tensor w, Tensor bias, Tensor scale, "
+                    "Tensor shift) -> (Tensor, Tensor)")
+
+
+def _resample_fake(out_dims):
+    def fake(x, w, bias, scale, shift):
+        cout = w.shape[-1]
+        return (x.new_empty((x.shape[0], *out_dims(x.shape[1:4]), cout),
+                            dtype=torch.bfloat16), _stats_fake(x, cout))
+    return fake
+
+
+_down2x_op = define_op(
+    "down2x_gn_act" + _RESAMPLE_SCHEMA, down2x_gn_act_plain,
+    down2x_gn_act_cuda, _resample_fake(lambda dhw: [n // 2 for n in dhw]))
+_up2x_op = define_op(
+    "up2x_gn_act" + _RESAMPLE_SCHEMA, up2x_gn_act_plain, up2x_gn_act_cuda,
+    _resample_fake(lambda dhw: [2 * n for n in dhw]))
+_head_grid2_op = define_op(
+    "head_grid2(Tensor x, Tensor w, Tensor bias, Tensor scale, "
+    "Tensor shift) -> Tensor", head_grid2_plain, head_grid2_cuda,
+    lambda x, w, bias, scale, shift: x.new_empty(
+        x.shape[:4] + (w.shape[-1],), dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
 
@@ -953,14 +1017,12 @@ class _Conv3x3(torch.autograd.Function):
     def forward(ctx, x, accum, w, bias, scale, shift, activate, want_stats,
                 need_dx, plain):
         kern = on_cuda(x, plain)
-        fwd = conv3x3_gn_act_cuda if kern else conv3x3_gn_act_plain
-        y, stats = fwd(x, w, bias, scale, shift, accum, activate=activate,
-                       want_stats=want_stats)
+        y, stats = (_conv3x3_plain if plain else _conv3x3_op)(
+            x, w, bias, scale, shift, accum, activate, want_stats)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, w, scale, shift, y if want_stats else None)
         ctx.cfg = (kern, activate, want_stats, need_dx, accum is not None)
-        if stats is None:
-            stats = x.new_empty(0, dtype=torch.float32)
+        if not want_stats:
             ctx.mark_non_differentiable(stats)
         return y, stats
 
@@ -990,11 +1052,10 @@ class _Conv3x3(torch.autograd.Function):
 
 
 _RESAMPLE = {
-    # up: (forward cuda, forward plain, backward cuda, backward plain)
-    False: (down2x_gn_act_cuda, down2x_gn_act_plain, down2x_bwd_cuda,
+    # up: (forward op, forward plain, backward cuda, backward plain)
+    False: (_down2x_op, down2x_gn_act_plain, down2x_bwd_cuda,
             down2x_bwd_plain),
-    True: (up2x_gn_act_cuda, up2x_gn_act_plain, up2x_bwd_cuda,
-           up2x_bwd_plain),
+    True: (_up2x_op, up2x_gn_act_plain, up2x_bwd_cuda, up2x_bwd_plain),
 }
 
 
@@ -1002,8 +1063,8 @@ class _Resample(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, scale, shift, up, plain):
         kern = on_cuda(x, plain)
-        fwd_k, fwd_p, _, _ = _RESAMPLE[up]
-        y, stats = (fwd_k if kern else fwd_p)(x, w, bias, scale, shift)
+        fwd_op, fwd_p, _, _ = _RESAMPLE[up]
+        y, stats = (fwd_p if plain else fwd_op)(x, w, bias, scale, shift)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, w, scale, shift, y)
         ctx.cfg = (kern, up)
@@ -1050,11 +1111,10 @@ def up2x_gn_act(x, w, bias, scale, shift, *, plain=False):
 class _HeadGrid2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, scale, shift, plain):
-        kern = on_cuda(x, plain)
-        y = (head_grid2_cuda if kern else head_grid2_plain)(
+        y = (head_grid2_plain if plain else _head_grid2_op)(
             x, w, bias, scale, shift)
         ctx.save_for_backward(x, w, scale, shift)
-        ctx.kern = kern
+        ctx.kern = on_cuda(x, plain)
         return y
 
     @staticmethod

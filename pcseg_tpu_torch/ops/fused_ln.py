@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from pcseg_tpu_torch.ops._build import (
+    define_op,
     load_library,
     on_cuda,
     raise_on,
@@ -114,10 +115,19 @@ def bias_ln_relu_mask_fwd(x: torch.Tensor, pre_bias: torch.Tensor,
                           plain: bool = False) -> torch.Tensor:
     """The forward without a graph: x (N, C) bf16 or f32; pre_bias, scale,
     bias (C,); active (N,) bool -> (N, C) ``out_dtype`` (bf16 or f32).
-    Launches the CUDA kernel on a CUDA tensor."""
-    if not on_cuda(x, plain):
+    The registered op ``pcseg::bias_ln_relu_mask``: the CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor (or with ``plain``)."""
+    if plain:
         return bias_ln_relu_mask_plain(x, pre_bias, scale, bias, active, eps,
                                        out_dtype)
+    on_cuda(x)                    # refuses a device other than CPU or CUDA
+    return _fwd_op(x, pre_bias, scale, bias, active, eps, out_dtype)
+
+
+def bias_ln_relu_mask_cuda(x, pre_bias, scale, bias, active, eps=1e-5,
+                           out_dtype=torch.bfloat16):
+    """The forward kernel's launch (arguments as ``bias_ln_relu_mask_fwd``,
+    every tensor on one CUDA device)."""
     if out_dtype not in _DTYPES:
         raise ValueError(f"bias_ln_relu_mask writes bf16 or f32, got "
                          f"{out_dtype}")
@@ -132,6 +142,14 @@ def bias_ln_relu_mask_fwd(x: torch.Tensor, pre_bias: torch.Tensor,
     raise_on(rc, "bias_ln_relu_mask")
     LAUNCHES["bias_ln_relu_mask"] += 1
     return out
+
+
+_fwd_op = define_op(
+    "bias_ln_relu_mask(Tensor x, Tensor pre_bias, Tensor scale, "
+    "Tensor bias, Tensor active, float eps, ScalarType out_dtype) -> Tensor",
+    bias_ln_relu_mask_plain, bias_ln_relu_mask_cuda,
+    lambda x, pre_bias, scale, bias, active, eps, out_dtype: x.new_empty(
+        x.shape, dtype=out_dtype))
 
 
 def bwd_route(lib, x: torch.Tensor, g: torch.Tensor) -> int:

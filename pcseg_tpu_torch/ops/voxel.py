@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from pcseg_tpu_torch.ops._build import (
+    define_op,
     load_library,
     on_cuda,
     raise_on,
@@ -136,10 +137,19 @@ def voxelize_contract(flat: torch.Tensor, ext: torch.Tensor, r: int, *,
     ``onehot_contract.voxelize_contract``, whose (B, R^2, R*C1) output is
     the same row-major memory): flat (B, M) int32 or int64 voxel ids with
     the sentinel R^3 for masked points; ext (B, M, C1) point rows, rounded
-    to bf16. On a CUDA tensor one kernel launch writes the whole table,
-    its zeros included, from the ids as they come."""
-    if not on_cuda(ext, plain):
+    to bf16. The registered op ``pcseg::voxelize_contract``: on a CUDA
+    tensor one kernel launch writes the whole table, its zeros included,
+    from the ids as they come; on a CPU tensor (or with ``plain``) the
+    plain version."""
+    if plain:
         return voxelize_contract_plain(flat, ext, r)
+    on_cuda(ext)                  # refuses a device other than CPU or CUDA
+    return _voxelize_op(flat, ext, r)
+
+
+def voxelize_contract_cuda(flat: torch.Tensor, ext: torch.Tensor,
+                           r: int) -> torch.Tensor:
+    """The voxelizer's launch on CUDA tensors."""
     b, m, c1 = ext.shape
     if tuple(flat.shape) != (b, m) or flat.device != ext.device:
         raise ValueError(f"flat must be (B, M) = {(b, m)} on {ext.device}, "
@@ -156,6 +166,14 @@ def voxelize_contract(flat: torch.Tensor, ext: torch.Tensor, r: int, *,
     raise_on(rc, "voxelize_contract")
     LAUNCHES["voxelize_contract"] += 1
     return out
+
+
+_voxelize_op = define_op(
+    "voxelize_contract(Tensor flat, Tensor ext, int r) -> Tensor",
+    lambda flat, ext, r: voxelize_contract_plain(flat, ext, r).contiguous(),
+    voxelize_contract_cuda,
+    lambda flat, ext, r: ext.new_empty((ext.shape[0], r ** 3, ext.shape[2]),
+                                       dtype=torch.float32))
 
 
 def voxel_rows(points: torch.Tensor, mask: torch.Tensor, grid_size: int):
@@ -352,10 +370,19 @@ def trilinear_gather(u: torch.Tensor, mask: torch.Tensor, g2: torch.Tensor,
     """The matmul devoxelize forward (B, M, C) f32 (JAX
     ``onehot_contract.trilinear_gather``). u (B, M, 3) continuous voxel
     coords (``trilinear_u``); mask (B, M); g2 (B, R*R, R*C) grid2, rounded
-    to bf16. Launches the CUDA kernel on a CUDA tensor (above 32 channels,
-    a thread a point and 32-channel column chunk)."""
-    if not on_cuda(g2, plain):
+    to bf16. The registered op ``pcseg::trilinear_gather``: the CUDA kernel
+    on a CUDA tensor (above 32 channels, a thread a point and 32-channel
+    column chunk), the plain version on a CPU tensor (or with
+    ``plain``)."""
+    if plain:
         return trilinear_gather_plain(u, mask, g2)
+    on_cuda(g2)                   # refuses a device other than CPU or CUDA
+    return _gather_op(u, mask, g2, _grid2_dims(g2)[1])
+
+
+def trilinear_gather_cuda(u: torch.Tensor, mask: torch.Tensor,
+                          g2: torch.Tensor) -> torch.Tensor:
+    """The gather's launch on CUDA tensors."""
     b, r, c = _grid2_dims(g2)
     m = u.shape[1]
     if tuple(u.shape) != (b, m, 3) or tuple(mask.shape) != (b, m) or \
@@ -376,6 +403,17 @@ def trilinear_gather(u: torch.Tensor, mask: torch.Tensor, g2: torch.Tensor,
     raise_on(rc, "trilinear_gather")
     LAUNCHES["trilinear_gather"] += 1
     return out
+
+
+# r, the grid's edge, is an argument so that the fake needs no square root
+# of a symbolic size
+_gather_op = define_op(
+    "trilinear_gather(Tensor u, Tensor mask, Tensor g2, int r) -> Tensor",
+    lambda u, mask, g2, r: trilinear_gather_plain(u, mask, g2),
+    lambda u, mask, g2, r: trilinear_gather_cuda(u, mask, g2),
+    lambda u, mask, g2, r: u.new_empty((u.shape[0], u.shape[1],
+                                        g2.shape[2] // r),
+                                       dtype=torch.float32))
 
 
 # ---------------------------------------------------------------------------

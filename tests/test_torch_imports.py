@@ -31,7 +31,7 @@ def test_port_imports_no_jax():
                                             "h5py", "msgpack", "pcseg_tpu"))
         assert not bad, bad
         for name in ("ops.conv3d_block", "utils.observe", "data.hdf5",
-                     "data.prefetch", "data.native", "cli"):
+                     "data.prefetch", "data.native", "cli", "serve"):
             assert "pcseg_tpu_torch." + name in names, name
         print(len(names))
     """)
