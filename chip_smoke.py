@@ -17,9 +17,12 @@
    tensor-core kernels (the 3^3 conv, conv3d_dgrad.cu; the down and up
    blocks, resample.cu) also by device time, their cuDNN calls too, and
    two calls on the same inputs held bit for bit; every launch asserts
-   the route it took; and one shape each off the 3^3 conv's and the up
-   block's tensor-core routes (B8 8^3 x 32 with accum; B2 8^3 x 256 ->
-   16^3 x 128), which keep conv3d_block.cu's CUDA-core kernels.
+   the route it took; the 3^3 conv at the column-tiled widths (B1, a few
+   planes of the 128^3 step's level 0 and of the 256^3 step's three
+   levels: W 128 and 256 at 16 channels, 128 at 32, 64 at 64) held the
+   same way; and one shape each off the 3^3 conv's and the up block's
+   tensor-core routes (B8 8^3 x 32 with accum; B2 8^3 x 256 -> 16^3 x
+   128), which keep conv3d_block.cu's CUDA-core kernels.
 3. Serves the voxel U-Net at full width (64^3, w16, 3 levels, 4 classes,
    bf16, scatter voxelize, gather devoxelize, seeded random weights)
    through Predictor.predict_batch (16 events, 4000-8192 points: two
@@ -64,8 +67,10 @@
    index_add_ alone; the tensor-core kernels (the 3^3 dgrad
    and wgrad, conv3d_dgrad.cu, by variant and level; the down and up
    backward, resample.cu, by shape) also by device time, their cuDNN
-   calls too, and two calls held bit for bit; and the 3^3 dgrad and
-   wgrad and the down backward at one shape each off their tensor-core
+   calls too, and two calls held bit for bit; the 3^3 dgrad at phase 2's
+   column-tiled widths on its ring, the wgrad there off its route; and
+   the 3^3 dgrad and wgrad and the down backward at one shape each off
+   their tensor-core
    routes (8^3 x 32, the 8^3 level of a grid-32 model; a width-64
    U-Net's 16^3 x 128 -> 8^3 x 256 down block), which keep the CUDA-core
    kernels of conv3d_block.cu: held the same way, with the tensor-core
@@ -177,9 +182,14 @@
    to phase 8's limits, the cause of any difference named: the levels
    whose convs run off the tensor-core route, and the scatter
    voxelizer's atomics), launches by row (rows 1, 4 and 6 twice the
-   no-remat count, rows 2, 3, 5, 7 and 11 the same), the memory the step
-   keeps after its forward and its peak, with remat and without, and
-   each row's device ms in one profiled remat step beside its bound;
+   no-remat count, rows 2, 3, 5, 7 and 11 the same) and by route (every
+   forward and dgrad on the ring, its route decisions by W and kind), the
+   memory the step keeps after its forward and its peak, with remat and
+   without, and each row's device ms in one profiled remat step beside
+   its bound; one launch of rows 1, 2 and 3 at the level-0 shape (B1
+   128^3 x 16) by device time: the ring kernel (row 3: its route,
+   wgrad_kernel), conv3d_block.cu's CUDA-core kernel through its own
+   entry, cuDNN in bf16 and the bound, two calls held bit for bit;
    (b) api.fit for 2 epochs of 3 steps with the metrics log and the
    profiler trace (the stages "voxelize", "core", "head", "devoxelize"
    and the kernels in it), and a fresh 1-epoch run resumed from its
@@ -188,8 +198,9 @@
    validation pass, and Predictor serving it; every path's launches held
    to the step's and the forward's counts. Then one 256^3 remat step
    (experiments/bench_256_step.py, B1 x 32,768) through the kernels:
-   finite loss and gradients, launches by row, peak memory, and its loss
-   and conv-kernel gradients against the plain versions.
+   finite loss and gradients, launches by row and by route (every forward
+   and dgrad on the ring), peak memory, and its loss and conv-kernel
+   gradients against the plain versions.
 21. The data on disk: (a) `python -m pcseg_tpu_torch.cli synth` writes
    10,000 events (the size of the reference's train_xyze_1e4.h5; the
    CLI's defaults, 100-2,000 points, 4 classes) with the port's HDF5
@@ -323,6 +334,13 @@ MMA_KEY = {"conv3x3_gn_act": "conv3x3_mma", "down2x_gn_act": "down2x_mma",
            "down2x_bwd": "down2x_bwd_mma",
            "conv3x3_dgrad": "conv3x3_dgrad_mma",
            "conv3x3_wgrad": "conv3x3_wgrad_mma"}
+# the 3^3 conv's column-tiled widths (csrc/conv3d_dgrad.cu ring_tw) at B1
+# and a few planes, ((D, H, W), C, kwargs): the 128^3 step's level 0 (also
+# with the accum of the decoder's skip merge) and the 256^3 step's three
+# levels (W 256 x 16, 128 x 32, 64 x 64, that one with accum too)
+COLUMN_TILED = [((8, 128, 128), 16, {}), ((8, 128, 128), 16, {"accum": True}),
+                ((4, 256, 256), 16, {}), ((8, 128, 128), 32, {}),
+                ((8, 64, 64), 64, {}), ((8, 64, 64), 64, {"accum": True})]
 # the default configuration (voxelize_impl / devox_impl "auto" -> the
 # one-hot forms at 64^3) adds the voxelizer, the fused head and the gather
 DEFAULT_PER_FORWARD = dict(PER_FORWARD, voxelize_contract=1, head_grid2=1,
@@ -531,6 +549,11 @@ def kernel_cases():
     cases.append(("down2x_gn_act", "act", 8, 32, 32, 64, {}))
     cases.append(("up2x_gn_act", "act", 8, 16, 64, 32, {}))
     cases.append(("up2x_gn_act", "act", 8, 32, 32, 16, {}))
+    # the column-tiled widths (csrc/conv3d_dgrad.cu ring_tw), B1 and a few
+    # planes so that the plain version stays cheap
+    for dhw, c, kw in COLUMN_TILED:
+        cases.append(("conv3x3_gn_act", "act+accum" if kw.get("accum")
+                      else "act", 1, dhw, c, c, kw))
     # off the tensor-core routes (ops/conv3d_block.py _conv_route,
     # _mma_route): W = 8, and a width-64 U-Net's C = 128 with its coarse
     # 256
@@ -541,6 +564,15 @@ def kernel_cases():
     return cases
 
 
+def _dims(r):
+    """A grid's (D, H, W): ``r`` itself, or r^3."""
+    return tuple(r) if isinstance(r, tuple) else (r, r, r)
+
+
+def _dims_str(dims):
+    return f"{dims[0]}^3" if len(set(dims)) == 1 else "x".join(map(str, dims))
+
+
 def run_case(kernel, label, b, r, cin, cout, kw, gen):
     import torch
     import torch.nn.functional as F
@@ -549,7 +581,8 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
 
     dev = "cuda"
     k = 3 if kernel == "conv3x3_gn_act" else 2
-    x = torch.randn((b, r, r, r, cin), generator=gen, device=dev).to(
+    dims = _dims(r)
+    x = torch.randn((b, *dims, cin), generator=gen, device=dev).to(
         torch.bfloat16)
     bound = (6.0 / (k ** 3 * cin)) ** 0.5
     w = (torch.rand((k, k, k, cin, cout), generator=gen, device=dev) * 2
@@ -560,10 +593,11 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
     activate = kw.get("activate", True)
     want_stats = kw.get("want_stats", True)
     accum = None
-    ro = {"conv3x3_gn_act": r, "down2x_gn_act": r // 2,
-          "up2x_gn_act": 2 * r}[kernel]
+    ro = {"conv3x3_gn_act": dims,
+          "down2x_gn_act": tuple(n // 2 for n in dims),
+          "up2x_gn_act": tuple(2 * n for n in dims)}[kernel]
     if kw.get("accum"):
-        accum = torch.randn((b, ro, ro, ro, cout), generator=gen,
+        accum = torch.randn((b, *ro, cout), generator=gen,
                             device=dev).to(torch.bfloat16)
 
     if kernel == "conv3x3_gn_act":
@@ -645,7 +679,7 @@ def run_case(kernel, label, b, r, cin, cout, kw, gen):
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     res = {
         "name": kernel, "case": label,
-        "shape": f"B{b} {r}^3x{cin}->{ro}^3x{cout}",
+        "shape": f"B{b} {_dims_str(dims)}x{cin}->{_dims_str(ro)}x{cout}",
         "max_abs_err": y_err, "max_rel_err": y_err / max(ymax, 1e-30),
         "stats_rel_err": st_err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
@@ -1475,6 +1509,11 @@ def vox_bwd_cases():
               ("down2x_bwd", "act", 32, 32, 64, {}),
               ("up2x_bwd", "act", 16, 64, 32, {}),
               ("up2x_bwd", "act", 32, 32, 16, {})]
+    # phase 2's column-tiled widths: the dgrad on its ring, the wgrad off
+    # its route (it takes whole rows only)
+    for dhw, c, kw in COLUMN_TILED:
+        cases.append(("conv3x3", "accum" if kw.get("accum") else "act", dhw,
+                      c, c, {**kw, "b": 1, "wgrad_off_route": True}))
     # off the tensor-core routes (ops/conv3d_block.py _conv_route,
     # _mma_route): W = 8, and C = 128 with its coarse 256
     cases += [("conv3x3", "accum off-route", 8, 32, 32,
@@ -1496,11 +1535,10 @@ def _route_taken(name, before, off_route):
             f"{0 if off_route else 1}")
 
 
-def _vox_inputs(gen, r, cin, cout, k):
+def _vox_inputs(gen, r, cin, cout, k, b=VOX_B):
     import torch
 
-    b = VOX_B
-    x = torch.randn((b, r, r, r, cin), generator=gen, device="cuda").to(
+    x = torch.randn((b, *_dims(r), cin), generator=gen, device="cuda").to(
         torch.bfloat16)
     bound = (6.0 / (k ** 3 * cin)) ** 0.5
     w = (torch.rand((k, k, k, cin, cout), generator=gen, device="cuda") * 2
@@ -1558,12 +1596,14 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
     """dgrad and wgrad of one 3^3 block at one shape: two result rows
     (the stem, whose input is data, launches no dgrad: one row). Each
     launch asserts its route: the tensor-core kernels on the route, the
-    CUDA-core ones (conv_kernel, wgrad_kernel<kConv3>) off it."""
+    CUDA-core ones (conv_kernel, wgrad_kernel<kConv3>) off it (the wgrad's
+    alone with ``wgrad_off_route``)."""
     import torch
 
     from pcseg_tpu_torch.ops import conv3d_block as cb
 
-    x, w, bias, scale, shift = _vox_inputs(gen, r, cin, cout, 3)
+    b = kw.get("b", VOX_B)
+    x, w, bias, scale, shift = _vox_inputs(gen, r, cin, cout, 3, b)
     activate = kw.get("activate", True)
     y, _ = cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift,
                                   activate=activate)
@@ -1572,14 +1612,15 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
         y = gstats = None
     want_gadj = bool(kw.get("accum"))
     wl = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2)
-    n = VOX_B * r ** 3
+    n = x.numel() // cin
     flops = 2 * n * 27 * cin * cout
     cot = n * cout * 2 * (1 if y is None else 2) + (
-        0 if gstats is None else VOX_B * 2 * cout * 4)
-    vec = 2 * VOX_B * cin * 4 if activate else 0
-    shape = f"B{VOX_B} {r}^3 {cin}->{cout}"
+        0 if gstats is None else b * 2 * cout * 4)
+    vec = 2 * b * cin * 4 if activate else 0
+    shape = f"B{b} {_dims_str(_dims(r))} {cin}->{cout}"
     rows = []
     off_route = bool(kw.get("off_route"))
+    wgrad_off = off_route or bool(kw.get("wgrad_off_route"))
     if activate:
         dargs = (gy, y, gstats, x, w, scale, shift, activate, want_gadj)
         before = launch_counts()
@@ -1608,7 +1649,7 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
             res.update(_mma_report(lambda: cb.conv3x3_dgrad_cuda(*dargs),
                                    library, dk))
         nbytes = (cot + n * cin * 2 * 2 + 27 * cin * cout * 2 + vec
-                  + 2 * VOX_B * cin * 4 + (n * cout * 2 if want_gadj else 0))
+                  + 2 * b * cin * 4 + (n * cout * 2 if want_gadj else 0))
         res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
         rows.append(_vox_report(res))
         if not off_route:
@@ -1617,7 +1658,7 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
     before = launch_counts()
     wk = cb.conv3x3_wgrad_cuda(*wargs)
     torch.cuda.synchronize()
-    _route_taken("conv3x3_wgrad", before, off_route)
+    _route_taken("conv3x3_wgrad", before, wgrad_off)
     wp = cb.conv3x3_wgrad_plain(*wargs)
     checks = {"dW": _sum_check(wk[0], wp[0]), "dbias": _sum_check(wk[1],
                                                                  wp[1])}
@@ -1632,13 +1673,13 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
         "plain_ms": time_ms(lambda: cb.conv3x3_wgrad_plain(*wargs), iters=3),
         "library_ms": time_ms(library),
     }
-    if not off_route:
+    if not wgrad_off:
         res.update(_mma_report(lambda: cb.conv3x3_wgrad_cuda(*wargs),
                                library, wk))
     nbytes = cot + n * cin * 2 + vec + 27 * cin * cout * 4 + cout * 4
     res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
     rows.append(_vox_report(res))
-    if not off_route:
+    if not wgrad_off:
         _print_mma(res)
     return rows
 
@@ -4260,8 +4301,8 @@ R128_ROWS = {1: "conv3x3_gn_act", 2: "conv3x3_dgrad", 3: "conv3x3_wgrad",
 R128_FWD_ROWS = (1, 4, 6)
 # api.evaluate on the best checkpoint against that epoch's validation
 # pass: the same weights and batch, but the scatter voxelizer's index_add_
-# and the level-0 convs off the tensor-core route (W = 128: conv_kernel's
-# and wgrad_kernel's float atomics) sum in atomic order, so a bf16 value
+# and the level-0 wgrad off its tensor-core route (W = 128: wgrad_kernel's
+# float atomics) sum in atomic order, so a bf16 value
 # may round the other way: the loss to VOX_LOSS_REL (the kernels-vs-plain
 # limit of phase 8) and the accuracy to 0.1 percentage points (the argmax
 # flips only at near-ties, ARGMAX_AGREE)
@@ -4408,15 +4449,60 @@ def _rows(launches) -> dict:
 def _off_route_levels(r, w, levels):
     """The levels whose 3^3 convs ops/conv3d_block.py ``_conv_route``
     leaves to conv3d_block.cu's CUDA-core kernels (float atomics in the
-    stats and dW)."""
+    stats and dW): for the forward and the dgrad (one rule) and for the
+    wgrad."""
     from pcseg_tpu_torch.ops import conv3d_block as cb
 
-    out = []
+    out = {"forward_dgrad": [], "wgrad": []}
     for i in range(levels):
         ri, ci = r >> i, w << i
-        if not cb._conv_route(ci, ci, (1, ri, ri, ri, ci)):
-            out.append(f"level {i}: {ri}^3 x {ci}")
+        for key, wgrad in (("forward_dgrad", False), ("wgrad", True)):
+            if not cb._conv_route(ci, ci, (1, ri, ri, ri, ci), wgrad=wgrad):
+                out[key].append(f"level {i}: {ri}^3 x {ci}")
     return out
+
+
+# the 3^3 launch keys by route: the op keys and the tensor-core ones
+CONV_ROUTE_KEYS = ("conv3x3_gn_act", "conv3x3_mma", "conv3x3_dgrad",
+                   "conv3x3_dgrad_mma", "conv3x3_wgrad", "conv3x3_wgrad_mma")
+
+
+def _ring_launches_held(label, launches, off_route):
+    """Every 3^3 forward and dgrad of a step on the ring (their route
+    takes every level), and the wgrad on its own as its route says: raises
+    otherwise. Returns the launches by route."""
+    got = {k: launches[k] for k in CONV_ROUTE_KEYS}
+    if off_route["forward_dgrad"] or \
+            got["conv3x3_mma"] != got["conv3x3_gn_act"] or \
+            got["conv3x3_dgrad_mma"] != got["conv3x3_dgrad"] or \
+            (got["conv3x3_wgrad_mma"] == got["conv3x3_wgrad"]) != \
+            (not off_route["wgrad"]):
+        raise AssertionError(f"{label}: 3^3 launches by route {got}, off "
+                             f"the route {off_route}")
+    return got
+
+
+def _routes_seen(fn):
+    """Runs ``fn`` with ops/conv3d_block.py ``_conv_route``'s decisions
+    counted: "W<w> forward/dgrad" or "W<w> wgrad" -> [on the route, off
+    it]. Returns (fn's result, the counts)."""
+    from pcseg_tpu_torch.ops import conv3d_block as cb
+
+    seen: dict = {}
+    real = cb._conv_route
+
+    def spy(cin, cout, shape, *grids, wgrad=False):
+        took = real(cin, cout, shape, *grids, wgrad=wgrad)
+        key = f"W{shape[3]} {'wgrad' if wgrad else 'forward/dgrad'}"
+        seen.setdefault(key, [0, 0])[0 if took else 1] += 1
+        return took
+
+    cb._conv_route = spy
+    try:
+        out = fn()
+    finally:
+        cb._conv_route = real
+    return out, seen
 
 
 def r128_step(card):
@@ -4439,7 +4525,8 @@ def r128_step(card):
     f32 = _remat_model(R128, False, "float32", "xla")
     f32.load_state_dict(model.state_dict())
 
-    lr, gr, launch_r, mem_r = _measured_step(model, batch)
+    (lr, gr, launch_r, mem_r), routes = _routes_seen(
+        lambda: _measured_step(model, batch))
     ln, gn, launch_n, mem_n = _measured_step(kept, batch)
     lp, gp, launch_p, _ = _measured_step(model, batch, plain=True)
     lf, gf, _, _ = _measured_step(f32, batch, plain=True)
@@ -4460,12 +4547,14 @@ def r128_step(card):
     ok_n, held_n, _ = _step_readings(lr, gr, ln, gn, lf, gf, VOX_LOSS_REL)
     identical = {n: bool(torch.equal(gr[n], gn[n])) for n in gr}
     off_route = _off_route_levels(R128, VOX_W, 3)
+    by_route = _ring_launches_held("128^3 remat step", launch_r, off_route)
+    off = [f"{lv} {kind}" for kind, lvs in off_route.items() for lv in lvs]
     cause = ("" if all(identical.values()) and float(lr) == float(ln) else
              "each step voxelizes anew with the scatter voxelizer's "
-             "index_add_ (atomic order), and the recomputed core's "
-             + (", ".join(off_route) + " convs run off the tensor-core "
-                "route (conv_kernel / wgrad_kernel float atomics)"
-                if off_route else "convs all on the tensor-core routes"))
+             "index_add_ (atomic order), and the "
+             + (", ".join(off) + " run off the tensor-core route "
+                "(conv_kernel / wgrad_kernel float atomics)"
+                if off else "convs all on the tensor-core routes"))
 
     prof, _ = device_profile(lambda: _measured_step(model, batch))
     by_row: dict = {}
@@ -4492,6 +4581,7 @@ def r128_step(card):
                                "grad_worst", "grad_rel_err_max_held")},
         "remat_vs_kept_bit_identical": all(identical.values()),
         "remat_vs_kept_cause": cause, "off_route_levels": off_route,
+        "launches_by_route_remat": by_route, "route_decisions": routes,
         "launches_remat": {k: v for k, v in launch_r.items() if v},
         "launches_kept": {k: v for k, v in launch_n.items() if v},
         "launches_by_row_remat": _rows(launch_r),
@@ -4511,6 +4601,8 @@ def r128_step(card):
     print(f"  launches by row, remat {_rows(launch_r)}, kept "
           f"{_rows(launch_n)}; off the tensor-core route: {off_route}",
           flush=True)
+    print(f"  3^3 launches by route (remat step) {by_route}; _conv_route's "
+          f"decisions by W [on, off]: {routes}", flush=True)
     print(f"  memory (GiB above the step's start): remat kept "
           f"{mem_r['after_forward_gib']:.3f} after the forward, peak "
           f"{mem_r['peak_gib']:.3f}; without remat "
@@ -4695,16 +4787,19 @@ def r256_step(card):
     kk = torch.cat([gk[n].flatten() for n in kern])
     kp = torch.cat([gp[n].flatten() for n in kern])
     kcos = float(kk @ kp / (kk.norm() * kp.norm()))
+    off_route = _off_route_levels(R256, VOX_W, 3)
     res = {"loss_kernels": float(lk), "loss_plain": float(lp),
            "loss_rel_err": loss_rel, "kernel_grad_cosine": kcos,
            "finite": finite, "launches_by_row": _rows(launches),
-           "off_route_levels": _off_route_levels(R256, VOX_W, 3),
+           "off_route_levels": off_route,
+           "launches_by_route": {k: launches[k] for k in CONV_ROUTE_KEYS},
            "memory": mem, "step_ms_kernels_first": ms_k,
            "step_ms_plain_first": ms_p, "card": card}
     print(f"  256^3 remat step [{card}]: loss kernels {float(lk):.6f} plain "
           f"{float(lp):.6f} (rel {loss_rel:.2e}), conv-kernel gradient "
           f"cosine {kcos:.6f}, finite {finite}; launches by row "
-          f"{_rows(launches)}; kept {mem['after_forward_gib']:.3f} GiB "
+          f"{_rows(launches)}, 3^3 by route {res['launches_by_route']}, off "
+          f"the route {off_route}; kept {mem['after_forward_gib']:.3f} GiB "
           f"after the forward, peak {mem['peak_gib']:.3f} GiB; first step "
           f"{ms_k:.0f} ms kernels, {ms_p:.0f} ms plain", flush=True)
     del model
@@ -4713,7 +4808,127 @@ def r256_step(card):
             kcos < VOX_KERNEL_COS:
         raise AssertionError(f"256^3 remat step: {res}, launches {got} != "
                              f"{want}")
+    _ring_launches_held("256^3 remat step", launches, off_route)
     return res
+
+
+def r128_level0(card):
+    """One launch of rows 1, 2 and 3 at the 128^3 step's level-0 shape
+    (B1 128^3 x 16, the "act" variant with the stats cotangent) by device
+    time: the kernel its route takes (rows 1 and 2: the ring; row 3:
+    wgrad_kernel), conv3d_block.cu's CUDA-core kernel through its own
+    entry (rows 1 and 2; its stats and dstats zero fill included), one
+    cuDNN call of the same bf16 conv (TF32 off) and the bound; each held
+    against its plain version, the ring kernels' two calls bit for bit."""
+    import torch
+
+    from pcseg_tpu_torch.ops import conv3d_block as cb
+    from pcseg_tpu_torch.ops._build import raise_on, stream_of
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    r, c = R128, VOX_W
+    x, w, bias, scale, shift = _vox_inputs(gen, r, c, c, 3, 1)
+    fargs = (x, w, bias, scale, shift)
+    y, _ = cb.conv3x3_gn_act_cuda(*fargs)
+    gy, gstats = _vox_cotangents(gen, y.shape)
+    dargs = (gy, y, gstats, x, w, scale, shift, True, False)
+    wargs = (x, scale, shift, gy, y, gstats, True)
+    lib = cb.load_library()
+    dims = (1, r, r, r, c, c)
+
+    def core_fwd():
+        out = torch.empty_like(x)
+        st = torch.zeros((1, 2, c), dtype=torch.float32, device="cuda")
+        raise_on(lib.pcseg_conv3x3_gn_act(
+            x.data_ptr(), cb._wq(w).contiguous().data_ptr(),
+            bias.data_ptr(), scale.data_ptr(), shift.data_ptr(), None,
+            out.data_ptr(), st.data_ptr(), *dims, 1, stream_of(x)),
+            "conv3x3_gn_act")
+        return out, st
+
+    def core_dgrad():
+        dx = torch.empty_like(x)
+        dst = torch.zeros((1, 2, c), dtype=torch.float32, device="cuda")
+        raise_on(lib.pcseg_conv3x3_dgrad(
+            gy.data_ptr(), y.data_ptr(), gstats.data_ptr(), x.data_ptr(),
+            cb._wt(w).data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            dx.data_ptr(), dst.data_ptr(), None, *dims, 1, stream_of(x)),
+            "conv3x3_dgrad")
+        return dx, dst
+
+    wl = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2)
+    n = x.numel() // c
+    flops = 2 * n * 27 * c * c
+    t, wb, vec, st = n * c * 2, 27 * c * c * 2, 2 * c * 4, 2 * c * 4
+    rows = {
+        "conv3x3_gn_act": (
+            lambda: cb.conv3x3_gn_act_cuda(*fargs),
+            lambda: cb.conv3x3_gn_act_plain(*fargs), core_fwd,
+            lambda: torch.nn.functional.conv3d(_ncdhw(x), wl, padding=1),
+            2 * t + wb + c * 4 + vec + st),
+        "conv3x3_dgrad": (
+            lambda: cb.conv3x3_dgrad_cuda(*dargs),
+            lambda: cb.conv3x3_dgrad_plain(*dargs), core_dgrad,
+            lambda: _library_bwd(gy, x, wl, 1, 1, False,
+                                 [True, False, False]),
+            4 * t + wb + vec + 2 * st),
+        "conv3x3_wgrad": (
+            lambda: cb.conv3x3_wgrad_cuda(*wargs),
+            lambda: cb.conv3x3_wgrad_plain(*wargs), None,
+            lambda: _library_bwd(gy, x, wl, 1, 1, False,
+                                 [False, True, True]),
+            3 * t + vec + st + 27 * c * c * 4 + c * 4),
+    }
+    out = {}
+    for name, (kern, plain, core, library, nbytes) in rows.items():
+        before = launch_counts()
+        got = kern()
+        torch.cuda.synchronize()
+        ring = launch_counts()[MMA_KEY[name]] - before[MMA_KEY[name]]
+        ref = plain()
+        if name == "conv3x3_wgrad":
+            checks = {"dW": _sum_check(got[0], ref[0]),
+                      "dbias": _sum_check(got[1], ref[1])}
+        else:
+            checks = {"out": _bf16_check(got[0], ref[0]),
+                      "sums": _sum_check(got[1], ref[1])}
+        row = {"route": "ring" if ring else "wgrad_kernel",
+               "max_abs_err": _held(f"{name} 128^3 level 0", checks),
+               "device_ms": device_ms(kern), "op_ms": time_ms(kern),
+               "library_device_ms": device_ms(library),
+               "library_op_ms": time_ms(library)}
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops)
+        if ring:
+            again = kern()
+            row["repeat_bit_identical"] = all(
+                a is None and b is None or torch.equal(a, b)
+                for a, b in zip(got, again))
+            if not row["repeat_bit_identical"]:
+                raise AssertionError(f"{name} 128^3: two calls differ")
+        if core is not None:
+            cgot = core()
+            torch.cuda.synchronize()
+            row["cuda_core_max_abs_err"] = _held(
+                f"{name} 128^3 CUDA-core kernel",
+                {"out": _bf16_check(cgot[0], ref[0]),
+                 "sums": _sum_check(cgot[1], ref[1])})
+            row["cuda_core_device_ms"] = device_ms(core)
+            row["cuda_core_op_ms"] = time_ms(core)
+        out[name] = row
+        print(f"  level 0 B1 {r}^3 x {c} {name}: {row['route']} "
+              f"{row['device_ms']:.4f} ms device ({row['op_ms']:.4f} op)"
+              + (f", CUDA-core kernel {row['cuda_core_device_ms']:.4f} "
+                 f"({row['cuda_core_op_ms']:.4f})" if core else "")
+              + f", cuDNN {row['library_device_ms']:.4f} "
+              f"({row['library_op_ms']:.4f}), bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}); max|err| {row['max_abs_err']:.3e}"
+              + (f"; bit-identical repeat {row['repeat_bit_identical']}"
+                 if ring else "") + f" [{card}]", flush=True)
+    if out["conv3x3_gn_act"]["route"] != "ring" or \
+            out["conv3x3_dgrad"]["route"] != "ring":
+        raise AssertionError(f"128^3 level 0: rows 1 and 2 off the ring: "
+                             f"{out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5408,11 +5623,13 @@ def _mma_fields(at, cases) -> dict:
                 for c in cases if "device_ms" not in c}}
 
 
-def _r128_fields(name, r128) -> dict:
+def _r128_fields(name, r128, level0) -> dict:
     """Row ``name``'s device ms, launches and bound in one 128^3 remat
-    step (phase 20), beside its row."""
+    step (phase 20), and rows 1-3's one launch at its level-0 shape,
+    beside its row."""
     row = next(r for r, k in R128_ROWS.items() if k == name)
-    return {"r128_remat_step": r128["rows"][str(row)]}
+    return {"r128_remat_step": r128["rows"][str(row)],
+            **({"r128_level0": level0[name]} if name in level0 else {})}
 
 
 def _scatter_fields(cases) -> dict:
@@ -5472,10 +5689,12 @@ def main() -> int:
         return step_spread(card, int(sys.argv[2]))
     if sys.argv[1:2] == ["--r128"]:
         r128, launch_r, launch_n = r128_step(card)
+        level0 = r128_level0(card)
         _, fitted = r128_fit(card, launch_r,
                              {k: launch_n[k] for k in PER_FORWARD})
         print(json.dumps({"card": card, "r128_step": r128,
-                          "r128_fit": fitted, "r256_step": r256_step(card)}))
+                          "r128_level0": level0, "r128_fit": fitted,
+                          "r256_step": r256_step(card)}))
         return 0
     if sys.argv[1:2] == ["--files"]:
         print(json.dumps({"card": card, "files": files_phase(card)[2]}))
@@ -5628,6 +5847,7 @@ def main() -> int:
           f"remat; api.fit, resume from 'latest', api.evaluate, Predictor; "
           f"one {R256}^3 remat step [{card}]", flush=True)
     r128, r128_launch_r, r128_launch_n = r128_step(card)
+    r128_l0 = r128_level0(card)
     r128_paths, r128_fitted = r128_fit(
         card, r128_launch_r, {k: r128_launch_n[k] for k in PER_FORWARD})
     r256 = r256_step(card)
@@ -5679,7 +5899,7 @@ def main() -> int:
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "shape": shape,
-            **_mma_fields(at, mine), **_r128_fields(name, r128),
+            **_mma_fields(at, mine), **_r128_fields(name, r128, r128_l0),
         })
     # voxel backward rows: numbers at the largest shape each has on the
     # training path; launches from the api.fit run of phase 9
@@ -5705,7 +5925,7 @@ def main() -> int:
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "shape": shape,
             **_mma_fields(at, mine), **_scatter_fields(mine),
-            **_r128_fields(name, r128),
+            **_r128_fields(name, r128, r128_l0),
         })
     # default-configuration rows: numbers at the B8 x 8192, 64^3 shapes of
     # phase 10; launches from phases 11 and 12
@@ -5907,7 +6127,8 @@ def main() -> int:
                       "sparse_train_cases": spb_cases, "sparse_step": sp_step,
                       "sparse_fit": sp_fitted, "test_only_cases": to_cases,
                       "pointnet_serving": pn_served, "wgmma": wgmma,
-                      "r128_step": r128, "r128_fit": r128_fitted,
+                      "r128_step": r128, "r128_level0": r128_l0,
+                      "r128_fit": r128_fitted,
                       "r256_step": r256, "files": files,
                       "sparse_impls": impls, "export": exported}))
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,10 @@
 //                         pallas_call at :429): 3^3 SAME conv, Cin -> Cout,
 //                         for the shapes csrc/conv3d_dgrad.cu's implicit
 //                         GEMM does not take (ops/conv3d_block.py's
-//                         _conv_route).
+//                         _conv_route: Cin != Cout, C not 8, 16, 32 or 64,
+//                         W not 16, 32 or a multiple of 64 (of 32 at 64
+//                         channels), or H not a multiple of the ring
+//                         tile's rows).
 //   pcseg_down2x_gn_act   replaces fused_down2x_p (_down2x_kernel,
 //                         pallas_call at :1318): k2 s2 conv, C -> Cout,
 //                         for the widths csrc/resample.cu's tensor-core
@@ -30,11 +33,13 @@
 //                         per (batch, channel), and the bf16 g' itself (the
 //                         accum gradient of the add variant), for the shapes
 //                         csrc/conv3d_dgrad.cu's implicit GEMM does not
-//                         take (ops/conv3d_block.py's _conv_route).
+//                         take (the forward's rule, _conv_route).
 //   pcseg_conv3x3_wgrad   replaces _wgrad_pallas (_wgrad_kernel, pallas_call
 //                         at :648): dW (3,3,3,Cin,Cout) and dbias, for the
 //                         shapes csrc/conv3d_dgrad.cu's split-K GEMM does
-//                         not take (the same _conv_route).
+//                         not take (_conv_route(..., wgrad=True): whole
+//                         rows only, so also W 128 and 256, and W 64 at 64
+//                         channels).
 //   pcseg_down2x_bwd      replaces the bwd of fused_down2x_p
 //                         (_down2x_bwd_kernel, pallas_call at :1353), for
 //                         the widths csrc/resample.cu's one-sweep kernel

@@ -42,10 +42,14 @@
 // and 16x fewer bytes for the same FLOPs. The design keeps every input
 // element staged about 1.5 times and every product on mma.sync:
 //
-// - walking depth: a block owns one batch element, TH rows of all W (TH
-//   W = 256 voxels, 128 at 64 channels) and a range of depth planes. It
-//   keeps a ring of three input planes in shared memory (Ring), each (TH +
-//   2) x (W + 2) voxels x C bf16 with a zero halo: output plane d reads
+// - walking depth: a block owns one batch element, a plane tile of TH rows
+//   x TW columns (TH TW = 256 voxels, 128 at 64 channels; TW = W up to
+//   kWmax, 64 (32 at 64 channels), else column tiles of kWmax) and a range
+//   of depth planes. It keeps a ring of three input planes in shared
+//   memory (Ring), each (TH + 2) x (TW + 2) voxels x C bf16 with a halo
+//   read from the neighbouring rows and columns, zeros only outside the
+//   grid, so a wider grid costs no more shared memory or halo a voxel than
+//   W = kWmax: output plane d reads
 //   planes d - 1, d, d + 1 (the TPU kernel's rolling 3-plane window) while
 //   plane d + 2's source is in flight in registers, loaded before plane
 //   d's products and stored after them into the slot that plane d - 1
@@ -69,9 +73,10 @@
 //   wrapper's packing; at 64 channels a block takes 32 of the N columns
 //   (grid z), so that W and the ring fit;
 // - the epilogue reads its own voxels' input (the forward's accum, the
-//   dgrad's x) from a tile that cp.async brought a plane ahead, writes the
-//   output over it in place (each element by the thread that read it) and
-//   stores the tile in 16-byte units; the sums stay in registers;
+//   dgrad's x: TH segments of TW voxels at a stride of W) from a tile that
+//   cp.async brought a plane ahead, writes the output over it in place
+//   (each element by the thread that read it) and stores the tile in
+//   16-byte units; the sums stay in registers;
 // - the wgrad keeps dW in its warps' accumulators over the block's whole
 //   depth range (WgCfg: a warp holds up to 4 taps' Cin x Cout, 128 f32 a
 //   thread at most; at 64 channels one tap a warp and four tap groups as
@@ -86,10 +91,12 @@
 //
 // Shapes: Cin = Cout = C in {8, 16, 32, 64} (the JAX fused core's widths,
 // m16n8k8 at 8 for the forward and dgrad; the wgrad stacks two taps in an
-// m16 tile there), W in {16, 32, 64} (16, 32 at 64 channels), H a multiple
-// of the tile's rows; ops/conv3d_block.py _conv_route states the rule,
-// and every other shape keeps conv3d_block.cu's conv_kernel and
-// wgrad_kernel.
+// m16 tile there) and H a multiple of the tile's rows TH; W in {16, 32,
+// 64} (16, 32 at 64 channels: TW = W) or, for the forward and the dgrad,
+// any multiple of kWmax (column tiles: W 128 and 256 at up to 32
+// channels, 64 and 128 at 64); ops/conv3d_block.py _conv_route states the
+// rule, and every other shape (the wgrad at W > kWmax among them) keeps
+// conv3d_block.cu's conv_kernel and wgrad_kernel.
 //
 // Plain C interface (loaded with ctypes): every entry returns
 // cudaGetLastError() after its launches, or cudaErrorInvalidValue before
@@ -145,7 +152,7 @@ struct RingArgs {
   __nv_bfloat16* out;         // y or dx (B, D, H, W, C)
   __nv_bfloat16* gadj;        // dgrad: bf16 g' (B, D, H, W, C) or null
   float* part;                // (B, gridDim.x, 2, C) block sums, or null
-  int D, H, W, TH, DD;        // TH rows and DD planes a block
+  int D, H, W, TH, TW, DD;    // TH rows, TW columns and DD planes a block
 };
 
 template <int C>
@@ -162,7 +169,8 @@ struct RingCfg {
   static constexpr int kW = 27 * NS * C * 2;    // W slice [27][NS][C]
   static constexpr int kX = M * NS * 2;         // epilogue tile of a plane
   static constexpr int kVec = (2 * NS + 2 * C) * 4;
-  // a ring slot's voxels at the widest W taken (the most of any W)
+  // the widest tile (TW = W up to it, column tiles of it above): a ring
+  // slot's voxels at it are the most of any W
   static constexpr int kWmax = C == 64 ? 32 : 64;
   static constexpr int kSlotMax = (M / kWmax + 2) * (kWmax + 2);
   static constexpr int RPT = (kSlotMax * U + kThreads - 1) / kThreads;
@@ -170,15 +178,18 @@ struct RingCfg {
 };
 
 // The ring of three input planes a block keeps in shared memory, each
-// (TH + 2) x (W + 2) voxels x C bf16 with a zero halo, and the plane in
-// flight to it. fetch(pd) loads plane pd's source (and the dgrad's y) into
-// registers, unit e = tid + 256 i of a slot, zeros outside the grid;
+// (TH + 2) x (TW + 2) voxels x C bf16: rows h0 - 1 .. h0 + TH and columns
+// w0 - 1 .. w0 + TW, the halo read from the grid's neighbouring rows and
+// columns, zeros outside the grid; and the plane in flight to it.
+// fetch(pd) loads plane pd's source (and the dgrad's y) into registers,
+// unit e = tid + 256 i of a slot, zeros outside the grid;
 // put(pd, own) forms each element once on its way into the slot of plane
 // pd: the forward's bf16(relu(x scale + shift)) (x itself without the
 // activation), or the dgrad's g' = bf16(gy + (gs1 + 2 gs2 y)) (gy itself
 // without the stats cotangent), and with ``own`` writes the g' of the
-// block's own rows to gadj. The forward, the dgrad and the wgrad (whose
-// ring is the forward's) all fill their ring through it.
+// block's own voxels (not the halo) to gadj. The forward, the dgrad and the
+// wgrad (whose ring is the forward's; w0 = 0, TW = W) all fill their ring
+// through it.
 template <int C, bool FWD>
 struct Ring {
   static constexpr int U = C / 8, RPT = RingCfg<C>::RPT;
@@ -188,18 +199,18 @@ struct Ring {
   const float* k1;   // forward: scale; dgrad: gs1
   const float* k2;   // forward: shift; dgrad: 2 gs2
   uint8_t* base;
-  int D, H, W, TH, b, h0, PW, PV, slot_bytes, tid;
+  int D, H, W, TH, TW, b, h0, w0, PW, PV, slot_bytes, tid;
   bool form;         // forward: the activation; dgrad: the stats term
   uint4 rsrc[RPT], ryv[RPT];
   uint32_t inside = 0;   // bit i: unit i is in the grid
 
   __device__ __forceinline__ Ring(const RingArgs& p, const float* k1_,
                                   const float* k2_, uint8_t* base_, int b_,
-                                  int h0_, int tid_, bool form_)
+                                  int h0_, int w0_, int tid_, bool form_)
       : src(p.src), y(p.y), gadj(p.gadj), k1(k1_), k2(k2_), base(base_),
-        D(p.D), H(p.H), W(p.W), TH(p.TH), b(b_), h0(h0_), PW(p.W + 2),
-        PV((p.TH + 2) * (p.W + 2)), slot_bytes(PV * C * 2), tid(tid_),
-        form(form_) {}
+        D(p.D), H(p.H), W(p.W), TH(p.TH), TW(p.TW), b(b_), h0(h0_),
+        w0(w0_), PW(p.TW + 2), PV((p.TH + 2) * (p.TW + 2)),
+        slot_bytes(PV * C * 2), tid(tid_), form(form_) {}
 
   __device__ __forceinline__ uint8_t* slot_ptr(int pd) const {
     return base + ((pd % 3 + 3) % 3) * slot_bytes;
@@ -215,7 +226,7 @@ struct Ring {
     for (int i = 0; i < RPT; ++i) {
       const int e = tid + i * kThreads;
       const int v = e / U, cu = e % U;
-      const int hh = h0 - 1 + v / PW, ww = v % PW - 1;
+      const int hh = h0 - 1 + v / PW, ww = w0 - 1 + v % PW;
       const bool ok = e < PV * U && pin && hh >= 0 && hh < H && ww >= 0 &&
                       ww < W;
       rsrc[i] = ryv[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -256,11 +267,11 @@ struct Ring {
             f[j] = __fadd_rn(f[j], __fadd_rn(k1[c], __fmul_rn(k2[c], yv[j])));
           }
           q = pack8(f);
-          const int v = e / U, r = v / PW;
-          if (own && r >= 1 && r <= TH)
+          const int v = e / U, r = v / PW, cc = v % PW;
+          if (own && r >= 1 && r <= TH && cc >= 1 && cc <= TW)
             *reinterpret_cast<uint4*>(
-                gadj + ((((size_t)b * D + pd) * H + h0 - 1 + r) * W +
-                        v % PW - 1) * C + cu * 8) = q;
+                gadj + ((((size_t)b * D + pd) * H + h0 - 1 + r) * W + w0 -
+                        1 + cc) * C + cu * 8) = q;
         }
       }
       *reinterpret_cast<uint4*>(s + swl(e, U)) = q;
@@ -269,10 +280,12 @@ struct Ring {
 };
 
 // One block: batch element blockIdx.y, N columns [z NS, (z + 1) NS) (z =
-// blockIdx.z), rows [h0, h0 + TH) and planes [d0, d1) by blockIdx.x. Warp
-// w takes the 16 voxels at column group w % (W / 16) of MW consecutive
-// rows of each output plane, against the slice's NS columns. FWD: the
-// forward conv; else the dgrad.
+// blockIdx.z), rows [h0, h0 + TH), columns [w0, w0 + TW) and planes [d0,
+// d1) by blockIdx.x (the plane tiles of a depth range row by row, then the
+// depth ranges: at TW = W exactly the rows' order). Warp w takes the 16
+// voxels at column group w % (TW / 16) of MW consecutive rows of each
+// output plane, against the slice's NS columns. FWD: the forward conv;
+// else the dgrad.
 template <int C, bool FWD>
 __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
   using Cfg = RingCfg<C>;
@@ -289,17 +302,23 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
   float* vk2 = vk1 + C;
   uint8_t* sxt = reinterpret_cast<uint8_t*>(vk2 + C);   // 2 tiles
   uint8_t* ring = sxt + 2 * Cfg::kX;             // 3 slots
-  const int W = p.W, H = p.H, D = p.D, TH = p.TH;
-  const int PW = W + 2;                          // a ring row's voxels
+  const int W = p.W, H = p.H, D = p.D, TH = p.TH, TW = p.TW;
+  const int PW = TW + 2;                         // a ring row's voxels
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int nht = H / TH;
-  const int h0 = (blockIdx.x % nht) * TH;
-  const int d0 = (blockIdx.x / nht) * p.DD;
+  const int nwt = W / TW, tiles = H / TH * nwt;
+  const int tile = blockIdx.x % tiles;
+  const int h0 = tile / nwt * TH, w0 = tile % nwt * TW;
+  const int d0 = (blockIdx.x / tiles) * p.DD;
   const int d1 = min(D, d0 + p.DD);
   const int b = blockIdx.y, z = blockIdx.z;
   const bool stats = p.gstats != nullptr, act = p.scale != nullptr;
   const bool has_tile = p.tile != nullptr;
+  // voxel v of a plane tile (row v / TW, column v % TW) in a (B, D, H, W,
+  // C) grid, at plane pd
+  auto grid_off = [&](int pd, int v) {
+    return ((((size_t)b * D + pd) * H + h0 + v / TW) * W + w0 + v % TW) * C;
+  };
 
   // W slice: row (tap, n) is the packed row tap, column z NS + n
   for (int e = tid; e < 27 * NS * U; e += kThreads) {
@@ -327,7 +346,7 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
     }
   }
 
-  Ring<C, FWD> rs(p, vk1, vk2, ring, b, h0, tid,
+  Ring<C, FWD> rs(p, vk1, vk2, ring, b, h0, w0, tid,
                   FWD ? act : stats);
   // the epilogue's input of plane pd's tile (the slice's channels) into
   // tile pd & 1
@@ -335,11 +354,8 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
     if (!has_tile) return;
     const uint32_t xs = smem_u32(sxt + (pd & 1) * Cfg::kX);
     for (int e = tid; e < M * UX; e += kThreads) {
-      const int v = e / UX, cu = e % UX;
-      const size_t off =
-          ((((size_t)b * D + pd) * H + h0 + v / W) * W + v % W) * C +
-          z * NS + cu * 8;
-      cp16(xs + swl(e, UX), p.tile + off, true);
+      cp16(xs + swl(e, UX), p.tile + grid_off(pd, e / UX) + z * NS +
+                                (e % UX) * 8, true);
     }
   };
 
@@ -357,10 +373,10 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
   // this warp's tiles: column group cg, rows rg MW .. rg MW + MW - 1;
   // vring: the lane's ldmatrix row in a ring slot at ring row rg MW, no
   // shift; vtile: its first tile's first voxel in the epilogue tile
-  const int cgs = W / 16, cg = warp % cgs, rg = warp / cgs;
+  const int cgs = TW / 16, cg = warp % cgs, rg = warp / cgs;
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int vring = rg * MW * PW + cg * 16 + lrow;
-  const int vtile = rg * MW * W + cg * 16;
+  const int vtile = rg * MW * TW + cg * 16;
   float ds1[NW][2] = {}, ds2[NW][2] = {};
   const uint32_t sw_u = smem_u32(sw);
 
@@ -446,7 +462,7 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           uint32_t* px = reinterpret_cast<uint32_t*>(
-              xs + swl((vtile + mw * W + g + 8 * h) * UX + nt, UX) + 4 * t);
+              xs + swl((vtile + mw * TW + g + 8 * h) * UX + nt, UX) + 4 * t);
           float o[2];
           if constexpr (FWD) {
             o[0] = acc[mw][nt][2 * h] + n1[0];
@@ -481,12 +497,10 @@ __device__ __forceinline__ void ring_gemm(const RingArgs& p) {
       }
     __syncthreads();
     // the tile to the grid, plane d + 2 into the freed ring slot
-    for (int e = tid; e < M * UX; e += kThreads) {
-      const int v = e / UX, cu = e % UX;
-      *reinterpret_cast<uint4*>(
-          p.out + ((((size_t)b * D + d) * H + h0 + v / W) * W + v % W) * C +
-          z * NS + cu * 8) = *reinterpret_cast<const uint4*>(xs + swl(e, UX));
-    }
+    for (int e = tid; e < M * UX; e += kThreads)
+      *reinterpret_cast<uint4*>(p.out + grid_off(d, e / UX) + z * NS +
+                                (e % UX) * 8) =
+          *reinterpret_cast<const uint4*>(xs + swl(e, UX));
     if (next) rs.put(d + 2, gadj && d + 2 < d1);
     __syncthreads();
   }
@@ -593,7 +607,7 @@ __global__ void __launch_bounds__(kThreads, (WgCfg<C>::kBlocks))
     vg1[e] = stats ? p.gstats[(size_t)b * 2 * C + e] : 0.f;
     vg2[e] = stats ? 2.f * p.gstats[(size_t)b * 2 * C + C + e] : 0.f;
   }
-  Ring<C, true> rs(p, vk1, vk2, ring, b, h0, tid, act);
+  Ring<C, true> rs(p, vk1, vk2, ring, b, h0, 0, tid, act);
 
   // gy (and y) of plane pd's own voxels into g' tile pd & 1 (and sy)
   auto load_g = [&](int pd) {
@@ -768,14 +782,25 @@ auto ring_kernel() {
     return wgrad_mma_kernel<C>;
 }
 
-// Shared memory of a launch at width W (0 for a W the kernel does not
-// take): the forward's and the dgrad's W slice, vectors, epilogue tiles
-// and ring; the wgrad's g' tiles, y stage, vectors and ring.
+// The columns TW of a launch's plane tile at grid width W (0 for a W the
+// kernel does not take): W itself, a multiple of 16 up to kWmax that
+// divides M; for the forward and the dgrad also column tiles of kWmax
+// where kWmax divides W. The wgrad takes whole rows only.
 template <int C, int K>
-size_t ring_smem(int W) {
+int ring_tw(int W) {
   using Cfg = RingCfg<C>;
-  if (W % 16 || W > Cfg::kWmax || Cfg::M % W) return 0;
-  const size_t slot = (size_t)(Cfg::M / W + 2) * (W + 2) * C * 2;
+  if (W % 16) return 0;
+  if (W <= Cfg::kWmax && Cfg::M % W == 0) return W;
+  return K != kWgrad && W % Cfg::kWmax == 0 ? Cfg::kWmax : 0;
+}
+
+// Shared memory of a launch with tiles TW columns wide: the forward's and
+// the dgrad's W slice, vectors, epilogue tiles and ring; the wgrad's g'
+// tiles, y stage, vectors and ring.
+template <int C, int K>
+size_t ring_smem(int TW) {
+  using Cfg = RingCfg<C>;
+  const size_t slot = (size_t)(Cfg::M / TW + 2) * (TW + 2) * C * 2;
   if constexpr (K == kWgrad)
     return 3 * WgCfg<C>::kG + WgCfg<C>::kVec + 3 * slot;
   else
@@ -783,23 +808,25 @@ size_t ring_smem(int W) {
 }
 
 // The launch of one forward, dgrad or wgrad: blocks a (batch element,
-// slice or tap group), with the rows (TH) and planes (DD) a block takes;
-// false for a shape the kernel does not take. The depth ranges are as many
-// as keep the whole grid in one wave of the resident blocks, and for the
-// wgrad no more than keep its partial table (a row of 27 C^2 + C floats a
-// (batch element, blockIdx.x)) within the bytes of the x and gy it
-// reduces.
+// slice or tap group), with the rows (TH), columns (TW) and planes (DD) a
+// block takes; false for a shape the kernel does not take. The depth
+// ranges are as many as keep the whole grid in one wave of the resident
+// blocks, and for the wgrad no more than keep its partial table (a row of
+// 27 C^2 + C floats a (batch element, blockIdx.x)) within the bytes of the
+// x and gy it reduces.
 struct Plan {
-  int gx, TH, DD;
+  int gx, TH, TW, DD;
   size_t smem;
 };
 
 template <int C, int K>
 bool ring_plan(int B, int D, int H, int W, Plan& pl) {
   using Cfg = RingCfg<C>;
-  pl.smem = ring_smem<C, K>(W);
-  if (pl.smem == 0 || pl.smem > (size_t)kSmemMax) return false;
-  pl.TH = Cfg::M / W;
+  pl.TW = ring_tw<C, K>(W);
+  if (pl.TW == 0) return false;
+  pl.smem = ring_smem<C, K>(pl.TW);
+  if (pl.smem > (size_t)kSmemMax) return false;
+  pl.TH = Cfg::M / pl.TW;
   if (H % pl.TH) return false;
   if (cudaFuncSetAttribute(ring_kernel<C, K>(),
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -810,17 +837,17 @@ bool ring_plan(int B, int D, int H, int W, Plan& pl) {
           &per_sm, ring_kernel<C, K>(), kThreads, pl.smem) != cudaSuccess ||
       per_sm < 1)
     return false;
-  const int nht = H / pl.TH;
+  const int tiles = H / pl.TH * (W / pl.TW);
   const int S = K == kWgrad ? WgCfg<C>::Z : C / Cfg::NS;
-  long long nd = per_sm * hopper_host::sm_count() / (B * S * nht);
+  long long nd = per_sm * hopper_host::sm_count() / (B * S * tiles);
   if (K == kWgrad) {
     const long long most =
-        (long long)D * H * W * C / ((long long)WgCfg<C>::L * nht);
+        (long long)D * H * W * C / ((long long)WgCfg<C>::L * tiles);
     nd = nd < most ? nd : most;
   }
   nd = nd < 1 ? 1 : nd > D ? D : nd;
   pl.DD = (int)((D + nd - 1) / nd);
-  pl.gx = nht * ((D + pl.DD - 1) / pl.DD);
+  pl.gx = tiles * ((D + pl.DD - 1) / pl.DD);
   return true;
 }
 
@@ -849,6 +876,7 @@ int ring_launch(RingArgs a, float* sums, int B, int gx, cudaStream_t st) {
   if (!ring_plan<C, K>(B, a.D, a.H, a.W, pl) || pl.gx != gx)
     return (int)cudaErrorInvalidValue;
   a.TH = pl.TH;
+  a.TW = pl.TW;
   a.DD = pl.DD;
   if constexpr (K == kWgrad) {
     wgrad_mma_kernel<C>

@@ -54,14 +54,15 @@ CUDA-core kernels of csrc/conv3d_block.cu, chosen by shape before the
 launch (``_mma_route``).
 
 The 3^3 conv, forward, dgrad and wgrad, runs for Cin = Cout in 8, 16, 32,
-64 on W 16, 32, 64 as implicit GEMMs on one ring of planes
-(csrc/conv3d_dgrad.cu): a plane tile's output is the sum over the 27 taps
-of ring slots of three input planes (``ring_slot``) read at the tap's
-shift, times the packed weights' row (``ring_plane``; ``pack_conv_w`` for
-the forward, ``pack_dgrad_w`` for the dgrad); the wgrad's dW[t] is the
-sum over plane tiles of the forward's ring read at tap t's shift,
-transposed, times the tile's own g', split over tap groups and depth
-ranges into a partial table that one fixed-order pass sums
+64 on W 16, 32, 64 (the forward and the dgrad also on any multiple of 64,
+32 at 64 channels, in column tiles) as implicit GEMMs on one ring of
+planes (csrc/conv3d_dgrad.cu): a plane tile's output is the sum over the
+27 taps of ring slots of three input planes (``ring_slot``) read at the
+tap's shift, times the packed weights' row (``ring_plane``;
+``pack_conv_w`` for the forward, ``pack_dgrad_w`` for the dgrad); the
+wgrad's dW[t] is the sum over plane tiles of the forward's ring read at
+tap t's shift, transposed, times the tile's own g', split over tap groups
+and depth ranges into a partial table that one fixed-order pass sums
 (tests/test_torch_wgrad_layout.py emulates that order). Other shapes take
 conv3d_block.cu's direct kernels (``_conv_route``). The tensor-core
 kernels read the bf16 weights these ``pack_*`` helpers return, so the
@@ -364,17 +365,21 @@ def pack_dgrad_w(w):
     return w.reshape(27, w.shape[3], w.shape[4]).flip(0)
 
 
-def ring_slot(g, b, pd, h0, th):
+def ring_slot(g, b, pd, h0, th, w0=0, tw=None):
     """A ring slot: plane pd of the ring's source (B, D, H, W, C), the
     forward's activated input or the dgrad's g', rows h0 - 1 .. h0 + th and
-    columns -1 .. W as ((th + 2) (W + 2), C), zeros outside the grid (the
-    conv's zero padding). Position v = r (W + 2) + c holds voxel (h0 - 1 +
-    r, c - 1)."""
+    columns w0 - 1 .. w0 + tw (tw = W: the whole rows) as ((th + 2) (tw +
+    2), C), the halo read from the grid's neighbouring rows and columns,
+    zeros outside the grid (the conv's zero padding). Position v = r (tw +
+    2) + c holds voxel (h0 - 1 + r, w0 - 1 + c)."""
     _, d, h, w, c = g.shape
-    out = g.new_zeros((th + 2, w + 2, c))
+    tw = w if tw is None else tw
+    out = g.new_zeros((th + 2, tw + 2, c))
     if 0 <= pd < d:
         lo, hi = max(h0 - 1, 0), min(h0 + th + 1, h)
-        out[lo - h0 + 1:hi - h0 + 1, 1:w + 1] = g[b, pd, lo:hi]
+        left, right = max(w0 - 1, 0), min(w0 + tw + 1, w)
+        out[lo - h0 + 1:hi - h0 + 1, left - w0 + 1:right - w0 + 1] = \
+            g[b, pd, lo:hi, left:right]
     return out.reshape(-1, c)
 
 
@@ -385,21 +390,23 @@ def ring_swizzle(u, units):
     return u ^ ((u >> 3) & (units - 1))
 
 
-def ring_plane(g, wpk, b, d, h0, th):
-    """Rows h0 .. h0 + th of output plane d (th, W, N) of the kernel's GEMM:
-    sum over the taps of the ring slots of planes d - 1, d, d + 1 of the
-    source g read at the tap's shift, times the packed weights' row (the
-    dgrad's da with g' and ``pack_dgrad_w``, the forward's conv with the
-    activated input and ``pack_conv_w``)."""
-    w = g.shape[3]
-    slots = {pd: ring_slot(g, b, pd, h0, th) for pd in (d - 1, d, d + 1)}
+def ring_plane(g, wpk, b, d, h0, th, w0=0, tw=None):
+    """Rows h0 .. h0 + th, columns w0 .. w0 + tw (tw = W: the whole rows)
+    of output plane d (th, tw, N) of the kernel's GEMM: sum over the taps
+    of the ring slots of planes d - 1, d, d + 1 of the source g read at the
+    tap's shift, times the packed weights' row (the dgrad's da with g' and
+    ``pack_dgrad_w``, the forward's conv with the activated input and
+    ``pack_conv_w``)."""
+    tw = g.shape[3] if tw is None else tw
+    slots = {pd: ring_slot(g, b, pd, h0, th, w0, tw)
+             for pd in (d - 1, d, d + 1)}
     r = torch.arange(th)[:, None]
-    c = torch.arange(w)[None, :]
+    c = torch.arange(tw)[None, :]
     da = 0.0
     for t, (dz, dy, dx) in enumerate(ring_taps()):
-        v = ((r + 1 + dy) * (w + 2) + (c + 1 + dx)).reshape(-1)
+        v = ((r + 1 + dy) * (tw + 2) + (c + 1 + dx)).reshape(-1)
         da = da + slots[d + dz][v] @ wpk[t].t()
-    return da.reshape(th, w, -1)
+    return da.reshape(th, tw, -1)
 
 
 def head_grid2_plain(x, w, bias, scale, shift):
@@ -647,24 +654,40 @@ def up2x_gn_act_cuda(x, w, bias, scale, shift):
     return y, stats
 
 
-# voxels of the implicit GEMM's plane tile, TH rows of all W
-# (csrc/conv3d_dgrad.cu RingCfg::M)
+# voxels of the implicit GEMM's plane tile, TH rows x TW columns, and the
+# widest tile, kWmax columns (csrc/conv3d_dgrad.cu RingCfg::M, ::kWmax)
 _RING_TILE = {8: 256, 16: 256, 32: 256, 64: 128}
+_RING_WMAX = {8: 64, 16: 64, 32: 64, 64: 32}
 
 
-def _conv_route(cin, cout, shape, *grids):
+def ring_tile_width(c, w, wgrad=False):
+    """The columns TW of conv3d_dgrad.cu's plane tile at C channels and
+    grid width W (ring_tw), 0 where it takes no tile: W itself, a multiple
+    of 16 up to kWmax that divides the tile's voxels; for the forward and
+    the dgrad also column tiles of kWmax where kWmax divides W (the wgrad
+    takes whole rows only)."""
+    m, wmax = _RING_TILE[c], _RING_WMAX[c]
+    if w % 16:
+        return 0
+    if w <= wmax and m % w == 0:
+        return w
+    return wmax if not wgrad and w % wmax == 0 else 0
+
+
+def _conv_route(cin, cout, shape, *grids, wgrad=False):
     """True where csrc/conv3d_dgrad.cu's tensor-core implicit GEMMs take a
-    3^3 forward, dgrad or wgrad of a (B, D, H, W, C) grid: Cin = Cout in
-    8, 16, 32, 64 (the JAX fused core's widths), W in 16, 32, 64 (not 64
-    at 64 channels, whose forward ring and W slice would not fit in shared
-    memory), H a multiple of the plane tile's rows and 16-byte aligned
-    grids (their 16-byte copies). One rule for the three, since they walk
-    one ring; other shapes run on conv3d_block.cu's conv_kernel and
-    wgrad_kernel."""
+    3^3 forward or dgrad (``wgrad``: the wgrad) of a (B, D, H, W, C) grid:
+    Cin = Cout in 8, 16, 32, 64 (the JAX fused core's widths), a plane tile
+    at that W (``ring_tile_width``: for the forward and the dgrad W 16, 32,
+    64 (16, 32 at 64 channels) or any multiple of 64 (32), in column tiles;
+    for the wgrad the first set only), H a multiple of the tile's rows and
+    16-byte aligned grids (their 16-byte copies). Other shapes run on
+    conv3d_block.cu's conv_kernel and wgrad_kernel."""
     h, w = shape[2], shape[3]
-    tile = _RING_TILE.get(cin)
-    return (tile is not None and cout == cin and w in (16, 32, 64)
-            and not (cin == 64 and w == 64) and h % (tile // w) == 0
+    if cin not in _RING_TILE or cout != cin:
+        return False
+    tw = ring_tile_width(cin, w, wgrad)
+    return (tw > 0 and h % (_RING_TILE[cin] // tw) == 0
             and all(t is None or t.data_ptr() % 16 == 0 for t in grids))
 
 
@@ -735,9 +758,10 @@ def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
 def conv3x3_wgrad_cuda(x, scale, shift, gy, y, gstats, activate=True):
     """wgrad of the 3^3 block: (dW (3, 3, 3, Cin, Cout), dbias (Cout,)),
     f32; arguments as in ``conv3x3_dgrad_cuda``. The tensor-core split-K
-    GEMM on the forward's ring where ``_conv_route`` takes the shape (a
-    partial table summed in a fixed order: two calls give the same bits),
-    else conv3d_block.cu's wgrad_kernel."""
+    GEMM on the forward's ring where ``_conv_route`` takes the shape for
+    the wgrad (W 16, 32, 64, not 64 at 64 channels; a partial table summed
+    in a fixed order: two calls give the same bits), else
+    conv3d_block.cu's wgrad_kernel."""
     b, d, h, wd, cin = x.shape
     cout = gy.shape[-1]
     _check("x", x, x.shape, torch.bfloat16, x.device)
@@ -747,7 +771,7 @@ def conv3x3_wgrad_cuda(x, scale, shift, gy, y, gstats, activate=True):
     _cotangents(gy, y, gstats, (b, d, h, wd, cout))
     _wgrad_checks("conv3x3_wgrad", x, gy, y)
     if _conv_route(cin, cout, x.shape, x, gy,
-                   y if gstats is not None else None):
+                   y if gstats is not None else None, wgrad=True):
         gx = _ring_grid(2, b, cin, d, h, wd, x.device.index)
         n_dw = 27 * cin * cout
         out = torch.empty(n_dw + cout, dtype=torch.float32, device=x.device)

@@ -68,27 +68,31 @@ def test_pack_conv_w_index_by_index():
         assert torch.equal(pk[t], dg[26 - t].t())
 
 
-def conv_plane(x, w, bias, scale, shift, accum, b, d, h0, th, activate):
-    """The forward's f32 value v (th, W, Cout) of rows h0 .. h0 + th of
-    plane d, at the kernel's rounding points: the ring holds bf16(relu(x
-    scale + shift)) (x without the activation, zeros outside the grid),
-    the GEMM takes the bf16 ``pack_conv_w``, then + bias and + accum in
-    f32; y = bf16(v) and the stats are (sum v, sum v^2)."""
+def conv_plane(x, w, bias, scale, shift, accum, b, d, h0, th, activate,
+               w0=0, tw=None):
+    """The forward's f32 value v (th, tw, Cout) of rows h0 .. h0 + th and
+    columns w0 .. w0 + tw (tw = W: whole rows) of plane d, at the kernel's
+    rounding points: the ring holds bf16(relu(x scale + shift)) (x without
+    the activation, zeros outside the grid), the GEMM takes the bf16
+    ``pack_conv_w``, then + bias and + accum in f32; y = bf16(v) and the
+    stats are (sum v, sum v^2)."""
+    tw = x.shape[3] if tw is None else tw
     a = tcb._prologue(x, scale, shift, activate)
-    v = tcb.ring_plane(a, tcb._wq(tcb.pack_conv_w(w)), b, d, h0, th)
+    v = tcb.ring_plane(a, tcb._wq(tcb.pack_conv_w(w)), b, d, h0, th, w0, tw)
     v = v + bias.float()
     if accum is not None:
-        v = v + accum[b, d, h0:h0 + th].float()
+        v = v + accum[b, d, h0:h0 + th, w0:w0 + tw].float()
     return v
 
 
-def _conv_by_planes(x, w, bias, scale, shift, accum, th, activate):
+def _conv_by_planes(x, w, bias, scale, shift, accum, th, tw, activate):
     """(y bf16, stats (B, 2, C)) as the kernel forms them: every plane
-    tile's f32 v from ``conv_plane``."""
-    b, d, h = x.shape[:3]
+    tile's f32 v from ``conv_plane``, th rows x tw columns."""
+    b, d, h, wd = x.shape[:4]
     v = torch.stack([torch.stack([
-        torch.cat([conv_plane(x, w, bias, scale, shift, accum, bi, di, h0,
-                              th, activate)
+        torch.cat([torch.cat([conv_plane(x, w, bias, scale, shift, accum, bi,
+                                         di, h0, th, activate, w0, tw)
+                              for w0 in range(0, wd, tw)], dim=1)
                    for h0 in range(0, h, th)]) for di in range(d)])
         for bi in range(b)])
     stats = torch.stack([v.sum(dim=(1, 2, 3)), v.square().sum(dim=(1, 2, 3))],
@@ -96,16 +100,21 @@ def _conv_by_planes(x, w, bias, scale, shift, accum, th, activate):
     return v.to(torch.bfloat16), stats
 
 
-# (C, (D, H, W), rows a tile): JAX's packing needs W a multiple of 128 / C
-SHAPES = [(8, (3, 4, 16), 2), (16, (3, 4, 16), 4), (32, (4, 4, 8), 2)]
+# (C, (D, H, W), rows a tile): JAX's packing needs W a multiple of 128 / C.
+# A tile takes min(W, kWmax) columns: W 128 at 16 channels and W 64 at 64
+# are two column tiles a row (B1), so the halo of an inner tile edge is
+# read from the neighbouring tile's columns
+SHAPES = [(8, (3, 4, 16), 2), (16, (3, 4, 16), 4), (32, (4, 4, 8), 2),
+          (16, (2, 8, 128), 4), (64, (2, 8, 64), 4)]
 
 
 @pytest.mark.parametrize("c,dhw,th", SHAPES)
 @pytest.mark.parametrize("case", ["act", "accum", "stem", "no-stats"])
 def test_implicit_gemm_forward_matches_plain_and_jax(c, dhw, th, case):
     rng = np.random.default_rng(70 + c)
-    b = 2
     d, h, w = dhw
+    tw = min(w, tcb._RING_WMAX[c])
+    b = 2 if tw == w else 1
     x = _bf16(rng.normal(size=(b, *dhw, c)))
     bound = np.sqrt(6.0 / (27 * c))
     wt = rng.uniform(-bound, bound, size=(3, 3, 3, c, c)).astype(np.float32)
@@ -129,7 +138,7 @@ def test_implicit_gemm_forward_matches_plain_and_jax(c, dhw, th, case):
 
     targs = (_t(x, torch.bfloat16), _t(wt), _t(bias), _t(scale), _t(shift),
              None if accum is None else _t(accum, torch.bfloat16))
-    y, stats = _conv_by_planes(*targs, th, activate)
+    y, stats = _conv_by_planes(*targs, th, tw, activate)
     y_p, stats_p = tcb.conv3x3_gn_act_plain(
         *targs, activate=activate, want_stats=want_stats)
     assert y.shape == y_p.shape == (b, *dhw, c)
@@ -157,14 +166,15 @@ class _FakeLibrary:
 
 
 @pytest.mark.parametrize("w,entry", [(16, "pcseg_conv3x3_mma"),
-                                     (8, "pcseg_conv3x3_gn_act")])
+                                     (8, "pcseg_conv3x3_gn_act"),
+                                     (128, "pcseg_conv3x3_mma")])
 @pytest.mark.parametrize("case", ["act", "accum", "stem", "no-stats"])
 def test_conv3x3_launches_the_kernel_its_route_names(monkeypatch, w, entry,
                                                      case):
     """conv3x3_gn_act_cuda launches conv3d_dgrad.cu's implicit GEMM exactly
-    where ``_conv_route`` takes the shape (W 16), else conv3d_block.cu's
-    direct kernel (W 8), in every variant, and counts the launch under its
-    keys."""
+    where ``_conv_route`` takes the shape (W 16, and W 128 in column
+    tiles), else conv3d_block.cu's direct kernel (W 8), in every variant,
+    and counts the launch under its keys."""
     calls = []
     monkeypatch.setattr(tcb, "load_library",
                         lambda name=None: _FakeLibrary(calls))

@@ -67,8 +67,10 @@ def _same_bits(got, again):
 
 # (B, grid, C, variant): row 1's launches on the bench forward (the four
 # variants at 64^3 x 16, three at 32^3 x 32, "act" at 16^3 x 64), C 8
-# (m16n8k8), and non-cubic grids (planes in ranges of unequal length; the
-# other W of each width)
+# (m16n8k8), non-cubic grids (planes in ranges of unequal length; the
+# other W of each width), and the column-tiled widths: the 128^3 step's
+# level 0, the 256^3 step's three levels (W 256 at 16 channels, 128 at
+# 32, 64 at 64) and three tiles a row (W 192 at 8 channels)
 CONV_CASES = [
     (8, (64, 64, 64), 16, "act"), (8, (64, 64, 64), 16, "accum"),
     (8, (64, 64, 64), 16, "stem"), (8, (64, 64, 64), 16, "no-stats"),
@@ -77,6 +79,10 @@ CONV_CASES = [
     (2, (8, 16, 16), 8, "act"), (1, (7, 8, 32), 32, "accum"),
     (2, (6, 8, 32), 64, "accum"), (2, (5, 8, 64), 8, "no-stats"),
     (2, (9, 16, 32), 16, "stem"),
+    (1, (128, 128, 128), 16, "act"), (1, (128, 128, 128), 16, "accum"),
+    (1, (4, 256, 256), 16, "no-stats"), (1, (8, 128, 128), 32, "stem"),
+    (1, (64, 64, 64), 64, "act"), (1, (6, 64, 64), 64, "accum"),
+    (1, (4, 16, 192), 8, "act"),
 ]
 
 

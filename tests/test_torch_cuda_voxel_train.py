@@ -64,9 +64,14 @@ def _sum_close(got, ref):
 
 
 @pytest.mark.parametrize("case", ["act", "act+accum", "stem", "no-stats"])
-@pytest.mark.parametrize("r,c", [(16, 16), (8, 32), (8, 64)])
+@pytest.mark.parametrize("r,c", [(16, 16), (8, 32), (8, 64), (128, 16),
+                                 (64, 64)])
 def test_conv3x3_dgrad_wgrad_kernels(gen, case, r, c):
-    x, w, bias, scale, shift = _inputs(gen, 2, r, c, c, 3)
+    """Rows 2 and 3 against their plain versions in each variant, B2; B1
+    at the column-tiled shapes (128^3 x 16, the 128^3 step's level 0, and
+    64^3 x 64), where the dgrad takes the ring and the wgrad
+    wgrad_kernel."""
+    x, w, bias, scale, shift = _inputs(gen, 1 if r >= 64 else 2, r, c, c, 3)
     activate = case != "stem"
     y, _ = cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift,
                                   activate=activate)
@@ -170,7 +175,10 @@ def _same_bits(got, again):
 # (the five variants' three kinds at 64^3 x 16 and 32^3 x 32, "act" at
 # 16^3 x 64), C 8 (m16n8k8), the stem's variant without the activation,
 # non-cubic grids (planes in ranges of unequal length; the other W of
-# each width: 64 channels at W 32, 8 at W 64, 16 at W 32)
+# each width: 64 channels at W 32, 8 at W 64, 16 at W 32), and the
+# column-tiled widths: the 128^3 step's level 0, the 256^3 step's three
+# levels (W 256 at 16 channels, 128 at 32, 64 at 64) and three tiles a row
+# (W 192 at 8 channels)
 DGRAD_CASES = [
     (8, (64, 64, 64), 16, "act"), (8, (64, 64, 64), 16, "accum"),
     (8, (64, 64, 64), 16, "no-stats"), (8, (32, 32, 32), 32, "act"),
@@ -179,6 +187,10 @@ DGRAD_CASES = [
     (2, (16, 16, 16), 16, "stem"), (1, (7, 8, 32), 32, "accum"),
     (2, (6, 8, 32), 64, "accum"), (2, (5, 8, 64), 8, "no-stats"),
     (2, (9, 16, 32), 16, "act"),
+    (1, (128, 128, 128), 16, "act"), (1, (128, 128, 128), 16, "accum"),
+    (1, (4, 256, 256), 16, "no-stats"), (1, (8, 128, 128), 32, "act"),
+    (1, (64, 64, 64), 64, "act"), (1, (6, 64, 64), 64, "accum"),
+    (1, (4, 16, 192), 8, "stem"),
 ]
 
 

@@ -85,21 +85,26 @@ def test_taps_and_packed_weights_index_by_index():
 
 
 def test_ring_slot_index_map():
-    """Position r (W + 2) + c of the slot of plane pd is voxel (h0 - 1 + r,
-    c - 1) of that plane, zero outside the grid (and for planes outside)."""
+    """Position r (tw + 2) + c of the slot of plane pd is voxel (h0 - 1 +
+    r, w0 - 1 + c) of that plane, zero outside the grid (and for planes
+    outside): whole rows (tw = W), and column tiles whose halo at an inner
+    edge holds the neighbouring tile's columns."""
     rng = np.random.default_rng(1)
     g = _t(rng.normal(size=(2, 3, 6, 8, 4)))
     _, d, h, w, c = g.shape
     for pd in (-1, 0, 2, 3):
         for h0, th in ((0, 2), (2, 2), (4, 2), (0, 6)):
-            slot = tcb.ring_slot(g, 1, pd, h0, th)
-            assert slot.shape == ((th + 2) * (w + 2), c)
-            for r in range(th + 2):
-                for cc in range(w + 2):
-                    hh, ww = h0 - 1 + r, cc - 1
-                    inside = 0 <= pd < d and 0 <= hh < h and 0 <= ww < w
-                    want = g[1, pd, hh, ww] if inside else torch.zeros(c)
-                    assert torch.equal(slot[r * (w + 2) + cc], want)
+            for w0, tw in ((0, w), (0, 4), (4, 4), (2, 2)):
+                slot = tcb.ring_slot(g, 1, pd, h0, th, w0, tw)
+                assert slot.shape == ((th + 2) * (tw + 2), c)
+                for r in range(th + 2):
+                    for cc in range(tw + 2):
+                        hh, ww = h0 - 1 + r, w0 - 1 + cc
+                        inside = (0 <= pd < d and 0 <= hh < h
+                                  and 0 <= ww < w)
+                        want = (g[1, pd, hh, ww] if inside
+                                else torch.zeros(c))
+                        assert torch.equal(slot[r * (tw + 2) + cc], want)
 
 
 @pytest.mark.parametrize("units", [1, 2, 4, 8])
@@ -118,16 +123,21 @@ def test_ring_swizzle_is_conflict_free_at_every_shift(units):
             assert len(groups) == 8, (v0, j)
 
 
-# (C, (D, H, W), rows a tile): JAX's packing needs W a multiple of 128 / C
-SHAPES = [(8, (3, 4, 16), 2), (16, (3, 4, 16), 4), (32, (4, 4, 8), 2)]
+# (C, (D, H, W), rows a tile): JAX's packing needs W a multiple of 128 / C.
+# A tile takes min(W, kWmax) columns: W 128 at 16 channels and W 64 at 64
+# are two column tiles a row (B1), so the halo of an inner tile edge is
+# read from the neighbouring tile's columns
+SHAPES = [(8, (3, 4, 16), 2), (16, (3, 4, 16), 4), (32, (4, 4, 8), 2),
+          (16, (2, 8, 128), 4), (64, (2, 8, 64), 4)]
 
 
 @pytest.mark.parametrize("c,dhw,th", SHAPES)
 @pytest.mark.parametrize("case", ["act", "accum", "no-stats"])
 def test_implicit_gemm_matches_plain_and_jax_vjp(c, dhw, th, case):
     rng = np.random.default_rng(30 + c)
-    b = 2
     d, h, w = dhw
+    cols = min(w, tcb._RING_WMAX[c])
+    b = 2 if cols == w else 1
     x = _bf16(rng.normal(size=(b, *dhw, c)))
     bound = np.sqrt(6.0 / (27 * c))
     wt = rng.uniform(-bound, bound, size=(3, 3, 3, c, c)).astype(np.float32)
@@ -172,7 +182,9 @@ def test_implicit_gemm_matches_plain_and_jax_vjp(c, dhw, th, case):
     gp = tcb._gprime(tgy, ty, tgs, "3x3").to(torch.bfloat16)
     wpk = tcb.pack_dgrad_w(tcb._wq(tw))
     da = torch.stack([torch.stack([
-        torch.cat([tcb.ring_plane(gp.float(), wpk, bi, di, h0, th)
+        torch.cat([torch.cat([tcb.ring_plane(gp.float(), wpk, bi, di, h0, th,
+                                             w0, cols)
+                              for w0 in range(0, w, cols)], dim=1)
                    for h0 in range(0, h, th)]) for di in range(d)])
         for bi in range(b)])
     dx, dstats = tcb._act_grad(da, tx, tsc, tsh, True)
@@ -190,17 +202,35 @@ def test_implicit_gemm_matches_plain_and_jax_vjp(c, dhw, th, case):
 @pytest.mark.parametrize("cin,cout,dhw,route", [
     (16, 16, (64, 64, 64), True), (32, 32, (32, 32, 32), True),
     (64, 64, (16, 16, 16), True), (8, 8, (8, 16, 16), True),
-    (64, 64, (8, 8, 64), False), (16, 32, (8, 8, 16), False),
+    (64, 64, (8, 8, 64), True), (16, 32, (8, 8, 16), False),
     (24, 24, (8, 8, 16), False), (16, 16, (8, 8, 8), False),
-    (16, 16, (8, 6, 64), False), (16, 16, (8, 16, 48), False)])
+    (16, 16, (8, 6, 64), False), (16, 16, (8, 16, 48), False),
+    (16, 16, (4, 128, 128), True), (16, 16, (4, 256, 256), True),
+    (32, 32, (4, 128, 128), True), (64, 64, (4, 64, 64), True),
+    (8, 8, (4, 8, 192), True), (16, 16, (4, 6, 128), False),
+    (16, 16, (4, 8, 96), False), (64, 64, (4, 8, 48), False)])
 def test_dgrad_route_is_declared_by_shape(cin, cout, dhw, route):
-    """conv3d_dgrad.cu takes Cin = Cout in 8..64 with W in 16, 32, 64 (not
-    64 at 64 channels) and H a multiple of the plane tile's rows, for the
-    dgrad and the forward alike (one kernel template, one rule:
-    ``_conv_route``); every other shape the wrappers accept stays on
-    conv3d_block.cu's kernel."""
+    """conv3d_dgrad.cu takes Cin = Cout in 8..64 with W in 16, 32, 64 (16,
+    32 at 64 channels) or any multiple of 64 (32 at 64 channels, in column
+    tiles) and H a multiple of the plane tile's rows, for the dgrad and the
+    forward alike (one kernel template, one rule: ``_conv_route``); every
+    other shape the wrappers accept stays on conv3d_block.cu's kernel."""
     x = torch.zeros(1, *dhw, cin, dtype=torch.bfloat16)
     assert tcb._conv_route(cin, cout, x.shape, x) is route
+
+
+@pytest.mark.parametrize("c,dhw,wgrad", [
+    (16, (64, 64, 64), True), (32, (32, 32, 32), True),
+    (64, (16, 16, 16), True), (8, (8, 16, 64), True),
+    (16, (4, 128, 128), False), (16, (4, 256, 256), False),
+    (32, (4, 128, 128), False), (64, (4, 64, 64), False)])
+def test_wgrad_route_keeps_whole_rows(c, dhw, wgrad):
+    """The wgrad's route stays W 16, 32, 64 (16, 32 at 64 channels): at W
+    128 and 256 (and 64 at 64 channels), where the forward and the dgrad
+    take column tiles, it stays on conv3d_block.cu's wgrad_kernel."""
+    x = torch.zeros(1, *dhw, c, dtype=torch.bfloat16)
+    assert tcb._conv_route(c, c, x.shape, x)
+    assert tcb._conv_route(c, c, x.shape, x, wgrad=True) is wgrad
 
 
 def _dgrad_cfg(c):
@@ -225,20 +255,24 @@ def _dgrad_cfg(c):
 
 @pytest.mark.parametrize("c", [8, 16, 32, 64])
 def test_dgrad_tile_table_matches_the_kernel(c):
-    """``_RING_TILE`` and ``_conv_route``'s W set restate what
-    conv3d_dgrad.cu's ring_plan takes (RingCfg<C>::M voxels a plane
-    tile; W a multiple of 16 up to kWmax that divides M; the ring, W, the
-    x tiles and the vectors within kSmemMax): the same at every W."""
+    """``_RING_TILE``, ``_RING_WMAX`` and ``_conv_route``'s W set restate
+    what conv3d_dgrad.cu's ring_plan takes (RingCfg<C>::M voxels a plane
+    tile of TW columns: W a multiple of 16 up to kWmax that divides M, or
+    for the forward and the dgrad kWmax where kWmax divides W; the ring, W,
+    the x tiles and the vectors within kSmemMax): the same at every W."""
     cfg = _dgrad_cfg(c)
-    m = cfg["M"]
-    assert tcb._RING_TILE[c] == m
-    for w in range(8, 129, 8):
-        kernel = w % 16 == 0 and w <= cfg["kWmax"] and m % w == 0
-        if kernel:
-            slot = (m // w + 2) * (w + 2) * c * 2
+    m, wmax = cfg["M"], cfg["kWmax"]
+    assert tcb._RING_TILE[c] == m and tcb._RING_WMAX[c] == wmax
+    for w in range(8, 257, 8):
+        whole = w % 16 == 0 and w <= wmax and m % w == 0
+        tw = w if whole else wmax if w % wmax == 0 else 0
+        if tw:
+            slot = (m // tw + 2) * (tw + 2) * c * 2
             smem = cfg["kW"] + cfg["kVec"] + 2 * cfg["kX"] + 3 * slot
             assert smem <= cfg["kSmemMax"], (c, w, smem)
-        assert tcb._conv_route(c, c, (1, 2, m, w, c)) is kernel, (c, w)
+        assert tcb.ring_tile_width(c, w) == tw, (c, w)
+        assert tcb._conv_route(c, c, (1, 2, m, w, c)) is bool(tw), (c, w)
+        assert tcb._conv_route(c, c, (1, 2, m, w, c), wgrad=True) is whole
 
 
 def test_dgrad_route_needs_16_byte_aligned_grids():
@@ -265,11 +299,13 @@ class _FakeLibrary:
 
 
 @pytest.mark.parametrize("w,entry", [(16, "pcseg_conv3x3_dgrad_mma"),
-                                     (8, "pcseg_conv3x3_dgrad")])
+                                     (8, "pcseg_conv3x3_dgrad"),
+                                     (128, "pcseg_conv3x3_dgrad_mma")])
 def test_dgrad_launches_the_kernel_its_route_names(monkeypatch, w, entry):
     """conv3x3_dgrad_cuda launches conv3d_dgrad.cu's implicit GEMM exactly
-    where ``_conv_route`` takes the shape (W 16), else conv3d_block.cu's
-    direct kernel (W 8), and counts the launch under its keys."""
+    where ``_conv_route`` takes the shape (W 16, and W 128 in column
+    tiles), else conv3d_block.cu's direct kernel (W 8), and counts the
+    launch under its keys."""
     calls = []
     monkeypatch.setattr(tcb, "load_library",
                         lambda name=None: _FakeLibrary(calls))

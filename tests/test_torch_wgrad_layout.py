@@ -271,14 +271,14 @@ def test_wgrad_split_table_matches_the_kernel(c):
     tap groups; a warp keeps at most 128 f32 accumulators; a table row is
     the 27 C^2 + C floats the wrapper allocates; and the wgrad's shared
     memory (two g' tiles, the y tile, the vectors and the ring) fits at
-    every W ``_conv_route`` takes."""
+    every W ``_conv_route`` takes for the wgrad."""
     env, ring, wg = _wgrad_cfg(c)
     assert WGRAD_SPLIT[c] == (wg["NF"], wg["TPW"], wg["Z"])
     assert wg["TPW"] * wg["MT"] * wg["NT"] * 4 <= 128
     assert wg["FG"] == 8 * wg["TPW"] and wg["L"] == 27 * c * c + c
     assert wg["kG"] == ring["M"] * c * 2 == tcb._RING_TILE[c] * c * 2
     for w in range(16, 129, 16):
-        if not tcb._conv_route(c, c, (1, 2, ring["M"], w, c)):
+        if not tcb._conv_route(c, c, (1, 2, ring["M"], w, c), wgrad=True):
             continue
         slot = (ring["M"] // w + 2) * (w + 2) * c * 2
         smem = 3 * wg["kG"] + wg["kVec"] + 3 * slot
@@ -300,12 +300,15 @@ class _FakeLibrary:
 
 @pytest.mark.parametrize("h,w,entry", [(16, 16, "pcseg_conv3x3_wgrad_mma"),
                                        (16, 8, "pcseg_conv3x3_wgrad"),
-                                       (8, 16, "pcseg_conv3x3_wgrad")])
+                                       (8, 16, "pcseg_conv3x3_wgrad"),
+                                       (16, 128, "pcseg_conv3x3_wgrad")])
 def test_wgrad_launches_the_kernel_its_route_names(monkeypatch, h, w, entry):
     """conv3x3_wgrad_cuda launches conv3d_dgrad.cu's split-K GEMM exactly
-    where ``_conv_route`` takes the shape (W 16 with H a multiple of the
-    plane tile's 16 rows), else conv3d_block.cu's wgrad_kernel (W 8, or H
-    8), and counts the launch under its keys; the tensor-core route
+    where ``_conv_route`` takes the shape for the wgrad (W 16 with H a
+    multiple of the plane tile's 16 rows), else conv3d_block.cu's
+    wgrad_kernel (W 8, or H 8, or W 128, which the forward and the dgrad
+    take in column tiles), and counts the launch under its keys; the
+    tensor-core route
     returns dW and dbias as views of one (27 C^2 + C) buffer."""
     calls = []
     monkeypatch.setattr(tcb, "load_library",
