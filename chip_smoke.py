@@ -183,13 +183,14 @@
    whose convs run off the tensor-core route, and the scatter
    voxelizer's atomics), launches by row (rows 1, 4 and 6 twice the
    no-remat count, rows 2, 3, 5, 7 and 11 the same) and by route (every
-   forward and dgrad on the ring, its route decisions by W and kind), the
+   forward, dgrad and wgrad on the ring, its route decisions by W and
+   kind), the
    memory the step keeps after its forward and its peak, with remat and
    without, and each row's device ms in one profiled remat step beside
    its bound; one launch of rows 1, 2 and 3 at the level-0 shape (B1
-   128^3 x 16) by device time: the ring kernel (row 3: its route,
-   wgrad_kernel), conv3d_block.cu's CUDA-core kernel through its own
-   entry, cuDNN in bf16 and the bound, two calls held bit for bit;
+   128^3 x 16) by device time: the ring kernel, conv3d_block.cu's
+   CUDA-core kernel (conv_kernel, wgrad_kernel) through its own entry,
+   cuDNN in bf16 and the bound, two calls held bit for bit;
    (b) api.fit for 2 epochs of 3 steps with the metrics log and the
    profiler trace (the stages "voxelize", "core", "head", "devoxelize"
    and the kernels in it), and a fresh 1-epoch run resumed from its
@@ -198,9 +199,10 @@
    validation pass, and Predictor serving it; every path's launches held
    to the step's and the forward's counts. Then one 256^3 remat step
    (experiments/bench_256_step.py, B1 x 32,768) through the kernels:
-   finite loss and gradients, launches by row and by route (every forward
-   and dgrad on the ring), peak memory, and its loss and conv-kernel
-   gradients against the plain versions.
+   finite loss and gradients, launches by row and by route (every
+   forward, dgrad and wgrad on the ring), peak memory, its loss and
+   conv-kernel gradients against the plain versions, and the host-clock
+   time of that first step and of a second, warm one.
 21. The data on disk: (a) `python -m pcseg_tpu_torch.cli synth` writes
    10,000 events (the size of the reference's train_xyze_1e4.h5; the
    CLI's defaults, 100-2,000 points, 4 classes) with the port's HDF5
@@ -1509,11 +1511,11 @@ def vox_bwd_cases():
               ("down2x_bwd", "act", 32, 32, 64, {}),
               ("up2x_bwd", "act", 16, 64, 32, {}),
               ("up2x_bwd", "act", 32, 32, 16, {})]
-    # phase 2's column-tiled widths: the dgrad on its ring, the wgrad off
-    # its route (it takes whole rows only)
+    # phase 2's column-tiled widths: the dgrad and the wgrad on the ring
+    # in column tiles
     for dhw, c, kw in COLUMN_TILED:
         cases.append(("conv3x3", "accum" if kw.get("accum") else "act", dhw,
-                      c, c, {**kw, "b": 1, "wgrad_off_route": True}))
+                      c, c, {**kw, "b": 1}))
     # off the tensor-core routes (ops/conv3d_block.py _conv_route,
     # _mma_route): W = 8, and C = 128 with its coarse 256
     cases += [("conv3x3", "accum off-route", 8, 32, 32,
@@ -1596,8 +1598,7 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
     """dgrad and wgrad of one 3^3 block at one shape: two result rows
     (the stem, whose input is data, launches no dgrad: one row). Each
     launch asserts its route: the tensor-core kernels on the route, the
-    CUDA-core ones (conv_kernel, wgrad_kernel<kConv3>) off it (the wgrad's
-    alone with ``wgrad_off_route``)."""
+    CUDA-core ones (conv_kernel, wgrad_kernel<kConv3>) off it."""
     import torch
 
     from pcseg_tpu_torch.ops import conv3d_block as cb
@@ -1620,7 +1621,6 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
     shape = f"B{b} {_dims_str(_dims(r))} {cin}->{cout}"
     rows = []
     off_route = bool(kw.get("off_route"))
-    wgrad_off = off_route or bool(kw.get("wgrad_off_route"))
     if activate:
         dargs = (gy, y, gstats, x, w, scale, shift, activate, want_gadj)
         before = launch_counts()
@@ -1658,7 +1658,7 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
     before = launch_counts()
     wk = cb.conv3x3_wgrad_cuda(*wargs)
     torch.cuda.synchronize()
-    _route_taken("conv3x3_wgrad", before, wgrad_off)
+    _route_taken("conv3x3_wgrad", before, off_route)
     wp = cb.conv3x3_wgrad_plain(*wargs)
     checks = {"dW": _sum_check(wk[0], wp[0]), "dbias": _sum_check(wk[1],
                                                                  wp[1])}
@@ -1673,13 +1673,13 @@ def vox_conv3x3_case(label, r, cin, cout, kw, gen):
         "plain_ms": time_ms(lambda: cb.conv3x3_wgrad_plain(*wargs), iters=3),
         "library_ms": time_ms(library),
     }
-    if not wgrad_off:
+    if not off_route:
         res.update(_mma_report(lambda: cb.conv3x3_wgrad_cuda(*wargs),
                                library, wk))
     nbytes = cot + n * cin * 2 + vec + 27 * cin * cout * 4 + cout * 4
     res["bound_ms"], res["bound_by"] = _bound(nbytes, flops)
     rows.append(_vox_report(res))
-    if not wgrad_off:
+    if not off_route:
         _print_mma(res)
     return rows
 
@@ -4301,9 +4301,7 @@ R128_ROWS = {1: "conv3x3_gn_act", 2: "conv3x3_dgrad", 3: "conv3x3_wgrad",
 R128_FWD_ROWS = (1, 4, 6)
 # api.evaluate on the best checkpoint against that epoch's validation
 # pass: the same weights and batch, but the scatter voxelizer's index_add_
-# and the level-0 wgrad off its tensor-core route (W = 128: wgrad_kernel's
-# float atomics) sum in atomic order, so a bf16 value
-# may round the other way: the loss to VOX_LOSS_REL (the kernels-vs-plain
+# sums in atomic order, so a bf16 value may round the other way: the loss to VOX_LOSS_REL (the kernels-vs-plain
 # limit of phase 8) and the accuracy to 0.1 percentage points (the argmax
 # flips only at near-ties, ARGMAX_AGREE)
 R128_EVAL_ACC_POINTS = 0.1
@@ -4449,16 +4447,16 @@ def _rows(launches) -> dict:
 def _off_route_levels(r, w, levels):
     """The levels whose 3^3 convs ops/conv3d_block.py ``_conv_route``
     leaves to conv3d_block.cu's CUDA-core kernels (float atomics in the
-    stats and dW): for the forward and the dgrad (one rule) and for the
-    wgrad."""
+    stats and dW), under the forward and the dgrad and under the wgrad
+    (one rule for the three)."""
     from pcseg_tpu_torch.ops import conv3d_block as cb
 
     out = {"forward_dgrad": [], "wgrad": []}
     for i in range(levels):
         ri, ci = r >> i, w << i
-        for key, wgrad in (("forward_dgrad", False), ("wgrad", True)):
-            if not cb._conv_route(ci, ci, (1, ri, ri, ri, ci), wgrad=wgrad):
-                out[key].append(f"level {i}: {ri}^3 x {ci}")
+        if not cb._conv_route(ci, ci, (1, ri, ri, ri, ci)):
+            for lv in out.values():
+                lv.append(f"level {i}: {ri}^3 x {ci}")
     return out
 
 
@@ -4468,15 +4466,14 @@ CONV_ROUTE_KEYS = ("conv3x3_gn_act", "conv3x3_mma", "conv3x3_dgrad",
 
 
 def _ring_launches_held(label, launches, off_route):
-    """Every 3^3 forward and dgrad of a step on the ring (their route
-    takes every level), and the wgrad on its own as its route says: raises
-    otherwise. Returns the launches by route."""
+    """Every 3^3 forward, dgrad and wgrad of a step on the ring (their
+    route takes every level): raises otherwise. Returns the launches by
+    route."""
     got = {k: launches[k] for k in CONV_ROUTE_KEYS}
-    if off_route["forward_dgrad"] or \
+    if off_route["forward_dgrad"] or off_route["wgrad"] or \
             got["conv3x3_mma"] != got["conv3x3_gn_act"] or \
             got["conv3x3_dgrad_mma"] != got["conv3x3_dgrad"] or \
-            (got["conv3x3_wgrad_mma"] == got["conv3x3_wgrad"]) != \
-            (not off_route["wgrad"]):
+            got["conv3x3_wgrad_mma"] != got["conv3x3_wgrad"]:
         raise AssertionError(f"{label}: 3^3 launches by route {got}, off "
                              f"the route {off_route}")
     return got
@@ -4484,15 +4481,17 @@ def _ring_launches_held(label, launches, off_route):
 
 def _routes_seen(fn):
     """Runs ``fn`` with ops/conv3d_block.py ``_conv_route``'s decisions
-    counted: "W<w> forward/dgrad" or "W<w> wgrad" -> [on the route, off
-    it]. Returns (fn's result, the counts)."""
+    counted: "W<w> forward/dgrad" or "W<w> wgrad" (by the wrapper that
+    asked) -> [on the route, off it]. Returns (fn's result, the
+    counts)."""
     from pcseg_tpu_torch.ops import conv3d_block as cb
 
     seen: dict = {}
     real = cb._conv_route
 
-    def spy(cin, cout, shape, *grids, wgrad=False):
-        took = real(cin, cout, shape, *grids, wgrad=wgrad)
+    def spy(cin, cout, shape, *grids):
+        took = real(cin, cout, shape, *grids)
+        wgrad = sys._getframe(1).f_code.co_name == "conv3x3_wgrad_cuda"
         key = f"W{shape[3]} {'wgrad' if wgrad else 'forward/dgrad'}"
         seen.setdefault(key, [0, 0])[0 if took else 1] += 1
         return took
@@ -4774,6 +4773,11 @@ def r256_step(card):
     t0 = time.perf_counter()
     lk, gk, launches, mem = _measured_step(model, batch)
     ms_k = (time.perf_counter() - t0) * 1e3
+    # a second, warm step from the same weights and batch (its launches
+    # are the first's)
+    t0 = time.perf_counter()
+    _, _, launches_warm, _ = _measured_step(model, batch)
+    ms_warm = (time.perf_counter() - t0) * 1e3
     finite = bool(torch.isfinite(lk)) and all(
         bool(torch.isfinite(g).all()) for g in gk.values())
     want = {k: VOX_PER_STEP[k] * (2 if row in R128_FWD_ROWS else 1)
@@ -4794,6 +4798,7 @@ def r256_step(card):
            "off_route_levels": off_route,
            "launches_by_route": {k: launches[k] for k in CONV_ROUTE_KEYS},
            "memory": mem, "step_ms_kernels_first": ms_k,
+           "step_ms_kernels_warm": ms_warm,
            "step_ms_plain_first": ms_p, "card": card}
     print(f"  256^3 remat step [{card}]: loss kernels {float(lk):.6f} plain "
           f"{float(lp):.6f} (rel {loss_rel:.2e}), conv-kernel gradient "
@@ -4801,11 +4806,12 @@ def r256_step(card):
           f"{_rows(launches)}, 3^3 by route {res['launches_by_route']}, off "
           f"the route {off_route}; kept {mem['after_forward_gib']:.3f} GiB "
           f"after the forward, peak {mem['peak_gib']:.3f} GiB; first step "
-          f"{ms_k:.0f} ms kernels, {ms_p:.0f} ms plain", flush=True)
+          f"{ms_k:.1f} ms kernels, warm step {ms_warm:.1f} ms, first plain "
+          f"step {ms_p:.0f} ms", flush=True)
     del model
     torch.cuda.empty_cache()
-    if not finite or got != want or loss_rel > VOX_LOSS_REL or \
-            kcos < VOX_KERNEL_COS:
+    if not finite or got != want or launches_warm != launches or \
+            loss_rel > VOX_LOSS_REL or kcos < VOX_KERNEL_COS:
         raise AssertionError(f"256^3 remat step: {res}, launches {got} != "
                              f"{want}")
     _ring_launches_held("256^3 remat step", launches, off_route)
@@ -4815,11 +4821,12 @@ def r256_step(card):
 def r128_level0(card):
     """One launch of rows 1, 2 and 3 at the 128^3 step's level-0 shape
     (B1 128^3 x 16, the "act" variant with the stats cotangent) by device
-    time: the kernel its route takes (rows 1 and 2: the ring; row 3:
-    wgrad_kernel), conv3d_block.cu's CUDA-core kernel through its own
-    entry (rows 1 and 2; its stats and dstats zero fill included), one
-    cuDNN call of the same bf16 conv (TF32 off) and the bound; each held
-    against its plain version, the ring kernels' two calls bit for bit."""
+    time: the kernel its route takes (the ring in column tiles),
+    conv3d_block.cu's CUDA-core kernel through its own entry (conv_kernel
+    and wgrad_kernel; its stats, dstats, dW and dbias zero fill
+    included), one cuDNN call of the same bf16 conv (TF32 off) and the
+    bound; each held against its plain version, the ring kernels' two
+    calls bit for bit."""
     import torch
 
     from pcseg_tpu_torch.ops import conv3d_block as cb
@@ -4856,6 +4863,16 @@ def r128_level0(card):
             "conv3x3_dgrad")
         return dx, dst
 
+    def core_wgrad():
+        dw = torch.zeros((3, 3, 3, c, c), dtype=torch.float32,
+                         device="cuda")
+        db = torch.zeros((c,), dtype=torch.float32, device="cuda")
+        raise_on(lib.pcseg_conv3x3_wgrad(
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            gy.data_ptr(), y.data_ptr(), gstats.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), *dims, 1, stream_of(x)), "conv3x3_wgrad")
+        return dw, db
+
     wl = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2)
     n = x.numel() // c
     flops = 2 * n * 27 * c * c
@@ -4874,7 +4891,7 @@ def r128_level0(card):
             4 * t + wb + vec + 2 * st),
         "conv3x3_wgrad": (
             lambda: cb.conv3x3_wgrad_cuda(*wargs),
-            lambda: cb.conv3x3_wgrad_plain(*wargs), None,
+            lambda: cb.conv3x3_wgrad_plain(*wargs), core_wgrad,
             lambda: _library_bwd(gy, x, wl, 1, 1, False,
                                  [False, True, True]),
             3 * t + vec + st + 27 * c * c * 4 + c * 4),
@@ -4886,13 +4903,16 @@ def r128_level0(card):
         torch.cuda.synchronize()
         ring = launch_counts()[MMA_KEY[name]] - before[MMA_KEY[name]]
         ref = plain()
-        if name == "conv3x3_wgrad":
-            checks = {"dW": _sum_check(got[0], ref[0]),
-                      "dbias": _sum_check(got[1], ref[1])}
-        else:
-            checks = {"out": _bf16_check(got[0], ref[0]),
-                      "sums": _sum_check(got[1], ref[1])}
-        row = {"route": "ring" if ring else "wgrad_kernel",
+
+        def held(g):
+            if name == "conv3x3_wgrad":
+                return {"dW": _sum_check(g[0], ref[0]),
+                        "dbias": _sum_check(g[1], ref[1])}
+            return {"out": _bf16_check(g[0], ref[0]),
+                    "sums": _sum_check(g[1], ref[1])}
+
+        checks = held(got)
+        row = {"route": "ring" if ring else "CUDA cores",
                "max_abs_err": _held(f"{name} 128^3 level 0", checks),
                "device_ms": device_ms(kern), "op_ms": time_ms(kern),
                "library_device_ms": device_ms(library),
@@ -4905,28 +4925,24 @@ def r128_level0(card):
                 for a, b in zip(got, again))
             if not row["repeat_bit_identical"]:
                 raise AssertionError(f"{name} 128^3: two calls differ")
-        if core is not None:
-            cgot = core()
-            torch.cuda.synchronize()
-            row["cuda_core_max_abs_err"] = _held(
-                f"{name} 128^3 CUDA-core kernel",
-                {"out": _bf16_check(cgot[0], ref[0]),
-                 "sums": _sum_check(cgot[1], ref[1])})
-            row["cuda_core_device_ms"] = device_ms(core)
-            row["cuda_core_op_ms"] = time_ms(core)
+        cgot = core()
+        torch.cuda.synchronize()
+        row["cuda_core_max_abs_err"] = _held(
+            f"{name} 128^3 CUDA-core kernel", held(cgot))
+        row["cuda_core_device_ms"] = device_ms(core)
+        row["cuda_core_op_ms"] = time_ms(core)
         out[name] = row
         print(f"  level 0 B1 {r}^3 x {c} {name}: {row['route']} "
               f"{row['device_ms']:.4f} ms device ({row['op_ms']:.4f} op)"
-              + (f", CUDA-core kernel {row['cuda_core_device_ms']:.4f} "
-                 f"({row['cuda_core_op_ms']:.4f})" if core else "")
+              f", CUDA-core kernel {row['cuda_core_device_ms']:.4f} "
+              f"({row['cuda_core_op_ms']:.4f})"
               + f", cuDNN {row['library_device_ms']:.4f} "
               f"({row['library_op_ms']:.4f}), bound {row['bound_ms']:.4f} "
               f"ms ({row['bound_by']}); max|err| {row['max_abs_err']:.3e}"
               + (f"; bit-identical repeat {row['repeat_bit_identical']}"
                  if ring else "") + f" [{card}]", flush=True)
-    if out["conv3x3_gn_act"]["route"] != "ring" or \
-            out["conv3x3_dgrad"]["route"] != "ring":
-        raise AssertionError(f"128^3 level 0: rows 1 and 2 off the ring: "
+    if any(row["route"] != "ring" for row in out.values()):
+        raise AssertionError(f"128^3 level 0: rows 1-3 off the ring: "
                              f"{out}")
     return out
 

@@ -37,9 +37,7 @@
 //   pcseg_conv3x3_wgrad   replaces _wgrad_pallas (_wgrad_kernel, pallas_call
 //                         at :648): dW (3,3,3,Cin,Cout) and dbias, for the
 //                         shapes csrc/conv3d_dgrad.cu's split-K GEMM does
-//                         not take (_conv_route(..., wgrad=True): whole
-//                         rows only, so also W 128 and 256, and W 64 at 64
-//                         channels).
+//                         not take (the forward's rule, _conv_route).
 //   pcseg_down2x_bwd      replaces the bwd of fused_down2x_p
 //                         (_down2x_bwd_kernel, pallas_call at :1353), for
 //                         the widths csrc/resample.cu's one-sweep kernel

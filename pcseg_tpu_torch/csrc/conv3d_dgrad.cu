@@ -92,11 +92,11 @@
 // Shapes: Cin = Cout = C in {8, 16, 32, 64} (the JAX fused core's widths,
 // m16n8k8 at 8 for the forward and dgrad; the wgrad stacks two taps in an
 // m16 tile there) and H a multiple of the tile's rows TH; W in {16, 32,
-// 64} (16, 32 at 64 channels: TW = W) or, for the forward and the dgrad,
-// any multiple of kWmax (column tiles: W 128 and 256 at up to 32
-// channels, 64 and 128 at 64); ops/conv3d_block.py _conv_route states the
-// rule, and every other shape (the wgrad at W > kWmax among them) keeps
-// conv3d_block.cu's conv_kernel and wgrad_kernel.
+// 64} (16, 32 at 64 channels: TW = W) or any multiple of kWmax (column
+// tiles: W 128 and 256 at up to 32 channels, 64 and 128 at 64), one rule
+// for the forward, the dgrad and the wgrad; ops/conv3d_block.py
+// _conv_route states it, and every other shape keeps conv3d_block.cu's
+// conv_kernel and wgrad_kernel.
 //
 // Plain C interface (loaded with ctypes): every entry returns
 // cudaGetLastError() after its launches, or cudaErrorInvalidValue before
@@ -188,8 +188,7 @@ struct RingCfg {
 // activation), or the dgrad's g' = bf16(gy + (gs1 + 2 gs2 y)) (gy itself
 // without the stats cotangent), and with ``own`` writes the g' of the
 // block's own voxels (not the halo) to gadj. The forward, the dgrad and the
-// wgrad (whose ring is the forward's; w0 = 0, TW = W) all fill their ring
-// through it.
+// wgrad (whose ring is the forward's) all fill their ring through it.
 template <int C, bool FWD>
 struct Ring {
   static constexpr int U = C / 8, RPT = RingCfg<C>::RPT;
@@ -565,18 +564,23 @@ struct WgCfg {
 };
 
 // One block: batch element blockIdx.y, tap group blockIdx.z, rows [h0, h0
-// + TH) and planes [d0, d1) by blockIdx.x, walked as the forward walks
-// them. The ring holds the activated input a of planes d - 1, d, d + 1
-// (the forward's prologue, through Ring); gy and y of the block's own
-// voxels of plane d + 1 come by cp.async while plane d's products run, and
-// each thread forms g' = bf16(gy + (gs1 + 2 gs2 y)) in place on the units
-// it copied, adding it to its dbias sums. For each 16 own voxels of a row
-// (a K step) a warp reads g' (voxels x Cout) by ldmatrix.trans once and,
-// for each of its taps, the ring at the tap's shift (voxels x Cin) by
-// ldmatrix.trans, the swizzle keeping both conflict-free. At the end the
-// block writes its dW fragments (and, tap group 0, dbias: its threads'
-// sums in thread order) to row b gridDim.x + blockIdx.x of the table.
-template <int C>
+// + TH), columns [w0, w0 + TW) and planes [d0, d1) by blockIdx.x, in
+// ring_gemm's order (at TW = W the rows' order), walked as the forward
+// walks them. COLS: column tiles; else whole rows, with TW = W and w0 = 0
+// known at compile time, which keeps a register free in the K loop
+// (without it the whole-row launches ran 2.7-3.5 % slower on an H100 80GB
+// HBM3 at 700 W, profile_ring.py). The ring holds the activated input a
+// of planes d - 1, d, d + 1 (the forward's prologue, through Ring); gy
+// and y of the block's own voxels of plane d + 1 come by cp.async while
+// plane d's products run, and each thread forms g' = bf16(gy + (gs1 + 2
+// gs2 y)) in place on the units it copied, adding it to its dbias sums.
+// For each 16 own voxels of a row (a K step) a warp reads g' (voxels x
+// Cout) by ldmatrix.trans once and, for each of its taps, the ring at the
+// tap's shift (voxels x Cin) by ldmatrix.trans, the swizzle keeping both
+// conflict-free. At the end the block writes its dW fragments (and, tap
+// group 0, dbias: its threads' sums in thread order) to row b gridDim.x +
+// blockIdx.x of the table.
+template <int C, bool COLS>
 __global__ void __launch_bounds__(kThreads, (WgCfg<C>::kBlocks))
     wgrad_mma_kernel(const RingArgs p) {
   using Cfg = RingCfg<C>;
@@ -592,11 +596,13 @@ __global__ void __launch_bounds__(kThreads, (WgCfg<C>::kBlocks))
   float* vg2 = vg1 + C;                   // 2 gs2 (exact)
   uint8_t* ring = reinterpret_cast<uint8_t*>(vg2 + C);  // 3 slots
   const int W = p.W, H = p.H, D = p.D, TH = p.TH;
+  const int TW = COLS ? p.TW : W;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int nht = H / TH;
-  const int h0 = (blockIdx.x % nht) * TH;
-  const int d0 = (blockIdx.x / nht) * p.DD;
+  const int nwt = COLS ? W / TW : 1, tiles = H / TH * nwt;
+  const int tile = blockIdx.x % tiles;
+  const int h0 = tile / nwt * TH, w0 = COLS ? tile % nwt * TW : 0;
+  const int d0 = (blockIdx.x / tiles) * p.DD;
   const int d1 = min(D, d0 + p.DD);
   const int b = blockIdx.y, z = blockIdx.z;
   const bool stats = p.gstats != nullptr, act = p.scale != nullptr;
@@ -607,15 +613,16 @@ __global__ void __launch_bounds__(kThreads, (WgCfg<C>::kBlocks))
     vg1[e] = stats ? p.gstats[(size_t)b * 2 * C + e] : 0.f;
     vg2[e] = stats ? 2.f * p.gstats[(size_t)b * 2 * C + C + e] : 0.f;
   }
-  Ring<C, true> rs(p, vk1, vk2, ring, b, h0, 0, tid, act);
+  Ring<C, true> rs(p, vk1, vk2, ring, b, h0, w0, tid, act);
 
-  // gy (and y) of plane pd's own voxels into g' tile pd & 1 (and sy)
+  // gy (and y) of plane pd's own voxels (TH segments of TW at a stride of
+  // W) into g' tile pd & 1 (and sy)
   auto load_g = [&](int pd) {
     const uint32_t gs = smem_u32(sg + (pd & 1) * Wg::kG), ys = smem_u32(sy);
     for (int e = tid; e < M * U; e += kThreads) {
       const int v = e / U;
       const size_t off =
-          ((((size_t)b * D + pd) * H + h0 + v / W) * W + v % W) * C +
+          ((((size_t)b * D + pd) * H + h0 + v / TW) * W + w0 + v % TW) * C +
           (e % U) * 8;
       cp16(gs + swl(e, U), p.tile + off, true);
       if (stats) cp16(ys + swl(e, U), p.y + off, true);
@@ -687,12 +694,12 @@ __global__ void __launch_bounds__(kThreads, (WgCfg<C>::kBlocks))
       const bool live =
           f < Wg::NF && (C == 8 || (d + dz >= 0 && d + dz < D));
       a_slot[j] = live ? rs.slot(d + dz) : 0u;
-      a_off[j] = (1 + dy) * (W + 2) + 1 + dx + lv;
+      a_off[j] = (1 + dy) * (TW + 2) + 1 + dx + lv;
     }
     const uint32_t g_u = smem_u32(sg + (d & 1) * Wg::kG);
     for (int r = 0; r < TH; ++r)
-      for (int cc = 0; cc < W; cc += 16) {
-        const int vb = r * W + cc + bv, vr = r * (W + 2) + cc;
+      for (int cc = 0; cc < TW; cc += 16) {
+        const int vb = r * TW + cc + bv, vr = r * (TW + 2) + cc;
         uint32_t bf[NT][2];
         if constexpr (NT == 1) {
           uint32_t bb[2];
@@ -772,26 +779,27 @@ __global__ void __launch_bounds__(kThreads, (WgCfg<C>::kBlocks))
 
 enum Kind { kDgrad = 0, kFwd = 1, kWgrad = 2 };
 
+// The kernel of a launch; the wgrad's by its tiles (cols: column tiles).
 template <int C, int K>
-auto ring_kernel() {
+auto ring_kernel(bool cols) {
   if constexpr (K == kFwd)
     return conv3x3_mma_kernel<C>;
   else if constexpr (K == kDgrad)
     return dgrad_mma_kernel<C>;
   else
-    return wgrad_mma_kernel<C>;
+    return cols ? wgrad_mma_kernel<C, true> : wgrad_mma_kernel<C, false>;
 }
 
 // The columns TW of a launch's plane tile at grid width W (0 for a W the
 // kernel does not take): W itself, a multiple of 16 up to kWmax that
-// divides M; for the forward and the dgrad also column tiles of kWmax
-// where kWmax divides W. The wgrad takes whole rows only.
-template <int C, int K>
+// divides M; else column tiles of kWmax where kWmax divides W. The same
+// for the forward, the dgrad and the wgrad.
+template <int C>
 int ring_tw(int W) {
   using Cfg = RingCfg<C>;
   if (W % 16) return 0;
   if (W <= Cfg::kWmax && Cfg::M % W == 0) return W;
-  return K != kWgrad && W % Cfg::kWmax == 0 ? Cfg::kWmax : 0;
+  return W % Cfg::kWmax == 0 ? Cfg::kWmax : 0;
 }
 
 // Shared memory of a launch with tiles TW columns wide: the forward's and
@@ -822,19 +830,20 @@ struct Plan {
 template <int C, int K>
 bool ring_plan(int B, int D, int H, int W, Plan& pl) {
   using Cfg = RingCfg<C>;
-  pl.TW = ring_tw<C, K>(W);
+  pl.TW = ring_tw<C>(W);
   if (pl.TW == 0) return false;
   pl.smem = ring_smem<C, K>(pl.TW);
   if (pl.smem > (size_t)kSmemMax) return false;
   pl.TH = Cfg::M / pl.TW;
   if (H % pl.TH) return false;
-  if (cudaFuncSetAttribute(ring_kernel<C, K>(),
+  const auto kernel = ring_kernel<C, K>(pl.TW != W);
+  if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)pl.smem) != cudaSuccess)
     return false;
   int per_sm = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ring_kernel<C, K>(), kThreads, pl.smem) != cudaSuccess ||
+          &per_sm, kernel, kThreads, pl.smem) != cudaSuccess ||
       per_sm < 1)
     return false;
   const int tiles = H / pl.TH * (W / pl.TW);
@@ -879,8 +888,11 @@ int ring_launch(RingArgs a, float* sums, int B, int gx, cudaStream_t st) {
   a.TW = pl.TW;
   a.DD = pl.DD;
   if constexpr (K == kWgrad) {
-    wgrad_mma_kernel<C>
-        <<<dim3(gx, B, WgCfg<C>::Z), kThreads, pl.smem, st>>>(a);
+    const dim3 grid(gx, B, WgCfg<C>::Z);
+    if (pl.TW != a.W)
+      wgrad_mma_kernel<C, true><<<grid, kThreads, pl.smem, st>>>(a);
+    else
+      wgrad_mma_kernel<C, false><<<grid, kThreads, pl.smem, st>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     constexpr long long L = WgCfg<C>::L;

@@ -54,9 +54,9 @@ CUDA-core kernels of csrc/conv3d_block.cu, chosen by shape before the
 launch (``_mma_route``).
 
 The 3^3 conv, forward, dgrad and wgrad, runs for Cin = Cout in 8, 16, 32,
-64 on W 16, 32, 64 (the forward and the dgrad also on any multiple of 64,
-32 at 64 channels, in column tiles) as implicit GEMMs on one ring of
-planes (csrc/conv3d_dgrad.cu): a plane tile's output is the sum over the
+64 on W 16, 32, 64 (16, 32 at 64 channels) and on any multiple of 64 (32
+at 64 channels) in column tiles as implicit GEMMs on one ring of planes
+(csrc/conv3d_dgrad.cu): a plane tile's output is the sum over the
 27 taps of ring slots of three input planes (``ring_slot``) read at the
 tap's shift, times the packed weights' row (``ring_plane``;
 ``pack_conv_w`` for the forward, ``pack_dgrad_w`` for the dgrad); the
@@ -660,33 +660,32 @@ _RING_TILE = {8: 256, 16: 256, 32: 256, 64: 128}
 _RING_WMAX = {8: 64, 16: 64, 32: 64, 64: 32}
 
 
-def ring_tile_width(c, w, wgrad=False):
+def ring_tile_width(c, w):
     """The columns TW of conv3d_dgrad.cu's plane tile at C channels and
     grid width W (ring_tw), 0 where it takes no tile: W itself, a multiple
-    of 16 up to kWmax that divides the tile's voxels; for the forward and
-    the dgrad also column tiles of kWmax where kWmax divides W (the wgrad
-    takes whole rows only)."""
+    of 16 up to kWmax that divides the tile's voxels; else column tiles of
+    kWmax where kWmax divides W."""
     m, wmax = _RING_TILE[c], _RING_WMAX[c]
     if w % 16:
         return 0
     if w <= wmax and m % w == 0:
         return w
-    return wmax if not wgrad and w % wmax == 0 else 0
+    return wmax if w % wmax == 0 else 0
 
 
-def _conv_route(cin, cout, shape, *grids, wgrad=False):
+def _conv_route(cin, cout, shape, *grids):
     """True where csrc/conv3d_dgrad.cu's tensor-core implicit GEMMs take a
-    3^3 forward or dgrad (``wgrad``: the wgrad) of a (B, D, H, W, C) grid:
-    Cin = Cout in 8, 16, 32, 64 (the JAX fused core's widths), a plane tile
-    at that W (``ring_tile_width``: for the forward and the dgrad W 16, 32,
-    64 (16, 32 at 64 channels) or any multiple of 64 (32), in column tiles;
-    for the wgrad the first set only), H a multiple of the tile's rows and
-    16-byte aligned grids (their 16-byte copies). Other shapes run on
-    conv3d_block.cu's conv_kernel and wgrad_kernel."""
+    3^3 forward, dgrad or wgrad of a (B, D, H, W, C) grid (one rule for
+    the three): Cin = Cout in 8, 16, 32, 64 (the JAX fused core's widths),
+    a plane tile at that W (``ring_tile_width``: W 16, 32, 64 (16, 32 at
+    64 channels) or any multiple of 64 (32), in column tiles), H a
+    multiple of the tile's rows and 16-byte aligned grids (their 16-byte
+    copies). Other shapes run on conv3d_block.cu's conv_kernel and
+    wgrad_kernel."""
     h, w = shape[2], shape[3]
     if cin not in _RING_TILE or cout != cin:
         return False
-    tw = ring_tile_width(cin, w, wgrad)
+    tw = ring_tile_width(cin, w)
     return (tw > 0 and h % (_RING_TILE[cin] // tw) == 0
             and all(t is None or t.data_ptr() % 16 == 0 for t in grids))
 
@@ -758,10 +757,10 @@ def conv3x3_dgrad_cuda(gy, y, gstats, x, w, scale, shift, activate=True,
 def conv3x3_wgrad_cuda(x, scale, shift, gy, y, gstats, activate=True):
     """wgrad of the 3^3 block: (dW (3, 3, 3, Cin, Cout), dbias (Cout,)),
     f32; arguments as in ``conv3x3_dgrad_cuda``. The tensor-core split-K
-    GEMM on the forward's ring where ``_conv_route`` takes the shape for
-    the wgrad (W 16, 32, 64, not 64 at 64 channels; a partial table summed
-    in a fixed order: two calls give the same bits), else
-    conv3d_block.cu's wgrad_kernel."""
+    GEMM on the forward's ring where ``_conv_route`` takes the shape (the
+    forward's rule: whole rows or column tiles; a partial table summed in
+    a fixed order: two calls give the same bits), else conv3d_block.cu's
+    wgrad_kernel."""
     b, d, h, wd, cin = x.shape
     cout = gy.shape[-1]
     _check("x", x, x.shape, torch.bfloat16, x.device)
@@ -771,7 +770,7 @@ def conv3x3_wgrad_cuda(x, scale, shift, gy, y, gstats, activate=True):
     _cotangents(gy, y, gstats, (b, d, h, wd, cout))
     _wgrad_checks("conv3x3_wgrad", x, gy, y)
     if _conv_route(cin, cout, x.shape, x, gy,
-                   y if gstats is not None else None, wgrad=True):
+                   y if gstats is not None else None):
         gx = _ring_grid(2, b, cin, d, h, wd, x.device.index)
         n_dw = 27 * cin * cout
         out = torch.empty(n_dw + cout, dtype=torch.float32, device=x.device)

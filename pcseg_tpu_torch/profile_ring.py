@@ -8,9 +8,8 @@ Shapes ("act": the activation, the stats and their cotangent): the 64^3
 step's three levels at B8 (64^3 x 16, 32^3 x 32, 16^3 x 64), where every
 kernel takes whole rows of the ring (csrc/conv3d_dgrad.cu), and at B1 the
 128^3 step's level 0 (128^3 x 16) and the 256^3 step's three levels
-(256^3 x 16, 128^3 x 32, 64^3 x 64), where the forward and the dgrad take
-column tiles and the wgrad conv3d_block.cu's wgrad_kernel. For each op at
-each shape:
+(256^3 x 16, 128^3 x 32, 64^3 x 64), where all three take column tiles
+of the ring. For each op at each shape:
 
 - the op's device time (torch.profiler, every kernel of the call summed,
   each kernel's share beside it) and its CUDA-event time around

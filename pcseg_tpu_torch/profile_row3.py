@@ -45,7 +45,7 @@ B = 8
 SHAPES = ((64, 16), (32, 32), (16, 64))   # (grid R, channels C)
 
 # the plane loop's lines each variant edits
-_PRODUCTS = "    for (int r = 0; r < TH; ++r)\n      for (int cc = 0; cc < W; cc += 16) {"
+_PRODUCTS = "    for (int r = 0; r < TH; ++r)\n      for (int cc = 0; cc < TW; cc += 16) {"
 _FORMATION = ("    if (next) rs.put(d + 2, false);\n"
               "    if (d + 1 < d1) form_g(d + 1);\n")
 _LOADS = ("    if (next) rs.fetch(d + 2);\n"

@@ -69,8 +69,8 @@ def _sum_close(got, ref):
 def test_conv3x3_dgrad_wgrad_kernels(gen, case, r, c):
     """Rows 2 and 3 against their plain versions in each variant, B2; B1
     at the column-tiled shapes (128^3 x 16, the 128^3 step's level 0, and
-    64^3 x 64), where the dgrad takes the ring and the wgrad
-    wgrad_kernel."""
+    64^3 x 64), where both take the ring in column tiles; W 8 keeps
+    conv3d_block.cu's direct kernels."""
     x, w, bias, scale, shift = _inputs(gen, 1 if r >= 64 else 2, r, c, c, 3)
     activate = case != "stem"
     y, _ = cb.conv3x3_gn_act_cuda(x, w, bias, scale, shift,
@@ -86,6 +86,11 @@ def test_conv3x3_dgrad_wgrad_kernels(gen, case, r, c):
     torch.cuda.synchronize()
     assert cb.LAUNCHES["conv3x3_dgrad"] == before["conv3x3_dgrad"] + 1
     assert cb.LAUNCHES["conv3x3_wgrad"] == before["conv3x3_wgrad"] + 1
+    ring = int(r >= 16)
+    assert (cb.LAUNCHES["conv3x3_dgrad_mma"]
+            == before["conv3x3_dgrad_mma"] + ring)
+    assert (cb.LAUNCHES["conv3x3_wgrad_mma"]
+            == before["conv3x3_wgrad_mma"] + ring)
     dp = cb.conv3x3_dgrad_plain(gy, y, gstats, x, w, scale, shift, activate,
                                 want_gadj)
     wp = cb.conv3x3_wgrad_plain(x, scale, shift, gy, y, gstats, activate)
@@ -247,8 +252,10 @@ def test_conv3x3_dgrad_other_widths_take_the_direct_kernel(gen):
 # (B, grid, C, variant): row 3's shapes on the voxel step's path (its
 # four variants at 64^3 x 16, three at 32^3 x 32, "act" at 16^3 x 64), C 8
 # (two taps an m16 tile), non-cubic grids (depth ranges of unequal length;
-# the other W of each width) and a batch of 3 at 64 channels (four tap
-# groups)
+# the other W of each width), a batch of 3 at 64 channels (four tap
+# groups), and the column-tiled widths at B1 and a few planes: the 128^3
+# step's level 0 (also with accum), the 256^3 step's three levels (W 256 at
+# 16 channels, 128 at 32, 64 at 64) and three tiles a row (W 192 at 8)
 WGRAD_CASES = [
     (8, (64, 64, 64), 16, "act"), (8, (64, 64, 64), 16, "accum"),
     (8, (64, 64, 64), 16, "no-stats"), (8, (64, 64, 64), 16, "stem"),
@@ -257,6 +264,10 @@ WGRAD_CASES = [
     (2, (8, 16, 16), 8, "act"), (2, (5, 8, 64), 8, "stem"),
     (1, (7, 8, 32), 32, "accum"), (2, (6, 8, 32), 64, "no-stats"),
     (2, (9, 16, 32), 16, "act"), (3, (5, 32, 16), 64, "act"),
+    (1, (8, 128, 128), 16, "act"), (1, (8, 128, 128), 16, "accum"),
+    (1, (4, 256, 256), 16, "act"), (1, (8, 128, 128), 32, "act"),
+    (1, (8, 64, 64), 64, "act"), (1, (8, 64, 64), 64, "no-stats"),
+    (1, (4, 8, 192), 8, "stem"),
 ]
 
 
@@ -305,17 +316,19 @@ def test_conv3x3_wgrad_other_widths_take_the_cuda_core_kernel(gen):
     _sum_close(got[1], ref[1])
 
 
-@pytest.mark.parametrize("r,c", [(64, 16), (32, 32), (16, 64)])
-def test_wgrad_partial_table_stays_within_its_operands(gen, r, c):
-    """At the voxel step's shapes the wgrad's partial table (a row of 27
-    C^2 + C floats a (batch element, x block)) is no larger than the x and
-    gy it reduces, unless a block already takes all the planes of its
-    rows."""
-    b = 8
+@pytest.mark.parametrize("b,r,c", [(8, 64, 16), (8, 32, 32), (8, 16, 64),
+                                   (1, 128, 16), (1, 256, 16), (1, 128, 32),
+                                   (1, 64, 64)])
+def test_wgrad_partial_table_stays_within_its_operands(gen, b, r, c):
+    """At the voxel steps' shapes (B8 at 64^3, whole rows; B1 at 128^3 and
+    256^3, column tiles) the wgrad's partial table (a row of 27 C^2 + C
+    floats a (batch element, x block)) is no larger than the x and gy it
+    reduces, unless a block already takes all the planes of its tile."""
     gx = cb._ring_grid(2, b, c, r, r, r, torch.cuda.current_device())
-    nht = r // (cb._RING_TILE[c] // r)
+    tw = cb.ring_tile_width(c, r)
+    tiles = r // (cb._RING_TILE[c] // tw) * (r // tw)
     table = b * gx * (27 * c * c + c) * 4
-    assert table <= 2 * b * r ** 3 * c * 2 or gx == nht, (gx, table)
+    assert table <= 2 * b * r ** 3 * c * 2 or gx == tiles, (gx, table)
 
 
 # (B, fine grid, C, stats): row 5's two shapes on the voxel step's path

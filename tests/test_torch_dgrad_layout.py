@@ -219,18 +219,29 @@ def test_dgrad_route_is_declared_by_shape(cin, cout, dhw, route):
     assert tcb._conv_route(cin, cout, x.shape, x) is route
 
 
-@pytest.mark.parametrize("c,dhw,wgrad", [
-    (16, (64, 64, 64), True), (32, (32, 32, 32), True),
-    (64, (16, 16, 16), True), (8, (8, 16, 64), True),
-    (16, (4, 128, 128), False), (16, (4, 256, 256), False),
-    (32, (4, 128, 128), False), (64, (4, 64, 64), False)])
-def test_wgrad_route_keeps_whole_rows(c, dhw, wgrad):
-    """The wgrad's route stays W 16, 32, 64 (16, 32 at 64 channels): at W
-    128 and 256 (and 64 at 64 channels), where the forward and the dgrad
-    take column tiles, it stays on conv3d_block.cu's wgrad_kernel."""
+@pytest.mark.parametrize("c,dhw,tw", [
+    (16, (64, 64, 64), 64), (32, (32, 32, 32), 32),
+    (64, (16, 16, 16), 16), (8, (8, 16, 64), 64),
+    (16, (4, 128, 128), 64), (16, (4, 256, 256), 64),
+    (32, (4, 128, 128), 64), (64, (4, 64, 64), 32)])
+def test_wgrad_route_is_the_forwards(monkeypatch, c, dhw, tw):
+    """The wgrad takes the forward's and the dgrad's rule: whole rows at W
+    16, 32, 64 (16, 32 at 64 channels) and column tiles of kWmax at W 128
+    and 256 (64 at 64 channels), where conv3x3_wgrad_cuda launches
+    conv3d_dgrad.cu's split-K GEMM and not conv3d_block.cu's
+    wgrad_kernel."""
     x = torch.zeros(1, *dhw, c, dtype=torch.bfloat16)
+    assert tcb.ring_tile_width(c, dhw[2]) == tw
     assert tcb._conv_route(c, c, x.shape, x)
-    assert tcb._conv_route(c, c, x.shape, x, wgrad=True) is wgrad
+    calls = []
+    monkeypatch.setattr(tcb, "load_library",
+                        lambda name=None: _FakeLibrary(calls))
+    monkeypatch.setattr(tcb, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tcb, "_ring_grid", lambda *a: 1)
+    vec = torch.ones(1, c)
+    tcb.conv3x3_wgrad_cuda(x, vec, vec, torch.zeros_like(x), None, None,
+                           True)
+    assert calls == ["pcseg_conv3x3_wgrad_mma"]
 
 
 def _dgrad_cfg(c):
@@ -258,8 +269,9 @@ def test_dgrad_tile_table_matches_the_kernel(c):
     """``_RING_TILE``, ``_RING_WMAX`` and ``_conv_route``'s W set restate
     what conv3d_dgrad.cu's ring_plan takes (RingCfg<C>::M voxels a plane
     tile of TW columns: W a multiple of 16 up to kWmax that divides M, or
-    for the forward and the dgrad kWmax where kWmax divides W; the ring, W,
-    the x tiles and the vectors within kSmemMax): the same at every W."""
+    kWmax where kWmax divides W, for the forward, the dgrad and the wgrad
+    alike; the ring, W, the x tiles and the vectors within kSmemMax): the
+    same at every W."""
     cfg = _dgrad_cfg(c)
     m, wmax = cfg["M"], cfg["kWmax"]
     assert tcb._RING_TILE[c] == m and tcb._RING_WMAX[c] == wmax
@@ -272,7 +284,6 @@ def test_dgrad_tile_table_matches_the_kernel(c):
             assert smem <= cfg["kSmemMax"], (c, w, smem)
         assert tcb.ring_tile_width(c, w) == tw, (c, w)
         assert tcb._conv_route(c, c, (1, 2, m, w, c)) is bool(tw), (c, w)
-        assert tcb._conv_route(c, c, (1, 2, m, w, c), wgrad=True) is whole
 
 
 def test_dgrad_route_needs_16_byte_aligned_grids():

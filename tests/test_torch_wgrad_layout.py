@@ -6,7 +6,9 @@ The kernel keeps dW in its warps' accumulators: each warp of a tap group
 batch element's plane tiles over a depth range (a K range), reading the
 forward's ring of activated planes (``ring_slot``) at every tap's shift
 against the tile's own g' (``_plane_share``), and writes its taps' slice
-of one row of a partial table (tap group 0 also dbias);
+of one row of a partial table (tap group 0 also dbias); a plane tile is
+whole rows or, at W above kWmax, a column tile whose ring reads the
+neighbouring tiles' columns as its halo;
 ``fixed_sum_kernel`` then adds the rows in a fixed order. That order is emulated here plane by
 plane, row by row, and held against ``conv3x3_wgrad_plain`` and the VJP of
 the JAX package's ``fused_conv3x3_p`` / ``fused_conv3x3_add_p`` in
@@ -88,19 +90,20 @@ def _fragments(c, z, warp):
     return taps
 
 
-def _plane_share(a, gp, b, d, h0, th):
+def _plane_share(a, gp, b, d, h0, th, w0, tw):
     """One plane tile's share of the wgrad's GEMM, (27, Cin, Cout): for
     each tap t the ring slot of plane d + dz of the activated input ``a``
     (``ring_slot``) read at the tap's shift over the tile's rows h0 .. h0
-    + th, transposed, times the tile's own g' (``gp`` (B, D, H, W, Cout))."""
-    w = a.shape[3]
-    slots = {pd: tcb.ring_slot(a, b, pd, h0, th) for pd in (d - 1, d, d + 1)}
-    own = gp[b, d, h0:h0 + th].reshape(-1, gp.shape[-1])
+    + th and columns w0 .. w0 + tw, transposed, times the tile's own g'
+    (``gp`` (B, D, H, W, Cout))."""
+    slots = {pd: tcb.ring_slot(a, b, pd, h0, th, w0, tw)
+             for pd in (d - 1, d, d + 1)}
+    own = gp[b, d, h0:h0 + th, w0:w0 + tw].reshape(-1, gp.shape[-1])
     r = torch.arange(th)[:, None]
-    c = torch.arange(w)[None, :]
+    c = torch.arange(tw)[None, :]
     out = []
     for dz, dy, dx in tcb.ring_taps():
-        v = ((r + 1 + dy) * (w + 2) + (c + 1 + dx)).reshape(-1)
+        v = ((r + 1 + dy) * (tw + 2) + (c + 1 + dx)).reshape(-1)
         out.append(slots[d + dz][v].t() @ own)
     return torch.stack(out)
 
@@ -120,25 +123,30 @@ def _fixed_sum(rows):
     return out
 
 
-def _split_k_wgrad(a, gp, c, th, dd):
+def _split_k_wgrad(a, gp, c, th, tw, dd):
     """The kernel's dW and dbias: a table row per (batch element, x block)
-    with x block = (depth range of ``dd`` planes, tile of ``th`` rows), each
-    tap group writing its fragments' taps (each tap exactly once a row) and
+    with x block = (depth range of ``dd`` planes, row tile of ``th`` rows,
+    column tile of ``tw`` columns) in the kernel's order (the tiles row by
+    row, then the depth ranges; at tw = W the row tiles' order), each tap
+    group writing its fragments' taps (each tap exactly once a row) and
     group 0 dbias, the rows summed in fixed_sum_kernel's order, the result
     viewed as the wrapper views it."""
-    b, d, h, _, _ = a.shape
+    b, d, h, w, _ = a.shape
     cout = gp.shape[-1]
-    nht, groups = h // th, WGRAD_SPLIT[c][2]
-    gx = nht * -(-d // dd)
+    nwt, groups = w // tw, WGRAD_SPLIT[c][2]
+    tiles = h // th * nwt
+    gx = tiles * -(-d // dd)
     n_dw = 27 * c * cout
     rows = torch.full((b * gx, n_dw + cout), float("nan"))
     for bi in range(b):
         for bx in range(gx):
-            h0, d0 = (bx % nht) * th, (bx // nht) * dd
+            tile = bx % tiles
+            h0, w0 = tile // nwt * th, tile % nwt * tw
+            d0 = (bx // tiles) * dd
             d1 = min(d, d0 + dd)
             dw = 0.0
             for di in range(d0, d1):
-                dw = dw + _plane_share(a, gp, bi, di, h0, th)
+                dw = dw + _plane_share(a, gp, bi, di, h0, th, w0, tw)
             row = rows[bi * gx + bx]
             for z in range(groups):
                 for warp in range(8):
@@ -146,23 +154,30 @@ def _split_k_wgrad(a, gp, c, th, dd):
                         part = row[t * c * cout:(t + 1) * c * cout]
                         assert torch.isnan(part).all(), (z, warp, t)
                         part.copy_(dw[t].reshape(-1))
-            row[n_dw:] = gp[bi, d0:d1, h0:h0 + th].sum(dim=(0, 1, 2))
+            row[n_dw:] = gp[bi, d0:d1, h0:h0 + th,
+                            w0:w0 + tw].sum(dim=(0, 1, 2))
     assert not torch.isnan(rows).any()
     out = _fixed_sum(rows)
     return out[:n_dw].view(3, 3, 3, c, cout), out[n_dw:]
 
 
 # (C, (D, H, W), rows a tile, planes a depth range): two or more row tiles
-# and depth ranges each; JAX's packing needs W a multiple of 128 / C
+# and depth ranges each; JAX's packing needs W a multiple of 128 / C. A
+# tile takes min(W, kWmax) columns: W 128 at 16 channels and W 64 at 64
+# are two column tiles a row (B1, as tests/test_torch_conv_layout.py and
+# test_torch_dgrad_layout.py take them), so the halo of an inner tile
+# edge is the neighbouring tile's columns
 SHAPES = [(8, (3, 4, 16), 2, 2), (16, (3, 4, 8), 2, 2),
-          (32, (4, 4, 4), 2, 3), (64, (3, 4, 2), 2, 2)]
+          (32, (4, 4, 4), 2, 3), (64, (3, 4, 2), 2, 2),
+          (16, (2, 8, 128), 4, 1), (64, (2, 8, 64), 4, 1)]
 
 
 @pytest.mark.parametrize("c,dhw,th,dd", SHAPES)
 @pytest.mark.parametrize("case", ["act", "accum", "y1 no-stats", "stem"])
 def test_split_k_wgrad_matches_plain_and_jax_vjp(c, dhw, th, dd, case):
     rng = np.random.default_rng(50 + c)
-    b = 2
+    tw = min(dhw[2], tcb._RING_WMAX[c])
+    b = 2 if tw == dhw[2] else 1
     x = _bf16(rng.normal(size=(b, *dhw, c)))
     bound = np.sqrt(6.0 / (27 * c))
     wt = rng.uniform(-bound, bound, size=(3, 3, 3, c, c)).astype(np.float32)
@@ -192,10 +207,10 @@ def test_split_k_wgrad_matches_plain_and_jax_vjp(c, dhw, th, dd, case):
             *a, meta, activate, stats, True, False, activate), xp, *jargs)
         _, jdw, jdb, _, _ = vjp((gyp, _lanes(gstats, c)) if stats else gyp)
 
-    tx, tw = _t(x, torch.bfloat16), _t(wt)
+    tx, tweights = _t(x, torch.bfloat16), _t(wt)
     tsc, tsh = (_t(scale), _t(shift)) if activate else (None, None)
     y, _ = tcb.conv3x3_gn_act_plain(
-        tx, tw, _t(bias), tsc, tsh,
+        tx, tweights, _t(bias), tsc, tsh,
         None if accum is None else _t(accum, torch.bfloat16),
         activate=activate)
     ty, tgs = (y, _t(gstats)) if stats else (None, None)
@@ -203,7 +218,7 @@ def test_split_k_wgrad_matches_plain_and_jax_vjp(c, dhw, th, dd, case):
 
     a = tcb._prologue(tx, tsc, tsh, activate)
     gp = tcb._gprime(tgy, ty, tgs, "3x3").to(torch.bfloat16).float()
-    dw, db = _split_k_wgrad(a, gp, c, th, dd)
+    dw, db = _split_k_wgrad(a, gp, c, th, tw, dd)
 
     pdw, pdb = tcb.conv3x3_wgrad_plain(tx, tsc, tsh, tgy, ty, tgs, activate)
     for (rw, rb), label in (((jdw, jdb), "jax"), ((pdw, pdb), "plain")):
@@ -270,19 +285,24 @@ def test_wgrad_split_table_matches_the_kernel(c):
     """``WGRAD_SPLIT`` restates WgCfg<C>'s fragments, fragments a warp and
     tap groups; a warp keeps at most 128 f32 accumulators; a table row is
     the 27 C^2 + C floats the wrapper allocates; and the wgrad's shared
-    memory (two g' tiles, the y tile, the vectors and the ring) fits at
-    every W ``_conv_route`` takes for the wgrad."""
+    memory (two g' tiles, the y tile, the vectors and the ring of a tile
+    of ``ring_tile_width`` columns) fits at every W ``_conv_route`` takes,
+    whole rows and column tiles (W up to 256)."""
     env, ring, wg = _wgrad_cfg(c)
     assert WGRAD_SPLIT[c] == (wg["NF"], wg["TPW"], wg["Z"])
     assert wg["TPW"] * wg["MT"] * wg["NT"] * 4 <= 128
     assert wg["FG"] == 8 * wg["TPW"] and wg["L"] == 27 * c * c + c
     assert wg["kG"] == ring["M"] * c * 2 == tcb._RING_TILE[c] * c * 2
-    for w in range(16, 129, 16):
-        if not tcb._conv_route(c, c, (1, 2, ring["M"], w, c), wgrad=True):
+    taken = []
+    for w in range(16, 257, 16):
+        if not tcb._conv_route(c, c, (1, 2, ring["M"], w, c)):
             continue
-        slot = (ring["M"] // w + 2) * (w + 2) * c * 2
+        tw = tcb.ring_tile_width(c, w)
+        taken.append(w)
+        slot = (ring["M"] // tw + 2) * (tw + 2) * c * 2
         smem = 3 * wg["kG"] + wg["kVec"] + 3 * slot
         assert smem <= env["kSmemMax"], (c, w, smem)
+    assert {128, 256} <= set(taken), taken
 
 
 class _FakeLibrary:
@@ -301,15 +321,14 @@ class _FakeLibrary:
 @pytest.mark.parametrize("h,w,entry", [(16, 16, "pcseg_conv3x3_wgrad_mma"),
                                        (16, 8, "pcseg_conv3x3_wgrad"),
                                        (8, 16, "pcseg_conv3x3_wgrad"),
-                                       (16, 128, "pcseg_conv3x3_wgrad")])
+                                       (16, 128, "pcseg_conv3x3_wgrad_mma")])
 def test_wgrad_launches_the_kernel_its_route_names(monkeypatch, h, w, entry):
     """conv3x3_wgrad_cuda launches conv3d_dgrad.cu's split-K GEMM exactly
-    where ``_conv_route`` takes the shape for the wgrad (W 16 with H a
-    multiple of the plane tile's 16 rows), else conv3d_block.cu's
-    wgrad_kernel (W 8, or H 8, or W 128, which the forward and the dgrad
-    take in column tiles), and counts the launch under its keys; the
-    tensor-core route
-    returns dW and dbias as views of one (27 C^2 + C) buffer."""
+    where ``_conv_route`` takes the shape (W 16 with H a multiple of the
+    plane tile's 16 rows; W 128 in column tiles of 64, H a multiple of 4),
+    else conv3d_block.cu's wgrad_kernel (W 8, or H 8 at W 16), and counts
+    the launch under its keys; the tensor-core route returns dW and dbias
+    as views of one (27 C^2 + C) buffer."""
     calls = []
     monkeypatch.setattr(tcb, "load_library",
                         lambda name=None: _FakeLibrary(calls))
