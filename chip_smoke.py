@@ -219,7 +219,20 @@
    pass, `cli infer` of event 0 equal to Predictor.predict; (d) `cli
    train` of the default voxel U-Net (64^3/w16/L3 bf16, batch 8, bucket
    8192) for one epoch from a 512-event file, its launches a step and a
-   forward held to phase 12's.
+   forward held to phase 12's; (e) the files users hand the system in
+   the forms h5py writes beside its default, committed under
+   tests/fixtures/hdf5/ (superblock 3 lzf + shuffle on a fixed array,
+   superblock 3 gzip on an extensible array with a super block,
+   superblock 2 lzf on a B-tree, superblock 3 with dense links): every
+   event read by the port's reader equal to the sha256 h5py's read gave
+   (open time and events/s a form), `cli train` of PointNetSeg (as (b),
+   one epoch) from the fixed-array pair, rows 15-17's launches a step
+   held to phase 6's, finite losses, `cli eval` and `cli infer` of that
+   checkpoint on the extensible-array pair (infer equal to
+   Predictor.predict), and voxelize(feature_dim=0, impl="matmul") in
+   bf16 on phase 10's default batch (one launch of row 10, counted)
+   against its plain version and the occupancy channel of the
+   feature_dim=None grid.
 22. SparseVoxelNet's masked-dense and rulebook-gather impls at the sparse
    bench's widths (R64, w64, depth 4, 2 levels, bf16, max_active 8192,
    the same seeded weights), on track events: (a) row 20 at the dense
@@ -3401,7 +3414,7 @@ def impl_kernel_cases(gen):
 
     f32, bf = torch.float32, torch.bfloat16
     pts, mask = _impl_batch()
-    grid = vx.voxelize(pts, mask, SP_R, "matmul", plain=True)
+    grid = vx.voxelize(pts, mask, SP_R, impl="matmul", plain=True)
     a0 = grid.counts > 0
     r1 = SP_R // 2
     a1 = a0.reshape(SP_B, r1, 2, r1, 2, r1, 2).any(6).any(4).any(2)
@@ -5310,7 +5323,157 @@ def files_phase(card):
               f"{out['voxel_fit']['ms_per_step']:.2f} ms/step (first epoch) "
               f"{at()}", flush=True)
     del events, val
-    return pn_launches, vox_launches, out
+    fix_launches, vox0_launches, out["fixtures"] = files_fixtures(card)
+    return pn_launches, vox_launches, fix_launches, vox0_launches, out
+
+
+# (e) the committed fixtures (tests/fixtures/make_hdf5_forms.py): PointNet
+# trains from the superblock-3 lzf + shuffle fixed-array pair (512 events:
+# 7 train steps of 64 and 2 val batches) and is evaluated and served on
+# the extensible-array pair
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "hdf5")
+FIX_TRAIN, FIX_EVAL = ("sb3_lzf_shuffle_fixed_array",
+                       "sb3_gzip_extensible_array")
+FIX_PN = [*FILES_PN[:-2], "train.num_epochs=1", "train.log_every_steps=0"]
+FIX_CKPT = "build/chip_smoke_ckpt_fixtures"
+
+
+def files_fixtures(card):
+    """Phase 21 (e): (e1) every fixture pair through the port's reader,
+    each event's sha256 equal to the manifest's (h5py's read when the
+    fixtures were made), open time and read rate; (e2) ``cli train`` of
+    fused bf16 PointNetSeg for one epoch from the fixed-array pair, rows
+    15-17's launches a step held to phase 6's, finite losses; (e3) ``cli
+    eval`` and ``cli infer`` of its checkpoint on the extensible-array
+    pair; (e4) ``voxelize(feature_dim=0, impl="matmul")`` in bf16 on the
+    default batch: one launch of row 10, held to its plain version and
+    to the occupancy channel of the ``feature_dim=None`` grid. Returns
+    (e2's launches, e4's launches, result)."""
+    import hashlib
+    import math
+
+    import torch
+
+    from pcseg_tpu_torch.data.hdf5 import PointCloudDataset
+    from pcseg_tpu_torch.infer import Predictor
+    from pcseg_tpu_torch.ops import voxel as vx
+
+    out, t_start = {"forms": {}}, time.perf_counter()
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)["forms"]
+    pairs = {name: (os.path.join(FIXTURES, e["data"]),
+                    os.path.join(FIXTURES, e["labels"]))
+             for name, e in manifest.items()}
+
+    # (e1) every form, every event, against h5py's digests
+    for name, entry in manifest.items():
+        t0 = time.perf_counter()
+        with PointCloudDataset(*pairs[name]) as ds:
+            t1 = time.perf_counter()
+            got = [(hashlib.sha256(p.tobytes()).hexdigest(),
+                    hashlib.sha256(y.tobytes()).hexdigest())
+                   for p, y in (ds[i] for i in range(len(ds)))]
+            t2 = time.perf_counter()
+        want = list(zip(entry["points_sha256"], entry["labels_sha256"]))
+        if got != want:
+            bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b) \
+                if len(got) == len(want) else f"count {len(got)}"
+            raise AssertionError(f"fixture {name}: event {bad} differs from "
+                                 "h5py's read")
+        out["forms"][name] = {"form": entry["form"], "events": len(got),
+                              "open_ms": (t1 - t0) * 1e3,
+                              "read_events_per_s": len(got) / (t2 - t1)}
+        print(f"  (e1) {name}: {len(got)} events equal to h5py's digests; "
+              f"open {(t1 - t0) * 1e3:.3f} ms, read "
+              f"{len(got) / (t2 - t1):.0f} events/s [{card}]", flush=True)
+
+    # (e2) cli train from the fixed-array pair
+    metrics = os.path.join(FIX_CKPT, "metrics.jsonl")
+    if os.path.exists(metrics):
+        os.unlink(metrics)
+    data, labels = pairs[FIX_TRAIN]
+    reset_counts()
+    res, _ = _cli(["train", "--data", data, "--labels", labels, *FIX_PN,
+                   f"train.checkpoint_dir={FIX_CKPT}",
+                   f"train.metrics_log={metrics}"])
+    torch.cuda.synchronize()
+    fit_launches = launch_counts()
+    (h,) = [json.loads(ln) for ln in open(metrics)]
+    steps = h["train_steps"]
+    want = {k: PN_FUSED_PER_STEP.get(k, 0) * steps for k in fit_launches}
+    n_train = int(0.8 * manifest[FIX_TRAIN]["events"])
+    if steps != -(-n_train // PN_B) or fit_launches != want:
+        raise AssertionError(f"cli train from {FIX_TRAIN}: {steps} steps, "
+                             f"launches {fit_launches} != {want}")
+    if not (math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])):
+        raise AssertionError(f"cli train from {FIX_TRAIN}: {h}")
+    out["pointnet_fit"] = {
+        "pair": FIX_TRAIN, "steps": steps,
+        "launches_per_step": {k: v / steps for k, v in fit_launches.items()
+                              if v},
+        "train_loss": h["train_loss"], "val_loss": h["val_loss"],
+        "ms_per_step": h["train_seconds"] * 1e3 / steps,
+        "epoch_seconds": h["seconds"]}
+    print(f"  (e2) cli train PointNetSeg fused bf16 B{PN_B} from {FIX_TRAIN} "
+          f"[{card}]: {steps} steps, launches per step "
+          f"{out['pointnet_fit']['launches_per_step']}; train loss "
+          f"{h['train_loss']:.4f}, val loss {h['val_loss']:.4f}; "
+          f"{out['pointnet_fit']['ms_per_step']:.3f} ms/step (first epoch)",
+          flush=True)
+
+    # (e3) cli eval and cli infer on the extensible-array pair
+    data, labels = pairs[FIX_EVAL]
+    ckpt = res["checkpoint"]
+    ev, _ = _cli(["eval", "--checkpoint", ckpt, "--data", data, "--labels",
+                  labels])
+    inf, _ = _cli(["infer", "--checkpoint", ckpt, "--data", data,
+                   "--labels", labels, "--event", "0", "--dump"])
+    with PointCloudDataset(data, labels) as ds:
+        event0 = ds[0][0]
+    if not (math.isfinite(ev["loss"]) and 0 <= ev["accuracy"] <= 100):
+        raise AssertionError(f"cli eval on {FIX_EVAL}: {ev}")
+    if inf["predictions"] != Predictor.from_checkpoint(ckpt).predict(
+            event0).tolist():
+        raise AssertionError(f"cli infer on {FIX_EVAL} disagrees with "
+                             "Predictor")
+    out["eval"] = {"pair": FIX_EVAL, "loss": ev["loss"],
+                   "accuracy": ev["accuracy"],
+                   "infer_points": inf["num_points"]}
+    print(f"  (e3) cli eval on {FIX_EVAL}: loss {ev['loss']:.6f}, accuracy "
+          f"{ev['accuracy']:.3f} %; cli infer event 0 ({inf['num_points']} "
+          f"points) equal to Predictor.predict [{card}]", flush=True)
+
+    # (e4) row 10 on C + 1 = 2 columns: voxelize with feature_dim 0
+    points, mask = default_batch()
+    reset_counts()
+    grid = vx.voxelize(points, mask, VOX_R, 0, impl="matmul")
+    torch.cuda.synchronize()
+    vox0_launches = launch_counts()
+    plain = vx.voxelize(points, mask, VOX_R, 0, impl="matmul", plain=True)
+    full = vx.voxelize(points, mask, VOX_R, impl="matmul")
+    err = float((grid.features - plain.features).abs().max())
+    checks = {
+        "vs plain": (err, err <= ONEHOT_TOL and tuple(grid.features.shape)
+                     == (VOX_B, VOX_R, VOX_R, VOX_R, 1)),
+        "counts": (0.0, torch.equal(grid.counts, plain.counts)),
+        "occupancy": (0.0, torch.equal(grid.features[..., 0],
+                                       full.features[..., -1])),
+        "one launch": (0.0, {k: v for k, v in vox0_launches.items() if v}
+                       == {"voxelize_contract": 1})}
+    _held("voxelize feature_dim=0", checks)
+    out["voxelize_feature_dim0"] = {
+        "shape": f"B{VOX_B} M{VOX_M} -> {VOX_R}^3x2", "max_abs_err": err,
+        "launches": vox0_launches["voxelize_contract"]}
+    print(f"  (e4) voxelize feature_dim=0 matmul bf16 B{VOX_B} x {VOX_M} -> "
+          f"{VOX_R}^3 (row 10 on 2 columns): one launch, max|err| {err:.3e} "
+          f"vs plain, occupancy equal to the full grid's [{card}]",
+          flush=True)
+    del points, mask, grid, plain, full
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  (e) done in {out['seconds']:.1f} s", flush=True)
+    return fit_launches, vox0_launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -5713,7 +5876,7 @@ def main() -> int:
                           "r256_step": r256_step(card)}))
         return 0
     if sys.argv[1:2] == ["--files"]:
-        print(json.dumps({"card": card, "files": files_phase(card)[2]}))
+        print(json.dumps({"card": card, "files": files_phase(card)[-1]}))
         return 0
     if sys.argv[1:2] == ["--sparse-impls"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5870,9 +6033,10 @@ def main() -> int:
 
     print(f"[21] the data on disk: cli synth of {FILES_EVENTS} events, cli "
           f"train / eval / infer from the files (PointNetSeg, then the "
-          f"default voxel U-Net), prefetch and the native packer [{card}]",
-          flush=True)
-    files_pn, files_vox, files = files_phase(card)
+          f"default voxel U-Net), prefetch and the native packer; the "
+          f"fixtures in h5py's other forms: read, cli train / eval / infer, "
+          f"voxelize at feature_dim 0 [{card}]", flush=True)
+    files_pn, files_vox, fix_pn, files_vox0, files = files_phase(card)
 
     print(f"[22] SparseVoxelNet's dense and gather impls (R64/w64/d4/L2 "
           f"bf16, max_active {IMPL_ACTIVE}): rows 20 and 10 at their "
@@ -5952,7 +6116,8 @@ def main() -> int:
                    "default_fit_serving": def_fit_serve[name],
                    "wide_head_serving": wide_served[name],
                    "wide_head_step": wide_stepped[name],
-                   "files_voxel_fit": files_vox[name]}
+                   "files_voxel_fit": files_vox[name],
+                   "files_voxelize_feature_dim0": files_vox0[name]}
         if name in sp_launches and SP_PER_FORWARD.get(name):
             by_path["sparse_serving"] = sp_launches[name]
             by_path["sparse_fit"] = spf_launches[name]
@@ -5963,7 +6128,10 @@ def main() -> int:
             "source": SOURCE if name.startswith("head") else TRI_SOURCE,
             "replaces": DEFAULT_REPLACES[name],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": at["max_abs_err"], "ms": at["ms"],
+            "max_abs_err": max(at["max_abs_err"], files["fixtures"][
+                "voxelize_feature_dim0"]["max_abs_err"])
+            if name == "voxelize_contract" else at["max_abs_err"],
+            "ms": at["ms"],
             "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"], "library_ms": at["library_ms"],
             "shape": at["shape"],
@@ -6061,7 +6229,8 @@ def main() -> int:
         at = next(c for c in mine if c["case"] == label)
         by_path = {p: got[name] + got.get(f"{name}_bwd", 0)
                    for p, got in (("fit", fit_launches),
-                                  ("files_pointnet_fit", files_pn))}
+                                  ("files_pointnet_fit", files_pn),
+                                  ("files_fixture_fit", fix_pn))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": PN_SOURCES[name],
@@ -6087,7 +6256,8 @@ def main() -> int:
              "sparse_fit_serving": spf_serve,
              "pointnet_serving": pns_launches,
              "files_pointnet_fit": files_pn, "files_voxel_fit": files_vox,
-             **impl_paths}
+             "files_fixture_fit": fix_pn,
+             "files_voxelize_feature_dim0": files_vox0, **impl_paths}
     for name, label, keys in (
             ("fused_global_pool", "pointnet global",
              ("fused_pool", "fused_pool_bwd")),

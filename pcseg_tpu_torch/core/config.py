@@ -6,9 +6,8 @@ Ported: the ``ModelConfig`` fields of the three families, and the parts
 of ``DataConfig``, ``OptimConfig`` and ``TrainConfig`` that a one-device
 training run reads: the HDF5 event files and the prefetch depth, resume's
 'latest' checkpoints, the metrics log, the profiler trace and
-``debug_nans`` among them. Not yet: parallel strategies. The fields
-default as the
-JAX package's do: ``voxelize_impl`` and ``devox_impl`` "auto", which at
+``debug_nans`` among them, and ``Config.to_json`` / ``from_dict``. Not
+yet: parallel strategies. The fields default as the JAX package's do: ``voxelize_impl`` and ``devox_impl`` "auto", which at
 64^3 in bf16 resolve to the one-hot matmul voxelize/devoxelize forms;
 ``impl`` "block", the sparse family's block impl, which the voxel family
 reads as "auto" (the fused core in bf16).
@@ -17,6 +16,7 @@ reads as "auto" (the fused core in bf16).
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -131,6 +131,30 @@ class Config:
         d = dataclasses.asdict(self)
         d["data"]["buckets"] = list(d["data"]["buckets"])
         return d
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        """The defaults with ``d``'s fields (``{section: {field:
+        value}}``, as ``to_dict`` or JSON gives them) set; lists come back
+        as the tuples of tuple fields. An unknown section or field raises
+        KeyError naming it, so a JAX package config, whose ``train``
+        section also holds the seven parallel fields (``data_parallel``
+        to ``sync_batchnorm``, not yet ported), raises at the first."""
+        cfg = cls()
+        for section, values in d.items():
+            sub = getattr(cfg, section, None)
+            if not dataclasses.is_dataclass(sub):
+                raise KeyError(f"unknown config section {section!r}")
+            for k, v in values.items():
+                if not hasattr(sub, k):
+                    raise KeyError(f"unknown config field {section}.{k}")
+                if isinstance(getattr(sub, k), tuple):
+                    v = tuple(v)
+                setattr(sub, k, v)
+        return cfg
 
 
 def _coerce(current: Any, raw: str) -> Any:

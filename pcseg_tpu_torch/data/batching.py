@@ -83,7 +83,8 @@ def predict_in_buckets(forward, events: Sequence[np.ndarray],
     return out
 
 
-# length sorting happens inside windows of this many batches
+# length sorting happens inside windows of this many batches (the
+# default of ``BucketBatcher``'s ``window_batches``)
 WINDOW_BATCHES = 32
 
 
@@ -91,11 +92,12 @@ class BucketBatcher:
     """Iterate a dataset as static-shape batches.
 
     Groups a (possibly shuffled) index order into fixed-size batches and
-    pads each to the smallest bucket >= its max point count. The order is
-    sorted by point count inside windows of ``WINDOW_BATCHES`` batches, so
-    batches are homogeneous in length (less padding) while staying
-    shuffled across epochs. A short final batch is kept. ``use_native``:
-    pack and sort with the C++ packer (else numpy, the same batches).
+    pads each to the smallest bucket >= its max point count. With
+    ``bucket_by_length`` the order is sorted by point count inside
+    windows of ``window_batches`` batches, so batches are homogeneous in
+    length (less padding) while staying shuffled across epochs. A short
+    final batch is kept unless ``drop_last``. ``use_native``: pack and
+    sort with the C++ packer (else numpy, the same batches).
     """
 
     def __init__(
@@ -106,6 +108,9 @@ class BucketBatcher:
         indices: Optional[np.ndarray] = None,
         shuffle: bool = False,
         seed: int = 0,
+        drop_last: bool = False,
+        bucket_by_length: bool = True,
+        window_batches: int = WINDOW_BATCHES,
         feature_dim: int = 4,
         use_native: bool = True,
     ):
@@ -117,13 +122,19 @@ class BucketBatcher:
         )
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
+        self.bucket_by_length = bucket_by_length
+        self.window = window_batches * batch_size
         self.feature_dim = feature_dim
         self.use_native = use_native
         self.epoch = 0
         self._lengths: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
-        return (len(self.indices) + self.batch_size - 1) // self.batch_size
+        n = len(self.indices)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def _all_lengths(self) -> np.ndarray:
         if self._lengths is None:
@@ -138,25 +149,25 @@ class BucketBatcher:
         if self.shuffle:
             rng = np.random.default_rng((self.seed, self.epoch))
             rng.shuffle(order)
-        if not len(order):
+        if not self.bucket_by_length or not len(order):
             return order
         lengths = self._all_lengths()
-        window = WINDOW_BATCHES * self.batch_size
         if self.use_native:
-            return native.window_sort(order, lengths, window)
+            return native.window_sort(order, lengths, self.window)
         return np.concatenate([
             win[np.argsort(lengths[win], kind="stable")]
-            for win in (order[s : s + window]
-                        for s in range(0, len(order), window))])
+            for win in (order[s : s + self.window]
+                        for s in range(0, len(order), self.window))])
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         order = self._epoch_order()
         self.epoch += 1
         bs = self.batch_size
+        stop = len(order) - len(order) % bs if self.drop_last else len(order)
         # an HDF5 dataset packs a batch straight from its files
         gather = self.use_native and hasattr(self.dataset, "pack_batch") \
             and self.dataset.feature_dim == self.feature_dim
-        for s in range(0, len(order), bs):
+        for s in range(0, stop, bs):
             idx = order[s : s + bs]
             if gather:
                 bucket = pick_bucket(int(self._all_lengths()[idx].max()),

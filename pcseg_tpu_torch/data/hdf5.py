@@ -8,27 +8,42 @@ dataset ``data`` of per-event flat float arrays that reshape to ``(N, 4)``
 The port reads and writes these files with its own code in numpy and the
 standard library, because h5py is absent where the port runs.
 
-Reader scope: what h5py writes for this schema,
-- with default settings: superblock version 0, version-1 object headers
-  (continuation messages followed), a symbol-table root group, and the
-  dataset in contiguous layout;
-- with ``chunks=True, compression="gzip", shuffle=True``: layout version 3
-  chunked, its chunks indexed by a version-1 B-tree, with the deflate and
-  shuffle filters (a chunk's filter mask honoured).
+Reader scope: the forms h5py (HDF5 1.8 to 1.14) writes for this schema,
+whatever ``libver``, chunking, ``maxshape`` and filters it was given:
+- superblocks 0 and 1 (a symbol-table root group) and 2 and 3 (the root
+  group's object header named in the superblock, its checksum verified;
+  a version-3 superblock still marked open for writing is refused, as the
+  HDF5 library refuses it);
+- version-1 object headers and version-2 ones (``OHDR``), continuation
+  blocks (``OCHK``) followed, every version-2 block's Jenkins lookup3
+  checksum verified (a mismatch raises ``ValueError``);
+- root groups holding a symbol table, link messages (compact storage) or
+  a fractal heap of links (dense storage: ``FRHP`` with its direct and
+  indirect blocks, the links found through the version-2 B-tree name
+  index); hard links only;
+- layout messages version 3 and 4: compact, contiguous, and chunked with
+  a version-1 B-tree, single-chunk, implicit, fixed-array (``FAHD`` /
+  ``FADB``, paged) or extensible-array (``EAHD`` / ``EAIB`` / ``EASB`` /
+  ``EADB``) chunk index; an unallocated chunk reads as the fill value,
+  empty events, as h5py reads it;
+- the deflate, shuffle and lzf filters, each chunk's filter mask honoured
+  (lzf leaves a chunk it cannot shrink raw, marked in the mask).
 Each element of a variable-length dataset is a 16-byte reference (u32
 element count, u64 global-heap collection address, u32 object index);
-the elements themselves live in ``GCOL`` collections. Anything else
-(superblock 2/3, ``OHDR`` headers, link-message groups, other layouts,
-filters or datatypes) raises ``NotImplementedError`` naming the structure
-and its file offset.
+the elements themselves live in ``GCOL`` collections, unfiltered. Anything
+else (another datatype, a soft or external link, the version-2 B-tree
+chunk index of datasets of rank 2 and above, Fletcher-32 or another
+filter, a fill value other than empty events) raises
+``NotImplementedError`` naming the structure and its file offset.
 
 Reads go through a read-only memory map, so threads read at once with no
 shared file position. The collections' object tables are parsed once, at
-open, into each entry's byte offset; ``num_points`` reads the count from
-the reference without touching the event, and ``pack_batch`` hands a
-batch's offsets to the native packer, which copies the events straight
-from the maps into the padded batch (``csrc/collate.cpp``
-``pack_gather``), with no per-event work in Python.
+open, into each entry's byte offset, whichever chunk index located the
+references; ``num_points`` reads the count from the reference without
+touching the event, and ``pack_batch`` hands a batch's offsets to the
+native packer, which copies the events straight from the maps into the
+padded batch (``csrc/collate.cpp`` ``pack_gather``), with no per-event
+work in Python.
 
 Writer scope: the default form only (as ``h5py`` writes it with default
 settings), one dataset per file, collections of at most 65,535 objects.
@@ -52,28 +67,127 @@ SIGNATURE = b"\x89HDF\r\n\x1a\n"
 UNDEF = 0xFFFFFFFFFFFFFFFF
 # a variable-length element: (count, collection address, object index)
 REF_DTYPE = np.dtype([("n", "<u4"), ("addr", "<u8"), ("idx", "<u4")])
-# message types of a version-1 object header
-_DATASPACE, _DATATYPE, _FILL, _LAYOUT = 1, 3, 5, 8
-_FILTERS, _CONTINUATION, _SYMBOL_TABLE = 0xB, 0x10, 0x11
-_LINK_INFO, _LINK = 0x2, 0x6
-_DEFLATE, _SHUFFLE = 1, 2
+# object header message types
+_DATASPACE, _LINK_INFO, _DATATYPE, _FILL, _LINK = 1, 2, 3, 5, 6
+_LAYOUT, _FILTERS, _CONTINUATION, _SYMBOL_TABLE = 8, 0xB, 0x10, 0x11
+_DEFLATE, _SHUFFLE, _LZF = 1, 2, 32000
+_LINK_KINDS = {1: "soft", 64: "external"}
+_CHUNK_INDEXES = {5: "version-2 B-tree"}
 # the group B-tree's K values h5py writes (leaf K 4: 8 entries a symbol
 # node; internal K 16: 32 children a B-tree node)
 _LEAF_K, _NODE_K = 4, 16
 _GCOL_MIN = 4096          # the HDF5 library's smallest collection
 _GCOL_CAP = 4 << 20       # the writer starts a new collection past this
 _GCOL_MAX_OBJECTS = 65535  # a u16 object index, 0 being free space
+_M32 = 0xFFFFFFFF
 
 
 def _pad8(n: int) -> int:
     return (n + 7) & ~7
 
 
+def _log2(n: int) -> int:
+    return n.bit_length() - 1
+
+
+def _enc_size(n: int) -> int:
+    """Bytes of a count field that holds up to ``n`` (the HDF5 library's
+    ``H5VM_limit_enc_size``)."""
+    return _log2(n) // 8 + 1
+
+
+def _uint(buf, at: int, n: int) -> int:
+    return int.from_bytes(buf[at : at + n], "little")
+
+
+def _rot(x: int, k: int) -> int:
+    return ((x << k) | (x >> (32 - k))) & _M32
+
+
+def _lookup3(data: bytes) -> int:
+    """Bob Jenkins' lookup3 ``hashlittle`` of ``data`` with initial value
+    0: the checksum of HDF5's version-2 metadata blocks
+    (``H5_checksum_metadata``)."""
+    n = len(data)
+    a = b = c = (0xDEADBEEF + n) & _M32
+    if n == 0:
+        return c
+    tail = n - 12 * ((n - 1) // 12)     # 1..12 bytes for the last round
+    words = struct.unpack_from(f"<{(n - tail) // 4}I", data)
+    for i in range(0, len(words), 3):
+        a = (a + words[i]) & _M32
+        b = (b + words[i + 1]) & _M32
+        c = (c + words[i + 2]) & _M32
+        a = ((a - c) & _M32) ^ _rot(c, 4)
+        c = (c + b) & _M32
+        b = ((b - a) & _M32) ^ _rot(a, 6)
+        a = (a + c) & _M32
+        c = ((c - b) & _M32) ^ _rot(b, 8)
+        b = (b + a) & _M32
+        a = ((a - c) & _M32) ^ _rot(c, 16)
+        c = (c + b) & _M32
+        b = ((b - a) & _M32) ^ _rot(a, 19)
+        a = (a + c) & _M32
+        c = ((c - b) & _M32) ^ _rot(b, 4)
+        b = (b + a) & _M32
+    ka, kb, kc = struct.unpack("<3I", bytes(data[n - tail:])
+                               + bytes(12 - tail))
+    a, b, c = (a + ka) & _M32, (b + kb) & _M32, (c + kc) & _M32
+    c = ((c ^ b) - _rot(b, 14)) & _M32
+    a = ((a ^ c) - _rot(c, 11)) & _M32
+    b = ((b ^ a) - _rot(a, 25)) & _M32
+    c = ((c ^ b) - _rot(b, 16)) & _M32
+    a = ((a ^ c) - _rot(c, 4)) & _M32
+    b = ((b ^ a) - _rot(a, 14)) & _M32
+    return ((c ^ b) - _rot(b, 24)) & _M32
+
+
+def _lzf_decompress(data: bytes, size: int) -> bytes:
+    """The LZF format (liblzf's ``lzf_decompress``, behind h5py's lzf
+    filter) to ``size`` bytes: a control byte below 32 starts a literal
+    run of ctrl + 1 bytes; any other a back reference of (ctrl >> 5) + 2
+    bytes (7 in the top bits: a length byte follows to add) at distance
+    ((ctrl & 31) << 8 | the next byte) + 1, copied byte by byte, so a
+    reference that overlaps its own output repeats it."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        ctrl = data[i]
+        i += 1
+        if ctrl < 32:
+            if i + ctrl + 1 > n:
+                raise ValueError("lzf: a literal run past the input's end")
+            out += data[i : i + ctrl + 1]
+            i += ctrl + 1
+            continue
+        length = ctrl >> 5
+        if length == 7:
+            length += data[i]
+            i += 1
+        if i >= n:
+            raise ValueError("lzf: a back reference past the input's end")
+        ref = len(out) - ((ctrl & 31) << 8 | data[i]) - 1
+        i += 1
+        length += 2
+        if ref < 0:
+            raise ValueError("lzf: a back reference before the output")
+        if ref + length <= len(out):
+            out += out[ref : ref + length]
+        else:
+            period = out[ref:]
+            out += (period * (length // len(period) + 1))[:length]
+    if len(out) != size:
+        raise ValueError(f"lzf: {len(out)} bytes out, {size} expected")
+    return bytes(out)
+
+
 class _Unsupported(NotImplementedError):
     def __init__(self, path, what, offset):
         super().__init__(f"{path}: {what} at file offset {offset} is not "
                          "supported (the port reads the forms h5py writes "
-                         "by default or chunked with gzip + shuffle)")
+                         "for the reference schema: superblocks 0-3, "
+                         "symbol-table or link groups, contiguous, compact "
+                         "or chunked layouts with gzip, shuffle or lzf)")
 
 
 class VlenFile:
@@ -109,28 +223,65 @@ class VlenFile:
         return struct.unpack_from(fmt, self._bytes(offset,
                                                    struct.calcsize(fmt)))
 
+    def _block(self, addr: int, size: int, what: str, sig: bytes = b"",
+               zero_at: int = -1) -> bytes:
+        """``size`` bytes at ``addr`` that start with ``sig`` and end with
+        the lookup3 checksum of the rest (taken with the four bytes at
+        ``zero_at`` zeroed, where the checksum lies inside the block);
+        ValueError on a mismatch."""
+        block = self._bytes(addr, size)
+        if not block.startswith(sig):
+            raise ValueError(f"{self.path}: no {what} ({sig.decode()}) at "
+                             f"file offset {addr}")
+        if zero_at < 0:
+            body, (stored,) = block[:-4], struct.unpack_from("<I", block,
+                                                             size - 4)
+        else:
+            body = block[:zero_at] + bytes(4) + block[zero_at + 4:]
+            stored, = struct.unpack_from("<I", block, zero_at)
+        got = _lookup3(body)
+        if got != stored:
+            raise ValueError(f"{self.path}: {what} at file offset {addr} "
+                             f"fails its checksum (stored {stored:#010x}, "
+                             f"computed {got:#010x})")
+        return block
+
     def _superblock(self) -> int:
         if self._bytes(0, 8) != SIGNATURE:
             raise ValueError(f"{self.path}: not an HDF5 file (no signature "
                              "at offset 0)")
         version, = self._unpack("<B", 8)
-        if version != 0:
+        if version not in (0, 1, 2, 3):
             raise _Unsupported(self.path, f"superblock version {version}", 0)
-        size_off, size_len = self._unpack("<BB", 13)
+        at = 13 if version < 2 else 9
+        size_off, size_len = self._unpack("<BB", at)
         if (size_off, size_len) != (8, 8):
             raise _Unsupported(self.path, f"{size_off}-byte offsets and "
-                               f"{size_len}-byte lengths", 13)
-        base, = self._unpack("<Q", 24)
+                               f"{size_len}-byte lengths", at)
+        at = 24 if version < 2 else 12
+        base, = self._unpack("<Q", at)
         if base != 0:
-            raise _Unsupported(self.path, f"base address {base}", 24)
-        # the root group's symbol-table entry: its object header address
-        return self._unpack("<Q", 56 + 8)[0]
+            raise _Unsupported(self.path, f"base address {base}", at)
+        if version < 2:
+            # the root group's symbol-table entry (after version 1's
+            # indexed-storage K): its object header address
+            return self._unpack("<Q", 64 + 4 * version)[0]
+        block = self._block(0, 48, f"superblock version {version}")
+        flags = block[11]
+        if version == 3 and flags & 0x5:
+            raise ValueError(
+                f"{self.path}: superblock file consistency flags "
+                f"{flags:#04x} ({'SWMR ' if flags & 0x4 else ''}write "
+                "access): the file is still open for writing, or its "
+                "writer died; the HDF5 library refuses it too (close the "
+                "writer, or clear the flags with h5clear -s)")
+        return struct.unpack_from("<Q", block, 36)[0]
 
     def _messages(self, addr: int):
-        """(type, data offset, size, flags) of every message of the
-        version-1 object header at ``addr``, continuations followed."""
+        """(type, data offset, size, flags) of every message of the object
+        header at ``addr``, continuations followed."""
         if self._bytes(addr, 4) == b"OHDR":
-            raise _Unsupported(self.path, "version-2 object header", addr)
+            return self._messages_v2(addr)
         version, _, count, _, size = self._unpack("<BBHII", addr)
         if version != 1:
             raise _Unsupported(self.path,
@@ -147,30 +298,91 @@ class VlenFile:
                 p += 8 + msize
         return out
 
+    def _messages_v2(self, addr: int):
+        """``_messages`` of a version-2 header: the ``OHDR`` prefix (its
+        flags say which optional fields follow and the width of chunk 0's
+        size), then messages of 4-byte headers (6 with a creation order),
+        each block closed by a gap and its checksum."""
+        version, flags = self._unpack("<BB", addr + 4)
+        if version != 2:
+            raise _Unsupported(self.path,
+                               f"OHDR object header version {version}", addr)
+        p = addr + 6 + (16 if flags & 0x20 else 0) + \
+            (4 if flags & 0x10 else 0)
+        width = 1 << (flags & 3)
+        size = _uint(self._bytes(p, width), 0, width)
+        head = 6 if flags & 0x4 else 4
+        out, what = [], "object header"
+        blocks = [(addr, p + width + size + 4 - addr, p + width)]
+        while blocks:
+            start, length, p = blocks.pop(0)
+            block = self._block(start, length, what, b"OHDR" if
+                                start == addr else b"OCHK")
+            end, what = start + length - 4, "continuation block"
+            while p + head <= end:
+                mtype, msize, mflags = struct.unpack_from("<BHB", block,
+                                                          p - start)
+                if p + head + msize > end:
+                    raise ValueError(f"{self.path}: message {mtype} at file "
+                                     f"offset {p} runs past its block")
+                if mtype == _CONTINUATION:
+                    at, n = struct.unpack_from("<QQ", block,
+                                               p + head - start)
+                    blocks.append((at, n, at + 4))
+                out.append((mtype, p + head, msize, mflags))
+                p += head + msize
+        return out
+
     def _lookup(self, root: int, name: str) -> int:
         """Object header address of ``name`` in the root group."""
         msgs = self._messages(root)
-        for mtype, p, _, _ in msgs:
-            if mtype in (_LINK_INFO, _LINK):
-                raise _Unsupported(self.path, "link-message group", p)
         table = [p for mtype, p, _, _ in msgs if mtype == _SYMBOL_TABLE]
-        if not table:
+        if table:
+            return self._symbol_lookup(table[0], name)
+        links = [(p, self._bytes(p, size)) for mtype, p, size, _ in msgs
+                 if mtype == _LINK]
+        infos = [p for mtype, p, _, _ in msgs if mtype == _LINK_INFO]
+        if not links and not infos:
             raise _Unsupported(self.path, "root group without a symbol "
-                               "table", root)
-        btree, heap = self._unpack("<QQ", table[0])
+                               "table or links", root)
+        for p in infos:
+            version, flags = self._unpack("<BB", p)
+            if version != 0:
+                raise _Unsupported(self.path, f"link info version {version}",
+                                   p)
+            heap, index = self._unpack("<QQ", p + 2 + (8 if flags & 1
+                                                         else 0))
+            if heap != UNDEF:
+                links += self._dense_links(heap, index)
+        for at, msg in links:
+            got, kind, header = self._link(msg, at)
+            if got != name:
+                continue
+            if kind != 0:
+                raise _Unsupported(self.path, _LINK_KINDS.get(
+                    kind, f"type-{kind}") + f" link {name!r}", at)
+            return header
+        raise KeyError(f"{self.path}: no dataset {name!r} in the root group")
+
+    def _symbol_lookup(self, table: int, name: str) -> int:
+        btree, heap = self._unpack("<QQ", table)
         if self._bytes(heap, 4) != b"HEAP":
             raise ValueError(f"{self.path}: no local heap at {heap}")
         heap_size, _, heap_data = self._unpack("<QQQ", heap + 8)
         names = self._bytes(heap_data, heap_size)
-        for entry in self._group_entries(btree):
-            name_off, header = struct.unpack_from("<QQ", entry)
+        for entry, at in self._group_entries(btree):
+            name_off, header, cache = struct.unpack_from("<QQI", entry)
             end = names.index(b"\0", name_off)
-            if names[name_off:end].decode() == name:
-                return header
+            if names[name_off:end].decode() != name:
+                continue
+            if cache == 2:        # the entry of a soft link
+                raise _Unsupported(self.path, f"soft link {name!r}", at)
+            return header
         raise KeyError(f"{self.path}: no dataset {name!r} in the root group")
 
     def _group_entries(self, node: int):
-        """Symbol-table entries (40 bytes each) under a group B-tree."""
+        """Symbol-table entries (40 bytes each, with their file offsets)
+        under a group B-tree."""
         sig, ntype, level, used = self._unpack("<4sBBH", node)
         if sig != b"TREE" or ntype != 0:
             raise _Unsupported(self.path, f"group B-tree node {sig!r} type "
@@ -184,7 +396,142 @@ class VlenFile:
             if sig != b"SNOD":
                 raise _Unsupported(self.path, f"symbol node {sig!r}", child)
             for k in range(nsyms):
-                yield self._bytes(child + 8 + 40 * k, 40)
+                at = child + 8 + 40 * k
+                yield self._bytes(at, 40), at
+
+    def _link(self, msg: bytes, at: int):
+        """(name, link type, object header address or None) of the link
+        message ``msg`` found at file offset ``at``."""
+        version, flags = msg[0], msg[1]
+        if version != 1:
+            raise _Unsupported(self.path, f"link message version {version}",
+                               at)
+        q, kind = 2, 0
+        if flags & 0x8:
+            kind, q = msg[q], q + 1
+        q += (8 if flags & 0x4 else 0) + (1 if flags & 0x10 else 0)
+        width = 1 << (flags & 3)
+        n = _uint(msg, q, width)
+        name = msg[q + width : q + width + n].decode("utf-8")
+        if kind != 0:
+            return name, kind, None
+        return name, 0, struct.unpack_from("<Q", msg, q + width + n)[0]
+
+    # -- dense link storage: a fractal heap named by a version-2 B-tree
+
+    def _dense_links(self, heap: int, index: int):
+        """(file offset, bytes) of every link in the fractal heap at
+        ``heap``, found through the heap IDs of the name index ``index``
+        (a version-2 B-tree of type-5 records: name hash, heap ID)."""
+        hdr = self._block(heap, 146, "fractal heap header", b"FRHP")
+        id_len, filter_len, flags, max_man = struct.unpack_from("<HHBI",
+                                                                hdr, 5)
+        width, start, max_direct, heap_bits, _, root, rows = \
+            struct.unpack_from("<HQQHHQH", hdr, 110)
+        if filter_len:
+            raise _Unsupported(self.path, "filtered fractal heap", heap)
+        off_size = (heap_bits + 7) // 8
+        len_size = min((_log2(max_direct) + 7) // 8, _enc_size(max_man))
+        # every direct block: (heap offset, file address, size)
+        blocks = []
+        max_rows = _log2(max_direct) - _log2(start) + 2
+
+        def row_size(r):
+            return start if r == 0 else start << (r - 1)
+
+        def direct(addr, size):
+            """A direct block (its checksum over the whole block, the
+            field zeroed, where the heap's flags ask for one)."""
+            head = 5 + 8 + off_size
+            if flags & 2:
+                block = self._block(addr, size, "fractal heap direct block",
+                                    b"FHDB", head)
+            else:
+                block = self._bytes(addr, head)
+                if not block.startswith(b"FHDB"):
+                    raise ValueError(f"{self.path}: no fractal heap direct "
+                                     f"block (FHDB) at file offset {addr}")
+            blocks.append((_uint(block, 13, off_size), addr, size))
+
+        def indirect(addr, nrows):
+            ndirect = min(nrows, max_rows) * width
+            nindirect = max(nrows - max_rows, 0) * width
+            head = 5 + 8 + off_size
+            block = self._block(addr, head + 8 * (ndirect + nindirect) + 4,
+                                "fractal heap indirect block", b"FHIB")
+            for k in range(ndirect + nindirect):
+                child, = struct.unpack_from("<Q", block, head + 8 * k)
+                if child == UNDEF:
+                    continue
+                r = k // width
+                if k < ndirect:
+                    direct(child, row_size(r))
+                else:
+                    indirect(child, _log2(row_size(r))
+                             - _log2(start * width) + 1)
+
+        if root != UNDEF:
+            if rows == 0:
+                direct(root, start)
+            else:
+                indirect(root, rows)
+        blocks.sort()
+        offsets = [b[0] for b in blocks]
+        out = []
+        for record in self._btree2_records(index):
+            hid = record[-id_len:]
+            if hid[0] >> 4:       # a huge or tiny object, or version > 0
+                raise _Unsupported(self.path, f"fractal heap object of "
+                                   f"ID {hid.hex()}", heap)
+            off = _uint(hid, 1, off_size)
+            n = _uint(hid, 1 + off_size, len_size)
+            k = np.searchsorted(offsets, off, side="right") - 1
+            if k < 0 or off + n > blocks[k][0] + blocks[k][2]:
+                raise ValueError(f"{self.path}: heap object at heap offset "
+                                 f"{off} lies in no direct block of the "
+                                 f"fractal heap at {heap}")
+            at = blocks[k][1] + off - blocks[k][0]
+            out.append((at, self._bytes(at, n)))
+        return out
+
+    def _btree2_records(self, addr: int):
+        """The records of the version-2 B-tree at ``addr``, a link name
+        index (type 5). A node's child pointers carry the child's record
+        count (and below depth 1 its subtree's) in fields as wide as the
+        largest such count needs (``H5B2__hdr_init``)."""
+        hdr = self._block(addr, 38, "version-2 B-tree header", b"BTHD")
+        btype, node_size, rsize, depth, root, nroot = struct.unpack_from(
+            "<BIHH2xQH", hdr, 5)
+        if btype != 5:
+            raise _Unsupported(self.path, f"version-2 B-tree type {btype} "
+                               "as a link name index", addr)
+        max_nrec = (node_size - 10) // rsize
+        nrec_size = _enc_size(max_nrec)
+        cum, cum_size = [max_nrec], [0]
+        for d in range(1, depth + 1):
+            ptr = 8 + nrec_size + cum_size[d - 1]
+            n = (node_size - 10 - ptr) // (rsize + ptr)
+            cum.append((n + 1) * cum[d - 1] + n)
+            cum_size.append(_enc_size(cum[d]))
+        out = []
+
+        def node(at, nrec, d):
+            ptr = 8 + nrec_size + cum_size[d - 1] if d else 0
+            size = 10 + nrec * rsize + ptr * (nrec + 1)
+            block = self._block(at, size, "version-2 B-tree node",
+                                b"BTIN" if d else b"BTLF")
+            out.extend(block[6 + i * rsize : 6 + (i + 1) * rsize]
+                       for i in range(nrec))
+            for i in range(nrec + 1 if d else 0):
+                q = 6 + nrec * rsize + i * ptr
+                child, = struct.unpack_from("<Q", block, q)
+                node(child, _uint(block, q + 8, nrec_size), d - 1)
+
+        if root != UNDEF and nroot:
+            node(root, nroot, depth)
+        return out
+
+    # -- the dataset
 
     def _dtype(self, p: int, nested: bool = False) -> np.dtype:
         """numpy dtype of a datatype message at ``p``: the base type of a
@@ -224,43 +571,144 @@ class VlenFile:
         base = self._dtype(msgs[_DATATYPE][0])
         filters = self._filters(msgs[_FILTERS][0]) if _FILTERS in msgs \
             else []
+        if _FILL in msgs:
+            self._check_fill(msgs[_FILL][0])
         p, _ = msgs[_LAYOUT]
         version, layout = self._unpack("<BB", p)
-        if version != 3 or layout not in (1, 2):
+        if version not in (3, 4) or layout not in (0, 1, 2):
             raise _Unsupported(self.path, f"layout version {version} class "
                                f"{layout}", p)
         raw = np.zeros(count * REF_DTYPE.itemsize, np.uint8)
-        if layout == 1:
+        if layout == 0:
+            n, = self._unpack("<H", p + 2)
+            n = min(n, raw.size)
+            raw[:n] = np.frombuffer(self._bytes(p + 4, n), np.uint8)
+        elif layout == 1:
             addr, = self._unpack("<Q", p + 2)
             if addr != UNDEF and count:
                 raw[:] = np.frombuffer(self._bytes(addr, raw.size), np.uint8)
         else:
+            chunk, chunks = self._chunk_index(p, version, count)
+            size = chunk * REF_DTYPE.itemsize
+            for start, addr, nbytes, mask in chunks:
+                lo = start * REF_DTYPE.itemsize
+                if addr == UNDEF or lo >= raw.size:
+                    continue        # unallocated: the fill value
+                data = self._chunk(addr, nbytes, mask, filters, size)
+                n = min(len(data), raw.size - lo, size)
+                raw[lo : lo + n] = np.frombuffer(data, np.uint8, n)
+        return raw.view(REF_DTYPE), base
+
+    def _check_fill(self, p: int) -> None:
+        """Refuse a fill value other than zeros (an empty event)."""
+        version, = self._unpack("<B", p)
+        if version in (1, 2):
+            defined, = self._unpack("<B", p + 3)
+            q = p + 4 if version == 1 or defined else None
+        elif version == 3:
+            flags, = self._unpack("<B", p + 1)
+            q = p + 2 if flags & 0x20 else None
+        else:
+            raise _Unsupported(self.path, f"fill value version {version}", p)
+        if q is not None:
+            n, = self._unpack("<I", q)
+            if any(self._bytes(q + 4, n)):
+                raise _Unsupported(self.path, "fill value other than an "
+                                   "empty event", p)
+
+    def _filters(self, p: int):
+        """[(filter id, client values)] of a filter pipeline message."""
+        version, nfilters = self._unpack("<BB", p)
+        if version not in (1, 2):
+            raise _Unsupported(self.path, f"filter pipeline version "
+                               f"{version}", p)
+        out, q = [], p + (8 if version == 1 else 2)
+        for _ in range(nfilters):
+            if version == 1:
+                fid, name_len, _, nvalues = self._unpack("<HHHH", q)
+                at = q + 8 + _pad8(name_len)
+            else:
+                fid, = self._unpack("<H", q)
+                name_len = self._unpack("<H", q + 2)[0] if fid >= 256 else 0
+                at = q + (4 if fid >= 256 else 2)
+                _, nvalues = self._unpack("<HH", at)
+                at += 4 + name_len
+            if fid not in (_DEFLATE, _SHUFFLE, _LZF):
+                raise _Unsupported(self.path, f"filter {fid}", q)
+            out.append((fid, self._unpack(f"<{nvalues}I", at)))
+            q = at + 4 * nvalues + (4 * (nvalues % 2) if version == 1
+                                    else 0)
+        return out
+
+    def _chunk(self, addr: int, nbytes: int, mask: int, filters,
+               size: int) -> bytes:
+        """A chunk's bytes, each filter its mask leaves on undone in
+        reverse pipeline order; ``size``: the chunk's bytes unfiltered."""
+        data = self._bytes(addr, nbytes)
+        for j in reversed(range(len(filters))):
+            fid, values = filters[j]
+            if mask & (1 << j):
+                continue
+            try:
+                if fid == _DEFLATE:
+                    data = zlib.decompress(data)
+                elif fid == _LZF:
+                    data = _lzf_decompress(data, size)
+                else:
+                    k = values[0] if values else REF_DTYPE.itemsize
+                    body = len(data) - len(data) % k
+                    data = np.frombuffer(data, np.uint8, body).reshape(
+                        k, -1).T.tobytes() + data[body:]
+            except (zlib.error, ValueError) as e:
+                raise ValueError(f"{self.path}: the chunk at file offset "
+                                 f"{addr} fails filter {fid}: {e}") from None
+        return data
+
+    def _chunk_index(self, p: int, version: int, count: int):
+        """(entries a chunk, [(first entry, address, stored bytes, filter
+        mask)]) of the chunked layout message at ``p``."""
+        if version == 3:
             ndims, = self._unpack("<B", p + 2)
             addr, = self._unpack("<Q", p + 3)
             dims = self._unpack(f"<{ndims}I", p + 11)
-            if ndims != 2 or dims[1] != REF_DTYPE.itemsize:
-                raise _Unsupported(self.path, f"chunk dims {dims}", p)
-            if addr != UNDEF:
-                self._read_chunks(addr, dims[0], filters, raw)
-        return raw.view(REF_DTYPE), base
+            itype, q = 0, None
+        else:
+            flags, ndims, enc = self._unpack("<BBB", p + 2)
+            raw = self._bytes(p + 5, ndims * enc)
+            dims = tuple(_uint(raw, i * enc, enc) for i in range(ndims))
+            q = p + 5 + ndims * enc
+            itype, = self._unpack("<B", q)
+            q += 1
+        if ndims != 2 or dims[1] != REF_DTYPE.itemsize:
+            raise _Unsupported(self.path, f"chunk dims {dims}", p)
+        chunk = dims[0]
+        size = chunk * REF_DTYPE.itemsize
+        nchunks = -(-count // chunk)
+        if itype == 0:
+            chunks = [] if addr == UNDEF else self._btree1_chunks(addr)
+        elif itype == 1:          # single chunk
+            nbytes, mask = self._unpack("<QI", q) if flags & 2 else (size, 0)
+            chunks = [(0, self._unpack("<Q", q + (12 if flags & 2 else 0))[0],
+                       nbytes, mask)]
+        elif itype == 2:          # implicit: chunks side by side
+            addr, = self._unpack("<Q", q)
+            chunks = [(i * chunk, addr + i * size, size, 0)
+                      for i in range(nchunks)] if addr != UNDEF else []
+        elif itype in (3, 4):     # fixed / extensible array
+            params = 1 if itype == 3 else 5
+            addr, = self._unpack("<Q", q + params)
+            elements = [] if addr == UNDEF else \
+                self._fixed_array(addr) if itype == 3 else \
+                self._extensible_array(addr, nchunks)
+            chunks = [(i * chunk, *self._element(e, size))
+                      for i, e in elements]
+        else:
+            raise _Unsupported(self.path, _CHUNK_INDEXES.get(
+                itype, f"type-{itype}") + " chunk index", q - 1)
+        return chunk, chunks
 
-    def _filters(self, p: int):
-        version, nfilters = self._unpack("<BB", p)
-        if version != 1:
-            raise _Unsupported(self.path, f"filter pipeline version "
-                               f"{version}", p)
-        out, q = [], p + 8
-        for _ in range(nfilters):
-            fid, name_len, _, nvalues = self._unpack("<HHHH", q)
-            if fid not in (_DEFLATE, _SHUFFLE):
-                raise _Unsupported(self.path, f"filter {fid}", q)
-            out.append(fid)
-            q += 8 + _pad8(name_len) + 4 * nvalues + 4 * (nvalues % 2)
-        return out
-
-    def _read_chunks(self, node: int, chunk: int, filters, raw) -> None:
-        """Fill ``raw`` (the references' bytes) from the chunks under a
-        version-1 chunk B-tree node."""
+    def _btree1_chunks(self, node: int):
+        """The chunks under a version-1 chunk B-tree node."""
         sig, ntype, level, used = self._unpack("<4sBBH", node)
         if sig != b"TREE" or ntype != 1:
             raise _Unsupported(self.path, f"chunk B-tree node {sig!r} type "
@@ -271,20 +719,129 @@ class VlenFile:
             nbytes, mask, start, _ = self._unpack("<IIQQ", k)
             child, = self._unpack("<Q", k + key)
             if level > 0:
-                self._read_chunks(child, chunk, filters, raw)
-                continue
-            data = self._bytes(child, nbytes)
-            for j in reversed(range(len(filters))):
-                if mask & (1 << j):
+                yield from self._btree1_chunks(child)
+            else:
+                yield start, child, nbytes, mask
+
+    @staticmethod
+    def _element(e: bytes, size: int):
+        """(address, stored bytes, filter mask) of an array index's
+        element: an address alone (unfiltered chunks), or with the chunk's
+        stored size and mask."""
+        addr, = struct.unpack_from("<Q", e)
+        if len(e) == 8:
+            return addr, size, 0
+        return addr, _uint(e, 8, len(e) - 12), \
+            struct.unpack_from("<I", e, len(e) - 4)[0]
+
+    def _fixed_array(self, addr: int):
+        """[(index, element bytes)] of the fixed array at ``addr``: one
+        data block of elements, or, past 2^page_bits of them, pages, each
+        with its checksum, that the block's bitmap marks initialised."""
+        hdr = self._block(addr, 28, "fixed array header", b"FAHD")
+        esize, page_bits, nmax, dblk = struct.unpack_from("<BBQQ", hdr, 6)
+        if dblk == UNDEF:
+            return []
+        page = 1 << page_bits
+        if nmax <= page:
+            block = self._block(dblk, 14 + nmax * esize + 4,
+                                "fixed array data block", b"FADB")
+            return [(i, block[14 + i * esize : 14 + (i + 1) * esize])
+                    for i in range(nmax)]
+        npages = -(-nmax // page)
+        bitmap = self._block(dblk, 14 + (npages + 7) // 8 + 4,
+                             "fixed array data block", b"FADB")[14:-4]
+        out, at = [], dblk + 14 + len(bitmap) + 4
+        for k in range(npages):
+            n = min(page, nmax - k * page)
+            if bitmap[k // 8] & (0x80 >> k % 8):
+                block = self._block(at + k * (page * esize + 4),
+                                    n * esize + 4,
+                                    "fixed array data block page")
+                out += [(k * page + i, block[i * esize : (i + 1) * esize])
+                        for i in range(n)]
+        return out
+
+    def _extensible_array(self, addr: int, nchunks: int):
+        """[(index, element bytes)] of the first ``nchunks`` elements of
+        the extensible array at ``addr``: the index block's own elements,
+        then data blocks, those of the first super blocks named in the
+        index block, the later ones in super blocks (``H5EA__hdr_init``'s
+        geometry: super block u holds 2^(u // 2) data blocks of
+        2^((u + 1) // 2) * min elements; data blocks past 2^page_bits
+        elements are paged, their pages marked in the super block's
+        bitmap, (npages + 7) // 8 bytes a data block, bit d * npages + k
+        for page k of data block d)."""
+        hdr = self._block(addr, 72, "extensible array header", b"EAHD")
+        (esize, max_bits, idx_n, dblk_min, sblk_min, page_bits), iblock = \
+            struct.unpack_from("<6B", hdr, 6), \
+            struct.unpack_from("<Q", hdr, 60)[0]
+        if iblock == UNDEF:
+            return []
+        nsblks = 1 + max_bits - _log2(dblk_min)
+        in_iblock = 2 * _log2(sblk_min)
+        ndblk = 2 * (sblk_min - 1)
+        off_size = (max_bits + 7) // 8
+        page = 1 << page_bits
+        block = self._block(iblock, 14 + idx_n * esize
+                            + 8 * (ndblk + nsblks - in_iblock) + 4,
+                            "extensible array index block", b"EAIB")
+        out = [(i, block[14 + i * esize : 14 + (i + 1) * esize])
+               for i in range(min(idx_n, nchunks))]
+        addrs = struct.unpack_from(f"<{ndblk + nsblks - in_iblock}Q", block,
+                                   14 + idx_n * esize)
+        first, dblk_at = idx_n, 0
+        for u in range(nsblks):
+            count, nel = 1 << u // 2, dblk_min << (u + 1) // 2
+            if first >= nchunks:
+                break
+            npages = nel // page if nel > page else 0
+            bitmap = b""
+            if u < in_iblock:
+                dblks = addrs[dblk_at : dblk_at + count]
+                dblk_at += count
+                if npages:
+                    raise _Unsupported(self.path, "paged data block in an "
+                                       "extensible array index block",
+                                       iblock)
+            elif addrs[ndblk + u - in_iblock] == UNDEF:
+                dblks = (UNDEF,) * count
+            else:
+                at = addrs[ndblk + u - in_iblock]
+                nbit = count * ((npages + 7) // 8)
+                sb = self._block(at, 14 + off_size + nbit + 8 * count + 4,
+                                 "extensible array super block", b"EASB")
+                bitmap = sb[14 + off_size : 14 + off_size + nbit]
+                dblks = struct.unpack_from(f"<{count}Q", sb,
+                                           14 + off_size + nbit)
+            for d, da in enumerate(dblks):
+                start = first + d * nel
+                if start >= nchunks:
+                    break
+                if da == UNDEF:
                     continue
-                if filters[j] == _DEFLATE:
-                    data = zlib.decompress(data)
-                else:
-                    data = np.frombuffer(data, np.uint8).reshape(
-                        REF_DTYPE.itemsize, -1).T.tobytes()
-            lo = start * REF_DTYPE.itemsize
-            n = min(len(data), raw.size - lo, chunk * REF_DTYPE.itemsize)
-            raw[lo : lo + n] = np.frombuffer(data, np.uint8, n)
+                head = 14 + off_size
+                if not npages:
+                    db = self._block(da, head + nel * esize + 4,
+                                     "extensible array data block", b"EADB")
+                    out += [(start + i, db[head + i * esize :
+                                           head + (i + 1) * esize])
+                            for i in range(min(nel, nchunks - start))]
+                    continue
+                self._block(da, head + 4, "extensible array data block",
+                            b"EADB")
+                for k in range(npages):
+                    bit = d * npages + k
+                    if not bitmap[bit // 8] & (0x80 >> bit % 8):
+                        continue
+                    pg = self._block(da + head + 4 + k * (page * esize + 4),
+                                     page * esize + 4,
+                                     "extensible array data block page")
+                    s = start + k * page
+                    out += [(s + i, pg[i * esize : (i + 1) * esize])
+                            for i in range(min(page, nchunks - s))]
+            first += count * nel
+        return out
 
     def _collection(self, addr: int):
         """(offsets, sizes) by object index of the collection at

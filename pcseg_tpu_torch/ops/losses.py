@@ -33,3 +33,15 @@ def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor,
                         torch.zeros((), device=logits.device))
     return (w * nll).sum(), w.sum()
 
+
+
+def weighted_masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                  class_weights: torch.Tensor | None = None,
+                                  ignore_index: int = -1) -> torch.Tensor:
+    """Mean weighted CE over targets != ``ignore_index``: a scalar f32,
+    ``nn.CrossEntropyLoss(ignore_index=-1, weight=w)``'s value, the sums
+    divided by the weights' sum floored at f32's smallest normal (0, not
+    NaN, for a batch whose every target is ignored)."""
+    total, denom = cross_entropy_sums(logits, labels, class_weights,
+                                      ignore_index)
+    return total / denom.clamp_min(torch.finfo(torch.float32).tiny)

@@ -182,7 +182,7 @@ def voxel_rows(points: torch.Tensor, mask: torch.Tensor, grid_size: int):
     occupancy 1 and the count 1, masked rows zero, and the box (lo,
     scale)."""
     feats = points[..., 3:].float()
-    ones = torch.ones_like(feats[..., :1])
+    ones = feats.new_ones(feats.shape[:-1] + (1,))
     flat, lo, scale = voxel_indices(points[..., :3].float(), mask, grid_size)
     ext = torch.cat([feats, ones, ones], dim=-1)
     ext = torch.where(mask[..., None], ext, torch.zeros_like(ext))
@@ -190,17 +190,22 @@ def voxel_rows(points: torch.Tensor, mask: torch.Tensor, grid_size: int):
 
 
 def voxelize(points: torch.Tensor, mask: torch.Tensor, grid_size: int,
-             impl: str = "scatter", matmul_dtype=torch.bfloat16, *,
+             feature_dim: int | None = None, impl: str = "scatter",
+             matmul_dtype=torch.bfloat16, *,
              plain: bool = False) -> VoxelGrid:
     """Scatter-mean point features into an R^3 grid (f32).
 
-    points (B, M, 3+F): the features are columns 3: plus a constant-1
-    occupancy channel, so C = F + 1; a ones column beside them counts the
-    points. "scatter" sums in f32; "matmul" rounds the features to
-    ``matmul_dtype`` first (bf16: ``voxelize_contract``; f32: exact), as
-    the JAX one-hot contraction does; counts are exact in both. The mean
-    divides in f32.
+    points (B, M, 3+F): the features are columns 3: (the first
+    ``feature_dim`` of them, where given) plus a constant-1 occupancy
+    channel, so C = F + 1; a ones column beside them counts the points.
+    "scatter" sums in f32; "matmul" rounds the features to
+    ``matmul_dtype`` first (bf16: ``voxelize_contract`` on C + 1 columns;
+    f32: exact), as the JAX one-hot contraction does; counts are exact in
+    both. The mean divides in f32.
     """
+    if feature_dim is not None:
+        points = torch.cat([points[..., :3],
+                            points[..., 3:][..., :feature_dim]], dim=-1)
     b = points.shape[0]
     flat, ext, lo, scale = voxel_rows(points, mask, grid_size)
     c = ext.shape[-1] - 1

@@ -125,3 +125,44 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
                                            "(.|\\n)*error"):
         _build.build_host("collate")
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+@pytest.mark.parametrize("drop_last, by_length, window", [
+    (False, True, 1), (True, True, 4), (True, True, 32), (False, False, 32),
+    (True, False, 32)], ids=["window1", "drop_last_window4", "drop_last",
+                             "unsorted", "unsorted_drop_last"])
+def test_batcher_options_match_jax(drop_last, by_length, window):
+    """``drop_last``, ``bucket_by_length`` and ``window_batches``: two
+    shuffled epochs, packer and numpy, bit for bit against the JAX
+    batcher's batches."""
+    events = list(synthetic_events(70, min_points=10, max_points=400,
+                                   seed=5))
+
+    class Events:
+        def __len__(self):
+            return len(events)
+
+        def __getitem__(self, i):
+            return events[i]
+
+        def num_points(self, i):
+            return events[i][0].shape[0]
+
+    kw = dict(buckets=(128, 256, 512), shuffle=True, seed=2,
+              drop_last=drop_last, bucket_by_length=by_length,
+              window_batches=window)
+    fast = BucketBatcher(Events(), 4, **kw)
+    plain = BucketBatcher(Events(), 4, use_native=False, **kw)
+    jax = jax_batching.BucketBatcher(Events(), 4, **kw)
+    n = 17 if drop_last else 18
+    assert len(fast) == len(plain) == len(jax) == n
+    native.reset_calls()
+    for _ in range(2):
+        got, want, ref = list(fast), list(plain), list(jax)
+        assert len(got) == len(want) == len(ref) == n
+        for a, b, c in zip(got, want, ref):
+            for x, y, z in zip(a, b, c):
+                assert x.dtype == y.dtype == z.dtype
+                assert x.tobytes() == y.tobytes() == z.tobytes()
+    assert native.CALLS == {"pack_batch": 2 * n, "pack_gather": 0,
+                            "bucket_sort_windows": 2 if by_length else 0}
