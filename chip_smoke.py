@@ -271,9 +271,35 @@
    nodes' plain versions, no launch), held as kernels to plain; and
    torch.library.opcheck of the eight pcseg:: ops on CUDA tensors at the
    arguments of a B1 x 1024 serving forward.
-24. Prints the kernels as one JSON line (with the exported replays'
-   launches), the card's name and power limit, and as the last line
-   {"ok": true, "device": {...}}.
+24. Data parallelism, one process per device (pcseg_tpu_torch/parallel/
+   mesh.py), every leg in fresh processes with a time limit and a
+   FileStore rendezvous, the kernels built by phase 1: (a) one rank on
+   NCCL (world size 1): api.fit with train.parallelism=dp of the fused
+   PointNet step (B64 x 2048) and of the default voxel U-Net (B8 x 8192,
+   64^3/w16/L3 bf16), 2 epochs each, launches a step held to phases 6 and
+   12's, the voxel checkpoint served, the PointNet fit timed beside the
+   same fit on a mesh without a process group in the same process; then
+   one data-parallel step of each against train_step in one process from
+   the same weights and batch (loss to phase 5's / 12's limit, the
+   gradient's angle and relative L2 to acos(VOX_KERNEL_COS) and
+   DP_GRAD_REL beyond the reference's own spread, taken twice, running
+   stats to PN_BN_REL), both timed; (b) two ranks on this one card over gloo
+   (NCCL takes one rank a device): the fused PointNet step (per-replica
+   BN, dropout 0.3) at 2 x B32 against its rule worked by hand in one
+   process at B64 (each half on its own copy, the global den, the
+   gradients summed); PointNetSeg "exact" with sync-BN at 2 x B32
+   against one process at B64 (dropout 0), the same with dropout 0.3
+   (row 18's launches) and, for the time its collectives take, without
+   sync-BN, beside one all-reduce of the gradient's size; the default
+   voxel step at 2 x B4 against B8 and the sparse block step at 2 x B4
+   against B8 (dropped tiles equal), held as (a), each rank's launches a
+   step held and every kernel of those paths launched on each rank, the
+   ranks' parameters equal; Predictor(mesh=...) on phase 11's events,
+   argmax agreement with one process's serving >= ARGMAX_AGREE. These
+   legs show correctness, not scaling: one card cannot show scaling.
+25. Prints the kernels as one JSON line (with the exported replays' and
+   phase 24's launches), the card's name and power limit, and as the
+   last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the last line, when there is no CUDA device or
 any phase fails.
@@ -303,6 +329,11 @@ JSON line; no result line.
     python3 chip_smoke.py --export
 
 builds the kernels and runs only phase 23, printing its readings as one
+JSON line; no result line.
+
+    python3 chip_smoke.py --dp
+
+builds the kernels and runs only phase 24, printing its readings as one
 JSON line; no result line.
 
     python3 chip_smoke.py --pointnet
@@ -1388,9 +1419,11 @@ def pn_step_compare(card, classes=PN_CLASSES, input_dim=4):
     return res
 
 
-def pn_fit(card, bn_stats, events, classes=PN_CLASSES, input_dim=4):
+def pn_fit(card, bn_stats, events, classes=PN_CLASSES, input_dim=4,
+           extra=(), mesh=None):
     """The main path: api.fit on the card (at the bench's widths, or at
-    ``classes`` / ``input_dim``). Returns (launches, result)."""
+    ``classes`` / ``input_dim``; ``extra`` overrides last; ``mesh`` to
+    api.fit). Returns (launches, result)."""
     import math
 
     import torch
@@ -1407,11 +1440,12 @@ def pn_fit(card, bn_stats, events, classes=PN_CLASSES, input_dim=4):
                  f"model.input_dim={input_dim}",
                  f"data.batch_size={PN_B}", f"data.buckets={PN_M}",
                  "train.num_epochs=2", "train.log_every_steps=0",
-                 "train.checkpoint_dir=build/chip_smoke_ckpt"]
+                 "train.checkpoint_dir=build/chip_smoke_ckpt", *extra]
     torch.cuda.reset_peak_memory_stats()
     for m in mods:
         m.reset_launches()
-    res = api.fit(events, overrides=overrides, log=lambda _: None)
+    res = api.fit(events, overrides=overrides, log=lambda _: None,
+                  mesh=mesh)
     torch.cuda.synchronize()
     launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1997,11 +2031,11 @@ def _readings_line(r) -> str:
             f"{VOX_GRAD_RATIO})")
 
 
-def vox_fit(card, default=False):
+def vox_fit(card, default=False, extra=()):
     """The main path: api.fit on the voxel family, then Predictor on its
     best checkpoint (phase 9 with the scatter/gather forms, or phase 12
-    with ``default``: no impl override). Returns (fit launches, serving
-    launches, result)."""
+    with ``default``: no impl override; ``extra`` overrides last).
+    Returns (fit launches, serving launches, result)."""
     import math
 
     import numpy as np
@@ -2029,7 +2063,7 @@ def vox_fit(card, default=False):
             f"data.buckets={VOX_M}",
             "train.checkpoint_dir=build/chip_smoke_ckpt_voxel"]
         per_step, per_forward = VOX_PER_STEP, PER_FORWARD
-    overrides += ["train.num_epochs=2", "train.log_every_steps=0"]
+    overrides += ["train.num_epochs=2", "train.log_every_steps=0", *extra]
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2147,7 +2181,7 @@ def default_batch():
     return torch.from_numpy(pts).cuda(), torch.from_numpy(mask).cuda()
 
 
-def one_kernel_a_call(fn, key, iters: int = 10, attempts: int = 3):
+def one_kernel_a_call(fn, key, iters: int = 10, attempts: int = 8):
     """(0, ok): ``iters`` warm calls of ``fn`` launch no device kernel or
     memset whose name lacks ``key``, and at most ``iters`` of those, at
     least one recorded (torch.profiler; late in a long process it drops
@@ -5782,6 +5816,504 @@ def export_phase(card):
                       "seconds": seconds, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: data parallelism, one process per device (slice 13)
+# ---------------------------------------------------------------------------
+
+# a leg of phase 24 in a fresh interpreter from the repo root: chip_smoke's
+# function argv[1] on the arguments after it (all strings), its result
+# printed as the last line, in JSON
+DP_CHILD = """
+import json, sys
+import chip_smoke
+print(json.dumps(getattr(chip_smoke, sys.argv[1])(*sys.argv[2:])))
+"""
+DP_TIMEOUT_S = 400
+DP_DIR = "build/chip_smoke_dp"
+
+
+def _dp_spawn(fn, world, tmp) -> list[dict]:
+    """``fn(rank, world, store)`` in ``world`` fresh processes at once,
+    each with a time limit; every rank's result, in rank order. A rank
+    that fails or outlives the limit fails the phase with its output; the
+    others are killed."""
+    store = os.path.join(tmp, f"store_{fn}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_CHILD, fn, str(r), str(world), store],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(timeout=DP_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{fn} rank {r} outlived "
+                                     f"{DP_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{fn} rank {r} exited {p.returncode}:\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+        lines = out.strip().splitlines()
+        # the result is the last line the leg printed; libraries (NCCL's
+        # debug output) may print after it
+        at = max(i for i, line in enumerate(lines) if line.startswith("{"))
+        for line in lines[:at] + lines[at + 1:]:
+            print(f"  [rank {r}/{world}] {line}", flush=True)
+        results.append(json.loads(lines[at]))
+    return results
+
+
+def _dp_group(backend, rank, world, store):
+    """This child's process group: a FileStore, so no port is opened; a
+    lost rank fails the others within a minute."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+
+
+def _angle_rel(g, ref) -> tuple[float, float]:
+    """(angle in radians, relative L2 distance) of the vector ``g`` to
+    ``ref``."""
+    import torch
+
+    cos = torch.clamp(g @ ref / (g.norm() * ref.norm()), -1.0, 1.0)
+    return float(torch.arccos(cos)), float((g - ref).norm() / ref.norm())
+
+
+# the data-parallel step's gradient g against the reference's g1, over the
+# held leaves as one vector, beyond the reference's own spread (g1 and a
+# second run g1', the fused backward's float atomics not being bit-stable):
+# angle(g, g1) <= angle(g1', g1) + acos(VOX_KERNEL_COS), and
+# |g - g1| / |g1| <= |g1' - g1| / |g1| + DP_GRAD_REL. Gradients averaged
+# over the ranks, or each rank's scaled by 1/n, read 0.5 at 2 ranks; the
+# angle alone cannot see a scale
+DP_GRAD_REL = 0.1
+
+
+def _one_process(model_fn, batch, cw, seeds, world):
+    """train_step on the whole batch in one process: (loss, dropped,
+    gradients, running stats, the step to time)."""
+    from pcseg_tpu_torch.train.steps import create_train_state, train_step
+
+    ref = model_fn()
+    state = create_train_state(ref)
+
+    def one():
+        return train_step(state, batch, 1e-3, seeds, cw)[1]
+
+    m = one()
+    grads = {n: p.grad.clone() for n, p in ref.named_parameters()}
+    stats = {f"{g}.{k}": v.clone() for g, st in getattr(
+        ref, "batch_stats", dict)().items() for k, v in st.items()}
+    return float(m["loss"]), int(m.get("dropped", 0)), grads, stats, one
+
+
+def _per_replica_by_hand(model_fn, batch, cw, seeds, world):
+    """The fused PointNet chain's data-parallel rule worked by hand in one
+    process: rank r's rows on copy r of the model with rank r's dropout
+    seeds, num_r / (the sum of every den) back-propagated on each, the
+    gradients summed, copy 0's running stats kept (per-replica BN). The
+    same kernels on the same rows as the ranks; what differs is where the
+    sums are taken. Returns what ``_one_process`` does."""
+    import torch
+
+    from pcseg_tpu_torch.train.steps import replica_seeds
+
+    models = [model_fn() for _ in range(world)]
+    n = batch[0].shape[0] // world
+
+    def run():
+        outs = []
+        for r, model in enumerate(models):
+            rows = slice(r * n, (r + 1) * n)
+            model.zero_grad(set_to_none=True)
+            outs.append(model.fused_train_loss(
+                batch[0][rows], batch[1][rows], cw,
+                seeds=replica_seeds(seeds, r)))
+        den = sum(o[0][1].detach() for o in outs).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        for (num, _, _), _ in outs:
+            (num / den).backward()
+        return outs, den
+
+    outs, den = run()
+    params = [dict(m.named_parameters()) for m in models]
+    grads = {k: sum(p[k].grad for p in params) for k in params[0]}
+    stats = {f"{g}.{k}": v.detach() for g, st in outs[0][1].items()
+             for k, v in st.items()}
+    loss = float(sum(o[0][0].detach() for o in outs) / den)
+    return loss, 0, grads, stats, run
+
+
+def _dp_step(mesh, card, label, model_fn, batch, cw, seeds, per_step,
+             loss_tol, sync_batchnorm=False, held=None, ref=_one_process):
+    """One train step on the mesh (this rank's rows of ``batch``) from the
+    weights ``model_fn`` seeds, its launches held to ``per_step``, timed
+    (CUDA events, 3 steps after one); with ``held`` (a name filter), on
+    rank 0 the step ``ref`` takes in one process from the same weights
+    (``_one_process``: train_step on the whole batch), twice, held to the
+    first: the loss to ``loss_tol`` relative, the gradient over ``held``
+    as DP_GRAD_REL's note says, the running stats to PN_BN_REL of their
+    largest value, the dropped tiles equal, and timed the same way."""
+    import math
+
+    import torch
+
+    from pcseg_tpu_torch.parallel.mesh import shard_batch
+    from pcseg_tpu_torch.train.steps import create_train_state, train_step
+
+    mine = shard_batch(mesh, batch)
+    model = model_fn()
+    state = create_train_state(model)
+
+    def dp():
+        return train_step(state, mine, 1e-3, seeds, cw, mesh=mesh,
+                          sync_batchnorm=sync_batchnorm)[1]
+
+    reset_counts()
+    m = dp()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    want = {k: v for k, v in per_step.items() if v}
+    if launches != want:
+        raise AssertionError(f"{label}: launches of one step on rank "
+                             f"{mesh.rank} {launches} != {want}")
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    stats = {f"{g}.{k}": v.clone() for g, st in getattr(
+        model, "batch_stats", dict)().items() for k, v in st.items()}
+    res = {"loss": float(m["loss"]), "launches": launches,
+           "dropped": int(m.get("dropped", 0)),
+           "param_sum": float(sum(p.detach().double().abs().sum()
+                                  for p in model.parameters())),
+           "dp_step_ms": time_ms(dp, iters=3)}
+    if mesh.rank == 0 and held is not None:
+        ref_loss, ref_dropped, gr, sr, one = ref(model_fn, batch, cw, seeds,
+                                                 mesh.data)
+        again = ref(model_fn, batch, cw, seeds, mesh.data)[2]
+        names = [n for n in gr if held(n)]
+        loss_rel = abs(res["loss"] - ref_loss) / abs(ref_loss)
+
+        def vec(gs):
+            return torch.cat([gs[n].flatten().double() for n in names])
+
+        g, g1 = vec(grads), vec(gr)
+        angle, grad_rel = _angle_rel(g, g1)
+        spread_angle, spread_rel = _angle_rel(vec(again), g1)
+        angle_tol = spread_angle + math.acos(VOX_KERNEL_COS)
+        rel_tol = spread_rel + DP_GRAD_REL
+        rel = {n: float((grads[n] - gr[n]).norm() / gr[n].norm().clamp_min(
+            1e-30)) for n in names}
+        bn_rel = max((float((stats[k] - sr[k]).abs().max()
+                            / sr[k].abs().max()) for k in sr), default=0.0)
+        res.update({
+            "reference": ref.__name__.strip("_"),
+            "one_process_loss": ref_loss, "loss_rel": loss_rel,
+            "loss_tol": loss_tol, "grad_cosine": math.cos(angle),
+            "grad_angle": angle, "grad_angle_tol": angle_tol,
+            "grad_rel_l2": grad_rel, "grad_rel_l2_tol": rel_tol,
+            "reference_spread_cosine": math.cos(spread_angle),
+            "reference_spread_rel_l2": spread_rel,
+            "grad_norm_ratio": float(g.norm() / g1.norm()),
+            "grad_rel_l2_max": max(rel.values()),
+            "grad_rel_l2_worst": max(rel, key=rel.get),
+            "batch_stats_rel": bn_rel,
+            "one_process_dropped": ref_dropped,
+            "one_process_step_ms": time_ms(one, iters=3), "card": card})
+        ok = (loss_rel <= loss_tol and angle <= angle_tol
+              and grad_rel <= rel_tol and bn_rel <= PN_BN_REL
+              and res["dropped"] == res["one_process_dropped"])
+        print(f"{label}: {mesh.data} rank(s) {res['loss']:.6f} vs "
+              f"{res['reference']} {ref_loss:.6f} (rel {loss_rel:.2e}, tol "
+              f"{loss_tol:.1e}); gradient cosine {math.cos(angle):.6f}, rel "
+              f"L2 {grad_rel:.3e}; the reference against itself cosine "
+              f"{math.cos(spread_angle):.6f}, rel L2 {spread_rel:.3e}; so "
+              f"angle {angle:.4f} (tol {angle_tol:.4f}), rel L2 tol "
+              f"{rel_tol:.3e}; norm ratio {res['grad_norm_ratio']:.6f}, one "
+              f"leaf's rel L2 <= {res['grad_rel_l2_max']:.3e} at "
+              f"{res['grad_rel_l2_worst']}; running stats rel {bn_rel:.2e}; "
+              f"dropped {res['dropped']} / {res['one_process_dropped']}; "
+              f"step {res['dp_step_ms']:.2f} ms a rank, "
+              f"{res['one_process_step_ms']:.2f} ms {res['reference']} "
+              f"[{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: the data-parallel step "
+                                 f"disagrees with {res['reference']}: {res}")
+    return res
+
+
+def _pn_model(dtype="bfloat16", bn_stats="fused", dropout=PN_DROP):
+    import torch
+
+    from pcseg_tpu_torch.models.pointnet import PointNetSeg
+
+    return PointNetSeg(PN_CLASSES, dropout=dropout, bn_stats=bn_stats,
+                       compute_dtype=dtype,
+                       generator=torch.Generator().manual_seed(0)).cuda()
+
+
+def _pn_step_batch():
+    import torch
+
+    (pts, labels, masks), cw = pn_batch(5)
+    return (tuple(torch.from_numpy(a).cuda() for a in (pts, labels, masks)),
+            torch.from_numpy(cw).cuda())
+
+
+def _vox_step_batch():
+    import numpy as np
+    import torch
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.class_stats import scan_classes
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+
+    events = list(synthetic_events(VOX_B, min_points=4000, max_points=VOX_M,
+                                   seed=5))
+    cw = torch.from_numpy(np.asarray(scan_classes(events).weights)).cuda()
+    return tuple(torch.from_numpy(a).cuda() for a in pad_events(
+        events, VOX_M, batch_size=VOX_B)), cw
+
+
+def _not_pn_zero(n):
+    return n not in PN_ZERO_GRAD
+
+
+def _conv_kernel(n):
+    return n.endswith(".kernel")
+
+
+def dp_leg_nccl(rank, world, store):
+    """Phase 24 (a), one process on NCCL at world size 1: api.fit with
+    train.parallelism=dp (the fused PointNet step, the default voxel
+    U-Net), then one data-parallel step of each against train_step in one
+    process."""
+    import torch.distributed as dist
+
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+    from pcseg_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    _dp_group("nccl", int(rank), int(world), store)
+    try:
+        card = card_line()
+        mesh = make_mesh()
+        extra = ("train.parallelism=dp",
+                 "train.checkpoint_dir=build/chip_smoke_ckpt_dp")
+        events = list(synthetic_events(5 * PN_B, min_points=1100,
+                                       max_points=PN_M, seed=3))
+        # the dp fit beside the same fit on a mesh with no process group
+        # (no collective), in turns in this one process
+        alone = Mesh(data=1, rank=0, device=mesh.device, distributed=False)
+        pn_launches, pn_fitted = pn_fit(card, "fused", events, extra=extra)
+        fit_ms = {"dp": [pn_fitted["ms_per_step"]], "no_group": []}
+        for m, key in ((alone, "no_group"), (None, "dp"),
+                       (alone, "no_group")):
+            fit_ms[key].append(pn_fit(card, "fused", events, extra=extra,
+                                      mesh=m)[1]["ms_per_step"])
+        print(f"fused PointNet api.fit, ms a step (epoch 2, host clock) in "
+              f"turns in this process: dp on NCCL {fit_ms['dp']}, the same "
+              f"mesh without a process group {fit_ms['no_group']} [{card}]",
+              flush=True)
+        vox_launches, vox_served, vox_fitted = vox_fit(
+            card, default=True, extra=(
+                "train.parallelism=dp",
+                "train.checkpoint_dir=build/chip_smoke_ckpt_dp_default"))
+        batch, cw = _pn_step_batch()
+        pn_step = _dp_step(mesh, card, "fused PointNet step", _pn_model,
+                           batch, cw, (11, 22), PN_FUSED_PER_STEP,
+                           PN_LOSS_REL, held=_not_pn_zero)
+        batch, cw = _vox_step_batch()
+        vox_step = _dp_step(mesh, card, "default voxel step",
+                            lambda: vox_model(default=True), batch, cw,
+                            (0, 0), DEFAULT_PER_STEP, DEFAULT_LOSS_REL,
+                            held=_conv_kernel)
+        launches = {k: pn_launches.get(k, 0) + vox_launches.get(k, 0)
+                    + vox_served.get(k, 0) for k in launch_counts()}
+        return {"backend": dist.get_backend(), "world": mesh.data,
+                "pointnet_fit": pn_fitted, "pointnet_fit_ms": fit_ms,
+                "default_fit": vox_fitted,
+                "pointnet_step": pn_step, "default_step": vox_step,
+                "launches": launches, "card": card}
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_leg_gloo(rank, world, store):
+    """Phase 24 (b), one of two ranks on the one card over gloo: the fused
+    PointNet step against its rule worked by hand in one process, PointNet
+    "exact" with sync-BN, the default voxel step and the sparse block step
+    on this rank's half of the batch, each against one process on the
+    whole batch (rank 0), one sync-BN step with dropout (row 18), the
+    exact step without sync-BN and one gradient all-reduce (their times),
+    and Predictor(mesh=...) against one process's serving."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pcseg_tpu_torch.data.batching import pad_events
+    from pcseg_tpu_torch.data.synthetic import synthetic_events
+    from pcseg_tpu_torch.infer import Predictor
+    from pcseg_tpu_torch.parallel.mesh import make_mesh
+    from pcseg_tpu_torch.profile_serving import sparse_model
+    from pcseg_tpu_torch.profile_training import sparse_batch
+
+    _dp_group("gloo", int(rank), int(world), store)
+    try:
+        card = card_line()
+        mesh = make_mesh()
+        out = {"backend": dist.get_backend(), "world": mesh.data,
+               "rank": mesh.rank, "device": str(mesh.device), "card": card}
+        total = {}
+
+        def add(launches):
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+
+        batch, cw = _pn_step_batch()
+        out["pointnet_fused"] = _dp_step(
+            mesh, card, "fused PointNet, per-replica BN, dropout 0.3",
+            _pn_model, batch, cw, (11, 22), PN_FUSED_PER_STEP, PN_LOSS_REL,
+            held=_not_pn_zero, ref=_per_replica_by_hand)
+        add(out["pointnet_fused"]["launches"])
+        out["pointnet_sync_bn"] = _dp_step(
+            mesh, card, "PointNet exact, sync-BN, dropout 0",
+            lambda: _pn_model(bn_stats="exact", dropout=0.0), batch, cw,
+            (11, 22), {}, PN_LOSS_REL, sync_batchnorm=True,
+            held=_not_pn_zero)
+        # with dropout each replica draws its own masks, so no one-process
+        # step to hold it to: the launches of row 18 and the ranks' state
+        out["pointnet_sync_bn_dropout"] = _dp_step(
+            mesh, card, "PointNet exact, sync-BN, dropout 0.3",
+            lambda: _pn_model(bn_stats="exact"), batch, cw, (11, 22),
+            PN_EXACT_PER_STEP, None, sync_batchnorm=True)
+        add(out["pointnet_sync_bn_dropout"]["launches"])
+        # where a synced step's time goes: the same step without sync-BN
+        # (no BN collective), and one all-reduce of the gradient's size
+        out["pointnet_exact_replica"] = _dp_step(
+            mesh, card, "PointNet exact, per-replica BN, dropout 0",
+            lambda: _pn_model(bn_stats="exact", dropout=0.0), batch, cw,
+            (11, 22), {}, None)
+        flat = torch.zeros(sum(p.numel() for p in _pn_model().parameters()),
+                           device=mesh.device)
+        out["gradient_all_reduce_ms"] = time_ms(
+            lambda: mesh.all_reduce_(flat), iters=3)
+        if mesh.rank == 0:
+            print(f"PointNet exact step a rank: sync-BN "
+                  f"{out['pointnet_sync_bn']['dp_step_ms']:.2f} ms, "
+                  f"per-replica BN "
+                  f"{out['pointnet_exact_replica']['dp_step_ms']:.2f} ms; "
+                  f"one all-reduce of the {flat.numel()} gradient floats "
+                  f"{out['gradient_all_reduce_ms']:.2f} ms [{card}]",
+                  flush=True)
+        batch, cw = _vox_step_batch()
+        out["default_step"] = _dp_step(
+            mesh, card, "default voxel step", lambda: vox_model(default=True),
+            batch, cw, (0, 0), DEFAULT_PER_STEP, DEFAULT_LOSS_REL,
+            held=_conv_kernel)
+        add(out["default_step"]["launches"])
+        batch = tuple(torch.from_numpy(a).cuda() for a in pad_events(
+            sparse_batch(SP_B, SP_M), SP_M, batch_size=SP_B))
+        out["sparse_step"] = _dp_step(
+            mesh, card, "sparse block step", lambda: sparse_model().cuda(),
+            batch, torch.ones(4, device=mesh.device), (0, 0), SP_PER_STEP,
+            SP_LOSS_REL, held=_conv_kernel)
+        add(out["sparse_step"]["launches"])
+
+        # [11]'s serving: 16 events in two batches of 8, one event alone
+        model = vox_model(default=True)
+        events = [p for p, _ in synthetic_events(
+            16, min_points=4000, max_points=8192, seed=0)]
+        single = next(iter(synthetic_events(
+            1, min_points=1000, max_points=1000, seed=1)))[0]
+        pred = Predictor(model.state_dict(), 4, model=model, mesh=mesh)
+        reset_counts()
+        preds = pred.predict_batch(events, batch_size=8) + [
+            pred.predict(single)]
+        torch.cuda.synchronize()
+        served = {k: v for k, v in launch_counts().items() if v}
+        want = {k: 3 * v for k, v in DEFAULT_PER_FORWARD.items()}
+        if served != want:
+            raise AssertionError(f"Predictor(mesh) rank {mesh.rank}: "
+                                 f"launches {served} != {want}")
+        add(served)
+        out["serving"] = {"launches": served}
+        if mesh.rank == 0:
+            one = Predictor(model.state_dict(), 4, model=model)
+            ref = one.predict_batch(events, batch_size=8) + [
+                one.predict(single)]
+            agree = float(np.mean(np.concatenate(
+                [a == b for a, b in zip(preds, ref)])))
+            out["serving"]["argmax_agreement"] = agree
+            print(f"Predictor(mesh=...) on {len(events)} + 1 events: "
+                  f"argmax agreement with one process {agree:.6f} (limit "
+                  f"{ARGMAX_AGREE}); launches a rank {served} [{card}]",
+                  flush=True)
+            if agree < ARGMAX_AGREE:
+                raise AssertionError(f"Predictor(mesh): agreement {agree}")
+        out["launches"] = {k: total.get(k, 0) for k in launch_counts()}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase(card):
+    """Phase 24: (a) one rank on NCCL, (b) two ranks on the one card over
+    gloo, each leg in fresh processes with a time limit. Returns (launches
+    by path, readings)."""
+    os.makedirs(DP_DIR, exist_ok=True)
+    import tempfile
+
+    tmp = tempfile.mkdtemp(dir=DP_DIR)
+    t0 = time.perf_counter()
+    (nccl,) = _dp_spawn("dp_leg_nccl", 1, tmp)
+    t1 = time.perf_counter()
+    gloo = _dp_spawn("dp_leg_gloo", 2, tmp)
+    t2 = time.perf_counter()
+    if nccl["backend"] != "nccl" or nccl["world"] != 1:
+        raise AssertionError(f"(a) ran on {nccl['backend']} at world "
+                             f"{nccl['world']}")
+    if [g["backend"] for g in gloo] != ["gloo"] * 2:
+        raise AssertionError("(b) did not run on gloo")
+    for key in ("pointnet_fused", "pointnet_sync_bn",
+                "pointnet_sync_bn_dropout", "pointnet_exact_replica",
+                "default_step", "sparse_step"):
+        if len({g[key]["param_sum"] for g in gloo}) != 1 or \
+                len({g[key]["loss"] for g in gloo}) != 1:
+            raise AssertionError(f"(b) {key}: the ranks disagree")
+    # every kernel of those paths launched on each rank
+    need = {k for k, v in {**DEFAULT_PER_STEP, **SP_PER_STEP,
+                           **PN_FUSED_PER_STEP, **PN_EXACT_PER_STEP}.items()
+            if v}
+    for g in gloo:
+        missing = sorted(k for k in need if not g["launches"].get(k))
+        if missing:
+            raise AssertionError(f"(b) rank {g['rank']}: never launched "
+                                 f"{missing}")
+    paths = {"dp_nccl_fit": nccl["launches"],
+             **{f"dp_gloo_rank{g['rank']}": g["launches"] for g in gloo}}
+    res = {"nccl_world1": nccl, "gloo_2_ranks": gloo,
+           "nccl_seconds": t1 - t0, "gloo_seconds": t2 - t1,
+           "note": "correctness on one card, not scaling: both gloo ranks "
+                   "share the card and their collectives go through the "
+                   "host", "card": card}
+    print(f"  (a) NCCL, world size 1: {t1 - t0:.1f} s; (b) gloo, 2 ranks "
+          f"on {gloo[0]['device']}: {t2 - t1:.1f} s. These legs show "
+          f"correctness, not scaling: one card cannot show scaling (both "
+          f"ranks share it and gloo's collectives go through the host) "
+          f"[{card}]", flush=True)
+    return paths, res
+
+
 def _mma_fields(at, cases) -> dict:
     """The tensor-core rows' device times at the row's shape and each
     case's (device ms, library device ms, bound ms) beside them, keyed by
@@ -5885,6 +6417,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--export"]:
         print(json.dumps({"card": card, "export": export_phase(card)[1]}))
+        return 0
+    if sys.argv[1:2] == ["--dp"]:
+        print(json.dumps({"card": card, "dp": dp_phase(card)[1]}))
         return 0
     if sys.argv[1:2] == ["--pointnet"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6052,7 +6587,16 @@ def main() -> int:
           f"opcheck of the eight ops [{card}]", flush=True)
     exp_launches, exported = export_phase(card)
 
-    print(f"[24] the kernels and the result [{card}]", flush=True)
+    print(f"[24] data parallelism, one process per device: (a) api.fit with "
+          f"train.parallelism=dp on NCCL at world size 1 (the fused "
+          f"PointNet step, the default voxel U-Net) and one step of each "
+          f"against one process; (b) two ranks on this card over gloo: "
+          f"PointNet exact with sync-BN, the default voxel step and the "
+          f"sparse block step against one process, Predictor(mesh=...) "
+          f"[{card}]", flush=True)
+    dp_launches, dp = dp_phase(card)
+
+    print(f"[25] the kernels and the result [{card}]", flush=True)
     main_case = {
         "conv3x3_gn_act": ("act", "B8 64^3x16->64^3x16"),
         "down2x_gn_act": ("act", "B8 64^3x16->32^3x32"),
@@ -6257,7 +6801,8 @@ def main() -> int:
              "pointnet_serving": pns_launches,
              "files_pointnet_fit": files_pn, "files_voxel_fit": files_vox,
              "files_fixture_fit": fix_pn,
-             "files_voxelize_feature_dim0": files_vox0, **impl_paths}
+             "files_voxelize_feature_dim0": files_vox0, **impl_paths,
+             **dp_launches}
     for name, label, keys in (
             ("fused_global_pool", "pointnet global",
              ("fused_pool", "fused_pool_bwd")),
@@ -6295,6 +6840,18 @@ def main() -> int:
             if got.get(key):
                 row["launches_by_path"][f"exported_{label}"] = got[key]
                 row["launches"] += got[key]
+    # the data-parallel legs (phase 24) run the rows of their paths on
+    # every rank; a PointNet row counts its backward launches too, as above
+    for row in kernels:
+        name = row["name"]
+        keys = ((name, f"{name}_bwd") if name in pn_main else
+                (MMA_KEY.get(name, name),) if name in main_case
+                or name in vox_main else (name,))
+        for label, got in dp_launches.items():
+            n = sum(got.get(k, 0) for k in keys)
+            if n:
+                row["launches_by_path"][label] = n
+                row["launches"] += n
     print(json.dumps({"cases": cases, "serving": served,
                       "pointnet_cases": pn_cases, "row15_step": pn_sums,
                       "pointnet_step": step,
@@ -6316,7 +6873,8 @@ def main() -> int:
                       "r128_step": r128, "r128_level0": r128_l0,
                       "r128_fit": r128_fitted,
                       "r256_step": r256, "files": files,
-                      "sparse_impls": impls, "export": exported}))
+                      "sparse_impls": impls, "export": exported,
+                      "dp": dp}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,14 @@ from a checkpoint it wrote with ``resume_from`` (usually
 metrics of a checkpoint on labelled events or files; and serving, through
 ``predictor`` / ``predict``, of a checkpoint of any of the three families
 in the port's format (the best checkpoint ``fit`` wrote), a JAX
-checkpoint directory, or the reference's ``best_model.pth``."""
+checkpoint directory, or the reference's ``best_model.pth``. ``fit`` and
+``evaluate`` run data-parallel over a ``parallel.mesh.Mesh`` (one process
+per device; ``evaluate``'s default mesh spans the process group, as the
+JAX one spans every device)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -17,18 +21,18 @@ import torch
 
 from pcseg_tpu_torch.ckpt.checkpoint import load_checkpoint, load_train_state
 from pcseg_tpu_torch.core.config import Config, apply_overrides
-from pcseg_tpu_torch.core.device import resolve_device
 from pcseg_tpu_torch.data.batching import DEFAULT_BUCKETS, BucketBatcher
 from pcseg_tpu_torch.data.hdf5 import PointCloudDataset
 from pcseg_tpu_torch.infer import Predictor
 from pcseg_tpu_torch.models.factory import build_model
 from pcseg_tpu_torch.ops.metrics import f1_from_confusion
+from pcseg_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from pcseg_tpu_torch.train.loop import (
     TrainResult,
     _run_epoch_eval,
     train_model,
 )
-from pcseg_tpu_torch.train.steps import TrainState
+from pcseg_tpu_torch.train.steps import TrainState, eval_step
 
 
 class ArrayDataset:
@@ -52,7 +56,7 @@ def fit(events: Sequence[tuple[np.ndarray, np.ndarray]] | None = None, *,
         data_path: str | None = None, label_path: str | None = None,
         config: Config | None = None, overrides: Sequence[str] = (),
         resume_from: str | None = None, device=None,
-        log=print) -> TrainResult:
+        log=print, mesh=None) -> TrainResult:
     """Train on in-memory (points (N, D), labels (N,)) events or, with no
     ``events``, on the HDF5 event files ``data_path`` / ``label_path``
     (the config's ``data.data_path`` / ``data.label_path`` where not
@@ -63,24 +67,26 @@ def fit(events: Sequence[tuple[np.ndarray, np.ndarray]] | None = None, *,
     checkpoint a run wrote (usually ``<checkpoint_dir>/latest.pt``) to
     continue from: the parameters, Adam's state and step, the epoch
     counter and the best-model selection state all restore. ``device``:
-    None for CUDA, ``"cpu"`` for the plain versions."""
+    None for CUDA, ``"cpu"`` for the plain versions. ``mesh``: the data
+    axis to train over (``train_model``; None builds it from the config's
+    ``train.*`` fields)."""
     cfg = config or Config()
     apply_overrides(cfg, overrides)
     if events is not None:
         return train_model(cfg, ArrayDataset(events), device=device,
-                           resume_from=resume_from, log=log)
+                           resume_from=resume_from, log=log, mesh=mesh)
     with PointCloudDataset(data_path or cfg.data.data_path,
                            label_path or cfg.data.label_path,
                            feature_dim=cfg.model.input_dim) as ds:
         return train_model(cfg, ds, device=device, resume_from=resume_from,
-                           log=log)
+                           log=log, mesh=mesh)
 
 
 def evaluate(checkpoint_path: str,
              events: Sequence[tuple[np.ndarray, np.ndarray]] | None = None,
              *, data_path: str | None = None, label_path: str | None = None,
              batch_size: int = 64, buckets: Sequence[int] = DEFAULT_BUCKETS,
-             device=None) -> dict:
+             device=None, mesh=None) -> dict:
     """A checkpoint (the port's of any family, or a JAX checkpoint
     directory) on labelled events, or on the HDF5 event files
     ``data_path`` / ``label_path`` (closed after use): {loss, accuracy,
@@ -89,8 +95,11 @@ def evaluate(checkpoint_path: str,
     the run stored, ones for a checkpoint without them; ``dropped``: the
     sparse family's occupied tiles beyond its capacities over the events,
     0 elsewhere). ``device``: None for CUDA, ``"cpu"`` for the plain
-    versions."""
-    dev = resolve_device(device)
+    versions. ``mesh``: the data axis the batches are split over (None:
+    the process group's, one rank without one); every rank returns the
+    same metrics."""
+    mesh = mesh or make_mesh(MeshSpec(), device=device)
+    dev = mesh.device
     state_dict, num_classes, model_cfg = load_checkpoint(checkpoint_path)
     _, meta = load_train_state(checkpoint_path)
     model = build_model(model_cfg, num_classes)
@@ -103,10 +112,11 @@ def evaluate(checkpoint_path: str,
                                  feature_dim=model_cfg.input_dim))
     try:
         batcher = BucketBatcher(dataset, batch_size, buckets=buckets,
-                                feature_dim=model_cfg.input_dim)
+                                feature_dim=model_cfg.input_dim,
+                                shard=(mesh.rank, mesh.data))
         loss, acc, cm, dropped = _run_epoch_eval(
             TrainState(model=model, optimizer=None), batcher, cw,
-            num_classes, dev)
+            num_classes, dev, functools.partial(eval_step, mesh=mesh))
     finally:
         if events is None:
             dataset.close()

@@ -17,12 +17,19 @@
 Each prints one JSON line last, as the JAX commands do. ``train``,
 ``infer``, ``eval`` and ``export`` run on CUDA unless given ``--device
 cpu`` (the plain versions), and refuse to start without a card otherwise.
-The JAX package's ``bench`` is not ported (ROADMAP A6).
+``train`` and ``eval`` run data-parallel, one process per device, under
+``torchrun --nproc-per-node N -m pcseg_tpu_torch.cli train ...
+train.parallelism=dp`` (or with ``train.coordinator_address`` /
+``num_processes`` / ``process_id``): they join the launcher's process
+group, every rank trains or evaluates its rows of each batch, and rank 0
+alone prints and writes. The JAX package's ``bench`` is not ported
+(ROADMAP A6).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -35,6 +42,27 @@ from pcseg_tpu_torch.core.device import resolve_device
 def _device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
                    help="'cpu' for the plain versions (default: CUDA)")
+
+
+@contextlib.contextmanager
+def _process_group(device, t_cfg):
+    """Join the process group of ``train.coordinator_address`` or of the
+    launcher (torchrun), as ``train_model`` does, and leave it at the end
+    if this call joined it; yields whether this process prints (rank 0,
+    or the only process)."""
+    import torch.distributed as dist
+
+    from pcseg_tpu_torch.parallel.mesh import (
+        init_from_config,
+        shutdown_distributed,
+    )
+
+    joined = init_from_config(t_cfg, device)
+    try:
+        yield not dist.is_initialized() or dist.get_rank() == 0
+    finally:
+        if joined:
+            shutdown_distributed()
 
 
 def cmd_train(args) -> int:
@@ -53,7 +81,10 @@ def cmd_train(args) -> int:
     if resume_from == "auto":
         candidate = latest_path(cfg.train.checkpoint_dir)
         resume_from = candidate if os.path.isfile(candidate) else None
-    result = fit(config=cfg, resume_from=resume_from, device=args.device)
+    with _process_group(args.device, cfg.train) as lead:
+        result = fit(config=cfg, resume_from=resume_from, device=args.device)
+    if not lead:
+        return 0
     print(json.dumps({"best_epoch": result.best_epoch,
                       "best_f1_target": result.best_f1_target,
                       "best_val_loss": result.best_val_loss,
@@ -90,10 +121,12 @@ def cmd_infer(args) -> int:
 def cmd_eval(args) -> int:
     from pcseg_tpu_torch.api import evaluate
 
-    m = evaluate(args.checkpoint, data_path=args.data,
-                 label_path=args.labels, device=args.device)
-    m.pop("confusion")
-    print(json.dumps(m))
+    with _process_group(args.device, Config().train) as lead:
+        m = evaluate(args.checkpoint, data_path=args.data,
+                     label_path=args.labels, device=args.device)
+    if lead:
+        m.pop("confusion")
+        print(json.dumps(m))
     return 0
 
 

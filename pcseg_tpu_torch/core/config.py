@@ -2,13 +2,15 @@
 (pcseg_tpu/core/config.py) with the fields the port reads, under the same
 names, defaults and meanings.
 
-Ported: the ``ModelConfig`` fields of the three families, and the parts
-of ``DataConfig``, ``OptimConfig`` and ``TrainConfig`` that a one-device
-training run reads: the HDF5 event files and the prefetch depth, resume's
-'latest' checkpoints, the metrics log, the profiler trace and
-``debug_nans`` among them, and ``Config.to_json`` / ``from_dict``. Not
-yet: parallel strategies. The fields default as the JAX package's do: ``voxelize_impl`` and ``devox_impl`` "auto", which at
-64^3 in bf16 resolve to the one-hot matmul voxelize/devoxelize forms;
+Ported: the ``ModelConfig`` fields of the three families, every field of
+``DataConfig``, ``OptimConfig`` and ``TrainConfig`` (the HDF5 event files
+and the prefetch depth, resume's 'latest' checkpoints, the metrics log,
+the profiler trace, ``debug_nans``, and the seven parallel fields, of
+which ``parallelism="dp"`` runs: parallel/mesh.py), and ``Config.to_json``
+/ ``from_dict``, which loads a JAX-written config whole. The fields
+default as the JAX package's do: ``voxelize_impl`` and ``devox_impl``
+"auto", which at 64^3 in bf16 resolve to the one-hot matmul
+voxelize/devoxelize forms;
 ``impl`` "block", the sparse family's block impl, which the voxel family
 reads as "auto" (the fused core in bf16).
 """
@@ -111,6 +113,29 @@ class TrainConfig:
     # also write the 'latest' checkpoint (the resume target) every N
     # epochs, after selection; 0 = only the best-model checkpoint
     save_latest_every: int = 1
+    # Parallelism: number of ranks on the mesh 'data' axis (0 = all the
+    # processes of the group; parallel/mesh.py, one process per device).
+    data_parallel: int = 0
+    # Mesh 'model' axis size (1 = no model parallelism; above 1 raises
+    # until sp / tp / gp are ported, ROADMAP A9b-A9d).
+    model_parallel: int = 1
+    # Training strategy over the (data, model) mesh: "dp" (the batch over
+    # 'data', the reference's DataParallel) runs; "sp", "tp" and "gp" (the
+    # JAX package's point-axis, Megatron and depth-sharded strategies)
+    # raise NotImplementedError.
+    parallelism: str = "dp"
+    # Multi-node bring-up: a non-empty address ("host:port", or an
+    # init_method URL such as "env://" or "file://...") makes train_model
+    # call torch.distributed.init_process_group before any device query
+    # (parallel/mesh.py initialize_distributed); under torchrun the env://
+    # variables give it. num_processes=0 / process_id=-1: from the
+    # launcher's WORLD_SIZE / RANK.
+    coordinator_address: str = ""
+    num_processes: int = 0
+    process_id: int = -1
+    # Per-replica BN running stats (DataParallel semantics: replica 0's
+    # are kept) vs cross-replica synced BN batch statistics.
+    sync_batchnorm: bool = False
     # raise FloatingPointError at the first non-finite loss or gradient
     # (one host sync a step)
     debug_nans: bool = False
@@ -140,9 +165,8 @@ class Config:
         """The defaults with ``d``'s fields (``{section: {field:
         value}}``, as ``to_dict`` or JSON gives them) set; lists come back
         as the tuples of tuple fields. An unknown section or field raises
-        KeyError naming it, so a JAX package config, whose ``train``
-        section also holds the seven parallel fields (``data_parallel``
-        to ``sync_batchnorm``, not yet ported), raises at the first."""
+        KeyError naming it. A JAX package config (a JAX checkpoint's
+        ``meta.json`` too) loads whole: every field it writes is here."""
         cfg = cls()
         for section, values in d.items():
             sub = getattr(cfg, section, None)

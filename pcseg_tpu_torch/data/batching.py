@@ -98,6 +98,13 @@ class BucketBatcher:
     length (less padding) while staying shuffled across epochs. A short
     final batch is kept unless ``drop_last``. ``use_native``: pack and
     sort with the C++ packer (else numpy, the same batches).
+
+    ``shard=(rank, n)``: yield only rank ``rank``'s rows [rank·B/n,
+    (rank+1)·B/n) of each batch of B (``parallel.mesh``), read and packed
+    alone, padded to the bucket of the WHOLE batch, so that every rank
+    runs the point count one process would (the fused PointNet chain's
+    statistics count padded points); rows past a short final batch are
+    all-masked. B not divisible by n raises ValueError.
     """
 
     def __init__(
@@ -113,7 +120,12 @@ class BucketBatcher:
         window_batches: int = WINDOW_BATCHES,
         feature_dim: int = 4,
         use_native: bool = True,
+        shard: tuple[int, int] = (0, 1),
     ):
+        if batch_size % shard[1]:
+            raise ValueError(f"batch size {batch_size} is not divisible by "
+                             f"the mesh data axis ({shard[1]})")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.buckets = tuple(sorted(buckets))
@@ -167,16 +179,17 @@ class BucketBatcher:
         # an HDF5 dataset packs a batch straight from its files
         gather = self.use_native and hasattr(self.dataset, "pack_batch") \
             and self.dataset.feature_dim == self.feature_dim
+        rank, n = self.shard
+        rows = bs // n
         for s in range(0, stop, bs):
             idx = order[s : s + bs]
-            if gather:
-                bucket = pick_bucket(int(self._all_lengths()[idx].max()),
-                                     self.buckets)
-                yield self.dataset.pack_batch(idx, bucket, bs)
-                continue
-            events = [self.dataset[int(i)] for i in idx]
-            bucket = pick_bucket(max(e[0].shape[0] for e in events),
+            mine = idx[rank * rows : (rank + 1) * rows]
+            bucket = pick_bucket(int(self._all_lengths()[idx].max()),
                                  self.buckets)
-            yield pad_events(events, bucket, batch_size=bs,
+            if gather:
+                yield self.dataset.pack_batch(mine, bucket, rows)
+                continue
+            events = [self.dataset[int(i)] for i in mine]
+            yield pad_events(events, bucket, batch_size=rows,
                              feature_dim=self.feature_dim,
                              use_native=self.use_native)

@@ -8,7 +8,10 @@ dedicated CUDA stream with ``non_blocking=True``, an event recorded
 there; the consumer (``device_batch``) makes its stream wait on that
 event and calls ``record_stream`` so the caching allocator never hands a
 batch's memory out while the consumer's stream may still read it. On the
-CPU the place is ``torch.from_numpy``.
+CPU the place is ``torch.from_numpy``. Data-parallel, the batcher yields
+this rank's rows only (``BucketBatcher``'s ``shard``) and the place is
+this rank's device (``parallel.mesh.Mesh.device``), so each rank copies
+its slice to its own card, as JAX's ``shard_batch`` places each shard.
 
 Only native code (the packer's ctypes call, the copies) releases the GIL,
 so how much the thread gains beside a host-bound step is a measurement,
@@ -131,9 +134,10 @@ class _OnDevice:
 
 
 class DevicePlace:
-    """The H2D step of a prefetch thread for ``device``: numpy arrays ->
-    tensors on the device (see the module docstring). On the CPU the
-    arrays become tensors that share their memory."""
+    """The H2D step of a prefetch thread for ``device`` (a data-parallel
+    rank's own): numpy arrays -> tensors on the device (see the module
+    docstring). On the CPU the arrays become tensors that share their
+    memory."""
 
     def __init__(self, device: torch.device):
         self.device = device

@@ -15,6 +15,14 @@ sparse model's forward also returns its count of occupied tiles (block
 impl) or sites (gather impl) beyond the static capacity: their points
 read zero logits, so a nonzero count warns, or raises with
 ``strict_capacity=True`` (the dense impl has no capacity).
+
+Data-axis serving (``mesh``, a ``parallel.mesh.Mesh``): the JAX
+``Predictor``'s ``mesh``, one process per device. Every rank calls the
+same method on the same events; each forwards its rows of each batch
+(the batch rounded up to a multiple of the data axis with all-masked
+rows), the logits are all-gathered and the dropped counts summed, so
+every rank returns the full predictions and warns or raises alike.
+Depth-sharded serving (``gp_mesh``) is not ported yet (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -57,7 +65,9 @@ class Predictor:
     with its pool masked, which a ``bn_stats="fused"`` model refuses
     (ValueError), as in the JAX package. ``device``: None for CUDA,
     ``"cpu"`` for the plain versions. ``strict_capacity``: raise instead of
-    warning when a sparse model drops occupied tiles or sites.
+    warning when a sparse model drops occupied tiles or sites. ``mesh``:
+    serve over the data axis (the module docstring) on the mesh's device;
+    ``gp_mesh`` raises NotImplementedError.
     """
 
     def __init__(
@@ -71,8 +81,17 @@ class Predictor:
         strict_capacity: bool = False,
         fold: bool = True,
         dtype: str = "float32",
+        mesh=None,
+        gp_mesh=None,
     ):
-        self.device = resolve_device(device)
+        if gp_mesh is not None:
+            raise NotImplementedError(
+                "Predictor(gp_mesh=...): depth-sharded serving "
+                "(parallel/gp.py) is not ported yet (ROADMAP A9b)")
+        self.mesh = mesh
+        self._n_data = mesh.data if mesh is not None else 1
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {tuple(DTYPES)}, got "
                              f"{dtype!r}")
@@ -134,23 +153,38 @@ class Predictor:
         return cls(state, num_classes, **kw)
 
     @torch.no_grad()
+    def _logits_dropped(self, points: torch.Tensor, mask: torch.Tensor):
+        """(logits, the sparse model's (B,) dropped counts or None)."""
+        if self._folded is not None:
+            return pointnet_apply_folded(self._folded, points, self._dtype,
+                                         pool_mask=mask), None
+        if not self._returns_overflow:
+            return self.model(points, mask), None
+        return self.model(points, mask, return_overflow=True)
+
     def device_forward(self, points: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:
         """(B, M, D) points and (B, M) bool mask on the device -> (B, M, C)
         f32 logits there."""
-        if self._folded is not None:
-            return pointnet_apply_folded(self._folded, points, self._dtype,
-                                         pool_mask=mask)
-        if not self._returns_overflow:
-            return self.model(points, mask)
-        logits, dropped = self.model(points, mask, return_overflow=True)
-        self._check_capacity(dropped.cpu().numpy())
+        logits, dropped = self._logits_dropped(points, mask)
+        if dropped is not None:
+            self._check_capacity(dropped.cpu().numpy())
         return logits
 
     def _forward(self, pts: np.ndarray, msk: np.ndarray) -> np.ndarray:
-        points = torch.from_numpy(pts).to(self.device)
-        mask = torch.from_numpy(msk).to(self.device)
-        return self.device_forward(points, mask).cpu().numpy()
+        if self.mesh is None:
+            points = torch.from_numpy(pts).to(self.device)
+            mask = torch.from_numpy(msk).to(self.device)
+            return self.device_forward(points, mask).cpu().numpy()
+        rows = self.mesh.rows(pts.shape[0])
+        logits, dropped = self._logits_dropped(
+            torch.from_numpy(pts[rows]).to(self.device),
+            torch.from_numpy(msk[rows]).to(self.device))
+        logits = self.mesh.all_gather(logits)
+        if dropped is not None:
+            self._check_capacity(self.mesh.all_reduce_(
+                dropped.sum().reshape(1)).cpu().numpy())
+        return logits.cpu().numpy()
 
     def logits(self, points: np.ndarray) -> np.ndarray:
         """(N, D) -> (N, C) float32 logits for one event."""
@@ -158,7 +192,8 @@ class Predictor:
         n = points.shape[0]
         bucket = pick_bucket(n, self.buckets)
         pts, _, msk = pad_events([(points, np.zeros(n, np.int64))], bucket,
-                                 batch_size=1, feature_dim=self.input_dim)
+                                 batch_size=self._n_data,
+                                 feature_dim=self.input_dim)
         return self._forward(pts, msk)[0, :n]
 
     def predict(self, points: np.ndarray) -> np.ndarray:
@@ -168,7 +203,10 @@ class Predictor:
     def predict_batch(self, events: Sequence[np.ndarray],
                       batch_size: int = 8) -> list[np.ndarray]:
         """Ragged events -> per-point predictions, ``batch_size`` events
-        per forward, grouped by length so each group pads to one bucket."""
+        per forward, grouped by length so each group pads to one bucket;
+        with a mesh, ``batch_size`` rounded up to a multiple of its data
+        axis."""
+        batch_size = -(-batch_size // self._n_data) * self._n_data
         return predict_in_buckets(
             self._forward, [np.asarray(e, np.float32) for e in events],
             batch_size, self.buckets, self.input_dim)

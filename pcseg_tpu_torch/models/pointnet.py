@@ -25,9 +25,15 @@ wrapper runs its plain version, so the CPU tests drive the same chain.
 Point counts M with M % 8 != 0 take the plain path with single-pass
 statistics, as in the JAX package. ``"exact"`` (two-pass variance) and
 ``"fast"`` (single pass) run plain torch layers and the dropout kernel.
+Synced BN (``group``, a ``parallel.mesh.Mesh``) needs statistics across
+ranks, which the fused chain's kernels do not take: with it
+``bn_stats="fused"`` trains on the plain path, with a warning, as the
+JAX package routes it (its ``axis_name``).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 from torch import nn
@@ -159,11 +165,17 @@ class PointNetSeg(nn.Module):
             plain=plain)
 
     def apply(self, points, *, train: bool = False, mask=None, seeds=None,
-              plain: bool = False):
+              plain: bool = False, group=None):
         """Logits (B, M, C) f32; ``(logits, new_batch_stats)`` when
         ``train=True``. ``seeds``: two 32-bit ints for the two dropout
-        masks (needed when training with dropout)."""
-        if (self.bn_stats == "fused" and train
+        masks (needed when training with dropout). ``group``: the mesh
+        whose data axis pools the training statistics (sync-BN)."""
+        if self.bn_stats == "fused" and train and group is not None:
+            warnings.warn(
+                "sync-BN needs cross-device statistics; bn_stats='fused' "
+                "falls back to the plain path (single-pass stats) for this "
+                "configuration", stacklevel=2)
+        elif (self.bn_stats == "fused" and train
                 and points.shape[1] % 8 == 0):
             from pcseg_tpu_torch.models.pointnet_fused import (
                 pointnet_apply_fused,
@@ -177,7 +189,8 @@ class PointNetSeg(nn.Module):
             mask=mask, seeds=seeds, dropout_rate=self.dropout,
             mask_norm_and_pool=self.mask_norm_and_pool,
             compute_dtype=DTYPES[self.compute_dtype],
-            fast_bn_stats=self.bn_stats in ("fast", "fused"), plain=plain)
+            fast_bn_stats=self.bn_stats in ("fast", "fused"), plain=plain,
+            group=group)
 
     def forward(self, points, mask=None):
         """Eval-mode logits."""
@@ -189,13 +202,15 @@ def pointnet_apply(params: dict, batch_stats: dict, points: torch.Tensor, *,
                    dropout_rate: float = DROPOUT_RATE,
                    mask_norm_and_pool: bool = False,
                    compute_dtype: torch.dtype = torch.float32,
-                   fast_bn_stats: bool = False, plain: bool = False):
+                   fast_bn_stats: bool = False, plain: bool = False,
+                   group=None):
     """Forward pass on plain torch layers. points (B, M, input_dim).
 
     Statistics include padded POINTS of real events (the reference's
     behaviour) but never all-masked dummy ROWS (batch padding of a short
     final batch); ``mask_norm_and_pool`` excludes every padded position
-    from the statistics and the pool.
+    from the statistics and the pool. ``group``: the mesh of synced BN,
+    whose two-pass moments take the place of ``fast_bn_stats``.
     """
     new_bn = {}
     if mask_norm_and_pool:
@@ -211,7 +226,8 @@ def pointnet_apply(params: dict, batch_stats: dict, points: torch.Tensor, *,
         y, nb = pointwise_block(
             params[name], params[bn_name], batch_stats[bn_name], x,
             train=train, relu=relu, mask=stat_mask,
-            compute_dtype=compute_dtype, fast_stats=fast_bn_stats)
+            compute_dtype=compute_dtype, fast_stats=fast_bn_stats,
+            group=group)
         if train:
             new_bn[bn_name] = nb
         return y

@@ -9,7 +9,13 @@
   behaviour); a (B, M) mask restricts the statistics to its positions.
 
 Two variance algorithms: two-pass centred ("exact", torch's numbers) and
-single-pass E[x^2] - mu^2 ("fast", clamped at 0). The affine
+single-pass E[x^2] - mu^2 ("fast", clamped at 0). Synced BN (``group``,
+a ``parallel.mesh.Mesh``) pools the batch moments over the data axis in
+two passes whatever ``fast_stats`` says, as the JAX package's
+``axis_name`` does: one sum of (sum, count), then one of the centred
+squares, each a differentiable all-reduce (the backward all-reduces the
+cotangent). ``nn.SyncBatchNorm``'s Welford merge is other arithmetic, so
+it is not used. The affine
 ``scale``/``bias`` are parameters; ``mean``/``var`` are state that the
 caller writes back (the functions return the new state, they never
 mutate it).
@@ -67,14 +73,36 @@ def running_update(state: dict, mean: torch.Tensor, var: torch.Tensor, n):
         }
 
 
+def synced_moments(x: torch.Tensor, mask: torch.Tensor | None, group):
+    """Biased (mean, var, n) per channel over every rank's (B, M) rows;
+    x (B, M, C) f32. Two passes, as pcseg_tpu/ops/batchnorm.py's synced
+    branch: the global mean from the all-reduced (sum, count), then the
+    all-reduced centred squares."""
+    m = (mask.to(x.dtype)[..., None] if mask is not None
+         else torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device))
+    c = x.shape[-1]
+    sums = group.psum(torch.cat([(x * m).sum(dim=(0, 1)),
+                                 m.sum().reshape(1)]))
+    n = sums[c].detach().clamp_min(1.0)
+    mean = sums[:c] / n
+    var = group.psum(((x - mean).square() * m).sum(dim=(0, 1))) / n
+    return mean, var, n
+
+
 def batchnorm_train(bn_params: dict, bn_state: dict, x: torch.Tensor,
                     mask: torch.Tensor | None = None,
-                    fast_stats: bool = False):
-    """Training-mode BN. Returns (y in x's dtype, new_bn_state)."""
+                    fast_stats: bool = False, group=None):
+    """Training-mode BN. Returns (y in x's dtype, new_bn_state).
+    ``group``: None for this rank's statistics (per-replica BN, the
+    reference's DataParallel), or the mesh whose data axis pools them
+    (sync-BN)."""
     xf = x.float()
-    mean, var, n = masked_moments(xf, mask, fast=fast_stats)
-    if fast_stats:
-        var = var.clamp_min(0.0)    # E[x^2] - mu^2 can dip below 0
+    if group is not None:
+        mean, var, n = synced_moments(xf, mask, group)
+    else:
+        mean, var, n = masked_moments(xf, mask, fast=fast_stats)
+        if fast_stats:
+            var = var.clamp_min(0.0)    # E[x^2] - mu^2 can dip below 0
     inv = torch.rsqrt(var + EPS)
     y = (xf - mean) * inv * bn_params["scale"] + bn_params["bias"]
     return y.to(x.dtype), running_update(bn_state, mean, var, n)

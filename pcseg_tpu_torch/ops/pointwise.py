@@ -42,12 +42,13 @@ def pointwise_block(dense: dict, bn_params: dict, bn_state: dict,
                     x: torch.Tensor, *, train: bool, relu: bool = True,
                     mask: torch.Tensor | None = None,
                     compute_dtype: torch.dtype | None = None,
-                    fast_stats: bool = False):
-    """[1x1 conv -> BN -> ReLU]. Returns (y f32, new_bn_state or None)."""
+                    fast_stats: bool = False, group=None):
+    """[1x1 conv -> BN -> ReLU]. Returns (y f32, new_bn_state or None).
+    ``group``: the mesh of synced BN (``batchnorm_train``)."""
     y = pointwise_dense(dense, x, compute_dtype)
     if train:
         y, new_bn = batchnorm_train(bn_params, bn_state, y, mask=mask,
-                                    fast_stats=fast_stats)
+                                    fast_stats=fast_stats, group=group)
     else:
         y, new_bn = batchnorm_eval(bn_params, bn_state, y), None
     if relu:

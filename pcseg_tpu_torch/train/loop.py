@@ -1,4 +1,5 @@
-"""Epoch loop (counterpart of pcseg_tpu/train/loop.py, one device).
+"""Epoch loop (counterpart of pcseg_tpu/train/loop.py), on one device or
+data-parallel, one process per device.
 
 - class scan + weighting on the first <= ``class_scan_events`` events;
 - seeded train/val split (train = int((1 - val_fraction) * n));
@@ -36,14 +37,29 @@ The dataset is any map-style one (``api.ArrayDataset``, the HDF5
 ``data.hdf5.PointCloudDataset``). With ``data.prefetch_depth`` above 0
 both batchers run in prefetch threads (``data/prefetch.py``) that read,
 pack and copy each batch to the device ahead of the step, as the JAX
-loop does; the batches and their order do not change. Not ported yet:
-parallel strategies.
+loop does; the batches and their order do not change.
+
+Parallelism (``train.parallelism``, the JAX ``_make_strategy_*_step``):
+"dp" runs the data-parallel steps of train/steps.py over a
+``parallel.mesh.Mesh`` (``train.data_parallel`` ranks, the whole process
+group by default); "sp", "tp" and "gp" raise NotImplementedError (ROADMAP
+A9b-A9d), after the JAX family checks. ``train_model`` first calls
+``initialize_distributed`` (``train.coordinator_address``, or ``env://``
+under ``torchrun``), then builds the mesh. Every rank builds the same
+batchers from the same seeds and reads, packs and copies only its rows of
+each batch, at the whole batch's bucket (``BucketBatcher``'s ``shard``);
+the metrics it reads are the all-reduced ones, so every rank takes the
+same best-model and early-stopping decisions and ends with the same
+history and parameters. Rank 0 alone logs and writes checkpoints, the
+metrics log and the trace, and the ranks meet at a barrier after each
+write; a resume loads on every rank.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 
@@ -57,7 +73,11 @@ from pcseg_tpu_torch.ckpt.checkpoint import (
     save_checkpoint,
 )
 from pcseg_tpu_torch.core.config import Config
-from pcseg_tpu_torch.core.device import resolve_device
+from pcseg_tpu_torch.parallel.mesh import (
+    MeshSpec,
+    init_from_config,
+    make_mesh,
+)
 from pcseg_tpu_torch.data.batching import BucketBatcher
 from pcseg_tpu_torch.data.class_stats import scan_classes
 from pcseg_tpu_torch.data.prefetch import (
@@ -67,7 +87,9 @@ from pcseg_tpu_torch.data.prefetch import (
     prefetch,
 )
 from pcseg_tpu_torch.models.factory import build_model
+from pcseg_tpu_torch.models.pointnet import PointNetSeg
 from pcseg_tpu_torch.models.sparse_unet import capacity_words
+from pcseg_tpu_torch.models.voxel_unet import VoxelUNet3d
 from pcseg_tpu_torch.ops.metrics import f1_from_confusion
 from pcseg_tpu_torch.train.optim import step_lr
 from pcseg_tpu_torch.train.steps import (
@@ -108,14 +130,57 @@ def split_indices(n: int, val_fraction: float, seed: int):
     return perm[:n_train], perm[n_train:]
 
 
+# the ROADMAP items of the strategies not ported yet
+_NOT_PORTED = {"gp": "A9b", "tp": "A9c", "sp": "A9d"}
+
+
+def _not_ported(strategy, model):
+    """The JAX family checks (pcseg_tpu/train/loop.py:73-140), then
+    NotImplementedError for a strategy not ported yet; ValueError for an
+    unknown one."""
+    if strategy in ("sp", "tp") and not isinstance(model, PointNetSeg):
+        what = ("shards the point axis" if strategy == "sp"
+                else "shards the wide PointNet layers")
+        raise ValueError(f"train.parallelism={strategy!r} {what} and needs "
+                         f"model.name='pointnet_seg', got "
+                         f"{type(model).__name__}")
+    if strategy == "gp" and not isinstance(model, VoxelUNet3d):
+        raise ValueError("train.parallelism='gp' depth-shards the voxel "
+                         "grid and needs model.name='voxel_unet3d', got "
+                         f"{type(model).__name__}")
+    if strategy in _NOT_PORTED:
+        raise NotImplementedError(
+            f"train.parallelism={strategy!r} (parallel/{strategy}.py) is "
+            f"not ported yet (ROADMAP {_NOT_PORTED[strategy]}); "
+            "'dp' runs")
+    raise ValueError(f"unknown train.parallelism {strategy!r}; expected "
+                     "one of 'dp', 'sp', 'tp', 'gp'")
+
+
+def _make_strategy_train_step(strategy, model, mesh, sync_bn):
+    """The train step of ``train.parallelism``: ``step(state, batch, lr,
+    seeds, class_weights, debug_nans=) -> (state, metrics)``."""
+    if strategy != "dp":
+        _not_ported(strategy, model)
+    return functools.partial(train_step, mesh=mesh, sync_batchnorm=sync_bn)
+
+
+def _make_strategy_eval_step(strategy, model, mesh):
+    """The eval step matching ``train.parallelism``: ``step(state, batch,
+    class_weights, num_classes) -> metrics``."""
+    if strategy != "dp":
+        _not_ported(strategy, model)
+    return functools.partial(eval_step, mesh=mesh)
+
+
 def _run_epoch_train(state, batcher, lr, cw, seed, epoch, device, log,
-                     log_every=0, debug_nans=False):
+                     log_every=0, debug_nans=False, step=train_step):
     metrics = []
     for i, batch in enumerate(batcher):
         try:
-            state, m = train_step(state, device_batch(batch, device), lr,
-                                  dropout_seeds(seed, epoch, i), cw,
-                                  debug_nans=debug_nans)
+            state, m = step(state, device_batch(batch, device), lr,
+                            dropout_seeds(seed, epoch, i), cw,
+                            debug_nans=debug_nans)
         except FloatingPointError as e:
             raise FloatingPointError(f"epoch {epoch}, step {i}: {e}") \
                 from None
@@ -134,8 +199,8 @@ def _dropped(metrics) -> int:
     return sum(int(m["dropped"]) for m in metrics if "dropped" in m)
 
 
-def _run_epoch_eval(state, batcher, cw, num_classes, device):
-    metrics = [eval_step(state, device_batch(b, device), cw, num_classes)
+def _run_epoch_eval(state, batcher, cw, num_classes, device, step=eval_step):
+    metrics = [step(state, device_batch(b, device), cw, num_classes)
                for b in batcher]
     losses = [float(m["loss"]) for m in metrics]
     correct = sum(float(m["correct"]) for m in metrics)
@@ -164,14 +229,26 @@ def _selection_state(meta: dict):
 
 
 def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
-                log=print) -> TrainResult:
+                log=print, mesh=None) -> TrainResult:
     """Full training run on a map-style dataset of (points, labels)
-    events. ``device``: None for CUDA, ``"cpu"`` for the plain versions.
-    ``resume_from``: a checkpoint this function wrote (usually
-    ``<checkpoint_dir>/latest.pt``) or a JAX checkpoint directory of a
-    TrainState to continue from."""
-    dev = resolve_device(device)
+    events. ``device``: None for CUDA (this rank's card), ``"cpu"`` for
+    the plain versions. ``resume_from``: a checkpoint this function wrote
+    (usually ``<checkpoint_dir>/latest.pt``) or a JAX checkpoint directory
+    of a TrainState to continue from. ``mesh``: the data axis to train
+    over (None: ``make_mesh`` from ``train.data_parallel`` /
+    ``model_parallel`` over the process group, after
+    ``initialize_distributed``)."""
     t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.model
+    # the rendezvous before the first device query (a no-op without an
+    # address, the single-process default)
+    init_from_config(t_cfg, device)
+    if mesh is None:
+        mesh = make_mesh(MeshSpec(data=t_cfg.data_parallel,
+                                  model=t_cfg.model_parallel), device=device)
+    dev = mesh.device
+    lead = mesh.rank == 0
+    if not lead:
+        log = lambda *_: None  # noqa: E731
 
     stats = scan_classes(dataset, scan_events=d_cfg.class_scan_events,
                          target_class=t_cfg.target_class,
@@ -189,14 +266,19 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
                                        d_cfg.split_seed)
     train_batcher = BucketBatcher(
         dataset, d_cfg.batch_size, buckets=d_cfg.buckets, indices=train_idx,
-        shuffle=True, seed=d_cfg.shuffle_seed, feature_dim=m_cfg.input_dim)
+        shuffle=True, seed=d_cfg.shuffle_seed, feature_dim=m_cfg.input_dim,
+        shard=(mesh.rank, mesh.data))
     val_batcher = BucketBatcher(
         dataset, d_cfg.batch_size, buckets=d_cfg.buckets, indices=val_idx,
-        shuffle=False, feature_dim=m_cfg.input_dim)
+        shuffle=False, feature_dim=m_cfg.input_dim,
+        shard=(mesh.rank, mesh.data))
     log(f"train events: {len(train_idx)}, val events: {len(val_idx)}")
 
     model = build_model(m_cfg, num_classes,
                         generator=purpose_generator(t_cfg.seed, "params"))
+    step_fn = _make_strategy_train_step(t_cfg.parallelism, model, mesh,
+                                        t_cfg.sync_batchnorm)
+    eval_fn = _make_strategy_eval_step(t_cfg.parallelism, model, mesh)
     start_epoch, resume_meta = 0, {}
     if resume_from:
         sd, _, _ = load_checkpoint(resume_from)
@@ -212,8 +294,9 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
         log(f"resumed from {resume_from} at epoch {start_epoch}")
     cw = torch.from_numpy(class_weights).to(dev)
     ckpt_path = os.path.join(t_cfg.checkpoint_dir, t_cfg.checkpoint_name)
-    metrics_logger = MetricsLogger(t_cfg.metrics_log or None,
-                                   t_cfg.tensorboard_dir)
+    metrics_logger = MetricsLogger(
+        (t_cfg.metrics_log or None) if lead else None,
+        t_cfg.tensorboard_dir if lead else "")
 
     best_f1_target, best_val_loss, best_epoch, patience_counter = \
         _selection_state(resume_meta)
@@ -233,16 +316,16 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
             t0 = time.perf_counter()
             state.model.train()
             trace = (profile_trace(t_cfg.profile_dir)
-                     if t_cfg.profile_dir and epoch == start_epoch
+                     if t_cfg.profile_dir and epoch == start_epoch and lead
                      else contextlib.nullcontext())
             with trace:
                 train_loss, train_acc, steps, train_dropped = _run_epoch_train(
                     state, train_iter, lr, cw, t_cfg.seed, epoch, dev, log,
-                    t_cfg.log_every_steps, t_cfg.debug_nans)
+                    t_cfg.log_every_steps, t_cfg.debug_nans, step_fn)
             t_train = time.perf_counter() - t0
             state.model.eval()
             val_loss, val_acc, cm, val_dropped = _run_epoch_eval(
-                state, val_iter, cw, num_classes, dev)
+                state, val_iter, cw, num_classes, dev, eval_fn)
             if train_dropped or val_dropped:
                 what, knob = capacity_words(m_cfg.impl)
                 msg = (f"capacity overflow: {train_dropped} train / "
@@ -281,6 +364,7 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
             if improved:
                 patience_counter = 0
                 best_epoch = epoch
+            if improved and lead:
                 save_checkpoint(
                     ckpt_path, state.model.state_dict(), num_classes, m_cfg,
                     optimizer_state=state.optimizer.state_dict(),
@@ -294,13 +378,13 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
                     })
                 log(f"saved best checkpoint (f1={f1_target:.4f}) -> "
                     f"{ckpt_path}")
-            else:
+            elif not improved:
                 patience_counter += 1
                 log(f"no improvement for {patience_counter}/{t_cfg.patience} "
                     "epochs")
             # the resume target, after selection so that it holds this
             # epoch's selection state
-            if t_cfg.save_latest_every > 0 and \
+            if lead and t_cfg.save_latest_every > 0 and \
                     (epoch + 1) % t_cfg.save_latest_every == 0:
                 save_checkpoint(
                     latest_path(t_cfg.checkpoint_dir),
@@ -317,6 +401,8 @@ def train_model(cfg: Config, dataset, *, device=None, resume_from=None,
                         "best_epoch": best_epoch,
                         "patience_counter": patience_counter,
                     })
+            # no rank runs ahead of rank 0's writes
+            mesh.barrier()
             if patience_counter >= t_cfg.patience:
                 log("early stopping")
                 break

@@ -1,8 +1,8 @@
 """The port's ``Config.to_json`` / ``Config.from_dict`` against the JAX
 package's (pcseg_tpu/core/config.py): a round trip gives the config back,
-both packages write equal values for every field they share, an unknown
-field raises KeyError naming it, and a JAX-written config raises at the
-first of the seven parallel fields the port does not have yet."""
+both packages write the same fields with equal values (the seven
+parallel fields too), an unknown field raises KeyError naming it, and a
+JAX-written config loads whole."""
 
 import dataclasses
 import json
@@ -12,7 +12,7 @@ import pytest
 from pcseg_tpu.core import config as jax_config
 from pcseg_tpu_torch.core import config as port_config
 
-# the JAX TrainConfig's parallel fields (not yet in the port)
+# the JAX TrainConfig's parallel fields, which the port shares
 PARALLEL = ("data_parallel", "model_parallel", "parallelism",
             "coordinator_address", "num_processes", "process_id",
             "sync_batchnorm")
@@ -22,7 +22,8 @@ OVERRIDES = ["data.batch_size=16", "data.buckets=128,1024",
              "model.max_tiles_schedule=64,32", "model.remat=true",
              "model.dropout=0.1", "optim.lr=3e-4", "optim.lr_gamma=0.7",
              "train.checkpoint_name=run7", "train.num_epochs=5",
-             "train.metrics_log=m.jsonl"]
+             "train.metrics_log=m.jsonl", "train.data_parallel=2",
+             "train.sync_batchnorm=true"]
 
 
 def _pair(overrides=()):
@@ -46,15 +47,16 @@ def test_round_trip(overrides):
 @pytest.mark.parametrize("overrides", [[], OVERRIDES],
                          ids=["defaults", "overridden"])
 def test_to_json_matches_jax_on_shared_fields(overrides):
-    """Every field both packages have holds the same value in both JSON
-    texts, but the checkpoint name's default: the port's checkpoints are
-    ``.pt`` files (``best_model.pt``), the JAX package's directories."""
+    """Both packages write the same fields, the parallel ones included,
+    each with the same value in both JSON texts, but the checkpoint name's
+    default: the port's checkpoints are ``.pt`` files
+    (``best_model.pt``), the JAX package's directories."""
     port, jax = _pair(overrides)
     mine, theirs = json.loads(port.to_json()), json.loads(jax.to_json())
     assert mine.keys() == theirs.keys()
+    assert set(PARALLEL) <= set(mine["train"])
     for section in mine:
-        extra = set(theirs[section]) - set(mine[section])
-        assert extra == (set(PARALLEL) if section == "train" else set())
+        assert set(theirs[section]) == set(mine[section]), section
         for k, v in mine[section].items():
             if not overrides and k == "checkpoint_name":
                 assert (v, theirs[section][k]) == ("best_model.pt",
@@ -64,16 +66,13 @@ def test_to_json_matches_jax_on_shared_fields(overrides):
 
 
 def test_from_dict_of_a_jax_config():
-    """A JAX-written JSON raises at the first parallel field; without the
-    seven, it loads to the JAX values."""
+    """A JAX-written JSON (a JAX checkpoint's ``meta.json`` config too)
+    loads whole, to the JAX values, the overridden parallel fields
+    among them."""
     _, jax = _pair(OVERRIDES)
     d = json.loads(jax.to_json())
-    with pytest.raises(KeyError, match="unknown config field "
-                                       "train.data_parallel"):
-        port_config.Config.from_dict(d)
-    for k in PARALLEL:
-        del d["train"][k]
     got = port_config.Config.from_dict(d)
+    assert got.train.data_parallel == 2 and got.train.sync_batchnorm
     for section in ("data", "model", "optim", "train"):
         for f in dataclasses.fields(getattr(got, section)):
             want = getattr(getattr(jax, section), f.name)

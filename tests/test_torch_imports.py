@@ -31,7 +31,8 @@ def test_port_imports_no_jax():
                                             "h5py", "msgpack", "pcseg_tpu"))
         assert not bad, bad
         for name in ("ops.conv3d_block", "utils.observe", "data.hdf5",
-                     "data.prefetch", "data.native", "cli", "serve"):
+                     "data.prefetch", "data.native", "cli", "serve",
+                     "parallel", "parallel.mesh"):
             assert "pcseg_tpu_torch." + name in names, name
         print(len(names))
     """)
